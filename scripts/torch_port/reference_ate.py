@@ -1,0 +1,206 @@
+"""ATE of the JAX reference on the CPU over the port's smoke sequence.
+
+    JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --preset viny [--port] [--keys 5]
+
+Builds the sequence that ``chip_smoke.py`` drives (512 scans along the
+cecum rectangle, 360 beams, odometry noise 0.01 m / 0.005 rad from
+``np.random.default_rng(0)``) with the port's datagen on the CPU, hands it
+to the reference's ``run_sequence`` as arrays, and prints the reference's
+ATE without alignment. The free-space fill is pinned to the algorithm the
+port's preset names (tiny: 'dda', viny: 'polar'). ``chip_smoke.py`` holds
+the card's ATE against the figure printed here.
+
+With ``--keys N`` the reference runs once for each of ``PRNGKey(0..N-1)``
+(the matcher's noise; the sequence stays the same), and the port runs on
+the CPU twice for each: with that key's noise chain injected, and with its
+own generator seeded ``k``. The spread shows how far a single run's ATE
+moves with the matcher's noise alone.
+
+With ``--dissect K`` the first scan at which the port (key ``K``'s noise
+injected) leaves the jitted reference by more than 1e-4 is taken apart:
+the reference's state just before it crosses to the port through
+``convert``; the port's step from that state and the reference's matcher
+run eagerly (op by op) on the same state and noise are held against the
+jitted run. Where the port and the eager reference agree and the jitted one
+differs, the edge lies between the reference's own lowerings.
+
+With ``--port`` the port also runs on the CPU (plain twins) with the
+reference's matcher noise chain injected, and the largest pose difference
+over the sequence is printed.
+
+This is a parity tool, like the tests: it imports both packages. Nothing
+it prints is a device metric.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+import time
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[2]))  # the checkout's root
+
+from chip_smoke import MAP, N_BEAMS, N_SCANS, bench_sequence  # noqa: E402  (the same sequence)
+
+FREE_IMPL = {"tiny": "dda", "viny": "polar"}
+
+
+def noise_chain(key, n_steps, rounds, batch):
+    """The reference's matcher normals: ``split(key)`` a step,
+    ``split(sub, rounds)``, ``normal(keys[r], (batch, 3))``."""
+    out = []
+    for _ in range(n_steps):
+        key, sub = jax.random.split(key)
+        keys = jax.random.split(sub, rounds)
+        out.append(np.stack([np.asarray(jax.random.normal(k, (batch, 3))) for k in keys]))
+    return np.stack(out)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--preset", choices=sorted(FREE_IMPL), default="viny")
+    ap.add_argument("--port", action="store_true", help="also run the port on the CPU")
+    ap.add_argument("--keys", type=int, default=1, help="matcher noise seeds to run")
+    ap.add_argument("--dissect", type=int, default=None, metavar="K",
+                    help="take apart the first diverging scan of key K")
+    args = ap.parse_args()
+    jax.config.update("jax_platforms", "cpu")
+    torch.set_num_threads(1)
+
+    from slam_constructor_tpu.models import engine as jeng
+    from slam_constructor_tpu.models import tiny as jtiny
+    from slam_constructor_tpu.models import viny as jviny
+    from slam_constructor_tpu.ops.scan import LaserScan as JScan
+    from slam_constructor_tpu_torch.models import engine as teng
+    from slam_constructor_tpu_torch.models import tiny as ttiny
+    from slam_constructor_tpu_torch.models import viny as tviny
+    from slam_constructor_tpu_torch.utils import evaluate
+
+    scans, odom, gt = bench_sequence("cpu")
+    jmod, tmod = {"tiny": (jtiny, ttiny), "viny": (jviny, tviny)}[args.preset]
+    jcfg = getattr(jmod, f"{args.preset}_config")(map_size=MAP)
+    jcfg = dataclasses.replace(
+        jcfg, beam=dataclasses.replace(jcfg.beam, free_impl=FREE_IMPL[args.preset]))
+    jscans = JScan(
+        ranges=jnp.asarray(scans.ranges.numpy()), bearings=jnp.asarray(scans.bearings.numpy()),
+        valid=jnp.asarray(scans.valid.numpy()),
+    )
+    state = jeng.init_state(jcfg).replace(pose=jnp.asarray(gt[0].numpy()))
+    t0 = time.perf_counter()
+    _, jtraj, jprobs = jeng.run_sequence(jcfg, state, jscans, jnp.asarray(odom.numpy()))
+    jtraj = torch.from_numpy(np.array(jtraj))
+    out = {
+        "preset": args.preset, "free_impl": FREE_IMPL[args.preset], "scans": N_SCANS,
+        "beams": N_BEAMS, "map": MAP, "backend": jax.default_backend(),
+        "reference_ate_m": float(evaluate.ate(jtraj, gt, align=False)),
+        "reference_min_prob": float(np.asarray(jprobs)[1:].min()),
+        "reference_seconds_cpu": time.perf_counter() - t0,
+    }
+    tcfg = getattr(tmod, f"{args.preset}_config")(map_size=MAP)
+    mc = tcfg.matcher_cfg
+
+    def port_run(noise=None, seed=0):
+        e = teng.Engine(tcfg, device="cpu", seed=seed)
+        e.state.pose = gt[0].clone()
+        traj, _ = e.run(scans, odom, noise=noise)
+        return traj
+
+    def pose_diff(a, b):
+        d = a - b
+        d[:, 2] = torch.atan2(torch.sin(d[:, 2]), torch.cos(d[:, 2]))  # -pi == pi
+        return d.abs().max(dim=1).values
+
+    def first_over(d, tol=1e-4):
+        """The first scan whose pose differs by more than ``tol``, or None."""
+        idx = torch.nonzero(d > tol)
+        return int(idx[0]) if idx.numel() else None
+
+    if args.port:
+        noise = noise_chain(jax.random.PRNGKey(0), N_SCANS, mc.rounds, mc.batch)
+        ttraj = port_run(torch.from_numpy(noise))
+        out["port_cpu_ate_m"] = float(evaluate.ate(ttraj, gt, align=False))
+        out["max_abs_pose_diff"] = float(pose_diff(ttraj, jtraj).max())
+    if args.keys > 1:
+        rows = []
+        for k in range(args.keys):
+            key = jax.random.PRNGKey(k)
+            chain = noise_chain(key, N_SCANS, mc.rounds, mc.batch)
+            # run_sequence donates its state, the key with it: make it anew
+            st = jeng.init_state(jcfg, jax.random.PRNGKey(k)).replace(
+                pose=jnp.asarray(gt[0].numpy()))
+            _, tr, _ = jeng.run_sequence(jcfg, st, jscans, jnp.asarray(odom.numpy()))
+            tr = torch.from_numpy(np.array(tr))
+            inj = port_run(torch.from_numpy(chain))
+            rows.append({
+                "key": k,
+                "reference_ate_m": float(evaluate.ate(tr, gt, align=False)),
+                "port_same_noise_ate_m": float(evaluate.ate(inj, gt, align=False)),
+                "port_same_noise_max_pose_diff": float(pose_diff(inj, tr).max()),
+                "port_same_noise_first_scan_over_1e-4": first_over(pose_diff(inj, tr)),
+                "port_own_generator_ate_m": float(
+                    evaluate.ate(port_run(seed=k), gt, align=False)),
+            })
+        out["by_key"] = rows
+    if args.dissect is not None:
+        out["dissect"] = dissect(args.dissect, jcfg, tcfg, scans, odom, gt, jscans,
+                                 port_run, pose_diff, first_over)
+    print(json.dumps(out))
+
+
+def dissect(k, jcfg, tcfg, scans, odom, gt, jscans, port_run, pose_diff, first_over):
+    from slam_constructor_tpu.models import engine as jeng
+    from slam_constructor_tpu.ops import matchers as jmatch
+    from slam_constructor_tpu.ops import scoring as jscore
+    from slam_constructor_tpu.ops.geometry import compose as jcompose
+    from slam_constructor_tpu_torch.models import engine as teng
+    from slam_constructor_tpu_torch.utils import convert
+
+    mc = tcfg.matcher_cfg
+    jodom = jnp.asarray(odom.numpy())
+
+    def fresh():
+        return jeng.init_state(jcfg, jax.random.PRNGKey(k)).replace(
+            pose=jnp.asarray(gt[0].numpy()))
+
+    noise = torch.from_numpy(noise_chain(jax.random.PRNGKey(k), N_SCANS, mc.rounds, mc.batch))
+    _, jtraj, jprobs = jeng.run_sequence(jcfg, fresh(), jscans, jodom)
+    jtraj = torch.from_numpy(np.array(jtraj))
+    s = first_over(pose_diff(port_run(noise), jtraj))
+    if s is None:
+        return {"key": k, "first_scan_over_1e-4": None}
+    # the jitted reference's state just before scan s, carried to the port
+    pre, _, _ = jeng.run_sequence(
+        jcfg, fresh(), jax.tree.map(lambda a: a[:s], jscans), jodom[:s])
+    state = convert.state_from_numpy({
+        "cells": np.asarray(pre.gm.cells), "origin": np.asarray(pre.gm.origin),
+        "scale": pre.gm.scale, "pose": np.asarray(pre.pose), "step": int(pre.step),
+        "last_prob": float(pre.last_prob)}, "cpu")
+    nxt = teng.slam_step(tcfg, state, scans[s], odom[s], noise=noise[s])
+    # the reference's matcher, op by op, on the same state and key
+    js = jax.tree.map(lambda a: a[s], jscans)
+    _, sub = jax.random.split(pre.key)
+    eager = jmatch.monte_carlo_match(
+        jscore.MapView.of(pre.gm, jcfg.cell_model), js, jcompose(pre.pose, jodom[s]), sub,
+        jcfg.matcher_cfg, jeng._point_weights(jcfg, js))
+    return {
+        "key": k, "first_scan_over_1e-4": s,
+        "prob_reference_jitted": float(np.asarray(jprobs)[s]),
+        "prob_reference_eager": float(eager.prob),
+        "prob_port_from_reference_state": float(nxt.last_prob),
+        "pose_diff_port_vs_jitted": float((nxt.pose - jtraj[s]).abs().max()),
+        "pose_diff_port_vs_eager": float(
+            (nxt.pose - torch.from_numpy(np.array(eager.pose))).abs().max()),
+        "last_rounds_best_prob_eager": [float(x) for x in np.asarray(eager.trace)[-5:]],
+    }
+
+
+if __name__ == "__main__":
+    main()

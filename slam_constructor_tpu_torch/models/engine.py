@@ -9,23 +9,28 @@ Python loop over scans that stay on the device (the reference runs it in
 ``lax.scan``). The reference's PRNG key is replaced by a
 ``torch.Generator`` owned by the ``Engine``, or by injected noise.
 
+Entry points run on the card unless the caller names a device (see
+``device.resolve_device``); the tests pass ``device="cpu"``.
+
 Waiting for later slices: the tiled storage, the M3RSM pyramid, refine
-matchers, the angle-histogram weights, ``match_window`` and ``auto_grow``.
+matchers, ``match_window`` and ``auto_grow``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
 
+from ..device import resolve_device
 from ..ops import cells as cellslib
 from ..ops import grid as gridlib
 from ..ops import matchers as matcherslib
 from ..ops import raycast, scoring
 from ..ops.geometry import compose
-from ..ops.scan import LaserScan
+from ..ops.scan import LaserScan, angle_histogram, scan_points
 
 Tensor = torch.Tensor
 
@@ -46,6 +51,7 @@ class EngineConfig:
     min_insert_prob: float = 0.0
     refine_matcher: Any = None
     refine_cfg: Any = None
+    #: weight beams by the scan-degeneracy angle histogram (vinySLAM)
     use_angle_histogram: bool = False
     match_window: int = 0
     map_storage: str = "dense"
@@ -58,7 +64,6 @@ class EngineConfig:
             "matcher": self.matcher != "monte_carlo",
             "refine_matcher": self.refine_matcher is not None,
             "refine_cfg": self.refine_cfg is not None,
-            "use_angle_histogram": self.use_angle_histogram,
             "match_window": self.match_window > 0,
             "map_storage": self.map_storage != "dense",
             # the tiled storage's knobs
@@ -84,16 +89,37 @@ class SlamState:
 
 
 def init_state(cfg: EngineConfig, device=None) -> SlamState:
+    """A fresh state on ``device`` (the card when none is named)."""
+    dev = resolve_device(device)
     gm = gridlib.make_grid_map(
-        cfg.cell_model, cfg.map_height, cfg.map_width, cfg.map_scale, device=device
+        cfg.cell_model, cfg.map_height, cfg.map_width, cfg.map_scale, device=dev
     )
-    dev = gm.cells.device
     return SlamState(
         gm=gm,
         pose=torch.zeros(3, dtype=torch.float32, device=dev),
         step=torch.zeros((), dtype=torch.int32, device=dev),
         last_prob=torch.zeros((), dtype=torch.float32, device=dev),
     )
+
+
+def _point_weights(cfg: EngineConfig, scan: LaserScan) -> Tensor | None:
+    """vinySLAM's degeneracy weighting: points on over-represented wall
+    directions (long straight walls) are down-weighted. A point's direction
+    is its local wall tangent, the direction of the consecutive-endpoint
+    difference, not its bearing."""
+    if not cfg.use_angle_histogram:
+        return None
+    hist = angle_histogram(scan)
+    n_bins = hist.shape[0]
+    pts = scan_points(scan)
+    d = pts[1:] - pts[:-1]
+    tangent = torch.atan2(d[..., 1], d[..., 0])  # [R-1]
+    tangent = torch.cat([tangent, tangent[-1:]])  # [R]
+    bins = torch.clamp(
+        torch.floor((tangent + math.pi) / (2 * math.pi) * n_bins), 0, n_bins - 1
+    ).to(torch.int64)
+    # hist is normalized; hist * n_bins == 1 for a uniform direction spread
+    return 1.0 / (1.0 + hist[bins] * n_bins)
 
 
 def slam_step(
@@ -113,8 +139,9 @@ def slam_step(
     """
     _, match_fn = matcherslib.MATCHERS[cfg.matcher]
     prior = compose(state.pose, odom_delta)
+    pw = _point_weights(cfg, scan)
     view = scoring.MapView.of(state.gm, cfg.cell_model)
-    res = match_fn(view, scan, prior, generator, cfg.matcher_cfg, None, noise)
+    res = match_fn(view, scan, prior, generator, cfg.matcher_cfg, pw, noise)
     w_obs, s_obs = raycast.scan_observation_planes(state.gm, res.pose, scan, cfg.beam)
     do_insert = (res.prob >= cfg.min_insert_prob) | (state.step == 0)
     q = torch.where(do_insert, quality, 0.0)
@@ -148,9 +175,9 @@ class Engine:
     """Host-side front end: owns config, state, device and random generator;
     feeds scans and exposes map and trajectory."""
 
-    def __init__(self, cfg: EngineConfig, device="cpu", seed: int = 0):
+    def __init__(self, cfg: EngineConfig, device=None, seed: int = 0):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.state = init_state(cfg, self.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)

@@ -51,5 +51,5 @@ def tiny_config(
     )
 
 
-def make_engine(device="cpu", seed: int = 0, **kwargs) -> Engine:
+def make_engine(device=None, seed: int = 0, **kwargs) -> Engine:
     return Engine(tiny_config(**kwargs), device=device, seed=seed)

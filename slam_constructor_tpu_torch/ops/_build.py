@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library
-with a plain C interface, loaded with ``ctypes``. The library lands in
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked into one shared library with a
+plain C interface, loaded with ``ctypes``. The library lands in
 ``build/torch_kernels/`` at the root of the checkout, named after a hash of
 the sources and flags, so it is built on first CUDA use and rebuilt when a
 source changes. Importing this module runs nothing; a machine without
@@ -28,12 +29,11 @@ LIB_NAME = "slam_torch_kernels"
 #: Hopper only: `sm_90a` (the `a` keeps wgmma/setmaxnreg available).
 #: No --use_fast_math, and --fmad=false: products and sums round on their
 #: own, as in the plain PyTorch twins the kernels are checked against.
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (
+    *ARCH_FLAGS, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c",
 )
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,7 +69,7 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -82,17 +82,38 @@ def build() -> BuildResult:
     if out.exists():
         return BuildResult(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in _sources()]
+    cmds = [
+        [nvcc, *COMPILE_FLAGS, "-o", str(obj), str(src)] for src, obj in zip(_sources(), objs)
+    ]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    return BuildResult(out, seconds, log)
+    try:
+        # one nvcc a source, all started together
+        procs = [
+            subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for c in cmds
+        ]
+        log = ""
+        for cmd, proc in zip(cmds, procs):
+            text, _ = proc.communicate()
+            log += text
+            if proc.returncode != 0:
+                for other in procs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{text}")
+        link = [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
+        done = subprocess.run(link, capture_output=True, text=True)
+        log += done.stdout + done.stderr
+        if done.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({done.returncode}): {' '.join(link)}\n{log}")
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        for f in (tmp, *objs):
+            f.unlink(missing_ok=True)
+    return BuildResult(out, time.perf_counter() - t0, log)
 
 
 @functools.cache

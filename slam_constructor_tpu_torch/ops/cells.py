@@ -1,9 +1,9 @@
-"""Bayesian grid-cell models of tinySLAM (port of
-``slam_constructor_tpu.ops.cells``).
+"""Grid-cell belief models: Bayesian (tinySLAM) and Transferable Belief
+Model (vinySLAM) (port of ``slam_constructor_tpu.ops.cells``).
 
 A scan's observations arrive as two dense planes, per-cell weight ``w`` and
 weight-summed observed occupancy ``s``; a model folds them into every cell
-at once in closed form. The TBM cell of vinySLAM waits for its slice.
+at once in closed form.
 """
 
 from __future__ import annotations
@@ -67,8 +67,78 @@ class BayesAvgCell:
         return belief[..., 0]
 
 
-#: registry for the config system; 'tbm' joins with the vinySLAM slice
+@dataclasses.dataclass(frozen=True)
+class TBMCell:
+    """vinySLAM's Transferable-Belief-Model cell: masses ``[m_occ, m_emp,
+    m_unknown, m_conflict]`` combined with the unnormalized conjunctive
+    rule. An observation of occupancy ``o`` at quality ``q`` is the mass
+    function ``(q o, q (1 - o), 1 - q, 0)``; weight ``w`` applies
+    ``floor(w)`` rounds in closed form (one round is linear and triangular
+    in the state, so k rounds are powers of ``uu``, ``oo + uu``, ``ee +
+    uu``) plus one partial round at quality ``q frac(w)``. A fraction
+    ``conflict_decay`` of the conflict mass then returns to unknown, and
+    the masses are renormalized. Occupancy is the pignistic readout with
+    conflict split evenly."""
+
+    quality: float = 0.4
+    conflict_decay: float = 0.1
+
+    n_channels: int = dataclasses.field(default=4, init=False)
+
+    def init_belief(self):
+        return (0.0, 0.0, 1.0, 0.0)
+
+    def update(self, belief: Tensor, n_prev: Tensor, w: Tensor, s: Tensor) -> Tensor:
+        o = _mean_obs(w, s)
+        q = self.quality
+        k = torch.floor(w)
+        frac = w - k
+
+        # closed form for k = floor(w) full rounds
+        oo, ee, uu = q * o, q * (1.0 - o), 1.0 - q
+
+        def powk(base):
+            # base^k for k >= 0 and base in [0, 1]; exp(0 * log(eps)) = 1
+            # keeps the k = 0 identity even when base == 0 (q == 1)
+            if not isinstance(base, Tensor):
+                base = torch.full_like(k, base)
+            return torch.exp(k * torch.log(torch.clamp(base, min=_EPS)))
+
+        mo, me, mu, mx = belief.unbind(-1)
+        total = mo + me + mu + mx
+        pu = powk(uu)
+        po = powk(oo + uu)
+        pe = powk(ee + uu)
+        mo = mo * po + mu * (po - pu)
+        me = me * pe + mu * (pe - pu)
+        mu = mu * pu
+        mx = torch.clamp(total - mo - me - mu, min=0.0)
+
+        # one partial round at quality q * frac (identity when frac == 0)
+        qi = q * frac
+        oo, ee, uu = qi * o, qi * (1.0 - o), 1.0 - qi
+        no = mo * (oo + uu) + mu * oo
+        ne = me * (ee + uu) + mu * ee
+        nu = mu * uu
+        nx = mx * (oo + ee + uu) + mo * ee + me * oo
+
+        # conflict forgetting
+        seen = w > 0
+        nu = nu + self.conflict_decay * nx * seen
+        nx = nx * torch.where(seen, 1.0 - self.conflict_decay, 1.0)
+        m = torch.stack([no, ne, nu, nx], dim=-1)
+        # renormalize (guards fp drift; masses stay a partition of unity)
+        m = m / torch.clamp(m.sum(-1, keepdim=True), min=_EPS)
+        return torch.where(seen[..., None], m, belief)
+
+    def occupancy(self, belief: Tensor) -> Tensor:
+        mo, mu, mx = belief[..., 0], belief[..., 2], belief[..., 3]
+        return mo + 0.5 * mu + 0.5 * mx
+
+
+#: registry for the config system
 CELL_MODELS = {
     "bayes_base": BayesBaseCell,
     "bayes_avg": BayesAvgCell,
+    "tbm": TBMCell,
 }

@@ -1,13 +1,14 @@
 """Scan insertion and synthetic ray casting (port of
 ``slam_constructor_tpu.ops.raycast``).
 
-Insertion is the DDA free-space trace (fixed-step samples with consecutive
-duplicate cells masked), const endpoint evidence and the symmetric
-wall-blur tail, scatter-added into per-cell observation planes on flat
-indices: the free trace's counts with ``scatter_add_``, the occupied
-evidence with ``index_put_(accumulate=True)``. Samples that fall off the
-map are dropped. The polar fills, the area estimator and
-``scan_sample_cells`` wait for later slices.
+Free space is either the DDA trace (``free_impl='dda'``: fixed-step
+samples with consecutive duplicate cells masked, counted with
+``scatter_add_``) or the dense polar fill (``free_impl='polar'``: one
+elementwise pass over the map through ``kernels.polar_free_plane``, the
+CUDA kernel on the card). Occupied evidence is the const or the area
+endpoint estimator plus the symmetric wall-blur tail, scatter-added on flat
+indices with ``index_put_(accumulate=True)``. Samples that fall off the map
+are dropped. ``scan_sample_cells`` waits for a later slice.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import math
 import torch
 
 from . import grid as gridlib
+from . import kernels
 from . import scan as scanlib
 
 Tensor = torch.Tensor
@@ -30,7 +32,7 @@ class BeamConfig:
     max_range: float = 15.0
     #: DDA step as a fraction of the cell size for the free-space trace
     step_fraction: float = 0.5
-    #: 'const' (hit cell only); 'area' waits for the vinySLAM slice
+    #: 'const' (hit cell only) or 'area' (endpoint square vs 3x3 cells)
     occupancy_estimator: str = "const"
     #: side of the endpoint square, in meters (tinySLAM "hole width"); also
     #: the blur length when ``wall_blur`` is on
@@ -39,16 +41,20 @@ class BeamConfig:
     wall_blur: bool = False
     #: number of blur samples along the tail when wall_blur is set
     blur_samples: int = 4
-    #: 'dda' only; the polar fills wait for the vinySLAM slice
+    #: 'dda' (per-beam line samples) or 'polar' (dense per-cell polar fill:
+    #: a cell is free iff it lies closer than the range of the beam covering
+    #: its angle; assumes uniformly spaced bearings). A preset names its
+    #: algorithm: the reference's 'auto' picks one by backend and is refused,
+    #: and its 'polar_pallas' is 'polar' under another lowering.
     free_impl: str = "dda"
 
     def __post_init__(self):
-        if self.free_impl != "dda":
-            raise NotImplementedError(f"free_impl={self.free_impl!r}: only 'dda' is ported")
-        if self.occupancy_estimator != "const":
+        if self.free_impl not in ("dda", "polar"):
             raise NotImplementedError(
-                f"occupancy_estimator={self.occupancy_estimator!r}: only 'const' is ported"
+                f"free_impl={self.free_impl!r}: the port has 'dda' and 'polar'"
             )
+        if self.occupancy_estimator not in ("const", "area"):
+            raise ValueError(f"unknown occupancy_estimator {self.occupancy_estimator!r}")
 
     def n_free_samples(self, scale: float) -> int:
         return int(math.ceil(self.max_range / (scale * self.step_fraction))) + 1
@@ -100,6 +106,29 @@ def _flat_count(plane_shape, rows, cols, valid) -> Tensor:
     return flat.reshape(h, w)
 
 
+def _endpoint_area_obs(gm, endpoints, valid, hole_width):
+    """Area occupancy estimator: overlap of the ``hole_width`` square centred
+    on each endpoint with the 3x3 cell neighbourhood.
+
+    Returns (rows, cols, weights) each ``[R, 9]``; the weight is the overlap
+    area as a fraction of the cell area, the occupancy observed is 1.0.
+    """
+    scale = gm.scale
+    idx = gridlib.world_to_cell(gm, endpoints)  # [R, 2] (row, col)
+    o = torch.arange(-1, 2, device=endpoints.device)
+    offs = torch.stack(torch.meshgrid(o, o, indexing="ij"), dim=-1).reshape(9, 2)
+    nbr = idx[:, None, :] + offs[None, :, :]  # [R, 9, 2]
+    cell_lo = nbr.to(torch.float32) * scale + gm.origin.flip(0)  # (y, x) corners
+    cell_lo = cell_lo.flip(-1)  # -> (x, y)
+    half = hole_width / 2.0
+    e = endpoints[:, None, :]
+    ov = torch.clamp(
+        torch.minimum(cell_lo + scale, e + half) - torch.maximum(cell_lo, e - half), min=0.0
+    )
+    area = ov[..., 0] * ov[..., 1] / (scale * scale)
+    return nbr[..., 0], nbr[..., 1], torch.where(valid[:, None], area, 0.0)
+
+
 def scan_observation_planes(gm, pose, scan: scanlib.LaserScan, cfg: BeamConfig):
     """Rasterize one scan from ``pose`` into ``(w_obs, s_obs)``: per-cell
     observation weight and weighted occupancy sum, ready for
@@ -111,27 +140,44 @@ def scan_observation_planes(gm, pose, scan: scanlib.LaserScan, cfg: BeamConfig):
     dirs = torch.stack([torch.cos(angles), torch.sin(angles)], dim=-1)  # [R, 2]
     start = pose[:2]
 
-    # --- free-space trace (DDA) ---------------------------------------------
-    n_s = cfg.n_free_samples(scale)
-    step = scale * cfg.step_fraction
-    t = (torch.arange(n_s, dtype=torch.float32, device=dev) + 0.5) * step  # [S]
-    pts = start + t[None, :, None] * dirs[:, None, :]  # [R, S, 2]
-    idx = gridlib.world_to_cell(gm, pts)  # [R, S, 2]
-    free_limit = scan.ranges - cfg.hole_width / 2.0
-    valid = scan.valid[:, None] & (t[None, :] < free_limit[:, None])
-    # consecutive-duplicate-cell mask: each crossed cell counted once per beam
-    same = torch.all(idx[:, 1:] == idx[:, :-1], dim=-1)
-    first = torch.ones((idx.shape[0], 1), dtype=torch.bool, device=dev)
-    valid = valid & torch.cat([first, ~same], dim=1)
-    w_free = _flat_count((h, w), idx[..., 0], idx[..., 1], valid)
+    # --- free-space trace ---------------------------------------------------
+    if cfg.free_impl == "polar":
+        w_free = kernels.polar_free_plane(
+            scan.ranges.contiguous(), scan.valid.contiguous(), scan.bearings.contiguous(),
+            pose.contiguous(), gm.origin.contiguous(), h, w, scale,
+            cfg.hole_width / 2.0, cfg.max_range,
+        )
+    else:
+        n_s = cfg.n_free_samples(scale)
+        step = scale * cfg.step_fraction
+        t = (torch.arange(n_s, dtype=torch.float32, device=dev) + 0.5) * step  # [S]
+        pts = start + t[None, :, None] * dirs[:, None, :]  # [R, S, 2]
+        idx = gridlib.world_to_cell(gm, pts)  # [R, S, 2]
+        free_limit = scan.ranges - cfg.hole_width / 2.0
+        valid = scan.valid[:, None] & (t[None, :] < free_limit[:, None])
+        # consecutive-duplicate-cell mask: each crossed cell counted once per beam
+        same = torch.all(idx[:, 1:] == idx[:, :-1], dim=-1)
+        first = torch.ones((idx.shape[0], 1), dtype=torch.bool, device=dev)
+        valid = valid & torch.cat([first, ~same], dim=1)
+        w_free = _flat_count((h, w), idx[..., 0], idx[..., 1], valid)
 
-    # --- occupied evidence: const endpoints + wall-blur tail ----------------
+    # --- occupied evidence: endpoints (const or area) + wall-blur tail ------
     # beams longer than max_range carry no endpoint evidence
     ep_valid = scan.valid & (scan.ranges <= cfg.max_range)
     endpoints = start + scan.ranges[:, None] * dirs  # [R, 2]
-    eidx = gridlib.world_to_cell(gm, endpoints)
-    ones = torch.ones(eidx.shape[:1], device=dev)
-    occ_r, occ_c, occ_w, occ_s, occ_v = [eidx[..., 0]], [eidx[..., 1]], [ones], [ones], [ep_valid]
+    if cfg.occupancy_estimator == "area":
+        r9, c9, wgt = _endpoint_area_obs(gm, endpoints, ep_valid, cfg.hole_width)
+        wgt = wgt.reshape(-1)
+        # observed occupancy 1.0: the occupancy sum equals the weight
+        occ_r, occ_c, occ_w, occ_s, occ_v = (
+            [r9.reshape(-1)], [c9.reshape(-1)], [wgt], [wgt], [wgt > 0]
+        )
+    else:
+        eidx = gridlib.world_to_cell(gm, endpoints)
+        ones = torch.ones(eidx.shape[:1], device=dev)
+        occ_r, occ_c, occ_w, occ_s, occ_v = (
+            [eidx[..., 0]], [eidx[..., 1]], [ones], [ones], [ep_valid]
+        )
     if cfg.wall_blur:
         # triangular occupied evidence centred on the endpoint, hole_width/2
         # along the ray on both sides; weight and occupancy both taper

@@ -5,6 +5,7 @@ mask, so every scan of a sequence has one shape."""
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -69,3 +70,22 @@ def subsample_mask(scan: LaserScan, stride: int) -> Tensor:
         return scan.valid
     idx = torch.arange(scan.n_beams, device=scan.valid.device)
     return scan.valid & (idx % stride == 0)
+
+
+def angle_histogram(scan: LaserScan, n_bins: int = 36) -> Tensor:
+    """Histogram of consecutive-endpoint direction angles (vinySLAM's scan
+    degeneracy feature): normalized bin weights ``f32[n_bins]``.
+
+    The counts go through ``scatter_add_`` into a vector of fixed length
+    (``bincount`` and ``histc`` read a maximum back to the host); they are
+    integers, so the sums are exact in any order.
+    """
+    pts = scan_points(scan)
+    d = pts[1:] - pts[:-1]
+    ang = torch.atan2(d[..., 1], d[..., 0])  # (-pi, pi]
+    ok = (scan.valid[1:] & scan.valid[:-1]).to(torch.float32)
+    bins = torch.floor((ang + math.pi) / (2 * math.pi) * n_bins).to(torch.int64)
+    bins = torch.clamp(bins, 0, n_bins - 1)
+    hist = torch.zeros((n_bins,), dtype=torch.float32, device=ang.device)
+    hist.scatter_add_(0, bins, ok)
+    return hist / torch.clamp(hist.sum(), min=1.0)

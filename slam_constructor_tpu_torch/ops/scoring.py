@@ -1,9 +1,9 @@
 """Scan-likelihood scoring (port of ``slam_constructor_tpu.ops.scoring``).
 
 ``score_poses(view, scan, poses[K]) -> probs[K]``: the mean per-beam
-consistency probability of a scan placed at each candidate pose. This slice
-ports the overlap reducer at extent 1, the one tinySLAM runs; every score
-goes through ``kernels.overlap_score`` (the CUDA kernel on the card). The
+consistency probability of a scan placed at each candidate pose. Ported is
+the overlap reducer at extent 1, the one tinySLAM and vinySLAM run; every
+score goes through ``kernels.overlap_score`` (the CUDA kernel on the card). The
 obstacle, mean and max reducers, other extents, ``window_view`` and
 ``estimate_information`` wait for later slices and raise
 ``NotImplementedError``.

@@ -1,8 +1,9 @@
 """Carry engine state between the reference and the port.
 
 A reference ``SlamState`` crosses as a dict of numpy arrays:
-``cells`` f32[H, W, C], ``origin`` f32[2], ``scale`` float, ``pose``
-f32[3], ``step`` int, ``last_prob`` float. The reference's PRNG key is not
+``cells`` f32[H, W, C] (C = the cell model's belief channels + 1: 2 for the
+Bayes cells, 5 for the TBM cell), ``origin`` f32[2], ``scale`` float,
+``pose`` f32[3], ``step`` int, ``last_prob`` float. The reference's PRNG key is not
 carried over: its role moves to the ``Engine``'s ``torch.Generator``, or to
 noise injected into ``slam_step``.
 """
@@ -12,12 +13,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.grid import GridMap
+from ..device import resolve_device
 from ..models.engine import SlamState
+from ..ops.grid import GridMap
 
 
 def state_from_numpy(tree: dict, device=None) -> SlamState:
-    """Build the port's state from a numpy dict (see module docstring)."""
+    """Build the port's state from a numpy dict (see module docstring) on
+    ``device`` (the card when none is named)."""
+    device = resolve_device(device)
+
     def f32(a):
         return torch.tensor(np.asarray(a, np.float32), device=device)
 

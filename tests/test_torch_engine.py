@@ -25,6 +25,7 @@ from slam_constructor_tpu.ops.scan import LaserScan as JScan
 from slam_constructor_tpu.utils import evaluate as jeval
 from slam_constructor_tpu_torch.models import engine as teng
 from slam_constructor_tpu_torch.models import tiny as ttiny
+from slam_constructor_tpu_torch.models import viny as tviny
 from slam_constructor_tpu_torch.utils import convert
 from slam_constructor_tpu_torch.utils import datagen as tdata
 from slam_constructor_tpu_torch.utils import evaluate as teval
@@ -91,10 +92,10 @@ def test_engine_run_matches_reference_sequence(run):
 def test_handle_scan_equals_run(run):
     """Online stepping equals the offline run on the same noise."""
     noise = torch.from_numpy(run["noise"])
-    a = teng.Engine(run["tcfg"])
+    a = teng.Engine(run["tcfg"], device="cpu")
     a.state.pose = run["gt"][0].clone()
     traj, _ = a.run(run["scans"][:3], run["odom"][:3], noise=noise[:3])
-    b = teng.Engine(run["tcfg"])
+    b = teng.Engine(run["tcfg"], device="cpu")
     b.state.pose = run["gt"][0].clone()
     for i in range(3):
         b.handle_scan(run["scans"][i], run["odom"][i], noise=noise[i])
@@ -104,10 +105,10 @@ def test_handle_scan_equals_run(run):
 
 def test_run_stream_equals_run(run):
     """Streaming mode draws the same generator noise in the same order."""
-    a = teng.Engine(run["tcfg"], seed=3)
+    a = teng.Engine(run["tcfg"], device="cpu", seed=3)
     a.state.pose = run["gt"][0].clone()
     traj, _ = a.run(run["scans"][:3], run["odom"][:3])
-    b = teng.Engine(run["tcfg"], seed=3)
+    b = teng.Engine(run["tcfg"], device="cpu", seed=3)
     b.state.pose = run["gt"][0].clone()
     b.run_stream((run["scans"][i], run["odom"][i]) for i in range(3))
     assert torch.equal(b.pose, traj[-1])
@@ -140,6 +141,25 @@ def test_convert_round_trip_continues_reference_run(run):
     close = _cells_close(state.gm.cells.numpy(), np.asarray(run["jfinal"].gm.cells))
     assert close.mean() >= 0.999
     assert int(state.step) == N_SCANS
+
+
+@pytest.mark.parametrize("entry", ["Engine", "tiny", "viny", "init_state", "state_from_numpy"])
+def test_entry_points_default_to_the_card_and_raise_without_one(run, entry):
+    """No device named means the card; without one (as where these tests
+    run) the entry point raises and says how to ask for the CPU, and does
+    not carry on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default resolves to it")
+    tree = convert.state_to_numpy(teng.init_state(run["tcfg"], "cpu"))
+    calls = {
+        "Engine": lambda: teng.Engine(run["tcfg"]),
+        "tiny": lambda: ttiny.make_engine(map_size=32),
+        "viny": lambda: tviny.make_engine(map_size=32),
+        "init_state": lambda: teng.init_state(run["tcfg"]),
+        "state_from_numpy": lambda: convert.state_from_numpy(tree),
+    }
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        calls[entry]()
 
 
 @pytest.mark.parametrize("align", [False, True])

@@ -16,6 +16,7 @@ import torch
 
 from slam_constructor_tpu.models import engine as jeng
 from slam_constructor_tpu.models import tiny as jtiny
+from slam_constructor_tpu.models import viny as jviny
 from slam_constructor_tpu.ops import cells as jcells
 from slam_constructor_tpu.ops import grid as jgrid
 from slam_constructor_tpu.ops import matchers as jmatch
@@ -23,6 +24,7 @@ from slam_constructor_tpu.ops import raycast as jray
 from slam_constructor_tpu.ops import scoring as jscore
 from slam_constructor_tpu_torch.models import engine as teng
 from slam_constructor_tpu_torch.models import tiny as ttiny
+from slam_constructor_tpu_torch.models import viny as tviny
 from slam_constructor_tpu_torch.ops import cells as tcells
 from slam_constructor_tpu_torch.ops import grid as tgrid
 from slam_constructor_tpu_torch.ops import matchers as tmatch
@@ -88,7 +90,10 @@ def test_apply_observations_matches_reference(model):
 # --- config lockstep ---------------------------------------------------------
 
 #: fields of the reference that only its TPU lowerings read; the port
-#: leaves them out on purpose
+#: leaves them out on purpose. Of the values of ``BeamConfig.free_impl``,
+#: 'polar_pallas' is TPU-only too (the polar fill as a Pallas launch,
+#: bitwise equal to 'polar'; the port has the one name 'polar'), and 'auto'
+#: (an algorithm picked by backend) is refused.
 TPU_ONLY = {
     "ScoringConfig": {"impl", "dtype"},
     "BeamConfig": {"scatter_impl"},
@@ -101,6 +106,7 @@ PAIRS = [
     (jeng.EngineConfig, teng.EngineConfig),
     (jcells.BayesAvgCell, tcells.BayesAvgCell),
     (jcells.BayesBaseCell, tcells.BayesBaseCell),
+    (jcells.TBMCell, tcells.TBMCell),
 ]
 
 
@@ -136,16 +142,33 @@ def test_tiny_config_lockstep():
     assert _as_tree(t) == _as_tree(j)
 
 
+def test_viny_config_lockstep():
+    """Same preset values; the only difference is the pinned free fill: the
+    reference's 'auto' resolves to 'polar' on its accelerator (and to 'dda'
+    on the CPU this test runs on)."""
+    kwargs = dict(quality=0.4, conflict_decay=0.2, map_size=128, mc_batch=16, mc_rounds=4,
+                  min_insert_prob=0.3, stride=3)
+    j = jviny.viny_config(**kwargs)
+    assert j.beam.free_impl == "auto" and j.beam.resolved_free_impl() == "dda"
+    j = dataclasses.replace(j, beam=dataclasses.replace(j.beam, free_impl="polar"))
+    t = tviny.viny_config(**kwargs)
+    assert _as_tree(t) == _as_tree(j)
+    assert _as_tree(tviny.viny_config()) == _as_tree(
+        dataclasses.replace(jviny.viny_config(), beam=dataclasses.replace(
+            jviny.viny_config().beam, free_impl="polar")))
+    assert t.use_angle_histogram and t.matcher_cfg.rounds == 4 and t.matcher_cfg.scoring.stride == 3
+
+
 @pytest.mark.parametrize(
     "make",
     [
         lambda: teng.EngineConfig(map_storage="tiled"),
         lambda: teng.EngineConfig(match_window=64),
         lambda: teng.EngineConfig(refine_matcher="hill_climbing"),
-        lambda: teng.EngineConfig(use_angle_histogram=True),
         lambda: teng.EngineConfig(matcher="m3rsm"),
-        lambda: tray.BeamConfig(free_impl="polar"),
-        lambda: tray.BeamConfig(occupancy_estimator="area"),
+        lambda: tray.BeamConfig(free_impl="auto"),
+        lambda: tray.BeamConfig(free_impl="polar_pallas"),
+        lambda: tviny.viny_m3rsm_config(),
     ],
 )
 def test_fields_of_later_slices_raise(make):

@@ -5,15 +5,19 @@ CPU mode). They import no JAX, so they run where the port runs:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 
-(``--noconftest``: the suite's conftest configures JAX). Only the order of
-the sums may differ between kernel and twin: atol 2e-6, the bound the
-reference holds its Pallas kernel to.
+(``--noconftest``: the suite's conftest configures JAX). For
+``overlap_score`` only the order of the sums may differ between kernel and
+twin: atol 2e-6, the bound the reference holds its Pallas kernel to.
+``polar_free_plane`` does the twin's f32 arithmetic in the twin's order with
+the same device math routines; a cell on a knife edge of its free test may
+still flip, so the test counts them: at most 8 of a 256^2 plane, weights
+within 1e-6 relative elsewhere.
 """
 
 import pytest
 import torch
 
-from slam_constructor_tpu_torch.models import tiny
+from slam_constructor_tpu_torch.models import tiny, viny
 from slam_constructor_tpu_torch.models.engine import init_state
 from slam_constructor_tpu_torch.ops import kernels, raycast, scoring
 from slam_constructor_tpu_torch.ops.scan import LaserScan
@@ -77,3 +81,46 @@ def test_overlap_score_rejects_bad_input(scene):
     with pytest.raises(ValueError):
         kernels.overlap_score(prep.plane, cand.cpu(), prep.pts, prep.beam_w, prep.origin,
                               prep.scale, prep.unknown)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_beams,fov_half,h,w", [
+    (360, False, 256, 256), (181, True, 256, 256), (120, False, 96, 128), (90, False, 96, 128),
+])
+def test_polar_free_plane_kernel_matches_plain_twin(scene, n_beams, fov_half, h, w):
+    _, scan, cand, _ = scene
+    dev = cand.device
+    step = 360 // n_beams if not fov_half else 1
+    sl = slice(90, 271) if fov_half else slice(0, 360, step)
+    valid = scan.valid[sl] & (torch.arange(n_beams, device=dev) % 7 != 3)
+    cfg = viny.viny_config(map_size=256).beam
+    origin = torch.tensor([-w * 0.05, -h * 0.05], device=dev)
+    args = (scan.ranges[sl].contiguous(), valid, scan.bearings[sl].contiguous(), cand[0].contiguous(),
+            origin, h, w, 0.1, cfg.hole_width / 2.0, cfg.max_range)
+    before = kernels.polar_free_plane.n_launches
+    got = kernels.polar_free_plane(*args)
+    want = kernels.polar_free_plane_ref(*args)
+    torch.cuda.synchronize()
+    assert kernels.polar_free_plane.n_launches == before + 1
+    assert got.shape == (h, w) and int((want > 0).sum()) > 300
+    flipped = int(((got > 0) != (want > 0)).sum())
+    assert flipped <= 8, f"{flipped} cells flipped"
+    both = (got > 0) & (want > 0)
+    assert float(((got - want).abs() / want.clamp(min=1e-9))[both].max()) <= 1e-6
+    assert torch.equal(kernels.polar_free_plane(*args), got)  # the same bits on every call
+
+
+@pytest.mark.cuda
+def test_polar_free_plane_rejects_bad_input(scene):
+    _, scan, cand, _ = scene
+    args = [scan.ranges, scan.valid, scan.bearings, cand[0].contiguous(),
+            torch.tensor([-12.8, -12.8], device=cand.device), 256, 256, 0.1, 0.15, 15.0]
+    with pytest.raises(TypeError):
+        kernels.polar_free_plane(args[0], scan.valid.float(), *args[2:])
+    with pytest.raises(ValueError):
+        kernels.polar_free_plane(args[0], args[1], args[2], cand[0].cpu(), *args[4:])
+    big = 13000  # 52,000 B of shared memory
+    with pytest.raises(ValueError):
+        kernels.polar_free_plane(
+            torch.ones(big, device=cand.device), torch.ones(big, dtype=torch.bool, device=cand.device),
+            torch.linspace(-3.14, 3.14, big, device=cand.device), *args[3:])
