@@ -17,28 +17,43 @@ Phases, one line or more each, in order; any failure exits non-zero:
    cells whose free decision differs (at most 8 in 65,536) and the largest
    relative difference of the weight where both are free (<= 1e-6); then
    both timed;
-5. card vs CPU: the first 8 scans of the sequence on the card and on the
+5. ``mc_match`` (one launch a match) against ``mc_match_rounds`` (one
+   ``overlap_score`` launch a round) on the card: (map, scan, prior) states
+   taken from every 32nd scan of a tiny and a viny run over the bench
+   sequence, plus edge cases (batch 8 to 100, 0 and 1 rounds, no valid
+   beam, a prior 0.5 m from the map's edge, noise of zeros, duplicated
+   candidates, a NaN weight): pose, prob and trace must be equal bit for
+   bit. The same cases against the plain twin ``mc_match_ref``: trace and
+   prob within 2e-6, or, where the two part, a round before that in which
+   the twin's keep-if-better or argmax was decided by less than 4e-6.
+   Then all three timed at tiny's and viny's shapes;
+6. card vs CPU: the first 8 scans of the sequence on the card and on the
    CPU (plain twins) with the same matcher noise, for tinySLAM and vinySLAM;
-6. tinySLAM main path (``tiny_config(map_size=256)``) over the bench
+7. tinySLAM main path (``tiny_config(map_size=256)``) over the bench
    sequence (512 scans, 360 beams, cecum world) through ``Engine.run``,
    warm-up first, then a timed run from a fresh state under
-   ``torch.cuda.set_sync_debug_mode("error")``: ``overlap_score`` must have
-   been launched 512 x (12 + 1) times, poses finite, ATE below odometry's
-   and below 0.15 m; then once more for repeatability;
-7. vinySLAM main path (``viny_config(map_size=256)``), the same way:
-   ``overlap_score`` launched 512 x (16 + 1) times and ``polar_free_plane``
-   512 times, poses finite, ATE below odometry's and no more than 0.02 m
-   above what the JAX reference reads on the identical sequence (its worst
-   of five matcher keys: the card draws its own matcher noise).
+   ``torch.cuda.set_sync_debug_mode("error")``: ``mc_match`` must have been
+   launched 512 times and ``overlap_score`` not at all, poses finite, ATE
+   below odometry's and below 0.15 m; then once more for repeatability;
+8. vinySLAM main path (``viny_config(map_size=256)``), the same way:
+   ``mc_match`` and ``polar_free_plane`` launched 512 times each, poses
+   finite, ATE below odometry's and no more than 0.02 m above what the JAX
+   reference reads on the identical sequence (its worst of five matcher
+   keys: the card draws its own matcher noise);
+9. the first 64 scans of the viny path with ``mc_match_rounds`` handed in
+   in the fused kernel's place (``overlap_score`` launched 64 x 17 times):
+   the trajectory must equal the fused path's first 64 poses bit for bit.
 
-The launch counts are set to 0 just before each timed main-path run and
-read just after it. The line before the last is a JSON object of the
+The launch counts are set to 0 just before each of these runs and read just
+after it. The line before the last is a JSON object of the
 kernels; the last line is ``{"ok": true, "device": {...}}``. It needs no
 network and starts no process that outlives it.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import math
 import statistics
@@ -73,9 +88,18 @@ PEAK_F32_FLOP_PER_S = 67e12
 #: cell centre and offsets 8, d 4 + sqrtf 8, atan2f 2 x 40, sinf + cosf
 #: 2 x 20, atanf 25, three divisions 3 x 8, rint/compare/select 11
 POLAR_OPS_PER_CELL = 8 + 12 + 80 + 40 + 25 + 24 + 11
+#: a cell that no beam can reach stops after its centre, d and the test
+POLAR_OPS_PER_FAR_CELL = 8 + 12 + 3
 #: f32 operations a (candidate, beam) pair of `overlap_score`: pose
 #: transform 8, to cell units 4, two axes of taps 2 x 12, blend 14, sum 3
 OVERLAP_OPS_PER_POINT = 8 + 4 + 24 + 14 + 3
+
+
+#: what separates `mc_match` from its plain twin: a score differs by the
+#: order of its sums (TOL); two scores that decide a keep-if-better or an
+#: argmax may therefore fall the other way when they lie within 2 x TOL
+KNIFE_EDGE = 4e-6
+ROUNDS_PATH_SCANS = 64
 
 
 def fail(msg: str) -> None:
@@ -132,17 +156,20 @@ def time_ms(fn, calls: int = 50) -> list[float]:
     return times
 
 
-def time_pair(kernel, plain):
+def time_pair(kernel, plain, plain_calls: int = 50):
     """Median ms a call of both, in turns (plain, kernel, kernel, plain),
-    each call between its own pair of CUDA events; and the kernel's ms a
+    each call between its own pair of CUDA events (50 calls a turn of the
+    kernel, ``plain_calls`` of the plain version); and the kernel's ms a
     launch with 200 launches queued back to back between one pair."""
     for _ in range(20):  # warm-up
         kernel()
+    for _ in range(min(20, plain_calls)):
         plain()
     torch.cuda.synchronize()
     k_ms, p_ms = [], []
-    for bucket, fn in ((p_ms, plain), (k_ms, kernel), (k_ms, kernel), (p_ms, plain)):
-        bucket += time_ms(fn, 50)
+    for bucket, fn, calls in ((p_ms, plain, plain_calls), (k_ms, kernel, 50), (k_ms, kernel, 50),
+                              (p_ms, plain, plain_calls)):
+        bucket += time_ms(fn, calls)
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
     for _ in range(200):
@@ -290,12 +317,20 @@ def phase_polar_kernel(dev, scans, gt):
                                       lambda: kernels.polar_free_plane_ref(*args))
     # ranges and bearings f32, valid 1 B a beam, pose, origin; the plane out
     n_bytes = 4 * MAP * MAP + N_BEAMS * (4 + 4 + 1) + 12 + 8
-    n_ops = POLAR_OPS_PER_CELL * MAP * MAP
+    # what this scan needs: the full arithmetic only for the cells some beam
+    # could reach, the distance test alone for the others
+    rng_eff, _, _ = kernels.polar_range_table(*args[:3])
+    cells = torch.arange(MAP, device=dev, dtype=torch.float32)
+    cy, cx = (args[4][1] + (cells + 0.5) * scale)[:, None], (args[4][0] + (cells + 0.5) * scale)[None]
+    d = torch.sqrt((cx - p40[0]) ** 2 + (cy - p40[1]) ** 2)
+    n_near = int((d < min(max_range, float(rng_eff.max()) - hole_half)).sum())
+    n_ops = POLAR_OPS_PER_CELL * n_near + POLAR_OPS_PER_FAR_CELL * (MAP * MAP - n_near)
     b_ms, by = bound_ms(n_bytes, n_ops)
     print(f"polar_free_plane 256^2 R=360: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
           f"(median of 100 calls each, CUDA events), kernel {chained:.4f} ms a launch over 200 "
-          f"back to back; bound {b_ms:.6f} ms by {by} "
-          f"({n_bytes} B, {n_ops} operations); no single PyTorch call computes it", flush=True)
+          f"back to back; bound {b_ms:.6f} ms by {by} ({n_bytes} B; {n_ops} operations: "
+          f"{n_near} of {MAP * MAP} cells within a beam's reach); no single PyTorch call "
+          f"computes it", flush=True)
     return {
         "name": "polar_free_plane", "route": "cuda",
         "source": "slam_constructor_tpu_torch/csrc/polar_free.cu",
@@ -303,6 +338,181 @@ def phase_polar_kernel(dev, scans, gt):
         "max_abs_err": max_err, "max_rel_err": max_rel, "flipped_cells": flipped_all,
         "ms": ms, "plain_ms": plain_ms, "chained_ms": chained,
         "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+    }
+
+
+def bits(t):
+    """A float tensor as integers, so that NaN compares equal to itself."""
+    return t.reshape(-1).view(torch.int32)
+
+
+@contextlib.contextmanager
+def handed_in(fn):
+    """``fn`` stands in the package's ``kernels.mc_match`` while the block
+    runs, so an engine run goes through it."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    fused = kernels.mc_match
+    kernels.mc_match = fn
+    try:
+        yield
+    finally:
+        kernels.mc_match = fused
+
+
+def capture_match_states(cfg, scans, odom, gt, every=32):
+    """One run of the main path (it also warms the path up) that keeps the
+    arguments of every ``every``-th match."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    fused, kept, n = kernels.mc_match, [], [0]
+
+    def recording(*args):  # the wrapper counts its launches on the name it is called by
+        if n[0] % every == 0:
+            kept.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+        n[0] += 1
+        return fused(*args)
+
+    recording.n_launches = 0
+    with handed_in(recording):
+        run_main_path(cfg, scans, odom, gt, 0)
+    return kept
+
+
+def with_noise(args, rounds, batch, gen, bad_rounds=None):
+    a = list(args)
+    a[5] = torch.randn((rounds, batch, 3), generator=gen, device=a[4].device)
+    if bad_rounds is not None:
+        a[10] = bad_rounds
+    return tuple(a)
+
+
+def match_cases(tiny_states, viny_states, dev):
+    """(name, args of mc_match): the captured states and the edge cases."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    cases = [(f"tiny scan {32 * i}", a) for i, a in enumerate(tiny_states)]
+    cases += [(f"viny scan {32 * i}", a) for i, a in enumerate(viny_states)]
+    t, v = tiny_states[3], viny_states[5]  # scans 96 and 160: a map with walls on it
+    for batch in (8, 32, 64, 96, 100):
+        cases.append((f"tiny state, batch {batch}", with_noise(t, 12, batch, g)))
+        cases.append((f"viny state, batch {batch}", with_noise(v, 16, batch, g)))
+    for rounds in (0, 1):
+        cases.append((f"tiny state, rounds={rounds}", with_noise(t, rounds, 64, g)))
+        cases.append((f"viny state, rounds={rounds}, batch 20", with_noise(v, rounds, 20, g)))
+    cases.append(("viny state, anneal after every bad round", with_noise(v, 16, 64, g, 1)))
+
+    def replaced(args, **kw):
+        names = ("plane", "pts", "beam_w", "origin", "init_pose", "noise")
+        return tuple(kw.get(n, a) for n, a in zip(names, args)) + tuple(args[6:])
+
+    cases.append(("no valid beam", replaced(t, beam_w=torch.zeros_like(t[2]))))
+    edge = torch.tensor([12.3, -1.5, 0.4], device=dev)  # the map ends at x = 12.8
+    cases.append(("prior 0.5 m from the map's edge", replaced(t, init_pose=edge)))
+    cases.append(("noise of zeros: every round ties", replaced(v, noise=torch.zeros_like(v[5]))))
+    twice = t[5].clone()
+    half = twice.shape[1] // 2
+    twice[:, half:] = twice[:, :half]  # every candidate has an equal half a batch on
+    cases.append(("every candidate twice: the first wins", replaced(t, noise=twice)))
+    nan_w = v[2].clone()
+    nan_w[5] = float("nan")
+    cases.append(("a NaN beam weight: NaN scores, never better", replaced(v, beam_w=nan_w)))
+    return cases
+
+
+def twin_record(args):
+    """The plain twin's match with, for every round, how closely it was
+    decided: the gap between its two best scores and between the best and
+    the best so far. Returns (pose, prob, trace), margins f32[rounds]."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    scores = []
+
+    def score(*a):
+        out = kernels.overlap_score_ref(*a)
+        scores.append(out)
+        return out
+
+    out = kernels.mc_match_loop(score, *args)
+    best, margins = scores[0][0], []
+    for probs in scores[1:]:
+        top = torch.topk(probs, min(2, probs.shape[0])).values
+        margins.append(torch.minimum((top[0] - top[-1]).abs() if top.shape[0] > 1
+                                     else torch.full_like(best, math.inf), (top[0] - best).abs()))
+        best = torch.maximum(best, top[0])
+    return out, torch.stack(margins) if margins else torch.empty((0,), device=best.device)
+
+
+def phase_mc_match(dev, tiny_states, viny_states):
+    """`mc_match` vs `mc_match_rounds` (bitwise) and vs `mc_match_ref` over
+    real states and edge cases; then the three timed at the main paths'
+    shapes. Returns the `kernels` entry without the launch count."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    cases = match_cases(tiny_states, viny_states, dev)
+    max_err, parted = 0.0, 0
+    for name, args in cases:
+        got = kernels.mc_match(*args)
+        rounds = kernels.mc_match_rounds(*args)
+        (twin, margins) = twin_record(args)
+        torch.cuda.synchronize()
+        n_rounds, batch = args[5].shape[0], args[5].shape[1]
+        check(got[0].shape == (3,) and got[1].shape == () and got[2].shape == (n_rounds,),
+              f"mc_match output malformed ({name})")
+        same = all(torch.equal(bits(a), bits(b)) for a, b in zip(got, rounds))
+        check(same, f"mc_match differs from mc_match_rounds ({name}): pose {got[0].tolist()} vs "
+                    f"{rounds[0].tolist()}, max |trace diff| "
+                    f"{float((got[2] - rounds[2]).abs().nan_to_num(nan=0.0).max()) if n_rounds else 0.0}")
+        # against the twin: within TOL round by round; where they part, a
+        # closely decided round must come before
+        diff = (got[2] - twin[2]).abs()
+        diff = torch.where(torch.isnan(got[2]) & torch.isnan(twin[2]), 0.0, diff)
+        far = (diff > TOL).nonzero().flatten().tolist()
+        first = far[0] if far else n_rounds
+        err = float(diff[:first].max()) if first else 0.0
+        if far:
+            parted += 1
+            edge = float(margins[:first + 1].min())
+            print(f"mc_match vs plain [{name}]: parts from the twin at round {first}; closest "
+                  f"decision up to there {edge:.3e} (limit {KNIFE_EDGE:g})", flush=True)
+            check(edge < KNIFE_EDGE, f"mc_match parts from its twin with no close decision ({name})")
+        else:
+            p_err = float((got[1] - twin[1]).abs().nan_to_num(nan=0.0))
+            pose_err = float((got[0] - twin[0]).abs().max())
+            check(p_err <= TOL, f"mc_match prob differs from its twin ({name}): {p_err}")
+            check(pose_err <= 1e-6 or float(margins.min()) < KNIFE_EDGE,
+                  f"mc_match pose differs from its twin ({name}): {pose_err}")
+            err = max(err, p_err)
+        max_err = max(max_err, err)
+        print(f"mc_match [{name}]: K={batch} rounds={n_rounds} R'={args[1].shape[0]} equal to "
+              f"mc_match_rounds bit for bit; vs plain twin max|diff|={err:.3e} over "
+              f"{first} rounds (tol {TOL:g})", flush=True)
+    print(f"mc_match: {len(cases)} cases equal to mc_match_rounds bit for bit; {parted} part from "
+          f"the plain twin after a round decided by less than {KNIFE_EDGE:g}", flush=True)
+
+    entry = {}
+    for preset, args in (("tiny", tiny_states[3]), ("viny", viny_states[5])):
+        ms, plain_ms, chained = time_pair(lambda: kernels.mc_match(*args),
+                                          lambda: kernels.mc_match_ref(*args), plain_calls=10)
+        rounds_ms = statistics.median(time_ms(lambda: kernels.mc_match_rounds(*args), 20))
+        n_rounds, batch = args[5].shape[0], args[5].shape[1]
+        # every input read once, pose, prob and trace written once
+        n_bytes = 4 * (sum(a.numel() for a in args[:6]) + 3 + 1 + n_rounds)
+        n_ops = OVERLAP_OPS_PER_POINT * (1 + n_rounds * batch) * int((args[2] != 0).sum())
+        b_ms, by = bound_ms(n_bytes, n_ops)
+        print(f"mc_match {preset} K={batch} rounds={n_rounds} R'={args[1].shape[0]} 256^2: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, one overlap_score launch a round "
+              f"{rounds_ms:.4f} ms (medians of 100, 20 and 20 calls, CUDA events), kernel "
+              f"{chained:.4f} ms a launch over 200 back to back; bound {b_ms:.6f} ms by {by} "
+              f"({n_bytes} B, {n_ops} operations); no single PyTorch call computes it", flush=True)
+        entry[preset] = {"ms": ms, "plain_ms": plain_ms, "rounds_ms": rounds_ms,
+                         "chained_ms": chained, "bound_ms": b_ms, "bound_by": by}
+    return {
+        "name": "mc_match", "route": "cuda",
+        "source": "slam_constructor_tpu_torch/csrc/mc_match.cu",
+        "replaces": "slam_constructor_tpu/ops/pallas_kernels.py:73",
+        "max_abs_err": max_err, "cases_bitwise_equal_to_rounds": len(cases),
+        "cases_parted_from_twin": parted, **entry["viny"], "by_path": entry,
+        "library_ms": None,
     }
 
 
@@ -342,19 +552,16 @@ def run_main_path(cfg, scans, odom, gt, sync_mode):
     return traj, probs, time.perf_counter() - t0
 
 
-def phase_main_path(name, cfg, want_launches, scans, odom, gt, odo_ate, ate_limit, repeat):
-    """Warm-up, then the timed run with the counts at 0 before and read
-    after; returns the launch counts of the timed run."""
-    from slam_constructor_tpu_torch.ops import kernels
+def phase_main_path(name, cfg, want_launches, scans, odom, gt, odo_ate, ate_limit):
+    """The timed run (the path was warmed up by the run that captured the
+    match states) with the counts at 0 before and read after, then once
+    more for repeatability; returns the launch counts and the trajectory
+    of the timed run."""
     from slam_constructor_tpu_torch.utils import evaluate
 
-    wrappers = {"overlap_score": kernels.overlap_score,
-                "polar_free_plane": kernels.polar_free_plane}
-    run_main_path(cfg, scans, odom, gt, 0)  # warm-up
-    for fn in wrappers.values():
-        fn.n_launches = 0
+    reset_launches()
     traj, probs, secs = run_main_path(cfg, scans, odom, gt, "error")
-    launches = {k: fn.n_launches for k, fn in wrappers.items()}
+    launches = read_launches()
     print(f"{name} main path: {N_SCANS} scans in {secs:.3f} s = {N_SCANS / secs:.1f} scans/s "
           f"with the sync check on, no host sync; launches {launches} "
           f"(expected {want_launches})", flush=True)
@@ -366,11 +573,52 @@ def phase_main_path(name, cfg, want_launches, scans, odom, gt, odo_ate, ate_limi
           f"odometry-only ATE {odo_ate:.4f} m, min prob {float(probs[1:].min()):.4f}", flush=True)
     check(ate < odo_ate and ate <= ate_limit,
           f"{name}: ATE {ate} not below odometry {odo_ate} and {ate_limit}")
-    if repeat:
-        traj2, _, secs2 = run_main_path(cfg, scans, odom, gt, 0)
-        rep = float((traj2 - traj).abs().max())
-        print(f"{name} repeatability: max|pose diff| between two runs {rep:.3e}; second run, "
-              f"sync check off: {N_SCANS / secs2:.1f} scans/s", flush=True)
+    traj2, _, secs2 = run_main_path(cfg, scans, odom, gt, 0)
+    rep = float((traj2 - traj).abs().max())
+    print(f"{name} repeatability: max|pose diff| between two runs {rep:.3e}; second run, "
+          f"sync check off: {N_SCANS / secs2:.1f} scans/s", flush=True)
+    check(torch.equal(traj2, traj), f"{name}: two runs differ by {rep}")
+    return launches, traj
+
+
+@functools.cache
+def launch_counters():
+    """The three wrappers, looked up once, before any stand-in is handed in."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    return {"overlap_score": kernels.overlap_score, "mc_match": kernels.mc_match,
+            "polar_free_plane": kernels.polar_free_plane}
+
+
+def reset_launches() -> None:
+    for fn in launch_counters().values():
+        fn.n_launches = 0
+
+
+def read_launches() -> dict:
+    return {k: fn.n_launches for k, fn in launch_counters().items()}
+
+
+def phase_rounds_path(cfg, scans, odom, gt, fused_traj):
+    """The first scans of the viny path with `mc_match_rounds` handed in in
+    the fused kernel's place: the same trajectory bit for bit, and the
+    launches of `overlap_score` it takes."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    n = ROUNDS_PATH_SCANS
+    with handed_in(kernels.mc_match_rounds):
+        reset_launches()
+        traj, _, secs = run_main_path(cfg, scans[:n], odom[:n], gt, "error")
+        launches = read_launches()
+    want = {"overlap_score": n * (cfg.matcher_cfg.rounds + 1), "mc_match": 0,
+            "polar_free_plane": n}
+    diff = float((traj - fused_traj[:n]).abs().max())
+    print(f"viny path with one overlap_score launch a round, {n} scans: {n / secs:.1f} scans/s; "
+          f"launches {launches} (expected {want}); max|pose diff| to the fused path {diff:.3e}",
+          flush=True)
+    check(launches == want, f"rounds path: launches {launches}, expected {want}")
+    check(torch.equal(traj, fused_traj[:n]),
+          f"the fused match and one launch a round give different trajectories: {diff}")
     return launches
 
 
@@ -399,31 +647,37 @@ def main() -> None:
             print(f"  ptxas: {line.strip()}", flush=True)
     _build.load()
 
+    launch_counters()
     scans, odom, gt = bench_sequence(dev)
     k1 = phase_overlap_kernel(dev, scans, gt)
     k2 = phase_polar_kernel(dev, scans, gt)
 
     tiny_cfg, viny_cfg = tiny.tiny_config(map_size=MAP), viny.viny_config(map_size=MAP)
+    k3 = phase_mc_match(dev, capture_match_states(tiny_cfg, scans, odom, gt),
+                        capture_match_states(viny_cfg, scans, odom, gt))
     phase_card_vs_cpu("tiny", tiny_cfg, dev, scans, odom, gt)
     phase_card_vs_cpu("viny", viny_cfg, dev, scans, odom, gt)
 
     odo_ate = float(evaluate.ate(odometry_trajectory(gt[0], odom), gt, align=False))
-    tiny_launches = phase_main_path(
-        "tiny", tiny_cfg,
-        {"overlap_score": N_SCANS * (tiny_cfg.matcher_cfg.rounds + 1), "polar_free_plane": 0},
-        scans, odom, gt, odo_ate, 0.15, repeat=True)
-    viny_launches = phase_main_path(
-        "viny", viny_cfg,
-        {"overlap_score": N_SCANS * (viny_cfg.matcher_cfg.rounds + 1),
-         "polar_free_plane": N_SCANS},
-        scans, odom, gt, odo_ate, max(VINY_REFERENCE_ATE_BY_KEY) + VINY_ATE_MARGIN, repeat=True)
+    tiny_launches, _ = phase_main_path(
+        "tiny", tiny_cfg, {"overlap_score": 0, "mc_match": N_SCANS, "polar_free_plane": 0},
+        scans, odom, gt, odo_ate, 0.15)
+    viny_launches, viny_traj = phase_main_path(
+        "viny", viny_cfg, {"overlap_score": 0, "mc_match": N_SCANS, "polar_free_plane": N_SCANS},
+        scans, odom, gt, odo_ate, max(VINY_REFERENCE_ATE_BY_KEY) + VINY_ATE_MARGIN)
+    rounds_launches = phase_rounds_path(viny_cfg, scans, odom, gt, viny_traj)
 
-    for k in (k1, k2):
-        k["launches"] = viny_launches[k["name"]]  # the path that runs both kernels
-        k["launches_by_path"] = {"tiny": tiny_launches[k["name"]],
-                                 "viny": viny_launches[k["name"]]}
-        check(k["launches"] > 0, f"{k['name']} was not launched on the viny main path")
-    print(json.dumps({"kernels": [k1, k2]}), flush=True)
+    # `launches`: of the viny main path's timed run, held to the expected
+    # counts above. `overlap_score` left the main paths for `score_poses`, so
+    # it reads 0 there; the path driven with one launch of it a round stands
+    # under `launches_by_path` only
+    for k in (k1, k3, k2):
+        k["launches"] = viny_launches[k["name"]]
+        k["launches_by_path"] = {
+            "tiny": tiny_launches[k["name"]], "viny": viny_launches[k["name"]],
+            f"viny, one overlap_score launch a round, {ROUNDS_PATH_SCANS} scans":
+                rounds_launches[k["name"]]}
+    print(json.dumps({"kernels": [k1, k3, k2]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
 

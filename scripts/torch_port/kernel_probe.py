@@ -4,15 +4,24 @@ and back-to-back launch times.
 
     python3 scripts/torch_port/kernel_probe.py
 
-Prints ptxas' registers and shared memory for every kernel; for every
-kernel in the built library the count of SASS instructions by opcode
+Prints ptxas' registers, spills and shared memory for every kernel; for
+every kernel in the built library the count of SASS instructions by opcode
 (``cuobjdump -sass``; the straight-line length of a kernel is what
 ``chip_smoke.py``'s operation counts for the roofline bound are checked
-against); ``polar_free_plane`` against ``polar_free_plane_ref`` at 256^2
-cells and 360 beams; and the time of 200 launches queued back to back
-between one pair of CUDA events, divided by 200, for both kernels (a
-launch's cost with the queue kept full, beside ``chip_smoke.py``'s time of
-a single call between its own events). Imports no JAX.
+against); ``polar_free_plane`` (both ways of building its range table)
+against ``polar_free_plane_ref`` at 256^2 cells and 360 beams; ``mc_match``
+against ``mc_match_rounds`` (bit for bit) and ``mc_match_ref`` at the tiny
+and viny main-path shapes; and three times a launch for every kernel:
+
+- chained: 200 calls of the wrapper queued back to back between one pair of
+  CUDA events, over 200 (the host's cost of a call shows here);
+- graph: the same 200 calls captured once into a CUDA graph and replayed,
+  between one pair of events, over 200: the device's time a launch with the
+  gap between two kernels, and no host in it;
+- device: ``torch.profiler``'s mean device time of the kernel over those
+  replays, to hold against the graph's slope.
+
+Imports no JAX.
 """
 
 from __future__ import annotations
@@ -74,6 +83,60 @@ def chained_ms(fn, n: int = 200) -> float:
     return a.elapsed_time(b) / n
 
 
+def graph_ms(fn, n: int = 200, replays: int = 7):
+    """ms a launch with ``n`` calls of ``fn`` captured into one CUDA graph:
+    the median over ``replays`` replays, and the profiler's device time by
+    kernel name (us a launch) over them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up where the capture will run
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(replays):
+            graph.replay()
+        torch.cuda.synchronize()
+    device = {k.key: k.device_time_total / k.count for k in prof.key_averages()
+              if getattr(k, "device_time_total", 0) > 0 and k.count >= n}
+    return sorted(times)[len(times) // 2], device
+
+
+def report(name, fn) -> None:
+    chained = chained_ms(fn)
+    graph, device = graph_ms(fn)
+    rows = "; ".join(f"{k[:48]} {v:.2f} us" for k, v in device.items()) or "no device rows"
+    print(f"time [{name}]: chained {chained * 1e3:.2f} us, graph {graph * 1e3:.2f} us a launch "
+          f"(200 each); profiler device time: {rows}", flush=True)
+
+
+def mc_case(scoring, view, scan, pose, cfg, weights, dev, seed):
+    """(args of mc_match) at a preset's matcher shape around ``pose``."""
+    m = cfg.matcher_cfg
+    prep = scoring.prepare(view, scan, m.scoring, weights)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    noise = torch.randn((m.rounds, m.batch, 3), generator=g, device=dev)
+    prior = pose + torch.tensor([0.04, -0.03, 0.02], device=dev)
+    return (prep.plane, prep.pts, prep.beam_w, prep.origin, prior, noise, prep.scale,
+            prep.unknown, m.sigma_xy, m.sigma_theta, m.bad_rounds_before_anneal)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA GPU")
@@ -100,12 +163,35 @@ def main() -> None:
     args = (scan.ranges, scan.valid, scan.bearings, pose,
             torch.tensor([-12.8, -12.8], device=dev), 256, 256, 0.1, beam.hole_width / 2.0,
             beam.max_range)
-    got, want = kernels.polar_free_plane(*args), kernels.polar_free_plane_ref(*args)
+
+    want = kernels.polar_free_plane_ref(*args)
+    got = kernels.polar_free_plane(*args)
     torch.cuda.synchronize()
     both = (got > 0) & (want > 0)
     print(f"polar_free_plane vs twin: free {int(both.sum())}, flipped "
-          f"{int(((got > 0) != (want > 0)).sum())}, max |diff| {float((got - want).abs().max()):.3e}, "
-          f"bitwise equal {torch.equal(got, want)}")
+          f"{int(((got > 0) != (want > 0)).sum())}, max |diff| "
+          f"{float((got - want).abs().max()):.3e}, bitwise equal {torch.equal(got, want)}",
+          flush=True)
+
+    mc = {}
+    for name, cfg, weights in (
+        ("tiny", tiny.tiny_config(map_size=256), None),
+        ("viny", viny.viny_config(map_size=256),
+         torch.rand((360,), device=dev, generator=torch.Generator(device=dev).manual_seed(3))),
+    ):
+        gm = raycast.insert_scan(init_state(cfg, dev).gm, cfg.cell_model, pose, scan, cfg.beam)
+        view = scoring.MapView.of(gm, cfg.cell_model)
+        mc[name] = mc_case(scoring, view, scan, pose, cfg, weights, dev, seed=11)
+        got = kernels.mc_match(*mc[name])
+        rounds = kernels.mc_match_rounds(*mc[name])
+        twin = kernels.mc_match_ref(*mc[name])
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, rounds))
+        print(f"mc_match [{name}] K={mc[name][5].shape[1]} rounds={mc[name][5].shape[0]} "
+              f"R'={mc[name][1].shape[0]}: bitwise equal to mc_match_rounds {same}; "
+              f"max |trace diff| {float((got[2] - rounds[2]).abs().max()):.3e}; vs twin: max "
+              f"|trace diff| {float((got[2] - twin[2]).abs().max()):.3e}, |pose diff| "
+              f"{float((got[0] - twin[0]).abs().max()):.3e}; prob {float(got[1]):.6f}", flush=True)
 
     cfg = tiny.tiny_config(map_size=256)
     gm = raycast.insert_scan(init_state(cfg, dev).gm, cfg.cell_model, pose, scan, cfg.beam)
@@ -113,12 +199,20 @@ def main() -> None:
     cand = pose + 0.05 * torch.randn((64, 3), device=dev)
     sargs = (prep.plane, cand, prep.pts, prep.beam_w, prep.origin, prep.scale, prep.unknown)
     for name, fn in (
-        ("polar_free_plane", lambda: kernels.polar_free_plane(*args)),
-        ("polar_free_plane_ref", lambda: kernels.polar_free_plane_ref(*args)),
+        ("polar_free_plane 256^2 R=360", lambda: kernels.polar_free_plane(*args)),
         ("overlap_score K=64 R=360", lambda: kernels.overlap_score(*sargs)),
-        ("torch.empty((256, 256)) alone", lambda: torch.empty((256, 256), device=dev)),
+        ("mc_match tiny", lambda: kernels.mc_match(*mc["tiny"])),
+        ("mc_match viny", lambda: kernels.mc_match(*mc["viny"])),
     ):
-        print(f"chained [{name}]: {chained_ms(fn):.5f} ms a launch (200 back to back)")
+        report(name, fn)
+    for name, fn in (
+        ("torch.empty((256, 256)) alone", lambda: torch.empty((256, 256), device=dev)),
+        ("mc_match_rounds tiny", lambda: kernels.mc_match_rounds(*mc["tiny"])),
+        ("mc_match_rounds viny", lambda: kernels.mc_match_rounds(*mc["viny"])),
+        ("polar_free_plane_ref", lambda: kernels.polar_free_plane_ref(*args)),
+    ):
+        print(f"chained [{name}]: {chained_ms(fn, 50) * 1e3:.2f} us a call (50 back to back)",
+              flush=True)
 
 
 if __name__ == "__main__":

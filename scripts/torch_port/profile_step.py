@@ -8,6 +8,10 @@ After a warm-up over the bench sequence's first scans it prints:
   ending in a synchronise);
 - with a synchronise after each phase of ``slam_step``: ms a scan of the
   beam weights, the match, the rasterisation and the cell fold;
+- the match alone (``monte_carlo_match`` at a fixed state), synced ms a
+  call and ATen calls, through the fused kernel ``mc_match`` and with
+  ``mc_match_rounds`` (one ``overlap_score`` launch a round) handed in in
+  its place, measured in turns;
 - the rasterisation alone (``scan_observation_planes`` at a fixed pose),
   synced ms a call, with the polar fill through the kernel, with the DDA
   fill, and with the polar fill through the plain twin in the kernel's
@@ -124,10 +128,37 @@ def main() -> None:
     print("synced phases, ms a scan: " + ", ".join(
         f"{k} {v / n * 1e3:.3f}" for k, v in phases.items()))
 
-    # --- the rasterisation alone, by free fill -------------------------------
+    # --- the match alone, by who runs the rounds ------------------------------
     # in turns, because the host's speed drifts within a run: the median of
-    # seven rounds of 40 synced calls each, and the range over the rounds
+    # seven rounds of 20 synced calls each, and the range over the rounds
     scan, pose, gm = scans[n_warm], gt[n_warm], warm.gm
+    view = scoring.MapView.of(gm, cfg.cell_model)
+    pw = engine._point_weights(cfg, scan)
+    fused = kernels.mc_match
+    matchers_by = {"mc_match (one launch)": fused,
+                   "mc_match_rounds (one overlap_score launch a round)": kernels.mc_match_rounds}
+    rounds = {k: [] for k in matchers_by}
+    calls = {}
+    try:
+        for r in range(7):
+            order = list(matchers_by) if r % 2 == 0 else list(matchers_by)[::-1]
+            for name in order:
+                kernels.mc_match = matchers_by[name]
+                rounds[name].append(synced_ms(
+                    lambda: matchers.monte_carlo_match(view, scan, pose, gen, cfg.matcher_cfg, pw),
+                    20))
+                if name not in calls:
+                    with CountOps() as c:
+                        matchers.monte_carlo_match(view, scan, pose, gen, cfg.matcher_cfg, pw)
+                    calls[name] = c.n
+    finally:
+        kernels.mc_match = fused
+    for name, ms in rounds.items():
+        print(f"match through {name}: median {statistics.median(ms):.4f} ms a call synced "
+              f"(rounds {min(ms):.4f}-{max(ms):.4f}), {calls[name]} ATen calls")
+
+    # --- the rasterisation alone, by free fill -------------------------------
+    # in turns again: seven rounds of 40 synced calls each
     kernel, twin = kernels.polar_free_plane, kernels.polar_free_plane_ref
     variants = {
         "polar (kernel)": ("polar", kernel),
@@ -184,7 +215,8 @@ def main() -> None:
     print(f"profiled {n} scans: device kernel time {dev_s:.4f} s = {dev_s / secs * 100:.1f}% of "
           f"the unprofiled {secs:.3f} s ({dev_s / wall * 100:.1f}% of the profiled {wall:.3f} s); "
           f"{sum(k.count for k in rows) / n:.0f} kernels a scan")
-    ours = [k for k in rows if "overlap_score_kernel" in k.key or "polar_free_kernel" in k.key]
+    ours = [k for k in rows
+            if any(n in k.key for n in ("mc_match_kernel", "overlap_score_kernel", "polar_free_kernel"))]
     top = sorted(rows, key=lambda k: -k.device_time_total)[:10]
     for k in ours + [k for k in top if k not in ours]:
         print(f"  {k.device_time_total * 1e-3:9.3f} ms  {k.count:6d} x  "

@@ -4,8 +4,8 @@ Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all
 started together, and the objects are linked into one shared library with a
 plain C interface, loaded with ``ctypes``. The library lands in
 ``build/torch_kernels/`` at the root of the checkout, named after a hash of
-the sources and flags, so it is built on first CUDA use and rebuilt when a
-source changes. Importing this module runs nothing; a machine without
+the sources, headers (``csrc/*.cuh``) and flags, so it is built on first
+CUDA use and rebuilt when one of them changes. Importing this module runs nothing; a machine without
 ``nvcc`` imports the package and runs the CPU path.
 """
 
@@ -70,7 +70,8 @@ def _sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
-    for src in _sources():
+    # the headers too: a source includes them from its own directory
+    for src in (*_sources(), *sorted(CSRC_DIR.glob("*.cuh"))):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{LIB_NAME}-{h.hexdigest()[:16]}.so"

@@ -5,6 +5,13 @@ overlap reducer at extent 1. It replaces the TPU kernel
 ``slam_constructor_tpu/ops/pallas_kernels.py::sample_plane_bilinear`` fused
 with the pose transform and weighted mean of ``scoring.score_poses``.
 
+``mc_match`` runs one whole Monte-Carlo match (the first score, every
+round's candidates, argmax, keep-if-better and the sigma anneal) in one
+launch on a thread-block cluster; it is the same TPU kernel's counterpart
+on the matcher's path, with the matcher's round loop folded in.
+``mc_match_rounds`` is the same match with ``overlap_score`` launched once
+a round, kept as the yardstick the fused kernel must equal bit for bit.
+
 ``polar_free_plane`` fills the dense polar free-space weight plane of one
 scan. It replaces ``pallas_kernels.py::polar_free_lookup`` together with
 the plane math that ``raycast._polar_free_plane_pallas`` computes around
@@ -28,6 +35,9 @@ from . import _build
 from .geometry import wrap_angle
 
 Tensor = torch.Tensor
+
+#: shared memory a block may use without opting in to more
+_MAX_SHARED_BYTES = 48 * 1024
 
 
 def _axis_taps(pos: Tensor, n: int):
@@ -158,10 +168,219 @@ def overlap_score(
 overlap_score.n_launches = 0
 
 
+# --- one Monte-Carlo match ----------------------------------------------------
+
+
+def mc_match_loop(
+    score,
+    plane: Tensor,
+    pts: Tensor,
+    beam_w: Tensor,
+    origin: Tensor,
+    init_pose: Tensor,
+    noise: Tensor,
+    scale: float,
+    unknown: float,
+    sigma_xy: float,
+    sigma_theta: float,
+    bad_rounds_before_anneal: int,
+):
+    """The match as a Python loop over device tensors with no host sync:
+    keep-if-better and the anneal are ``torch.where``. ``score`` has
+    ``overlap_score``'s signature and is called once for the first pose and
+    once a round."""
+    dev = init_pose.device
+    best_pose = init_pose
+    best_prob = score(plane, init_pose[None, :].contiguous(), pts, beam_w, origin, scale, unknown)[0]
+    # built from fills: assigning a Python float into a CUDA tensor syncs
+    sigma = torch.cat([
+        torch.full((2,), sigma_xy, dtype=torch.float32, device=dev),
+        torch.full((1,), sigma_theta, dtype=torch.float32, device=dev),
+    ])
+    bad = torch.zeros((), dtype=torch.int32, device=dev)
+    trace = []
+    for r in range(noise.shape[0]):
+        nz = noise[r] * sigma
+        cand = torch.cat(
+            [best_pose[None, :2] + nz[:, :2], wrap_angle(best_pose[None, 2:] + nz[:, 2:])],
+            dim=-1,
+        )
+        probs = score(plane, cand.contiguous(), pts, beam_w, origin, scale, unknown)
+        # argmax ties go to the first index, as in the reference
+        i = torch.argmax(probs, dim=0, keepdim=True)
+        p_i = probs.gather(0, i)[0]
+        better = p_i > best_prob  # strict, and never true for a NaN score
+        best_pose = torch.where(better, cand.index_select(0, i)[0], best_pose)
+        best_prob = torch.where(better, p_i, best_prob)
+        bad = torch.where(better, 0, bad + 1)
+        anneal = bad >= bad_rounds_before_anneal
+        sigma = torch.where(anneal, sigma * 0.5, sigma)
+        bad = torch.where(anneal, 0, bad)
+        trace.append(p_i)
+    if not trace:
+        return best_pose, best_prob, torch.empty((0,), dtype=torch.float32, device=dev)
+    return best_pose, best_prob, torch.stack(trace)
+
+
+def mc_match_ref(
+    plane, pts, beam_w, origin, init_pose, noise, scale, unknown, sigma_xy, sigma_theta,
+    bad_rounds_before_anneal,
+):
+    """Plain PyTorch version of :func:`mc_match`: the round loop over
+    ``overlap_score_ref``."""
+    return mc_match_loop(
+        overlap_score_ref, plane, pts, beam_w, origin, init_pose, noise, scale, unknown,
+        sigma_xy, sigma_theta, bad_rounds_before_anneal,
+    )
+
+
+def mc_match_rounds(
+    plane, pts, beam_w, origin, init_pose, noise, scale, unknown, sigma_xy, sigma_theta,
+    bad_rounds_before_anneal,
+):
+    """The same match with :func:`overlap_score` called once for the first
+    pose and once a round (``1 + rounds`` launches on the card) and the rest
+    of a round in PyTorch ops. Nothing on the main path calls it: it is what
+    :func:`mc_match` is held to, bit for bit, on the card."""
+    return mc_match_loop(
+        overlap_score, plane, pts, beam_w, origin, init_pose, noise, scale, unknown,
+        sigma_xy, sigma_theta, bad_rounds_before_anneal,
+    )
+
+
+@functools.cache
+def _mc_match_fn():
+    fn = _build.load().mc_match_launch
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # plane, h, w
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # pts, beam_w, r
+        ctypes.c_void_p, ctypes.c_void_p,  # origin, init_pose
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # noise, rounds, k
+        ctypes.c_float, ctypes.c_float,  # scale, unknown
+        ctypes.c_float, ctypes.c_float, ctypes.c_int,  # sigma_xy, sigma_theta, bad rounds
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # pose, prob, trace
+        ctypes.c_int, ctypes.c_void_p,  # dynamic shared bytes, stream
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+#: candidates one cluster scores at a time: 8 blocks of 8 groups (mc_match.cu)
+_MC_CANDIDATES_PER_PASS = 64
+
+
+def _mc_match_shared_bytes(r: int, k: int, rounds: int) -> int:
+    """Dynamic shared memory a block of the ``mc_match`` kernel asks for:
+    the scan (``pts`` and ``beam_w``, 12 B a beam), two buffers of this
+    block's scores, 8 a pass, and the noise (12 B a candidate and round)."""
+    passes = -(-k // _MC_CANDIDATES_PER_PASS)
+    return 12 * r + 2 * 8 * passes * 4 + 12 * rounds * k
+
+
+#: what a block of the ``mc_match`` kernel may ask for: Hopper's 227 KB a
+#: block less the kernel's static part (per-thread partial sums, 2 x 1024
+#: floats, and the replicated match state)
+_MC_MAX_DYNAMIC_SHARED_BYTES = 227 * 1024 - (2 * 1024 * 4 + 64)
+
+
+def mc_match(
+    plane: Tensor,
+    pts: Tensor,
+    beam_w: Tensor,
+    origin: Tensor,
+    init_pose: Tensor,
+    noise: Tensor,
+    scale: float,
+    unknown: float,
+    sigma_xy: float,
+    sigma_theta: float,
+    bad_rounds_before_anneal: int,
+):
+    """One Monte-Carlo match -> (pose f32[3], prob f32[], trace f32[rounds]).
+
+    plane f32[H, W] (``where(known, occ, unknown)``), pts f32[R, 2], beam_w
+    f32[R], origin f32[2], init_pose f32[3], noise f32[rounds, K, 3]
+    standard normals. Round r scores the K candidates ``best + noise[r] *
+    sigma`` (theta wrapped), takes the best (ties to the first), keeps it if
+    it is strictly better, and halves sigma after
+    ``bad_rounds_before_anneal`` rounds without improvement.
+
+    CPU tensors take the plain twin; CUDA tensors launch the kernel on the
+    current stream, once, and add one to ``mc_match.n_launches``.
+    """
+    args = (plane, pts, beam_w, origin, init_pose, noise, scale, unknown, sigma_xy,
+            sigma_theta, bad_rounds_before_anneal)
+    if plane.device.type == "cpu":
+        return mc_match_ref(*args)
+    dev = plane.device
+    if dev.type != "cuda":
+        raise ValueError(f"mc_match: unsupported device {dev}")
+    h, w = plane.shape
+    r = pts.shape[0]
+    if noise.dim() != 3:
+        raise ValueError(f"noise has shape {tuple(noise.shape)}, expected (rounds, K, 3)")
+    rounds, k = noise.shape[0], noise.shape[1]
+    if rounds > 0 and k < 1:
+        raise ValueError("mc_match: a round needs at least one candidate")
+    shared = _mc_match_shared_bytes(r, k, rounds)
+    if shared > _MC_MAX_DYNAMIC_SHARED_BYTES:
+        raise ValueError(
+            f"mc_match: {r} beams and {rounds} rounds of {k} candidates need {shared} B of "
+            f"dynamic shared memory, more than {_MC_MAX_DYNAMIC_SHARED_BYTES} B"
+        )
+    _check("plane", plane, (h, w), dev)
+    _check("pts", pts, (r, 2), dev)
+    _check("beam_w", beam_w, (r,), dev)
+    _check("origin", origin, (2,), dev)
+    _check("init_pose", init_pose, (3,), dev)
+    _check("noise", noise, (rounds, k, 3), dev)
+    pose = torch.empty((3,), dtype=torch.float32, device=dev)
+    prob = torch.empty((), dtype=torch.float32, device=dev)
+    trace = torch.empty((rounds,), dtype=torch.float32, device=dev)
+    fn = _mc_match_fn()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            plane.data_ptr(), h, w, pts.data_ptr(), beam_w.data_ptr(), r,
+            origin.data_ptr(), init_pose.data_ptr(), noise.data_ptr(), rounds, k,
+            scale, unknown, sigma_xy, sigma_theta, bad_rounds_before_anneal,
+            pose.data_ptr(), prob.data_ptr(), trace.data_ptr(), shared, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"mc_match kernel launch failed: cudaError_t {err}")
+    mc_match.n_launches += 1
+    return pose, prob, trace
+
+
+#: kernel launches since the count was last set to 0 (CUDA tensors only)
+mc_match.n_launches = 0
+
+
 # --- polar free-space fill ----------------------------------------------------
 
-#: static shared memory a block may use without opting in to more
-_MAX_SHARED_BYTES = 48 * 1024
+
+def polar_range_table(ranges: Tensor, valid: Tensor, bearings: Tensor):
+    """(rng_eff f32[R], db f32[], full_circle bool[]) of one scan: the
+    conservative range of each bearing bin, the bearing spacing, and whether
+    the scan goes round the circle. No cell further than ``max(rng_eff)``
+    from the sensor can be free."""
+    r = ranges.shape[0]
+    b0 = bearings[0]
+    db = (bearings[-1] - b0) / torch.full_like(b0, float(max(r - 1, 1)))
+    db = torch.where(torch.abs(db) < 1e-6, 1.0, db)
+    full_circle = torch.abs(db) * r >= 2.0 * math.pi - 1.5 * torch.abs(db)
+    # conservative range per bin: min over the beam and its neighbours.
+    # Invalid beams give no free evidence themselves (0) but do not cut
+    # their neighbours' sectors short (inf).
+    rng_inf = torch.where(valid, ranges, math.inf)
+    prev_r = torch.where(
+        full_circle, torch.roll(rng_inf, 1), torch.cat([rng_inf[:1], rng_inf[:-1]])
+    )
+    next_r = torch.where(
+        full_circle, torch.roll(rng_inf, -1), torch.cat([rng_inf[1:], rng_inf[-1:]])
+    )
+    rng_eff = torch.where(valid, torch.minimum(ranges, torch.minimum(prev_r, next_r)), 0.0)
+    return rng_eff, db, full_circle
 
 
 def polar_free_plane_ref(
@@ -200,27 +419,13 @@ def polar_free_plane_ref(
     dx = xs[None, :] - pose[0]  # [1, W]
     d = torch.sqrt(dx * dx + dy * dy)  # [H, W]
     ang = torch.atan2(dy, dx) - pose[2]
-    b0 = bearings[0]
-    db = (bearings[-1] - b0) / torch.full_like(b0, float(max(r - 1, 1)))
-    db = torch.where(torch.abs(db) < 1e-6, 1.0, db)
-    binf = wrap_angle(ang - b0) / db
+    rng_eff, db, full_circle = polar_range_table(ranges, valid, bearings)
+    binf = wrap_angle(ang - bearings[0]) / db
     bini = torch.round(binf).to(torch.int64)  # half to even, as jnp.round
     in_fov = (bini >= 0) & (bini <= r - 1)
-    full_circle = torch.abs(db) * r >= 2.0 * math.pi - 1.5 * torch.abs(db)
     ok = in_fov | full_circle
     # remainder takes the divisor's sign: never negative
     bini = torch.where(full_circle, torch.remainder(bini, r), torch.clamp(bini, 0, r - 1))
-    # conservative range per bin: min over the beam and its neighbours.
-    # Invalid beams give no free evidence themselves (0) but do not cut
-    # their neighbours' sectors short (inf).
-    rng_inf = torch.where(valid, ranges, math.inf)
-    prev_r = torch.where(
-        full_circle, torch.roll(rng_inf, 1), torch.cat([rng_inf[:1], rng_inf[:-1]])
-    )
-    next_r = torch.where(
-        full_circle, torch.roll(rng_inf, -1), torch.cat([rng_inf[1:], rng_inf[-1:]])
-    )
-    rng_eff = torch.where(valid, torch.minimum(ranges, torch.minimum(prev_r, next_r)), 0.0)
     cell_range = rng_eff[bini]
     free = ok & (d < cell_range - hole_half) & (d < max_range)
     den = 2.0 * torch.clamp(d, min=scale * 0.5)
@@ -270,9 +475,11 @@ def polar_free_plane(
     r = ranges.shape[0]
     if r < 1 or h < 1 or w < 1:
         raise ValueError(f"polar_free_plane: empty scan or plane (R={r}, H={h}, W={w})")
-    if r * 4 > _MAX_SHARED_BYTES:
+    # the range table, its maximum, and 32 B of static shared memory
+    shared = (r + 1) * 4 + 32
+    if shared > _MAX_SHARED_BYTES:
         raise ValueError(
-            f"polar_free_plane: {r} beams need {r * 4} B of shared memory, "
+            f"polar_free_plane: {r} beams need {shared} B of shared memory, "
             f"more than {_MAX_SHARED_BYTES} B"
         )
     _check("ranges", ranges, (r,), dev)

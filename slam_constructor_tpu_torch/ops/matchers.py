@@ -2,9 +2,10 @@
 
 Each round scores a batch of candidates drawn around the best pose so far,
 keeps the best if it improves, and halves sigma after repeated failures.
-The rounds are a Python loop over device tensors with no host sync: keep-
-if-better and the anneal are ``torch.where``. Hill-climbing, brute-force
-and gradient matchers wait for later slices.
+The whole match is one call of ``kernels.mc_match``: one kernel launch on
+the card, the plain round loop on the CPU; neither syncs with the host.
+The standard normals are drawn here, outside the kernel. Hill-climbing,
+brute-force and gradient matchers wait for later slices.
 """
 
 from __future__ import annotations
@@ -13,8 +14,7 @@ import dataclasses
 
 import torch
 
-from . import scoring
-from .geometry import wrap_angle
+from . import kernels, scoring
 
 Tensor = torch.Tensor
 
@@ -50,9 +50,10 @@ def monte_carlo_match(
     """Refine ``init_pose`` f32[3].
 
     ``noise`` f32[rounds, batch, 3] holds the standard normals of every
-    round; when it is None they are drawn on the pose's device from
-    ``generator``. The reference draws ``jax.random.normal(key_r, (batch,
-    3))`` per round; a test hands those very numbers in here.
+    round, ``cfg.rounds`` by ``cfg.batch`` of them; when it is None they
+    are drawn on the pose's device from ``generator``. The reference draws
+    ``jax.random.normal(key_r, (batch, 3))`` per round; a test hands those
+    very numbers in here.
     """
     dev = init_pose.device
     if noise is None:
@@ -60,35 +61,18 @@ def monte_carlo_match(
             (cfg.rounds, cfg.batch, 3), generator=generator, device=dev,
             dtype=torch.float32,
         )
-    prep = scoring.prepare(view, scan, cfg.scoring, point_weights)
-    best_pose = init_pose
-    best_prob = scoring.score_prepared(prep, init_pose[None, :])[0]
-    # built from fills: assigning a Python float into a CUDA tensor syncs
-    sigma = torch.cat([
-        torch.full((2,), cfg.sigma_xy, dtype=torch.float32, device=dev),
-        torch.full((1,), cfg.sigma_theta, dtype=torch.float32, device=dev),
-    ])
-    bad = torch.zeros((), dtype=torch.int32, device=dev)
-    trace = []
-    for r in range(cfg.rounds):
-        nz = noise[r] * sigma
-        cand = torch.cat(
-            [best_pose[None, :2] + nz[:, :2], wrap_angle(best_pose[None, 2:] + nz[:, 2:])],
-            dim=-1,
+    elif tuple(noise.shape) != (cfg.rounds, cfg.batch, 3):
+        raise ValueError(
+            f"noise {tuple(noise.shape)} is not (rounds, batch, 3) = "
+            f"({cfg.rounds}, {cfg.batch}, 3)"
         )
-        probs = scoring.score_prepared(prep, cand)
-        # argmax ties go to the first index, as in the reference
-        i = torch.argmax(probs, dim=0, keepdim=True)
-        p_i = probs.gather(0, i)[0]
-        better = p_i > best_prob
-        best_pose = torch.where(better, cand.index_select(0, i)[0], best_pose)
-        best_prob = torch.where(better, p_i, best_prob)
-        bad = torch.where(better, 0, bad + 1)
-        anneal = bad >= cfg.bad_rounds_before_anneal
-        sigma = torch.where(anneal, sigma * 0.5, sigma)
-        bad = torch.where(anneal, 0, bad)
-        trace.append(p_i)
-    return MatchResult(pose=best_pose, prob=best_prob, trace=torch.stack(trace))
+    prep = scoring.prepare(view, scan, cfg.scoring, point_weights)
+    pose, prob, trace = kernels.mc_match(
+        prep.plane, prep.pts, prep.beam_w, prep.origin, init_pose.contiguous(),
+        noise.contiguous(), prep.scale, prep.unknown, cfg.sigma_xy, cfg.sigma_theta,
+        cfg.bad_rounds_before_anneal,
+    )
+    return MatchResult(pose=pose, prob=prob, trace=trace)
 
 
 #: registry for the config system; the other matchers join in later slices

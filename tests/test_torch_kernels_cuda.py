@@ -11,7 +11,10 @@ twin: atol 2e-6, the bound the reference holds its Pallas kernel to.
 ``polar_free_plane`` does the twin's f32 arithmetic in the twin's order with
 the same device math routines; a cell on a knife edge of its free test may
 still flip, so the test counts them: at most 8 of a 256^2 plane, weights
-within 1e-6 relative elsewhere.
+within 1e-6 relative elsewhere. ``mc_match`` runs a whole Monte-Carlo match
+in one launch with the arithmetic of ``mc_match_rounds`` (one
+``overlap_score`` launch a round) in the same order: equal bit for bit; its
+plain twin sums a score in another order, hence atol 2e-6 on the trace.
 """
 
 import pytest
@@ -124,3 +127,56 @@ def test_polar_free_plane_rejects_bad_input(scene):
         kernels.polar_free_plane(
             torch.ones(big, device=cand.device), torch.ones(big, dtype=torch.bool, device=cand.device),
             torch.linspace(-3.14, 3.14, big, device=cand.device), *args[3:])
+
+
+def _match_args(scene, batch, rounds, stride, weighted, bad_rounds=2):
+    view, scan, cand, g = scene
+    dev = cand.device
+    w = torch.rand((360,), generator=g, device=dev) if weighted else None
+    prep = scoring.prepare(view, scan, scoring.ScoringConfig(reducer="overlap", stride=stride), w)
+    noise = torch.randn((rounds, batch, 3), generator=g, device=dev)
+    prior = cand[0].clone()  # within 0.3 m and 0.2 rad of the scan's pose
+    return (prep.plane, prep.pts, prep.beam_w, prep.origin, prior, noise, prep.scale,
+            prep.unknown, 0.1, 0.05, bad_rounds)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,rounds,stride,weighted,bad_rounds", [
+    (64, 12, 1, False, 2), (64, 16, 2, True, 2), (8, 6, 1, False, 1), (100, 5, 2, True, 2),
+    (32, 1, 1, True, 2), (20, 0, 1, False, 2),
+])
+def test_mc_match_kernel_equals_one_launch_a_round(scene, batch, rounds, stride, weighted,
+                                                   bad_rounds):
+    args = _match_args(scene, batch, rounds, stride, weighted, bad_rounds)
+    before = (kernels.mc_match.n_launches, kernels.overlap_score.n_launches)
+    got = kernels.mc_match(*args)
+    assert (kernels.mc_match.n_launches, kernels.overlap_score.n_launches) == (
+        before[0] + 1, before[1])
+    want = kernels.mc_match_rounds(*args)
+    twin = kernels.mc_match_ref(*args)
+    torch.cuda.synchronize()
+    assert kernels.overlap_score.n_launches == before[1] + 1 + rounds
+    assert got[0].shape == (3,) and got[1].shape == () and got[2].shape == (rounds,)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)  # bit for bit
+    # the twin keeps the same candidates unless a round is decided by less
+    # than the tolerance; the trace's first round never depends on that
+    torch.testing.assert_close(got[2][:1], twin[2][:1], atol=ATOL, rtol=0)
+    if float((got[0] - twin[0]).abs().max()) <= 1e-6:
+        torch.testing.assert_close(got[2], twin[2], atol=ATOL, rtol=0)
+        torch.testing.assert_close(got[1], twin[1], atol=ATOL, rtol=0)
+    for a, b in zip(kernels.mc_match(*args), got):
+        assert torch.equal(a, b)  # the same bits on every call
+
+
+@pytest.mark.cuda
+def test_mc_match_rejects_bad_input(scene):
+    args = list(_match_args(scene, 64, 4, 1, False))
+    with pytest.raises(TypeError):
+        kernels.mc_match(*args[:5], args[5].double(), *args[6:])
+    with pytest.raises(ValueError):
+        kernels.mc_match(*args[:4], args[4].cpu(), *args[5:])
+    with pytest.raises(ValueError):  # a round without a candidate
+        kernels.mc_match(*args[:5], args[5][:, :0].contiguous(), *args[6:])
+    with pytest.raises(ValueError):  # the noise alone is 240,000 B of shared memory
+        kernels.mc_match(*args[:5], torch.zeros((20, 1000, 3), device=args[4].device), *args[6:])
