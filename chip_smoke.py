@@ -20,13 +20,16 @@ Phases, one line or more each, in order; any failure exits non-zero:
 5. ``mc_match`` (one launch a match) against ``mc_match_rounds`` (one
    ``overlap_score`` launch a round) on the card: (map, scan, prior) states
    taken from every 32nd scan of a tiny and a viny run over the bench
-   sequence, plus edge cases (batch 8 to 100, 0 and 1 rounds, no valid
+   sequence and of a run of the loop-closing pipeline over its own (a 192^2
+   window of the map with a shifted origin, 180 beams, 12 rounds), plus
+   edge cases (batch 8 to 100, 0 and 1 rounds, no valid
    beam, a prior 0.5 m from the map's edge, noise of zeros, duplicated
    candidates, a NaN weight): pose, prob and trace must be equal bit for
    bit. The same cases against the plain twin ``mc_match_ref``: trace and
    prob within 2e-6, or, where the two part, a round before that in which
    the twin's keep-if-better or argmax was decided by less than 4e-6.
-   Then all three timed at tiny's and viny's shapes;
+   Then all three timed at the shapes of the tiny, the viny and the full
+   path;
 6. card vs CPU: the first 8 scans of the sequence on the card and on the
    CPU (plain twins) with the same matcher noise, for tinySLAM and vinySLAM;
 7. tinySLAM main path (``tiny_config(map_size=256)``) over the bench
@@ -42,7 +45,32 @@ Phases, one line or more each, in order; any failure exits non-zero:
    keys: the card draws its own matcher noise);
 9. the first 64 scans of the viny path with ``mc_match_rounds`` handed in
    in the fused kernel's place (``overlap_score`` launched 64 x 17 times):
-   the trajectory must equal the fused path's first 64 poses bit for bit.
+   the trajectory must equal the fused path's first 64 poses bit for bit;
+10. the loop-closing pipeline, ``FullSlamEngine`` at the width of bench.py's
+   ``full`` preset: 512 scans over two laps of the cecum rectangle, 360
+   beams, a 256^2 map, tracker ``tiny.fast_config(map_size=256, stride=2,
+   mc_rounds=12)`` (``mc_match`` on a 192^2 window), keyframes 0.7 m apart,
+   up to 4 loop candidates a keyframe on 120^2 submaps, a closure burst
+   every 8 loops, one segment. A warm-up run (made before phase 5) keeps
+   the arguments of every 32nd match and of every launch of
+   ``overlap_score_batched``; then the timed run, with
+   ``torch.cuda.set_sync_debug_mode("error")`` while the segment is tracked:
+   ``mc_match`` launched 512 times, ``overlap_score_batched`` twice a
+   keyframe batch and twice a densify round (the brute-force grid and the
+   information estimate), keyframes > 0 and loops >= 1, the corrected
+   trajectory's ATE below odometry's, no more than 0.02 m above the worst
+   of the JAX reference's five matcher keys on the same sequence and no
+   more than 0.02 m above the same tracker's ATE without the graph; then
+   once more: trajectory, graph and map equal bit for bit;
+11. ``overlap_score_batched`` on the kept launches (M up to 32 submaps of
+   120^2, K = 343 and K = 7, a different scan a map) and on edge cases
+   (M = 1, M = 5, a map with no valid beam): against its plain twin
+   (max |diff| <= 2e-6) and against M single-plane ``overlap_score``
+   launches (bit for bit); then timed at M = 32, K = 343;
+12. card vs CPU over a short loop-closing run (a lap and 14 scans more, 360
+   beams, keyframe batches and closure bursts included) with the same
+   matcher noise: the same graph structure and loop count, poses within
+   1e-3.
 
 The launch counts are set to 0 just before each of these runs and read just
 after it. The line before the last is a JSON object of the
@@ -53,7 +81,6 @@ network and starts no process that outlives it.
 from __future__ import annotations
 
 import contextlib
-import functools
 import json
 import math
 import statistics
@@ -76,6 +103,13 @@ N_SCANS, N_BEAMS, MAP = 512, 360, 256
 #: key's noise injected the port on the CPU reads that key's figure.
 VINY_REFERENCE_ATE_BY_KEY = (0.07265, 0.07982, 0.07299, 0.11143, 0.11816)
 VINY_ATE_MARGIN = 0.02
+
+#: corrected-trajectory ATE of the JAX reference's ``FullSlamEngine`` on a
+#: CPU over the full path's sequence and configuration, once for each
+#: matcher key PRNGKey(0..4) (`JAX_PLATFORMS=cpu python
+#: scripts/torch_port/reference_ate.py --preset full --keys 5`)
+FULL_REFERENCE_ATE_BY_KEY = (0.07739, 0.07623, 0.08515, 0.08183, 0.07648)
+FULL_ATE_MARGIN = 0.02
 
 #: the card's published peaks (NVIDIA H100 SXM data sheet)
 PEAK_BYTES_PER_S = 3.35e12
@@ -100,6 +134,8 @@ OVERLAP_OPS_PER_POINT = 8 + 4 + 24 + 14 + 3
 #: argmax may therefore fall the other way when they lie within 2 x TOL
 KNIFE_EDGE = 4e-6
 ROUNDS_PATH_SCANS = 64
+#: which of the full path's kept states is timed: scan 288, on the second lap
+FULL_TIMED_STATE = 9
 
 
 def fail(msg: str) -> None:
@@ -131,6 +167,34 @@ def bench_sequence(device):
     return datagen.synth_sequence(
         occ, origin, scale, poses, datagen.default_bearings(N_BEAMS, device=device),
         rng=np.random.default_rng(0), odom_noise_xy=0.01, odom_noise_theta=0.005,
+    )
+
+
+def full_sequence(device, n_scans=N_SCANS, step=2 * 27.2 / N_SCANS, noise=(0.01, 0.005)):
+    """bench.py's ``full`` geometry: ``n_scans`` scans over laps of the
+    cecum rectangle (two laps of 27.2 m at the defaults, so that the graph
+    closes loops), 360 beams, odometry noise from a seeded numpy rng."""
+    from slam_constructor_tpu_torch.utils import datagen
+
+    occ, origin, scale = datagen.cecum_world(device=device)
+    lap = datagen.rectangle_trajectory(step=step, device=device)
+    reps = (n_scans + lap.shape[0] - 1) // lap.shape[0]
+    poses = lap.repeat(reps, 1)[:n_scans]
+    return datagen.synth_sequence(
+        occ, origin, scale, poses, datagen.default_bearings(N_BEAMS, device=device),
+        rng=np.random.default_rng(0), odom_noise_xy=noise[0], odom_noise_theta=noise[1],
+    )
+
+
+def full_config(**kwargs):
+    """bench.py's ``full`` preset."""
+    from slam_constructor_tpu_torch.models import full, posegraph, tiny
+
+    return full.FullConfig(
+        tracking=tiny.fast_config(map_size=MAP, stride=2, mc_rounds=12),
+        graph=posegraph.PoseGraphConfig(
+            keyframe_distance=0.7, min_index_gap=8, max_candidates=4, local_map_size=120),
+        **{"optimize_every_loops": 8, **kwargs},
     )
 
 
@@ -347,17 +411,33 @@ def bits(t):
 
 
 @contextlib.contextmanager
-def handed_in(fn):
-    """``fn`` stands in the package's ``kernels.mc_match`` while the block
-    runs, so an engine run goes through it."""
+def handed_in(fn, name="mc_match", module=None):
+    """``fn`` stands in the package's ``kernels.mc_match`` (or another
+    function of a module of the package) while the block runs, so an engine
+    run goes through it."""
     from slam_constructor_tpu_torch.ops import kernels
 
-    fused = kernels.mc_match
-    kernels.mc_match = fn
+    module = module or kernels
+    kept = getattr(module, name)
+    setattr(module, name, fn)
     try:
         yield
     finally:
-        kernels.mc_match = fused
+        setattr(module, name, kept)
+
+
+def recorder(fn, every=1):
+    """``fn`` with the arguments of every ``every``-th call kept: returns
+    the stand-in and the list it fills."""
+    kept, n = [], [0]
+
+    def recording(*args):
+        if n[0] % every == 0:
+            kept.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+        n[0] += 1
+        return fn(*args)
+
+    return recording, kept
 
 
 def capture_match_states(cfg, scans, odom, gt, every=32):
@@ -365,15 +445,7 @@ def capture_match_states(cfg, scans, odom, gt, every=32):
     arguments of every ``every``-th match."""
     from slam_constructor_tpu_torch.ops import kernels
 
-    fused, kept, n = kernels.mc_match, [], [0]
-
-    def recording(*args):  # the wrapper counts its launches on the name it is called by
-        if n[0] % every == 0:
-            kept.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
-        n[0] += 1
-        return fused(*args)
-
-    recording.n_launches = 0
+    recording, kept = recorder(kernels.mc_match, every)
     with handed_in(recording):
         run_main_path(cfg, scans, odom, gt, 0)
     return kept
@@ -387,15 +459,18 @@ def with_noise(args, rounds, batch, gen, bad_rounds=None):
     return tuple(a)
 
 
-def match_cases(tiny_states, viny_states, dev):
+def match_cases(tiny_states, viny_states, full_states, dev):
     """(name, args of mc_match): the captured states and the edge cases."""
     g = torch.Generator(device=dev).manual_seed(7)
     cases = [(f"tiny scan {32 * i}", a) for i, a in enumerate(tiny_states)]
     cases += [(f"viny scan {32 * i}", a) for i, a in enumerate(viny_states)]
-    t, v = tiny_states[3], viny_states[5]  # scans 96 and 160: a map with walls on it
+    cases += [(f"full scan {32 * i}", a) for i, a in enumerate(full_states)]
+    # scans 96, 160 and 288: a map with walls on it; the last on the second lap
+    t, v, f = tiny_states[3], viny_states[5], full_states[FULL_TIMED_STATE]
     for batch in (8, 32, 64, 96, 100):
         cases.append((f"tiny state, batch {batch}", with_noise(t, 12, batch, g)))
         cases.append((f"viny state, batch {batch}", with_noise(v, 16, batch, g)))
+        cases.append((f"full state (window), batch {batch}", with_noise(f, 12, batch, g)))
     for rounds in (0, 1):
         cases.append((f"tiny state, rounds={rounds}", with_noise(t, rounds, 64, g)))
         cases.append((f"viny state, rounds={rounds}, batch 20", with_noise(v, rounds, 20, g)))
@@ -416,6 +491,11 @@ def match_cases(tiny_states, viny_states, dev):
     nan_w = v[2].clone()
     nan_w[5] = float("nan")
     cases.append(("a NaN beam weight: NaN scores, never better", replaced(v, beam_w=nan_w)))
+    cases.append(("full state, no valid beam", replaced(f, beam_w=torch.zeros_like(f[2]))))
+    # the window's origin is shifted: a prior 0.4 m inside its far corner
+    reach = f[0].shape[0] * f[6] - 0.4
+    corner = torch.cat([f[3] + reach, f[4][2:]])
+    cases.append(("full state, prior in the window's corner", replaced(f, init_pose=corner)))
     return cases
 
 
@@ -442,13 +522,18 @@ def twin_record(args):
     return out, torch.stack(margins) if margins else torch.empty((0,), device=best.device)
 
 
-def phase_mc_match(dev, tiny_states, viny_states):
+def phase_mc_match(dev, tiny_states, viny_states, full_states):
     """`mc_match` vs `mc_match_rounds` (bitwise) and vs `mc_match_ref` over
-    real states and edge cases; then the three timed at the main paths'
-    shapes. Returns the `kernels` entry without the launch count."""
+    real states of the three main paths and edge cases; then the three
+    timed at each path's shapes. Returns the `kernels` entry without the
+    launch count."""
     from slam_constructor_tpu_torch.ops import kernels
 
-    cases = match_cases(tiny_states, viny_states, dev)
+    f = full_states[FULL_TIMED_STATE]
+    check((tuple(f[0].shape), f[1].shape[0], tuple(f[5].shape)) == ((192, 192), 180, (12, 64, 3)),
+          f"the full path's match is {tuple(f[0].shape)} R'={f[1].shape[0]} noise "
+          f"{tuple(f[5].shape)}, not a 192^2 window, 180 beams and 12 rounds of 64")
+    cases = match_cases(tiny_states, viny_states, full_states, dev)
     max_err, parted = 0.0, 0
     for name, args in cases:
         got = kernels.mc_match(*args)
@@ -483,14 +568,16 @@ def phase_mc_match(dev, tiny_states, viny_states):
                   f"mc_match pose differs from its twin ({name}): {pose_err}")
             err = max(err, p_err)
         max_err = max(max_err, err)
-        print(f"mc_match [{name}]: K={batch} rounds={n_rounds} R'={args[1].shape[0]} equal to "
+        print(f"mc_match [{name}]: K={batch} rounds={n_rounds} R'={args[1].shape[0]} "
+              f"{args[0].shape[0]}x{args[0].shape[1]} equal to "
               f"mc_match_rounds bit for bit; vs plain twin max|diff|={err:.3e} over "
               f"{first} rounds (tol {TOL:g})", flush=True)
     print(f"mc_match: {len(cases)} cases equal to mc_match_rounds bit for bit; {parted} part from "
           f"the plain twin after a round decided by less than {KNIFE_EDGE:g}", flush=True)
 
     entry = {}
-    for preset, args in (("tiny", tiny_states[3]), ("viny", viny_states[5])):
+    for preset, args in (("tiny", tiny_states[3]), ("viny", viny_states[5]),
+                         ("full", full_states[FULL_TIMED_STATE])):
         ms, plain_ms, chained = time_pair(lambda: kernels.mc_match(*args),
                                           lambda: kernels.mc_match_ref(*args), plain_calls=10)
         rounds_ms = statistics.median(time_ms(lambda: kernels.mc_match_rounds(*args), 20))
@@ -499,7 +586,8 @@ def phase_mc_match(dev, tiny_states, viny_states):
         n_bytes = 4 * (sum(a.numel() for a in args[:6]) + 3 + 1 + n_rounds)
         n_ops = OVERLAP_OPS_PER_POINT * (1 + n_rounds * batch) * int((args[2] != 0).sum())
         b_ms, by = bound_ms(n_bytes, n_ops)
-        print(f"mc_match {preset} K={batch} rounds={n_rounds} R'={args[1].shape[0]} 256^2: kernel "
+        print(f"mc_match {preset} K={batch} rounds={n_rounds} R'={args[1].shape[0]} "
+              f"{args[0].shape[0]}x{args[0].shape[1]}: kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, one overlap_score launch a round "
               f"{rounds_ms:.4f} ms (medians of 100, 20 and 20 calls, CUDA events), kernel "
               f"{chained:.4f} ms a launch over 200 back to back; bound {b_ms:.6f} ms by {by} "
@@ -581,22 +669,16 @@ def phase_main_path(name, cfg, want_launches, scans, odom, gt, odo_ate, ate_limi
     return launches, traj
 
 
-@functools.cache
-def launch_counters():
-    """The three wrappers, looked up once, before any stand-in is handed in."""
+def reset_launches() -> None:
     from slam_constructor_tpu_torch.ops import kernels
 
-    return {"overlap_score": kernels.overlap_score, "mc_match": kernels.mc_match,
-            "polar_free_plane": kernels.polar_free_plane}
-
-
-def reset_launches() -> None:
-    for fn in launch_counters().values():
-        fn.n_launches = 0
+    kernels.reset_launch_counts()
 
 
 def read_launches() -> dict:
-    return {k: fn.n_launches for k, fn in launch_counters().items()}
+    from slam_constructor_tpu_torch.ops import kernels
+
+    return kernels.launch_counts()
 
 
 def phase_rounds_path(cfg, scans, odom, gt, fused_traj):
@@ -611,7 +693,7 @@ def phase_rounds_path(cfg, scans, odom, gt, fused_traj):
         traj, _, secs = run_main_path(cfg, scans[:n], odom[:n], gt, "error")
         launches = read_launches()
     want = {"overlap_score": n * (cfg.matcher_cfg.rounds + 1), "mc_match": 0,
-            "polar_free_plane": n}
+            "polar_free_plane": n, "overlap_score_batched": 0}
     diff = float((traj - fused_traj[:n]).abs().max())
     print(f"viny path with one overlap_score launch a round, {n} scans: {n / secs:.1f} scans/s; "
           f"launches {launches} (expected {want}); max|pose diff| to the fused path {diff:.3e}",
@@ -620,6 +702,226 @@ def phase_rounds_path(cfg, scans, odom, gt, fused_traj):
     check(torch.equal(traj, fused_traj[:n]),
           f"the fused match and one launch a round give different trajectories: {diff}")
     return launches
+
+
+def run_full_path(cfg, scans, odom, gt, sync_mode, noise=None, device=None):
+    """One run of the loop-closing pipeline from a fresh state through
+    ``FullSlamEngine.run``, the whole sequence as one segment; the sync
+    check is on only while the segment is tracked (the graph work that
+    follows fetches its counters by design). Returns the engine, the
+    corrected trajectory, the seconds of the whole run and of the tracking."""
+    from slam_constructor_tpu_torch.models import full
+
+    e = full.FullSlamEngine(cfg, n_beams=N_BEAMS, device=device, seed=0)
+    on_card = e.device.type == "cuda"
+    check(device is not None or on_card, f"FullSlamEngine defaulted to {e.device}, not the card")
+    e.state.pose = gt[0].to(e.device).clone()
+    tracked, track_secs = full.track_segment, [0.0]
+
+    def guarded(*args, **kwargs):
+        t0 = time.perf_counter()
+        if on_card:
+            torch.cuda.set_sync_debug_mode(sync_mode)
+        try:
+            out = tracked(*args, **kwargs)
+        finally:
+            if on_card:
+                torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.synchronize()
+        track_secs[0] += time.perf_counter() - t0
+        return out
+
+    if on_card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with handed_in(guarded, "track_segment", full):
+        traj = e.run(scans, odom, segment=len(scans), noise=noise)
+    if on_card:
+        torch.cuda.synchronize()
+    return e, traj, time.perf_counter() - t0, track_secs[0]
+
+
+def capture_full_launches(cfg, scans, odom, gt, every=32):
+    """A run of the full path (it also warms the path up) that keeps the
+    arguments of every ``every``-th match and of every launch of
+    ``overlap_score_batched``."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    match, states = recorder(kernels.mc_match, every)
+    batched, kept = recorder(kernels.overlap_score_batched)
+    with handed_in(match), handed_in(batched, "overlap_score_batched"):
+        run_full_path(cfg, scans, odom, gt, 0)
+    return states, kept
+
+
+def graph_bits(e):
+    """Everything of an engine's graph, map and live pose, as one list of
+    tensors, for comparing two runs bit for bit."""
+    g = e.graph
+    return [g.kf_poses, g.kf_scans.ranges, g.kf_scans.valid, g.n_kf, g.edge_i, g.edge_j,
+            g.edge_delta, g.edge_info, g.edge_is_loop, g.n_edges, g.last_kf, e.state.gm.cells,
+            e.state.pose]
+
+
+def phase_full_path(cfg, scans, odom, gt, odo_ate):
+    """The timed run of the full path with the counts at 0 before and read
+    after, its checks, and once more for repeatability; returns the launch
+    counts."""
+    from slam_constructor_tpu_torch.models import engine
+    from slam_constructor_tpu_torch.utils import evaluate
+
+    reset_launches()
+    e, traj, secs, track_secs = run_full_path(cfg, scans, odom, gt, "error")
+    launches = read_launches()
+    n_kf, n_edges = int(e.graph.n_kf), int(e.graph.n_edges)
+    # a keyframe batch and a densify round are two launches each: the
+    # brute-force grid, then the information estimate
+    want = {"overlap_score": 0, "mc_match": N_SCANS, "polar_free_plane": 0,
+            "overlap_score_batched": 2 * (e.n_kf_batches + cfg.densify_rounds * e.n_bursts)}
+    print(f"full main path: {N_SCANS} scans in {secs:.3f} s = {N_SCANS / secs:.1f} scans/s "
+          f"(tracking {track_secs:.3f} s with the sync check on, no host sync; keyframe work and "
+          f"bursts {secs - track_secs:.3f} s); {n_kf} keyframes in {e.n_kf_batches} batches, "
+          f"{n_edges} edges, {e.total_loops} loops, {e.n_bursts} bursts; launches {launches} "
+          f"(expected {want})", flush=True)
+    check(launches == want, f"full: launches {launches}, expected {want}")
+    check(n_kf > 0 and e.total_loops >= 1, f"full: {n_kf} keyframes, {e.total_loops} loops")
+    check(e.n_kf_batches == math.ceil(n_kf / cfg.kf_batch), "full: keyframe batches do not add up")
+    check(traj.shape == (N_SCANS, 3) and bool(torch.isfinite(traj).all()), "full: non-finite poses")
+    check(bool(torch.isfinite(e.occupancy).all()) and e.occupancy.shape == (MAP, MAP),
+          "full: the map is malformed")
+    ate = float(evaluate.ate(traj, gt, align=False))
+    raw_ate = float(evaluate.ate(torch.from_numpy(np.stack(e.trajectory)).to(gt.device), gt,
+                                 align=False))
+    # the same tracker without the graph, the same generator seed
+    t = engine.Engine(cfg.tracking, seed=0)
+    t.state.pose = gt[0].clone()
+    tracker_ate = float(evaluate.ate(t.run(scans, odom)[0], gt, align=False))
+    limit = max(FULL_REFERENCE_ATE_BY_KEY) + FULL_ATE_MARGIN
+    print(f"full main path: corrected-trajectory ATE {ate:.4f} m (no alignment; limits: the "
+          f"reference's worst key + margin {limit:.4f}, the tracker alone + margin "
+          f"{tracker_ate + FULL_ATE_MARGIN:.4f}), as tracked {raw_ate:.4f} m, the same tracker "
+          f"without the graph {tracker_ate:.4f} m, odometry only {odo_ate:.4f} m", flush=True)
+    check(ate < odo_ate, f"full: ATE {ate} not below odometry's {odo_ate}")
+    check(ate <= limit, f"full: ATE {ate} above the reference's worst key + margin {limit}")
+    check(ate <= tracker_ate + FULL_ATE_MARGIN,
+          f"full: the graph degrades the tracker: {ate} against {tracker_ate}")
+    e2, traj2, secs2, _ = run_full_path(cfg, scans, odom, gt, 0)
+    same = torch.equal(traj2, traj) and all(
+        torch.equal(a, b) for a, b in zip(graph_bits(e), graph_bits(e2)))
+    print(f"full repeatability: max|pose diff| between two runs "
+          f"{float((traj2 - traj).abs().max()):.3e}, graph and map equal: {same}; second run, "
+          f"sync check off: {N_SCANS / secs2:.1f} scans/s", flush=True)
+    check(same, "full: two runs differ")
+    return launches
+
+
+def phase_batched_kernel(dev, kept):
+    """`overlap_score_batched` on the launches kept from a full run and on
+    edge cases: against its plain twin and against M single-plane launches;
+    then timed. Returns the `kernels` entry without the launch count."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    grids = [a for a in kept if a[1].shape[1] > 7]
+    sevens = [a for a in kept if a[1].shape[1] == 7]
+    check(grids and sevens, "the full run launched no grid or no information estimate")
+    big = max(grids, key=lambda a: a[0].shape[0])
+    n_m, k = big[1].shape[:2]
+    check((n_m, k, big[0].shape[1:], big[2].shape[1]) == (32, 343, (120, 120), 180),
+          f"the widest kept launch is M={n_m} K={k} {tuple(big[0].shape[1:])} R'={big[2].shape[1]}")
+
+    def sub(a, m):  # the maps m of a launch
+        return tuple(t[m].contiguous() for t in a[:5]) + tuple(a[5:])
+
+    def edited(a, i, t):
+        return a[:i] + (t,) + a[i + 1:]
+
+    no_beam = big[3].clone()
+    no_beam[1] = 0.0
+    shifted = torch.stack([big[2][m].roll(3 * m, 0) for m in range(n_m)])  # other points a map
+    cases = [
+        ("kept: the widest grid", big),
+        ("kept: its information estimate", max(sevens, key=lambda a: a[0].shape[0])),
+        ("kept: the narrowest grid", min(grids, key=lambda a: a[0].shape[0])),
+        ("kept: every 16th launch", None),
+        ("M=1", sub(big, slice(0, 1))),
+        ("M=5", sub(big, slice(3, 8))),
+        ("a map with no valid beam", edited(big, 3, no_beam)),
+        ("differing points a map", edited(big, 2, shifted)),
+        ("poses of map 0 far off their submap", edited(big, 1, big[1] + torch.tensor(
+            [40.0, 0.0, 0.0], device=dev) * (torch.arange(n_m, device=dev) == 0)[:, None, None])),
+    ]
+    max_err = 0.0
+    for name, args in cases:
+        for a in (kept[::16] if args is None else [args]):
+            got = kernels.overlap_score_batched(*a)
+            want = kernels.overlap_score_ref(*a)
+            singles = torch.stack([kernels.overlap_score(*sub(a, m)) for m in range(a[0].shape[0])])
+            torch.cuda.synchronize()
+            check(got.shape == a[1].shape[:2] and bool(torch.isfinite(got).all()),
+                  f"overlap_score_batched output malformed ({name})")
+            err = float((got - want).abs().max())
+            check(err <= TOL, f"overlap_score_batched disagrees with its twin ({name}): {err}")
+            check(torch.equal(bits(got), bits(singles)),
+                  f"overlap_score_batched differs from single-plane launches ({name}): "
+                  f"{float((got - singles).abs().max())}")
+            max_err = max(max_err, err)
+        shape = "" if args is None else (f" M={args[0].shape[0]} K={args[1].shape[1]} "
+                                         f"R'={args[2].shape[1]}")
+        print(f"overlap_score_batched [{name}]:{shape} max|diff| to the plain twin so far "
+              f"{max_err:.3e} (tol {TOL:g}); equal to single-plane launches bit for bit", flush=True)
+    check(not bool(kernels.overlap_score_batched(*cases[6][1])[1].any()),
+          "a map with no valid beam must score 0")
+
+    ms, plain_ms, chained = time_pair(lambda: kernels.overlap_score_batched(*big),
+                                      lambda: kernels.overlap_score_ref(*big))
+    singles_ms = statistics.median(time_ms(
+        lambda: [kernels.overlap_score(*sub(big, m)) for m in range(n_m)], 20))
+    n_bytes = 4 * (sum(t.numel() for t in big[:5]) + n_m * k)
+    n_ops = OVERLAP_OPS_PER_POINT * k * int((big[3] != 0).sum())
+    b_ms, by = bound_ms(n_bytes, n_ops)
+    print(f"overlap_score_batched M={n_m} K={k} R'=180 120^2: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms (median of 100 calls each, CUDA events), kernel {chained:.4f} ms a "
+          f"launch over 200 back to back, {n_m} single-plane launches {singles_ms:.4f} ms (median "
+          f"of 20); bound {b_ms:.6f} ms by {by} ({n_bytes} B, {n_ops} operations); no single "
+          f"PyTorch call computes it", flush=True)
+    return {
+        "name": "overlap_score_batched", "route": "cuda",
+        "source": "slam_constructor_tpu_torch/csrc/overlap_score.cu",
+        "replaces": "slam_constructor_tpu/ops/pallas_kernels.py:73",
+        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "chained_ms": chained,
+        "single_plane_launches_ms": singles_ms, "bound_ms": b_ms, "bound_by": by,
+        "library_ms": None,
+    }
+
+
+def phase_full_card_vs_cpu(dev):
+    """A short loop-closing run (a lap of the rectangle and 14 scans more,
+    keyframe batches and closure bursts included) on the card and on the CPU
+    with the same matcher noise."""
+    n = 92
+    scans, odom, gt = full_sequence(dev, n_scans=n, step=0.35, noise=(0.02, 0.012))
+    cfg = full_config(optimize_every_loops=2)
+    mc = cfg.tracking.matcher_cfg
+    noise = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (n, mc.rounds, mc.batch, 3)).astype(np.float32))
+    runs = []
+    for d in (None, "cpu"):
+        e, traj, _, _ = run_full_path(cfg, scans, odom, gt, 0, noise=noise, device=d)
+        runs.append((e, traj.cpu()))
+    (a, ta), (b, tb) = runs
+    diff = float((ta - tb).abs().max())
+    n_e = int(a.graph.n_edges)
+    same = (int(b.graph.n_edges) == n_e and int(a.graph.n_kf) == int(b.graph.n_kf)
+            and a.total_loops == b.total_loops and a.n_bursts == b.n_bursts
+            and torch.equal(a.graph.edge_i.cpu(), b.graph.edge_i)
+            and torch.equal(a.graph.edge_j.cpu(), b.graph.edge_j))
+    print(f"full card vs CPU, {n} scans: {int(a.graph.n_kf)} keyframes, {n_e} edges, "
+          f"{a.total_loops} loops, {a.n_bursts} bursts on the card; the same graph structure on "
+          f"the CPU: {same}; max|pose diff| of the corrected trajectory {diff:.3e} (tol 1e-3)",
+          flush=True)
+    check(a.total_loops >= 1 and a.n_bursts >= 1, "full card vs CPU: no loop closed")
+    check(same, "full card vs CPU: the graphs differ in structure")
+    check(diff <= 1e-3, f"full card vs CPU: trajectories disagree: {diff}")
 
 
 def main() -> None:
@@ -647,37 +949,48 @@ def main() -> None:
             print(f"  ptxas: {line.strip()}", flush=True)
     _build.load()
 
-    launch_counters()
     scans, odom, gt = bench_sequence(dev)
     k1 = phase_overlap_kernel(dev, scans, gt)
     k2 = phase_polar_kernel(dev, scans, gt)
 
     tiny_cfg, viny_cfg = tiny.tiny_config(map_size=MAP), viny.viny_config(map_size=MAP)
+    fscans, fodom, fgt = full_sequence(dev)
+    full_cfg = full_config()
+    full_states, kept = capture_full_launches(full_cfg, fscans, fodom, fgt)
     k3 = phase_mc_match(dev, capture_match_states(tiny_cfg, scans, odom, gt),
-                        capture_match_states(viny_cfg, scans, odom, gt))
+                        capture_match_states(viny_cfg, scans, odom, gt), full_states)
     phase_card_vs_cpu("tiny", tiny_cfg, dev, scans, odom, gt)
     phase_card_vs_cpu("viny", viny_cfg, dev, scans, odom, gt)
 
     odo_ate = float(evaluate.ate(odometry_trajectory(gt[0], odom), gt, align=False))
     tiny_launches, _ = phase_main_path(
-        "tiny", tiny_cfg, {"overlap_score": 0, "mc_match": N_SCANS, "polar_free_plane": 0},
+        "tiny", tiny_cfg, {"overlap_score": 0, "mc_match": N_SCANS, "polar_free_plane": 0,
+                           "overlap_score_batched": 0},
         scans, odom, gt, odo_ate, 0.15)
     viny_launches, viny_traj = phase_main_path(
-        "viny", viny_cfg, {"overlap_score": 0, "mc_match": N_SCANS, "polar_free_plane": N_SCANS},
+        "viny", viny_cfg, {"overlap_score": 0, "mc_match": N_SCANS, "polar_free_plane": N_SCANS,
+                           "overlap_score_batched": 0},
         scans, odom, gt, odo_ate, max(VINY_REFERENCE_ATE_BY_KEY) + VINY_ATE_MARGIN)
     rounds_launches = phase_rounds_path(viny_cfg, scans, odom, gt, viny_traj)
 
-    # `launches`: of the viny main path's timed run, held to the expected
-    # counts above. `overlap_score` left the main paths for `score_poses`, so
-    # it reads 0 there; the path driven with one launch of it a round stands
-    # under `launches_by_path` only
-    for k in (k1, k3, k2):
-        k["launches"] = viny_launches[k["name"]]
+    full_odo_ate = float(evaluate.ate(odometry_trajectory(fgt[0], fodom), fgt, align=False))
+    full_launches = phase_full_path(full_cfg, fscans, fodom, fgt, full_odo_ate)
+    k4 = phase_batched_kernel(dev, kept)
+    phase_full_card_vs_cpu(dev)
+
+    # `launches`: of a main path's timed run, held to the expected counts
+    # above: the viny path's for the kernels of the earlier slices, the full
+    # path's for the batched score. `overlap_score` left the main paths for
+    # `score_poses`, so it reads 0 there; the path driven with one launch of
+    # it a round stands under `launches_by_path` only
+    for k in (k1, k3, k2, k4):
+        k["launches"] = (full_launches if k is k4 else viny_launches)[k["name"]]
         k["launches_by_path"] = {
             "tiny": tiny_launches[k["name"]], "viny": viny_launches[k["name"]],
+            "full": full_launches[k["name"]],
             f"viny, one overlap_score launch a round, {ROUNDS_PATH_SCANS} scans":
                 rounds_launches[k["name"]]}
-    print(json.dumps({"kernels": [k1, k3, k2]}), flush=True)
+    print(json.dumps({"kernels": [k1, k3, k2, k4]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
 

@@ -11,7 +11,10 @@ every kernel in the built library the count of SASS instructions by opcode
 against); ``polar_free_plane`` (both ways of building its range table)
 against ``polar_free_plane_ref`` at 256^2 cells and 360 beams; ``mc_match``
 against ``mc_match_rounds`` (bit for bit) and ``mc_match_ref`` at the tiny
-and viny main-path shapes; and three times a launch for every kernel:
+and viny main-path shapes; ``overlap_score_batched`` against its twin at the
+loop closer's shapes (M submaps of 120^2 cells cut from the probe's map, the
+343 poses of a 7^3 grid or the 7 of an information estimate, every second
+beam); and three times a launch for every kernel:
 
 - chained: 200 calls of the wrapper queued back to back between one pair of
   CUDA events, over 200 (the host's cost of a call shows here);
@@ -198,7 +201,36 @@ def main() -> None:
     prep = scoring.prepare(scoring.MapView.of(gm, cfg.cell_model), scan, cfg.matcher_cfg.scoring)
     cand = pose + 0.05 * torch.randn((64, 3), device=dev)
     sargs = (prep.plane, cand, prep.pts, prep.beam_w, prep.origin, prep.scale, prep.unknown)
+    from slam_constructor_tpu_torch.ops import matchers
+
+    def submaps(n_maps, k):
+        """(args of overlap_score_batched): crops of the plane, each with its
+        own origin, scan mask and poses."""
+        grid = matchers.brute_force_offsets(matchers.BruteForceConfig(
+            half_x=0.6, half_y=0.6, half_theta=0.3, n_x=7, n_y=7, n_theta=7), dev)[:k]
+        planes, origins, weights, poses = [], [], [], []
+        for m in range(n_maps):
+            r0, c0 = 60 + 2 * (m % 9), 70 + 3 * (m % 7)
+            planes.append(prep.plane[r0:r0 + 120, c0:c0 + 120])
+            origins.append(prep.origin + torch.tensor([c0 * 0.1, r0 * 0.1], device=dev))
+            weights.append(prep.beam_w[::2] * (torch.arange(180, device=dev) % (5 + m % 3) != 1))
+            poses.append(pose + grid + 0.01 * m)
+        return (torch.stack(planes).contiguous(), torch.stack(poses).contiguous(),
+                prep.pts[::2][None].expand(n_maps, -1, -1).contiguous(), torch.stack(weights),
+                torch.stack(origins), prep.scale, prep.unknown)
+
+    batched = {(m, k): submaps(m, k) for m, k in ((32, 343), (32, 7), (4, 343), (1, 343))}
+    for (m, k), bargs in batched.items():
+        got = kernels.overlap_score_batched(*bargs)
+        want = kernels.overlap_score_ref(*bargs)
+        torch.cuda.synchronize()
+        print(f"overlap_score_batched M={m} K={k} R'=180 120^2 vs twin: max |diff| "
+              f"{float((got - want).abs().max()):.3e}, scores {float(got.min()):.4f}.."
+              f"{float(got.max()):.4f}", flush=True)
+
     for name, fn in (
+        *((f"overlap_score_batched M={m} K={k}", lambda a=a: kernels.overlap_score_batched(*a))
+          for (m, k), a in batched.items()),
         ("polar_free_plane 256^2 R=360", lambda: kernels.polar_free_plane(*args)),
         ("overlap_score K=64 R=360", lambda: kernels.overlap_score(*sargs)),
         ("mc_match tiny", lambda: kernels.mc_match(*mc["tiny"])),

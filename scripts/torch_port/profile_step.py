@@ -21,6 +21,15 @@ After a warm-up over the bench sequence's first scans it prints:
   a share of the unprofiled wall time, the port's own kernels and the
   kernels with the most device time, with launches.
 
+With ``--preset full`` it profiles the loop-closing pipeline over
+``chip_smoke.py``'s full sequence instead (512 scans, two laps, one
+segment): scans/s of ``FullSlamEngine.run``; then, from a run with a
+synchronise after each phase, the seconds, the calls, the ATen calls and the
+kernel launches of the tracking (a scan), the keyframe work (a batch) and
+the closure bursts (a burst, with and without the map's regeneration); and
+from ``torch.profiler`` over one more run the device's kernel time as a
+share of the unprofiled wall time and the kernels with the most device time.
+
 Imports no JAX. Every figure is a measurement on the card it names.
 """
 
@@ -62,11 +71,14 @@ def synced_ms(fn, calls):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--preset", choices=("tiny", "viny"), default="viny")
+    ap.add_argument("--preset", choices=("tiny", "viny", "full"), default="viny")
     ap.add_argument("--scans", type=int, default=64)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA GPU")
+    if args.preset == "full":
+        profile_full()
+        return
 
     from slam_constructor_tpu_torch.models import engine, tiny, viny
     from slam_constructor_tpu_torch.ops import grid as gridlib
@@ -219,6 +231,121 @@ def main() -> None:
             if any(n in k.key for n in ("mc_match_kernel", "overlap_score_kernel", "polar_free_kernel"))]
     top = sorted(rows, key=lambda k: -k.device_time_total)[:10]
     for k in ours + [k for k in top if k not in ours]:
+        print(f"  {k.device_time_total * 1e-3:9.3f} ms  {k.count:6d} x  "
+              f"{k.device_time_total / k.count:8.2f} us  {k.key[:90]}")
+
+
+def profile_full() -> None:
+    from chip_smoke import N_BEAMS, N_SCANS, full_config, full_sequence
+    from slam_constructor_tpu_torch.models import full
+    from slam_constructor_tpu_torch.ops import kernels
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip())
+    scans, odom, gt = full_sequence(dev)
+    cfg = full_config()
+    ours = ("mc_match", "overlap_score_batched")
+
+    def engine_run(instrument=None):
+        e = full.FullSlamEngine(cfg, n_beams=N_BEAMS, seed=0)
+        e.state.pose = gt[0].clone()
+        if instrument:
+            instrument(e)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e.run(scans, odom, segment=N_SCANS)
+        torch.cuda.synchronize()
+        return e, time.perf_counter() - t0
+
+    engine_run()  # warm-up
+    for _ in range(2):
+        e, secs = engine_run()
+        print(f"full: {N_SCANS} scans in {secs:.3f} s = {N_SCANS / secs:.1f} scans/s; "
+              f"{int(e.graph.n_kf)} keyframes, {e.n_kf_batches} batches, {e.total_loops} loops, "
+              f"{e.n_bursts} bursts")
+
+    # --- phases: a synchronise, the ATen calls and the launches of each -----
+    stats = {}
+
+    def phased(name, fn, counter):
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            before = kernels.launch_counts()
+            n0, t0 = counter.n, time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            row = stats.setdefault(name(), {"calls": 0, "secs": 0.0, "aten": 0,
+                                            **{k: 0 for k in ours}})
+            row["calls"] += 1
+            row["secs"] += time.perf_counter() - t0
+            row["aten"] += counter.n - n0
+            after = kernels.launch_counts()
+            for k in ours:
+                row[k] += after[k] - before[k]
+            return out
+        return wrapped
+
+    for count_ops in (False, True):
+        # the dispatch-mode count slows the host: times come from the run
+        # without it, ATen calls from the run with it
+        stats.clear()
+        counter = CountOps()
+        tracked = full.track_segment
+
+        def instrument(e):
+            regens = {"now": 0, "seen": 0}
+            regen = e._regenerate
+
+            def counted_regen():
+                regens["now"] += 1
+                return regen()
+
+            def burst_name():  # asked after the burst has run
+                moved = regens["now"] > regens["seen"]
+                regens["seen"] = regens["now"]
+                return "burst with regeneration" if moved else "burst without regeneration"
+
+            e._regenerate = counted_regen
+            e._keyframe_batch = phased(lambda: "keyframe batch (process + fetch)",
+                                       e._keyframe_batch, counter)
+            e._burst = phased(burst_name, e._burst, counter)
+
+        full.track_segment = phased(lambda: "tracking", tracked, counter)
+        try:
+            if count_ops:
+                with counter:
+                    engine_run(instrument)
+            else:
+                _, wall = engine_run(instrument)
+        finally:
+            full.track_segment = tracked
+        if not count_ops:
+            timed = {k: dict(v) for k, v in stats.items()}
+    print(f"full, a synchronise after each phase: {wall:.3f} s")
+    for name, row in timed.items():
+        per = N_SCANS if name == "tracking" else row["calls"]
+        unit = "scan" if name == "tracking" else "call"
+        aten = stats[name]["aten"] / per
+        print(f"  {name}: {row['secs']:.3f} s in {row['calls']} calls = "
+              f"{row['secs'] / per * 1e3:.3f} ms a {unit}, {aten:.0f} ATen calls a {unit}, launches "
+              + ", ".join(f"{k} {row[k]}" for k in ours))
+    rest = wall - sum(r["secs"] for r in timed.values())
+    print(f"  the rest (capacity, transfers, the corrected trajectory): {rest:.3f} s")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, pwall = engine_run()
+    rows = [k for k in prof.key_averages() if getattr(k, "device_time_total", 0) > 0
+            and k.device_type.name == "CUDA"]
+    dev_s = sum(k.device_time_total for k in rows) * 1e-6
+    print(f"profiled run: device kernel time {dev_s:.4f} s = {dev_s / secs * 100:.1f}% of the "
+          f"unprofiled {secs:.3f} s ({dev_s / pwall * 100:.1f}% of the profiled {pwall:.3f} s); "
+          f"{sum(k.count for k in rows)} kernels")
+    mine = [k for k in rows if any(n in k.key for n in ("mc_match_kernel", "overlap_score_kernel"))]
+    top = sorted(rows, key=lambda k: -k.device_time_total)[:12]
+    for k in mine + [k for k in top if k not in mine]:
         print(f"  {k.device_time_total * 1e-3:9.3f} ms  {k.count:6d} x  "
               f"{k.device_time_total / k.count:8.2f} us  {k.key[:90]}")
 

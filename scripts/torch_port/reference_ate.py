@@ -1,6 +1,7 @@
 """ATE of the JAX reference on the CPU over the port's smoke sequence.
 
     JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --preset viny [--port] [--keys 5]
+    JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --preset full [--port] [--keys 5]
 
 Builds the sequence that ``chip_smoke.py`` drives (512 scans along the
 cecum rectangle, 360 beams, odometry noise 0.01 m / 0.005 rad from
@@ -28,6 +29,16 @@ With ``--port`` the port also runs on the CPU (plain twins) with the
 reference's matcher noise chain injected, and the largest pose difference
 over the sequence is printed.
 
+With ``--preset full`` the sequence and the configuration are those of
+``chip_smoke.py``'s loop-closing path (bench.py's ``full`` preset: 512 scans
+over two laps, the windowed tiny tracker, keyframes 0.7 m apart, a burst
+every 8 loops, one segment) and the figure is the ATE of the reference
+``FullSlamEngine``'s corrected trajectory, beside the same tracker's ATE
+without the graph; ``--keys N`` runs it for each of ``PRNGKey(0..N-1)``, and
+``--port`` runs the port's ``FullSlamEngine`` on the CPU with key 0's noise
+injected and prints how far its trajectory, keyframes and loop count lie
+from the reference's. ``--dissect`` is for tiny and viny only.
+
 This is a parity tool, like the tests: it imports both packages. Nothing
 it prints is a device metric.
 """
@@ -48,7 +59,9 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[2]))  # the checkout's root
 
-from chip_smoke import MAP, N_BEAMS, N_SCANS, bench_sequence  # noqa: E402  (the same sequence)
+from chip_smoke import (  # noqa: E402  (the same sequences and configuration)
+    MAP, N_BEAMS, N_SCANS, bench_sequence, full_config, full_sequence,
+)
 
 FREE_IMPL = {"tiny": "dda", "viny": "polar"}
 
@@ -66,7 +79,7 @@ def noise_chain(key, n_steps, rounds, batch):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--preset", choices=sorted(FREE_IMPL), default="viny")
+    ap.add_argument("--preset", choices=[*sorted(FREE_IMPL), "full"], default="viny")
     ap.add_argument("--port", action="store_true", help="also run the port on the CPU")
     ap.add_argument("--keys", type=int, default=1, help="matcher noise seeds to run")
     ap.add_argument("--dissect", type=int, default=None, metavar="K",
@@ -74,6 +87,9 @@ def main() -> None:
     args = ap.parse_args()
     jax.config.update("jax_platforms", "cpu")
     torch.set_num_threads(1)
+    if args.preset == "full":
+        print(json.dumps(full_preset(args)))
+        return
 
     from slam_constructor_tpu.models import engine as jeng
     from slam_constructor_tpu.models import tiny as jtiny
@@ -153,6 +169,79 @@ def main() -> None:
         out["dissect"] = dissect(args.dissect, jcfg, tcfg, scans, odom, gt, jscans,
                                  port_run, pose_diff, first_over)
     print(json.dumps(out))
+
+
+def full_preset(args) -> dict:
+    """The loop-closing pipeline of the reference over ``chip_smoke.py``'s
+    full sequence, a key at a time; with ``--port`` also the port's, key 0's
+    noise injected."""
+    from slam_constructor_tpu.models import engine as jeng
+    from slam_constructor_tpu.models import full as jfull
+    from slam_constructor_tpu.models import posegraph as jpg
+    from slam_constructor_tpu.models import tiny as jtiny
+    from slam_constructor_tpu.ops.scan import LaserScan as JScan
+    from slam_constructor_tpu_torch.models import full as tfull
+    from slam_constructor_tpu_torch.utils import evaluate
+
+    scans, odom, gt = full_sequence("cpu")
+    tcfg = full_config()
+    g = tcfg.graph
+    jtrack = jtiny.fast_config(map_size=MAP, stride=2, mc_rounds=12)
+    jtrack = dataclasses.replace(jtrack, beam=dataclasses.replace(jtrack.beam, free_impl="dda"))
+    jcfg = jfull.FullConfig(
+        tracking=jtrack,
+        graph=jpg.PoseGraphConfig(
+            keyframe_distance=g.keyframe_distance, min_index_gap=g.min_index_gap,
+            max_candidates=g.max_candidates, local_map_size=g.local_map_size),
+        optimize_every_loops=tcfg.optimize_every_loops,
+    )
+    jscans = JScan(
+        ranges=jnp.asarray(scans.ranges.numpy()), bearings=jnp.asarray(scans.bearings.numpy()),
+        valid=jnp.asarray(scans.valid.numpy()),
+    )
+    jodom = jnp.asarray(odom.numpy())
+    rows, first = [], None
+    for k in range(max(args.keys, 1)):
+        t0 = time.perf_counter()
+        e = jfull.FullSlamEngine(jcfg, n_beams=N_BEAMS, key=jax.random.PRNGKey(k))
+        e.state = e.state.replace(pose=jnp.asarray(gt[0].numpy()))
+        traj = torch.from_numpy(np.array(e.run(jscans, jodom, segment=N_SCANS)))
+        st = jeng.init_state(jtrack, jax.random.PRNGKey(k)).replace(pose=jnp.asarray(gt[0].numpy()))
+        _, tracked, _ = jeng.run_sequence(jtrack, st, jscans, jodom)
+        rows.append({
+            "key": k,
+            "reference_ate_m": float(evaluate.ate(traj, gt, align=False)),
+            "reference_tracker_only_ate_m": float(
+                evaluate.ate(torch.from_numpy(np.array(tracked)), gt, align=False)),
+            "keyframes": int(e.graph.n_kf), "edges": int(e.graph.n_edges), "loops": e.total_loops,
+            "seconds_cpu": time.perf_counter() - t0,
+        })
+        first = first or (e, traj)
+    out = {"preset": "full", "scans": N_SCANS, "beams": N_BEAMS, "map": MAP,
+           "backend": jax.default_backend(), "by_key": rows}
+    if args.port:
+        je, jtraj = first
+        mc = tcfg.tracking.matcher_cfg
+        noise = torch.from_numpy(noise_chain(jax.random.PRNGKey(0), N_SCANS, mc.rounds, mc.batch))
+        te = tfull.FullSlamEngine(tcfg, n_beams=N_BEAMS, device="cpu")
+        te.state.pose = gt[0].clone()
+        t0 = time.perf_counter()
+        ttraj = te.run(scans, odom, segment=N_SCANS, noise=noise)
+        d = ttraj - jtraj
+        d[:, 2] = torch.atan2(torch.sin(d[:, 2]), torch.cos(d[:, 2]))
+        n_e = min(int(te.graph.n_edges), int(je.graph.n_edges))
+        out["port_same_noise"] = {
+            "ate_m": float(evaluate.ate(ttraj, gt, align=False)),
+            "max_abs_pose_diff": float(d.abs().max()),
+            "keyframes": int(te.graph.n_kf), "edges": int(te.graph.n_edges),
+            "loops": te.total_loops, "bursts": te.n_bursts,
+            "same_edges": bool(
+                int(te.graph.n_edges) == int(je.graph.n_edges)
+                and np.array_equal(te.graph.edge_i.numpy()[:n_e], np.asarray(je.graph.edge_i)[:n_e])
+                and np.array_equal(te.graph.edge_j.numpy()[:n_e], np.asarray(je.graph.edge_j)[:n_e])),
+            "seconds_cpu": time.perf_counter() - t0,
+        }
+    return out
 
 
 def dissect(k, jcfg, tcfg, scans, odom, gt, jscans, port_run, pose_diff, first_over):

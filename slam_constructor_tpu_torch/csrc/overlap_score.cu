@@ -1,5 +1,5 @@
-// overlap_score.cu: scan-overlap scoring of K candidate poses, for Hopper
-// (sm_90a). Plain C interface, bound from Python with ctypes
+// overlap_score.cu: scan-overlap scoring of K candidate poses against each
+// of M map planes, for Hopper (sm_90a). Plain C interface, bound from Python with ctypes
 // (slam_constructor_tpu_torch/ops/kernels.py, built by ops/_build.py).
 //
 // Replaces the TPU kernel slam_constructor_tpu/ops/pallas_kernels.py:
@@ -7,8 +7,14 @@
 // ops/scoring.py:score_poses computes around it at overlap extent 1: the
 // pose transform of the sensor-frame endpoints and _weighted_mean.
 //
-//   score[k] = sum_r beam_w[r] * sample(v, (apply_pose(poses[k], pts[r])
-//              - origin) / scale) / max(sum_r beam_w[r], 1e-9)
+//   score[m, k] = sum_r beam_w[m, r] * sample(v[m], (apply_pose(poses[m, k],
+//                 pts[m, r]) - origin[m]) / scale)
+//                 / max(sum_r beam_w[m, r], 1e-9)
+//
+// Every map has its own plane, candidates, scan (endpoints and weights) and
+// origin: loop closing matches a different keyframe scan against every
+// submap. M = 1 is the single-plane score and gives the same bits as any
+// other slot of a batch holding the same inputs.
 //
 // sample() is _bilinear_kernel's math (overlap_sample.cuh, shared with
 // mc_match.cu): mass off the map reads `unknown`.
@@ -20,7 +26,12 @@
 // The Monte-Carlo matcher does not call this kernel once a round: its
 // whole loop is one launch of mc_match.cu. This one serves score_poses.
 //
-// Design: one block per candidate; its 128 threads stride over the beams;
+// Loop closing calls it with M <= 32 submaps of 120^2 cells and the K = 343
+// poses of a 7^3 grid: 10,976 blocks in one launch, planes of 57.6 KB each
+// that stay in L2.
+//
+// Design: one block per (candidate, map), the map on the grid's y axis; its
+// 128 threads stride over the beams;
 // cos/sin of the pose once per block; the plane read through __ldg (it is
 // larger than a block's 227 KB of shared memory, so it is not staged
 // there); beams of weight 0 (invalid) skipped; per-thread sums in a fixed
@@ -47,6 +58,14 @@ overlap_score_kernel(const float* __restrict__ v, int h, int w,
   __shared__ float s_den[kThreads];
 
   const int k = blockIdx.x;
+  const int n_k = gridDim.x;
+  const size_t m = blockIdx.y;
+  v += m * h * w;
+  poses += m * n_k * 3;
+  pts += m * r * 2;
+  beam_w += m * r;
+  origin += m * 2;
+  out += m * n_k;
   if (threadIdx.x == 0) {
     const float th = poses[3 * k + 2];
     trig[0] = cosf(th);
@@ -64,15 +83,19 @@ overlap_score_kernel(const float* __restrict__ v, int h, int w,
 
 }  // namespace
 
-// Launches on `stream` (PyTorch's current stream), does not synchronise
-// and allocates nothing. Returns the cudaError_t of the launch (0 = ok).
-extern "C" int overlap_score_launch(const float* v, int h, int w,
+// v f32[m, h, w], poses f32[m, k, 3], pts f32[m, r, 2], beam_w f32[m, r],
+// origin f32[m, 2] -> out f32[m, k], all contiguous. Launches on `stream`
+// (PyTorch's current stream), does not synchronise and allocates nothing.
+// Returns the cudaError_t of the launch (0 = ok).
+extern "C" int overlap_score_launch(const float* v, int m, int h, int w,
                                     const float* poses, int k,
                                     const float* pts, const float* beam_w,
                                     int r, const float* origin, float scale,
                                     float unknown, float* out, void* stream) {
-  if (k <= 0) return 0;
-  overlap_score_kernel<<<k, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (k <= 0 || m <= 0) return 0;
+  if (m > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(k, m);
+  overlap_score_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       v, h, w, poses, pts, beam_w, r, origin, scale, unknown, out);
   return static_cast<int>(cudaGetLastError());
 }

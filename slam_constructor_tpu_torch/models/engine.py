@@ -13,7 +13,7 @@ Entry points run on the card unless the caller names a device (see
 ``device.resolve_device``); the tests pass ``device="cpu"``.
 
 Waiting for later slices: the tiled storage, the M3RSM pyramid, refine
-matchers, ``match_window`` and ``auto_grow``.
+matchers and ``auto_grow``.
 """
 
 from __future__ import annotations
@@ -53,6 +53,8 @@ class EngineConfig:
     refine_cfg: Any = None
     #: weight beams by the scan-degeneracy angle histogram (vinySLAM)
     use_angle_histogram: bool = False
+    #: score matches against a prior-centred window of this many cells a
+    #: side (0 = the whole map); see ``scoring.window_view``
     match_window: int = 0
     map_storage: str = "dense"
     tile_block: int = 32
@@ -64,7 +66,6 @@ class EngineConfig:
             "matcher": self.matcher != "monte_carlo",
             "refine_matcher": self.refine_matcher is not None,
             "refine_cfg": self.refine_cfg is not None,
-            "match_window": self.match_window > 0,
             "map_storage": self.map_storage != "dense",
             # the tiled storage's knobs
             "tile_block": self.tile_block != 32,
@@ -141,6 +142,9 @@ def slam_step(
     prior = compose(state.pose, odom_delta)
     pw = _point_weights(cfg, scan)
     view = scoring.MapView.of(state.gm, cfg.cell_model)
+    if cfg.match_window:
+        # one prior-centred window a match
+        view = scoring.window_view(view, prior[:2], cfg.match_window)
     res = match_fn(view, scan, prior, generator, cfg.matcher_cfg, pw, noise)
     w_obs, s_obs = raycast.scan_observation_planes(state.gm, res.pose, scan, cfg.beam)
     do_insert = (res.prob >= cfg.min_insert_prob) | (state.step == 0)

@@ -1,13 +1,15 @@
 """tinySLAM preset (port of ``slam_constructor_tpu.models.tiny``).
 
-Same signature and values as the reference's ``tiny_config``, with one
-difference: the free-space fill is pinned to ``'dda'``. The reference's
-``'auto'`` picks an algorithm by backend (DDA on CPU, where the reference
-is run as the parity oracle); a preset here names its algorithm.
-``fast_config`` waits for ``match_window``.
+Same signatures and values as the reference's ``tiny_config`` and
+``fast_config``, with one difference: the free-space fill is pinned to
+``'dda'``. The reference's ``'auto'`` picks an algorithm by backend (DDA on
+CPU, where the reference is run as the parity oracle); a preset here names
+its algorithm.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 from ..ops import cells, matchers, raycast, scoring
 from .engine import Engine, EngineConfig
@@ -53,3 +55,32 @@ def tiny_config(
 
 def make_engine(device=None, seed: int = 0, **kwargs) -> Engine:
     return Engine(tiny_config(**kwargs), device=device, seed=seed)
+
+
+def fast_config(
+    map_size: int = 256,
+    map_scale: float = 0.1,
+    usable_range: float = 8.0,
+    stride: int = 1,
+    hole_width: float = 0.3,
+    **kwargs,
+) -> EngineConfig:
+    """Windowed tiny operating point: beams capped at ``usable_range``, a
+    prior-centred match window that covers exactly that reach, and a beam
+    stride in the matcher. The plane the matcher samples shrinks by
+    (map / window)^2."""
+    cells_reach = int(-(-(usable_range + hole_width) // map_scale)) + 4
+    win = min(2 * ((cells_reach + 15) // 16 * 16), map_size)
+    cfg = tiny_config(
+        map_size=map_size, map_scale=map_scale, hole_width=hole_width,
+        scoring_cfg=scoring.ScoringConfig(reducer="overlap", window=1, stride=stride),
+        **kwargs,
+    )
+    return dataclasses.replace(
+        cfg,
+        match_window=win,
+        beam=raycast.BeamConfig(
+            max_range=usable_range, occupancy_estimator="const",
+            hole_width=hole_width, wall_blur=True, free_impl="dda",
+        ),
+    )

@@ -52,3 +52,21 @@ def apply_pose(p: Tensor, pts: Tensor) -> Tensor:
     x = p[..., 0] + c * pts[..., 0] - s * pts[..., 1]
     y = p[..., 1] + s * pts[..., 0] + c * pts[..., 1]
     return torch.stack([x, y], dim=-1)
+
+
+def pose_distance(a: Tensor, b: Tensor, angle_weight: float = 1.0) -> Tensor:
+    """Weighted SE(2) distance used for keyframe gating."""
+    d = b - a
+    ang = wrap_angle(d[..., 2])
+    return torch.sqrt(d[..., 0] ** 2 + d[..., 1] ** 2 + (angle_weight * ang) ** 2)
+
+
+def linspace(start: float, stop: float, n: int, device) -> Tensor:
+    """f32 ``linspace`` rounded as the reference's: ``start * (1 - t) +
+    stop * t`` with ``t = i / (n - 1)``, the last point exactly ``stop``
+    (``torch.linspace`` rounds the inner points differently)."""
+    if n == 1:
+        return torch.full((1,), start, dtype=torch.float32, device=device)
+    t = torch.arange(n - 1, dtype=torch.float32, device=device) / (n - 1)
+    inner = start * (1.0 - t) + stop * t
+    return torch.cat([inner, torch.full((1,), stop, dtype=torch.float32, device=device)])

@@ -22,17 +22,20 @@ WEIGHT_CHANNEL = -1
 
 @dataclasses.dataclass
 class GridMap:
-    cells: Tensor  # f32[H, W, C]: model belief channels + weight channel
+    #: f32[H, W, C]: model belief channels + weight channel; a batch of
+    #: same-shaped maps (the loop closer's submaps) is f32[M, H, W, C] with
+    #: ``origin`` f32[M, 2]
+    cells: Tensor
     origin: Tensor  # f32[2]: world (x, y) of the lower-left corner of (0, 0)
     scale: float  # meters per cell
 
     @property
     def height(self) -> int:
-        return self.cells.shape[0]
+        return self.cells.shape[-3]
 
     @property
     def width(self) -> int:
-        return self.cells.shape[1]
+        return self.cells.shape[-2]
 
     @property
     def belief(self) -> Tensor:

@@ -4,6 +4,9 @@
 overlap reducer at extent 1. It replaces the TPU kernel
 ``slam_constructor_tpu/ops/pallas_kernels.py::sample_plane_bilinear`` fused
 with the pose transform and weighted mean of ``scoring.score_poses``.
+``overlap_score_batched`` is the same kernel over M maps in one launch,
+each with its own plane, poses, scan and origin: what the reference gets
+from ``vmap`` over submaps when it closes loops.
 
 ``mc_match`` runs one whole Monte-Carlo match (the first score, every
 round's candidates, argmax, keep-if-better and the sigma anneal) in one
@@ -39,6 +42,23 @@ Tensor = torch.Tensor
 #: shared memory a block may use without opting in to more
 _MAX_SHARED_BYTES = 48 * 1024
 
+#: kernel launches of each wrapper since the counts were last set to 0. A
+#: wrapper adds one where it launches its kernel (CUDA tensors only), under
+#: its own name whatever name it was called by.
+_LAUNCHES = dict.fromkeys(
+    ("overlap_score", "overlap_score_batched", "mc_match", "polar_free_plane"), 0
+)
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches of each wrapper since :func:`reset_launch_counts`."""
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
+
 
 def _axis_taps(pos: Tensor, n: int):
     """Bilinear (overlap, extent 1) taps along one axis: weights of cells
@@ -69,21 +89,29 @@ def overlap_score_ref(
     v f32[H, W] (``where(known, occ, unknown)``), poses f32[K, 3], pts
     f32[R, 2] sensor-frame endpoints, beam_w f32[R] (validity x point
     weights), origin f32[2] -> f32[K] weighted mean of per-beam overlap
-    probabilities.
+    probabilities. With a leading map dimension on every tensor (v
+    f32[M, H, W], poses f32[M, K, 3], pts f32[M, R, 2], beam_w f32[M, R],
+    origin f32[M, 2]) -> f32[M, K]: map m scores its own poses and scan.
     """
-    h, w = v.shape
-    c = torch.cos(poses[:, 2:3])
-    s = torch.sin(poses[:, 2:3])
-    wx = poses[:, 0:1] + c * pts[:, 0] - s * pts[:, 1]  # [K, R]
-    wy = poses[:, 1:2] + s * pts[:, 0] + c * pts[:, 1]
-    x = (wx - origin[0]) / scale
-    y = (wy - origin[1]) / scale
+    if v.dim() == 2:
+        return overlap_score_ref(
+            v[None], poses[None], pts[None], beam_w[None], origin[None], scale, unknown
+        )[0]
+    n_m, h, w = v.shape
+    c = torch.cos(poses[..., 2:3])
+    s = torch.sin(poses[..., 2:3])
+    qx, qy = pts[:, None, :, 0], pts[:, None, :, 1]  # [M, 1, R]
+    wx = poses[..., 0:1] + c * qx - s * qy  # [M, K, R]
+    wy = poses[..., 1:2] + s * qx + c * qy
+    x = (wx - origin[:, 0, None, None]) / scale
+    y = (wy - origin[:, 1, None, None]) / scale
     ay0, ay1, r0, r1 = _axis_taps(y, h)
     ax0, ax1, c0, c1 = _axis_taps(x, w)
-    flat = v.reshape(-1)
+    flat = v.reshape(n_m, -1)
 
     def tap(a, b, r, col):
-        return torch.where((a != 0) & (b != 0), flat[r * w + col], 0.0)
+        got = torch.gather(flat, 1, (r * w + col).reshape(n_m, -1)).reshape(r.shape)
+        return torch.where((a != 0) & (b != 0), got, 0.0)
 
     v00 = tap(ay0, ax0, r0, c0)
     v10 = tap(ay1, ax0, r1, c0)
@@ -92,14 +120,15 @@ def overlap_score_ref(
     ssum = (ay0 * v00 + ay1 * v10) * ax0 + (ay0 * v01 + ay1 * v11) * ax1
     coverage = (ay0 + ay1) * (ax0 + ax1)
     p = ssum + (1.0 - coverage) * unknown
-    return (p * beam_w).sum(-1) / torch.clamp(beam_w.sum(-1), min=1e-9)
+    bw = beam_w[:, None, :]
+    return (p * bw).sum(-1) / torch.clamp(bw.sum(-1), min=1e-9)
 
 
 @functools.cache
 def _overlap_score_fn():
     fn = _build.load().overlap_score_launch
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # v, h, w
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # v, m, h, w
         ctypes.c_void_p, ctypes.c_int,  # poses, k
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # pts, beam_w, r
         ctypes.c_void_p, ctypes.c_float, ctypes.c_float,  # origin, scale, unknown
@@ -122,6 +151,44 @@ def _check(
         raise ValueError(f"{name} must be contiguous")
 
 
+#: most maps one launch takes: they lie on the grid's y axis
+_MAX_MAPS = 65535
+
+
+def _overlap_score_launch(name, lead, v, poses, pts, beam_w, origin, scale, unknown):
+    """Checks the inputs against the leading shape ``lead`` (``()`` or
+    ``(M,)``), launches the kernel and adds one to the count of ``name``;
+    returns f32[*lead, K]. Nothing is launched or counted when there is
+    nothing to score."""
+    if v.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {v.device}")
+    h, w = v.shape[-2:]
+    k, r = poses.shape[-2], pts.shape[-2]
+    _check("v", v, (*lead, h, w), v.device)
+    _check("poses", poses, (*lead, k, 3), v.device)
+    _check("pts", pts, (*lead, r, 2), v.device)
+    _check("beam_w", beam_w, (*lead, r), v.device)
+    _check("origin", origin, (*lead, 2), v.device)
+    n_m = lead[0] if lead else 1
+    if n_m > _MAX_MAPS:
+        raise ValueError(f"{name}: {n_m} maps, more than {_MAX_MAPS} a launch")
+    out = torch.empty((*lead, k), dtype=torch.float32, device=v.device)
+    if k == 0 or n_m == 0:
+        return out
+    fn = _overlap_score_fn()
+    with torch.cuda.device(v.device):
+        stream = torch.cuda.current_stream(v.device).cuda_stream
+        err = fn(
+            v.data_ptr(), n_m, h, w, poses.data_ptr(), k, pts.data_ptr(),
+            beam_w.data_ptr(), r, origin.data_ptr(), scale, unknown,
+            out.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+    _LAUNCHES[name] += 1
+    return out
+
+
 def overlap_score(
     v: Tensor,
     poses: Tensor,
@@ -131,41 +198,47 @@ def overlap_score(
     scale: float,
     unknown: float,
 ) -> Tensor:
-    """Score poses f32[K, 3] against plane v f32[H, W] -> f32[K].
+    """Score poses f32[K, 3] against plane v f32[H, W] -> f32[K]: the
+    kernel's M = 1 case.
 
     CPU tensors take the plain twin; CUDA tensors launch the kernel on the
-    current stream and add one to ``overlap_score.n_launches``.
+    current stream and add one to the ``overlap_score`` count of
+    :func:`launch_counts`. It is counted apart from
+    :func:`overlap_score_batched` so that a run through
+    :func:`mc_match_rounds` (one launch a round) can be told from the loop
+    closer's launches.
     """
     if v.device.type == "cpu":
         return overlap_score_ref(v, poses, pts, beam_w, origin, scale, unknown)
-    if v.device.type != "cuda":
-        raise ValueError(f"overlap_score: unsupported device {v.device}")
-    h, w = v.shape
-    k, r = poses.shape[0], pts.shape[0]
-    _check("v", v, (h, w), v.device)
-    _check("poses", poses, (k, 3), v.device)
-    _check("pts", pts, (r, 2), v.device)
-    _check("beam_w", beam_w, (r,), v.device)
-    _check("origin", origin, (2,), v.device)
-    out = torch.empty((k,), dtype=torch.float32, device=v.device)
-    if k == 0:
-        return out
-    fn = _overlap_score_fn()
-    with torch.cuda.device(v.device):
-        stream = torch.cuda.current_stream(v.device).cuda_stream
-        err = fn(
-            v.data_ptr(), h, w, poses.data_ptr(), k, pts.data_ptr(),
-            beam_w.data_ptr(), r, origin.data_ptr(), scale, unknown,
-            out.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"overlap_score kernel launch failed: cudaError_t {err}")
-    overlap_score.n_launches += 1
-    return out
+    return _overlap_score_launch(
+        "overlap_score", (), v, poses, pts, beam_w, origin, scale, unknown
+    )
 
 
-#: kernel launches since the count was last set to 0 (CUDA tensors only)
-overlap_score.n_launches = 0
+def overlap_score_batched(
+    v: Tensor,
+    poses: Tensor,
+    pts: Tensor,
+    beam_w: Tensor,
+    origin: Tensor,
+    scale: float,
+    unknown: float,
+) -> Tensor:
+    """Score, for each of M maps, its own poses and scan: v f32[M, H, W],
+    poses f32[M, K, 3], pts f32[M, R, 2], beam_w f32[M, R], origin
+    f32[M, 2] -> f32[M, K], in one launch.
+
+    CPU tensors take the plain twin; CUDA tensors launch the kernel on the
+    current stream, once for the whole batch, and add one to the
+    ``overlap_score_batched`` count of :func:`launch_counts`.
+    """
+    if v.dim() != 3:
+        raise ValueError(f"v has shape {tuple(v.shape)}, expected (M, H, W)")
+    if v.device.type == "cpu":
+        return overlap_score_ref(v, poses, pts, beam_w, origin, scale, unknown)
+    return _overlap_score_launch(
+        "overlap_score_batched", (v.shape[0],), v, poses, pts, beam_w, origin, scale, unknown
+    )
 
 
 # --- one Monte-Carlo match ----------------------------------------------------
@@ -306,7 +379,8 @@ def mc_match(
     ``bad_rounds_before_anneal`` rounds without improvement.
 
     CPU tensors take the plain twin; CUDA tensors launch the kernel on the
-    current stream, once, and add one to ``mc_match.n_launches``.
+    current stream, once, and add one to the ``mc_match`` count of
+    :func:`launch_counts`.
     """
     args = (plane, pts, beam_w, origin, init_pose, noise, scale, unknown, sigma_xy,
             sigma_theta, bad_rounds_before_anneal)
@@ -348,12 +422,8 @@ def mc_match(
         )
     if err != 0:
         raise RuntimeError(f"mc_match kernel launch failed: cudaError_t {err}")
-    mc_match.n_launches += 1
+    _LAUNCHES["mc_match"] += 1
     return pose, prob, trace
-
-
-#: kernel launches since the count was last set to 0 (CUDA tensors only)
-mc_match.n_launches = 0
 
 
 # --- polar free-space fill ----------------------------------------------------
@@ -463,7 +533,8 @@ def polar_free_plane(
     ``pose`` (see :func:`polar_free_plane_ref`).
 
     CPU tensors take the plain twin; CUDA tensors launch the kernel on the
-    current stream and add one to ``polar_free_plane.n_launches``.
+    current stream and add one to the ``polar_free_plane`` count of
+    :func:`launch_counts`.
     """
     if ranges.device.type == "cpu":
         return polar_free_plane_ref(
@@ -498,9 +569,5 @@ def polar_free_plane(
         )
     if err != 0:
         raise RuntimeError(f"polar_free_plane kernel launch failed: cudaError_t {err}")
-    polar_free_plane.n_launches += 1
+    _LAUNCHES["polar_free_plane"] += 1
     return out
-
-
-#: kernel launches since the count was last set to 0 (CUDA tensors only)
-polar_free_plane.n_launches = 0

@@ -1,11 +1,17 @@
-"""Monte-Carlo scan matcher (port of ``slam_constructor_tpu.ops.matchers``).
+"""Grid scan matchers: Monte-Carlo and brute-force (port of
+``slam_constructor_tpu.ops.matchers``).
 
-Each round scores a batch of candidates drawn around the best pose so far,
-keeps the best if it improves, and halves sigma after repeated failures.
-The whole match is one call of ``kernels.mc_match``: one kernel launch on
-the card, the plain round loop on the CPU; neither syncs with the host.
-The standard normals are drawn here, outside the kernel. Hill-climbing,
-brute-force and gradient matchers wait for later slices.
+Monte-Carlo: each round scores a batch of candidates drawn around the best
+pose so far, keeps the best if it improves, and halves sigma after repeated
+failures. The whole match is one call of ``kernels.mc_match``: one kernel
+launch on the card, the plain round loop on the CPU; neither syncs with the
+host. The standard normals are drawn here, outside the kernel.
+
+Brute force: an exhaustive (x, y, theta) grid around the prior, scored in
+one call. With a leading map dimension on view, scan and prior it matches M
+(map, scan, prior) triples at once, in one launch of the map-batched score
+kernel: the loop closer's form. Hill-climbing and gradient matchers wait
+for later slices.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ import dataclasses
 import torch
 
 from . import kernels, scoring
+from .geometry import linspace, wrap_angle
 
 Tensor = torch.Tensor
 
@@ -23,7 +30,9 @@ Tensor = torch.Tensor
 class MatchResult:
     pose: Tensor  # f32[3] refined world pose
     prob: Tensor  # f32[] scan probability at the refined pose
-    trace: Tensor  # f32[rounds] best candidate probability of each round
+    #: f32[rounds] best candidate probability of each round; empty for the
+    #: single-shot matchers
+    trace: Tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,7 +84,56 @@ def monte_carlo_match(
     return MatchResult(pose=pose, prob=prob, trace=trace)
 
 
+@dataclasses.dataclass(frozen=True)
+class BruteForceConfig:
+    half_x: float = 0.5
+    half_y: float = 0.5
+    half_theta: float = 0.2
+    n_x: int = 11
+    n_y: int = 11
+    n_theta: int = 9
+    scoring: scoring.ScoringConfig = scoring.ScoringConfig()
+
+
+def brute_force_offsets(cfg: BruteForceConfig, device) -> Tensor:
+    """The dense grid f32[n_x * n_y * n_theta, 3] of pose offsets, x
+    slowest and theta fastest."""
+    dx = linspace(-cfg.half_x, cfg.half_x, cfg.n_x, device)
+    dy = linspace(-cfg.half_y, cfg.half_y, cfg.n_y, device)
+    dth = linspace(-cfg.half_theta, cfg.half_theta, cfg.n_theta, device)
+    gx, gy, gt = torch.meshgrid(dx, dy, dth, indexing="ij")
+    return torch.stack([gx, gy, gt], dim=-1).reshape(-1, 3)
+
+
+def brute_force_match(
+    view: scoring.MapView,
+    scan,
+    init_pose: Tensor,
+    generator: torch.Generator | None = None,
+    cfg: BruteForceConfig = BruteForceConfig(),
+    point_weights: Tensor | None = None,
+    noise: Tensor | None = None,
+) -> MatchResult:
+    """The best pose of the grid around ``init_pose`` f32[3] (ties go to
+    the first in grid order); deterministic, so ``generator`` and ``noise``
+    are ignored. With a leading map dimension (view of M maps, scan [M, R],
+    ``init_pose`` f32[M, 3]) every triple is matched against its own map,
+    all in one score call: ``pose`` f32[M, 3], ``prob`` f32[M]."""
+    del generator, noise
+    cand = init_pose[..., None, :] + brute_force_offsets(cfg, init_pose.device)
+    # theta is wrapped after the offset is added
+    cand = torch.cat([cand[..., :2], wrap_angle(cand[..., 2:])], dim=-1)
+    probs = scoring.score_poses(view, scan, cand, cfg.scoring, point_weights)
+    i = torch.argmax(probs, dim=-1, keepdim=True)  # ties -> first index
+    pose = torch.gather(cand, -2, i[..., None].expand(*i.shape, 3)).squeeze(-2)
+    return MatchResult(
+        pose=pose, prob=torch.gather(probs, -1, i).squeeze(-1),
+        trace=torch.empty((0,), dtype=torch.float32, device=init_pose.device),
+    )
+
+
 #: registry for the config system; the other matchers join in later slices
 MATCHERS = {
     "monte_carlo": (MonteCarloConfig, monte_carlo_match),
+    "brute_force": (BruteForceConfig, brute_force_match),
 }

@@ -8,7 +8,10 @@ elementwise pass over the map through ``kernels.polar_free_plane``, the
 CUDA kernel on the card). Occupied evidence is the const or the area
 endpoint estimator plus the symmetric wall-blur tail, scatter-added on flat
 indices with ``index_put_(accumulate=True)``. Samples that fall off the map
-are dropped. ``scan_sample_cells`` waits for a later slice.
+are dropped. ``scan_observation_planes_batched`` rasterises N scans at N
+poses in the same few calls, into one plane each or summed into shared
+planes: the loop closer's submaps and the regenerated map.
+``scan_sample_cells`` waits for a later slice.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 from . import grid as gridlib
 from . import kernels
 from . import scan as scanlib
+from .geometry import linspace
 
 Tensor = torch.Tensor
 
@@ -60,17 +64,6 @@ class BeamConfig:
         return int(math.ceil(self.max_range / (scale * self.step_fraction))) + 1
 
 
-def _linspace(start: float, stop: float, n: int, device) -> Tensor:
-    """f32 ``linspace`` rounded as the reference's: ``start * (1 - t) +
-    stop * t`` with ``t = i / (n - 1)``, the last point exactly ``stop``
-    (``torch.linspace`` rounds the inner points differently)."""
-    if n == 1:
-        return torch.full((1,), start, dtype=torch.float32, device=device)
-    t = torch.arange(n - 1, dtype=torch.float32, device=device) / (n - 1)
-    inner = start * (1.0 - t) + stop * t
-    return torch.cat([inner, torch.full((1,), stop, dtype=torch.float32, device=device)])
-
-
 def _flat_scatter_add(plane_shape, rows, cols, vals, valid) -> Tensor:
     """Scatter-add ``vals`` into an ``f32[H, W]`` plane; samples that are
     invalid or off the map are dropped (they add 0.0 to cell 0).
@@ -106,27 +99,31 @@ def _flat_count(plane_shape, rows, cols, valid) -> Tensor:
     return flat.reshape(h, w)
 
 
-def _endpoint_area_obs(gm, endpoints, valid, hole_width):
+def _endpoint_area_obs(origin, scale, endpoints, valid, hole_width):
     """Area occupancy estimator: overlap of the ``hole_width`` square centred
     on each endpoint with the 3x3 cell neighbourhood.
 
-    Returns (rows, cols, weights) each ``[R, 9]``; the weight is the overlap
-    area as a fraction of the cell area, the occupancy observed is 1.0.
+    ``endpoints`` f32[..., R, 2]; ``origin`` f32[2], or broadcastable
+    against ``endpoints``. Returns (rows, cols, weights) each
+    ``[..., R, 9]``; the weight is the overlap area as a fraction of the
+    cell area, the occupancy observed is 1.0.
     """
-    scale = gm.scale
-    idx = gridlib.world_to_cell(gm, endpoints)  # [R, 2] (row, col)
+    rel = (endpoints - origin) / scale
+    idx = torch.stack(
+        [torch.floor(rel[..., 1]).to(torch.int64), torch.floor(rel[..., 0]).to(torch.int64)], -1
+    )  # [..., R, 2] (row, col)
     o = torch.arange(-1, 2, device=endpoints.device)
     offs = torch.stack(torch.meshgrid(o, o, indexing="ij"), dim=-1).reshape(9, 2)
-    nbr = idx[:, None, :] + offs[None, :, :]  # [R, 9, 2]
-    cell_lo = nbr.to(torch.float32) * scale + gm.origin.flip(0)  # (y, x) corners
+    nbr = idx[..., None, :] + offs  # [..., R, 9, 2]
+    cell_lo = nbr.to(torch.float32) * scale + origin[..., None, :].flip(-1)  # (y, x) corners
     cell_lo = cell_lo.flip(-1)  # -> (x, y)
     half = hole_width / 2.0
-    e = endpoints[:, None, :]
+    e = endpoints[..., None, :]
     ov = torch.clamp(
         torch.minimum(cell_lo + scale, e + half) - torch.maximum(cell_lo, e - half), min=0.0
     )
     area = ov[..., 0] * ov[..., 1] / (scale * scale)
-    return nbr[..., 0], nbr[..., 1], torch.where(valid[:, None], area, 0.0)
+    return nbr[..., 0], nbr[..., 1], torch.where(valid[..., None], area, 0.0)
 
 
 def scan_observation_planes(gm, pose, scan: scanlib.LaserScan, cfg: BeamConfig):
@@ -166,7 +163,7 @@ def scan_observation_planes(gm, pose, scan: scanlib.LaserScan, cfg: BeamConfig):
     ep_valid = scan.valid & (scan.ranges <= cfg.max_range)
     endpoints = start + scan.ranges[:, None] * dirs  # [R, 2]
     if cfg.occupancy_estimator == "area":
-        r9, c9, wgt = _endpoint_area_obs(gm, endpoints, ep_valid, cfg.hole_width)
+        r9, c9, wgt = _endpoint_area_obs(gm.origin, scale, endpoints, ep_valid, cfg.hole_width)
         wgt = wgt.reshape(-1)
         # observed occupancy 1.0: the occupancy sum equals the weight
         occ_r, occ_c, occ_w, occ_s, occ_v = (
@@ -181,7 +178,7 @@ def scan_observation_planes(gm, pose, scan: scanlib.LaserScan, cfg: BeamConfig):
     if cfg.wall_blur:
         # triangular occupied evidence centred on the endpoint, hole_width/2
         # along the ray on both sides; weight and occupancy both taper
-        bt = _linspace(-1.0, 1.0, cfg.blur_samples, dev)  # [B] in hole units
+        bt = linspace(-1.0, 1.0, cfg.blur_samples, dev)  # [B] in hole units
         tb = scan.ranges[:, None] + cfg.hole_width / 2.0 * bt[None, :]
         pb = start + tb[..., None] * dirs[:, None, :]  # [R, B, 2]
         ib = gridlib.world_to_cell(gm, pb)
@@ -197,6 +194,108 @@ def scan_observation_planes(gm, pose, scan: scanlib.LaserScan, cfg: BeamConfig):
     w_occ = _flat_scatter_add((h, w), rows_a, cols_a, torch.cat(occ_w), v_a)
     s_occ = _flat_scatter_add((h, w), rows_a, cols_a, torch.cat(occ_s), v_a)
     return w_free + w_occ, s_occ
+
+
+def _cells_of(pts: Tensor, origin: Tensor, scale: float):
+    """(row, col) int64 of world points; ``origin`` broadcasts against
+    ``pts``. The arithmetic of :func:`grid.world_to_cell`."""
+    rel = (pts - origin) / scale
+    return torch.floor(rel[..., 1]).to(torch.int64), torch.floor(rel[..., 0]).to(torch.int64)
+
+
+def scan_observation_planes_batched(
+    origins: Tensor,
+    h: int,
+    w: int,
+    scale: float,
+    poses: Tensor,
+    scans: scanlib.LaserScan,
+    cfg: BeamConfig,
+    plane_of: Tensor | None = None,
+    n_planes: int | None = None,
+):
+    """Rasterise N scans (``scans`` [N, R]) from ``poses`` f32[N, 3] into
+    ``h x w`` planes at ``scale``: ``(w_obs, s_obs)`` f32[P, H, W] each.
+
+    ``origins`` f32[N, 2] is the world corner of the map each scan goes
+    into (f32[2]: one for all). ``plane_of`` i64[N] names the plane, of
+    ``n_planes``, that a scan's evidence is added to; by default every scan
+    has its own (P = N). Scans that share a plane are summed by the
+    scatter itself: the free trace's counts are integers, exact in any
+    order, and the occupied evidence is summed in a fixed order (see
+    :func:`_flat_scatter_add`), so the planes are the same bits on every
+    run. A scan's cells are those :func:`scan_observation_planes` gives it.
+    """
+    dev = poses.device
+    n = poses.shape[0]
+    if plane_of is None:
+        plane_of = torch.arange(n, device=dev)
+        n_planes = n
+    if origins.dim() == 1:
+        origins = origins[None, :].expand(n, 2)
+    angles = poses[:, 2:3] + scans.bearings  # [N, R]
+    dirs = torch.stack([torch.cos(angles), torch.sin(angles)], dim=-1)  # [N, R, 2]
+    start = poses[:, None, :2]  # [N, 1, 2]
+    # the planes are stacked along the rows: plane p holds rows p*h .. p*h + h - 1
+    shape = (n_planes * h, w)
+    row0 = plane_of * h  # [N]
+
+    def on_map(rows, cols):
+        return (rows >= 0) & (rows < h) & (cols >= 0) & (cols < w)
+
+    if cfg.free_impl == "polar":
+        # one launch of the polar kernel a scan
+        planes = torch.stack([
+            kernels.polar_free_plane(
+                scans.ranges[i].contiguous(), scans.valid[i].contiguous(),
+                scans.bearings[i].contiguous(), poses[i].contiguous(), origins[i].contiguous(),
+                h, w, scale, cfg.hole_width / 2.0, cfg.max_range,
+            ) for i in range(n)
+        ]) if n else torch.zeros((0, h, w), dtype=torch.float32, device=dev)
+        w_free = torch.zeros((n_planes, h, w), dtype=torch.float32, device=dev)
+        w_free.index_add_(0, plane_of, planes)
+        w_free = w_free.reshape(shape)
+    else:
+        n_s = cfg.n_free_samples(scale)
+        step = scale * cfg.step_fraction
+        t = (torch.arange(n_s, dtype=torch.float32, device=dev) + 0.5) * step  # [S]
+        pts = start[:, :, None, :] + t[None, None, :, None] * dirs[:, :, None, :]  # [N, R, S, 2]
+        rows, cols = _cells_of(pts, origins[:, None, None, :], scale)  # [N, R, S]
+        free_limit = scans.ranges - cfg.hole_width / 2.0
+        valid = scans.valid[..., None] & (t < free_limit[..., None])
+        same = (rows[..., 1:] == rows[..., :-1]) & (cols[..., 1:] == cols[..., :-1])
+        first = torch.ones((*rows.shape[:2], 1), dtype=torch.bool, device=dev)
+        valid = valid & torch.cat([first, ~same], dim=-1) & on_map(rows, cols)
+        w_free = _flat_count(shape, rows + row0[:, None, None], cols, valid)
+
+    ep_valid = scans.valid & (scans.ranges <= cfg.max_range)
+    endpoints = start + scans.ranges[..., None] * dirs  # [N, R, 2]
+    o3 = origins[:, None, :]
+    if cfg.occupancy_estimator == "area":
+        r9, c9, wgt = _endpoint_area_obs(o3, scale, endpoints, ep_valid, cfg.hole_width)
+        occ = [(r9, c9, wgt, wgt, wgt > 0)]
+    else:
+        er, ec = _cells_of(endpoints, o3, scale)
+        ones = torch.ones(er.shape, device=dev)
+        occ = [(er, ec, ones, ones, ep_valid)]
+    if cfg.wall_blur:
+        bt = linspace(-1.0, 1.0, cfg.blur_samples, dev)  # [B] in hole units
+        tb = scans.ranges[..., None] + cfg.hole_width / 2.0 * bt  # [N, R, B]
+        pb = start[:, :, None, :] + tb[..., None] * dirs[:, :, None, :]
+        br, bc = _cells_of(pb, origins[:, None, None, :], scale)
+        ramp = (1.0 - torch.abs(bt)).expand(tb.shape)
+        occ.append((br, bc, ramp, ramp**2, ep_valid[..., None] & (tb > 0)))
+
+    def flat(parts):  # scan-major, as the single-scan rasteriser orders its samples
+        return torch.cat([p.reshape(n, -1) for p in parts], dim=1)
+
+    rows_a = flat([o[0] for o in occ])
+    cols_a = flat([o[1] for o in occ])
+    v_a = flat([o[4] for o in occ]) & on_map(rows_a, cols_a)
+    rows_a = rows_a + row0[:, None]
+    w_occ = _flat_scatter_add(shape, rows_a, cols_a, flat([o[2] for o in occ]), v_a)
+    s_occ = _flat_scatter_add(shape, rows_a, cols_a, flat([o[3] for o in occ]), v_a)
+    return (w_free + w_occ).reshape(n_planes, h, w), s_occ.reshape(n_planes, h, w)
 
 
 def insert_scan(gm, model, pose, scan: scanlib.LaserScan, cfg: BeamConfig):

@@ -2,11 +2,13 @@
 
 ``score_poses(view, scan, poses[K]) -> probs[K]``: the mean per-beam
 consistency probability of a scan placed at each candidate pose. Ported is
-the overlap reducer at extent 1, the one tinySLAM and vinySLAM run; every
-score goes through ``kernels.overlap_score`` (the CUDA kernel on the card). The
-obstacle, mean and max reducers, other extents, ``window_view`` and
-``estimate_information`` wait for later slices and raise
-``NotImplementedError``.
+the overlap reducer at extent 1, the one tinySLAM, vinySLAM and the loop
+closer run; every score goes through ``kernels.overlap_score`` (the CUDA
+kernel on the card). A view, a scan and the poses may carry a leading map
+dimension (``MapView.occ`` f32[M, H, W], scan [M, R], poses f32[M, K, 3]):
+then map m scores its own scan at its own poses, all in one launch of
+``kernels.overlap_score_batched``. The obstacle, mean and max reducers and
+other extents wait for later slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -48,7 +50,8 @@ def _check_supported(cfg: ScoringConfig) -> None:
 
 @dataclasses.dataclass
 class MapView:
-    """Scoring view of a map: occupancy + known mask."""
+    """Scoring view of a map: occupancy + known mask; or of M same-shaped
+    maps, with a leading dimension on every tensor."""
 
     occ: Tensor  # f32[H, W]
     known: Tensor  # bool[H, W]
@@ -65,15 +68,42 @@ class MapView:
         )
 
 
+def window_view(view: MapView, center_xy: Tensor, size: int) -> MapView:
+    """Restrict a view to a ``size x size`` cell window around a world
+    point, clamped to the map's bounds. Cells outside the window then score
+    as ``unknown_prob``, as cells off the map do, so a window that covers
+    the scan's footprint changes no score. ``size`` at or above the map's
+    extent gives the full view.
+
+    The window's corner is a device value and is never read on the host:
+    the window is taken by index arithmetic (``index_select`` on row and
+    column indices), not by a slice."""
+    h, w = view.occ.shape
+    sh, sw = min(size, h), min(size, w)
+    dev = view.occ.device
+    # IEEE division, tensor by tensor (a scalar divisor becomes a product
+    # with its reciprocal on the card)
+    rel = (center_xy - view.origin) / torch.full_like(view.origin, view.scale)
+    cell = torch.floor(rel).to(torch.int64)
+    col = torch.clamp(cell[0] - sw // 2, 0, w - sw)
+    row = torch.clamp(cell[1] - sh // 2, 0, h - sh)
+    rows = row + torch.arange(sh, device=dev)
+    cols = col + torch.arange(sw, device=dev)
+    occ = view.occ.index_select(0, rows).index_select(1, cols)
+    known = view.known.index_select(0, rows).index_select(1, cols)
+    origin = view.origin + torch.stack([col, row]).to(torch.float32) * view.scale
+    return MapView(occ=occ, known=known, origin=origin, scale=view.scale)
+
+
 @dataclasses.dataclass
 class PreparedScan:
     """Everything of one (map, scan) pair that stays fixed while a matcher
     scores candidates: built once per match, reused by every score call."""
 
-    plane: Tensor  # f32[H, W] where(known, occ, unknown)
-    pts: Tensor  # f32[R', 2] sensor-frame endpoints of the kept beams
-    beam_w: Tensor  # f32[R'] validity x point weights of the kept beams
-    origin: Tensor
+    plane: Tensor  # f32[H, W] where(known, occ, unknown), or f32[M, H, W]
+    pts: Tensor  # f32[R', 2] sensor-frame endpoints of the kept beams, or [M, R', 2]
+    beam_w: Tensor  # f32[R'] validity x point weights of the kept beams, or [M, R']
+    origin: Tensor  # f32[2], or f32[M, 2]
     scale: float
     unknown: float
 
@@ -88,11 +118,11 @@ def prepare(
     if cfg.stride > 1:
         # keeping every stride-th beam is the reference's subsample mask
         scan = scanlib.LaserScan(
-            scan.ranges[:: cfg.stride], scan.bearings[:: cfg.stride],
-            scan.valid[:: cfg.stride],
+            scan.ranges[..., :: cfg.stride], scan.bearings[..., :: cfg.stride],
+            scan.valid[..., :: cfg.stride],
         )
         if point_weights is not None:
-            point_weights = point_weights[:: cfg.stride]
+            point_weights = point_weights[..., :: cfg.stride]
     beam_w = scan.valid.to(torch.float32)
     if point_weights is not None:
         beam_w = beam_w * point_weights
@@ -107,8 +137,10 @@ def prepare(
 
 
 def score_prepared(prep: PreparedScan, poses: Tensor) -> Tensor:
-    """f32[K, 3] candidate poses -> f32[K] scan probabilities."""
-    return kernels.overlap_score(
+    """f32[K, 3] candidate poses -> f32[K] scan probabilities; for M
+    prepared (map, scan) pairs f32[M, K, 3] -> f32[M, K], in one launch."""
+    score = kernels.overlap_score_batched if prep.plane.dim() == 3 else kernels.overlap_score
+    return score(
         prep.plane, poses.contiguous(), prep.pts, prep.beam_w, prep.origin,
         prep.scale, prep.unknown,
     )
@@ -121,9 +153,37 @@ def score_poses(
     cfg: ScoringConfig = ScoringConfig(),
     point_weights: Tensor | None = None,
 ) -> Tensor:
-    """Score candidate poses f32[K, 3] against the map -> f32[K]."""
+    """Score candidate poses f32[K, 3] against the map -> f32[K]; with a
+    leading map dimension on view, scan and poses, f32[M, K, 3] -> f32[M, K]."""
     return score_prepared(prepare(view, scan, cfg, point_weights), poses)
 
 
 def score_single(view, scan, pose, cfg=ScoringConfig(), point_weights=None):
     return score_poses(view, scan, pose[None, :], cfg, point_weights)[0]
+
+
+def estimate_information(
+    view: MapView,
+    scan: scanlib.LaserScan,
+    pose: Tensor,
+    cfg: ScoringConfig = ScoringConfig(),
+    eps: tuple = (0.04, 0.04, 0.02),
+) -> Tensor:
+    """Diagonal information (inverse covariance) f32[3] of a match from the
+    local curvature of the score surface at ``pose`` f32[3]; with a leading
+    map dimension on view, scan and pose, f32[M, 3].
+
+    Central second differences per axis (one 7-pose score call); the score
+    is scaled by the count of valid beams (all of them, not the strided
+    ones) to approximate a log-likelihood. Directions of negative curvature
+    (degenerate, e.g. along a corridor) floor at a small positive value.
+    The offsets are added without wrapping the angle, as the reference does.
+    """
+    e = torch.tensor(eps, dtype=torch.float32, device=pose.device)
+    offs = torch.cat([torch.zeros((1, 3), device=pose.device), torch.diag(e), -torch.diag(e)])
+    probs = score_poses(view, scan, pose[..., None, :] + offs, cfg)
+    s0, sp, sm = probs[..., 0:1], probs[..., 1:4], probs[..., 4:7]
+    curv = -(sp - 2.0 * s0 + sm) / (e * e)  # positive at a peak
+    n = torch.clamp(scan.valid.sum(-1, keepdim=True).to(torch.float32), min=1.0)
+    info = n * curv / torch.clamp(s0, min=1e-3)
+    return torch.clamp(info, 1.0, 1e5)

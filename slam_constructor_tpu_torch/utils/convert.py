@@ -6,6 +6,13 @@ Bayes cells, 5 for the TBM cell), ``origin`` f32[2], ``scale`` float,
 ``pose`` f32[3], ``step`` int, ``last_prob`` float. The reference's PRNG key is not
 carried over: its role moves to the ``Engine``'s ``torch.Generator``, or to
 noise injected into ``slam_step``.
+
+A reference ``PoseGraphState`` crosses the same way, with the reference's
+field names and its fixed-capacity layout: ``kf_poses`` f32[K, 3],
+``kf_ranges`` f32[K, R], ``kf_bearings`` f32[K, R], ``kf_valid`` bool[K, R]
+(the stacked ``kf_scans``), ``n_kf`` int, ``edge_i`` / ``edge_j`` i32[E],
+``edge_delta`` / ``edge_info`` f32[E, 3], ``edge_is_loop`` bool[E],
+``n_edges`` int, ``last_kf`` int, ``kf_overflow`` / ``edge_overflow`` bool.
 """
 
 from __future__ import annotations
@@ -15,7 +22,9 @@ import torch
 
 from ..device import resolve_device
 from ..models.engine import SlamState
+from ..models.posegraph import PoseGraphState
 from ..ops.grid import GridMap
+from ..ops.scan import LaserScan
 
 
 def state_from_numpy(tree: dict, device=None) -> SlamState:
@@ -44,3 +53,38 @@ def state_to_numpy(state: SlamState) -> dict:
         "step": int(state.step),
         "last_prob": float(state.last_prob),
     }
+
+
+_GRAPH_FIELDS = {
+    "kf_poses": np.float32, "n_kf": np.int32, "edge_i": np.int32, "edge_j": np.int32,
+    "edge_delta": np.float32, "edge_info": np.float32, "edge_is_loop": np.bool_,
+    "n_edges": np.int32, "last_kf": np.int32, "kf_overflow": np.bool_,
+    "edge_overflow": np.bool_,
+}
+_SCAN_FIELDS = {"kf_ranges": np.float32, "kf_bearings": np.float32, "kf_valid": np.bool_}
+
+
+def graph_from_numpy(tree: dict, device=None) -> PoseGraphState:
+    """Build the port's pose graph from a numpy dict (see module docstring)
+    on ``device`` (the card when none is named)."""
+    device = resolve_device(device)
+
+    def get(name, dtype):
+        return torch.tensor(np.asarray(tree[name], dtype), device=device)
+
+    scan = {k: get(k, t) for k, t in _SCAN_FIELDS.items()}
+    return PoseGraphState(
+        kf_scans=LaserScan(scan["kf_ranges"], scan["kf_bearings"], scan["kf_valid"]),
+        **{k: get(k, t) for k, t in _GRAPH_FIELDS.items()},
+    )
+
+
+def graph_to_numpy(graph: PoseGraphState) -> dict:
+    """The port's pose graph as a numpy dict (see module docstring)."""
+    out = {k: getattr(graph, k).cpu().numpy() for k in _GRAPH_FIELDS}
+    out.update(
+        kf_ranges=graph.kf_scans.ranges.cpu().numpy(),
+        kf_bearings=graph.kf_scans.bearings.cpu().numpy(),
+        kf_valid=graph.kf_scans.valid.cpu().numpy(),
+    )
+    return out

@@ -15,6 +15,8 @@ import pytest
 import torch
 
 from slam_constructor_tpu.models import engine as jeng
+from slam_constructor_tpu.models import full as jfull
+from slam_constructor_tpu.models import posegraph as jpg
 from slam_constructor_tpu.models import tiny as jtiny
 from slam_constructor_tpu.models import viny as jviny
 from slam_constructor_tpu.ops import cells as jcells
@@ -23,6 +25,8 @@ from slam_constructor_tpu.ops import matchers as jmatch
 from slam_constructor_tpu.ops import raycast as jray
 from slam_constructor_tpu.ops import scoring as jscore
 from slam_constructor_tpu_torch.models import engine as teng
+from slam_constructor_tpu_torch.models import full as tfull
+from slam_constructor_tpu_torch.models import posegraph as tpg
 from slam_constructor_tpu_torch.models import tiny as ttiny
 from slam_constructor_tpu_torch.models import viny as tviny
 from slam_constructor_tpu_torch.ops import cells as tcells
@@ -97,6 +101,11 @@ def test_apply_observations_matches_reference(model):
 TPU_ONLY = {
     "ScoringConfig": {"impl", "dtype"},
     "BeamConfig": {"scatter_impl"},
+    # candidates a score dispatch; the port scores the whole grid in one call
+    "BruteForceConfig": {"chunk"},
+    # how many segments the reference queues between two fetches through its
+    # device tunnel; the port fetches once a segment
+    "FullConfig": {"sync_every"},
 }
 
 PAIRS = [
@@ -107,18 +116,27 @@ PAIRS = [
     (jcells.BayesAvgCell, tcells.BayesAvgCell),
     (jcells.BayesBaseCell, tcells.BayesBaseCell),
     (jcells.TBMCell, tcells.TBMCell),
+    (jmatch.BruteForceConfig, tmatch.BruteForceConfig),
+    (jpg.PoseGraphConfig, tpg.PoseGraphConfig),
+    (jfull.FullConfig, tfull.FullConfig),
 ]
 
 
-def _as_tree(obj):
-    """A config as nested (class name, {field: value}) for comparison."""
+def _as_tree(obj, resolve_auto=False):
+    """A config as nested (class name, {field: value}) for comparison. With
+    ``resolve_auto`` a reference ``BeamConfig`` whose free fill is 'auto'
+    reads as what 'auto' resolves to off the TPU ('dda'), the algorithm the
+    port's tiny presets name."""
     if dataclasses.is_dataclass(obj):
         left_out = TPU_ONLY.get(type(obj).__name__, set())
-        return type(obj).__name__, {
-            f.name: _as_tree(getattr(obj, f.name))
+        tree = {
+            f.name: _as_tree(getattr(obj, f.name), resolve_auto)
             for f in dataclasses.fields(obj)
             if f.name not in left_out
         }
+        if resolve_auto and isinstance(obj, jray.BeamConfig) and obj.free_impl == "auto":
+            tree["free_impl"] = obj.resolved_free_impl()
+        return type(obj).__name__, tree
     return obj
 
 
@@ -129,7 +147,7 @@ def test_config_lockstep(jcls, tcls):
     tnames = {f.name for f in dataclasses.fields(tcls)}
     assert jnames - tnames == TPU_ONLY.get(jcls.__name__, set())
     assert tnames <= jnames
-    assert _as_tree(tcls()) == _as_tree(jcls())
+    assert _as_tree(tcls()) == _as_tree(jcls(), resolve_auto=True)
 
 
 def test_tiny_config_lockstep():
@@ -140,6 +158,19 @@ def test_tiny_config_lockstep():
     j = dataclasses.replace(j, beam=dataclasses.replace(j.beam, free_impl="dda"))
     t = ttiny.tiny_config(cell="bayes_base", quality=0.4, map_size=128, mc_batch=16, mc_rounds=4)
     assert _as_tree(t) == _as_tree(j)
+
+
+def test_fast_config_lockstep():
+    """Same window, range cap and stride; the free fill pinned as in
+    ``tiny_config``. The bench's full-pipeline tracker is one of the cases."""
+    for kwargs in (dict(map_size=256, stride=2, mc_rounds=12), dict(),
+                   dict(map_size=128, usable_range=4.0, mc_batch=16, hole_width=0.2)):
+        j = jtiny.fast_config(**kwargs)
+        assert j.beam.free_impl == "auto" and j.beam.resolved_free_impl() == "dda"
+        j = dataclasses.replace(j, beam=dataclasses.replace(j.beam, free_impl="dda"))
+        t = ttiny.fast_config(**kwargs)
+        assert _as_tree(t) == _as_tree(j)
+    assert ttiny.fast_config(map_size=256, stride=2).match_window == 192
 
 
 def test_viny_config_lockstep():
@@ -163,7 +194,7 @@ def test_viny_config_lockstep():
     "make",
     [
         lambda: teng.EngineConfig(map_storage="tiled"),
-        lambda: teng.EngineConfig(match_window=64),
+        lambda: tpg.PoseGraphConfig(loop_matcher_kind="m3rsm"),
         lambda: teng.EngineConfig(refine_matcher="hill_climbing"),
         lambda: teng.EngineConfig(matcher="m3rsm"),
         lambda: tray.BeamConfig(free_impl="auto"),

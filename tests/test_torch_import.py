@@ -2,7 +2,7 @@
 
 A subprocess blocks ``jax`` and ``flax`` from being imported, then imports
 every module of ``slam_constructor_tpu_torch`` and runs two tinySLAM and
-two vinySLAM steps on the CPU. A source scan makes sure no file of the package, nor the GPU smoke
+two vinySLAM steps and a few scans of the loop-closing pipeline on the CPU. A source scan makes sure no file of the package, nor the GPU smoke
 script, imports them or the reference package.
 """
 
@@ -39,6 +39,21 @@ assert traj.shape == (2, 3) and bool(torch.isfinite(traj).all())
 v = viny.make_engine(device="cpu", map_size=64, mc_batch=8, mc_rounds=2)
 vtraj, _ = v.run(scans, odom)
 assert vtraj.shape == (2, 3) and bool(torch.isfinite(vtraj).all())
+from slam_constructor_tpu_torch.models import full, posegraph
+from slam_constructor_tpu_torch.utils import convert
+names = {m.name.rsplit(".", 1)[-1] for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")}
+assert {"full", "posegraph", "matchers", "convert", "kernels"} <= names
+poses6 = torch.tensor([[0.3 * i, 0.0, 0.0] for i in range(6)])
+scans6, odom6, _ = datagen.synth_sequence(occ, origin, scale, poses6, datagen.default_bearings(64))
+f = full.FullSlamEngine(
+    full.FullConfig(
+        tracking=tiny.fast_config(map_size=64, usable_range=2.0, mc_batch=8, mc_rounds=2),
+        graph=posegraph.PoseGraphConfig(max_keyframes=8, max_edges=16, keyframe_distance=0.5,
+                                        min_index_gap=2, max_candidates=2, local_map_size=32)),
+    n_beams=64, device="cpu")
+ftraj = f.run(scans6, odom6)
+assert ftraj.shape == (6, 3) and bool(torch.isfinite(ftraj).all())
+assert convert.graph_to_numpy(f.graph)["n_kf"] >= 2
 assert "jax" not in sys.modules or sys.modules["jax"] is None
 print("ok", traj[-1].tolist())
 """
@@ -56,6 +71,7 @@ def test_no_file_of_the_package_imports_jax():
     # \b does not end at an underscore: the port's own name does not match
     pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|slam_constructor_tpu)\b", re.M)
     files = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) >= 15
+    assert len(files) >= 17
+    assert {"full.py", "posegraph.py"} <= {f.name for f in files}
     offenders = [str(f.relative_to(REPO)) for f in files if pattern.search(f.read_text())]
     assert offenders == []

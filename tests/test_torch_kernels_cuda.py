@@ -15,6 +15,9 @@ within 1e-6 relative elsewhere. ``mc_match`` runs a whole Monte-Carlo match
 in one launch with the arithmetic of ``mc_match_rounds`` (one
 ``overlap_score`` launch a round) in the same order: equal bit for bit; its
 plain twin sums a score in another order, hence atol 2e-6 on the trace.
+``overlap_score_batched`` is ``overlap_score``'s kernel with the maps on a
+grid axis: every slot equals the single-plane launch on the same inputs bit
+for bit, and the twin within 2e-6.
 """
 
 import pytest
@@ -63,11 +66,11 @@ def test_overlap_score_kernel_matches_plain_twin(scene, k, n_beams, stride, weig
     prep = scoring.prepare(view, scan, scoring.ScoringConfig(reducer="overlap", stride=stride), w)
     args = (prep.plane, cand[:k].contiguous(), prep.pts, prep.beam_w, prep.origin,
             prep.scale, prep.unknown)
-    before = kernels.overlap_score.n_launches
+    before = kernels.launch_counts()["overlap_score"]
     got = kernels.overlap_score(*args)
     want = kernels.overlap_score_ref(*args)
     torch.cuda.synchronize()
-    assert kernels.overlap_score.n_launches == before + 1
+    assert kernels.launch_counts()["overlap_score"] == before + 1
     assert got.shape == (k,)
     torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
     # a fixed-order reduction: the same bits on every call
@@ -100,11 +103,11 @@ def test_polar_free_plane_kernel_matches_plain_twin(scene, n_beams, fov_half, h,
     origin = torch.tensor([-w * 0.05, -h * 0.05], device=dev)
     args = (scan.ranges[sl].contiguous(), valid, scan.bearings[sl].contiguous(), cand[0].contiguous(),
             origin, h, w, 0.1, cfg.hole_width / 2.0, cfg.max_range)
-    before = kernels.polar_free_plane.n_launches
+    before = kernels.launch_counts()["polar_free_plane"]
     got = kernels.polar_free_plane(*args)
     want = kernels.polar_free_plane_ref(*args)
     torch.cuda.synchronize()
-    assert kernels.polar_free_plane.n_launches == before + 1
+    assert kernels.launch_counts()["polar_free_plane"] == before + 1
     assert got.shape == (h, w) and int((want > 0).sum()) > 300
     flipped = int(((got > 0) != (want > 0)).sum())
     assert flipped <= 8, f"{flipped} cells flipped"
@@ -148,14 +151,14 @@ def _match_args(scene, batch, rounds, stride, weighted, bad_rounds=2):
 def test_mc_match_kernel_equals_one_launch_a_round(scene, batch, rounds, stride, weighted,
                                                    bad_rounds):
     args = _match_args(scene, batch, rounds, stride, weighted, bad_rounds)
-    before = (kernels.mc_match.n_launches, kernels.overlap_score.n_launches)
+    before = (kernels.launch_counts()["mc_match"], kernels.launch_counts()["overlap_score"])
     got = kernels.mc_match(*args)
-    assert (kernels.mc_match.n_launches, kernels.overlap_score.n_launches) == (
+    assert (kernels.launch_counts()["mc_match"], kernels.launch_counts()["overlap_score"]) == (
         before[0] + 1, before[1])
     want = kernels.mc_match_rounds(*args)
     twin = kernels.mc_match_ref(*args)
     torch.cuda.synchronize()
-    assert kernels.overlap_score.n_launches == before[1] + 1 + rounds
+    assert kernels.launch_counts()["overlap_score"] == before[1] + 1 + rounds
     assert got[0].shape == (3,) and got[1].shape == () and got[2].shape == (rounds,)
     for a, b in zip(got, want):
         assert torch.equal(a, b)  # bit for bit
@@ -180,3 +183,66 @@ def test_mc_match_rejects_bad_input(scene):
         kernels.mc_match(*args[:5], args[5][:, :0].contiguous(), *args[6:])
     with pytest.raises(ValueError):  # the noise alone is 240,000 B of shared memory
         kernels.mc_match(*args[:5], torch.zeros((20, 1000, 3), device=args[4].device), *args[6:])
+
+
+def _submap_batch(scene, n_maps, k, stride=2):
+    """M (plane, poses, scan) triples: shifted crops of the scene's map,
+    each with its own origin, scan mask and candidates."""
+    view, scan, cand, g = scene
+    dev = cand.device
+    planes, origins, valids, poses = [], [], [], []
+    for m in range(n_maps):
+        r0, c0 = 40 + 3 * (m % 7), 20 + 5 * (m % 11)
+        planes.append(torch.where(view.known, view.occ, 0.5)[r0:r0 + 120, c0:c0 + 120])
+        origins.append(view.origin + torch.tensor([c0 * 0.1, r0 * 0.1], device=dev))
+        valids.append(scan.valid & (torch.arange(360, device=dev) % (5 + m % 3) != 1))
+        poses.append(cand[m % 64] + torch.randn((k, 3), generator=g, device=dev) * torch.tensor(
+            [0.4, 0.4, 0.2], device=dev))
+    views = scoring.MapView(occ=torch.stack(planes), known=torch.ones_like(torch.stack(planes),
+                                                                         dtype=torch.bool),
+                            origin=torch.stack(origins), scale=0.1)
+    scans = LaserScan(
+        scan.ranges[None].expand(n_maps, -1) * torch.linspace(0.8, 1.0, n_maps, device=dev)[:, None],
+        scan.bearings[None].expand(n_maps, -1).contiguous(), torch.stack(valids))
+    prep = scoring.prepare(views, scans, scoring.ScoringConfig(reducer="overlap", stride=stride))
+    return prep, torch.stack(poses).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_maps,k", [(1, 343), (5, 7), (32, 343), (3, 1)])
+def test_overlap_score_batched_matches_twin_and_single_launches(scene, n_maps, k):
+    prep, poses = _submap_batch(scene, n_maps, k)
+    beam_w = prep.beam_w.clone()
+    if n_maps > 1:
+        beam_w[1] = 0.0  # a map with no valid beam
+    args = (prep.plane, poses, prep.pts, beam_w, prep.origin, prep.scale, prep.unknown)
+    before = (kernels.launch_counts()["overlap_score_batched"], kernels.launch_counts()["overlap_score"])
+    got = kernels.overlap_score_batched(*args)
+    assert (kernels.launch_counts()["overlap_score_batched"], kernels.launch_counts()["overlap_score"]) == (
+        before[0] + 1, before[1])
+    want = kernels.overlap_score_ref(*args)
+    singles = torch.stack([
+        kernels.overlap_score(prep.plane[m], poses[m], prep.pts[m], beam_w[m], prep.origin[m],
+                              prep.scale, prep.unknown) for m in range(n_maps)])
+    torch.cuda.synchronize()
+    assert got.shape == (n_maps, k) and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
+    assert torch.equal(got, singles)  # bit for bit
+    if n_maps > 1:
+        assert not bool(got[1].any())
+    assert torch.equal(kernels.overlap_score_batched(*args), got)  # the same bits on every call
+
+
+@pytest.mark.cuda
+def test_overlap_score_batched_rejects_bad_input(scene):
+    prep, poses = _submap_batch(scene, 3, 7)
+    args = [prep.plane, poses, prep.pts, prep.beam_w, prep.origin, prep.scale, prep.unknown]
+    with pytest.raises(ValueError):  # a single plane is overlap_score's
+        kernels.overlap_score_batched(prep.plane[0], poses[0], prep.pts[0], prep.beam_w[0],
+                                      prep.origin[0], prep.scale, prep.unknown)
+    with pytest.raises(ValueError):  # two scans for three maps
+        kernels.overlap_score_batched(args[0], args[1], prep.pts[:2].contiguous(), *args[3:])
+    with pytest.raises(TypeError):
+        kernels.overlap_score_batched(args[0], poses.double(), *args[2:])
+    with pytest.raises(ValueError):  # a strided view
+        kernels.overlap_score_batched(prep.plane[:, :, ::2], *args[1:])

@@ -189,10 +189,10 @@ def test_equal_or_nan_score_is_never_better_and_anneals():
 def test_cpu_match_launches_no_kernel(setup):
     _, _, tview, ts, true = setup
     cfg = tmatch.MonteCarloConfig(batch=8, rounds=2, scoring=tscore.ScoringConfig(reducer="overlap"))
-    before = (kernels.mc_match.n_launches, kernels.overlap_score.n_launches)
+    before = (kernels.launch_counts()["mc_match"], kernels.launch_counts()["overlap_score"])
     res = tmatch.monte_carlo_match(tview, ts, torch.tensor(true), torch.Generator().manual_seed(0),
                                    cfg)
-    assert (kernels.mc_match.n_launches, kernels.overlap_score.n_launches) == before
+    assert (kernels.launch_counts()["mc_match"], kernels.launch_counts()["overlap_score"]) == before
     assert res.pose.device.type == "cpu" and bool(torch.isfinite(res.trace).all())
 
 

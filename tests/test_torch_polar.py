@@ -120,9 +120,9 @@ def test_wrapper_runs_the_twin_for_cpu_tensors_and_counts_nothing():
     t = _tscan(s)
     args = (t.ranges, t.valid, t.bearings, torch.tensor(pose), torch.tensor([-6.4, -4.8]),
             h, w, 0.1, 0.15, 15.0)
-    before = kernels.polar_free_plane.n_launches
+    before = kernels.launch_counts()["polar_free_plane"]
     assert torch.equal(kernels.polar_free_plane(*args), kernels.polar_free_plane_ref(*args))
-    assert kernels.polar_free_plane.n_launches == before
+    assert kernels.launch_counts()["polar_free_plane"] == before
 
 
 @functools.cache

@@ -120,7 +120,7 @@ def test_overlap_score_ref_matches_pallas_points(setup):
 def test_cpu_tensors_take_the_plain_twin(setup):
     _, _, tview, ts, cand, _ = setup
     prep = tscore.prepare(tview, ts, tscore.ScoringConfig(reducer="overlap"))
-    before = kernels.overlap_score.n_launches
+    before = kernels.launch_counts()["overlap_score"]
     got = kernels.overlap_score(
         prep.plane, torch.from_numpy(cand), prep.pts, prep.beam_w, prep.origin,
         prep.scale, prep.unknown,
@@ -129,5 +129,5 @@ def test_cpu_tensors_take_the_plain_twin(setup):
         prep.plane, torch.from_numpy(cand), prep.pts, prep.beam_w, prep.origin,
         prep.scale, prep.unknown,
     )
-    assert kernels.overlap_score.n_launches == before  # no kernel on the CPU
+    assert kernels.launch_counts()["overlap_score"] == before  # no kernel on the CPU
     assert torch.equal(got, want)
