@@ -17,7 +17,14 @@ Phases, one line or more each, in order; any failure exits non-zero:
    cells whose free decision differs (at most 8 in 65,536) and the largest
    relative difference of the weight where both are free (<= 1e-6); then
    both timed;
-5. ``mc_match`` (one launch a match) against ``mc_match_rounds`` (one
+5. ``mc_match_batched`` (the RBPF's 30 particles' matches in one launch)
+   on the arguments of every 32nd match of a run of the gmapping path (30
+   windows of 160^2, 180 beams, 5 rounds of 20) and on edge cases (K = 1,
+   13, 64 and 100, 0 rounds, a particle without a valid beam, P = 1, P =
+   64): against 30 single-plane ``mc_match`` launches and ``mc_match_rounds``
+   (bit for bit) and its plain twin (as ``mc_match`` below); then timed,
+   beside 30 single launches;
+6. ``mc_match`` (one launch a match) against ``mc_match_rounds`` (one
    ``overlap_score`` launch a round) on the card: (map, scan, prior) states
    taken from every 32nd scan of a tiny and a viny run over the bench
    sequence and of a run of the loop-closing pipeline over its own (a 192^2
@@ -30,23 +37,23 @@ Phases, one line or more each, in order; any failure exits non-zero:
    the twin's keep-if-better or argmax was decided by less than 4e-6.
    Then all three timed at the shapes of the tiny, the viny and the full
    path;
-6. card vs CPU: the first 8 scans of the sequence on the card and on the
+7. card vs CPU: the first 8 scans of the sequence on the card and on the
    CPU (plain twins) with the same matcher noise, for tinySLAM and vinySLAM;
-7. tinySLAM main path (``tiny_config(map_size=256)``) over the bench
+8. tinySLAM main path (``tiny_config(map_size=256)``) over the bench
    sequence (512 scans, 360 beams, cecum world) through ``Engine.run``,
    warm-up first, then a timed run from a fresh state under
    ``torch.cuda.set_sync_debug_mode("error")``: ``mc_match`` must have been
    launched 512 times and ``overlap_score`` not at all, poses finite, ATE
    below odometry's and below 0.15 m; then once more for repeatability;
-8. vinySLAM main path (``viny_config(map_size=256)``), the same way:
+9. vinySLAM main path (``viny_config(map_size=256)``), the same way:
    ``mc_match`` and ``polar_free_plane`` launched 512 times each, poses
    finite, ATE below odometry's and no more than 0.02 m above what the JAX
    reference reads on the identical sequence (its worst of five matcher
    keys: the card draws its own matcher noise);
-9. the first 64 scans of the viny path with ``mc_match_rounds`` handed in
+10. the first 64 scans of the viny path with ``mc_match_rounds`` handed in
    in the fused kernel's place (``overlap_score`` launched 64 x 17 times):
    the trajectory must equal the fused path's first 64 poses bit for bit;
-10. the loop-closing pipeline, ``FullSlamEngine`` at the width of bench.py's
+11. the loop-closing pipeline, ``FullSlamEngine`` at the width of bench.py's
    ``full`` preset: 512 scans over two laps of the cecum rectangle, 360
    beams, a 256^2 map, tracker ``tiny.fast_config(map_size=256, stride=2,
    mc_rounds=12)`` (``mc_match`` on a 192^2 window), keyframes 0.7 m apart,
@@ -62,15 +69,32 @@ Phases, one line or more each, in order; any failure exits non-zero:
    of the JAX reference's five matcher keys on the same sequence and no
    more than 0.02 m above the same tracker's ATE without the graph; then
    once more: trajectory, graph and map equal bit for bit;
-11. ``overlap_score_batched`` on the kept launches (M up to 32 submaps of
+12. ``overlap_score_batched`` on the kept launches (M up to 32 submaps of
    120^2, K = 343 and K = 7, a different scan a map) and on edge cases
    (M = 1, M = 5, a map with no valid beam): against its plain twin
    (max |diff| <= 2e-6) and against M single-plane ``overlap_score``
    launches (bit for bit); then timed at M = 32, K = 343;
-12. card vs CPU over a short loop-closing run (a lap and 14 scans more, 360
+13. card vs CPU over a short loop-closing run (a lap and 14 scans more, 360
    beams, keyframe batches and closure bursts included) with the same
    matcher noise: the same graph structure and loop count, poses within
-   1e-3.
+   1e-3;
+14. the GMapping RBPF at bench.py's ``gmapping`` preset
+   (``gmapping.fast_config(n_particles=30, map_size=256)``) over the bench
+   sequence through ``GMappingEngine.run``, under
+   ``torch.cuda.set_sync_debug_mode("error")`` (warmed up by the run of
+   phase 5): ``mc_match_batched`` launched 512 times and nothing else, the
+   winner's ATE no more than 0.02 m above the worst of the JAX reference's
+   five keys (which do not beat odometry on this sequence); then once more:
+   trajectory, genealogy, log-weights and maps equal bit for bit;
+15. the same over the reference's two-lap quality sequence: the winner's ATE
+   below odometry's and no more than 0.02 m above the reference's worst key;
+16. 64 scans with the improved proposal and the minimumScore gate on:
+   ``overlap_score_batched`` launched twice a scan at M = 30 (the probes,
+   K = 16, and the gate, K = 1), every 8th launch of each held to its twin
+   (2e-6) and to 30 single-plane launches (bit for bit), then timed;
+17. card vs CPU: the first 16 RBPF scans with the same draws (made with
+   numpy): poses within 1e-4, the same ancestors, log-weights within 1e-4,
+   the maps equal but for a few cells that counted a border sample.
 
 The launch counts are set to 0 just before each of these runs and read just
 after it. The line before the last is a JSON object of the
@@ -81,6 +105,7 @@ network and starts no process that outlives it.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import statistics
@@ -110,6 +135,24 @@ VINY_ATE_MARGIN = 0.02
 #: scripts/torch_port/reference_ate.py --preset full --keys 5`)
 FULL_REFERENCE_ATE_BY_KEY = (0.07739, 0.07623, 0.08515, 0.08183, 0.07648)
 FULL_ATE_MARGIN = 0.02
+
+#: winner ATE of the JAX reference's RBPF on a CPU over the tiny sequence
+#: at bench.py's gmapping preset (30 particles, 160^2 windows), once for
+#: each key PRNGKey(0..4) (`JAX_PLATFORMS=cpu python
+#: scripts/torch_port/reference_ate.py --preset gmapping --keys 5 --port`)
+#: The reference's RBPF does not beat odometry on this sequence (0.4532 m):
+#: 0.7 of a lap in 0.0375 m steps, no loop. On the reference's own quality
+#: sequence (`gmapping_quality_sequence`, `--preset gmapping_2lap`) it does,
+#: and the card is held to that too.
+GMAPPING_REFERENCE_ATE_BY_KEY = (0.52053, 0.49879, 0.45874, 0.64013, 0.60896)
+GMAPPING_2LAP_REFERENCE_ATE_BY_KEY = (0.09649, 0.11871, 0.11003, 0.10554, 0.11708)
+GMAPPING_ATE_MARGIN = 0.02
+GM_PARTICLES = 30
+#: cells of the 30 maps whose count may differ between card and CPU after
+#: 16 scans (a DDA sample on a cell's border)
+GM_MOVED_CELLS = 32
+#: the improved-proposal run: its length and its minimumScore gate
+GM_IMPROVED_SCANS, GM_IMPROVED_GATE = 64, 0.7
 
 #: the card's published peaks (NVIDIA H100 SXM data sheet)
 PEAK_BYTES_PER_S = 3.35e12
@@ -183,6 +226,21 @@ def full_sequence(device, n_scans=N_SCANS, step=2 * 27.2 / N_SCANS, noise=(0.01,
     return datagen.synth_sequence(
         occ, origin, scale, poses, datagen.default_bearings(N_BEAMS, device=device),
         rng=np.random.default_rng(0), odom_noise_xy=noise[0], odom_noise_theta=noise[1],
+    )
+
+
+def gmapping_quality_sequence(device, seed=42):
+    """The JAX reference's RBPF quality protocol (``scripts/r3/
+    gm_multiseed.py``): two laps of the cecum rectangle at 0.3 m a step (182
+    scans), 360 beams, odometry noise 0.02 m / 0.012 rad, from a seeded
+    numpy rng (the protocol's first seed)."""
+    from slam_constructor_tpu_torch.utils import datagen
+
+    occ, origin, scale = datagen.cecum_world(device=device)
+    poses = datagen.rectangle_trajectory(step=0.3, device=device).repeat(2, 1)
+    return datagen.synth_sequence(
+        occ, origin, scale, poses, datagen.default_bearings(N_BEAMS, device=device),
+        rng=np.random.default_rng(seed), odom_noise_xy=0.02, odom_noise_theta=0.012,
     )
 
 
@@ -502,7 +560,9 @@ def match_cases(tiny_states, viny_states, full_states, dev):
 def twin_record(args):
     """The plain twin's match with, for every round, how closely it was
     decided: the gap between its two best scores and between the best and
-    the best so far. Returns (pose, prob, trace), margins f32[rounds]."""
+    the best so far. Returns (pose, prob, trace), margins f32[rounds]; with
+    a leading particle dimension on the arguments, of every particle
+    (margins f32[P, rounds])."""
     from slam_constructor_tpu_torch.ops import kernels
 
     scores = []
@@ -513,13 +573,40 @@ def twin_record(args):
         return out
 
     out = kernels.mc_match_loop(score, *args)
-    best, margins = scores[0][0], []
+    best, margins = scores[0][..., 0], []
     for probs in scores[1:]:
-        top = torch.topk(probs, min(2, probs.shape[0])).values
-        margins.append(torch.minimum((top[0] - top[-1]).abs() if top.shape[0] > 1
-                                     else torch.full_like(best, math.inf), (top[0] - best).abs()))
-        best = torch.maximum(best, top[0])
-    return out, torch.stack(margins) if margins else torch.empty((0,), device=best.device)
+        top = torch.topk(probs, min(2, probs.shape[-1]), dim=-1).values
+        gap = ((top[..., 0] - top[..., -1]).abs() if top.shape[-1] > 1
+               else torch.full_like(best, math.inf))
+        margins.append(torch.minimum(gap, (top[..., 0] - best).abs()))
+        best = torch.maximum(best, top[..., 0])
+    return out, (torch.stack(margins, dim=-1) if margins
+                 else torch.empty((*best.shape, 0), device=best.device))
+
+
+def against_twin(name, got, twin, margins):
+    """One match's (pose, prob, trace) against its plain twin's: within TOL
+    round by round; where they part, a round decided by less than
+    KNIFE_EDGE must come before. Returns (the largest difference up to
+    there, whether they parted)."""
+    n_rounds = got[2].shape[0]
+    diff = (got[2] - twin[2]).abs()
+    diff = torch.where(torch.isnan(got[2]) & torch.isnan(twin[2]), 0.0, diff)
+    far = (diff > TOL).nonzero().flatten().tolist()
+    first = far[0] if far else n_rounds
+    err = float(diff[:first].max()) if first else 0.0
+    if far:
+        edge = float(margins[:first + 1].min())
+        print(f"  [{name}] parts from the twin at round {first}; closest decision up to there "
+              f"{edge:.3e} (limit {KNIFE_EDGE:g})", flush=True)
+        check(edge < KNIFE_EDGE, f"a match parts from its twin with no close decision ({name})")
+        return err, True
+    p_err = float((got[1] - twin[1]).abs().nan_to_num(nan=0.0))
+    pose_err = float((got[0] - twin[0]).abs().max())
+    check(p_err <= TOL, f"match prob differs from its twin ({name}): {p_err}")
+    check(pose_err <= 1e-6 or float(margins.min()) < KNIFE_EDGE,
+          f"match pose differs from its twin ({name}): {pose_err}")
+    return max(err, p_err), False
 
 
 def phase_mc_match(dev, tiny_states, viny_states, full_states):
@@ -547,31 +634,13 @@ def phase_mc_match(dev, tiny_states, viny_states, full_states):
         check(same, f"mc_match differs from mc_match_rounds ({name}): pose {got[0].tolist()} vs "
                     f"{rounds[0].tolist()}, max |trace diff| "
                     f"{float((got[2] - rounds[2]).abs().nan_to_num(nan=0.0).max()) if n_rounds else 0.0}")
-        # against the twin: within TOL round by round; where they part, a
-        # closely decided round must come before
-        diff = (got[2] - twin[2]).abs()
-        diff = torch.where(torch.isnan(got[2]) & torch.isnan(twin[2]), 0.0, diff)
-        far = (diff > TOL).nonzero().flatten().tolist()
-        first = far[0] if far else n_rounds
-        err = float(diff[:first].max()) if first else 0.0
-        if far:
-            parted += 1
-            edge = float(margins[:first + 1].min())
-            print(f"mc_match vs plain [{name}]: parts from the twin at round {first}; closest "
-                  f"decision up to there {edge:.3e} (limit {KNIFE_EDGE:g})", flush=True)
-            check(edge < KNIFE_EDGE, f"mc_match parts from its twin with no close decision ({name})")
-        else:
-            p_err = float((got[1] - twin[1]).abs().nan_to_num(nan=0.0))
-            pose_err = float((got[0] - twin[0]).abs().max())
-            check(p_err <= TOL, f"mc_match prob differs from its twin ({name}): {p_err}")
-            check(pose_err <= 1e-6 or float(margins.min()) < KNIFE_EDGE,
-                  f"mc_match pose differs from its twin ({name}): {pose_err}")
-            err = max(err, p_err)
+        err, apart = against_twin(name, got, twin, margins)
+        parted += apart
         max_err = max(max_err, err)
         print(f"mc_match [{name}]: K={batch} rounds={n_rounds} R'={args[1].shape[0]} "
               f"{args[0].shape[0]}x{args[0].shape[1]} equal to "
-              f"mc_match_rounds bit for bit; vs plain twin max|diff|={err:.3e} over "
-              f"{first} rounds (tol {TOL:g})", flush=True)
+              f"mc_match_rounds bit for bit; vs plain twin max|diff|={err:.3e} over the rounds "
+              f"{'before they part' if apart else 'all'} (tol {TOL:g})", flush=True)
     print(f"mc_match: {len(cases)} cases equal to mc_match_rounds bit for bit; {parted} part from "
           f"the plain twin after a round decided by less than {KNIFE_EDGE:g}", flush=True)
 
@@ -693,7 +762,7 @@ def phase_rounds_path(cfg, scans, odom, gt, fused_traj):
         traj, _, secs = run_main_path(cfg, scans[:n], odom[:n], gt, "error")
         launches = read_launches()
     want = {"overlap_score": n * (cfg.matcher_cfg.rounds + 1), "mc_match": 0,
-            "polar_free_plane": n, "overlap_score_batched": 0}
+            "polar_free_plane": n, "overlap_score_batched": 0, "mc_match_batched": 0}
     diff = float((traj - fused_traj[:n]).abs().max())
     print(f"viny path with one overlap_score launch a round, {n} scans: {n / secs:.1f} scans/s; "
           f"launches {launches} (expected {want}); max|pose diff| to the fused path {diff:.3e}",
@@ -776,7 +845,7 @@ def phase_full_path(cfg, scans, odom, gt, odo_ate):
     n_kf, n_edges = int(e.graph.n_kf), int(e.graph.n_edges)
     # a keyframe batch and a densify round are two launches each: the
     # brute-force grid, then the information estimate
-    want = {"overlap_score": 0, "mc_match": N_SCANS, "polar_free_plane": 0,
+    want = {"overlap_score": 0, "mc_match": N_SCANS, "polar_free_plane": 0, "mc_match_batched": 0,
             "overlap_score_batched": 2 * (e.n_kf_batches + cfg.densify_rounds * e.n_bursts)}
     print(f"full main path: {N_SCANS} scans in {secs:.3f} s = {N_SCANS / secs:.1f} scans/s "
           f"(tracking {track_secs:.3f} s with the sync check on, no host sync; keyframe work and "
@@ -924,6 +993,317 @@ def phase_full_card_vs_cpu(dev):
     check(diff <= 1e-3, f"full card vs CPU: trajectories disagree: {diff}")
 
 
+def gmapping_config(**kwargs):
+    """bench.py's ``gmapping`` preset: ``fast_config(n_particles=30,
+    map_size=256)``."""
+    from slam_constructor_tpu_torch.models import gmapping
+
+    return gmapping.fast_config(n_particles=GM_PARTICLES, map_size=MAP, **kwargs)
+
+
+def run_gmapping_path(cfg, scans, odom, gt, sync_mode, draws=None, device=None):
+    """One RBPF run from a fresh state through ``GMappingEngine.run``; the
+    engine takes the card unless a device is named. Returns the engine,
+    the best particle's trajectory, Neff and the seconds."""
+    from slam_constructor_tpu_torch.models import gmapping
+
+    e = gmapping.GMappingEngine(cfg, device=device, seed=0)
+    on_card = e.device.type == "cuda"
+    check(device is not None or on_card, f"GMappingEngine defaulted to {e.device}, not the card")
+    e.state.poses = gt[0].to(e.device).expand(cfg.n_particles, 3).clone()
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode(sync_mode)
+    t0 = time.perf_counter()
+    try:
+        traj, neffs = e.run(scans, odom, draws=draws)
+    finally:
+        if on_card:
+            torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+    return e, traj, neffs, time.perf_counter() - t0
+
+
+def capture_particle_matches(cfg, scans, odom, gt, every=32):
+    """A run of the gmapping path (it also warms the path up) that keeps
+    the arguments of every ``every``-th particle-batched match."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    recording, kept = recorder(kernels.mc_match_batched, every)
+    with handed_in(recording, "mc_match_batched"):
+        run_gmapping_path(cfg, scans, odom, gt, 0)
+    return kept
+
+
+def particle_cases(states, dev):
+    """(name, args of mc_match_batched): the captured states and edge cases."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    cases = [(f"gmapping scan {32 * i}", a) for i, a in enumerate(states)]
+    s = states[8]  # scan 256, on the second lap of the rectangle
+
+    def with_p_noise(a, rounds, batch):
+        noise = torch.randn((a[0].shape[0], rounds, batch, 3), generator=g, device=dev)
+        return a[:5] + (noise,) + a[6:]
+
+    def sliced(a, sl):
+        return tuple(t[sl].contiguous() for t in a[:6]) + a[6:]
+
+    for batch in (1, 13, 64, 100):
+        cases.append((f"K={batch}", with_p_noise(s, 5, batch)))
+    cases.append(("0 rounds", with_p_noise(s, 0, 20)))
+    no_beam = s[2].clone()
+    no_beam[3] = 0.0
+    cases.append(("particle 3 without a valid beam", s[:2] + (no_beam,) + s[3:]))
+    cases.append(("P=1", sliced(s, slice(0, 1))))
+    wide = tuple(torch.cat([states[4][i], states[8][i], states[12][i][:4]]) for i in range(6))
+    cases.append(("P=64 (three scans' particles)", wide + s[6:]))
+    return cases
+
+
+def phase_particle_match(dev, states):
+    """`mc_match_batched` against P single-plane `mc_match` launches and
+    `mc_match_rounds` (bit for bit) and against its plain twin, on states
+    of the gmapping path and edge cases; then timed at the path's shape.
+    Returns the `kernels` entry without the launch count."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    s = states[8]
+    check((tuple(s[0].shape), tuple(s[1].shape), tuple(s[5].shape)) ==
+          ((GM_PARTICLES, 160, 160), (GM_PARTICLES, 180, 2), (GM_PARTICLES, 5, 20, 3)),
+          f"the gmapping match is {tuple(s[0].shape)} pts {tuple(s[1].shape)} noise "
+          f"{tuple(s[5].shape)}, not 30 windows of 160^2, 180 beams and 5 rounds of 20")
+    max_err, parted, n_matches = 0.0, 0, 0
+    cases = particle_cases(states, dev)
+    for name, args in cases:
+        n_p, n_rounds, k = args[5].shape[:3]
+        got = kernels.mc_match_batched(*args)
+        singles = [kernels.mc_match(*(t[m] for t in args[:6]), *args[6:]) for m in range(n_p)]
+        rounds = [kernels.mc_match_rounds(*(t[m] for t in args[:6]), *args[6:]) for m in range(n_p)]
+        twin, margins = twin_record(args)
+        torch.cuda.synchronize()
+        check(got[0].shape == (n_p, 3) and got[1].shape == (n_p,) and got[2].shape == (n_p, n_rounds),
+              f"mc_match_batched output malformed ({name})")
+        for i, what in enumerate(("pose", "prob", "trace")):
+            for ref, by in ((singles, "single-plane mc_match launches"), (rounds, "mc_match_rounds")):
+                want = torch.stack([r[i] for r in ref])
+                check(torch.equal(bits(got[i]), bits(want)),
+                      f"mc_match_batched {what} differs from {by} ({name}): max |diff| "
+                      f"{float((got[i] - want).abs().nan_to_num(nan=0.0).max()) if want.numel() else 0}")
+        errs = [against_twin(f"{name}, particle {m}", [t[m] for t in got], [t[m] for t in twin],
+                             margins[m]) for m in range(n_p)]
+        err = max(e for e, _ in errs)
+        parted += sum(a for _, a in errs)
+        n_matches += n_p
+        max_err = max(max_err, err)
+        print(f"mc_match_batched [{name}]: P={n_p} K={k} rounds={n_rounds} R'={args[1].shape[1]} "
+              f"{args[0].shape[1]}x{args[0].shape[2]} equal to {n_p} single launches and to "
+              f"mc_match_rounds bit for bit; vs plain twin max|diff|={err:.3e} (tol {TOL:g})",
+              flush=True)
+    no_beam = dict(cases)["particle 3 without a valid beam"]
+    check(not bool(kernels.mc_match_batched(*no_beam)[2][3].any()),
+          "a particle with no valid beam must score 0")
+    print(f"mc_match_batched: {len(cases)} cases, {n_matches} matches equal to single launches bit "
+          f"for bit; {parted} part from the plain twin after a round decided by less than "
+          f"{KNIFE_EDGE:g}", flush=True)
+
+    ms, plain_ms, chained = time_pair(lambda: kernels.mc_match_batched(*s),
+                                      lambda: kernels.mc_match_ref(*s), plain_calls=10)
+    singles_ms = statistics.median(time_ms(
+        lambda: [kernels.mc_match(*(t[m] for t in s[:6]), *s[6:]) for m in range(GM_PARTICLES)], 20))
+    n_p, n_rounds, k = s[5].shape[:3]
+    # every input read once, poses, probs and traces written once; the
+    # operations of the beams that carry weight, particle by particle
+    n_bytes = 4 * (sum(a.numel() for a in s[:6]) + n_p * (3 + 1 + n_rounds))
+    n_ops = OVERLAP_OPS_PER_POINT * (1 + n_rounds * k) * int((s[2] != 0).sum())
+    b_ms, by = bound_ms(n_bytes, n_ops)
+    print(f"mc_match_batched P={n_p} K={k} rounds={n_rounds} R'=180 160^2: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms (medians of 100 and 20 calls, CUDA events), kernel "
+          f"{chained:.4f} ms a launch over 200 back to back, {n_p} single-plane mc_match launches "
+          f"{singles_ms:.4f} ms (median of 20); bound {b_ms:.6f} ms by {by} ({n_bytes} B, {n_ops} "
+          f"operations); no single PyTorch call computes it", flush=True)
+    return {
+        "name": "mc_match_batched", "route": "cuda",
+        "source": "slam_constructor_tpu_torch/csrc/mc_match.cu",
+        "replaces": "slam_constructor_tpu/ops/pallas_kernels.py:73",
+        "max_abs_err": max_err, "cases_bitwise_equal_to_single_launches": len(cases),
+        "matches_parted_from_twin": parted, "ms": ms, "plain_ms": plain_ms, "chained_ms": chained,
+        "single_launches_ms": singles_ms, "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+    }
+
+
+def gmapping_bits(e):
+    """The RBPF's genealogy, weights and maps, for comparing two runs."""
+    return [*e.genealogy, e.state.log_weights, e.state.gm.cells, e.state.poses]
+
+
+def phase_gmapping_path(cfg, scans, odom, gt, odo_ate, smi):
+    """The timed RBPF run with the counts at 0 before and read after, its
+    checks, and once more for repeatability; returns the launch counts."""
+    from slam_constructor_tpu_torch.models import gmapping
+    from slam_constructor_tpu_torch.utils import evaluate
+
+    reset_launches()
+    e, traj, neffs, secs = run_gmapping_path(cfg, scans, odom, gt, "error")
+    launches = read_launches()
+    want = {"overlap_score": 0, "overlap_score_batched": 0, "mc_match": 0,
+            "mc_match_batched": N_SCANS, "polar_free_plane": 0}
+    resamples = int((e.genealogy[1] != torch.arange(cfg.n_particles, device=traj.device)).any(1).sum())
+    print(f"gmapping main path ({cfg.n_particles} particles): {N_SCANS} scans in {secs:.3f} s = "
+          f"{N_SCANS / secs:.1f} scans/s on {smi}, with the sync check on, no host sync; "
+          f"{resamples} resamplings, min Neff {float(neffs.min()):.2f}; launches {launches} "
+          f"(expected {want})", flush=True)
+    check(launches == want, f"gmapping: launches {launches}, expected {want}")
+    winner = e.winner_trajectory()
+    check(winner.shape == (N_SCANS, 3) and bool(torch.isfinite(winner).all())
+          and bool(torch.isfinite(traj).all()), "gmapping: non-finite poses")
+    check(bool(torch.isfinite(e.occupancy).all()) and e.occupancy.shape == (MAP, MAP),
+          "gmapping: the map is malformed")
+    ate = float(evaluate.ate(winner, gt, align=False))
+    online = float(evaluate.ate(traj, gt, align=False))
+    mean = float(evaluate.ate(gmapping.weighted_mean_trajectory(*e.genealogy, e.state.log_weights),
+                              gt, align=False))
+    limit = max(GMAPPING_REFERENCE_ATE_BY_KEY) + GMAPPING_ATE_MARGIN
+    print(f"gmapping main path: winner ATE {ate:.4f} m (no alignment; limit: the reference's worst "
+          f"key + margin {limit:.4f}; the reference's five keys "
+          f"{min(GMAPPING_REFERENCE_ATE_BY_KEY):.4f}-{max(GMAPPING_REFERENCE_ATE_BY_KEY):.4f}), online "
+          f"(best particle a scan) {online:.4f} m, weighted mean {mean:.4f} m, odometry only "
+          f"{odo_ate:.4f} m (the reference does not beat it on this sequence either)", flush=True)
+    check(ate <= limit, f"gmapping: winner ATE {ate} above the reference's worst key + margin")
+    e2, traj2, _, secs2 = run_gmapping_path(cfg, scans, odom, gt, 0)
+    same = torch.equal(traj2, traj) and all(
+        torch.equal(a, b) for a, b in zip(gmapping_bits(e), gmapping_bits(e2)))
+    print(f"gmapping repeatability: trajectory, genealogy, log-weights and maps of two runs equal: "
+          f"{same}; second run, sync check off: {N_SCANS / secs2:.1f} scans/s", flush=True)
+    check(same, "gmapping: two runs differ")
+    return launches
+
+
+def phase_gmapping_quality(cfg, dev):
+    """The gmapping path over the reference's quality sequence (two laps):
+    the winner's ATE below odometry's and within the reference's worst of
+    five keys + margin on the same sequence."""
+    from slam_constructor_tpu_torch.utils import evaluate
+
+    scans, odom, gt = gmapping_quality_sequence(dev)
+    e, traj, _, secs = run_gmapping_path(cfg, scans, odom, gt, 0)
+    ate = float(evaluate.ate(e.winner_trajectory(), gt, align=False))
+    odo = float(evaluate.ate(odometry_trajectory(gt[0], odom), gt, align=False))
+    limit = max(GMAPPING_2LAP_REFERENCE_ATE_BY_KEY) + GMAPPING_ATE_MARGIN
+    print(f"gmapping, the reference's quality sequence ({len(gt)} scans, two laps): winner ATE "
+          f"{ate:.4f} m (limits: odometry {odo:.4f}, the reference's worst key + margin "
+          f"{limit:.4f}), online {float(evaluate.ate(traj, gt, align=False)):.4f} m; "
+          f"{len(gt) / secs:.1f} scans/s", flush=True)
+    check(ate < odo, f"gmapping 2 laps: winner ATE {ate} not below odometry's {odo}")
+    check(ate <= limit, f"gmapping 2 laps: winner ATE {ate} above the reference's worst key + margin")
+
+
+def phase_gmapping_improved(dev, scans, odom, gt):
+    """64 scans of the gmapping path with the improved proposal and the
+    minimumScore gate on: `overlap_score_batched` at M = 30 scores the
+    probes (K = 16) and the gate (K = 1) every scan; every 8th launch of
+    each is held to its twin and to 30 single-plane launches. Returns the
+    launch counts and the batched kernel's times at the probes' shape."""
+    import warnings
+
+    from slam_constructor_tpu_torch.ops import kernels
+
+    n = GM_IMPROVED_SCANS
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the preset's note on the improved proposal
+        cfg = dataclasses.replace(gmapping_config(proposal="improved"),
+                                  min_match_prob=GM_IMPROVED_GATE)
+    match_probs, match = [], kernels.mc_match_batched
+
+    def matched(*args):
+        out = match(*args)
+        match_probs.append(out[1])
+        return out
+
+    batched, kept = recorder(kernels.overlap_score_batched)
+    with handed_in(batched, "overlap_score_batched"), handed_in(matched, "mc_match_batched"):
+        reset_launches()
+        _, traj, _, secs = run_gmapping_path(cfg, scans[:n], odom[:n], gt, "error")
+        launches = read_launches()
+    want = {"overlap_score": 0, "overlap_score_batched": 2 * n, "mc_match": 0,
+            "mc_match_batched": n, "polar_free_plane": 0}
+    print(f"gmapping, improved proposal and gate {GM_IMPROVED_GATE}, {n} scans: {n / secs:.1f} "
+          f"scans/s with the sync check on; launches {launches} (expected {want})", flush=True)
+    check(launches == want, f"gmapping improved: launches {launches}, expected {want}")
+    check(bool(torch.isfinite(traj).all()), "gmapping improved: non-finite poses")
+    probes = [a for a in kept if a[1].shape[1] == cfg.proposal_samples]
+    gates = [a for a in kept if a[1].shape[1] == 1]
+    check(len(probes) == n and len(gates) == n, "the improved path scored no probes or no gate")
+    turned = float((torch.stack(match_probs) < GM_IMPROVED_GATE).float().mean())
+    print(f"the gate turned back {turned:.3f} of the particles' matches", flush=True)
+    max_err = 0.0
+    for name, group in (("probes K=16", probes), ("gate K=1", gates)):
+        for a in group[::8]:
+            got = kernels.overlap_score_batched(*a)
+            want_t = kernels.overlap_score_ref(*a)
+            singles = torch.stack([kernels.overlap_score(*(t[m].contiguous() for t in a[:5]), *a[5:])
+                                   for m in range(a[0].shape[0])])
+            torch.cuda.synchronize()
+            err = float((got - want_t).abs().max())
+            check(err <= TOL, f"overlap_score_batched disagrees with its twin ({name}): {err}")
+            check(torch.equal(bits(got), bits(singles)),
+                  f"overlap_score_batched differs from single-plane launches ({name})")
+            max_err = max(max_err, err)
+        a = group[0]
+        print(f"overlap_score_batched on the improved path [{name}]: M={a[0].shape[0]} "
+              f"K={a[1].shape[1]} R'={a[2].shape[1]} {a[0].shape[1]}x{a[0].shape[2]}, "
+              f"{len(group[::8])} launches: max|diff| to the twin {max_err:.3e} (tol {TOL:g}); equal "
+              f"to {a[0].shape[0]} single-plane launches bit for bit", flush=True)
+    a = probes[-1]
+    ms, plain_ms, chained = time_pair(lambda: kernels.overlap_score_batched(*a),
+                                      lambda: kernels.overlap_score_ref(*a))
+    n_m, k = a[1].shape[:2]
+    n_bytes = 4 * (sum(t.numel() for t in a[:5]) + n_m * k)
+    n_ops = OVERLAP_OPS_PER_POINT * k * int((a[3] != 0).sum())
+    b_ms, by = bound_ms(n_bytes, n_ops)
+    print(f"overlap_score_batched M={n_m} K={k} R'=180 160^2 (the probes): kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, kernel {chained:.4f} ms a launch over 200 back to back; bound "
+          f"{b_ms:.6f} ms by {by}", flush=True)
+    return launches, {"ms": ms, "plain_ms": plain_ms, "chained_ms": chained, "bound_ms": b_ms,
+                      "bound_by": by, "max_abs_err": max_err}
+
+
+def phase_gmapping_card_vs_cpu(dev, scans, odom, gt):
+    """The first 16 scans of the gmapping path on the card and on the CPU
+    with the same draws (made with numpy)."""
+    from slam_constructor_tpu_torch.models import gmapping
+
+    n = 16
+    cfg = gmapping_config()
+    mc, p = cfg.matcher_cfg, cfg.n_particles
+    rng = np.random.default_rng(5)
+
+    def normals(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    draws = gmapping.Draws(proposal=normals(n, p, 3), match=normals(n, p, mc.rounds, mc.batch, 3),
+                           u0=torch.from_numpy(rng.uniform(0, 1 / p, n).astype(np.float32)))
+    runs = []
+    for d in (None, "cpu"):
+        on = torch.device(d) if d else dev
+        e, _, _, _ = run_gmapping_path(cfg, scans[:n].to(on), odom[:n].to(on), gt.to(on), 0,
+                                       draws=draws, device=d)
+        runs.append([t.cpu() for t in gmapping_bits(e)])
+    (pa, aa, la, ca, _), (pb, ab, lb, cb, _) = runs
+    diff = float((pa - pb).abs().max())
+    # a free sample on a cell's border may fall to either side (sin and cos
+    # round differently): that cell's count then differs by one for good
+    moved = ca[..., -1] != cb[..., -1]
+    belief = float((ca[..., :-1] - cb[..., :-1]).abs().amax(-1)[~moved].max())
+    print(f"gmapping card vs CPU, {n} scans, the same draws: max|pose diff| {diff:.3e} (tol 1e-4), "
+          f"ancestors equal: {torch.equal(aa, ab)}, max|log-weight diff| "
+          f"{float((la - lb).abs().max()):.3e} (tol 1e-4); {int(moved.sum())} of {moved.numel()} "
+          f"cells counted one sample more or less (at most {GM_MOVED_CELLS}), max|belief diff| "
+          f"elsewhere {belief:.3e} (tol 1e-5)", flush=True)
+    check(diff <= 1e-4 and torch.equal(aa, ab), "gmapping card vs CPU: trajectories disagree")
+    check(float((la - lb).abs().max()) <= 1e-4, "gmapping card vs CPU: weights disagree")
+    check(int(moved.sum()) <= GM_MOVED_CELLS and belief <= 1e-5, "gmapping card vs CPU: maps disagree")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke run needs an NVIDIA GPU",
@@ -954,6 +1334,8 @@ def main() -> None:
     k2 = phase_polar_kernel(dev, scans, gt)
 
     tiny_cfg, viny_cfg = tiny.tiny_config(map_size=MAP), viny.viny_config(map_size=MAP)
+    gm_cfg = gmapping_config()
+    k5 = phase_particle_match(dev, capture_particle_matches(gm_cfg, scans, odom, gt))
     fscans, fodom, fgt = full_sequence(dev)
     full_cfg = full_config()
     full_states, kept = capture_full_launches(full_cfg, fscans, fodom, fgt)
@@ -965,11 +1347,11 @@ def main() -> None:
     odo_ate = float(evaluate.ate(odometry_trajectory(gt[0], odom), gt, align=False))
     tiny_launches, _ = phase_main_path(
         "tiny", tiny_cfg, {"overlap_score": 0, "mc_match": N_SCANS, "polar_free_plane": 0,
-                           "overlap_score_batched": 0},
+                           "overlap_score_batched": 0, "mc_match_batched": 0},
         scans, odom, gt, odo_ate, 0.15)
     viny_launches, viny_traj = phase_main_path(
         "viny", viny_cfg, {"overlap_score": 0, "mc_match": N_SCANS, "polar_free_plane": N_SCANS,
-                           "overlap_score_batched": 0},
+                           "overlap_score_batched": 0, "mc_match_batched": 0},
         scans, odom, gt, odo_ate, max(VINY_REFERENCE_ATE_BY_KEY) + VINY_ATE_MARGIN)
     rounds_launches = phase_rounds_path(viny_cfg, scans, odom, gt, viny_traj)
 
@@ -978,19 +1360,27 @@ def main() -> None:
     k4 = phase_batched_kernel(dev, kept)
     phase_full_card_vs_cpu(dev)
 
+    gm_launches = phase_gmapping_path(gm_cfg, scans, odom, gt, odo_ate, smi)
+    phase_gmapping_quality(gm_cfg, dev)
+    improved_launches, k4["rbpf_probes_m30_k16"] = phase_gmapping_improved(dev, scans, odom, gt)
+    phase_gmapping_card_vs_cpu(dev, scans, odom, gt)
+
     # `launches`: of a main path's timed run, held to the expected counts
     # above: the viny path's for the kernels of the earlier slices, the full
-    # path's for the batched score. `overlap_score` left the main paths for
-    # `score_poses`, so it reads 0 there; the path driven with one launch of
-    # it a round stands under `launches_by_path` only
-    for k in (k1, k3, k2, k4):
-        k["launches"] = (full_launches if k is k4 else viny_launches)[k["name"]]
+    # path's for the batched score, the gmapping path's for the particle
+    # match. `overlap_score` left the main paths for `score_poses`, so it
+    # reads 0 there; the path driven with one launch of it a round stands
+    # under `launches_by_path` only
+    main_path = {"overlap_score_batched": full_launches, "mc_match_batched": gm_launches}
+    for k in (k1, k3, k2, k4, k5):
+        k["launches"] = main_path.get(k["name"], viny_launches)[k["name"]]
         k["launches_by_path"] = {
             "tiny": tiny_launches[k["name"]], "viny": viny_launches[k["name"]],
-            "full": full_launches[k["name"]],
+            "full": full_launches[k["name"]], "gmapping": gm_launches[k["name"]],
             f"viny, one overlap_score launch a round, {ROUNDS_PATH_SCANS} scans":
-                rounds_launches[k["name"]]}
-    print(json.dumps({"kernels": [k1, k3, k2, k4]}), flush=True)
+                rounds_launches[k["name"]],
+            f"gmapping, improved proposal, {GM_IMPROVED_SCANS} scans": improved_launches[k["name"]]}
+    print(json.dumps({"kernels": [k1, k3, k2, k4, k5]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
 

@@ -14,7 +14,10 @@ against ``mc_match_rounds`` (bit for bit) and ``mc_match_ref`` at the tiny
 and viny main-path shapes; ``overlap_score_batched`` against its twin at the
 loop closer's shapes (M submaps of 120^2 cells cut from the probe's map, the
 343 poses of a 7^3 grid or the 7 of an information estimate, every second
-beam); and three times a launch for every kernel:
+beam); ``mc_match_batched`` at the RBPF's shape (30 windows of 160^2 cut
+from the probe's map, 20 candidates x 5 rounds, every second beam) against
+30 single ``mc_match`` launches (bit for bit) and its twin; and three
+times a launch for every kernel:
 
 - chained: 200 calls of the wrapper queued back to back between one pair of
   CUDA events, over 200 (the host's cost of a call shows here);
@@ -228,9 +231,33 @@ def main() -> None:
               f"{float((got - want).abs().max()):.3e}, scores {float(got.min()):.4f}.."
               f"{float(got.max()):.4f}", flush=True)
 
+    # the RBPF's particle match: 30 windows of 160^2, each its own origin,
+    # prior and noise, the scan on every second beam
+    n_p, g = 30, torch.Generator(device=dev).manual_seed(5)
+    rows, cols = 40 + 2 * torch.arange(n_p) % 17, 50 + 3 * torch.arange(n_p) % 23
+    pargs = (
+        torch.stack([prep.plane[r:r + 160, c:c + 160] for r, c in zip(rows.tolist(), cols.tolist())]),
+        prep.pts[::2][None].expand(n_p, -1, -1).contiguous(),
+        prep.beam_w[::2][None].expand(n_p, -1).contiguous(),
+        prep.origin + torch.stack([cols, rows], -1).to(dev, torch.float32) * prep.scale,
+        (pose + 0.05 * torch.randn((n_p, 3), generator=g, device=dev)).contiguous(),
+        torch.randn((n_p, 5, 20, 3), generator=g, device=dev),
+        prep.scale, prep.unknown, 0.06, 0.03, 2,
+    )
+    got = kernels.mc_match_batched(*pargs)
+    singles = [kernels.mc_match(*(t[m] for t in pargs[:6]), *pargs[6:]) for m in range(n_p)]
+    twin = kernels.mc_match_ref(*pargs)
+    torch.cuda.synchronize()
+    same = all(torch.equal(got[i], torch.stack([s[i] for s in singles])) for i in range(3))
+    print(f"mc_match_batched P=30 K=20 rounds=5 R'=180 160^2: bitwise equal to 30 single "
+          f"mc_match launches {same}; vs twin: max |trace diff| "
+          f"{float((got[2] - twin[2]).abs().max()):.3e}, |pose diff| "
+          f"{float((got[0] - twin[0]).abs().max()):.3e}", flush=True)
+
     for name, fn in (
         *((f"overlap_score_batched M={m} K={k}", lambda a=a: kernels.overlap_score_batched(*a))
           for (m, k), a in batched.items()),
+        ("mc_match_batched P=30 K=20 rounds=5", lambda: kernels.mc_match_batched(*pargs)),
         ("polar_free_plane 256^2 R=360", lambda: kernels.polar_free_plane(*args)),
         ("overlap_score K=64 R=360", lambda: kernels.overlap_score(*sargs)),
         ("mc_match tiny", lambda: kernels.mc_match(*mc["tiny"])),
@@ -242,6 +269,8 @@ def main() -> None:
         ("mc_match_rounds tiny", lambda: kernels.mc_match_rounds(*mc["tiny"])),
         ("mc_match_rounds viny", lambda: kernels.mc_match_rounds(*mc["viny"])),
         ("polar_free_plane_ref", lambda: kernels.polar_free_plane_ref(*args)),
+        ("30 single mc_match launches at the RBPF's shape",
+         lambda: [kernels.mc_match(*(t[m] for t in pargs[:6]), *pargs[6:]) for m in range(n_p)]),
     ):
         print(f"chained [{name}]: {chained_ms(fn, 50) * 1e3:.2f} us a call (50 back to back)",
               flush=True)

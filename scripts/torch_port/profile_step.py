@@ -21,6 +21,16 @@ After a warm-up over the bench sequence's first scans it prints:
   a share of the unprofiled wall time, the port's own kernels and the
   kernels with the most device time, with launches.
 
+With ``--preset gmapping`` it profiles the RBPF at bench.py's gmapping
+preset (30 particles, 160^2 windows) over the tiny sequence: scans/s of
+``GMappingEngine.run`` over ``--scans`` scans after a warm-up of as many;
+then, with a synchronise after each phase of ``gmapping_step``, ms and ATen
+calls a scan of the proposal, the match windows, the particle match, the
+weight update, the insert (windows cut out and rasterised, the fold, the
+write-back) and the resampling, and the launches of the port's kernels; and
+from ``torch.profiler`` the device's kernel time as a share of the
+unprofiled wall time and the kernels with the most device time.
+
 With ``--preset full`` it profiles the loop-closing pipeline over
 ``chip_smoke.py``'s full sequence instead (512 scans, two laps, one
 segment): scans/s of ``FullSlamEngine.run``; then, from a run with a
@@ -71,13 +81,16 @@ def synced_ms(fn, calls):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--preset", choices=("tiny", "viny", "full"), default="viny")
+    ap.add_argument("--preset", choices=("tiny", "viny", "full", "gmapping"), default="viny")
     ap.add_argument("--scans", type=int, default=64)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA GPU")
     if args.preset == "full":
         profile_full()
+        return
+    if args.preset == "gmapping":
+        profile_gmapping(args.scans)
         return
 
     from slam_constructor_tpu_torch.models import engine, tiny, viny
@@ -231,6 +244,132 @@ def main() -> None:
             if any(n in k.key for n in ("mc_match_kernel", "overlap_score_kernel", "polar_free_kernel"))]
     top = sorted(rows, key=lambda k: -k.device_time_total)[:10]
     for k in ours + [k for k in top if k not in ours]:
+        print(f"  {k.device_time_total * 1e-3:9.3f} ms  {k.count:6d} x  "
+              f"{k.device_time_total / k.count:8.2f} us  {k.key[:90]}")
+
+
+def profile_gmapping(n: int) -> None:
+    from chip_smoke import bench_sequence, gmapping_config
+    from slam_constructor_tpu_torch.models import gmapping
+    from slam_constructor_tpu_torch.ops import grid as gridlib
+    from slam_constructor_tpu_torch.ops import kernels, raycast, resample, scoring
+    from slam_constructor_tpu_torch.ops.geometry import compose
+    from slam_constructor_tpu_torch.ops.scan import LaserScan
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip())
+    scans, odom, gt = bench_sequence(dev)
+    cfg = gmapping_config()
+    p = cfg.n_particles
+    e = gmapping.GMappingEngine(cfg, seed=0)
+    e.state.poses = gt[0].expand(p, 3).clone()
+    e.run(scans[:n], odom[:n])  # warm-up, and the maps hold n scans
+    torch.cuda.synchronize()
+    warm = e.state
+    t0 = time.perf_counter()
+    e.run(scans[n:2 * n], odom[n:2 * n])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(f"gmapping ({p} particles): {n} scans in {secs:.3f} s = {n / secs:.1f} scans/s "
+          f"({secs / n * 1e3:.3f} ms a scan)")
+
+    # --- phases of gmapping_step, a synchronise after each ------------------
+    names = ("proposal", "windows", "match", "weights", "rasterise", "fold", "write-back",
+             "resample")
+    ms = dict.fromkeys(names, 0.0)
+    aten = dict.fromkeys(names, 0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for count_ops in (False, True):
+        state = warm
+        for i in range(n, 2 * n):
+            scan, od = scans[i], odom[i]
+            counter = CountOps()
+            marks = []
+
+            def phase(name, fn):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                if count_ops:
+                    with counter:
+                        n0 = counter.n
+                        out = fn()
+                    aten[name] += counter.n - n0
+                else:
+                    out = fn()
+                    torch.cuda.synchronize()
+                    ms[name] += time.perf_counter() - t
+                marks.append(name)
+                return out
+
+            def propose():
+                d = gmapping.draw(cfg, gen, dev)
+                base = gmapping._vec3(cfg.noise_xy, cfg.noise_xy, cfg.noise_theta, dev)
+                alpha = gmapping._vec3(cfg.alpha_xy, cfg.alpha_xy, cfg.alpha_theta, dev)
+                sigma = base + alpha * torch.abs(od)
+                return (d, sigma, compose(state.poses, od[None, :] + d.proposal * sigma),
+                        compose(state.poses, od.expand(p, 3)))
+
+            d, sigma, priors, centers = phase("proposal", propose)
+
+            def windows():
+                sc = LaserScan(scan.ranges.expand(p, -1), scan.bearings.expand(p, -1),
+                               scan.valid.expand(p, -1))
+                view = scoring.window_view(scoring.MapView.of(state.gm, cfg.cell_model),
+                                           priors[:, :2], cfg.match_window)
+                return sc, view
+
+            sc, view = phase("windows", windows)
+            poses, incr = phase("match", lambda: gmapping.match_particles(
+                cfg, view, sc, priors, centers, sigma, d))
+            logw = phase("weights", lambda: resample.normalize_log_weights(state.log_weights + incr))
+            gm, wi = state.gm, cfg.insert_window
+
+            def rasterise():
+                row, col, origin = gridlib.window_corner(gm.origin, poses[:, :2], gm.scale, wi, wi,
+                                                         cfg.map_height, cfg.map_width)
+                sub = gridlib.GridMap(gridlib.take_window(gm.cells, row, col, wi, wi), origin, gm.scale)
+                return row, col, sub, raycast.scan_observation_planes_batched(
+                    origin, wi, wi, gm.scale, poses, sc, cfg.beam)
+
+            row, col, sub, (w_obs, s_obs) = phase("rasterise", rasterise)
+            sub = phase("fold", lambda: gridlib.apply_observations(sub, cfg.cell_model, w_obs, s_obs))
+            cells = phase("write-back", lambda: gridlib.put_window(gm.cells, sub.cells, row, col))
+
+            def resampled():
+                idx, lw, _ = resample.maybe_resample(d.u0, logw, cfg.resample_threshold)
+                return gmapping.GMappingState(
+                    gm=gridlib.GridMap(cells.index_select(0, idx), gm.origin.index_select(0, idx),
+                                       gm.scale),
+                    poses=poses.index_select(0, idx), log_weights=lw, step=state.step + 1)
+
+            state = phase("resample", resampled)
+    print("synced phases, ms and ATen calls a scan: " + ", ".join(
+        f"{k} {ms[k] / n * 1e3:.3f} ms / {aten[k] / n:.0f}" for k in names)
+        + f"; in all {sum(ms.values()) / n * 1e3:.3f} ms / {sum(aten.values()) / n:.0f}")
+    with CountOps() as c:
+        gmapping.gmapping_step(cfg, warm, scans[n], odom[n], generator=gen)
+    print(f"ATen calls of one gmapping_step (views included): {c.n}")
+
+    e.state = warm
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        e.run(scans[n:2 * n], odom[n:2 * n])
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"launches over {n} scans: {kernels.launch_counts()}")
+    rows = [k for k in prof.key_averages() if getattr(k, "device_time_total", 0) > 0
+            and k.device_type.name == "CUDA"]
+    dev_s = sum(k.device_time_total for k in rows) * 1e-6
+    print(f"profiled {n} scans: device kernel time {dev_s:.4f} s = {dev_s / secs * 100:.1f}% of "
+          f"the unprofiled {secs:.3f} s ({dev_s / wall * 100:.1f}% of the profiled {wall:.3f} s); "
+          f"{sum(k.count for k in rows) / n:.0f} kernels a scan")
+    mine = [k for k in rows if "mc_match_kernel" in k.key]
+    top = sorted(rows, key=lambda k: -k.device_time_total)[:12]
+    for k in mine + [k for k in top if k not in mine]:
         print(f"  {k.device_time_total * 1e-3:9.3f} ms  {k.count:6d} x  "
               f"{k.device_time_total / k.count:8.2f} us  {k.key[:90]}")
 

@@ -2,6 +2,7 @@
 
     JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --preset viny [--port] [--keys 5]
     JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --preset full [--port] [--keys 5]
+    JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --preset gmapping [--port] [--keys 5]
 
 Builds the sequence that ``chip_smoke.py`` drives (512 scans along the
 cecum rectangle, 360 beams, odometry noise 0.01 m / 0.005 rad from
@@ -39,6 +40,24 @@ without the graph; ``--keys N`` runs it for each of ``PRNGKey(0..N-1)``, and
 injected and prints how far its trajectory, keyframes and loop count lie
 from the reference's. ``--dissect`` is for tiny and viny only.
 
+With ``--preset gmapping_2lap`` the same over the reference's own quality
+sequence (two laps at 0.3 m a step, odometry noise 0.02 m / 0.012 rad,
+``chip_smoke.gmapping_quality_sequence``); with ``--multiseed`` it runs
+the reference's 5-seed protocol (``scripts/r3/gm_multiseed.py``: a
+sequence and a filter key a seed) on both sides, the port on the CPU with
+its own generator.
+
+With ``--preset gmapping`` the reference's RBPF at bench.py's ``gmapping``
+preset (``fast_config(n_particles=30, map_size=256)``: 160^2 windows,
+20 x 5 Monte-Carlo rounds on every second beam, 6 m usable range, the DDA
+free fill) runs over the tiny sequence; the figures are the winner's ATE
+(the final best particle's genealogy) and the online ATE (the best
+particle at each scan), a key at a time. ``--port`` runs the port's
+``GMappingEngine`` on the CPU with key 0's draws injected (proposal and
+matcher normals and resampling offsets rebuilt from the key chain) and
+prints how far its poses, weights and genealogy lie from the reference's,
+and how often an insert window was clamped at the map's edge.
+
 This is a parity tool, like the tests: it imports both packages. Nothing
 it prints is a device metric.
 """
@@ -60,10 +79,13 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[2]))  # the checkout's root
 
 from chip_smoke import (  # noqa: E402  (the same sequences and configuration)
-    MAP, N_BEAMS, N_SCANS, bench_sequence, full_config, full_sequence,
+    MAP, N_BEAMS, N_SCANS, bench_sequence, full_config, full_sequence, gmapping_quality_sequence,
 )
 
 FREE_IMPL = {"tiny": "dda", "viny": "polar"}
+PRESETS = [*sorted(FREE_IMPL), "full", "gmapping", "gmapping_2lap"]
+#: the reference's RBPF quality protocol's seeds (scripts/r3/gm_multiseed.py)
+MULTISEED = (42, 7, 19, 101, 202)
 
 
 def noise_chain(key, n_steps, rounds, batch):
@@ -79,9 +101,13 @@ def noise_chain(key, n_steps, rounds, batch):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--preset", choices=[*sorted(FREE_IMPL), "full"], default="viny")
+    ap.add_argument("--preset", choices=PRESETS, default="viny")
     ap.add_argument("--port", action="store_true", help="also run the port on the CPU")
     ap.add_argument("--keys", type=int, default=1, help="matcher noise seeds to run")
+    ap.add_argument("--multiseed", action="store_true",
+                    help="gmapping_2lap: the reference's 5-seed protocol, reference and port")
+    ap.add_argument("--stepwise", action="store_true",
+                    help="gmapping: every step of the port from the reference's state")
     ap.add_argument("--dissect", type=int, default=None, metavar="K",
                     help="take apart the first diverging scan of key K")
     args = ap.parse_args()
@@ -89,6 +115,9 @@ def main() -> None:
     torch.set_num_threads(1)
     if args.preset == "full":
         print(json.dumps(full_preset(args)))
+        return
+    if args.preset.startswith("gmapping"):
+        print(json.dumps(gmapping_preset(args)))
         return
 
     from slam_constructor_tpu.models import engine as jeng
@@ -239,6 +268,191 @@ def full_preset(args) -> dict:
                 int(te.graph.n_edges) == int(je.graph.n_edges)
                 and np.array_equal(te.graph.edge_i.numpy()[:n_e], np.asarray(je.graph.edge_i)[:n_e])
                 and np.array_equal(te.graph.edge_j.numpy()[:n_e], np.asarray(je.graph.edge_j)[:n_e])),
+            "seconds_cpu": time.perf_counter() - t0,
+        }
+    return out
+
+
+def gmapping_draws(key, cfg):
+    """The random numbers of one reference RBPF step from its key, as the
+    port's ``Draws``, and the key after the step: ``split(key, 4)`` into
+    the proposal normals, a match key a particle (split once more by the
+    improved proposal into match and probe/sample keys), the resampling
+    offset."""
+    from slam_constructor_tpu_torch.models import gmapping as tgm
+
+    key, k_noise, k_match, k_res = jax.random.split(key, 4)
+    mc, p = cfg.matcher_cfg, cfg.n_particles
+    keys = jax.random.split(k_match, p)
+    improved = cfg.proposal == "improved"
+    if improved:
+        pairs = jax.vmap(jax.random.split)(keys)
+        keys, kjs = pairs[:, 0], jax.vmap(jax.random.split)(pairs[:, 1])
+    match = jax.vmap(lambda k: jax.vmap(lambda kr: jax.random.normal(kr, (mc.batch, 3)))(
+        jax.random.split(k, mc.rounds)))(keys)
+
+    def t(a):
+        return torch.from_numpy(np.array(a, np.float32))
+
+    return tgm.Draws(
+        proposal=t(jax.random.normal(k_noise, (p, 3))),
+        u0=t(jax.random.uniform(k_res, (), minval=0.0, maxval=1.0 / p)),
+        match=t(match),
+        probe=t(jax.vmap(lambda k: jax.random.normal(k, (cfg.proposal_samples, 3)))(kjs[:, 0]))
+        if improved else None,
+        sample=t(jax.vmap(lambda k: jax.random.normal(k, (3,)))(kjs[:, 1])) if improved else None,
+    ), key
+
+
+def stepwise(jcfg, tcfg, scans, odom, gt) -> dict:
+    """Every step of the port from the reference's state before it (key 0's
+    run), crossed through ``convert``, with the reference's draws: the
+    largest difference of a step's poses, log-weights and cells, and the
+    steps whose poses differ by more than 1e-5 or whose ancestors differ."""
+    from slam_constructor_tpu.models import gmapping as jgm
+    from slam_constructor_tpu.ops.scan import LaserScan as JScan
+    from slam_constructor_tpu_torch.models import gmapping as tgm
+    from slam_constructor_tpu_torch.utils import convert
+
+    p = jcfg.n_particles
+    step = jax.jit(lambda st, s, o: jgm.gmapping_step(jcfg, st, s, o))
+    st = jgm.init_state(jcfg, jax.random.PRNGKey(0))
+    st = st.replace(poses=jnp.broadcast_to(jnp.asarray(gt[0].numpy()), (p, 3)))
+    key, worst, over = jax.random.PRNGKey(0), [0.0, 0.0, 0.0], []
+    for i in range(len(gt)):
+        draws, key = gmapping_draws(key, jcfg)
+        before = convert.gmapping_state_from_numpy({
+            "cells": np.asarray(st.gm.cells), "origin": np.asarray(st.gm.origin),
+            "scale": st.gm.scale, "poses": np.asarray(st.poses),
+            "log_weights": np.asarray(st.log_weights), "step": int(st.step)}, "cpu")
+        js = JScan(ranges=jnp.asarray(scans.ranges[i].numpy()),
+                   bearings=jnp.asarray(scans.bearings[i].numpy()),
+                   valid=jnp.asarray(scans.valid[i].numpy()))
+        st, idx = step(st, js, jnp.asarray(odom[i].numpy()))
+        got, got_idx = tgm.gmapping_step(tcfg, before, scans[i], odom[i], draws)
+        d = got.poses.numpy().astype(np.float64) - np.asarray(st.poses)
+        d[:, 2] = np.arctan2(np.sin(d[:, 2]), np.cos(d[:, 2]))
+        diffs = (float(np.abs(d).max()),
+                 float(np.abs(got.log_weights.numpy() - np.asarray(st.log_weights)).max()),
+                 float(np.abs(got.gm.cells.numpy() - np.asarray(st.gm.cells)).max()))
+        worst = [max(a, b) for a, b in zip(worst, diffs)]
+        if diffs[0] > 1e-5 or not np.array_equal(got_idx.numpy(), np.asarray(idx)):
+            over.append(i)
+    return {"steps": len(gt), "max_pose_diff": worst[0], "max_log_weight_diff": worst[1],
+            "max_cell_diff": worst[2], "steps_over_1e-5_or_other_ancestors": over}
+
+
+def gmapping_preset(args) -> dict:
+    """The reference's RBPF over the tiny sequence at bench.py's gmapping
+    preset, a key at a time; with ``--port`` also the port's, key 0's draws
+    injected."""
+    from slam_constructor_tpu.models import gmapping as jgm
+    from slam_constructor_tpu.ops.scan import LaserScan as JScan
+    from slam_constructor_tpu_torch.models import gmapping as tgm
+    from slam_constructor_tpu_torch.utils import evaluate
+
+    two_laps = args.preset == "gmapping_2lap"
+    scans, odom, gt = gmapping_quality_sequence("cpu") if two_laps else bench_sequence("cpu")
+    n_scans = len(gt)
+    jcfg = jgm.fast_config(n_particles=30, map_size=MAP)
+    tcfg = tgm.fast_config(n_particles=30, map_size=MAP)
+    p = jcfg.n_particles
+
+    def as_jax(scans):
+        return JScan(ranges=jnp.asarray(scans.ranges.numpy()),
+                     bearings=jnp.asarray(scans.bearings.numpy()), valid=jnp.asarray(scans.valid.numpy()))
+
+    def reference_run(scans, odom, gt, key):
+        st = jgm.init_state(jcfg, key)
+        st = st.replace(poses=jnp.broadcast_to(jnp.asarray(gt[0].numpy()), (p, 3)))
+        st, traj, neffs, all_poses, ancestors = jgm.run_sequence(
+            jcfg, st, as_jax(scans), jnp.asarray(odom.numpy()))
+        return st, traj, neffs, all_poses, ancestors, jgm.winner_trajectory(
+            all_poses, ancestors, jgm.best_particle(st))
+
+    def ate(traj, gt):
+        return float(evaluate.ate(torch.as_tensor(np.array(traj)), gt, align=False))
+
+    def odometry(odom, gt):
+        from chip_smoke import odometry_trajectory
+
+        return ate(odometry_trajectory(gt[0], odom), gt)
+
+    if args.stepwise:
+        return {"preset": args.preset, "stepwise": stepwise(jcfg, tcfg, scans, odom, gt)}
+    if args.multiseed:
+        # the protocol: a sequence and a filter key a seed; the port with its
+        # own generator on the CPU
+        rows = []
+        for seed in MULTISEED:
+            sc, od, g = gmapping_quality_sequence("cpu", seed)
+            ref = reference_run(sc, od, g, jax.random.PRNGKey(seed + 1))
+            e = tgm.GMappingEngine(tcfg, device="cpu", seed=seed + 1)
+            e.state.poses = g[0].expand(p, 3).clone()
+            e.run(sc, od)
+            rows.append({"seed": seed, "odometry_ate_m": odometry(od, g),
+                         "reference_winner_ate_m": ate(ref[5], g),
+                         "port_winner_ate_m": ate(e.winner_trajectory(), g)})
+            print(json.dumps(rows[-1]), file=sys.stderr, flush=True)
+        summary = {side: {"mean": float(np.mean([r[f"{side}_winner_ate_m"] for r in rows])),
+                          "max": float(np.max([r[f"{side}_winner_ate_m"] for r in rows]))}
+                   for side in ("reference", "port")}
+        return {"preset": args.preset, "protocol": "scripts/r3/gm_multiseed.py seeds",
+                "beams": N_BEAMS, "by_seed": rows, "winner_ate": summary}
+
+    rows, first = [], None
+    for k in range(max(args.keys, 1)):
+        t0 = time.perf_counter()
+        st, traj, neffs, all_poses, ancestors, winner = reference_run(
+            scans, odom, gt, jax.random.PRNGKey(k))
+        rows.append({
+            "key": k,
+            "reference_winner_ate_m": ate(winner, gt),
+            "reference_online_ate_m": ate(traj, gt),
+            "resamples": int((np.asarray(ancestors) != np.arange(p)).any(axis=1).sum()),
+            "min_neff": float(np.asarray(neffs).min()),
+            "seconds_cpu": time.perf_counter() - t0,
+        })
+        print(json.dumps(rows[-1]), file=sys.stderr, flush=True)
+        first = first or (np.array(all_poses), np.array(ancestors), np.array(st.log_weights),
+                          np.array(st.gm.cells))
+    out = {"preset": args.preset, "scans": n_scans, "beams": N_BEAMS, "map": MAP, "particles": p,
+           "window": jcfg.insert_window, "backend": jax.default_backend(),
+           "odometry_ate_m": odometry(odom, gt), "by_key": rows}
+    if args.port:
+        j_poses, j_anc, j_logw, j_cells = first
+        key, chain = jax.random.PRNGKey(0), []
+        for _ in range(n_scans):
+            d, key = gmapping_draws(key, jcfg)
+            chain.append(d)
+        draws = tgm.Draws(**{f: None if getattr(chain[0], f) is None else
+                             torch.stack([getattr(d, f) for d in chain])
+                             for f in ("proposal", "u0", "match", "probe", "sample")})
+        e = tgm.GMappingEngine(tcfg, device="cpu")
+        e.state.poses = gt[0].expand(p, 3).clone()
+        t0 = time.perf_counter()
+        e.run(scans, odom, draws=draws)
+        all_poses, ancestors = e.genealogy
+        d = all_poses.numpy().astype(np.float64) - j_poses
+        d[..., 2] = np.arctan2(np.sin(d[..., 2]), np.cos(d[..., 2]))
+        same_anc = (ancestors.numpy() == j_anc).all(axis=1)
+        # insert windows that the map's edge pushed off their pose: the
+        # corner before the clamp lies outside [0, MAP - window]
+        wi = tcfg.insert_window
+        corner = torch.floor((all_poses[..., :2] - e.state.gm.origin[0]) / tcfg.map_scale) - wi // 2
+        clamped = ((corner < 0) | (corner > MAP - wi)).any(-1)
+        out["port_same_draws"] = {
+            "winner_ate_m": ate(e.winner_trajectory(), gt),
+            "max_abs_pose_diff": float(np.abs(d).max()),
+            "first_scan_pose_diff_over_1e-4": next(
+                (int(t) for t in range(n_scans) if np.abs(d[t]).max() > 1e-4), None),
+            "ancestors_equal_scans": int(same_anc.sum()),
+            "first_scan_ancestors_differ": next(
+                (int(t) for t in range(n_scans) if not same_anc[t]), None),
+            "max_abs_log_weight_diff": float(np.abs(e.state.log_weights.numpy() - j_logw).max()),
+            "max_abs_cell_diff": float(np.abs(e.state.gm.cells.numpy() - j_cells).max()),
+            "insert_windows_clamped": int(clamped.sum()),
+            "insert_windows": int(clamped.numel()),
             "seconds_cpu": time.perf_counter() - t0,
         }
     return out

@@ -1,14 +1,17 @@
-// mc_match.cu: one whole Monte-Carlo scan match in one launch, on a Hopper
-// (sm_90a) thread-block cluster. Plain C interface, bound from Python with
-// ctypes (slam_constructor_tpu_torch/ops/kernels.py::mc_match, built by
-// ops/_build.py).
+// mc_match.cu: whole Monte-Carlo scan matches in one launch, one Hopper
+// (sm_90a) thread-block cluster a match. Plain C interface, bound from
+// Python with ctypes (slam_constructor_tpu_torch/ops/kernels.py::mc_match
+// for one match, ::mc_match_batched for P of them, built by ops/_build.py).
 //
 // On the matcher's path it takes the place of the TPU kernel
 // slam_constructor_tpu/ops/pallas_kernels.py: sample_plane_bilinear (body
 // _bilinear_kernel) together with everything ops/matchers.py:
 // monte_carlo_match does around ops/scoring.py:score_poses at the overlap
-// reducer, extent 1:
+// reducer, extent 1; with P matches in one launch it is also what
+// models/gmapping.py gets from vmap(match_particle) over its particles:
 //
+//   for each match p (a particle, with its own plane, scan, origin, prior
+//   and noise):
 //   best = init_pose; best_prob = score(init_pose); sigma = (sxy, sxy, sth)
 //   for r in 0 .. rounds - 1:
 //     cand[c] = (best.xy + noise[r, c, :2] * sigma.xy,
@@ -23,30 +26,39 @@
 // mean of overlap_sample.cuh over the scan's beams. The standard normals
 // `noise` are drawn outside, by PyTorch.
 //
-// What bounds it on an H100: neither bytes nor operations. The plane, the
-// scan and the noise are ~0.27 MB (0.08 us at 3.35 TB/s) and a match of
-// 1 + 12 x 64 poses x 360 beams is ~15 MFLOP (0.2 us at 67 TFLOP/s). What
+// What bounds it on an H100: neither bytes nor operations. The RBPF's 30
+// windows of 160^2, its scans and noise are ~3.1 MB (0.9 us at 3.35 TB/s)
+// and its 30 x (1 + 5 x 20) poses x 180 beams are ~29 MFLOP (0.4 us at 67
+// TFLOP/s); a single match of the tiny path is ~0.27 MB and ~15 MFLOP. What
 // it takes is 1 + rounds dependent steps, each a few trips to L2 for the
 // plane's taps and one cluster barrier. Run as 1 + rounds launches of
 // overlap_score.cu with ~25 small PyTorch ops between them
-// (kernels.mc_match_rounds), the host's dispatch of those, not the device,
-// sets the pace of a scan.
+// (kernels.mc_match_rounds), or as one launch a particle, the host's
+// dispatch of those, not the device, sets the pace of a scan.
 //
 // Design.
-// - One cluster of 8 blocks x 1024 threads. A block holds 8 groups of 128
-//   threads, a group scores one candidate, so the cluster scores 64
-//   candidates at once; more candidates take further passes in the same
-//   round, fewer leave groups idle. Idle groups still reach every barrier.
+// - One cluster a match, of B blocks x 1024 threads, B = ceil(K / 8) and at
+//   most 8, chosen at launch (cudaLaunchKernelEx with a cluster-dimension
+//   attribute; the kernel is instantiated for each B). The grid is (B, P):
+//   cluster p is row blockIdx.y = p and works on match p's slices of every
+//   array. A block holds 8 groups of 128
+//   threads and a group scores one candidate, so a cluster scores 8 B
+//   candidates at once; more candidates (K > 64) take further passes in the
+//   same round. Idle groups still reach every barrier. At the RBPF's K = 20,
+//   B = 3: 30 particles are 90 blocks of one SM each, one wave on 132 SMs,
+//   where 8-block clusters would leave 44 of 64 groups idle and need two.
+//   The tiny, viny and full paths (K = 64) keep B = 8.
 // - A group scores its pose exactly as a block of overlap_score.cu does
 //   (the shared header: same beam order a thread, same tree), and the
 //   candidate arithmetic is written op by op as the PyTorch loop does it,
-//   so the fused match gives the same bits as the match with one
-//   overlap_score launch a round.
-// - pts and beam_w (12 B a beam) and all the noise (12 B a candidate and
-//   round) are copied once into each block's shared memory, with plain
-//   coalesced loads (4.3 KB and 9-12 KB on the main paths: a few loads a
-//   thread, nothing to pipeline), and serve every candidate of every round:
-//   no round waits for device memory except for the plane's taps.
+//   so a match gives the same bits as the match with one overlap_score
+//   launch a round, whatever B, P and the match's place in the grid.
+// - pts and beam_w (12 B a beam) and all the match's noise (12 B a
+//   candidate and round) are copied once into each block's shared memory,
+//   with plain coalesced loads (4.3 KB and 9-12 KB on the single-match
+//   paths, 2.2 and 1.2 KB for a particle of the RBPF: a few loads a thread,
+//   nothing to pipeline), and serve every candidate of every round: no
+//   round waits for device memory except for the plane's taps.
 // - The plane stays in global memory behind __ldg: 256 KB does not fit a
 //   block's 227 KB of shared memory, and spread over the cluster a tap
 //   would cost a distributed-shared-memory read that is no faster than the
@@ -55,13 +67,15 @@
 //   score into its own block's buffer, one cluster barrier, then the first
 //   warp of EVERY block reads all K scores (map_shared_rank) and computes
 //   argmax, keep-if-better and the anneal redundantly, so the match state
-//   lives replicated in every block and nothing is broadcast. The score
-//   buffers alternate between rounds, so one barrier a round is enough: a
-//   block can only write a buffer again after every block has passed the
-//   next round's barrier, and so has finished reading it.
+//   lives replicated in every block and nothing is broadcast. The argmax is
+//   a total order (comes_first), so the winner does not depend on which
+//   group scored which candidate. The score buffers alternate between
+//   rounds, so one barrier a round is enough: a block can only write a
+//   buffer again after every block has passed the next round's barrier,
+//   and so has finished reading it.
 // - The first pose is scored by group 0 of every block redundantly, which
-//   needs no exchange. Block 0 writes trace[r] and at the end pose and
-//   prob. No atomics, no global scratch, nothing read on the host.
+//   needs no exchange. Block 0 of a cluster writes trace[r] and at the end
+//   pose and prob. No atomics, no global scratch, nothing read on the host.
 // - A NaN score counts as the largest in the argmax, as torch.argmax does,
 //   and is never "better" (the comparison is a strict >).
 //
@@ -78,11 +92,16 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kClusterBlocks = 8;
-constexpr int kGroups = 8;  // groups (candidates) a block
+constexpr int kMaxClusterBlocks = 8;  // the portable cluster size
+constexpr int kGroups = 8;            // groups (candidates) a block
 constexpr int kThreads = kGroups * overlap::kGroupThreads;
-constexpr int kPerPass = kClusterBlocks * kGroups;  // candidates a pass
 static_assert(kThreads == 1024, "a block is 8 groups of 128 threads");
+
+// Blocks a cluster: enough groups for the K candidates of a round, at most 8.
+int cluster_blocks(int k) {
+  const int b = (k + kGroups - 1) / kGroups;
+  return b < 1 ? 1 : (b > kMaxClusterBlocks ? kMaxClusterBlocks : b);
+}
 
 struct MatchState {
   float pose[3];
@@ -113,7 +132,12 @@ __device__ __forceinline__ bool comes_first(float av, int ai, float bv, int bi) 
   return ai < bi;
 }
 
-__global__ void __cluster_dims__(kClusterBlocks, 1, 1) __launch_bounds__(kThreads, 1)
+// Launched with clusters of kBlocks blocks (the whole x extent of the
+// grid) and gridDim.y = P matches. The width is a template parameter, so the
+// candidate-to-block arithmetic divides by constants, as it did when the
+// width was fixed at 8.
+template <int kBlocks>
+__global__ void __launch_bounds__(kThreads, 1)
 mc_match_kernel(const float* __restrict__ v, int h, int w,
                 const float* __restrict__ pts, const float* __restrict__ beam_w, int r,
                 const float* __restrict__ origin, const float* __restrict__ init_pose,
@@ -126,15 +150,28 @@ mc_match_kernel(const float* __restrict__ v, int h, int w,
   __shared__ float s_den[kThreads];
   __shared__ MatchState st;
 
-  const int passes = (k + kPerPass - 1) / kPerPass;
+  // match p's slice of every array
+  const size_t p = blockIdx.y;
+  v += p * h * w;
+  pts += p * 2 * r;
+  beam_w += p * r;
+  origin += p * 2;
+  init_pose += p * 3;
+  noise += p * rounds * k * 3;
+  pose_out += p * 3;
+  prob_out += p;
+  trace_out += p * rounds;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  constexpr int per_pass = kBlocks * kGroups;  // candidates a pass
+  const int passes = (k + per_pass - 1) / per_pass;
   const int per_buffer = kGroups * passes;  // this block's scores of a round
   float* s_pts = smem;                      // f32[2 r]
   float* s_bw = smem + 2 * r;               // f32[r]
   float* s_scores = smem + 3 * r;           // f32[2][per_buffer]
   float* s_noise = s_scores + 2 * per_buffer;  // f32[rounds][k][3]
 
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
   const int g = threadIdx.x / overlap::kGroupThreads;
   const int t = threadIdx.x % overlap::kGroupThreads;
   float* g_num = s_num + g * overlap::kGroupThreads;
@@ -158,9 +195,9 @@ mc_match_kernel(const float* __restrict__ v, int h, int w,
   const float oy = __ldg(origin + 1);
 
   if (g == 0) {  // the first pose, in every block
-    const overlap::Pose p{st.pose[0], st.pose[1], cosf(st.pose[2]), sinf(st.pose[2])};
+    const overlap::Pose q{st.pose[0], st.pose[1], cosf(st.pose[2]), sinf(st.pose[2])};
     float num, den;
-    overlap::beam_sums(v, h, w, p, s_pts, s_bw, r, t, ox, oy, scale, unknown, num, den);
+    overlap::beam_sums(v, h, w, q, s_pts, s_bw, r, t, ox, oy, scale, unknown, num, den);
     overlap::group_reduce(num, den, g_num, g_den, t, barrier_id);
     if (t == 0) st.prob = overlap::weighted_mean(num, den);
   }
@@ -169,13 +206,13 @@ mc_match_kernel(const float* __restrict__ v, int h, int w,
   for (int round = 0; round < rounds; ++round) {
     float* mine = s_scores + (round & 1) * per_buffer;
     for (int pass = 0; pass < passes; ++pass) {
-      const int c = pass * kPerPass + rank * kGroups + g;
+      const int c = pass * per_pass + rank * kGroups + g;
       if (c >= k) continue;  // the whole group: it waits at the cluster barrier
       float cand[3];
       candidate(st, s_noise + (round * k + c) * 3, cand);
-      const overlap::Pose p{cand[0], cand[1], cosf(cand[2]), sinf(cand[2])};
+      const overlap::Pose q{cand[0], cand[1], cosf(cand[2]), sinf(cand[2])};
       float num, den;
-      overlap::beam_sums(v, h, w, p, s_pts, s_bw, r, t, ox, oy, scale, unknown, num, den);
+      overlap::beam_sums(v, h, w, q, s_pts, s_bw, r, t, ox, oy, scale, unknown, num, den);
       overlap::group_reduce(num, den, g_num, g_den, t, barrier_id);
       if (t == 0) mine[pass * kGroups + g] = overlap::weighted_mean(num, den);
     }
@@ -185,8 +222,8 @@ mc_match_kernel(const float* __restrict__ v, int h, int w,
       float best_v = -CUDART_INF_F;
       int best_i = 0x7fffffff;  // a lane without a candidate loses to any
       for (int c = threadIdx.x; c < k; c += 32) {
-        const int pass = c / kPerPass;
-        const int in_pass = c - pass * kPerPass;
+        const int pass = c / per_pass;
+        const int in_pass = c - pass * per_pass;
         const float* theirs = cluster.map_shared_rank(mine, in_pass / kGroups);
         const float sc = theirs[pass * kGroups + in_pass % kGroups];
         if (comes_first(sc, c, best_v, best_i)) {
@@ -237,25 +274,46 @@ mc_match_kernel(const float* __restrict__ v, int h, int w,
   }
 }
 
+using Kernel = decltype(&mc_match_kernel<1>);
+
+Kernel kernel_for(int blocks) {
+  switch (blocks) {
+    case 1: return mc_match_kernel<1>;
+    case 2: return mc_match_kernel<2>;
+    case 3: return mc_match_kernel<3>;
+    case 4: return mc_match_kernel<4>;
+    case 5: return mc_match_kernel<5>;
+    case 6: return mc_match_kernel<6>;
+    case 7: return mc_match_kernel<7>;
+    default: return mc_match_kernel<8>;
+  }
+}
+
 }  // namespace
 
-// Launches one cluster on `stream` (PyTorch's current stream), does not
-// synchronise and allocates nothing. `shared_bytes` is the dynamic shared
-// memory the caller asks for a block: at least (3 r + 2 * 8 *
-// ceil(k / 64) + 3 rounds k) floats, and with the kernel's static 8.2 KB
-// within the 227 KB a block can have. Returns the cudaError_t of the launch
-// (0 = ok).
-extern "C" int mc_match_launch(const float* v, int h, int w, const float* pts,
+// Launches n_p matches, one cluster of ceil(k / 8) (at most 8) blocks each,
+// on `stream` (PyTorch's current stream); does not synchronise and
+// allocates nothing. Match p reads v[p] (h x w), pts[p] (r x 2), beam_w[p],
+// origin[p], init_pose[p], noise[p] (rounds x k x 3) and writes pose_out[p],
+// prob_out[p], trace_out[p] (rounds). `shared_bytes` is the dynamic shared
+// memory the caller asks for a block: at least (3 r + 2 * 8 * passes + 3
+// rounds k) floats, passes = ceil(k / (8 * blocks)), and with the kernel's
+// static 8.2 KB within the 227 KB a block can have. Returns the
+// cudaError_t of the launch (0 = ok).
+extern "C" int mc_match_launch(const float* v, int n_p, int h, int w, const float* pts,
                                const float* beam_w, int r, const float* origin,
                                const float* init_pose, const float* noise, int rounds,
                                int k, float scale, float unknown, float sigma_xy,
                                float sigma_theta, int bad_limit, float* pose_out,
                                float* prob_out, float* trace_out, int shared_bytes,
                                void* stream) {
-  if (h <= 0 || w <= 0 || r < 0 || rounds < 0 || k < 0 || (rounds > 0 && k == 0)) {
+  if (n_p <= 0 || n_p > 65535 || h <= 0 || w <= 0 || r < 0 || rounds < 0 || k < 0 ||
+      (rounds > 0 && k == 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int passes = (k + kPerPass - 1) / kPerPass;
+  const int blocks = cluster_blocks(k);
+  const Kernel kernel = kernel_for(blocks);
+  const int passes = (k + blocks * kGroups - 1) / (blocks * kGroups);
   const size_t needed = (3 * static_cast<size_t>(r) + 2 * kGroups * passes +
                          3 * static_cast<size_t>(rounds) * k) * sizeof(float);
   if (shared_bytes < 0 || static_cast<size_t>(shared_bytes) < needed) {
@@ -264,11 +322,24 @@ extern "C" int mc_match_launch(const float* v, int h, int w, const float* pts,
   // the default is 48 KB a block, static part (8.2 KB) included
   if (shared_bytes > 32 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        mc_match_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  mc_match_kernel<<<kClusterBlocks, kThreads, shared_bytes, static_cast<cudaStream_t>(stream)>>>(
-      v, h, w, pts, beam_w, r, origin, init_pose, noise, rounds, k, scale, unknown, sigma_xy,
-      sigma_theta, bad_limit, pose_out, prob_out, trace_out);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks, n_p, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = static_cast<size_t>(shared_bytes);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, v, h, w, pts, beam_w, r, origin, init_pose, noise, rounds, k,
+      scale, unknown, sigma_xy, sigma_theta, bad_limit, pose_out, prob_out, trace_out);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,8 +4,11 @@
 The map holds one ``f32[H, W, C]`` tensor: the cell model's belief channels
 plus a trailing observation-weight channel. Cell index ``[row, col]`` with
 ``row ~ y`` and ``col ~ x``; ``origin`` is the world coordinate of the
-lower-left corner of cell (0, 0). Growth and rescaling wait for a later
-slice.
+lower-left corner of cell (0, 0). A stack of P same-shaped maps (the loop
+closer's submaps, the RBPF's particles) is ``f32[P, H, W, C]`` with
+``origin`` f32[P, 2]; ``window_corner``, ``take_window`` and
+``put_window`` cut a window out of each and write it back. Growth and
+rescaling wait for a later slice.
 """
 
 from __future__ import annotations
@@ -23,8 +26,8 @@ WEIGHT_CHANNEL = -1
 @dataclasses.dataclass
 class GridMap:
     #: f32[H, W, C]: model belief channels + weight channel; a batch of
-    #: same-shaped maps (the loop closer's submaps) is f32[M, H, W, C] with
-    #: ``origin`` f32[M, 2]
+    #: same-shaped maps (the loop closer's submaps, the RBPF's particles) is
+    #: f32[M, H, W, C] with ``origin`` f32[M, 2]
     cells: Tensor
     origin: Tensor  # f32[2]: world (x, y) of the lower-left corner of (0, 0)
     scale: float  # meters per cell
@@ -95,6 +98,48 @@ def apply_observations(gm: GridMap, model, w_obs: Tensor, s_obs: Tensor) -> Grid
     belief = model.update(gm.belief, n_prev, w_obs, s_obs)
     cells = torch.cat([belief, (n_prev + w_obs)[..., None]], dim=-1)
     return dataclasses.replace(gm, cells=cells)
+
+
+def window_corner(origin: Tensor, center_xy: Tensor, scale: float, sh: int, sw: int, h: int,
+                  w: int):
+    """The ``sh x sw`` cell window around a world point, clamped into an
+    ``h x w`` map: (row, col) int64 of its first cell and its world origin
+    f32[2]. With a leading map dimension (``origin``, ``center_xy``
+    f32[P, 2]) each map has its own: row, col i64[P], origin f32[P, 2].
+
+    The reference's arithmetic (``scoring.window_view``, the RBPF's insert
+    window): ``floor((center - origin) / scale)`` less half the window, the
+    window's origin ``origin + [col, row] * scale``. The division is tensor
+    by tensor (a scalar divisor becomes a product with its reciprocal on
+    the card). Nothing is read on the host."""
+    rel = (center_xy - origin) / torch.full_like(origin, scale)
+    cell = torch.floor(rel).to(torch.int64)
+    col = torch.clamp(cell[..., 0] - sw // 2, 0, w - sw)
+    row = torch.clamp(cell[..., 1] - sh // 2, 0, h - sh)
+    return row, col, origin + torch.stack([col, row], dim=-1).to(torch.float32) * scale
+
+
+def _window_index(row: Tensor, col: Tensor, sh: int, sw: int):
+    """Index tensors of the window at (row, col) of each of P planes:
+    (plane [P, 1, 1], rows [P, sh, 1], cols [P, 1, sw])."""
+    dev = row.device
+    rows = (row[:, None] + torch.arange(sh, device=dev))[:, :, None]
+    cols = (col[:, None] + torch.arange(sw, device=dev))[:, None, :]
+    return torch.arange(row.shape[0], device=dev)[:, None, None], rows, cols
+
+
+def take_window(planes: Tensor, row: Tensor, col: Tensor, sh: int, sw: int) -> Tensor:
+    """The ``sh x sw`` window at (row, col) of each of P planes ``f32[P, H,
+    W, ...]`` -> ``f32[P, sh, sw, ...]``, in one gather whose offsets stay
+    on the device."""
+    return planes[_window_index(row, col, sh, sw)]
+
+
+def put_window(planes: Tensor, windows: Tensor, row: Tensor, col: Tensor) -> Tensor:
+    """``planes`` with each plane's window at (row, col) replaced by
+    ``windows[p]`` (returns a new tensor; the windows of different planes
+    never meet)."""
+    return planes.index_put(_window_index(row, col, *windows.shape[1:3]), windows)
 
 
 def occupancy_plane(gm: GridMap, model) -> Tensor:

@@ -12,6 +12,9 @@ from ``vmap`` over submaps when it closes loops.
 round's candidates, argmax, keep-if-better and the sigma anneal) in one
 launch on a thread-block cluster; it is the same TPU kernel's counterpart
 on the matcher's path, with the matcher's round loop folded in.
+``mc_match_batched`` is the same kernel over P matches at once, a cluster
+each, each with its own plane, scan, prior and noise: the RBPF's particles
+(``mc_match`` is its P = 1 case, with the same bits).
 ``mc_match_rounds`` is the same match with ``overlap_score`` launched once
 a round, kept as the yardstick the fused kernel must equal bit for bit.
 
@@ -46,7 +49,8 @@ _MAX_SHARED_BYTES = 48 * 1024
 #: wrapper adds one where it launches its kernel (CUDA tensors only), under
 #: its own name whatever name it was called by.
 _LAUNCHES = dict.fromkeys(
-    ("overlap_score", "overlap_score_batched", "mc_match", "polar_free_plane"), 0
+    ("overlap_score", "overlap_score_batched", "mc_match", "mc_match_batched",
+     "polar_free_plane"), 0
 )
 
 
@@ -241,7 +245,7 @@ def overlap_score_batched(
     )
 
 
-# --- one Monte-Carlo match ----------------------------------------------------
+# --- Monte-Carlo matches -------------------------------------------------------
 
 
 def mc_match_loop(
@@ -261,46 +265,54 @@ def mc_match_loop(
     """The match as a Python loop over device tensors with no host sync:
     keep-if-better and the anneal are ``torch.where``. ``score`` has
     ``overlap_score``'s signature and is called once for the first pose and
-    once a round."""
+    once a round. With a leading match dimension on every tensor (plane
+    f32[P, H, W], pts f32[P, R, 2], beam_w f32[P, R], origin f32[P, 2],
+    init_pose f32[P, 3], noise f32[P, rounds, K, 3]) ``score`` must take it
+    too, and every match runs its own state: pose f32[P, 3], prob f32[P],
+    trace f32[P, rounds]."""
     dev = init_pose.device
     best_pose = init_pose
-    best_prob = score(plane, init_pose[None, :].contiguous(), pts, beam_w, origin, scale, unknown)[0]
+    best_prob = score(plane, init_pose[..., None, :].contiguous(), pts, beam_w, origin, scale,
+                      unknown)[..., 0]
     # built from fills: assigning a Python float into a CUDA tensor syncs
     sigma = torch.cat([
         torch.full((2,), sigma_xy, dtype=torch.float32, device=dev),
         torch.full((1,), sigma_theta, dtype=torch.float32, device=dev),
     ])
-    bad = torch.zeros((), dtype=torch.int32, device=dev)
+    bad = torch.zeros(init_pose.shape[:-1], dtype=torch.int32, device=dev)
     trace = []
-    for r in range(noise.shape[0]):
-        nz = noise[r] * sigma
+    for r in range(noise.shape[-3]):
+        nz = noise[..., r, :, :] * sigma[..., None, :]
         cand = torch.cat(
-            [best_pose[None, :2] + nz[:, :2], wrap_angle(best_pose[None, 2:] + nz[:, 2:])],
+            [best_pose[..., None, :2] + nz[..., :2], wrap_angle(best_pose[..., None, 2:] + nz[..., 2:])],
             dim=-1,
         )
         probs = score(plane, cand.contiguous(), pts, beam_w, origin, scale, unknown)
         # argmax ties go to the first index, as in the reference
-        i = torch.argmax(probs, dim=0, keepdim=True)
-        p_i = probs.gather(0, i)[0]
+        i = torch.argmax(probs, dim=-1, keepdim=True)
+        p_i = probs.gather(-1, i)[..., 0]
         better = p_i > best_prob  # strict, and never true for a NaN score
-        best_pose = torch.where(better, cand.index_select(0, i)[0], best_pose)
+        won = cand.gather(-2, i[..., None].expand(*i.shape, 3))[..., 0, :]
+        best_pose = torch.where(better[..., None], won, best_pose)
         best_prob = torch.where(better, p_i, best_prob)
         bad = torch.where(better, 0, bad + 1)
         anneal = bad >= bad_rounds_before_anneal
-        sigma = torch.where(anneal, sigma * 0.5, sigma)
+        sigma = torch.where(anneal[..., None], sigma * 0.5, sigma)
         bad = torch.where(anneal, 0, bad)
         trace.append(p_i)
     if not trace:
-        return best_pose, best_prob, torch.empty((0,), dtype=torch.float32, device=dev)
-    return best_pose, best_prob, torch.stack(trace)
+        return best_pose, best_prob, torch.empty(
+            (*init_pose.shape[:-1], 0), dtype=torch.float32, device=dev)
+    return best_pose, best_prob, torch.stack(trace, dim=-1)
 
 
 def mc_match_ref(
     plane, pts, beam_w, origin, init_pose, noise, scale, unknown, sigma_xy, sigma_theta,
     bad_rounds_before_anneal,
 ):
-    """Plain PyTorch version of :func:`mc_match`: the round loop over
-    ``overlap_score_ref``."""
+    """Plain PyTorch version of :func:`mc_match` and, with a leading match
+    dimension on every tensor, of :func:`mc_match_batched`: the round loop
+    over ``overlap_score_ref``."""
     return mc_match_loop(
         overlap_score_ref, plane, pts, beam_w, origin, init_pose, noise, scale, unknown,
         sigma_xy, sigma_theta, bad_rounds_before_anneal,
@@ -325,7 +337,7 @@ def mc_match_rounds(
 def _mc_match_fn():
     fn = _build.load().mc_match_launch
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # plane, h, w
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # plane, P, h, w
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # pts, beam_w, r
         ctypes.c_void_p, ctypes.c_void_p,  # origin, init_pose
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # noise, rounds, k
@@ -338,22 +350,79 @@ def _mc_match_fn():
     return fn
 
 
-#: candidates one cluster scores at a time: 8 blocks of 8 groups (mc_match.cu)
-_MC_CANDIDATES_PER_PASS = 64
+#: groups (candidates scored at once) a block of the ``mc_match`` kernel,
+#: and the most blocks a cluster (mc_match.cu)
+_MC_GROUPS, _MC_MAX_CLUSTER_BLOCKS = 8, 8
+
+
+def _mc_cluster_blocks(k: int) -> int:
+    """Blocks of a match's cluster: ceil(K / 8), at least 1, at most 8."""
+    return min(_MC_MAX_CLUSTER_BLOCKS, max(1, -(-k // _MC_GROUPS)))
 
 
 def _mc_match_shared_bytes(r: int, k: int, rounds: int) -> int:
     """Dynamic shared memory a block of the ``mc_match`` kernel asks for:
     the scan (``pts`` and ``beam_w``, 12 B a beam), two buffers of this
     block's scores, 8 a pass, and the noise (12 B a candidate and round)."""
-    passes = -(-k // _MC_CANDIDATES_PER_PASS)
-    return 12 * r + 2 * 8 * passes * 4 + 12 * rounds * k
+    passes = -(-k // (_MC_GROUPS * _mc_cluster_blocks(k)))
+    return 12 * r + 2 * _MC_GROUPS * passes * 4 + 12 * rounds * k
 
 
 #: what a block of the ``mc_match`` kernel may ask for: Hopper's 227 KB a
 #: block less the kernel's static part (per-thread partial sums, 2 x 1024
 #: floats, and the replicated match state)
 _MC_MAX_DYNAMIC_SHARED_BYTES = 227 * 1024 - (2 * 1024 * 4 + 64)
+
+
+def _mc_match_launch(name, lead, plane, pts, beam_w, origin, init_pose, noise, scale, unknown,
+                     sigma_xy, sigma_theta, bad_rounds_before_anneal):
+    """Checks the inputs against the leading shape ``lead`` (``()`` for one
+    match, ``(P,)`` for P: plane f32[*lead, H, W], ..., noise f32[*lead,
+    rounds, K, 3]), launches the kernel once and adds one to the count of
+    ``name``; returns (pose f32[*lead, 3], prob f32[*lead], trace f32[*lead,
+    rounds])."""
+    dev = plane.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if plane.dim() != len(lead) + 2 or noise.dim() != len(lead) + 3:
+        raise ValueError(f"{name}: plane {tuple(plane.shape)} and noise {tuple(noise.shape)} "
+                         f"are not {(*lead, 'H', 'W')} and {(*lead, 'rounds', 'K', 3)}")
+    h, w = plane.shape[-2:]
+    r = pts.shape[-2]
+    rounds, k = noise.shape[-3], noise.shape[-2]
+    n_p = lead[0] if lead else 1
+    if rounds > 0 and k < 1:
+        raise ValueError(f"{name}: a round needs at least one candidate")
+    if not 1 <= n_p <= _MAX_MAPS:
+        raise ValueError(f"{name}: {n_p} matches, not between 1 and {_MAX_MAPS} a launch")
+    shared = _mc_match_shared_bytes(r, k, rounds)
+    if shared > _MC_MAX_DYNAMIC_SHARED_BYTES:
+        raise ValueError(
+            f"{name}: {r} beams and {rounds} rounds of {k} candidates need {shared} B of "
+            f"dynamic shared memory, more than {_MC_MAX_DYNAMIC_SHARED_BYTES} B"
+        )
+    _check("plane", plane, (*lead, h, w), dev)
+    _check("pts", pts, (*lead, r, 2), dev)
+    _check("beam_w", beam_w, (*lead, r), dev)
+    _check("origin", origin, (*lead, 2), dev)
+    _check("init_pose", init_pose, (*lead, 3), dev)
+    _check("noise", noise, (*lead, rounds, k, 3), dev)
+    pose = torch.empty((*lead, 3), dtype=torch.float32, device=dev)
+    prob = torch.empty(lead, dtype=torch.float32, device=dev)
+    trace = torch.empty((*lead, rounds), dtype=torch.float32, device=dev)
+    fn = _mc_match_fn()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            plane.data_ptr(), n_p, h, w, pts.data_ptr(), beam_w.data_ptr(), r,
+            origin.data_ptr(), init_pose.data_ptr(), noise.data_ptr(), rounds, k,
+            scale, unknown, sigma_xy, sigma_theta, bad_rounds_before_anneal,
+            pose.data_ptr(), prob.data_ptr(), trace.data_ptr(), shared, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+    _LAUNCHES[name] += 1
+    return pose, prob, trace
 
 
 def mc_match(
@@ -379,51 +448,49 @@ def mc_match(
     ``bad_rounds_before_anneal`` rounds without improvement.
 
     CPU tensors take the plain twin; CUDA tensors launch the kernel on the
-    current stream, once, and add one to the ``mc_match`` count of
-    :func:`launch_counts`.
+    current stream, once (the P = 1 case of :func:`mc_match_batched`), and
+    add one to the ``mc_match`` count of :func:`launch_counts`.
     """
     args = (plane, pts, beam_w, origin, init_pose, noise, scale, unknown, sigma_xy,
             sigma_theta, bad_rounds_before_anneal)
     if plane.device.type == "cpu":
         return mc_match_ref(*args)
-    dev = plane.device
-    if dev.type != "cuda":
-        raise ValueError(f"mc_match: unsupported device {dev}")
-    h, w = plane.shape
-    r = pts.shape[0]
-    if noise.dim() != 3:
-        raise ValueError(f"noise has shape {tuple(noise.shape)}, expected (rounds, K, 3)")
-    rounds, k = noise.shape[0], noise.shape[1]
-    if rounds > 0 and k < 1:
-        raise ValueError("mc_match: a round needs at least one candidate")
-    shared = _mc_match_shared_bytes(r, k, rounds)
-    if shared > _MC_MAX_DYNAMIC_SHARED_BYTES:
-        raise ValueError(
-            f"mc_match: {r} beams and {rounds} rounds of {k} candidates need {shared} B of "
-            f"dynamic shared memory, more than {_MC_MAX_DYNAMIC_SHARED_BYTES} B"
-        )
-    _check("plane", plane, (h, w), dev)
-    _check("pts", pts, (r, 2), dev)
-    _check("beam_w", beam_w, (r,), dev)
-    _check("origin", origin, (2,), dev)
-    _check("init_pose", init_pose, (3,), dev)
-    _check("noise", noise, (rounds, k, 3), dev)
-    pose = torch.empty((3,), dtype=torch.float32, device=dev)
-    prob = torch.empty((), dtype=torch.float32, device=dev)
-    trace = torch.empty((rounds,), dtype=torch.float32, device=dev)
-    fn = _mc_match_fn()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            plane.data_ptr(), h, w, pts.data_ptr(), beam_w.data_ptr(), r,
-            origin.data_ptr(), init_pose.data_ptr(), noise.data_ptr(), rounds, k,
-            scale, unknown, sigma_xy, sigma_theta, bad_rounds_before_anneal,
-            pose.data_ptr(), prob.data_ptr(), trace.data_ptr(), shared, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"mc_match kernel launch failed: cudaError_t {err}")
-    _LAUNCHES["mc_match"] += 1
-    return pose, prob, trace
+    return _mc_match_launch("mc_match", (), *args)
+
+
+def mc_match_batched(
+    plane: Tensor,
+    pts: Tensor,
+    beam_w: Tensor,
+    origin: Tensor,
+    init_pose: Tensor,
+    noise: Tensor,
+    scale: float,
+    unknown: float,
+    sigma_xy: float,
+    sigma_theta: float,
+    bad_rounds_before_anneal: int,
+):
+    """P Monte-Carlo matches, each on its own plane with its own scan,
+    origin, prior and noise, in one launch -> (pose f32[P, 3], prob f32[P],
+    trace f32[P, rounds]).
+
+    plane f32[P, H, W], pts f32[P, R, 2], beam_w f32[P, R], origin f32[P,
+    2], init_pose f32[P, 3], noise f32[P, rounds, K, 3]: match p is
+    :func:`mc_match` on the p-th slices, and gives its bits. The RBPF's
+    particles, one scan matched against each particle's own map window.
+
+    CPU tensors take the plain twin; CUDA tensors launch the kernel on the
+    current stream, once for all P, and add one to the ``mc_match_batched``
+    count of :func:`launch_counts`.
+    """
+    args = (plane, pts, beam_w, origin, init_pose, noise, scale, unknown, sigma_xy,
+            sigma_theta, bad_rounds_before_anneal)
+    if plane.dim() != 3:
+        raise ValueError(f"plane has shape {tuple(plane.shape)}, expected (P, H, W)")
+    if plane.device.type == "cpu":
+        return mc_match_ref(*args)
+    return _mc_match_launch("mc_match_batched", (plane.shape[0],), *args)
 
 
 # --- polar free-space fill ----------------------------------------------------

@@ -5,7 +5,9 @@ Monte-Carlo: each round scores a batch of candidates drawn around the best
 pose so far, keeps the best if it improves, and halves sigma after repeated
 failures. The whole match is one call of ``kernels.mc_match``: one kernel
 launch on the card, the plain round loop on the CPU; neither syncs with the
-host. The standard normals are drawn here, outside the kernel.
+host. The standard normals are drawn here, outside the kernel. With a
+leading particle dimension it matches P (map, scan, prior) triples in one
+launch of ``kernels.mc_match_batched``: the RBPF's form.
 
 Brute force: an exhaustive (x, y, theta) grid around the prior, scored in
 one call. With a leading map dimension on view, scan and prior it matches M
@@ -28,8 +30,8 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass
 class MatchResult:
-    pose: Tensor  # f32[3] refined world pose
-    prob: Tensor  # f32[] scan probability at the refined pose
+    pose: Tensor  # f32[3] refined world pose (f32[P, 3] for P maps)
+    prob: Tensor  # f32[] scan probability at the refined pose (f32[P])
     #: f32[rounds] best candidate probability of each round; empty for the
     #: single-shot matchers
     trace: Tensor
@@ -63,20 +65,22 @@ def monte_carlo_match(
     are drawn on the pose's device from ``generator``. The reference draws
     ``jax.random.normal(key_r, (batch, 3))`` per round; a test hands those
     very numbers in here.
+
+    With a leading particle dimension on view, scan, prior and noise (view
+    of P maps, scan [P, R], ``init_pose`` f32[P, 3], ``noise`` f32[P,
+    rounds, batch, 3]) every particle is matched against its own map, all
+    in one launch of ``kernels.mc_match_batched``: pose f32[P, 3], prob
+    f32[P], trace f32[P, rounds]. The reference ``vmap``s the single match.
     """
     dev = init_pose.device
+    shape = (*init_pose.shape[:-1], cfg.rounds, cfg.batch, 3)
     if noise is None:
-        noise = torch.randn(
-            (cfg.rounds, cfg.batch, 3), generator=generator, device=dev,
-            dtype=torch.float32,
-        )
-    elif tuple(noise.shape) != (cfg.rounds, cfg.batch, 3):
-        raise ValueError(
-            f"noise {tuple(noise.shape)} is not (rounds, batch, 3) = "
-            f"({cfg.rounds}, {cfg.batch}, 3)"
-        )
+        noise = torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
+    elif tuple(noise.shape) != shape:
+        raise ValueError(f"noise {tuple(noise.shape)} is not (..., rounds, batch, 3) = {shape}")
     prep = scoring.prepare(view, scan, cfg.scoring, point_weights)
-    pose, prob, trace = kernels.mc_match(
+    match = kernels.mc_match_batched if prep.plane.dim() == 3 else kernels.mc_match
+    pose, prob, trace = match(
         prep.plane, prep.pts, prep.beam_w, prep.origin, init_pose.contiguous(),
         noise.contiguous(), prep.scale, prep.unknown, cfg.sigma_xy, cfg.sigma_theta,
         cfg.bad_rounds_before_anneal,

@@ -10,8 +10,9 @@ endpoint estimator plus the symmetric wall-blur tail, scatter-added on flat
 indices with ``index_put_(accumulate=True)``. Samples that fall off the map
 are dropped. ``scan_observation_planes_batched`` rasterises N scans at N
 poses in the same few calls, into one plane each or summed into shared
-planes: the loop closer's submaps and the regenerated map.
-``scan_sample_cells`` waits for a later slice.
+planes: the loop closer's submaps and the regenerated map;
+``insert_scan_windows`` inserts P scans into P maps on a window around each
+pose, the RBPF's insert. ``scan_sample_cells`` waits for a later slice.
 """
 
 from __future__ import annotations
@@ -302,6 +303,30 @@ def insert_scan(gm, model, pose, scan: scanlib.LaserScan, cfg: BeamConfig):
     """Full scan insertion: rasterize + cell-model fold (returns a new map)."""
     w_obs, s_obs = scan_observation_planes(gm, pose, scan, cfg)
     return gridlib.apply_observations(gm, model, w_obs, s_obs)
+
+
+def insert_scan_windows(gm, model, poses: Tensor, scans: scanlib.LaserScan, cfg: BeamConfig,
+                        window: int = 0):
+    """Insert scan p at ``poses[p]`` into map p of a stack of P maps
+    (``gm.cells`` f32[P, H, W, C], ``gm.origin`` f32[P, 2]; ``scans`` [P,
+    R]), each on a ``window x window`` cell window around its pose (clamped
+    into the map; 0 = the whole map): the RBPF's windowed insert.
+
+    The P windows are cut out in one gather, rasterised in one call of
+    :func:`scan_observation_planes_batched` with the window's own origin
+    (``origin + [col, row] * scale``, so the cell arithmetic is the
+    reference's windowed one, not the full plane's), folded, and written
+    back in one scatter; the offsets stay on the device. Evidence that falls
+    off a window is dropped (the reference wraps it into the window's last
+    cell, trap g). Exact when the window covers the scan's usable reach."""
+    h, w = gm.height, gm.width
+    sh, sw = (min(window, h, w),) * 2 if window else (h, w)
+    row, col, origin = gridlib.window_corner(gm.origin, poses[:, :2], gm.scale, sh, sw, h, w)
+    sub = gridlib.GridMap(cells=gridlib.take_window(gm.cells, row, col, sh, sw), origin=origin,
+                          scale=gm.scale)
+    w_obs, s_obs = scan_observation_planes_batched(origin, sh, sw, gm.scale, poses, scans, cfg)
+    sub = gridlib.apply_observations(sub, model, w_obs, s_obs)
+    return dataclasses.replace(gm, cells=gridlib.put_window(gm.cells, sub.cells, row, col))
 
 
 # --- synthetic scan generation (test/benchmark oracle) ----------------------

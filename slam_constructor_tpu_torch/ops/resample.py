@@ -1,0 +1,70 @@
+"""Particle-filter primitives: weights, effective sample size, resampling
+(port of ``slam_constructor_tpu.ops.resample``).
+
+Weights live in log space and are normalised with ``logsumexp``;
+systematic resampling is one uniform offset, a stratified comb and
+``searchsorted`` on the cumulative weights. Nothing here reads a value on
+the host: the resampling decision is a ``torch.where`` between the drawn
+indices and the identity. The reference's PRNG key is replaced by a
+``torch.Generator`` or by an injected uniform ``u0``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+Tensor = torch.Tensor
+
+
+def normalize_log_weights(logw: Tensor) -> Tensor:
+    """Shift-normalise so that exp(logw) sums to 1."""
+    return logw - torch.logsumexp(logw, dim=-1, keepdim=True)
+
+
+def effective_sample_size(logw: Tensor) -> Tensor:
+    """Neff = 1 / sum(w^2) for normalised weights."""
+    logw = normalize_log_weights(logw)
+    return torch.exp(-torch.logsumexp(2.0 * logw, dim=-1))
+
+
+def uniform_offset(n: int, generator: torch.Generator | None = None, device=None) -> Tensor:
+    """The comb's offset f32[], uniform in [0, 1/n), drawn on ``device``."""
+    u = torch.rand((), generator=generator, device=device, dtype=torch.float32)
+    return u / torch.full_like(u, float(n))
+
+
+def log_uniform_weights(p: int, device=None) -> Tensor:
+    """f32[p] of ``-log(p)``: the f32 log of an f32 ``p``, as the reference
+    takes it (``-jnp.log(float(p))``), not ``math.log`` rounded to f32."""
+    return -torch.log(torch.full((p,), float(p), dtype=torch.float32, device=device))
+
+
+def systematic_resample(u0: Tensor, logw: Tensor, n: int | None = None) -> Tensor:
+    """Systematic (low-variance) resampling.
+
+    Returns int64 ancestor indices ``[n]`` such that particle i is replaced
+    by particle ``idx[i]``: the comb ``u0 + i / n`` (``u0`` f32[] in [0,
+    1/n)) located in the cumulative weights, to the right of ties. The
+    comb's division is tensor by tensor (a scalar divisor becomes a product
+    with its reciprocal on the card).
+    """
+    p = logw.shape[0]
+    n = n or p
+    w = torch.exp(normalize_log_weights(logw))
+    cdf = torch.cumsum(w, dim=0)
+    steps = torch.arange(n, dtype=torch.float32, device=logw.device)
+    comb = u0 + steps / torch.full_like(steps, float(n))
+    idx = torch.searchsorted(cdf, comb, side="right")
+    return torch.clamp(idx, 0, p - 1)
+
+
+def maybe_resample(u0: Tensor, logw: Tensor, threshold_frac: float):
+    """Branch-free conditional resampling: (ancestor indices i64[P], new
+    log-weights f32[P], did_resample bool[]). When Neff >= threshold_frac *
+    P the indices are the identity and the weights are only normalised."""
+    p = logw.shape[0]
+    do = effective_sample_size(logw) < threshold_frac * p
+    idx = systematic_resample(u0, logw, p)
+    idx = torch.where(do, idx, torch.arange(p, device=logw.device))
+    new_logw = torch.where(do, log_uniform_weights(p, logw.device), normalize_log_weights(logw))
+    return idx, new_logw, do

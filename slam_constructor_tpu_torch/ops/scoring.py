@@ -73,25 +73,25 @@ def window_view(view: MapView, center_xy: Tensor, size: int) -> MapView:
     point, clamped to the map's bounds. Cells outside the window then score
     as ``unknown_prob``, as cells off the map do, so a window that covers
     the scan's footprint changes no score. ``size`` at or above the map's
-    extent gives the full view.
+    extent gives the full view. With a leading map dimension (``occ``
+    f32[P, H, W], ``center_xy`` f32[P, 2]) each map gets its own window,
+    all in one gather: f32[P, s, s], origins f32[P, 2].
 
     The window's corner is a device value and is never read on the host:
     the window is taken by index arithmetic (``index_select`` on row and
-    column indices), not by a slice."""
-    h, w = view.occ.shape
+    column indices, a batched gather for P maps), not by a slice."""
+    h, w = view.occ.shape[-2:]
     sh, sw = min(size, h), min(size, w)
+    row, col, origin = gridlib.window_corner(view.origin, center_xy, view.scale, sh, sw, h, w)
+    if view.occ.dim() == 3:
+        occ = gridlib.take_window(view.occ, row, col, sh, sw)
+        known = gridlib.take_window(view.known, row, col, sh, sw)
+        return MapView(occ=occ, known=known, origin=origin, scale=view.scale)
     dev = view.occ.device
-    # IEEE division, tensor by tensor (a scalar divisor becomes a product
-    # with its reciprocal on the card)
-    rel = (center_xy - view.origin) / torch.full_like(view.origin, view.scale)
-    cell = torch.floor(rel).to(torch.int64)
-    col = torch.clamp(cell[0] - sw // 2, 0, w - sw)
-    row = torch.clamp(cell[1] - sh // 2, 0, h - sh)
     rows = row + torch.arange(sh, device=dev)
     cols = col + torch.arange(sw, device=dev)
     occ = view.occ.index_select(0, rows).index_select(1, cols)
     known = view.known.index_select(0, rows).index_select(1, cols)
-    origin = view.origin + torch.stack([col, row]).to(torch.float32) * view.scale
     return MapView(occ=occ, known=known, origin=origin, scale=view.scale)
 
 

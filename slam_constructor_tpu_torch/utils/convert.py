@@ -13,6 +13,11 @@ field names and its fixed-capacity layout: ``kf_poses`` f32[K, 3],
 (the stacked ``kf_scans``), ``n_kf`` int, ``edge_i`` / ``edge_j`` i32[E],
 ``edge_delta`` / ``edge_info`` f32[E, 3], ``edge_is_loop`` bool[E],
 ``n_edges`` int, ``last_kf`` int, ``kf_overflow`` / ``edge_overflow`` bool.
+
+A reference ``GMappingState`` (dense storage) crosses as ``cells`` f32[P,
+H, W, C], ``origin`` f32[P, 2], ``scale`` float, ``poses`` f32[P, 3],
+``log_weights`` f32[P], ``step`` int; its key stays on the JAX side (the
+port draws from the engine's generator, or takes injected draws).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.engine import SlamState
+from ..models.gmapping import GMappingState
 from ..models.posegraph import PoseGraphState
 from ..ops.grid import GridMap
 from ..ops.scan import LaserScan
@@ -88,3 +94,31 @@ def graph_to_numpy(graph: PoseGraphState) -> dict:
         kf_valid=graph.kf_scans.valid.cpu().numpy(),
     )
     return out
+
+
+def gmapping_state_from_numpy(tree: dict, device=None) -> GMappingState:
+    """Build the port's RBPF state from a numpy dict (see module docstring)
+    on ``device`` (the card when none is named)."""
+    device = resolve_device(device)
+
+    def f32(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+
+    return GMappingState(
+        gm=GridMap(cells=f32(tree["cells"]), origin=f32(tree["origin"]), scale=float(tree["scale"])),
+        poses=f32(tree["poses"]),
+        log_weights=f32(tree["log_weights"]),
+        step=torch.tensor(np.asarray(tree["step"], np.int32), device=device),
+    )
+
+
+def gmapping_state_to_numpy(state: GMappingState) -> dict:
+    """The port's RBPF state as a numpy dict (see module docstring)."""
+    return {
+        "cells": state.gm.cells.cpu().numpy(),
+        "origin": state.gm.origin.cpu().numpy(),
+        "scale": float(state.gm.scale),
+        "poses": state.poses.cpu().numpy(),
+        "log_weights": state.log_weights.cpu().numpy(),
+        "step": int(state.step),
+    }

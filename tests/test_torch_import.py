@@ -2,7 +2,8 @@
 
 A subprocess blocks ``jax`` and ``flax`` from being imported, then imports
 every module of ``slam_constructor_tpu_torch`` and runs two tinySLAM and
-two vinySLAM steps and a few scans of the loop-closing pipeline on the CPU. A source scan makes sure no file of the package, nor the GPU smoke
+two vinySLAM steps, a few scans of the loop-closing pipeline and of the
+GMapping RBPF on the CPU. A source scan makes sure no file of the package, nor the GPU smoke
 script, imports them or the reference package.
 """
 
@@ -54,6 +55,12 @@ f = full.FullSlamEngine(
 ftraj = f.run(scans6, odom6)
 assert ftraj.shape == (6, 3) and bool(torch.isfinite(ftraj).all())
 assert convert.graph_to_numpy(f.graph)["n_kf"] >= 2
+from slam_constructor_tpu_torch.models import gmapping
+assert {"gmapping", "resample"} <= names
+g = gmapping.GMappingEngine(gmapping.fast_config(n_particles=4, map_size=64, usable_range=2.0),
+                            device="cpu")
+gtraj, gneff = g.run(scans6, odom6)
+assert gtraj.shape == (6, 3) and bool(torch.isfinite(gtraj).all()) and g.winner_trajectory().shape == (6, 3)
 assert "jax" not in sys.modules or sys.modules["jax"] is None
 print("ok", traj[-1].tolist())
 """
@@ -72,6 +79,6 @@ def test_no_file_of_the_package_imports_jax():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|slam_constructor_tpu)\b", re.M)
     files = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) >= 17
-    assert {"full.py", "posegraph.py"} <= {f.name for f in files}
+    assert {"full.py", "posegraph.py", "gmapping.py", "resample.py"} <= {f.name for f in files}
     offenders = [str(f.relative_to(REPO)) for f in files if pattern.search(f.read_text())]
     assert offenders == []

@@ -17,7 +17,10 @@ in one launch with the arithmetic of ``mc_match_rounds`` (one
 plain twin sums a score in another order, hence atol 2e-6 on the trace.
 ``overlap_score_batched`` is ``overlap_score``'s kernel with the maps on a
 grid axis: every slot equals the single-plane launch on the same inputs bit
-for bit, and the twin within 2e-6.
+for bit, and the twin within 2e-6. ``mc_match_batched`` is ``mc_match``'s
+kernel with a cluster a match: every match equals a single ``mc_match``
+launch (and ``mc_match_rounds``) on its slices bit for bit, and its twin as
+``mc_match``'s does.
 """
 
 import pytest
@@ -246,3 +249,64 @@ def test_overlap_score_batched_rejects_bad_input(scene):
         kernels.overlap_score_batched(args[0], poses.double(), *args[2:])
     with pytest.raises(ValueError):  # a strided view
         kernels.overlap_score_batched(prep.plane[:, :, ::2], *args[1:])
+
+
+def _particle_args(scene, n_p, k, rounds, stride=2):
+    """P matches as the RBPF makes them: a 120^2 window of the scene's map
+    a particle (each its own origin), the scan once a particle (each with
+    its own mask of valid beams), priors around the scan's pose, noise."""
+    prep, poses = _submap_batch(scene, n_p, 1, stride)
+    g = scene[3]
+    noise = torch.randn((n_p, rounds, k, 3), generator=g, device=poses.device)
+    return (prep.plane, prep.pts, prep.beam_w, prep.origin, poses[:, 0].contiguous(), noise,
+            prep.scale, prep.unknown, 0.06, 0.03, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_p,k,rounds", [
+    (1, 20, 5), (30, 20, 5), (7, 13, 4), (5, 100, 3), (64, 20, 2), (3, 64, 12), (4, 1, 3),
+])
+def test_mc_match_batched_equals_single_launches(scene, n_p, k, rounds):
+    """The RBPF's shape (P = 30, K = 20, 5 rounds), P = 1, K not a multiple
+    of 8, K > 64 (two passes), P = 64, K = 1; particle 1 has no valid beam."""
+    args = list(_particle_args(scene, n_p, k, rounds))
+    if n_p > 1:
+        args[2] = args[2].clone()
+        args[2][1] = 0.0
+    before = dict(kernels.launch_counts())
+    got = kernels.mc_match_batched(*args)
+    after = kernels.launch_counts()
+    assert (after["mc_match_batched"], after["mc_match"]) == (
+        before["mc_match_batched"] + 1, before["mc_match"])
+    singles = [kernels.mc_match(*(t[m] for t in args[:6]), *args[6:]) for m in range(n_p)]
+    rounds_ = [kernels.mc_match_rounds(*(t[m] for t in args[:6]), *args[6:]) for m in range(n_p)]
+    twin = kernels.mc_match_ref(*args)
+    torch.cuda.synchronize()
+    assert got[0].shape == (n_p, 3) and got[1].shape == (n_p,) and got[2].shape == (n_p, rounds)
+    for i in range(3):
+        assert torch.equal(got[i], torch.stack([s[i] for s in singles]))  # bit for bit
+        assert torch.equal(got[i], torch.stack([s[i] for s in rounds_]))
+    if n_p > 1:  # no valid beam: every score 0, nothing is better
+        assert not bool(got[2][1].any()) and torch.equal(got[0][1], args[4][1])
+    # the twin, as for mc_match: the first round always, the rest where the
+    # match kept the same candidates
+    torch.testing.assert_close(got[2][:, :1], twin[2][:, :1], atol=ATOL, rtol=0)
+    same = (got[0] - twin[0]).abs().amax(-1) <= 1e-6
+    assert int(same.sum()) >= n_p // 2
+    torch.testing.assert_close(got[2][same], twin[2][same], atol=ATOL, rtol=0)
+    torch.testing.assert_close(got[1][same], twin[1][same], atol=ATOL, rtol=0)
+    for a, b in zip(kernels.mc_match_batched(*args), got):
+        assert torch.equal(a, b)  # the same bits on every call
+
+
+@pytest.mark.cuda
+def test_mc_match_batched_rejects_bad_input(scene):
+    args = list(_particle_args(scene, 3, 20, 5))
+    with pytest.raises(ValueError):  # one plane is mc_match's
+        kernels.mc_match_batched(args[0][0], *args[1:])
+    with pytest.raises(ValueError):  # noise of two particles for three
+        kernels.mc_match_batched(*args[:5], args[5][:2].contiguous(), *args[6:])
+    with pytest.raises(TypeError):
+        kernels.mc_match_batched(*args[:4], args[4].double(), *args[5:])
+    with pytest.raises(ValueError):  # a scan for all, not one a particle
+        kernels.mc_match_batched(args[0], args[1][0], *args[2:])
