@@ -17,13 +17,20 @@ Phases, one line or more each, in order; any failure exits non-zero:
    cells whose free decision differs (at most 8 in 65,536) and the largest
    relative difference of the weight where both are free (<= 1e-6); then
    both timed;
-5. ``mc_match_batched`` (the RBPF's 30 particles' matches in one launch)
-   on the arguments of every 32nd match of a run of the gmapping path (30
-   windows of 160^2, 180 beams, 5 rounds of 20) and on edge cases (K = 1,
-   13, 64 and 100, 0 rounds, a particle without a valid beam, P = 1, P =
-   64): against 30 single-plane ``mc_match`` launches and ``mc_match_rounds``
-   (bit for bit) and its plain twin (as ``mc_match`` below); then timed,
-   beside 30 single launches;
+5. the particle match (the RBPF's 30 particles' matches in one launch of
+   ``csrc/particle_match.cu``) on the arguments of every 32nd match of a run
+   of the gmapping path (30 maps of 256^2, 160^2 windows read in place, 180
+   beams, 5 rounds of 20): ``mc_match_windows`` on them, on the windows
+   clamped at each of the map's four edges and corners, on a window as
+   large as the map (taps from device memory) and with the occupancy a
+   channel of the maps' cells, against ``mc_match_batched`` on the same
+   windows cut out; ``mc_match_batched`` on the cut-out windows and on edge
+   cases (K = 1, 13, 64 and 100, 0 rounds, a particle without a valid beam,
+   P = 1, P = 64); each against 30 single-plane ``mc_match`` launches and
+   ``mc_match_rounds`` (bit for bit), ``mc_match_batched`` also against its
+   plain twin (as ``mc_match`` below); then timed in turns with
+   ``mc_match.cu``'s kernel launched for all 30 particles (the parent's
+   particle match), beside 30 single launches;
 6. ``mc_match`` (one launch a match) against ``mc_match_rounds`` (one
    ``overlap_score`` launch a round) on the card: (map, scan, prior) states
    taken from every 32nd scan of a tiny and a viny run over the bench
@@ -82,7 +89,8 @@ Phases, one line or more each, in order; any failure exits non-zero:
    (``gmapping.fast_config(n_particles=30, map_size=256)``) over the bench
    sequence through ``GMappingEngine.run``, under
    ``torch.cuda.set_sync_debug_mode("error")`` (warmed up by the run of
-   phase 5): ``mc_match_batched`` launched 512 times and nothing else, the
+   phase 5): ``mc_match_batched`` launched 512 times (through
+   ``mc_match_windows``) and nothing else, no match window cut out, the
    winner's ATE no more than 0.02 m above the worst of the JAX reference's
    five keys (which do not beat odometry on this sequence); then once more:
    trajectory, genealogy, log-weights and maps equal bit for bit;
@@ -91,7 +99,7 @@ Phases, one line or more each, in order; any failure exits non-zero:
 16. 64 scans with the improved proposal and the minimumScore gate on:
    ``overlap_score_batched`` launched twice a scan at M = 30 (the probes,
    K = 16, and the gate, K = 1), every 8th launch of each held to its twin
-   (2e-6) and to 30 single-plane launches (bit for bit), then timed;
+   (2e-6) and to 30 single-plane launches (bit for bit), then both timed;
 17. card vs CPU: the first 16 RBPF scans with the same draws (made with
    numpy): poses within 1e-4, the same ancestors, log-weights within 1e-4,
    the maps equal but for a few cells that counted a border sample.
@@ -1026,19 +1034,87 @@ def run_gmapping_path(cfg, scans, odom, gt, sync_mode, draws=None, device=None):
 
 def capture_particle_matches(cfg, scans, odom, gt, every=32):
     """A run of the gmapping path (it also warms the path up) that keeps
-    the arguments of every ``every``-th particle-batched match."""
+    the arguments of every ``every``-th particle match: the windows read in
+    place (``mc_match_windows``)."""
     from slam_constructor_tpu_torch.ops import kernels
 
-    recording, kept = recorder(kernels.mc_match_batched, every)
-    with handed_in(recording, "mc_match_batched"):
+    recording, kept = recorder(kernels.mc_match_windows, every)
+    with handed_in(recording, "mc_match_windows"):
         run_gmapping_path(cfg, scans, odom, gt, 0)
     return kept
 
 
+def cut_out(a):
+    """The args of ``mc_match_batched`` for the args ``a`` of
+    ``mc_match_windows``: each window cut out of its map, where(known, occ,
+    unknown), as ``kernels.mc_match_windows_ref`` does."""
+    from slam_constructor_tpu_torch.ops import grid as gridlib
+
+    occ, known, row, col, sh, sw = a[:6]
+    plane = torch.where(gridlib.take_window(known, row, col, sh, sw),
+                        gridlib.take_window(occ, row, col, sh, sw), a[12])
+    return (plane.contiguous(), *a[6:])
+
+
+def pr3_kernel_for_all(args):
+    """``mc_match.cu``'s kernel launched once for all P particles of the
+    args of ``mc_match_batched``, a cluster of ceil(K / 8) blocks each: the
+    particle match as the parent of ``particle_match.cu`` ran it, kept for
+    timing the two in turns. Returns (pose, prob, trace)."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    plane, pts, beam_w, origin, init_pose, noise, scale, unknown, sxy, sth, bad = args
+    n_p, rounds, k = noise.shape[:3]
+    dev = plane.device
+    out = (torch.empty((n_p, 3), device=dev), torch.empty((n_p,), device=dev),
+           torch.empty((n_p, rounds), device=dev))
+    err = kernels._mc_match_fn()(
+        plane.data_ptr(), n_p, plane.shape[1], plane.shape[2], pts.data_ptr(), beam_w.data_ptr(),
+        pts.shape[1], origin.data_ptr(), init_pose.data_ptr(), noise.data_ptr(), rounds, k, scale,
+        unknown, sxy, sth, bad, *(t.data_ptr() for t in out),
+        kernels._mc_match_shared_bytes(pts.shape[1], k, rounds),
+        torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"mc_match_launch for {n_p} particles: cudaError_t {err}")
+    return out
+
+
+def window_cases(states, dev):
+    """(name, args of mc_match_windows): the captured states, the windows
+    clamped at each of the map's four edges and corners, a window as large
+    as the map, and the occupancy as a channel of the maps' cells."""
+    from slam_constructor_tpu_torch.ops import grid as gridlib
+
+    s = states[8]  # scan 256, on the second lap of the rectangle
+    cases = [(f"gmapping scan {32 * i}, in place", a) for i, a in enumerate(states)]
+    occ, known, _, _, sh, sw = s[:6]
+    h, w = occ.shape[1:]
+    scale = s[11]
+    # the maps' origin, as gridlib.make_grid_map centres them
+    map_origin = torch.tensor([-w * scale / 2.0, -h * scale / 2.0], device=dev).expand(
+        occ.shape[0], 2).contiguous()
+    far = 2.0 * max(h, w) * scale
+    for name, dx, dy in (("left edge", -1, 0), ("right edge", 1, 0), ("bottom edge", 0, -1),
+                         ("top edge", 0, 1), ("bottom-left corner", -1, -1),
+                         ("bottom-right corner", 1, -1), ("top-left corner", -1, 1),
+                         ("top-right corner", 1, 1)):
+        centre = s[9][:, :2] + torch.tensor([dx * far, dy * far], device=dev)
+        row, col, origin = gridlib.window_corner(map_origin, centre, scale, sh, sw, h, w)
+        cases.append((f"windows clamped at the map's {name}",
+                      (occ, known, row, col, sh, sw, s[6], s[7], origin, *s[9:])))
+    zero = torch.zeros_like(s[2])
+    cases.append((f"a window as large as the map ({h}x{w}: taps from device memory)",
+                  (occ, known, zero, zero, h, w, s[6], s[7], map_origin, *s[9:])))
+    cells = torch.stack([occ, known.to(torch.float32)], -1)  # as a Bayes cell map holds them
+    cases.append(("occupancy a channel of the maps' cells", (cells[..., 0], cells[..., 1] > 0, *s[2:])))
+    return cases
+
+
 def particle_cases(states, dev):
-    """(name, args of mc_match_batched): the captured states and edge cases."""
+    """(name, args of mc_match_batched): the captured states' windows cut
+    out, and edge cases."""
     g = torch.Generator(device=dev).manual_seed(11)
-    cases = [(f"gmapping scan {32 * i}", a) for i, a in enumerate(states)]
+    states = [cut_out(a) for a in states]
+    cases = [(f"gmapping scan {32 * i}, cut out", a) for i, a in enumerate(states)]
     s = states[8]  # scan 256, on the second lap of the rectangle
 
     def with_p_noise(a, rounds, batch):
@@ -1061,34 +1137,64 @@ def particle_cases(states, dev):
 
 
 def phase_particle_match(dev, states):
-    """`mc_match_batched` against P single-plane `mc_match` launches and
-    `mc_match_rounds` (bit for bit) and against its plain twin, on states
-    of the gmapping path and edge cases; then timed at the path's shape.
-    Returns the `kernels` entry without the launch count."""
+    """The particle match: `mc_match_windows` (the windows read in place,
+    the main path's form) against `mc_match_batched` on the same windows
+    cut out, against P single `mc_match` launches and `mc_match_rounds`
+    (all bit for bit), on states of the gmapping path and edge cases; then
+    `mc_match_batched` on the cut-out windows and edge cases against the
+    same and against its plain twin; then timed at the path's shape, in
+    turns with `mc_match.cu`'s kernel launched for all particles (the
+    parent's particle match). Returns the `kernels` entry without the
+    launch count."""
     from slam_constructor_tpu_torch.ops import kernels
 
     s = states[8]
-    check((tuple(s[0].shape), tuple(s[1].shape), tuple(s[5].shape)) ==
-          ((GM_PARTICLES, 160, 160), (GM_PARTICLES, 180, 2), (GM_PARTICLES, 5, 20, 3)),
-          f"the gmapping match is {tuple(s[0].shape)} pts {tuple(s[1].shape)} noise "
-          f"{tuple(s[5].shape)}, not 30 windows of 160^2, 180 beams and 5 rounds of 20")
+    check((tuple(s[0].shape), s[4:6], tuple(s[6].shape), tuple(s[10].shape)) ==
+          ((GM_PARTICLES, MAP, MAP), (160, 160), (GM_PARTICLES, 180, 2), (GM_PARTICLES, 5, 20, 3)),
+          f"the gmapping match reads {tuple(s[0].shape)} maps, {s[4:6]} windows, pts "
+          f"{tuple(s[6].shape)}, noise {tuple(s[10].shape)}: not 30 maps of 256^2, 160^2 windows, "
+          f"180 beams and 5 rounds of 20")
+
+    def singles_of(fn, args):
+        n_p = args[0].shape[0]
+        out = [fn(*(t[m] for t in args[:6]), *args[6:]) for m in range(n_p)]
+        return [torch.stack([o[i] for o in out]) for i in range(3)]
+
+    def held(name, got, args, what):
+        for i, part in enumerate(("pose", "prob", "trace")):
+            for ref, by in ((singles_of(kernels.mc_match, args), "single-plane mc_match launches"),
+                            (singles_of(kernels.mc_match_rounds, args), "mc_match_rounds")):
+                check(torch.equal(bits(got[i]), bits(ref[i])),
+                      f"{what} {part} differs from {by} ({name}): max |diff| "
+                      f"{float((got[i] - ref[i]).abs().nan_to_num(nan=0.0).max()) if ref[i].numel() else 0}")
+
+    n_in_place = 0
+    for name, args in window_cases(states, dev):
+        got = kernels.mc_match_windows(*args)
+        cut = cut_out(args)
+        want = kernels.mc_match_batched(*cut)
+        torch.cuda.synchronize()
+        n_p, n_rounds, k = args[10].shape[:3]
+        check(all(torch.equal(bits(a), bits(b)) for a, b in zip(got, want)),
+              f"mc_match_windows differs from mc_match_batched on the cut-out windows ({name})")
+        held(name, got, cut, "mc_match_windows")
+        n_in_place += n_p
+        print(f"mc_match_windows [{name}]: P={n_p} K={k} rounds={n_rounds} R'={args[6].shape[1]} "
+              f"{args[4]}x{args[5]} windows of {args[0].shape[1]}x{args[0].shape[2]} maps (cell "
+              f"stride {args[0].stride(-1)}), rows {int(args[2].min())}..{int(args[2].max())}, cols "
+              f"{int(args[3].min())}..{int(args[3].max())}: equal to mc_match_batched on the cut-out "
+              f"windows, {n_p} single launches and mc_match_rounds bit for bit", flush=True)
+
     max_err, parted, n_matches = 0.0, 0, 0
     cases = particle_cases(states, dev)
     for name, args in cases:
         n_p, n_rounds, k = args[5].shape[:3]
         got = kernels.mc_match_batched(*args)
-        singles = [kernels.mc_match(*(t[m] for t in args[:6]), *args[6:]) for m in range(n_p)]
-        rounds = [kernels.mc_match_rounds(*(t[m] for t in args[:6]), *args[6:]) for m in range(n_p)]
         twin, margins = twin_record(args)
         torch.cuda.synchronize()
         check(got[0].shape == (n_p, 3) and got[1].shape == (n_p,) and got[2].shape == (n_p, n_rounds),
               f"mc_match_batched output malformed ({name})")
-        for i, what in enumerate(("pose", "prob", "trace")):
-            for ref, by in ((singles, "single-plane mc_match launches"), (rounds, "mc_match_rounds")):
-                want = torch.stack([r[i] for r in ref])
-                check(torch.equal(bits(got[i]), bits(want)),
-                      f"mc_match_batched {what} differs from {by} ({name}): max |diff| "
-                      f"{float((got[i] - want).abs().nan_to_num(nan=0.0).max()) if want.numel() else 0}")
+        held(name, got, args, "mc_match_batched")
         errs = [against_twin(f"{name}, particle {m}", [t[m] for t in got], [t[m] for t in twin],
                              margins[m]) for m in range(n_p)]
         err = max(e for e, _ in errs)
@@ -1102,31 +1208,46 @@ def phase_particle_match(dev, states):
     no_beam = dict(cases)["particle 3 without a valid beam"]
     check(not bool(kernels.mc_match_batched(*no_beam)[2][3].any()),
           "a particle with no valid beam must score 0")
-    print(f"mc_match_batched: {len(cases)} cases, {n_matches} matches equal to single launches bit "
-          f"for bit; {parted} part from the plain twin after a round decided by less than "
+    print(f"particle match: {n_in_place} matches in place equal to the cut-out windows; "
+          f"{len(cases)} cases, {n_matches} matches of mc_match_batched equal to single launches "
+          f"bit for bit; {parted} part from the plain twin after a round decided by less than "
           f"{KNIFE_EDGE:g}", flush=True)
 
-    ms, plain_ms, chained = time_pair(lambda: kernels.mc_match_batched(*s),
-                                      lambda: kernels.mc_match_ref(*s), plain_calls=10)
-    singles_ms = statistics.median(time_ms(
-        lambda: [kernels.mc_match(*(t[m] for t in s[:6]), *s[6:]) for m in range(GM_PARTICLES)], 20))
-    n_p, n_rounds, k = s[5].shape[:3]
-    # every input read once, poses, probs and traces written once; the
-    # operations of the beams that carry weight, particle by particle
-    n_bytes = 4 * (sum(a.numel() for a in s[:6]) + n_p * (3 + 1 + n_rounds))
-    n_ops = OVERLAP_OPS_PER_POINT * (1 + n_rounds * k) * int((s[2] != 0).sum())
+    cut = cut_out(s)
+    # in turns: the parent's particle match, this one in place, in place, the parent's
+    ms, parent_ms, chained = time_pair(lambda: kernels.mc_match_windows(*s),
+                                       lambda: pr3_kernel_for_all(cut), plain_calls=50)
+    cut_ms, cut_plain_ms, cut_chained = time_pair(lambda: kernels.mc_match_batched(*cut),
+                                                  lambda: kernels.mc_match_ref(*cut), plain_calls=10)
+    plain_ms = statistics.median(time_ms(lambda: kernels.mc_match_windows_ref(*s), 20))
+    singles_ms = statistics.median(time_ms(lambda: singles_of(kernels.mc_match, cut), 20))
+    n_p, n_rounds, k = s[10].shape[:3]
+    sh, sw = s[4:6]
+    # every input read once (each window's occupancy and mask once, its
+    # corner, the scan, origin, prior and noise), poses, probs and traces
+    # written once; the operations of the beams that carry weight
+    scan_bytes = 4 * (sum(a.numel() for a in s[6:11]) + n_p * (3 + 1 + n_rounds))
+    n_bytes = n_p * sh * sw * (4 + 1) + 8 * 2 * n_p + scan_bytes
+    cut_bytes = 4 * cut[0].numel() + scan_bytes
+    n_ops = OVERLAP_OPS_PER_POINT * (1 + n_rounds * k) * int((s[7] != 0).sum())
     b_ms, by = bound_ms(n_bytes, n_ops)
-    print(f"mc_match_batched P={n_p} K={k} rounds={n_rounds} R'=180 160^2: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms (medians of 100 and 20 calls, CUDA events), kernel "
-          f"{chained:.4f} ms a launch over 200 back to back, {n_p} single-plane mc_match launches "
-          f"{singles_ms:.4f} ms (median of 20); bound {b_ms:.6f} ms by {by} ({n_bytes} B, {n_ops} "
-          f"operations); no single PyTorch call computes it", flush=True)
+    cut_b_ms, cut_by = bound_ms(cut_bytes, n_ops)
+    print(f"mc_match_windows P={n_p} K={k} rounds={n_rounds} R'=180 {sh}x{sw} windows read in place: "
+          f"kernel {ms:.4f} ms, plain (cut, where, mc_match_ref) {plain_ms:.4f} ms, mc_match.cu for "
+          f"all {n_p} (the parent's) {parent_ms:.4f} ms (medians of 100, 20 and 100 calls in turns, "
+          f"CUDA events), kernel {chained:.4f} ms a launch over 200 back to back; bound {b_ms:.6f} "
+          f"ms by {by} ({n_bytes} B, {n_ops} operations). mc_match_batched on the cut-out windows: "
+          f"{cut_ms:.4f} ms, plain {cut_plain_ms:.4f} ms, {cut_chained:.4f} ms chained, bound "
+          f"{cut_b_ms:.6f} ms by {cut_by} ({cut_bytes} B); {n_p} single-plane mc_match launches "
+          f"{singles_ms:.4f} ms (median of 20); no single PyTorch call computes it", flush=True)
     return {
         "name": "mc_match_batched", "route": "cuda",
-        "source": "slam_constructor_tpu_torch/csrc/mc_match.cu",
+        "source": "slam_constructor_tpu_torch/csrc/particle_match.cu",
         "replaces": "slam_constructor_tpu/ops/pallas_kernels.py:73",
         "max_abs_err": max_err, "cases_bitwise_equal_to_single_launches": len(cases),
-        "matches_parted_from_twin": parted, "ms": ms, "plain_ms": plain_ms, "chained_ms": chained,
+        "matches_in_place_equal_to_cut_out": n_in_place, "matches_parted_from_twin": parted,
+        "ms": ms, "plain_ms": plain_ms, "chained_ms": chained, "parent_kernel_ms": parent_ms,
+        "cut_out_ms": cut_ms, "cut_out_chained_ms": cut_chained, "cut_out_bound_ms": cut_b_ms,
         "single_launches_ms": singles_ms, "bound_ms": b_ms, "bound_by": by, "library_ms": None,
     }
 
@@ -1140,19 +1261,25 @@ def phase_gmapping_path(cfg, scans, odom, gt, odo_ate, smi):
     """The timed RBPF run with the counts at 0 before and read after, its
     checks, and once more for repeatability; returns the launch counts."""
     from slam_constructor_tpu_torch.models import gmapping
+    from slam_constructor_tpu_torch.ops import scoring
     from slam_constructor_tpu_torch.utils import evaluate
 
-    reset_launches()
-    e, traj, neffs, secs = run_gmapping_path(cfg, scans, odom, gt, "error")
-    launches = read_launches()
+    # the match reads the windows in place: nothing cuts one out
+    cuts, views = (recorder(scoring.WindowView.cut), recorder(scoring.window_view))
+    with handed_in(cuts[0], "cut", scoring.WindowView), handed_in(views[0], "window_view", scoring):
+        reset_launches()
+        e, traj, neffs, secs = run_gmapping_path(cfg, scans, odom, gt, "error")
+        launches = read_launches()
     want = {"overlap_score": 0, "overlap_score_batched": 0, "mc_match": 0,
             "mc_match_batched": N_SCANS, "polar_free_plane": 0}
     resamples = int((e.genealogy[1] != torch.arange(cfg.n_particles, device=traj.device)).any(1).sum())
     print(f"gmapping main path ({cfg.n_particles} particles): {N_SCANS} scans in {secs:.3f} s = "
           f"{N_SCANS / secs:.1f} scans/s on {smi}, with the sync check on, no host sync; "
           f"{resamples} resamplings, min Neff {float(neffs.min()):.2f}; launches {launches} "
-          f"(expected {want})", flush=True)
+          f"(expected {want}); windows cut out for the match: {len(cuts[1]) + len(views[1])}",
+          flush=True)
     check(launches == want, f"gmapping: launches {launches}, expected {want}")
+    check(not cuts[1] and not views[1], "gmapping: the match windows were cut out, not read in place")
     winner = e.winner_trajectory()
     check(winner.shape == (N_SCANS, 3) and bool(torch.isfinite(winner).all())
           and bool(torch.isfinite(traj).all()), "gmapping: non-finite poses")
@@ -1253,18 +1380,20 @@ def phase_gmapping_improved(dev, scans, odom, gt):
               f"K={a[1].shape[1]} R'={a[2].shape[1]} {a[0].shape[1]}x{a[0].shape[2]}, "
               f"{len(group[::8])} launches: max|diff| to the twin {max_err:.3e} (tol {TOL:g}); equal "
               f"to {a[0].shape[0]} single-plane launches bit for bit", flush=True)
-    a = probes[-1]
-    ms, plain_ms, chained = time_pair(lambda: kernels.overlap_score_batched(*a),
-                                      lambda: kernels.overlap_score_ref(*a))
-    n_m, k = a[1].shape[:2]
-    n_bytes = 4 * (sum(t.numel() for t in a[:5]) + n_m * k)
-    n_ops = OVERLAP_OPS_PER_POINT * k * int((a[3] != 0).sum())
-    b_ms, by = bound_ms(n_bytes, n_ops)
-    print(f"overlap_score_batched M={n_m} K={k} R'=180 160^2 (the probes): kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, kernel {chained:.4f} ms a launch over 200 back to back; bound "
-          f"{b_ms:.6f} ms by {by}", flush=True)
-    return launches, {"ms": ms, "plain_ms": plain_ms, "chained_ms": chained, "bound_ms": b_ms,
-                      "bound_by": by, "max_abs_err": max_err}
+    times = {}
+    for name, a in (("probes", probes[-1]), ("gate", gates[-1])):
+        ms, plain_ms, chained = time_pair(lambda: kernels.overlap_score_batched(*a),
+                                          lambda: kernels.overlap_score_ref(*a))
+        n_m, k = a[1].shape[:2]
+        n_bytes = 4 * (sum(t.numel() for t in a[:5]) + n_m * k)
+        n_ops = OVERLAP_OPS_PER_POINT * k * int((a[3] != 0).sum())
+        b_ms, by = bound_ms(n_bytes, n_ops)
+        print(f"overlap_score_batched M={n_m} K={k} R'=180 160^2 (the {name}): kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, kernel {chained:.4f} ms a launch over 200 back to back; "
+              f"bound {b_ms:.6f} ms by {by} ({n_bytes} B, {n_ops} operations)", flush=True)
+        times[name] = {"ms": ms, "plain_ms": plain_ms, "chained_ms": chained, "bound_ms": b_ms,
+                       "bound_by": by}
+    return launches, {**times, "max_abs_err": max_err}
 
 
 def phase_gmapping_card_vs_cpu(dev, scans, odom, gt):
@@ -1362,7 +1491,7 @@ def main() -> None:
 
     gm_launches = phase_gmapping_path(gm_cfg, scans, odom, gt, odo_ate, smi)
     phase_gmapping_quality(gm_cfg, dev)
-    improved_launches, k4["rbpf_probes_m30_k16"] = phase_gmapping_improved(dev, scans, odom, gt)
+    improved_launches, k4["rbpf_m30_k16_and_k1"] = phase_gmapping_improved(dev, scans, odom, gt)
     phase_gmapping_card_vs_cpu(dev, scans, odom, gt)
 
     # `launches`: of a main path's timed run, held to the expected counts

@@ -1,23 +1,32 @@
 """Short first look at the port's CUDA kernels on a card: build, compiler
-report, instruction mix, one launch of each new kernel against its twin,
-and back-to-back launch times.
+report, instruction mix, one launch of each kernel against its twin, and
+back-to-back launch times; with ``--stamps``, where a round of the RBPF's
+particle match goes.
 
     python3 scripts/torch_port/kernel_probe.py
+    python3 scripts/torch_port/kernel_probe.py --stamps
+    python3 scripts/torch_port/kernel_probe.py --times --root DIR
 
 Prints ptxas' registers, spills and shared memory for every kernel; for
 every kernel in the built library the count of SASS instructions by opcode
 (``cuobjdump -sass``; the straight-line length of a kernel is what
 ``chip_smoke.py``'s operation counts for the roofline bound are checked
-against); ``polar_free_plane`` (both ways of building its range table)
-against ``polar_free_plane_ref`` at 256^2 cells and 360 beams; ``mc_match``
-against ``mc_match_rounds`` (bit for bit) and ``mc_match_ref`` at the tiny
-and viny main-path shapes; ``overlap_score_batched`` against its twin at the
-loop closer's shapes (M submaps of 120^2 cells cut from the probe's map, the
-343 poses of a 7^3 grid or the 7 of an information estimate, every second
-beam); ``mc_match_batched`` at the RBPF's shape (30 windows of 160^2 cut
-from the probe's map, 20 candidates x 5 rounds, every second beam) against
-30 single ``mc_match`` launches (bit for bit) and its twin; and three
-times a launch for every kernel:
+against); ``polar_free_plane`` against ``polar_free_plane_ref`` at 256^2
+cells and 360 beams; ``mc_match`` against ``mc_match_rounds`` (bit for bit)
+and ``mc_match_ref`` at the tiny and viny main-path shapes;
+``overlap_score_batched`` against its twin and against single-plane launches
+(bit for bit) at the loop closer's shapes (M submaps of 120^2 cells cut from
+the probe's map, the 343 poses of a 7^3 grid or the 7 of an information
+estimate, every second beam) and the RBPF's (30 windows of 160^2, K = 16
+and K = 1); the particle match at the RBPF's shape (30 windows of 160^2 cut
+from the probe's map, 20 candidates x 5 rounds, every second beam) through
+``mc_match_batched`` (the windows cut out) and ``mc_match_windows`` (the
+same windows read in place, the occupancy a channel of the maps' cells, as
+the RBPF holds it), at every cluster width, against 30 single ``mc_match``
+launches and ``mc_match.cu``'s kernel launched once for all 30 (the
+particle match before ``particle_match.cu``), bit for bit, and its twin;
+the same on whole 256^2 maps (too large for shared memory: the taps read in
+place from device memory); and three times a launch for every kernel:
 
 - chained: 200 calls of the wrapper queued back to back between one pair of
   CUDA events, over 200 (the host's cost of a call shows here);
@@ -27,24 +36,53 @@ times a launch for every kernel:
 - device: ``torch.profiler``'s mean device time of the kernel over those
   replays, to hold against the graph's slope.
 
+``--stamps`` builds the kernels once more with ``-DSLAM_KERNEL_PROBE``
+(``csrc/overlap_sample.cuh``: thread 0 of every block writes ``clock64()``
+at the boundaries of its work, and ``%globaltimer`` at its start and end)
+and splits a particle match at the RBPF's shape, for ``mc_match.cu``'s
+kernel launched for all 30 particles and for ``particle_match.cu``'s at
+each cluster width, into: the set-up (scan, noise and window copied) and
+the first score (each as the time from the block's start at which it is
+done: ``particle_match.cu`` scores the first pose while the window's copy is
+in flight), and a round's five parts: (a) the candidate and its trig, (b)
+the taps and the beam sums, (c) the reduction, (d) the cluster barrier, the
+reads of the scores and the argmax, (e) the state update. Cycles are turned
+into time with the SM clock that the stamps themselves give.
+
+``--times`` times only the wrappers that every version of the port has
+(the batched score at the six shapes above, the particle match at the
+RBPF's shape, ``overlap_score``, ``polar_free_plane``, ``mc_match`` tiny and
+viny), and ``--root DIR`` imports the port from another checkout (built
+there): run it on two checkouts in turns (A, B, B, A), one after another, to
+compare their kernels on one card.
+
 Imports no JAX.
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
+import ctypes
 import re
 import shutil
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[2]))  # the checkout's root
+ROOT = Path(__file__).resolve().parents[2]  # the checkout's root
+if "--root" in sys.argv:  # the port of another checkout, for timing in turns
+    ROOT = Path(sys.argv[sys.argv.index("--root") + 1]).resolve()
+sys.path.insert(0, str(ROOT))
 
 FP_OPS = ("FADD", "FMUL", "FFMA", "MUFU", "FSETP", "FMNMX", "FSEL", "F2I", "I2F", "FRND", "FCHK",
           "F2F", "FSET")
+#: the particle match's cluster widths timed against each other
+WIDTHS = (1, 2, 3, 4)
+P, K, ROUNDS = 30, 20, 5
 
 
 def sass_mix(lib: Path) -> None:
@@ -143,17 +181,196 @@ def mc_case(scoring, view, scan, pose, cfg, weights, dev, seed):
             prep.unknown, m.sigma_xy, m.sigma_theta, m.bad_rounds_before_anneal)
 
 
+def scene(dev):
+    """The probe's map (one scan inserted into a 256^2 tiny map), the scan,
+    its pose, and the prepared (plane, scan) of the tiny preset."""
+    from slam_constructor_tpu_torch.models import tiny
+    from slam_constructor_tpu_torch.models.engine import init_state
+    from slam_constructor_tpu_torch.ops import raycast, scoring
+    from slam_constructor_tpu_torch.utils import datagen
+
+    occ, origin, scale = datagen.cecum_world(device=dev)
+    pose = torch.tensor([0.3, -1.45, 0.7], device=dev)
+    scan = raycast.cast_rays(occ, origin, scale, pose, datagen.default_bearings(360, device=dev))
+    cfg = tiny.tiny_config(map_size=256)
+    gm = raycast.insert_scan(init_state(cfg, dev).gm, cfg.cell_model, pose, scan, cfg.beam)
+    prep = scoring.prepare(scoring.MapView.of(gm, cfg.cell_model), scan, cfg.matcher_cfg.scoring)
+    return pose, scan, prep
+
+
+def submaps(prep, pose, dev, n_maps, k, size=120):
+    """(args of overlap_score_batched): ``size``^2 crops of the plane, each
+    with its own origin, scan mask and poses."""
+    from slam_constructor_tpu_torch.ops import matchers
+
+    grid = matchers.brute_force_offsets(matchers.BruteForceConfig(
+        half_x=0.6, half_y=0.6, half_theta=0.3, n_x=7, n_y=7, n_theta=7), dev)[:k]
+    planes, origins, weights, poses = [], [], [], []
+    for m in range(n_maps):
+        r0, c0 = 60 + 2 * (m % 9), 70 + 3 * (m % 7)
+        planes.append(prep.plane[r0:r0 + size, c0:c0 + size])
+        origins.append(prep.origin + torch.tensor([c0 * 0.1, r0 * 0.1], device=dev))
+        weights.append(prep.beam_w[::2] * (torch.arange(180, device=dev) % (5 + m % 3) != 1))
+        poses.append(pose + grid + 0.01 * m)
+    return (torch.stack(planes).contiguous(), torch.stack(poses).contiguous(),
+            prep.pts[::2][None].expand(n_maps, -1, -1).contiguous(), torch.stack(weights),
+            torch.stack(origins), prep.scale, prep.unknown)
+
+
+def particle_cases(prep, pose, dev, size=160):
+    """The RBPF's particle match on the probe's map: (args of
+    mc_match_batched on the cut-out windows, args of mc_match_windows on
+    the same windows in place). The maps are the plane as channel 0 of
+    cells [P, 256, 256, 2] whose channel 1 (weight 1) marks every cell
+    known, so both read the same values; ``size`` 256 is the whole map."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    whole = size == 256
+    rows = torch.zeros(P, dtype=torch.int64) if whole else 40 + 2 * torch.arange(P) % 17
+    cols = torch.zeros(P, dtype=torch.int64) if whole else 50 + 3 * torch.arange(P) % 23
+    rows, cols = rows.to(dev), cols.to(dev)
+    cells = torch.stack([prep.plane, torch.ones_like(prep.plane)], -1).expand(P, -1, -1, -1)
+    cells = cells.contiguous()
+    occ, known = cells[..., 0], cells[..., 1] > 0
+    planes = torch.stack([prep.plane[r:r + size, c:c + size]
+                          for r, c in zip(rows.tolist(), cols.tolist())])
+    origin = prep.origin + torch.stack([cols, rows], -1).to(torch.float32) * prep.scale
+    rest = (prep.pts[::2][None].expand(P, -1, -1).contiguous(),
+            prep.beam_w[::2][None].expand(P, -1).contiguous(), origin,
+            (pose + 0.05 * torch.randn((P, 3), generator=g, device=dev)).contiguous(),
+            torch.randn((P, ROUNDS, K, 3), generator=g, device=dev),
+            prep.scale, prep.unknown, 0.06, 0.03, 2)
+    return (planes.contiguous(), *rest), (occ, known, rows, cols, size, size, *rest)
+
+
+def same_bits(a, b) -> bool:
+    return all(torch.equal(x.reshape(-1).view(torch.int32), y.reshape(-1).view(torch.int32))
+               for x, y in zip(a, b))
+
+
+def stamps_main(dev) -> None:
+    """The stamp build: a particle match split into its parts."""
+    from chip_smoke import pr3_kernel_for_all
+    from slam_constructor_tpu_torch.ops import _build, kernels
+
+    res = _build.build(("-DSLAM_KERNEL_PROBE",))
+    print(f"stamp build: {res.seconds:.2f} s")
+    lib = ctypes.CDLL(str(res.path))
+    _build.load = lambda: lib  # every wrapper launches the stamped kernels
+    slots, n_slots = 256, 64
+    pose, _, prep = scene(dev)
+    cut, in_place = particle_cases(prep, pose, dev)
+
+    def split(reader, n_blocks, name):
+        buf = (ctypes.c_ulonglong * (slots * n_slots))()
+        err = getattr(lib, reader)(ctypes.byref(buf))
+        if err:
+            raise RuntimeError(f"{reader}: cudaError_t {err}")
+        s = np.frombuffer(buf, np.uint64).reshape(slots, n_slots)[:n_blocks].astype(np.float64)
+        ghz = float(np.median((s[:, 62] - s[:, 0]) / (s[:, 63] - s[:, 1])))
+        us = 1e-3 / ghz  # a cycle
+
+        def mean(a):
+            return float(np.mean(a)) * us
+
+        prev, parts = np.maximum(s[:, 2], s[:, 3]), np.zeros((ROUNDS, 5))
+        for r in range(ROUNDS):
+            b = 4 + 5 * r
+            parts[r] = [mean(s[:, b] - prev)] + [mean(s[:, b + i + 1] - s[:, b + i]) for i in range(4)]
+            prev = s[:, b + 4]
+        whole = (s[:, 63].max() - s[:, 1].min()) * 1e-3
+        print(f"stamps [{name}]: {n_blocks} blocks, SM clock {ghz:.3f} GHz, first block start "
+              f"to last block end {whole:.2f} us; after the block's start the set-up is done at "
+              f"{mean(s[:, 2] - s[:, 0]):.2f} us and the first score at "
+              f"{mean(s[:, 3] - s[:, 0]):.2f} us, end {mean(s[:, 62] - prev):.2f} us; a "
+              f"round (mean of {ROUNDS}): (a) candidate + trig {parts[:, 0].mean():.2f}, (b) taps "
+              f"+ beam sums {parts[:, 1].mean():.2f}, (c) reduction {parts[:, 2].mean():.2f}, (d) "
+              f"barrier + score reads + argmax {parts[:, 3].mean():.2f}, (e) state update "
+              f"{parts[:, 4].mean():.2f} us; rounds "
+              + ", ".join(f"{p.sum():.2f}" for p in parts) + " us", flush=True)
+
+    for _ in range(3):  # warm-up; the last launch's stamps stay
+        pr3_kernel_for_all(cut)
+    torch.cuda.synchronize()
+    split("mc_match_probe_stamps", P * -(-K // 8), f"mc_match.cu for all {P} (before)")
+    for width in WIDTHS:
+        for name, args, staging in (
+            ("cut out, staged", (cut[0], None, None, None, *cut[0].shape[1:], *cut[1:]), 1),
+            ("in place, staged", in_place, 1),
+            ("in place, taps from device memory", in_place, 0),
+        ):
+            for _ in range(3):
+                kernels._particle_match_launch(*args, blocks=width, staging=staging)
+            torch.cuda.synchronize()
+            split("particle_match_probe_stamps", P * width,
+                  f"particle_match.cu, {width} block(s) a particle, windows {name}")
+
+
+def times_main(dev) -> None:
+    """The times of the wrappers every version of the port has, at the
+    shapes of the full probe."""
+    from slam_constructor_tpu_torch.models import tiny, viny
+    from slam_constructor_tpu_torch.models.engine import init_state
+    from slam_constructor_tpu_torch.ops import _build, kernels, raycast, scoring
+
+    print(f"build: {_build.build().seconds:.2f} s", flush=True)
+    pose, scan, prep = scene(dev)
+    mc = {}
+    for name, cfg in (("tiny", tiny.tiny_config(map_size=256)), ("viny", viny.viny_config(map_size=256))):
+        gm = raycast.insert_scan(init_state(cfg, dev).gm, cfg.cell_model, pose, scan, cfg.beam)
+        weights = (torch.rand((360,), device=dev, generator=torch.Generator(device=dev).manual_seed(3))
+                   if name == "viny" else None)
+        mc[name] = mc_case(scoring, scoring.MapView.of(gm, cfg.cell_model), scan, pose, cfg, weights,
+                           dev, seed=11)
+    cut, in_place = particle_cases(prep, pose, dev)
+    beam = viny.viny_config().beam
+    polar_args = (scan.ranges, scan.valid, scan.bearings, pose,
+                  torch.tensor([-12.8, -12.8], device=dev), 256, 256, 0.1, beam.hole_width / 2.0,
+                  beam.max_range)
+    cand = pose + 0.05 * torch.randn((64, 3), generator=torch.Generator(device=dev).manual_seed(2),
+                                     device=dev)
+    sargs = (prep.plane, cand, prep.pts, prep.beam_w, prep.origin, prep.scale, prep.unknown)
+    fns = [(f"overlap_score_batched M={m} K={k} {s}^2",
+            lambda a=submaps(prep, pose, dev, m, k, s): kernels.overlap_score_batched(*a))
+           for m, k, s in ((32, 343, 120), (32, 7, 120), (4, 343, 120), (1, 343, 120), (30, 16, 160),
+                           (30, 1, 160))]
+    fns += [("mc_match_batched P=30 K=20 rounds=5 160^2", lambda: kernels.mc_match_batched(*cut))]
+    if hasattr(kernels, "mc_match_windows"):
+        fns += [("mc_match_windows P=30 K=20 rounds=5 160^2",
+                 lambda: kernels.mc_match_windows(*in_place))]
+    fns += [("overlap_score K=64 R=360", lambda: kernels.overlap_score(*sargs)),
+            ("polar_free_plane 256^2 R=360", lambda: kernels.polar_free_plane(*polar_args)),
+            ("mc_match tiny", lambda: kernels.mc_match(*mc["tiny"])),
+            ("mc_match viny", lambda: kernels.mc_match(*mc["viny"]))]
+    for name, fn in fns:
+        report(name, fn)
+
+
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--stamps", action="store_true",
+                    help="split a particle match into its parts with the stamp build")
+    ap.add_argument("--times", action="store_true",
+                    help="only the times of the wrappers every version of the port has")
+    ap.add_argument("--root", default=str(ROOT), help="the checkout whose port is probed")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA GPU")
     from slam_constructor_tpu_torch.models import tiny, viny
     from slam_constructor_tpu_torch.models.engine import init_state
     from slam_constructor_tpu_torch.ops import _build, kernels, raycast, scoring
-    from slam_constructor_tpu_torch.utils import datagen
 
     dev = torch.device("cuda")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
+    print(f"port: {ROOT}", flush=True)
+    if args.stamps:
+        stamps_main(dev)
+        return
+    if args.times:
+        times_main(dev)
+        return
+    from chip_smoke import pr3_kernel_for_all
+
     res = _build.build()
     print(f"build: {res.seconds:.2f} s")
     for line in res.log.splitlines():
@@ -162,16 +379,13 @@ def main() -> None:
     _build.load()
     sass_mix(res.path)
 
-    occ, origin, scale = datagen.cecum_world(device=dev)
-    pose = torch.tensor([0.3, -1.45, 0.7], device=dev)
-    scan = raycast.cast_rays(occ, origin, scale, pose, datagen.default_bearings(360, device=dev))
+    pose, scan, prep = scene(dev)
     beam = viny.viny_config().beam
-    args = (scan.ranges, scan.valid, scan.bearings, pose,
-            torch.tensor([-12.8, -12.8], device=dev), 256, 256, 0.1, beam.hole_width / 2.0,
-            beam.max_range)
-
-    want = kernels.polar_free_plane_ref(*args)
-    got = kernels.polar_free_plane(*args)
+    polar_args = (scan.ranges, scan.valid, scan.bearings, pose,
+                  torch.tensor([-12.8, -12.8], device=dev), 256, 256, 0.1, beam.hole_width / 2.0,
+                  beam.max_range)
+    want = kernels.polar_free_plane_ref(*polar_args)
+    got = kernels.polar_free_plane(*polar_args)
     torch.cuda.synchronize()
     both = (got > 0) & (want > 0)
     print(f"polar_free_plane vs twin: free {int(both.sum())}, flipped "
@@ -192,73 +406,67 @@ def main() -> None:
         rounds = kernels.mc_match_rounds(*mc[name])
         twin = kernels.mc_match_ref(*mc[name])
         torch.cuda.synchronize()
-        same = all(torch.equal(a, b) for a, b in zip(got, rounds))
         print(f"mc_match [{name}] K={mc[name][5].shape[1]} rounds={mc[name][5].shape[0]} "
-              f"R'={mc[name][1].shape[0]}: bitwise equal to mc_match_rounds {same}; "
-              f"max |trace diff| {float((got[2] - rounds[2]).abs().max()):.3e}; vs twin: max "
-              f"|trace diff| {float((got[2] - twin[2]).abs().max()):.3e}, |pose diff| "
+              f"R'={mc[name][1].shape[0]}: bitwise equal to mc_match_rounds "
+              f"{same_bits(got, rounds)}; vs twin: max |trace diff| "
+              f"{float((got[2] - twin[2]).abs().max()):.3e}, |pose diff| "
               f"{float((got[0] - twin[0]).abs().max()):.3e}; prob {float(got[1]):.6f}", flush=True)
 
-    cfg = tiny.tiny_config(map_size=256)
-    gm = raycast.insert_scan(init_state(cfg, dev).gm, cfg.cell_model, pose, scan, cfg.beam)
-    prep = scoring.prepare(scoring.MapView.of(gm, cfg.cell_model), scan, cfg.matcher_cfg.scoring)
     cand = pose + 0.05 * torch.randn((64, 3), device=dev)
     sargs = (prep.plane, cand, prep.pts, prep.beam_w, prep.origin, prep.scale, prep.unknown)
-    from slam_constructor_tpu_torch.ops import matchers
-
-    def submaps(n_maps, k):
-        """(args of overlap_score_batched): crops of the plane, each with its
-        own origin, scan mask and poses."""
-        grid = matchers.brute_force_offsets(matchers.BruteForceConfig(
-            half_x=0.6, half_y=0.6, half_theta=0.3, n_x=7, n_y=7, n_theta=7), dev)[:k]
-        planes, origins, weights, poses = [], [], [], []
-        for m in range(n_maps):
-            r0, c0 = 60 + 2 * (m % 9), 70 + 3 * (m % 7)
-            planes.append(prep.plane[r0:r0 + 120, c0:c0 + 120])
-            origins.append(prep.origin + torch.tensor([c0 * 0.1, r0 * 0.1], device=dev))
-            weights.append(prep.beam_w[::2] * (torch.arange(180, device=dev) % (5 + m % 3) != 1))
-            poses.append(pose + grid + 0.01 * m)
-        return (torch.stack(planes).contiguous(), torch.stack(poses).contiguous(),
-                prep.pts[::2][None].expand(n_maps, -1, -1).contiguous(), torch.stack(weights),
-                torch.stack(origins), prep.scale, prep.unknown)
-
-    batched = {(m, k): submaps(m, k) for m, k in ((32, 343), (32, 7), (4, 343), (1, 343))}
-    for (m, k), bargs in batched.items():
+    batched = {(m, k, s): submaps(prep, pose, dev, m, k, s)
+               for m, k, s in ((32, 343, 120), (32, 7, 120), (4, 343, 120), (1, 343, 120),
+                               (30, 16, 160), (30, 1, 160))}
+    for (m, k, s), bargs in batched.items():
         got = kernels.overlap_score_batched(*bargs)
         want = kernels.overlap_score_ref(*bargs)
+        singles = torch.stack([kernels.overlap_score(*(t[i] for t in bargs[:5]), *bargs[5:])
+                               for i in range(m)])
         torch.cuda.synchronize()
-        print(f"overlap_score_batched M={m} K={k} R'=180 120^2 vs twin: max |diff| "
-              f"{float((got - want).abs().max()):.3e}, scores {float(got.min()):.4f}.."
+        print(f"overlap_score_batched M={m} K={k} R'=180 {s}^2 vs twin: max |diff| "
+              f"{float((got - want).abs().max()):.3e}, bitwise equal to {m} single-plane launches "
+              f"{same_bits([got], [singles])}, scores {float(got.min()):.4f}.."
               f"{float(got.max()):.4f}", flush=True)
 
-    # the RBPF's particle match: 30 windows of 160^2, each its own origin,
-    # prior and noise, the scan on every second beam
-    n_p, g = 30, torch.Generator(device=dev).manual_seed(5)
-    rows, cols = 40 + 2 * torch.arange(n_p) % 17, 50 + 3 * torch.arange(n_p) % 23
-    pargs = (
-        torch.stack([prep.plane[r:r + 160, c:c + 160] for r, c in zip(rows.tolist(), cols.tolist())]),
-        prep.pts[::2][None].expand(n_p, -1, -1).contiguous(),
-        prep.beam_w[::2][None].expand(n_p, -1).contiguous(),
-        prep.origin + torch.stack([cols, rows], -1).to(dev, torch.float32) * prep.scale,
-        (pose + 0.05 * torch.randn((n_p, 3), generator=g, device=dev)).contiguous(),
-        torch.randn((n_p, 5, 20, 3), generator=g, device=dev),
-        prep.scale, prep.unknown, 0.06, 0.03, 2,
-    )
-    got = kernels.mc_match_batched(*pargs)
-    singles = [kernels.mc_match(*(t[m] for t in pargs[:6]), *pargs[6:]) for m in range(n_p)]
-    twin = kernels.mc_match_ref(*pargs)
-    torch.cuda.synchronize()
-    same = all(torch.equal(got[i], torch.stack([s[i] for s in singles])) for i in range(3))
-    print(f"mc_match_batched P=30 K=20 rounds=5 R'=180 160^2: bitwise equal to 30 single "
-          f"mc_match launches {same}; vs twin: max |trace diff| "
-          f"{float((got[2] - twin[2]).abs().max()):.3e}, |pose diff| "
-          f"{float((got[0] - twin[0]).abs().max()):.3e}", flush=True)
+    # the RBPF's particle match: 30 windows, each its own origin, prior and
+    # noise, the scan on every second beam; cut out and in place, and on
+    # whole maps
+    cases = {}
+    for size in (160, 256):
+        cut, in_place = particle_cases(prep, pose, dev, size)
+        cases[size] = (cut, in_place)
+        got = kernels.mc_match_batched(*cut)
+        ref = [pr3_kernel_for_all(cut), kernels.mc_match_windows(*in_place)]
+        ref += [kernels._particle_match_launch(*args, blocks=b, staging=s) for b in WIDTHS
+                for s in (1, 0)
+                for args in ((cut[0], None, None, None, size, size, *cut[1:]), in_place)]
+        singles = [kernels.mc_match(*(t[m] for t in cut[:6]), *cut[6:]) for m in range(P)]
+        twin = kernels.mc_match_ref(*cut)
+        torch.cuda.synchronize()
+        single = [torch.stack([s[i] for s in singles]) for i in range(3)]
+        print(f"particle match P={P} K={K} rounds={ROUNDS} R'=180 {size}^2: mc_match_batched "
+              f"bitwise equal to {P} single mc_match launches {same_bits(got, single)}, to "
+              f"mc_match.cu for all {P} {same_bits(got, ref[0])}, mc_match_windows (in place) "
+              f"{same_bits(got, ref[1])}, cluster widths {WIDTHS} x staged / in place x cut "
+              f"out / in place "
+              f"{[same_bits(got, r) for r in ref[2:]]}; vs twin: max |trace diff| "
+              f"{float((got[2] - twin[2]).abs().max()):.3e}, |pose diff| "
+              f"{float((got[0] - twin[0]).abs().max()):.3e}", flush=True)
 
+    cut, in_place = cases[160]
     for name, fn in (
-        *((f"overlap_score_batched M={m} K={k}", lambda a=a: kernels.overlap_score_batched(*a))
-          for (m, k), a in batched.items()),
-        ("mc_match_batched P=30 K=20 rounds=5", lambda: kernels.mc_match_batched(*pargs)),
-        ("polar_free_plane 256^2 R=360", lambda: kernels.polar_free_plane(*args)),
+        *((f"overlap_score_batched M={m} K={k} {s}^2", lambda a=a: kernels.overlap_score_batched(*a))
+          for (m, k, s), a in batched.items()),
+        ("mc_match.cu for all 30 particles (before)", lambda: pr3_kernel_for_all(cut)),
+        ("mc_match_batched P=30 K=20 rounds=5 160^2", lambda: kernels.mc_match_batched(*cut)),
+        ("mc_match_windows P=30 K=20 rounds=5 160^2", lambda: kernels.mc_match_windows(*in_place)),
+        *((f"particle match, windows in place {how}, {b} block(s) a particle",
+           lambda b=b, s=s: kernels._particle_match_launch(*in_place, blocks=b, staging=s))
+          for b in WIDTHS for how, s in (("staged", 1), ("taps from device memory", 0))),
+        ("mc_match_windows whole 256^2 maps (taps from device memory)",
+         lambda: kernels.mc_match_windows(*cases[256][1])),
+        ("mc_match_batched whole 256^2 planes", lambda: kernels.mc_match_batched(*cases[256][0])),
+        ("polar_free_plane 256^2 R=360", lambda: kernels.polar_free_plane(*polar_args)),
         ("overlap_score K=64 R=360", lambda: kernels.overlap_score(*sargs)),
         ("mc_match tiny", lambda: kernels.mc_match(*mc["tiny"])),
         ("mc_match viny", lambda: kernels.mc_match(*mc["viny"])),
@@ -268,9 +476,9 @@ def main() -> None:
         ("torch.empty((256, 256)) alone", lambda: torch.empty((256, 256), device=dev)),
         ("mc_match_rounds tiny", lambda: kernels.mc_match_rounds(*mc["tiny"])),
         ("mc_match_rounds viny", lambda: kernels.mc_match_rounds(*mc["viny"])),
-        ("polar_free_plane_ref", lambda: kernels.polar_free_plane_ref(*args)),
+        ("polar_free_plane_ref", lambda: kernels.polar_free_plane_ref(*polar_args)),
         ("30 single mc_match launches at the RBPF's shape",
-         lambda: [kernels.mc_match(*(t[m] for t in pargs[:6]), *pargs[6:]) for m in range(n_p)]),
+         lambda: [kernels.mc_match(*(t[m] for t in cut[:6]), *cut[6:]) for m in range(P)]),
     ):
         print(f"chained [{name}]: {chained_ms(fn, 50) * 1e3:.2f} us a call (50 back to back)",
               flush=True)

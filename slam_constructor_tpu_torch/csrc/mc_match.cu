@@ -1,14 +1,16 @@
-// mc_match.cu: whole Monte-Carlo scan matches in one launch, one Hopper
+// mc_match.cu: a whole Monte-Carlo scan match in one launch, one Hopper
 // (sm_90a) thread-block cluster a match. Plain C interface, bound from
-// Python with ctypes (slam_constructor_tpu_torch/ops/kernels.py::mc_match
-// for one match, ::mc_match_batched for P of them, built by ops/_build.py).
+// Python with ctypes (slam_constructor_tpu_torch/ops/kernels.py::mc_match,
+// built by ops/_build.py). The grid can hold P matches, a cluster each; the
+// package launches it for one (the tiny, viny and full paths). The RBPF's
+// P particles' matches are particle_match.cu, which gives each the bits of
+// this kernel.
 //
 // On the matcher's path it takes the place of the TPU kernel
 // slam_constructor_tpu/ops/pallas_kernels.py: sample_plane_bilinear (body
 // _bilinear_kernel) together with everything ops/matchers.py:
 // monte_carlo_match does around ops/scoring.py:score_poses at the overlap
-// reducer, extent 1; with P matches in one launch it is also what
-// models/gmapping.py gets from vmap(match_particle) over its particles:
+// reducer, extent 1:
 //
 //   for each match p (a particle, with its own plane, scan, origin, prior
 //   and noise):
@@ -162,6 +164,10 @@ mc_match_kernel(const float* __restrict__ v, int h, int w,
   prob_out += p;
   trace_out += p * rounds;
 
+  if (threadIdx.x == 0) {
+    PROBE_STAMP(blockIdx.y * gridDim.x + blockIdx.x, probe::kStart);
+    PROBE_STAMP_NS(blockIdx.y * gridDim.x + blockIdx.x, probe::kStartNs);
+  }
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   constexpr int per_pass = kBlocks * kGroups;  // candidates a pass
@@ -193,6 +199,8 @@ mc_match_kernel(const float* __restrict__ v, int h, int w,
   __syncthreads();
   const float ox = __ldg(origin + 0);
   const float oy = __ldg(origin + 1);
+  const int stamped = blockIdx.y * gridDim.x + blockIdx.x;  // the probe's slots
+  if (threadIdx.x == 0) PROBE_STAMP(stamped, probe::kSetup);
 
   if (g == 0) {  // the first pose, in every block
     const overlap::Pose q{st.pose[0], st.pose[1], cosf(st.pose[2]), sinf(st.pose[2])};
@@ -202,6 +210,7 @@ mc_match_kernel(const float* __restrict__ v, int h, int w,
     if (t == 0) st.prob = overlap::weighted_mean(num, den);
   }
   __syncthreads();
+  if (threadIdx.x == 0) PROBE_STAMP(stamped, probe::kFirst);
 
   for (int round = 0; round < rounds; ++round) {
     float* mine = s_scores + (round & 1) * per_buffer;
@@ -211,10 +220,14 @@ mc_match_kernel(const float* __restrict__ v, int h, int w,
       float cand[3];
       candidate(st, s_noise + (round * k + c) * 3, cand);
       const overlap::Pose q{cand[0], cand[1], cosf(cand[2]), sinf(cand[2])};
+      const int part = probe::kRound + probe::kParts * round;  // the probe's slots
+      if (threadIdx.x == 0 && pass == 0) PROBE_STAMP(stamped, part + 0);
       float num, den;
       overlap::beam_sums(v, h, w, q, s_pts, s_bw, r, t, ox, oy, scale, unknown, num, den);
+      if (threadIdx.x == 0 && pass == 0) PROBE_STAMP(stamped, part + 1);
       overlap::group_reduce(num, den, g_num, g_den, t, barrier_id);
       if (t == 0) mine[pass * kGroups + g] = overlap::weighted_mean(num, den);
+      if (threadIdx.x == 0 && pass == 0) PROBE_STAMP(stamped, part + 2);
     }
     cluster.sync();  // every block's scores of this round are written
 
@@ -240,6 +253,7 @@ mc_match_kernel(const float* __restrict__ v, int h, int w,
           best_i = oi;
         }
       }
+      if (threadIdx.x == 0) PROBE_STAMP(stamped, probe::kRound + probe::kParts * round + 3);
       if (threadIdx.x == 0) {
         const bool better = best_v > st.prob;
         if (better) {
@@ -262,6 +276,7 @@ mc_match_kernel(const float* __restrict__ v, int h, int w,
       }
     }
     __syncthreads();  // the new state, before the next round reads it
+    if (threadIdx.x == 0) PROBE_STAMP(stamped, probe::kRound + probe::kParts * round + 4);
   }
 
   // no block leaves while another may still read its scores
@@ -271,6 +286,10 @@ mc_match_kernel(const float* __restrict__ v, int h, int w,
     pose_out[1] = st.pose[1];
     pose_out[2] = st.pose[2];
     prob_out[0] = st.prob;
+  }
+  if (threadIdx.x == 0) {
+    PROBE_STAMP(stamped, probe::kEnd);
+    PROBE_STAMP_NS(stamped, probe::kEndNs);
   }
 }
 
@@ -343,3 +362,5 @@ extern "C" int mc_match_launch(const float* v, int n_p, int h, int w, const floa
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
+
+PROBE_EXPORT(mc_match_probe_stamps)

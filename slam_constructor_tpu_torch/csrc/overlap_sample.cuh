@@ -1,9 +1,12 @@
 // overlap_sample.cuh: the per-beam arithmetic of the scan-overlap score,
-// shared by overlap_score.cu (one launch scores K poses) and mc_match.cu
-// (one launch runs a whole Monte-Carlo match), so that both give the same
-// bits for the same pose.
+// shared by overlap_score.cu (one launch scores K poses on M planes),
+// mc_match.cu (one launch runs a whole Monte-Carlo match) and
+// particle_match.cu (one launch runs P of them), so that all give the same
+// bits for the same pose. A pose is scored by a group of 128 threads
+// (beam_sums + group_reduce, mc_match.cu) or by one warp standing for such
+// a group (warp_score, the others): the same sums in the same order.
 //
-// sample() is the math of the TPU kernel's body (slam_constructor_tpu/ops/
+// sample_at() is the math of the TPU kernel's body (slam_constructor_tpu/ops/
 // pallas_kernels.py: _bilinear_kernel): per axis i0 = floor(pos - 0.5) and
 // w0 = i0 + 1.5 - pos; taps i0 and i0 + 1 count only inside [0, n);
 // coverage = (sum of row taps) * (sum of col taps); the result is
@@ -53,11 +56,21 @@ struct Pose {
   float x, y, c, s;
 };
 
+// The plane's cell (row, col) read through __ldg from v f32[h, w].
+struct LdgPlane {
+  const float* __restrict__ v;
+  int w;
+  __device__ __forceinline__ float operator()(int row, int col) const {
+    return __ldg(v + row * w + col);
+  }
+};
+
 // Overlap probability of the endpoint (qx, qy), given in the sensor frame,
-// seen from `p`, on the plane v f32[h, w] (read through __ldg).
-__device__ __forceinline__ float sample(const float* __restrict__ v, int h, int w,
-                                        const Pose& p, float qx, float qy, float ox,
-                                        float oy, float scale, float unknown) {
+// seen from `p`, on an h x w plane whose cells `at(row, col)` reads.
+template <class Plane>
+__device__ __forceinline__ float sample_at(const Plane& at, int h, int w, const Pose& p,
+                                           float qx, float qy, float ox, float oy,
+                                           float scale, float unknown) {
   const float wx = (p.x + p.c * qx) - p.s * qy;
   const float wy = (p.y + p.s * qx) + p.c * qy;
   const float x = (wx - ox) / scale;
@@ -66,10 +79,10 @@ __device__ __forceinline__ float sample(const float* __restrict__ v, int h, int 
   const AxisTaps cx = axis_taps(x, w);
   // a tap off the map has weight 0 and reads 0, as the one-hot of the
   // reference never matches it
-  const float v00 = (ry.a0 != 0.0f && cx.a0 != 0.0f) ? __ldg(v + ry.i0 * w + cx.i0) : 0.0f;
-  const float v10 = (ry.a1 != 0.0f && cx.a0 != 0.0f) ? __ldg(v + ry.i1 * w + cx.i0) : 0.0f;
-  const float v01 = (ry.a0 != 0.0f && cx.a1 != 0.0f) ? __ldg(v + ry.i0 * w + cx.i1) : 0.0f;
-  const float v11 = (ry.a1 != 0.0f && cx.a1 != 0.0f) ? __ldg(v + ry.i1 * w + cx.i1) : 0.0f;
+  const float v00 = (ry.a0 != 0.0f && cx.a0 != 0.0f) ? at(ry.i0, cx.i0) : 0.0f;
+  const float v10 = (ry.a1 != 0.0f && cx.a0 != 0.0f) ? at(ry.i1, cx.i0) : 0.0f;
+  const float v01 = (ry.a0 != 0.0f && cx.a1 != 0.0f) ? at(ry.i0, cx.i1) : 0.0f;
+  const float v11 = (ry.a1 != 0.0f && cx.a1 != 0.0f) ? at(ry.i1, cx.i1) : 0.0f;
   // rows first, then columns: the order of the reference's a @ plane . b
   const float ssum = (ry.a0 * v00 + ry.a1 * v10) * cx.a0 +
                      (ry.a0 * v01 + ry.a1 * v11) * cx.a1;
@@ -79,20 +92,29 @@ __device__ __forceinline__ float sample(const float* __restrict__ v, int h, int 
 
 // One thread's share of a pose's score: beams t, t + kGroupThreads, ... in
 // that order; beams of weight 0 (invalid) are skipped.
-__device__ __forceinline__ void beam_sums(const float* __restrict__ v, int h, int w,
-                                          const Pose& p, const float* pts,
-                                          const float* beam_w, int r, int t, float ox,
-                                          float oy, float scale, float unknown,
-                                          float& num, float& den) {
+template <class Plane>
+__device__ __forceinline__ void beam_sums_at(const Plane& at, int h, int w, const Pose& p,
+                                             const float* pts, const float* beam_w, int r,
+                                             int t, float ox, float oy, float scale,
+                                             float unknown, float& num, float& den) {
   num = 0.0f;
   den = 0.0f;
   for (int i = t; i < r; i += kGroupThreads) {
     const float bw = beam_w[i];
     if (bw == 0.0f) continue;
-    const float pr = sample(v, h, w, p, pts[2 * i + 0], pts[2 * i + 1], ox, oy, scale, unknown);
+    const float pr = sample_at(at, h, w, p, pts[2 * i + 0], pts[2 * i + 1], ox, oy, scale,
+                               unknown);
     num += bw * pr;
     den += bw;
   }
+}
+
+__device__ __forceinline__ void beam_sums(const float* __restrict__ v, int h, int w,
+                                          const Pose& p, const float* pts,
+                                          const float* beam_w, int r, int t, float ox,
+                                          float oy, float scale, float unknown,
+                                          float& num, float& den) {
+  beam_sums_at(LdgPlane{v, w}, h, w, p, pts, beam_w, r, t, ox, oy, scale, unknown, num, den);
 }
 
 // Barrier `id` for the kGroupThreads threads of one group (id 0 is the one
@@ -137,4 +159,122 @@ __device__ __forceinline__ float weighted_mean(float num, float den) {
   return num / fmaxf(den, 1e-9f);
 }
 
+// Asynchronous 4-byte copies from device into shared memory (cp.async):
+// a thread issues many without waiting, then waits once for all of them.
+__device__ __forceinline__ void copy4_async(void* shared_dst, const void* global_src) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(shared_dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst), "l"(global_src) : "memory");
+}
+
+__device__ __forceinline__ void copies_wait() { asm volatile("cp.async.wait_all;" ::: "memory"); }
+
+// A shared-memory plane: cell (row, col) of v f32[h, w].
+struct SmemPlane {
+  const float* v;
+  int w;
+  __device__ __forceinline__ float operator()(int row, int col) const { return v[row * w + col]; }
+};
+
+// A pose's score by one warp, with the bits of beam_sums + group_reduce
+// over a group of kGroupThreads. lane_sums: lane l stands for the group's
+// threads l, l + 32, l + 64 and l + 96 and keeps their four partial sums
+// apart (thread l + 32 j sums beams l + 32 j, l + 32 j + 128, ... in that
+// order, skipping weight 0). warp_reduce adds them as the group's tree
+// does: level 64 (sums 0 + 2 and 1 + 3), level 32 (their sum), then the
+// same shuffles 16 ... 1; the score is returned in every lane. No barrier
+// and no shared scratch: the warp's own lanes.
+struct LaneSums {
+  float num[4], den[4];
+};
+
+template <class Plane>
+__device__ __forceinline__ LaneSums lane_sums(const Plane& at, int h, int w, const Pose& p,
+                                              const float* pts, const float* beam_w, int r,
+                                              int lane, float ox, float oy, float scale,
+                                              float unknown) {
+  static_assert(kGroupThreads == 4 * 32, "a lane stands for four threads of a group");
+  LaneSums s = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+  // eight beams a lane at once (two of each of its four threads), all
+  // sampled before any is summed, so their taps are in flight together;
+  // then each thread's two in beam order
+  for (int base = lane; base < r; base += 2 * kGroupThreads) {
+    float bw[8], pr[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int i = base + 32 * j;
+      bw[j] = i < r ? beam_w[i] : 0.0f;
+      pr[j] = bw[j] != 0.0f ? sample_at(at, h, w, p, pts[2 * i + 0], pts[2 * i + 1], ox, oy,
+                                        scale, unknown)
+                            : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (bw[j] != 0.0f) {
+        s.num[j % 4] += bw[j] * pr[j];
+        s.den[j % 4] += bw[j];
+      }
+    }
+  }
+  return s;
+}
+
+__device__ __forceinline__ float warp_reduce(const LaneSums& s) {
+  float n = (s.num[0] + s.num[2]) + (s.num[1] + s.num[3]);
+  float d = (s.den[0] + s.den[2]) + (s.den[1] + s.den[3]);
+#pragma unroll
+  for (int stride = 16; stride > 0; stride >>= 1) {
+    n += __shfl_down_sync(0xffffffffu, n, stride);
+    d += __shfl_down_sync(0xffffffffu, d, stride);
+  }
+  return __shfl_sync(0xffffffffu, weighted_mean(n, d), 0);
+}
+
+template <class Plane>
+__device__ __forceinline__ float warp_score(const Plane& at, int h, int w, const Pose& p,
+                                            const float* pts, const float* beam_w, int r,
+                                            int lane, float ox, float oy, float scale,
+                                            float unknown) {
+  return warp_reduce(lane_sums(at, h, w, p, pts, beam_w, r, lane, ox, oy, scale, unknown));
+}
+
 }  // namespace overlap
+
+// Stamps for scripts/torch_port/kernel_probe.py, which builds the sources
+// with -DSLAM_KERNEL_PROBE: one thread a block writes clock64() at the
+// boundaries of its work into the slots of its block, and %globaltimer at
+// its start and end, so the probe can split a round into parts and turn
+// cycles into time. The package's own build defines nothing of it.
+namespace probe {
+constexpr int kSlots = 64;    // a block's slots
+constexpr int kBlocks = 256;  // blocks stamped (the first ones of the grid)
+// slots: start (clock64, globaltimer), set-up done, first score done, then
+// kParts a round from kRound on, and the end (clock64, globaltimer)
+constexpr int kStart = 0, kStartNs = 1, kSetup = 2, kFirst = 3, kRound = 4, kParts = 5;
+constexpr int kEnd = 62, kEndNs = 63;
+}  // namespace probe
+
+#ifdef SLAM_KERNEL_PROBE
+namespace probe {
+static __device__ unsigned long long stamps[kBlocks * kSlots];
+__device__ __forceinline__ unsigned long long ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+__device__ __forceinline__ void stamp(int block, int slot, unsigned long long v) {
+  if (block < kBlocks && slot < kSlots) stamps[block * kSlots + slot] = v;
+}
+}  // namespace probe
+#define PROBE_STAMP(block, slot) probe::stamp((block), (slot), clock64())
+#define PROBE_STAMP_NS(block, slot) probe::stamp((block), (slot), probe::ns())
+// a source's host function that copies its stamps out: int name(void* dst)
+#define PROBE_EXPORT(name)                                                        \
+  extern "C" int name(void* dst) {                                                 \
+    return static_cast<int>(cudaMemcpyFromSymbol(dst, probe::stamps,              \
+                                                 sizeof(probe::stamps)));          \
+  }
+#else
+#define PROBE_STAMP(block, slot) ((void)(block), (void)(slot))
+#define PROBE_STAMP_NS(block, slot) ((void)(block), (void)(slot))
+#define PROBE_EXPORT(name)
+#endif

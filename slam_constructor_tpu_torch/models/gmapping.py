@@ -8,8 +8,9 @@ mode's height, or the improved proposal's marginal), inserts the scan into
 every map on a window around its pose, and resamples when Neff drops.
 
 The particle axis is a batch axis, as in the reference: the P matches are
-one launch of ``kernels.mc_match_batched`` on the card, the P windows one
-gather, the P rasterisations one call. The step never syncs with the host:
+one launch on the card, which reads each particle's window of its map in
+place (``kernels.mc_match_windows``; the windows are cut out in one gather
+only when something else scores them too), the P rasterisations one call. The step never syncs with the host:
 the reference's ``lax.cond`` around the map gather becomes
 ``cells.index_select(0, idx)`` on every scan, with the identity for ``idx``
 while Neff is healthy (same result, ~16 MB of traffic at 30 maps of 256^2).
@@ -259,6 +260,19 @@ def _refine_rbpf(cfg: GMappingConfig, view, scans, res, draws: Draws):
     return rf(view, scans, res.pose, None, rcfg, None, noise)
 
 
+def match_view(cfg: GMappingConfig, gm: gridlib.GridMap, priors: Tensor):
+    """What every particle is matched on: the ``match_window`` around its
+    prior (the whole map when it is 0). A Monte-Carlo match alone reads the
+    windows in place (a ``scoring.WindowView``); when anything else scores
+    them too (a brute-force pass, the minimumScore gate, the improved
+    proposal's probes) they are cut out once, for all of them."""
+    size = cfg.match_window or max(gm.height, gm.width)
+    view = scoring.window_of(scoring.MapView.of(gm, cfg.cell_model), priors[:, :2], size)
+    in_place = (cfg.matcher == "monte_carlo" and cfg.refine_matcher in (None, "monte_carlo")
+                and cfg.min_match_prob <= 0 and cfg.proposal == "odom")
+    return view if in_place else view.cut()
+
+
 def match_particles(cfg: GMappingConfig, view, scans, priors, centers, sigma, draws: Draws):
     """Every particle's match pipeline at once: primary match (one launch
     for all P) -> optional refine -> minimumScore gate -> the proposal's
@@ -301,9 +315,7 @@ def gmapping_step(
     # 2. every particle against a window of its own map, in one launch
     scans = LaserScan(scan.ranges.expand(p, -1), scan.bearings.expand(p, -1),
                       scan.valid.expand(p, -1))
-    view = scoring.MapView.of(state.gm, cfg.cell_model)
-    if cfg.match_window:
-        view = scoring.window_view(view, priors[:, :2], cfg.match_window)
+    view = match_view(cfg, state.gm, priors)
     poses, incr = match_particles(cfg, view, scans, priors, centers, sigma, draws)
 
     # 3. weight update

@@ -68,8 +68,8 @@ def _sources() -> list[Path]:
     return srcs
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+def library_path(extra_flags: tuple[str, ...] = ()) -> Path:
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + extra_flags + LINK_FLAGS).encode())
     # the headers too: a source includes them from its own directory
     for src in (*_sources(), *sorted(CSRC_DIR.glob("*.cuh"))):
         h.update(src.name.encode())
@@ -77,9 +77,11 @@ def library_path() -> Path:
     return BUILD_DIR / f"lib{LIB_NAME}-{h.hexdigest()[:16]}.so"
 
 
-def build() -> BuildResult:
-    """Compile the sources unless a library for their hash exists."""
-    out = library_path()
+def build(extra_flags: tuple[str, ...] = ()) -> BuildResult:
+    """Compile the sources unless a library for their hash exists.
+    ``extra_flags`` go to every nvcc compile (``kernel_probe.py``'s stamp
+    build: ``-DSLAM_KERNEL_PROBE``); the package's own build passes none."""
+    out = library_path(extra_flags)
     if out.exists():
         return BuildResult(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -87,7 +89,8 @@ def build() -> BuildResult:
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in _sources()]
     cmds = [
-        [nvcc, *COMPILE_FLAGS, "-o", str(obj), str(src)] for src, obj in zip(_sources(), objs)
+        [nvcc, *COMPILE_FLAGS, *extra_flags, "-o", str(obj), str(src)]
+        for src, obj in zip(_sources(), objs)
     ]
     t0 = time.perf_counter()
     try:

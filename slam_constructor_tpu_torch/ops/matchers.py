@@ -7,7 +7,8 @@ failures. The whole match is one call of ``kernels.mc_match``: one kernel
 launch on the card, the plain round loop on the CPU; neither syncs with the
 host. The standard normals are drawn here, outside the kernel. With a
 leading particle dimension it matches P (map, scan, prior) triples in one
-launch of ``kernels.mc_match_batched``: the RBPF's form.
+launch of ``kernels.mc_match_batched``, or of ``kernels.mc_match_windows``
+on windows of the maps read in place: the RBPF's form.
 
 Brute force: an exhaustive (x, y, theta) grid around the prior, scored in
 one call. With a leading map dimension on view, scan and prior it matches M
@@ -71,6 +72,8 @@ def monte_carlo_match(
     rounds, batch, 3]) every particle is matched against its own map, all
     in one launch of ``kernels.mc_match_batched``: pose f32[P, 3], prob
     f32[P], trace f32[P, rounds]. The reference ``vmap``s the single match.
+    A :class:`scoring.WindowView` is matched on its windows in place, in
+    one launch of ``kernels.mc_match_windows``, with the same bits.
     """
     dev = init_pose.device
     shape = (*init_pose.shape[:-1], cfg.rounds, cfg.batch, 3)
@@ -78,12 +81,20 @@ def monte_carlo_match(
         noise = torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
     elif tuple(noise.shape) != shape:
         raise ValueError(f"noise {tuple(noise.shape)} is not (..., rounds, batch, 3) = {shape}")
+    anneal = (cfg.sigma_xy, cfg.sigma_theta, cfg.bad_rounds_before_anneal)
+    if isinstance(view, scoring.WindowView):
+        pts, beam_w = scoring.prepare_scan(scan, cfg.scoring, point_weights)
+        pose, prob, trace = kernels.mc_match_windows(
+            view.maps.occ, view.maps.known, view.row, view.col, view.sh, view.sw, pts, beam_w,
+            view.origin.contiguous(), init_pose.contiguous(), noise.contiguous(),
+            float(view.scale), float(cfg.scoring.unknown_prob), *anneal,
+        )
+        return MatchResult(pose=pose, prob=prob, trace=trace)
     prep = scoring.prepare(view, scan, cfg.scoring, point_weights)
     match = kernels.mc_match_batched if prep.plane.dim() == 3 else kernels.mc_match
     pose, prob, trace = match(
         prep.plane, prep.pts, prep.beam_w, prep.origin, init_pose.contiguous(),
-        noise.contiguous(), prep.scale, prep.unknown, cfg.sigma_xy, cfg.sigma_theta,
-        cfg.bad_rounds_before_anneal,
+        noise.contiguous(), prep.scale, prep.unknown, *anneal,
     )
     return MatchResult(pose=pose, prob=prob, trace=trace)
 

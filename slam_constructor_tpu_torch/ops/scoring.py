@@ -14,6 +14,7 @@ other extents wait for later slices and raise ``NotImplementedError``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -68,6 +69,44 @@ class MapView:
         )
 
 
+@dataclasses.dataclass
+class WindowView:
+    """An ``sh x sw`` window of each of P maps, not cut out: the maps' view
+    (``occ`` f32[P, H, W], ``known`` bool[P, H, W]), the window's first cell
+    ``row``, ``col`` i64[P] and its world ``origin`` f32[P, 2].
+    :meth:`cut` gives what :func:`window_view` gives; the particle match
+    (``matchers.monte_carlo_match``) reads the windows in place, and every
+    other score cuts them out first (:func:`prepare`)."""
+
+    maps: MapView
+    row: Tensor
+    col: Tensor
+    origin: Tensor
+    sh: int
+    sw: int
+
+    @property
+    def scale(self) -> float:
+        return self.maps.scale
+
+    def cut(self) -> MapView:
+        """The windows as a view of P maps f32[P, sh, sw], in one gather."""
+        take = functools.partial(gridlib.take_window, row=self.row, col=self.col, sh=self.sh,
+                                 sw=self.sw)
+        return MapView(occ=take(self.maps.occ), known=take(self.maps.known), origin=self.origin,
+                       scale=self.maps.scale)
+
+
+def window_of(view: MapView, center_xy: Tensor, size: int) -> WindowView:
+    """The ``size x size`` window around ``center_xy`` f32[P, 2] of each of
+    P maps, clamped to the map's bounds, as :func:`window_view` places it,
+    but not cut out."""
+    h, w = view.occ.shape[-2:]
+    sh, sw = min(size, h), min(size, w)
+    row, col, origin = gridlib.window_corner(view.origin, center_xy, view.scale, sh, sw, h, w)
+    return WindowView(maps=view, row=row, col=col, origin=origin, sh=sh, sw=sw)
+
+
 def window_view(view: MapView, center_xy: Tensor, size: int) -> MapView:
     """Restrict a view to a ``size x size`` cell window around a world
     point, clamped to the map's bounds. Cells outside the window then score
@@ -80,13 +119,11 @@ def window_view(view: MapView, center_xy: Tensor, size: int) -> MapView:
     The window's corner is a device value and is never read on the host:
     the window is taken by index arithmetic (``index_select`` on row and
     column indices, a batched gather for P maps), not by a slice."""
+    if view.occ.dim() == 3:
+        return window_of(view, center_xy, size).cut()
     h, w = view.occ.shape[-2:]
     sh, sw = min(size, h), min(size, w)
     row, col, origin = gridlib.window_corner(view.origin, center_xy, view.scale, sh, sw, h, w)
-    if view.occ.dim() == 3:
-        occ = gridlib.take_window(view.occ, row, col, sh, sw)
-        known = gridlib.take_window(view.known, row, col, sh, sw)
-        return MapView(occ=occ, known=known, origin=origin, scale=view.scale)
     dev = view.occ.device
     rows = row + torch.arange(sh, device=dev)
     cols = col + torch.arange(sw, device=dev)
@@ -108,12 +145,13 @@ class PreparedScan:
     unknown: float
 
 
-def prepare(
-    view: MapView,
+def prepare_scan(
     scan: scanlib.LaserScan,
     cfg: ScoringConfig = ScoringConfig(),
     point_weights: Tensor | None = None,
-) -> PreparedScan:
+) -> tuple[Tensor, Tensor]:
+    """The scan's part of :func:`prepare`: (pts f32[R', 2], beam_w f32[R'])
+    of the kept beams, with any leading dimensions of the scan."""
     _check_supported(cfg)
     if cfg.stride > 1:
         # keeping every stride-th beam is the reference's subsample mask
@@ -126,10 +164,24 @@ def prepare(
     beam_w = scan.valid.to(torch.float32)
     if point_weights is not None:
         beam_w = beam_w * point_weights
+    return scanlib.scan_points(scan).contiguous(), beam_w.contiguous()
+
+
+def prepare(
+    view: MapView | WindowView,
+    scan: scanlib.LaserScan,
+    cfg: ScoringConfig = ScoringConfig(),
+    point_weights: Tensor | None = None,
+) -> PreparedScan:
+    """A view's plane ``where(known, occ, unknown)`` (a :class:`WindowView`
+    cut out first) with the scan's points and weights."""
+    pts, beam_w = prepare_scan(scan, cfg, point_weights)
+    if isinstance(view, WindowView):
+        view = view.cut()
     return PreparedScan(
         plane=torch.where(view.known, view.occ, cfg.unknown_prob).contiguous(),
-        pts=scanlib.scan_points(scan).contiguous(),
-        beam_w=beam_w.contiguous(),
+        pts=pts,
+        beam_w=beam_w,
         origin=view.origin.contiguous(),
         scale=float(view.scale),
         unknown=float(cfg.unknown_prob),

@@ -39,6 +39,7 @@ from slam_constructor_tpu.ops import scoring as jscore
 from slam_constructor_tpu.ops.scan import LaserScan as JScan
 from slam_constructor_tpu_torch.models import gmapping as tgm
 from slam_constructor_tpu_torch.ops import grid as tgrid
+from slam_constructor_tpu_torch.ops import kernels as tkernels
 from slam_constructor_tpu_torch.ops import matchers as tmatch
 from slam_constructor_tpu_torch.ops import raycast as tray
 from slam_constructor_tpu_torch.ops import scoring as tscore
@@ -265,6 +266,29 @@ def test_step_from_reference_state_matches(run):
         skip = wrap_cells(st.poses, tcfg.insert_window, MAP, SCALE)
         assert cells_diff(st.gm.cells.numpy(), after["cells"], skip) <= CELL_TOL
         assert int(st.step) == after["step"]
+
+
+def test_step_matches_on_windows_in_place(run, monkeypatch):
+    """The odometry proposal's step matches every particle on its window
+    read in place (``kernels.mc_match_windows``; nothing cuts a window
+    out); the improved proposal with the gate cuts them out once a step for
+    all its scores. Either way the step from the reference's state holds
+    the reference's tolerances."""
+    tcfg = run["tcfg"]
+    cuts, in_place = [], []
+    cut, windows = tscore.WindowView.cut, tkernels.mc_match_windows
+    monkeypatch.setattr(tscore.WindowView, "cut", lambda self: cuts.append(1) or cut(self))
+    monkeypatch.setattr(tkernels, "mc_match_windows", lambda *a: in_place.append(1) or windows(*a))
+    i = 5
+    before, after = run["trees"][i], run["trees"][i + 1]
+    st = convert.gmapping_state_from_numpy(before, "cpu")
+    st, idx = tgm.gmapping_step(tcfg, st, run["scans"][i], run["odom"][i], run["draws"][i])
+    assert (len(cuts), len(in_place)) == ((0, 1) if run["proposal"] == "odom" else (1, 0))
+    np.testing.assert_array_equal(idx.numpy(), run["ancestors"][i])
+    assert pose_diff(st.poses.numpy(), after["poses"]) <= POSE_TOL
+    np.testing.assert_allclose(st.log_weights.numpy(), after["log_weights"], atol=LOGW_TOL, rtol=0)
+    skip = wrap_cells(st.poses, tcfg.insert_window, MAP, SCALE)
+    assert cells_diff(st.gm.cells.numpy(), after["cells"], skip) <= CELL_TOL
 
 
 def test_whole_run_matches_reference(run):

@@ -17,10 +17,13 @@ in one launch with the arithmetic of ``mc_match_rounds`` (one
 plain twin sums a score in another order, hence atol 2e-6 on the trace.
 ``overlap_score_batched`` is ``overlap_score``'s kernel with the maps on a
 grid axis: every slot equals the single-plane launch on the same inputs bit
-for bit, and the twin within 2e-6. ``mc_match_batched`` is ``mc_match``'s
-kernel with a cluster a match: every match equals a single ``mc_match``
-launch (and ``mc_match_rounds``) on its slices bit for bit, and its twin as
-``mc_match``'s does.
+for bit, whether the block copies the plane into shared memory or reads it
+in place, and the twin within 2e-6. ``mc_match_batched`` and
+``mc_match_windows`` run ``particle_match.cu`` (a warp a candidate): every
+match equals a single ``mc_match`` launch (and ``mc_match_rounds``) on its
+slices bit for bit, the windows read in place equal the same windows cut
+out, with the window in shared memory or its taps read from device memory,
+and the twin as ``mc_match``'s does.
 """
 
 import pytest
@@ -28,6 +31,7 @@ import torch
 
 from slam_constructor_tpu_torch.models import tiny, viny
 from slam_constructor_tpu_torch.models.engine import init_state
+from slam_constructor_tpu_torch.ops import grid as gridlib
 from slam_constructor_tpu_torch.ops import kernels, raycast, scoring
 from slam_constructor_tpu_torch.ops.scan import LaserScan
 from slam_constructor_tpu_torch.utils import datagen
@@ -212,7 +216,7 @@ def _submap_batch(scene, n_maps, k, stride=2):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_maps,k", [(1, 343), (5, 7), (32, 343), (3, 1)])
+@pytest.mark.parametrize("n_maps,k", [(1, 343), (5, 7), (32, 343), (8, 343), (3, 1), (30, 16), (30, 1)])
 def test_overlap_score_batched_matches_twin_and_single_launches(scene, n_maps, k):
     prep, poses = _submap_batch(scene, n_maps, k)
     beam_w = prep.beam_w.clone()
@@ -310,3 +314,88 @@ def test_mc_match_batched_rejects_bad_input(scene):
         kernels.mc_match_batched(*args[:4], args[4].double(), *args[5:])
     with pytest.raises(ValueError):  # a scan for all, not one a particle
         kernels.mc_match_batched(args[0], args[1][0], *args[2:])
+
+
+def _window_args(scene, n_p, k, rounds, win, stride=2):
+    """P matches on windows of P maps read in place, as the RBPF makes them:
+    the scene's map as channel 0 of cells [P, 256, 256, 2] (the occupancy a
+    strided view, as Bayes cells give it), windows at corners spread over the
+    map and clamped at its edges, each particle with its own prior, mask of
+    valid beams and noise; particle 1 has no valid beam."""
+    view, scan, cand, g = scene
+    dev = cand.device
+    cells = torch.stack([view.occ, view.known.to(torch.float32)], -1).expand(n_p, -1, -1, -1)
+    cells = cells.contiguous()
+    occ, known = cells[..., 0], cells[..., 1] > 0
+    h, w = occ.shape[1:]
+    centre = cand[:n_p, :2] + torch.randn((n_p, 2), generator=g, device=dev) * 9.0
+    origin = torch.full((n_p, 2), -12.8, device=dev)
+    row, col, win_origin = gridlib.window_corner(origin, centre, 0.1, win, win, h, w)
+    valid = scan.valid[None] & (torch.arange(360, device=dev) % (5 + torch.arange(n_p, device=dev) % 3)[:, None] != 1)
+    scans = LaserScan(scan.ranges[None].expand(n_p, -1), scan.bearings[None].expand(n_p, -1), valid)
+    pts, beam_w = scoring.prepare_scan(scans, scoring.ScoringConfig(reducer="overlap", stride=stride))
+    if n_p > 1:
+        beam_w = beam_w.clone()
+        beam_w[1] = 0.0
+    noise = torch.randn((n_p, rounds, k, 3), generator=g, device=dev)
+    return (occ, known, row, col, win, win, pts, beam_w, win_origin, cand[:n_p].contiguous(), noise,
+            0.1, 0.5, 0.06, 0.03, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_p,k,rounds,win", [
+    (1, 20, 5, 160), (7, 7, 4, 120), (30, 20, 5, 160), (30, 1, 3, 160), (7, 33, 2, 120),
+    (7, 64, 3, 256), (30, 64, 2, 160), (1, 7, 0, 256), (7, 20, 5, 256),
+])
+def test_mc_match_windows_equals_cut_out_and_single_launches(scene, n_p, k, rounds, win):
+    """The particle match on windows read in place (in shared memory, or,
+    for the whole 256^2 map, taps from device memory) equals the same
+    windows cut out (``mc_match_batched``), the taps read in place where the
+    window would fit, P single ``mc_match`` launches and ``mc_match_rounds``,
+    bit for bit; over P in {1, 7, 30}, K in {1, 7, 20, 33, 64}."""
+    args = _window_args(scene, n_p, k, rounds, win)
+    before = dict(kernels.launch_counts())
+    got = kernels.mc_match_windows(*args)
+    after = kernels.launch_counts()
+    assert (after["mc_match_batched"], after["mc_match"]) == (
+        before["mc_match_batched"] + 1, before["mc_match"])
+    occ, known, row, col = args[:4]
+    plane = torch.where(gridlib.take_window(known, row, col, win, win),
+                        gridlib.take_window(occ, row, col, win, win), 0.5).contiguous()
+    cut = (plane, *args[6:])
+    outs = [kernels.mc_match_batched(*cut),
+            kernels._particle_match_launch(*args, staging=0),
+            kernels._particle_match_launch(plane, None, None, None, win, win, *args[6:], staging=0)]
+    singles = [kernels.mc_match(*(t[m] for t in cut[:6]), *cut[6:]) for m in range(n_p)]
+    rounds_ = [kernels.mc_match_rounds(*(t[m] for t in cut[:6]), *cut[6:]) for m in range(n_p)]
+    torch.cuda.synchronize()
+    assert got[0].shape == (n_p, 3) and got[1].shape == (n_p,) and got[2].shape == (n_p, rounds)
+    for i in range(3):
+        for out in outs:
+            assert torch.equal(got[i], out[i])  # bit for bit
+        assert torch.equal(got[i], torch.stack([s[i] for s in singles]))
+        assert torch.equal(got[i], torch.stack([s[i] for s in rounds_]))
+    if n_p > 1:  # no valid beam: every score 0, nothing is better
+        assert not bool(got[2][1].any()) and torch.equal(got[0][1], args[9][1])
+    for a, b in zip(kernels.mc_match_windows(*args), got):
+        assert torch.equal(a, b)  # the same bits on every call
+
+
+@pytest.mark.cuda
+def test_mc_match_windows_rejects_bad_input(scene):
+    args = list(_window_args(scene, 3, 20, 5, 120))
+    occ, known = args[0], args[1]
+    with pytest.raises(TypeError):  # the mask as bytes, not bool
+        kernels.mc_match_windows(occ, known.to(torch.uint8), *args[2:])
+    with pytest.raises(TypeError):
+        kernels.mc_match_windows(occ.double(), known, *args[2:])
+    with pytest.raises(ValueError):  # a window larger than the map
+        kernels.mc_match_windows(occ, known, args[2], args[3], 300, 300, *args[6:])
+    with pytest.raises(ValueError):  # neither contiguous nor a channel of contiguous cells
+        kernels.mc_match_windows(occ.transpose(1, 2), known, *args[2:])
+    with pytest.raises(ValueError):  # a strided mask
+        kernels.mc_match_windows(occ, known.transpose(1, 2), *args[2:])
+    with pytest.raises(ValueError):  # one corner for three maps
+        kernels.mc_match_windows(occ, known, args[2][:1], *args[3:])
+    with pytest.raises(ValueError):  # a round without a candidate
+        kernels.mc_match_windows(*args[:10], args[10][:, :, :0].contiguous(), *args[11:])
