@@ -18,19 +18,18 @@ Phases, one line or more each, in order; any failure exits non-zero:
    relative difference of the weight where both are free (<= 1e-6); then
    both timed;
 5. the particle match (the RBPF's 30 particles' matches in one launch of
-   ``csrc/particle_match.cu``) on the arguments of every 32nd match of a run
-   of the gmapping path (30 maps of 256^2, 160^2 windows read in place, 180
+   ``csrc/mc_match.cu``) on the arguments of every 32nd match of a run of
+   the gmapping path (30 maps of 256^2, 160^2 windows read in place, 180
    beams, 5 rounds of 20): ``mc_match_windows`` on them, on the windows
    clamped at each of the map's four edges and corners, on a window as
-   large as the map (taps from device memory) and with the occupancy a
-   channel of the maps' cells, against ``mc_match_batched`` on the same
-   windows cut out; ``mc_match_batched`` on the cut-out windows and on edge
+   large as the map and with the occupancy a channel of the maps' cells,
+   against ``mc_match_batched`` on the same windows cut out; ``mc_match_batched`` on the cut-out windows and on edge
    cases (K = 1, 13, 64 and 100, 0 rounds, a particle without a valid beam,
    P = 1, P = 64); each against 30 single-plane ``mc_match`` launches and
    ``mc_match_rounds`` (bit for bit), ``mc_match_batched`` also against its
-   plain twin (as ``mc_match`` below); then timed in turns with
-   ``mc_match.cu``'s kernel launched for all 30 particles (the parent's
-   particle match), beside 30 single launches;
+   plain twin (as ``mc_match`` below); then timed in turns with the
+   windows cut out and matched (the path's form before the windows were
+   read in place), beside 30 single launches;
 6. ``mc_match`` (one launch a match) against ``mc_match_rounds`` (one
    ``overlap_score`` launch a round) on the card: (map, scan, prior) states
    taken from every 32nd scan of a tiny and a viny run over the bench
@@ -1056,28 +1055,6 @@ def cut_out(a):
     return (plane.contiguous(), *a[6:])
 
 
-def pr3_kernel_for_all(args):
-    """``mc_match.cu``'s kernel launched once for all P particles of the
-    args of ``mc_match_batched``, a cluster of ceil(K / 8) blocks each: the
-    particle match as the parent of ``particle_match.cu`` ran it, kept for
-    timing the two in turns. Returns (pose, prob, trace)."""
-    from slam_constructor_tpu_torch.ops import kernels
-
-    plane, pts, beam_w, origin, init_pose, noise, scale, unknown, sxy, sth, bad = args
-    n_p, rounds, k = noise.shape[:3]
-    dev = plane.device
-    out = (torch.empty((n_p, 3), device=dev), torch.empty((n_p,), device=dev),
-           torch.empty((n_p, rounds), device=dev))
-    err = kernels._mc_match_fn()(
-        plane.data_ptr(), n_p, plane.shape[1], plane.shape[2], pts.data_ptr(), beam_w.data_ptr(),
-        pts.shape[1], origin.data_ptr(), init_pose.data_ptr(), noise.data_ptr(), rounds, k, scale,
-        unknown, sxy, sth, bad, *(t.data_ptr() for t in out),
-        kernels._mc_match_shared_bytes(pts.shape[1], k, rounds),
-        torch.cuda.current_stream().cuda_stream)
-    check(err == 0, f"mc_match_launch for {n_p} particles: cudaError_t {err}")
-    return out
-
-
 def window_cases(states, dev):
     """(name, args of mc_match_windows): the captured states, the windows
     clamped at each of the map's four edges and corners, a window as large
@@ -1102,7 +1079,7 @@ def window_cases(states, dev):
         cases.append((f"windows clamped at the map's {name}",
                       (occ, known, row, col, sh, sw, s[6], s[7], origin, *s[9:])))
     zero = torch.zeros_like(s[2])
-    cases.append((f"a window as large as the map ({h}x{w}: taps from device memory)",
+    cases.append((f"a window as large as the map ({h}x{w})",
                   (occ, known, zero, zero, h, w, s[6], s[7], map_origin, *s[9:])))
     cells = torch.stack([occ, known.to(torch.float32)], -1)  # as a Bayes cell map holds them
     cases.append(("occupancy a channel of the maps' cells", (cells[..., 0], cells[..., 1] > 0, *s[2:])))
@@ -1143,8 +1120,8 @@ def phase_particle_match(dev, states):
     (all bit for bit), on states of the gmapping path and edge cases; then
     `mc_match_batched` on the cut-out windows and edge cases against the
     same and against its plain twin; then timed at the path's shape, in
-    turns with `mc_match.cu`'s kernel launched for all particles (the
-    parent's particle match). Returns the `kernels` entry without the
+    turns with the windows cut out and matched (the path's form before they
+    were read in place). Returns the `kernels` entry without the
     launch count."""
     from slam_constructor_tpu_torch.ops import kernels
 
@@ -1214,9 +1191,9 @@ def phase_particle_match(dev, states):
           f"{KNIFE_EDGE:g}", flush=True)
 
     cut = cut_out(s)
-    # in turns: the parent's particle match, this one in place, in place, the parent's
-    ms, parent_ms, chained = time_pair(lambda: kernels.mc_match_windows(*s),
-                                       lambda: pr3_kernel_for_all(cut), plain_calls=50)
+    # in turns: windows cut out and matched, in place, in place, cut out and matched
+    ms, cut_path_ms, chained = time_pair(lambda: kernels.mc_match_windows(*s),
+                                         lambda: kernels.mc_match_batched(*cut_out(s)))
     cut_ms, cut_plain_ms, cut_chained = time_pair(lambda: kernels.mc_match_batched(*cut),
                                                   lambda: kernels.mc_match_ref(*cut), plain_calls=10)
     plain_ms = statistics.median(time_ms(lambda: kernels.mc_match_windows_ref(*s), 20))
@@ -1233,20 +1210,20 @@ def phase_particle_match(dev, states):
     b_ms, by = bound_ms(n_bytes, n_ops)
     cut_b_ms, cut_by = bound_ms(cut_bytes, n_ops)
     print(f"mc_match_windows P={n_p} K={k} rounds={n_rounds} R'=180 {sh}x{sw} windows read in place: "
-          f"kernel {ms:.4f} ms, plain (cut, where, mc_match_ref) {plain_ms:.4f} ms, mc_match.cu for "
-          f"all {n_p} (the parent's) {parent_ms:.4f} ms (medians of 100, 20 and 100 calls in turns, "
-          f"CUDA events), kernel {chained:.4f} ms a launch over 200 back to back; bound {b_ms:.6f} "
+          f"kernel {ms:.4f} ms, plain (cut, where, mc_match_ref) {plain_ms:.4f} ms, the windows cut "
+          f"out and matched {cut_path_ms:.4f} ms (medians of 100, 20 and 100 calls in turns, CUDA "
+          f"events), kernel {chained:.4f} ms a launch over 200 back to back; bound {b_ms:.6f} "
           f"ms by {by} ({n_bytes} B, {n_ops} operations). mc_match_batched on the cut-out windows: "
           f"{cut_ms:.4f} ms, plain {cut_plain_ms:.4f} ms, {cut_chained:.4f} ms chained, bound "
           f"{cut_b_ms:.6f} ms by {cut_by} ({cut_bytes} B); {n_p} single-plane mc_match launches "
           f"{singles_ms:.4f} ms (median of 20); no single PyTorch call computes it", flush=True)
     return {
         "name": "mc_match_batched", "route": "cuda",
-        "source": "slam_constructor_tpu_torch/csrc/particle_match.cu",
+        "source": "slam_constructor_tpu_torch/csrc/mc_match.cu",
         "replaces": "slam_constructor_tpu/ops/pallas_kernels.py:73",
         "max_abs_err": max_err, "cases_bitwise_equal_to_single_launches": len(cases),
         "matches_in_place_equal_to_cut_out": n_in_place, "matches_parted_from_twin": parted,
-        "ms": ms, "plain_ms": plain_ms, "chained_ms": chained, "parent_kernel_ms": parent_ms,
+        "ms": ms, "plain_ms": plain_ms, "chained_ms": chained, "cut_out_path_ms": cut_path_ms,
         "cut_out_ms": cut_ms, "cut_out_chained_ms": cut_chained, "cut_out_bound_ms": cut_b_ms,
         "single_launches_ms": singles_ms, "bound_ms": b_ms, "bound_by": by, "library_ms": None,
     }

@@ -22,11 +22,9 @@ and K = 1); the particle match at the RBPF's shape (30 windows of 160^2 cut
 from the probe's map, 20 candidates x 5 rounds, every second beam) through
 ``mc_match_batched`` (the windows cut out) and ``mc_match_windows`` (the
 same windows read in place, the occupancy a channel of the maps' cells, as
-the RBPF holds it), at every cluster width, against 30 single ``mc_match``
-launches and ``mc_match.cu``'s kernel launched once for all 30 (the
-particle match before ``particle_match.cu``), bit for bit, and its twin;
-the same on whole 256^2 maps (too large for shared memory: the taps read in
-place from device memory); and three times a launch for every kernel:
+the RBPF holds it), against 30 single ``mc_match`` launches, bit for bit,
+and its twin; the same on whole 256^2 maps; and three times a launch for
+every kernel:
 
 - chained: 200 calls of the wrapper queued back to back between one pair of
   CUDA events, over 200 (the host's cost of a call shows here);
@@ -39,12 +37,10 @@ place from device memory); and three times a launch for every kernel:
 ``--stamps`` builds the kernels once more with ``-DSLAM_KERNEL_PROBE``
 (``csrc/overlap_sample.cuh``: thread 0 of every block writes ``clock64()``
 at the boundaries of its work, and ``%globaltimer`` at its start and end)
-and splits a particle match at the RBPF's shape, for ``mc_match.cu``'s
-kernel launched for all 30 particles and for ``particle_match.cu``'s at
-each cluster width, into: the set-up (scan, noise and window copied) and
-the first score (each as the time from the block's start at which it is
-done: ``particle_match.cu`` scores the first pose while the window's copy is
-in flight), and a round's five parts: (a) the candidate and its trig, (b)
+and splits a particle match at the RBPF's shape, on the windows cut out
+and read in place, into: the set-up (scan and noise copied) and the first
+score (each as the time from the block's start at which it is done), and a
+round's five parts: (a) the candidate and its trig, (b)
 the taps and the beam sums, (c) the reduction, (d) the cluster barrier, the
 reads of the scores and the argmax, (e) the state update. Cycles are turned
 into time with the SM clock that the stamps themselves give.
@@ -80,8 +76,6 @@ sys.path.insert(0, str(ROOT))
 
 FP_OPS = ("FADD", "FMUL", "FFMA", "MUFU", "FSETP", "FMNMX", "FSEL", "F2I", "I2F", "FRND", "FCHK",
           "F2F", "FSET")
-#: the particle match's cluster widths timed against each other
-WIDTHS = (1, 2, 3, 4)
 P, K, ROUNDS = 30, 20, 5
 
 
@@ -249,7 +243,6 @@ def same_bits(a, b) -> bool:
 
 def stamps_main(dev) -> None:
     """The stamp build: a particle match split into its parts."""
-    from chip_smoke import pr3_kernel_for_all
     from slam_constructor_tpu_torch.ops import _build, kernels
 
     res = _build.build(("-DSLAM_KERNEL_PROBE",))
@@ -288,21 +281,12 @@ def stamps_main(dev) -> None:
               f"{parts[:, 4].mean():.2f} us; rounds "
               + ", ".join(f"{p.sum():.2f}" for p in parts) + " us", flush=True)
 
-    for _ in range(3):  # warm-up; the last launch's stamps stay
-        pr3_kernel_for_all(cut)
-    torch.cuda.synchronize()
-    split("mc_match_probe_stamps", P * -(-K // 8), f"mc_match.cu for all {P} (before)")
-    for width in WIDTHS:
-        for name, args, staging in (
-            ("cut out, staged", (cut[0], None, None, None, *cut[0].shape[1:], *cut[1:]), 1),
-            ("in place, staged", in_place, 1),
-            ("in place, taps from device memory", in_place, 0),
-        ):
-            for _ in range(3):
-                kernels._particle_match_launch(*args, blocks=width, staging=staging)
-            torch.cuda.synchronize()
-            split("particle_match_probe_stamps", P * width,
-                  f"particle_match.cu, {width} block(s) a particle, windows {name}")
+    for name, fn in (("cut out", lambda: kernels.mc_match_batched(*cut)),
+                     ("read in place", lambda: kernels.mc_match_windows(*in_place))):
+        for _ in range(3):  # warm-up; the last launch's stamps stay
+            fn()
+        torch.cuda.synchronize()
+        split("mc_match_probe_stamps", P * -(-K // 8), f"mc_match.cu for {P} particles, windows {name}")
 
 
 def times_main(dev) -> None:
@@ -369,8 +353,6 @@ def main() -> None:
     if args.times:
         times_main(dev)
         return
-    from chip_smoke import pr3_kernel_for_all
-
     res = _build.build()
     print(f"build: {res.seconds:.2f} s")
     for line in res.log.splitlines():
@@ -436,20 +418,14 @@ def main() -> None:
         cut, in_place = particle_cases(prep, pose, dev, size)
         cases[size] = (cut, in_place)
         got = kernels.mc_match_batched(*cut)
-        ref = [pr3_kernel_for_all(cut), kernels.mc_match_windows(*in_place)]
-        ref += [kernels._particle_match_launch(*args, blocks=b, staging=s) for b in WIDTHS
-                for s in (1, 0)
-                for args in ((cut[0], None, None, None, size, size, *cut[1:]), in_place)]
+        windows = kernels.mc_match_windows(*in_place)
         singles = [kernels.mc_match(*(t[m] for t in cut[:6]), *cut[6:]) for m in range(P)]
         twin = kernels.mc_match_ref(*cut)
         torch.cuda.synchronize()
         single = [torch.stack([s[i] for s in singles]) for i in range(3)]
         print(f"particle match P={P} K={K} rounds={ROUNDS} R'=180 {size}^2: mc_match_batched "
               f"bitwise equal to {P} single mc_match launches {same_bits(got, single)}, to "
-              f"mc_match.cu for all {P} {same_bits(got, ref[0])}, mc_match_windows (in place) "
-              f"{same_bits(got, ref[1])}, cluster widths {WIDTHS} x staged / in place x cut "
-              f"out / in place "
-              f"{[same_bits(got, r) for r in ref[2:]]}; vs twin: max |trace diff| "
+              f"mc_match_windows (in place) {same_bits(got, windows)}; vs twin: max |trace diff| "
               f"{float((got[2] - twin[2]).abs().max()):.3e}, |pose diff| "
               f"{float((got[0] - twin[0]).abs().max()):.3e}", flush=True)
 
@@ -457,13 +433,9 @@ def main() -> None:
     for name, fn in (
         *((f"overlap_score_batched M={m} K={k} {s}^2", lambda a=a: kernels.overlap_score_batched(*a))
           for (m, k, s), a in batched.items()),
-        ("mc_match.cu for all 30 particles (before)", lambda: pr3_kernel_for_all(cut)),
         ("mc_match_batched P=30 K=20 rounds=5 160^2", lambda: kernels.mc_match_batched(*cut)),
         ("mc_match_windows P=30 K=20 rounds=5 160^2", lambda: kernels.mc_match_windows(*in_place)),
-        *((f"particle match, windows in place {how}, {b} block(s) a particle",
-           lambda b=b, s=s: kernels._particle_match_launch(*in_place, blocks=b, staging=s))
-          for b in WIDTHS for how, s in (("staged", 1), ("taps from device memory", 0))),
-        ("mc_match_windows whole 256^2 maps (taps from device memory)",
+        ("mc_match_windows whole 256^2 maps",
          lambda: kernels.mc_match_windows(*cases[256][1])),
         ("mc_match_batched whole 256^2 planes", lambda: kernels.mc_match_batched(*cases[256][0])),
         ("polar_free_plane 256^2 R=360", lambda: kernels.polar_free_plane(*polar_args)),

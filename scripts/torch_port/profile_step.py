@@ -26,8 +26,8 @@ preset (30 particles, 160^2 windows) over the tiny sequence: scans/s of
 ``GMappingEngine.run`` over ``--scans`` scans after a warm-up of as many;
 then, with a synchronise after each phase of ``gmapping_step``, ms and ATen
 calls a scan of the proposal, the match windows (``gmapping.match_view``:
-on this preset their corners, the windows read in place), the particle match, the
-weight update, the insert (windows cut out and rasterised, the fold, the
+on this preset their corners, the windows read in place), the particle
+match, the weight update, the insert (windows cut out and rasterised, the fold, the
 write-back) and the resampling, and the launches of the port's kernels; and
 from ``torch.profiler`` the device's kernel time as a share of the
 unprofiled wall time and the kernels with the most device time.
@@ -366,7 +366,7 @@ def profile_gmapping(n: int) -> None:
     print(f"profiled {n} scans: device kernel time {dev_s:.4f} s = {dev_s / secs * 100:.1f}% of "
           f"the unprofiled {secs:.3f} s ({dev_s / wall * 100:.1f}% of the profiled {wall:.3f} s); "
           f"{sum(k.count for k in rows) / n:.0f} kernels a scan")
-    mine = [k for k in rows if "particle_match_kernel" in k.key]
+    mine = [k for k in rows if "mc_match_kernel" in k.key]
     top = sorted(rows, key=lambda k: -k.device_time_total)[:12]
     for k in mine + [k for k in top if k not in mine]:
         print(f"  {k.device_time_total * 1e-3:9.3f} ms  {k.count:6d} x  "

@@ -1,19 +1,20 @@
-// mc_match.cu: a whole Monte-Carlo scan match in one launch, one Hopper
+// mc_match.cu: whole Monte-Carlo scan matches in one launch, one Hopper
 // (sm_90a) thread-block cluster a match. Plain C interface, bound from
-// Python with ctypes (slam_constructor_tpu_torch/ops/kernels.py::mc_match,
-// built by ops/_build.py). The grid can hold P matches, a cluster each; the
-// package launches it for one (the tiny, viny and full paths). The RBPF's
-// P particles' matches are particle_match.cu, which gives each the bits of
-// this kernel.
+// Python with ctypes (slam_constructor_tpu_torch/ops/kernels.py::mc_match
+// for one match, ::mc_match_batched for P of them on planes already cut
+// out, ::mc_match_windows for P of them on windows of their maps read in
+// place; built by ops/_build.py).
 //
 // On the matcher's path it takes the place of the TPU kernel
 // slam_constructor_tpu/ops/pallas_kernels.py: sample_plane_bilinear (body
 // _bilinear_kernel) together with everything ops/matchers.py:
 // monte_carlo_match does around ops/scoring.py:score_poses at the overlap
-// reducer, extent 1:
+// reducer, extent 1; with P matches in one launch it is also what
+// models/gmapping.py gets from vmap(match_particle) over its particles,
+// window_view and the plane where(known, occ, unknown) included:
 //
-//   for each match p (a particle, with its own plane, scan, origin, prior
-//   and noise):
+//   for each match p (a particle, with its own plane or window of its map,
+//   scan, origin, prior and noise):
 //   best = init_pose; best_prob = score(init_pose); sigma = (sxy, sxy, sth)
 //   for r in 0 .. rounds - 1:
 //     cand[c] = (best.xy + noise[r, c, :2] * sigma.xy,
@@ -29,10 +30,11 @@
 // `noise` are drawn outside, by PyTorch.
 //
 // What bounds it on an H100: neither bytes nor operations. The RBPF's 30
-// windows of 160^2, its scans and noise are ~3.1 MB (0.9 us at 3.35 TB/s)
-// and its 30 x (1 + 5 x 20) poses x 180 beams are ~29 MFLOP (0.4 us at 67
-// TFLOP/s); a single match of the tiny path is ~0.27 MB and ~15 MFLOP. What
-// it takes is 1 + rounds dependent steps, each a few trips to L2 for the
+// windows of 160^2, its scans and noise are ~3.2 MB cut out (0.95 us at
+// 3.35 TB/s), ~3.9 MB read in place (occupancy and mask, each window once;
+// 1.18 us), and its 30 x (1 + 5 x 20) poses x 180 beams are ~29 MFLOP (0.4
+// us at 67 TFLOP/s); a single match of the tiny path is ~0.27 MB and ~15
+// MFLOP. What it takes is 1 + rounds dependent steps, each a few trips to L2 for the
 // plane's taps and one cluster barrier. Run as 1 + rounds launches of
 // overlap_score.cu with ~25 small PyTorch ops between them
 // (kernels.mc_match_rounds), or as one launch a particle, the host's
@@ -41,7 +43,8 @@
 // Design.
 // - One cluster a match, of B blocks x 1024 threads, B = ceil(K / 8) and at
 //   most 8, chosen at launch (cudaLaunchKernelEx with a cluster-dimension
-//   attribute; the kernel is instantiated for each B). The grid is (B, P):
+//   attribute; the kernel is instantiated for each B, for planes and for
+//   windows read in place). The grid is (B, P):
 //   cluster p is row blockIdx.y = p and works on match p's slices of every
 //   array. A block holds 8 groups of 128
 //   threads and a group scores one candidate, so a cluster scores 8 B
@@ -65,6 +68,15 @@
 //   block's 227 KB of shared memory, and spread over the cluster a tap
 //   would cost a distributed-shared-memory read that is no faster than the
 //   L2 (or L1) hit it replaces.
+// - A window of a map is read in place (overlap::MapWindow, the second
+//   instantiation): a tap reads the occupancy (a float every occ_stride,
+//   a channel of the map's cells) and the known mask at the window's cell
+//   of the map and forms where(known, occ, unknown) itself; tap validity
+//   uses the window's bounds. So a match on a window gives the bits of the
+//   same match on the window cut out, with no copy: the RBPF's 30 maps of
+//   256^2 (15.7 MB with their masks) stay in L2. The window's first cell is
+//   read on the device (row[p], col[p], from grid.window_corner) and clamped
+//   into the map, so a corner never leaves it.
 // - Scores meet through distributed shared memory: each group writes its
 //   score into its own block's buffer, one cluster barrier, then the first
 //   warp of EVERY block reads all K scores (map_shared_rank) and computes
@@ -137,10 +149,14 @@ __device__ __forceinline__ bool comes_first(float av, int ai, float bv, int bi) 
 // Launched with clusters of kBlocks blocks (the whole x extent of the
 // grid) and gridDim.y = P matches. The width is a template parameter, so the
 // candidate-to-block arithmetic divides by constants, as it did when the
-// width was fixed at 8.
-template <int kBlocks>
+// width was fixed at 8. kWindow: match p reads the h x w window at (row[p],
+// col[p]) of map p in place (occ, known: P maps of map_h x map_w cells);
+// else occ is the P planes f32[P, h, w] themselves.
+template <int kBlocks, bool kWindow>
 __global__ void __launch_bounds__(kThreads, 1)
-mc_match_kernel(const float* __restrict__ v, int h, int w,
+mc_match_kernel(const float* __restrict__ occ, const unsigned char* __restrict__ known,
+                int occ_stride, int map_h, int map_w, const long long* __restrict__ win_row,
+                const long long* __restrict__ win_col, int h, int w,
                 const float* __restrict__ pts, const float* __restrict__ beam_w, int r,
                 const float* __restrict__ origin, const float* __restrict__ init_pose,
                 const float* __restrict__ noise, int rounds, int k, float scale,
@@ -152,9 +168,19 @@ mc_match_kernel(const float* __restrict__ v, int h, int w,
   __shared__ float s_den[kThreads];
   __shared__ MatchState st;
 
-  // match p's slice of every array
+  // match p's slice of every array; its plane, or its window of map p
   const size_t p = blockIdx.y;
-  v += p * h * w;
+  const auto plane = [&] {
+    if constexpr (kWindow) {
+      const long long row0 = min(max(__ldg(win_row + p), 0LL), static_cast<long long>(map_h - h));
+      const long long col0 = min(max(__ldg(win_col + p), 0LL), static_cast<long long>(map_w - w));
+      const size_t first = (p * map_h + row0) * map_w + col0;  // the window's first cell
+      return overlap::MapWindow{occ + first * occ_stride, known + first, map_w, occ_stride,
+                                unknown};
+    } else {
+      return overlap::LdgPlane{occ + p * h * w, w};
+    }
+  }();
   pts += p * 2 * r;
   beam_w += p * r;
   origin += p * 2;
@@ -205,7 +231,7 @@ mc_match_kernel(const float* __restrict__ v, int h, int w,
   if (g == 0) {  // the first pose, in every block
     const overlap::Pose q{st.pose[0], st.pose[1], cosf(st.pose[2]), sinf(st.pose[2])};
     float num, den;
-    overlap::beam_sums(v, h, w, q, s_pts, s_bw, r, t, ox, oy, scale, unknown, num, den);
+    overlap::beam_sums_at(plane, h, w, q, s_pts, s_bw, r, t, ox, oy, scale, unknown, num, den);
     overlap::group_reduce(num, den, g_num, g_den, t, barrier_id);
     if (t == 0) st.prob = overlap::weighted_mean(num, den);
   }
@@ -223,7 +249,7 @@ mc_match_kernel(const float* __restrict__ v, int h, int w,
       const int part = probe::kRound + probe::kParts * round;  // the probe's slots
       if (threadIdx.x == 0 && pass == 0) PROBE_STAMP(stamped, part + 0);
       float num, den;
-      overlap::beam_sums(v, h, w, q, s_pts, s_bw, r, t, ox, oy, scale, unknown, num, den);
+      overlap::beam_sums_at(plane, h, w, q, s_pts, s_bw, r, t, ox, oy, scale, unknown, num, den);
       if (threadIdx.x == 0 && pass == 0) PROBE_STAMP(stamped, part + 1);
       overlap::group_reduce(num, den, g_num, g_den, t, barrier_id);
       if (t == 0) mine[pass * kGroups + g] = overlap::weighted_mean(num, den);
@@ -293,18 +319,19 @@ mc_match_kernel(const float* __restrict__ v, int h, int w,
   }
 }
 
-using Kernel = decltype(&mc_match_kernel<1>);
+using Kernel = decltype(&mc_match_kernel<1, false>);
 
+template <bool kWindow>
 Kernel kernel_for(int blocks) {
   switch (blocks) {
-    case 1: return mc_match_kernel<1>;
-    case 2: return mc_match_kernel<2>;
-    case 3: return mc_match_kernel<3>;
-    case 4: return mc_match_kernel<4>;
-    case 5: return mc_match_kernel<5>;
-    case 6: return mc_match_kernel<6>;
-    case 7: return mc_match_kernel<7>;
-    default: return mc_match_kernel<8>;
+    case 1: return mc_match_kernel<1, kWindow>;
+    case 2: return mc_match_kernel<2, kWindow>;
+    case 3: return mc_match_kernel<3, kWindow>;
+    case 4: return mc_match_kernel<4, kWindow>;
+    case 5: return mc_match_kernel<5, kWindow>;
+    case 6: return mc_match_kernel<6, kWindow>;
+    case 7: return mc_match_kernel<7, kWindow>;
+    default: return mc_match_kernel<8, kWindow>;
   }
 }
 
@@ -312,26 +339,36 @@ Kernel kernel_for(int blocks) {
 
 // Launches n_p matches, one cluster of ceil(k / 8) (at most 8) blocks each,
 // on `stream` (PyTorch's current stream); does not synchronise and
-// allocates nothing. Match p reads v[p] (h x w), pts[p] (r x 2), beam_w[p],
-// origin[p], init_pose[p], noise[p] (rounds x k x 3) and writes pose_out[p],
+// allocates nothing. Match p's plane: with known == nullptr, occ[p] (an h x
+// w plane; map_h == h, map_w == w, occ_stride 1, row and col unused); else
+// the h x w window whose first cell is (row[p], col[p]) (clamped into the
+// map) of map p: occ (a float every occ_stride, map_h x map_w cells a map)
+// where known (bool) holds, `unknown` elsewhere, read in place. It reads
+// pts[p] (r x 2), beam_w[p], origin[p] (the plane's or window's),
+// init_pose[p], noise[p] (rounds x k x 3) and writes pose_out[p],
 // prob_out[p], trace_out[p] (rounds). `shared_bytes` is the dynamic shared
 // memory the caller asks for a block: at least (3 r + 2 * 8 * passes + 3
 // rounds k) floats, passes = ceil(k / (8 * blocks)), and with the kernel's
 // static 8.2 KB within the 227 KB a block can have. Returns the
 // cudaError_t of the launch (0 = ok).
-extern "C" int mc_match_launch(const float* v, int n_p, int h, int w, const float* pts,
+extern "C" int mc_match_launch(const float* occ, const unsigned char* known, int occ_stride,
+                               int n_p, int map_h, int map_w, const long long* row,
+                               const long long* col, int h, int w, const float* pts,
                                const float* beam_w, int r, const float* origin,
                                const float* init_pose, const float* noise, int rounds,
                                int k, float scale, float unknown, float sigma_xy,
                                float sigma_theta, int bad_limit, float* pose_out,
                                float* prob_out, float* trace_out, int shared_bytes,
                                void* stream) {
-  if (n_p <= 0 || n_p > 65535 || h <= 0 || w <= 0 || r < 0 || rounds < 0 || k < 0 ||
-      (rounds > 0 && k == 0)) {
+  const bool window = known != nullptr;
+  if (n_p <= 0 || n_p > 65535 || h <= 0 || w <= 0 || h > map_h || w > map_w || r < 0 ||
+      rounds < 0 || k < 0 || (rounds > 0 && k == 0) || occ_stride < 1 ||
+      (window ? (row == nullptr || col == nullptr)
+              : (occ_stride != 1 || h != map_h || w != map_w))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int blocks = cluster_blocks(k);
-  const Kernel kernel = kernel_for(blocks);
+  const Kernel kernel = window ? kernel_for<true>(blocks) : kernel_for<false>(blocks);
   const int passes = (k + blocks * kGroups - 1) / (blocks * kGroups);
   const size_t needed = (3 * static_cast<size_t>(r) + 2 * kGroups * passes +
                          3 * static_cast<size_t>(rounds) * k) * sizeof(float);
@@ -357,8 +394,9 @@ extern "C" int mc_match_launch(const float* v, int n_p, int h, int w, const floa
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, kernel, v, h, w, pts, beam_w, r, origin, init_pose, noise, rounds, k,
-      scale, unknown, sigma_xy, sigma_theta, bad_limit, pose_out, prob_out, trace_out);
+      &cfg, kernel, occ, known, occ_stride, map_h, map_w, row, col, h, w, pts, beam_w, r,
+      origin, init_pose, noise, rounds, k, scale, unknown, sigma_xy, sigma_theta, bad_limit,
+      pose_out, prob_out, trace_out);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,10 +1,9 @@
 // overlap_sample.cuh: the per-beam arithmetic of the scan-overlap score,
-// shared by overlap_score.cu (one launch scores K poses on M planes),
-// mc_match.cu (one launch runs a whole Monte-Carlo match) and
-// particle_match.cu (one launch runs P of them), so that all give the same
-// bits for the same pose. A pose is scored by a group of 128 threads
-// (beam_sums + group_reduce, mc_match.cu) or by one warp standing for such
-// a group (warp_score, the others): the same sums in the same order.
+// shared by overlap_score.cu (one launch scores K poses on M planes) and
+// mc_match.cu (one launch runs whole Monte-Carlo matches), so that both give
+// the same bits for the same pose. A plane is read through an accessor: the
+// plane itself (LdgPlane), or a window of a map read in place (MapWindow),
+// which gives the cells the cut-out window would hold.
 //
 // sample_at() is the math of the TPU kernel's body (slam_constructor_tpu/ops/
 // pallas_kernels.py: _bilinear_kernel): per axis i0 = floor(pos - 0.5) and
@@ -62,6 +61,23 @@ struct LdgPlane {
   int w;
   __device__ __forceinline__ float operator()(int row, int col) const {
     return __ldg(v + row * w + col);
+  }
+};
+
+// Cell (row, col) of a window of a map, read in place: where(known, occ,
+// unknown) at the map's cell (row, col) counted from the window's first
+// cell. occ steps occ_stride floats a cell (a channel of the map's cells);
+// a row of the map is `pitch` cells.
+struct MapWindow {
+  const float* __restrict__ occ;            // at the window's first cell
+  const unsigned char* __restrict__ known;  // at the window's first cell
+  int pitch;
+  int occ_stride;
+  float unknown;
+  __device__ __forceinline__ float operator()(int row, int col) const {
+    const int i = row * pitch + col;
+    const float o = __ldg(occ + static_cast<long long>(i) * occ_stride);
+    return __ldg(known + i) ? o : unknown;
   }
 };
 
@@ -157,84 +173,6 @@ __device__ __forceinline__ void group_reduce(float& num, float& den, float* s_nu
 // The score from the reduced sums.
 __device__ __forceinline__ float weighted_mean(float num, float den) {
   return num / fmaxf(den, 1e-9f);
-}
-
-// Asynchronous 4-byte copies from device into shared memory (cp.async):
-// a thread issues many without waiting, then waits once for all of them.
-__device__ __forceinline__ void copy4_async(void* shared_dst, const void* global_src) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(shared_dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst), "l"(global_src) : "memory");
-}
-
-__device__ __forceinline__ void copies_wait() { asm volatile("cp.async.wait_all;" ::: "memory"); }
-
-// A shared-memory plane: cell (row, col) of v f32[h, w].
-struct SmemPlane {
-  const float* v;
-  int w;
-  __device__ __forceinline__ float operator()(int row, int col) const { return v[row * w + col]; }
-};
-
-// A pose's score by one warp, with the bits of beam_sums + group_reduce
-// over a group of kGroupThreads. lane_sums: lane l stands for the group's
-// threads l, l + 32, l + 64 and l + 96 and keeps their four partial sums
-// apart (thread l + 32 j sums beams l + 32 j, l + 32 j + 128, ... in that
-// order, skipping weight 0). warp_reduce adds them as the group's tree
-// does: level 64 (sums 0 + 2 and 1 + 3), level 32 (their sum), then the
-// same shuffles 16 ... 1; the score is returned in every lane. No barrier
-// and no shared scratch: the warp's own lanes.
-struct LaneSums {
-  float num[4], den[4];
-};
-
-template <class Plane>
-__device__ __forceinline__ LaneSums lane_sums(const Plane& at, int h, int w, const Pose& p,
-                                              const float* pts, const float* beam_w, int r,
-                                              int lane, float ox, float oy, float scale,
-                                              float unknown) {
-  static_assert(kGroupThreads == 4 * 32, "a lane stands for four threads of a group");
-  LaneSums s = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
-  // eight beams a lane at once (two of each of its four threads), all
-  // sampled before any is summed, so their taps are in flight together;
-  // then each thread's two in beam order
-  for (int base = lane; base < r; base += 2 * kGroupThreads) {
-    float bw[8], pr[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int i = base + 32 * j;
-      bw[j] = i < r ? beam_w[i] : 0.0f;
-      pr[j] = bw[j] != 0.0f ? sample_at(at, h, w, p, pts[2 * i + 0], pts[2 * i + 1], ox, oy,
-                                        scale, unknown)
-                            : 0.0f;
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if (bw[j] != 0.0f) {
-        s.num[j % 4] += bw[j] * pr[j];
-        s.den[j % 4] += bw[j];
-      }
-    }
-  }
-  return s;
-}
-
-__device__ __forceinline__ float warp_reduce(const LaneSums& s) {
-  float n = (s.num[0] + s.num[2]) + (s.num[1] + s.num[3]);
-  float d = (s.den[0] + s.den[2]) + (s.den[1] + s.den[3]);
-#pragma unroll
-  for (int stride = 16; stride > 0; stride >>= 1) {
-    n += __shfl_down_sync(0xffffffffu, n, stride);
-    d += __shfl_down_sync(0xffffffffu, d, stride);
-  }
-  return __shfl_sync(0xffffffffu, weighted_mean(n, d), 0);
-}
-
-template <class Plane>
-__device__ __forceinline__ float warp_score(const Plane& at, int h, int w, const Pose& p,
-                                            const float* pts, const float* beam_w, int r,
-                                            int lane, float ox, float oy, float scale,
-                                            float unknown) {
-  return warp_reduce(lane_sums(at, h, w, p, pts, beam_w, r, lane, ox, oy, scale, unknown));
 }
 
 }  // namespace overlap

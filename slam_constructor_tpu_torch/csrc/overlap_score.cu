@@ -13,48 +13,30 @@
 //
 // Every map has its own plane, candidates, scan (endpoints and weights) and
 // origin: loop closing matches a different keyframe scan against every
-// submap, the RBPF's improved proposal and minimumScore gate score each
-// particle's window. M = 1 is the single-plane score (score_poses, and
-// kernels.mc_match_rounds once a round) and gives the same bits as any
+// submap. M = 1 is the single-plane score and gives the same bits as any
 // other slot of a batch holding the same inputs.
 //
-// sample_at() is _bilinear_kernel's math (overlap_sample.cuh, shared with
-// mc_match.cu and particle_match.cu): mass off the map reads `unknown`.
+// sample() is _bilinear_kernel's math (overlap_sample.cuh, shared with
+// mc_match.cu): mass off the map reads `unknown`.
 //
-// What bounds it on an H100: neither bytes nor operations but issue and
-// latency. The loop closer's M = 32 submaps of 120^2, K = 343 poses of a
-// 7^3 grid and 180 beams read ~2.1 MB (0.6 us at 3.35 TB/s) and do ~105
-// MFLOP (1.6 us at 67 TFLOP/s); the RBPF's M = 30 windows of 160^2 at K =
-// 16 and K = 1 are a few MB and far fewer operations, each pose a short
-// chain of dependent taps.
+// What bounds it on an H100: launch cost and latency, not bytes. At the
+// main-path shape (K = 64 candidates, R = 360 beams) one call reads
+// 23,040 points x 4 taps x 4 B, about 370 KB of plane taps: about 0.1 us
+// at 3.35 TB/s. The 256 KB f32 plane stays in the 50 MB L2 between calls.
+// The Monte-Carlo matcher does not call this kernel once a round: its
+// whole loop is one launch of mc_match.cu. This one serves score_poses.
 //
-// Design. Two shapes, chosen by the grid's size, with the same bits:
-// - Few poses (M K groups of 128 threads fit the card at once: the
-//   information estimates, M = 32, K = 7; the RBPF's probes and gate; the
-//   single plane): a block of 128 threads a pose, each thread a beam or two
-//   (beam_sums) and a three-barrier tree (group_reduce); a pose's chain is
-//   the time there, and it is a quarter of a warp's.
-// - Many poses (the loop closer's M = 32 submaps x K = 343): a warp a pose
-//   (overlap::warp_score): a lane stands for four threads of the group and
-//   keeps their partial sums apart, and the group's tree runs in registers
-//   and shuffles. No barrier inside a score, the pose's cos/sin once a
-//   warp: a quarter of the group's redundant work where issue is the time.
-//   Measured (kernel_probe.py, an H100 at 700 W): the warps 23.4-23.5 us
-//   against the groups' 24.7-25.0 at M = 32, K = 343; 5.0-5.7 us against
-//   3.4-4.8 at the smaller shapes.
-// - A block is up to 8 warps on poses of one map (the map on the grid's y
-//   axis), and walks over them in steps of (blocks a map) x (warps). Blocks a map: enough for about two blocks an SM over the grid,
-//   and never more than the poses ask for.
-// - The map's endpoints and weights are copied once into the block's shared
-//   memory with asynchronous copies (cp.async), all in flight at once (read
-//   from device memory inside the beam loop instead, each put a second
-//   trip to L2 in front of its taps: 1-2 us more at the small shapes).
-// - The plane: copied in with them when the block's poses take more taps
-//   (poses x beams x 4) than the plane has cells and it fits (the loop
-//   closer's 120^2 submaps at K = 343: 57.6 KB); read through __ldg
-//   otherwise (the RBPF's probes and gate, the single plane of 256^2). Both
-//   read the same values, so the choice moves no bit.
-// Numerics: see overlap_sample.cuh.
+// Loop closing calls it with M <= 32 submaps of 120^2 cells and the K = 343
+// poses of a 7^3 grid: 10,976 blocks in one launch, planes of 57.6 KB each
+// that stay in L2.
+//
+// Design: one block per (candidate, map), the map on the grid's y axis; its
+// 128 threads stride over the beams;
+// cos/sin of the pose once per block; the plane read through __ldg (it is
+// larger than a block's 227 KB of shared memory, so it is not staged
+// there); beams of weight 0 (invalid) skipped; per-thread sums in a fixed
+// order, then a fixed-order tree reduction, so a result is the same bit
+// for bit from run to run. Numerics: see overlap_sample.cuh.
 
 #include <cuda_runtime.h>
 
@@ -62,72 +44,18 @@
 
 namespace {
 
-constexpr int kMaxWarps = 8;  // warps (poses at once) a block
-constexpr int kThreadsPerSm = 2048;  // resident threads an SM can hold
+constexpr int kThreads = overlap::kGroupThreads;
 
-template <bool kStaged>
-__global__ void __launch_bounds__(kMaxWarps * 32)
+__global__ void __launch_bounds__(kThreads)
 overlap_score_kernel(const float* __restrict__ v, int h, int w,
-                     const float* __restrict__ poses, int k,
+                     const float* __restrict__ poses,
                      const float* __restrict__ pts,
                      const float* __restrict__ beam_w, int r,
                      const float* __restrict__ origin, float scale,
                      float unknown, float* __restrict__ out) {
-  extern __shared__ float smem[];
-  float* s_pts = smem;         // f32[2 r]
-  float* s_bw = smem + 2 * r;  // f32[r]
-  float* s_plane = s_bw + r;   // f32[h w] when staged
-
-  const size_t m = blockIdx.y;
-  v += m * h * w;
-  poses += m * k * 3;
-  pts += m * r * 2;
-  beam_w += m * r;
-  origin += m * 2;
-  out += m * k;
-
-  // every copy in flight at once, one wait
-  const int n_threads = blockDim.x;
-  for (int i = threadIdx.x; i < 2 * r; i += n_threads) overlap::copy4_async(s_pts + i, pts + i);
-  for (int i = threadIdx.x; i < r; i += n_threads) overlap::copy4_async(s_bw + i, beam_w + i);
-  if constexpr (kStaged) {
-    for (int i = threadIdx.x; i < h * w; i += n_threads) overlap::copy4_async(s_plane + i, v + i);
-  }
-  overlap::copies_wait();
-  __syncthreads();
-  const float ox = __ldg(origin + 0);
-  const float oy = __ldg(origin + 1);
-
-  const int warps = n_threads / 32;
-  const int lane = threadIdx.x % 32;
-  for (int i = blockIdx.x * warps + threadIdx.x / 32; i < k; i += gridDim.x * warps) {
-    const float th = __ldg(poses + 3 * i + 2);
-    const overlap::Pose p{__ldg(poses + 3 * i + 0), __ldg(poses + 3 * i + 1), cosf(th), sinf(th)};
-    float score;
-    if constexpr (kStaged) {
-      score = overlap::warp_score(overlap::SmemPlane{s_plane, w}, h, w, p, s_pts, s_bw, r, lane,
-                                  ox, oy, scale, unknown);
-    } else {
-      score = overlap::warp_score(overlap::LdgPlane{v, w}, h, w, p, s_pts, s_bw, r, lane, ox, oy,
-                                  scale, unknown);
-    }
-    if (lane == 0) out[i] = score;
-  }
-}
-
-// A pose a block of kGroupThreads, the pose's cos/sin once a block: the
-// shape for grids whose groups all fit the card at once, where a pose's
-// chain is the time (a thread's beam or two, not a lane's six).
-__global__ void __launch_bounds__(overlap::kGroupThreads)
-overlap_score_group_kernel(const float* __restrict__ v, int h, int w,
-                           const float* __restrict__ poses,
-                           const float* __restrict__ pts,
-                           const float* __restrict__ beam_w, int r,
-                           const float* __restrict__ origin, float scale,
-                           float unknown, float* __restrict__ out) {
   __shared__ float trig[2];
-  __shared__ float s_num[overlap::kGroupThreads];
-  __shared__ float s_den[overlap::kGroupThreads];
+  __shared__ float s_num[kThreads];
+  __shared__ float s_den[kThreads];
 
   const int k = blockIdx.x;
   const int n_k = gridDim.x;
@@ -153,31 +81,6 @@ overlap_score_group_kernel(const float* __restrict__ v, int h, int w,
   if (threadIdx.x == 0) out[k] = overlap::weighted_mean(num, den);
 }
 
-int optin_shared_bytes() {
-  static int bytes = -1;
-  if (bytes < 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
-            cudaSuccess) {
-      bytes = 48 * 1024;
-    }
-  }
-  return bytes;
-}
-
-int sm_count() {
-  static int n = -1;
-  if (n < 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
-      n = 132;
-    }
-  }
-  return n;
-}
-
 }  // namespace
 
 // v f32[m, h, w], poses f32[m, k, 3], pts f32[m, r, 2], beam_w f32[m, r],
@@ -190,36 +93,9 @@ extern "C" int overlap_score_launch(const float* v, int m, int h, int w,
                                     int r, const float* origin, float scale,
                                     float unknown, float* out, void* stream) {
   if (k <= 0 || m <= 0) return 0;
-  if (m > 65535 || h <= 0 || w <= 0 || r < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // a group a pose while every pose's group is resident at once, else a warp a pose
-  if (static_cast<long long>(m) * k * overlap::kGroupThreads <=
-      static_cast<long long>(sm_count()) * kThreadsPerSm) {
-    overlap_score_group_kernel<<<dim3(k, m), overlap::kGroupThreads, 0, s>>>(
-        v, h, w, poses, pts, beam_w, r, origin, scale, unknown, out);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const int warps = k < kMaxWarps ? k : kMaxWarps;
-  const int tiles = (k + warps - 1) / warps;
-  const int target = (2 * sm_count() + m - 1) / m;  // about two blocks an SM
-  const int blocks = tiles < target ? tiles : target;
-  const size_t scan_bytes = 3 * static_cast<size_t>(r) * sizeof(float);
-  const size_t plane_bytes = static_cast<size_t>(h) * w * sizeof(float);
-  const size_t taps = static_cast<size_t>(tiles + blocks - 1) / blocks * warps * r * 4;
-  const bool staged = taps > static_cast<size_t>(h) * w &&
-                      scan_bytes + plane_bytes <= static_cast<size_t>(optin_shared_bytes());
-  const size_t shared = scan_bytes + (staged ? plane_bytes : 0);
-  if (shared > static_cast<size_t>(optin_shared_bytes())) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const auto kernel = staged ? overlap_score_kernel<true> : overlap_score_kernel<false>;
-  if (shared > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shared));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid(blocks, m);
-  kernel<<<grid, warps * 32, shared, s>>>(
-      v, h, w, poses, k, pts, beam_w, r, origin, scale, unknown, out);
+  if (m > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(k, m);
+  overlap_score_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      v, h, w, poses, pts, beam_w, r, origin, scale, unknown, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -262,12 +262,15 @@ def _refine_rbpf(cfg: GMappingConfig, view, scans, res, draws: Draws):
 
 def match_view(cfg: GMappingConfig, gm: gridlib.GridMap, priors: Tensor):
     """What every particle is matched on: the ``match_window`` around its
-    prior (the whole map when it is 0). A Monte-Carlo match alone reads the
-    windows in place (a ``scoring.WindowView``); when anything else scores
-    them too (a brute-force pass, the minimumScore gate, the improved
-    proposal's probes) they are cut out once, for all of them."""
-    size = cfg.match_window or max(gm.height, gm.width)
-    view = scoring.window_of(scoring.MapView.of(gm, cfg.cell_model), priors[:, :2], size)
+    prior, or the whole map when it is 0 (its ``MapView``, as it is). A
+    Monte-Carlo match alone reads the windows in place (a
+    ``scoring.WindowView``); when anything else scores them too (a
+    brute-force pass, the minimumScore gate, the improved proposal's probes)
+    they are cut out once, for all of them."""
+    maps = scoring.MapView.of(gm, cfg.cell_model)
+    if not cfg.match_window:
+        return maps
+    view = scoring.window_of(maps, priors[:, :2], cfg.match_window)
     in_place = (cfg.matcher == "monte_carlo" and cfg.refine_matcher in (None, "monte_carlo")
                 and cfg.min_match_prob <= 0 and cfg.proposal == "odom")
     return view if in_place else view.cut()

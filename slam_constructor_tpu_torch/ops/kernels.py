@@ -13,12 +13,11 @@ RBPF's improved proposal and minimumScore gate.
 round's candidates, argmax, keep-if-better and the sigma anneal) in one
 launch on a thread-block cluster (``csrc/mc_match.cu``); it is the same TPU
 kernel's counterpart on the matcher's path, with the matcher's round loop
-folded in. ``mc_match_batched`` runs P matches at once, each with its own
-plane, scan, prior and noise, on another kernel (``csrc/particle_match.cu``,
-a warp a candidate) that gives each match the bits of a single ``mc_match``:
-the RBPF's particles. ``mc_match_windows`` is that kernel reading each
-particle's window of its map in place, with no window cut out first.
-``mc_match_rounds`` is the same match with ``overlap_score`` launched once
+folded in. ``mc_match_batched`` is the same kernel over P matches at once,
+a cluster each, each with its own plane, scan, prior and noise: the RBPF's
+particles, each match with the bits of a single ``mc_match``.
+``mc_match_windows`` is the same again, each particle's window of its map
+read in place, with no window cut out first. ``mc_match_rounds`` is the same match with ``overlap_score`` launched once
 a round, kept as the yardstick the fused kernels must equal bit for bit.
 
 ``polar_free_plane`` fills the dense polar free-space weight plane of one
@@ -341,7 +340,9 @@ def mc_match_rounds(
 def _mc_match_fn():
     fn = _build.load().mc_match_launch
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # plane, P, h, w
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # occ, known, occ's cell stride
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # P, the maps' H and W
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # row, col, h, w
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # pts, beam_w, r
         ctypes.c_void_p, ctypes.c_void_p,  # origin, init_pose
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # noise, rounds, k
@@ -378,26 +379,81 @@ def _mc_match_shared_bytes(r: int, k: int, rounds: int) -> int:
 _MC_MAX_DYNAMIC_SHARED_BYTES = 227 * 1024 - (2 * 1024 * 4 + 64)
 
 
-def _match_shapes(name, lead, plane, noise):
-    """(H, W, rounds, K) of a match's plane and noise, checked against the
-    leading shape ``lead``."""
-    if plane.dim() != len(lead) + 2 or noise.dim() != len(lead) + 3:
-        raise ValueError(f"{name}: plane {tuple(plane.shape)} and noise {tuple(noise.shape)} "
+def _mc_match_launch(name, lead, occ, window, pts, beam_w, origin, init_pose, noise, scale,
+                     unknown, sigma_xy, sigma_theta, bad_rounds_before_anneal):
+    """Checks the inputs against the leading shape ``lead`` (``()`` for one
+    match, ``(P,)`` for P: occ f32[*lead, H, W], ..., noise f32[*lead,
+    rounds, K, 3]), launches the kernel once and adds one to the count of
+    ``name``; returns (pose f32[*lead, 3], prob f32[*lead], trace f32[*lead,
+    rounds]). ``window`` is None when ``occ`` is the plane itself, else
+    (known, row, col, sh, sw): the ``sh x sw`` window at ``row``, ``col``
+    of each map ``where(known, occ, unknown)``, read in place."""
+    dev = occ.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if occ.dim() != len(lead) + 2 or noise.dim() != len(lead) + 3:
+        raise ValueError(f"{name}: plane {tuple(occ.shape)} and noise {tuple(noise.shape)} "
                          f"are not {(*lead, 'H', 'W')} and {(*lead, 'rounds', 'K', 3)}")
+    h, w = occ.shape[-2:]
+    r = pts.shape[-2]
     rounds, k = noise.shape[-3], noise.shape[-2]
+    n_p = lead[0] if lead else 1
     if rounds > 0 and k < 1:
         raise ValueError(f"{name}: a round needs at least one candidate")
-    return (*plane.shape[-2:], rounds, k)
-
-
-def _check_scan_and_prior(lead, dev, pts, beam_w, origin, init_pose, noise, rounds, k):
-    r = pts.shape[-2]
+    if not 1 <= n_p <= _MAX_MAPS:
+        raise ValueError(f"{name}: {n_p} matches, not between 1 and {_MAX_MAPS} a launch")
+    shared = _mc_match_shared_bytes(r, k, rounds)
+    if shared > _MC_MAX_DYNAMIC_SHARED_BYTES:
+        raise ValueError(
+            f"{name}: {r} beams and {rounds} rounds of {k} candidates need {shared} B of "
+            f"dynamic shared memory, more than {_MC_MAX_DYNAMIC_SHARED_BYTES} B"
+        )
+    if window is None:
+        _check("plane", occ, (*lead, h, w), dev)
+        known = row = col = None
+        stride, sh, sw = 1, h, w
+    else:
+        known, row, col, sh, sw = window
+        if not (1 <= sh <= h and 1 <= sw <= w):
+            raise ValueError(f"{name}: a {sh} x {sw} window of a {h} x {w} map")
+        if occ.dtype != torch.float32:
+            raise TypeError(f"occ must be torch.float32, got {occ.dtype}")
+        # occ may be a channel of contiguous cells: a float every `stride`
+        stride = occ.stride(-1)
+        want = (h * w * stride, w * stride, stride)
+        if occ.device != dev or stride < 1 or any(
+                n > 1 and s != x for n, s, x in zip(occ.shape, occ.stride(), want)):
+            raise ValueError(f"{name}: occ must be contiguous or a channel of contiguous cells, "
+                             f"got strides {occ.stride()}")
+        _check("known", known, (*lead, h, w), dev, torch.bool)
+        _check("row", row, lead, dev, torch.int64)
+        _check("col", col, lead, dev, torch.int64)
     _check("pts", pts, (*lead, r, 2), dev)
     _check("beam_w", beam_w, (*lead, r), dev)
     _check("origin", origin, (*lead, 2), dev)
     _check("init_pose", init_pose, (*lead, 3), dev)
     _check("noise", noise, (*lead, rounds, k, 3), dev)
-    return r
+    pose = torch.empty((*lead, 3), dtype=torch.float32, device=dev)
+    prob = torch.empty(lead, dtype=torch.float32, device=dev)
+    trace = torch.empty((*lead, rounds), dtype=torch.float32, device=dev)
+    fn = _mc_match_fn()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            occ.data_ptr(), ptr(known), stride, n_p, h, w, ptr(row), ptr(col), sh, sw,
+            pts.data_ptr(), beam_w.data_ptr(), r, origin.data_ptr(), init_pose.data_ptr(),
+            noise.data_ptr(), rounds, k, scale, unknown, sigma_xy, sigma_theta,
+            bad_rounds_before_anneal, pose.data_ptr(), prob.data_ptr(), trace.data_ptr(), shared,
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+    _LAUNCHES[name] += 1
+    return pose, prob, trace
 
 
 def mc_match(
@@ -422,123 +478,16 @@ def mc_match(
     it is strictly better, and halves sigma after
     ``bad_rounds_before_anneal`` rounds without improvement.
 
-    CPU tensors take the plain twin; CUDA tensors launch ``mc_match.cu``'s
-    kernel on the current stream, once, and add one to the ``mc_match``
-    count of :func:`launch_counts`.
+    CPU tensors take the plain twin; CUDA tensors launch the kernel on the
+    current stream, once (the P = 1 case of :func:`mc_match_batched`'s
+    kernel, with the same bits), and add one to the ``mc_match`` count of
+    :func:`launch_counts`.
     """
     args = (plane, pts, beam_w, origin, init_pose, noise, scale, unknown, sigma_xy,
             sigma_theta, bad_rounds_before_anneal)
     if plane.device.type == "cpu":
         return mc_match_ref(*args)
-    dev = plane.device
-    if dev.type != "cuda":
-        raise ValueError(f"mc_match: unsupported device {dev}")
-    h, w, rounds, k = _match_shapes("mc_match", (), plane, noise)
-    shared = _mc_match_shared_bytes(pts.shape[-2], k, rounds)
-    if shared > _MC_MAX_DYNAMIC_SHARED_BYTES:
-        raise ValueError(
-            f"mc_match: {pts.shape[-2]} beams and {rounds} rounds of {k} candidates need "
-            f"{shared} B of dynamic shared memory, more than {_MC_MAX_DYNAMIC_SHARED_BYTES} B"
-        )
-    _check("plane", plane, (h, w), dev)
-    r = _check_scan_and_prior((), dev, pts, beam_w, origin, init_pose, noise, rounds, k)
-    pose = torch.empty((3,), dtype=torch.float32, device=dev)
-    prob = torch.empty((), dtype=torch.float32, device=dev)
-    trace = torch.empty((rounds,), dtype=torch.float32, device=dev)
-    fn = _mc_match_fn()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            plane.data_ptr(), 1, h, w, pts.data_ptr(), beam_w.data_ptr(), r,
-            origin.data_ptr(), init_pose.data_ptr(), noise.data_ptr(), rounds, k,
-            scale, unknown, sigma_xy, sigma_theta, bad_rounds_before_anneal,
-            pose.data_ptr(), prob.data_ptr(), trace.data_ptr(), shared, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"mc_match kernel launch failed: cudaError_t {err}")
-    _LAUNCHES["mc_match"] += 1
-    return pose, prob, trace
-
-
-# --- the particles' matches -----------------------------------------------------
-
-
-@functools.cache
-def _particle_match_fn():
-    fn = _build.load().particle_match_launch
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # occ, known, occ's cell stride
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # P, H, W
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # row, col, sh, sw
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # pts, beam_w, r
-        ctypes.c_void_p, ctypes.c_void_p,  # origin, init_pose
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # noise, rounds, k
-        ctypes.c_float, ctypes.c_float,  # scale, unknown
-        ctypes.c_float, ctypes.c_float, ctypes.c_int,  # sigma_xy, sigma_theta, bad rounds
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # pose, prob, trace
-        ctypes.c_int, ctypes.c_int,  # cluster width (0: the kernel's), staging (-1: where it fits)
-        ctypes.c_void_p,  # stream
-    ]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _particle_match_launch(occ, known, row, col, sh, sw, pts, beam_w, origin, init_pose, noise,
-                           scale, unknown, sigma_xy, sigma_theta, bad_rounds_before_anneal,
-                           blocks=0, staging=-1):
-    """Checks the inputs, launches ``particle_match.cu``'s kernel once and
-    adds one to the ``mc_match_batched`` count; returns (pose f32[P, 3],
-    prob f32[P], trace f32[P, rounds]). ``known``, ``row`` and ``col`` are
-    None for planes already cut out."""
-    name = "mc_match_batched" if known is None else "mc_match_windows"
-    dev = occ.device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {dev}")
-    if occ.dim() != 3:
-        raise ValueError(f"{name}: occ has shape {tuple(occ.shape)}, expected (P, H, W)")
-    n_p = occ.shape[0]
-    h, w, rounds, k = _match_shapes(name, (n_p,), occ, noise)
-    if not 1 <= n_p <= _MAX_MAPS:
-        raise ValueError(f"{name}: {n_p} matches, not between 1 and {_MAX_MAPS} a launch")
-    if not (1 <= sh <= h and 1 <= sw <= w):
-        raise ValueError(f"{name}: a {sh} x {sw} window of a {h} x {w} map")
-    # occ may be a channel of contiguous cells: a float every `stride`
-    if occ.dtype != torch.float32:
-        raise TypeError(f"occ must be torch.float32, got {occ.dtype}")
-    stride = occ.stride(-1)
-    want = (h * w * stride, w * stride, stride)
-    if stride < 1 or any(n > 1 and s != x for n, s, x in zip(occ.shape, occ.stride(), want)):
-        raise ValueError(f"{name}: occ must be contiguous or a channel of contiguous cells, "
-                         f"got strides {occ.stride()}")
-    if known is not None:
-        _check("known", known, (n_p, h, w), dev, torch.bool)
-        _check("row", row, (n_p,), dev, torch.int64)
-        _check("col", col, (n_p,), dev, torch.int64)
-    r = _check_scan_and_prior((n_p,), dev, pts, beam_w, origin, init_pose, noise, rounds, k)
-    pose = torch.empty((n_p, 3), dtype=torch.float32, device=dev)
-    prob = torch.empty((n_p,), dtype=torch.float32, device=dev)
-    trace = torch.empty((n_p, rounds), dtype=torch.float32, device=dev)
-    fn = _particle_match_fn()
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            occ.data_ptr(), ptr(known), stride, n_p, h, w, ptr(row), ptr(col), sh, sw,
-            pts.data_ptr(), beam_w.data_ptr(), r, origin.data_ptr(), init_pose.data_ptr(),
-            noise.data_ptr(), rounds, k, scale, unknown, sigma_xy, sigma_theta,
-            bad_rounds_before_anneal, pose.data_ptr(), prob.data_ptr(), trace.data_ptr(),
-            blocks, staging, stream,
-        )
-    if err == -1:
-        raise ValueError(f"{name}: {r} beams and {rounds} rounds of {k} candidates do not fit "
-                         f"a block's shared memory")
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
-    _LAUNCHES["mc_match_batched"] += 1
-    return pose, prob, trace
+    return _mc_match_launch("mc_match", (), plane, None, *args[1:])
 
 
 def mc_match_batched(
@@ -560,13 +509,13 @@ def mc_match_batched(
 
     plane f32[P, H, W], pts f32[P, R, 2], beam_w f32[P, R], origin f32[P,
     2], init_pose f32[P, 3], noise f32[P, rounds, K, 3]: match p gives the
-    bits of :func:`mc_match` on the p-th slices (another kernel, the same
-    arithmetic in the same order). The RBPF's particles, one scan matched
-    against each particle's window, cut out.
+    bits of :func:`mc_match` on the p-th slices. The RBPF's particles, one
+    scan matched against each particle's window cut out (the improved
+    proposal and the gate) or whole map.
 
-    CPU tensors take the plain twin; CUDA tensors launch
-    ``particle_match.cu``'s kernel on the current stream, once for all P,
-    and add one to the ``mc_match_batched`` count of :func:`launch_counts`.
+    CPU tensors take the plain twin; CUDA tensors launch the kernel on the
+    current stream, once for all P, a cluster a match, and add one to the
+    ``mc_match_batched`` count of :func:`launch_counts`.
     """
     args = (plane, pts, beam_w, origin, init_pose, noise, scale, unknown, sigma_xy,
             sigma_theta, bad_rounds_before_anneal)
@@ -574,8 +523,7 @@ def mc_match_batched(
         raise ValueError(f"plane has shape {tuple(plane.shape)}, expected (P, H, W)")
     if plane.device.type == "cpu":
         return mc_match_ref(*args)
-    _check("plane", plane, tuple(plane.shape), plane.device)
-    return _particle_match_launch(plane, None, None, None, *plane.shape[1:], *args[1:])
+    return _mc_match_launch("mc_match_batched", (plane.shape[0],), plane, None, *args[1:])
 
 
 def mc_match_windows_ref(occ, known, row, col, sh, sw, pts, beam_w, origin, init_pose, noise,
@@ -619,15 +567,19 @@ def mc_match_windows(
     unknown)[p, row:row + sh, col:col + sw]``, without the cut.
 
     CPU tensors take the plain twin :func:`mc_match_windows_ref`; CUDA
-    tensors launch ``particle_match.cu``'s kernel on the current stream,
-    once for all P, and add one to the ``mc_match_batched`` count of
-    :func:`launch_counts` (the same kernel).
+    tensors launch the kernel of :func:`mc_match_batched` on the current
+    stream, once for all P, its taps reading each window in place, and add
+    one to the ``mc_match_batched`` count of :func:`launch_counts` (the same
+    kernel).
     """
     args = (occ, known, row, col, sh, sw, pts, beam_w, origin, init_pose, noise, scale, unknown,
             sigma_xy, sigma_theta, bad_rounds_before_anneal)
     if occ.device.type == "cpu":
         return mc_match_windows_ref(*args)
-    return _particle_match_launch(*args)
+    if occ.dim() != 3:
+        raise ValueError(f"occ has shape {tuple(occ.shape)}, expected (P, H, W)")
+    return _mc_match_launch("mc_match_batched", (occ.shape[0],), occ, (known, row, col, sh, sw),
+                            *args[6:])
 
 
 # --- polar free-space fill ----------------------------------------------------

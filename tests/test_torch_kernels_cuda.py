@@ -17,13 +17,12 @@ in one launch with the arithmetic of ``mc_match_rounds`` (one
 plain twin sums a score in another order, hence atol 2e-6 on the trace.
 ``overlap_score_batched`` is ``overlap_score``'s kernel with the maps on a
 grid axis: every slot equals the single-plane launch on the same inputs bit
-for bit, whether the block copies the plane into shared memory or reads it
-in place, and the twin within 2e-6. ``mc_match_batched`` and
-``mc_match_windows`` run ``particle_match.cu`` (a warp a candidate): every
-match equals a single ``mc_match`` launch (and ``mc_match_rounds``) on its
-slices bit for bit, the windows read in place equal the same windows cut
-out, with the window in shared memory or its taps read from device memory,
-and the twin as ``mc_match``'s does.
+for bit, and the twin within 2e-6. ``mc_match_batched`` is ``mc_match``'s
+kernel with a cluster a match: every match equals a single ``mc_match``
+launch (and ``mc_match_rounds``) on its slices bit for bit, and its twin as
+``mc_match``'s does. ``mc_match_windows`` is the same kernel reading each
+match's window of its map in place: it equals the same windows cut out,
+bit for bit.
 """
 
 import pytest
@@ -216,7 +215,7 @@ def _submap_batch(scene, n_maps, k, stride=2):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_maps,k", [(1, 343), (5, 7), (32, 343), (8, 343), (3, 1), (30, 16), (30, 1)])
+@pytest.mark.parametrize("n_maps,k", [(1, 343), (5, 7), (32, 343), (3, 1), (30, 16), (30, 1)])
 def test_overlap_score_batched_matches_twin_and_single_launches(scene, n_maps, k):
     prep, poses = _submap_batch(scene, n_maps, k)
     beam_w = prep.beam_w.clone()
@@ -348,11 +347,10 @@ def _window_args(scene, n_p, k, rounds, win, stride=2):
     (7, 64, 3, 256), (30, 64, 2, 160), (1, 7, 0, 256), (7, 20, 5, 256),
 ])
 def test_mc_match_windows_equals_cut_out_and_single_launches(scene, n_p, k, rounds, win):
-    """The particle match on windows read in place (in shared memory, or,
-    for the whole 256^2 map, taps from device memory) equals the same
-    windows cut out (``mc_match_batched``), the taps read in place where the
-    window would fit, P single ``mc_match`` launches and ``mc_match_rounds``,
-    bit for bit; over P in {1, 7, 30}, K in {1, 7, 20, 33, 64}."""
+    """The particle match on windows read in place (up to the whole 256^2
+    map) equals the same windows cut out (``mc_match_batched``), P single
+    ``mc_match`` launches and ``mc_match_rounds``, bit for bit; over P in
+    {1, 7, 30}, K in {1, 7, 20, 33, 64}."""
     args = _window_args(scene, n_p, k, rounds, win)
     before = dict(kernels.launch_counts())
     got = kernels.mc_match_windows(*args)
@@ -363,16 +361,13 @@ def test_mc_match_windows_equals_cut_out_and_single_launches(scene, n_p, k, roun
     plane = torch.where(gridlib.take_window(known, row, col, win, win),
                         gridlib.take_window(occ, row, col, win, win), 0.5).contiguous()
     cut = (plane, *args[6:])
-    outs = [kernels.mc_match_batched(*cut),
-            kernels._particle_match_launch(*args, staging=0),
-            kernels._particle_match_launch(plane, None, None, None, win, win, *args[6:], staging=0)]
+    want = kernels.mc_match_batched(*cut)
     singles = [kernels.mc_match(*(t[m] for t in cut[:6]), *cut[6:]) for m in range(n_p)]
     rounds_ = [kernels.mc_match_rounds(*(t[m] for t in cut[:6]), *cut[6:]) for m in range(n_p)]
     torch.cuda.synchronize()
     assert got[0].shape == (n_p, 3) and got[1].shape == (n_p,) and got[2].shape == (n_p, rounds)
     for i in range(3):
-        for out in outs:
-            assert torch.equal(got[i], out[i])  # bit for bit
+        assert torch.equal(got[i], want[i])  # bit for bit
         assert torch.equal(got[i], torch.stack([s[i] for s in singles]))
         assert torch.equal(got[i], torch.stack([s[i] for s in rounds_]))
     if n_p > 1:  # no valid beam: every score 0, nothing is better

@@ -173,16 +173,15 @@ def test_mc_match_windows_twin_is_cut_where_and_match(maps):
 
 
 @pytest.mark.parametrize("match_window,proposal,gate,in_place", [
-    (WIN, "odom", 0.0, True), (0, "odom", 0.0, True), (WIN, "improved", 0.0, False),
+    (WIN, "odom", 0.0, True), (0, "odom", 0.0, False), (WIN, "improved", 0.0, False),
     (WIN, "odom", 0.7, False),
 ])
 def test_match_view_reads_in_place_when_only_the_match_scores(maps, match_window, proposal, gate,
                                                                 in_place):
-    """``gmapping.match_view``: a window (or the whole map when
-    ``match_window`` is 0) read in place when a Monte-Carlo match alone
-    scores it; cut out once when the improved proposal or the gate scores
-    it too. The whole map's window starts at (0, 0) with the map's own
-    origin."""
+    """``gmapping.match_view``: a window read in place when a Monte-Carlo
+    match alone scores it; cut out once when the improved proposal or the
+    gate scores it too. With ``match_window`` 0 the whole maps' view, as it
+    is, with the maps' own origin."""
     import dataclasses
     import warnings
 
@@ -196,5 +195,7 @@ def test_match_view_reads_in_place_when_only_the_match_scores(maps, match_window
     win = match_window or SIZE
     assert tuple(view.occ.shape if not in_place else (P, view.sh, view.sw)) == (P, win, win)
     if match_window == 0:
-        assert not bool(view.row.any() or view.col.any())
+        whole = tscore.MapView.of(tgm_, cfg.cell_model)
+        assert isinstance(view, tscore.MapView)
+        assert torch.equal(view.occ, whole.occ) and torch.equal(view.known, whole.known)
         assert torch.equal(view.origin, tgm_.origin)
