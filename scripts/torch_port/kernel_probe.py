@@ -23,8 +23,11 @@ from the probe's map, 20 candidates x 5 rounds, every second beam) through
 ``mc_match_batched`` (the windows cut out) and ``mc_match_windows`` (the
 same windows read in place, the occupancy a channel of the maps' cells, as
 the RBPF holds it), against 30 single ``mc_match`` launches, bit for bit,
-and its twin; the same on whole 256^2 maps; and three times a launch for
-every kernel:
+and its twin; the same on whole 256^2 maps; M3RSM's pyramid (K4a: a build
+of a 256^2 map at 4 levels, the main path's 144^2 refresh, a build of 32
+submaps of 120^2 at 3 levels) against its twin bit for bit and its level
+score (K4b: the five launches of one ``viny_m3rsm`` match on the probe's
+map) against its twin; and three times a launch for every kernel:
 
 - chained: 200 calls of the wrapper queued back to back between one pair of
   CUDA events, over 200 (the host's cost of a call shows here);
@@ -48,7 +51,7 @@ into time with the SM clock that the stamps themselves give.
 ``--times`` times only the wrappers that every version of the port has
 (the batched score at the six shapes above, the particle match at the
 RBPF's shape, ``overlap_score``, ``polar_free_plane``, ``mc_match`` tiny and
-viny), and ``--root DIR`` imports the port from another checkout (built
+viny; the M3RSM kernels where the checkout has them), and ``--root DIR`` imports the port from another checkout (built
 there): run it on two checkouts in turns (A, B, B, A), one after another, to
 compare their kernels on one card.
 
@@ -236,6 +239,55 @@ def particle_cases(prep, pose, dev, size=160):
     return (planes.contiguous(), *rest), (occ, known, rows, cols, size, size, *rest)
 
 
+def m3rsm_cases(pose, scan, dev):
+    """K4a's arguments (a build of a ``viny_m3rsm`` map at 256^2 with one
+    scan in it, the main path's 144^2 refresh of it, a build of 32 crops of
+    120^2 at 3 levels) and K4b's (the five level launches of one match from
+    0.1 m and 0.03 rad off the scan's pose), as {name: (wrapper, twin,
+    args)}."""
+    from slam_constructor_tpu_torch.models import engine, viny
+    from slam_constructor_tpu_torch.ops import kernels, m3rsm, raycast, scoring
+
+    cfg = viny.viny_m3rsm_config(map_size=256)
+    st = engine.init_state(cfg, dev)
+    gm = raycast.insert_scan(st.gm, cfg.cell_model, pose, scan, cfg.beam)
+    view = scoring.MapView.of(gm, cfg.cell_model)
+    g = torch.Generator(device=dev).manual_seed(5)
+    rows = torch.randint(0, 136, (32,), generator=g, device=dev)
+    cols = torch.randint(0, 136, (32,), generator=g, device=dev)
+    crops = [view.occ[r:r + 120, c:c + 120] for r, c in zip(rows.tolist(), cols.tolist())]
+    masks = [view.known[r:r + 120, c:c + 120] for r, c in zip(rows.tolist(), cols.tolist())]
+    planes = kernels.m3rsm_pyramid(view.occ, view.known, 4, 0.5)
+    update = (planes, view.occ, view.known, torch.tensor([128, 128], device=dev), 144, 0.5,
+              torch.ones((), device=dev))
+    out = {
+        "m3rsm_pyramid build 256^2 L=4": (kernels.m3rsm_pyramid, kernels.m3rsm_pyramid_ref,
+                                          (view.occ, view.known, 4, 0.5)),
+        "m3rsm_pyramid update 144^2 of 256^2 L=4": (kernels.m3rsm_pyramid_update,
+                                                    kernels.m3rsm_pyramid_update_ref, update),
+        "m3rsm_pyramid build 32 x 120^2 L=3": (
+            kernels.m3rsm_pyramid, kernels.m3rsm_pyramid_ref,
+            (torch.stack(crops), torch.stack(masks), 3, 0.5)),
+    }
+    kept, level = [], kernels.m3rsm_score_level
+
+    def keep(*args):
+        kept.append(args)
+        return level(*args)
+
+    kernels.m3rsm_score_level = keep
+    try:
+        prior = pose + torch.tensor([0.1, -0.1, 0.03], device=dev)
+        m3rsm.m3rsm_match(view, scan, prior, None, cfg.matcher_cfg,
+                          engine._point_weights(cfg, scan), pyramid=planes)
+    finally:
+        kernels.m3rsm_score_level = level
+    for a in kept:
+        out[f"m3rsm_level level {a[2]} K={a[6].shape[1]} window {a[3]}^2"] = (
+            kernels.m3rsm_score_level, kernels.m3rsm_score_level_ref, a)
+    return out
+
+
 def same_bits(a, b) -> bool:
     return all(torch.equal(x.reshape(-1).view(torch.int32), y.reshape(-1).view(torch.int32))
                for x, y in zip(a, b))
@@ -325,6 +377,9 @@ def times_main(dev) -> None:
             ("polar_free_plane 256^2 R=360", lambda: kernels.polar_free_plane(*polar_args)),
             ("mc_match tiny", lambda: kernels.mc_match(*mc["tiny"])),
             ("mc_match viny", lambda: kernels.mc_match(*mc["viny"]))]
+    if hasattr(kernels, "m3rsm_pyramid"):
+        fns += [(name, lambda f=f, a=a: f(*a))
+                for name, (f, _, a) in m3rsm_cases(pose, scan, dev).items()]
     for name, fn in fns:
         report(name, fn)
 
@@ -429,6 +484,19 @@ def main() -> None:
               f"{float((got[2] - twin[2]).abs().max()):.3e}, |pose diff| "
               f"{float((got[0] - twin[0]).abs().max()):.3e}", flush=True)
 
+    m3 = m3rsm_cases(pose, scan, dev)
+    for name, (fn, twin, a) in m3.items():
+        if "update" in name:  # in place: each on its own copy of the planes
+            got = fn(tuple(p.clone() for p in a[0]), *a[1:])
+            want = twin(tuple(p.clone() for p in a[0]), *a[1:])
+        else:
+            got, want = fn(*a), twin(*a)
+        torch.cuda.synchronize()
+        if name.startswith("m3rsm_pyramid"):
+            print(f"{name} vs twin: bitwise equal {same_bits(got, want)}", flush=True)
+        else:
+            print(f"{name} vs twin: max |diff| {float((got - want).abs().max()):.3e}", flush=True)
+
     cut, in_place = cases[160]
     for name, fn in (
         *((f"overlap_score_batched M={m} K={k} {s}^2", lambda a=a: kernels.overlap_score_batched(*a))
@@ -442,6 +510,7 @@ def main() -> None:
         ("overlap_score K=64 R=360", lambda: kernels.overlap_score(*sargs)),
         ("mc_match tiny", lambda: kernels.mc_match(*mc["tiny"])),
         ("mc_match viny", lambda: kernels.mc_match(*mc["viny"])),
+        *((name, lambda f=f, a=a: f(*a)) for name, (f, _, a) in m3.items()),
     ):
         report(name, fn)
     for name, fn in (

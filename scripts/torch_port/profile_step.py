@@ -41,6 +41,17 @@ the closure bursts (a burst, with and without the map's regeneration); and
 from ``torch.profiler`` over one more run the device's kernel time as a
 share of the unprofiled wall time and the kernels with the most device time.
 
+With ``--preset viny_m3rsm`` it profiles vinySLAM with the M3RSM matcher
+(``viny_m3rsm_config(map_size=256)``) over the bench sequence: scans/s of
+``Engine.run`` over ``--scans`` scans after a warm-up of 64; with a
+synchronise after each phase of ``slam_step``, ms and ATen calls a scan of
+the beam weights, the match (the branch and bound over the live pyramid,
+then the hill climb), the rasterisation, the fold and the pyramid's
+refresh; the match split into its search (``refine_iterations=0``) and its
+refine alone at a fixed state; and from ``torch.profiler`` the device's
+kernel time as a share of the unprofiled wall time and the kernels with the
+most device time.
+
 Imports no JAX. Every figure is a measurement on the card it names.
 """
 
@@ -82,7 +93,8 @@ def synced_ms(fn, calls):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--preset", choices=("tiny", "viny", "full", "gmapping"), default="viny")
+    ap.add_argument("--preset", choices=("tiny", "viny", "viny_m3rsm", "full", "gmapping"),
+                    default="viny")
     ap.add_argument("--scans", type=int, default=64)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -92,6 +104,9 @@ def main() -> None:
         return
     if args.preset == "gmapping":
         profile_gmapping(args.scans)
+        return
+    if args.preset == "viny_m3rsm":
+        profile_m3rsm(args.scans)
         return
 
     from slam_constructor_tpu_torch.models import engine, tiny, viny
@@ -232,21 +247,127 @@ def main() -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         e.run(scans[n_warm:], odom[n_warm:])
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    device_report(prof, n, secs, time.perf_counter() - t0,
+                  ("mc_match_kernel", "overlap_score_kernel", "polar_free_kernel"))
+
+
+def device_report(prof, n: int, secs: float, wall: float, names: tuple) -> None:
+    """The profiler's device kernel time against the unprofiled wall time
+    ``secs`` of the same ``n`` scans (the profiler slows the host several
+    times over, so that is the share that counts), then the port's kernels
+    (``names``) and the kernels with the most device time."""
     rows = [k for k in prof.key_averages() if getattr(k, "device_time_total", 0) > 0
             and k.device_type.name == "CUDA"]
     dev_s = sum(k.device_time_total for k in rows) * 1e-6
-    # the profiler slows the host several times over, so the share that
-    # counts is device time over the unprofiled wall time of the same scans
     print(f"profiled {n} scans: device kernel time {dev_s:.4f} s = {dev_s / secs * 100:.1f}% of "
           f"the unprofiled {secs:.3f} s ({dev_s / wall * 100:.1f}% of the profiled {wall:.3f} s); "
           f"{sum(k.count for k in rows) / n:.0f} kernels a scan")
-    ours = [k for k in rows
-            if any(n in k.key for n in ("mc_match_kernel", "overlap_score_kernel", "polar_free_kernel"))]
+    ours = [k for k in rows if any(name in k.key for name in names)]
     top = sorted(rows, key=lambda k: -k.device_time_total)[:10]
     for k in ours + [k for k in top if k not in ours]:
         print(f"  {k.device_time_total * 1e-3:9.3f} ms  {k.count:6d} x  "
               f"{k.device_time_total / k.count:8.2f} us  {k.key[:90]}")
+
+
+def profile_m3rsm(n: int) -> None:
+    """vinySLAM with the M3RSM matcher: scans/s, synced phases with ATen
+    calls, the match's search and refine alone, and the device's share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import bench_sequence
+    from slam_constructor_tpu_torch.models import engine, viny
+    from slam_constructor_tpu_torch.ops import grid as gridlib
+    from slam_constructor_tpu_torch.ops import kernels, m3rsm, matchers, raycast, scoring
+    from slam_constructor_tpu_torch.ops.geometry import compose
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip())
+    cfg = viny.viny_m3rsm_config(map_size=256)
+    n_warm = 64
+    e = engine.Engine(cfg, seed=0)
+    dev = e.device
+    scans, odom, gt = bench_sequence(dev)
+    e.state.pose = gt[0].clone()
+    e.run(scans[:n_warm], odom[:n_warm])
+    torch.cuda.synchronize()
+    warm = e.state
+    t0 = time.perf_counter()
+    e.run(scans[n_warm:n_warm + n], odom[n_warm:n_warm + n])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(f"viny_m3rsm: {n} scans in {secs:.3f} s = {n / secs:.1f} scans/s "
+          f"({secs / n * 1e3:.3f} ms a scan)")
+
+    # a pass that times the phases (a synchronise after each), then one that
+    # counts their ATen calls (the dispatch mode slows the host)
+    names = ("weights", "match", "rasterise", "fold", "refresh")
+    ms, aten = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
+    q = torch.ones((), device=dev)
+    for count_ops in (False, True):
+        kernels.reset_launch_counts()
+        state = warm
+        for i in range(n_warm, n_warm + n):
+            scan, od = scans[i], odom[i]
+
+            def phase(name, fn):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                if count_ops:
+                    with CountOps() as c:
+                        out = fn()
+                    aten[name] += c.n
+                else:
+                    out = fn()
+                    torch.cuda.synchronize()
+                    ms[name] += time.perf_counter() - t
+                return out
+
+            pw = phase("weights", lambda: engine._point_weights(cfg, scan))
+            prior = compose(state.pose, od)
+            view = scoring.MapView.of(state.gm, cfg.cell_model)
+            res = phase("match", lambda: m3rsm.m3rsm_match(
+                view, scan, prior, None, cfg.matcher_cfg, pw, pyramid=state.pyramid))
+            w_obs, s_obs = phase("rasterise", lambda: raycast.scan_observation_planes(
+                state.gm, res.pose, scan, cfg.beam))
+            gm = phase("fold", lambda: gridlib.apply_observations(state.gm, cfg.cell_model,
+                                                                  w_obs, s_obs))
+            pyr = phase("refresh", lambda: engine._refresh_pyramid(cfg, gm, res.pose,
+                                                                    state.pyramid, q))
+            state = engine.SlamState(gm=gm, pose=res.pose, step=state.step + 1,
+                                     last_prob=res.prob, pyramid=pyr)
+    print("synced phases, ms / ATen calls a scan: " + ", ".join(
+        f"{k} {ms[k] / n * 1e3:.3f} / {aten[k] / n:.0f}" for k in names)
+        + f"; launches {kernels.launch_counts()}")
+
+    scan, prior = scans[n_warm], compose(warm.pose, odom[n_warm])
+    view = scoring.MapView.of(warm.gm, cfg.cell_model)
+    pw = engine._point_weights(cfg, scan)
+    search_cfg = dataclasses.replace(cfg.matcher_cfg, refine_iterations=0)
+    found = m3rsm.m3rsm_match(view, scan, prior, None, search_cfg, pw, pyramid=warm.pyramid)
+    mc = cfg.matcher_cfg
+    hc = matchers.HillClimbingConfig(step_xy=0.1, step_theta=mc.half_theta / (mc.n_theta - 1),
+                                     iterations=mc.refine_iterations, scoring=mc.scoring)
+    window = scoring.window_view(view, prior[:2], mc.window)
+    for name, fn in (
+            ("the search (5 level launches)", lambda: m3rsm.m3rsm_match(
+                view, scan, prior, None, search_cfg, pw, pyramid=warm.pyramid)),
+            ("the refine (hill climb, 9 score launches)", lambda: matchers.hill_climbing_match(
+                window, scan, found.pose, None, hc, pw))):
+        with CountOps() as c:
+            fn()
+        print(f"{name} alone: {synced_ms(fn, 50):.4f} ms a call synced, {c.n} ATen calls")
+    with CountOps() as c:
+        engine.slam_step(cfg, warm, scans[n_warm], odom[n_warm])
+    print(f"ATen calls a scan (views included): {c.n}")
+
+    e.state = warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        e.run(scans[n_warm:n_warm + n], odom[n_warm:n_warm + n])
+        torch.cuda.synchronize()
+    device_report(prof, n, secs, time.perf_counter() - t0,
+                  ("m3rsm_level_kernel", "m3rsm_pyramid_kernel", "overlap_score_kernel"))
 
 
 def profile_gmapping(n: int) -> None:

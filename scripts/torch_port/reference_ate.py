@@ -3,6 +3,8 @@
     JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --preset viny [--port] [--keys 5]
     JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --preset full [--port] [--keys 5]
     JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --preset gmapping [--port] [--keys 5]
+    JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --preset viny_m3rsm [--port]
+    JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --preset full_m3rsm [--port] [--keys 5]
 
 Builds the sequence that ``chip_smoke.py`` drives (512 scans along the
 cecum rectangle, 360 beams, odometry noise 0.01 m / 0.005 rad from
@@ -58,6 +60,15 @@ matcher normals and resampling offsets rebuilt from the key chain) and
 prints how far its poses, weights and genealogy lie from the reference's,
 and how often an insert window was clamped at the map's edge.
 
+With ``--preset viny_m3rsm`` the reference's ``viny_m3rsm_config(map_size=
+256)`` (the M3RSM global matcher on every scan, the DDA free fill) runs
+over the same 512 scans. M3RSM draws no noise, so one run is the figure;
+``--port`` runs the port on the CPU and prints how far its poses lie from
+the reference's. ``--preset full_m3rsm`` is ``--preset full`` with the
+M3RSM loop matcher of the reference's own test (``tests/test_posegraph.py:
+451-455``: 3 levels, +-0.6 m, +-0.3 rad in 7 steps, overlap scoring on
+every second beam), ``chip_smoke.full_m3rsm_config``.
+
 This is a parity tool, like the tests: it imports both packages. Nothing
 it prints is a device metric.
 """
@@ -79,11 +90,12 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[2]))  # the checkout's root
 
 from chip_smoke import (  # noqa: E402  (the same sequences and configuration)
-    MAP, N_BEAMS, N_SCANS, bench_sequence, full_config, full_sequence, gmapping_quality_sequence,
+    M3RSM_LOOP_MATCHER, MAP, N_BEAMS, N_SCANS, bench_sequence, full_config, full_m3rsm_config,
+    full_sequence, gmapping_quality_sequence,
 )
 
 FREE_IMPL = {"tiny": "dda", "viny": "polar"}
-PRESETS = [*sorted(FREE_IMPL), "full", "gmapping", "gmapping_2lap"]
+PRESETS = [*sorted(FREE_IMPL), "viny_m3rsm", "full", "full_m3rsm", "gmapping", "gmapping_2lap"]
 #: the reference's RBPF quality protocol's seeds (scripts/r3/gm_multiseed.py)
 MULTISEED = (42, 7, 19, 101, 202)
 
@@ -113,8 +125,11 @@ def main() -> None:
     args = ap.parse_args()
     jax.config.update("jax_platforms", "cpu")
     torch.set_num_threads(1)
-    if args.preset == "full":
+    if args.preset in ("full", "full_m3rsm"):
         print(json.dumps(full_preset(args)))
+        return
+    if args.preset == "viny_m3rsm":
+        print(json.dumps(viny_m3rsm_preset(args)))
         return
     if args.preset.startswith("gmapping"):
         print(json.dumps(gmapping_preset(args)))
@@ -200,6 +215,48 @@ def main() -> None:
     print(json.dumps(out))
 
 
+def viny_m3rsm_preset(args) -> dict:
+    """The reference's ``viny_m3rsm_config`` over the bench sequence, one
+    run (nothing is drawn); with ``--port`` also the port on the CPU."""
+    from slam_constructor_tpu.models import engine as jeng
+    from slam_constructor_tpu.models import viny as jviny
+    from slam_constructor_tpu.ops.scan import LaserScan as JScan
+    from slam_constructor_tpu_torch.models import engine as teng
+    from slam_constructor_tpu_torch.models import viny as tviny
+    from slam_constructor_tpu_torch.utils import evaluate
+
+    scans, odom, gt = bench_sequence("cpu")
+    jcfg = jviny.viny_m3rsm_config(map_size=MAP)
+    jscans = JScan(
+        ranges=jnp.asarray(scans.ranges.numpy()), bearings=jnp.asarray(scans.bearings.numpy()),
+        valid=jnp.asarray(scans.valid.numpy()),
+    )
+    state = jeng.init_state(jcfg).replace(pose=jnp.asarray(gt[0].numpy()))
+    t0 = time.perf_counter()
+    _, jtraj, jprobs = jeng.run_sequence(jcfg, state, jscans, jnp.asarray(odom.numpy()))
+    jtraj = torch.from_numpy(np.array(jtraj))
+    out = {
+        "preset": "viny_m3rsm", "free_impl": jcfg.beam.free_impl, "scans": N_SCANS,
+        "beams": N_BEAMS, "map": MAP, "backend": jax.default_backend(),
+        "reference_ate_m": float(evaluate.ate(jtraj, gt, align=False)),
+        "reference_min_prob": float(np.asarray(jprobs)[1:].min()),
+        "reference_seconds_cpu": time.perf_counter() - t0,
+    }
+    if args.port:
+        e = teng.Engine(tviny.viny_m3rsm_config(map_size=MAP), device="cpu")
+        e.state.pose = gt[0].clone()
+        t0 = time.perf_counter()
+        ttraj, _ = e.run(scans, odom)
+        d = ttraj - jtraj
+        d[:, 2] = torch.atan2(torch.sin(d[:, 2]), torch.cos(d[:, 2]))
+        over = torch.nonzero(d.abs().max(dim=1).values > 1e-4)
+        out["port_cpu_ate_m"] = float(evaluate.ate(ttraj, gt, align=False))
+        out["max_abs_pose_diff"] = float(d.abs().max())
+        out["port_first_scan_over_1e-4"] = int(over[0]) if over.numel() else None
+        out["port_seconds_cpu"] = time.perf_counter() - t0
+    return out
+
+
 def full_preset(args) -> dict:
     """The loop-closing pipeline of the reference over ``chip_smoke.py``'s
     full sequence, a key at a time; with ``--port`` also the port's, key 0's
@@ -213,15 +270,25 @@ def full_preset(args) -> dict:
     from slam_constructor_tpu_torch.utils import evaluate
 
     scans, odom, gt = full_sequence("cpu")
-    tcfg = full_config()
+    m3 = args.preset == "full_m3rsm"
+    tcfg = full_m3rsm_config() if m3 else full_config()
     g = tcfg.graph
+    loop = {}
+    if m3:
+        from slam_constructor_tpu.ops import m3rsm as jm3
+        from slam_constructor_tpu.ops import scoring as jscore
+
+        lm = tcfg.graph.loop_matcher
+        loop = dict(loop_matcher_kind="m3rsm", loop_matcher=jm3.M3RSMConfig(
+            **M3RSM_LOOP_MATCHER, scoring=jscore.ScoringConfig(
+                reducer=lm.scoring.reducer, stride=lm.scoring.stride)))
     jtrack = jtiny.fast_config(map_size=MAP, stride=2, mc_rounds=12)
     jtrack = dataclasses.replace(jtrack, beam=dataclasses.replace(jtrack.beam, free_impl="dda"))
     jcfg = jfull.FullConfig(
         tracking=jtrack,
         graph=jpg.PoseGraphConfig(
             keyframe_distance=g.keyframe_distance, min_index_gap=g.min_index_gap,
-            max_candidates=g.max_candidates, local_map_size=g.local_map_size),
+            max_candidates=g.max_candidates, local_map_size=g.local_map_size, **loop),
         optimize_every_loops=tcfg.optimize_every_loops,
     )
     jscans = JScan(
@@ -246,7 +313,7 @@ def full_preset(args) -> dict:
             "seconds_cpu": time.perf_counter() - t0,
         })
         first = first or (e, traj)
-    out = {"preset": "full", "scans": N_SCANS, "beams": N_BEAMS, "map": MAP,
+    out = {"preset": args.preset, "scans": N_SCANS, "beams": N_BEAMS, "map": MAP,
            "backend": jax.default_backend(), "by_key": rows}
     if args.port:
         je, jtraj = first

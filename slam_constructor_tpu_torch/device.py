@@ -9,6 +9,8 @@ card instead of carrying on on the CPU. Functions that only build tensors
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -22,3 +24,19 @@ def resolve_device(device=None) -> torch.device:
             'on the GPU by default; pass device="cpu" to run on the CPU'
         )
     return torch.device("cuda")
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """A small constant tensor (nested tuples of numbers) on ``device``,
+    made once a process: a copy from the host waits for the device, so a
+    step that must not sync takes its constants from here, made before it
+    runs. The tensor is shared: never write into it."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _constant(values, dtype, device)

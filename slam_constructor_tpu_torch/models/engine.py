@@ -12,8 +12,13 @@ Python loop over scans that stay on the device (the reference runs it in
 Entry points run on the card unless the caller names a device (see
 ``device.resolve_device``); the tests pass ``device="cpu"``.
 
-Waiting for later slices: the tiled storage, the M3RSM pyramid, refine
-matchers and ``auto_grow``.
+With the M3RSM matcher the state carries the map's live max-occupancy
+pyramid, refreshed after every insert around the scan's footprint (one
+launch of ``kernels.m3rsm_pyramid_update``, gated on the device by the
+insert's weight).
+
+Waiting for later slices: the tiled storage, refine matchers and
+``auto_grow``.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch
 from ..device import resolve_device
 from ..ops import cells as cellslib
 from ..ops import grid as gridlib
+from ..ops import m3rsm as m3rsmlib
 from ..ops import matchers as matcherslib
 from ..ops import raycast, scoring
 from ..ops.geometry import compose
@@ -41,7 +47,7 @@ class EngineConfig:
     reference's ``EngineConfig``, with the same names and defaults."""
 
     cell_model: Any = cellslib.BayesAvgCell()
-    matcher: str = "monte_carlo"  # key into ops.matchers.MATCHERS
+    matcher: str = "monte_carlo"  # 'monte_carlo' or 'm3rsm' (ops.matchers.MATCHERS)
     matcher_cfg: Any = matcherslib.MonteCarloConfig()
     beam: raycast.BeamConfig = raycast.BeamConfig()
     map_height: int = 256
@@ -63,7 +69,7 @@ class EngineConfig:
 
     def __post_init__(self):
         waiting = {
-            "matcher": self.matcher != "monte_carlo",
+            "matcher": self.matcher not in ("monte_carlo", "m3rsm"),
             "refine_matcher": self.refine_matcher is not None,
             "refine_cfg": self.refine_cfg is not None,
             "map_storage": self.map_storage != "dense",
@@ -87,19 +93,56 @@ class SlamState:
     pose: Tensor  # f32[3]
     step: Tensor  # i32[]
     last_prob: Tensor  # f32[]
+    #: the M3RSM matcher's live max-occupancy pyramid of the map (the
+    #: reference's RescalableCachingGridMap keeps its coarse caches current
+    #: on every write); empty when the matcher uses none
+    pyramid: tuple = ()
+
+
+def _uses_pyramid(cfg: EngineConfig) -> bool:
+    return cfg.matcher == "m3rsm"
+
+
+def _refresh_pyramid(cfg: EngineConfig, gm, pose: Tensor, pyramid: tuple, gate: Tensor) -> tuple:
+    """Re-pool the pyramid's region that a scan insert from ``pose`` can
+    touch, where ``gate`` > 0 (read on the device). A full rebuild where the
+    map's sides are not multiples of 2^levels or the footprint covers the map."""
+    mcfg = cfg.matcher_cfg
+    levels = mcfg.levels
+    unknown = mcfg.scoring.unknown_prob
+    view = scoring.MapView.of(gm, cfg.cell_model)
+    h, w = view.occ.shape
+    step = 1 << levels
+    # the insert's reach: the usable range and the wall blur's tail, which
+    # writes occupancy up to hole_width / 2 beyond the endpoint
+    reach = cfg.beam.max_range + cfg.beam.hole_width / 2.0
+    bbox = 2 * int(-(-reach // cfg.map_scale)) + 4
+    size = m3rsmlib.pyramid_refresh_size(bbox, levels, min(h, w))
+    if h % step or w % step or size >= min(h, w):
+        return m3rsmlib.build_pyramid(view, levels, unknown)
+    center = gridlib.world_to_cell(gm, pose[None, :2])[0]
+    return m3rsmlib.update_pyramid(pyramid, view, unknown, center, size, gate)
 
 
 def init_state(cfg: EngineConfig, device=None) -> SlamState:
-    """A fresh state on ``device`` (the card when none is named)."""
+    """A fresh state on ``device`` (the card when none is named); with the
+    M3RSM matcher its pyramid built and the search's constants made."""
     dev = resolve_device(device)
     gm = gridlib.make_grid_map(
         cfg.cell_model, cfg.map_height, cfg.map_width, cfg.map_scale, device=dev
     )
+    pyramid: tuple = ()
+    if _uses_pyramid(cfg):
+        mcfg = cfg.matcher_cfg
+        pyramid = m3rsmlib.build_pyramid(
+            scoring.MapView.of(gm, cfg.cell_model), mcfg.levels, mcfg.scoring.unknown_prob)
+        m3rsmlib.search_constants(mcfg, gm.scale, dev)
     return SlamState(
         gm=gm,
         pose=torch.zeros(3, dtype=torch.float32, device=dev),
         step=torch.zeros((), dtype=torch.int32, device=dev),
         last_prob=torch.zeros((), dtype=torch.float32, device=dev),
+        pyramid=pyramid,
     )
 
 
@@ -136,21 +179,28 @@ def slam_step(
 
     ``quality`` scales this scan's observation weight. ``noise`` f32[rounds,
     batch, 3] injects the matcher's standard normals; otherwise they come
-    from ``generator``.
+    from ``generator``. The M3RSM matcher matches against the state's
+    pyramid and draws nothing; the returned state holds new planes.
     """
     _, match_fn = matcherslib.MATCHERS[cfg.matcher]
     prior = compose(state.pose, odom_delta)
     pw = _point_weights(cfg, scan)
     view = scoring.MapView.of(state.gm, cfg.cell_model)
-    if cfg.match_window:
-        # one prior-centred window a match
+    pyramid = state.pyramid if _uses_pyramid(cfg) else ()
+    if cfg.match_window and not _uses_pyramid(cfg):
+        # one prior-centred window a match (M3RSM windows its own pyramid)
         view = scoring.window_view(view, prior[:2], cfg.match_window)
-    res = match_fn(view, scan, prior, generator, cfg.matcher_cfg, pw, noise)
+    live = {"pyramid": pyramid} if pyramid else {}
+    res = match_fn(view, scan, prior, generator, cfg.matcher_cfg, pw, noise, **live)
     w_obs, s_obs = raycast.scan_observation_planes(state.gm, res.pose, scan, cfg.beam)
     do_insert = (res.prob >= cfg.min_insert_prob) | (state.step == 0)
     q = torch.where(do_insert, quality, 0.0)
     gm = gridlib.apply_observations(state.gm, cfg.cell_model, q * w_obs, q * s_obs)
-    return SlamState(gm=gm, pose=res.pose, step=state.step + 1, last_prob=res.prob)
+    if pyramid:
+        # refreshed only where the insert changed cells (q > 0)
+        pyramid = _refresh_pyramid(cfg, gm, res.pose, pyramid, q)
+    return SlamState(gm=gm, pose=res.pose, step=state.step + 1, last_prob=res.prob,
+                     pyramid=pyramid)
 
 
 def run_sequence(

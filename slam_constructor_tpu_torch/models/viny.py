@@ -8,11 +8,16 @@ difference: the free-space fill is pinned to ``'polar'``. The reference's
 fill on its accelerator; a preset here names its algorithm. On the card
 every insert then goes through the ``polar_free_plane`` CUDA kernel and
 every score through ``overlap_score``.
+
+``viny_m3rsm_config`` is vinySLAM with the M3RSM global matcher (the
+reference's values; the DDA free fill, as the reference pins it).
 """
 
 from __future__ import annotations
 
-from ..ops import cells, matchers, raycast, scoring
+import math
+
+from ..ops import cells, m3rsm, matchers, raycast, scoring
 from .engine import Engine, EngineConfig
 
 
@@ -62,5 +67,46 @@ def make_engine(device=None, seed: int = 0, **kwargs) -> Engine:
     return Engine(viny_config(**kwargs), device=device, seed=seed)
 
 
-def viny_m3rsm_config(*args, **kwargs) -> EngineConfig:
-    raise NotImplementedError("viny_m3rsm_config waits for the M3RSM matcher's slice")
+def viny_m3rsm_config(
+    map_size: int = 256,
+    map_scale: float = 0.1,
+    usable_range: float = 5.0,
+    quality: float = 0.5,
+    hole_width: float = 0.3,
+    levels: int = 4,
+    n_theta: int = 9,
+    beam_width: int = 48,
+    half_xy: float = 0.6,
+    half_theta: float = 0.2,
+    stride: int = 2,
+    use_angle_histogram: bool = True,
+    reducer: str = "overlap",
+) -> EngineConfig:
+    """vinySLAM with the M3RSM global matcher on every scan, the
+    reference's values: beams capped at the usable range, a prior-centred
+    search window sized so that the windowed level scoring is exact (it
+    covers the scan's reach from anywhere in the search region, rounded up
+    to 2^levels), and the DDA free fill, as the reference pins it (its
+    polar fill's halo around walls aliases the global search)."""
+    step = 1 << levels
+    reach = math.ceil((usable_range + hole_width / 2) / map_scale)
+    need = 2 * (reach + math.ceil(half_xy / map_scale) + step)
+    window = min(-(-need // step) * step, map_size)
+    return EngineConfig(
+        cell_model=cells.TBMCell(quality=quality),
+        matcher="m3rsm",
+        matcher_cfg=m3rsm.M3RSMConfig(
+            half_x=half_xy, half_y=half_xy, half_theta=half_theta,
+            n_theta=n_theta, levels=levels, beam_width=beam_width,
+            window=window,
+            scoring=scoring.ScoringConfig(reducer=reducer, stride=stride),
+        ),
+        beam=raycast.BeamConfig(
+            max_range=usable_range, occupancy_estimator="const",
+            hole_width=hole_width, wall_blur=True, free_impl="dda",
+        ),
+        map_height=map_size,
+        map_width=map_size,
+        map_scale=map_scale,
+        use_angle_histogram=use_angle_histogram,
+    )

@@ -20,6 +20,15 @@ particles, each match with the bits of a single ``mc_match``.
 read in place, with no window cut out first. ``mc_match_rounds`` is the same match with ``overlap_score`` launched once
 a round, kept as the yardstick the fused kernels must equal bit for bit.
 
+``m3rsm_pyramid`` builds M3RSM's max-pooled occupancy pyramid of one map
+or of M maps in one launch (``csrc/m3rsm_pyramid.cu``, K4a), and
+``m3rsm_pyramid_update`` refreshes one aligned region of it in place, gated
+by a flag on the device. ``m3rsm_score_level`` scores a branch-and-bound
+frontier's rects at one level of the pyramid for B requests in one launch
+(``csrc/m3rsm_level.cu``, K4b). The reference compiled both with XLA
+(``slam_constructor_tpu/ops/m3rsm.py``: ``build_pyramid``,
+``update_pyramid``, ``_score_level``); no Pallas kernel stood there.
+
 ``polar_free_plane`` fills the dense polar free-space weight plane of one
 scan. It replaces ``pallas_kernels.py::polar_free_lookup`` together with
 the plane math that ``raycast._polar_free_plane_pallas`` computes around
@@ -53,7 +62,7 @@ _MAX_SHARED_BYTES = 48 * 1024
 #: its own name whatever name it was called by.
 _LAUNCHES = dict.fromkeys(
     ("overlap_score", "overlap_score_batched", "mc_match", "mc_match_batched",
-     "polar_free_plane"), 0
+     "polar_free_plane", "m3rsm_pyramid", "m3rsm_level"), 0
 )
 
 
@@ -156,6 +165,23 @@ def _check(
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _cell_stride(name: str, occ: Tensor, device: torch.device) -> int:
+    """The floats from one cell of ``occ`` f32[..., H, W] to the next:
+    1 when it is contiguous, C when it is a channel of contiguous cells
+    f32[..., H, W, C] (``BayesAvgCell``'s occupancy); raises otherwise."""
+    if occ.dtype != torch.float32:
+        raise TypeError(f"occ must be torch.float32, got {occ.dtype}")
+    stride = occ.stride(-1)
+    want = [stride]
+    for n in reversed(occ.shape[1:]):
+        want.insert(0, want[0] * n)
+    if occ.device != device or stride < 1 or any(
+            n > 1 and s != x for n, s, x in zip(occ.shape, occ.stride(), want)):
+        raise ValueError(f"{name}: occ must be contiguous or a channel of contiguous cells, "
+                         f"got strides {occ.stride()}")
+    return stride
 
 
 #: most maps one launch takes: they lie on the grid's y axis
@@ -416,15 +442,7 @@ def _mc_match_launch(name, lead, occ, window, pts, beam_w, origin, init_pose, no
         known, row, col, sh, sw = window
         if not (1 <= sh <= h and 1 <= sw <= w):
             raise ValueError(f"{name}: a {sh} x {sw} window of a {h} x {w} map")
-        if occ.dtype != torch.float32:
-            raise TypeError(f"occ must be torch.float32, got {occ.dtype}")
-        # occ may be a channel of contiguous cells: a float every `stride`
-        stride = occ.stride(-1)
-        want = (h * w * stride, w * stride, stride)
-        if occ.device != dev or stride < 1 or any(
-                n > 1 and s != x for n, s, x in zip(occ.shape, occ.stride(), want)):
-            raise ValueError(f"{name}: occ must be contiguous or a channel of contiguous cells, "
-                             f"got strides {occ.stride()}")
+        stride = _cell_stride(name, occ, dev)
         _check("known", known, (*lead, h, w), dev, torch.bool)
         _check("row", row, lead, dev, torch.int64)
         _check("col", col, lead, dev, torch.int64)
@@ -726,4 +744,265 @@ def polar_free_plane(
     if err != 0:
         raise RuntimeError(f"polar_free_plane kernel launch failed: cudaError_t {err}")
     _LAUNCHES["polar_free_plane"] += 1
+    return out
+
+
+# --- M3RSM: the pyramid (K4a) and the level score (K4b) -----------------------
+
+#: most levels above the finest that ``m3rsm_pyramid`` builds: a block pools
+#: a tile of 2^levels x 2^levels cells in shared memory (m3rsm_pyramid.cu)
+M3RSM_MAX_LEVELS = 6
+
+
+def pyramid_shapes(h: int, w: int, levels: int) -> list[tuple[int, int]]:
+    """(rows, cols) of each level: a level halves the one below, an odd
+    side padded first."""
+    shapes = [(h, w)]
+    for _ in range(levels):
+        h, w = (h + 1) // 2, (w + 1) // 2
+        shapes.append((h, w))
+    return shapes
+
+
+def _max_pool2(p: Tensor, unknown: float) -> Tensor:
+    """The 2 x 2 max of ``p`` f32[..., H, W], an odd side padded with
+    ``unknown`` first; NaN propagates."""
+    h, w = p.shape[-2:]
+    p = torch.nn.functional.pad(p, (0, w % 2, 0, h % 2), value=unknown)
+    h2, w2 = p.shape[-2] // 2, p.shape[-1] // 2
+    return p.reshape(*p.shape[:-2], h2, 2, w2, 2).amax(dim=(-3, -1))
+
+
+def m3rsm_pyramid_ref(occ: Tensor, known: Tensor, levels: int, unknown: float) -> tuple:
+    """Plain PyTorch version of :func:`m3rsm_pyramid`: level 0
+    ``where(known, occ, unknown)``, each level above the 2 x 2 max of the
+    one below (``_max_pool2``)."""
+    planes = [torch.where(known, occ, unknown)]
+    for _ in range(levels):
+        planes.append(_max_pool2(planes[-1], unknown))
+    return tuple(planes)
+
+
+def _update_region(center_rc: Tensor, size: int, h: int, w: int, step: int):
+    """The refreshed region's first cell of each map (rows, cols i64[M]):
+    ``clip(center - size // 2, 0, dim - size)`` aligned down to ``step``."""
+    r0 = torch.clamp(center_rc[..., 0].to(torch.int64) - size // 2, 0, h - size)
+    c0 = torch.clamp(center_rc[..., 1].to(torch.int64) - size // 2, 0, w - size)
+    return (r0 // step * step).reshape(-1), (c0 // step * step).reshape(-1)
+
+
+def m3rsm_pyramid_update_ref(planes: tuple, occ: Tensor, known: Tensor, center_rc: Tensor,
+                             size: int, unknown: float, gate: Tensor | None = None) -> tuple:
+    """Plain PyTorch version of :func:`m3rsm_pyramid_update`: the region
+    cut out, pooled level by level and written back, map by map (the
+    region's corner is read on the host)."""
+    levels = len(planes) - 1
+    h, w = planes[0].shape[-2:]
+    flat = [p.view(-1, *p.shape[-2:]) for p in planes]
+    occ = occ.reshape(-1, h, w)
+    known = known.reshape(-1, h, w)
+    rows, cols = _update_region(center_rc, size, h, w, 1 << levels)
+    gates = None if gate is None else gate.reshape(-1)
+    for m in range(flat[0].shape[0]):
+        if gates is not None and not bool(gates[m] > 0):
+            continue
+        r0, c0 = int(rows[m]), int(cols[m])
+        reg = torch.where(known[m, r0:r0 + size, c0:c0 + size],
+                          occ[m, r0:r0 + size, c0:c0 + size], unknown)
+        for lvl, plane in enumerate(flat):
+            if lvl:
+                reg, r0, c0 = _max_pool2(reg, unknown), r0 // 2, c0 // 2
+            plane[m, r0:r0 + reg.shape[0], c0:c0 + reg.shape[1]] = reg
+    return planes
+
+
+@functools.cache
+def _m3rsm_pyramid_fn():
+    fn = _build.load().m3rsm_pyramid_launch
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,  # occ, its cell stride, known
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # m, h, w, levels
+        ctypes.c_float, ctypes.POINTER(ctypes.c_void_p),  # unknown, the planes
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,  # center, size, gate
+        ctypes.c_void_p,  # stream
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _m3rsm_pyramid_launch(occ, known, planes, unknown, center_rc=None, size=0, gate=None):
+    """Checks the inputs (occ and known [H, W] or [M, H, W], the planes
+    [..., Hl, Wl] with the same leading shape), launches the kernel once
+    and adds one to the ``m3rsm_pyramid`` count."""
+    dev = occ.device
+    if dev.type != "cuda":
+        raise ValueError(f"m3rsm_pyramid: unsupported device {dev}")
+    lead, (h, w) = tuple(occ.shape[:-2]), occ.shape[-2:]
+    if len(lead) > 1:
+        raise ValueError(f"m3rsm_pyramid: occ {tuple(occ.shape)} is not (H, W) or (M, H, W)")
+    levels = len(planes) - 1
+    if not 0 <= levels <= M3RSM_MAX_LEVELS:
+        raise ValueError(f"m3rsm_pyramid: {levels} levels, at most {M3RSM_MAX_LEVELS}")
+    n_m = lead[0] if lead else 1
+    if not 1 <= n_m <= _MAX_MAPS:
+        raise ValueError(f"m3rsm_pyramid: {n_m} maps, not between 1 and {_MAX_MAPS} a launch")
+    stride = _cell_stride("m3rsm_pyramid", occ, dev)
+    _check("known", known, (*lead, h, w), dev, torch.bool)
+    for lvl, ((hl, wl), p) in enumerate(zip(pyramid_shapes(h, w, levels), planes)):
+        _check(f"plane {lvl}", p, (*lead, hl, wl), dev)
+    if center_rc is not None:
+        _check("center_rc", center_rc, (*lead, 2), dev, torch.int64)
+        if gate is not None:
+            _check("gate", gate, lead, dev)
+    ptrs = (ctypes.c_void_p * (levels + 1))(*(p.data_ptr() for p in planes))
+    fn = _m3rsm_pyramid_fn()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(occ.data_ptr(), stride, known.data_ptr(), n_m, h, w, levels, unknown, ptrs,
+                 ptr(center_rc), size, ptr(gate), stream)
+    if err != 0:
+        raise RuntimeError(f"m3rsm_pyramid kernel launch failed: cudaError_t {err}")
+    _LAUNCHES["m3rsm_pyramid"] += 1
+    return planes
+
+
+def m3rsm_pyramid(occ: Tensor, known: Tensor, levels: int, unknown: float) -> tuple:
+    """M3RSM's max-occupancy pyramid: ``levels + 1`` planes, level 0
+    ``where(known, occ, unknown)`` f32[..., H, W], level l f32[..., ceil(H /
+    2^l), ceil(W / 2^l)] the 2 x 2 max of level l - 1 with an odd side
+    padded with ``unknown``. occ f32[H, W] or f32[M, H, W] (contiguous, or a
+    channel of contiguous cells), known bool of the same shape: M maps in
+    one launch.
+
+    CPU tensors take the plain twin; CUDA tensors launch the kernel on the
+    current stream and add one to the ``m3rsm_pyramid`` count of
+    :func:`launch_counts`.
+    """
+    if occ.device.type == "cpu":
+        return m3rsm_pyramid_ref(occ, known, levels, unknown)
+    lead, (h, w) = tuple(occ.shape[:-2]), occ.shape[-2:]
+    planes = tuple(torch.empty((*lead, hl, wl), dtype=torch.float32, device=occ.device)
+                   for hl, wl in pyramid_shapes(h, w, levels))
+    return _m3rsm_pyramid_launch(occ, known, planes, unknown)
+
+
+def m3rsm_pyramid_update(planes: tuple, occ: Tensor, known: Tensor, center_rc: Tensor,
+                         size: int, unknown: float, gate: Tensor | None = None) -> tuple:
+    """Refresh ``planes`` (a pyramid of :func:`m3rsm_pyramid`'s shapes) IN
+    PLACE over the ``size x size`` region around ``center_rc`` i64[2] (row,
+    col; i64[M, 2] for M maps): its first cell ``clip(center - size // 2,
+    0, dim - size)`` aligned down to ``2^levels``, as the reference's
+    ``update_pyramid`` places it. The map's sides and ``size`` must be
+    multiples of ``2^levels``. Where ``gate`` f32[] (f32[M]) is given, only
+    the maps whose gate is above 0 are touched; it is read on the device.
+    Returns ``planes``.
+
+    CPU tensors take the plain twin; CUDA tensors launch the kernel on the
+    current stream and add one to the ``m3rsm_pyramid`` count of
+    :func:`launch_counts`.
+    """
+    h, w = planes[0].shape[-2:]
+    step = 1 << (len(planes) - 1)
+    if h % step or w % step or size % step or not 0 < size <= min(h, w):
+        raise ValueError(f"m3rsm_pyramid_update: a {h} x {w} map and a {size}-cell region "
+                         f"must be multiples of 2^levels = {step}, the region inside the map")
+    if occ.device.type == "cpu":
+        return m3rsm_pyramid_update_ref(planes, occ, known, center_rc, size, unknown, gate)
+    return _m3rsm_pyramid_launch(occ, known, planes, unknown, center_rc, size, gate)
+
+
+def m3rsm_score_level_ref(plane: Tensor, corner: Tensor, level: int, wh: int, ww: int,
+                          c0: Tensor, cands: Tensor, mask: Tensor, unknown: float) -> Tensor:
+    """Plain PyTorch version of :func:`m3rsm_score_level`: the reference's
+    ``_score_level`` (``grid.gather_plane`` on the window, the max over the
+    rect's corner cells, the weighted mean) on every request at once."""
+    n_b = c0.shape[0]
+    dev = c0.device
+    b = torch.arange(n_b, device=dev)
+    base = c0[b[:, None], cands[..., 0].long()]  # [B, K, R, 2]
+    fine = base + cands[:, :, None, 1:]
+    e = (1 << level) - 1
+    corners = torch.tensor([[0, 0]] if e == 0 else [[0, 0], [0, e], [e, 0], [e, e]],
+                           dtype=torch.int32, device=dev)
+    idx = (fine[..., None, :] + corners) >> level  # [B, K, R, C, 2]
+    # the window is cut out first in the reference: a cell off it reads unknown
+    wh = torch.clamp(plane.shape[-2] - (corner[:, 0] >> level), max=wh)
+    ww = torch.clamp(plane.shape[-1] - (corner[:, 1] >> level), max=ww)
+    shape = (n_b, 1, 1, 1)
+    ok = ((idx[..., 0] >= 0) & (idx[..., 0] < wh.reshape(shape))
+          & (idx[..., 1] >= 0) & (idx[..., 1] < ww.reshape(shape)))
+    rows = torch.clamp(idx[..., 0] + (corner[:, 0] >> level).reshape(shape), 0,
+                       plane.shape[-2] - 1)
+    cols = torch.clamp(idx[..., 1] + (corner[:, 1] >> level).reshape(shape), 0,
+                       plane.shape[-1] - 1)
+    pm = b.reshape(shape) if plane.shape[0] > 1 else torch.zeros_like(b).reshape(shape)
+    vals = torch.where(ok, plane[pm, rows.long(), cols.long()], unknown).amax(-1)
+    return (vals * mask[:, None, :]).sum(-1) / torch.clamp(mask.sum(-1, keepdim=True), min=1e-9)
+
+
+@functools.cache
+def _m3rsm_level_fn():
+    fn = _build.load().m3rsm_level_launch
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # plane, planes, hp, wp
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # corner, level, wh, ww
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # c0, n_t, r
+        ctypes.c_void_p, ctypes.c_int,  # cands, k
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_float,  # mask, b, unknown
+        ctypes.c_void_p, ctypes.c_void_p,  # out, stream
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def m3rsm_score_level(plane: Tensor, corner: Tensor, level: int, wh: int, ww: int,
+                      c0: Tensor, cands: Tensor, mask: Tensor, unknown: float) -> Tensor:
+    """Score the rects ``cands`` i32[B, K, 3] (theta index, row and col
+    offset in level-0 cells) of B requests at pyramid level ``level`` ->
+    f32[B, K]: for every beam the max of the level plane over the rect's
+    corner cells ``(c0[b, t] + (ty, tx) + d) >> level``, then the
+    ``mask``-weighted mean over the beams.
+
+    plane f32[1, Hp, Wp] (shared by the requests) or f32[B, Hp, Wp], read in
+    place; corner i32[B, 2] the level-0 cell at which request b's window
+    starts (``corner >> level`` at this level) and ``wh x ww`` its extent at
+    this level: a cell off the window reads ``unknown``; c0 i32[B, T, R, 2]
+    the endpoint cells (row, col) at each theta, relative to the window;
+    mask f32[B, R].
+
+    CPU tensors take the plain twin; CUDA tensors launch the kernel on the
+    current stream, once for all B, and add one to the ``m3rsm_level``
+    count of :func:`launch_counts`.
+    """
+    if plane.device.type == "cpu":
+        return m3rsm_score_level_ref(plane, corner, level, wh, ww, c0, cands, mask, unknown)
+    dev = plane.device
+    if dev.type != "cuda":
+        raise ValueError(f"m3rsm_score_level: unsupported device {dev}")
+    n_b, n_t, r = c0.shape[:3]
+    k = cands.shape[1]
+    n_p, hp, wp = plane.shape
+    if n_p not in (1, n_b) or not 1 <= n_b <= _MAX_MAPS:
+        raise ValueError(f"m3rsm_score_level: {n_p} planes for {n_b} requests")
+    _check("plane", plane, (n_p, hp, wp), dev)
+    _check("corner", corner, (n_b, 2), dev, torch.int32)
+    _check("c0", c0, (n_b, n_t, r, 2), dev, torch.int32)
+    _check("cands", cands, (n_b, k, 3), dev, torch.int32)
+    _check("mask", mask, (n_b, r), dev)
+    out = torch.empty((n_b, k), dtype=torch.float32, device=dev)
+    if k == 0:
+        return out
+    fn = _m3rsm_level_fn()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(plane.data_ptr(), n_p, hp, wp, corner.data_ptr(), level, wh, ww, c0.data_ptr(),
+                 n_t, r, cands.data_ptr(), k, mask.data_ptr(), n_b, unknown, out.data_ptr(),
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"m3rsm_score_level kernel launch failed: cudaError_t {err}")
+    _LAUNCHES["m3rsm_level"] += 1
     return out

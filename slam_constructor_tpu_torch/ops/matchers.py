@@ -10,11 +10,13 @@ leading particle dimension it matches P (map, scan, prior) triples in one
 launch of ``kernels.mc_match_batched``, or of ``kernels.mc_match_windows``
 on windows of the maps read in place: the RBPF's form.
 
-Brute force: an exhaustive (x, y, theta) grid around the prior, scored in
-one call. With a leading map dimension on view, scan and prior it matches M
-(map, scan, prior) triples at once, in one launch of the map-batched score
-kernel: the loop closer's form. Hill-climbing and gradient matchers wait
-for later slices.
+Hill climbing: coordinate descent from the prior, six axis steps scored a
+round in one call, the steps halved after a round without gain (M3RSM's
+refine). Brute force: an exhaustive (x, y, theta) grid around the prior,
+scored in one call. Both take a leading map dimension on view, scan and
+prior and then match M (map, scan, prior) triples at once, one launch of
+the map-batched score kernel a call: the loop closer's form. The gradient
+matcher waits for a later slice; M3RSM lives in ``m3rsm.py``.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import dataclasses
 
 import torch
 
+from ..device import constant
 from . import kernels, scoring
 from .geometry import linspace, wrap_angle
 
@@ -100,6 +103,63 @@ def monte_carlo_match(
 
 
 @dataclasses.dataclass(frozen=True)
+class HillClimbingConfig:
+    step_xy: float = 0.1
+    step_theta: float = 0.05
+    iterations: int = 12
+    #: step shrink factor applied when no axis improves
+    shrink: float = 0.5
+    scoring: scoring.ScoringConfig = scoring.ScoringConfig()
+
+
+#: the six axis steps of a hill-climbing round, in the reference's order
+_AXIS_STEPS = ((1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1), (0, 0, -1))
+
+
+def hill_climbing_match(
+    view: scoring.MapView,
+    scan,
+    init_pose: Tensor,
+    generator: torch.Generator | None = None,
+    cfg: HillClimbingConfig = HillClimbingConfig(),
+    point_weights: Tensor | None = None,
+    noise: Tensor | None = None,
+) -> MatchResult:
+    """Refine ``init_pose`` f32[3]: each round scores the six poses one
+    step along each axis (theta wrapped), moves to the best (ties to the
+    first) if it is strictly better, else halves (``shrink``) every step.
+    Deterministic, so ``generator`` and ``noise`` are ignored. The view is
+    prepared once; a round is one score call, ``1 + iterations`` in all.
+    With a leading map dimension (view of M maps, scan [M, R], ``init_pose``
+    f32[M, 3]) every triple climbs on its own map, each score call one
+    launch for all M: pose f32[M, 3], prob f32[M], trace f32[M, iterations].
+    """
+    del generator, noise
+    dev = init_pose.device
+    prep = scoring.prepare(view, scan, cfg.scoring, point_weights)
+    prob = scoring.score_prepared(prep, init_pose[..., None, :])[..., 0]
+    units = constant(_AXIS_STEPS, torch.float32, dev)
+    steps = constant((cfg.step_xy, cfg.step_xy, cfg.step_theta), torch.float32, dev)
+    steps = steps.expand(*init_pose.shape[:-1], 3)
+    pose, trace = init_pose, []
+    for _ in range(cfg.iterations):
+        cand = pose[..., None, :] + units * steps[..., None, :]
+        cand = torch.cat([cand[..., :2], wrap_angle(cand[..., 2:])], dim=-1)
+        probs = scoring.score_prepared(prep, cand)
+        i = torch.argmax(probs, dim=-1, keepdim=True)  # ties -> first index
+        p_i = probs.gather(-1, i)[..., 0]
+        better = p_i > prob
+        won = cand.gather(-2, i[..., None].expand(*i.shape, 3))[..., 0, :]
+        pose = torch.where(better[..., None], won, pose)
+        prob = torch.where(better, p_i, prob)
+        steps = torch.where(better[..., None], steps, steps * cfg.shrink)
+        trace.append(prob)
+    trace = (torch.stack(trace, dim=-1) if trace
+             else torch.empty((*init_pose.shape[:-1], 0), dtype=torch.float32, device=dev))
+    return MatchResult(pose=pose, prob=prob, trace=trace)
+
+
+@dataclasses.dataclass(frozen=True)
 class BruteForceConfig:
     half_x: float = 0.5
     half_y: float = 0.5
@@ -147,8 +207,10 @@ def brute_force_match(
     )
 
 
-#: registry for the config system; the other matchers join in later slices
+#: registry for the config system; ``m3rsm.py`` adds "m3rsm", the gradient
+#: matcher joins in a later slice
 MATCHERS = {
     "monte_carlo": (MonteCarloConfig, monte_carlo_match),
+    "hill_climbing": (HillClimbingConfig, hill_climbing_match),
     "brute_force": (BruteForceConfig, brute_force_match),
 }

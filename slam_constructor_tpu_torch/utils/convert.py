@@ -3,7 +3,9 @@
 A reference ``SlamState`` crosses as a dict of numpy arrays:
 ``cells`` f32[H, W, C] (C = the cell model's belief channels + 1: 2 for the
 Bayes cells, 5 for the TBM cell), ``origin`` f32[2], ``scale`` float,
-``pose`` f32[3], ``step`` int, ``last_prob`` float. The reference's PRNG key is not
+``pose`` f32[3], ``step`` int, ``last_prob`` float, and with the M3RSM
+matcher ``pyramid``, the tuple of its f32 planes (absent or empty
+otherwise). The reference's PRNG key is not
 carried over: its role moves to the ``Engine``'s ``torch.Generator``, or to
 noise injected into ``slam_step``.
 
@@ -46,6 +48,7 @@ def state_from_numpy(tree: dict, device=None) -> SlamState:
         pose=f32(tree["pose"]),
         step=torch.tensor(np.asarray(tree["step"], np.int32), device=device),
         last_prob=f32(tree["last_prob"]),
+        pyramid=tuple(f32(p) for p in tree.get("pyramid", ())),
     )
 
 
@@ -58,6 +61,7 @@ def state_to_numpy(state: SlamState) -> dict:
         "pose": state.pose.cpu().numpy(),
         "step": int(state.step),
         "last_prob": float(state.last_prob),
+        "pyramid": tuple(p.cpu().numpy() for p in state.pyramid),
     }
 
 

@@ -21,6 +21,7 @@ from slam_constructor_tpu.models import tiny as jtiny
 from slam_constructor_tpu.models import viny as jviny
 from slam_constructor_tpu.ops import cells as jcells
 from slam_constructor_tpu.ops import grid as jgrid
+from slam_constructor_tpu.ops import m3rsm as jm3
 from slam_constructor_tpu.ops import matchers as jmatch
 from slam_constructor_tpu.ops import raycast as jray
 from slam_constructor_tpu.ops import scoring as jscore
@@ -31,6 +32,7 @@ from slam_constructor_tpu_torch.models import tiny as ttiny
 from slam_constructor_tpu_torch.models import viny as tviny
 from slam_constructor_tpu_torch.ops import cells as tcells
 from slam_constructor_tpu_torch.ops import grid as tgrid
+from slam_constructor_tpu_torch.ops import m3rsm as tm3
 from slam_constructor_tpu_torch.ops import matchers as tmatch
 from slam_constructor_tpu_torch.ops import raycast as tray
 from slam_constructor_tpu_torch.ops import scoring as tscore
@@ -117,6 +119,8 @@ PAIRS = [
     (jcells.BayesBaseCell, tcells.BayesBaseCell),
     (jcells.TBMCell, tcells.TBMCell),
     (jmatch.BruteForceConfig, tmatch.BruteForceConfig),
+    (jmatch.HillClimbingConfig, tmatch.HillClimbingConfig),
+    (jm3.M3RSMConfig, tm3.M3RSMConfig),
     (jpg.PoseGraphConfig, tpg.PoseGraphConfig),
     (jfull.FullConfig, tfull.FullConfig),
 ]
@@ -190,16 +194,30 @@ def test_viny_config_lockstep():
     assert t.use_angle_histogram and t.matcher_cfg.rounds == 4 and t.matcher_cfg.scoring.stride == 3
 
 
+def test_viny_m3rsm_config_lockstep():
+    """The same tree as the reference's preset, at its defaults and at the
+    sizes of the tests and of the smoke run (the free fill pinned to 'dda'
+    on both sides)."""
+    for kwargs in ({}, dict(map_size=128), dict(map_size=128, usable_range=3.0, levels=3)):
+        assert _as_tree(tviny.viny_m3rsm_config(**kwargs)) == _as_tree(
+            jviny.viny_m3rsm_config(**kwargs))
+    cfg = tviny.viny_m3rsm_config()
+    assert cfg.matcher == "m3rsm" and cfg.beam.free_impl == "dda"
+    assert cfg.matcher_cfg.window == 160 and cfg.matcher_cfg.beam_width == 48
+
+
 @pytest.mark.parametrize(
     "make",
     [
         lambda: teng.EngineConfig(map_storage="tiled"),
-        lambda: tpg.PoseGraphConfig(loop_matcher_kind="m3rsm"),
+        # the reference's grid-pitch fallback for M3RSM is a known fault (trap e)
+        lambda: tpg.PoseGraphConfig(loop_matcher_kind="m3rsm", loop_subcell_refine=True),
         lambda: teng.EngineConfig(refine_matcher="hill_climbing"),
-        lambda: teng.EngineConfig(matcher="m3rsm"),
+        lambda: teng.EngineConfig(matcher="hill_climbing"),
         lambda: tray.BeamConfig(free_impl="auto"),
         lambda: tray.BeamConfig(free_impl="polar_pallas"),
-        lambda: tviny.viny_m3rsm_config(),
+        # the reference's pipeline keeps the pyramid of the map from before a closure
+        lambda: tfull.FullConfig(tracking=tviny.viny_m3rsm_config()),
     ],
 )
 def test_fields_of_later_slices_raise(make):

@@ -22,7 +22,9 @@ kernel with a cluster a match: every match equals a single ``mc_match``
 launch (and ``mc_match_rounds``) on its slices bit for bit, and its twin as
 ``mc_match``'s does. ``mc_match_windows`` is the same kernel reading each
 match's window of its map in place: it equals the same windows cut out,
-bit for bit.
+bit for bit. ``m3rsm_pyramid`` (a max, exact) equals its twin bit for bit,
+whole and in a refreshed region; ``m3rsm_score_level`` sums a rect's beams
+in another order than its twin: atol 2e-6.
 """
 
 import pytest
@@ -394,3 +396,103 @@ def test_mc_match_windows_rejects_bad_input(scene):
         kernels.mc_match_windows(occ, known, args[2][:1], *args[3:])
     with pytest.raises(ValueError):  # a round without a candidate
         kernels.mc_match_windows(*args[:10], args[10][:, :, :0].contiguous(), *args[11:])
+
+
+# --- M3RSM: the pyramid (K4a) and the level score (K4b) -----------------------
+
+
+def _random_plane(g, shape, dev):
+    occ = torch.rand(shape, generator=g, device=dev)
+    known = torch.rand(shape, generator=g, device=dev) < 0.7
+    return occ, known
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,levels,channel", [
+    ((256, 256), 4, False), ((32, 120, 120), 3, False), ((100, 90), 5, False),
+    ((96, 64), 6, False), ((256, 256), 4, True), ((5, 7), 2, False), ((40, 40), 0, False),
+])
+def test_m3rsm_pyramid_kernel_equals_twin(scene, shape, levels, channel):
+    _, _, cand, g = scene
+    occ, known = _random_plane(g, shape, cand.device)
+    if channel:  # the occupancy a channel of the cells, as the Bayes cell's
+        occ = torch.stack([occ, torch.zeros_like(occ)], dim=-1)[..., 0]
+    before = kernels.launch_counts()["m3rsm_pyramid"]
+    got = kernels.m3rsm_pyramid(occ, known, levels, 0.5)
+    want = kernels.m3rsm_pyramid_ref(occ, known, levels, 0.5)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["m3rsm_pyramid"] == before + 1
+    assert len(got) == levels + 1
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("center", [(128, 128), (0, 0), (255, 255), (0, 255), (255, 0), (7, 200)])
+def test_m3rsm_pyramid_update_equals_twin(scene, center):
+    """A 144^2 region of a 256^2 map at 4 levels (the main path's refresh),
+    clamped at each corner; a gate at 0 touches nothing."""
+    _, _, cand, g = scene
+    dev = cand.device
+    occ, known = _random_plane(g, (256, 256), dev)
+    planes = kernels.m3rsm_pyramid(occ, known, 4, 0.5)
+    occ2 = torch.where(torch.rand((256, 256), generator=g, device=dev) < 0.3, 0.9, occ)
+    c = torch.tensor(center, device=dev)
+    got = kernels.m3rsm_pyramid_update(tuple(p.clone() for p in planes), occ2, known, c, 144, 0.5,
+                                       torch.ones((), device=dev))
+    want = kernels.m3rsm_pyramid_update_ref(tuple(p.clone() for p in planes), occ2, known, c, 144,
+                                            0.5)
+    shut = kernels.m3rsm_pyramid_update(tuple(p.clone() for p in planes), occ2, known, c, 144,
+                                        0.5, torch.zeros((), device=dev))
+    torch.cuda.synchronize()
+    for a, b, p, z in zip(got, want, planes, shut):
+        assert torch.equal(a, b) and torch.equal(z, p)
+    assert not torch.equal(got[0], planes[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_b,shared,level", [(1, True, 0), (1, True, 2), (1, True, 4),
+                                              (3, True, 1), (4, False, 3), (4, False, 0)])
+def test_m3rsm_score_level_kernel_matches_twin(scene, n_b, shared, level):
+    _, _, cand, g = scene
+    dev = cand.device
+    occ, known = _random_plane(g, (n_b, 256, 256), dev)
+    planes = kernels.m3rsm_pyramid_ref(occ[:1] if shared else occ, known[:1] if shared else known,
+                                       4, 0.5)
+    s, n_t, r, k = 160, 9, 360, 192
+    corner = (torch.randint(0, 96 // 16 + 1, (n_b, 2), generator=g, device=dev) * 16).int()
+    c0 = torch.randint(-8, s + 8, (n_b, n_t, r, 2), generator=g, device=dev).int()
+    cands = torch.stack([torch.randint(0, n_t, (n_b, k), generator=g, device=dev),
+                         torch.randint(-20, 20, (n_b, k), generator=g, device=dev),
+                         torch.randint(-20, 20, (n_b, k), generator=g, device=dev)], -1).int()
+    mask = torch.rand((n_b, r), generator=g, device=dev) * (torch.arange(r, device=dev) % 2 == 0)
+    args = (planes[level].contiguous(), corner.contiguous(), level, s >> level, s >> level,
+            c0.contiguous(), cands.contiguous(), mask.contiguous(), 0.5)
+    before = kernels.launch_counts()["m3rsm_level"]
+    got = kernels.m3rsm_score_level(*args)
+    want = kernels.m3rsm_score_level_ref(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["m3rsm_level"] == before + 1
+    assert got.shape == (n_b, k)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
+    assert torch.equal(kernels.m3rsm_score_level(*args), got)
+
+
+@pytest.mark.cuda
+def test_m3rsm_kernels_reject_bad_input(scene):
+    _, _, cand, g = scene
+    dev = cand.device
+    occ, known = _random_plane(g, (64, 64), dev)
+    with pytest.raises(ValueError):
+        kernels.m3rsm_pyramid(occ, known, 7, 0.5)  # beyond the kernel's tile
+    with pytest.raises(ValueError):
+        kernels.m3rsm_pyramid(occ.t(), known, 3, 0.5)  # neither contiguous nor a channel
+    planes = kernels.m3rsm_pyramid(occ, known, 3, 0.5)
+    with pytest.raises(ValueError):  # a region that is not a multiple of 2^levels
+        kernels.m3rsm_pyramid_update(planes, occ, known, torch.tensor([5, 5], device=dev), 36,
+                                     0.5)
+    c0 = torch.zeros((1, 2, 8, 2), dtype=torch.int32, device=dev)
+    cands = torch.zeros((1, 4, 3), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        kernels.m3rsm_score_level(planes[0][None], torch.zeros((1, 2), device=dev), 0, 64, 64,
+                                  c0, cands, torch.ones((1, 8), device=dev), 0.5)

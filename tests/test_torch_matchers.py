@@ -205,3 +205,64 @@ def test_mc_match_rounds_equals_twin_on_cpu(setup):
             prep.scale, prep.unknown, 0.1, 0.05, 1)
     for a, b in zip(kernels.mc_match_rounds(*args), kernels.mc_match(*args)):
         assert torch.equal(a, b)
+
+
+# --- hill climbing (M3RSM's refine) -------------------------------------------
+
+
+@pytest.mark.parametrize("offset,step_xy,step_theta,iterations,stride", [
+    ([0.12, -0.06, 0.04], 0.1, 0.05, 8, 2),
+    ([-0.05, 0.03, -0.02], 0.05, 0.0125, 12, 1),
+    ([0.0, 0.0, 0.0], 0.1, 0.05, 0, 2),
+])
+def test_hill_climbing_matches_reference(setup, offset, step_xy, step_theta, iterations, stride):
+    """One map: the same steps taken round by round (pose 1e-5, prob and
+    trace 2e-6: the scores' sum order), 0 rounds included."""
+    jview, js, tview, ts, true = setup
+    init = (true + np.asarray(offset, np.float32)).astype(np.float32)
+    sc = dict(reducer="overlap", window=1, stride=stride)
+    jcfg = jmatch.HillClimbingConfig(step_xy=step_xy, step_theta=step_theta,
+                                     iterations=iterations, scoring=jscore.ScoringConfig(**sc))
+    tcfg = tmatch.HillClimbingConfig(step_xy=step_xy, step_theta=step_theta,
+                                     iterations=iterations, scoring=tscore.ScoringConfig(**sc))
+    want = jax.jit(lambda v, s, p: jmatch.hill_climbing_match(v, s, p, None, jcfg))(
+        jview, js, jnp.asarray(init))
+    got = tmatch.hill_climbing_match(tview, ts, torch.from_numpy(init), None, tcfg)
+    np.testing.assert_allclose(got.pose.numpy(), np.asarray(want.pose), atol=1e-5)
+    np.testing.assert_allclose(float(got.prob), float(want.prob), atol=2e-6)
+    assert got.trace.shape == (iterations,)
+    np.testing.assert_allclose(got.trace.numpy(), np.asarray(want.trace), atol=2e-6)
+    assert tmatch.MATCHERS["hill_climbing"] == (tmatch.HillClimbingConfig,
+                                                tmatch.hill_climbing_match)
+
+
+def test_hill_climbing_over_m_maps(setup):
+    """Three maps with a prior each (the loop closer's form): each equals a
+    single climb on its own map bit for bit, and the reference ``vmap``ped
+    within the single-map tolerances."""
+    jview, js, tview, ts, true = setup
+    sc = dict(reducer="overlap", window=1, stride=2)
+    jcfg = jmatch.HillClimbingConfig(scoring=jscore.ScoringConfig(**sc), iterations=6)
+    tcfg = tmatch.HillClimbingConfig(scoring=tscore.ScoringConfig(**sc), iterations=6)
+    offs = np.array([[0.12, -0.06, 0.04], [-0.1, 0.05, -0.05], [0.05, 0.1, 0.0]], np.float32)
+    inits = (true + offs).astype(np.float32)
+    occ = np.stack([np.array(jview.occ), np.array(jview.occ)[::-1], np.array(jview.occ)])
+    known = np.stack([np.array(jview.known), np.array(jview.known)[::-1],
+                      np.array(jview.known)])
+    origin = np.array(jview.origin) + np.array([[0, 0], [0.1, 0], [0, -0.1]], np.float32)
+    jmaps = jscore.MapView(occ=jnp.asarray(occ), known=jnp.asarray(known),
+                           origin=jnp.asarray(origin), scale=jview.scale)
+    want = jax.jit(jax.vmap(lambda v, p: jmatch.hill_climbing_match(v, js, p, None, jcfg)))(
+        jmaps, jnp.asarray(inits))
+    tmaps = tscore.MapView(occ=torch.from_numpy(occ.copy()), known=torch.from_numpy(known.copy()),
+                           origin=torch.from_numpy(origin), scale=tview.scale)
+    scans = tscan.LaserScan(*(a.expand(3, -1) for a in (ts.ranges, ts.bearings, ts.valid)))
+    got = tmatch.hill_climbing_match(tmaps, scans, torch.from_numpy(inits), None, tcfg)
+    assert got.pose.shape == (3, 3) and got.prob.shape == (3,) and got.trace.shape == (3, 6)
+    for m in range(3):
+        one = tmatch.hill_climbing_match(
+            tscore.MapView(tmaps.occ[m], tmaps.known[m], tmaps.origin[m], tview.scale), ts,
+            torch.from_numpy(inits[m]), None, tcfg)
+        assert torch.equal(got.pose[m], one.pose) and torch.equal(got.trace[m], one.trace)
+    np.testing.assert_allclose(got.pose.numpy(), np.asarray(want.pose), atol=1e-5)
+    np.testing.assert_allclose(got.prob.numpy(), np.asarray(want.prob), atol=2e-6)

@@ -37,6 +37,7 @@ import torch
 from slam_constructor_tpu.models import posegraph as jpg
 from slam_constructor_tpu.ops import cells as jcells
 from slam_constructor_tpu.ops import grid as jgrid
+from slam_constructor_tpu.ops import m3rsm as jm3
 from slam_constructor_tpu.ops import matchers as jmatch
 from slam_constructor_tpu.ops import raycast as jray
 from slam_constructor_tpu.ops import scoring as jscore
@@ -44,6 +45,7 @@ from slam_constructor_tpu.ops.scan import LaserScan as JScan
 from slam_constructor_tpu_torch.models import posegraph as tpg
 from slam_constructor_tpu_torch.ops import cells as tcells
 from slam_constructor_tpu_torch.ops import grid as tgrid
+from slam_constructor_tpu_torch.ops import m3rsm as tm3
 from slam_constructor_tpu_torch.ops import matchers as tmatch
 from slam_constructor_tpu_torch.ops import raycast as tray
 from slam_constructor_tpu_torch.ops import scoring as tscore
@@ -70,6 +72,18 @@ def configs(**kw):
         **BF, scoring=jscore.ScoringConfig(reducer="overlap", stride=2)))
     t = tpg.PoseGraphConfig(**kw, loop_matcher=tmatch.BruteForceConfig(
         **BF, scoring=tscore.ScoringConfig(reducer="overlap", stride=2)))
+    return j, t
+
+
+def m3_configs(**kw):
+    """The M3RSM loop matcher of the reference's own test
+    (``tests/test_posegraph.py:451-455``)."""
+    kw = {**KW, **kw, "loop_matcher_kind": "m3rsm"}
+    m3 = dict(levels=3, half_x=0.6, half_y=0.6, half_theta=0.3, n_theta=7)
+    j = jpg.PoseGraphConfig(**kw, loop_matcher=jm3.M3RSMConfig(
+        **m3, scoring=jscore.ScoringConfig(reducer="overlap", stride=2)))
+    t = tpg.PoseGraphConfig(**kw, loop_matcher=tm3.M3RSMConfig(
+        **m3, scoring=tscore.ScoringConfig(reducer="overlap", stride=2)))
     return j, t
 
 
@@ -278,6 +292,48 @@ def test_detect_loops_matches_reference(loop):
     assert_same_graph(convert.graph_to_numpy(tout), from_jax(jout))
 
 
+def test_detect_loops_with_m3rsm_matches_reference(loop):
+    """The newest keyframe against its candidates' submaps through M3RSM
+    (a pyramid a submap, built in one launch on the card): the same loops
+    accepted, deltas within 1e-5 (the same winning cell, the refine's
+    scores in another sum order)."""
+    jm, tm = MODELS["bayes_avg"]
+    jcfg, tcfg = m3_configs()
+    tst = chain_only(loop, tcfg)
+    jst = to_jax(convert.graph_to_numpy(tst))
+    pose, i = loop["est"][-1], loop["n"] - 1
+    jout, jn = jax.jit(lambda st, s, p: jpg.detect_loops(jcfg, jm, st, s, p))(
+        jst, jscans(loop, i), jnp.asarray(pose))
+    tout, tn = tpg.detect_loops(tcfg, tm, tst, tscans(loop, i), torch.from_numpy(pose))
+    assert int(tn) == int(jn) >= 1
+    assert_same_graph(convert.graph_to_numpy(tout), from_jax(jout))
+
+
+def test_process_keyframes_and_densify_with_m3rsm_match_reference(loop):
+    """The loop's keyframes through ``process_keyframes`` in batches of 4
+    and a ``densify_loops`` pass, with the M3RSM loop matcher on both
+    sides: the same graph."""
+    jcfg, tcfg = m3_configs()
+    jm, tm = MODELS["bayes_avg"]
+    jst, tst = jpg.init_state(jcfg, R), tpg.init_state(tcfg, R, "cpu")
+    jproc = jax.jit(lambda st, s, p, v: jpg.process_keyframes(jcfg, jm, st, s, p, v))
+    n, total = loop["n"] - 2, 0
+    for b0 in range(0, n, BATCH):
+        idx = np.minimum(np.arange(b0, b0 + BATCH), n - 1)
+        valid = np.arange(b0, b0 + BATCH) < n
+        jst, jn = jproc(jst, jscans(loop, idx), jnp.asarray(loop["est"][idx]), jnp.asarray(valid))
+        tst, tn = tpg.process_keyframes(tcfg, tm, tst, tscans(loop, idx),
+                                        torch.from_numpy(loop["est"][idx]), torch.from_numpy(valid))
+        assert int(tn) == int(jn)
+        total += int(tn)
+    assert total >= 2, "the loop closed no loop"
+    assert_same_graph(convert.graph_to_numpy(tst), from_jax(jst))
+    jst, jn = jax.jit(lambda st: jpg.densify_loops(jcfg, jm, st))(jst)
+    tst, tn = tpg.densify_loops(tcfg, tm, tst)
+    assert int(tn) == int(jn)
+    assert_same_graph(convert.graph_to_numpy(tst), from_jax(jst))
+
+
 @pytest.mark.parametrize("refine", [False, True])
 def test_densify_loops_matches_reference(loop, refine):
     """From the bare chain densify proposes the closest index-distant pairs;
@@ -441,5 +497,8 @@ def test_joint_refine_matches_reference(loop):
 
 
 def test_unported_loop_matcher_raises():
+    """The M3RSM loop matcher is ported, its sub-cell refine is not: the
+    reference's grid-pitch fallback for a matcher without a grid is a known
+    fault (trap e)."""
     with pytest.raises(NotImplementedError):
-        tpg.PoseGraphConfig(loop_matcher_kind="m3rsm")
+        tpg.PoseGraphConfig(loop_matcher_kind="m3rsm", loop_subcell_refine=True)

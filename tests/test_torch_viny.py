@@ -24,8 +24,11 @@ from slam_constructor_tpu.models import engine as jeng
 from slam_constructor_tpu.models import viny as jviny
 from slam_constructor_tpu.ops import scan as jscan
 from slam_constructor_tpu_torch.models import engine as teng
+from slam_constructor_tpu_torch.models import full as tfull
 from slam_constructor_tpu_torch.models import viny as tviny
+from slam_constructor_tpu_torch.ops import m3rsm as tm3
 from slam_constructor_tpu_torch.ops import scan as tscan
+from slam_constructor_tpu_torch.ops import scoring as tscore
 from slam_constructor_tpu_torch.utils import convert
 from slam_constructor_tpu_torch.utils import datagen as tdata
 
@@ -232,5 +235,65 @@ def test_viny_make_engine_and_unported_preset():
     e = tviny.make_engine(device="cpu", seed=1, map_size=64, mc_batch=8, mc_rounds=2)
     assert e.cfg.beam.free_impl == "polar" and e.cfg.use_angle_histogram
     assert e.cfg.matcher_cfg.scoring.stride == 2 and e.state.gm.cells.shape == (64, 64, 5)
-    with pytest.raises(NotImplementedError):
-        tviny.viny_m3rsm_config()
+    with pytest.raises(NotImplementedError):  # the reference's pipeline keeps a stale pyramid
+        tfull.FullConfig(tracking=tviny.viny_m3rsm_config())
+
+
+# --- vinySLAM with the M3RSM matcher ------------------------------------------
+
+#: a stretch of the lower corridor inside a 128^2 map at 0.1 m: with beams
+#: capped at 5 m no sample falls off the map (the reference would wrap it,
+#: trap g). The path starts off the cell grid: from a pose on a cell
+#: boundary every DDA sample of an axis-aligned beam sits on one, where the
+#: reference's jitted ``x * (1 / 0.1)`` and the port's IEEE ``x / 0.1``
+#: (trap h) fall into neighbouring cells
+M3_SCANS, M3_MAP = 12, 128
+
+
+@pytest.fixture(scope="module")
+def m3_seq():
+    occ, origin, scale = tdata.cecum_world()
+    t = torch.linspace(0.0, 1.0, M3_SCANS)
+    poses = torch.stack([-0.973 + 1.8 * t, -1.517 + 0.05 * torch.sin(6 * t),
+                         0.1 * torch.sin(4 * t)], dim=-1)
+    scans, odom, gt = tdata.synth_sequence(
+        occ, origin, scale, poses, tdata.default_bearings(N_BEAMS), rng=11,
+        odom_noise_xy=0.02, odom_noise_theta=0.01,
+    )
+    return dict(scans=scans, odom=odom, gt=gt, jscans=_jscans(scans),
+                jodom=jnp.asarray(odom.numpy()))
+
+
+@pytest.mark.parametrize("wall_blur,usable_range", [(True, 5.0), (True, 3.0), (False, 3.0)])
+def test_viny_m3rsm_engine_matches_reference(m3_seq, wall_blur, usable_range):
+    """``viny_m3rsm_config`` at a 128^2 map over 12 scans, both engines from
+    the reference's initial state (pyramid included) crossed through
+    ``convert``: every step's pose and probability within 1e-4 (f32 ulps of
+    the TBM fold and of sin / cos that the map feeds forward); the live
+    pyramid equal to a rebuild of the final map bit for bit. At 5 m the
+    insert's footprint covers the map and the pyramid is rebuilt every
+    step; at 3 m a 112^2 region is refreshed, with the wall blur on and off."""
+    jcfg = jviny.viny_m3rsm_config(map_size=M3_MAP, usable_range=usable_range)
+    tcfg = tviny.viny_m3rsm_config(map_size=M3_MAP, usable_range=usable_range)
+    if not wall_blur:
+        jcfg = dataclasses.replace(jcfg, beam=dataclasses.replace(jcfg.beam, wall_blur=False))
+        tcfg = dataclasses.replace(tcfg, beam=dataclasses.replace(tcfg.beam, wall_blur=False))
+    jstate = jeng.init_state(jcfg).replace(pose=jnp.asarray(m3_seq["gt"][0].numpy()))
+    tree = {"cells": np.asarray(jstate.gm.cells), "origin": np.asarray(jstate.gm.origin),
+            "scale": jstate.gm.scale, "pose": np.asarray(jstate.pose), "step": 0,
+            "last_prob": 0.0, "pyramid": tuple(np.asarray(p) for p in jstate.pyramid)}
+    # run_sequence donates the state it is given
+    final, jtraj, jprobs = jeng.run_sequence(jcfg, jstate, m3_seq["jscans"], m3_seq["jodom"])
+    state = convert.state_from_numpy(tree, "cpu")
+    assert len(state.pyramid) == tcfg.matcher_cfg.levels + 1
+    state, traj, probs = teng.run_sequence(tcfg, state, m3_seq["scans"], m3_seq["odom"])
+    np.testing.assert_allclose(traj.numpy(), np.asarray(jtraj), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(probs.numpy(), np.asarray(jprobs), atol=1e-4, rtol=0)
+    bbox = 2 * int(-(-(usable_range + 0.15) // 0.1)) + 4
+    assert (tm3.pyramid_refresh_size(bbox, 4, M3_MAP) < M3_MAP) == (usable_range < 5.0)
+    rebuilt = tm3.build_pyramid(tscore.MapView.of(state.gm, tcfg.cell_model),
+                                tcfg.matcher_cfg.levels, 0.5)
+    for a, b in zip(state.pyramid, rebuilt):
+        assert torch.equal(a, b)
+    back = convert.state_to_numpy(state)
+    assert [p.shape for p in back["pyramid"]] == [tuple(p.shape) for p in final.pyramid]
