@@ -103,35 +103,53 @@ Phases, one line or more each, in order; any failure exits non-zero:
    numpy): poses within 1e-4, the same ancestors, log-weights within 1e-4,
    the maps equal but for a few cells that counted a border sample;
 18. vinySLAM with the M3RSM matcher (``viny_m3rsm_config(map_size=256)``)
-   over the bench sequence: a warm-up run that keeps the level scores'
+   over the bench sequence: a warm-up run that keeps the whole match's
    arguments of every 32nd scan, then the timed run under
-   ``torch.cuda.set_sync_debug_mode("error")``: ``m3rsm_level`` 2,560
-   launches (5 a scan), ``m3rsm_pyramid`` 513 (the build in ``init_state``
-   and a refresh a scan), ``overlap_score`` 4,608 (the hill climb's 9 a
-   scan), nothing else; ATE below odometry's and no more than 0.02 m above
-   the JAX reference's (one run: M3RSM draws no noise); a second run equal
-   bit for bit; the live pyramid equal to a rebuild of the final map;
+   ``torch.cuda.set_sync_debug_mode("error")``: ``m3rsm_search`` 512
+   launches (the whole match, one a scan), ``m3rsm_pyramid`` 513 (the build
+   in ``init_state`` and a refresh a scan), nothing else; ATE below
+   odometry's and no more than 0.02 m above the JAX reference's (one run:
+   M3RSM draws no noise); a second run equal bit for bit; the live pyramid
+   equal to a rebuild of the final map;
 19. card vs CPU: its first 32 scans, poses within 1e-4;
-20. ``m3rsm_match_many``: 8 requests against the path's final map equal to
+20. the same path with ``m3rsm_search_levels`` handed in in the kernel's
+   place (one ``m3rsm_level`` launch a level and one
+   ``overlap_score_batched`` launch a hill-climb round: 2,560 and 4,608
+   launches): the trajectory equal to the timed run's bit for bit;
+21. ``m3rsm_match_many``: 8 requests against the path's final map equal to
    8 single calls bit for bit;
-21. ``m3rsm_score_level`` (K4b) against its plain twin (2e-6) on the kept
-   arguments at all five levels and at edge cases (the window at the map's
-   first and far corner, rects off the window, a mask of zeros), then
-   timed at each level of a scan;
-22. ``m3rsm_pyramid`` (K4a) against its plain twin bit for bit: the path's
+22. ``m3rsm_search`` (K4b, the whole match in one launch) against
+   ``m3rsm_search_levels`` bit for bit (pose, prob, trace) on the kept
+   arguments of every 32nd viny_m3rsm scan, every 4th loop match of
+   phase 25's warm-up run (M up to 32 submaps, K up to 1,024), 8 requests
+   on one map, window 0, ``M3RSMConfig``'s defaults (the whole map, 5
+   levels, 17 thetas) with the path's scan and with a scan of 1,081 beams,
+   refine 0 and an all-unknown map; against its plain
+   twin: prob within 2e-6 where the poses are equal, else the twin's
+   scores of the two winners within 2e-6, the case named; then timed
+   (a call, chained, replayed from a CUDA graph) beside the level launches
+   and the twin;
+23. ``m3rsm_score_level`` (K4b's level score, now the yardstick's) against
+   its plain twin (2e-6) on the level launches of the kept arguments at
+   all five levels and at edge cases (the window at the map's first and
+   far corner, rects off the window, a mask of zeros), then timed at each
+   level of a scan;
+24. ``m3rsm_pyramid`` (K4a) against its plain twin bit for bit: the path's
    256^2 map at 4 levels, the occupancy as a channel of the cells, an
    unaligned 100 x 90 map at 5 levels, the loop closer's submap builds (32
-   of 120^2 at 3 levels) kept from a warm-up run of phase 23; the 144^2
-   refresh clamped at every corner and edge, and with the gate at 0 (the
-   planes untouched); then timed, beside four chained ``max_pool2d`` calls;
-23. the loop-closing pipeline with the M3RSM loop matcher of the
+   of 120^2 at 3 levels) kept from a warm-up run of phase 25; the 144^2
+   refresh into new planes, clamped at every corner and edge, and with the
+   gate at 0 (a copy), the planes handed in untouched; then timed (a call,
+   chained, replayed from a CUDA graph), beside four chained
+   ``max_pool2d`` calls (a call and replayed);
+25. the loop-closing pipeline with the M3RSM loop matcher of the
    reference's own test (``full_m3rsm_config``): launches per loop match
-   (a keyframe batch or a densify round) one ``m3rsm_pyramid``, four
-   ``m3rsm_level`` and ten ``overlap_score_batched``; loops >= 1; the
-   corrected ATE below odometry's and no more than 0.02 m above the
-   reference's worst of five keys (the reference's graph makes its tracker
-   worse here, so the tracker-alone bound is not applied); a second run
-   equal bit for bit.
+   (a keyframe batch or a densify round) one ``m3rsm_pyramid``, one
+   ``m3rsm_search`` and one ``overlap_score_batched`` (the information
+   estimate, after the match); loops >= 1; the corrected ATE below
+   odometry's and no more than 0.02 m above the reference's worst of five
+   keys (the reference's graph makes its tracker worse here, so the
+   tracker-alone bound is not applied); a second run equal bit for bit.
 
 The launch counts are set to 0 just before each of these runs and read just
 after it. The line before the last is a JSON object of the
@@ -912,13 +930,11 @@ def loop_match_launches(graph_cfg, calls: int) -> dict:
     """The launches of ``calls`` loop-closing matches (``_match_loop``, one
     a keyframe batch and one a densify round): the brute-force grid and the
     information estimate, two of the batched score; or M3RSM's pyramid of
-    the submaps, one level score a level, the hill climb's 1 + rounds
-    batched scores and the information estimate."""
-    lm = graph_cfg.loop_matcher
+    the submaps, the whole match in one launch and the information
+    estimate."""
     if graph_cfg.loop_matcher_kind != "m3rsm":
         return {"overlap_score_batched": 2 * calls}
-    return {"m3rsm_pyramid": calls, "m3rsm_level": (lm.levels + 1) * calls,
-            "overlap_score_batched": (1 + lm.refine_iterations + 1) * calls}
+    return {"m3rsm_pyramid": calls, "m3rsm_search": calls, "overlap_score_batched": calls}
 
 
 def phase_full_path(cfg, scans, odom, gt, odo_ate, name="full", reference=FULL_REFERENCE_ATE_BY_KEY,
@@ -1493,30 +1509,95 @@ def phase_gmapping_card_vs_cpu(dev, scans, odom, gt):
 # --- M3RSM: the pyramid (K4a), the level score (K4b) and their paths ---------
 
 
-def capture_m3rsm_levels(cfg, scans, odom, gt, every=32):
-    """A run of the viny_m3rsm path (it also warms the path up) that keeps
-    the arguments of the level scores of every ``every``-th scan (levels + 1
-    launches a scan); returns them and the run's engine."""
+def snapshot(search):
+    """A copy of an ``M3RSMSearch``'s tensors, the pyramid packed into one
+    buffer as the kernels lay it out, so that later steps cannot change
+    what was kept."""
+    buf = torch.cat([p.reshape(-1) for p in search.planes])
+    planes = tuple(v.view(p.shape) for v, p in zip(
+        buf.split([p.numel() for p in search.planes]), search.planes))
+    tensors = {f.name: getattr(search, f.name).clone() for f in dataclasses.fields(search)
+               if isinstance(getattr(search, f.name), torch.Tensor)}
+    return dataclasses.replace(search, planes=planes, **tensors)
+
+
+def search_recorder(keep=lambda n: True):
+    """``kernels.m3rsm_search`` with a snapshot of the arguments of every
+    call ``n`` for which ``keep(n)`` holds: returns the stand-in and the list
+    it fills."""
     from slam_constructor_tpu_torch.ops import kernels
 
-    per_scan = cfg.matcher_cfg.levels + 1
-    recording, kept = recorder(kernels.m3rsm_score_level,
-                               keep=lambda n: (n // per_scan) % every == 0)
-    with handed_in(recording, "m3rsm_score_level"):
+    fn, kept, n = kernels.m3rsm_search, [], [0]
+
+    def recording(search):
+        if keep(n[0]):
+            kept.append(snapshot(search))
+        n[0] += 1
+        return fn(search)
+
+    return recording, kept
+
+
+def capture_m3rsm_searches(cfg, scans, odom, gt, every=32):
+    """A run of the viny_m3rsm path (it also warms the path up) that keeps
+    the arguments of the match of every ``every``-th scan; returns them and
+    the run's engine."""
+    recording, kept = search_recorder(lambda n: n % every == 0)
+    with handed_in(recording, "m3rsm_search"):
         _, _, _, e = run_main_path(cfg, scans, odom, gt, 0)
     return kept, e
 
 
-def capture_full_m3rsm(cfg, scans, odom, gt):
-    """A run of the full path with the M3RSM loop matcher (it also warms the
-    path up) that keeps the arguments of every pyramid build of the
-    submaps."""
+def level_launches_of(searches):
+    """The arguments of the level-score launches of ``m3rsm_search_levels``
+    on each kept match, in order (levels + 1 a match)."""
     from slam_constructor_tpu_torch.ops import kernels
 
-    recording, kept = recorder(kernels.m3rsm_pyramid)
-    with handed_in(recording, "m3rsm_pyramid"):
-        run_full_path(cfg, scans, odom, gt, 0)
+    recording, kept = recorder(kernels.m3rsm_score_level)
+    with handed_in(recording, "m3rsm_score_level"):
+        for search in searches:
+            kernels.m3rsm_search_levels(search)
     return kept
+
+
+def capture_full_m3rsm(cfg, scans, odom, gt):
+    """A run of the full path with the M3RSM loop matcher (it also warms the
+    path up) that keeps the arguments of every pyramid build of the submaps
+    and of every loop match."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    recording, builds = recorder(kernels.m3rsm_pyramid)
+    searching, matches = search_recorder()
+    with handed_in(recording, "m3rsm_pyramid"), handed_in(searching, "m3rsm_search"):
+        run_full_path(cfg, scans, odom, gt, 0)
+    return builds, matches
+
+
+def graph_ms(fn, n: int = 50, replays: int = 5) -> float:
+    """ms a call with ``n`` calls of ``fn`` captured into one CUDA graph and
+    replayed (the median over ``replays``): the device's time a launch with
+    the gap between two launches, and no host in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up where the capture will run
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return statistics.median(times)
 
 
 def pyramid_bytes(n_cells: int, stored: int, read_per_cell: int = 5) -> int:
@@ -1570,22 +1651,24 @@ def phase_m3rsm_pyramid_kernel(dev, gm, model, kept_builds):
     size, top = 144, MAP - 1
     centres = [(128, 128), (0, 0), (0, top), (top, 0), (top, top), (0, 128), (top, 128),
                (128, 0), (128, top)]
+    kept = [p.clone() for p in planes]
     for c in centres:
         center = torch.tensor(c, device=dev)
         for gate in (1.0, 0.0):
             gate_t = torch.full((), gate, device=dev)
-            got = kernels.m3rsm_pyramid_update(tuple(p.clone() for p in planes), edited, known,
-                                               center, size, 0.5, gate_t)
-            want = kernels.m3rsm_pyramid_update_ref(tuple(p.clone() for p in planes), edited,
-                                                    known, center, size, 0.5, gate_t)
+            got = kernels.m3rsm_pyramid_update(planes, edited, known, center, size, 0.5, gate_t)
+            want = kernels.m3rsm_pyramid_update_ref(planes, edited, known, center, size, 0.5,
+                                                    gate_t)
             torch.cuda.synchronize()
             ok = all(torch.equal(bits(x), bits(y)) for x, y in zip(got, want))
             if gate == 0.0:
                 ok = ok and all(torch.equal(bits(x), bits(y)) for x, y in zip(got, planes))
             check(ok, f"m3rsm_pyramid update at {c}, gate {gate}: differs from its twin")
+            check(all(torch.equal(bits(x), bits(y)) for x, y in zip(planes, kept)),
+                  f"m3rsm_pyramid update at {c}, gate {gate}: wrote into the planes handed in")
     print(f"m3rsm_pyramid update: a {size}^2 region of the 256^2 map at {len(centres)} centres "
-          f"(every corner and edge, the middle) equal to the twin bit for bit; a gate at 0 left "
-          f"the planes untouched", flush=True)
+          f"(every corner and edge, the middle) into new planes equal to the twin bit for bit; a "
+          f"gate at 0 copied the planes; the planes handed in untouched", flush=True)
 
     center, gate_t = torch.tensor((128, 128), device=dev), torch.ones((), device=dev)
     stored0 = sum(p.numel() for p in planes)
@@ -1615,23 +1698,30 @@ def phase_m3rsm_pyramid_kernel(dev, gm, model, kept_builds):
     for _ in range(20):
         pooled()
     library_ms = statistics.median(time_ms(pooled, 100))
+    library_device_ms = graph_ms(pooled)
     out = {}
     for name, (kernel, plain, n_cells, stored) in shapes.items():
         ms, plain_ms, chained = time_pair(kernel, plain, plain_calls=20)
-        b_ms, by = bound_ms(pyramid_bytes(n_cells, stored), pyramid_ops(n_cells, stored))
+        device = graph_ms(kernel)
+        n_bytes = pyramid_bytes(n_cells, stored)
+        if name == "update_144":  # new planes: the region pooled, the rest copied
+            n_bytes = pyramid_bytes(n_cells, stored0) + 4 * (stored0 - region)
+        b_ms, by = bound_ms(n_bytes, pyramid_ops(n_cells, stored))
         print(f"m3rsm_pyramid {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (medians, CUDA "
-              f"events), kernel {chained:.4f} ms a launch over 200 back to back; bound "
-              f"{b_ms:.6f} ms by {by} ({pyramid_bytes(n_cells, stored)} B)", flush=True)
-        out[name] = {"ms": ms, "plain_ms": plain_ms, "chained_ms": chained, "bound_ms": b_ms,
-                     "bound_by": by}
+              f"events), kernel {chained:.4f} ms a launch over 200 back to back, {device:.4f} ms "
+              f"a launch replayed from a CUDA graph; bound {b_ms:.6f} ms by {by} ({n_bytes} B)",
+              flush=True)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "chained_ms": chained, "device_ms": device,
+                     "bound_ms": b_ms, "bound_by": by}
     print(f"four chained torch.nn.functional.max_pool2d calls on the even 256^2 plane (the "
-          f"yardstick, not the port): {library_ms:.4f} ms", flush=True)
+          f"yardstick, not the port): {library_ms:.4f} ms a call, {library_device_ms:.4f} ms "
+          f"replayed from a CUDA graph", flush=True)
     return {
         "name": "m3rsm_pyramid", "route": "cuda",
         "source": "slam_constructor_tpu_torch/csrc/m3rsm_pyramid.cu",
         "replaces": "slam_constructor_tpu/ops/m3rsm.py:102",
         "max_abs_err": 0.0, **out["update_144"], "by_shape": out,
-        "library_ms": library_ms,
+        "library_ms": library_ms, "library_device_ms": library_device_ms,
         "library_call": "4 chained torch.nn.functional.max_pool2d on the even 256^2 plane",
     }
 
@@ -1724,6 +1814,164 @@ def phase_m3rsm_level_kernel(dev, kept):
     }
 
 
+def search_work(search):
+    """(bytes, operations) an ``m3rsm_search`` call needs: every level's
+    window (each request's, at most the maps' whole pyramids), the refine
+    window's occupancy and mask, the endpoints, weights, rects and priors
+    read once, the results written once; the endpoint cells of every theta,
+    a level's (rect, beam) pairs for the beams that carry weight, a sort's
+    K log2 K comparisons of a level that selects, and the hill climb's poses
+    x weighted beams."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    levels = len(search.planes) - 1
+    n_b = search.prior.shape[0]
+    wh, ww = (search.window,) * 2 if search.window else tuple(search.occ.shape[-2:])
+    window = n_b * sum(-(-wh // (1 << lvl)) * -(-ww // (1 << lvl)) for lvl in range(levels + 1))
+    window = min(window, sum(p.numel() for p in search.planes))
+    refine = min(n_b * wh * ww, search.occ.numel()) if search.iterations else 0
+    small = (search.origin, search.pts, search.mask, search.top, search.thetas, search.prior)
+    n_bytes = (4 * window + 5 * refine + 4 * sum(t.numel() for t in small)
+               + 4 * n_b * (4 + search.iterations))
+    ks = kernels.m3rsm_frontiers(search.top.shape[0], search.beam_width, levels)
+    beams = int((search.mask != 0).sum())  # over the requests
+    n_ops = n_b * search.thetas.shape[0] * search.mask.shape[1] * 12  # the endpoint cells
+    n_ops += sum(k * beams * level_ops(levels - i) for i, k in enumerate(ks))
+    n_ops += n_b * sum(int(k * math.log2(max(k, 2))) for k in ks[:-1])
+    climbed = int((search.mask[:, ::search.stride] != 0).sum())
+    n_ops += (1 + 6 * search.iterations) * climbed * OVERLAP_OPS_PER_POINT
+    return n_bytes, n_ops
+
+
+def m3rsm_search_cases(dev, path_searches, loop_searches, cfg, e, scans, gt):
+    """(name, M3RSMSearch) of phase 22: the kept matches of the viny_m3rsm
+    path and of the loop closer (every 4th), and edge cases on the path's
+    final map."""
+    from slam_constructor_tpu_torch.models import engine
+    from slam_constructor_tpu_torch.ops import kernels, m3rsm, scoring
+    from slam_constructor_tpu_torch.ops.scan import LaserScan
+    from slam_constructor_tpu_torch.utils import datagen
+
+    cases = [(f"viny_m3rsm scan {32 * i}", a) for i, a in enumerate(path_searches)]
+    cases += [(f"full_m3rsm loop match {4 * i}, M={a.prior.shape[0]}", a)
+              for i, a in enumerate(loop_searches[::4])]
+    view = scoring.MapView.of(e.state.gm, cfg.cell_model)
+    idx = list(range(0, N_SCANS, 64))
+    priors = gt[idx] + torch.tensor([0.1, -0.05, 0.03], device=dev)
+    batch = LaserScan(scans.ranges[idx], scans.bearings[idx], scans.valid[idx])
+    pws = torch.stack([engine._point_weights(cfg, scans[i]) for i in idx])
+    recording, kept = search_recorder()
+    mc = cfg.matcher_cfg
+    # M3RSMConfig's defaults (the whole map, 5 levels, 17 thetas, K up to
+    # 1,024) with the path's scan and with a scan of 1,081 beams
+    defaults = m3rsm.M3RSMConfig(scoring=scoring.ScoringConfig(reducer="overlap"))
+    occ, origin, scale = datagen.cecum_world(device=dev)
+    wide, _, _ = datagen.synth_sequence(occ, origin, scale, gt[idx[4]][None],
+                                        datagen.default_bearings(1081, device=dev), rng=0)
+    with handed_in(recording, "m3rsm_search"):
+        m3rsm.m3rsm_match_many(view, batch, priors, mc, pws)
+        m3rsm.m3rsm_match(view, scans[idx[4]], priors[4], None, dataclasses.replace(mc, window=0),
+                          pws[4])
+        m3rsm.m3rsm_match(view, scans[idx[4]], priors[4], None, defaults, pws[4])
+        m3rsm.m3rsm_match(view, wide[0], priors[4], None, defaults, None)
+    cases += [("8 requests on one map", kept[0]), ("window 0 (the whole 256^2 map)", kept[1]),
+              ("M3RSMConfig's defaults", kept[2]),
+              ("M3RSMConfig's defaults, 1081 beams", kept[3])]
+    mid = path_searches[8]  # scan 256
+    cases.append(("scan 256, refine 0", dataclasses.replace(mid, iterations=0)))
+    unknown = torch.zeros_like(mid.known)
+    planes = kernels.m3rsm_pyramid(mid.occ, unknown, len(mid.planes) - 1, mid.unknown)
+    cases.append(("scan 256 on an all-unknown map",
+                  dataclasses.replace(mid, planes=planes, known=unknown)))
+    return cases
+
+
+def twin_scores(search, pose):
+    """The plain twin's score of each request's ``pose`` f32[B, 3] on its
+    refine window (the hill climb's score)."""
+    from slam_constructor_tpu_torch.ops import grid as gridlib
+    from slam_constructor_tpu_torch.ops import kernels
+
+    n_b = search.prior.shape[0]
+    corner, (wh, ww), origin, _ = kernels.m3rsm_window_cells(search)
+    occ = search.occ if search.occ.dim() == 3 else search.occ[None]
+    known = search.known if search.known.dim() == 3 else search.known[None]
+    occ, known = occ.expand(n_b, -1, -1), known.expand(n_b, -1, -1)
+    row, col = corner[:, 0].long(), corner[:, 1].long()
+    plane = torch.where(gridlib.take_window(known, row, col, wh, ww),
+                        gridlib.take_window(occ, row, col, wh, ww), search.unknown)
+    return kernels.overlap_score_ref(
+        plane, pose[:, None, :].contiguous(), search.pts[:, ::search.stride].contiguous(),
+        search.mask[:, ::search.stride].contiguous(), origin.contiguous(), search.scale,
+        search.unknown)[:, 0]
+
+
+def phase_m3rsm_search_kernel(dev, cases):
+    """The whole match in one launch (K4b) against the level launches bit
+    for bit and against its plain twin, then timed. Returns the `kernels`
+    entry without the launch count."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    max_err, parted = 0.0, []
+    for name, a in cases:
+        got = kernels.m3rsm_search(a)
+        levels = kernels.m3rsm_search_levels(a)
+        again = kernels.m3rsm_search(a)
+        twin = kernels.m3rsm_search_ref(a)
+        torch.cuda.synchronize()
+        n_b = a.prior.shape[0]
+        check(got[0].shape == (n_b, 3) and got[2].shape == (n_b, a.iterations)
+              and bool(torch.isfinite(got[0]).all()), f"m3rsm_search output malformed ({name})")
+        same = all(torch.equal(bits(x), bits(y)) for x, y in zip(got, levels))
+        check(same, f"m3rsm_search differs from the level launches ({name})")
+        check(all(torch.equal(bits(x), bits(y)) for x, y in zip(got, again)),
+              f"m3rsm_search not repeatable ({name})")
+        apart = (got[0] != twin[0]).any(-1)
+        err = float((got[1] - twin[1]).abs()[~apart].max()) if bool((~apart).any()) else 0.0
+        check(err <= TOL, f"m3rsm_search prob differs from its twin ({name}): {err}")
+        if bool(apart.any()):
+            # the two winners, each scored by the twin
+            if a.iterations:
+                gap = (twin_scores(a, got[0]) - twin[1]).abs()[apart]
+            else:
+                gap = (got[1] - twin[1]).abs()[apart]
+            gap = float(gap.max())
+            parted.append(f"{name} ({int(apart.sum())} of {n_b}, winners' scores {gap:.2e} apart)")
+            check(gap <= TOL, f"m3rsm_search and its twin pick winners {gap} apart ({name})")
+        max_err = max(max_err, err)
+    print(f"m3rsm_search: {len(cases)} cases equal to the level launches bit for bit (pose, prob, "
+          f"trace) and repeatable; prob within {max_err:.3e} of the plain twin where the poses "
+          f"agree (tol {TOL:g}); other winners than the twin's: {parted or 'none'}", flush=True)
+
+    out = {}
+    timed = {"viny_m3rsm scan 256": cases[8][1],
+             "full_m3rsm widest loop match": max((a for n, a in cases if n.startswith("full")),
+                                                 key=lambda a: a.prior.shape[0])}
+    for shape, a in timed.items():
+        ms, plain_ms, chained = time_pair(lambda a=a: kernels.m3rsm_search(a),
+                                          lambda a=a: kernels.m3rsm_search_ref(a), plain_calls=10)
+        levels_ms = statistics.median(time_ms(lambda a=a: kernels.m3rsm_search_levels(a), 50))
+        device = graph_ms(lambda a=a: kernels.m3rsm_search(a))
+        n_bytes, n_ops = search_work(a)
+        b_ms, by = bound_ms(n_bytes, n_ops)
+        ks = kernels.m3rsm_frontiers(a.top.shape[0], a.beam_width, len(a.planes) - 1)
+        print(f"m3rsm_search [{shape}] B={a.prior.shape[0]} K={ks} R={a.mask.shape[1]} "
+              f"stride {a.stride}, {a.iterations} rounds: kernel {ms:.4f} ms a call, "
+              f"{chained:.4f} ms chained, {device:.4f} ms replayed from a CUDA graph; the level "
+              f"launches {levels_ms:.4f} ms a call; plain twin {plain_ms:.4f} ms; bound "
+              f"{b_ms:.6f} ms by {by} ({n_bytes} B, {n_ops} operations); no single PyTorch "
+              f"call computes it", flush=True)
+        out[shape] = {"ms": ms, "plain_ms": plain_ms, "chained_ms": chained, "device_ms": device,
+                      "levels_ms": levels_ms, "bound_ms": b_ms, "bound_by": by}
+    return {
+        "name": "m3rsm_search", "route": "cuda",
+        "source": "slam_constructor_tpu_torch/csrc/m3rsm_match.cu",
+        "replaces": "slam_constructor_tpu/ops/m3rsm.py:210",
+        "max_abs_err": max_err, **out["viny_m3rsm scan 256"], "by_shape": out,
+        "library_ms": None,
+    }
+
+
 def phase_m3rsm_path(cfg, scans, odom, gt, odo_ate):
     """The viny_m3rsm main path: the timed run (counts, ATE, no host sync,
     a second run bit for bit) and its live pyramid against a rebuild of the
@@ -1731,18 +1979,40 @@ def phase_m3rsm_path(cfg, scans, odom, gt, odo_ate):
     from slam_constructor_tpu_torch.ops import m3rsm, scoring
 
     levels = cfg.matcher_cfg.levels
-    hc_rounds = cfg.matcher_cfg.refine_iterations
-    want = expect(m3rsm_level=(levels + 1) * N_SCANS, m3rsm_pyramid=N_SCANS + 1,
-                  overlap_score=(1 + hc_rounds) * N_SCANS)
-    launches, _, e = phase_main_path("viny_m3rsm", cfg, want, scans, odom, gt, odo_ate,
-                                     VINY_M3RSM_REFERENCE_ATE + VINY_ATE_MARGIN)
+    want = expect(m3rsm_search=N_SCANS, m3rsm_pyramid=N_SCANS + 1)
+    launches, traj, e = phase_main_path("viny_m3rsm", cfg, want, scans, odom, gt, odo_ate,
+                                        VINY_M3RSM_REFERENCE_ATE + VINY_ATE_MARGIN)
     rebuilt = m3rsm.build_pyramid(scoring.MapView.of(e.state.gm, cfg.cell_model), levels,
                                   cfg.matcher_cfg.scoring.unknown_prob)
     same = all(torch.equal(bits(a), bits(b)) for a, b in zip(e.state.pyramid, rebuilt))
     print(f"viny_m3rsm: the live pyramid after {N_SCANS} refreshes equal to a rebuild of the map "
           f"bit for bit: {same}", flush=True)
     check(same, "viny_m3rsm: the live pyramid differs from a rebuild")
-    return launches, e
+    return launches, traj, e
+
+
+def phase_m3rsm_levels_path(cfg, scans, odom, gt, traj):
+    """The viny_m3rsm path with ``m3rsm_search_levels`` handed in in the
+    kernel's place (a level-score launch a level, a batched score launch a
+    hill-climb round): the same trajectory bit for bit; returns its
+    launches."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    mc = cfg.matcher_cfg
+    with handed_in(kernels.m3rsm_search_levels, "m3rsm_search"):
+        reset_launches()
+        got, _, secs, _ = run_main_path(cfg, scans, odom, gt, 0)
+        launches = read_launches()
+    want = expect(m3rsm_level=(mc.levels + 1) * N_SCANS, m3rsm_pyramid=N_SCANS + 1,
+                  overlap_score_batched=(1 + mc.refine_iterations) * N_SCANS)
+    diff = float((got - traj).abs().max())
+    print(f"viny_m3rsm with a level launch a level and a score launch a hill-climb round: "
+          f"{N_SCANS} scans at {N_SCANS / secs:.1f} scans/s; launches {launches} (expected "
+          f"{want}); max|pose diff| to the one-launch match's run {diff:.3e}", flush=True)
+    check(launches == want, f"viny_m3rsm levels path: launches {launches}, expected {want}")
+    check(torch.equal(bits(got), bits(traj)),
+          f"the one-launch match and the level launches give different trajectories: {diff}")
+    return launches
 
 
 def phase_m3rsm_match_many(cfg, e, scans, gt):
@@ -1831,14 +2101,17 @@ def main() -> None:
     phase_gmapping_card_vs_cpu(dev, scans, odom, gt)
 
     m3_cfg = viny.viny_m3rsm_config(map_size=MAP)
-    level_args, m3_warm = capture_m3rsm_levels(m3_cfg, scans, odom, gt)
-    m3_launches, m3_engine = phase_m3rsm_path(m3_cfg, scans, odom, gt, odo_ate)
+    path_searches, m3_warm = capture_m3rsm_searches(m3_cfg, scans, odom, gt)
+    m3_launches, m3_traj, m3_engine = phase_m3rsm_path(m3_cfg, scans, odom, gt, odo_ate)
     phase_card_vs_cpu("viny_m3rsm", m3_cfg, dev, scans, odom, gt, n=32)
+    levels_launches = phase_m3rsm_levels_path(m3_cfg, scans, odom, gt, m3_traj)
     phase_m3rsm_match_many(m3_cfg, m3_engine, scans, gt)
-    k7 = phase_m3rsm_level_kernel(dev, level_args)
     full_m3_cfg = full_m3rsm_config()
-    k6 = phase_m3rsm_pyramid_kernel(dev, m3_warm.state.gm, m3_cfg.cell_model,
-                                    capture_full_m3rsm(full_m3_cfg, fscans, fodom, fgt))
+    builds, loop_searches = capture_full_m3rsm(full_m3_cfg, fscans, fodom, fgt)
+    k8 = phase_m3rsm_search_kernel(dev, m3rsm_search_cases(
+        dev, path_searches, loop_searches, m3_cfg, m3_engine, scans, gt))
+    k7 = phase_m3rsm_level_kernel(dev, level_launches_of(path_searches))
+    k6 = phase_m3rsm_pyramid_kernel(dev, m3_warm.state.gm, m3_cfg.cell_model, builds)
     full_m3_launches = phase_full_path(full_m3_cfg, fscans, fodom, fgt, full_odo_ate,
                                        name="full_m3rsm", reference=FULL_M3RSM_REFERENCE_ATE_BY_KEY,
                                        hold_to_tracker=False)
@@ -1846,13 +2119,14 @@ def main() -> None:
     # `launches`: of a main path's timed run, held to the expected counts
     # above: the viny path's for the kernels of the earlier slices, the full
     # path's for the batched score, the gmapping path's for the particle
-    # match. `overlap_score` left the main paths for `score_poses`, so it
-    # reads 0 there; the path driven with one launch of it a round stands
-    # under `launches_by_path` only
+    # match, the viny_m3rsm path's for the M3RSM kernels. `overlap_score`
+    # and `m3rsm_level` left the main paths (for `score_poses` and the
+    # whole match), so they read 0 there; the paths driven with their
+    # yardsticks handed in stand under `launches_by_path` only
     main_path = {"overlap_score_batched": full_launches, "mc_match_batched": gm_launches,
                  "overlap_score": m3_launches, "m3rsm_pyramid": m3_launches,
-                 "m3rsm_level": m3_launches}
-    for k in (k1, k3, k2, k4, k5, k6, k7):
+                 "m3rsm_level": m3_launches, "m3rsm_search": m3_launches}
+    for k in (k1, k3, k2, k4, k5, k6, k7, k8):
         k["launches"] = main_path.get(k["name"], viny_launches)[k["name"]]
         k["launches_by_path"] = {
             "tiny": tiny_launches[k["name"]], "viny": viny_launches[k["name"]],
@@ -1860,8 +2134,10 @@ def main() -> None:
             "viny_m3rsm": m3_launches[k["name"]], "full_m3rsm": full_m3_launches[k["name"]],
             f"viny, one overlap_score launch a round, {ROUNDS_PATH_SCANS} scans":
                 rounds_launches[k["name"]],
-            f"gmapping, improved proposal, {GM_IMPROVED_SCANS} scans": improved_launches[k["name"]]}
-    print(json.dumps({"kernels": [k1, k3, k2, k4, k5, k6, k7]}), flush=True)
+            f"gmapping, improved proposal, {GM_IMPROVED_SCANS} scans": improved_launches[k["name"]],
+            "viny_m3rsm, a level launch a level and a score launch a round":
+                levels_launches[k["name"]]}
+    print(json.dumps({"kernels": [k1, k3, k2, k4, k5, k6, k7, k8]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
 

@@ -25,9 +25,12 @@ same windows read in place, the occupancy a channel of the maps' cells, as
 the RBPF holds it), against 30 single ``mc_match`` launches, bit for bit,
 and its twin; the same on whole 256^2 maps; M3RSM's pyramid (K4a: a build
 of a 256^2 map at 4 levels, the main path's 144^2 refresh, a build of 32
-submaps of 120^2 at 3 levels) against its twin bit for bit and its level
-score (K4b: the five launches of one ``viny_m3rsm`` match on the probe's
-map) against its twin; and three times a launch for every kernel:
+submaps of 120^2 at 3 levels) against its twin bit for bit, its whole match
+(K4b, ``m3rsm_search``: one ``viny_m3rsm`` match on the probe's map, and the
+loop closer's over 32 submaps of 120^2) against the level launches bit for
+bit and its twin, the level score (the five launches of the viny_m3rsm
+match's yardstick) against its twin, and a whole ``m3rsm_match`` call; and
+three times a launch for every kernel:
 
 - chained: 200 calls of the wrapper queued back to back between one pair of
   CUDA events, over 200 (the host's cost of a call shows here);
@@ -45,13 +48,18 @@ and read in place, into: the set-up (scan and noise copied) and the first
 score (each as the time from the block's start at which it is done), and a
 round's five parts: (a) the candidate and its trig, (b)
 the taps and the beam sums, (c) the reduction, (d) the cluster barrier, the
-reads of the scores and the argmax, (e) the state update. Cycles are turned
-into time with the SM clock that the stamps themselves give.
+reads of the scores and the argmax, (e) the state update; and a whole M3RSM
+match (``m3rsm_search``: the viny_m3rsm request and the loop closer's 32)
+into its set-up (the window and the endpoint cells), each level's score,
+cluster barrier with the reads of the scores, and selection, the argmax,
+and the hill climb's first score and rounds. Cycles are turned into time
+with the SM clock that the stamps themselves give.
 
 ``--times`` times only the wrappers that every version of the port has
 (the batched score at the six shapes above, the particle match at the
 RBPF's shape, ``overlap_score``, ``polar_free_plane``, ``mc_match`` tiny and
-viny; the M3RSM kernels where the checkout has them), and ``--root DIR`` imports the port from another checkout (built
+viny; the M3RSM kernels where the checkout has them, and a whole
+``m3rsm_match`` call of the viny_m3rsm preset), and ``--root DIR`` imports the port from another checkout (built
 there): run it on two checkouts in turns (A, B, B, A), one after another, to
 compare their kernels on one card.
 
@@ -242,9 +250,11 @@ def particle_cases(prep, pose, dev, size=160):
 def m3rsm_cases(pose, scan, dev):
     """K4a's arguments (a build of a ``viny_m3rsm`` map at 256^2 with one
     scan in it, the main path's 144^2 refresh of it, a build of 32 crops of
-    120^2 at 3 levels) and K4b's (the five level launches of one match from
-    0.1 m and 0.03 rad off the scan's pose), as {name: (wrapper, twin,
-    args)}."""
+    120^2 at 3 levels) and K4b's (the whole match from 0.1 m and 0.03 rad
+    off the scan's pose, the loop closer's over the 32 crops, and the five
+    level launches of the first's yardstick; in a checkout without the
+    whole match, the five level launches of the match), as {name:
+    (wrapper, twin, args)}."""
     from slam_constructor_tpu_torch.models import engine, viny
     from slam_constructor_tpu_torch.ops import kernels, m3rsm, raycast, scoring
 
@@ -269,6 +279,45 @@ def m3rsm_cases(pose, scan, dev):
             kernels.m3rsm_pyramid, kernels.m3rsm_pyramid_ref,
             (torch.stack(crops), torch.stack(masks), 3, 0.5)),
     }
+    prior = pose + torch.tensor([0.1, -0.1, 0.03], device=dev)
+    weights = engine._point_weights(cfg, scan)
+    if not hasattr(kernels, "m3rsm_search"):  # a checkout with a level launch a level
+        kept, level = [], kernels.m3rsm_score_level
+
+        def keep(*args):
+            kept.append(args)
+            return level(*args)
+
+        kernels.m3rsm_score_level = keep
+        try:
+            m3rsm.m3rsm_match(view, scan, prior, None, cfg.matcher_cfg, weights, pyramid=planes)
+        finally:
+            kernels.m3rsm_score_level = level
+        for a in kept:
+            out[f"m3rsm_level level {a[2]} K={a[6].shape[1]} window {a[3]}^2"] = (
+                kernels.m3rsm_score_level, kernels.m3rsm_score_level_ref, a)
+        return out
+    # the whole match's arguments: viny_m3rsm's, and the loop closer's over 32
+    # submaps (the crops) with a request each
+    searches, search = [], kernels.m3rsm_search
+    kernels.m3rsm_search = lambda s: searches.append(s) or search(s)
+    try:
+        m3rsm.m3rsm_match(view, scan, prior, None, cfg.matcher_cfg, weights, pyramid=planes)
+        loop = m3rsm.M3RSMConfig(levels=3, half_x=0.6, half_y=0.6, half_theta=0.3, n_theta=7,
+                                 scoring=scoring.ScoringConfig(reducer="overlap", stride=2))
+        maps = scoring.MapView(occ=torch.stack(crops), known=torch.stack(masks),
+                               origin=view.origin + torch.stack([cols, rows], -1) * view.scale,
+                               scale=view.scale)
+        scans = type(scan)(*(a.expand(32, -1) for a in (scan.ranges, scan.bearings, scan.valid)))
+        priors = maps.origin + 6.0 + torch.zeros((32, 1), device=dev)
+        priors = torch.cat([priors, torch.full((32, 1), 0.3, device=dev)], -1)
+        m3rsm.m3rsm_match(maps, scans, priors, None, loop)
+    finally:
+        kernels.m3rsm_search = search
+    out["m3rsm_search viny_m3rsm B=1 K=9..192"] = (
+        kernels.m3rsm_search, kernels.m3rsm_search_ref, (searches[0],))
+    out["m3rsm_search loop closer B=32 K=28..1024 120^2"] = (
+        kernels.m3rsm_search, kernels.m3rsm_search_ref, (searches[1],))
     kept, level = [], kernels.m3rsm_score_level
 
     def keep(*args):
@@ -277,15 +326,30 @@ def m3rsm_cases(pose, scan, dev):
 
     kernels.m3rsm_score_level = keep
     try:
-        prior = pose + torch.tensor([0.1, -0.1, 0.03], device=dev)
-        m3rsm.m3rsm_match(view, scan, prior, None, cfg.matcher_cfg,
-                          engine._point_weights(cfg, scan), pyramid=planes)
+        kernels.m3rsm_search_levels(searches[0])
     finally:
         kernels.m3rsm_score_level = level
     for a in kept:
         out[f"m3rsm_level level {a[2]} K={a[6].shape[1]} window {a[3]}^2"] = (
             kernels.m3rsm_score_level, kernels.m3rsm_score_level_ref, a)
     return out
+
+
+def m3rsm_match_call(pose, scan, dev):
+    """A whole ``m3rsm_match`` call of the viny_m3rsm preset on the probe's
+    map with its live pyramid handed in: what a scan's match costs the host
+    and the device, in any checkout that has M3RSM."""
+    from slam_constructor_tpu_torch.models import engine, viny
+    from slam_constructor_tpu_torch.ops import m3rsm, raycast, scoring
+
+    cfg = viny.viny_m3rsm_config(map_size=256)
+    gm = raycast.insert_scan(engine.init_state(cfg, dev).gm, cfg.cell_model, pose, scan, cfg.beam)
+    view = scoring.MapView.of(gm, cfg.cell_model)
+    planes = m3rsm.build_pyramid(view, 4, 0.5)
+    prior = pose + torch.tensor([0.1, -0.1, 0.03], device=dev)
+    weights = engine._point_weights(cfg, scan)
+    return lambda: m3rsm.m3rsm_match(view, scan, prior, None, cfg.matcher_cfg, weights,
+                                     pyramid=planes)
 
 
 def same_bits(a, b) -> bool:
@@ -302,7 +366,7 @@ def stamps_main(dev) -> None:
     lib = ctypes.CDLL(str(res.path))
     _build.load = lambda: lib  # every wrapper launches the stamped kernels
     slots, n_slots = 256, 64
-    pose, _, prep = scene(dev)
+    pose, scan, prep = scene(dev)
     cut, in_place = particle_cases(prep, pose, dev)
 
     def split(reader, n_blocks, name):
@@ -339,6 +403,51 @@ def stamps_main(dev) -> None:
             fn()
         torch.cuda.synchronize()
         split("mc_match_probe_stamps", P * -(-K // 8), f"mc_match.cu for {P} particles, windows {name}")
+
+    # the whole M3RSM match (m3rsm_match.cu): block 0 of each request's
+    # cluster, from its start: the set-up, then a level's score (warp 0),
+    # barrier and score reads, selection; the argmax, the first hill-climb
+    # score and its rounds
+    for name, (fn, _, a) in m3rsm_cases(pose, scan, dev).items():
+        if not name.startswith("m3rsm_search"):
+            continue
+        search = a[0]
+        for _ in range(3):
+            fn(*a)
+        torch.cuda.synchronize()
+        buf = (ctypes.c_ulonglong * (slots * n_slots))()
+        err = lib.m3rsm_match_probe_stamps(ctypes.byref(buf))
+        if err:
+            raise RuntimeError(f"m3rsm_match_probe_stamps: cudaError_t {err}")
+        levels = len(search.planes) - 1
+        ks = kernels.m3rsm_frontiers(search.top.shape[0], search.beam_width, levels)
+        width = min(8, max(ks))  # the cluster's blocks
+        n_b = min(search.prior.shape[0], slots // width)
+        st = np.frombuffer(buf, np.uint64).reshape(slots, n_slots)[:n_b * width:width]
+        st = st.astype(np.float64)
+        ghz = float(np.median((st[:, 62] - st[:, 0]) / (st[:, 63] - st[:, 1])))
+
+        def us(a, b):
+            return float(np.mean(st[:, b] - st[:, a])) / ghz * 1e-3
+
+        parts = [f"set-up {us(0, 2):.2f} (copies and corner {us(0, 29):.2f}, endpoint cells "
+                 f"{us(29, 61):.2f}, staged windows {us(61, 2):.2f})"]
+        prev = 2
+        for n in range(levels + 1):
+            lv = f"level {levels - n} (K={ks[n]}): score {us(prev, 3 + 3 * n):.2f}, barrier + reads "
+            lv += f"{us(3 + 3 * n, 4 + 3 * n):.2f}"
+            prev = 4 + 3 * n
+            if n < levels:
+                lv += f", selection {us(4 + 3 * n, 5 + 3 * n):.2f}"
+                prev = 5 + 3 * n
+            parts.append(lv)
+        parts.append(f"last barrier {us(prev, 30):.2f}, argmax {us(30, 31):.2f}")
+        if search.iterations:
+            rounds = [us(32 + i, 33 + i) for i in range(min(search.iterations, 28))]
+            parts.append(f"first hill-climb score {us(31, 32):.2f}, a round {np.mean(rounds):.2f} "
+                         f"(x {search.iterations}: " + ", ".join(f"{x:.2f}" for x in rounds) + ")")
+        print(f"stamps [{name}]: block 0 of {n_b} requests, SM clock {ghz:.3f} GHz, the whole "
+              f"{us(0, 62):.2f} us; " + "; ".join(parts) + " (us)", flush=True)
 
 
 def times_main(dev) -> None:
@@ -380,6 +489,7 @@ def times_main(dev) -> None:
     if hasattr(kernels, "m3rsm_pyramid"):
         fns += [(name, lambda f=f, a=a: f(*a))
                 for name, (f, _, a) in m3rsm_cases(pose, scan, dev).items()]
+        fns += [("m3rsm_match viny_m3rsm (the whole call)", m3rsm_match_call(pose, scan, dev))]
     for name, fn in fns:
         report(name, fn)
 
@@ -486,14 +596,15 @@ def main() -> None:
 
     m3 = m3rsm_cases(pose, scan, dev)
     for name, (fn, twin, a) in m3.items():
-        if "update" in name:  # in place: each on its own copy of the planes
-            got = fn(tuple(p.clone() for p in a[0]), *a[1:])
-            want = twin(tuple(p.clone() for p in a[0]), *a[1:])
-        else:
-            got, want = fn(*a), twin(*a)
+        got, want = fn(*a), twin(*a)
         torch.cuda.synchronize()
         if name.startswith("m3rsm_pyramid"):
             print(f"{name} vs twin: bitwise equal {same_bits(got, want)}", flush=True)
+        elif name.startswith("m3rsm_search"):
+            levels = kernels.m3rsm_search_levels(*a)
+            print(f"{name}: bitwise equal to the level launches {same_bits(got, levels)}; vs twin: "
+                  f"max |prob diff| {float((got[1] - want[1]).abs().max()):.3e}, max |pose diff| "
+                  f"{float((got[0] - want[0]).abs().max()):.3e}", flush=True)
         else:
             print(f"{name} vs twin: max |diff| {float((got - want).abs().max()):.3e}", flush=True)
 
@@ -511,6 +622,7 @@ def main() -> None:
         ("mc_match tiny", lambda: kernels.mc_match(*mc["tiny"])),
         ("mc_match viny", lambda: kernels.mc_match(*mc["viny"])),
         *((name, lambda f=f, a=a: f(*a)) for name, (f, _, a) in m3.items()),
+        ("m3rsm_match viny_m3rsm (the whole call)", m3rsm_match_call(pose, scan, dev)),
     ):
         report(name, fn)
     for name, fn in (

@@ -47,10 +47,13 @@ With ``--preset viny_m3rsm`` it profiles vinySLAM with the M3RSM matcher
 synchronise after each phase of ``slam_step``, ms and ATen calls a scan of
 the beam weights, the match (the branch and bound over the live pyramid,
 then the hill climb), the rasterisation, the fold and the pyramid's
-refresh; the match split into its search (``refine_iterations=0``) and its
-refine alone at a fixed state; and from ``torch.profiler`` the device's
-kernel time as a share of the unprofiled wall time and the kernels with the
-most device time.
+refresh; at a fixed state, synced ms and ATen calls of the whole match (one
+``m3rsm_search`` launch), of its search alone (``refine_iterations=0``), of
+the kernel's wrapper alone (the rest of the match's calls come before the
+launch) and of the same match with ``m3rsm_search_levels`` handed in (a
+level launch a level, a score launch a hill-climb round); and from
+``torch.profiler`` the device's kernel time as a share of the unprofiled
+wall time and the kernels with the most device time.
 
 Imports no JAX. Every figure is a measurement on the card it names.
 """
@@ -277,7 +280,7 @@ def profile_m3rsm(n: int) -> None:
     from chip_smoke import bench_sequence
     from slam_constructor_tpu_torch.models import engine, viny
     from slam_constructor_tpu_torch.ops import grid as gridlib
-    from slam_constructor_tpu_torch.ops import kernels, m3rsm, matchers, raycast, scoring
+    from slam_constructor_tpu_torch.ops import kernels, m3rsm, raycast, scoring
     from slam_constructor_tpu_torch.ops.geometry import compose
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -343,19 +346,36 @@ def profile_m3rsm(n: int) -> None:
     view = scoring.MapView.of(warm.gm, cfg.cell_model)
     pw = engine._point_weights(cfg, scan)
     search_cfg = dataclasses.replace(cfg.matcher_cfg, refine_iterations=0)
-    found = m3rsm.m3rsm_match(view, scan, prior, None, search_cfg, pw, pyramid=warm.pyramid)
-    mc = cfg.matcher_cfg
-    hc = matchers.HillClimbingConfig(step_xy=0.1, step_theta=mc.half_theta / (mc.n_theta - 1),
-                                     iterations=mc.refine_iterations, scoring=mc.scoring)
-    window = scoring.window_view(view, prior[:2], mc.window)
+    searches, search = [], kernels.m3rsm_search
+
+    def match(mcfg=cfg.matcher_cfg):
+        return m3rsm.m3rsm_match(view, scan, prior, None, mcfg, pw, pyramid=warm.pyramid)
+
+    def with_levels():  # the same match with a level launch a level, a score launch a round
+        kernels.m3rsm_search = kernels.m3rsm_search_levels
+        try:
+            return match()
+        finally:
+            kernels.m3rsm_search = search
+
+    kernels.m3rsm_search = lambda s: searches.append(s) or search(s)
+    try:
+        match()
+    finally:
+        kernels.m3rsm_search = search
+    calls = {}
     for name, fn in (
-            ("the search (5 level launches)", lambda: m3rsm.m3rsm_match(
-                view, scan, prior, None, search_cfg, pw, pyramid=warm.pyramid)),
-            ("the refine (hill climb, 9 score launches)", lambda: matchers.hill_climbing_match(
-                window, scan, found.pose, None, hc, pw))):
+            ("the whole match (one m3rsm_search launch)", match),
+            ("the search alone (refine 0, one launch)", lambda: match(search_cfg)),
+            ("the kernel's wrapper alone (m3rsm_search)", lambda: kernels.m3rsm_search(searches[0])),
+            ("the whole match with 5 level launches and 9 score launches", with_levels)):
         with CountOps() as c:
             fn()
-        print(f"{name} alone: {synced_ms(fn, 50):.4f} ms a call synced, {c.n} ATen calls")
+        calls[name] = c.n
+        print(f"{name}: {synced_ms(fn, 50):.4f} ms a call synced, {c.n} ATen calls")
+    whole, wrapper = list(calls.values())[0], list(calls.values())[2]
+    print(f"the match's ATen calls: {whole - wrapper} before the launch (endpoint cells, mask, "
+          f"window corner, the refine's beams), {wrapper} in the wrapper (its outputs)")
     with CountOps() as c:
         engine.slam_step(cfg, warm, scans[n_warm], odom[n_warm])
     print(f"ATen calls a scan (views included): {c.n}")
@@ -367,7 +387,8 @@ def profile_m3rsm(n: int) -> None:
         e.run(scans[n_warm:n_warm + n], odom[n_warm:n_warm + n])
         torch.cuda.synchronize()
     device_report(prof, n, secs, time.perf_counter() - t0,
-                  ("m3rsm_level_kernel", "m3rsm_pyramid_kernel", "overlap_score_kernel"))
+                  ("m3rsm_match_kernel", "m3rsm_pyramid_kernel", "m3rsm_level_kernel",
+                   "overlap_score_kernel"))
 
 
 def profile_gmapping(n: int) -> None:

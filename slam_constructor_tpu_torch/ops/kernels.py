@@ -22,12 +22,18 @@ a round, kept as the yardstick the fused kernels must equal bit for bit.
 
 ``m3rsm_pyramid`` builds M3RSM's max-pooled occupancy pyramid of one map
 or of M maps in one launch (``csrc/m3rsm_pyramid.cu``, K4a), and
-``m3rsm_pyramid_update`` refreshes one aligned region of it in place, gated
-by a flag on the device. ``m3rsm_score_level`` scores a branch-and-bound
-frontier's rects at one level of the pyramid for B requests in one launch
-(``csrc/m3rsm_level.cu``, K4b). The reference compiled both with XLA
+``m3rsm_pyramid_update`` refreshes one aligned region of it into new
+planes in one launch, gated by a flag on the device. ``m3rsm_search`` runs
+B whole M3RSM matches (the branch and bound over the pyramid, then the hill
+climb) in one launch, a thread-block cluster a request
+(``csrc/m3rsm_match.cu``, K4b); ``m3rsm_search_levels`` is the same match
+with ``m3rsm_score_level`` (``csrc/m3rsm_level.cu``: one level's rects for
+B requests) launched once a level and ``overlap_score_batched`` once a
+hill-climb round, kept as the yardstick ``m3rsm_search`` must equal bit for
+bit. The reference compiled all of it with XLA
 (``slam_constructor_tpu/ops/m3rsm.py``: ``build_pyramid``,
-``update_pyramid``, ``_score_level``); no Pallas kernel stood there.
+``update_pyramid``, ``_score_level``, ``m3rsm_match``); no Pallas kernel
+stood there but the hill climb's score.
 
 ``polar_free_plane`` fills the dense polar free-space weight plane of one
 scan. It replaces ``pallas_kernels.py::polar_free_lookup`` together with
@@ -43,11 +49,13 @@ card's smoke run holds the kernel to.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
 import torch
 
+from ..device import constant
 from . import _build
 from . import grid as gridlib
 from .geometry import wrap_angle
@@ -62,7 +70,7 @@ _MAX_SHARED_BYTES = 48 * 1024
 #: its own name whatever name it was called by.
 _LAUNCHES = dict.fromkeys(
     ("overlap_score", "overlap_score_batched", "mc_match", "mc_match_batched",
-     "polar_free_plane", "m3rsm_pyramid", "m3rsm_level"), 0
+     "polar_free_plane", "m3rsm_pyramid", "m3rsm_level", "m3rsm_search"), 0
 )
 
 
@@ -747,21 +755,22 @@ def polar_free_plane(
     return out
 
 
-# --- M3RSM: the pyramid (K4a) and the level score (K4b) -----------------------
+# --- M3RSM: the pyramid (K4a) and the whole match (K4b) ----------------------
 
 #: most levels above the finest that ``m3rsm_pyramid`` builds: a block pools
 #: a tile of 2^levels x 2^levels cells in shared memory (m3rsm_pyramid.cu)
 M3RSM_MAX_LEVELS = 6
 
 
-def pyramid_shapes(h: int, w: int, levels: int) -> list[tuple[int, int]]:
+@functools.lru_cache(maxsize=None)
+def pyramid_shapes(h: int, w: int, levels: int) -> tuple[tuple[int, int], ...]:
     """(rows, cols) of each level: a level halves the one below, an odd
     side padded first."""
     shapes = [(h, w)]
     for _ in range(levels):
         h, w = (h + 1) // 2, (w + 1) // 2
         shapes.append((h, w))
-    return shapes
+    return tuple(shapes)
 
 
 def _max_pool2(p: Tensor, unknown: float) -> Tensor:
@@ -793,9 +802,11 @@ def _update_region(center_rc: Tensor, size: int, h: int, w: int, step: int):
 
 def m3rsm_pyramid_update_ref(planes: tuple, occ: Tensor, known: Tensor, center_rc: Tensor,
                              size: int, unknown: float, gate: Tensor | None = None) -> tuple:
-    """Plain PyTorch version of :func:`m3rsm_pyramid_update`: the region
-    cut out, pooled level by level and written back, map by map (the
-    region's corner is read on the host)."""
+    """Plain PyTorch version of :func:`m3rsm_pyramid_update`: a copy of the
+    planes, the region cut out, pooled level by level and written into the
+    copy, map by map (the region's corner is read on the host). ``planes``
+    stay as they were."""
+    planes = tuple(p.clone() for p in planes)
     levels = len(planes) - 1
     h, w = planes[0].shape[-2:]
     flat = [p.view(-1, *p.shape[-2:]) for p in planes]
@@ -816,13 +827,70 @@ def m3rsm_pyramid_update_ref(planes: tuple, occ: Tensor, known: Tensor, center_r
     return planes
 
 
+@functools.lru_cache(maxsize=None)
+def _pyramid_layout(lead: tuple, h: int, w: int, levels: int):
+    """Each plane's shape (``lead`` + level shape), its floats, its
+    contiguous strides and where it starts: a pyramid lives in one buffer,
+    level l right after level l - 1."""
+    n = math.prod(lead)
+    shapes = tuple((*lead, hl, wl) for hl, wl in pyramid_shapes(h, w, levels))
+    sizes = tuple(n * hl * wl for hl, wl in pyramid_shapes(h, w, levels))
+    strides = tuple(((hl * wl,) if lead else ()) + (wl, 1)
+                    for hl, wl in pyramid_shapes(h, w, levels))
+    starts = tuple(sum(sizes[:lvl]) for lvl in range(levels + 1))
+    return shapes, sizes, strides, starts
+
+
+def _new_pyramid(lead: tuple, h: int, w: int, levels: int, device) -> tuple[Tensor, tuple]:
+    """An empty pyramid's buffer and its planes (views into it), in as few
+    ATen calls as a tuple of planes allows: one allocation, a view a plane."""
+    shapes, sizes, strides, starts = _pyramid_layout(lead, h, w, levels)
+    buf = torch.empty((sum(sizes),), dtype=torch.float32, device=device)
+    return buf, tuple(buf.as_strided(shape, stride, start)
+                      for shape, stride, start in zip(shapes, strides, starts))
+
+
+def _pyramid_buffer(name: str, planes: tuple, lead: tuple, h: int, w: int,
+                    device: torch.device) -> Tensor:
+    """The buffer that holds ``planes`` in the kernels' layout: their own
+    when they are views into one (a pyramid of :func:`m3rsm_pyramid` or
+    :func:`m3rsm_pyramid_update`), else a copy of them laid out so."""
+    shapes, _, _, starts = _pyramid_layout(lead, h, w, len(planes) - 1)
+    base = planes[0].data_ptr()
+    for p, shape, start in zip(planes, shapes, starts):
+        if (p.dtype != torch.float32 or p.shape != shape or not p.is_contiguous()
+                or p.data_ptr() != base + 4 * start or p.device != device):
+            break
+    else:
+        return planes[0]
+    for lvl, (p, shape) in enumerate(zip(planes, shapes)):
+        _check(f"{name}: plane {lvl}", p, shape, device)
+    return torch.cat([p.reshape(-1) for p in planes])
+
+
+def _launch(name: str, device: torch.device, call) -> None:
+    """Runs ``call(stream)`` (a ctypes launch onto ``device``'s current
+    stream, given as an int) with ``device`` the current device, and raises
+    if the launch failed. The device is switched only when it is not the
+    current one already."""
+    current = torch._C._cuda_getDevice()
+    index = current if device.index is None else device.index
+    if index == current:
+        err = call(torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = call(torch._C._cuda_getCurrentRawStream(index))
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+
+
 @functools.cache
 def _m3rsm_pyramid_fn():
     fn = _build.load().m3rsm_pyramid_launch
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,  # occ, its cell stride, known
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # m, h, w, levels
-        ctypes.c_float, ctypes.POINTER(ctypes.c_void_p),  # unknown, the planes
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,  # unknown, out, old
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,  # center, size, gate
         ctypes.c_void_p,  # stream
     ]
@@ -830,17 +898,18 @@ def _m3rsm_pyramid_fn():
     return fn
 
 
-def _m3rsm_pyramid_launch(occ, known, planes, unknown, center_rc=None, size=0, gate=None):
-    """Checks the inputs (occ and known [H, W] or [M, H, W], the planes
-    [..., Hl, Wl] with the same leading shape), launches the kernel once
-    and adds one to the ``m3rsm_pyramid`` count."""
+def _m3rsm_pyramid_launch(occ, known, levels, unknown, old=None, center_rc=None, size=0,
+                          gate=None):
+    """Checks the inputs (occ and known [H, W] or [M, H, W]; ``old``: a
+    pyramid of the same leading shape to refresh), launches the kernel once
+    into a new pyramid and adds one to the ``m3rsm_pyramid`` count; returns
+    the new planes."""
     dev = occ.device
     if dev.type != "cuda":
         raise ValueError(f"m3rsm_pyramid: unsupported device {dev}")
     lead, (h, w) = tuple(occ.shape[:-2]), occ.shape[-2:]
     if len(lead) > 1:
         raise ValueError(f"m3rsm_pyramid: occ {tuple(occ.shape)} is not (H, W) or (M, H, W)")
-    levels = len(planes) - 1
     if not 0 <= levels <= M3RSM_MAX_LEVELS:
         raise ValueError(f"m3rsm_pyramid: {levels} levels, at most {M3RSM_MAX_LEVELS}")
     n_m = lead[0] if lead else 1
@@ -848,24 +917,19 @@ def _m3rsm_pyramid_launch(occ, known, planes, unknown, center_rc=None, size=0, g
         raise ValueError(f"m3rsm_pyramid: {n_m} maps, not between 1 and {_MAX_MAPS} a launch")
     stride = _cell_stride("m3rsm_pyramid", occ, dev)
     _check("known", known, (*lead, h, w), dev, torch.bool)
-    for lvl, ((hl, wl), p) in enumerate(zip(pyramid_shapes(h, w, levels), planes)):
-        _check(f"plane {lvl}", p, (*lead, hl, wl), dev)
-    if center_rc is not None:
+    old_ptr = center_ptr = gate_ptr = None
+    if old is not None:
+        old_ptr = _pyramid_buffer("m3rsm_pyramid_update", old, lead, h, w, dev).data_ptr()
         _check("center_rc", center_rc, (*lead, 2), dev, torch.int64)
+        center_ptr = center_rc.data_ptr()
         if gate is not None:
             _check("gate", gate, lead, dev)
-    ptrs = (ctypes.c_void_p * (levels + 1))(*(p.data_ptr() for p in planes))
+            gate_ptr = gate.data_ptr()
+    buf, planes = _new_pyramid(lead, h, w, levels, dev)
     fn = _m3rsm_pyramid_fn()
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(occ.data_ptr(), stride, known.data_ptr(), n_m, h, w, levels, unknown, ptrs,
-                 ptr(center_rc), size, ptr(gate), stream)
-    if err != 0:
-        raise RuntimeError(f"m3rsm_pyramid kernel launch failed: cudaError_t {err}")
+    _launch("m3rsm_pyramid", dev, lambda stream: fn(
+        occ.data_ptr(), stride, known.data_ptr(), n_m, h, w, levels, unknown, buf.data_ptr(),
+        old_ptr, center_ptr, size, gate_ptr, stream))
     _LAUNCHES["m3rsm_pyramid"] += 1
     return planes
 
@@ -876,7 +940,7 @@ def m3rsm_pyramid(occ: Tensor, known: Tensor, levels: int, unknown: float) -> tu
     2^l), ceil(W / 2^l)] the 2 x 2 max of level l - 1 with an odd side
     padded with ``unknown``. occ f32[H, W] or f32[M, H, W] (contiguous, or a
     channel of contiguous cells), known bool of the same shape: M maps in
-    one launch.
+    one launch. On the card the planes are views into one buffer.
 
     CPU tensors take the plain twin; CUDA tensors launch the kernel on the
     current stream and add one to the ``m3rsm_pyramid`` count of
@@ -884,26 +948,24 @@ def m3rsm_pyramid(occ: Tensor, known: Tensor, levels: int, unknown: float) -> tu
     """
     if occ.device.type == "cpu":
         return m3rsm_pyramid_ref(occ, known, levels, unknown)
-    lead, (h, w) = tuple(occ.shape[:-2]), occ.shape[-2:]
-    planes = tuple(torch.empty((*lead, hl, wl), dtype=torch.float32, device=occ.device)
-                   for hl, wl in pyramid_shapes(h, w, levels))
-    return _m3rsm_pyramid_launch(occ, known, planes, unknown)
+    return _m3rsm_pyramid_launch(occ, known, levels, unknown)
 
 
 def m3rsm_pyramid_update(planes: tuple, occ: Tensor, known: Tensor, center_rc: Tensor,
                          size: int, unknown: float, gate: Tensor | None = None) -> tuple:
-    """Refresh ``planes`` (a pyramid of :func:`m3rsm_pyramid`'s shapes) IN
-    PLACE over the ``size x size`` region around ``center_rc`` i64[2] (row,
-    col; i64[M, 2] for M maps): its first cell ``clip(center - size // 2,
-    0, dim - size)`` aligned down to ``2^levels``, as the reference's
-    ``update_pyramid`` places it. The map's sides and ``size`` must be
-    multiples of ``2^levels``. Where ``gate`` f32[] (f32[M]) is given, only
-    the maps whose gate is above 0 are touched; it is read on the device.
-    Returns ``planes``.
+    """``planes`` (a pyramid of :func:`m3rsm_pyramid`'s shapes) refreshed
+    over the ``size x size`` region around ``center_rc`` i64[2] (row, col;
+    i64[M, 2] for M maps), as new planes: its first cell ``clip(center -
+    size // 2, 0, dim - size)`` aligned down to ``2^levels``, as the
+    reference's ``update_pyramid`` places it, the rest of every level
+    copied. The map's sides and ``size`` must be multiples of
+    ``2^levels``. Where ``gate`` f32[] (f32[M]) is given, only the maps
+    whose gate is above 0 are refreshed (the others copied); it is read on
+    the device. ``planes`` stay as they were.
 
     CPU tensors take the plain twin; CUDA tensors launch the kernel on the
-    current stream and add one to the ``m3rsm_pyramid`` count of
-    :func:`launch_counts`.
+    current stream (one launch writes every level of the new planes) and
+    add one to the ``m3rsm_pyramid`` count of :func:`launch_counts`.
     """
     h, w = planes[0].shape[-2:]
     step = 1 << (len(planes) - 1)
@@ -912,7 +974,8 @@ def m3rsm_pyramid_update(planes: tuple, occ: Tensor, known: Tensor, center_rc: T
                          f"must be multiples of 2^levels = {step}, the region inside the map")
     if occ.device.type == "cpu":
         return m3rsm_pyramid_update_ref(planes, occ, known, center_rc, size, unknown, gate)
-    return _m3rsm_pyramid_launch(occ, known, planes, unknown, center_rc, size, gate)
+    return _m3rsm_pyramid_launch(occ, known, len(planes) - 1, unknown, planes, center_rc, size,
+                                 gate)
 
 
 def m3rsm_score_level_ref(plane: Tensor, corner: Tensor, level: int, wh: int, ww: int,
@@ -976,7 +1039,9 @@ def m3rsm_score_level(plane: Tensor, corner: Tensor, level: int, wh: int, ww: in
 
     CPU tensors take the plain twin; CUDA tensors launch the kernel on the
     current stream, once for all B, and add one to the ``m3rsm_level``
-    count of :func:`launch_counts`.
+    count of :func:`launch_counts`. The match's main path does not call
+    it: :func:`m3rsm_search_levels` does, as the yardstick of
+    :func:`m3rsm_search`.
     """
     if plane.device.type == "cpu":
         return m3rsm_score_level_ref(plane, corner, level, wh, ww, c0, cands, mask, unknown)
@@ -1006,3 +1071,333 @@ def m3rsm_score_level(plane: Tensor, corner: Tensor, level: int, wh: int, ww: in
         raise RuntimeError(f"m3rsm_score_level kernel launch failed: cudaError_t {err}")
     _LAUNCHES["m3rsm_level"] += 1
     return out
+
+
+#: the six axis steps of a hill-climbing round, in the reference's order
+HILL_CLIMB_STEPS = ((1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1), (0, 0, -1))
+
+
+def hill_climb_loop(score, plane, pts, beam_w, origin, pose, scale, unknown, step_xy,
+                    step_theta, iterations, shrink):
+    """The hill climb as a Python loop over device tensors with no host
+    sync: each round scores the six poses one step along each axis (theta
+    wrapped), moves to the best (ties to the first) if it is strictly
+    better, else multiplies every step by ``shrink``. ``score`` has
+    ``overlap_score``'s signature and is called once for the first pose and
+    once a round. With a leading map dimension on every tensor (plane
+    f32[M, H, W], pts f32[M, R, 2], beam_w f32[M, R], origin f32[M, 2], pose
+    f32[M, 3]) ``score`` must take it too: pose f32[M, 3], prob f32[M],
+    trace f32[M, iterations]."""
+    dev = pose.device
+    prob = score(plane, pose[..., None, :].contiguous(), pts, beam_w, origin, scale,
+                 unknown)[..., 0]
+    units = constant(HILL_CLIMB_STEPS, torch.float32, dev)
+    steps = constant((step_xy, step_xy, step_theta), torch.float32, dev)
+    steps = steps.expand(*pose.shape[:-1], 3)
+    trace = []
+    for _ in range(iterations):
+        cand = pose[..., None, :] + units * steps[..., None, :]
+        cand = torch.cat([cand[..., :2], wrap_angle(cand[..., 2:])], dim=-1)
+        probs = score(plane, cand.contiguous(), pts, beam_w, origin, scale, unknown)
+        i = torch.argmax(probs, dim=-1, keepdim=True)  # ties -> first index
+        p_i = probs.gather(-1, i)[..., 0]
+        better = p_i > prob
+        won = cand.gather(-2, i[..., None].expand(*i.shape, 3))[..., 0, :]
+        pose = torch.where(better[..., None], won, pose)
+        prob = torch.where(better, p_i, prob)
+        steps = torch.where(better[..., None], steps, steps * shrink)
+        trace.append(prob)
+    trace = (torch.stack(trace, dim=-1) if trace
+             else torch.empty((*pose.shape[:-1], 0), dtype=torch.float32, device=dev))
+    return pose, prob, trace
+
+
+@dataclasses.dataclass
+class M3RSMSearch:
+    """Everything one M3RSM match of B requests reads: the branch and bound
+    over a max-occupancy pyramid, then the hill climb.
+
+    The maps: ``planes`` the pyramid, levels + 1 planes f32[Hl, Wl] (one
+    map, shared by the requests) or f32[B, Hl, Wl] (a map a request), as
+    ``m3rsm_pyramid`` gives them; ``occ`` f32 (contiguous, or a channel of
+    contiguous cells) and ``known`` bool of the planes' leading shape and
+    level-0 size; ``origin`` f32[B, 2] the maps' world origins. ``window``:
+    the side (a multiple of 2^levels) of each request's prior-centred
+    window, aligned to 2^levels and clipped into the map (0: the whole map);
+    every level is read on its window (a cell off it reads ``unknown``), the
+    hill climb on its level-0 window.
+
+    The requests: ``pts`` f32[B, R, 2] every beam's endpoint in the sensor
+    frame, ``mask`` f32[B, R] the level scores' beam weights (zero off every
+    ``stride``-th beam: the hill climb scores beams ``::stride`` with these
+    weights, as ``scoring.prepare`` gives them); ``prior`` f32[B, 3];
+    ``top`` i32[K0, 3] the top level's rects (theta index, row and col
+    offset); ``thetas`` f32[T]; ``beam_width`` rects kept a level;
+    ``iterations`` hill-climb rounds (0: none) with the steps ``step_xy``,
+    ``step_theta`` and ``shrink``."""
+
+    planes: tuple
+    occ: Tensor
+    known: Tensor
+    origin: Tensor
+    window: int
+    pts: Tensor
+    mask: Tensor
+    stride: int
+    prior: Tensor
+    top: Tensor
+    thetas: Tensor
+    scale: float
+    beam_width: int
+    unknown: float
+    step_xy: float
+    step_theta: float
+    iterations: int
+    shrink: float = 0.5
+
+
+def m3rsm_frontiers(k0: int, beam_width: int, levels: int) -> list[int]:
+    """Rects the search scores at each level, top first: the top level's
+    ``k0``, then four children of each of the best ``min(beam_width, K)``."""
+    ks = [k0]
+    for _ in range(levels):
+        ks.append(4 * min(beam_width, ks[-1]))
+    return ks
+
+
+def m3rsm_tiebreak(cands: Tensor, n_theta: int) -> Tensor:
+    """-1e-6 x (|ty| + |tx| + |t - n_theta // 2|): between equal scores the
+    rect nearest the prior wins (a flat, unmapped region must not pull the
+    pose to the window's corner)."""
+    d = (cands[..., 1].abs() + cands[..., 2].abs() + (cands[..., 0] - n_theta // 2).abs())
+    return d.to(torch.float32) * -1e-6
+
+
+def m3rsm_ranks_ref(scores: Tensor) -> Tensor:
+    """Each score's place in the stable descending sort of its row, as the
+    ``m3rsm_search`` kernel selects the frontier: scores f32[B, K] -> i64[B,
+    K], the count of scores that come before it (a larger order key, or an
+    equal key at a lower index). The key orders NaN first (every NaN
+    alike) and -0.0 as 0.0, as ``torch.sort(descending=True,
+    stable=True)`` does."""
+    bits = torch.where(scores == 0, 0.0, scores).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    key = torch.where(bits >= 0x80000000, 0xFFFFFFFF - bits, bits | 0x80000000)
+    key = torch.where(torch.isnan(scores), 0xFFFFFFFF, key)
+    k = scores.shape[-1]
+    idx = torch.arange(k, device=scores.device)
+    before = (key[..., None, :] > key[..., :, None]) | (
+        (key[..., None, :] == key[..., :, None]) & (idx[None, :] < idx[:, None]))
+    return before.sum(-1)
+
+
+def m3rsm_window_cells(s: M3RSMSearch):
+    """The search's geometry, in the reference's f32 arithmetic (the
+    kernel computes the same values itself): each request's window, its
+    first level-0 cell ``corner`` i32[B, 2] (row, col) and extent (rows,
+    cols), its world ``origin`` f32[B, 2], and ``c0`` i32[B, T, R, 2] every
+    theta's endpoint cells (row, col) at zero translation, relative to the
+    window."""
+    n_b = s.prior.shape[0]
+    h0, w0 = s.occ.shape[-2:]
+    step_top = 1 << (len(s.planes) - 1)
+    origin = s.origin.expand(n_b, 2)
+    poses = s.prior
+    if s.window > 0:
+        side = s.window
+        rel = (poses[:, :2] - origin) / torch.full_like(origin, s.scale)
+        cell = torch.floor(rel).to(torch.int32)
+        c0w = torch.clamp(cell[:, 0] - side // 2, 0, w0 - side) // step_top * step_top
+        r0w = torch.clamp(cell[:, 1] - side // 2, 0, h0 - side) // step_top * step_top
+        corner = torch.stack([r0w, c0w], dim=-1)
+        origin = origin + torch.stack([c0w, r0w], dim=-1).to(torch.float32) * s.scale
+        extent = (side, side)
+    else:
+        corner = torch.zeros((n_b, 2), dtype=torch.int32, device=poses.device)
+        extent = (h0, w0)
+    ang = poses[:, 2:3] + s.thetas  # [B, T]
+    c, s_ = torch.cos(ang)[..., None], torch.sin(ang)[..., None]
+    px, py = s.pts[:, None, :, 0], s.pts[:, None, :, 1]
+    ex = (poses[:, 0, None, None] + c * px) - s_ * py  # [B, T, R]
+    ey = (poses[:, 1, None, None] + s_ * px) + c * py
+    scale_t = torch.full_like(ex, s.scale)
+    rel_x = (ex - origin[:, 0, None, None]) / scale_t
+    rel_y = (ey - origin[:, 1, None, None]) / scale_t
+    c0 = torch.stack([torch.floor(rel_y).to(torch.int32), torch.floor(rel_x).to(torch.int32)],
+                     dim=-1).contiguous()
+    return corner, extent, origin, c0
+
+
+def m3rsm_search_loop(score_level, score, s: M3RSMSearch):
+    """The match as a Python loop over device tensors with no host sync:
+    the window and endpoint cells (:func:`m3rsm_window_cells`), the top
+    level's rects scored with ``score_level`` (``m3rsm_score_level``'s
+    signature) plus the tie-break, then level by level the best
+    ``beam_width`` by a stable descending sort (equal scores keep index
+    order, as the reference's ``top_k``), their children scored one level
+    down; the argmax of level 0 (ties to the first) and its pose; then
+    :func:`hill_climb_loop` with ``score`` (``overlap_score``'s signature,
+    called with the leading request dimension) on the level-0 window cut
+    out. Returns pose f32[B, 3], prob f32[B], trace f32[B, iterations]."""
+    n_b = s.prior.shape[0]
+    n_t = s.thetas.shape[0]
+    levels = len(s.planes) - 1
+    dev = s.prior.device
+    planes = [p if p.dim() == 3 else p[None] for p in s.planes]
+    corner, (wh, ww), origin, c0 = m3rsm_window_cells(s)
+    mask = s.mask.contiguous()
+
+    def level_scores(level, cands):
+        side = 1 << level
+        return score_level(planes[level], corner, level, -(-wh // side), -(-ww // side), c0,
+                           cands, mask, s.unknown) + m3rsm_tiebreak(cands, n_t)
+
+    cands = s.top.expand(n_b, -1, 3).contiguous()
+    scores = level_scores(levels, cands)
+    for level in range(levels - 1, -1, -1):
+        # keep the best beam_width rects, split each into its 4 children
+        take_n = min(s.beam_width, cands.shape[1])
+        order = torch.sort(scores, dim=-1, descending=True, stable=True).indices[:, :take_n]
+        parents = torch.gather(cands, 1, order[..., None].expand(-1, -1, 3))
+        child = constant(((0, 0, 0), (0, 1 << level, 0), (0, 0, 1 << level),
+                          (0, 1 << level, 1 << level)), torch.int32, dev)
+        cands = (parents[:, :, None, :] + child).reshape(n_b, -1, 3)
+        scores = level_scores(level, cands)
+
+    best = torch.argmax(scores, dim=-1, keepdim=True)  # ties -> first index
+    win = torch.gather(cands, 1, best[..., None].expand(-1, -1, 3))[:, 0]  # [B, 3]
+    pose = torch.stack([
+        s.prior[:, 0] + win[:, 2].to(torch.float32) * s.scale,
+        s.prior[:, 1] + win[:, 1].to(torch.float32) * s.scale,
+        wrap_angle(s.prior[:, 2] + s.thetas[win[:, 0].long()]),
+    ], dim=-1)
+    prob = torch.gather(scores, 1, best)[:, 0]
+    if s.iterations == 0:
+        return pose, prob, torch.empty((n_b, 0), dtype=torch.float32, device=dev)
+    occ = s.occ if s.occ.dim() == 3 else s.occ[None]
+    known = s.known if s.known.dim() == 3 else s.known[None]
+    if occ.shape[0] != n_b:  # B requests on one map
+        occ, known = occ.expand(n_b, -1, -1), known.expand(n_b, -1, -1)
+    row, col = corner[:, 0].long(), corner[:, 1].long()
+    plane = torch.where(gridlib.take_window(known, row, col, wh, ww),
+                        gridlib.take_window(occ, row, col, wh, ww), s.unknown).contiguous()
+    pts = s.pts[:, ::s.stride].contiguous()
+    beam_w = s.mask[:, ::s.stride].contiguous()
+    return hill_climb_loop(score, plane, pts, beam_w, origin.contiguous(), pose, s.scale,
+                           s.unknown, s.step_xy, s.step_theta, s.iterations, s.shrink)
+
+
+def m3rsm_search_ref(s: M3RSMSearch):
+    """Plain PyTorch version of :func:`m3rsm_search`: the loop over the
+    level score's and the overlap score's plain twins."""
+    return m3rsm_search_loop(m3rsm_score_level_ref, overlap_score_ref, s)
+
+
+def m3rsm_search_levels(s: M3RSMSearch):
+    """The same match with :func:`m3rsm_score_level` launched once a level
+    and :func:`overlap_score_batched` once a hill-climb round, the rest in
+    PyTorch ops between them. Nothing on a main path calls it: it is what
+    :func:`m3rsm_search` is held to, bit for bit, on the card."""
+    return m3rsm_search_loop(m3rsm_score_level, overlap_score_batched, s)
+
+
+@functools.lru_cache(maxsize=None)
+def _m3rsm_search_shared(index: int, *sizes: int) -> tuple[int, int]:
+    """The dynamic shared memory a launch of the ``m3rsm_search`` kernel
+    with these sizes (h, w, window, levels, n_t, r, stride, iterations,
+    k_max) asks for, and what a block of it may ask for on card ``index``,
+    in bytes, as ``m3rsm_match.cu`` lays its shared memory out."""
+    fn = _build.load().m3rsm_match_shared_bytes
+    fn.argtypes = [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_longlong)] * 2
+    fn.restype = ctypes.c_int
+    need, cap = ctypes.c_longlong(), ctypes.c_longlong()
+    with torch.cuda.device(index):
+        err = fn(*sizes, ctypes.byref(need), ctypes.byref(cap))
+    if err != 0:
+        raise RuntimeError(f"m3rsm_search: shared memory query failed: cudaError_t {err}")
+    return need.value, cap.value
+
+
+@functools.cache
+def _m3rsm_search_fn():
+    fn = _build.load().m3rsm_match_launch
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # pyramid
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # occ, known, occ's cell stride
+        ctypes.c_void_p, ctypes.c_int,  # origin, window
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # pts, mask, r, stride
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,  # prior, b, top, k0
+        ctypes.c_void_p, ctypes.c_int,  # thetas, n_t
+        ctypes.c_int, ctypes.c_float, ctypes.c_float,  # beam width, scale, unknown
+        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,  # steps, shrink, iterations
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # pose, prob, trace
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,  # k_max, dynamic shared bytes, stream
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _m3rsm_search_launch(s: M3RSMSearch):
+    """Checks the inputs, launches the kernel once for all B requests and
+    adds one to the ``m3rsm_search`` count."""
+    dev = s.prior.device
+    if dev.type != "cuda":
+        raise ValueError(f"m3rsm_search: unsupported device {dev}")
+    occ = s.occ
+    lead, (h, w) = tuple(occ.shape[:-2]), occ.shape[-2:]
+    n_b = s.prior.shape[0]
+    n_p = lead[0] if lead else 1
+    levels = len(s.planes) - 1
+    n_t, r, k0 = s.thetas.shape[0], s.mask.shape[-1], s.top.shape[0]
+    if len(lead) > 1 or n_p not in (1, n_b) or not 1 <= n_b <= _MAX_MAPS:
+        raise ValueError(f"m3rsm_search: maps {tuple(occ.shape)} for {n_b} requests")
+    step = 1 << levels
+    if (not 0 <= levels <= 8 or k0 < 1 or s.beam_width < 1 or s.stride < 1
+            or s.window < 0 or s.window % step or s.window > min(h, w)
+            or (s.window and (h % step or w % step))):
+        raise ValueError(f"m3rsm_search: {levels} levels, a {s.window}-cell window of {h} x {w}, "
+                         f"{k0} top rects, beam width {s.beam_width}, stride {s.stride}")
+    k_max = max(m3rsm_frontiers(k0, s.beam_width, levels))
+    index = torch._C._cuda_getDevice() if dev.index is None else dev.index
+    shared, cap = _m3rsm_search_shared(index, h, w, s.window, levels, n_t, r, s.stride,
+                                       s.iterations, k_max)
+    if shared > cap:
+        raise ValueError(f"m3rsm_search: {n_t} thetas, {r} beams and a frontier of {k_max} rects "
+                         f"need {shared} B of shared memory a block, more than the kernel's cap "
+                         f"of {cap} B on this card")
+    stride = _cell_stride("m3rsm_search", occ, dev)
+    _check("known", s.known, (*lead, h, w), dev, torch.bool)
+    pyramid = _pyramid_buffer("m3rsm_search", s.planes, lead, h, w, dev)
+    _check("origin", s.origin, (n_b, 2), dev)
+    _check("pts", s.pts, (n_b, r, 2), dev)
+    _check("mask", s.mask, (n_b, r), dev)
+    _check("prior", s.prior, (n_b, 3), dev)
+    _check("top", s.top, (k0, 3), dev, torch.int32)
+    _check("thetas", s.thetas, (n_t,), dev)
+    pose = torch.empty((n_b, 3), dtype=torch.float32, device=dev)
+    prob = torch.empty((n_b,), dtype=torch.float32, device=dev)
+    trace = torch.empty((n_b, s.iterations), dtype=torch.float32, device=dev)
+    fn = _m3rsm_search_fn()
+    _launch("m3rsm_search", dev, lambda stream: fn(
+        pyramid.data_ptr(), n_p, h, w, levels, occ.data_ptr(), s.known.data_ptr(), stride,
+        s.origin.data_ptr(), s.window, s.pts.data_ptr(), s.mask.data_ptr(), r, s.stride,
+        s.prior.data_ptr(), n_b, s.top.data_ptr(), k0, s.thetas.data_ptr(), n_t, s.beam_width,
+        s.scale, s.unknown, s.step_xy, s.step_theta, s.shrink, s.iterations, pose.data_ptr(),
+        prob.data_ptr(), trace.data_ptr(), k_max, shared, stream))
+    _LAUNCHES["m3rsm_search"] += 1
+    return pose, prob, trace
+
+
+def m3rsm_search(s: M3RSMSearch):
+    """B whole M3RSM matches (see :class:`M3RSMSearch`) -> (pose f32[B, 3],
+    prob f32[B], trace f32[B, iterations]): the branch and bound, its
+    winner's pose and score, then the hill climb (prob and trace its own).
+
+    CPU tensors take the plain twin :func:`m3rsm_search_ref`; CUDA tensors
+    launch the kernel on the current stream, once for all B (a cluster a
+    request), with the bits of :func:`m3rsm_search_levels`, and add one to
+    the ``m3rsm_search`` count of :func:`launch_counts`. Raises where the
+    frontier, the beams and the thetas do not fit a block's shared memory.
+    """
+    if s.prior.device.type == "cpu":
+        return m3rsm_search_ref(s)
+    return _m3rsm_search_launch(s)

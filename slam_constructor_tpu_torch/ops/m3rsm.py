@@ -10,12 +10,15 @@ bound finds the best cell-resolution pose: all aligned rects of side
 on to level 0; a hill climb then refines the winner below a cell.
 
 On the card the pyramid is built and refreshed by ``kernels.m3rsm_pyramid``
-and ``kernels.m3rsm_pyramid_update`` (K4a, ``csrc/m3rsm_pyramid.cu``) and
-every level is scored by one launch of ``kernels.m3rsm_score_level`` (K4b,
-``csrc/m3rsm_level.cu``) for all requests at once. The frontier's
-selection (a stable sort: the reference's ``top_k`` keeps equal scores in
-index order), the children, the endpoint cells and the window's corner stay
-PyTorch ops on the device; nothing is read on the host.
+and ``kernels.m3rsm_pyramid_update`` (K4a, ``csrc/m3rsm_pyramid.cu``: the
+refresh one launch into new planes), and the whole match, every level of
+the branch and bound with the frontier's selection (a stable sort: the
+reference's ``top_k`` keeps equal scores in index order) and the hill
+climb, is one launch of ``kernels.m3rsm_search`` (K4b,
+``csrc/m3rsm_match.cu``) for all requests at once. The scan's endpoints and
+the beams' weights are PyTorch ops on the device before it; the kernel
+places each window and computes the endpoint cells itself, with the f32
+operations of ``kernels.m3rsm_window_cells``; nothing is read on the host.
 
 ``m3rsm_match`` takes one map and one request, one map shared by B requests
 (``m3rsm_match_many``), or M maps with a request each (the loop closer's
@@ -32,12 +35,11 @@ import numpy as np
 import torch
 
 from ..device import constant
-from . import grid as gridlib
 from . import kernels
 from . import matchers as matcherslib
 from . import scan as scanlib
-from .geometry import wrap_angle
-from .matchers import HillClimbingConfig, MatchResult, hill_climbing_match
+from . import scoring
+from .matchers import MatchResult
 from .scoring import MapView, ScoringConfig
 
 Tensor = torch.Tensor
@@ -98,8 +100,9 @@ def update_pyramid(
     inside the region. ``gate`` f32[] (read on the device) skips the refresh
     unless it is above 0: the reference's ``lax.cond(q > 0, ...)``.
 
-    Returns new planes (the refresh writes into copies; ``planes`` stay as
-    they were). Map sides and ``size`` must be multiples of ``2^levels``.
+    Returns new planes (one launch on the card writes every level of them;
+    ``planes`` stay as they were). Map sides and ``size`` must be multiples
+    of ``2^levels``.
     """
     step = 1 << (len(planes) - 1)
     h0, w0 = planes[0].shape[-2:]
@@ -109,8 +112,7 @@ def update_pyramid(
             f" (got {h0}x{w0}, size={size}); use build_pyramid instead"
         )
     size = min(size, h0, w0)
-    fresh = tuple(p.clone() for p in planes)
-    return kernels.m3rsm_pyramid_update(fresh, view.occ, view.known, center_rc, size,
+    return kernels.m3rsm_pyramid_update(planes, view.occ, view.known, center_rc, size,
                                         unknown_prob, gate)
 
 
@@ -150,26 +152,14 @@ def _top_rects(cfg: M3RSMConfig, scale: float) -> tuple:
 
 
 def search_constants(cfg: M3RSMConfig, scale: float, device) -> dict:
-    """The search's constant tensors on ``device``: thetas f32[T], the top
-    level's rects i32[K0, 3] and the four children's offsets of a rect at
-    each level, i32[4, 3]. Made once (see ``device.constant``); the engine
-    asks for them before its first step, so no step copies from the host."""
-    child = {lvl: constant(((0, 0, 0), (0, 1 << lvl, 0), (0, 0, 1 << lvl),
-                            (0, 1 << lvl, 1 << lvl)), torch.int32, device)
-             for lvl in range(cfg.levels)}
+    """The search's constant tensors on ``device``: thetas f32[T] and the
+    top level's rects i32[K0, 3]. Made once (see ``device.constant``); the
+    engine asks for them before its first step, so no step copies from the
+    host."""
     return {
         "thetas": constant(thetas(cfg.half_theta, cfg.n_theta), torch.float32, device),
         "top": constant(_top_rects(cfg, scale), torch.int32, device),
-        "child": child,
     }
-
-
-def _tiebreak(cands: Tensor, n_theta: int) -> Tensor:
-    """-1e-6 x (|ty| + |tx| + |t - n_theta // 2|): between equal scores the
-    rect nearest the prior wins (a flat, unmapped region must not pull the
-    pose to the window's corner)."""
-    d = (cands[..., 1].abs() + cands[..., 2].abs() + (cands[..., 0] - n_theta // 2).abs())
-    return d.to(torch.float32) * -1e-6
 
 
 def m3rsm_match(
@@ -192,7 +182,7 @@ def m3rsm_match(
     map shared by B scans and priors (scan [B, R], ``init_pose`` f32[B, 3]:
     pose f32[B, 3], prob f32[B]); or M maps (a view of M maps, scan [M, R],
     ``init_pose`` f32[M, 3]), each matched on its own map. All requests run
-    together: one launch a level, the refine's score calls one launch each.
+    together, in one call of ``kernels.m3rsm_search``.
     """
     del generator, noise
     ucfg = cfg.scoring
@@ -220,96 +210,36 @@ def m3rsm_match(
             f"2^levels={step_top}, got {h0}x{w0}; pad the map or set "
             "window=0 to (knowingly) score full planes"
         )
-    origin = view.origin.expand(n_b, 2)
-    if cfg.window > 0:
-        # the prior-centred window of every level, aligned to 2^levels; the
-        # levels are read in place, the refine's view is cut out
-        s = (min(cfg.window, h0, w0) // step_top) * step_top
-        rel = (poses[:, :2] - origin) / torch.full_like(origin, view.scale)
-        cell = torch.floor(rel).to(torch.int32)
-        c0w = torch.clamp(cell[:, 0] - s // 2, 0, w0 - s) // step_top * step_top
-        r0w = torch.clamp(cell[:, 1] - s // 2, 0, h0 - s) // step_top * step_top
-        corner = torch.stack([r0w, c0w], dim=-1)
-        origin = origin + torch.stack([c0w, r0w], dim=-1).to(torch.float32) * view.scale
-        maps = view if occ.dim() == 3 else MapView(
-            occ=occ.expand(n_b, h0, w0), known=view.known.expand(n_b, h0, w0),
-            origin=origin, scale=view.scale)
-        take = functools.partial(gridlib.take_window, row=r0w.long(), col=c0w.long(), sh=s, sw=s)
-        refine_view = MapView(occ=take(maps.occ), known=take(maps.known), origin=origin,
-                              scale=view.scale)
-        sides = [(s >> lvl, s >> lvl) for lvl in range(cfg.levels + 1)]
-    else:
-        corner = torch.zeros((n_b, 2), dtype=torch.int32, device=dev)
-        refine_view = view
-        if occ.dim() == 2 and not single:  # B requests on one map: B copies to score
-            refine_view = MapView(occ=occ.expand(n_b, h0, w0),
-                                  known=view.known.expand(n_b, h0, w0),
-                                  origin=origin, scale=view.scale)
-        sides = [tuple(p.shape[-2:]) for p in pyramid]
-    planes = [p if p.dim() == 3 else p[None] for p in pyramid]
-
-    # every theta's endpoint cells at zero translation, relative to the window
-    th = consts["thetas"]
+    # the prior-centred window of every level (0: the whole map), aligned
+    # to 2^levels; the kernel places it and reads every level on it
+    window = (min(cfg.window, h0, w0) // step_top) * step_top if cfg.window > 0 else 0
     scans = scan if not single else scanlib.LaserScan(
         scan.ranges[None], scan.bearings[None], scan.valid[None])
-    pts = scanlib.scan_points(scans)  # [B, R, 2]
-    ang = poses[:, 2:3] + th  # [B, T]
-    c, s_ = torch.cos(ang)[..., None], torch.sin(ang)[..., None]
-    px, py = pts[:, None, :, 0], pts[:, None, :, 1]
-    ex = (poses[:, 0, None, None] + c * px) - s_ * py  # [B, T, R]
-    ey = (poses[:, 1, None, None] + s_ * px) + c * py
-    scale_t = torch.full_like(ex, view.scale)
-    rel_x = (ex - origin[:, 0, None, None]) / scale_t
-    rel_y = (ey - origin[:, 1, None, None]) / scale_t
-    c0 = torch.stack([torch.floor(rel_y).to(torch.int32), torch.floor(rel_x).to(torch.int32)],
-                     dim=-1).contiguous()  # [B, T, R, 2] (row, col)
     mask = scanlib.subsample_mask(scans, ucfg.stride).to(torch.float32)
     if point_weights is not None:
         mask = mask * point_weights.reshape(n_b, -1)
-    mask = mask.contiguous()
-
-    def score(level, cands):
-        return kernels.m3rsm_score_level(
-            planes[level], corner, level, *sides[level], c0, cands, mask, ucfg.unknown_prob,
-        ) + _tiebreak(cands, cfg.n_theta)
-
-    top = cfg.levels
-    cands = consts["top"].expand(n_b, -1, 3).contiguous()
-    scores = score(top, cands)
-    for level in range(top - 1, -1, -1):
-        # keep the best beam_width rects, split each into its 4 children
-        take_n = min(cfg.beam_width, cands.shape[1])
-        order = torch.sort(scores, dim=-1, descending=True, stable=True).indices[:, :take_n]
-        parents = torch.gather(cands, 1, order[..., None].expand(-1, -1, 3))
-        cands = (parents[:, :, None, :] + consts["child"][level]).reshape(n_b, -1, 3)
-        scores = score(level, cands)
-
-    best = torch.argmax(scores, dim=-1, keepdim=True)  # ties -> first index
-    win = torch.gather(cands, 1, best[..., None].expand(-1, -1, 3))[:, 0]  # [B, 3]
-    pose = torch.stack([
-        poses[:, 0] + win[:, 2].to(torch.float32) * view.scale,
-        poses[:, 1] + win[:, 1].to(torch.float32) * view.scale,
-        wrap_angle(poses[:, 2] + th[win[:, 0].long()]),
-    ], dim=-1)
-    prob = torch.gather(scores, 1, best)[:, 0]
-    if single:
-        pose, prob = pose[0], prob[0]
+    step_theta = 0.0
     if cfg.refine_iterations > 0:
+        scoring.check_supported(ucfg)  # the hill climb scores with the overlap reducer
         theta_step = (
             2 * cfg.half_theta / max(cfg.n_theta - 1, 1) if cfg.n_theta > 1 else 0.02
         )
-        hc = HillClimbingConfig(
-            step_xy=view.scale,
-            step_theta=max(theta_step / 2, 1e-3),
-            iterations=cfg.refine_iterations,
-            scoring=cfg.scoring,
-        )
-        if single and refine_view.occ.dim() == 3:
-            refine_view = MapView(occ=refine_view.occ[0], known=refine_view.known[0],
-                                  origin=refine_view.origin[0], scale=view.scale)
-        return hill_climbing_match(refine_view, scan, pose, None, hc, point_weights)
-    return MatchResult(pose=pose, prob=prob,
-                       trace=torch.empty((0,), dtype=torch.float32, device=dev))
+        step_theta = max(theta_step / 2, 1e-3)
+    pose, prob, trace = kernels.m3rsm_search(kernels.M3RSMSearch(
+        planes=pyramid, occ=occ, known=view.known,
+        origin=view.origin.expand(n_b, 2).contiguous(), window=window,
+        pts=scanlib.scan_points(scans).contiguous(), mask=mask.contiguous(),
+        stride=max(ucfg.stride, 1), prior=poses.contiguous(), top=consts["top"],
+        thetas=consts["thetas"], scale=view.scale, beam_width=cfg.beam_width,
+        unknown=ucfg.unknown_prob, step_xy=view.scale, step_theta=step_theta,
+        iterations=cfg.refine_iterations))
+    if cfg.refine_iterations == 0:
+        trace = trace.reshape(0)
+    if single:
+        pose, prob = pose[0], prob[0]
+        if cfg.refine_iterations > 0:
+            trace = trace[0]
+    return MatchResult(pose=pose, prob=prob, trace=trace)
 
 
 def m3rsm_match_many(
@@ -321,7 +251,7 @@ def m3rsm_match_many(
 ) -> MatchResult:
     """B requests (scans [B, R], ``init_poses`` f32[B, 3], ``point_weights``
     f32[B, R] or None) against one map, together: the pyramid built once,
-    one launch a level for all B."""
+    one launch of the match for all B."""
     return m3rsm_match(view, scans, init_poses, None, cfg, point_weights)
 
 

@@ -25,7 +25,6 @@ import dataclasses
 
 import torch
 
-from ..device import constant
 from . import kernels, scoring
 from .geometry import linspace, wrap_angle
 
@@ -112,10 +111,6 @@ class HillClimbingConfig:
     scoring: scoring.ScoringConfig = scoring.ScoringConfig()
 
 
-#: the six axis steps of a hill-climbing round, in the reference's order
-_AXIS_STEPS = ((1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1), (0, 0, -1))
-
-
 def hill_climbing_match(
     view: scoring.MapView,
     scan,
@@ -129,33 +124,18 @@ def hill_climbing_match(
     step along each axis (theta wrapped), moves to the best (ties to the
     first) if it is strictly better, else halves (``shrink``) every step.
     Deterministic, so ``generator`` and ``noise`` are ignored. The view is
-    prepared once; a round is one score call, ``1 + iterations`` in all.
-    With a leading map dimension (view of M maps, scan [M, R], ``init_pose``
-    f32[M, 3]) every triple climbs on its own map, each score call one
-    launch for all M: pose f32[M, 3], prob f32[M], trace f32[M, iterations].
+    prepared once; a round is one score call, ``1 + iterations`` in all
+    (``kernels.hill_climb_loop``). With a leading map dimension (view of M
+    maps, scan [M, R], ``init_pose`` f32[M, 3]) every triple climbs on its
+    own map, each score call one launch for all M: pose f32[M, 3], prob
+    f32[M], trace f32[M, iterations].
     """
     del generator, noise
-    dev = init_pose.device
     prep = scoring.prepare(view, scan, cfg.scoring, point_weights)
-    prob = scoring.score_prepared(prep, init_pose[..., None, :])[..., 0]
-    units = constant(_AXIS_STEPS, torch.float32, dev)
-    steps = constant((cfg.step_xy, cfg.step_xy, cfg.step_theta), torch.float32, dev)
-    steps = steps.expand(*init_pose.shape[:-1], 3)
-    pose, trace = init_pose, []
-    for _ in range(cfg.iterations):
-        cand = pose[..., None, :] + units * steps[..., None, :]
-        cand = torch.cat([cand[..., :2], wrap_angle(cand[..., 2:])], dim=-1)
-        probs = scoring.score_prepared(prep, cand)
-        i = torch.argmax(probs, dim=-1, keepdim=True)  # ties -> first index
-        p_i = probs.gather(-1, i)[..., 0]
-        better = p_i > prob
-        won = cand.gather(-2, i[..., None].expand(*i.shape, 3))[..., 0, :]
-        pose = torch.where(better[..., None], won, pose)
-        prob = torch.where(better, p_i, prob)
-        steps = torch.where(better[..., None], steps, steps * cfg.shrink)
-        trace.append(prob)
-    trace = (torch.stack(trace, dim=-1) if trace
-             else torch.empty((*init_pose.shape[:-1], 0), dtype=torch.float32, device=dev))
+    score = kernels.overlap_score_batched if prep.plane.dim() == 3 else kernels.overlap_score
+    pose, prob, trace = kernels.hill_climb_loop(
+        score, prep.plane, prep.pts, prep.beam_w, prep.origin, init_pose, prep.scale,
+        prep.unknown, cfg.step_xy, cfg.step_theta, cfg.iterations, cfg.shrink)
     return MatchResult(pose=pose, prob=prob, trace=trace)
 
 

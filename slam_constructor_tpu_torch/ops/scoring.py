@@ -39,7 +39,8 @@ class ScoringConfig:
     overlap_extent: float = 1.0
 
 
-def _check_supported(cfg: ScoringConfig) -> None:
+def check_supported(cfg: ScoringConfig) -> None:
+    """Raises ``NotImplementedError`` for a score the port has not."""
     # window >= 1 holds the whole 2x2 footprint of an extent-1 square, so
     # the reference's windowed overlap equals the bilinear sample there
     if cfg.reducer != "overlap" or cfg.overlap_extent != 1.0 or cfg.window < 1:
@@ -152,7 +153,7 @@ def prepare_scan(
 ) -> tuple[Tensor, Tensor]:
     """The scan's part of :func:`prepare`: (pts f32[R', 2], beam_w f32[R'])
     of the kept beams, with any leading dimensions of the scan."""
-    _check_supported(cfg)
+    check_supported(cfg)
     if cfg.stride > 1:
         # keeping every stride-th beam is the reference's subsample mask
         scan = scanlib.LaserScan(

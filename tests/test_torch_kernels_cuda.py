@@ -23,8 +23,11 @@ launch (and ``mc_match_rounds``) on its slices bit for bit, and its twin as
 ``mc_match``'s does. ``mc_match_windows`` is the same kernel reading each
 match's window of its map in place: it equals the same windows cut out,
 bit for bit. ``m3rsm_pyramid`` (a max, exact) equals its twin bit for bit,
-whole and in a refreshed region; ``m3rsm_score_level`` sums a rect's beams
-in another order than its twin: atol 2e-6.
+whole and in a refreshed region written into new planes;
+``m3rsm_score_level`` sums a rect's beams in another order than its twin:
+atol 2e-6. ``m3rsm_search`` (a whole M3RSM match in one launch) equals
+``m3rsm_search_levels`` (a level-score launch a level, a batched score
+launch a hill-climb round) bit for bit.
 """
 
 import pytest
@@ -496,3 +499,132 @@ def test_m3rsm_kernels_reject_bad_input(scene):
     with pytest.raises(TypeError):
         kernels.m3rsm_score_level(planes[0][None], torch.zeros((1, 2), device=dev), 0, 64, 64,
                                   c0, cands, torch.ones((1, 8), device=dev), 0.5)
+
+
+@pytest.mark.cuda
+def test_m3rsm_pyramid_update_writes_new_planes(scene):
+    """Three maps, the gate open, shut and open: one launch writes new
+    planes equal to the twin's; the planes handed in (here not views into
+    one buffer, so the wrapper lays them out first) stay as they were."""
+    _, _, cand, g = scene
+    dev = cand.device
+    occ, known = _random_plane(g, (3, 128, 128), dev)
+    planes = tuple(p.clone() for p in kernels.m3rsm_pyramid(occ, known, 3, 0.5))
+    before = [p.clone() for p in planes]
+    occ2 = torch.where(torch.rand(occ.shape, generator=g, device=dev) < 0.3, 0.9, occ)
+    centers = torch.tensor([[64, 64], [3, 120], [125, 2]], device=dev)
+    gate = torch.tensor([1.0, 0.0, 1.0], device=dev)
+    n = kernels.launch_counts()["m3rsm_pyramid"]
+    got = kernels.m3rsm_pyramid_update(planes, occ2, known, centers, 48, 0.5, gate)
+    assert kernels.launch_counts()["m3rsm_pyramid"] == n + 1
+    want = kernels.m3rsm_pyramid_update_ref(planes, occ2, known, centers, 48, 0.5, gate)
+    torch.cuda.synchronize()
+    for a, b, p, q in zip(got, want, planes, before):
+        assert torch.equal(a, b) and torch.equal(p, q) and a.data_ptr() != p.data_ptr()
+        assert torch.equal(a[1], q[1]) and not torch.equal(a[0], q[0])
+
+
+def _m3rsm_case(scene, case):
+    """(view, scan, priors, config, weights) of a match on the scene's map:
+    viny_m3rsm's matcher (a 160^2 window, 4 levels, K = 9 .. 192) and
+    variants, ``M3RSMConfig``'s defaults (the whole 256^2 map, 5 levels, 17
+    thetas, K = 153 .. 1024) with the scene's scan and with a scan of 1,081
+    beams from the same pose, B requests on one map, and M maps with the
+    loop closer's matcher (the whole 120^2 submap, 3 levels, K = 28 ..
+    1024)."""
+    import dataclasses
+
+    from slam_constructor_tpu_torch.ops import m3rsm
+
+    view, scan, cand, g = scene
+    dev = cand.device
+    cfg = viny.viny_m3rsm_config(map_size=256).matcher_cfg
+    w = torch.rand((360,), generator=g, device=dev)
+    prior = cand[0].clone()
+    if case == "viny_m3rsm":
+        return view, scan, prior, cfg, w
+    if case == "window 0":
+        return view, scan, prior, dataclasses.replace(cfg, window=0), w
+    if case == "refine 0":
+        return view, scan, prior, dataclasses.replace(cfg, refine_iterations=0), w
+    if case == "4 requests":
+        scans = LaserScan(*(a.expand(4, -1) for a in (scan.ranges, scan.bearings, scan.valid)))
+        return view, scans, cand[:4].contiguous(), cfg, w.expand(4, -1)
+    defaults = m3rsm.M3RSMConfig(scoring=scoring.ScoringConfig(reducer="overlap"))
+    if case == "defaults":
+        return view, scan, prior, defaults, w
+    if case == "defaults, 1081 beams":
+        occ, origin, scale = datagen.cecum_world(device=dev)
+        pose = datagen.rectangle_trajectory(step=0.2, device=dev)[5:6]
+        scans, _, _ = datagen.synth_sequence(occ, origin, scale, pose,
+                                             datagen.default_bearings(1081, device=dev), rng=0)
+        return view, scans[0], prior, defaults, torch.rand((1081,), generator=g, device=dev)
+    loop = m3rsm.M3RSMConfig(levels=3, half_x=0.6, half_y=0.6, half_theta=0.3, n_theta=7,
+                             scoring=scoring.ScoringConfig(reducer="overlap", stride=2))
+    cells = ((prior[:2] - view.origin) / view.scale).long().tolist()
+    rows, cols, origins = [], [], []
+    for dr, dc in ((0, 0), (-7, 5), (9, -3)):
+        r0 = min(max(cells[1] + dr - 60, 0), 136)
+        c0 = min(max(cells[0] + dc - 60, 0), 136)
+        rows.append(r0)
+        cols.append(c0)
+        origins.append(view.origin + torch.tensor([c0, r0], device=dev) * view.scale)
+    maps = scoring.MapView(
+        occ=torch.stack([view.occ[r:r + 120, c:c + 120] for r, c in zip(rows, cols)]),
+        known=torch.stack([view.known[r:r + 120, c:c + 120] for r, c in zip(rows, cols)]),
+        origin=torch.stack(origins), scale=view.scale)
+    scans = LaserScan(*(a.expand(3, -1) for a in (scan.ranges, scan.bearings, scan.valid)))
+    return maps, scans, cand[:3].contiguous(), loop, None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["viny_m3rsm", "window 0", "refine 0", "4 requests",
+                                  "3 maps, the loop matcher", "defaults",
+                                  "defaults, 1081 beams"])
+def test_m3rsm_search_equals_the_level_launches(scene, case, monkeypatch):
+    """One launch of the whole match equals, bit for bit, the match with a
+    level-score launch a level and a batched score launch a hill-climb
+    round (pose, prob, trace); it counts one launch a call."""
+    from slam_constructor_tpu_torch.ops import m3rsm
+
+    view, scan, prior, cfg, w = _m3rsm_case(scene, case)
+    n = kernels.launch_counts()
+    got = m3rsm.m3rsm_match(view, scan, prior, None, cfg, w)
+    after = kernels.launch_counts()
+    assert after["m3rsm_search"] == n["m3rsm_search"] + 1
+    assert after["m3rsm_level"] == n["m3rsm_level"]
+    again = m3rsm.m3rsm_match(view, scan, prior, None, cfg, w)
+    monkeypatch.setattr(kernels, "m3rsm_search", kernels.m3rsm_search_levels)
+    want = m3rsm.m3rsm_match(view, scan, prior, None, cfg, w)
+    torch.cuda.synchronize()
+    for a, b, c in ((got.pose, want.pose, again.pose), (got.prob, want.prob, again.prob),
+                    (got.trace, want.trace, again.trace)):
+        assert a.shape == b.shape and torch.equal(a, b) and torch.equal(a, c)
+    assert bool(torch.isfinite(got.pose).all())
+
+
+@pytest.mark.cuda
+def test_m3rsm_search_rejects_bad_input(scene, monkeypatch):
+    import dataclasses
+
+    from slam_constructor_tpu_torch.ops import m3rsm
+
+    view, scan, prior, cfg, w = _m3rsm_case(scene, "viny_m3rsm")
+    kept, real = [], kernels.m3rsm_search
+    monkeypatch.setattr(kernels, "m3rsm_search", lambda s: kept.append(s) or real(s))
+    m3rsm.m3rsm_match(view, scan, prior, None, cfg, w)
+    monkeypatch.undo()
+    s = kept[0]
+    with pytest.raises(ValueError, match="shared memory"):  # 1,800 top rects, 7,200 next
+        kernels.m3rsm_search(dataclasses.replace(s, top=s.top.repeat(200, 1).contiguous(),
+                                                 beam_width=2048))
+    with pytest.raises(ValueError):  # the mask on the CPU, the rest on the card
+        kernels.m3rsm_search(dataclasses.replace(s, mask=s.mask.cpu()))
+    with pytest.raises(ValueError):  # the maps on the CPU
+        kernels.m3rsm_search(dataclasses.replace(s, occ=s.occ.cpu(), known=s.known.cpu()))
+    with pytest.raises(TypeError):  # i64 rects
+        kernels.m3rsm_search(dataclasses.replace(s, top=s.top.long()))
+    with pytest.raises(ValueError):  # a window larger than the map
+        kernels.m3rsm_search(dataclasses.replace(s, window=512))
+    with pytest.raises(ValueError):  # a window not a multiple of 2^levels
+        kernels.m3rsm_search(dataclasses.replace(s, window=72))
