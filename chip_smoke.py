@@ -151,6 +151,36 @@ Phases, one line or more each, in order; any failure exits non-zero:
    keys (the reference's graph makes its tracker worse here, so the
    tracker-alone bound is not applied); a second run equal bit for bit.
 
+26. the command-line runner (``slam_constructor_tpu_torch.run``, called in
+   this process through ``run.execute``, which is ``main`` less the print)
+   on every ``configs/*.properties`` at the config's own widths on the card:
+   128 scans of the cecum rectangle (64 for gmapping and tum_2d), 360 beams;
+   its scans/s, ATE and RPE; the launches the design gives (tiny, viny and
+   mit_stata ``mc_match`` 1 a scan; tiny_refined also ``overlap_score_grad``
+   13 a scan, its gradient refine; mit_csail
+   ``overlap_score`` 11 a scan, its hill climb; viny_m3rsm ``m3rsm_search``
+   1 and ``m3rsm_pyramid`` 1 a scan + 1; gmapping ``mc_match_batched`` 1;
+   tum_2d also ``overlap_score_batched`` 1, its improved proposal); the
+   same engine driven directly with the same config and seed, under
+   ``torch.cuda.set_sync_debug_mode("error")``, equal to the CLI's
+   trajectory bit for bit (for mit_stata: two runs of the tiled map, no
+   host sync); for tiny_refined, mit_csail and mit_stata the ATE within
+   0.02 m of the JAX reference's worst of five keys on the same sequence
+   and 8 scans card against CPU (1e-4); mit_stata's pool not exhausted
+   (its allocated fraction printed); then tiny and gmapping on the two
+   CARMEN fixtures of ``tests/data/``; ``overlap_score`` against its plain
+   twin (2e-6) on mit_csail's hill climb every 16th scan (its first score,
+   K = 1, and its first round, K = 6, on the 1024^2 plane), then timed at
+   the round: the ``kernels`` line's times and bound for it;
+27. ``overlap_score_grad`` (the score and its pose gradient in one launch)
+   against its autograd twin on every 97th launch of the tiny_refined run
+   (K = 1, 360 beams, 256^2) and on a pose 0.4 m from the map's edge, K =
+   7, and every second beam with beam weights: the score the bits of
+   ``overlap_score``, within 2e-6 of the twin's, the gradient within 1e-5 x
+   max(1, |g|); then timed (replayed from a CUDA graph, a call, chained)
+   beside its bound and the twin. The bounds of the two single-plane scores
+   count the distinct cells their taps read, not the whole plane.
+
 The launch counts are set to 0 just before each of these runs and read just
 after it. The line before the last is a JSON object of the
 kernels; the last line is ``{"ok": true, "device": {...}}``. It needs no
@@ -163,6 +193,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -217,6 +248,31 @@ VINY_M3RSM_REFERENCE_ATE = 0.12715
 #: path; with key 0's noise the port on the CPU reads 0.13820 m, on the
 #: same 247 edges.
 FULL_M3RSM_REFERENCE_ATE_BY_KEY = (0.13820, 0.12036, 0.14911, 0.12296, 0.12987)
+#: ATE of the JAX reference's engine built from each new CLI config (a
+#: refine stage or the tiled map) on a CPU over the CLI phase's synthetic
+#: sequence (128 scans of the cecum rectangle, 360 beams), once for each
+#: matcher key PRNGKey(0..4) (`JAX_PLATFORMS=cpu python
+#: scripts/torch_port/reference_ate.py --config configs/<name>.properties
+#: --keys 5 --port`). With key 0's noise the port on the CPU reads 0.07032,
+#: 0.03634 and 0.03682 m.
+CLI_REFERENCE_ATE_BY_KEY = {
+    "tiny_refined": (0.0702, 0.07082, 0.07087, 0.07045, 0.07066),
+    "mit_csail": (0.03651, 0.0367, 0.03661, 0.03671, 0.03665),
+    "mit_stata": (0.03682, 0.03628, 0.03724, 0.03721, 0.03748),
+}
+CLI_ATE_MARGIN = 0.02
+#: the CLI phase: scans of the single-hypothesis configs and of the RBPF's
+CLI_SCANS, CLI_RBPF_SCANS = 128, 64
+#: the configs whose engines earlier slices hold: the CLI's trajectory must
+#: equal the same engine's driven directly, bit for bit
+CLI_EARLIER = ("tiny", "viny", "viny_m3rsm", "gmapping", "tum_2d")
+#: the new paths: a refine stage (gradient, hill climbing) or the tiled map
+CLI_NEW = ("tiny_refined", "mit_csail", "mit_stata")
+#: the pose gradient's bound against its twin: relative to max(1, |g|)
+GRAD_TOL = 1e-5
+#: beams closer than this (cells) to a cell's centre or edge, where the
+#: score's derivative jumps, weigh 0 when gradients are compared
+KINK_MARGIN = 1e-4
 GM_PARTICLES = 30
 #: cells of the 30 maps whose count may differ between card and CPU after
 #: 16 scans (a DDA sample on a cell's border)
@@ -240,6 +296,10 @@ POLAR_OPS_PER_FAR_CELL = 8 + 12 + 3
 #: f32 operations a (candidate, beam) pair of `overlap_score`: pose
 #: transform 8, to cell units 4, two axes of taps 2 x 12, blend 14, sum 3
 OVERLAP_OPS_PER_POINT = 8 + 4 + 24 + 14 + 3
+#: and of `overlap_score_grad`, beyond the score's: the axis weights'
+#: derivatives 4, the two derivative blends 2 x 14, the chain to the pose
+#: (two divisions, the heading's 11), three more weighted sums 6
+GRAD_OPS_PER_POINT = OVERLAP_OPS_PER_POINT + 4 + 28 + 13 + 6
 
 
 #: what separates `mc_match` from its plain twin: a score differs by the
@@ -439,16 +499,17 @@ def phase_overlap_kernel(dev, scans, gt):
     args = (prep.plane, cand, prep.pts, prep.beam_w, prep.origin, prep.scale, prep.unknown)
     ms, plain_ms, chained = time_pair(lambda: kernels.overlap_score(*args),
                                       lambda: kernels.overlap_score_ref(*args))
-    # each input read once, the output written once; operations for the
-    # beams that carry weight (the others are skipped)
-    n_bytes = 4 * (prep.plane.numel() + cand.numel() + prep.pts.numel()
-                   + prep.beam_w.numel() + 2 + cand.shape[0])
+    # the tap cells and each other input read once, the output written
+    # once; operations for the beams that carry weight (the others are
+    # skipped)
+    n_bytes, cells, sectors = score_bytes(*args[:6], per_pose_out=1)
     n_ops = OVERLAP_OPS_PER_POINT * cand.shape[0] * int((prep.beam_w != 0).sum())
     b_ms, by = bound_ms(n_bytes, n_ops)
     print(f"overlap_score K=64 R=360 256^2: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
           f"(median of 100 calls each, CUDA events), kernel {chained:.4f} ms a launch over 200 "
-          f"back to back; bound {b_ms:.6f} ms by {by} "
-          f"({n_bytes} B, {n_ops} operations); no single PyTorch call computes it", flush=True)
+          f"back to back; bound {b_ms:.7f} ms by {by} ({n_bytes} B: {cells} tap cells in "
+          f"{sectors} 32-B sectors; {n_ops} operations); no single PyTorch call computes it",
+          flush=True)
     return {
         "name": "overlap_score", "route": "cuda",
         "source": "slam_constructor_tpu_torch/csrc/overlap_score.cu",
@@ -761,7 +822,7 @@ def phase_mc_match(dev, tiny_states, viny_states, full_states):
 
 def phase_card_vs_cpu(name, cfg, dev, scans, odom, gt, n=8):
     """First ``n`` scans on the card and on the CPU with the same noise (a
-    Monte-Carlo matcher's; M3RSM draws none)."""
+    Monte-Carlo matcher's; M3RSM draws none): poses within 1e-4."""
     from slam_constructor_tpu_torch.models import engine
 
     noise = None
@@ -2041,6 +2102,252 @@ def phase_m3rsm_match_many(cfg, e, scans, gt):
           f"for bit: {same}; largest |x, y error| against the truth {err:.4f} m", flush=True)
     check(same, "m3rsm_match_many differs from single calls")
 
+# --- slice 6a: the CLI and the gradient refine ---------------------------------
+
+
+def cli_argv(name, out, dataset=None):
+    n = CLI_RBPF_SCANS if name in ("gmapping", "tum_2d") else CLI_SCANS
+    src = (["--dataset", dataset] if dataset else
+           ["--synthetic", "cecum", "--trajectory", "rectangle", "--steps", str(n)])
+    return ["--config", f"configs/{name}.properties", *src, "--out", out]
+
+
+def cli_expected(name, n):
+    """The launches the design gives a CLI run of ``n`` scans: one match a
+    scan; tiny_refined's gradient refine (the start pose and each of its
+    12 candidates scored and differentiated in one launch); mit_csail's
+    hill climb (the first score and 10 rounds); viny_m3rsm's pyramid build
+    in ``init_state`` and a refresh a scan; tum_2d's improved proposal (one
+    batched score of the probes a scan)."""
+    return expect(**{
+        "tiny": dict(mc_match=n), "viny": dict(mc_match=n), "mit_stata": dict(mc_match=n),
+        "tiny_refined": dict(mc_match=n, overlap_score_grad=13 * n),
+        "mit_csail": dict(mc_match=n, overlap_score=11 * n),
+        "viny_m3rsm": dict(m3rsm_search=n, m3rsm_pyramid=n + 1),
+        "gmapping": dict(mc_match_batched=n),
+        "tum_2d": dict(mc_match_batched=n, overlap_score_batched=n),
+    }[name])
+
+
+def phase_cli(dev):
+    """``slam_constructor_tpu_torch.run`` on every shipped config at its own
+    widths, on the card, in this process; returns the launches of each run,
+    the arguments of every 97th gradient launch of tiny_refined's and of
+    mit_csail's hill climb every 16th scan (its first score, K = 1, and its
+    first round, K = 6)."""
+    from slam_constructor_tpu_torch import run
+    from slam_constructor_tpu_torch.ops import blockmap, kernels
+    from slam_constructor_tpu_torch.utils import config as cfglib
+    from slam_constructor_tpu_torch.utils import evaluate
+
+    launches, grad_kept, score_kept = {}, [], []
+    for name in (*CLI_EARLIER, *CLI_NEW):
+        args = run.parse_args(cli_argv(name, f"build/cli_out/{name}"))
+        check(not args.cpu, "the CLI phase runs on the card")
+        grad_rec, grad_k = recorder(kernels.overlap_score_grad, every=97)
+        # mit_csail scores 11 times a scan: the first score, then 10 rounds
+        score_rec, score_k = recorder(kernels.overlap_score, keep=lambda n: n % 176 in (0, 1))
+        reset_launches()
+        with handed_in(grad_rec, "overlap_score_grad"), handed_in(score_rec, "overlap_score"):
+            res = run.execute(args)
+        launches[name] = read_launches()
+        grad_kept += grad_k
+        if name == "mit_csail":
+            score_kept += score_k
+        n = res.trajectory.shape[0]
+        want = cli_expected(name, n)
+        sm = res.summary
+        print(f"cli {name}: {n} scans, {sm['beams']} beams, {sm['scans_per_sec']} scans/s "
+              f"({sm['wall_s']} s); ATE {sm['ate_m']} m, RPE {sm['rpe_t_m']} m / "
+              f"{sm['rpe_r_rad']} rad; launches {launches[name]}", flush=True)
+        check(launches[name] == want, f"cli {name}: launches {launches[name]}, expected {want}")
+        check(res.engine.device.type == "cuda", f"cli {name} ran on {res.engine.device}")
+        check(bool(torch.isfinite(res.trajectory).all()), f"cli {name}: non-finite poses")
+        for f in ("trajectory.tum", "map.pgm", "map.yaml", "metrics.jsonl"):
+            check(os.path.exists(os.path.join(args.out, f)), f"cli {name}: no {f}")
+
+        # the same engine driven directly with the same config and seed, the
+        # sync check on: the CLI's trajectory bit for bit
+        scans, odom, gt = run.load_data(args, dev)
+        props = cfglib.load_properties(args.config)
+        if "pf.particles" in props:
+            e, traj, _, secs = run_gmapping_path(cfglib.gmapping_config_from(props), scans, odom,
+                                                 gt, "error")
+        else:
+            traj, _, secs, e = run_main_path(cfglib.engine_config_from(props), scans, odom, gt,
+                                             "error")
+        diff = float((traj - res.trajectory).abs().max())
+        print(f"cli {name}: the engine driven directly, sync check on, {n / secs:.1f} scans/s; "
+              f"max|pose diff| to the CLI's {diff:.3e}", flush=True)
+        check(torch.equal(traj, res.trajectory), f"cli {name}: the CLI and the engine differ")
+        if name in CLI_NEW:
+            ate = float(evaluate.ate(res.trajectory, gt, align=False))
+            limit = max(CLI_REFERENCE_ATE_BY_KEY[name]) + CLI_ATE_MARGIN
+            print(f"cli {name}: ATE {ate:.5f} m (limit {limit:.5f}: the JAX reference's worst "
+                  f"of five keys {max(CLI_REFERENCE_ATE_BY_KEY[name]):.5f} + "
+                  f"{CLI_ATE_MARGIN})", flush=True)
+            check(ate <= limit, f"cli {name}: ATE {ate} above {limit}")
+        if name == "mit_stata":
+            bm = res.engine.state.gm
+            frac = float(blockmap.allocated_fraction(bm))
+            print(f"cli mit_stata: {int(bm.n_alloc)} of {bm.capacity} blocks of {bm.block}^2 "
+                  f"allocated ({frac:.4f}); the table {tuple(bm.table.shape)} tiles", flush=True)
+            check(not bool(bm.overflowed), "cli mit_stata: the block pool ran out")
+        if name in CLI_NEW:
+            phase_card_vs_cpu(name, cfglib.engine_config_from(props), dev, scans, odom, gt)
+
+    for name, log in (("tiny", "mini_flaser.clf"), ("tiny", "mini_robotlaser.clf"),
+                      ("gmapping", "mini_flaser.clf"), ("gmapping", "mini_robotlaser.clf")):
+        args = run.parse_args(cli_argv(name, f"build/cli_out/{name}_{log}", f"tests/data/{log}"))
+        reset_launches()
+        res = run.execute(args)
+        got = read_launches()
+        n = res.trajectory.shape[0]
+        want = expect(**({"mc_match": n} if name == "tiny" else {"mc_match_batched": n}))
+        launches[f"{name} on {log}"] = got
+        print(f"cli {name} on {log}: {json.dumps(res.summary)}; launches {got}", flush=True)
+        check(got == want, f"cli {name} on {log}: launches {got}, expected {want}")
+        check(bool(torch.isfinite(res.trajectory).all()), f"cli {name} on {log}: non-finite")
+    return launches, grad_kept, score_kept
+
+
+def tap_cells(v, poses, pts, beam_w, origin, scale):
+    """The distinct cells of plane ``v`` that K1's 2 x 2 taps read for
+    these poses and the beams of nonzero weight (a tap off the map reads
+    nothing), and the distinct 32-byte sectors that hold them: what a
+    score or its gradient must read of the plane."""
+    h, w = v.shape
+    pts = pts[beam_w != 0]
+    c, s = torch.cos(poses[:, 2:3]), torch.sin(poses[:, 2:3])
+    x = (poses[:, 0:1] + c * pts[:, 0] - s * pts[:, 1] - origin[0]) / scale
+    y = (poses[:, 1:2] + s * pts[:, 0] + c * pts[:, 1] - origin[1]) / scale
+    f = torch.stack([torch.floor(y - 0.5), torch.floor(x - 0.5)]).reshape(2, -1)
+    rows = torch.stack([f[0], f[0] + 1])[:, None]  # [2, 1, N]
+    cols = torch.stack([f[1], f[1] + 1])[None, :]  # [1, 2, N]
+    ok = (rows >= 0) & (rows < h) & (cols >= 0) & (cols < w)
+    cell = (rows * w + cols)[ok].to(torch.int64).unique()
+    return int(cell.numel()), int((cell // 8).unique().numel())
+
+
+def score_bytes(v, poses, pts, beam_w, origin, scale, per_pose_out):
+    """Bytes a score (``per_pose_out`` 1) or a score and its gradient (4)
+    must move: the tap cells, the poses, the weighted beams' points, every
+    beam's weight, the origin, the outputs. Returns (bytes, cells,
+    sectors)."""
+    cells, sectors = tap_cells(v, poses, pts, beam_w, origin, scale)
+    n_w = int((beam_w != 0).sum())
+    return (4 * (cells + poses.numel() + 2 * n_w + beam_w.numel() + 2)
+            + 4 * per_pose_out * poses.shape[0], cells, sectors)
+
+
+def phase_overlap_csail(dev, k1, kept):
+    """`overlap_score` against its plain twin on launches kept from the CLI's
+    mit_csail run (its main path: the hill climb's first score, K = 1, and
+    a round, K = 6, on the 1024^2 plane at 0.05 m); times the round and
+    sets the `kernels` entry's times and bound to that shape."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    ks = sorted({a[1].shape[0] for a in kept})
+    check(ks == [1, 6], f"mit_csail's kept overlap_score launches have K in {ks}, not 1 and 6")
+    max_err = 0.0
+    for i, args in enumerate(kept):
+        got = kernels.overlap_score(*args)
+        want = kernels.overlap_score_ref(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(bool(torch.isfinite(got).all()), f"mit_csail launch {i}: not finite")
+        print(f"overlap_score vs plain [mit_csail kept launch {i}]: K={args[1].shape[0]} "
+              f"R={args[2].shape[0]} {args[0].shape[0]}x{args[0].shape[1]} "
+              f"max|diff|={err:.3e} (tol {TOL:g})", flush=True)
+        check(err <= TOL, f"mit_csail launch {i}: kernel disagrees with plain twin: {err}")
+        max_err = max(max_err, err)
+    args = [a for a in kept if a[1].shape[0] == 6][-1]  # a round on the fullest map
+    ms, plain_ms, chained = time_pair(lambda: kernels.overlap_score(*args),
+                                      lambda: kernels.overlap_score_ref(*args))
+    device_ms = graph_ms(lambda: kernels.overlap_score(*args))
+    n_bytes, cells, sectors = score_bytes(*args[:6], per_pose_out=1)
+    n_ops = OVERLAP_OPS_PER_POINT * args[1].shape[0] * int((args[3] != 0).sum())
+    b_ms, by = bound_ms(n_bytes, n_ops)
+    print(f"overlap_score mit_csail round K=6 R={args[2].shape[0]} "
+          f"{args[0].shape[0]}x{args[0].shape[1]}: {device_ms:.5f} ms on the device (50 launches "
+          f"replayed from a CUDA graph), a call {ms:.4f} ms, chained {chained:.4f} ms; plain "
+          f"{plain_ms:.4f} ms; bound {b_ms:.7f} ms by {by} ({n_bytes} B: {cells} tap cells in "
+          f"{sectors} 32-B sectors; {n_ops} operations)", flush=True)
+    k1.update({"max_abs_err": max(k1["max_abs_err"], max_err), "ms": ms, "plain_ms": plain_ms,
+               "chained_ms": chained, "device_ms": device_ms, "bound_ms": b_ms, "bound_by": by,
+               "timed_at": "mit_csail's hill-climb round, K=6, 1024^2"})
+
+
+def phase_overlap_grad_kernel(dev, kept, smi):
+    """`overlap_score_grad` against its autograd twin on launches kept from
+    the tiny_refined path and hand-made cases; returns the `kernels` entry
+    without the launch count."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    check(len(kept) > 0, "no gradient launch was kept from the tiny_refined path")
+    g = torch.Generator(device=dev).manual_seed(11)
+    # the last kept launch: a map of many scans (the first is of an empty map)
+    v, poses, pts, beam_w, origin, scale, unknown = kept[-1]
+    h, w = v.shape
+    edge = torch.tensor([[float(origin[0]) + 0.4, float(origin[1]) + h * scale / 2, 2.8]],
+                        device=dev)
+    many = poses + torch.randn((7, 3), generator=g, device=dev) * torch.tensor(
+        [0.05, 0.05, 0.03], device=dev)
+    weights = torch.rand(beam_w[::2].shape, generator=g, device=dev)
+    cases = [(f"tiny_refined launch {97 * i}", a) for i, a in enumerate(kept)]
+    cases += [
+        ("a pose 0.4 m from the map's edge", (v, edge, pts, beam_w, origin, scale, unknown)),
+        ("K = 7", (v, many, pts, beam_w, origin, scale, unknown)),
+        ("every second beam, beam weights",
+         (v, many, pts[::2].contiguous(), (beam_w[::2] * weights).contiguous(), origin, scale,
+          unknown)),
+    ]
+    max_err = 0.0
+    for name, args in cases:
+        score, _ = kernels.overlap_score_grad(*args)
+        want_s, _ = kernels.overlap_score_grad_ref(*args)
+        plain = kernels.overlap_score(*args)
+        # the gradients are compared with the beams near a kink at weight 0
+        clear = kernels.clear_of_kinks(args[1], args[2], args[4], args[5], KINK_MARGIN)
+        masked = (*args[:3], (args[3] * clear).contiguous(), *args[4:])
+        _, grad = kernels.overlap_score_grad(*masked)
+        _, want_g = kernels.overlap_score_grad_ref(*masked)
+        torch.cuda.synchronize()
+        s_err = float((score - want_s).abs().max())
+        g_err = float(((grad - want_g).abs() / want_g.norm(dim=1, keepdim=True).clamp(min=1.0)
+                       ).max())
+        print(f"overlap_score_grad vs autograd twin [{name}]: K={args[1].shape[0]} "
+              f"R={args[2].shape[0]} score max|diff| {s_err:.3e} (tol {TOL:g}), gradient "
+              f"max|diff| / max(1, |g|) {g_err:.3e} (tol {GRAD_TOL:g}; "
+              f"{int((~clear).sum())} beams within {KINK_MARGIN:g} cell of a kink at weight 0), "
+              f"|g| up to {float(want_g.norm(dim=1).max()):.3f}", flush=True)
+        check(torch.equal(score, plain), f"{name}: the score is not overlap_score's bits")
+        check(bool(torch.isfinite(grad).all()), f"{name}: gradient not finite")
+        check(s_err <= TOL and g_err <= GRAD_TOL, f"{name}: the gradient kernel disagrees")
+        max_err = max(max_err, s_err, float((grad - want_g).abs().max()))
+
+    args = kept[-1]
+    ms, plain_ms, chained = time_pair(lambda: kernels.overlap_score_grad(*args),
+                                      lambda: kernels.overlap_score_grad_ref(*args))
+    device_ms = graph_ms(lambda: kernels.overlap_score_grad(*args))
+    k = args[1].shape[0]
+    n_bytes, cells, sectors = score_bytes(*args[:6], per_pose_out=4)
+    n_ops = GRAD_OPS_PER_POINT * k * int((args[3] != 0).sum())
+    b_ms, by = bound_ms(n_bytes, n_ops)
+    print(f"overlap_score_grad K={k} R={pts.shape[0]} {h}x{w}: {device_ms:.5f} ms on the device "
+          f"(50 launches replayed from a CUDA graph), a call {ms:.4f} ms, chained {chained:.4f} "
+          f"ms; autograd twin {plain_ms:.4f} ms; bound {b_ms:.7f} ms by {by} ({n_bytes} B: "
+          f"{cells} tap cells in {sectors} 32-B sectors; {n_ops} operations); no single PyTorch "
+          f"call computes it; {smi}", flush=True)
+    return {
+        "name": "overlap_score_grad", "route": "cuda",
+        "source": "slam_constructor_tpu_torch/csrc/overlap_score_grad.cu",
+        "replaces": "slam_constructor_tpu/ops/pallas_kernels.py:73",
+        "differentiates": "slam_constructor_tpu/ops/matchers.py:230",
+        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "chained_ms": chained,
+        "device_ms": device_ms, "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+    }
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -2115,18 +2422,23 @@ def main() -> None:
     full_m3_launches = phase_full_path(full_m3_cfg, fscans, fodom, fgt, full_odo_ate,
                                        name="full_m3rsm", reference=FULL_M3RSM_REFERENCE_ATE_BY_KEY,
                                        hold_to_tracker=False)
+    cli_launches, grad_kept, score_kept = phase_cli(dev)
+    phase_overlap_csail(dev, k1, score_kept)
+    k9 = phase_overlap_grad_kernel(dev, grad_kept, smi)
 
     # `launches`: of a main path's timed run, held to the expected counts
     # above: the viny path's for the kernels of the earlier slices, the full
     # path's for the batched score, the gmapping path's for the particle
-    # match, the viny_m3rsm path's for the M3RSM kernels. `overlap_score`
-    # and `m3rsm_level` left the main paths (for `score_poses` and the
-    # whole match), so they read 0 there; the paths driven with their
-    # yardsticks handed in stand under `launches_by_path` only
+    # match, the viny_m3rsm path's for the M3RSM kernels, the CLI's
+    # mit_csail run for `overlap_score` (its hill-climb refine) and its
+    # tiny_refined run for `overlap_score_grad`. `m3rsm_level` left the main
+    # paths, so it reads 0 there; the paths driven with their yardsticks
+    # handed in stand under `launches_by_path` only
     main_path = {"overlap_score_batched": full_launches, "mc_match_batched": gm_launches,
-                 "overlap_score": m3_launches, "m3rsm_pyramid": m3_launches,
-                 "m3rsm_level": m3_launches, "m3rsm_search": m3_launches}
-    for k in (k1, k3, k2, k4, k5, k6, k7, k8):
+                 "overlap_score": cli_launches["mit_csail"], "m3rsm_pyramid": m3_launches,
+                 "m3rsm_level": m3_launches, "m3rsm_search": m3_launches,
+                 "overlap_score_grad": cli_launches["tiny_refined"]}
+    for k in (k1, k3, k2, k4, k5, k6, k7, k8, k9):
         k["launches"] = main_path.get(k["name"], viny_launches)[k["name"]]
         k["launches_by_path"] = {
             "tiny": tiny_launches[k["name"]], "viny": viny_launches[k["name"]],
@@ -2136,8 +2448,9 @@ def main() -> None:
                 rounds_launches[k["name"]],
             f"gmapping, improved proposal, {GM_IMPROVED_SCANS} scans": improved_launches[k["name"]],
             "viny_m3rsm, a level launch a level and a score launch a round":
-                levels_launches[k["name"]]}
-    print(json.dumps({"kernels": [k1, k3, k2, k4, k5, k6, k7, k8]}), flush=True)
+                levels_launches[k["name"]],
+            **{f"cli {name}": counts[k["name"]] for name, counts in cli_launches.items()}}
+    print(json.dumps({"kernels": [k1, k3, k2, k4, k5, k6, k7, k8, k9]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
 

@@ -5,6 +5,7 @@
     JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --preset gmapping [--port] [--keys 5]
     JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --preset viny_m3rsm [--port]
     JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --preset full_m3rsm [--port] [--keys 5]
+    JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --config configs/X.properties [--port] [--keys 5]
 
 Builds the sequence that ``chip_smoke.py`` drives (512 scans along the
 cecum rectangle, 360 beams, odometry noise 0.01 m / 0.005 rad from
@@ -69,6 +70,18 @@ M3RSM loop matcher of the reference's own test (``tests/test_posegraph.py:
 451-455``: 3 levels, +-0.6 m, +-0.3 rad in 7 steps, overlap scoring on
 every second beam), ``chip_smoke.full_m3rsm_config``.
 
+With ``--config FILE`` (a ``.properties`` file of ``configs/`` for the
+single-hypothesis engine) the sequence is the one ``chip_smoke.py``'s CLI
+phase runs (``python -m slam_constructor_tpu_torch.run --config FILE
+--synthetic cecum --trajectory rectangle --steps 128``: 360 beams, the
+rectangle at 0.25 m a step, odometry noise 0.01 m / 0.005 rad from
+``np.random.default_rng(0)``), built by the port's CLI on the CPU, and the
+reference's engine from the same file (``utils.config.engine_config_from``)
+runs it once for each key ``PRNGKey(0..N-1)`` (``--keys N``); the figure
+is the ATE without alignment that the CLI prints. ``--port`` also runs the
+port on the CPU with key 0's matcher noise injected and prints how far its
+poses lie from the reference's. ``--steps`` sets the sequence's length.
+
 This is a parity tool, like the tests: it imports both packages. Nothing
 it prints is a device metric.
 """
@@ -91,7 +104,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[2]))  # the checkout's r
 
 from chip_smoke import (  # noqa: E402  (the same sequences and configuration)
     M3RSM_LOOP_MATCHER, MAP, N_BEAMS, N_SCANS, bench_sequence, full_config, full_m3rsm_config,
-    full_sequence, gmapping_quality_sequence,
+    full_sequence, gmapping_quality_sequence, odometry_trajectory,
 )
 
 FREE_IMPL = {"tiny": "dda", "viny": "polar"}
@@ -122,9 +135,15 @@ def main() -> None:
                     help="gmapping: every step of the port from the reference's state")
     ap.add_argument("--dissect", type=int, default=None, metavar="K",
                     help="take apart the first diverging scan of key K")
+    ap.add_argument("--config", default=None, metavar="FILE",
+                    help="a .properties file: the reference engine on the CLI's sequence")
+    ap.add_argument("--steps", type=int, default=128, help="--config: scans in the sequence")
     args = ap.parse_args()
     jax.config.update("jax_platforms", "cpu")
     torch.set_num_threads(1)
+    if args.config:
+        print(json.dumps(config_preset(args)))
+        return
     if args.preset in ("full", "full_m3rsm"):
         print(json.dumps(full_preset(args)))
         return
@@ -213,6 +232,62 @@ def main() -> None:
         out["dissect"] = dissect(args.dissect, jcfg, tcfg, scans, odom, gt, jscans,
                                  port_run, pose_diff, first_over)
     print(json.dumps(out))
+
+
+def config_preset(args) -> dict:
+    """The reference's engine built from ``args.config`` over the CLI's
+    synthetic sequence, a run a key; with ``--port`` the port on the CPU
+    with key 0's matcher noise."""
+    from slam_constructor_tpu.models import engine as jeng
+    from slam_constructor_tpu.ops.scan import LaserScan as JScan
+    from slam_constructor_tpu.utils import config as jconfig
+    from slam_constructor_tpu_torch import run as trun
+    from slam_constructor_tpu_torch.models import engine as teng
+    from slam_constructor_tpu_torch.utils import config as tconfig
+    from slam_constructor_tpu_torch.utils import evaluate
+
+    cli = trun.parse_args(["--config", args.config, "--synthetic", "cecum", "--trajectory",
+                           "rectangle", "--steps", str(args.steps), "--cpu"])
+    scans, odom, gt = trun.load_data(cli, torch.device("cpu"))
+    props = jconfig.load_properties(args.config)
+    jcfg = jconfig.engine_config_from(props)
+    jscans = JScan(
+        ranges=jnp.asarray(scans.ranges.numpy()), bearings=jnp.asarray(scans.bearings.numpy()),
+        valid=jnp.asarray(scans.valid.numpy()),
+    )
+    out = {"config": args.config, "scans": int(scans.ranges.shape[0]),
+           "beams": int(scans.ranges.shape[1]), "backend": jax.default_backend(),
+           "odometry_ate_m": float(evaluate.ate(odometry_trajectory(gt[0], odom), gt,
+                                                 align=False))}
+    rows, jtraj0 = [], None
+    for k in range(args.keys):
+        # run_sequence donates its state, the key with it: make it anew
+        st = jeng.init_state(jcfg, jax.random.PRNGKey(k)).replace(pose=jnp.asarray(gt[0].numpy()))
+        t0 = time.perf_counter()
+        _, tr, _ = jeng.run_sequence(jcfg, st, jscans, jnp.asarray(odom.numpy()))
+        tr = torch.from_numpy(np.array(tr))
+        rows.append({"key": k, "reference_ate_m": float(evaluate.ate(tr, gt, align=False)),
+                     "seconds_cpu": time.perf_counter() - t0})
+        jtraj0 = tr if jtraj0 is None else jtraj0
+        print(json.dumps(rows[-1]), file=sys.stderr, flush=True)
+    out["by_key"] = rows
+    out["reference_worst_ate_m"] = max(r["reference_ate_m"] for r in rows)
+    if args.port:
+        tcfg = tconfig.engine_config_from(tconfig.load_properties(args.config))
+        mc = tcfg.matcher_cfg
+        noise = noise_chain(jax.random.PRNGKey(0), len(scans), mc.rounds, mc.batch)
+        e = teng.Engine(tcfg, device="cpu")
+        e.state.pose = gt[0].clone()
+        t0 = time.perf_counter()
+        ttraj, _ = e.run(scans, odom, noise=torch.from_numpy(noise))
+        d = ttraj - jtraj0
+        d[:, 2] = torch.atan2(torch.sin(d[:, 2]), torch.cos(d[:, 2]))
+        over = torch.nonzero(d.abs().max(dim=1).values > 1e-4)
+        out["port_cpu_ate_m"] = float(evaluate.ate(ttraj, gt, align=False))
+        out["max_abs_pose_diff"] = float(d.abs().max())
+        out["port_first_scan_over_1e-4"] = int(over[0]) if over.numel() else None
+        out["port_seconds_cpu"] = time.perf_counter() - t0
+    return out
 
 
 def viny_m3rsm_preset(args) -> dict:

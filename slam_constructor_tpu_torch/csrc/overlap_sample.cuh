@@ -1,7 +1,8 @@
 // overlap_sample.cuh: the per-beam arithmetic of the scan-overlap score,
-// shared by overlap_score.cu (one launch scores K poses on M planes) and
-// mc_match.cu (one launch runs whole Monte-Carlo matches), so that both give
-// the same bits for the same pose. A plane is read through an accessor: the
+// shared by overlap_score.cu (one launch scores K poses on M planes),
+// overlap_score_grad.cu (the score and its pose gradient) and mc_match.cu
+// (one launch runs whole Monte-Carlo matches), so that all give the same
+// bits for the same pose. A plane is read through an accessor: the
 // plane itself (LdgPlane), or a window of a map read in place (MapWindow),
 // which gives the cells the cut-out window would hold.
 //
@@ -30,6 +31,7 @@ static_assert(kGroupThreads == 128, "group_reduce is written for four warps");
 
 struct AxisTaps {
   float a0, a1;  // weights of taps i0 and i0 + 1, zero where off the map
+  float d0, d1;  // their derivatives along the axis: -1 and +1, zero off the map
   int i0, i1;    // tap indices, clamped into the map
 };
 
@@ -42,6 +44,8 @@ __device__ __forceinline__ AxisTaps axis_taps(float pos, int n) {
   const bool ok1 = f + 1.0f >= 0.0f && f + 1.0f < fn;
   t.a0 = ok0 ? w0 : 0.0f;
   t.a1 = ok1 ? 1.0f - w0 : 0.0f;
+  t.d0 = ok0 ? -1.0f : 0.0f;
+  t.d1 = ok1 ? 1.0f : 0.0f;
   // clamp in float before converting: the comparison also sends NaN to 0
   const float c0 = f >= 0.0f ? fminf(f, fn - 1.0f) : 0.0f;
   const float c1 = f + 1.0f >= 0.0f ? fminf(f + 1.0f, fn - 1.0f) : 0.0f;
@@ -81,6 +85,39 @@ struct MapWindow {
   }
 };
 
+// The 2 x 2 taps of a fractional cell position (x, y) on an h x w plane
+// whose cells `at(row, col)` reads. A tap off the map has weight 0 and
+// reads 0, as the one-hot of the reference never matches it.
+struct Taps {
+  AxisTaps ry, cx;
+  float v00, v10, v01, v11;
+};
+
+template <class Plane>
+__device__ __forceinline__ Taps read_taps(const Plane& at, int h, int w, float x, float y) {
+  Taps t;
+  t.ry = axis_taps(y, h);
+  t.cx = axis_taps(x, w);
+  const AxisTaps& ry = t.ry;
+  const AxisTaps& cx = t.cx;
+  t.v00 = (ry.a0 != 0.0f && cx.a0 != 0.0f) ? at(ry.i0, cx.i0) : 0.0f;
+  t.v10 = (ry.a1 != 0.0f && cx.a0 != 0.0f) ? at(ry.i1, cx.i0) : 0.0f;
+  t.v01 = (ry.a0 != 0.0f && cx.a1 != 0.0f) ? at(ry.i0, cx.i1) : 0.0f;
+  t.v11 = (ry.a1 != 0.0f && cx.a1 != 0.0f) ? at(ry.i1, cx.i1) : 0.0f;
+  return t;
+}
+
+// The overlap probability from the taps: rows first, then columns (the
+// order of the reference's a @ plane . b); mass off the map reads unknown.
+__device__ __forceinline__ float tap_value(const Taps& t, float unknown) {
+  const AxisTaps& ry = t.ry;
+  const AxisTaps& cx = t.cx;
+  const float ssum = (ry.a0 * t.v00 + ry.a1 * t.v10) * cx.a0 +
+                     (ry.a0 * t.v01 + ry.a1 * t.v11) * cx.a1;
+  const float coverage = (ry.a0 + ry.a1) * (cx.a0 + cx.a1);
+  return ssum + (1.0f - coverage) * unknown;
+}
+
 // Overlap probability of the endpoint (qx, qy), given in the sensor frame,
 // seen from `p`, on an h x w plane whose cells `at(row, col)` reads.
 template <class Plane>
@@ -91,19 +128,39 @@ __device__ __forceinline__ float sample_at(const Plane& at, int h, int w, const 
   const float wy = (p.y + p.s * qx) + p.c * qy;
   const float x = (wx - ox) / scale;
   const float y = (wy - oy) / scale;
-  const AxisTaps ry = axis_taps(y, h);
-  const AxisTaps cx = axis_taps(x, w);
-  // a tap off the map has weight 0 and reads 0, as the one-hot of the
-  // reference never matches it
-  const float v00 = (ry.a0 != 0.0f && cx.a0 != 0.0f) ? at(ry.i0, cx.i0) : 0.0f;
-  const float v10 = (ry.a1 != 0.0f && cx.a0 != 0.0f) ? at(ry.i1, cx.i0) : 0.0f;
-  const float v01 = (ry.a0 != 0.0f && cx.a1 != 0.0f) ? at(ry.i0, cx.i1) : 0.0f;
-  const float v11 = (ry.a1 != 0.0f && cx.a1 != 0.0f) ? at(ry.i1, cx.i1) : 0.0f;
-  // rows first, then columns: the order of the reference's a @ plane . b
-  const float ssum = (ry.a0 * v00 + ry.a1 * v10) * cx.a0 +
-                     (ry.a0 * v01 + ry.a1 * v11) * cx.a1;
-  const float coverage = (ry.a0 + ry.a1) * (cx.a0 + cx.a1);
-  return ssum + (1.0f - coverage) * unknown;
+  return tap_value(read_taps(at, h, w, x, y), unknown);
+}
+
+// sample_at() and its gradient with respect to the pose (gx, gy, gth). In
+// cell units the value is bilinear in (x, y): each axis weight moves by -1
+// (tap i0) or +1 (tap i1) where the tap lies on the map, and the mass that
+// leaves the map enters through the `unknown` fill, (1 - coverage) *
+// unknown. Then the chain to the pose: d(x, y)/d(px, py) = 1 / scale and
+// d(wx, wy)/dtheta = (-s qx - c qy, c qx - s qy). The value is sample_at's
+// bits. Where a coordinate sits on a cell centre (a tap changes) the
+// derivative is the one of the side the floor picks.
+template <class Plane>
+__device__ __forceinline__ float sample_grad_at(const Plane& at, int h, int w, const Pose& p,
+                                                float qx, float qy, float ox, float oy,
+                                                float scale, float unknown, float& gx,
+                                                float& gy, float& gth) {
+  const float wx = (p.x + p.c * qx) - p.s * qy;
+  const float wy = (p.y + p.s * qx) + p.c * qy;
+  const float x = (wx - ox) / scale;
+  const float y = (wy - oy) / scale;
+  const Taps t = read_taps(at, h, w, x, y);
+  const AxisTaps& ry = t.ry;
+  const AxisTaps& cx = t.cx;
+  const float dx = ((ry.a0 * t.v00 + ry.a1 * t.v10) * cx.d0 +
+                    (ry.a0 * t.v01 + ry.a1 * t.v11) * cx.d1) -
+                   ((ry.a0 + ry.a1) * (cx.d0 + cx.d1)) * unknown;
+  const float dy = ((ry.d0 * t.v00 + ry.d1 * t.v10) * cx.a0 +
+                    (ry.d0 * t.v01 + ry.d1 * t.v11) * cx.a1) -
+                   ((ry.d0 + ry.d1) * (cx.a0 + cx.a1)) * unknown;
+  gx = dx / scale;
+  gy = dy / scale;
+  gth = (dx * (-p.s * qx - p.c * qy) + dy * (p.c * qx - p.s * qy)) / scale;
+  return tap_value(t, unknown);
 }
 
 // One thread's share of a pose's score: beams t, t + kGroupThreads, ... in

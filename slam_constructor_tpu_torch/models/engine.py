@@ -12,13 +12,18 @@ Python loop over scans that stay on the device (the reference runs it in
 Entry points run on the card unless the caller names a device (see
 ``device.resolve_device``); the tests pass ``device="cpu"``.
 
-With the M3RSM matcher the state carries the map's live max-occupancy
-pyramid, refreshed after every insert around the scan's footprint (one
-launch of ``kernels.m3rsm_pyramid_update``, gated on the device by the
-insert's weight).
+With the M3RSM matcher on a dense map the state carries the map's live
+max-occupancy pyramid, refreshed after every insert around the scan's
+footprint (one launch of ``kernels.m3rsm_pyramid_update``, gated on the
+device by the insert's weight).
 
-Waiting for later slices: the tiled storage, refine matchers and
-``auto_grow``.
+An optional refine matcher runs from the primary match's pose (the
+gradient ascent of ``tiny_refined``, the hill climb of ``mit_csail``). The
+tiled storage (``map_storage='tiled'``, ``ops/blockmap.py``) matches
+against a dense window of tiles around the prior and scatters the scan's
+samples into its block pool, allocating tiles on the device.
+
+Waiting for a later slice: ``auto_grow``.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from typing import Any
 import torch
 
 from ..device import resolve_device
+from ..ops import blockmap
 from ..ops import cells as cellslib
 from ..ops import grid as gridlib
 from ..ops import m3rsm as m3rsmlib
@@ -43,11 +49,11 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Static configuration tree; the dense single-hypothesis fields of the
-    reference's ``EngineConfig``, with the same names and defaults."""
+    """Static configuration tree: the reference's ``EngineConfig``, with the
+    same names and defaults."""
 
     cell_model: Any = cellslib.BayesAvgCell()
-    matcher: str = "monte_carlo"  # 'monte_carlo' or 'm3rsm' (ops.matchers.MATCHERS)
+    matcher: str = "monte_carlo"  # a key of ops.matchers.MATCHERS
     matcher_cfg: Any = matcherslib.MonteCarloConfig()
     beam: raycast.BeamConfig = raycast.BeamConfig()
     map_height: int = 256
@@ -55,6 +61,8 @@ class EngineConfig:
     map_scale: float = 0.1
     #: skip map insertion when match probability is below this
     min_insert_prob: float = 0.0
+    #: optional second matcher run from the primary match's pose (a key of
+    #: ops.matchers.MATCHERS: 'gradient', 'hill_climbing', ...) and its config
     refine_matcher: Any = None
     refine_cfg: Any = None
     #: weight beams by the scan-degeneracy angle histogram (vinySLAM)
@@ -62,34 +70,29 @@ class EngineConfig:
     #: score matches against a prior-centred window of this many cells a
     #: side (0 = the whole map); see ``scoring.window_view``
     match_window: int = 0
+    #: 'dense' (one plane) or 'tiled' (the block pool of ops/blockmap.py)
     map_storage: str = "dense"
+    #: tiled storage: block side (cells), pool capacity (blocks), and the
+    #: dense window matched against, in tiles a side
     tile_block: int = 32
     tile_capacity: int = 512
     window_tiles: int = 10
 
     def __post_init__(self):
-        waiting = {
-            "matcher": self.matcher not in ("monte_carlo", "m3rsm"),
-            "refine_matcher": self.refine_matcher is not None,
-            "refine_cfg": self.refine_cfg is not None,
-            "map_storage": self.map_storage != "dense",
-            # the tiled storage's knobs
-            "tile_block": self.tile_block != 32,
-            "tile_capacity": self.tile_capacity != 512,
-            "window_tiles": self.window_tiles != 10,
-        }
-        for name, set_ in waiting.items():
-            if set_:
-                raise NotImplementedError(
-                    f"EngineConfig.{name}={getattr(self, name)!r} is not ported yet"
-                )
+        for name in ("matcher", "refine_matcher"):
+            value = getattr(self, name)
+            if value is not None and value not in matcherslib.MATCHERS:
+                raise ValueError(f"EngineConfig.{name}={value!r}: not one of "
+                                 f"{sorted(matcherslib.MATCHERS)}")
+        if self.map_storage not in ("dense", "tiled"):
+            raise ValueError(f"map_storage={self.map_storage!r}: must be 'dense' or 'tiled'")
 
 
 @dataclasses.dataclass
 class SlamState:
     """Single-hypothesis engine state."""
 
-    gm: gridlib.GridMap
+    gm: gridlib.GridMap | blockmap.BlockMap
     pose: Tensor  # f32[3]
     step: Tensor  # i32[]
     last_prob: Tensor  # f32[]
@@ -100,7 +103,7 @@ class SlamState:
 
 
 def _uses_pyramid(cfg: EngineConfig) -> bool:
-    return cfg.matcher == "m3rsm"
+    return cfg.matcher == "m3rsm" and cfg.map_storage == "dense"
 
 
 def _refresh_pyramid(cfg: EngineConfig, gm, pose: Tensor, pyramid: tuple, gate: Tensor) -> tuple:
@@ -128,9 +131,16 @@ def init_state(cfg: EngineConfig, device=None) -> SlamState:
     """A fresh state on ``device`` (the card when none is named); with the
     M3RSM matcher its pyramid built and the search's constants made."""
     dev = resolve_device(device)
-    gm = gridlib.make_grid_map(
-        cfg.cell_model, cfg.map_height, cfg.map_width, cfg.map_scale, device=dev
-    )
+    if cfg.map_storage == "tiled":
+        gm = blockmap.make_block_map(
+            cfg.cell_model, tiles_h=cfg.map_height // cfg.tile_block,
+            tiles_w=cfg.map_width // cfg.tile_block, capacity=cfg.tile_capacity,
+            block=cfg.tile_block, scale=cfg.map_scale, device=dev,
+        )
+    else:
+        gm = gridlib.make_grid_map(
+            cfg.cell_model, cfg.map_height, cfg.map_width, cfg.map_scale, device=dev
+        )
     pyramid: tuple = ()
     if _uses_pyramid(cfg):
         mcfg = cfg.matcher_cfg
@@ -166,6 +176,18 @@ def _point_weights(cfg: EngineConfig, scan: LaserScan) -> Tensor | None:
     return 1.0 / (1.0 + hist[bins] * n_bins)
 
 
+def _refine(cfg: EngineConfig, view, scan, res, generator, pw, noise):
+    """The optional second matcher from the primary match's pose. Hill
+    climbing and gradient ascent keep the start pose unless the score
+    improves. A Monte-Carlo refine gets the primary match's ``noise``, as
+    the reference hands both matches one key."""
+    if cfg.refine_matcher is None:
+        return res
+    refine_cls, refine_fn = matcherslib.MATCHERS[cfg.refine_matcher]
+    rcfg = cfg.refine_cfg if cfg.refine_cfg is not None else refine_cls()
+    return refine_fn(view, scan, res.pose, generator, rcfg, pw, noise)
+
+
 def slam_step(
     cfg: EngineConfig,
     state: SlamState,
@@ -175,16 +197,34 @@ def slam_step(
     noise: Tensor | None = None,
     generator: torch.Generator | None = None,
 ) -> SlamState:
-    """One scan: match from ``state.pose ⊕ odom_delta``, then insert.
+    """One scan: match from ``state.pose ⊕ odom_delta`` (then refine), then
+    insert.
 
     ``quality`` scales this scan's observation weight. ``noise`` f32[rounds,
     batch, 3] injects the matcher's standard normals; otherwise they come
     from ``generator``. The M3RSM matcher matches against the state's
-    pyramid and draws nothing; the returned state holds new planes.
+    pyramid and draws nothing; the returned state holds new planes. On the
+    tiled map the match runs on the ``window_tiles`` window around the
+    prior, and the insert allocates tiles in the pool.
     """
     _, match_fn = matcherslib.MATCHERS[cfg.matcher]
     prior = compose(state.pose, odom_delta)
     pw = _point_weights(cfg, scan)
+    if cfg.map_storage == "tiled":
+        window = blockmap.extract_window(
+            state.gm, cfg.cell_model, prior[:2], cfg.window_tiles, cfg.window_tiles)
+        view = scoring.MapView.of(window, cfg.cell_model)
+        res = match_fn(view, scan, prior, generator, cfg.matcher_cfg, pw, noise)
+        res = _refine(cfg, view, scan, res, generator, pw, noise)
+        do_insert = (res.prob >= cfg.min_insert_prob) | (state.step == 0)
+        # q = 0 (gated) leaves zero-weight samples: no tile allocated, no fold
+        q = torch.where(do_insert, quality, 0.0)
+        rows, cols, w_obs, s_obs = raycast.scan_sample_cells(
+            state.gm.origin, state.gm.scale, res.pose, scan, cfg.beam)
+        gm = blockmap.scatter_observations(
+            state.gm, cfg.cell_model, rows, cols, q * w_obs, q * s_obs)
+        return SlamState(gm=gm, pose=res.pose, step=state.step + 1, last_prob=res.prob)
+
     view = scoring.MapView.of(state.gm, cfg.cell_model)
     pyramid = state.pyramid if _uses_pyramid(cfg) else ()
     if cfg.match_window and not _uses_pyramid(cfg):
@@ -192,6 +232,7 @@ def slam_step(
         view = scoring.window_view(view, prior[:2], cfg.match_window)
     live = {"pyramid": pyramid} if pyramid else {}
     res = match_fn(view, scan, prior, generator, cfg.matcher_cfg, pw, noise, **live)
+    res = _refine(cfg, view, scan, res, generator, pw, noise)
     w_obs, s_obs = raycast.scan_observation_planes(state.gm, res.pose, scan, cfg.beam)
     do_insert = (res.prob >= cfg.min_insert_prob) | (state.step == 0)
     q = torch.where(do_insert, quality, 0.0)
@@ -265,6 +306,8 @@ class Engine:
 
     @property
     def occupancy(self) -> Tensor:
+        if self.cfg.map_storage == "tiled":
+            return blockmap.occupancy_plane(self.state.gm, self.cfg.cell_model)
         return gridlib.occupancy_plane(self.state.gm, self.cfg.cell_model)
 
     @property

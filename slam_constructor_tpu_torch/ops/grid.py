@@ -70,10 +70,19 @@ def make_grid_map(
     )
 
 
+def div_scale(x: Tensor, scale: float) -> Tensor:
+    """``x / scale``, an IEEE division on every device. PyTorch's CUDA
+    kernel turns a division by a Python number into a product with its
+    reciprocal, which rounds otherwise than the CPU's division (trap h):
+    a sample on a cell's border would land in another cell on the card
+    than on the CPU. A divisor on the device is divided by."""
+    return x / torch.full((), scale, dtype=x.dtype, device=x.device)
+
+
 def world_to_cell(gm: GridMap, pts: Tensor) -> Tensor:
     """World points ``f32[..., 2]`` -> int64 cell indices ``[..., 2]`` as
     (row, col). May be out of bounds."""
-    rel = (pts - gm.origin) / gm.scale
+    rel = div_scale(pts - gm.origin, gm.scale)
     col = torch.floor(rel[..., 0]).to(torch.int64)
     row = torch.floor(rel[..., 1]).to(torch.int64)
     return torch.stack([row, col], dim=-1)
@@ -109,10 +118,9 @@ def window_corner(origin: Tensor, center_xy: Tensor, scale: float, sh: int, sw: 
 
     The reference's arithmetic (``scoring.window_view``, the RBPF's insert
     window): ``floor((center - origin) / scale)`` less half the window, the
-    window's origin ``origin + [col, row] * scale``. The division is tensor
-    by tensor (a scalar divisor becomes a product with its reciprocal on
-    the card). Nothing is read on the host."""
-    rel = (center_xy - origin) / torch.full_like(origin, scale)
+    window's origin ``origin + [col, row] * scale`` (``div_scale``'s
+    division). Nothing is read on the host."""
+    rel = div_scale(center_xy - origin, scale)
     cell = torch.floor(rel).to(torch.int64)
     col = torch.clamp(cell[..., 0] - sw // 2, 0, w - sw)
     row = torch.clamp(cell[..., 1] - sh // 2, 0, h - sh)

@@ -9,6 +9,12 @@ each with its own plane, poses, scan and origin: what the reference gets
 from ``vmap`` over submaps when it closes loops, and over particles in the
 RBPF's improved proposal and minimumScore gate.
 
+``overlap_score_grad`` is the same score with its gradient with respect
+to each pose, in one pass (``csrc/overlap_score_grad.cu``): the gradient
+matcher's ascent direction, which the reference takes with ``jax.grad``
+through its score. ``clear_of_kinks`` picks the beams where two
+implementations of that gradient can be compared.
+
 ``mc_match`` runs one whole Monte-Carlo match (the first score, every
 round's candidates, argmax, keep-if-better and the sigma anneal) in one
 launch on a thread-block cluster (``csrc/mc_match.cu``); it is the same TPU
@@ -69,8 +75,8 @@ _MAX_SHARED_BYTES = 48 * 1024
 #: wrapper adds one where it launches its kernel (CUDA tensors only), under
 #: its own name whatever name it was called by.
 _LAUNCHES = dict.fromkeys(
-    ("overlap_score", "overlap_score_batched", "mc_match", "mc_match_batched",
-     "polar_free_plane", "m3rsm_pyramid", "m3rsm_level", "m3rsm_search"), 0
+    ("overlap_score", "overlap_score_batched", "overlap_score_grad", "mc_match",
+     "mc_match_batched", "polar_free_plane", "m3rsm_pyramid", "m3rsm_level", "m3rsm_search"), 0
 )
 
 
@@ -127,8 +133,8 @@ def overlap_score_ref(
     qx, qy = pts[:, None, :, 0], pts[:, None, :, 1]  # [M, 1, R]
     wx = poses[..., 0:1] + c * qx - s * qy  # [M, K, R]
     wy = poses[..., 1:2] + s * qx + c * qy
-    x = (wx - origin[:, 0, None, None]) / scale
-    y = (wy - origin[:, 1, None, None]) / scale
+    x = gridlib.div_scale(wx - origin[:, 0, None, None], scale)  # the kernel's division
+    y = gridlib.div_scale(wy - origin[:, 1, None, None], scale)
     ay0, ay1, r0, r1 = _axis_taps(y, h)
     ax0, ax1, c0, c1 = _axis_taps(x, w)
     flat = v.reshape(n_m, -1)
@@ -280,6 +286,83 @@ def overlap_score_batched(
     return _overlap_score_launch(
         "overlap_score_batched", (v.shape[0],), v, poses, pts, beam_w, origin, scale, unknown
     )
+
+
+def overlap_score_grad_ref(v, poses, pts, beam_w, origin, scale, unknown):
+    """Plain version of ``overlap_score_grad``: autograd over
+    :func:`overlap_score_ref` (single plane). Returns (score f32[K],
+    dscore f32[K, 3]), the derivative of each score by its own pose."""
+    with torch.enable_grad():
+        p = poses.detach().requires_grad_(True)
+        score = overlap_score_ref(v, p, pts, beam_w, origin, scale, unknown)
+        (grad,) = torch.autograd.grad(score.sum(), p)
+    return score.detach(), grad
+
+
+def clear_of_kinks(poses: Tensor, pts: Tensor, origin: Tensor, scale: float,
+                   margin: float = 1e-4) -> Tensor:
+    """bool[R]: the beams whose endpoint, from every pose f32[K, 3], lies
+    at least ``margin`` cell from a cell's centre and edge on both axes.
+    There the overlap score's derivative jumps (a tap, or the reference's
+    window, changes), so a position one ulp apart takes the other side's
+    derivative: two gradients compare on the clear beams only."""
+    c, s = torch.cos(poses[:, 2:3]), torch.sin(poses[:, 2:3])
+    x = (poses[:, 0:1] + c * pts[:, 0] - s * pts[:, 1] - origin[0]) / scale
+    y = (poses[:, 1:2] + s * pts[:, 0] + c * pts[:, 1] - origin[1]) / scale
+    half = torch.stack([x, y]) * 2.0  # kinks every half cell
+    return ((half - torch.round(half)).abs() >= 2 * margin).all(0).all(0)
+
+
+@functools.cache
+def _overlap_score_grad_fn():
+    fn = _build.load().overlap_score_grad_launch
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # v, h, w
+        ctypes.c_void_p, ctypes.c_int,  # poses, k
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # pts, beam_w, r
+        ctypes.c_void_p, ctypes.c_float, ctypes.c_float,  # origin, scale, unknown
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # out, dout, stream
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def overlap_score_grad(
+    v: Tensor,
+    poses: Tensor,
+    pts: Tensor,
+    beam_w: Tensor,
+    origin: Tensor,
+    scale: float,
+    unknown: float,
+) -> tuple[Tensor, Tensor]:
+    """Score poses f32[K, 3] against plane v f32[H, W] and differentiate
+    each score by its pose: (score f32[K], dscore f32[K, 3]). The score has
+    the bits of :func:`overlap_score`.
+
+    CPU tensors take the plain twin; CUDA tensors launch the kernel on the
+    current stream and add one to the ``overlap_score_grad`` count."""
+    if v.device.type == "cpu":
+        return overlap_score_grad_ref(v, poses, pts, beam_w, origin, scale, unknown)
+    if v.device.type != "cuda":
+        raise ValueError(f"overlap_score_grad: unsupported device {v.device}")
+    h, w = v.shape
+    k, r = poses.shape[0], pts.shape[0]
+    _check("v", v, (h, w), v.device)
+    _check("poses", poses, (k, 3), v.device)
+    _check("pts", pts, (r, 2), v.device)
+    _check("beam_w", beam_w, (r,), v.device)
+    _check("origin", origin, (2,), v.device)
+    out = torch.empty((k,), dtype=torch.float32, device=v.device)
+    dout = torch.empty((k, 3), dtype=torch.float32, device=v.device)
+    if k == 0:
+        return out, dout
+    fn = _overlap_score_grad_fn()
+    _launch("overlap_score_grad", v.device, lambda stream: fn(
+        v.data_ptr(), h, w, poses.data_ptr(), k, pts.data_ptr(), beam_w.data_ptr(), r,
+        origin.data_ptr(), scale, unknown, out.data_ptr(), dout.data_ptr(), stream))
+    _LAUNCHES["overlap_score_grad"] += 1
+    return out, dout
 
 
 # --- Monte-Carlo matches -------------------------------------------------------
@@ -1219,9 +1302,8 @@ def m3rsm_window_cells(s: M3RSMSearch):
     px, py = s.pts[:, None, :, 0], s.pts[:, None, :, 1]
     ex = (poses[:, 0, None, None] + c * px) - s_ * py  # [B, T, R]
     ey = (poses[:, 1, None, None] + s_ * px) + c * py
-    scale_t = torch.full_like(ex, s.scale)
-    rel_x = (ex - origin[:, 0, None, None]) / scale_t
-    rel_y = (ey - origin[:, 1, None, None]) / scale_t
+    rel_x = gridlib.div_scale(ex - origin[:, 0, None, None], s.scale)
+    rel_y = gridlib.div_scale(ey - origin[:, 1, None, None], s.scale)
     c0 = torch.stack([torch.floor(rel_y).to(torch.int32), torch.floor(rel_x).to(torch.int32)],
                      dim=-1).contiguous()
     return corner, extent, origin, c0

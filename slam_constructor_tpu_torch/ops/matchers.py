@@ -1,4 +1,4 @@
-"""Grid scan matchers: Monte-Carlo and brute-force (port of
+"""Grid scan matchers: Monte-Carlo, hill climbing, brute force and gradient (port of
 ``slam_constructor_tpu.ops.matchers``).
 
 Monte-Carlo: each round scores a batch of candidates drawn around the best
@@ -15,8 +15,11 @@ round in one call, the steps halved after a round without gain (M3RSM's
 refine). Brute force: an exhaustive (x, y, theta) grid around the prior,
 scored in one call. Both take a leading map dimension on view, scan and
 prior and then match M (map, scan, prior) triples at once, one launch of
-the map-batched score kernel a call: the loop closer's form. The gradient
-matcher waits for a later slice; M3RSM lives in ``m3rsm.py``.
+the map-batched score kernel a call: the loop closer's form. Gradient:
+ascent along the score's pose gradient, one launch of
+``kernels.overlap_score_grad`` (the score and its gradient) an iteration,
+with hill climbing's keep-if-better and shrink rule. M3RSM lives in
+``m3rsm.py``.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import dataclasses
 
 import torch
 
+from ..device import constant
 from . import kernels, scoring
 from .geometry import linspace, wrap_angle
 
@@ -187,10 +191,74 @@ def brute_force_match(
     )
 
 
-#: registry for the config system; ``m3rsm.py`` adds "m3rsm", the gradient
-#: matcher joins in a later slice
+@dataclasses.dataclass(frozen=True)
+class GradientConfig:
+    """Gradient ascent through the overlap score, which is continuous in
+    the pose; steps follow hill climbing's keep-if-better and
+    shrink-on-failure rule, so the matcher never lowers the score."""
+
+    iterations: int = 24
+    step_xy: float = 0.06
+    step_theta: float = 0.03
+    shrink: float = 0.5
+    scoring: scoring.ScoringConfig = scoring.ScoringConfig(reducer="overlap")
+
+
+def gradient_match(
+    view: scoring.MapView,
+    scan,
+    init_pose: Tensor,
+    generator: torch.Generator | None = None,
+    cfg: GradientConfig = GradientConfig(),
+    point_weights: Tensor | None = None,
+    noise: Tensor | None = None,
+) -> MatchResult:
+    """Refine ``init_pose`` f32[3] on one map: each iteration takes the
+    score's gradient ``g`` at the kept pose, steps ``steps * g / (|g| +
+    1e-12)`` (theta wrapped) and keeps the step if it scores strictly
+    better, else multiplies every step by ``shrink``. Deterministic, so
+    ``generator`` and ``noise`` are ignored.
+
+    One launch of ``kernels.overlap_score_grad`` scores the start pose and
+    differentiates it, and one a candidate: ``1 + iterations`` launches. A
+    kept candidate's gradient is the next step's, as the reference takes
+    its gradient at the kept pose; the score has ``overlap_score``'s bits.
+    A Python loop over device tensors that never syncs with the host."""
+    del generator, noise
+    prep = scoring.prepare(view, scan, cfg.scoring, point_weights)
+    if prep.plane.dim() != 2:
+        raise ValueError("gradient_match refines a pose on one map")
+    args = (prep.pts, prep.beam_w, prep.origin, prep.scale, prep.unknown)
+
+    def score_grad(pose):
+        score, grad = kernels.overlap_score_grad(prep.plane, pose[None, :].contiguous(), *args)
+        return score[0], grad[0]
+
+    dev = init_pose.device
+    pose = init_pose
+    prob, g = score_grad(pose)
+    steps = constant((cfg.step_xy, cfg.step_xy, cfg.step_theta), torch.float32, dev)
+    trace = []
+    for _ in range(cfg.iterations):
+        gn = g / (torch.linalg.vector_norm(g) + 1e-12)
+        cand = pose + steps * gn
+        cand = torch.cat([cand[:2], wrap_angle(cand[2:])])
+        p_new, g_new = score_grad(cand)
+        better = p_new > prob
+        pose = torch.where(better, cand, pose)
+        prob = torch.where(better, p_new, prob)
+        g = torch.where(better, g_new, g)
+        steps = torch.where(better, steps, steps * cfg.shrink)
+        trace.append(prob)
+    trace = (torch.stack(trace) if trace
+             else torch.empty((0,), dtype=torch.float32, device=dev))
+    return MatchResult(pose=pose, prob=prob, trace=trace)
+
+
+#: registry for the config system; ``m3rsm.py`` adds "m3rsm"
 MATCHERS = {
     "monte_carlo": (MonteCarloConfig, monte_carlo_match),
     "hill_climbing": (HillClimbingConfig, hill_climbing_match),
     "brute_force": (BruteForceConfig, brute_force_match),
+    "gradient": (GradientConfig, gradient_match),
 }

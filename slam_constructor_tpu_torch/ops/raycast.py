@@ -12,7 +12,8 @@ are dropped. ``scan_observation_planes_batched`` rasterises N scans at N
 poses in the same few calls, into one plane each or summed into shared
 planes: the loop closer's submaps and the regenerated map;
 ``insert_scan_windows`` inserts P scans into P maps on a window around each
-pose, the RBPF's insert. ``scan_sample_cells`` waits for a later slice.
+pose, the RBPF's insert. ``scan_sample_cells`` gives one scan's samples as
+flat (row, col, weight, occupancy) lists, for the tiled map's insert.
 """
 
 from __future__ import annotations
@@ -109,7 +110,7 @@ def _endpoint_area_obs(origin, scale, endpoints, valid, hole_width):
     ``[..., R, 9]``; the weight is the overlap area as a fraction of the
     cell area, the occupancy observed is 1.0.
     """
-    rel = (endpoints - origin) / scale
+    rel = gridlib.div_scale(endpoints - origin, scale)
     idx = torch.stack(
         [torch.floor(rel[..., 1]).to(torch.int64), torch.floor(rel[..., 0]).to(torch.int64)], -1
     )  # [..., R, 2] (row, col)
@@ -123,7 +124,7 @@ def _endpoint_area_obs(origin, scale, endpoints, valid, hole_width):
     ov = torch.clamp(
         torch.minimum(cell_lo + scale, e + half) - torch.maximum(cell_lo, e - half), min=0.0
     )
-    area = ov[..., 0] * ov[..., 1] / (scale * scale)
+    area = gridlib.div_scale(ov[..., 0] * ov[..., 1], scale * scale)
     return nbr[..., 0], nbr[..., 1], torch.where(valid[..., None], area, 0.0)
 
 
@@ -197,10 +198,64 @@ def scan_observation_planes(gm, pose, scan: scanlib.LaserScan, cfg: BeamConfig):
     return w_free + w_occ, s_occ
 
 
+def scan_sample_cells(origin: Tensor, scale: float, pose: Tensor, scan: scanlib.LaserScan,
+                      cfg: BeamConfig):
+    """One scan from ``pose`` as flat observation samples, whatever the map
+    stores: (rows, cols) i64, (w, s) f32, 1-D. The DDA free trace (``w`` 1
+    where a beam enters a cell, 0 for a masked sample, ``s`` 0), then the
+    occupied evidence (the const or area endpoint estimator), then the wall
+    blur, in the reference's order (``raycast.scan_sample_cells``). A
+    sample may lie off any map; the caller drops it. The cells are those
+    :func:`scan_observation_planes` counts with ``free_impl='dda'``."""
+    dev = pose.device
+    angles = pose[2] + scan.bearings
+    dirs = torch.stack([torch.cos(angles), torch.sin(angles)], dim=-1)  # [R, 2]
+    start = pose[:2]
+    n_s = cfg.n_free_samples(scale)
+    step = scale * cfg.step_fraction
+    t = (torch.arange(n_s, dtype=torch.float32, device=dev) + 0.5) * step  # [S]
+    rows_f, cols_f = _cells_of(start + t[None, :, None] * dirs[:, None, :], origin, scale)
+    free_limit = scan.ranges - cfg.hole_width / 2.0
+    valid = scan.valid[:, None] & (t[None, :] < free_limit[:, None])
+    same = (rows_f[:, 1:] == rows_f[:, :-1]) & (cols_f[:, 1:] == cols_f[:, :-1])
+    first = torch.ones((rows_f.shape[0], 1), dtype=torch.bool, device=dev)
+    valid = valid & torch.cat([first, ~same], dim=1)
+    w_free = valid.to(torch.float32).reshape(-1)
+    rows, cols = [rows_f.reshape(-1)], [cols_f.reshape(-1)]
+    w, s = [w_free], [torch.zeros_like(w_free)]
+
+    endpoints = start + scan.ranges[:, None] * dirs
+    # usable-range cap on endpoint evidence, as the dense insert does
+    ep_valid = scan.valid & (scan.ranges <= cfg.max_range)
+    if cfg.occupancy_estimator == "area":
+        r9, c9, wgt = _endpoint_area_obs(origin, scale, endpoints, ep_valid, cfg.hole_width)
+        rows.append(r9.reshape(-1))
+        cols.append(c9.reshape(-1))
+        w.append(wgt.reshape(-1))
+        s.append(wgt.reshape(-1))  # observed occupancy 1.0
+    else:
+        er, ec = _cells_of(endpoints, origin, scale)
+        rows.append(er)
+        cols.append(ec)
+        w.append(ep_valid.to(torch.float32))
+        s.append(ep_valid.to(torch.float32))
+    if cfg.wall_blur:
+        bt = linspace(-1.0, 1.0, cfg.blur_samples, dev)
+        tb = scan.ranges[:, None] + cfg.hole_width / 2.0 * bt[None, :]
+        br, bc = _cells_of(start + tb[..., None] * dirs[:, None, :], origin, scale)
+        ramp = (1.0 - torch.abs(bt))[None, :].expand(tb.shape)
+        vb = (ep_valid[:, None] & (tb > 0)).to(torch.float32)
+        rows.append(br.reshape(-1))
+        cols.append(bc.reshape(-1))
+        w.append((ramp * vb).reshape(-1))
+        s.append((ramp**2 * vb).reshape(-1))
+    return torch.cat(rows), torch.cat(cols), torch.cat(w), torch.cat(s)
+
+
 def _cells_of(pts: Tensor, origin: Tensor, scale: float):
     """(row, col) int64 of world points; ``origin`` broadcasts against
     ``pts``. The arithmetic of :func:`grid.world_to_cell`."""
-    rel = (pts - origin) / scale
+    rel = gridlib.div_scale(pts - origin, scale)
     return torch.floor(rel[..., 1]).to(torch.int64), torch.floor(rel[..., 0]).to(torch.int64)
 
 
@@ -353,7 +408,7 @@ def cast_rays(
     angles = pose[2] + bearings
     dirs = torch.stack([torch.cos(angles), torch.sin(angles)], dim=-1)  # [R, 2]
     pts = pose[:2] + t[None, :, None] * dirs[:, None, :]  # [R, S, 2]
-    rel = (pts - origin) / scale
+    rel = gridlib.div_scale(pts - origin, scale)
     col = torch.floor(rel[..., 0]).to(torch.int64)
     row = torch.floor(rel[..., 1]).to(torch.int64)
     vals = gridlib.gather_plane(occ_plane, torch.stack([row, col], -1), 0.0, h, w)

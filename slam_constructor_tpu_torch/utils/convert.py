@@ -5,7 +5,10 @@ A reference ``SlamState`` crosses as a dict of numpy arrays:
 Bayes cells, 5 for the TBM cell), ``origin`` f32[2], ``scale`` float,
 ``pose`` f32[3], ``step`` int, ``last_prob`` float, and with the M3RSM
 matcher ``pyramid``, the tuple of its f32 planes (absent or empty
-otherwise). The reference's PRNG key is not
+otherwise). A state on the tiled map (``map_storage='tiled'``) crosses with
+the block map's fields in place of ``cells``: ``pool`` f32[N, B, B, C],
+``table`` i32[TH, TW], ``n_alloc`` int, ``origin``, ``scale`` and
+``block``. The reference's PRNG key is not
 carried over: its role moves to the ``Engine``'s ``torch.Generator``, or to
 noise injected into ``slam_step``.
 
@@ -31,6 +34,7 @@ from ..device import resolve_device
 from ..models.engine import SlamState
 from ..models.gmapping import GMappingState
 from ..models.posegraph import PoseGraphState
+from ..ops.blockmap import BlockMap
 from ..ops.grid import GridMap
 from ..ops.scan import LaserScan
 
@@ -43,8 +47,18 @@ def state_from_numpy(tree: dict, device=None) -> SlamState:
     def f32(a):
         return torch.tensor(np.asarray(a, np.float32), device=device)
 
+    if "pool" in tree:
+        gm = BlockMap(
+            pool=f32(tree["pool"]), origin=f32(tree["origin"]), scale=float(tree["scale"]),
+            table=torch.tensor(np.asarray(tree["table"], np.int32), device=device),
+            n_alloc=torch.tensor(np.asarray(tree["n_alloc"], np.int32), device=device),
+            block=int(tree["block"]),
+        )
+    else:
+        gm = GridMap(cells=f32(tree["cells"]), origin=f32(tree["origin"]),
+                     scale=float(tree["scale"]))
     return SlamState(
-        gm=GridMap(cells=f32(tree["cells"]), origin=f32(tree["origin"]), scale=float(tree["scale"])),
+        gm=gm,
         pose=f32(tree["pose"]),
         step=torch.tensor(np.asarray(tree["step"], np.int32), device=device),
         last_prob=f32(tree["last_prob"]),
@@ -54,10 +68,16 @@ def state_from_numpy(tree: dict, device=None) -> SlamState:
 
 def state_to_numpy(state: SlamState) -> dict:
     """The port's state as a numpy dict (see module docstring)."""
+    gm = state.gm
+    if isinstance(gm, BlockMap):
+        maps = {"pool": gm.pool.cpu().numpy(), "table": gm.table.cpu().numpy(),
+                "n_alloc": int(gm.n_alloc), "block": gm.block}
+    else:
+        maps = {"cells": gm.cells.cpu().numpy()}
     return {
-        "cells": state.gm.cells.cpu().numpy(),
-        "origin": state.gm.origin.cpu().numpy(),
-        "scale": float(state.gm.scale),
+        **maps,
+        "origin": gm.origin.cpu().numpy(),
+        "scale": float(gm.scale),
         "pose": state.pose.cpu().numpy(),
         "step": int(state.step),
         "last_prob": float(state.last_prob),

@@ -27,6 +27,7 @@ from slam_constructor_tpu.ops import raycast as jray
 from slam_constructor_tpu.ops import scoring as jscore
 from slam_constructor_tpu_torch.models import engine as teng
 from slam_constructor_tpu_torch.models import full as tfull
+from slam_constructor_tpu_torch.models import gmapping as tgm
 from slam_constructor_tpu_torch.models import posegraph as tpg
 from slam_constructor_tpu_torch.models import tiny as ttiny
 from slam_constructor_tpu_torch.models import viny as tviny
@@ -36,6 +37,7 @@ from slam_constructor_tpu_torch.ops import m3rsm as tm3
 from slam_constructor_tpu_torch.ops import matchers as tmatch
 from slam_constructor_tpu_torch.ops import raycast as tray
 from slam_constructor_tpu_torch.ops import scoring as tscore
+from slam_constructor_tpu_torch.utils import config as tconfig
 
 torch.set_num_threads(1)
 
@@ -209,11 +211,15 @@ def test_viny_m3rsm_config_lockstep():
 @pytest.mark.parametrize(
     "make",
     [
-        lambda: teng.EngineConfig(map_storage="tiled"),
+        # the tiled storage, the engine's refine and hill climbing as its
+        # primary matcher are ported (test_torch_config.py); what stays of
+        # later slices: the sharded preset, the RBPF's copy-on-write storage
+        # and its gradient refine
+        lambda: tconfig.preset("distributed"),
         # the reference's grid-pitch fallback for M3RSM is a known fault (trap e)
         lambda: tpg.PoseGraphConfig(loop_matcher_kind="m3rsm", loop_subcell_refine=True),
-        lambda: teng.EngineConfig(refine_matcher="hill_climbing"),
-        lambda: teng.EngineConfig(matcher="hill_climbing"),
+        lambda: tgm.GMappingConfig(map_storage="cow"),
+        lambda: tgm.GMappingConfig(refine_matcher="gradient"),
         lambda: tray.BeamConfig(free_impl="auto"),
         lambda: tray.BeamConfig(free_impl="polar_pallas"),
         # the reference's pipeline keeps the pyramid of the map from before a closure

@@ -3,7 +3,9 @@
 A subprocess blocks ``jax`` and ``flax`` from being imported, then imports
 every module of ``slam_constructor_tpu_torch`` and runs two tinySLAM and
 two vinySLAM steps, a few scans of the loop-closing pipeline and of the
-GMapping RBPF on the CPU. A source scan makes sure no file of the package, nor the GPU smoke
+GMapping RBPF, and the command-line runner on two shipped configs (the
+gradient refine on a synthetic sequence, the tiled map on a CARMEN log) on
+the CPU. A source scan makes sure no file of the package, nor the GPU smoke
 script, imports them or the reference package.
 """
 
@@ -61,6 +63,15 @@ g = gmapping.GMappingEngine(gmapping.fast_config(n_particles=4, map_size=64, usa
                             device="cpu")
 gtraj, gneff = g.run(scans6, odom6)
 assert gtraj.shape == (6, 3) and bool(torch.isfinite(gtraj).all()) and g.winner_trajectory().shape == (6, 3)
+assert {"config", "dataset", "blockmap", "run", "trajectory", "viz", "metrics"} <= names
+import contextlib, io, tempfile
+from slam_constructor_tpu_torch import run
+for cfg, src in (("tiny_refined", ["--synthetic", "cecum", "--trajectory", "rectangle"]),
+                 ("mit_stata", ["--dataset", "tests/data/mini_robotlaser.clf"])):
+    with tempfile.TemporaryDirectory() as out, contextlib.redirect_stdout(io.StringIO()):
+        summary = run.main(["--config", f"configs/{cfg}.properties", *src, "--steps", "2",
+                            "--scan-stride", "4", "--cpu", "--out", out])
+        assert summary["scans"] >= 2, summary
 assert "jax" not in sys.modules or sys.modules["jax"] is None
 print("ok", traj[-1].tolist())
 """
@@ -79,6 +90,7 @@ def test_no_file_of_the_package_imports_jax():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|slam_constructor_tpu)\b", re.M)
     files = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) >= 17
-    assert {"full.py", "posegraph.py", "gmapping.py", "resample.py"} <= {f.name for f in files}
+    assert {"full.py", "posegraph.py", "gmapping.py", "resample.py", "run.py", "config.py",
+            "dataset.py", "blockmap.py"} <= {f.name for f in files}
     offenders = [str(f.relative_to(REPO)) for f in files if pattern.search(f.read_text())]
     assert offenders == []

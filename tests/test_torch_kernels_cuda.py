@@ -27,7 +27,12 @@ whole and in a refreshed region written into new planes;
 ``m3rsm_score_level`` sums a rect's beams in another order than its twin:
 atol 2e-6. ``m3rsm_search`` (a whole M3RSM match in one launch) equals
 ``m3rsm_search_levels`` (a level-score launch a level, a batched score
-launch a hill-climb round) bit for bit.
+launch a hill-climb round) bit for bit. ``overlap_score_grad`` gives the
+score with ``overlap_score``'s bits and its pose gradient within 1e-5 x
+max(1, |g|) of its twin (autograd over the score's twin: the sums run in
+another order), the beams within 1e-4 cell of a kink (a cell's centre or
+edge, where the derivative jumps) at weight 0; ``matchers.gradient_match``
+on the card lands within 1e-5 m of the CPU's.
 """
 
 import pytest
@@ -628,3 +633,55 @@ def test_m3rsm_search_rejects_bad_input(scene, monkeypatch):
         kernels.m3rsm_search(dataclasses.replace(s, window=512))
     with pytest.raises(ValueError):  # a window not a multiple of 2^levels
         kernels.m3rsm_search(dataclasses.replace(s, window=72))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n_beams,stride,weighted", [
+    (1, 360, 1, False), (7, 360, 1, False), (64, 100, 1, True), (7, 360, 2, True),
+])
+def test_overlap_score_grad_kernel_matches_plain_twin(scene, k, n_beams, stride, weighted):
+    view, scan, cand, g = scene
+    scan = LaserScan(scan.ranges[:n_beams], scan.bearings[:n_beams],
+                     scan.valid[:n_beams] & (torch.arange(n_beams, device=cand.device) % 9 != 4))
+    w = torch.rand((n_beams,), generator=g, device=cand.device) if weighted else None
+    prep = scoring.prepare(view, scan, scoring.ScoringConfig(reducer="overlap", stride=stride), w)
+    args = (prep.plane, cand[:k].contiguous(), prep.pts, prep.beam_w, prep.origin,
+            prep.scale, prep.unknown)
+    before = kernels.launch_counts()["overlap_score_grad"]
+    score, grad = kernels.overlap_score_grad(*args)
+    want_s, _ = kernels.overlap_score_grad_ref(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["overlap_score_grad"] == before + 1
+    assert torch.equal(score, kernels.overlap_score(*args))
+    torch.testing.assert_close(score, want_s, atol=ATOL, rtol=0)
+    # where an endpoint lies on a cell's centre or edge the derivative jumps,
+    # and a position an ulp apart picks the other side: the gradients are
+    # compared with the beams within 1e-4 cell of such a kink at weight 0
+    clear = kernels.clear_of_kinks(args[1], args[2], args[4], prep.scale, 1e-4)
+    args = (*args[:3], (args[3] * clear).contiguous(), *args[4:])
+    masked_score, grad = kernels.overlap_score_grad(*args)
+    _, want_g = kernels.overlap_score_grad_ref(*args)
+    tol = 1e-5 * torch.clamp(want_g.norm(dim=1, keepdim=True), min=1.0)
+    assert bool(((grad - want_g).abs() <= tol).all()), (grad - want_g).abs().max()
+    # a fixed-order reduction: the same bits on every call
+    again = kernels.overlap_score_grad(*args)
+    assert torch.equal(again[0], masked_score) and torch.equal(again[1], grad)
+
+
+@pytest.mark.cuda
+def test_gradient_match_on_the_card_matches_the_cpu(scene):
+    from slam_constructor_tpu_torch.ops import matchers
+
+    view, scan, cand, _ = scene
+    cfg = matchers.GradientConfig(iterations=12, step_xy=0.03, step_theta=0.015,
+                                  scoring=scoring.ScoringConfig(reducer="overlap", window=1))
+    cpu_view = scoring.MapView(view.occ.cpu(), view.known.cpu(), view.origin.cpu(), view.scale)
+    before = kernels.launch_counts()
+    got = matchers.gradient_match(view, scan, cand[3], None, cfg)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["overlap_score_grad"] - before["overlap_score_grad"] == 13
+    assert after["overlap_score"] - before["overlap_score"] == 0
+    want = matchers.gradient_match(cpu_view, scan.to("cpu"), cand[3].cpu(), None, cfg)
+    torch.testing.assert_close(got.pose.cpu(), want.pose, atol=1e-5, rtol=0)
+    torch.testing.assert_close(got.prob.cpu(), want.prob, atol=ATOL, rtol=0)
