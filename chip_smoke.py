@@ -156,9 +156,9 @@ Phases, one line or more each, in order; any failure exits non-zero:
    on every ``configs/*.properties`` at the config's own widths on the card:
    128 scans of the cecum rectangle (64 for gmapping and tum_2d), 360 beams;
    its scans/s, ATE and RPE; the launches the design gives (tiny, viny and
-   mit_stata ``mc_match`` 1 a scan; tiny_refined also ``overlap_score_grad``
-   13 a scan, its gradient refine; mit_csail
-   ``overlap_score`` 11 a scan, its hill climb; viny_m3rsm ``m3rsm_search``
+   mit_stata ``mc_match`` 1 a scan; tiny_refined also ``gradient_refine``
+   1 a scan, its gradient refine; mit_csail ``hill_climb`` 1 a scan, its
+   hill climb; viny_m3rsm ``m3rsm_search``
    1 and ``m3rsm_pyramid`` 1 a scan + 1; gmapping ``mc_match_batched`` 1;
    tum_2d also ``overlap_score_batched`` 1, its improved proposal); the
    same engine driven directly with the same config and seed, under
@@ -168,18 +168,39 @@ Phases, one line or more each, in order; any failure exits non-zero:
    0.02 m of the JAX reference's worst of five keys on the same sequence
    and 8 scans card against CPU (1e-4); mit_stata's pool not exhausted
    (its allocated fraction printed); then tiny and gmapping on the two
-   CARMEN fixtures of ``tests/data/``; ``overlap_score`` against its plain
-   twin (2e-6) on mit_csail's hill climb every 16th scan (its first score,
-   K = 1, and its first round, K = 6, on the 1024^2 plane), then timed at
-   the round: the ``kernels`` line's times and bound for it;
+   CARMEN fixtures of ``tests/data/``; then tiny_refined and mit_csail once
+   more, through the CLI and driven directly, with the refine's yardstick
+   (``gradient_refine_rounds``: ``overlap_score_grad`` 13 a scan;
+   ``hill_climb_rounds``: ``overlap_score`` 11 a scan) handed in in the
+   kernel's place: the same trajectories bit for bit, and both scans/s;
+   ``overlap_score`` against its plain twin (2e-6) on that mit_csail run's
+   hill climb every 16th scan (its first score, K = 1, and its first round,
+   K = 6, on the 1024^2 plane), then timed at the round: the ``kernels``
+   line's times and bound for it;
 27. ``overlap_score_grad`` (the score and its pose gradient in one launch)
    against its autograd twin on every 97th launch of the tiny_refined run
-   (K = 1, 360 beams, 256^2) and on a pose 0.4 m from the map's edge, K =
-   7, and every second beam with beam weights: the score the bits of
-   ``overlap_score``, within 2e-6 of the twin's, the gradient within 1e-5 x
-   max(1, |g|); then timed (replayed from a CUDA graph, a call, chained)
-   beside its bound and the twin. The bounds of the two single-plane scores
-   count the distinct cells their taps read, not the whole plane.
+   with the yardstick (K = 1, 360 beams, 256^2) and on a pose 0.4 m from
+   the map's edge, K = 7, and every second beam with beam weights: the
+   score the bits of ``overlap_score``, within 2e-6 of the twin's, the
+   gradient within 1e-5 x max(1, |g|); then timed (replayed from a CUDA
+   graph, a call, chained) beside its bound and the twin;
+28. ``gradient_refine`` (tiny_refined's whole refine in one launch) on the
+   refines kept from every 16th scan of its CLI run and edge cases (0, 1
+   and 24 iterations, a start pose 0.4 m from the map's edge, every second
+   beam with beam weights, no valid beam, a NaN weight): pose, prob and
+   trace equal bit for bit to ``gradient_refine_rounds``; against its plain
+   twin prob and trace within 2e-6 and the pose within 1e-5, or where they
+   part a decision closer than 4e-6 before it (printed); then timed at the
+   path's shape (replayed from a CUDA graph, a call, chained) beside the
+   yardstick and the twin;
+29. ``hill_climb`` (mit_csail's whole refine in one launch) the same way,
+   and M maps in one launch (the 8 kept climbs stacked,
+   and 32 with the start poses moved) equal to M single launches and to
+   ``hill_climb_rounds`` on the M maps bit for bit.
+
+Every bound counts, of the plane or window, the distinct cells that the
+taps of every pose the kernel scores read (the poses taken from its
+yardstick's run on the same inputs), not the whole plane.
 
 The launch counts are set to 0 just before each of these runs and read just
 after it. The line before the last is a JSON object of the
@@ -704,22 +725,26 @@ def match_cases(tiny_states, viny_states, full_states, dev):
     return cases
 
 
-def twin_record(args):
+def twin_record(args, loop=None, twin_score=None):
     """The plain twin's match with, for every round, how closely it was
     decided: the gap between its two best scores and between the best and
     the best so far. Returns (pose, prob, trace), margins f32[rounds]; with
     a leading particle dimension on the arguments, of every particle
-    (margins f32[P, rounds])."""
+    (margins f32[P, rounds]). ``loop`` and ``twin_score`` default to the
+    Monte-Carlo match over ``overlap_score_ref``; a refine's loop and score
+    twin (which may return the gradient too) give a refine's margins."""
     from slam_constructor_tpu_torch.ops import kernels
 
+    loop = loop or kernels.mc_match_loop
+    twin_score = twin_score or kernels.overlap_score_ref
     scores = []
 
     def score(*a):
-        out = kernels.overlap_score_ref(*a)
-        scores.append(out)
+        out = twin_score(*a)
+        scores.append(out[0] if isinstance(out, tuple) else out)
         return out
 
-    out = kernels.mc_match_loop(score, *args)
+    out = loop(score, *args)
     best, margins = scores[0][..., 0], []
     for probs in scores[1:]:
         top = torch.topk(probs, min(2, probs.shape[-1]), dim=-1).values
@@ -731,11 +756,12 @@ def twin_record(args):
                  else torch.empty((*best.shape, 0), device=best.device))
 
 
-def against_twin(name, got, twin, margins):
+def against_twin(name, got, twin, margins, pose_tol=1e-6):
     """One match's (pose, prob, trace) against its plain twin's: within TOL
     round by round; where they part, a round decided by less than
-    KNIFE_EDGE must come before. Returns (the largest difference up to
-    there, whether they parted)."""
+    KNIFE_EDGE must come before. The poses agree within ``pose_tol`` unless
+    a decision was that close. Returns (the largest difference up to there,
+    whether they parted)."""
     n_rounds = got[2].shape[0]
     diff = (got[2] - twin[2]).abs()
     diff = torch.where(torch.isnan(got[2]) & torch.isnan(twin[2]), 0.0, diff)
@@ -751,7 +777,7 @@ def against_twin(name, got, twin, margins):
     p_err = float((got[1] - twin[1]).abs().nan_to_num(nan=0.0))
     pose_err = float((got[0] - twin[0]).abs().max())
     check(p_err <= TOL, f"match prob differs from its twin ({name}): {p_err}")
-    check(pose_err <= 1e-6 or float(margins.min()) < KNIFE_EDGE,
+    check(pose_err <= pose_tol or float(margins.min()) < KNIFE_EDGE,
           f"match pose differs from its twin ({name}): {pose_err}")
     return max(err, p_err), False
 
@@ -798,18 +824,27 @@ def phase_mc_match(dev, tiny_states, viny_states, full_states):
                                           lambda: kernels.mc_match_ref(*args), plain_calls=10)
         rounds_ms = statistics.median(time_ms(lambda: kernels.mc_match_rounds(*args), 20))
         n_rounds, batch = args[5].shape[0], args[5].shape[1]
-        # every input read once, pose, prob and trace written once
-        n_bytes = 4 * (sum(a.numel() for a in args[:6]) + 3 + 1 + n_rounds)
-        n_ops = OVERLAP_OPS_PER_POINT * (1 + n_rounds * batch) * int((args[2] != 0).sum())
+        # the distinct plane cells the taps of every scored pose read, the
+        # weighted beams' points, every weight, origin, prior and noise read
+        # once; pose, prob and trace written once
+        cells, sectors = tap_cells(args[0], visited_poses(kernels.mc_match_loop,
+                                                          kernels.overlap_score, args),
+                                   args[1], args[2], args[3], args[6])
+        n_w = int((args[2] != 0).sum())
+        n_bytes = 4 * (cells + 2 * n_w + args[2].numel() + 2 + 3 + args[5].numel()
+                       + 3 + 1 + n_rounds)
+        n_ops = OVERLAP_OPS_PER_POINT * (1 + n_rounds * batch) * n_w
         b_ms, by = bound_ms(n_bytes, n_ops)
         print(f"mc_match {preset} K={batch} rounds={n_rounds} R'={args[1].shape[0]} "
               f"{args[0].shape[0]}x{args[0].shape[1]}: kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, one overlap_score launch a round "
               f"{rounds_ms:.4f} ms (medians of 100, 20 and 20 calls, CUDA events), kernel "
               f"{chained:.4f} ms a launch over 200 back to back; bound {b_ms:.6f} ms by {by} "
-              f"({n_bytes} B, {n_ops} operations); no single PyTorch call computes it", flush=True)
+              f"({n_bytes} B: {cells} tap cells in {sectors} 32-B sectors; {n_ops} operations); "
+              f"no single PyTorch call computes it", flush=True)
         entry[preset] = {"ms": ms, "plain_ms": plain_ms, "rounds_ms": rounds_ms,
-                         "chained_ms": chained, "bound_ms": b_ms, "bound_by": by}
+                         "chained_ms": chained, "bound_ms": b_ms, "bound_by": by,
+                         "tap_cells": cells}
     return {
         "name": "mc_match", "route": "cuda",
         "source": "slam_constructor_tpu_torch/csrc/mc_match.cu",
@@ -1050,6 +1085,18 @@ def phase_full_path(cfg, scans, odom, gt, odo_ate, name="full", reference=FULL_R
     return launches
 
 
+def batched_score_work(a):
+    """(bytes, operations, tap cells) of one `overlap_score_batched` launch
+    on ``a``: each map's distinct tap cells, its poses, its weighted beams'
+    points, every weight and its origin read once, the scores written
+    once; the operations of the beams that carry weight."""
+    n_m, k = a[1].shape[:2]
+    cells, _ = tap_cells_maps(*a[:6])
+    n_w = int((a[3] != 0).sum())
+    n_bytes = 4 * (cells + a[1].numel() + 2 * n_w + a[3].numel() + a[4].numel() + n_m * k)
+    return n_bytes, OVERLAP_OPS_PER_POINT * k * n_w, cells
+
+
 def phase_batched_kernel(dev, kept):
     """`overlap_score_batched` on the launches kept from a full run and on
     edge cases: against its plain twin and against M single-plane launches;
@@ -1111,14 +1158,13 @@ def phase_batched_kernel(dev, kept):
                                       lambda: kernels.overlap_score_ref(*big))
     singles_ms = statistics.median(time_ms(
         lambda: [kernels.overlap_score(*sub(big, m)) for m in range(n_m)], 20))
-    n_bytes = 4 * (sum(t.numel() for t in big[:5]) + n_m * k)
-    n_ops = OVERLAP_OPS_PER_POINT * k * int((big[3] != 0).sum())
+    n_bytes, n_ops, cells = batched_score_work(big)
     b_ms, by = bound_ms(n_bytes, n_ops)
     print(f"overlap_score_batched M={n_m} K={k} R'=180 120^2: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms (median of 100 calls each, CUDA events), kernel {chained:.4f} ms a "
           f"launch over 200 back to back, {n_m} single-plane launches {singles_ms:.4f} ms (median "
-          f"of 20); bound {b_ms:.6f} ms by {by} ({n_bytes} B, {n_ops} operations); no single "
-          f"PyTorch call computes it", flush=True)
+          f"of 20); bound {b_ms:.6f} ms by {by} ({n_bytes} B: {cells} tap cells; {n_ops} "
+          f"operations); no single PyTorch call computes it", flush=True)
     return {
         "name": "overlap_score_batched", "route": "cuda",
         "source": "slam_constructor_tpu_torch/csrc/overlap_score.cu",
@@ -1359,20 +1405,27 @@ def phase_particle_match(dev, states):
     singles_ms = statistics.median(time_ms(lambda: singles_of(kernels.mc_match, cut), 20))
     n_p, n_rounds, k = s[10].shape[:3]
     sh, sw = s[4:6]
-    # every input read once (each window's occupancy and mask once, its
-    # corner, the scan, origin, prior and noise), poses, probs and traces
-    # written once; the operations of the beams that carry weight
-    scan_bytes = 4 * (sum(a.numel() for a in s[6:11]) + n_p * (3 + 1 + n_rounds))
-    n_bytes = n_p * sh * sw * (4 + 1) + 8 * 2 * n_p + scan_bytes
-    cut_bytes = 4 * cut[0].numel() + scan_bytes
-    n_ops = OVERLAP_OPS_PER_POINT * (1 + n_rounds * k) * int((s[7] != 0).sum())
+    # every input read once: of each window the distinct cells the taps of
+    # every scored pose read (occupancy and mask in place, the cut-out
+    # plane's float cut out), its corner, the weighted beams' points, every
+    # weight, origin, prior and noise; poses, probs and traces written once;
+    # the operations of the beams that carry weight
+    cells, _ = tap_cells_maps(cut[0], visited_poses(kernels.mc_match_loop,
+                                                    kernels.overlap_score_batched, cut),
+                              cut[1], cut[2], cut[3], cut[6])
+    n_w = int((s[7] != 0).sum())
+    scan_bytes = 4 * (2 * n_w + sum(a.numel() for a in s[7:11]) + n_p * (3 + 1 + n_rounds))
+    n_bytes = cells * (4 + 1) + 8 * 2 * n_p + scan_bytes
+    cut_bytes = 4 * cells + scan_bytes
+    n_ops = OVERLAP_OPS_PER_POINT * (1 + n_rounds * k) * n_w
     b_ms, by = bound_ms(n_bytes, n_ops)
     cut_b_ms, cut_by = bound_ms(cut_bytes, n_ops)
     print(f"mc_match_windows P={n_p} K={k} rounds={n_rounds} R'=180 {sh}x{sw} windows read in place: "
           f"kernel {ms:.4f} ms, plain (cut, where, mc_match_ref) {plain_ms:.4f} ms, the windows cut "
           f"out and matched {cut_path_ms:.4f} ms (medians of 100, 20 and 100 calls in turns, CUDA "
           f"events), kernel {chained:.4f} ms a launch over 200 back to back; bound {b_ms:.6f} "
-          f"ms by {by} ({n_bytes} B, {n_ops} operations). mc_match_batched on the cut-out windows: "
+          f"ms by {by} ({n_bytes} B: {cells} tap cells of {n_p * sh * sw}; {n_ops} operations). "
+          f"mc_match_batched on the cut-out windows: "
           f"{cut_ms:.4f} ms, plain {cut_plain_ms:.4f} ms, {cut_chained:.4f} ms chained, bound "
           f"{cut_b_ms:.6f} ms by {cut_by} ({cut_bytes} B); {n_p} single-plane mc_match launches "
           f"{singles_ms:.4f} ms (median of 20); no single PyTorch call computes it", flush=True)
@@ -1519,12 +1572,12 @@ def phase_gmapping_improved(dev, scans, odom, gt):
         ms, plain_ms, chained = time_pair(lambda: kernels.overlap_score_batched(*a),
                                           lambda: kernels.overlap_score_ref(*a))
         n_m, k = a[1].shape[:2]
-        n_bytes = 4 * (sum(t.numel() for t in a[:5]) + n_m * k)
-        n_ops = OVERLAP_OPS_PER_POINT * k * int((a[3] != 0).sum())
+        n_bytes, n_ops, cells = batched_score_work(a)
         b_ms, by = bound_ms(n_bytes, n_ops)
         print(f"overlap_score_batched M={n_m} K={k} R'=180 160^2 (the {name}): kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, kernel {chained:.4f} ms a launch over 200 back to back; "
-              f"bound {b_ms:.6f} ms by {by} ({n_bytes} B, {n_ops} operations)", flush=True)
+              f"bound {b_ms:.6f} ms by {by} ({n_bytes} B: {cells} tap cells; {n_ops} operations)",
+              flush=True)
         times[name] = {"ms": ms, "plain_ms": plain_ms, "chained_ms": chained, "bound_ms": b_ms,
                        "bound_by": by}
     return launches, {**times, "max_abs_err": max_err}
@@ -2114,15 +2167,14 @@ def cli_argv(name, out, dataset=None):
 
 def cli_expected(name, n):
     """The launches the design gives a CLI run of ``n`` scans: one match a
-    scan; tiny_refined's gradient refine (the start pose and each of its
-    12 candidates scored and differentiated in one launch); mit_csail's
-    hill climb (the first score and 10 rounds); viny_m3rsm's pyramid build
-    in ``init_state`` and a refresh a scan; tum_2d's improved proposal (one
-    batched score of the probes a scan)."""
+    scan; tiny_refined's gradient refine and mit_csail's hill climb, one
+    launch a scan each; viny_m3rsm's pyramid build in ``init_state`` and a
+    refresh a scan; tum_2d's improved proposal (one batched score of the
+    probes a scan)."""
     return expect(**{
         "tiny": dict(mc_match=n), "viny": dict(mc_match=n), "mit_stata": dict(mc_match=n),
-        "tiny_refined": dict(mc_match=n, overlap_score_grad=13 * n),
-        "mit_csail": dict(mc_match=n, overlap_score=11 * n),
+        "tiny_refined": dict(mc_match=n, gradient_refine=n),
+        "mit_csail": dict(mc_match=n, hill_climb=n),
         "viny_m3rsm": dict(m3rsm_search=n, m3rsm_pyramid=n + 1),
         "gmapping": dict(mc_match_batched=n),
         "tum_2d": dict(mc_match_batched=n, overlap_score_batched=n),
@@ -2131,29 +2183,30 @@ def cli_expected(name, n):
 
 def phase_cli(dev):
     """``slam_constructor_tpu_torch.run`` on every shipped config at its own
-    widths, on the card, in this process; returns the launches of each run,
-    the arguments of every 97th gradient launch of tiny_refined's and of
-    mit_csail's hill climb every 16th scan (its first score, K = 1, and its
-    first round, K = 6)."""
+    widths, on the card, in this process, then tiny_refined and mit_csail
+    once more with the refine's yardstick handed in. Returns the launches
+    of each run; the arguments of every 16th refine of tiny_refined and
+    mit_csail (`gradient_refine`, `hill_climb`); of the yardstick runs'
+    every 97th `overlap_score_grad` launch and mit_csail's `overlap_score`
+    launches every 16th scan (its first score, K = 1, and its first round,
+    K = 6); and the scans/s of the runs."""
     from slam_constructor_tpu_torch import run
     from slam_constructor_tpu_torch.ops import blockmap, kernels
     from slam_constructor_tpu_torch.utils import config as cfglib
     from slam_constructor_tpu_torch.utils import evaluate
 
-    launches, grad_kept, score_kept = {}, [], []
+    launches, refine_kept, rates, trajs = {}, {}, {}, {}
     for name in (*CLI_EARLIER, *CLI_NEW):
         args = run.parse_args(cli_argv(name, f"build/cli_out/{name}"))
         check(not args.cpu, "the CLI phase runs on the card")
-        grad_rec, grad_k = recorder(kernels.overlap_score_grad, every=97)
-        # mit_csail scores 11 times a scan: the first score, then 10 rounds
-        score_rec, score_k = recorder(kernels.overlap_score, keep=lambda n: n % 176 in (0, 1))
+        grad_rec, grad_k = recorder(kernels.gradient_refine, every=16)
+        climb_rec, climb_k = recorder(kernels.hill_climb, every=16)
         reset_launches()
-        with handed_in(grad_rec, "overlap_score_grad"), handed_in(score_rec, "overlap_score"):
+        with handed_in(grad_rec, "gradient_refine"), handed_in(climb_rec, "hill_climb"):
             res = run.execute(args)
         launches[name] = read_launches()
-        grad_kept += grad_k
-        if name == "mit_csail":
-            score_kept += score_k
+        refine_kept["gradient_refine"] = refine_kept.get("gradient_refine", []) + grad_k
+        refine_kept["hill_climb"] = refine_kept.get("hill_climb", []) + climb_k
         n = res.trajectory.shape[0]
         want = cli_expected(name, n)
         sm = res.summary
@@ -2180,6 +2233,8 @@ def phase_cli(dev):
         print(f"cli {name}: the engine driven directly, sync check on, {n / secs:.1f} scans/s; "
               f"max|pose diff| to the CLI's {diff:.3e}", flush=True)
         check(torch.equal(traj, res.trajectory), f"cli {name}: the CLI and the engine differ")
+        rates[name] = {"cli": sm["scans_per_sec"], "direct": n / secs}
+        trajs[name] = traj
         if name in CLI_NEW:
             ate = float(evaluate.ate(res.trajectory, gt, align=False))
             limit = max(CLI_REFERENCE_ATE_BY_KEY[name]) + CLI_ATE_MARGIN
@@ -2208,7 +2263,44 @@ def phase_cli(dev):
         print(f"cli {name} on {log}: {json.dumps(res.summary)}; launches {got}", flush=True)
         check(got == want, f"cli {name} on {log}: launches {got}, expected {want}")
         check(bool(torch.isfinite(res.trajectory).all()), f"cli {name} on {log}: non-finite")
-    return launches, grad_kept, score_kept
+
+    # the two refine paths with the yardstick (a score launch a pass) handed
+    # in in the kernel's place, through the CLI and driven directly: the
+    # same trajectories bit for bit
+    grad_rec, grad_kept = recorder(kernels.overlap_score_grad, every=97)
+    # mit_csail scores 11 times a scan: the first score, then 10 rounds
+    score_rec, score_kept = recorder(kernels.overlap_score, keep=lambda n: n % 176 in (0, 1))
+    for name, kernel, yardstick, score, passes in (
+            ("tiny_refined", "gradient_refine", kernels.gradient_refine_rounds,
+             "overlap_score_grad", 13),
+            ("mit_csail", "hill_climb", kernels.hill_climb_rounds, "overlap_score", 11)):
+        args = run.parse_args(cli_argv(name, f"build/cli_out/{name}_rounds"))
+        with handed_in(yardstick, kernel):
+            reset_launches()
+            with handed_in(grad_rec, "overlap_score_grad"), handed_in(score_rec, "overlap_score"):
+                res = run.execute(args)
+            got = read_launches()
+            scans, odom, gt = run.load_data(args, dev)
+            traj, _, secs, _ = run_main_path(
+                cfglib.engine_config_from(cfglib.load_properties(args.config)), scans, odom, gt,
+                "error")
+        n = res.trajectory.shape[0]
+        launches[f"{name}, one {score} launch a pass"] = got
+        want = expect(mc_match=n, **{score: passes * n})
+        rates[f"{name}, yardstick"] = {"cli": res.summary["scans_per_sec"], "direct": n / secs}
+        print(f"cli {name} with {yardstick.__name__} handed in: {res.summary['scans_per_sec']} "
+              f"scans/s (the kernel's run {rates[name]['cli']}); driven directly, sync check on, "
+              f"{n / secs:.1f} scans/s (the kernel's {rates[name]['direct']:.1f}); launches {got} "
+              f"(expected {want}); the same trajectory as with `{kernel}` bit for bit: "
+              f"{torch.equal(res.trajectory, trajs[name]) and torch.equal(traj, trajs[name])}",
+              flush=True)
+        check(got == want, f"cli {name} with the yardstick: launches {got}, expected {want}")
+        check(torch.equal(res.trajectory, trajs[name]) and torch.equal(traj, trajs[name]),
+              f"cli {name}: `{kernel}` and its yardstick give different trajectories")
+    print("refine paths, scans/s driven directly (CLI): " + "; ".join(
+        f"{k} {v['direct']:.1f} ({v['cli']})" for k, v in rates.items()
+        if k.startswith(("tiny", "mit_csail"))), flush=True)
+    return launches, grad_kept, score_kept, refine_kept, rates
 
 
 def tap_cells(v, poses, pts, beam_w, origin, scale):
@@ -2238,6 +2330,30 @@ def score_bytes(v, poses, pts, beam_w, origin, scale, per_pose_out):
     n_w = int((beam_w != 0).sum())
     return (4 * (cells + poses.numel() + 2 * n_w + beam_w.numel() + 2)
             + 4 * per_pose_out * poses.shape[0], cells, sectors)
+
+
+def tap_cells_maps(v, poses, pts, beam_w, origin, scale):
+    """:func:`tap_cells` summed over M maps: every tensor with a leading map
+    dimension, each map's poses on its own plane."""
+    cells = sectors = 0
+    for m in range(v.shape[0]):
+        c, sec = tap_cells(v[m], poses[m], pts[m], beam_w[m], origin[m], scale)
+        cells, sectors = cells + c, sectors + sec
+    return cells, sectors
+
+
+def visited_poses(loop, score, args):
+    """Every pose that ``loop`` (a match or refine loop of ``kernels``) scores
+    on ``args`` when it scores with ``score`` (a kernel whose bits the fused
+    kernel has): f32[..., N, 3], the calls' poses along the pose axis."""
+    seen = []
+
+    def recording(v, poses, *a):
+        seen.append(poses)
+        return score(v, poses, *a)
+
+    loop(recording, *args)
+    return torch.cat(seen, dim=-2)
 
 
 def phase_overlap_csail(dev, k1, kept):
@@ -2349,6 +2465,136 @@ def phase_overlap_grad_kernel(dev, kept, smi):
     }
 
 
+def refine_cases(name, kept, dev):
+    """(name, args) of the refine ``name`` ("gradient_refine" or
+    "hill_climb"): the refines kept from its CLI path and edge cases made
+    from the last of them (its map has the most scans): 0, 1 and twice the
+    path's iterations, a start pose 0.4 m from the map's edge, every second
+    beam with beam weights, no valid beam, a NaN weight; for the hill climb
+    also M maps in one launch (the kept refines stacked, M = 8, and 32 with
+    the start poses moved)."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    cases = [(f"{name} scan {16 * i}", a) for i, a in enumerate(kept)]
+    plane, pts, beam_w, origin, pose, scale, unknown, sxy, sth, iters, shrink = kept[-1]
+    h = plane.shape[0]
+
+    def edited(**kw):
+        names = ("plane", "pts", "beam_w", "origin", "pose", "scale", "unknown", "step_xy",
+                 "step_theta", "iterations", "shrink")
+        return tuple(kw.get(n, a) for n, a in zip(names, kept[-1]))
+
+    for n in (0, 1, 2 * iters):
+        cases.append((f"{n} iterations", edited(iterations=n)))
+    edge = torch.stack([origin[0] + 0.4, origin[1] + h * scale / 2, pose[2]])
+    cases.append(("a start pose 0.4 m from the map's edge", edited(pose=edge.contiguous())))
+    w = torch.rand(beam_w[::2].shape, generator=g, device=dev)
+    cases.append(("every second beam, beam weights",
+                  edited(pts=pts[::2].contiguous(), beam_w=(beam_w[::2] * w).contiguous())))
+    cases.append(("no valid beam", edited(beam_w=torch.zeros_like(beam_w))))
+    nan_w = beam_w.clone()
+    nan_w[5] = float("nan")
+    cases.append(("a NaN beam weight: NaN scores, never better", edited(beam_w=nan_w)))
+    if name == "hill_climb":
+        many = kept[-8:]
+        check(len(many) == 8 and len({a[0].shape for a in many}) == 1,
+              f"{len(many)} hill climbs kept of one shape")
+        stacked = tuple(torch.stack([a[i] for a in many]).contiguous() for i in range(5))
+        cases.append(("M = 8 maps: the kept climbs in one launch", stacked + kept[-1][5:]))
+        four = tuple(t.repeat(4, *([1] * (t.dim() - 1))) for t in stacked)
+        moved = four[4] + torch.randn((32, 3), generator=g, device=dev) * torch.tensor(
+            [0.05, 0.05, 0.02], device=dev)
+        cases.append(("M = 32 maps, the start poses moved",
+                      four[:4] + (moved.contiguous(),) + kept[-1][5:]))
+    return cases
+
+
+def phase_refine_kernel(dev, name, kept, rates, smi):
+    """A one-launch refine (`gradient_refine` or `hill_climb`) on the
+    refines kept from its CLI path and edge cases: bit for bit equal to its
+    yardstick (a score launch a pass) and, for `hill_climb` on M maps, to M
+    single launches; against its plain twin, prob and trace within 2e-6 and
+    the pose within 1e-5, or where they part a decision before it closer
+    than 4e-6 (printed); then timed at the path's shape beside its
+    yardstick and its twin, with its bound by the distinct cells the taps
+    of every pose it scores read. Returns the `kernels` entry without the
+    launch count."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    grad = name == "gradient_refine"
+    kernel = getattr(kernels, name)
+    yardstick = kernels.gradient_refine_rounds if grad else kernels.hill_climb_rounds
+    twin = kernels.gradient_refine_ref if grad else kernels.hill_climb_ref
+    loop = kernels.gradient_refine_loop if grad else kernels.hill_climb_loop
+    twin_score = kernels.overlap_score_grad_ref if grad else kernels.overlap_score_ref
+    path = "tiny_refined" if grad else "mit_csail"
+    check(len(kept) == 8, f"{len(kept)} refines kept from the {path} path, not 8")
+    max_err, parted = 0.0, 0
+    for case, args in refine_cases(name, kept, dev):
+        got = kernel(*args)
+        want = yardstick(*args)
+        lead = args[0].shape[:-2]
+        # M maps: each map's climb also equals a single-map launch
+        singles = [kernel(*(a[m] for a in args[:5]), *args[5:])
+                   for m in range(lead[0] if lead else 0)]
+        twin_out, margins = twin_record(args, loop, twin_score)
+        torch.cuda.synchronize()
+        same = all(torch.equal(bits(a), bits(b)) for a, b in zip(got, want))
+        check(same, f"{name} differs from its yardstick ({case}): pose {got[0].tolist()} vs "
+                    f"{want[0].tolist()}")
+        check(all(torch.equal(bits(a), bits(torch.stack(b))) for a, b in zip(got, zip(*singles))),
+              f"{name} differs from single-map launches ({case})")
+        check(got[0].shape == (*lead, 3) and got[2].shape == (*lead, args[9]),
+              f"{name} output malformed ({case})")
+        if lead:
+            errs = [against_twin(f"{case}, map {m}", [t[m] for t in got],
+                                 [t[m] for t in twin_out], margins[m], pose_tol=1e-5)
+                    for m in range(lead[0])]
+        else:
+            errs = [against_twin(case, got, twin_out, margins, pose_tol=1e-5)]
+        err = max(e for e, _ in errs)
+        parted += sum(a for _, a in errs)
+        max_err = max(max_err, err)
+        print(f"{name} [{case}]: {'M=' + str(lead[0]) + ' ' if lead else ''}R'="
+              f"{args[1].shape[-2]} {args[0].shape[-2]}x{args[0].shape[-1]} iterations={args[9]} "
+              f"equal to {yardstick.__name__}{' and single-map launches' if lead else ''} bit for "
+              f"bit; vs plain twin max|diff|={err:.3e} (tol {TOL:g})"
+              f"{', parted' if any(a for _, a in errs) else ''}",
+              flush=True)
+    print(f"{name}: every case equal to its yardstick bit for bit; {parted} part from the plain "
+          f"twin after a decision closer than {KNIFE_EDGE:g}", flush=True)
+
+    args = kept[-1]  # the path's shape, on the map of the most scans
+    ms, plain_ms, chained = time_pair(lambda: kernel(*args), lambda: twin(*args), plain_calls=10)
+    device_ms = graph_ms(lambda: kernel(*args))
+    rounds_ms = statistics.median(time_ms(lambda: yardstick(*args), 50))
+    rounds_device_ms = graph_ms(lambda: yardstick(*args), n=10)
+    score = kernels.overlap_score_grad if grad else kernels.overlap_score
+    poses = visited_poses(loop, score, args)
+    cells, sectors = tap_cells(args[0], poses, *args[1:4], args[5])
+    n_w = int((args[2] != 0).sum())
+    n_bytes = 4 * (cells + 2 * n_w + args[2].numel() + 2 + 3 + 3 + 1 + args[9])
+    n_ops = (GRAD_OPS_PER_POINT if grad else OVERLAP_OPS_PER_POINT) * poses.shape[0] * n_w
+    b_ms, by = bound_ms(n_bytes, n_ops)
+    print(f"{name} at the {path} path's shape (R'={args[1].shape[0]} "
+          f"{args[0].shape[0]}x{args[0].shape[1]}, {args[9]} iterations, {poses.shape[0]} poses "
+          f"scored): {device_ms:.5f} ms on the device (50 launches replayed from a CUDA graph), a "
+          f"call {ms:.4f} ms, chained {chained:.4f} ms; the yardstick {rounds_ms:.4f} ms a call, "
+          f"{rounds_device_ms:.5f} ms replayed from a CUDA graph; plain twin {plain_ms:.4f} ms; "
+          f"bound {b_ms:.7f} ms by {by} ({n_bytes} B: {cells} tap cells in {sectors} 32-B "
+          f"sectors; {n_ops} operations); no single PyTorch call computes it; {smi}", flush=True)
+    return {
+        "name": name, "route": "cuda",
+        "source": f"slam_constructor_tpu_torch/csrc/{name}.cu",
+        "replaces": "slam_constructor_tpu/ops/pallas_kernels.py:73",
+        "refines": f"slam_constructor_tpu/ops/matchers.py:{217 if grad else 112}",
+        "max_abs_err": max_err, "cases_parted_from_twin": parted, "ms": ms,
+        "plain_ms": plain_ms, "chained_ms": chained, "device_ms": device_ms,
+        "rounds_ms": rounds_ms, "rounds_device_ms": rounds_device_ms,
+        "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+        "path_scans_per_s": {k: v for k, v in rates.items() if k.startswith(path) or k == "tiny"},
+    }
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke run needs an NVIDIA GPU",
@@ -2422,23 +2668,28 @@ def main() -> None:
     full_m3_launches = phase_full_path(full_m3_cfg, fscans, fodom, fgt, full_odo_ate,
                                        name="full_m3rsm", reference=FULL_M3RSM_REFERENCE_ATE_BY_KEY,
                                        hold_to_tracker=False)
-    cli_launches, grad_kept, score_kept = phase_cli(dev)
+    cli_launches, grad_kept, score_kept, refine_kept, rates = phase_cli(dev)
     phase_overlap_csail(dev, k1, score_kept)
     k9 = phase_overlap_grad_kernel(dev, grad_kept, smi)
+    k10 = phase_refine_kernel(dev, "gradient_refine", refine_kept["gradient_refine"], rates, smi)
+    k11 = phase_refine_kernel(dev, "hill_climb", refine_kept["hill_climb"], rates, smi)
 
     # `launches`: of a main path's timed run, held to the expected counts
     # above: the viny path's for the kernels of the earlier slices, the full
     # path's for the batched score, the gmapping path's for the particle
     # match, the viny_m3rsm path's for the M3RSM kernels, the CLI's
-    # mit_csail run for `overlap_score` (its hill-climb refine) and its
-    # tiny_refined run for `overlap_score_grad`. `m3rsm_level` left the main
-    # paths, so it reads 0 there; the paths driven with their yardsticks
-    # handed in stand under `launches_by_path` only
+    # mit_csail run for `hill_climb` and `overlap_score` and its tiny_refined
+    # run for `gradient_refine` and `overlap_score_grad`. `m3rsm_level`,
+    # `overlap_score` and `overlap_score_grad` left the main paths, so they
+    # read 0 there; the paths driven with their yardsticks handed in stand
+    # under `launches_by_path` only
     main_path = {"overlap_score_batched": full_launches, "mc_match_batched": gm_launches,
                  "overlap_score": cli_launches["mit_csail"], "m3rsm_pyramid": m3_launches,
                  "m3rsm_level": m3_launches, "m3rsm_search": m3_launches,
-                 "overlap_score_grad": cli_launches["tiny_refined"]}
-    for k in (k1, k3, k2, k4, k5, k6, k7, k8, k9):
+                 "overlap_score_grad": cli_launches["tiny_refined"],
+                 "gradient_refine": cli_launches["tiny_refined"],
+                 "hill_climb": cli_launches["mit_csail"]}
+    for k in (k1, k3, k2, k4, k5, k6, k7, k8, k9, k10, k11):
         k["launches"] = main_path.get(k["name"], viny_launches)[k["name"]]
         k["launches_by_path"] = {
             "tiny": tiny_launches[k["name"]], "viny": viny_launches[k["name"]],
@@ -2450,7 +2701,7 @@ def main() -> None:
             "viny_m3rsm, a level launch a level and a score launch a round":
                 levels_launches[k["name"]],
             **{f"cli {name}": counts[k["name"]] for name, counts in cli_launches.items()}}
-    print(json.dumps({"kernels": [k1, k3, k2, k4, k5, k6, k7, k8, k9]}), flush=True)
+    print(json.dumps({"kernels": [k1, k3, k2, k4, k5, k6, k7, k8, k9, k10, k11]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
 

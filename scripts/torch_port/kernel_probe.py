@@ -59,7 +59,8 @@ with the SM clock that the stamps themselves give.
 (the batched score at the six shapes above, the particle match at the
 RBPF's shape, ``overlap_score``, ``polar_free_plane``, ``mc_match`` tiny and
 viny; the M3RSM kernels where the checkout has them, and a whole
-``m3rsm_match`` call of the viny_m3rsm preset), and ``--root DIR`` imports the port from another checkout (built
+``m3rsm_match`` call of the viny_m3rsm preset; the one-launch refines
+where the checkout has them), and ``--root DIR`` imports the port from another checkout (built
 there): run it on two checkouts in turns (A, B, B, A), one after another, to
 compare their kernels on one card.
 
@@ -352,6 +353,24 @@ def m3rsm_match_call(pose, scan, dev):
                                      pyramid=planes)
 
 
+def refine_cases(prep, pose):
+    """The one-launch refines on the probe's map: the gradient refine at
+    tiny_refined's settings (12 iterations), the hill climb at mit_csail's
+    (10 rounds), one map and 8, from a start pose off the truth."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    start = (pose + torch.tensor([0.04, -0.03, 0.02], device=pose.device)).contiguous()
+    args = (prep.plane, prep.pts, prep.beam_w, prep.origin, start, prep.scale, prep.unknown)
+    many = tuple(t.expand(8, *t.shape).contiguous() for t in args[:5])
+    return {
+        "gradient_refine 256^2 R=360 12 iterations": (
+            kernels.gradient_refine, (*args, 0.03, 0.015, 12, 0.5)),
+        "hill_climb 256^2 R=360 10 rounds": (kernels.hill_climb, (*args, 0.025, 0.01, 10, 0.5)),
+        "hill_climb M=8 256^2 R=360 10 rounds": (
+            kernels.hill_climb, (*many, *args[5:], 0.025, 0.01, 10, 0.5)),
+    }
+
+
 def same_bits(a, b) -> bool:
     return all(torch.equal(x.reshape(-1).view(torch.int32), y.reshape(-1).view(torch.int32))
                for x, y in zip(a, b))
@@ -490,6 +509,8 @@ def times_main(dev) -> None:
         fns += [(name, lambda f=f, a=a: f(*a))
                 for name, (f, _, a) in m3rsm_cases(pose, scan, dev).items()]
         fns += [("m3rsm_match viny_m3rsm (the whole call)", m3rsm_match_call(pose, scan, dev))]
+    if hasattr(kernels, "hill_climb"):
+        fns += [(name, lambda f=f, a=a: f(*a)) for name, (f, a) in refine_cases(prep, pose).items()]
     for name, fn in fns:
         report(name, fn)
 

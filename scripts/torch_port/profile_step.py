@@ -55,6 +55,20 @@ level launch a level, a score launch a hill-climb round); and from
 ``torch.profiler`` the device's kernel time as a share of the unprofiled
 wall time and the kernels with the most device time.
 
+With ``--preset tiny_refined`` or ``--preset mit_csail`` it profiles the
+engine built from ``configs/<preset>.properties`` (``utils/config.py``, the
+config's own widths) over the CLI's synthetic sequence (the cecum
+rectangle, 360 beams): scans/s of ``Engine.run`` over ``--scans`` scans
+after a warm-up of 64, through the refine's kernel (``gradient_refine``,
+``hill_climb``) and with its yardstick (``gradient_refine_rounds``,
+``hill_climb_rounds``: a score launch a pass) handed in, in turns; for
+both, with a synchronise after each phase of ``slam_step``, ms and ATen
+calls a scan of the match, the refine, the rasterisation and the fold, and
+the launches; the refine alone at a fixed state, synced ms a call and ATen
+calls, in turns; and from ``torch.profiler`` the device's kernel time as a
+share of the unprofiled wall time and the kernels with the most device
+time.
+
 Imports no JAX. Every figure is a measurement on the card it names.
 """
 
@@ -96,8 +110,8 @@ def synced_ms(fn, calls):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--preset", choices=("tiny", "viny", "viny_m3rsm", "full", "gmapping"),
-                    default="viny")
+    ap.add_argument("--preset", choices=("tiny", "viny", "viny_m3rsm", "full", "gmapping",
+                                         "tiny_refined", "mit_csail"), default="viny")
     ap.add_argument("--scans", type=int, default=64)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -110,6 +124,9 @@ def main() -> None:
         return
     if args.preset == "viny_m3rsm":
         profile_m3rsm(args.scans)
+        return
+    if args.preset in REFINES:
+        profile_refine(args.preset, args.scans)
         return
 
     from slam_constructor_tpu_torch.models import engine, tiny, viny
@@ -389,6 +406,147 @@ def profile_m3rsm(n: int) -> None:
     device_report(prof, n, secs, time.perf_counter() - t0,
                   ("m3rsm_match_kernel", "m3rsm_pyramid_kernel", "m3rsm_level_kernel",
                    "overlap_score_kernel"))
+
+
+#: the refine configs: the refine's wrapper and its yardstick in ``kernels``
+REFINES = {"tiny_refined": ("gradient_refine", "gradient_refine_rounds"),
+           "mit_csail": ("hill_climb", "hill_climb_rounds")}
+
+
+def profile_refine(preset: str, n: int) -> None:
+    """A refine config at its own widths: scans/s and the synced phases of
+    a scan through the refine's kernel and with its yardstick, the refine
+    alone, and the device's share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from slam_constructor_tpu_torch import run
+    from slam_constructor_tpu_torch.models import engine
+    from slam_constructor_tpu_torch.ops import grid as gridlib
+    from slam_constructor_tpu_torch.ops import kernels, raycast, scoring
+    from slam_constructor_tpu_torch.ops import matchers as matcherslib
+    from slam_constructor_tpu_torch.ops.geometry import compose
+    from slam_constructor_tpu_torch.utils import config as cfglib
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip())
+    n_warm = 64
+    args = run.parse_args(["--config", f"configs/{preset}.properties", "--synthetic", "cecum",
+                           "--trajectory", "rectangle", "--steps", str(n_warm + n),
+                           "--out", f"build/profile_{preset}"])
+    cfg = cfglib.engine_config_from(cfglib.load_properties(args.config))
+    e = engine.Engine(cfg, seed=0)
+    dev = e.device
+    scans, odom, gt = run.load_data(args, dev)
+    e.state.pose = gt[0].clone()
+    e.run(scans[:n_warm], odom[:n_warm])
+    torch.cuda.synchronize()
+    warm = e.state
+    name, yard = REFINES[preset]
+    fused = getattr(kernels, name)
+    variants = {f"{name} (one launch)": fused, f"{yard} (a score launch a pass)":
+                getattr(kernels, yard)}
+
+    def run_with(fn):
+        setattr(kernels, name, fn)
+        try:
+            e.state = warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e.run(scans[n_warm:], odom[n_warm:])
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+        finally:
+            setattr(kernels, name, fused)
+
+    secs = {k: [] for k in variants}
+    for k in (*variants, *reversed(variants)):  # in turns: kernel, yardstick, yardstick, kernel
+        secs[k].append(run_with(variants[k]))
+    for k, v in secs.items():
+        print(f"{preset} through {k}: {n} scans in {' and '.join(f'{t:.3f}' for t in v)} s = "
+              f"{' and '.join(f'{n / t:.1f}' for t in v)} scans/s")
+
+    # --- phases of slam_step, a synchronise after each ----------------------
+    names = ("match", "refine", "rasterise", "fold")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for k, fn in variants.items():
+        ms, aten = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
+        setattr(kernels, name, fn)
+        try:
+            for count_ops in (False, True):
+                kernels.reset_launch_counts()
+                state = warm
+                for i in range(n_warm, n_warm + n):
+                    scan, od = scans[i], odom[i]
+
+                    def phase(what, f):
+                        torch.cuda.synchronize()
+                        t = time.perf_counter()
+                        if count_ops:
+                            with CountOps() as c:
+                                out = f()
+                            aten[what] += c.n
+                        else:
+                            out = f()
+                            torch.cuda.synchronize()
+                            ms[what] += time.perf_counter() - t
+                        return out
+
+                    prior = compose(state.pose, od)
+                    view = scoring.MapView.of(state.gm, cfg.cell_model)
+                    pw = engine._point_weights(cfg, scan)
+                    match_fn = matcherslib.MATCHERS[cfg.matcher][1]
+                    res = phase("match", lambda: match_fn(view, scan, prior, gen,
+                                                          cfg.matcher_cfg, pw))
+                    res = phase("refine", lambda: engine._refine(cfg, view, scan, res, gen, pw,
+                                                                 None))
+                    w_obs, s_obs = phase("rasterise", lambda: raycast.scan_observation_planes(
+                        state.gm, res.pose, scan, cfg.beam))
+                    gm = phase("fold", lambda: gridlib.apply_observations(
+                        state.gm, cfg.cell_model, w_obs, s_obs))
+                    state = engine.SlamState(gm=gm, pose=res.pose, step=state.step + 1,
+                                             last_prob=res.prob)
+                launches = {a: b for a, b in kernels.launch_counts().items() if b}
+        finally:
+            setattr(kernels, name, fused)
+        print(f"synced phases through {k}, ms / ATen calls a scan: " + ", ".join(
+            f"{p} {ms[p] / n * 1e3:.3f} / {aten[p] / n:.0f}" for p in names)
+            + f"; launches over {n} scans {launches}")
+
+    # --- the refine alone at a fixed state, in turns ------------------------
+    scan = scans[n_warm]
+    view = scoring.MapView.of(warm.gm, cfg.cell_model)
+    start = compose(warm.pose, odom[n_warm])
+    res = matcherslib.MATCHERS[cfg.matcher][1](view, scan, start, gen, cfg.matcher_cfg, None)
+    rounds = {k: [] for k in variants}
+    calls = {}
+    try:
+        for r in range(7):
+            for k in (variants if r % 2 == 0 else reversed(variants)):
+                setattr(kernels, name, variants[k])
+                rounds[k].append(synced_ms(
+                    lambda: engine._refine(cfg, view, scan, res, gen, None, None), 20))
+                if k not in calls:
+                    with CountOps() as c:
+                        engine._refine(cfg, view, scan, res, gen, None, None)
+                    calls[k] = c.n
+    finally:
+        setattr(kernels, name, fused)
+    for k, v in rounds.items():
+        print(f"the refine through {k}: median {statistics.median(v):.4f} ms a call synced "
+              f"(rounds {min(v):.4f}-{max(v):.4f}), {calls[k]} ATen calls")
+    with CountOps() as c:
+        engine.slam_step(cfg, warm, scans[n_warm], odom[n_warm], generator=gen)
+    print(f"ATen calls a scan (views included): {c.n}")
+
+    e.state = warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        e.run(scans[n_warm:], odom[n_warm:])
+        torch.cuda.synchronize()
+    device_report(prof, n, min(secs[next(iter(variants))]), time.perf_counter() - t0,
+                  ("gradient_refine_kernel", "hill_climb_kernel", "mc_match_kernel",
+                   "overlap_score_grad_kernel", "overlap_score_kernel"))
 
 
 def profile_gmapping(n: int) -> None:

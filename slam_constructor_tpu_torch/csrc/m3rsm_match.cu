@@ -73,13 +73,10 @@
 //   the score buffers alternate between levels, so one cluster barrier a
 //   level is enough (as in mc_match.cu).
 // - After the last level every block has read the scores; block 0 alone
-//   takes the argmax and runs the hill climb, and the other blocks leave. A
-//   hill-climb candidate is scored by a group of 128 threads exactly as a
-//   block of overlap_score.cu scores a pose (overlap_sample.cuh: a thread's
-//   beams t, t + 128, ... in order, and the fixed-order group tree); the 6
-//   candidates are 6 groups at once, each forming its pose from the round's
-//   pose and steps and writing it and its score to shared memory, and one
-//   block barrier a round.
+//   takes the argmax and runs the hill climb, and the other blocks leave.
+//   The climb is climb.cuh's, which hill_climb.cu runs too: the 6
+//   candidates of a round are 6 groups of 128 threads at once, each scoring
+//   its pose exactly as a block of overlap_score.cu does.
 // - Nothing is read on the host, nothing allocated, no atomics.
 //
 // Numerics: built without --use_fast_math and with --fmad=false; see
@@ -89,6 +86,7 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "climb.cuh"
 #include "overlap_sample.cuh"
 
 namespace cg = cooperative_groups;
@@ -101,9 +99,7 @@ constexpr int kWarps = kThreads / 32;  // rects a block scores at once
 // most floats of the level windows above level 0 staged in shared memory
 constexpr int kMaxStagedFloats = 24 * 1024;
 constexpr int kMaxLevels = 8;          // pyramid levels above the finest
-constexpr int kSteps = 6;              // the hill climb's candidates a round
-constexpr int kClimbThreads = kSteps * overlap::kGroupThreads;
-static_assert(kClimbThreads <= kThreads, "a hill-climb round is one pass of block 0");
+static_assert(climb::kThreads <= kThreads, "a hill-climb round is one pass of block 0");
 
 // the probe's slots (overlap_sample.cuh) of a block: after the set-up, and
 // for level n (from the top) 3 + 3 n when warp 0 has scored, 4 + 3 n when the
@@ -263,23 +259,6 @@ __device__ __forceinline__ unsigned order_key(float v) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-// Whether score a (of index ai) comes before score b (of bi) in an argmax:
-// NaN first, then the larger, then the lower index (torch.argmax's choice).
-__device__ __forceinline__ bool comes_first(float av, int ai, float bv, int bi) {
-  const bool an = isnan(av), bn = isnan(bv);
-  if (an != bn) return an;
-  if (!an && av != bv) return av > bv;
-  return ai < bi;
-}
-
-// The heading's unit in a hill-climb candidate: 0 for the steps in x and y,
-// +1 and -1 for the steps in theta. A candidate is pose + unit * steps, its
-// heading then wrapped with atan2f(sinf(t), cosf(t)), as the PyTorch loop
-// forms it.
-__device__ __forceinline__ float heading_unit(int u) {
-  return u == 0 ? 0.0f : (u == 1 ? 1.0f : -1.0f);
-}
-
 // One pass of a level's rects: rect c of the level is scored by warp (c %
 // (32 B)) / B of block c % B in pass c / (32 B), so that the rects spread
 // over every block of the cluster.
@@ -307,13 +286,9 @@ template <int kBlocks>
 __global__ void __launch_bounds__(kThreads, 1)
 m3rsm_match_kernel(const Pyramid pyr, const Search s) {
   extern __shared__ float smem[];
-  __shared__ float s_num[kClimbThreads];
-  __shared__ float s_den[kClimbThreads];
   __shared__ float s_warp_v[kWarps];
   __shared__ int s_warp_i[kWarps];
-  __shared__ float s_round[kSteps];
-  __shared__ float s_cand[kSteps][3];
-  __shared__ float st_pose[3], st_steps[3], st_prob;
+  __shared__ climb::State st;  // the hill climb's
   __shared__ int s_corner[2];      // the window's first level-0 cell (row, col)
   __shared__ float s_origin[2];    // the window's world origin
 
@@ -509,7 +484,7 @@ m3rsm_match_kernel(const Pyramid pyr, const Search s) {
     float bv = -CUDART_INF_F;
     int bi = 0x7fffffff;  // a thread without a rect loses to any
     for (int i = threadIdx.x; i < k; i += kThreads) {
-      if (comes_first(s_all[i], i, bv, bi)) {
+      if (climb::comes_first(s_all[i], i, bv, bi)) {
         bv = s_all[i];
         bi = i;
       }
@@ -518,7 +493,7 @@ m3rsm_match_kernel(const Pyramid pyr, const Search s) {
     for (int lanes = 16; lanes > 0; lanes >>= 1) {
       const float ov = __shfl_xor_sync(0xffffffffu, bv, lanes);
       const int oi = __shfl_xor_sync(0xffffffffu, bi, lanes);
-      if (comes_first(ov, oi, bv, bi)) {
+      if (climb::comes_first(ov, oi, bv, bi)) {
         bv = ov;
         bi = oi;
       }
@@ -535,7 +510,7 @@ m3rsm_match_kernel(const Pyramid pyr, const Search s) {
       for (int lanes = 16; lanes > 0; lanes >>= 1) {
         const float ov = __shfl_xor_sync(0xffffffffu, bv, lanes);
         const int oi = __shfl_xor_sync(0xffffffffu, bi, lanes);
-        if (comes_first(ov, oi, bv, bi)) {
+        if (climb::comes_first(ov, oi, bv, bi)) {
           bv = ov;
           bi = oi;
         }
@@ -543,14 +518,14 @@ m3rsm_match_kernel(const Pyramid pyr, const Search s) {
     }
     if (threadIdx.x == 0) {
       const int rt = rects[bi], ry = rects[k_max + bi], rx = rects[2 * k_max + bi];
-      st_pose[0] = px + static_cast<float>(rx) * s.scale;
-      st_pose[1] = py + static_cast<float>(ry) * s.scale;
+      st.pose[0] = px + static_cast<float>(rx) * s.scale;
+      st.pose[1] = py + static_cast<float>(ry) * s.scale;
       const float a = pt + s.thetas[rt];
-      st_pose[2] = atan2f(sinf(a), cosf(a));
-      st_prob = bv;
-      st_steps[0] = s.step_xy;
-      st_steps[1] = s.step_xy;
-      st_steps[2] = s.step_theta;
+      st.pose[2] = atan2f(sinf(a), cosf(a));
+      st.prob = bv;
+      st.steps[0] = s.step_xy;
+      st.steps[1] = s.step_xy;
+      st.steps[2] = s.step_theta;
       PROBE_STAMP(stamped, kProbeArgmax);
     }
     __syncthreads();
@@ -558,82 +533,26 @@ m3rsm_match_kernel(const Pyramid pyr, const Search s) {
 
   // --- the hill climb on the level-0 window of the map, read in place -----
   if (s.iterations > 0) {
-    const int g = threadIdx.x / overlap::kGroupThreads;
-    const int t = threadIdx.x % overlap::kGroupThreads;
-    float* g_num = s_num + g * overlap::kGroupThreads;
-    float* g_den = s_den + g * overlap::kGroupThreads;
-    const int barrier_id = 1 + g;  // 0 is __syncthreads()'s
     const long long first =
         b * s.map_cells + static_cast<long long>(row0) * s.map_w + col0;  // the window's first cell
     const overlap::MapWindow win{s.occ + first * s.occ_stride, s.known + first, s.map_w,
                                  s.occ_stride, s.unknown};
     const int h = min(pyr.wh[0], pyr.hp[0] - row0);
     const int w = min(pyr.ww[0], pyr.wp[0] - col0);
-    const float ox = s_origin[0], oy = s_origin[1];
-    if (g == 0) {
-      const overlap::Pose q{st_pose[0], st_pose[1], cosf(st_pose[2]), sinf(st_pose[2])};
-      float num, den;
-      overlap::beam_sums_at(win, h, w, q, s_pts, s_bw, s.r2, t, ox, oy, s.scale, s.unknown, num,
-                            den);
-      overlap::group_reduce(num, den, g_num, g_den, t, barrier_id);
-      if (t == 0) st_prob = overlap::weighted_mean(num, den);
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) PROBE_STAMP(stamped, kProbeFirst);
-    for (int round = 0; round < s.iterations; ++round) {
-      if (g < kSteps) {
-        // pose + unit * steps, the heading wrapped (the PyTorch loop's arithmetic)
-        float cand[3];
-#pragma unroll
-        for (int d = 0; d < 2; ++d) {
-          const float unit = d == (g >> 1) ? ((g & 1) ? -1.0f : 1.0f) : 0.0f;
-          cand[d] = st_pose[d] + unit * st_steps[d];
-        }
-        const float x = st_pose[2] + heading_unit(g < 4 ? 0 : g - 3) * st_steps[2];
-        cand[2] = atan2f(sinf(x), cosf(x));
-        const overlap::Pose q{cand[0], cand[1], cosf(cand[2]), sinf(cand[2])};
-        float num, den;
-        overlap::beam_sums_at(win, h, w, q, s_pts, s_bw, s.r2, t, ox, oy, s.scale, s.unknown,
-                              num, den);
-        overlap::group_reduce(num, den, g_num, g_den, t, barrier_id);
-        if (t == 0) {
-          s_round[g] = overlap::weighted_mean(num, den);
-          s_cand[g][0] = cand[0];
-          s_cand[g][1] = cand[1];
-          s_cand[g][2] = cand[2];
-        }
-      }
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        float bv = s_round[0];
-        int bi = 0;
-        for (int a = 1; a < kSteps; ++a) {
-          if (comes_first(s_round[a], a, bv, bi)) {
-            bv = s_round[a];
-            bi = a;
-          }
-        }
-        if (bv > st_prob) {  // strict, and never true for a NaN score
-          st_pose[0] = s_cand[bi][0];
-          st_pose[1] = s_cand[bi][1];
-          st_pose[2] = s_cand[bi][2];
-          st_prob = bv;
-        } else {
-          st_steps[0] *= s.shrink;
-          st_steps[1] *= s.shrink;
-          st_steps[2] *= s.shrink;
-        }
-        s.trace_out[b * s.iterations + round] = st_prob;
-        if (kProbeRound + round < kProbeCells) PROBE_STAMP(stamped, kProbeRound + round);
-      }
-      __syncthreads();
-    }
+    climb::run(st, win, h, w, s_pts, s_bw, s.r2, s_origin[0], s_origin[1], s.scale, s.unknown,
+               s.iterations, s.shrink, s.trace_out + b * s.iterations, [&](int round) {
+                 if (round < 0) {
+                   PROBE_STAMP(stamped, kProbeFirst);
+                 } else if (kProbeRound + round < kProbeCells) {
+                   PROBE_STAMP(stamped, kProbeRound + round);
+                 }
+               });
   }
   if (threadIdx.x == 0) {
-    s.pose_out[3 * b + 0] = st_pose[0];
-    s.pose_out[3 * b + 1] = st_pose[1];
-    s.pose_out[3 * b + 2] = st_pose[2];
-    s.prob_out[b] = st_prob;
+    s.pose_out[3 * b + 0] = st.pose[0];
+    s.pose_out[3 * b + 1] = st.pose[1];
+    s.pose_out[3 * b + 2] = st.pose[2];
+    s.prob_out[b] = st.prob;
     PROBE_STAMP(stamped, probe::kEnd);
     PROBE_STAMP_NS(stamped, probe::kEndNs);
   }

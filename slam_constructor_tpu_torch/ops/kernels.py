@@ -15,6 +15,16 @@ matcher's ascent direction, which the reference takes with ``jax.grad``
 through its score. ``clear_of_kinks`` picks the beams where two
 implementations of that gradient can be compared.
 
+``gradient_refine`` runs the gradient matcher's whole refine (the start
+pose's score and gradient, then every iteration's step, score and
+keep-or-shrink) in one launch (``csrc/gradient_refine.cu``), and
+``hill_climb`` the hill-climbing matcher's whole climb, for one map or M
+in one launch (``csrc/hill_climb.cu``, the climb of ``csrc/climb.cuh``
+that ``m3rsm_search`` runs too). ``gradient_refine_rounds`` and
+``hill_climb_rounds`` are the same refines with ``overlap_score_grad`` or
+``overlap_score`` launched once a pass, kept as the yardsticks the fused
+kernels must equal bit for bit.
+
 ``mc_match`` runs one whole Monte-Carlo match (the first score, every
 round's candidates, argmax, keep-if-better and the sigma anneal) in one
 launch on a thread-block cluster (``csrc/mc_match.cu``); it is the same TPU
@@ -75,8 +85,9 @@ _MAX_SHARED_BYTES = 48 * 1024
 #: wrapper adds one where it launches its kernel (CUDA tensors only), under
 #: its own name whatever name it was called by.
 _LAUNCHES = dict.fromkeys(
-    ("overlap_score", "overlap_score_batched", "overlap_score_grad", "mc_match",
-     "mc_match_batched", "polar_free_plane", "m3rsm_pyramid", "m3rsm_level", "m3rsm_search"), 0
+    ("overlap_score", "overlap_score_batched", "overlap_score_grad", "gradient_refine",
+     "hill_climb", "mc_match", "mc_match_batched", "polar_free_plane", "m3rsm_pyramid",
+     "m3rsm_level", "m3rsm_search"), 0
 )
 
 
@@ -93,15 +104,16 @@ def reset_launch_counts() -> None:
 def _axis_taps(pos: Tensor, n: int):
     """Bilinear (overlap, extent 1) taps along one axis: weights of cells
     ``i0`` and ``i0 + 1``, zero where a cell lies off the map, and the
-    tap indices clamped into the map."""
+    tap indices clamped into the map (a NaN position to cell 0, as the
+    kernels clamp it)."""
     f = torch.floor(pos - 0.5)
     w0 = (f + 1.5) - pos
     ok0 = (f >= 0) & (f < n)
     ok1 = (f + 1.0 >= 0) & (f + 1.0 < n)
     a0 = torch.where(ok0, w0, 0.0)
     a1 = torch.where(ok1, 1.0 - w0, 0.0)
-    i0 = torch.clamp(f, 0, n - 1).to(torch.int64)
-    i1 = torch.clamp(f + 1.0, 0, n - 1).to(torch.int64)
+    i0 = torch.where(f >= 0, torch.clamp(f, max=n - 1), 0.0).to(torch.int64)
+    i1 = torch.where(f + 1.0 >= 0, torch.clamp(f + 1.0, max=n - 1), 0.0).to(torch.int64)
     return a0, a1, i0, i1
 
 
@@ -363,6 +375,139 @@ def overlap_score_grad(
         origin.data_ptr(), scale, unknown, out.data_ptr(), dout.data_ptr(), stream))
     _LAUNCHES["overlap_score_grad"] += 1
     return out, dout
+
+
+# --- the refines: gradient ascent and hill climbing --------------------------
+
+#: most beams a refine launch stages in a block's shared memory (12 B each)
+_REFINE_MAX_BEAMS = 16384
+
+
+def _refine_checks(name: str, lead: tuple, plane: Tensor, pts: Tensor, beam_w: Tensor,
+                   origin: Tensor, pose: Tensor, iterations: int) -> None:
+    """Raises where a refine's inputs do not have the leading shape
+    ``lead`` (``()`` or ``(M,)``) and one plane, scan, origin and pose
+    each; on a CUDA plane also where one is not f32, contiguous and on the
+    plane's device."""
+    if plane.dim() != len(lead) + 2:
+        raise ValueError(f"{name}: plane has shape {tuple(plane.shape)}, expected {lead} + (H, W)")
+    r = pts.shape[-2] if pts.dim() >= 2 else -1
+    want = {"plane": tuple(plane.shape), "pts": (*lead, r, 2), "beam_w": (*lead, r),
+            "origin": (*lead, 2), "pose": (*lead, 3)}
+    got = {"plane": plane, "pts": pts, "beam_w": beam_w, "origin": origin, "pose": pose}
+    for what, t in got.items():
+        if tuple(t.shape) != want[what]:
+            raise ValueError(f"{name}: {what} has shape {tuple(t.shape)}, expected {want[what]}")
+    if iterations < 0:
+        raise ValueError(f"{name}: {iterations} iterations")
+    if plane.device.type == "cuda":
+        for what, t in got.items():
+            _check(what, t, want[what], plane.device)
+        if r > _REFINE_MAX_BEAMS:
+            raise ValueError(f"{name}: {r} beams, more than {_REFINE_MAX_BEAMS} a launch")
+    elif plane.device.type != "cpu":
+        raise ValueError(f"{name}: unsupported device {plane.device}")
+
+
+def gradient_refine_loop(score_grad, plane, pts, beam_w, origin, pose, scale, unknown, step_xy,
+                         step_theta, iterations, shrink):
+    """The gradient refine as a Python loop over device tensors with no
+    host sync: score and differentiate the start pose, then each iteration
+    steps ``steps * g / (|g| + 1e-12)`` from the kept pose (theta wrapped)
+    and keeps the step if it scores strictly better, else multiplies every
+    step by ``shrink``. ``score_grad`` has ``overlap_score_grad``'s
+    signature and is called once for the start pose and once a candidate.
+    |g| is ``sqrt((gx^2 + gy^2) + gth^2)`` written out, the order the
+    kernel sums in. Returns pose f32[3], prob f32[], trace f32[iterations]."""
+    dev = pose.device
+    args = (pts, beam_w, origin, scale, unknown)
+
+    def at(p):
+        score, grad = score_grad(plane, p[None, :].contiguous(), *args)
+        return score[0], grad[0]
+
+    prob, g = at(pose)
+    steps = constant((step_xy, step_xy, step_theta), torch.float32, dev)
+    trace = []
+    for _ in range(iterations):
+        sq = g * g
+        gn = g / (torch.sqrt((sq[0] + sq[1]) + sq[2]) + 1e-12)
+        cand = pose + steps * gn
+        cand = torch.cat([cand[:2], wrap_angle(cand[2:])])
+        p_new, g_new = at(cand)
+        better = p_new > prob
+        pose = torch.where(better, cand, pose)
+        prob = torch.where(better, p_new, prob)
+        g = torch.where(better, g_new, g)
+        steps = torch.where(better, steps, steps * shrink)
+        trace.append(prob)
+    trace = (torch.stack(trace) if trace
+             else torch.empty((0,), dtype=torch.float32, device=dev))
+    return pose, prob, trace
+
+
+def gradient_refine_ref(plane, pts, beam_w, origin, pose, scale, unknown, step_xy, step_theta,
+                        iterations, shrink):
+    """Plain PyTorch version of :func:`gradient_refine`: the loop over
+    :func:`overlap_score_grad_ref`."""
+    return gradient_refine_loop(overlap_score_grad_ref, plane, pts, beam_w, origin, pose, scale,
+                                unknown, step_xy, step_theta, iterations, shrink)
+
+
+def gradient_refine_rounds(plane, pts, beam_w, origin, pose, scale, unknown, step_xy,
+                           step_theta, iterations, shrink):
+    """The same refine with :func:`overlap_score_grad` launched once for the
+    start pose and once a candidate (``1 + iterations`` launches on the
+    card) and the rest of an iteration in PyTorch ops. Nothing on the main
+    path calls it: it is what :func:`gradient_refine` is held to, bit for
+    bit, on the card."""
+    return gradient_refine_loop(overlap_score_grad, plane, pts, beam_w, origin, pose, scale,
+                                unknown, step_xy, step_theta, iterations, shrink)
+
+
+@functools.cache
+def _gradient_refine_fn():
+    fn = _build.load().gradient_refine_launch
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # plane, h, w
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # pts, beam_w, r
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_float,  # origin, pose, ...
+        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,  # steps, shrink, iterations
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # outputs, stream
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def gradient_refine(plane, pts, beam_w, origin, pose, scale, unknown, step_xy, step_theta,
+                    iterations, shrink):
+    """The gradient matcher's refine of ``pose`` f32[3] on plane f32[H, W]
+    (``where(known, occ, unknown)``) with the scan's pts f32[R, 2] and
+    beam_w f32[R] -> (pose f32[3], prob f32[], trace f32[iterations]): the
+    arithmetic of :func:`gradient_refine_loop`, the score with
+    :func:`overlap_score`'s bits.
+
+    CPU tensors take the plain twin; CUDA tensors launch the kernel once on
+    the current stream (one block), with the bits of
+    :func:`gradient_refine_rounds`, and add one to the
+    ``gradient_refine`` count of :func:`launch_counts`. The pose stays on
+    the device: nothing is read on the host."""
+    _refine_checks("gradient_refine", (), plane, pts, beam_w, origin, pose, iterations)
+    if plane.device.type == "cpu":
+        return gradient_refine_ref(plane, pts, beam_w, origin, pose, scale, unknown, step_xy,
+                                   step_theta, iterations, shrink)
+    h, w = plane.shape
+    dev = plane.device
+    out_pose = torch.empty((3,), dtype=torch.float32, device=dev)
+    out_prob = torch.empty((), dtype=torch.float32, device=dev)
+    trace = torch.empty((iterations,), dtype=torch.float32, device=dev)
+    fn = _gradient_refine_fn()
+    _launch("gradient_refine", dev, lambda stream: fn(
+        plane.data_ptr(), h, w, pts.data_ptr(), beam_w.data_ptr(), pts.shape[0],
+        origin.data_ptr(), pose.data_ptr(), scale, unknown, step_xy, step_theta, shrink,
+        iterations, out_pose.data_ptr(), out_prob.data_ptr(), trace.data_ptr(), stream))
+    _LAUNCHES["gradient_refine"] += 1
+    return out_pose, out_prob, trace
 
 
 # --- Monte-Carlo matches -------------------------------------------------------
@@ -1193,6 +1338,77 @@ def hill_climb_loop(score, plane, pts, beam_w, origin, pose, scale, unknown, ste
     trace = (torch.stack(trace, dim=-1) if trace
              else torch.empty((*pose.shape[:-1], 0), dtype=torch.float32, device=dev))
     return pose, prob, trace
+
+
+def hill_climb_ref(plane, pts, beam_w, origin, pose, scale, unknown, step_xy, step_theta,
+                   iterations, shrink):
+    """Plain PyTorch version of :func:`hill_climb`: :func:`hill_climb_loop`
+    over :func:`overlap_score_ref`, for one map or M."""
+    return hill_climb_loop(overlap_score_ref, plane, pts, beam_w, origin, pose, scale, unknown,
+                           step_xy, step_theta, iterations, shrink)
+
+
+def hill_climb_rounds(plane, pts, beam_w, origin, pose, scale, unknown, step_xy, step_theta,
+                      iterations, shrink):
+    """The same climb with :func:`overlap_score` (one map) or
+    :func:`overlap_score_batched` (M maps) launched once for the first pose
+    and once a round (``1 + iterations`` launches on the card) and the rest
+    of a round in PyTorch ops. Nothing on the main path calls it: it is
+    what :func:`hill_climb` is held to, bit for bit, on the card."""
+    score = overlap_score_batched if plane.dim() == 3 else overlap_score
+    return hill_climb_loop(score, plane, pts, beam_w, origin, pose, scale, unknown, step_xy,
+                           step_theta, iterations, shrink)
+
+
+@functools.cache
+def _hill_climb_fn():
+    fn = _build.load().hill_climb_launch
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # plane, m, h, w
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # pts, beam_w, r
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_float,  # origin, pose, ...
+        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,  # steps, shrink, iterations
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # outputs, stream
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def hill_climb(plane, pts, beam_w, origin, pose, scale, unknown, step_xy, step_theta,
+               iterations, shrink):
+    """The hill-climbing matcher's refine of ``pose`` f32[3] on plane
+    f32[H, W] (``where(known, occ, unknown)``) with the scan's pts f32[R, 2]
+    and beam_w f32[R] -> (pose f32[3], prob f32[], trace f32[iterations]):
+    the arithmetic of :func:`hill_climb_loop` over :func:`overlap_score`.
+    With a leading map dimension on every tensor (plane f32[M, H, W], pts
+    f32[M, R, 2], beam_w f32[M, R], origin f32[M, 2], pose f32[M, 3]) every
+    map climbs from its own pose: pose f32[M, 3], prob f32[M], trace
+    f32[M, iterations].
+
+    CPU tensors take the plain twin; CUDA tensors launch the kernel once on
+    the current stream (a block a map), with the bits of
+    :func:`hill_climb_rounds`, and add one to the ``hill_climb`` count of
+    :func:`launch_counts`."""
+    lead = tuple(plane.shape[:-2])
+    _refine_checks("hill_climb", lead, plane, pts, beam_w, origin, pose, iterations)
+    if plane.device.type == "cpu":
+        return hill_climb_ref(plane, pts, beam_w, origin, pose, scale, unknown, step_xy,
+                              step_theta, iterations, shrink)
+    h, w = plane.shape[-2:]
+    n_m = lead[0] if lead else 1
+    dev = plane.device
+    out_pose = torch.empty((*lead, 3), dtype=torch.float32, device=dev)
+    out_prob = torch.empty(lead, dtype=torch.float32, device=dev)
+    trace = torch.empty((*lead, iterations), dtype=torch.float32, device=dev)
+    if n_m == 0:
+        return out_pose, out_prob, trace
+    fn = _hill_climb_fn()
+    _launch("hill_climb", dev, lambda stream: fn(
+        plane.data_ptr(), n_m, h, w, pts.data_ptr(), beam_w.data_ptr(), pts.shape[-2],
+        origin.data_ptr(), pose.data_ptr(), scale, unknown, step_xy, step_theta, shrink,
+        iterations, out_pose.data_ptr(), out_prob.data_ptr(), trace.data_ptr(), stream))
+    _LAUNCHES["hill_climb"] += 1
+    return out_pose, out_prob, trace
 
 
 @dataclasses.dataclass

@@ -11,14 +11,14 @@ launch of ``kernels.mc_match_batched``, or of ``kernels.mc_match_windows``
 on windows of the maps read in place: the RBPF's form.
 
 Hill climbing: coordinate descent from the prior, six axis steps scored a
-round in one call, the steps halved after a round without gain (M3RSM's
-refine). Brute force: an exhaustive (x, y, theta) grid around the prior,
-scored in one call. Both take a leading map dimension on view, scan and
-prior and then match M (map, scan, prior) triples at once, one launch of
-the map-batched score kernel a call: the loop closer's form. Gradient:
-ascent along the score's pose gradient, one launch of
-``kernels.overlap_score_grad`` (the score and its gradient) an iteration,
-with hill climbing's keep-if-better and shrink rule. M3RSM lives in
+round, the steps halved after a round without gain (M3RSM's refine); the
+whole climb is one call of ``kernels.hill_climb``, for one map or for M
+(map, scan, prior) triples at once (the loop closer's form). Brute force:
+an exhaustive (x, y, theta) grid around the prior, scored in one call, for
+one map or M. Gradient: ascent along the score's pose gradient with hill
+climbing's keep-if-better and shrink rule, the whole refine one call of
+``kernels.gradient_refine``. Each is one kernel launch on the card and the
+plain loop on the CPU, and neither syncs with the host. M3RSM lives in
 ``m3rsm.py``.
 """
 
@@ -28,7 +28,6 @@ import dataclasses
 
 import torch
 
-from ..device import constant
 from . import kernels, scoring
 from .geometry import linspace, wrap_angle
 
@@ -128,17 +127,15 @@ def hill_climbing_match(
     step along each axis (theta wrapped), moves to the best (ties to the
     first) if it is strictly better, else halves (``shrink``) every step.
     Deterministic, so ``generator`` and ``noise`` are ignored. The view is
-    prepared once; a round is one score call, ``1 + iterations`` in all
-    (``kernels.hill_climb_loop``). With a leading map dimension (view of M
-    maps, scan [M, R], ``init_pose`` f32[M, 3]) every triple climbs on its
-    own map, each score call one launch for all M: pose f32[M, 3], prob
-    f32[M], trace f32[M, iterations].
+    prepared once and the whole climb is one call of ``kernels.hill_climb``.
+    With a leading map dimension (view of M maps, scan [M, R], ``init_pose``
+    f32[M, 3]) every triple climbs on its own map, all in that one call:
+    pose f32[M, 3], prob f32[M], trace f32[M, iterations].
     """
     del generator, noise
     prep = scoring.prepare(view, scan, cfg.scoring, point_weights)
-    score = kernels.overlap_score_batched if prep.plane.dim() == 3 else kernels.overlap_score
-    pose, prob, trace = kernels.hill_climb_loop(
-        score, prep.plane, prep.pts, prep.beam_w, prep.origin, init_pose, prep.scale,
+    pose, prob, trace = kernels.hill_climb(
+        prep.plane, prep.pts, prep.beam_w, prep.origin, init_pose.contiguous(), prep.scale,
         prep.unknown, cfg.step_xy, cfg.step_theta, cfg.iterations, cfg.shrink)
     return MatchResult(pose=pose, prob=prob, trace=trace)
 
@@ -219,39 +216,16 @@ def gradient_match(
     better, else multiplies every step by ``shrink``. Deterministic, so
     ``generator`` and ``noise`` are ignored.
 
-    One launch of ``kernels.overlap_score_grad`` scores the start pose and
-    differentiates it, and one a candidate: ``1 + iterations`` launches. A
-    kept candidate's gradient is the next step's, as the reference takes
-    its gradient at the kept pose; the score has ``overlap_score``'s bits.
-    A Python loop over device tensors that never syncs with the host."""
+    The whole refine is one call of ``kernels.gradient_refine``: its score
+    has ``overlap_score``'s bits, and a kept candidate's gradient is the
+    next step's, as the reference takes its gradient at the kept pose."""
     del generator, noise
     prep = scoring.prepare(view, scan, cfg.scoring, point_weights)
     if prep.plane.dim() != 2:
         raise ValueError("gradient_match refines a pose on one map")
-    args = (prep.pts, prep.beam_w, prep.origin, prep.scale, prep.unknown)
-
-    def score_grad(pose):
-        score, grad = kernels.overlap_score_grad(prep.plane, pose[None, :].contiguous(), *args)
-        return score[0], grad[0]
-
-    dev = init_pose.device
-    pose = init_pose
-    prob, g = score_grad(pose)
-    steps = constant((cfg.step_xy, cfg.step_xy, cfg.step_theta), torch.float32, dev)
-    trace = []
-    for _ in range(cfg.iterations):
-        gn = g / (torch.linalg.vector_norm(g) + 1e-12)
-        cand = pose + steps * gn
-        cand = torch.cat([cand[:2], wrap_angle(cand[2:])])
-        p_new, g_new = score_grad(cand)
-        better = p_new > prob
-        pose = torch.where(better, cand, pose)
-        prob = torch.where(better, p_new, prob)
-        g = torch.where(better, g_new, g)
-        steps = torch.where(better, steps, steps * cfg.shrink)
-        trace.append(prob)
-    trace = (torch.stack(trace) if trace
-             else torch.empty((0,), dtype=torch.float32, device=dev))
+    pose, prob, trace = kernels.gradient_refine(
+        prep.plane, prep.pts, prep.beam_w, prep.origin, init_pose.contiguous(), prep.scale,
+        prep.unknown, cfg.step_xy, cfg.step_theta, cfg.iterations, cfg.shrink)
     return MatchResult(pose=pose, prob=prob, trace=trace)
 
 

@@ -32,7 +32,10 @@ score with ``overlap_score``'s bits and its pose gradient within 1e-5 x
 max(1, |g|) of its twin (autograd over the score's twin: the sums run in
 another order), the beams within 1e-4 cell of a kink (a cell's centre or
 edge, where the derivative jumps) at weight 0; ``matchers.gradient_match``
-on the card lands within 1e-5 m of the CPU's.
+on the card lands within 1e-5 m of the CPU's. ``gradient_refine`` and
+``hill_climb`` (a whole refine in one launch, one map or M for the climb)
+equal their yardsticks ``gradient_refine_rounds`` and ``hill_climb_rounds``
+(a score launch a pass, the rest in PyTorch ops) bit for bit.
 """
 
 import pytest
@@ -680,8 +683,105 @@ def test_gradient_match_on_the_card_matches_the_cpu(scene):
     got = matchers.gradient_match(view, scan, cand[3], None, cfg)
     torch.cuda.synchronize()
     after = kernels.launch_counts()
-    assert after["overlap_score_grad"] - before["overlap_score_grad"] == 13
+    assert after["gradient_refine"] - before["gradient_refine"] == 1
+    assert after["overlap_score_grad"] - before["overlap_score_grad"] == 0
     assert after["overlap_score"] - before["overlap_score"] == 0
     want = matchers.gradient_match(cpu_view, scan.to("cpu"), cand[3].cpu(), None, cfg)
     torch.testing.assert_close(got.pose.cpu(), want.pose, atol=1e-5, rtol=0)
     torch.testing.assert_close(got.prob.cpu(), want.prob, atol=ATOL, rtol=0)
+
+
+def refine_case(scene, n_beams, stride, weighted, offset):
+    """A refine's inputs on the scene's map: (plane, pts, beam_w, origin,
+    start pose, scale, unknown)."""
+    view, scan, cand, g = scene
+    dev = cand.device
+    reps = -(-n_beams // scan.ranges.shape[0])  # more beams than the scan's: it repeats
+    ranges, bearings, valid = (t.repeat(reps)[:n_beams] for t in (scan.ranges, scan.bearings,
+                                                                   scan.valid))
+    scan = LaserScan(ranges, bearings, valid & (torch.arange(n_beams, device=dev) % 9 != 4))
+    w = torch.rand((n_beams,), generator=g, device=dev) if weighted else None
+    prep = scoring.prepare(view, scan, scoring.ScoringConfig(reducer="overlap", stride=stride), w)
+    pose = (cand[0] + torch.tensor(offset, device=dev)).contiguous()
+    return prep.plane, prep.pts, prep.beam_w, prep.origin, pose, prep.scale, prep.unknown
+
+
+def same_bits(a, b):
+    return all(x.shape == y.shape and torch.equal(x.reshape(-1).view(torch.int32),
+                                                  y.reshape(-1).view(torch.int32))
+               for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_beams,stride,weighted,iterations", [
+    (360, 1, False, 12), (360, 1, True, 12), (360, 2, True, 24), (100, 1, True, 1),
+    (360, 1, False, 0), (1000, 1, True, 6), (500, 3, False, 6),
+])
+def test_gradient_refine_equals_the_launch_loop(scene, n_beams, stride, weighted, iterations):
+    args = (*refine_case(scene, n_beams, stride, weighted, (0.05, -0.04, 0.02)), 0.03, 0.015,
+            iterations, 0.5)
+    before = kernels.launch_counts()["gradient_refine"]
+    got = kernels.gradient_refine(*args)
+    want = kernels.gradient_refine_rounds(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["gradient_refine"] == before + 1
+    assert got[0].shape == (3,) and got[1].shape == () and got[2].shape == (iterations,)
+    assert same_bits(got, want), (got, want)
+    assert same_bits(kernels.gradient_refine(*args), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_beams,stride,weighted,iterations", [
+    (360, 1, False, 10), (360, 2, True, 8), (100, 1, True, 1), (360, 1, False, 0),
+    (1000, 1, True, 5),
+])
+def test_hill_climb_equals_the_launch_loop(scene, n_beams, stride, weighted, iterations):
+    args = (*refine_case(scene, n_beams, stride, weighted, (0.06, 0.03, -0.02)), 0.025, 0.01,
+            iterations, 0.5)
+    before = kernels.launch_counts()["hill_climb"]
+    got = kernels.hill_climb(*args)
+    want = kernels.hill_climb_rounds(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["hill_climb"] == before + 1
+    assert got[0].shape == (3,) and got[1].shape == () and got[2].shape == (iterations,)
+    assert same_bits(got, want), (got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_maps", [1, 5, 32])
+def test_hill_climb_over_m_maps_equals_single_climbs(scene, n_maps):
+    """M maps (the plane flipped and shifted, a start pose each) in one
+    launch: the batched yardstick and M single-map launches, bit for bit."""
+    plane, pts, beam_w, origin, pose, scale, unknown = refine_case(scene, 360, 2, True,
+                                                                   (0.06, 0.03, -0.02))
+    g = scene[3]
+    dev = plane.device
+    planes = torch.stack([plane.flip(0) if m % 2 else plane.roll(m, 1) for m in range(n_maps)])
+    poses = pose + torch.randn((n_maps, 3), generator=g, device=dev) * torch.tensor(
+        [0.05, 0.05, 0.03], device=dev)
+    args = (planes.contiguous(), pts.expand(n_maps, -1, -1).contiguous(),
+            beam_w.expand(n_maps, -1).contiguous(), origin.expand(n_maps, -1).contiguous(),
+            poses.contiguous(), scale, unknown, 0.025, 0.01, 6, 0.5)
+    got = kernels.hill_climb(*args)
+    want = kernels.hill_climb_rounds(*args)
+    singles = [kernels.hill_climb(*(t[m] for t in args[:5]), *args[5:]) for m in range(n_maps)]
+    torch.cuda.synchronize()
+    assert got[0].shape == (n_maps, 3) and got[2].shape == (n_maps, 6)
+    assert same_bits(got, want)
+    assert same_bits(got, [torch.stack([s[i] for s in singles]) for i in range(3)])
+
+
+@pytest.mark.cuda
+def test_refine_kernels_reject_bad_input(scene):
+    plane, pts, beam_w, origin, pose, scale, unknown = refine_case(scene, 360, 1, False,
+                                                                   (0.0, 0.0, 0.0))
+    tail = (scale, unknown, 0.03, 0.015, 4, 0.5)
+    for fn in (kernels.gradient_refine, kernels.hill_climb):
+        with pytest.raises(TypeError):  # f64 plane
+            fn(plane.double(), pts, beam_w, origin, pose, *tail)
+        with pytest.raises(ValueError):  # points not contiguous
+            fn(plane, pts.t().contiguous().t(), beam_w, origin, pose, *tail)
+        with pytest.raises(ValueError):  # the pose on the CPU
+            fn(plane, pts, beam_w, origin, pose.cpu(), *tail)
+        with pytest.raises(ValueError):  # a weight short
+            fn(plane, pts, beam_w[:-1], origin, pose, *tail)
