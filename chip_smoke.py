@@ -198,6 +198,36 @@ Phases, one line or more each, in order; any failure exits non-zero:
    and 32 with the start poses moved) equal to M single launches and to
    ``hill_climb_rounds`` on the M maps bit for bit.
 
+30. the reducers other than the bilinear overlap (the obstacle reducer,
+   the max and the mean over 3^2 and 5^2 cells, the overlap reducer at
+   extents 0.5, 1.6 and 2.5) in the scoring kernels at the shapes of the
+   BASELINE gmapping preset (``utils.config.preset('gmapping')``,
+   ``GMappingConfig()``: 30 whole maps of 256^2, 360 beams, 6 rounds of 16),
+   on the arguments of every 32nd particle match of a warm-up run of that
+   path: ``mc_match_batched`` equal to 30 single ``mc_match`` launches and
+   ``mc_match_rounds`` bit for bit and within 2e-6 of its twin, at every
+   variant with the edge cases (a particle without a valid beam, a NaN
+   weight, a pose off the map, windows clamped at the map's edges read in
+   place against the same cut out); ``overlap_score_batched`` against its
+   twin and 30 single launches, ``hill_climb`` on 30 maps and one against
+   ``hill_climb_rounds``, ``m3rsm_search`` at ``M3RSMConfig()`` against
+   ``m3rsm_search_levels``; then each variant of the particle match timed
+   (replayed from a CUDA graph, a call, chained) beside its twin and its
+   bound by the cells its taps read;
+31. the gmapping preset's main path through ``preset('gmapping')`` over
+   the bench sequence under ``torch.cuda.set_sync_debug_mode("error")``:
+   ``mc_match_batched`` 512 launches, all with the obstacle reducer, and
+   nothing else; finite poses; the winner's ATE at most 0.02 m above the
+   worst of the JAX reference's five keys (``reference_ate.py --preset
+   gmapping_baseline``); scans/s; then ``run.py --preset gmapping`` (512
+   scans of its own rectangle) with the same launches, equal to the
+   preset's engine driven directly bit for bit;
+32. card vs CPU: the preset's first 8 scans with the same draws;
+33. global relocalization (``ops/relocalize.py``) on the card: the
+   reference's test map and its three kidnapped poses, each within 0.12 m
+   and 0.08 rad, one ``hill_climb`` launch a call and no host sync, the
+   FFT's pose within a cell and a heading bin of the CPU's.
+
 Every bound counts, of the plane or window, the distinct cells that the
 taps of every pose the kernel scores read (the poses taken from its
 yardstick's run on the same inputs), not the whole plane.
@@ -212,6 +242,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -254,6 +285,22 @@ FULL_ATE_MARGIN = 0.02
 GMAPPING_REFERENCE_ATE_BY_KEY = (0.52053, 0.49879, 0.45874, 0.64013, 0.60896)
 GMAPPING_2LAP_REFERENCE_ATE_BY_KEY = (0.09649, 0.11871, 0.11003, 0.10554, 0.11708)
 GMAPPING_ATE_MARGIN = 0.02
+#: winner ATE of the JAX reference's ``GMappingEngine()`` at its defaults
+#: (``utils.config.preset('gmapping')``, BASELINE config[2]: 30 whole maps
+#: of 256^2, the obstacle reducer, 16 x 6 rounds) on a CPU over the bench
+#: sequence, once for each key PRNGKey(0..4) (`JAX_PLATFORMS=cpu python
+#: scripts/torch_port/reference_ate.py --preset gmapping_baseline --keys
+#: 5`); odometry reads 0.45320 m.
+GMAPPING_BASELINE_REFERENCE_ATE_BY_KEY = (0.43269, 0.62582, 0.13305, 0.36565, 0.13569)
+#: the reducer variants the kernels are held and timed with: (kind, radius,
+#: extent); the obstacle reducer is the gmapping preset's
+REDUCER_VARIANTS = (("obstacle", 0, 1.0), ("max", 1, 1.0), ("max", 2, 1.0), ("mean", 1, 1.0),
+                    ("mean", 2, 1.0), ("overlap", 0, 0.5), ("overlap", 1, 1.6),
+                    ("overlap", 2, 2.5))
+#: where the reference computes each reducer (its gather path)
+REDUCER_LINES = {"obstacle": 352, "max": 354, "mean": 356, "overlap": 358}
+#: the kidnapped poses of the reference's relocalization test
+RELOCALIZE_KIDNAPPED = ((3.0, -1.5, 2.1), (-5.0, 1.6, -0.7), (0.0, -1.5, 0.0))
 
 #: ATE of the JAX reference's ``viny_m3rsm_config(map_size=256)`` on a CPU
 #: over the bench sequence (`JAX_PLATFORMS=cpu python scripts/torch_port/
@@ -782,6 +829,26 @@ def against_twin(name, got, twin, margins, pose_tol=1e-6):
     return max(err, p_err), False
 
 
+def singles_of(fn, args):
+    """``fn`` (a single-match wrapper) on each particle's slices of the
+    batched args, stacked: (pose, prob, trace)."""
+    n_p = args[0].shape[0]
+    out = [fn(*(t[m] for t in args[:6]), *args[6:]) for m in range(n_p)]
+    return [torch.stack([o[i] for o in out]) for i in range(3)]
+
+
+def held_to_singles(name, got, args):
+    """A batched particle match ``got`` equal, bit for bit, to single
+    ``mc_match`` launches and ``mc_match_rounds`` on each particle."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    for ref, by in ((singles_of(kernels.mc_match, args), "single-plane mc_match launches"),
+                    (singles_of(kernels.mc_match_rounds, args), "mc_match_rounds")):
+        for i, part in enumerate(("pose", "prob", "trace")):
+            check(torch.equal(bits(got[i]), bits(ref[i])),
+                  f"mc_match_batched {part} differs from {by} ({name})")
+
+
 def phase_mc_match(dev, tiny_states, viny_states, full_states):
     """`mc_match` vs `mc_match_rounds` (bitwise) and vs `mc_match_ref` over
     real states of the three main paths and edge cases; then the three
@@ -1213,13 +1280,15 @@ def gmapping_config(**kwargs):
     return gmapping.fast_config(n_particles=GM_PARTICLES, map_size=MAP, **kwargs)
 
 
-def run_gmapping_path(cfg, scans, odom, gt, sync_mode, draws=None, device=None):
+def run_gmapping_path(cfg, scans, odom, gt, sync_mode, draws=None, device=None, make=None):
     """One RBPF run from a fresh state through ``GMappingEngine.run``; the
-    engine takes the card unless a device is named. Returns the engine,
-    the best particle's trajectory, Neff and the seconds."""
+    engine (``GMappingEngine(cfg)``, or ``make(device=..., seed=0)``: a
+    preset's factory) takes the card unless a device is named. Returns the
+    engine, the best particle's trajectory, Neff and the seconds."""
     from slam_constructor_tpu_torch.models import gmapping
 
-    e = gmapping.GMappingEngine(cfg, device=device, seed=0)
+    e = (make or functools.partial(gmapping.GMappingEngine, cfg))(device=device, seed=0)
+    cfg = e.cfg
     on_card = e.device.type == "cuda"
     check(device is not None or on_card, f"GMappingEngine defaulted to {e.device}, not the card")
     e.state.poses = gt[0].to(e.device).expand(cfg.n_particles, 3).clone()
@@ -1337,19 +1406,6 @@ def phase_particle_match(dev, states):
           f"{tuple(s[6].shape)}, noise {tuple(s[10].shape)}: not 30 maps of 256^2, 160^2 windows, "
           f"180 beams and 5 rounds of 20")
 
-    def singles_of(fn, args):
-        n_p = args[0].shape[0]
-        out = [fn(*(t[m] for t in args[:6]), *args[6:]) for m in range(n_p)]
-        return [torch.stack([o[i] for o in out]) for i in range(3)]
-
-    def held(name, got, args, what):
-        for i, part in enumerate(("pose", "prob", "trace")):
-            for ref, by in ((singles_of(kernels.mc_match, args), "single-plane mc_match launches"),
-                            (singles_of(kernels.mc_match_rounds, args), "mc_match_rounds")):
-                check(torch.equal(bits(got[i]), bits(ref[i])),
-                      f"{what} {part} differs from {by} ({name}): max |diff| "
-                      f"{float((got[i] - ref[i]).abs().nan_to_num(nan=0.0).max()) if ref[i].numel() else 0}")
-
     n_in_place = 0
     for name, args in window_cases(states, dev):
         got = kernels.mc_match_windows(*args)
@@ -1359,7 +1415,7 @@ def phase_particle_match(dev, states):
         n_p, n_rounds, k = args[10].shape[:3]
         check(all(torch.equal(bits(a), bits(b)) for a, b in zip(got, want)),
               f"mc_match_windows differs from mc_match_batched on the cut-out windows ({name})")
-        held(name, got, cut, "mc_match_windows")
+        held_to_singles(f"mc_match_windows, {name}", got, cut)
         n_in_place += n_p
         print(f"mc_match_windows [{name}]: P={n_p} K={k} rounds={n_rounds} R'={args[6].shape[1]} "
               f"{args[4]}x{args[5]} windows of {args[0].shape[1]}x{args[0].shape[2]} maps (cell "
@@ -1376,7 +1432,7 @@ def phase_particle_match(dev, states):
         torch.cuda.synchronize()
         check(got[0].shape == (n_p, 3) and got[1].shape == (n_p,) and got[2].shape == (n_p, n_rounds),
               f"mc_match_batched output malformed ({name})")
-        held(name, got, args, "mc_match_batched")
+        held_to_singles(name, got, args)
         errs = [against_twin(f"{name}, particle {m}", [t[m] for t in got], [t[m] for t in twin],
                              margins[m]) for m in range(n_p)]
         err = max(e for e, _ in errs)
@@ -1583,13 +1639,13 @@ def phase_gmapping_improved(dev, scans, odom, gt):
     return launches, {**times, "max_abs_err": max_err}
 
 
-def phase_gmapping_card_vs_cpu(dev, scans, odom, gt):
-    """The first 16 scans of the gmapping path on the card and on the CPU
-    with the same draws (made with numpy)."""
+def phase_gmapping_card_vs_cpu(dev, scans, odom, gt, n=16, make=None, name="gmapping"):
+    """The first ``n`` scans of the gmapping path (or of the engines that
+    ``make`` builds) on the card and on the CPU with the same draws (made
+    with numpy)."""
     from slam_constructor_tpu_torch.models import gmapping
 
-    n = 16
-    cfg = gmapping_config()
+    cfg = make(device="cpu").cfg if make else gmapping_config()
     mc, p = cfg.matcher_cfg, cfg.n_particles
     rng = np.random.default_rng(5)
 
@@ -1602,7 +1658,7 @@ def phase_gmapping_card_vs_cpu(dev, scans, odom, gt):
     for d in (None, "cpu"):
         on = torch.device(d) if d else dev
         e, _, _, _ = run_gmapping_path(cfg, scans[:n].to(on), odom[:n].to(on), gt.to(on), 0,
-                                       draws=draws, device=d)
+                                       draws=draws, device=d, make=make)
         runs.append([t.cpu() for t in gmapping_bits(e)])
     (pa, aa, la, ca, _), (pb, ab, lb, cb, _) = runs
     diff = float((pa - pb).abs().max())
@@ -1610,14 +1666,14 @@ def phase_gmapping_card_vs_cpu(dev, scans, odom, gt):
     # round differently): that cell's count then differs by one for good
     moved = ca[..., -1] != cb[..., -1]
     belief = float((ca[..., :-1] - cb[..., :-1]).abs().amax(-1)[~moved].max())
-    print(f"gmapping card vs CPU, {n} scans, the same draws: max|pose diff| {diff:.3e} (tol 1e-4), "
+    print(f"{name} card vs CPU, {n} scans, the same draws: max|pose diff| {diff:.3e} (tol 1e-4), "
           f"ancestors equal: {torch.equal(aa, ab)}, max|log-weight diff| "
           f"{float((la - lb).abs().max()):.3e} (tol 1e-4); {int(moved.sum())} of {moved.numel()} "
           f"cells counted one sample more or less (at most {GM_MOVED_CELLS}), max|belief diff| "
           f"elsewhere {belief:.3e} (tol 1e-5)", flush=True)
-    check(diff <= 1e-4 and torch.equal(aa, ab), "gmapping card vs CPU: trajectories disagree")
-    check(float((la - lb).abs().max()) <= 1e-4, "gmapping card vs CPU: weights disagree")
-    check(int(moved.sum()) <= GM_MOVED_CELLS and belief <= 1e-5, "gmapping card vs CPU: maps disagree")
+    check(diff <= 1e-4 and torch.equal(aa, ab), f"{name} card vs CPU: trajectories disagree")
+    check(float((la - lb).abs().max()) <= 1e-4, f"{name} card vs CPU: weights disagree")
+    check(int(moved.sum()) <= GM_MOVED_CELLS and belief <= 1e-5, f"{name} card vs CPU: maps disagree")
 
 
 # --- M3RSM: the pyramid (K4a), the level score (K4b) and their paths ---------
@@ -2475,12 +2531,13 @@ def refine_cases(name, kept, dev):
     the start poses moved)."""
     g = torch.Generator(device=dev).manual_seed(13)
     cases = [(f"{name} scan {16 * i}", a) for i, a in enumerate(kept)]
-    plane, pts, beam_w, origin, pose, scale, unknown, sxy, sth, iters, shrink = kept[-1]
+    # the hill climb's arguments end with its reducer, the gradient's do not
+    plane, pts, beam_w, origin, pose, scale, unknown, sxy, sth, iters, shrink = kept[-1][:11]
     h = plane.shape[0]
 
     def edited(**kw):
         names = ("plane", "pts", "beam_w", "origin", "pose", "scale", "unknown", "step_xy",
-                 "step_theta", "iterations", "shrink")
+                 "step_theta", "iterations", "shrink", "reducer")
         return tuple(kw.get(n, a) for n, a in zip(names, kept[-1]))
 
     for n in (0, 1, 2 * iters):
@@ -2595,6 +2652,360 @@ def phase_refine_kernel(dev, name, kept, rates, smi):
     }
 
 
+# --- the reducers, and the BASELINE gmapping preset that scores with one -----
+
+
+def baseline_engine(**kw):
+    """``utils.config.preset('gmapping')``'s engine: ``GMappingEngine()`` at
+    the reference's defaults (BASELINE config[2])."""
+    from slam_constructor_tpu_torch.utils import config as cfglib
+
+    return cfglib.preset("gmapping")(**kw)
+
+
+def reducer_variants():
+    """The reducers other than the bilinear overlap, as ``kernels.Reducer``:
+    the obstacle reducer (the preset's), the max and the mean over 3^2 and
+    5^2 cells, the overlap reducer at extents 0.5, 1.6 and 2.5."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    return [kernels.Reducer(kind, radius, extent) for kind, radius, extent in REDUCER_VARIANTS]
+
+
+def variant_name(red):
+    return red.kind if red.kind == "obstacle" else (
+        f"{red.kind} w{red.radius}" + (f" e{red.extent:g}" if red.kind == "overlap" else ""))
+
+
+def reducer_tap_cells(v, poses, pts, beam_w, origin, scale, red):
+    """The distinct cells of each map of ``v`` f32[M, H, W] that the
+    reducer's taps read (the cell of each weighted beam's endpoint and the
+    window around it, on the map) for the poses f32[M, N, 3]."""
+    h, w = v.shape[-2:]
+    n = red.radius if red.kind != "obstacle" else 0
+    d = torch.arange(-n, n + 1, device=v.device, dtype=torch.float32)
+    cells = 0
+    for m in range(v.shape[0]):
+        q = pts[m][beam_w[m] != 0]
+        c, s_ = torch.cos(poses[m, :, 2:3]), torch.sin(poses[m, :, 2:3])
+        x = (poses[m, :, 0:1] + c * q[:, 0] - s_ * q[:, 1] - origin[m, 0]) / scale
+        y = (poses[m, :, 1:2] + s_ * q[:, 0] + c * q[:, 1] - origin[m, 1]) / scale
+        fy = torch.floor(y).reshape(-1)[:, None, None] + d[None, :, None]
+        fx = torch.floor(x).reshape(-1)[:, None, None] + d[None, None, :]
+        ok = (fy >= 0) & (fy < h) & (fx >= 0) & (fx < w)
+        cells += int((fy * w + fx)[ok].to(torch.int64).unique().numel())
+    return cells
+
+
+def reducer_ops(red) -> int:
+    """f32 operations a (pose, beam) pair of the reducer: the pose
+    transform 8, to cell units 4, the floors 2, the weighted sum 3, and a
+    cell's bounds and read 5 and its max or sum 1; the general overlap also
+    its two overlap lengths (2 x 6), their product and its two sums (3),
+    and a final division."""
+    taps = 1 if red.kind == "obstacle" else (2 * red.radius + 1) ** 2
+    per_cell = 6 + (15 if red.kind == "overlap" else 0)
+    return 8 + 4 + 2 + 3 + taps * per_cell + (1 if red.kind in ("mean", "overlap") else 0)
+
+
+def capture_baseline_matches(scans, odom, gt, every=32):
+    """A warm-up run of the gmapping preset's path that keeps the arguments
+    of every ``every``-th particle match (``mc_match_batched`` on the 30
+    whole maps)."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    recording, kept = recorder(kernels.mc_match_batched, every)
+    with handed_in(recording, "mc_match_batched"):
+        run_gmapping_path(None, scans, odom, gt, 0, make=baseline_engine)
+    return kept
+
+
+def phase_reducer_kernels(dev, states, smi):
+    """Every reducer variant (``reducer_variants``) in the scoring kernels
+    at the gmapping preset's shapes (30 whole maps of 256^2, 360 beams, 6
+    rounds of 16): ``mc_match_batched`` on the kept states (the obstacle
+    reducer, the path's) and on one of them with every variant, equal to
+    single launches and ``mc_match_rounds`` bit for bit and within 2e-6 of
+    its twin (or parted after a decision closer than 4e-6); edge cases (a
+    particle without a valid beam, a NaN weight, a pose off the map, windows
+    clamped at the map's edges read in place against the same windows cut
+    out); ``overlap_score`` and ``overlap_score_batched`` against the twin
+    and single launches; ``hill_climb`` (one map and 30) against
+    ``hill_climb_rounds``; ``m3rsm_search`` at ``M3RSMConfig()`` against
+    ``m3rsm_search_levels``. Then each variant of the particle match
+    timed: device time replayed from a CUDA graph, a call, chained, the
+    twin, and the bound by the cells its taps read. Returns the `kernels`
+    entries without the launch counts."""
+    from slam_constructor_tpu_torch.ops import grid as gridlib
+    from slam_constructor_tpu_torch.ops import kernels, m3rsm, scoring
+
+    s = states[8]  # scan 256
+    check((tuple(s[0].shape), tuple(s[1].shape), tuple(s[5].shape), s[11].kind) ==
+          ((GM_PARTICLES, MAP, MAP), (GM_PARTICLES, N_BEAMS, 2), (GM_PARTICLES, 6, 16, 3),
+           "obstacle"),
+          f"the gmapping preset's match reads {tuple(s[0].shape)} planes, pts {tuple(s[1].shape)}, "
+          f"noise {tuple(s[5].shape)}, reducer {s[11]}: not 30 maps of 256^2, 360 beams, 6 rounds "
+          f"of 16, the obstacle reducer")
+    max_err, parted, n_cases = {}, {}, 0
+
+    def matched(name, args):
+        red = args[11]
+        got = kernels.mc_match_batched(*args)
+        twin, margins = twin_record(args)
+        torch.cuda.synchronize()
+        held_to_singles(name, got, args)
+        errs = [against_twin(f"{name}, particle {m}", [t[m] for t in got], [t[m] for t in twin],
+                             margins[m]) for m in range(args[0].shape[0])]
+        key = variant_name(red)
+        max_err[key] = max(max_err.get(key, 0.0), max(e for e, _ in errs))
+        parted[key] = parted.get(key, 0) + sum(a for _, a in errs)
+        return got
+
+    for i, a in enumerate(states):
+        matched(f"gmapping preset scan {32 * i}", a)
+        n_cases += 1
+    print(f"mc_match_batched, obstacle reducer: {len(states)} kept matches of the gmapping preset "
+          f"(30 x 256^2, R=360, 6 rounds of 16) equal to 30 single launches and mc_match_rounds bit "
+          f"for bit; vs twin max|diff| {max_err['obstacle']:.3e}, {parted['obstacle']} particles "
+          f"parted after a decision closer than {KNIFE_EDGE:g}", flush=True)
+
+    far = 2.0 * MAP * 0.1
+    map_origin = torch.tensor([-MAP * 0.1 / 2.0, -MAP * 0.1 / 2.0], device=dev).expand(
+        GM_PARTICLES, 2).contiguous()
+    known = torch.ones_like(s[0], dtype=torch.bool)
+    for red in reducer_variants():
+        a = (*s[:11], red)
+        name = variant_name(red)
+        matched(f"{name}, scan 256", a)
+        no_beam = a[2].clone()
+        no_beam[3] = 0.0
+        got = matched(f"{name}, particle 3 without a valid beam", (*a[:2], no_beam, *a[3:]))
+        check(not bool(got[2][3].any()) and torch.equal(got[0][3], a[4][3]),
+              f"{name}: a particle without a valid beam must score 0 and keep its prior")
+        nan_w = a[2].clone()
+        nan_w[5, 7] = float("nan")
+        got = matched(f"{name}, a NaN weight", (*a[:2], nan_w, *a[3:]))
+        check(bool(torch.isnan(got[1][5])) and torch.equal(got[0][5], a[4][5]),
+              f"{name}: a NaN weight must give NaN scores that are never better")
+        off = a[4].clone()
+        off[0, :2] += far  # every endpoint off the map: every score `unknown`
+        got = matched(f"{name}, a pose off the map", (*a[:4], off, *a[5:]))
+        check(torch.equal(got[0][0], off[0]) and float(got[1][0]) == float(a[7]),
+              f"{name}: a pose off the map must score unknown and stay")
+        for label, dx, dy in (("left edge", -1, 0), ("top-right corner", 1, 1),
+                              ("bottom edge", 0, -1)):
+            centre = a[4][:, :2] + torch.tensor([dx * far, dy * far], device=dev)
+            row, col, origin = gridlib.window_corner(map_origin, centre, 0.1, 160, 160, MAP, MAP)
+            wargs = (a[0], known, row, col, 160, 160, a[1], a[2], origin, *a[4:])
+            in_place = kernels.mc_match_windows(*wargs)
+            cut = kernels.mc_match_batched(gridlib.take_window(a[0], row, col, 160, 160).contiguous(),
+                                           *wargs[6:])
+            torch.cuda.synchronize()
+            check(all(torch.equal(bits(x), bits(y)) for x, y in zip(in_place, cut)),
+                  f"{name}: windows clamped at the map's {label} read in place differ from the "
+                  f"windows cut out")
+        n_cases += 4
+        # the other scoring kernels with the same reducer
+        poses = (a[4][:, None, :] + a[5][:, 0] * 0.08).contiguous()  # 16 poses a map
+        sargs = (a[0], poses, a[1], a[2], a[3], a[6], a[7], red)
+        batched = kernels.overlap_score_batched(*sargs)
+        single = torch.stack([kernels.overlap_score(*(t[m] for t in sargs[:5]), *sargs[5:])
+                              for m in range(GM_PARTICLES)])
+        err = float((batched - kernels.overlap_score_ref(*sargs)).abs().max())
+        check(err <= TOL and torch.equal(bits(batched), bits(single)),
+              f"{name}: overlap_score_batched {err:.3e} from its twin, or not the single launches' "
+              f"bits")
+        cargs = (a[0], a[1], a[2], a[3], a[4], a[6], a[7], 0.1, 0.05, 10, 0.5, red)
+        climb = kernels.hill_climb(*cargs)
+        check(all(torch.equal(bits(x), bits(y))
+                  for x, y in zip(climb, kernels.hill_climb_rounds(*cargs))),
+              f"{name}: hill_climb on 30 maps differs from hill_climb_rounds")
+        one = kernels.hill_climb(*(t[0] for t in cargs[:5]), *cargs[5:])
+        check(all(torch.equal(bits(x[0]), bits(y)) for x, y in zip(climb, one)),
+              f"{name}: hill_climb on 30 maps differs from a single-map launch")
+        view = scoring.MapView(occ=a[0][0], known=known[0], origin=a[3][0], scale=0.1)
+        from slam_constructor_tpu_torch.ops.scan import LaserScan
+
+        scan = LaserScan(torch.linalg.vector_norm(a[1][0], dim=-1),
+                         torch.atan2(a[1][0][:, 1], a[1][0][:, 0]), a[2][0] > 0)
+        mcfg = m3rsm.M3RSMConfig(scoring=scoring.ScoringConfig(
+            reducer=red.kind, window=red.radius, overlap_extent=red.extent))
+        got_m = m3rsm.m3rsm_match(view, scan, a[4][0], None, mcfg)
+        with handed_in(kernels.m3rsm_search_levels, "m3rsm_search"):
+            want_m = m3rsm.m3rsm_match(view, scan, a[4][0], None, mcfg)
+        torch.cuda.synchronize()
+        check(all(torch.equal(bits(x), bits(y)) for x, y in
+                  ((got_m.pose, want_m.pose), (got_m.prob, want_m.prob), (got_m.trace, want_m.trace))),
+              f"{name}: m3rsm_search at M3RSMConfig() differs from m3rsm_search_levels")
+        print(f"reducer {name}: mc_match_batched at the preset's shape and 4 edge cases (no valid "
+              f"beam, a NaN weight, a pose off the map, windows clamped at 3 edges in place = cut "
+              f"out) equal to single launches and mc_match_rounds bit for bit, vs twin max|diff| "
+              f"{max_err[name]:.3e}, {parted[name]} parted after a close decision; "
+              f"overlap_score_batched (M=30 K=16) {err:.3e} from its twin, = 30 single launches; "
+              f"hill_climb (M=30 and 1, 10 rounds) = hill_climb_rounds; m3rsm_search at "
+              f"M3RSMConfig() = m3rsm_search_levels", flush=True)
+
+    entries = []
+    for red in reducer_variants():
+        a = (*s[:11], red)
+        name = variant_name(red)
+        ms, plain_ms, chained = time_pair(lambda: kernels.mc_match_batched(*a),
+                                          lambda: kernels.mc_match_ref(*a), plain_calls=5)
+        device_ms = graph_ms(lambda: kernels.mc_match_batched(*a), n=20)
+        poses = visited_poses(kernels.mc_match_loop, kernels.overlap_score_batched, a)
+        cells = reducer_tap_cells(a[0], poses, a[1], a[2], a[3], 0.1, red)
+        n_w = int((a[2] != 0).sum())
+        n_p, n_rounds, k = a[5].shape[:3]
+        n_bytes = 4 * (cells + 2 * n_w + sum(t.numel() for t in a[2:6]) + n_p * (3 + 1 + n_rounds))
+        n_ops = reducer_ops(red) * (1 + n_rounds * k) * n_w
+        b_ms, by = bound_ms(n_bytes, n_ops)
+        print(f"mc_match_batched [{name}] P={n_p} K={k} rounds={n_rounds} R=360 256^2 whole maps: "
+              f"{device_ms:.5f} ms on the device (20 launches replayed from a CUDA graph), a call "
+              f"{ms:.4f} ms, chained {chained:.4f} ms; plain twin {plain_ms:.4f} ms; bound "
+              f"{b_ms:.7f} ms by {by} ({n_bytes} B: {cells} tap cells; {n_ops} operations); "
+              f"{smi}", flush=True)
+        entries.append({
+            "name": f"mc_match_batched/{red.kind}" + (
+                "" if red.kind == "obstacle" else f" w{red.radius}" +
+                (f" e{red.extent:g}" if red.kind == "overlap" else "")),
+            "route": "cuda", "source": "slam_constructor_tpu_torch/csrc/mc_match.cu",
+            "replaces": "slam_constructor_tpu/ops/pallas_kernels.py:73",
+            "reducer": f"slam_constructor_tpu/ops/scoring.py:{REDUCER_LINES[red.kind]}",
+            "variant": name, "max_abs_err": max_err[name], "matches_parted_from_twin": parted[name],
+            "ms": ms, "plain_ms": plain_ms, "chained_ms": chained, "device_ms": device_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None})
+    print(f"reducer kernels: {n_cases} cases", flush=True)
+    return entries
+
+
+def phase_gmapping_baseline_path(scans, odom, gt, odo_ate, smi):
+    """The gmapping preset's main path through ``preset('gmapping')``: the
+    timed run (the warm-up was the capture) with the counts at 0 before and
+    read after, under ``torch.cuda.set_sync_debug_mode("error")``; its
+    checks; then ``run.py --preset gmapping`` in this process (its own
+    synthetic sequence of 512 scans) against the engine driven directly.
+    Returns the launch counts and those by reducer of the timed run."""
+    from slam_constructor_tpu_torch import run
+    from slam_constructor_tpu_torch.models import gmapping
+    from slam_constructor_tpu_torch.ops import kernels
+    from slam_constructor_tpu_torch.utils import evaluate
+
+    reset_launches()
+    e, traj, neffs, secs = run_gmapping_path(None, scans, odom, gt, "error", make=baseline_engine)
+    launches, by_reducer = read_launches(), kernels.reducer_launch_counts()
+    want = expect(mc_match_batched=N_SCANS)
+    check(e.cfg == gmapping.GMappingConfig(), "preset('gmapping') is not GMappingConfig()")
+    resamples = int((e.genealogy[1] != torch.arange(e.cfg.n_particles, device=traj.device))
+                    .any(1).sum())
+    print(f"gmapping preset main path (GMappingConfig(): {e.cfg.n_particles} particles, whole "
+          f"{e.cfg.map_height}^2 maps, the obstacle reducer, {e.cfg.matcher_cfg.rounds} rounds of "
+          f"{e.cfg.matcher_cfg.batch}): {N_SCANS} scans in {secs:.3f} s = {N_SCANS / secs:.1f} "
+          f"scans/s on {smi}, with the sync check on, no host sync; {resamples} resamplings, min "
+          f"Neff {float(neffs.min()):.2f}; launches {launches} (expected {want}); by reducer "
+          f"{ {k: v for k, v in by_reducer.items() if v} }", flush=True)
+    check(launches == want, f"gmapping preset: launches {launches}, expected {want}")
+    check(by_reducer["mc_match_batched/obstacle"] == N_SCANS,
+          "gmapping preset: the particle match did not score with the obstacle reducer")
+    winner = e.winner_trajectory()
+    check(winner.shape == (N_SCANS, 3) and bool(torch.isfinite(winner).all())
+          and bool(torch.isfinite(traj).all()), "gmapping preset: non-finite poses")
+    ate = float(evaluate.ate(winner, gt, align=False))
+    online = float(evaluate.ate(traj, gt, align=False))
+    limit = max(GMAPPING_BASELINE_REFERENCE_ATE_BY_KEY) + GMAPPING_ATE_MARGIN
+    print(f"gmapping preset main path: winner ATE {ate:.4f} m (no alignment; limit: the "
+          f"reference's worst key + margin {limit:.4f}; its five keys "
+          f"{min(GMAPPING_BASELINE_REFERENCE_ATE_BY_KEY):.4f}-"
+          f"{max(GMAPPING_BASELINE_REFERENCE_ATE_BY_KEY):.4f}), online {online:.4f} m, odometry "
+          f"only {odo_ate:.4f} m (trap j: four of the reference's five keys beat it, key 1 does "
+          f"not)",
+          flush=True)
+    check(ate <= limit, f"gmapping preset: winner ATE {ate} above the reference's worst key + "
+                        f"margin")
+
+    args = run.parse_args(["--preset", "gmapping", "--synthetic", "cecum", "--trajectory",
+                           "rectangle", "--steps", str(N_SCANS), "--out", "build/cli_out/preset"])
+    reset_launches()
+    res = run.execute(args)
+    cli = read_launches()
+    check(cli == want and res.engine.device.type == "cuda"
+          and bool(torch.isfinite(res.trajectory).all()),
+          f"run.py --preset gmapping: launches {cli}, device {res.engine.device}")
+    cscans, codom, cgt = run.load_data(args, scans.ranges.device)
+    _, direct, _, dsecs = run_gmapping_path(None, cscans, codom, cgt, "error", make=baseline_engine)
+    check(torch.equal(direct, res.trajectory),
+          "run.py --preset gmapping and the preset's engine driven directly differ")
+    sm = res.summary
+    print(f"run.py --preset gmapping: {sm['scans']} scans of its synthetic rectangle, "
+          f"{sm['scans_per_sec']} scans/s ({sm['wall_s']} s); ATE {sm['ate_m']} m; launches {cli}; "
+          f"equal to the engine driven directly with the sync check on ({N_SCANS / dsecs:.1f} "
+          f"scans/s) bit for bit", flush=True)
+    return launches, by_reducer
+
+
+def phase_relocalize(dev):
+    """Global relocalization on the card: the reference's test map (the
+    cecum world mapped along the rectangle at 0.5 m steps into a 160^2 map,
+    180 beams; built on the CPU, copied) and its three kidnapped poses,
+    each within 0.12 m and 0.08 rad of the truth, one ``hill_climb``
+    launch a call and nothing else of the package's kernels, no host sync
+    before the pose; the FFT's pose (no refine) within a cell and a
+    heading bin of the CPU's on the same inputs, the refined pose within
+    1e-3."""
+    from slam_constructor_tpu_torch.ops import cells, grid, raycast, relocalize, scoring
+    from slam_constructor_tpu_torch.utils import datagen
+
+    occ, origin, scale = datagen.cecum_world()
+    bearings = datagen.default_bearings(180)
+    model = cells.BayesAvgCell()
+    gm = grid.make_grid_map(model, 160, 160, 0.1, device="cpu")
+    for p in datagen.rectangle_trajectory(step=0.5):
+        gm = raycast.insert_scan(gm, model, p, raycast.cast_rays(occ, origin, scale, p, bearings),
+                                 raycast.BeamConfig(wall_blur=True))
+    cpu_view = scoring.MapView.of(gm, model)
+    card_view = scoring.MapView(occ=cpu_view.occ.to(dev), known=cpu_view.known.to(dev),
+                                origin=cpu_view.origin.to(dev), scale=cpu_view.scale)
+    cfg = relocalize.RelocalizeConfig(n_theta=64)
+    fft_only = dataclasses.replace(cfg, refine_iterations=0)
+    bin_ = 2 * cfg.half_theta / cfg.n_theta
+    for pose in RELOCALIZE_KIDNAPPED:
+        truth = torch.tensor(pose)
+        scan = raycast.cast_rays(occ, origin, scale, truth, bearings)
+        card_scan = scan.to(dev)
+        relocalize.relocalize(card_view, card_scan, cfg)  # warm-up: the FFT's plans
+        torch.cuda.synchronize()
+        reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            res = relocalize.relocalize(card_view, card_scan, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        want = expect(hill_climb=1)
+        check(launches == want, f"relocalize: launches {launches}, expected {want}")
+        cpu = relocalize.relocalize(cpu_view, scan, cfg)
+        fft_card = relocalize.relocalize(card_view, card_scan, fft_only).pose.cpu()
+        fft_cpu = relocalize.relocalize(cpu_view, scan, fft_only).pose
+        err = (res.pose.cpu().double() - truth.double())
+        err[2] = math.remainder(float(err[2]), 2 * math.pi)
+        d_fft = (fft_card - fft_cpu).abs()
+        d_fft[2] = abs(math.remainder(float(fft_card[2] - fft_cpu[2]), 2 * math.pi))
+        d_ref = float((res.pose.cpu() - cpu.pose).abs().max())
+        print(f"relocalize {pose}: card pose {[round(float(v), 4) for v in res.pose]} (error "
+              f"{float(err[:2].abs().max()):.4f} m, {abs(float(err[2])):.4f} rad; limits 0.12, "
+              f"0.08), {1e3 * secs:.2f} ms a call with the sync check on (64 headings in one "
+              f"batched FFT, a hill climb of 10 rounds); the FFT's pose {d_fft.tolist()} from the "
+              f"CPU's (limits a cell, a heading bin), the refined pose {d_ref:.2e} from the CPU's",
+              flush=True)
+        check(float(err[:2].abs().max()) < 0.12 and abs(float(err[2])) < 0.08,
+              f"relocalize {pose}: {err.tolist()} off the truth")
+        check(float(d_fft[:2].max()) <= scale + 1e-5 and float(d_fft[2]) <= bin_ + 1e-5,
+              f"relocalize {pose}: the card's FFT pose is more than a cell or a bin off the CPU's")
+        check(d_ref <= 1e-3 or float(d_fft.max()) > 0, f"relocalize {pose}: card and CPU part")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke run needs an NVIDIA GPU",
@@ -2674,6 +3085,12 @@ def main() -> None:
     k10 = phase_refine_kernel(dev, "gradient_refine", refine_kept["gradient_refine"], rates, smi)
     k11 = phase_refine_kernel(dev, "hill_climb", refine_kept["hill_climb"], rates, smi)
 
+    k_red = phase_reducer_kernels(dev, capture_baseline_matches(scans, odom, gt), smi)
+    base_launches, base_by_reducer = phase_gmapping_baseline_path(scans, odom, gt, odo_ate, smi)
+    phase_gmapping_card_vs_cpu(dev, scans, odom, gt, n=8, make=baseline_engine,
+                               name="gmapping preset")
+    phase_relocalize(dev)
+
     # `launches`: of a main path's timed run, held to the expected counts
     # above: the viny path's for the kernels of the earlier slices, the full
     # path's for the batched score, the gmapping path's for the particle
@@ -2694,6 +3111,7 @@ def main() -> None:
         k["launches_by_path"] = {
             "tiny": tiny_launches[k["name"]], "viny": viny_launches[k["name"]],
             "full": full_launches[k["name"]], "gmapping": gm_launches[k["name"]],
+            "gmapping preset": base_launches[k["name"]],
             "viny_m3rsm": m3_launches[k["name"]], "full_m3rsm": full_m3_launches[k["name"]],
             f"viny, one overlap_score launch a round, {ROUNDS_PATH_SCANS} scans":
                 rounds_launches[k["name"]],
@@ -2701,7 +3119,13 @@ def main() -> None:
             "viny_m3rsm, a level launch a level and a score launch a round":
                 levels_launches[k["name"]],
             **{f"cli {name}": counts[k["name"]] for name, counts in cli_launches.items()}}
-    print(json.dumps({"kernels": [k1, k3, k2, k4, k5, k6, k7, k8, k9, k10, k11]}), flush=True)
+    # the reducer variants of the particle match: launches of the gmapping
+    # preset's timed run, by reducer (the path scores with the obstacle one)
+    for k in k_red:
+        k["launches"] = base_by_reducer[k["name"].split(" ")[0]]
+        k["launches_by_path"] = {"gmapping preset": k["launches"]}
+    print(json.dumps({"kernels": [k1, k3, k2, k4, k5, k6, k7, k8, k9, k10, k11, *k_red]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
 

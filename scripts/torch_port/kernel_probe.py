@@ -55,7 +55,9 @@ cluster barrier with the reads of the scores, and selection, the argmax,
 and the hill climb's first score and rounds. Cycles are turned into time
 with the SM clock that the stamps themselves give.
 
-``--times`` times only the wrappers that every version of the port has
+``--times`` prints each source's build seconds where the checkout keeps
+them and ptxas' report, then times only the wrappers that every version of
+the port has
 (the batched score at the six shapes above, the particle match at the
 RBPF's shape, ``overlap_score``, ``polar_free_plane``, ``mc_match`` tiny and
 viny; the M3RSM kernels where the checkout has them, and a whole
@@ -476,7 +478,12 @@ def times_main(dev) -> None:
     from slam_constructor_tpu_torch.models.engine import init_state
     from slam_constructor_tpu_torch.ops import _build, kernels, raycast, scoring
 
-    print(f"build: {_build.build().seconds:.2f} s", flush=True)
+    res = _build.build()
+    print(f"build: {res.seconds:.2f} s; by source {getattr(res, 'source_seconds', 'not kept')}",
+          flush=True)
+    for line in res.log.splitlines():
+        if "registers" in line or "Compiling entry" in line or "spill" in line:
+            print(f"  ptxas: {line.strip()}")
     pose, scan, prep = scene(dev)
     mc = {}
     for name, cfg in (("tiny", tiny.tiny_config(map_size=256)), ("viny", viny.viny_config(map_size=256))):

@@ -3,6 +3,7 @@
     JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --preset viny [--port] [--keys 5]
     JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --preset full [--port] [--keys 5]
     JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --preset gmapping [--port] [--keys 5]
+    JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --preset gmapping_baseline [--port] [--keys 5]
     JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --preset viny_m3rsm [--port]
     JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --preset full_m3rsm [--port] [--keys 5]
     JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --config configs/X.properties [--port] [--keys 5]
@@ -61,6 +62,13 @@ matcher normals and resampling offsets rebuilt from the key chain) and
 prints how far its poses, weights and genealogy lie from the reference's,
 and how often an insert window was clamped at the map's edge.
 
+With ``--preset gmapping_baseline`` the same with the reference's
+``GMappingConfig()`` at its defaults (``utils.config.preset('gmapping')``,
+the BASELINE gmapping config: 30 whole 256^2 maps at 0.1 m, no match or
+insert window, 360 beams scored with the obstacle reducer, 16 x 6
+Monte-Carlo rounds at sigma 0.08 / 0.04, the DDA free fill to 15 m) and the
+port's ``GMappingConfig()``.
+
 With ``--preset viny_m3rsm`` the reference's ``viny_m3rsm_config(map_size=
 256)`` (the M3RSM global matcher on every scan, the DDA free fill) runs
 over the same 512 scans. M3RSM draws no noise, so one run is the figure;
@@ -108,7 +116,8 @@ from chip_smoke import (  # noqa: E402  (the same sequences and configuration)
 )
 
 FREE_IMPL = {"tiny": "dda", "viny": "polar"}
-PRESETS = [*sorted(FREE_IMPL), "viny_m3rsm", "full", "full_m3rsm", "gmapping", "gmapping_2lap"]
+PRESETS = [*sorted(FREE_IMPL), "viny_m3rsm", "full", "full_m3rsm", "gmapping", "gmapping_2lap",
+           "gmapping_baseline"]
 #: the reference's RBPF quality protocol's seeds (scripts/r3/gm_multiseed.py)
 MULTISEED = (42, 7, 19, 101, 202)
 
@@ -496,8 +505,11 @@ def gmapping_preset(args) -> dict:
     two_laps = args.preset == "gmapping_2lap"
     scans, odom, gt = gmapping_quality_sequence("cpu") if two_laps else bench_sequence("cpu")
     n_scans = len(gt)
-    jcfg = jgm.fast_config(n_particles=30, map_size=MAP)
-    tcfg = tgm.fast_config(n_particles=30, map_size=MAP)
+    if args.preset == "gmapping_baseline":  # GMappingEngine()'s defaults
+        jcfg, tcfg = jgm.GMappingConfig(), tgm.GMappingConfig()
+    else:
+        jcfg = jgm.fast_config(n_particles=30, map_size=MAP)
+        tcfg = tgm.fast_config(n_particles=30, map_size=MAP)
     p = jcfg.n_particles
 
     def as_jax(scans):

@@ -1,7 +1,8 @@
-// climb.cuh: the hill climb of the overlap score inside one block, shared by
+// climb.cuh: the hill climb of the scan score inside one block, shared by
 // hill_climb.cu (the hill-climbing matcher's whole refine in one launch) and
 // m3rsm_match.cu (the climb that ends an M3RSM match), so both give the
-// bits of kernels.hill_climb_loop over overlap_score.cu:
+// bits of kernels.hill_climb_loop over overlap_score.cu, for every reducer
+// (the climb's score reads a beam as its overlap::Reducer says):
 //
 //   prob = score(pose)
 //   each round: cand_a = pose + unit_a * steps, a = 0..5 (+x, -x, +y, -y,
@@ -70,10 +71,11 @@ template <class Plane>
 __device__ __forceinline__ float group_score(State& st, const Plane& at, int h, int w, float x,
                                              float y, float th, const float* pts,
                                              const float* bw, int r, float ox, float oy,
-                                             float scale, float unknown, int g, int t) {
+                                             float scale, float unknown,
+                                             const overlap::Reducer& red, int g, int t) {
   const overlap::Pose q{x, y, cosf(th), sinf(th)};
   float num, den;
-  overlap::beam_sums_at(at, h, w, q, pts, bw, r, t, ox, oy, scale, unknown, num, den);
+  overlap::beam_sums_at(at, h, w, q, pts, bw, r, t, ox, oy, scale, unknown, red, num, den);
   overlap::group_reduce(num, den, st.num + g * overlap::kGroupThreads,
                         st.den + g * overlap::kGroupThreads, t, 1 + g);
   return overlap::weighted_mean(num, den);
@@ -89,13 +91,13 @@ __device__ __forceinline__ float group_score(State& st, const Plane& at, int h, 
 template <class Plane, class Stamp>
 __device__ __forceinline__ void run(State& st, const Plane& at, int h, int w, const float* pts,
                                     const float* bw, int r, float ox, float oy, float scale,
-                                    float unknown, int iterations, float shrink, float* trace,
-                                    Stamp stamp) {
+                                    float unknown, const overlap::Reducer& red, int iterations,
+                                    float shrink, float* trace, Stamp stamp) {
   const int g = threadIdx.x / overlap::kGroupThreads;
   const int t = threadIdx.x % overlap::kGroupThreads;
   if (g == 0) {
     const float p = group_score(st, at, h, w, st.pose[0], st.pose[1], st.pose[2], pts, bw, r,
-                                ox, oy, scale, unknown, g, t);
+                                ox, oy, scale, unknown, red, g, t);
     if (t == 0) st.prob = p;
   }
   __syncthreads();
@@ -105,7 +107,7 @@ __device__ __forceinline__ void run(State& st, const Plane& at, int h, int w, co
       float cand[3];
       candidate(st, g, cand);
       const float p = group_score(st, at, h, w, cand[0], cand[1], cand[2], pts, bw, r, ox, oy,
-                                  scale, unknown, g, t);
+                                  scale, unknown, red, g, t);
       if (t == 0) {
         st.round[g] = p;
         st.cand[g][0] = cand[0];

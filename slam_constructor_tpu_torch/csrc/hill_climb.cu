@@ -6,8 +6,9 @@
 // Replaces the loop of slam_constructor_tpu/ops/matchers.py:
 // hill_climbing_match (a lax.scan of rounds, each scoring six poses through
 // scoring.score_poses, whose TPU kernel is pallas_kernels.py:
-// sample_plane_bilinear) with what kernels.hill_climb_loop computes over
-// overlap_score.cu, bit for bit: the first score, then `iterations` rounds of
+// sample_plane_bilinear, or the gather path for the other reducers) with
+// what kernels.hill_climb_loop computes over overlap_score.cu, bit for bit,
+// for every reducer: the first score, then `iterations` rounds of
 // six axis steps, the best kept if strictly better, else the steps shrunk
 // (climb.cuh). M maps, each with its own plane, scan, origin and start pose,
 // are M blocks of one launch; a map of the batch gets the bits of a single
@@ -38,7 +39,8 @@ __global__ void __launch_bounds__(climb::kThreads)
 hill_climb_kernel(const float* __restrict__ v, int h, int w, const float* __restrict__ pts,
                   const float* __restrict__ beam_w, int r, const float* __restrict__ origin,
                   const float* __restrict__ pose, float scale, float unknown, float step_xy,
-                  float step_theta, float shrink, int iterations, float* __restrict__ pose_out,
+                  float step_theta, float shrink, int iterations, const overlap::Reducer red,
+                  float* __restrict__ pose_out,
                   float* __restrict__ prob_out, float* __restrict__ trace_out) {
   extern __shared__ float smem[];
   __shared__ climb::State st;
@@ -62,7 +64,8 @@ hill_climb_kernel(const float* __restrict__ v, int h, int w, const float* __rest
   }
   __syncthreads();
   climb::run(st, overlap::LdgPlane{v, w}, h, w, s_pts, s_bw, r, __ldg(origin + 0),
-             __ldg(origin + 1), scale, unknown, iterations, shrink, trace_out + m * iterations,
+             __ldg(origin + 1), scale, unknown, red, iterations, shrink,
+             trace_out + m * iterations,
              [](int) {});
   if (threadIdx.x == 0) {
     pose_out[3 * m + 0] = st.pose[0];
@@ -76,14 +79,20 @@ hill_climb_kernel(const float* __restrict__ v, int h, int w, const float* __rest
 
 // v f32[m, h, w], pts f32[m, r, 2], beam_w f32[m, r], origin f32[m, 2], pose
 // f32[m, 3] -> pose_out f32[m, 3], prob_out f32[m], trace_out f32[m,
-// iterations], all contiguous. Launches on `stream` (PyTorch's current
-// stream), does not synchronise and allocates nothing. Returns the
-// cudaError_t of the launch (0 = ok).
+// iterations], all contiguous; a beam's endpoint read by the reducer
+// (reducer, radius, extent): overlap_sample.cuh. Launches on `stream`
+// (PyTorch's current stream), does not synchronise and allocates nothing.
+// Returns the cudaError_t of the launch (0 = ok).
 extern "C" int hill_climb_launch(const float* v, int m, int h, int w, const float* pts,
                                  const float* beam_w, int r, const float* origin,
                                  const float* pose, float scale, float unknown, float step_xy,
-                                 float step_theta, float shrink, int iterations, float* pose_out,
-                                 float* prob_out, float* trace_out, void* stream) {
+                                 float step_theta, float shrink, int iterations, int reducer,
+                                 int radius, float extent, float* pose_out, float* prob_out,
+                                 float* trace_out, void* stream) {
+  overlap::Reducer red;
+  if (!overlap::make_reducer(reducer, radius, extent, &red)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (m <= 0) return 0;
   const size_t shared = 12 * static_cast<size_t>(r);  // the points and weights
   if (shared + sizeof(climb::State) > 48 * 1024) {  // above the default cap: opt in
@@ -93,6 +102,6 @@ extern "C" int hill_climb_launch(const float* v, int m, int h, int w, const floa
   }
   hill_climb_kernel<<<m, climb::kThreads, shared, static_cast<cudaStream_t>(stream)>>>(
       v, h, w, pts, beam_w, r, origin, pose, scale, unknown, step_xy, step_theta, shrink,
-      iterations, pose_out, prob_out, trace_out);
+      iterations, red, pose_out, prob_out, trace_out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -27,7 +27,8 @@
 //     steps; trace[round] = prob
 //
 // with wrap_angle(t) = atan2f(sinf(t), cosf(t)), the hill climb's score the
-// weighted mean of overlap_sample.cuh over its own beams (the scan on every
+// weighted mean of overlap_sample.cuh (by the match's reducer: M3RSMConfig()
+// scores with the obstacle reducer) over its own beams (the scan on every
 // stride-th beam, scoring.prepare) on the search's level-0 window of the map
 // where(known, occ, unknown), read in place: a cell off the window reads
 // `unknown`, as the window cut out there does.
@@ -148,6 +149,7 @@ struct Search {
   int window;  // the window's side (0: the whole map)
   int n_t, r, stride, r2, k0, levels, beam_width, k_max, iterations;
   float scale, unknown, step_xy, step_theta, shrink;
+  overlap::Reducer red;  // how the hill climb's score reads a beam
 };
 
 // the larger of a and b, NaN if either is NaN (fmaxf would drop a NaN)
@@ -540,7 +542,7 @@ m3rsm_match_kernel(const Pyramid pyr, const Search s) {
     const int h = min(pyr.wh[0], pyr.hp[0] - row0);
     const int w = min(pyr.ww[0], pyr.wp[0] - col0);
     climb::run(st, win, h, w, s_pts, s_bw, s.r2, s_origin[0], s_origin[1], s.scale, s.unknown,
-               s.iterations, s.shrink, s.trace_out + b * s.iterations, [&](int round) {
+               s.red, s.iterations, s.shrink, s.trace_out + b * s.iterations, [&](int round) {
                  if (round < 0) {
                    PROBE_STAMP(stamped, kProbeFirst);
                  } else if (kProbeRound + round < kProbeCells) {
@@ -647,18 +649,21 @@ extern "C" int m3rsm_match_shared_bytes(int h, int w, int window, int levels, in
 // pose_out f32[b, 3], prob_out f32[b], trace_out f32[b, iterations].
 // k_max: the largest frontier of the search (k0, then 4 min(beam_width, K)
 // a level); shared_bytes: m3rsm_match_shared_bytes's `bytes` for these
-// sizes. Returns the cudaError_t of the launch (0 = ok).
+// sizes. The hill climb reads a beam by the reducer (reducer, radius,
+// extent): overlap_sample.cuh. Returns the cudaError_t of the launch (0 =
+// ok).
 extern "C" int m3rsm_match_launch(
     const float* pyramid, int n_planes, int h, int w, int levels, const float* occ,
     const unsigned char* known, int occ_stride, const float* origin, int window,
     const float* pts, const float* mask, int r, int stride, const float* prior, int b,
     const int* top, int k0, const float* thetas, int n_t, int beam_width, float scale,
-    float unknown, float step_xy, float step_theta, float shrink, int iterations,
-    float* pose_out, float* prob_out, float* trace_out, int k_max, int shared_bytes,
-    void* stream) {
+    float unknown, float step_xy, float step_theta, float shrink, int iterations, int reducer,
+    int radius, float extent, float* pose_out, float* prob_out, float* trace_out, int k_max,
+    int shared_bytes, void* stream) {
   const int r2 = climb_beams(r, stride, iterations);
   if (levels < 0 || levels > kMaxLevels) return static_cast<int>(cudaErrorInvalidValue);
   Pyramid pyr{};
+  overlap::Reducer s_red{};
   const int win_h = window > 0 ? window : h, win_w = window > 0 ? window : w;
   const long long base = base_bytes(n_t, r, r2, k_max);
   const int n = window_floats(win_h, win_w, levels, pyr.staged);
@@ -667,7 +672,8 @@ extern "C" int m3rsm_match_launch(
       window < 0 || window > h || window > w ||
       (window > 0 && (window % (1 << levels) || h % (1 << levels) || w % (1 << levels))) ||
       n_t <= 0 || r < 0 || stride < 1 || k0 <= 0 || beam_width <= 0 || k_max < k0 ||
-      iterations < 0 || occ_stride < 1 || shared_bytes < base) {
+      iterations < 0 || occ_stride < 1 || shared_bytes < base ||
+      !overlap::make_reducer(reducer, radius, extent, &s_red)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   long long offset = 0;
@@ -683,6 +689,7 @@ extern "C" int m3rsm_match_launch(
     offset += static_cast<long long>(n_planes) * hl * wl;
   }
   Search s{};
+  s.red = s_red;
   s.occ = occ;
   s.known = known;
   s.origin = origin;

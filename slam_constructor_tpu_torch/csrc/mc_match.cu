@@ -26,7 +26,13 @@
 //     if bad >= bad_rounds_before_anneal: sigma *= 0.5; bad = 0
 //
 // with wrap_angle(t) = atan2f(sinf(t), cosf(t)) and score() the weighted
-// mean of overlap_sample.cuh over the scan's beams. The standard normals
+// mean of overlap_sample.cuh over the scan's beams, each beam's endpoint
+// read by the match's reducer (the bilinear taps above; or the obstacle,
+// max, mean or general overlap reducer of the reference's gather path, a
+// uniform code tested before the beam loop, so no reducer adds an
+// instantiation; the other reducers' loop is called, not inlined, which
+// keeps the bilinear loop as fast as it was). GMappingConfig()'s defaults
+// match 30 whole 256^2 maps with the obstacle reducer: one tap a beam. The standard normals
 // `noise` are drawn outside, by PyTorch.
 //
 // What bounds it on an H100: neither bytes nor operations. The RBPF's 30
@@ -161,8 +167,8 @@ mc_match_kernel(const float* __restrict__ occ, const unsigned char* __restrict__
                 const float* __restrict__ origin, const float* __restrict__ init_pose,
                 const float* __restrict__ noise, int rounds, int k, float scale,
                 float unknown, float sigma_xy, float sigma_theta, int bad_limit,
-                float* __restrict__ pose_out, float* __restrict__ prob_out,
-                float* __restrict__ trace_out) {
+                const overlap::Reducer red, float* __restrict__ pose_out,
+                float* __restrict__ prob_out, float* __restrict__ trace_out) {
   extern __shared__ float smem[];
   __shared__ float s_num[kThreads];
   __shared__ float s_den[kThreads];
@@ -231,7 +237,8 @@ mc_match_kernel(const float* __restrict__ occ, const unsigned char* __restrict__
   if (g == 0) {  // the first pose, in every block
     const overlap::Pose q{st.pose[0], st.pose[1], cosf(st.pose[2]), sinf(st.pose[2])};
     float num, den;
-    overlap::beam_sums_at(plane, h, w, q, s_pts, s_bw, r, t, ox, oy, scale, unknown, num, den);
+    overlap::beam_sums_at<true>(plane, h, w, q, s_pts, s_bw, r, t, ox, oy, scale, unknown, red,
+                                num, den);
     overlap::group_reduce(num, den, g_num, g_den, t, barrier_id);
     if (t == 0) st.prob = overlap::weighted_mean(num, den);
   }
@@ -249,7 +256,8 @@ mc_match_kernel(const float* __restrict__ occ, const unsigned char* __restrict__
       const int part = probe::kRound + probe::kParts * round;  // the probe's slots
       if (threadIdx.x == 0 && pass == 0) PROBE_STAMP(stamped, part + 0);
       float num, den;
-      overlap::beam_sums_at(plane, h, w, q, s_pts, s_bw, r, t, ox, oy, scale, unknown, num, den);
+      overlap::beam_sums_at<true>(plane, h, w, q, s_pts, s_bw, r, t, ox, oy, scale, unknown, red,
+                                  num, den);
       if (threadIdx.x == 0 && pass == 0) PROBE_STAMP(stamped, part + 1);
       overlap::group_reduce(num, den, g_num, g_den, t, barrier_id);
       if (t == 0) mine[pass * kGroups + g] = overlap::weighted_mean(num, den);
@@ -349,7 +357,9 @@ Kernel kernel_for(int blocks) {
 // prob_out[p], trace_out[p] (rounds). `shared_bytes` is the dynamic shared
 // memory the caller asks for a block: at least (3 r + 2 * 8 * passes + 3
 // rounds k) floats, passes = ceil(k / (8 * blocks)), and with the kernel's
-// static 8.2 KB within the 227 KB a block can have. Returns the
+// static 8.2 KB within the 227 KB a block can have. A beam's endpoint is
+// read by the reducer (reducer, radius, extent): overlap_sample.cuh; every
+// reducer runs the same instantiations and launch geometry. Returns the
 // cudaError_t of the launch (0 = ok).
 extern "C" int mc_match_launch(const float* occ, const unsigned char* known, int occ_stride,
                                int n_p, int map_h, int map_w, const long long* row,
@@ -357,11 +367,12 @@ extern "C" int mc_match_launch(const float* occ, const unsigned char* known, int
                                const float* beam_w, int r, const float* origin,
                                const float* init_pose, const float* noise, int rounds,
                                int k, float scale, float unknown, float sigma_xy,
-                               float sigma_theta, int bad_limit, float* pose_out,
-                               float* prob_out, float* trace_out, int shared_bytes,
-                               void* stream) {
+                               float sigma_theta, int bad_limit, int reducer, int radius,
+                               float extent, float* pose_out, float* prob_out, float* trace_out,
+                               int shared_bytes, void* stream) {
   const bool window = known != nullptr;
-  if (n_p <= 0 || n_p > 65535 || h <= 0 || w <= 0 || h > map_h || w > map_w || r < 0 ||
+  overlap::Reducer red;
+  if (!overlap::make_reducer(reducer, radius, extent, &red) || n_p <= 0 || n_p > 65535 || h <= 0 || w <= 0 || h > map_h || w > map_w || r < 0 ||
       rounds < 0 || k < 0 || (rounds > 0 && k == 0) || occ_stride < 1 ||
       (window ? (row == nullptr || col == nullptr)
               : (occ_stride != 1 || h != map_h || w != map_w))) {
@@ -395,7 +406,7 @@ extern "C" int mc_match_launch(const float* occ, const unsigned char* known, int
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, occ, known, occ_stride, map_h, map_w, row, col, h, w, pts, beam_w, r,
-      origin, init_pose, noise, rounds, k, scale, unknown, sigma_xy, sigma_theta, bad_limit,
+      origin, init_pose, noise, rounds, k, scale, unknown, sigma_xy, sigma_theta, bad_limit, red,
       pose_out, prob_out, trace_out);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

@@ -1,10 +1,26 @@
-// overlap_sample.cuh: the per-beam arithmetic of the scan-overlap score,
-// shared by overlap_score.cu (one launch scores K poses on M planes),
-// overlap_score_grad.cu (the score and its pose gradient) and mc_match.cu
-// (one launch runs whole Monte-Carlo matches), so that all give the same
-// bits for the same pose. A plane is read through an accessor: the
-// plane itself (LdgPlane), or a window of a map read in place (MapWindow),
-// which gives the cells the cut-out window would hold.
+// overlap_sample.cuh: the per-beam arithmetic of the scan score, shared by
+// overlap_score.cu (one launch scores K poses on M planes),
+// overlap_score_grad.cu (the score and its pose gradient), mc_match.cu (one
+// launch runs whole Monte-Carlo matches) and climb.cuh (the hill climb of
+// hill_climb.cu and m3rsm_match.cu), so that all give the same bits for the
+// same pose. A plane is read through an accessor: the plane itself
+// (LdgPlane), or a window of a map read in place (MapWindow), which gives
+// the cells the cut-out window would hold.
+//
+// A beam's endpoint reads the plane as its Reducer says (reduce_at(), the
+// reference's gather path, slam_constructor_tpu/ops/scoring.py:score_poses):
+// kBilinear, the overlap reducer at extent 1 with a window of at least one
+// cell, is sample_at() below (the Pallas kernel's bilinear taps); kObstacle
+// reads the cell (floor(y), floor(x)); kMax and kMean the max and the mean
+// of the (2 radius + 1)^2 cells around it, rows outer and columns inner (the
+// reference's meshgrid(ij) order); kOverlap the general overlap reducer: each
+// of those cells weighted by its overlap with the endpoint's square of side
+// `extent`, the sum divided by the sum of the weights. A cell off the map
+// (or off the window read in place) reads `unknown` for these, as
+// grid.gather_plane fills it. The cell is compared in float before it is
+// converted, so a NaN or huge position lands off the map. The code is one
+// uniform value a launch: beam_sums_at() keeps the bilinear loop as it was
+// and takes the other reducers in a second loop (inlined, or called).
 //
 // sample_at() is the math of the TPU kernel's body (slam_constructor_tpu/ops/
 // pallas_kernels.py: _bilinear_kernel): per axis i0 = floor(pos - 0.5) and
@@ -21,6 +37,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 namespace overlap {
 
@@ -163,13 +180,139 @@ __device__ __forceinline__ float sample_grad_at(const Plane& at, int h, int w, c
   return tap_value(t, unknown);
 }
 
-// One thread's share of a pose's score: beams t, t + kGroupThreads, ... in
-// that order; beams of weight 0 (invalid) are skipped.
+// How a beam's endpoint reads the plane: the codes of kernels.Reducer.
+enum ReducerKind : int { kBilinear = 0, kObstacle = 1, kMax = 2, kMean = 3, kOverlap = 4 };
+
+struct Reducer {
+  int kind;      // a ReducerKind
+  int radius;    // the window's radius in cells (kMax, kMean, kOverlap)
+  float extent;  // the side of the endpoint's square in cells (kOverlap)
+};
+
+// jnp.maximum / jnp.minimum: NaN if either is NaN (fmaxf and fminf drop it).
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return isnan(a) || isnan(b) ? a + b : fmaxf(a, b);
+}
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return isnan(a) || isnan(b) ? a + b : fminf(a, b);
+}
+
+// The plane at the cell (fy, fx) (floats that hold integers, or NaN), or
+// `unknown` where it lies off the h x w plane; compared before the cast.
 template <class Plane>
+__device__ __forceinline__ float cell_or_unknown(const Plane& at, int h, int w, float fy, float fx,
+                                                 float unknown) {
+  const bool ok = fy >= 0.0f && fy < static_cast<float>(h) && fx >= 0.0f &&
+                  fx < static_cast<float>(w);
+  return ok ? at(static_cast<int>(fy), static_cast<int>(fx)) : unknown;
+}
+
+// The probability of the endpoint (qx, qy), given in the sensor frame, seen
+// from `p`, by a reducer other than kBilinear (see the head of this file).
+// The position is sample_at()'s, op by op.
+template <class Plane>
+__device__ __forceinline__ float reduce_at(const Reducer& red, const Plane& at, int h, int w,
+                                           const Pose& p, float qx, float qy, float ox,
+                                           float oy, float scale, float unknown) {
+  const float wx = (p.x + p.c * qx) - p.s * qy;
+  const float wy = (p.y + p.s * qx) + p.c * qy;
+  const float x = (wx - ox) / scale;
+  const float y = (wy - oy) / scale;
+  const float fx = floorf(x);
+  const float fy = floorf(y);
+  if (red.kind == kObstacle) return cell_or_unknown(at, h, w, fy, fx, unknown);
+  const int n = red.radius;
+  if (red.kind == kOverlap) {
+    // the square [e - half, e + half) per axis, e the position in its cell,
+    // against cell d's [d, d + 1): the reference's closed form
+    const float half = 0.5f * red.extent;
+    const float ex = x - fx;
+    const float ey = y - fy;
+    float num = 0.0f, wsum = 0.0f;
+    for (int dr = -n; dr <= n; ++dr) {
+      const float d = static_cast<float>(dr);
+      const float len_y = max_nan(min_nan(d + 1.0f, ey + half) - max_nan(d, ey - half), 0.0f);
+      for (int dc = -n; dc <= n; ++dc) {
+        const float e = static_cast<float>(dc);
+        const float len_x = max_nan(min_nan(e + 1.0f, ex + half) - max_nan(e, ex - half), 0.0f);
+        const float wgt = len_x * len_y;
+        wsum += wgt;
+        num += cell_or_unknown(at, h, w, fy + d, fx + e, unknown) * wgt;
+      }
+    }
+    return num / max_nan(wsum, 1e-9f);
+  }
+  // kMax, kMean: rows outer, columns inner; a NaN cell makes the max NaN
+  float acc = red.kind == kMax ? -CUDART_INF_F : 0.0f;
+  for (int dr = -n; dr <= n; ++dr) {
+    for (int dc = -n; dc <= n; ++dc) {
+      const float v = cell_or_unknown(at, h, w, fy + static_cast<float>(dr),
+                                      fx + static_cast<float>(dc), unknown);
+      if (red.kind == kMax) {
+        acc = (v > acc || isnan(v)) ? v : acc;
+      } else {
+        acc += v;
+      }
+    }
+  }
+  if (red.kind == kMax) return acc;
+  const int side = 2 * n + 1;
+  return acc / static_cast<float>(side * side);
+}
+
+// beam_sums_at() for a reducer other than kBilinear: the same beams in the
+// same order.
+template <class Plane>
+__device__ __forceinline__ void beam_sums_reduced(const Plane& at, int h, int w, const Pose& p,
+                                                  const float* pts, const float* beam_w, int r,
+                                                  int t, float ox, float oy, float scale,
+                                                  float unknown, const Reducer& red, float& num,
+                                                  float& den) {
+  float n = 0.0f, d = 0.0f;
+  for (int i = t; i < r; i += kGroupThreads) {
+    const float bw = beam_w[i];
+    if (bw == 0.0f) continue;
+    const float pr = reduce_at(red, at, h, w, p, pts[2 * i + 0], pts[2 * i + 1], ox, oy, scale,
+                               unknown);
+    n += bw * pr;
+    d += bw;
+  }
+  num = n;
+  den = d;
+}
+
+// The same, not inlined: a kernel that passes kOutlined to beam_sums_at()
+// keeps in its bilinear loop the code and the registers it has without the
+// other reducers, and pays one call a pass for them.
+template <class Plane>
+__device__ __noinline__ void beam_sums_outlined(const Plane& at, int h, int w, const Pose& p,
+                                                const float* pts, const float* beam_w, int r,
+                                                int t, float ox, float oy, float scale,
+                                                float unknown, const Reducer& red, float& num,
+                                                float& den) {
+  beam_sums_reduced(at, h, w, p, pts, beam_w, r, t, ox, oy, scale, unknown, red, num, den);
+}
+
+// One thread's share of a pose's score: beams t, t + kGroupThreads, ... in
+// that order; beams of weight 0 (invalid) are skipped. kOutlined: the
+// reducers other than kBilinear through a call (mc_match.cu: measured
+// faster there; inlined, its windows read in place ran 10% slower), else
+// inlined (faster in overlap_score.cu and climb.cuh, and in m3rsm_match.cu,
+// where the call costs 17%).
+template <bool kOutlined = false, class Plane>
 __device__ __forceinline__ void beam_sums_at(const Plane& at, int h, int w, const Pose& p,
                                              const float* pts, const float* beam_w, int r,
                                              int t, float ox, float oy, float scale,
-                                             float unknown, float& num, float& den) {
+                                             float unknown, const Reducer& red, float& num,
+                                             float& den) {
+  if (red.kind != kBilinear) {
+    if constexpr (kOutlined) {
+      beam_sums_outlined(at, h, w, p, pts, beam_w, r, t, ox, oy, scale, unknown, red, num, den);
+    } else {
+      beam_sums_reduced(at, h, w, p, pts, beam_w, r, t, ox, oy, scale, unknown, red, num, den);
+    }
+    return;
+  }
   num = 0.0f;
   den = 0.0f;
   for (int i = t; i < r; i += kGroupThreads) {
@@ -186,8 +329,21 @@ __device__ __forceinline__ void beam_sums(const float* __restrict__ v, int h, in
                                           const Pose& p, const float* pts,
                                           const float* beam_w, int r, int t, float ox,
                                           float oy, float scale, float unknown,
-                                          float& num, float& den) {
-  beam_sums_at(LdgPlane{v, w}, h, w, p, pts, beam_w, r, t, ox, oy, scale, unknown, num, den);
+                                          const Reducer& red, float& num, float& den) {
+  beam_sums_at(LdgPlane{v, w}, h, w, p, pts, beam_w, r, t, ox, oy, scale, unknown, red, num,
+               den);
+}
+
+// The reducer's code, radius and extent as a launch takes them; false where
+// they are not one of the codes above with a radius of 0 to 4096 cells and a
+// finite, positive extent.
+__host__ __device__ inline bool make_reducer(int kind, int radius, float extent, Reducer* out) {
+  if (kind < kBilinear || kind > kOverlap || radius < 0 || radius > 4096 ||
+      !(extent > 0.0f && extent < 1e30f)) {
+    return false;
+  }
+  *out = Reducer{kind, radius, extent};
+  return true;
 }
 
 // Barrier `id` for the kGroupThreads threads of one group (id 0 is the one

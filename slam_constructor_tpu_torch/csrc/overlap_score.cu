@@ -5,7 +5,9 @@
 // Replaces the TPU kernel slam_constructor_tpu/ops/pallas_kernels.py:
 // sample_plane_bilinear (body _bilinear_kernel), fused with what
 // ops/scoring.py:score_poses computes around it at overlap extent 1: the
-// pose transform of the sensor-frame endpoints and _weighted_mean.
+// pose transform of the sensor-frame endpoints and _weighted_mean; and, with
+// another reducer (obstacle, max, mean, the overlap at any extent), the
+// gather path of score_poses that the reference runs off the TPU for them.
 //
 //   score[m, k] = sum_r beam_w[m, r] * sample(v[m], (apply_pose(poses[m, k],
 //                 pts[m, r]) - origin[m]) / scale)
@@ -52,7 +54,7 @@ overlap_score_kernel(const float* __restrict__ v, int h, int w,
                      const float* __restrict__ pts,
                      const float* __restrict__ beam_w, int r,
                      const float* __restrict__ origin, float scale,
-                     float unknown, float* __restrict__ out) {
+                     float unknown, const overlap::Reducer red, float* __restrict__ out) {
   __shared__ float trig[2];
   __shared__ float s_num[kThreads];
   __shared__ float s_den[kThreads];
@@ -76,7 +78,7 @@ overlap_score_kernel(const float* __restrict__ v, int h, int w,
 
   float num, den;
   overlap::beam_sums(v, h, w, p, pts, beam_w, r, threadIdx.x, __ldg(origin + 0),
-                     __ldg(origin + 1), scale, unknown, num, den);
+                     __ldg(origin + 1), scale, unknown, red, num, den);
   overlap::group_reduce(num, den, s_num, s_den, threadIdx.x, 0);
   if (threadIdx.x == 0) out[k] = overlap::weighted_mean(num, den);
 }
@@ -84,18 +86,24 @@ overlap_score_kernel(const float* __restrict__ v, int h, int w,
 }  // namespace
 
 // v f32[m, h, w], poses f32[m, k, 3], pts f32[m, r, 2], beam_w f32[m, r],
-// origin f32[m, 2] -> out f32[m, k], all contiguous. Launches on `stream`
-// (PyTorch's current stream), does not synchronise and allocates nothing.
-// Returns the cudaError_t of the launch (0 = ok).
+// origin f32[m, 2] -> out f32[m, k], all contiguous; a beam's endpoint read
+// by the reducer (reducer, radius, extent): overlap_sample.cuh. Launches on
+// `stream` (PyTorch's current stream), does not synchronise and allocates
+// nothing. Returns the cudaError_t of the launch (0 = ok).
 extern "C" int overlap_score_launch(const float* v, int m, int h, int w,
                                     const float* poses, int k,
                                     const float* pts, const float* beam_w,
                                     int r, const float* origin, float scale,
-                                    float unknown, float* out, void* stream) {
+                                    float unknown, int reducer, int radius, float extent,
+                                    float* out, void* stream) {
+  overlap::Reducer red;
+  if (!overlap::make_reducer(reducer, radius, extent, &red)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (k <= 0 || m <= 0) return 0;
   if (m > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(k, m);
   overlap_score_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      v, h, w, poses, pts, beam_w, r, origin, scale, unknown, out);
+      v, h, w, poses, pts, beam_w, r, origin, scale, unknown, red, out);
   return static_cast<int>(cudaGetLastError());
 }

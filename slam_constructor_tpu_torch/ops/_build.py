@@ -41,6 +41,9 @@ class BuildResult:
     path: Path
     seconds: float  # 0.0 when the library was already built
     log: str  # nvcc's output (register and shared-memory use per kernel)
+    #: each source's nvcc wall seconds, from the common start (empty when
+    #: the library was already built)
+    source_seconds: dict = dataclasses.field(default_factory=dict)
 
 
 def find_nvcc() -> str:
@@ -93,15 +96,22 @@ def build(extra_flags: tuple[str, ...] = ()) -> BuildResult:
         for src, obj in zip(_sources(), objs)
     ]
     t0 = time.perf_counter()
+    logs = [obj.with_name(f"{obj.name}.log") for obj in objs]
     try:
-        # one nvcc a source, all started together
-        procs = [
-            subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for c in cmds
-        ]
+        # one nvcc a source, all started together, each writing its own log
+        procs = []
+        for c, lf in zip(cmds, logs):
+            with open(lf, "w") as f:
+                procs.append(subprocess.Popen(c, stdout=f, stderr=subprocess.STDOUT, text=True))
+        ends = {}
+        while len(ends) < len(procs):
+            for src, proc in zip(_sources(), procs):
+                if src.name not in ends and proc.poll() is not None:
+                    ends[src.name] = time.perf_counter() - t0
+            time.sleep(0.02)
         log = ""
-        for cmd, proc in zip(cmds, procs):
-            text, _ = proc.communicate()
+        for cmd, proc, lf in zip(cmds, procs, logs):
+            text = lf.read_text()
             log += text
             if proc.returncode != 0:
                 for other in procs:
@@ -115,9 +125,9 @@ def build(extra_flags: tuple[str, ...] = ()) -> BuildResult:
             raise RuntimeError(f"nvcc failed ({done.returncode}): {' '.join(link)}\n{log}")
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     finally:
-        for f in (tmp, *objs):
+        for f in (tmp, *objs, *logs):
             f.unlink(missing_ok=True)
-    return BuildResult(out, time.perf_counter() - t0, log)
+    return BuildResult(out, time.perf_counter() - t0, log, ends)
 
 
 @functools.cache

@@ -1,9 +1,13 @@
 """Kernel wrappers and their plain PyTorch twins.
 
-``overlap_score`` scores K candidate poses against a map plane with the
-overlap reducer at extent 1. It replaces the TPU kernel
-``slam_constructor_tpu/ops/pallas_kernels.py::sample_plane_bilinear`` fused
-with the pose transform and weighted mean of ``scoring.score_poses``.
+``overlap_score`` scores K candidate poses against a map plane. It replaces
+the TPU kernel ``slam_constructor_tpu/ops/pallas_kernels.py::
+sample_plane_bilinear`` (the overlap reducer at extent 1) fused with the
+pose transform and weighted mean of ``scoring.score_poses``; with another
+:class:`Reducer` (the obstacle, max and mean reducers, the overlap reducer
+at any extent and window) it is the reference's gather path for them. Every
+scoring wrapper below takes the reducer last (``BILINEAR`` by default) and
+passes it to its kernel, which tests one uniform code before its beam loop.
 ``overlap_score_batched`` is the same kernel over M maps in one launch,
 each with its own plane, poses, scan and origin: what the reference gets
 from ``vmap`` over submaps when it closes loops, and over particles in the
@@ -90,15 +94,69 @@ _LAUNCHES = dict.fromkeys(
      "m3rsm_level", "m3rsm_search"), 0
 )
 
+#: how a beam's endpoint reads the plane, by the codes of
+#: ``csrc/overlap_sample.cuh``: the bilinear taps (the overlap reducer at
+#: extent 1 with a window of at least one cell), the obstacle reducer's one
+#: cell, the max and the mean over the (2 radius + 1)^2 cells around it, and
+#: the overlap reducer at any extent and window
+REDUCER_KINDS = ("bilinear", "obstacle", "max", "mean", "overlap")
+
+#: the scoring wrappers' launches by reducer, ``"<wrapper>/<kind>"``; a
+#: launch adds one here and one to its wrapper's count
+_REDUCER_LAUNCHES = dict.fromkeys(
+    (f"{name}/{kind}" for name in ("overlap_score", "overlap_score_batched", "hill_climb",
+                                   "mc_match", "mc_match_batched", "m3rsm_search")
+     for kind in REDUCER_KINDS), 0)
+
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches of each wrapper since :func:`reset_launch_counts`."""
     return dict(_LAUNCHES)
 
 
+def reducer_launch_counts() -> dict[str, int]:
+    """The scoring wrappers' launches since :func:`reset_launch_counts`, by
+    reducer: ``{"mc_match_batched/obstacle": n, ...}``."""
+    return dict(_REDUCER_LAUNCHES)
+
+
 def reset_launch_counts() -> None:
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
+    for name in _REDUCER_LAUNCHES:
+        _REDUCER_LAUNCHES[name] = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Reducer:
+    """How a beam's endpoint reads the plane ``where(known, occ, unknown)``
+    (``scoring.reducer_of`` makes one from a ``ScoringConfig``): ``kind`` one
+    of :data:`REDUCER_KINDS`, ``radius`` the window's radius in cells (max,
+    mean, overlap), ``extent`` the side of the endpoint's square in cells
+    (overlap)."""
+
+    kind: str = "bilinear"
+    radius: int = 0
+    extent: float = 1.0
+
+    def __post_init__(self):
+        if self.kind not in REDUCER_KINDS:
+            raise ValueError(f"unknown reducer {self.kind!r}")
+        if not 0 <= self.radius <= 4096 or not 0.0 < self.extent < 1e30:
+            raise ValueError(f"a reducer's radius must be 0 to 4096 cells and its extent "
+                             f"positive: got {self}")
+
+    @property
+    def code(self) -> int:
+        return REDUCER_KINDS.index(self.kind)
+
+
+BILINEAR = Reducer()
+
+
+def _count(name: str, reducer: Reducer) -> None:
+    _LAUNCHES[name] += 1
+    _REDUCER_LAUNCHES[f"{name}/{reducer.kind}"] += 1
 
 
 def _axis_taps(pos: Tensor, n: int):
@@ -117,6 +175,50 @@ def _axis_taps(pos: Tensor, n: int):
     return a0, a1, i0, i1
 
 
+def _cells_ref(flat: Tensor, h: int, w: int, fy: Tensor, fx: Tensor, unknown: float) -> Tensor:
+    """The planes ``flat`` f32[M, H * W] at the cells (fy, fx) f32[M, ...]
+    (floats that hold integers, or NaN), ``unknown`` where a cell lies off
+    the map: compared in float before the cast, as the kernels do."""
+    ok = (fy >= 0) & (fy < h) & (fx >= 0) & (fx < w)
+    idx = torch.where(ok, fy, 0.0).to(torch.int64) * w + torch.where(ok, fx, 0.0).to(torch.int64)
+    got = torch.gather(flat, 1, idx.reshape(flat.shape[0], -1)).reshape(idx.shape)
+    return torch.where(ok, got, unknown)
+
+
+def _reduce_ref(flat: Tensor, h: int, w: int, x: Tensor, y: Tensor, unknown: float,
+                red: Reducer) -> Tensor:
+    """Per-beam probabilities at the cell positions (x, y) f32[M, K, R] by a
+    reducer other than ``bilinear``, in the kernels' order: the reference's
+    gather path (``scoring.py:336-376``) with the window's cells summed one
+    after the other, rows outer and columns inner."""
+    fx, fy = torch.floor(x), torch.floor(y)
+    if red.kind == "obstacle":
+        return _cells_ref(flat, h, w, fy, fx, unknown)
+    offs = range(-red.radius, red.radius + 1)
+    if red.kind == "overlap":
+        half = torch.full((), 0.5 * red.extent, dtype=torch.float32, device=x.device)
+        ex, ey = x - fx, y - fy
+        num, wsum = torch.zeros_like(x), torch.zeros_like(x)
+        for dr in offs:
+            len_y = torch.clamp(torch.clamp(ey + half, max=dr + 1.0)
+                                - torch.clamp(ey - half, min=float(dr)), min=0.0)
+            for dc in offs:
+                len_x = torch.clamp(torch.clamp(ex + half, max=dc + 1.0)
+                                    - torch.clamp(ex - half, min=float(dc)), min=0.0)
+                wgt = len_x * len_y
+                wsum = wsum + wgt
+                num = num + _cells_ref(flat, h, w, fy + dr, fx + dc, unknown) * wgt
+        return num / torch.clamp(wsum, min=1e-9)
+    acc = torch.full_like(x, -math.inf if red.kind == "max" else 0.0)
+    for dr in offs:
+        for dc in offs:
+            v = _cells_ref(flat, h, w, fy + dr, fx + dc, unknown)
+            acc = torch.maximum(acc, v) if red.kind == "max" else acc + v
+    if red.kind == "max":
+        return acc
+    return acc / torch.full_like(acc, float(len(offs) ** 2))  # an IEEE division (trap h)
+
+
 def overlap_score_ref(
     v: Tensor,
     poses: Tensor,
@@ -125,19 +227,21 @@ def overlap_score_ref(
     origin: Tensor,
     scale: float,
     unknown: float,
+    reducer: Reducer = BILINEAR,
 ) -> Tensor:
     """Plain PyTorch version of the kernel, with the same arithmetic.
 
     v f32[H, W] (``where(known, occ, unknown)``), poses f32[K, 3], pts
     f32[R, 2] sensor-frame endpoints, beam_w f32[R] (validity x point
-    weights), origin f32[2] -> f32[K] weighted mean of per-beam overlap
-    probabilities. With a leading map dimension on every tensor (v
+    weights), origin f32[2] -> f32[K] weighted mean of per-beam
+    probabilities, each read by ``reducer`` (the bilinear overlap taps by
+    default). With a leading map dimension on every tensor (v
     f32[M, H, W], poses f32[M, K, 3], pts f32[M, R, 2], beam_w f32[M, R],
     origin f32[M, 2]) -> f32[M, K]: map m scores its own poses and scan.
     """
     if v.dim() == 2:
         return overlap_score_ref(
-            v[None], poses[None], pts[None], beam_w[None], origin[None], scale, unknown
+            v[None], poses[None], pts[None], beam_w[None], origin[None], scale, unknown, reducer
         )[0]
     n_m, h, w = v.shape
     c = torch.cos(poses[..., 2:3])
@@ -147,9 +251,13 @@ def overlap_score_ref(
     wy = poses[..., 1:2] + s * qx + c * qy
     x = gridlib.div_scale(wx - origin[:, 0, None, None], scale)  # the kernel's division
     y = gridlib.div_scale(wy - origin[:, 1, None, None], scale)
+    flat = v.reshape(n_m, -1)
+    bw = beam_w[:, None, :]
+    if reducer.kind != "bilinear":
+        p = _reduce_ref(flat, h, w, x, y, unknown, reducer)
+        return (p * bw).sum(-1) / torch.clamp(bw.sum(-1), min=1e-9)
     ay0, ay1, r0, r1 = _axis_taps(y, h)
     ax0, ax1, c0, c1 = _axis_taps(x, w)
-    flat = v.reshape(n_m, -1)
 
     def tap(a, b, r, col):
         got = torch.gather(flat, 1, (r * w + col).reshape(n_m, -1)).reshape(r.shape)
@@ -162,7 +270,6 @@ def overlap_score_ref(
     ssum = (ay0 * v00 + ay1 * v10) * ax0 + (ay0 * v01 + ay1 * v11) * ax1
     coverage = (ay0 + ay1) * (ax0 + ax1)
     p = ssum + (1.0 - coverage) * unknown
-    bw = beam_w[:, None, :]
     return (p * bw).sum(-1) / torch.clamp(bw.sum(-1), min=1e-9)
 
 
@@ -174,6 +281,7 @@ def _overlap_score_fn():
         ctypes.c_void_p, ctypes.c_int,  # poses, k
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # pts, beam_w, r
         ctypes.c_void_p, ctypes.c_float, ctypes.c_float,  # origin, scale, unknown
+        ctypes.c_int, ctypes.c_int, ctypes.c_float,  # reducer, radius, extent
         ctypes.c_void_p, ctypes.c_void_p,  # out, stream
     ]
     fn.restype = ctypes.c_int
@@ -214,11 +322,11 @@ def _cell_stride(name: str, occ: Tensor, device: torch.device) -> int:
 _MAX_MAPS = 65535
 
 
-def _overlap_score_launch(name, lead, v, poses, pts, beam_w, origin, scale, unknown):
+def _overlap_score_launch(name, lead, v, poses, pts, beam_w, origin, scale, unknown, reducer):
     """Checks the inputs against the leading shape ``lead`` (``()`` or
-    ``(M,)``), launches the kernel and adds one to the count of ``name``;
-    returns f32[*lead, K]. Nothing is launched or counted when there is
-    nothing to score."""
+    ``(M,)``), launches the kernel and adds one to the count of ``name``
+    (and of its reducer); returns f32[*lead, K]. Nothing is launched or
+    counted when there is nothing to score."""
     if v.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {v.device}")
     h, w = v.shape[-2:]
@@ -239,12 +347,12 @@ def _overlap_score_launch(name, lead, v, poses, pts, beam_w, origin, scale, unkn
         stream = torch.cuda.current_stream(v.device).cuda_stream
         err = fn(
             v.data_ptr(), n_m, h, w, poses.data_ptr(), k, pts.data_ptr(),
-            beam_w.data_ptr(), r, origin.data_ptr(), scale, unknown,
-            out.data_ptr(), stream,
+            beam_w.data_ptr(), r, origin.data_ptr(), scale, unknown, reducer.code,
+            reducer.radius, reducer.extent, out.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
-    _LAUNCHES[name] += 1
+    _count(name, reducer)
     return out
 
 
@@ -256,21 +364,23 @@ def overlap_score(
     origin: Tensor,
     scale: float,
     unknown: float,
+    reducer: Reducer = BILINEAR,
 ) -> Tensor:
     """Score poses f32[K, 3] against plane v f32[H, W] -> f32[K]: the
-    kernel's M = 1 case.
+    kernel's M = 1 case, a beam's endpoint read by ``reducer``.
 
     CPU tensors take the plain twin; CUDA tensors launch the kernel on the
     current stream and add one to the ``overlap_score`` count of
-    :func:`launch_counts`. It is counted apart from
+    :func:`launch_counts` (and to its reducer's of
+    :func:`reducer_launch_counts`). It is counted apart from
     :func:`overlap_score_batched` so that a run through
     :func:`mc_match_rounds` (one launch a round) can be told from the loop
     closer's launches.
     """
     if v.device.type == "cpu":
-        return overlap_score_ref(v, poses, pts, beam_w, origin, scale, unknown)
+        return overlap_score_ref(v, poses, pts, beam_w, origin, scale, unknown, reducer)
     return _overlap_score_launch(
-        "overlap_score", (), v, poses, pts, beam_w, origin, scale, unknown
+        "overlap_score", (), v, poses, pts, beam_w, origin, scale, unknown, reducer
     )
 
 
@@ -282,10 +392,12 @@ def overlap_score_batched(
     origin: Tensor,
     scale: float,
     unknown: float,
+    reducer: Reducer = BILINEAR,
 ) -> Tensor:
     """Score, for each of M maps, its own poses and scan: v f32[M, H, W],
     poses f32[M, K, 3], pts f32[M, R, 2], beam_w f32[M, R], origin
-    f32[M, 2] -> f32[M, K], in one launch.
+    f32[M, 2] -> f32[M, K], in one launch, a beam's endpoint read by
+    ``reducer``.
 
     CPU tensors take the plain twin; CUDA tensors launch the kernel on the
     current stream, once for the whole batch, and add one to the
@@ -294,9 +406,10 @@ def overlap_score_batched(
     if v.dim() != 3:
         raise ValueError(f"v has shape {tuple(v.shape)}, expected (M, H, W)")
     if v.device.type == "cpu":
-        return overlap_score_ref(v, poses, pts, beam_w, origin, scale, unknown)
+        return overlap_score_ref(v, poses, pts, beam_w, origin, scale, unknown, reducer)
     return _overlap_score_launch(
-        "overlap_score_batched", (v.shape[0],), v, poses, pts, beam_w, origin, scale, unknown
+        "overlap_score_batched", (v.shape[0],), v, poses, pts, beam_w, origin, scale, unknown,
+        reducer
     )
 
 
@@ -526,11 +639,12 @@ def mc_match_loop(
     sigma_xy: float,
     sigma_theta: float,
     bad_rounds_before_anneal: int,
+    reducer: Reducer = BILINEAR,
 ):
     """The match as a Python loop over device tensors with no host sync:
     keep-if-better and the anneal are ``torch.where``. ``score`` has
-    ``overlap_score``'s signature and is called once for the first pose and
-    once a round. With a leading match dimension on every tensor (plane
+    ``overlap_score``'s signature and is called, with ``reducer``, once for
+    the first pose and once a round. With a leading match dimension on every tensor (plane
     f32[P, H, W], pts f32[P, R, 2], beam_w f32[P, R], origin f32[P, 2],
     init_pose f32[P, 3], noise f32[P, rounds, K, 3]) ``score`` must take it
     too, and every match runs its own state: pose f32[P, 3], prob f32[P],
@@ -538,7 +652,7 @@ def mc_match_loop(
     dev = init_pose.device
     best_pose = init_pose
     best_prob = score(plane, init_pose[..., None, :].contiguous(), pts, beam_w, origin, scale,
-                      unknown)[..., 0]
+                      unknown, reducer)[..., 0]
     # built from fills: assigning a Python float into a CUDA tensor syncs
     sigma = torch.cat([
         torch.full((2,), sigma_xy, dtype=torch.float32, device=dev),
@@ -552,7 +666,7 @@ def mc_match_loop(
             [best_pose[..., None, :2] + nz[..., :2], wrap_angle(best_pose[..., None, 2:] + nz[..., 2:])],
             dim=-1,
         )
-        probs = score(plane, cand.contiguous(), pts, beam_w, origin, scale, unknown)
+        probs = score(plane, cand.contiguous(), pts, beam_w, origin, scale, unknown, reducer)
         # argmax ties go to the first index, as in the reference
         i = torch.argmax(probs, dim=-1, keepdim=True)
         p_i = probs.gather(-1, i)[..., 0]
@@ -573,20 +687,20 @@ def mc_match_loop(
 
 def mc_match_ref(
     plane, pts, beam_w, origin, init_pose, noise, scale, unknown, sigma_xy, sigma_theta,
-    bad_rounds_before_anneal,
+    bad_rounds_before_anneal, reducer=BILINEAR,
 ):
     """Plain PyTorch version of :func:`mc_match` and, with a leading match
     dimension on every tensor, of :func:`mc_match_batched`: the round loop
     over ``overlap_score_ref``."""
     return mc_match_loop(
         overlap_score_ref, plane, pts, beam_w, origin, init_pose, noise, scale, unknown,
-        sigma_xy, sigma_theta, bad_rounds_before_anneal,
+        sigma_xy, sigma_theta, bad_rounds_before_anneal, reducer,
     )
 
 
 def mc_match_rounds(
     plane, pts, beam_w, origin, init_pose, noise, scale, unknown, sigma_xy, sigma_theta,
-    bad_rounds_before_anneal,
+    bad_rounds_before_anneal, reducer=BILINEAR,
 ):
     """The same match with :func:`overlap_score` called once for the first
     pose and once a round (``1 + rounds`` launches on the card) and the rest
@@ -594,7 +708,7 @@ def mc_match_rounds(
     :func:`mc_match` is held to, bit for bit, on the card."""
     return mc_match_loop(
         overlap_score, plane, pts, beam_w, origin, init_pose, noise, scale, unknown,
-        sigma_xy, sigma_theta, bad_rounds_before_anneal,
+        sigma_xy, sigma_theta, bad_rounds_before_anneal, reducer,
     )
 
 
@@ -610,6 +724,7 @@ def _mc_match_fn():
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # noise, rounds, k
         ctypes.c_float, ctypes.c_float,  # scale, unknown
         ctypes.c_float, ctypes.c_float, ctypes.c_int,  # sigma_xy, sigma_theta, bad rounds
+        ctypes.c_int, ctypes.c_int, ctypes.c_float,  # reducer, radius, extent
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # pose, prob, trace
         ctypes.c_int, ctypes.c_void_p,  # dynamic shared bytes, stream
     ]
@@ -642,11 +757,12 @@ _MC_MAX_DYNAMIC_SHARED_BYTES = 227 * 1024 - (2 * 1024 * 4 + 64)
 
 
 def _mc_match_launch(name, lead, occ, window, pts, beam_w, origin, init_pose, noise, scale,
-                     unknown, sigma_xy, sigma_theta, bad_rounds_before_anneal):
+                     unknown, sigma_xy, sigma_theta, bad_rounds_before_anneal,
+                     reducer=BILINEAR):
     """Checks the inputs against the leading shape ``lead`` (``()`` for one
     match, ``(P,)`` for P: occ f32[*lead, H, W], ..., noise f32[*lead,
     rounds, K, 3]), launches the kernel once and adds one to the count of
-    ``name``; returns (pose f32[*lead, 3], prob f32[*lead], trace f32[*lead,
+    ``name`` (and of its reducer); returns (pose f32[*lead, 3], prob f32[*lead], trace f32[*lead,
     rounds]). ``window`` is None when ``occ`` is the plane itself, else
     (known, row, col, sh, sw): the ``sh x sw`` window at ``row``, ``col``
     of each map ``where(known, occ, unknown)``, read in place."""
@@ -701,12 +817,12 @@ def _mc_match_launch(name, lead, occ, window, pts, beam_w, origin, init_pose, no
             occ.data_ptr(), ptr(known), stride, n_p, h, w, ptr(row), ptr(col), sh, sw,
             pts.data_ptr(), beam_w.data_ptr(), r, origin.data_ptr(), init_pose.data_ptr(),
             noise.data_ptr(), rounds, k, scale, unknown, sigma_xy, sigma_theta,
-            bad_rounds_before_anneal, pose.data_ptr(), prob.data_ptr(), trace.data_ptr(), shared,
-            stream,
+            bad_rounds_before_anneal, reducer.code, reducer.radius, reducer.extent,
+            pose.data_ptr(), prob.data_ptr(), trace.data_ptr(), shared, stream,
         )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
-    _LAUNCHES[name] += 1
+    _count(name, reducer)
     return pose, prob, trace
 
 
@@ -722,6 +838,7 @@ def mc_match(
     sigma_xy: float,
     sigma_theta: float,
     bad_rounds_before_anneal: int,
+    reducer: Reducer = BILINEAR,
 ):
     """One Monte-Carlo match -> (pose f32[3], prob f32[], trace f32[rounds]).
 
@@ -730,7 +847,8 @@ def mc_match(
     standard normals. Round r scores the K candidates ``best + noise[r] *
     sigma`` (theta wrapped), takes the best (ties to the first), keeps it if
     it is strictly better, and halves sigma after
-    ``bad_rounds_before_anneal`` rounds without improvement.
+    ``bad_rounds_before_anneal`` rounds without improvement. A beam's
+    endpoint is read by ``reducer``.
 
     CPU tensors take the plain twin; CUDA tensors launch the kernel on the
     current stream, once (the P = 1 case of :func:`mc_match_batched`'s
@@ -738,7 +856,7 @@ def mc_match(
     :func:`launch_counts`.
     """
     args = (plane, pts, beam_w, origin, init_pose, noise, scale, unknown, sigma_xy,
-            sigma_theta, bad_rounds_before_anneal)
+            sigma_theta, bad_rounds_before_anneal, reducer)
     if plane.device.type == "cpu":
         return mc_match_ref(*args)
     return _mc_match_launch("mc_match", (), plane, None, *args[1:])
@@ -756,6 +874,7 @@ def mc_match_batched(
     sigma_xy: float,
     sigma_theta: float,
     bad_rounds_before_anneal: int,
+    reducer: Reducer = BILINEAR,
 ):
     """P Monte-Carlo matches, each on its own plane with its own scan,
     origin, prior and noise, in one launch -> (pose f32[P, 3], prob f32[P],
@@ -772,7 +891,7 @@ def mc_match_batched(
     ``mc_match_batched`` count of :func:`launch_counts`.
     """
     args = (plane, pts, beam_w, origin, init_pose, noise, scale, unknown, sigma_xy,
-            sigma_theta, bad_rounds_before_anneal)
+            sigma_theta, bad_rounds_before_anneal, reducer)
     if plane.dim() != 3:
         raise ValueError(f"plane has shape {tuple(plane.shape)}, expected (P, H, W)")
     if plane.device.type == "cpu":
@@ -781,14 +900,15 @@ def mc_match_batched(
 
 
 def mc_match_windows_ref(occ, known, row, col, sh, sw, pts, beam_w, origin, init_pose, noise,
-                         scale, unknown, sigma_xy, sigma_theta, bad_rounds_before_anneal):
+                         scale, unknown, sigma_xy, sigma_theta, bad_rounds_before_anneal,
+                         reducer=BILINEAR):
     """Plain PyTorch version of :func:`mc_match_windows`: the windows cut
     out (``grid.take_window``), ``where(known, occ, unknown)``, then
     :func:`mc_match_ref`."""
     plane = torch.where(gridlib.take_window(known, row, col, sh, sw),
                         gridlib.take_window(occ, row, col, sh, sw), unknown)
     return mc_match_ref(plane, pts, beam_w, origin, init_pose, noise, scale, unknown, sigma_xy,
-                        sigma_theta, bad_rounds_before_anneal)
+                        sigma_theta, bad_rounds_before_anneal, reducer)
 
 
 def mc_match_windows(
@@ -808,6 +928,7 @@ def mc_match_windows(
     sigma_xy: float,
     sigma_theta: float,
     bad_rounds_before_anneal: int,
+    reducer: Reducer = BILINEAR,
 ):
     """P Monte-Carlo matches, each on an ``sh x sw`` window of its own map
     read in place -> (pose f32[P, 3], prob f32[P], trace f32[P, rounds]).
@@ -827,7 +948,7 @@ def mc_match_windows(
     kernel).
     """
     args = (occ, known, row, col, sh, sw, pts, beam_w, origin, init_pose, noise, scale, unknown,
-            sigma_xy, sigma_theta, bad_rounds_before_anneal)
+            sigma_xy, sigma_theta, bad_rounds_before_anneal, reducer)
     if occ.device.type == "cpu":
         return mc_match_windows_ref(*args)
     if occ.dim() != 3:
@@ -1306,19 +1427,19 @@ HILL_CLIMB_STEPS = ((1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1), (0,
 
 
 def hill_climb_loop(score, plane, pts, beam_w, origin, pose, scale, unknown, step_xy,
-                    step_theta, iterations, shrink):
+                    step_theta, iterations, shrink, reducer=BILINEAR):
     """The hill climb as a Python loop over device tensors with no host
     sync: each round scores the six poses one step along each axis (theta
     wrapped), moves to the best (ties to the first) if it is strictly
     better, else multiplies every step by ``shrink``. ``score`` has
-    ``overlap_score``'s signature and is called once for the first pose and
-    once a round. With a leading map dimension on every tensor (plane
+    ``overlap_score``'s signature and is called, with ``reducer``, once for
+    the first pose and once a round. With a leading map dimension on every tensor (plane
     f32[M, H, W], pts f32[M, R, 2], beam_w f32[M, R], origin f32[M, 2], pose
     f32[M, 3]) ``score`` must take it too: pose f32[M, 3], prob f32[M],
     trace f32[M, iterations]."""
     dev = pose.device
     prob = score(plane, pose[..., None, :].contiguous(), pts, beam_w, origin, scale,
-                 unknown)[..., 0]
+                 unknown, reducer)[..., 0]
     units = constant(HILL_CLIMB_STEPS, torch.float32, dev)
     steps = constant((step_xy, step_xy, step_theta), torch.float32, dev)
     steps = steps.expand(*pose.shape[:-1], 3)
@@ -1326,7 +1447,7 @@ def hill_climb_loop(score, plane, pts, beam_w, origin, pose, scale, unknown, ste
     for _ in range(iterations):
         cand = pose[..., None, :] + units * steps[..., None, :]
         cand = torch.cat([cand[..., :2], wrap_angle(cand[..., 2:])], dim=-1)
-        probs = score(plane, cand.contiguous(), pts, beam_w, origin, scale, unknown)
+        probs = score(plane, cand.contiguous(), pts, beam_w, origin, scale, unknown, reducer)
         i = torch.argmax(probs, dim=-1, keepdim=True)  # ties -> first index
         p_i = probs.gather(-1, i)[..., 0]
         better = p_i > prob
@@ -1341,15 +1462,15 @@ def hill_climb_loop(score, plane, pts, beam_w, origin, pose, scale, unknown, ste
 
 
 def hill_climb_ref(plane, pts, beam_w, origin, pose, scale, unknown, step_xy, step_theta,
-                   iterations, shrink):
+                   iterations, shrink, reducer=BILINEAR):
     """Plain PyTorch version of :func:`hill_climb`: :func:`hill_climb_loop`
     over :func:`overlap_score_ref`, for one map or M."""
     return hill_climb_loop(overlap_score_ref, plane, pts, beam_w, origin, pose, scale, unknown,
-                           step_xy, step_theta, iterations, shrink)
+                           step_xy, step_theta, iterations, shrink, reducer)
 
 
 def hill_climb_rounds(plane, pts, beam_w, origin, pose, scale, unknown, step_xy, step_theta,
-                      iterations, shrink):
+                      iterations, shrink, reducer=BILINEAR):
     """The same climb with :func:`overlap_score` (one map) or
     :func:`overlap_score_batched` (M maps) launched once for the first pose
     and once a round (``1 + iterations`` launches on the card) and the rest
@@ -1357,7 +1478,7 @@ def hill_climb_rounds(plane, pts, beam_w, origin, pose, scale, unknown, step_xy,
     what :func:`hill_climb` is held to, bit for bit, on the card."""
     score = overlap_score_batched if plane.dim() == 3 else overlap_score
     return hill_climb_loop(score, plane, pts, beam_w, origin, pose, scale, unknown, step_xy,
-                           step_theta, iterations, shrink)
+                           step_theta, iterations, shrink, reducer)
 
 
 @functools.cache
@@ -1368,6 +1489,7 @@ def _hill_climb_fn():
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # pts, beam_w, r
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_float,  # origin, pose, ...
         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,  # steps, shrink, iterations
+        ctypes.c_int, ctypes.c_int, ctypes.c_float,  # reducer, radius, extent
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # outputs, stream
     ]
     fn.restype = ctypes.c_int
@@ -1375,12 +1497,12 @@ def _hill_climb_fn():
 
 
 def hill_climb(plane, pts, beam_w, origin, pose, scale, unknown, step_xy, step_theta,
-               iterations, shrink):
+               iterations, shrink, reducer=BILINEAR):
     """The hill-climbing matcher's refine of ``pose`` f32[3] on plane
     f32[H, W] (``where(known, occ, unknown)``) with the scan's pts f32[R, 2]
     and beam_w f32[R] -> (pose f32[3], prob f32[], trace f32[iterations]):
-    the arithmetic of :func:`hill_climb_loop` over :func:`overlap_score`.
-    With a leading map dimension on every tensor (plane f32[M, H, W], pts
+    the arithmetic of :func:`hill_climb_loop` over :func:`overlap_score`, a
+    beam's endpoint read by ``reducer``. With a leading map dimension on every tensor (plane f32[M, H, W], pts
     f32[M, R, 2], beam_w f32[M, R], origin f32[M, 2], pose f32[M, 3]) every
     map climbs from its own pose: pose f32[M, 3], prob f32[M], trace
     f32[M, iterations].
@@ -1393,7 +1515,7 @@ def hill_climb(plane, pts, beam_w, origin, pose, scale, unknown, step_xy, step_t
     _refine_checks("hill_climb", lead, plane, pts, beam_w, origin, pose, iterations)
     if plane.device.type == "cpu":
         return hill_climb_ref(plane, pts, beam_w, origin, pose, scale, unknown, step_xy,
-                              step_theta, iterations, shrink)
+                              step_theta, iterations, shrink, reducer)
     h, w = plane.shape[-2:]
     n_m = lead[0] if lead else 1
     dev = plane.device
@@ -1406,8 +1528,9 @@ def hill_climb(plane, pts, beam_w, origin, pose, scale, unknown, step_xy, step_t
     _launch("hill_climb", dev, lambda stream: fn(
         plane.data_ptr(), n_m, h, w, pts.data_ptr(), beam_w.data_ptr(), pts.shape[-2],
         origin.data_ptr(), pose.data_ptr(), scale, unknown, step_xy, step_theta, shrink,
-        iterations, out_pose.data_ptr(), out_prob.data_ptr(), trace.data_ptr(), stream))
-    _LAUNCHES["hill_climb"] += 1
+        iterations, reducer.code, reducer.radius, reducer.extent, out_pose.data_ptr(),
+        out_prob.data_ptr(), trace.data_ptr(), stream))
+    _count("hill_climb", reducer)
     return out_pose, out_prob, trace
 
 
@@ -1433,7 +1556,7 @@ class M3RSMSearch:
     ``top`` i32[K0, 3] the top level's rects (theta index, row and col
     offset); ``thetas`` f32[T]; ``beam_width`` rects kept a level;
     ``iterations`` hill-climb rounds (0: none) with the steps ``step_xy``,
-    ``step_theta`` and ``shrink``."""
+    ``step_theta`` and ``shrink``, its score read by ``reducer``."""
 
     planes: tuple
     occ: Tensor
@@ -1453,6 +1576,7 @@ class M3RSMSearch:
     step_theta: float
     iterations: int
     shrink: float = 0.5
+    reducer: Reducer = BILINEAR
 
 
 def m3rsm_frontiers(k0: int, beam_width: int, levels: int) -> list[int]:
@@ -1581,7 +1705,7 @@ def m3rsm_search_loop(score_level, score, s: M3RSMSearch):
     pts = s.pts[:, ::s.stride].contiguous()
     beam_w = s.mask[:, ::s.stride].contiguous()
     return hill_climb_loop(score, plane, pts, beam_w, origin.contiguous(), pose, s.scale,
-                           s.unknown, s.step_xy, s.step_theta, s.iterations, s.shrink)
+                           s.unknown, s.step_xy, s.step_theta, s.iterations, s.shrink, s.reducer)
 
 
 def m3rsm_search_ref(s: M3RSMSearch):
@@ -1627,6 +1751,7 @@ def _m3rsm_search_fn():
         ctypes.c_void_p, ctypes.c_int,  # thetas, n_t
         ctypes.c_int, ctypes.c_float, ctypes.c_float,  # beam width, scale, unknown
         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,  # steps, shrink, iterations
+        ctypes.c_int, ctypes.c_int, ctypes.c_float,  # reducer, radius, extent
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # pose, prob, trace
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p,  # k_max, dynamic shared bytes, stream
     ]
@@ -1679,9 +1804,10 @@ def _m3rsm_search_launch(s: M3RSMSearch):
         pyramid.data_ptr(), n_p, h, w, levels, occ.data_ptr(), s.known.data_ptr(), stride,
         s.origin.data_ptr(), s.window, s.pts.data_ptr(), s.mask.data_ptr(), r, s.stride,
         s.prior.data_ptr(), n_b, s.top.data_ptr(), k0, s.thetas.data_ptr(), n_t, s.beam_width,
-        s.scale, s.unknown, s.step_xy, s.step_theta, s.shrink, s.iterations, pose.data_ptr(),
-        prob.data_ptr(), trace.data_ptr(), k_max, shared, stream))
-    _LAUNCHES["m3rsm_search"] += 1
+        s.scale, s.unknown, s.step_xy, s.step_theta, s.shrink, s.iterations, s.reducer.code,
+        s.reducer.radius, s.reducer.extent, pose.data_ptr(), prob.data_ptr(), trace.data_ptr(),
+        k_max, shared, stream))
+    _count("m3rsm_search", s.reducer)
     return pose, prob, trace
 
 

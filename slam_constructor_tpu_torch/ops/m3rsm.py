@@ -14,7 +14,8 @@ and ``kernels.m3rsm_pyramid_update`` (K4a, ``csrc/m3rsm_pyramid.cu``: the
 refresh one launch into new planes), and the whole match, every level of
 the branch and bound with the frontier's selection (a stable sort: the
 reference's ``top_k`` keeps equal scores in index order) and the hill
-climb, is one launch of ``kernels.m3rsm_search`` (K4b,
+climb (with the config's reducer: ``M3RSMConfig()`` climbs on the obstacle
+score), is one launch of ``kernels.m3rsm_search`` (K4b,
 ``csrc/m3rsm_match.cu``) for all requests at once. The scan's endpoints and
 the beams' weights are PyTorch ops on the device before it; the kernel
 places each window and computes the endpoint cells itself, with the f32
@@ -220,7 +221,6 @@ def m3rsm_match(
         mask = mask * point_weights.reshape(n_b, -1)
     step_theta = 0.0
     if cfg.refine_iterations > 0:
-        scoring.check_supported(ucfg)  # the hill climb scores with the overlap reducer
         theta_step = (
             2 * cfg.half_theta / max(cfg.n_theta - 1, 1) if cfg.n_theta > 1 else 0.02
         )
@@ -232,7 +232,8 @@ def m3rsm_match(
         stride=max(ucfg.stride, 1), prior=poses.contiguous(), top=consts["top"],
         thetas=consts["thetas"], scale=view.scale, beam_width=cfg.beam_width,
         unknown=ucfg.unknown_prob, step_xy=view.scale, step_theta=step_theta,
-        iterations=cfg.refine_iterations))
+        iterations=cfg.refine_iterations,
+        reducer=scoring.reducer_of(ucfg) if cfg.refine_iterations > 0 else kernels.BILINEAR))
     if cfg.refine_iterations == 0:
         trace = trace.reshape(0)
     if single:

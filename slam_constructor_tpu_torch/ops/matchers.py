@@ -10,6 +10,11 @@ leading particle dimension it matches P (map, scan, prior) triples in one
 launch of ``kernels.mc_match_batched``, or of ``kernels.mc_match_windows``
 on windows of the maps read in place: the RBPF's form.
 
+Every matcher but the gradient one scores with any reducer of
+``scoring.ScoringConfig`` (the reference's default is the obstacle
+reducer); the gradient matcher differentiates the overlap reducer at
+extent 1 and refuses the others.
+
 Hill climbing: coordinate descent from the prior, six axis steps scored a
 round, the steps halved after a round without gain (M3RSM's refine); the
 whole climb is one call of ``kernels.hill_climb``, for one map or for M
@@ -93,13 +98,14 @@ def monte_carlo_match(
             view.maps.occ, view.maps.known, view.row, view.col, view.sh, view.sw, pts, beam_w,
             view.origin.contiguous(), init_pose.contiguous(), noise.contiguous(),
             float(view.scale), float(cfg.scoring.unknown_prob), *anneal,
+            scoring.reducer_of(cfg.scoring),
         )
         return MatchResult(pose=pose, prob=prob, trace=trace)
     prep = scoring.prepare(view, scan, cfg.scoring, point_weights)
     match = kernels.mc_match_batched if prep.plane.dim() == 3 else kernels.mc_match
     pose, prob, trace = match(
         prep.plane, prep.pts, prep.beam_w, prep.origin, init_pose.contiguous(),
-        noise.contiguous(), prep.scale, prep.unknown, *anneal,
+        noise.contiguous(), prep.scale, prep.unknown, *anneal, prep.reducer,
     )
     return MatchResult(pose=pose, prob=prob, trace=trace)
 
@@ -136,7 +142,7 @@ def hill_climbing_match(
     prep = scoring.prepare(view, scan, cfg.scoring, point_weights)
     pose, prob, trace = kernels.hill_climb(
         prep.plane, prep.pts, prep.beam_w, prep.origin, init_pose.contiguous(), prep.scale,
-        prep.unknown, cfg.step_xy, cfg.step_theta, cfg.iterations, cfg.shrink)
+        prep.unknown, cfg.step_xy, cfg.step_theta, cfg.iterations, cfg.shrink, prep.reducer)
     return MatchResult(pose=pose, prob=prob, trace=trace)
 
 
@@ -218,8 +224,20 @@ def gradient_match(
 
     The whole refine is one call of ``kernels.gradient_refine``: its score
     has ``overlap_score``'s bits, and a kept candidate's gradient is the
-    next step's, as the reference takes its gradient at the kept pose."""
+    next step's, as the reference takes its gradient at the kept pose.
+
+    Only the overlap reducer at extent 1 (a window of at least one cell)
+    is differentiated: the reference's ``jax.grad`` is zero for the
+    obstacle, max and mean reducers, and the general overlap's pose gradient
+    has no kernel yet, so every other reducer raises
+    ``NotImplementedError``."""
     del generator, noise
+    reducer = scoring.reducer_of(cfg.scoring)
+    if reducer != kernels.BILINEAR:
+        raise NotImplementedError(
+            f"gradient_match differentiates the overlap reducer at extent 1 and window >= 1 "
+            f"only; got reducer={cfg.scoring.reducer!r} (window {cfg.scoring.window}, extent "
+            f"{cfg.scoring.overlap_extent})")
     prep = scoring.prepare(view, scan, cfg.scoring, point_weights)
     if prep.plane.dim() != 2:
         raise ValueError("gradient_match refines a pose on one map")

@@ -1,14 +1,18 @@
 """Scan-likelihood scoring (port of ``slam_constructor_tpu.ops.scoring``).
 
 ``score_poses(view, scan, poses[K]) -> probs[K]``: the mean per-beam
-consistency probability of a scan placed at each candidate pose. Ported is
-the overlap reducer at extent 1, the one tinySLAM, vinySLAM and the loop
-closer run; every score goes through ``kernels.overlap_score`` (the CUDA
-kernel on the card). A view, a scan and the poses may carry a leading map
+consistency probability of a scan placed at each candidate pose. Every
+reducer of the reference runs: the overlap reducer at extent 1 with a
+window of at least one cell (tinySLAM, vinySLAM, the loop closer: the
+bilinear taps of the TPU kernel), the obstacle reducer (the reference's
+default: one cell a beam), the max and the mean over the (2 window + 1)^2
+cells around a beam's endpoint, and the overlap reducer at any extent and
+window (``kernels.Reducer``, made by :func:`reducer_of`). Every score goes
+through ``kernels.overlap_score`` (the CUDA kernel on the card), which
+takes the reducer. A view, a scan and the poses may carry a leading map
 dimension (``MapView.occ`` f32[M, H, W], scan [M, R], poses f32[M, K, 3]):
 then map m scores its own scan at its own poses, all in one launch of
-``kernels.overlap_score_batched``. The obstacle, mean and max reducers and
-other extents wait for later slices and raise ``NotImplementedError``.
+``kernels.overlap_score_batched``.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass(frozen=True)
 class ScoringConfig:
-    #: 'obstacle' | 'max' | 'mean' | 'overlap' (only 'overlap' is ported)
+    #: 'obstacle' | 'max' | 'mean' | 'overlap'
     reducer: str = "obstacle"
     #: window radius in cells for the max/mean/overlap reducers (1 -> 3x3)
     window: int = 1
@@ -39,15 +43,21 @@ class ScoringConfig:
     overlap_extent: float = 1.0
 
 
-def check_supported(cfg: ScoringConfig) -> None:
-    """Raises ``NotImplementedError`` for a score the port has not."""
-    # window >= 1 holds the whole 2x2 footprint of an extent-1 square, so
-    # the reference's windowed overlap equals the bilinear sample there
-    if cfg.reducer != "overlap" or cfg.overlap_extent != 1.0 or cfg.window < 1:
-        raise NotImplementedError(
-            "the torch port scores with the overlap reducer at extent 1 and "
-            f"window >= 1 only; got {cfg}"
-        )
+def reducer_of(cfg: ScoringConfig) -> kernels.Reducer:
+    """How the kernels read a beam's endpoint for ``cfg``; raises
+    ``ValueError`` for a reducer the reference does not have, as its
+    ``score_poses`` does."""
+    if cfg.reducer == "overlap" and cfg.overlap_extent == 1.0 and cfg.window >= 1:
+        # window >= 1 holds the whole 2x2 footprint of an extent-1 square, so
+        # the reference's windowed overlap equals the bilinear sample there
+        return kernels.BILINEAR
+    if cfg.reducer == "obstacle":
+        return kernels.Reducer("obstacle")
+    if cfg.reducer in ("max", "mean"):
+        return kernels.Reducer(cfg.reducer, radius=cfg.window)
+    if cfg.reducer == "overlap":
+        return kernels.Reducer("overlap", radius=cfg.window, extent=float(cfg.overlap_extent))
+    raise ValueError(f"unknown reducer {cfg.reducer!r}")
 
 
 @dataclasses.dataclass
@@ -144,6 +154,7 @@ class PreparedScan:
     origin: Tensor  # f32[2], or f32[M, 2]
     scale: float
     unknown: float
+    reducer: kernels.Reducer = kernels.BILINEAR
 
 
 def prepare_scan(
@@ -153,7 +164,6 @@ def prepare_scan(
 ) -> tuple[Tensor, Tensor]:
     """The scan's part of :func:`prepare`: (pts f32[R', 2], beam_w f32[R'])
     of the kept beams, with any leading dimensions of the scan."""
-    check_supported(cfg)
     if cfg.stride > 1:
         # keeping every stride-th beam is the reference's subsample mask
         scan = scanlib.LaserScan(
@@ -186,6 +196,7 @@ def prepare(
         origin=view.origin.contiguous(),
         scale=float(view.scale),
         unknown=float(cfg.unknown_prob),
+        reducer=reducer_of(cfg),
     )
 
 
@@ -195,7 +206,7 @@ def score_prepared(prep: PreparedScan, poses: Tensor) -> Tensor:
     score = kernels.overlap_score_batched if prep.plane.dim() == 3 else kernels.overlap_score
     return score(
         prep.plane, poses.contiguous(), prep.pts, prep.beam_w, prep.origin,
-        prep.scale, prep.unknown,
+        prep.scale, prep.unknown, prep.reducer,
     )
 
 

@@ -237,12 +237,27 @@ def test_fields_of_later_slices_raise(make):
      tscore.ScoringConfig(reducer="overlap", window=0)],
 )
 def test_unported_scoring_raises(cfg):
-    view = tscore.MapView(
-        occ=torch.zeros(8, 8), known=torch.ones(8, 8, dtype=torch.bool),
-        origin=torch.zeros(2), scale=0.1,
-    )
+    """The scores the port once refused (the default obstacle reducer, the
+    overlap reducer at extent 1.6 and at window 0) now run, and agree with
+    the reference's gather path within 2e-6 (tests/test_torch_reducers.py
+    holds every reducer)."""
+    from slam_constructor_tpu.ops.scan import make_scan as jmake_scan
     from slam_constructor_tpu_torch.ops.scan import make_scan
 
-    scan = make_scan(torch.ones(4), torch.zeros(4))
-    with pytest.raises(NotImplementedError):
-        tscore.score_poses(view, scan, torch.zeros(1, 3), cfg)
+    rng = np.random.default_rng(4)
+    occ = rng.uniform(0.0, 1.0, (8, 8)).astype(np.float32)
+    known = rng.uniform(size=(8, 8)) < 0.7
+    ranges = rng.uniform(0.05, 0.6, 4).astype(np.float32)
+    bearings = np.linspace(-1.5, 1.5, 4, dtype=np.float32)
+    poses = np.array([[0.4, 0.4, 0.0], [0.33, 0.47, 0.8], [0.05, 0.7, -2.0]], np.float32)
+    view = tscore.MapView(occ=torch.from_numpy(occ), known=torch.from_numpy(known),
+                          origin=torch.zeros(2), scale=0.1)
+    scan = make_scan(torch.from_numpy(ranges), torch.from_numpy(bearings))
+    got = tscore.score_poses(view, scan, torch.from_numpy(poses), cfg)
+    jcfg = jscore.ScoringConfig(**{f.name: getattr(cfg, f.name)
+                                   for f in dataclasses.fields(cfg)}, impl="gather")
+    want = jscore.score_poses(
+        jscore.MapView(occ=jnp.asarray(occ), known=jnp.asarray(known), origin=jnp.zeros(2),
+                       scale=0.1),
+        jmake_scan(jnp.asarray(ranges), jnp.asarray(bearings)), jnp.asarray(poses), jcfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-6)

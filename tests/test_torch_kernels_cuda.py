@@ -35,7 +35,11 @@ edge, where the derivative jumps) at weight 0; ``matchers.gradient_match``
 on the card lands within 1e-5 m of the CPU's. ``gradient_refine`` and
 ``hill_climb`` (a whole refine in one launch, one map or M for the climb)
 equal their yardsticks ``gradient_refine_rounds`` and ``hill_climb_rounds``
-(a score launch a pass, the rest in PyTorch ops) bit for bit.
+(a score launch a pass, the rest in PyTorch ops) bit for bit. Every scoring
+kernel also runs the other reducers (``kernels.Reducer``: the obstacle
+reducer, the max and the mean over a window, the overlap reducer at other
+extents and windows): against the twin within 2e-6, and against the same
+yardsticks, single launches and cut-out windows bit for bit.
 """
 
 import pytest
@@ -785,3 +789,148 @@ def test_refine_kernels_reject_bad_input(scene):
             fn(plane, pts, beam_w, origin, pose.cpu(), *tail)
         with pytest.raises(ValueError):  # a weight short
             fn(plane, pts, beam_w[:-1], origin, pose, *tail)
+
+
+# --- the reducers other than the bilinear overlap ------------------------------
+
+#: the obstacle reducer (GMappingConfig()'s, M3RSMConfig()'s), the max and the
+#: mean over 3^2 and 5^2 cells, the overlap reducer at other extents and at
+#: window 0
+REDUCERS = [kernels.Reducer("obstacle"), kernels.Reducer("max", 1), kernels.Reducer("max", 2),
+            kernels.Reducer("mean", 1), kernels.Reducer("mean", 2),
+            kernels.Reducer("overlap", 0, 0.5), kernels.Reducer("overlap", 1, 1.6),
+            kernels.Reducer("overlap", 2, 2.5), kernels.Reducer("overlap", 0, 1.0)]
+REDUCER_IDS = [f"{r.kind}-{r.radius}-{r.extent}" for r in REDUCERS]
+
+
+def _wide(scene, k):
+    """k candidates, a quarter of them 8 to 20 m off: endpoints off the map."""
+    _, _, cand, g = scene
+    far = torch.randn((k, 3), generator=g, device=cand.device) * torch.tensor(
+        [9.0, 9.0, 1.0], device=cand.device)
+    return torch.where((torch.arange(k, device=cand.device) % 4 == 3)[:, None], cand[:k] + far,
+                       cand[:k]).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("red", REDUCERS, ids=REDUCER_IDS)
+def test_reducer_scores_match_twin_and_single_launches(scene, red):
+    """``overlap_score`` against its twin (2e-6); ``overlap_score_batched``
+    against the twin and M single launches (bit for bit); each launch
+    counted under its reducer."""
+    view, scan, _, g = scene
+    w = torch.rand((360,), generator=g, device=scan.ranges.device)
+    prep = scoring.prepare(view, scan, scoring.ScoringConfig(reducer="overlap", stride=2), w)
+    args = (prep.plane, _wide(scene, 64), prep.pts, prep.beam_w, prep.origin, prep.scale,
+            prep.unknown, red)
+    n = kernels.reducer_launch_counts()[f"overlap_score/{red.kind}"]
+    got = kernels.overlap_score(*args)
+    assert kernels.reducer_launch_counts()[f"overlap_score/{red.kind}"] == n + 1
+    torch.testing.assert_close(got, kernels.overlap_score_ref(*args), atol=ATOL, rtol=0)
+    assert torch.equal(kernels.overlap_score(*args), got)
+    bprep, poses = _submap_batch(scene, 5, 33)
+    bargs = (bprep.plane, poses, bprep.pts, bprep.beam_w, bprep.origin, bprep.scale,
+             bprep.unknown, red)
+    batched = kernels.overlap_score_batched(*bargs)
+    torch.testing.assert_close(batched, kernels.overlap_score_ref(*bargs), atol=ATOL, rtol=0)
+    singles = torch.stack([kernels.overlap_score(*(t[m] for t in bargs[:5]), *bargs[5:])
+                           for m in range(5)])
+    assert torch.equal(batched, singles)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("red", REDUCERS, ids=REDUCER_IDS)
+def test_reducer_mc_match_equals_one_launch_a_round(scene, red):
+    args = (*_match_args(scene, 16, 6, 1, True), red)
+    got = kernels.mc_match(*args)
+    want = kernels.mc_match_rounds(*args)
+    twin = kernels.mc_match_ref(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)  # bit for bit
+    torch.testing.assert_close(got[2][:1], twin[2][:1], atol=ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("red", REDUCERS, ids=REDUCER_IDS)
+def test_reducer_particle_matches_equal_single_launches(scene, red):
+    """``mc_match_batched`` (P = 30, K = 16, 6 rounds: the gmapping preset's
+    shape on 120^2 planes) against single ``mc_match`` launches and
+    ``mc_match_rounds``; ``mc_match_windows`` against the windows cut out;
+    bit for bit."""
+    args = (*_particle_args(scene, 30, 16, 6), red)
+    got = kernels.mc_match_batched(*args)
+    singles = [kernels.mc_match(*(t[m] for t in args[:6]), *args[6:]) for m in range(0, 30, 7)]
+    rounds_ = [kernels.mc_match_rounds(*(t[m] for t in args[:6]), *args[6:])
+               for m in range(0, 30, 7)]
+    for i in range(3):
+        assert torch.equal(got[i][::7], torch.stack([s[i] for s in singles]))
+        assert torch.equal(got[i][::7], torch.stack([s[i] for s in rounds_]))
+    wargs = (*_window_args(scene, 7, 16, 6, 160), red)
+    occ, known, row, col = wargs[:4]
+    plane = torch.where(gridlib.take_window(known, row, col, 160, 160),
+                        gridlib.take_window(occ, row, col, 160, 160), 0.5).contiguous()
+    in_place = kernels.mc_match_windows(*wargs)
+    cut = kernels.mc_match_batched(plane, *wargs[6:])
+    torch.cuda.synchronize()
+    for a, b in zip(in_place, cut):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("red", REDUCERS, ids=REDUCER_IDS)
+def test_reducer_hill_climb_equals_the_launch_loop(scene, red):
+    args = (*refine_case(scene, 360, 2, True, (0.06, 0.03, -0.02)), 0.1, 0.05, 10, 0.5, red)
+    got = kernels.hill_climb(*args)
+    assert same_bits(got, kernels.hill_climb_rounds(*args))
+    plane, pts, beam_w, origin, pose = args[:5]
+    planes = torch.stack([plane, plane.flip(0), plane.roll(7, 1)]).contiguous()
+    margs = (planes, pts.expand(3, -1, -1).contiguous(), beam_w.expand(3, -1).contiguous(),
+             origin.expand(3, -1).contiguous(), pose.expand(3, -1).contiguous(), *args[5:])
+    many = kernels.hill_climb(*margs)
+    assert same_bits(many, kernels.hill_climb_rounds(*margs))
+    assert same_bits([t[0] for t in many], got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["defaults, obstacle", "viny_m3rsm, max", "viny_m3rsm, mean",
+                                  "viny_m3rsm, overlap 1.6", "3 maps, obstacle"])
+def test_reducer_m3rsm_search_equals_the_level_launches(scene, case, monkeypatch):
+    """``M3RSMConfig()`` (the obstacle reducer: its climb on one cell a
+    beam) and other reducers in the climb: one launch equals the level and
+    score launches bit for bit."""
+    import dataclasses
+
+    from slam_constructor_tpu_torch.ops import m3rsm
+
+    base, kind = case.split(", ")
+    view, scan, prior, cfg, w = _m3rsm_case(
+        scene, {"defaults": "defaults", "viny_m3rsm": "viny_m3rsm"}.get(
+            base, "3 maps, the loop matcher"))
+    sc = {"obstacle": scoring.ScoringConfig(stride=cfg.scoring.stride),
+          "max": scoring.ScoringConfig(reducer="max", window=1, stride=cfg.scoring.stride),
+          "mean": scoring.ScoringConfig(reducer="mean", window=2, stride=cfg.scoring.stride),
+          "overlap 1.6": scoring.ScoringConfig(reducer="overlap", overlap_extent=1.6,
+                                               stride=cfg.scoring.stride)}[kind]
+    cfg = m3rsm.M3RSMConfig() if base == "defaults" else dataclasses.replace(cfg, scoring=sc)
+    assert base != "defaults" or cfg.scoring.reducer == "obstacle"
+    n = kernels.reducer_launch_counts()
+    got = m3rsm.m3rsm_match(view, scan, prior, None, cfg, w)
+    red = scoring.reducer_of(cfg.scoring).kind
+    assert kernels.reducer_launch_counts()[f"m3rsm_search/{red}"] == n[f"m3rsm_search/{red}"] + 1
+    monkeypatch.setattr(kernels, "m3rsm_search", kernels.m3rsm_search_levels)
+    want = m3rsm.m3rsm_match(view, scan, prior, None, cfg, w)
+    torch.cuda.synchronize()
+    assert same_bits((got.pose, got.prob, got.trace), (want.pose, want.prob, want.trace))
+    assert bool(torch.isfinite(got.pose).all())
+
+
+@pytest.mark.cuda
+def test_reducer_launches_reject_bad_codes(scene):
+    view, scan, cand, _ = scene
+    prep = scoring.prepare(view, scan, scoring.ScoringConfig(reducer="overlap"))
+    bad = kernels.Reducer("max", 1)
+    object.__setattr__(bad, "radius", -1)  # past the dataclass's own check
+    with pytest.raises(RuntimeError):
+        kernels.overlap_score(prep.plane, cand, prep.pts, prep.beam_w, prep.origin, prep.scale,
+                              prep.unknown, bad)

@@ -354,13 +354,20 @@ def test_m3rsm_match_over_m_maps_equals_single_calls(setup):
 
 
 def test_m3rsm_unported_scoring_and_stale_pyramid_raise(setup):
-    """The default config scores its refine with the obstacle reducer, which
-    the port has not (``NotImplementedError``, as every unported score); a
-    pyramid of another shape is refused, as the reference refuses it."""
+    """The default scoring (the obstacle reducer, which the port once
+    refused) refines as the reference does: the same pose within 1e-5 and
+    probability within 2e-6; a pyramid of another shape is refused, as the
+    reference refuses it."""
     jview, s, true_pose = setup
     view, scan, init = _tview(jview), _tscan(s), torch.from_numpy(np.array(true_pose))
-    with pytest.raises(NotImplementedError):
-        tm3.m3rsm_match(view, scan, init, None, tm3.M3RSMConfig(n_theta=3, levels=3))
+    start = init + torch.tensor([0.12, -0.08, 0.05])
+    jcfg = jm3.M3RSMConfig(n_theta=3, levels=3)
+    want = jax.jit(lambda v, sc, p: jm3.m3rsm_match(v, sc, p, None, jcfg))(
+        jview, s, jnp.asarray(start.numpy()))
+    got = tm3.m3rsm_match(view, scan, start, None, _tcfg(jcfg))
+    assert _tcfg(jcfg).scoring.reducer == "obstacle"
+    np.testing.assert_allclose(got.pose.numpy(), np.asarray(want.pose), atol=1e-5)
+    np.testing.assert_allclose(float(got.prob), float(want.prob), atol=2e-6)
     cfg = tm3.M3RSMConfig(n_theta=3, levels=3, beam_width=32,
                           scoring=tscore.ScoringConfig(**OVERLAP))
     wrong = tm3.build_pyramid(tscore.MapView(occ=torch.zeros(64, 64),
