@@ -226,14 +226,32 @@ Phases, one line or more each, in order; any failure exits non-zero:
 33. global relocalization (``ops/relocalize.py``) on the card: the
    reference's test map and its three kidnapped poses, each within 0.12 m
    and 0.08 rad, one ``hill_climb`` launch a call and no host sync, the
-   FFT's pose within a cell and a heading bin of the CPU's.
+   FFT's pose within a cell and a heading bin of the CPU's;
+34. K3, the scan insert with its cell fold (``kernels.scan_insert``,
+   ``csrc/scan_insert.cu``). Every main path (tiny, viny, full, gmapping,
+   the gmapping preset, viny_m3rsm) and every CLI config but mit_stata runs
+   once more with K3's plain twin handed in, the kernel also run on every
+   call's arguments: the trajectory equal to the kernel path's bit for
+   bit, or, where they part, an insert at or before that scan whose twin
+   cells differed from the kernel's. The inserts kept from those runs
+   (every 64th; every 32nd of mit_csail and tum_2d) and edge cases (q = 0,
+   no valid beam, every beam past a 1 m usable range, a 64^2 map that most
+   samples fall off, gmapping windows clamped at corners and edges, viny's
+   map as 4 windows with the polar fill): equal to ``scan_insert_ordered``
+   (the samples summed on the host in sample order) bit for bit, two
+   launches equal, the cells outside the windows copied, and equal to the
+   twin but in cells with 32 occupied samples or more (the card's
+   ``index_put_`` sums those by a warp), within 1e-6 relative; then timed
+   at each path's shape (graph replay, a call, chained) beside the twin and
+   the bound.
 
 Every bound counts, of the plane or window, the distinct cells that the
 taps of every pose the kernel scores read (the poses taken from its
 yardstick's run on the same inputs), not the whole plane.
 
-The launch counts are set to 0 just before each of these runs and read just
-after it. The line before the last is a JSON object of the
+Every path on a dense map inserts through ``scan_insert`` once a scan (the
+tiled mit_stata scatters its samples itself). The launch counts are set to
+0 just before each of these runs and read just after it. The line before the last is a JSON object of the
 kernels; the last line is ``{"ok": true, "device": {...}}``. It needs no
 network and starts no process that outlives it.
 """
@@ -351,6 +369,20 @@ GM_IMPROVED_SCANS, GM_IMPROVED_GATE = 64, 0.7
 #: the card's published peaks (NVIDIA H100 SXM data sheet)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+
+#: K3's work, in f32 operations (one a +, -, *, /, floor, min, max or
+#: compare; cosf and sinf 20 each, expf and logf 15, powf 25): a beam's
+#: direction 1 + 2 x 20; a DDA sample before the free limit 16 (t 2, point
+#: 4, cell 2 sub + 2 div + 2 floor, the duplicate and map tests 4); an
+#: occupied sample 12 (point 4, cell 6, tests 2), and with the area
+#: estimator 14 more a neighbour (its square's overlap); a folded cell by
+#: the cell model (BayesAvg 8, BayesBase 30 with powf, TBM 130 with three
+#: expf and three logf)
+K3_BEAM_OPS, K3_FREE_OPS, K3_OCC_OPS, K3_AREA_OPS = 41, 16, 12, 14
+K3_FOLD_OPS = {"BayesAvgCell": 8, "BayesBaseCell": 30, "TBMCell": 130}
+#: every how many inserts a path's run with K3's twin handed in keeps a
+#: call's arguments for phase 34
+INSERT_EVERY = 64
 
 #: f32 operations a cell of `polar_free_plane`, with the math library's
 #: routines counted at the length of their usual path in the built kernel's
@@ -1019,7 +1051,8 @@ def phase_rounds_path(cfg, scans, odom, gt, fused_traj):
         reset_launches()
         traj, _, secs, _ = run_main_path(cfg, scans[:n], odom[:n], gt, "error")
         launches = read_launches()
-    want = expect(overlap_score=n * (cfg.matcher_cfg.rounds + 1), polar_free_plane=n)
+    want = expect(overlap_score=n * (cfg.matcher_cfg.rounds + 1), polar_free_plane=n,
+                  scan_insert=n)
     diff = float((traj - fused_traj[:n]).abs().max())
     print(f"viny path with one overlap_score launch a round, {n} scans: {n / secs:.1f} scans/s; "
           f"launches {launches} (expected {want}); max|pose diff| to the fused path {diff:.3e}",
@@ -1113,7 +1146,7 @@ def phase_full_path(cfg, scans, odom, gt, odo_ate, name="full", reference=FULL_R
     e, traj, secs, track_secs = run_full_path(cfg, scans, odom, gt, "error")
     launches = read_launches()
     n_kf, n_edges = int(e.graph.n_kf), int(e.graph.n_edges)
-    want = expect(mc_match=N_SCANS, **loop_match_launches(
+    want = expect(mc_match=N_SCANS, scan_insert=N_SCANS, **loop_match_launches(
         cfg.graph, e.n_kf_batches + cfg.densify_rounds * e.n_bursts))
     print(f"{name} main path: {N_SCANS} scans in {secs:.3f} s = {N_SCANS / secs:.1f} scans/s "
           f"(tracking {track_secs:.3f} s with the sync check on, no host sync; keyframe work and "
@@ -1515,7 +1548,7 @@ def phase_gmapping_path(cfg, scans, odom, gt, odo_ate, smi):
         reset_launches()
         e, traj, neffs, secs = run_gmapping_path(cfg, scans, odom, gt, "error")
         launches = read_launches()
-    want = expect(mc_match_batched=N_SCANS)
+    want = expect(mc_match_batched=N_SCANS, scan_insert=N_SCANS)
     resamples = int((e.genealogy[1] != torch.arange(cfg.n_particles, device=traj.device)).any(1).sum())
     print(f"gmapping main path ({cfg.n_particles} particles): {N_SCANS} scans in {secs:.3f} s = "
           f"{N_SCANS / secs:.1f} scans/s on {smi}, with the sync check on, no host sync; "
@@ -1595,7 +1628,7 @@ def phase_gmapping_improved(dev, scans, odom, gt):
         reset_launches()
         _, traj, _, secs = run_gmapping_path(cfg, scans[:n], odom[:n], gt, "error")
         launches = read_launches()
-    want = expect(overlap_score_batched=2 * n, mc_match_batched=n)
+    want = expect(overlap_score_batched=2 * n, mc_match_batched=n, scan_insert=n)
     print(f"gmapping, improved proposal and gate {GM_IMPROVED_GATE}, {n} scans: {n / secs:.1f} "
           f"scans/s with the sync check on; launches {launches} (expected {want})", flush=True)
     check(launches == want, f"gmapping improved: launches {launches}, expected {want}")
@@ -2149,7 +2182,7 @@ def phase_m3rsm_path(cfg, scans, odom, gt, odo_ate):
     from slam_constructor_tpu_torch.ops import m3rsm, scoring
 
     levels = cfg.matcher_cfg.levels
-    want = expect(m3rsm_search=N_SCANS, m3rsm_pyramid=N_SCANS + 1)
+    want = expect(m3rsm_search=N_SCANS, m3rsm_pyramid=N_SCANS + 1, scan_insert=N_SCANS)
     launches, traj, e = phase_main_path("viny_m3rsm", cfg, want, scans, odom, gt, odo_ate,
                                         VINY_M3RSM_REFERENCE_ATE + VINY_ATE_MARGIN)
     rebuilt = m3rsm.build_pyramid(scoring.MapView.of(e.state.gm, cfg.cell_model), levels,
@@ -2174,6 +2207,7 @@ def phase_m3rsm_levels_path(cfg, scans, odom, gt, traj):
         got, _, secs, _ = run_main_path(cfg, scans, odom, gt, 0)
         launches = read_launches()
     want = expect(m3rsm_level=(mc.levels + 1) * N_SCANS, m3rsm_pyramid=N_SCANS + 1,
+                  scan_insert=N_SCANS,
                   overlap_score_batched=(1 + mc.refine_iterations) * N_SCANS)
     diff = float((got - traj).abs().max())
     print(f"viny_m3rsm with a level launch a level and a score launch a hill-climb round: "
@@ -2228,12 +2262,13 @@ def cli_expected(name, n):
     refresh a scan; tum_2d's improved proposal (one batched score of the
     probes a scan)."""
     return expect(**{
-        "tiny": dict(mc_match=n), "viny": dict(mc_match=n), "mit_stata": dict(mc_match=n),
-        "tiny_refined": dict(mc_match=n, gradient_refine=n),
-        "mit_csail": dict(mc_match=n, hill_climb=n),
-        "viny_m3rsm": dict(m3rsm_search=n, m3rsm_pyramid=n + 1),
-        "gmapping": dict(mc_match_batched=n),
-        "tum_2d": dict(mc_match_batched=n, overlap_score_batched=n),
+        "tiny": dict(mc_match=n, scan_insert=n), "viny": dict(mc_match=n, scan_insert=n),
+        "mit_stata": dict(mc_match=n),
+        "tiny_refined": dict(mc_match=n, gradient_refine=n, scan_insert=n),
+        "mit_csail": dict(mc_match=n, hill_climb=n, scan_insert=n),
+        "viny_m3rsm": dict(m3rsm_search=n, m3rsm_pyramid=n + 1, scan_insert=n),
+        "gmapping": dict(mc_match_batched=n, scan_insert=n),
+        "tum_2d": dict(mc_match_batched=n, overlap_score_batched=n, scan_insert=n),
     }[name])
 
 
@@ -2245,13 +2280,15 @@ def phase_cli(dev):
     mit_csail (`gradient_refine`, `hill_climb`); of the yardstick runs'
     every 97th `overlap_score_grad` launch and mit_csail's `overlap_score`
     launches every 16th scan (its first score, K = 1, and its first round,
-    K = 6); and the scans/s of the runs."""
+    K = 6); the scans/s of the runs; and, for every config but mit_stata, the
+    same engine once more with K3's twin handed in
+    (:func:`held_to_twin_insert`: its kept insert calls and findings)."""
     from slam_constructor_tpu_torch import run
     from slam_constructor_tpu_torch.ops import blockmap, kernels
     from slam_constructor_tpu_torch.utils import config as cfglib
     from slam_constructor_tpu_torch.utils import evaluate
 
-    launches, refine_kept, rates, trajs = {}, {}, {}, {}
+    launches, refine_kept, rates, trajs, inserts = {}, {}, {}, {}, {}
     for name in (*CLI_EARLIER, *CLI_NEW):
         args = run.parse_args(cli_argv(name, f"build/cli_out/{name}"))
         check(not args.cpu, "the CLI phase runs on the card")
@@ -2291,6 +2328,14 @@ def phase_cli(dev):
         check(torch.equal(traj, res.trajectory), f"cli {name}: the CLI and the engine differ")
         rates[name] = {"cli": sm["scans_per_sec"], "direct": n / secs}
         trajs[name] = traj
+        if name != "mit_stata":  # the tiled map scatters its samples (ops/blockmap.py)
+            if "pf.particles" in props:
+                def again(p=props, s=scans, o=odom, g=gt):
+                    return run_gmapping_path(cfglib.gmapping_config_from(p), s, o, g, 0)[1]
+            else:
+                def again(p=props, s=scans, o=odom, g=gt):
+                    return run_main_path(cfglib.engine_config_from(p), s, o, g, 0)[0]
+            inserts[name] = held_to_twin_insert(f"cli {name}", again, traj, every=32)
         if name in CLI_NEW:
             ate = float(evaluate.ate(res.trajectory, gt, align=False))
             limit = max(CLI_REFERENCE_ATE_BY_KEY[name]) + CLI_ATE_MARGIN
@@ -2314,7 +2359,8 @@ def phase_cli(dev):
         res = run.execute(args)
         got = read_launches()
         n = res.trajectory.shape[0]
-        want = expect(**({"mc_match": n} if name == "tiny" else {"mc_match_batched": n}))
+        want = expect(scan_insert=n, **({"mc_match": n} if name == "tiny"
+                                        else {"mc_match_batched": n}))
         launches[f"{name} on {log}"] = got
         print(f"cli {name} on {log}: {json.dumps(res.summary)}; launches {got}", flush=True)
         check(got == want, f"cli {name} on {log}: launches {got}, expected {want}")
@@ -2342,7 +2388,7 @@ def phase_cli(dev):
                 "error")
         n = res.trajectory.shape[0]
         launches[f"{name}, one {score} launch a pass"] = got
-        want = expect(mc_match=n, **{score: passes * n})
+        want = expect(mc_match=n, scan_insert=n, **{score: passes * n})
         rates[f"{name}, yardstick"] = {"cli": res.summary["scans_per_sec"], "direct": n / secs}
         print(f"cli {name} with {yardstick.__name__} handed in: {res.summary['scans_per_sec']} "
               f"scans/s (the kernel's run {rates[name]['cli']}); driven directly, sync check on, "
@@ -2356,7 +2402,7 @@ def phase_cli(dev):
     print("refine paths, scans/s driven directly (CLI): " + "; ".join(
         f"{k} {v['direct']:.1f} ({v['cli']})" for k, v in rates.items()
         if k.startswith(("tiny", "mit_csail"))), flush=True)
-    return launches, grad_kept, score_kept, refine_kept, rates
+    return launches, grad_kept, score_kept, refine_kept, rates, inserts
 
 
 def tap_cells(v, poses, pts, beam_w, origin, scale):
@@ -2893,7 +2939,7 @@ def phase_gmapping_baseline_path(scans, odom, gt, odo_ate, smi):
     reset_launches()
     e, traj, neffs, secs = run_gmapping_path(None, scans, odom, gt, "error", make=baseline_engine)
     launches, by_reducer = read_launches(), kernels.reducer_launch_counts()
-    want = expect(mc_match_batched=N_SCANS)
+    want = expect(mc_match_batched=N_SCANS, scan_insert=N_SCANS)
     check(e.cfg == gmapping.GMappingConfig(), "preset('gmapping') is not GMappingConfig()")
     resamples = int((e.genealogy[1] != torch.arange(e.cfg.n_particles, device=traj.device))
                     .any(1).sum())
@@ -2940,6 +2986,225 @@ def phase_gmapping_baseline_path(scans, odom, gt, odo_ate, smi):
           f"equal to the engine driven directly with the sync check on ({N_SCANS / dsecs:.1f} "
           f"scans/s) bit for bit", flush=True)
     return launches, by_reducer
+
+
+def insert_call(args, kwargs):
+    """A ``scan_insert`` call's arguments as (gm, model, pose, scan, beam,
+    q, window), the map's cells, the pose, the scan and q cloned."""
+    from slam_constructor_tpu_torch.ops import grid as gridlib
+    from slam_constructor_tpu_torch.ops.scan import LaserScan
+
+    a = dict(zip(("gm", "model", "pose", "scan", "cfg", "q", "window"), args), **kwargs)
+    gm, scan, q = a["gm"], a["scan"], a.get("q")
+    return (gridlib.GridMap(cells=gm.cells.clone(), origin=gm.origin.clone(), scale=gm.scale),
+            a["model"], a["pose"].clone(),
+            LaserScan(scan.ranges.clone(), scan.bearings.clone(), scan.valid.clone()), a["cfg"],
+            None if q is None else q.clone(), a.get("window", 0))
+
+
+def held_to_twin_insert(name, run, traj=None, every=INSERT_EVERY):
+    """The path's trajectory through K3 (``traj``, or ``run()``'s) against
+    a run with K3's plain twin handed in (``kernels.scan_insert_ref``, the
+    card's ``index_put_``), in which the kernel also runs on every call's
+    arguments: the trajectories bit for bit, or, where they part, the
+    first scan, and an insert at or before it whose kernel and twin cells
+    differed (the card's ``index_put_`` sums a cell's run of 32 samples or
+    more in another order). ``run()`` returns the trajectory f32[T, 3] of a
+    run that inserts once a scan. Returns the kept calls (every
+    ``every``-th) and what was found."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    if traj is None:
+        traj = run()
+    kernel, kept, n, first = kernels.scan_insert, [], [0], [None]
+
+    def stand_in(*args, **kwargs):
+        twin = kernels.scan_insert_ref(*args, **kwargs)
+        if first[0] is None and not torch.equal(bits(twin), bits(kernel(*args, **kwargs))):
+            first[0] = n[0]
+        if n[0] % every == 0:
+            kept.append(insert_call(args, kwargs))
+        n[0] += 1
+        return twin
+
+    with handed_in(stand_in, "scan_insert"):
+        twin_traj = run()
+    apart = (bits(traj).reshape(traj.shape) != bits(twin_traj).reshape(traj.shape)).any(-1)
+    part = int(apart.nonzero()[0]) if bool(apart.any()) else None
+    print(f"{name} with K3's plain twin handed in: {n[0]} inserts, the first whose cells differ "
+          f"from the kernel's {first[0]}; the trajectory "
+          f"{'equal to the kernel path bit for bit' if part is None else f'parts at scan {part}'}",
+          flush=True)
+    check(part is None or (first[0] is not None and first[0] <= part),
+          f"{name}: the twin insert's trajectory parts at scan {part} with no insert before it "
+          f"differing from the kernel's")
+    return kept, {"inserts": n[0], "first_insert_differing_from_twin": first[0],
+                  "trajectory_parts_at_scan": part}
+
+
+def insert_window_mask(args):
+    """bool[P, H, W]: the cells of each map that the insert folds."""
+    from slam_constructor_tpu_torch.ops import grid as gridlib
+
+    gm, _, pose, _, _, _, window = args
+    if gm.cells.dim() == 3 or not window:
+        return torch.ones(gm.cells.shape[:-1], dtype=torch.bool,
+                          device=gm.cells.device).reshape(-1, gm.height, gm.width)
+    sh = sw = min(window, gm.height, gm.width)
+    row, col, _ = gridlib.window_corner(gm.origin, pose[:, :2], gm.scale, sh, sw, gm.height,
+                                        gm.width)
+    r = torch.arange(gm.height, device=row.device)
+    c = torch.arange(gm.width, device=row.device)
+    return (((r[None, :] >= row[:, None]) & (r[None, :] < row[:, None] + sh))[:, :, None]
+            & ((c[None, :] >= col[:, None]) & (c[None, :] < col[:, None] + sw))[:, None, :])
+
+
+def insert_work(args):
+    """(bytes, operations, cells folded) of one insert on these inputs: the
+    maps read and written once, the scan's rows (a broadcast row once),
+    poses, origins, q and the polar plane read once; the operations of the
+    beams, of the DDA samples before each beam's free limit, of the
+    occupied samples of the beams that carry evidence and of the folded
+    cells (the K3_* counts)."""
+    gm, model, pose, scan, cfg, q, window = args
+    n_p = 1 if gm.cells.dim() == 3 else gm.cells.shape[0]
+    r = scan.ranges.shape[-1]
+    folded = int(insert_window_mask(args).sum())
+    rows = 1 if scan.ranges.dim() == 1 or scan.ranges.stride(0) == 0 else n_p
+    polar = cfg.free_impl == "polar"
+    n_bytes = (8 * gm.cells.numel() + 9 * r * rows + 20 * n_p + (4 if q is not None else 0)
+               + (4 * folded if polar else 0))
+    ranges, valid = scan.ranges.reshape(-1, r), scan.valid.reshape(-1, r)
+    traced = 0
+    if not polar:
+        n_s = cfg.n_free_samples(gm.scale)
+        t = (torch.arange(n_s, dtype=torch.float32, device=ranges.device) + 0.5) * (
+            gm.scale * cfg.step_fraction)
+        traced = int(((t < (ranges - cfg.hole_width / 2.0)[..., None]) & valid[..., None]).sum())
+        traced *= n_p // ranges.shape[0]
+    ep = int((valid & (ranges <= cfg.max_range)).sum()) * (n_p // ranges.shape[0])
+    area = cfg.occupancy_estimator == "area"
+    occ = ep * ((9 if area else 1) + (cfg.blur_samples if cfg.wall_blur else 0))
+    n_ops = (K3_BEAM_OPS * n_p * r + K3_FREE_OPS * traced + K3_OCC_OPS * occ
+             + (K3_AREA_OPS * 9 * ep if area else 0) + K3_FOLD_OPS[type(model).__name__] * folded)
+    return n_bytes, n_ops, folded
+
+
+def insert_edge_cases(kept):
+    """(name, args) of the edge cases, made from kept path states."""
+    from slam_constructor_tpu_torch.ops import grid as gridlib
+    from slam_constructor_tpu_torch.ops.scan import LaserScan
+
+    gm, model, pose, scan, cfg, q, w = kept["tiny"][4]
+    cases = [("tiny state, q = 0", (gm, model, pose, scan, cfg, torch.zeros_like(q), w)),
+             ("tiny state, no valid beam",
+              (gm, model, pose, LaserScan(scan.ranges, scan.bearings,
+                                          torch.zeros_like(scan.valid)), cfg, q, w)),
+             ("tiny state, every beam past a usable range of 1 m",
+              (gm, model, pose, scan, dataclasses.replace(cfg, max_range=1.0), q, w))]
+    cut = gridlib.GridMap(cells=gm.cells[96:160, 96:160].contiguous(),
+                          origin=gm.origin + 96 * gm.scale, scale=gm.scale)
+    cases.append(("tiny state on a 64^2 map: endpoints and free samples off it",
+                  (cut, model, pose, scan, cfg, q, w)))
+    gm, model, pose, scan, cfg, q, w = kept["gmapping"][4]
+    far = gm.origin + torch.tensor([gm.width, gm.height], device=pose.device) * gm.scale
+    corners = pose.clone()
+    corners[0, :2] = gm.origin[0] + 0.3
+    corners[1, :2] = far[1] - 0.3
+    corners[2, 0], corners[3, 1] = gm.origin[2, 0] + 0.3, far[3, 1] - 0.3
+    cases.append(("gmapping state, windows clamped at two corners and two edges",
+                  (gm, model, corners, scan, cfg, q, w)))
+    gm, model, pose, scan, cfg, q, _ = kept["viny"][4]
+    n_p = 4
+    stack = gridlib.GridMap(cells=gm.cells.expand(n_p, *gm.cells.shape).contiguous(),
+                            origin=gm.origin.expand(n_p, 2).contiguous(), scale=gm.scale)
+    poses = pose.expand(n_p, 3).clone()
+    poses[1:, 0] += torch.tensor([0.5, -0.7, 9.0], device=pose.device)
+    cases.append(("viny state as 4 windows of 160^2 (TBM, the polar fill), one clamped",
+                  (stack, model, poses, LaserScan(*(t.expand(n_p, -1) for t in (
+                      scan.ranges, scan.bearings, scan.valid))), cfg, None, 160)))
+    return cases
+
+
+def phase_scan_insert_kernel(dev, kept, smi):
+    """K3 (``kernels.scan_insert``) on the insert calls kept from every
+    path's run with its twin handed in and on edge cases: equal to the
+    ordered sums (``scan_insert_ordered``) bit for bit, two launches the
+    same bits, against the twin bit for bit but in the cells whose run of
+    occupied samples the card's ``index_put_`` sums in another order (32
+    or more; within 1e-6 relative); the cells outside the windows copied.
+    Then timed at each path's shape. Returns the ``kernels`` entry without
+    the launch count."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    cases = [(f"{path} insert {i * INSERT_EVERY}", a) for path, calls in kept.items()
+             for i, a in enumerate(calls)]
+    cases += insert_edge_cases(kept)
+    max_err, explained = 0.0, 0
+    for name, args in cases:
+        before = kernels.launch_counts()["scan_insert"]
+        got = kernels.scan_insert(*args)
+        again = kernels.scan_insert(*args)
+        want = kernels.scan_insert_ordered(*args)
+        twin = kernels.scan_insert_ref(*args)
+        torch.cuda.synchronize()
+        check(kernels.launch_counts()["scan_insert"] == before + 2,
+              f"scan_insert did not count its launches ({name})")
+        gm = args[0]
+        check(got.shape == gm.cells.shape and bool(torch.isfinite(got).all()),
+              f"scan_insert output malformed ({name})")
+        same = torch.equal(bits(got), bits(want))
+        check(same, f"scan_insert differs from the ordered sums ({name}): "
+                    f"{int((got != want).any(-1).sum())} cells")
+        check(torch.equal(bits(got), bits(again)), f"two launches differ ({name})")
+        inside = insert_window_mask(args)
+        lead = (-1, *got.shape[-3:])
+        cells_got, cells_in = got.reshape(lead), gm.cells.reshape(lead)
+        check(torch.equal(bits(cells_got[~inside]), bits(cells_in[~inside])),
+              f"scan_insert changed cells outside the windows ({name})")
+        differ = (got.view(torch.int32) != twin.view(torch.int32)).any(-1).reshape(inside.shape)
+        runs = kernels.scan_insert_runs(args[0], args[2], args[3], args[4], args[6])
+        n_differ = int(differ.sum())
+        short = int((differ[inside].reshape(runs.shape) & (runs < 32)).sum()) if n_differ else 0
+        rel = float(((got - twin).abs() / twin.abs().clamp(min=1e-30)).max())
+        print(f"scan_insert [{name}]: {tuple(gm.cells.shape)}, window {args[6]}, q "
+              f"{None if args[5] is None else float(args[5])}: equal to the ordered sums bit for "
+              f"bit, two launches equal; against the twin {n_differ} cells differ (all in cells "
+              f"with 32 or more occupied samples: {short == 0}; largest run "
+              f"{int(runs.max())}), max relative difference {rel:.3e}", flush=True)
+        check(short == 0 and rel <= 1e-6, f"scan_insert parts from its twin unexplained ({name})")
+        explained += n_differ
+        max_err = max(max_err, float((got - twin).abs().max()))
+
+    by_path = {}
+    for path, calls in kept.items():
+        args = calls[min(4, len(calls) - 1)]
+        for _ in range(3):
+            kernels.scan_insert(*args)
+        device_ms = graph_ms(lambda: kernels.scan_insert(*args))
+        ms, plain_ms, chained = time_pair(lambda: kernels.scan_insert(*args),
+                                          lambda: kernels.scan_insert_ref(*args), plain_calls=10)
+        n_bytes, n_ops, folded = insert_work(args)
+        b_ms, by = bound_ms(n_bytes, n_ops)
+        print(f"scan_insert {path} {tuple(args[0].cells.shape)} window {args[6]} "
+              f"{type(args[1]).__name__} {args[4].free_impl}: {1e3 * device_ms:.2f} us device "
+              f"(a CUDA graph of 50 calls), a call {ms:.4f} ms, chained {chained:.4f} ms; plain "
+              f"twin {plain_ms:.4f} ms a call; bound {b_ms:.6f} ms by {by} ({n_bytes} B; {n_ops} "
+              f"operations, {folded} cells folded) on {smi}; no single PyTorch call computes "
+              f"it", flush=True)
+        by_path[path] = {"device_ms": device_ms, "ms": ms, "plain_ms": plain_ms,
+                         "chained_ms": chained, "bound_ms": b_ms, "bound_by": by}
+    print(f"scan_insert: {len(cases)} cases equal to the ordered sums bit for bit; {explained} "
+          f"cells differ from the twin, each in a run the card's index_put_ sums by a warp",
+          flush=True)
+    return {
+        "name": "scan_insert", "route": "cuda",
+        "source": "slam_constructor_tpu_torch/csrc/scan_insert.cu",
+        "replaces": "slam_constructor_tpu/ops/raycast.py:89",
+        "max_abs_err": max_err, "cases_bitwise_equal_to_ordered_sums": len(cases),
+        "cells_differing_from_twin": explained, **by_path["tiny"], "by_path": by_path,
+        "library_ms": None,
+    }
 
 
 def phase_relocalize(dev):
@@ -3047,19 +3312,29 @@ def main() -> None:
     phase_card_vs_cpu("viny", viny_cfg, dev, scans, odom, gt)
 
     odo_ate = float(evaluate.ate(odometry_trajectory(gt[0], odom), gt, align=False))
-    tiny_launches, _, _ = phase_main_path(
-        "tiny", tiny_cfg, expect(mc_match=N_SCANS), scans, odom, gt, odo_ate, 0.15)
+    tiny_launches, tiny_traj, _ = phase_main_path(
+        "tiny", tiny_cfg, expect(mc_match=N_SCANS, scan_insert=N_SCANS), scans, odom, gt, odo_ate,
+        0.15)
     viny_launches, viny_traj, _ = phase_main_path(
-        "viny", viny_cfg, expect(mc_match=N_SCANS, polar_free_plane=N_SCANS),
+        "viny", viny_cfg, expect(mc_match=N_SCANS, polar_free_plane=N_SCANS, scan_insert=N_SCANS),
         scans, odom, gt, odo_ate, max(VINY_REFERENCE_ATE_BY_KEY) + VINY_ATE_MARGIN)
     rounds_launches = phase_rounds_path(viny_cfg, scans, odom, gt, viny_traj)
+    # every path once more with K3's plain twin handed in, keeping insert calls
+    kept_inserts, twin_runs = {}, {}
+    for name, cfg_, traj_ in (("tiny", tiny_cfg, tiny_traj), ("viny", viny_cfg, viny_traj)):
+        kept_inserts[name], twin_runs[name] = held_to_twin_insert(
+            name, lambda c=cfg_: run_main_path(c, scans, odom, gt, 0)[0], traj_)
 
     full_odo_ate = float(evaluate.ate(odometry_trajectory(fgt[0], fodom), fgt, align=False))
     full_launches = phase_full_path(full_cfg, fscans, fodom, fgt, full_odo_ate)
+    kept_inserts["full"], twin_runs["full"] = held_to_twin_insert(
+        "full", lambda: run_full_path(full_cfg, fscans, fodom, fgt, 0)[1])
     k4 = phase_batched_kernel(dev, kept)
     phase_full_card_vs_cpu(dev)
 
     gm_launches = phase_gmapping_path(gm_cfg, scans, odom, gt, odo_ate, smi)
+    kept_inserts["gmapping"], twin_runs["gmapping"] = held_to_twin_insert(
+        "gmapping", lambda: run_gmapping_path(gm_cfg, scans, odom, gt, 0)[1])
     phase_gmapping_quality(gm_cfg, dev)
     improved_launches, k4["rbpf_m30_k16_and_k1"] = phase_gmapping_improved(dev, scans, odom, gt)
     phase_gmapping_card_vs_cpu(dev, scans, odom, gt)
@@ -3067,6 +3342,8 @@ def main() -> None:
     m3_cfg = viny.viny_m3rsm_config(map_size=MAP)
     path_searches, m3_warm = capture_m3rsm_searches(m3_cfg, scans, odom, gt)
     m3_launches, m3_traj, m3_engine = phase_m3rsm_path(m3_cfg, scans, odom, gt, odo_ate)
+    kept_inserts["viny_m3rsm"], twin_runs["viny_m3rsm"] = held_to_twin_insert(
+        "viny_m3rsm", lambda: run_main_path(m3_cfg, scans, odom, gt, 0)[0], m3_traj)
     phase_card_vs_cpu("viny_m3rsm", m3_cfg, dev, scans, odom, gt, n=32)
     levels_launches = phase_m3rsm_levels_path(m3_cfg, scans, odom, gt, m3_traj)
     phase_m3rsm_match_many(m3_cfg, m3_engine, scans, gt)
@@ -3079,7 +3356,7 @@ def main() -> None:
     full_m3_launches = phase_full_path(full_m3_cfg, fscans, fodom, fgt, full_odo_ate,
                                        name="full_m3rsm", reference=FULL_M3RSM_REFERENCE_ATE_BY_KEY,
                                        hold_to_tracker=False)
-    cli_launches, grad_kept, score_kept, refine_kept, rates = phase_cli(dev)
+    cli_launches, grad_kept, score_kept, refine_kept, rates, cli_inserts = phase_cli(dev)
     phase_overlap_csail(dev, k1, score_kept)
     k9 = phase_overlap_grad_kernel(dev, grad_kept, smi)
     k10 = phase_refine_kernel(dev, "gradient_refine", refine_kept["gradient_refine"], rates, smi)
@@ -3087,9 +3364,18 @@ def main() -> None:
 
     k_red = phase_reducer_kernels(dev, capture_baseline_matches(scans, odom, gt), smi)
     base_launches, base_by_reducer = phase_gmapping_baseline_path(scans, odom, gt, odo_ate, smi)
+    kept_inserts["gmapping preset"], twin_runs["gmapping preset"] = held_to_twin_insert(
+        "gmapping preset",
+        lambda: run_gmapping_path(None, scans, odom, gt, 0, make=baseline_engine)[1])
     phase_gmapping_card_vs_cpu(dev, scans, odom, gt, n=8, make=baseline_engine,
                                name="gmapping preset")
     phase_relocalize(dev)
+    for name, (calls, found) in cli_inserts.items():
+        twin_runs[f"cli {name}"] = found
+        if name in ("mit_csail", "tum_2d"):
+            kept_inserts[name] = calls
+    k12 = phase_scan_insert_kernel(dev, kept_inserts, smi)
+    k12["twin_insert_runs"] = twin_runs
 
     # `launches`: of a main path's timed run, held to the expected counts
     # above: the viny path's for the kernels of the earlier slices, the full
@@ -3105,8 +3391,8 @@ def main() -> None:
                  "m3rsm_level": m3_launches, "m3rsm_search": m3_launches,
                  "overlap_score_grad": cli_launches["tiny_refined"],
                  "gradient_refine": cli_launches["tiny_refined"],
-                 "hill_climb": cli_launches["mit_csail"]}
-    for k in (k1, k3, k2, k4, k5, k6, k7, k8, k9, k10, k11):
+                 "hill_climb": cli_launches["mit_csail"], "scan_insert": tiny_launches}
+    for k in (k1, k3, k2, k4, k5, k6, k7, k8, k9, k10, k11, k12):
         k["launches"] = main_path.get(k["name"], viny_launches)[k["name"]]
         k["launches_by_path"] = {
             "tiny": tiny_launches[k["name"]], "viny": viny_launches[k["name"]],
@@ -3124,7 +3410,7 @@ def main() -> None:
     for k in k_red:
         k["launches"] = base_by_reducer[k["name"].split(" ")[0]]
         k["launches_by_path"] = {"gmapping preset": k["launches"]}
-    print(json.dumps({"kernels": [k1, k3, k2, k4, k5, k6, k7, k8, k9, k10, k11, *k_red]}),
+    print(json.dumps({"kernels": [k1, k3, k2, k4, k5, k6, k7, k8, k9, k10, k11, k12, *k_red]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

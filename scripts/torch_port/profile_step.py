@@ -7,16 +7,18 @@ After a warm-up over the bench sequence's first scans it prints:
 - scans/s of ``Engine.run`` over the next ``--scans`` scans (host clock
   ending in a synchronise);
 - with a synchronise after each phase of ``slam_step``: ms a scan of the
-  beam weights, the match, the rasterisation and the cell fold;
+  beam weights, the match and the insert (K3: the rasterisation and the
+  cell fold in one call of ``kernels.scan_insert``);
 - the match alone (``monte_carlo_match`` at a fixed state), synced ms a
   call and ATen calls, through the fused kernel ``mc_match`` and with
   ``mc_match_rounds`` (one ``overlap_score`` launch a round) handed in in
   its place, measured in turns;
-- the rasterisation alone (``scan_observation_planes`` at a fixed pose),
-  synced ms a call, with the polar fill through the kernel, with the DDA
-  fill, and with the polar fill through the plain twin in the kernel's
-  place, measured in turns;
-- ATen calls a scan (a dispatch-mode count over one step);
+- the insert alone (``raycast.insert_scan`` at a fixed pose), synced ms a
+  call and ATen calls, through K3 and with its plain twin
+  (``kernels.scan_insert_ref``) handed in, each with the polar and the DDA
+  fill, measured in turns;
+- ATen calls a scan (a dispatch-mode count over one step) and the scatters
+  (``index_put_``, ``scatter_add_``) among them;
 - from ``torch.profiler`` over the same scans: the device's kernel time as
   a share of the unprofiled wall time, the port's own kernels and the
   kernels with the most device time, with launches.
@@ -27,8 +29,8 @@ preset (30 particles, 160^2 windows) over the tiny sequence: scans/s of
 then, with a synchronise after each phase of ``gmapping_step``, ms and ATen
 calls a scan of the proposal, the match windows (``gmapping.match_view``:
 on this preset their corners, the windows read in place), the particle
-match, the weight update, the insert (windows cut out and rasterised, the fold, the
-write-back) and the resampling, and the launches of the port's kernels; and
+match, the weight update, the insert (``raycast.insert_scan_windows``: K3
+on the windows in place) and the resampling, and the launches of the port's kernels; and
 from ``torch.profiler`` the device's kernel time as a share of the
 unprofiled wall time and the kernels with the most device time.
 
@@ -46,8 +48,7 @@ With ``--preset viny_m3rsm`` it profiles vinySLAM with the M3RSM matcher
 ``Engine.run`` over ``--scans`` scans after a warm-up of 64; with a
 synchronise after each phase of ``slam_step``, ms and ATen calls a scan of
 the beam weights, the match (the branch and bound over the live pyramid,
-then the hill climb), the rasterisation, the fold and the pyramid's
-refresh; at a fixed state, synced ms and ATen calls of the whole match (one
+then the hill climb), the insert (K3) and the pyramid's refresh; at a fixed state, synced ms and ATen calls of the whole match (one
 ``m3rsm_search`` launch), of its search alone (``refine_iterations=0``), of
 the kernel's wrapper alone (the rest of the match's calls come before the
 launch) and of the same match with ``m3rsm_search_levels`` handed in (a
@@ -63,8 +64,8 @@ after a warm-up of 64, through the refine's kernel (``gradient_refine``,
 ``hill_climb``) and with its yardstick (``gradient_refine_rounds``,
 ``hill_climb_rounds``: a score launch a pass) handed in, in turns; for
 both, with a synchronise after each phase of ``slam_step``, ms and ATen
-calls a scan of the match, the refine, the rasterisation and the fold, and
-the launches; the refine alone at a fixed state, synced ms a call and ATen
+calls a scan of the match, the refine and the insert (K3), and the
+launches; the refine alone at a fixed state, synced ms a call and ATen
 calls, in turns; and from ``torch.profiler`` the device's kernel time as a
 share of the unprofiled wall time and the kernels with the most device
 time.
@@ -90,12 +91,16 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[2]))  # the checkout's r
 
 
 class CountOps(TorchDispatchMode):
+    """Counts the ATen calls made under it, and keeps their names."""
+
     def __init__(self):
         super().__init__()
         self.n = 0
+        self.names = []
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         self.n += 1
+        self.names.append(str(func))
         return func(*args, **(kwargs or {}))
 
 
@@ -130,7 +135,6 @@ def main() -> None:
         return
 
     from slam_constructor_tpu_torch.models import engine, tiny, viny
-    from slam_constructor_tpu_torch.ops import grid as gridlib
     from slam_constructor_tpu_torch.ops import kernels, matchers, raycast, scoring
     from slam_constructor_tpu_torch.ops.geometry import compose
     from slam_constructor_tpu_torch.utils import datagen
@@ -160,8 +164,9 @@ def main() -> None:
           f"({secs / n * 1e3:.3f} ms a scan)")
 
     # --- phases of slam_step, a synchronise after each ----------------------
-    phases = dict.fromkeys(("weights", "match", "rasterise", "fold"), 0.0)
+    phases = dict.fromkeys(("weights", "match", "insert"), 0.0)
     state = warm
+    q = torch.ones((), device=dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     for i in range(n_warm, n_warm + n):
         scan, od = scans[i], odom[i]
@@ -179,9 +184,7 @@ def main() -> None:
         view = scoring.MapView.of(state.gm, cfg.cell_model)
         res = matchers.monte_carlo_match(view, scan, prior, gen, cfg.matcher_cfg, pw)
         mark()
-        w_obs, s_obs = raycast.scan_observation_planes(state.gm, res.pose, scan, cfg.beam)
-        mark()
-        gm = gridlib.apply_observations(state.gm, cfg.cell_model, w_obs, s_obs)
+        gm = raycast.insert_scan(state.gm, cfg.cell_model, res.pose, scan, cfg.beam, q)
         mark()
         state = engine.SlamState(gm=gm, pose=res.pose, step=state.step + 1, last_prob=res.prob)
         for k, a, b in zip(phases, marks, marks[1:]):
@@ -218,13 +221,15 @@ def main() -> None:
         print(f"match through {name}: median {statistics.median(ms):.4f} ms a call synced "
               f"(rounds {min(ms):.4f}-{max(ms):.4f}), {calls[name]} ATen calls")
 
-    # --- the rasterisation alone, by free fill -------------------------------
+    # --- the insert alone, through K3 and its twin, by free fill --------------
     # in turns again: seven rounds of 40 synced calls each
-    kernel, twin = kernels.polar_free_plane, kernels.polar_free_plane_ref
+    kernel, twin = kernels.scan_insert, kernels.scan_insert_ref
     variants = {
-        "polar (kernel)": ("polar", kernel),
-        "dda": ("dda", kernel),
-        "polar through the plain twin": ("polar", twin),
+        f"K3, {cfg.beam.free_impl} fill": (cfg.beam.free_impl, kernel),
+        f"the plain twin, {cfg.beam.free_impl} fill": (cfg.beam.free_impl, twin),
+        "K3, the other fill": ("dda" if cfg.beam.free_impl == "polar" else "polar", kernel),
+        "the plain twin, the other fill": ("dda" if cfg.beam.free_impl == "polar" else "polar",
+                                           twin),
     }
     rounds = {k: [] for k in variants}
     calls = {}
@@ -233,30 +238,29 @@ def main() -> None:
             order = list(variants) if r % 2 == 0 else list(variants)[::-1]
             for name in order:
                 impl, fn = variants[name]
-                kernels.polar_free_plane = fn
+                kernels.scan_insert = fn
                 beam = dataclasses.replace(cfg.beam, free_impl=impl)
                 rounds[name].append(synced_ms(
-                    lambda: raycast.scan_observation_planes(gm, pose, scan, beam), 40))
+                    lambda: raycast.insert_scan(gm, cfg.cell_model, pose, scan, beam, q), 40))
                 if name not in calls:
                     with CountOps() as c:
-                        raycast.scan_observation_planes(gm, pose, scan, beam)
+                        raycast.insert_scan(gm, cfg.cell_model, pose, scan, beam, q)
                     calls[name] = c.n
     finally:
-        kernels.polar_free_plane = kernel
+        kernels.scan_insert = kernel
     for name, ms in rounds.items():
-        print(f"rasterise, free fill {name}: median {statistics.median(ms):.4f} ms a call "
+        print(f"insert through {name}: median {statistics.median(ms):.4f} ms a call "
               f"synced (rounds {min(ms):.4f}-{max(ms):.4f}), {calls[name]} ATen calls")
     pargs = (scan.ranges, scan.valid, scan.bearings, pose, gm.origin, 256, 256, gm.scale,
              cfg.beam.hole_width / 2.0, cfg.beam.max_range)
-    print(f"polar_free_plane alone: kernel {synced_ms(lambda: kernel(*pargs), 200):.4f} ms, "
-          f"twin {synced_ms(lambda: twin(*pargs), 200):.4f} ms a call synced")
-    ms = synced_ms(lambda: gridlib.apply_observations(gm, cfg.cell_model, *raster), 200) if (
-        raster := raycast.scan_observation_planes(gm, pose, scan, cfg.beam)) else 0.0
-    print(f"fold ({type(cfg.cell_model).__name__}) alone: {ms:.4f} ms a call synced")
+    print(f"polar_free_plane alone: kernel "
+          f"{synced_ms(lambda: kernels.polar_free_plane(*pargs), 200):.4f} ms, twin "
+          f"{synced_ms(lambda: kernels.polar_free_plane_ref(*pargs), 200):.4f} ms a call synced")
 
     with CountOps() as c:
         engine.slam_step(cfg, warm, scans[n_warm], odom[n_warm], generator=gen)
-    print(f"ATen calls a scan (views included): {c.n}")
+    scatters = sorted({n for n in c.names if "index_put" in n or "scatter" in n})
+    print(f"ATen calls a scan (views included): {c.n}; scatters among them: {scatters or 'none'}")
 
     # --- profiler: device busy share and kernels by device time --------------
     from torch.profiler import ProfilerActivity, profile
@@ -268,7 +272,8 @@ def main() -> None:
         e.run(scans[n_warm:], odom[n_warm:])
         torch.cuda.synchronize()
     device_report(prof, n, secs, time.perf_counter() - t0,
-                  ("mc_match_kernel", "overlap_score_kernel", "polar_free_kernel"))
+                  ("mc_match_kernel", "overlap_score_kernel", "polar_free_kernel",
+                   "rasterise_kernel", "fold_kernel"))
 
 
 def device_report(prof, n: int, secs: float, wall: float, names: tuple) -> None:
@@ -296,7 +301,6 @@ def profile_m3rsm(n: int) -> None:
 
     from chip_smoke import bench_sequence
     from slam_constructor_tpu_torch.models import engine, viny
-    from slam_constructor_tpu_torch.ops import grid as gridlib
     from slam_constructor_tpu_torch.ops import kernels, m3rsm, raycast, scoring
     from slam_constructor_tpu_torch.ops.geometry import compose
 
@@ -320,7 +324,7 @@ def profile_m3rsm(n: int) -> None:
 
     # a pass that times the phases (a synchronise after each), then one that
     # counts their ATen calls (the dispatch mode slows the host)
-    names = ("weights", "match", "rasterise", "fold", "refresh")
+    names = ("weights", "match", "insert", "refresh")
     ms, aten = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
     q = torch.ones((), device=dev)
     for count_ops in (False, True):
@@ -347,10 +351,8 @@ def profile_m3rsm(n: int) -> None:
             view = scoring.MapView.of(state.gm, cfg.cell_model)
             res = phase("match", lambda: m3rsm.m3rsm_match(
                 view, scan, prior, None, cfg.matcher_cfg, pw, pyramid=state.pyramid))
-            w_obs, s_obs = phase("rasterise", lambda: raycast.scan_observation_planes(
-                state.gm, res.pose, scan, cfg.beam))
-            gm = phase("fold", lambda: gridlib.apply_observations(state.gm, cfg.cell_model,
-                                                                  w_obs, s_obs))
+            gm = phase("insert", lambda: raycast.insert_scan(state.gm, cfg.cell_model, res.pose,
+                                                             scan, cfg.beam, q))
             pyr = phase("refresh", lambda: engine._refresh_pyramid(cfg, gm, res.pose,
                                                                     state.pyramid, q))
             state = engine.SlamState(gm=gm, pose=res.pose, step=state.step + 1,
@@ -405,7 +407,7 @@ def profile_m3rsm(n: int) -> None:
         torch.cuda.synchronize()
     device_report(prof, n, secs, time.perf_counter() - t0,
                   ("m3rsm_match_kernel", "m3rsm_pyramid_kernel", "m3rsm_level_kernel",
-                   "overlap_score_kernel"))
+                   "overlap_score_kernel", "rasterise_kernel", "fold_kernel"))
 
 
 #: the refine configs: the refine's wrapper and its yardstick in ``kernels``
@@ -421,7 +423,6 @@ def profile_refine(preset: str, n: int) -> None:
 
     from slam_constructor_tpu_torch import run
     from slam_constructor_tpu_torch.models import engine
-    from slam_constructor_tpu_torch.ops import grid as gridlib
     from slam_constructor_tpu_torch.ops import kernels, raycast, scoring
     from slam_constructor_tpu_torch.ops import matchers as matcherslib
     from slam_constructor_tpu_torch.ops.geometry import compose
@@ -466,7 +467,8 @@ def profile_refine(preset: str, n: int) -> None:
               f"{' and '.join(f'{n / t:.1f}' for t in v)} scans/s")
 
     # --- phases of slam_step, a synchronise after each ----------------------
-    names = ("match", "refine", "rasterise", "fold")
+    names = ("match", "refine", "insert")
+    q = torch.ones((), device=dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     for k, fn in variants.items():
         ms, aten = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
@@ -499,10 +501,8 @@ def profile_refine(preset: str, n: int) -> None:
                                                           cfg.matcher_cfg, pw))
                     res = phase("refine", lambda: engine._refine(cfg, view, scan, res, gen, pw,
                                                                  None))
-                    w_obs, s_obs = phase("rasterise", lambda: raycast.scan_observation_planes(
-                        state.gm, res.pose, scan, cfg.beam))
-                    gm = phase("fold", lambda: gridlib.apply_observations(
-                        state.gm, cfg.cell_model, w_obs, s_obs))
+                    gm = phase("insert", lambda: raycast.insert_scan(
+                        state.gm, cfg.cell_model, res.pose, scan, cfg.beam, q))
                     state = engine.SlamState(gm=gm, pose=res.pose, step=state.step + 1,
                                              last_prob=res.prob)
                 launches = {a: b for a, b in kernels.launch_counts().items() if b}
@@ -546,7 +546,8 @@ def profile_refine(preset: str, n: int) -> None:
         torch.cuda.synchronize()
     device_report(prof, n, min(secs[next(iter(variants))]), time.perf_counter() - t0,
                   ("gradient_refine_kernel", "hill_climb_kernel", "mc_match_kernel",
-                   "overlap_score_grad_kernel", "overlap_score_kernel"))
+                   "overlap_score_grad_kernel", "overlap_score_kernel", "rasterise_kernel",
+                   "fold_kernel"))
 
 
 def profile_gmapping(n: int) -> None:
@@ -577,8 +578,7 @@ def profile_gmapping(n: int) -> None:
           f"({secs / n * 1e3:.3f} ms a scan)")
 
     # --- phases of gmapping_step, a synchronise after each ------------------
-    names = ("proposal", "windows", "match", "weights", "rasterise", "fold", "write-back",
-             "resample")
+    names = ("proposal", "windows", "match", "weights", "insert", "resample")
     ms = dict.fromkeys(names, 0.0)
     aten = dict.fromkeys(names, 0)
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -623,18 +623,9 @@ def profile_gmapping(n: int) -> None:
             poses, incr = phase("match", lambda: gmapping.match_particles(
                 cfg, view, sc, priors, centers, sigma, d))
             logw = phase("weights", lambda: resample.normalize_log_weights(state.log_weights + incr))
-            gm, wi = state.gm, cfg.insert_window
-
-            def rasterise():
-                row, col, origin = gridlib.window_corner(gm.origin, poses[:, :2], gm.scale, wi, wi,
-                                                         cfg.map_height, cfg.map_width)
-                sub = gridlib.GridMap(gridlib.take_window(gm.cells, row, col, wi, wi), origin, gm.scale)
-                return row, col, sub, raycast.scan_observation_planes_batched(
-                    origin, wi, wi, gm.scale, poses, sc, cfg.beam)
-
-            row, col, sub, (w_obs, s_obs) = phase("rasterise", rasterise)
-            sub = phase("fold", lambda: gridlib.apply_observations(sub, cfg.cell_model, w_obs, s_obs))
-            cells = phase("write-back", lambda: gridlib.put_window(gm.cells, sub.cells, row, col))
+            gm = state.gm
+            cells = phase("insert", lambda: raycast.insert_scan_windows(
+                gm, cfg.cell_model, poses, sc, cfg.beam, cfg.insert_window).cells)
 
             def resampled():
                 idx, lw, _ = resample.maybe_resample(d.u0, logw, cfg.resample_threshold)
@@ -666,7 +657,8 @@ def profile_gmapping(n: int) -> None:
     print(f"profiled {n} scans: device kernel time {dev_s:.4f} s = {dev_s / secs * 100:.1f}% of "
           f"the unprofiled {secs:.3f} s ({dev_s / wall * 100:.1f}% of the profiled {wall:.3f} s); "
           f"{sum(k.count for k in rows) / n:.0f} kernels a scan")
-    mine = [k for k in rows if "mc_match_kernel" in k.key]
+    mine = [k for k in rows if any(n in k.key for n in ("mc_match_kernel", "rasterise_kernel",
+                                                       "fold_kernel"))]
     top = sorted(rows, key=lambda k: -k.device_time_total)[:12]
     for k in mine + [k for k in top if k not in mine]:
         print(f"  {k.device_time_total * 1e-3:9.3f} ms  {k.count:6d} x  "
@@ -684,7 +676,7 @@ def profile_full() -> None:
                          capture_output=True, text=True).stdout.strip())
     scans, odom, gt = full_sequence(dev)
     cfg = full_config()
-    ours = ("mc_match", "overlap_score_batched")
+    ours = ("mc_match", "overlap_score_batched", "scan_insert")
 
     def engine_run(instrument=None):
         e = full.FullSlamEngine(cfg, n_beams=N_BEAMS, seed=0)
@@ -781,7 +773,8 @@ def profile_full() -> None:
     print(f"profiled run: device kernel time {dev_s:.4f} s = {dev_s / secs * 100:.1f}% of the "
           f"unprofiled {secs:.3f} s ({dev_s / pwall * 100:.1f}% of the profiled {pwall:.3f} s); "
           f"{sum(k.count for k in rows)} kernels")
-    mine = [k for k in rows if any(n in k.key for n in ("mc_match_kernel", "overlap_score_kernel"))]
+    mine = [k for k in rows if any(n in k.key for n in ("mc_match_kernel", "overlap_score_kernel",
+                                                       "rasterise_kernel", "fold_kernel"))]
     top = sorted(rows, key=lambda k: -k.device_time_total)[:12]
     for k in mine + [k for k in top if k not in mine]:
         print(f"  {k.device_time_total * 1e-3:9.3f} ms  {k.count:6d} x  "

@@ -233,10 +233,10 @@ def slam_step(
     live = {"pyramid": pyramid} if pyramid else {}
     res = match_fn(view, scan, prior, generator, cfg.matcher_cfg, pw, noise, **live)
     res = _refine(cfg, view, scan, res, generator, pw, noise)
-    w_obs, s_obs = raycast.scan_observation_planes(state.gm, res.pose, scan, cfg.beam)
     do_insert = (res.prob >= cfg.min_insert_prob) | (state.step == 0)
     q = torch.where(do_insert, quality, 0.0)
-    gm = gridlib.apply_observations(state.gm, cfg.cell_model, q * w_obs, q * s_obs)
+    # the rasterisation and the fold in one call: K3 on the card
+    gm = raycast.insert_scan(state.gm, cfg.cell_model, res.pose, scan, cfg.beam, q)
     if pyramid:
         # refreshed only where the insert changed cells (q > 0)
         pyramid = _refresh_pyramid(cfg, gm, res.pose, pyramid, q)

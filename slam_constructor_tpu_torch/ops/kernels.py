@@ -60,6 +60,16 @@ scan. It replaces ``pallas_kernels.py::polar_free_lookup`` together with
 the plane math that ``raycast._polar_free_plane_pallas`` computes around
 it: the whole of ``raycast._polar_free_plane`` in one launch.
 
+``scan_insert`` (K3) inserts a scan into one map, or P scans into P maps
+each on a window around its pose read and written in place, and folds it
+into the cells: the rasterisation (the DDA free trace, or K2's plane; the
+const or area endpoint evidence and the wall blur, each cell's occupied
+samples summed in sample order) and the cell model's fold, in two launches
+(``csrc/scan_insert.cu``). It replaces what the TPU ran as XLA one-hot
+matmuls (``raycast.py::_scatter_matmul``) with ``grid.apply_observations``;
+``scan_insert_ordered`` sums the same samples on the host in order, the
+yardstick it equals bit for bit.
+
 On a CUDA tensor a wrapper launches its hand-written kernel (``csrc/*.cu``)
 or raises; it never falls back. On a CPU tensor it runs the plain twin
 (``*_ref``), which the CPU tests hold against the reference and which the
@@ -73,12 +83,13 @@ import dataclasses
 import functools
 import math
 
+import numpy as np
 import torch
 
 from ..device import constant
-from . import _build
+from . import _build, cells
 from . import grid as gridlib
-from .geometry import wrap_angle
+from .geometry import linspace, wrap_angle
 
 Tensor = torch.Tensor
 
@@ -91,7 +102,7 @@ _MAX_SHARED_BYTES = 48 * 1024
 _LAUNCHES = dict.fromkeys(
     ("overlap_score", "overlap_score_batched", "overlap_score_grad", "gradient_refine",
      "hill_climb", "mc_match", "mc_match_batched", "polar_free_plane", "m3rsm_pyramid",
-     "m3rsm_level", "m3rsm_search"), 0
+     "m3rsm_level", "m3rsm_search", "scan_insert"), 0
 )
 
 #: how a beam's endpoint reads the plane, by the codes of
@@ -1101,6 +1112,282 @@ def polar_free_plane(
     if err != 0:
         raise RuntimeError(f"polar_free_plane kernel launch failed: cudaError_t {err}")
     _LAUNCHES["polar_free_plane"] += 1
+    return out
+
+
+# --- K3: the scan insert with its cell fold -----------------------------------
+
+#: the cell models the fold kernel runs, by its codes (scan_insert.cu)
+_CELL_MODEL_CODES = {cells.BayesBaseCell: 0, cells.BayesAvgCell: 1, cells.TBMCell: 2}
+#: the dynamic shared memory a block may opt in to on an H100
+_SCAN_INSERT_MAX_SHARED_BYTES = 227 * 1024
+
+
+def scan_insert_ref(gm, model, pose: Tensor, scan, cfg, q: Tensor | None = None,
+                    window: int = 0) -> Tensor:
+    """Plain PyTorch version of :func:`scan_insert`: the rasterisation
+    (``raycast.scan_observation_planes``, or its batched form on the P
+    windows) scaled by ``q``, then ``grid.apply_observations``; returns the
+    new cells. On the card it sums the occupied evidence with
+    ``index_put_``, whose order within a long run of one cell is the card's
+    (PERF.md); the kernel sums in sample order."""
+    from . import raycast
+
+    if gm.cells.dim() == 3:
+        w_obs, s_obs = raycast.scan_observation_planes(gm, pose, scan, cfg)
+        if q is not None:
+            w_obs, s_obs = q * w_obs, q * s_obs
+        return gridlib.apply_observations(gm, model, w_obs, s_obs).cells
+    h, w = gm.height, gm.width
+    sh, sw = (min(window, h, w),) * 2 if window else (h, w)
+    row, col, origin = gridlib.window_corner(gm.origin, pose[:, :2], gm.scale, sh, sw, h, w)
+    sub = gridlib.GridMap(cells=gridlib.take_window(gm.cells, row, col, sh, sw), origin=origin,
+                          scale=gm.scale)
+    w_obs, s_obs = raycast.scan_observation_planes_batched(origin, sh, sw, gm.scale, pose, scan,
+                                                           cfg)
+    if q is not None:
+        w_obs, s_obs = q * w_obs, q * s_obs
+    sub = gridlib.apply_observations(sub, model, w_obs, s_obs)
+    return gridlib.put_window(gm.cells, sub.cells, row, col)
+
+
+def scan_insert_ordered(gm, model, pose: Tensor, scan, cfg, q: Tensor | None = None,
+                        window: int = 0) -> Tensor:
+    """:func:`scan_insert` with the planes summed on the host: each map's
+    samples (``raycast.scan_sample_cells`` on the map's device, the free
+    trace's counts then the occupied evidence, in sample order) added with
+    ``np.add.at`` (unbuffered, one after the other), the polar fill from
+    :func:`polar_free_plane`, then ``q`` and ``grid.apply_observations`` on
+    the device. The yardstick the kernel is held to bit for bit; it reads
+    the samples back to the host, so nothing on a main path calls it."""
+    from . import raycast
+
+    dev, single = gm.cells.device, gm.cells.dim() == 3
+    h, w = gm.height, gm.width
+    if single:
+        sh, sw, origins, poses, scans = h, w, gm.origin[None], pose[None], [scan]
+    else:
+        sh, sw = (min(window, h, w),) * 2 if window else (h, w)
+        row, col, origins = gridlib.window_corner(gm.origin, pose[:, :2], gm.scale, sh, sw, h, w)
+        poses, scans = pose, [scan[p] for p in range(pose.shape[0])]
+    w_all, s_all = [], []
+    for origin, p, sc in zip(origins, poses, scans):
+        rows, cols, w_s, s_s = (t.cpu().numpy() for t in raycast.scan_sample_cells(
+            origin, gm.scale, p, sc, cfg))
+        n_free = sc.ranges.shape[0] * cfg.n_free_samples(gm.scale)
+        on = (rows >= 0) & (rows < sh) & (cols >= 0) & (cols < sw)
+        free, occ = on.copy(), on.copy()
+        free[n_free:], occ[:n_free] = False, False
+        if cfg.free_impl == "polar":
+            w_free = polar_free_plane(sc.ranges.contiguous(), sc.valid.contiguous(),
+                                      sc.bearings.contiguous(), p.contiguous(),
+                                      origin.contiguous(), sh, sw, gm.scale,
+                                      cfg.hole_width / 2.0, cfg.max_range).cpu().numpy()
+        else:
+            w_free = np.zeros((sh, sw), np.float32)
+            np.add.at(w_free, (rows[free], cols[free]), w_s[free])
+        w_occ, s_occ = np.zeros((sh, sw), np.float32), np.zeros((sh, sw), np.float32)
+        np.add.at(w_occ, (rows[occ], cols[occ]), w_s[occ])
+        np.add.at(s_occ, (rows[occ], cols[occ]), s_s[occ])
+        w_all.append(w_free + w_occ)
+        s_all.append(s_occ)
+    w_obs = torch.from_numpy(np.stack(w_all)).to(dev)
+    s_obs = torch.from_numpy(np.stack(s_all)).to(dev)
+    if q is not None:
+        w_obs, s_obs = q * w_obs, q * s_obs
+    if single:
+        return gridlib.apply_observations(gm, model, w_obs[0], s_obs[0]).cells
+    sub = gridlib.GridMap(cells=gridlib.take_window(gm.cells, row, col, sh, sw), origin=origins,
+                          scale=gm.scale)
+    sub = gridlib.apply_observations(sub, model, w_obs, s_obs)
+    return gridlib.put_window(gm.cells, sub.cells, row, col)
+
+
+def scan_insert_runs(gm, pose: Tensor, scan, cfg, window: int = 0) -> Tensor:
+    """How many samples of the twin's occupied-evidence list
+    (``index_put_``'s indices in :func:`scan_insert_ref`) each cell of each
+    map's window gets: the valid ones on the window in their cells, the
+    others in cell 0; i64[P, sh, sw] (P = 1 for one map). The card's
+    ``index_put_`` sums a run of 32 or more by a warp, in another order than
+    the kernel's (PERF.md), so these are the cells where the two may part."""
+    from . import raycast
+
+    h, w = gm.height, gm.width
+    if gm.cells.dim() == 3:
+        sh, sw, origins, poses, scans = h, w, gm.origin[None], pose[None], [scan]
+    else:
+        sh, sw = (min(window, h, w),) * 2 if window else (h, w)
+        origins = gridlib.window_corner(gm.origin, pose[:, :2], gm.scale, sh, sw, h, w)[2]
+        poses, scans = pose, [scan[p] for p in range(pose.shape[0])]
+    runs = []
+    for origin, p, sc in zip(origins, poses, scans):
+        rows, cols, w_s, _ = raycast.scan_sample_cells(origin, gm.scale, p, sc, cfg)
+        n_free = sc.ranges.shape[0] * cfg.n_free_samples(gm.scale)
+        rows, cols, w_s = rows[n_free:], cols[n_free:], w_s[n_free:]
+        # the twin's validity: an endpoint sample's weight is > 0 where it is
+        # valid; a blur sample's where its beam carries evidence, before the tail
+        valid = w_s > 0
+        if cfg.wall_blur:
+            ep = sc.valid & (sc.ranges <= cfg.max_range)
+            tb = sc.ranges[:, None] + cfg.hole_width / 2.0 * _blur_table(
+                cfg.blur_samples, sc.ranges.device)[0]
+            valid[-tb.numel():] = (ep[:, None] & (tb > 0)).reshape(-1)
+        ok = valid & (rows >= 0) & (rows < sh) & (cols >= 0) & (cols < sw)
+        runs.append(torch.bincount(torch.where(ok, rows * sw + cols, 0),
+                                   minlength=sh * sw).reshape(sh, sw))
+    return torch.stack(runs)
+
+
+@functools.lru_cache(maxsize=None)
+def _blur_table(b: int, device: torch.device) -> Tensor:
+    """f32[3, B]: the wall blur's offsets ``bt`` (in hole units), its ramp
+    ``1 - |bt|`` and the ramp squared, made on ``device`` by the twin's own
+    ops, once a process."""
+    bt = linspace(-1.0, 1.0, b, device)
+    ramp = 1.0 - torch.abs(bt)
+    return torch.stack([bt, ramp, ramp**2])
+
+
+#: the zeroed scratch of each card, four floats a cell (the free count, the
+#: occupied w and s, one unused): grown when a call needs more, left zero
+#: by every call
+_SCRATCH: dict = {}
+
+
+def _scan_insert_scratch(device: torch.device, n: int) -> Tensor:
+    buf = _SCRATCH.get(device)
+    if buf is None or buf.numel() < n:
+        buf = _SCRATCH[device] = torch.zeros((n,), dtype=torch.float32, device=device)
+    return buf
+
+
+def _scan_rows(name: str, t: Tensor, lead: tuple, r: int, dev, dtype=torch.float32):
+    """``t`` [R] or [P, R] as the kernel reads it, and the elements from one
+    map's row to the next (0 where a row is broadcast)."""
+    if t.device != dev or t.dtype != dtype or tuple(t.shape) != (*lead, r):
+        raise ValueError(f"scan_insert: {name} is {t.dtype} {tuple(t.shape)} on {t.device}, "
+                         f"expected {dtype} {(*lead, r)} on {dev}")
+    if lead and (t.stride(-1) != 1 or t.stride(0) not in (0, r)):
+        t = t.contiguous()
+    elif not lead and t.stride(-1) != 1:
+        t = t.contiguous()
+    return t, (t.stride(0) if lead else 0)
+
+
+@functools.cache
+def _scan_insert_fn():
+    fn = _build.load().scan_insert_launch
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    fn.argtypes = [
+        p, p, i, i, i, i,  # cells, out, p, h, w, c
+        i, p, i, i, f, f,  # windowed, origin, sh, sw, scale, scale^2
+        p, p, ll, p, ll, p, ll,  # pose, ranges, bearings, valid (each with its row stride)
+        i, i, f, f, f,  # r, n_free, step, hole_half, max_range
+        i, i, p, p, p, i,  # area, blur, blur table, free plane, scratch, n_keys
+        p, i, f, f, f, f, f,  # q, model, quality, base, decay, keep, eps
+        p,  # stream
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def scan_insert(gm, model, pose: Tensor, scan, cfg, q: Tensor | None = None,
+                window: int = 0) -> Tensor:
+    """K3: insert a scan seen from ``pose`` into the map and fold it into
+    the cells (``raycast.BeamConfig`` ``cfg``, one of ``cells.CELL_MODELS``);
+    returns the new cells, a fresh tensor.
+
+    One map: ``gm.cells`` f32[H, W, C], ``pose`` f32[3], ``scan`` [R]. P
+    maps: f32[P, H, W, C] with ``gm.origin`` f32[P, 2], ``pose`` f32[P, 3],
+    ``scan`` [P, R] (rows may be broadcast), each scan inserted into its own
+    map on the ``window x window`` window around its pose (clamped into the
+    map; 0: the whole map), read and written in place; the cells outside
+    the windows are copied. ``q`` f32[] scales the observation (the
+    engine's gate times the scan's quality); None is 1.
+
+    CPU tensors take the plain twin :func:`scan_insert_ref`. CUDA tensors
+    launch ``csrc/scan_insert.cu`` on the current stream (the rasterisation
+    with the occupied evidence summed in sample order, then the fold: two
+    launches; with ``free_impl='polar'`` after one ``polar_free_plane``
+    launch a map) and add one to the ``scan_insert`` count of
+    :func:`launch_counts`. Nothing is read on the host.
+    """
+    cells_in = gm.cells
+    if cells_in.device.type == "cpu":
+        return scan_insert_ref(gm, model, pose, scan, cfg, q, window)
+    dev = cells_in.device
+    if dev.type != "cuda":
+        raise ValueError(f"scan_insert: unsupported device {dev}")
+    code = _CELL_MODEL_CODES.get(type(model))
+    if code is None:
+        raise ValueError(f"scan_insert: no fold for the cell model {type(model).__name__}")
+    single = cells_in.dim() == 3
+    if cells_in.dim() not in (3, 4):
+        raise ValueError(f"scan_insert: cells {tuple(cells_in.shape)} are not (H, W, C) or "
+                         f"(P, H, W, C)")
+    lead = () if single else (cells_in.shape[0],)
+    n_p = 1 if single else lead[0]
+    h, w, c = cells_in.shape[-3:]
+    if c != model.n_channels + 1:
+        raise ValueError(f"scan_insert: {c} channels, {type(model).__name__} stores "
+                         f"{model.n_channels + 1}")
+    if not 1 <= n_p <= _MAX_MAPS:
+        raise ValueError(f"scan_insert: {n_p} maps, not between 1 and {_MAX_MAPS} a launch")
+    cells_in, pose, map_origin = (t if t.is_contiguous() else t.contiguous()
+                                  for t in (cells_in, pose, gm.origin))
+    _check("cells", cells_in, tuple(cells_in.shape), dev)
+    _check("pose", pose, (*lead, 3), dev)
+    _check("origin", map_origin, (*lead, 2), dev)
+    r = scan.ranges.shape[-1]
+    ranges, r_stride = _scan_rows("ranges", scan.ranges, lead, r, dev)
+    bearings, b_stride = _scan_rows("bearings", scan.bearings, lead, r, dev)
+    valid, v_stride = _scan_rows("valid", scan.valid, lead, r, dev, torch.bool)
+    if r < 1:
+        raise ValueError("scan_insert: a scan without beams")
+    # the kernel finds each window's corner itself (grid.window_corner's
+    # arithmetic); the polar fill needs the windows' origins here
+    sh, sw = (min(window, h, w),) * 2 if window and not single else (h, w)
+    blur = cfg.blur_samples if cfg.wall_blur else 0
+    n = r * ((9 if cfg.occupancy_estimator == "area" else 1) + blur)
+    n_keys = 1 << max(n - 1, 0).bit_length()
+    shared = 8 * n_keys + 16 * r + (36 * r if cfg.occupancy_estimator == "area" else 0)
+    if shared > _SCAN_INSERT_MAX_SHARED_BYTES:
+        raise ValueError(f"scan_insert: {r} beams give {n} occupied samples, whose sort needs "
+                         f"{shared} B of shared memory a block, more than "
+                         f"{_SCAN_INSERT_MAX_SHARED_BYTES} B")
+    free_plane = None
+    if cfg.free_impl == "polar":
+        origin = map_origin if single else gridlib.window_corner(
+            map_origin, pose[:, :2], gm.scale, sh, sw, h, w)[2]
+        planes = [polar_free_plane(
+            ranges[i] if lead else ranges, valid[i] if lead else valid,
+            bearings[i] if lead else bearings, pose[i] if lead else pose,
+            origin[i] if lead else origin, sh, sw, gm.scale, cfg.hole_width / 2.0, cfg.max_range)
+            for i in range(n_p)]
+        free_plane = planes[0] if single else torch.stack(planes)
+    table = _blur_table(blur, dev) if blur else None
+    if q is not None and not isinstance(q, Tensor):
+        q = torch.full((), float(q), dtype=torch.float32, device=dev)
+    if q is not None:
+        _check("q", q, (), dev)
+    scratch = _scan_insert_scratch(dev, 4 * n_p * sh * sw)
+    out = torch.empty_like(cells_in)
+    quality = getattr(model, "quality", 0.0)
+    decay = getattr(model, "conflict_decay", 0.0)
+    fn = _scan_insert_fn()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    _launch("scan_insert", dev, lambda stream: fn(
+        cells_in.data_ptr(), out.data_ptr(), n_p, h, w, c, int(not single),
+        map_origin.data_ptr(), sh, sw, gm.scale, gm.scale * gm.scale, pose.data_ptr(),
+        ranges.data_ptr(), r_stride, bearings.data_ptr(), b_stride, valid.data_ptr(), v_stride,
+        r, cfg.n_free_samples(gm.scale), gm.scale * cfg.step_fraction, cfg.hole_width / 2.0,
+        cfg.max_range, int(cfg.occupancy_estimator == "area"), blur, ptr(table),
+        ptr(free_plane), scratch.data_ptr(), n_keys, ptr(q), code, quality, 1.0 - quality,
+        decay, 1.0 - decay, cells._EPS, stream))
+    _LAUNCHES["scan_insert"] += 1
     return out
 
 

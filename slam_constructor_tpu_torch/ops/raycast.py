@@ -2,18 +2,22 @@
 ``slam_constructor_tpu.ops.raycast``).
 
 Free space is either the DDA trace (``free_impl='dda'``: fixed-step
-samples with consecutive duplicate cells masked, counted with
-``scatter_add_``) or the dense polar fill (``free_impl='polar'``: one
-elementwise pass over the map through ``kernels.polar_free_plane``, the
-CUDA kernel on the card). Occupied evidence is the const or the area
-endpoint estimator plus the symmetric wall-blur tail, scatter-added on flat
-indices with ``index_put_(accumulate=True)``. Samples that fall off the map
-are dropped. ``scan_observation_planes_batched`` rasterises N scans at N
-poses in the same few calls, into one plane each or summed into shared
-planes: the loop closer's submaps and the regenerated map;
-``insert_scan_windows`` inserts P scans into P maps on a window around each
-pose, the RBPF's insert. ``scan_sample_cells`` gives one scan's samples as
-flat (row, col, weight, occupancy) lists, for the tiled map's insert.
+samples with consecutive duplicate cells masked) or the dense polar fill
+(``free_impl='polar'``: one elementwise pass over the map through
+``kernels.polar_free_plane``, the CUDA kernel on the card). Occupied
+evidence is the const or the area endpoint estimator plus the symmetric
+wall-blur tail. ``insert_scan`` (one map) and ``insert_scan_windows`` (the
+RBPF's P maps, each on a window around its pose) rasterise and fold in one
+call of ``kernels.scan_insert``: K3 (``csrc/scan_insert.cu``) on the card,
+on the CPU its twin: ``scan_observation_planes`` (or its batched form),
+which counts the free trace with ``scatter_add_`` and adds the occupied
+evidence on flat indices with ``index_put_(accumulate=True)``, and
+``grid.apply_observations``. Samples that fall off the map are dropped.
+``scan_observation_planes_batched`` rasterises N scans at N poses in the
+same few calls, into one plane each or summed into shared planes: the loop
+closer's submaps and the regenerated map (plain PyTorch on the card too).
+``scan_sample_cells`` gives one scan's samples as flat (row, col, weight,
+occupancy) lists, for the tiled map's insert.
 """
 
 from __future__ import annotations
@@ -354,10 +358,13 @@ def scan_observation_planes_batched(
     return (w_free + w_occ).reshape(n_planes, h, w), s_occ.reshape(n_planes, h, w)
 
 
-def insert_scan(gm, model, pose, scan: scanlib.LaserScan, cfg: BeamConfig):
-    """Full scan insertion: rasterize + cell-model fold (returns a new map)."""
-    w_obs, s_obs = scan_observation_planes(gm, pose, scan, cfg)
-    return gridlib.apply_observations(gm, model, w_obs, s_obs)
+def insert_scan(gm, model, pose, scan: scanlib.LaserScan, cfg: BeamConfig, q=None):
+    """Full scan insertion: rasterize + cell-model fold (returns a new map).
+    ``q`` f32[] scales the observation (the engine's gate times the scan's
+    quality; None is 1). One call of :func:`kernels.scan_insert`: K3 on the
+    card, :func:`scan_observation_planes` and ``grid.apply_observations``
+    on the CPU."""
+    return dataclasses.replace(gm, cells=kernels.scan_insert(gm, model, pose, scan, cfg, q))
 
 
 def insert_scan_windows(gm, model, poses: Tensor, scans: scanlib.LaserScan, cfg: BeamConfig,
@@ -365,23 +372,19 @@ def insert_scan_windows(gm, model, poses: Tensor, scans: scanlib.LaserScan, cfg:
     """Insert scan p at ``poses[p]`` into map p of a stack of P maps
     (``gm.cells`` f32[P, H, W, C], ``gm.origin`` f32[P, 2]; ``scans`` [P,
     R]), each on a ``window x window`` cell window around its pose (clamped
-    into the map; 0 = the whole map): the RBPF's windowed insert.
+    into the map; 0 = the whole map): the RBPF's windowed insert, one call
+    of :func:`kernels.scan_insert`.
 
-    The P windows are cut out in one gather, rasterised in one call of
-    :func:`scan_observation_planes_batched` with the window's own origin
-    (``origin + [col, row] * scale``, so the cell arithmetic is the
-    reference's windowed one, not the full plane's), folded, and written
-    back in one scatter; the offsets stay on the device. Evidence that falls
-    off a window is dropped (the reference wraps it into the window's last
-    cell, trap g). Exact when the window covers the scan's usable reach."""
-    h, w = gm.height, gm.width
-    sh, sw = (min(window, h, w),) * 2 if window else (h, w)
-    row, col, origin = gridlib.window_corner(gm.origin, poses[:, :2], gm.scale, sh, sw, h, w)
-    sub = gridlib.GridMap(cells=gridlib.take_window(gm.cells, row, col, sh, sw), origin=origin,
-                          scale=gm.scale)
-    w_obs, s_obs = scan_observation_planes_batched(origin, sh, sw, gm.scale, poses, scans, cfg)
-    sub = gridlib.apply_observations(sub, model, w_obs, s_obs)
-    return dataclasses.replace(gm, cells=gridlib.put_window(gm.cells, sub.cells, row, col))
+    The cell arithmetic is the reference's windowed one (the window's own
+    origin ``origin + [col, row] * scale``, not the full plane's); the
+    offsets stay on the device. On the card K3 reads and writes each window
+    in place; the CPU twin cuts the P windows out in one gather, rasterises
+    them in one call of :func:`scan_observation_planes_batched`, folds and
+    writes them back in one scatter. Evidence that falls off a window is
+    dropped (the reference wraps it into the window's last cell, trap g).
+    Exact when the window covers the scan's usable reach."""
+    return dataclasses.replace(gm, cells=kernels.scan_insert(gm, model, poses, scans, cfg,
+                                                             window=window))
 
 
 # --- synthetic scan generation (test/benchmark oracle) ----------------------

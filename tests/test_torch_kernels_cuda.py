@@ -39,14 +39,22 @@ equal their yardsticks ``gradient_refine_rounds`` and ``hill_climb_rounds``
 kernel also runs the other reducers (``kernels.Reducer``: the obstacle
 reducer, the max and the mean over a window, the overlap reducer at other
 extents and windows): against the twin within 2e-6, and against the same
-yardsticks, single launches and cut-out windows bit for bit.
+yardsticks, single launches and cut-out windows bit for bit. ``scan_insert``
+(K3: the rasterisation and the fold in two launches) equals
+``scan_insert_ordered`` (the samples summed on the host in sample order,
+the same fold) bit for bit on one map, P windows in place and P whole maps,
+and its twin but where the card's ``index_put_`` sums a cell's run of 32
+occupied samples or more in another order (within 1e-6 relative).
 """
+
+import dataclasses
 
 import pytest
 import torch
 
 from slam_constructor_tpu_torch.models import tiny, viny
 from slam_constructor_tpu_torch.models.engine import init_state
+from slam_constructor_tpu_torch.ops import cells
 from slam_constructor_tpu_torch.ops import grid as gridlib
 from slam_constructor_tpu_torch.ops import kernels, raycast, scoring
 from slam_constructor_tpu_torch.ops.scan import LaserScan
@@ -934,3 +942,125 @@ def test_reducer_launches_reject_bad_codes(scene):
     with pytest.raises(RuntimeError):
         kernels.overlap_score(prep.plane, cand, prep.pts, prep.beam_w, prep.origin, prep.scale,
                               prep.unknown, bad)
+
+
+# --- K3: the scan insert with its cell fold --------------------------------------
+
+
+def _stack(gm, n_p):
+    return gridlib.GridMap(cells=gm.cells.expand(n_p, *gm.cells.shape).contiguous(),
+                           origin=gm.origin.expand(n_p, 2).contiguous(), scale=gm.scale)
+
+
+@pytest.fixture(scope="module")
+def insert_scene(scene):
+    """Maps of the tiny and the viny path after 5 bench scans (inserted by
+    the kernel), the 6th scan and its pose."""
+    view, _, _, _ = scene
+    dev = view.occ.device
+    occ, origin, scale = datagen.cecum_world(device=dev)
+    poses = datagen.rectangle_trajectory(step=0.2, device=dev)[:6]
+    scans, _, gt = datagen.synth_sequence(
+        occ, origin, scale, poses, datagen.default_bearings(360, device=dev), rng=0)
+    maps = {}
+    for name, cfg in (("tiny", tiny.tiny_config(map_size=256)),
+                      ("viny", viny.viny_config(map_size=256))):
+        gm = init_state(cfg, dev).gm
+        for i in range(5):
+            gm = raycast.insert_scan(gm, cfg.cell_model, gt[i], scans[i], cfg.beam)
+        maps[name] = (cfg, gm)
+    return maps, scans[5], gt[5]
+
+
+def _insert_case(insert_scene, case):
+    """(gm, model, pose, scan, beam, q, window) of a named case."""
+    maps, scan, pose = insert_scene
+    dev = pose.device
+    q1 = torch.ones((), device=dev)
+    name, _, what = case.partition(":")
+    cfg, gm = maps["viny" if name in ("viny", "tbm windows") else "tiny"]
+    beam, model = cfg.beam, cfg.cell_model
+    if what == "q=0":
+        return gm, model, pose, scan, beam, torch.zeros((), device=dev), 0
+    if what == "no valid beam":
+        scan = LaserScan(scan.ranges, scan.bearings, torch.zeros_like(scan.valid))
+    if what == "past max_range":
+        beam = dataclasses.replace(beam, max_range=1.0)
+    if what == "area, bayes_base":
+        beam = dataclasses.replace(beam, occupancy_estimator="area", wall_blur=False)
+        model = cells.BayesBaseCell(quality=0.3)
+    if what == "off the map":  # a 64^2 map: most samples fall off it
+        gm = gridlib.GridMap(cells=gm.cells[96:160, 96:160].contiguous(),
+                             origin=gm.origin + 96 * gm.scale, scale=gm.scale)
+    if name in ("windows", "tbm windows"):
+        g = torch.Generator(device=dev).manual_seed(3)
+        poses = pose + torch.randn((6, 3), generator=g, device=dev) * 0.05
+        poses[5, 0] = 11.9  # the window clamped at the map's edge (it ends at x = 12.8)
+        n_p = 6
+        return (_stack(gm, n_p), model, poses, LaserScan(*(
+            t.expand(n_p, -1) for t in (scan.ranges, scan.bearings, scan.valid))), beam, None,
+            160 if what != "whole maps" else 0)
+    return gm, model, pose, scan, beam, (q1 * 0.5 if what == "q=0.5" else q1), 0
+
+
+INSERT_CASES = ["tiny", "tiny:q=0", "tiny:q=0.5", "tiny:no valid beam", "tiny:past max_range",
+                "tiny:area, bayes_base", "tiny:off the map", "viny", "viny:no valid beam",
+                "windows", "windows:whole maps", "tbm windows", "tbm windows:whole maps"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", INSERT_CASES)
+def test_scan_insert_equals_the_ordered_sums(insert_scene, case):
+    """K3 against its yardstick (the samples summed on the host in sample
+    order, the same fold) bit for bit; two launches, the same bits; against
+    the twin bit for bit but in cells whose occupied run the card's
+    index_put_ may sum in another order (32 samples or more)."""
+    args = _insert_case(insert_scene, case)
+    gm = args[0]
+    before = kernels.launch_counts()["scan_insert"]
+    got = kernels.scan_insert(*args)
+    again = kernels.scan_insert(*args)
+    want = kernels.scan_insert_ordered(*args)
+    twin = kernels.scan_insert_ref(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["scan_insert"] == before + 2
+    assert got.shape == gm.cells.shape and got.data_ptr() != gm.cells.data_ptr()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (
+        f"{int((got != want).any(-1).sum())} cells differ from the ordered sums")
+    assert torch.equal(again.view(torch.int32), got.view(torch.int32))
+    differ = (got.view(torch.int32) != twin.view(torch.int32)).any(-1)
+    if args[6]:  # windows: the twin's runs are counted in each window
+        row, col, _ = gridlib.window_corner(gm.origin, args[2][:, :2], gm.scale, 160, 160,
+                                            gm.height, gm.width)
+        inside = torch.stack([differ[p, int(row[p]):int(row[p]) + 160,
+                                     int(col[p]):int(col[p]) + 160] for p in range(6)])
+        assert int(differ.sum()) == int(inside.sum())
+        differ = inside
+    differ = differ.reshape(-1, *differ.shape[-2:])
+    runs = kernels.scan_insert_runs(args[0], args[2], args[3], args[4], args[6])
+    assert int((differ & (runs < 32)).sum()) == 0
+    rel = ((got - twin).abs() / twin.abs().clamp(min=1e-30)).max()
+    assert float(rel) <= 1e-6
+    if case.endswith("q=0") or case.endswith("no valid beam"):
+        pass
+    elif "whole maps" not in case:
+        assert int((got != gm.cells).any(-1).sum()) > 100  # the scan landed
+
+
+@pytest.mark.cuda
+def test_scan_insert_rejects_bad_input(insert_scene):
+    gm, model, pose, scan, beam, q, _ = _insert_case(insert_scene, "tiny")
+    with pytest.raises(ValueError):
+        kernels.scan_insert(gm, cells.TBMCell(), pose, scan, beam, q)  # 2 channels, not 5
+    with pytest.raises(ValueError):
+        kernels.scan_insert(gm, model, pose.cpu(), scan, beam, q)
+    with pytest.raises(TypeError):
+        kernels.scan_insert(gridlib.GridMap(cells=gm.cells.double(), origin=gm.origin,
+                                            scale=gm.scale), model, pose, scan, beam, q)
+    with pytest.raises(ValueError):  # more occupied samples than the sort holds
+        big = 3000
+        wide = LaserScan(torch.full((big,), 2.0, device=pose.device),
+                         torch.linspace(-3.0, 3.0, big, device=pose.device),
+                         torch.ones(big, dtype=torch.bool, device=pose.device))
+        kernels.scan_insert(gm, model, pose, wide, dataclasses.replace(
+            beam, occupancy_estimator="area"), q)
