@@ -228,7 +228,8 @@ Phases, one line or more each, in order; any failure exits non-zero:
    and 0.08 rad, one ``hill_climb`` launch a call and no host sync, the
    FFT's pose within a cell and a heading bin of the CPU's;
 34. K3, the scan insert with its cell fold (``kernels.scan_insert``,
-   ``csrc/scan_insert.cu``). Every main path (tiny, viny, full, gmapping,
+   ``csrc/scan_insert.cu``, one launch a call: a block a band of a
+   window's rows). Every main path (tiny, viny, full, gmapping,
    the gmapping preset, viny_m3rsm) and every CLI config but mit_stata runs
    once more with K3's plain twin handed in, the kernel also run on every
    call's arguments: the trajectory equal to the kernel path's bit for
@@ -236,21 +237,40 @@ Phases, one line or more each, in order; any failure exits non-zero:
    cells differed from the kernel's. The inserts kept from those runs
    (every 64th; every 32nd of mit_csail and tum_2d) and edge cases (q = 0,
    no valid beam, every beam past a 1 m usable range, a 64^2 map that most
-   samples fall off, gmapping windows clamped at corners and edges, viny's
-   map as 4 windows with the polar fill): equal to ``scan_insert_ordered``
-   (the samples summed on the host in sample order) bit for bit, two
-   launches equal, the cells outside the windows copied, and equal to the
-   twin but in cells with 32 occupied samples or more (the card's
-   ``index_put_`` sums those by a warp), within 1e-6 relative; then timed
-   at each path's shape (graph replay, a call, chained) beside the twin and
-   the bound.
+   samples fall off, gmapping windows clamped at corners and edges and at
+   each of the four edges, viny's map as 4 windows with the polar fill, a
+   beam along the boundary of two rows, the area estimator with the blur at
+   360 beams, 1,024 beams into one cell (a run over chunks of 512) and
+   3,000 beams with the area estimator, 39,000 occupied samples, above the
+   sort's old cap): equal to ``scan_insert_ordered`` (the samples summed on
+   the host in sample order) bit for bit, two launches equal, the cells
+   outside the windows copied, and equal to the twin but in cells with 32
+   occupied samples or more (the card's ``index_put_`` sums those by a
+   warp), within 1e-6 relative (a run of n >= 1,000 samples: n 2^-24); then
+   timed at each path's shape (graph replay, a call, chained) beside the
+   twin and the bound;
+35. K3 without the fold, the shared-plane rasteriser (``kernels.
+   scan_planes``, the same source): the full and full_m3rsm paths run once
+   more with its plain twin handed in (the card's ``index_put_``, the
+   rasteriser the paths ran before), the kernel also run on every call's
+   arguments: the
+   trajectory equal to the kernel path's bit for bit, or, where they part,
+   the cells in which the two differed, counted and printed. Every 4th
+   call kept from those runs (the loop closer's submap renders and the
+   regenerated map's groups), one ``joint_refine`` round of 8 keyframes and
+   a plane of 32 keyframes (57,600 occupied samples): equal to
+   ``scan_planes_ordered`` bit for bit, two launches equal, and equal to
+   the twin but in cells with runs of 32 or more (within n 2^-24
+   relative); then timed at a render, a regeneration group and the joint
+   refine round beside the twin and the bound.
 
 Every bound counts, of the plane or window, the distinct cells that the
 taps of every pose the kernel scores read (the poses taken from its
 yardstick's run on the same inputs), not the whole plane.
 
 Every path on a dense map inserts through ``scan_insert`` once a scan (the
-tiled mit_stata scatters its samples itself). The launch counts are set to
+tiled mit_stata scatters its samples itself); the full paths' submaps and
+regenerated maps rasterise through ``scan_planes``. The launch counts are set to
 0 just before each of these runs and read just after it. The line before the last is a JSON object of the
 kernels; the last line is ``{"ok": true, "device": {...}}``. It needs no
 network and starts no process that outlives it.
@@ -383,6 +403,11 @@ K3_FOLD_OPS = {"BayesAvgCell": 8, "BayesBaseCell": 30, "TBMCell": 130}
 #: every how many inserts a path's run with K3's twin handed in keeps a
 #: call's arguments for phase 34
 INSERT_EVERY = 64
+#: every how many calls of `scan_planes` kept from the full paths phase 35 holds
+PLANES_EVERY = 4
+#: a run of this many samples in one cell or more is summed by the twin's
+#: warp in another order, n terms apart by up to ~n 2^-24 relative
+LONG_RUN = 1000
 
 #: f32 operations a cell of `polar_free_plane`, with the math library's
 #: routines counted at the length of their usual path in the built kernel's
@@ -1129,8 +1154,33 @@ def loop_match_launches(graph_cfg, calls: int) -> dict:
     the submaps, the whole match in one launch and the information
     estimate."""
     if graph_cfg.loop_matcher_kind != "m3rsm":
-        return {"overlap_score_batched": 2 * calls}
-    return {"m3rsm_pyramid": calls, "m3rsm_search": calls, "overlap_score_batched": calls}
+        return {"overlap_score_batched": 2 * calls, "scan_planes": calls}
+    return {"m3rsm_pyramid": calls, "m3rsm_search": calls, "overlap_score_batched": calls,
+            "scan_planes": calls}
+
+
+def regeneration_counter():
+    """A stand-in for ``posegraph.regenerate_map`` that notes each call, and
+    the launches those calls take: for a cell model whose fold is additive
+    one ``scan_planes`` a group of keyframes, else one ``scan_insert`` a
+    keyframe (over ``min(n_used, max_keyframes)`` slots)."""
+    from slam_constructor_tpu_torch.models import posegraph
+
+    real, calls = posegraph.regenerate_map, []
+
+    def counted(*args, **kwargs):
+        cfg, model = args[0], args[1]
+        n_used, group = kwargs.get("n_used"), kwargs.get("group", 32)
+        kmax = cfg.max_keyframes if n_used is None else min(n_used, cfg.max_keyframes)
+        calls.append((kmax, group, getattr(model, "fold_additive", False)))
+        return real(*args, **kwargs)
+
+    def launches():
+        planes = sum(-(-k // max(g, 1)) for k, g, additive in calls if additive)
+        inserts = sum(k for k, _, additive in calls if not additive)
+        return {"scan_planes": planes, "scan_insert": inserts}
+
+    return counted, launches
 
 
 def phase_full_path(cfg, scans, odom, gt, odo_ate, name="full", reference=FULL_REFERENCE_ATE_BY_KEY,
@@ -1142,12 +1192,18 @@ def phase_full_path(cfg, scans, odom, gt, odo_ate, name="full", reference=FULL_R
     from slam_constructor_tpu_torch.models import engine
     from slam_constructor_tpu_torch.utils import evaluate
 
-    reset_launches()
-    e, traj, secs, track_secs = run_full_path(cfg, scans, odom, gt, "error")
-    launches = read_launches()
+    from slam_constructor_tpu_torch.models import posegraph
+
+    counted, regenerations = regeneration_counter()
+    with handed_in(counted, "regenerate_map", posegraph):
+        reset_launches()
+        e, traj, secs, track_secs = run_full_path(cfg, scans, odom, gt, "error")
+        launches = read_launches()
     n_kf, n_edges = int(e.graph.n_kf), int(e.graph.n_edges)
-    want = expect(mc_match=N_SCANS, scan_insert=N_SCANS, **loop_match_launches(
-        cfg.graph, e.n_kf_batches + cfg.densify_rounds * e.n_bursts))
+    loops = loop_match_launches(cfg.graph, e.n_kf_batches + cfg.densify_rounds * e.n_bursts)
+    regen = regenerations()
+    want = expect(mc_match=N_SCANS, **{**loops, "scan_insert": N_SCANS + regen["scan_insert"],
+                                       "scan_planes": loops["scan_planes"] + regen["scan_planes"]})
     print(f"{name} main path: {N_SCANS} scans in {secs:.3f} s = {N_SCANS / secs:.1f} scans/s "
           f"(tracking {track_secs:.3f} s with the sync check on, no host sync; keyframe work and "
           f"bursts {secs - track_secs:.3f} s); {n_kf} keyframes in {e.n_kf_batches} batches, "
@@ -3106,6 +3162,25 @@ def insert_edge_cases(kept):
                           origin=gm.origin + 96 * gm.scale, scale=gm.scale)
     cases.append(("tiny state on a 64^2 map: endpoints and free samples off it",
                   (cut, model, pose, scan, cfg, q, w)))
+    # beam 90 runs along the boundary of rows 127 and 128 (a band's edge)
+    boundary = torch.stack([pose[0], gm.origin[1] + 128 * gm.scale, -scan.bearings[90]])
+    cases.append(("tiny state, a beam along the boundary of two rows",
+                  (gm, model, boundary, scan, cfg, q, w)))
+    area = dataclasses.replace(cfg, occupancy_estimator="area")
+    cases.append(("tiny state, the area estimator and the blur at 360 beams",
+                  (gm, model, pose, scan, area, q, w)))
+    dev = pose.device
+    ones = torch.ones(1024, dtype=torch.bool, device=dev)
+    cases.append(("tiny state, 1,024 beams into one cell: a run over chunks of 512",
+                  (gm, model, pose, LaserScan(torch.full((1024,), 2.0, device=dev),
+                                              torch.full((1024,), 0.3, device=dev), ones),
+                   cfg, q, w)))
+    # 3,000 x (9 + 4) occupied samples: the old sort took 16,384 keys at most
+    cases.append(("tiny state, 3,000 beams with the area estimator: 39,000 occupied samples",
+                  (gm, model, pose, LaserScan(torch.full((3000,), 2.0, device=dev),
+                                              torch.linspace(-3.0, 3.0, 3000, device=dev) + 0.3,
+                                              torch.ones(3000, dtype=torch.bool, device=dev)),
+                   area, q, w)))
     gm, model, pose, scan, cfg, q, w = kept["gmapping"][4]
     far = gm.origin + torch.tensor([gm.width, gm.height], device=pose.device) * gm.scale
     corners = pose.clone()
@@ -3114,6 +3189,12 @@ def insert_edge_cases(kept):
     corners[2, 0], corners[3, 1] = gm.origin[2, 0] + 0.3, far[3, 1] - 0.3
     cases.append(("gmapping state, windows clamped at two corners and two edges",
                   (gm, model, corners, scan, cfg, q, w)))
+    edges = pose.clone()
+    edges[0, 0], edges[1, 0] = gm.origin[0, 0] + 0.3, far[1, 0] - 0.3
+    edges[2, 1], edges[3, 1] = gm.origin[2, 1] + 0.3, far[3, 1] - 0.3
+    edges[4, :2], edges[5, :2] = gm.origin[4] + 0.3, far[5] - 0.3
+    cases.append(("gmapping state, windows clamped at each of the four edges and two corners",
+                  (gm, model, edges, scan, cfg, q, w)))
     gm, model, pose, scan, cfg, q, _ = kept["viny"][4]
     n_p = 4
     stack = gridlib.GridMap(cells=gm.cells.expand(n_p, *gm.cells.shape).contiguous(),
@@ -3167,12 +3248,14 @@ def phase_scan_insert_kernel(dev, kept, smi):
         n_differ = int(differ.sum())
         short = int((differ[inside].reshape(runs.shape) & (runs < 32)).sum()) if n_differ else 0
         rel = float(((got - twin).abs() / twin.abs().clamp(min=1e-30)).max())
+        longest = int(runs.max())
+        tol = 1e-6 if longest < LONG_RUN else longest * 2.0**-24
         print(f"scan_insert [{name}]: {tuple(gm.cells.shape)}, window {args[6]}, q "
               f"{None if args[5] is None else float(args[5])}: equal to the ordered sums bit for "
               f"bit, two launches equal; against the twin {n_differ} cells differ (all in cells "
               f"with 32 or more occupied samples: {short == 0}; largest run "
-              f"{int(runs.max())}), max relative difference {rel:.3e}", flush=True)
-        check(short == 0 and rel <= 1e-6, f"scan_insert parts from its twin unexplained ({name})")
+              f"{longest}), max relative difference {rel:.3e} (at most {tol:.3e})", flush=True)
+        check(short == 0 and rel <= tol, f"scan_insert parts from its twin unexplained ({name})")
         explained += n_differ
         max_err = max(max_err, float((got - twin).abs().max()))
 
@@ -3186,14 +3269,21 @@ def phase_scan_insert_kernel(dev, kept, smi):
                                           lambda: kernels.scan_insert_ref(*args), plain_calls=10)
         n_bytes, n_ops, folded = insert_work(args)
         b_ms, by = bound_ms(n_bytes, n_ops)
+        gm = args[0]
+        n_p = 1 if gm.cells.dim() == 3 else gm.cells.shape[0]
+        side = min(args[6], gm.height, gm.width) if args[6] and n_p > 1 else gm.height
+        rows = kernels.band_rows(n_p, side, side if args[6] and n_p > 1 else gm.width,
+                                 gm.cells.shape[-1])
         print(f"scan_insert {path} {tuple(args[0].cells.shape)} window {args[6]} "
-              f"{type(args[1]).__name__} {args[4].free_impl}: {1e3 * device_ms:.2f} us device "
+              f"{type(args[1]).__name__} {args[4].free_impl}, bands of {rows} rows: "
+              f"{1e3 * device_ms:.2f} us device "
               f"(a CUDA graph of 50 calls), a call {ms:.4f} ms, chained {chained:.4f} ms; plain "
               f"twin {plain_ms:.4f} ms a call; bound {b_ms:.6f} ms by {by} ({n_bytes} B; {n_ops} "
               f"operations, {folded} cells folded) on {smi}; no single PyTorch call computes "
               f"it", flush=True)
         by_path[path] = {"device_ms": device_ms, "ms": ms, "plain_ms": plain_ms,
-                         "chained_ms": chained, "bound_ms": b_ms, "bound_by": by}
+                         "chained_ms": chained, "bound_ms": b_ms, "bound_by": by,
+                         "band_rows": rows}
     print(f"scan_insert: {len(cases)} cases equal to the ordered sums bit for bit; {explained} "
           f"cells differ from the twin, each in a run the card's index_put_ sums by a warp",
           flush=True)
@@ -3203,6 +3293,216 @@ def phase_scan_insert_kernel(dev, kept, smi):
         "replaces": "slam_constructor_tpu/ops/raycast.py:89",
         "max_abs_err": max_err, "cases_bitwise_equal_to_ordered_sums": len(cases),
         "cells_differing_from_twin": explained, **by_path["tiny"], "by_path": by_path,
+        "library_ms": None,
+    }
+
+
+def planes_call(args):
+    """A ``scan_planes`` call's arguments (origins, h, w, scale, poses,
+    scans, cfg, plane_of, n_planes), the tensors and the scans cloned."""
+    from slam_constructor_tpu_torch.ops.scan import LaserScan
+
+    a = list(args) + [None] * (9 - len(args))
+    origins, h, w, scale, poses, scans, cfg, plane_of, n_planes = a
+    return (origins.clone(), h, w, scale, poses.clone(),
+            LaserScan(scans.ranges.clone(), scans.bearings.clone(), scans.valid.clone()), cfg,
+            None if plane_of is None else plane_of.clone(), n_planes)
+
+
+def held_to_twin_planes(name, run):
+    """A run of a full path (``run()`` returns its corrected trajectory)
+    against one with ``scan_planes``' plain twin handed in (the card's
+    ``index_put_``: the plain rasteriser), in which the kernel also runs on
+    every call's arguments: the trajectories bit for bit, or, where they
+    part, the cells in which kernel and twin differed, counted. Returns
+    every call's arguments and what was found."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    traj = run()
+    kernel, kept, cells, first = kernels.scan_planes, [], [0], [None]
+
+    def stand_in(*args):
+        twin = kernels.scan_planes_ref(*args)
+        got = kernel(*args)
+        differ = int(((got[0].view(torch.int32) != twin[0].view(torch.int32))
+                      | (got[1].view(torch.int32) != twin[1].view(torch.int32))).sum())
+        if differ and first[0] is None:
+            first[0] = len(kept)
+        cells[0] += differ
+        kept.append(planes_call(args))
+        return twin
+
+    with handed_in(stand_in, "scan_planes"):
+        twin_traj = run()
+    apart = (bits(traj).reshape(traj.shape) != bits(twin_traj).reshape(traj.shape)).any(-1)
+    part = int(apart.nonzero()[0]) if bool(apart.any()) else None
+    print(f"{name} with scan_planes' plain twin handed in: {len(kept)} calls, {cells[0]} cells "
+          f"differing from the kernel's (the first in call {first[0]}); the corrected trajectory "
+          f"{'equal to the kernel path bit for bit' if part is None else f'parts at scan {part}'}"
+          f"{'' if part is None else f' (max |diff| {float((traj - twin_traj).abs().max()):.3e} m)'}",
+          flush=True)
+    check(part is None or cells[0] > 0,
+          f"{name}: the twin rasteriser's trajectory parts at scan {part} with no cell differing")
+    return kept, {"calls": len(kept), "cells_differing_from_twin": cells[0],
+                  "first_call_differing": first[0], "trajectory_parts_at_scan": part}
+
+
+def planes_work(a):
+    """(bytes, operations) of one ``scan_planes`` call on these inputs: the
+    planes written once, the scans' rows, poses, origins and plane indices
+    read once (the polar plane where there is one); the operations of the
+    beams, of the DDA samples before each beam's free limit and of the
+    occupied samples of the beams that carry evidence (the K3_* counts)."""
+    origins, h, w, scale, poses, scans, cfg, plane_of, n_planes = a
+    n = poses.shape[0]
+    p = n if plane_of is None else n_planes
+    r = scans.ranges.shape[-1]
+    polar = cfg.free_impl == "polar"
+    n_bytes = (8 * p * h * w + 9 * r * n + 12 * n + 4 * origins.numel()
+               + (8 * n if plane_of is not None else 0) + (4 * p * h * w if polar else 0))
+    ranges, valid = scans.ranges.reshape(-1, r), scans.valid.reshape(-1, r)
+    traced = 0
+    if not polar:
+        n_s = cfg.n_free_samples(scale)
+        t = (torch.arange(n_s, dtype=torch.float32, device=ranges.device) + 0.5) * (
+            scale * cfg.step_fraction)
+        traced = int(((t < (ranges - cfg.hole_width / 2.0)[..., None]) & valid[..., None]).sum())
+    ep = int((valid & (ranges <= cfg.max_range)).sum())
+    area = cfg.occupancy_estimator == "area"
+    occ = ep * ((9 if area else 1) + (cfg.blur_samples if cfg.wall_blur else 0))
+    n_ops = (K3_BEAM_OPS * n * r + K3_FREE_OPS * traced + K3_OCC_OPS * occ
+             + (K3_AREA_OPS * 9 * ep if area else 0))
+    return n_bytes, n_ops
+
+
+def joint_refine_call(dev, fscans, fgt):
+    """The ``scan_planes`` call of one ``joint_refine`` round over 8
+    keyframes of the full sequence (K = 8 planes of 256^2, the tiny
+    tracker's map and beam), run on the card."""
+    from slam_constructor_tpu_torch.models import posegraph
+    from slam_constructor_tpu_torch.ops import grid as gridlib
+    from slam_constructor_tpu_torch.ops import kernels
+
+    tracking = full_config().tracking
+    cfg = posegraph.PoseGraphConfig(max_keyframes=8, max_edges=16)
+    st = posegraph.init_state(cfg, N_BEAMS, dev)
+    for i in range(8):
+        st = posegraph.add_keyframe(cfg, st, fgt[40 * i], fscans[40 * i])
+    gm = gridlib.make_grid_map(tracking.cell_model, MAP, MAP, tracking.map_scale, device=dev)
+    recording, kept = [], []
+
+    def keep(*args):
+        kept.append(planes_call(args))
+        return recording[0](*args)
+
+    recording.append(kernels.scan_planes)
+    with handed_in(keep, "scan_planes"):
+        out = posegraph.joint_refine(cfg, tracking.cell_model, st, gm, tracking.beam, rounds=1)
+    torch.cuda.synchronize()
+    check(len(kept) == 1 and bool(torch.isfinite(out.kf_poses).all()),
+          f"joint_refine: {len(kept)} scan_planes calls, or non-finite poses")
+    return kept[0]
+
+
+def big_plane_call(dev, fscans, fgt):
+    """32 keyframes of the full sequence into one 256^2 plane: 32 x 360 x
+    (1 + 4) = 57,600 occupied samples, more than the old sort held."""
+    from slam_constructor_tpu_torch.ops import grid as gridlib
+
+    tracking = full_config().tracking
+    idx = torch.arange(32, device=dev) * 15
+    origin = gridlib.make_grid_map(tracking.cell_model, MAP, MAP, tracking.map_scale,
+                                   device=dev).origin
+    return planes_call((origin, MAP, MAP, tracking.map_scale, fgt[idx], fscans[idx],
+                        tracking.beam, torch.zeros(32, dtype=torch.int64, device=dev), 1))
+
+
+def phase_scan_planes_kernel(dev, kept, fscans, fgt, smi):
+    """K3 without the fold (``kernels.scan_planes``) on every 4th call kept
+    from the full paths, a joint-refine round and a 57,600-sample plane:
+    equal to ``scan_planes_ordered`` bit for bit, two launches the same
+    bits, against the twin bit for bit but in the cells whose occupied run
+    the card's ``index_put_`` sums in another order (32 or more). Then
+    timed at the largest submap render, a regeneration group (the
+    57,600-sample plane) and the joint-refine round. Returns the
+    ``kernels`` entry without the launch count."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    cases = [(f"{path} call {i}", a) for path, calls in kept.items()
+             for i, a in enumerate(calls) if i % PLANES_EVERY == 0]
+    cases.append(("joint refine, one round of 8 keyframes", joint_refine_call(dev, fscans, fgt)))
+    cases.append(("32 keyframes into one plane", big_plane_call(dev, fscans, fgt)))
+    max_err, explained, most = 0.0, 0, 0
+    for name, a in cases:
+        before = kernels.launch_counts()["scan_planes"]
+        got = kernels.scan_planes(*a)
+        again = kernels.scan_planes(*a)
+        want = kernels.scan_planes_ordered(*a)
+        twin = kernels.scan_planes_ref(*a)
+        torch.cuda.synchronize()
+        check(kernels.launch_counts()["scan_planes"] == before + 2,
+              f"scan_planes did not count its launches ({name})")
+        runs = kernels.scan_planes_runs(*a)
+        samples = int(runs.sum(dim=(1, 2)).max())  # the most samples a plane holds
+        most = max(most, samples)
+        n_differ, excess, longest = 0, 0.0, 0
+        # a value may part from the twin's only in a cell whose run of n >= 32
+        # samples the card's index_put_ sums by a warp: by ~n 2^-24 relative
+        tol = (runs.to(torch.float64) * 2.0**-24).clamp(min=1e-6)
+        for g, g2, w_, t in zip(got, again, want, twin):
+            check(g.shape == runs.shape and bool(torch.isfinite(g).all()),
+                  f"scan_planes output malformed ({name})")
+            check(torch.equal(bits(g), bits(w_)), f"scan_planes differs from the ordered sums "
+                                                  f"({name}): {int((g != w_).sum())} cells")
+            check(torch.equal(bits(g), bits(g2)), f"two launches differ ({name})")
+            differ = g.view(torch.int32) != t.view(torch.int32)
+            check(int((differ & (runs < 32)).sum()) == 0,
+                  f"scan_planes parts from its twin in a cell with a short run ({name})")
+            n_differ += int(differ.sum())
+            if bool(differ.any()):
+                longest = max(longest, int(runs[differ].max()))
+            rel = (g - t).abs().to(torch.float64) / t.abs().to(torch.float64).clamp(min=1e-30)
+            excess = max(excess, float((rel / tol).max()))
+            max_err = max(max_err, float((g - t).abs().max()))
+        print(f"scan_planes [{name}]: {a[4].shape[0]} scans into {tuple(got[0].shape)}, at most "
+              f"{samples} occupied samples a plane: equal to the ordered sums bit for bit, two "
+              f"launches equal; against the twin {n_differ} values differ, all in cells with 32 "
+              f"or more occupied samples (the longest such run {longest}), each within "
+              f"{excess:.3f} of its bound max(1e-6, n 2^-24) relative", flush=True)
+        check(excess <= 1.0, f"scan_planes parts from its twin beyond n 2^-24 ({name})")
+        explained += n_differ
+    check(most >= 57600, f"no plane of 57,600 occupied samples or more was held ({most})")
+
+    renders = [a for path, calls in kept.items() for a in calls if a[7] is not None and a[8] > 1]
+    check(bool(renders), "the full paths rendered no submaps")
+    shapes = {"render": max(renders, key=lambda a: a[4].shape[0]),
+              "regeneration group": cases[-1][1], "joint refine": cases[-2][1]}
+    timed = {}
+    for shape, a in shapes.items():
+        device_ms = graph_ms(lambda: kernels.scan_planes(*a))
+        ms, plain_ms, chained = time_pair(lambda: kernels.scan_planes(*a),
+                                          lambda: kernels.scan_planes_ref(*a), plain_calls=10)
+        n_bytes, n_ops = planes_work(a)
+        b_ms, by = bound_ms(n_bytes, n_ops)
+        p = a[4].shape[0] if a[7] is None else a[8]
+        rows = kernels.band_rows(p, a[1], a[2], 0)
+        print(f"scan_planes {shape}: {a[4].shape[0]} scans into {p} planes of {a[1]}x{a[2]}, "
+              f"bands of {rows} rows: {1e3 * device_ms:.2f} us device (a CUDA graph of 50 calls), "
+              f"a call {ms:.4f} ms, chained {chained:.4f} ms; plain twin {plain_ms:.4f} ms a call; "
+              f"bound {b_ms:.6f} ms by {by} ({n_bytes} B; {n_ops} operations) on {smi}; no single "
+              f"PyTorch call computes it", flush=True)
+        timed[shape] = {"device_ms": device_ms, "ms": ms, "plain_ms": plain_ms,
+                        "chained_ms": chained, "bound_ms": b_ms, "bound_by": by,
+                        "band_rows": rows}
+    print(f"scan_planes: {len(cases)} cases equal to the ordered sums bit for bit; {explained} "
+          f"values differ from the twin, each in a run the card's index_put_ sums by a warp",
+          flush=True)
+    return {
+        "name": "scan_planes", "route": "cuda",
+        "source": "slam_constructor_tpu_torch/csrc/scan_insert.cu",
+        "replaces": "slam_constructor_tpu/models/posegraph.py:421",
+        "max_abs_err": max_err, "cases_bitwise_equal_to_ordered_sums": len(cases),
+        "values_differing_from_twin": explained, **timed["regeneration group"], "by_shape": timed,
         "library_ms": None,
     }
 
@@ -3327,6 +3627,9 @@ def main() -> None:
 
     full_odo_ate = float(evaluate.ate(odometry_trajectory(fgt[0], fodom), fgt, align=False))
     full_launches = phase_full_path(full_cfg, fscans, fodom, fgt, full_odo_ate)
+    kept_planes, planes_runs = {}, {}
+    kept_planes["full"], planes_runs["full"] = held_to_twin_planes(
+        "full", lambda: run_full_path(full_cfg, fscans, fodom, fgt, 0)[1])
     kept_inserts["full"], twin_runs["full"] = held_to_twin_insert(
         "full", lambda: run_full_path(full_cfg, fscans, fodom, fgt, 0)[1])
     k4 = phase_batched_kernel(dev, kept)
@@ -3356,6 +3659,8 @@ def main() -> None:
     full_m3_launches = phase_full_path(full_m3_cfg, fscans, fodom, fgt, full_odo_ate,
                                        name="full_m3rsm", reference=FULL_M3RSM_REFERENCE_ATE_BY_KEY,
                                        hold_to_tracker=False)
+    kept_planes["full_m3rsm"], planes_runs["full_m3rsm"] = held_to_twin_planes(
+        "full_m3rsm", lambda: run_full_path(full_m3_cfg, fscans, fodom, fgt, 0)[1])
     cli_launches, grad_kept, score_kept, refine_kept, rates, cli_inserts = phase_cli(dev)
     phase_overlap_csail(dev, k1, score_kept)
     k9 = phase_overlap_grad_kernel(dev, grad_kept, smi)
@@ -3376,13 +3681,16 @@ def main() -> None:
             kept_inserts[name] = calls
     k12 = phase_scan_insert_kernel(dev, kept_inserts, smi)
     k12["twin_insert_runs"] = twin_runs
+    k13 = phase_scan_planes_kernel(dev, kept_planes, fscans, fgt, smi)
+    k13["twin_planes_runs"] = planes_runs
 
     # `launches`: of a main path's timed run, held to the expected counts
     # above: the viny path's for the kernels of the earlier slices, the full
     # path's for the batched score, the gmapping path's for the particle
     # match, the viny_m3rsm path's for the M3RSM kernels, the CLI's
     # mit_csail run for `hill_climb` and `overlap_score` and its tiny_refined
-    # run for `gradient_refine` and `overlap_score_grad`. `m3rsm_level`,
+    # run for `gradient_refine` and `overlap_score_grad`, the full path's for
+    # `scan_planes`. `m3rsm_level`,
     # `overlap_score` and `overlap_score_grad` left the main paths, so they
     # read 0 there; the paths driven with their yardsticks handed in stand
     # under `launches_by_path` only
@@ -3391,8 +3699,9 @@ def main() -> None:
                  "m3rsm_level": m3_launches, "m3rsm_search": m3_launches,
                  "overlap_score_grad": cli_launches["tiny_refined"],
                  "gradient_refine": cli_launches["tiny_refined"],
-                 "hill_climb": cli_launches["mit_csail"], "scan_insert": tiny_launches}
-    for k in (k1, k3, k2, k4, k5, k6, k7, k8, k9, k10, k11, k12):
+                 "hill_climb": cli_launches["mit_csail"], "scan_insert": tiny_launches,
+                 "scan_planes": full_launches}
+    for k in (k1, k3, k2, k4, k5, k6, k7, k8, k9, k10, k11, k12, k13):
         k["launches"] = main_path.get(k["name"], viny_launches)[k["name"]]
         k["launches_by_path"] = {
             "tiny": tiny_launches[k["name"]], "viny": viny_launches[k["name"]],
@@ -3410,7 +3719,8 @@ def main() -> None:
     for k in k_red:
         k["launches"] = base_by_reducer[k["name"].split(" ")[0]]
         k["launches_by_path"] = {"gmapping preset": k["launches"]}
-    print(json.dumps({"kernels": [k1, k3, k2, k4, k5, k6, k7, k8, k9, k10, k11, k12, *k_red]}),
+    print(json.dumps({"kernels": [k1, k3, k2, k4, k5, k6, k7, k8, k9, k10, k11, k12, k13,
+                                  *k_red]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -273,7 +273,7 @@ def main() -> None:
         torch.cuda.synchronize()
     device_report(prof, n, secs, time.perf_counter() - t0,
                   ("mc_match_kernel", "overlap_score_kernel", "polar_free_kernel",
-                   "rasterise_kernel", "fold_kernel"))
+                   "insert_kernel"))
 
 
 def device_report(prof, n: int, secs: float, wall: float, names: tuple) -> None:
@@ -407,7 +407,7 @@ def profile_m3rsm(n: int) -> None:
         torch.cuda.synchronize()
     device_report(prof, n, secs, time.perf_counter() - t0,
                   ("m3rsm_match_kernel", "m3rsm_pyramid_kernel", "m3rsm_level_kernel",
-                   "overlap_score_kernel", "rasterise_kernel", "fold_kernel"))
+                   "overlap_score_kernel", "insert_kernel"))
 
 
 #: the refine configs: the refine's wrapper and its yardstick in ``kernels``
@@ -546,8 +546,7 @@ def profile_refine(preset: str, n: int) -> None:
         torch.cuda.synchronize()
     device_report(prof, n, min(secs[next(iter(variants))]), time.perf_counter() - t0,
                   ("gradient_refine_kernel", "hill_climb_kernel", "mc_match_kernel",
-                   "overlap_score_grad_kernel", "overlap_score_kernel", "rasterise_kernel",
-                   "fold_kernel"))
+                   "overlap_score_grad_kernel", "overlap_score_kernel", "insert_kernel"))
 
 
 def profile_gmapping(n: int) -> None:
@@ -657,8 +656,7 @@ def profile_gmapping(n: int) -> None:
     print(f"profiled {n} scans: device kernel time {dev_s:.4f} s = {dev_s / secs * 100:.1f}% of "
           f"the unprofiled {secs:.3f} s ({dev_s / wall * 100:.1f}% of the profiled {wall:.3f} s); "
           f"{sum(k.count for k in rows) / n:.0f} kernels a scan")
-    mine = [k for k in rows if any(n in k.key for n in ("mc_match_kernel", "rasterise_kernel",
-                                                       "fold_kernel"))]
+    mine = [k for k in rows if any(n in k.key for n in ("mc_match_kernel", "insert_kernel"))]
     top = sorted(rows, key=lambda k: -k.device_time_total)[:12]
     for k in mine + [k for k in top if k not in mine]:
         print(f"  {k.device_time_total * 1e-3:9.3f} ms  {k.count:6d} x  "
@@ -676,7 +674,7 @@ def profile_full() -> None:
                          capture_output=True, text=True).stdout.strip())
     scans, odom, gt = full_sequence(dev)
     cfg = full_config()
-    ours = ("mc_match", "overlap_score_batched", "scan_insert")
+    ours = ("mc_match", "overlap_score_batched", "scan_insert", "scan_planes")
 
     def engine_run(instrument=None):
         e = full.FullSlamEngine(cfg, n_beams=N_BEAMS, seed=0)
@@ -774,7 +772,7 @@ def profile_full() -> None:
           f"unprofiled {secs:.3f} s ({dev_s / pwall * 100:.1f}% of the profiled {pwall:.3f} s); "
           f"{sum(k.count for k in rows)} kernels")
     mine = [k for k in rows if any(n in k.key for n in ("mc_match_kernel", "overlap_score_kernel",
-                                                       "rasterise_kernel", "fold_kernel"))]
+                                                       "insert_kernel"))]
     top = sorted(rows, key=lambda k: -k.device_time_total)[:12]
     for k in mine + [k for k in top if k not in mine]:
         print(f"  {k.device_time_total * 1e-3:9.3f} ms  {k.count:6d} x  "

@@ -8,9 +8,10 @@
 - Loop detection renders a small submap around each candidate old keyframe
   and brute-force matches the new scan against it. All the matches of a
   keyframe batch (B keyframes x ``max_candidates`` submaps) are rasterised
-  by one call of ``raycast.scan_observation_planes_batched`` and scored by
-  one launch of ``kernels.overlap_score_batched``; the information estimate
-  is one more launch.
+  by one call of ``raycast.scan_observation_planes_batched`` (one launch of
+  K3 without the fold, ``kernels.scan_planes``) and scored by one launch of
+  ``kernels.overlap_score_batched``; the information estimate is one more
+  launch.
 - The solver is Gauss-Newton on relative-pose residuals ``e = [R(th_i)^T
   (t_j - t_i) - z_t, wrap(th_j - th_i - z_th)]`` with dense ``[3K, 3K]``
   normal equations (unused DOFs and the anchored keyframe 0 get identity
@@ -371,8 +372,9 @@ def _render_local_maps(cfg: PoseGraphConfig, model, st: PoseGraphState, ci: Tens
     For cell models whose fold is additive (``fold_additive``: BayesAvg) all
     M x (2 radius + 1) scans are rasterised by one call, summed into their
     submap's planes, and folded once; other models (TBM) keep the serial
-    chain of inserts, each step over the M submaps at once. Samples that
-    fall off a submap are dropped."""
+    chain of inserts, each step one ``raycast.insert_scan_windows`` call
+    over the M submaps at once (K3's fold of P maps). Samples that fall off
+    a submap are dropped."""
     n, scale = cfg.local_map_size, cfg.local_map_scale
     dev = st.device
     m = ci.shape[0]
@@ -400,9 +402,7 @@ def _render_local_maps(cfg: PoseGraphConfig, model, st: PoseGraphState, ci: Tens
             origin[plane_of], n, n, scale, nb_poses.flatten(0, 1), flat, beam, plane_of, m)
         return gridlib.apply_observations(gm, model, w_all, s_all)
     for k in range(span):
-        w_k, s_k = raycast.scan_observation_planes_batched(
-            origin, n, n, scale, nb_poses[:, k], nb_scans[:, k], beam)
-        gm = gridlib.apply_observations(gm, model, w_k, s_k)
+        gm = raycast.insert_scan_windows(gm, model, nb_poses[:, k], nb_scans[:, k], beam)
     return gm
 
 

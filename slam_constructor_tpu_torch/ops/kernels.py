@@ -64,11 +64,15 @@ it: the whole of ``raycast._polar_free_plane`` in one launch.
 each on a window around its pose read and written in place, and folds it
 into the cells: the rasterisation (the DDA free trace, or K2's plane; the
 const or area endpoint evidence and the wall blur, each cell's occupied
-samples summed in sample order) and the cell model's fold, in two launches
-(``csrc/scan_insert.cu``). It replaces what the TPU ran as XLA one-hot
-matmuls (``raycast.py::_scatter_matmul``) with ``grid.apply_observations``;
-``scan_insert_ordered`` sums the same samples on the host in order, the
-yardstick it equals bit for bit.
+samples summed in sample order) and the cell model's fold, in one launch
+(``csrc/scan_insert.cu``: a block a band of rows). ``scan_planes`` is the
+same kernel without the fold: N scans rasterised into P planes, the scans
+that share a plane summed in scan order (the loop closer's submaps, joint
+refine and the regenerated map). They replace what the TPU ran as XLA
+one-hot matmuls (``raycast.py::_scatter_matmul``) with
+``grid.apply_observations``; ``scan_insert_ordered`` and
+``scan_planes_ordered`` sum the same samples on the host in order, the
+yardsticks they equal bit for bit.
 
 On a CUDA tensor a wrapper launches its hand-written kernel (``csrc/*.cu``)
 or raises; it never falls back. On a CPU tensor it runs the plain twin
@@ -102,7 +106,7 @@ _MAX_SHARED_BYTES = 48 * 1024
 _LAUNCHES = dict.fromkeys(
     ("overlap_score", "overlap_score_batched", "overlap_score_grad", "gradient_refine",
      "hill_climb", "mc_match", "mc_match_batched", "polar_free_plane", "m3rsm_pyramid",
-     "m3rsm_level", "m3rsm_search", "scan_insert"), 0
+     "m3rsm_level", "m3rsm_search", "scan_insert", "scan_planes"), 0
 )
 
 #: how a beam's endpoint reads the plane, by the codes of
@@ -1115,20 +1119,22 @@ def polar_free_plane(
     return out
 
 
-# --- K3: the scan insert with its cell fold -----------------------------------
+# --- K3: the scan insert with its cell fold, and the shared-plane rasteriser --
 
 #: the cell models the fold kernel runs, by its codes (scan_insert.cu)
 _CELL_MODEL_CODES = {cells.BayesBaseCell: 0, cells.BayesAvgCell: 1, cells.TBMCell: 2}
-#: the dynamic shared memory a block may opt in to on an H100
-_SCAN_INSERT_MAX_SHARED_BYTES = 227 * 1024
+
+#: a band's rows for every K3 launch (0: the kernel chooses from the shape);
+#: a measurement script may set it to compare band heights
+_BAND_ROWS = 0
 
 
 def scan_insert_ref(gm, model, pose: Tensor, scan, cfg, q: Tensor | None = None,
                     window: int = 0) -> Tensor:
     """Plain PyTorch version of :func:`scan_insert`: the rasterisation
-    (``raycast.scan_observation_planes``, or its batched form on the P
-    windows) scaled by ``q``, then ``grid.apply_observations``; returns the
-    new cells. On the card it sums the occupied evidence with
+    (``raycast.scan_observation_planes``, or :func:`scan_planes_ref` on
+    the P windows) scaled by ``q``, then ``grid.apply_observations``;
+    returns the new cells. On the card it sums the occupied evidence with
     ``index_put_``, whose order within a long run of one cell is the card's
     (PERF.md); the kernel sums in sample order."""
     from . import raycast
@@ -1143,12 +1149,49 @@ def scan_insert_ref(gm, model, pose: Tensor, scan, cfg, q: Tensor | None = None,
     row, col, origin = gridlib.window_corner(gm.origin, pose[:, :2], gm.scale, sh, sw, h, w)
     sub = gridlib.GridMap(cells=gridlib.take_window(gm.cells, row, col, sh, sw), origin=origin,
                           scale=gm.scale)
-    w_obs, s_obs = raycast.scan_observation_planes_batched(origin, sh, sw, gm.scale, pose, scan,
-                                                           cfg)
+    w_obs, s_obs = scan_planes_ref(origin, sh, sw, gm.scale, pose, scan, cfg)
     if q is not None:
         w_obs, s_obs = q * w_obs, q * s_obs
     sub = gridlib.apply_observations(sub, model, w_obs, s_obs)
     return gridlib.put_window(gm.cells, sub.cells, row, col)
+
+
+def _insert_frames(gm, pose: Tensor, scan, window: int):
+    """(sh, sw, origins [P, 2], poses [P, 3], scans) of an insert: one map
+    as P = 1, or each map's window (its own origin)."""
+    h, w = gm.height, gm.width
+    if gm.cells.dim() == 3:
+        return h, w, gm.origin[None], pose[None], [scan]
+    sh, sw = (min(window, h, w),) * 2 if window else (h, w)
+    origins = gridlib.window_corner(gm.origin, pose[:, :2], gm.scale, sh, sw, h, w)[2]
+    return sh, sw, origins, pose, [scan[p] for p in range(pose.shape[0])]
+
+
+def _ordered_planes(origins, sh: int, sw: int, scale: float, poses, scans, cfg, plane_ids,
+                    n_planes: int, w_free=None):
+    """(w_obs, s_obs) f32[n_planes, sh, sw] numpy: each scan's samples
+    (``raycast.scan_sample_cells`` on the poses' device) added to its plane
+    ``plane_ids[i]`` with ``np.add.at`` (unbuffered, one after the other),
+    scan after scan: the free trace's counts (unless ``w_free``, the polar
+    fill, is given), then the occupied evidence in sample order."""
+    from . import raycast
+
+    free_given = w_free is not None
+    if not free_given:
+        w_free = np.zeros((n_planes, sh, sw), np.float32)
+    w_occ, s_occ = np.zeros((2, n_planes, sh, sw), np.float32)
+    for origin, p, sc, plane in zip(origins, poses, scans, plane_ids):
+        rows, cols, w_s, s_s = (t.cpu().numpy() for t in raycast.scan_sample_cells(
+            origin, scale, p, sc, cfg))
+        n_free = sc.ranges.shape[0] * cfg.n_free_samples(scale)
+        on = (rows >= 0) & (rows < sh) & (cols >= 0) & (cols < sw)
+        free, occ = on.copy(), on.copy()
+        free[n_free:], occ[:n_free] = False, False
+        if not free_given:
+            np.add.at(w_free[plane], (rows[free], cols[free]), w_s[free])
+        np.add.at(w_occ[plane], (rows[occ], cols[occ]), w_s[occ])
+        np.add.at(s_occ[plane], (rows[occ], cols[occ]), s_s[occ])
+    return w_free + w_occ, s_occ
 
 
 def scan_insert_ordered(gm, model, pose: Tensor, scan, cfg, q: Tensor | None = None,
@@ -1160,47 +1203,41 @@ def scan_insert_ordered(gm, model, pose: Tensor, scan, cfg, q: Tensor | None = N
     :func:`polar_free_plane`, then ``q`` and ``grid.apply_observations`` on
     the device. The yardstick the kernel is held to bit for bit; it reads
     the samples back to the host, so nothing on a main path calls it."""
-    from . import raycast
-
     dev, single = gm.cells.device, gm.cells.dim() == 3
-    h, w = gm.height, gm.width
-    if single:
-        sh, sw, origins, poses, scans = h, w, gm.origin[None], pose[None], [scan]
-    else:
-        sh, sw = (min(window, h, w),) * 2 if window else (h, w)
-        row, col, origins = gridlib.window_corner(gm.origin, pose[:, :2], gm.scale, sh, sw, h, w)
-        poses, scans = pose, [scan[p] for p in range(pose.shape[0])]
-    w_all, s_all = [], []
-    for origin, p, sc in zip(origins, poses, scans):
-        rows, cols, w_s, s_s = (t.cpu().numpy() for t in raycast.scan_sample_cells(
-            origin, gm.scale, p, sc, cfg))
-        n_free = sc.ranges.shape[0] * cfg.n_free_samples(gm.scale)
-        on = (rows >= 0) & (rows < sh) & (cols >= 0) & (cols < sw)
-        free, occ = on.copy(), on.copy()
-        free[n_free:], occ[:n_free] = False, False
-        if cfg.free_impl == "polar":
-            w_free = polar_free_plane(sc.ranges.contiguous(), sc.valid.contiguous(),
-                                      sc.bearings.contiguous(), p.contiguous(),
-                                      origin.contiguous(), sh, sw, gm.scale,
-                                      cfg.hole_width / 2.0, cfg.max_range).cpu().numpy()
-        else:
-            w_free = np.zeros((sh, sw), np.float32)
-            np.add.at(w_free, (rows[free], cols[free]), w_s[free])
-        w_occ, s_occ = np.zeros((sh, sw), np.float32), np.zeros((sh, sw), np.float32)
-        np.add.at(w_occ, (rows[occ], cols[occ]), w_s[occ])
-        np.add.at(s_occ, (rows[occ], cols[occ]), s_s[occ])
-        w_all.append(w_free + w_occ)
-        s_all.append(s_occ)
-    w_obs = torch.from_numpy(np.stack(w_all)).to(dev)
-    s_obs = torch.from_numpy(np.stack(s_all)).to(dev)
+    sh, sw, origins, poses, scans = _insert_frames(gm, pose, scan, window)
+    w_free = None
+    if cfg.free_impl == "polar":
+        w_free = np.stack([polar_free_plane(
+            sc.ranges.contiguous(), sc.valid.contiguous(), sc.bearings.contiguous(),
+            p.contiguous(), origin.contiguous(), sh, sw, gm.scale, cfg.hole_width / 2.0,
+            cfg.max_range).cpu().numpy() for origin, p, sc in zip(origins, poses, scans)])
+    w_np, s_np = _ordered_planes(origins, sh, sw, gm.scale, poses, scans, cfg,
+                                 range(len(scans)), len(scans), w_free)
+    w_obs, s_obs = torch.from_numpy(w_np).to(dev), torch.from_numpy(s_np).to(dev)
     if q is not None:
         w_obs, s_obs = q * w_obs, q * s_obs
     if single:
         return gridlib.apply_observations(gm, model, w_obs[0], s_obs[0]).cells
+    h, w = gm.height, gm.width
+    row, col, _ = gridlib.window_corner(gm.origin, pose[:, :2], gm.scale, sh, sw, h, w)
     sub = gridlib.GridMap(cells=gridlib.take_window(gm.cells, row, col, sh, sw), origin=origins,
                           scale=gm.scale)
     sub = gridlib.apply_observations(sub, model, w_obs, s_obs)
     return gridlib.put_window(gm.cells, sub.cells, row, col)
+
+
+def _occupied_valid(sc, cfg, w_s):
+    """The twin's validity of a scan's occupied samples (``scan_sample_cells``'
+    list past the free trace): an endpoint sample's weight is > 0 where it
+    is valid; a blur sample is valid where its beam carries evidence, before
+    the tail."""
+    valid = w_s > 0
+    if cfg.wall_blur:
+        ep = sc.valid & (sc.ranges <= cfg.max_range)
+        tb = sc.ranges[:, None] + cfg.hole_width / 2.0 * _blur_table(
+            cfg.blur_samples, sc.ranges.device)[0]
+        valid[-tb.numel():] = (ep[:, None] & (tb > 0)).reshape(-1)
+    return valid
 
 
 def scan_insert_runs(gm, pose: Tensor, scan, cfg, window: int = 0) -> Tensor:
@@ -1212,30 +1249,159 @@ def scan_insert_runs(gm, pose: Tensor, scan, cfg, window: int = 0) -> Tensor:
     the kernel's (PERF.md), so these are the cells where the two may part."""
     from . import raycast
 
-    h, w = gm.height, gm.width
-    if gm.cells.dim() == 3:
-        sh, sw, origins, poses, scans = h, w, gm.origin[None], pose[None], [scan]
-    else:
-        sh, sw = (min(window, h, w),) * 2 if window else (h, w)
-        origins = gridlib.window_corner(gm.origin, pose[:, :2], gm.scale, sh, sw, h, w)[2]
-        poses, scans = pose, [scan[p] for p in range(pose.shape[0])]
+    sh, sw, origins, poses, scans = _insert_frames(gm, pose, scan, window)
     runs = []
     for origin, p, sc in zip(origins, poses, scans):
         rows, cols, w_s, _ = raycast.scan_sample_cells(origin, gm.scale, p, sc, cfg)
         n_free = sc.ranges.shape[0] * cfg.n_free_samples(gm.scale)
         rows, cols, w_s = rows[n_free:], cols[n_free:], w_s[n_free:]
-        # the twin's validity: an endpoint sample's weight is > 0 where it is
-        # valid; a blur sample's where its beam carries evidence, before the tail
-        valid = w_s > 0
-        if cfg.wall_blur:
-            ep = sc.valid & (sc.ranges <= cfg.max_range)
-            tb = sc.ranges[:, None] + cfg.hole_width / 2.0 * _blur_table(
-                cfg.blur_samples, sc.ranges.device)[0]
-            valid[-tb.numel():] = (ep[:, None] & (tb > 0)).reshape(-1)
-        ok = valid & (rows >= 0) & (rows < sh) & (cols >= 0) & (cols < sw)
+        ok = (_occupied_valid(sc, cfg, w_s) & (rows >= 0) & (rows < sh) & (cols >= 0)
+              & (cols < sw))
         runs.append(torch.bincount(torch.where(ok, rows * sw + cols, 0),
                                    minlength=sh * sw).reshape(sh, sw))
     return torch.stack(runs)
+
+
+def _plane_args(origins: Tensor, poses: Tensor, plane_of, n_planes):
+    """(origins [N, 2], plane_of i64[N], n_planes) with the defaults filled
+    in: one origin for every scan, a plane a scan."""
+    n = poses.shape[0]
+    if plane_of is None:
+        plane_of, n_planes = torch.arange(n, device=poses.device), n
+    elif n_planes is None:
+        raise ValueError("scan_planes: plane_of needs n_planes")
+    if origins.dim() == 1:
+        origins = origins[None, :].expand(n, 2)
+    return origins, plane_of, n_planes
+
+
+def _polar_planes(origins: Tensor, h: int, w: int, scale: float, poses: Tensor, scans, cfg,
+                  plane_of: Tensor, n_planes: int) -> Tensor:
+    """The polar fill of N scans summed into their planes: one
+    :func:`polar_free_plane` launch a scan, then ``index_add_`` (one scan a
+    plane: each plane the scan's own bits)."""
+    n = poses.shape[0]
+    dev = poses.device
+    planes = torch.stack([
+        polar_free_plane(scans.ranges[i].contiguous(), scans.valid[i].contiguous(),
+                         scans.bearings[i].contiguous(), poses[i].contiguous(),
+                         origins[i].contiguous(), h, w, scale, cfg.hole_width / 2.0,
+                         cfg.max_range)
+        for i in range(n)
+    ]) if n else torch.zeros((0, h, w), dtype=torch.float32, device=dev)
+    w_free = torch.zeros((n_planes, h, w), dtype=torch.float32, device=dev)
+    return w_free.index_add_(0, plane_of, planes)
+
+
+def scan_planes_ref(origins: Tensor, h: int, w: int, scale: float, poses: Tensor, scans, cfg,
+                    plane_of: Tensor | None = None, n_planes: int | None = None):
+    """Plain PyTorch version of :func:`scan_planes`: the free trace counted
+    with ``scatter_add_`` (or the polar fill), the occupied evidence added
+    on flat indices with ``index_put_(accumulate=True)``, scan-major (each
+    scan's samples in ``raycast.scan_observation_planes``' order), the
+    planes stacked along the rows."""
+    from . import raycast
+
+    dev = poses.device
+    n = poses.shape[0]
+    origins, plane_of, n_planes = _plane_args(origins, poses, plane_of, n_planes)
+    angles = poses[:, 2:3] + scans.bearings  # [N, R]
+    dirs = torch.stack([torch.cos(angles), torch.sin(angles)], dim=-1)  # [N, R, 2]
+    start = poses[:, None, :2]  # [N, 1, 2]
+    # the planes are stacked along the rows: plane p holds rows p*h .. p*h + h - 1
+    shape = (n_planes * h, w)
+    row0 = plane_of * h  # [N]
+
+    def on_map(rows, cols):
+        return (rows >= 0) & (rows < h) & (cols >= 0) & (cols < w)
+
+    if cfg.free_impl == "polar":
+        w_free = _polar_planes(origins, h, w, scale, poses, scans, cfg, plane_of,
+                               n_planes).reshape(shape)
+    else:
+        n_s = cfg.n_free_samples(scale)
+        step = scale * cfg.step_fraction
+        t = (torch.arange(n_s, dtype=torch.float32, device=dev) + 0.5) * step  # [S]
+        pts = start[:, :, None, :] + t[None, None, :, None] * dirs[:, :, None, :]  # [N, R, S, 2]
+        rows, cols = raycast._cells_of(pts, origins[:, None, None, :], scale)  # [N, R, S]
+        free_limit = scans.ranges - cfg.hole_width / 2.0
+        valid = scans.valid[..., None] & (t < free_limit[..., None])
+        same = (rows[..., 1:] == rows[..., :-1]) & (cols[..., 1:] == cols[..., :-1])
+        first = torch.ones((*rows.shape[:2], 1), dtype=torch.bool, device=dev)
+        valid = valid & torch.cat([first, ~same], dim=-1) & on_map(rows, cols)
+        w_free = raycast._flat_count(shape, rows + row0[:, None, None], cols, valid)
+
+    ep_valid = scans.valid & (scans.ranges <= cfg.max_range)
+    endpoints = start + scans.ranges[..., None] * dirs  # [N, R, 2]
+    o3 = origins[:, None, :]
+    if cfg.occupancy_estimator == "area":
+        r9, c9, wgt = raycast._endpoint_area_obs(o3, scale, endpoints, ep_valid, cfg.hole_width)
+        occ = [(r9, c9, wgt, wgt, wgt > 0)]
+    else:
+        er, ec = raycast._cells_of(endpoints, o3, scale)
+        ones = torch.ones(er.shape, device=dev)
+        occ = [(er, ec, ones, ones, ep_valid)]
+    if cfg.wall_blur:
+        bt = linspace(-1.0, 1.0, cfg.blur_samples, dev)  # [B] in hole units
+        tb = scans.ranges[..., None] + cfg.hole_width / 2.0 * bt  # [N, R, B]
+        pb = start[:, :, None, :] + tb[..., None] * dirs[:, :, None, :]
+        br, bc = raycast._cells_of(pb, origins[:, None, None, :], scale)
+        ramp = (1.0 - torch.abs(bt)).expand(tb.shape)
+        occ.append((br, bc, ramp, ramp**2, ep_valid[..., None] & (tb > 0)))
+
+    def flat(parts):  # scan-major, as the single-scan rasteriser orders its samples
+        return torch.cat([p.reshape(n, -1) for p in parts], dim=1)
+
+    rows_a = flat([o[0] for o in occ])
+    cols_a = flat([o[1] for o in occ])
+    v_a = flat([o[4] for o in occ]) & on_map(rows_a, cols_a)
+    rows_a = rows_a + row0[:, None]
+    w_occ = raycast._flat_scatter_add(shape, rows_a, cols_a, flat([o[2] for o in occ]), v_a)
+    s_occ = raycast._flat_scatter_add(shape, rows_a, cols_a, flat([o[3] for o in occ]), v_a)
+    return (w_free + w_occ).reshape(n_planes, h, w), s_occ.reshape(n_planes, h, w)
+
+
+def scan_planes_ordered(origins: Tensor, h: int, w: int, scale: float, poses: Tensor, scans,
+                        cfg, plane_of: Tensor | None = None, n_planes: int | None = None):
+    """:func:`scan_planes` with each plane's samples summed on the host:
+    scan after scan in increasing index among those of the plane, each
+    scan's free counts and occupied evidence in sample order, with
+    ``np.add.at`` (as :func:`scan_insert_ordered`); the polar fill as the
+    wrapper sums it. The yardstick the kernel is held to bit for bit;
+    nothing on a main path calls it."""
+    dev = poses.device
+    origins, plane_of, n_planes = _plane_args(origins, poses, plane_of, n_planes)
+    w_free = None
+    if cfg.free_impl == "polar":
+        w_free = _polar_planes(origins, h, w, scale, poses, scans, cfg, plane_of,
+                               n_planes).cpu().numpy()
+    scan_list = [scans[i] for i in range(poses.shape[0])]
+    w_np, s_np = _ordered_planes(origins, h, w, scale, poses, scan_list, cfg,
+                                 plane_of.cpu().tolist(), n_planes, w_free)
+    return torch.from_numpy(w_np).to(dev), torch.from_numpy(s_np).to(dev)
+
+
+def scan_planes_runs(origins: Tensor, h: int, w: int, scale: float, poses: Tensor, scans, cfg,
+                     plane_of: Tensor | None = None, n_planes: int | None = None) -> Tensor:
+    """How many samples of :func:`scan_planes_ref`'s occupied-evidence list
+    each cell of each plane gets: i64[n_planes, h, w], the valid ones on a
+    plane in their cells, every other one in plane 0's cell 0 (the twin's
+    flat index 0). The cells whose run is 32 or more are where the card's
+    ``index_put_`` may sum in another order than the kernel."""
+    from . import raycast
+
+    origins, plane_of, n_planes = _plane_args(origins, poses, plane_of, n_planes)
+    lin = []
+    for i in range(poses.shape[0]):
+        sc = scans[i]
+        rows, cols, w_s, _ = raycast.scan_sample_cells(origins[i], scale, poses[i], sc, cfg)
+        n_free = sc.ranges.shape[0] * cfg.n_free_samples(scale)
+        rows, cols, w_s = rows[n_free:], cols[n_free:], w_s[n_free:]
+        ok = (_occupied_valid(sc, cfg, w_s) & (rows >= 0) & (rows < h) & (cols >= 0)
+              & (cols < w))
+        lin.append(torch.where(ok, (plane_of[i] * h + rows) * w + cols, 0))
+    flat = torch.cat(lin) if lin else torch.zeros((0,), dtype=torch.int64, device=poses.device)
+    return torch.bincount(flat, minlength=n_planes * h * w).reshape(n_planes, h, w)
 
 
 @functools.lru_cache(maxsize=None)
@@ -1248,24 +1414,12 @@ def _blur_table(b: int, device: torch.device) -> Tensor:
     return torch.stack([bt, ramp, ramp**2])
 
 
-#: the zeroed scratch of each card, four floats a cell (the free count, the
-#: occupied w and s, one unused): grown when a call needs more, left zero
-#: by every call
-_SCRATCH: dict = {}
-
-
-def _scan_insert_scratch(device: torch.device, n: int) -> Tensor:
-    buf = _SCRATCH.get(device)
-    if buf is None or buf.numel() < n:
-        buf = _SCRATCH[device] = torch.zeros((n,), dtype=torch.float32, device=device)
-    return buf
-
-
-def _scan_rows(name: str, t: Tensor, lead: tuple, r: int, dev, dtype=torch.float32):
-    """``t`` [R] or [P, R] as the kernel reads it, and the elements from one
-    map's row to the next (0 where a row is broadcast)."""
+def _scan_rows(who: str, name: str, t: Tensor, lead: tuple, r: int, dev,
+               dtype=torch.float32):
+    """``t`` [R] or [N, R] as the kernel reads it, and the elements from one
+    scan's row to the next (0 where a row is broadcast)."""
     if t.device != dev or t.dtype != dtype or tuple(t.shape) != (*lead, r):
-        raise ValueError(f"scan_insert: {name} is {t.dtype} {tuple(t.shape)} on {t.device}, "
+        raise ValueError(f"{who}: {name} is {t.dtype} {tuple(t.shape)} on {t.device}, "
                          f"expected {dtype} {(*lead, r)} on {dev}")
     if lead and (t.stride(-1) != 1 or t.stride(0) not in (0, r)):
         t = t.contiguous()
@@ -1274,21 +1428,78 @@ def _scan_rows(name: str, t: Tensor, lead: tuple, r: int, dev, dtype=torch.float
     return t, (t.stride(0) if lead else 0)
 
 
+def _scan_args(who: str, scan, lead: tuple, dev, cfg, scale: float):
+    """The scan's rows and the beam configuration's numbers as both K3
+    entry points take them: (ranges, its stride, bearings, its stride,
+    valid, its stride, R, n_free, step, hole/2, max_range, area, B, blur
+    table or None)."""
+    r = scan.ranges.shape[-1]
+    if r < 1:
+        raise ValueError(f"{who}: a scan without beams")
+    ranges, r_stride = _scan_rows(who, "ranges", scan.ranges, lead, r, dev)
+    bearings, b_stride = _scan_rows(who, "bearings", scan.bearings, lead, r, dev)
+    valid, v_stride = _scan_rows(who, "valid", scan.valid, lead, r, dev, torch.bool)
+    blur = cfg.blur_samples if cfg.wall_blur else 0
+    table = _blur_table(blur, dev) if blur else None
+    return (ranges, r_stride, bearings, b_stride, valid, v_stride, r,
+            cfg.n_free_samples(scale), scale * cfg.step_fraction, cfg.hole_width / 2.0,
+            cfg.max_range, int(cfg.occupancy_estimator == "area"), blur, table)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+#: the scan's arguments of both entry points: pose, ranges, bearings, valid
+#: (each with its row stride), r, n_free, step, hole_half, max_range, area,
+#: blur, blur table, free plane
+_SCAN_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                  ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                  ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                  ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+
+
 @functools.cache
 def _scan_insert_fn():
     fn = _build.load().scan_insert_launch
-    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = [
         p, p, i, i, i, i,  # cells, out, p, h, w, c
         i, p, i, i, f, f,  # windowed, origin, sh, sw, scale, scale^2
-        p, p, ll, p, ll, p, ll,  # pose, ranges, bearings, valid (each with its row stride)
-        i, i, f, f, f,  # r, n_free, step, hole_half, max_range
-        i, i, p, p, p, i,  # area, blur, blur table, free plane, scratch, n_keys
+        *_SCAN_ARGTYPES,
         p, i, f, f, f, f, f,  # q, model, quality, base, decay, keep, eps
-        p,  # stream
+        i, p,  # rows, stream
     ]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _scan_planes_fn():
+    fn = _build.load().scan_planes_launch
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    fn.argtypes = [
+        p, p, i, i, i,  # w_out, s_out, n_planes, sh, sw
+        p, ll, f, f, i, p,  # origin, its stride, scale, scale^2, n_scans, plane_of
+        *_SCAN_ARGTYPES,
+        i, p,  # rows, stream
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _band_rows_fn():
+    fn = _build.load().scan_insert_band_rows
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def band_rows(p: int, sh: int, sw: int, c: int) -> int:
+    """The rows of a band that K3 takes for P maps (planes: ``c`` 0) of
+    ``sh x sw`` cells of ``c`` channels (the kernel's own choice)."""
+    return _BAND_ROWS or _band_rows_fn()(p, sh, sw, c)
 
 
 def scan_insert(gm, model, pose: Tensor, scan, cfg, q: Tensor | None = None,
@@ -1306,11 +1517,12 @@ def scan_insert(gm, model, pose: Tensor, scan, cfg, q: Tensor | None = None,
     engine's gate times the scan's quality); None is 1.
 
     CPU tensors take the plain twin :func:`scan_insert_ref`. CUDA tensors
-    launch ``csrc/scan_insert.cu`` on the current stream (the rasterisation
-    with the occupied evidence summed in sample order, then the fold: two
-    launches; with ``free_impl='polar'`` after one ``polar_free_plane``
-    launch a map) and add one to the ``scan_insert`` count of
-    :func:`launch_counts`. Nothing is read on the host.
+    launch ``csrc/scan_insert.cu`` on the current stream (one launch: the
+    rasterisation with the occupied evidence summed in sample order and the
+    fold, a block a band of a window's rows; with ``free_impl='polar'``
+    after one ``polar_free_plane`` launch a map) and add one to the
+    ``scan_insert`` count of :func:`launch_counts`. Nothing is read on the
+    host, and any number of beams is taken.
     """
     cells_in = gm.cells
     if cells_in.device.type == "cpu":
@@ -1336,27 +1548,17 @@ def scan_insert(gm, model, pose: Tensor, scan, cfg, q: Tensor | None = None,
     cells_in, pose, map_origin = (t if t.is_contiguous() else t.contiguous()
                                   for t in (cells_in, pose, gm.origin))
     _check("cells", cells_in, tuple(cells_in.shape), dev)
+    if cells_in.data_ptr() % 16:  # the band's cells move in 16-byte runs
+        cells_in = cells_in.clone()
     _check("pose", pose, (*lead, 3), dev)
     _check("origin", map_origin, (*lead, 2), dev)
-    r = scan.ranges.shape[-1]
-    ranges, r_stride = _scan_rows("ranges", scan.ranges, lead, r, dev)
-    bearings, b_stride = _scan_rows("bearings", scan.bearings, lead, r, dev)
-    valid, v_stride = _scan_rows("valid", scan.valid, lead, r, dev, torch.bool)
-    if r < 1:
-        raise ValueError("scan_insert: a scan without beams")
+    args = _scan_args("scan_insert", scan, lead, dev, cfg, gm.scale)
     # the kernel finds each window's corner itself (grid.window_corner's
     # arithmetic); the polar fill needs the windows' origins here
     sh, sw = (min(window, h, w),) * 2 if window and not single else (h, w)
-    blur = cfg.blur_samples if cfg.wall_blur else 0
-    n = r * ((9 if cfg.occupancy_estimator == "area" else 1) + blur)
-    n_keys = 1 << max(n - 1, 0).bit_length()
-    shared = 8 * n_keys + 16 * r + (36 * r if cfg.occupancy_estimator == "area" else 0)
-    if shared > _SCAN_INSERT_MAX_SHARED_BYTES:
-        raise ValueError(f"scan_insert: {r} beams give {n} occupied samples, whose sort needs "
-                         f"{shared} B of shared memory a block, more than "
-                         f"{_SCAN_INSERT_MAX_SHARED_BYTES} B")
     free_plane = None
     if cfg.free_impl == "polar":
+        ranges, bearings, valid = args[0], args[2], args[4]
         origin = map_origin if single else gridlib.window_corner(
             map_origin, pose[:, :2], gm.scale, sh, sw, h, w)[2]
         planes = [polar_free_plane(
@@ -1365,30 +1567,80 @@ def scan_insert(gm, model, pose: Tensor, scan, cfg, q: Tensor | None = None,
             origin[i] if lead else origin, sh, sw, gm.scale, cfg.hole_width / 2.0, cfg.max_range)
             for i in range(n_p)]
         free_plane = planes[0] if single else torch.stack(planes)
-    table = _blur_table(blur, dev) if blur else None
     if q is not None and not isinstance(q, Tensor):
         q = torch.full((), float(q), dtype=torch.float32, device=dev)
     if q is not None:
         _check("q", q, (), dev)
-    scratch = _scan_insert_scratch(dev, 4 * n_p * sh * sw)
     out = torch.empty_like(cells_in)
     quality = getattr(model, "quality", 0.0)
     decay = getattr(model, "conflict_decay", 0.0)
     fn = _scan_insert_fn()
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     _launch("scan_insert", dev, lambda stream: fn(
         cells_in.data_ptr(), out.data_ptr(), n_p, h, w, c, int(not single),
         map_origin.data_ptr(), sh, sw, gm.scale, gm.scale * gm.scale, pose.data_ptr(),
-        ranges.data_ptr(), r_stride, bearings.data_ptr(), b_stride, valid.data_ptr(), v_stride,
-        r, cfg.n_free_samples(gm.scale), gm.scale * cfg.step_fraction, cfg.hole_width / 2.0,
-        cfg.max_range, int(cfg.occupancy_estimator == "area"), blur, ptr(table),
-        ptr(free_plane), scratch.data_ptr(), n_keys, ptr(q), code, quality, 1.0 - quality,
-        decay, 1.0 - decay, cells._EPS, stream))
+        *(_ptr(a) if isinstance(a, Tensor) or a is None else a for a in args),
+        _ptr(free_plane), _ptr(q), code, quality, 1.0 - quality, decay, 1.0 - decay, cells._EPS,
+        _BAND_ROWS, stream))
     _LAUNCHES["scan_insert"] += 1
     return out
+
+
+def scan_planes(origins: Tensor, h: int, w: int, scale: float, poses: Tensor, scans, cfg,
+                plane_of: Tensor | None = None, n_planes: int | None = None):
+    """K3 without the fold: rasterise N scans (``scans`` [N, R], rows may
+    be broadcast) from ``poses`` f32[N, 3] into ``h x w`` planes at
+    ``scale``: ``(w_obs, s_obs)`` f32[P, H, W] each, ``w_obs`` the free
+    counts (or polar fill) plus the occupied weight, ``s_obs`` the occupied
+    sum, what ``grid.apply_observations`` folds.
+
+    ``origins`` f32[N, 2] is the world corner of the plane each scan goes
+    into (f32[2]: one for all). ``plane_of`` i64[N] names the plane, of
+    ``n_planes``, that a scan's evidence is added to (read on the device,
+    in any order); by default every scan has its own (P = N). A plane's
+    occupied samples are summed in scan-major sample order (scan i before
+    scan i + 1, each scan's in ``raycast.scan_observation_planes``' order),
+    the free counts are integers (exact in any order).
+
+    CPU tensors take the plain twin :func:`scan_planes_ref`. CUDA tensors
+    launch ``csrc/scan_insert.cu`` once on the current stream (with
+    ``free_impl='polar'`` after one ``polar_free_plane`` launch a scan and
+    an ``index_add_``) and add one to the ``scan_planes`` count. Nothing is
+    read on the host, and a plane takes any number of samples.
+    """
+    dev = poses.device
+    if dev.type == "cpu":
+        return scan_planes_ref(origins, h, w, scale, poses, scans, cfg, plane_of, n_planes)
+    if dev.type != "cuda":
+        raise ValueError(f"scan_planes: unsupported device {dev}")
+    n = poses.shape[0]
+    shared = plane_of is not None
+    origins, plane_of, n_planes = _plane_args(origins, poses, plane_of, n_planes)
+    poses = poses if poses.is_contiguous() else poses.contiguous()
+    _check("poses", poses, (n, 3), dev)
+    if origins.device != dev or origins.dtype != torch.float32 or tuple(origins.shape) != (n, 2):
+        raise ValueError(f"scan_planes: origins {tuple(origins.shape)} {origins.dtype} on "
+                         f"{origins.device}, expected f32[2] or f32[{n}, 2] on {dev}")
+    if origins.stride(-1) != 1 or origins.stride(0) not in (0, 2):
+        origins = origins.contiguous()
+    if shared:
+        plane_of = plane_of if plane_of.is_contiguous() else plane_of.contiguous()
+        _check("plane_of", plane_of, (n,), dev, torch.int64)
+    w_out = torch.empty((n_planes, h, w), dtype=torch.float32, device=dev)
+    s_out = torch.empty_like(w_out)
+    if n_planes == 0:
+        return w_out, s_out
+    args = _scan_args("scan_planes", scans, (n,), dev, cfg, scale)
+    free_plane = None
+    if cfg.free_impl == "polar":
+        free_plane = _polar_planes(origins, h, w, scale, poses, scans, cfg, plane_of, n_planes)
+    fn = _scan_planes_fn()
+    _launch("scan_planes", dev, lambda stream: fn(
+        w_out.data_ptr(), s_out.data_ptr(), n_planes, h, w, origins.data_ptr(),
+        origins.stride(0), scale, scale * scale, n, plane_of.data_ptr() if shared else None,
+        poses.data_ptr(), *(_ptr(a) if isinstance(a, Tensor) or a is None else a for a in args),
+        _ptr(free_plane), _BAND_ROWS, stream))
+    _LAUNCHES["scan_planes"] += 1
+    return w_out, s_out
 
 
 # --- M3RSM: the pyramid (K4a) and the whole match (K4b) ----------------------

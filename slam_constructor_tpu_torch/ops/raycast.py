@@ -13,9 +13,10 @@ on the CPU its twin: ``scan_observation_planes`` (or its batched form),
 which counts the free trace with ``scatter_add_`` and adds the occupied
 evidence on flat indices with ``index_put_(accumulate=True)``, and
 ``grid.apply_observations``. Samples that fall off the map are dropped.
-``scan_observation_planes_batched`` rasterises N scans at N poses in the
-same few calls, into one plane each or summed into shared planes: the loop
-closer's submaps and the regenerated map (plain PyTorch on the card too).
+``scan_observation_planes_batched`` rasterises N scans at N poses in one
+call of ``kernels.scan_planes`` (K3 without the fold on the card), into
+one plane each or summed into shared planes: the loop closer's submaps,
+joint refine and the regenerated map.
 ``scan_sample_cells`` gives one scan's samples as flat (row, col, weight,
 occupancy) lists, for the tiled map's insert.
 """
@@ -280,82 +281,15 @@ def scan_observation_planes_batched(
     ``origins`` f32[N, 2] is the world corner of the map each scan goes
     into (f32[2]: one for all). ``plane_of`` i64[N] names the plane, of
     ``n_planes``, that a scan's evidence is added to; by default every scan
-    has its own (P = N). Scans that share a plane are summed by the
-    scatter itself: the free trace's counts are integers, exact in any
-    order, and the occupied evidence is summed in a fixed order (see
-    :func:`_flat_scatter_add`), so the planes are the same bits on every
-    run. A scan's cells are those :func:`scan_observation_planes` gives it.
+    has its own (P = N). Scans that share a plane are summed in scan order:
+    the free trace's counts are integers, exact in any order, and each
+    cell's occupied evidence is summed in a fixed order, so the planes are
+    the same bits on every run. A scan's cells are those
+    :func:`scan_observation_planes` gives it. One call of
+    ``kernels.scan_planes``: K3 without the fold on the card, its twin
+    ``kernels.scan_planes_ref`` on the CPU.
     """
-    dev = poses.device
-    n = poses.shape[0]
-    if plane_of is None:
-        plane_of = torch.arange(n, device=dev)
-        n_planes = n
-    if origins.dim() == 1:
-        origins = origins[None, :].expand(n, 2)
-    angles = poses[:, 2:3] + scans.bearings  # [N, R]
-    dirs = torch.stack([torch.cos(angles), torch.sin(angles)], dim=-1)  # [N, R, 2]
-    start = poses[:, None, :2]  # [N, 1, 2]
-    # the planes are stacked along the rows: plane p holds rows p*h .. p*h + h - 1
-    shape = (n_planes * h, w)
-    row0 = plane_of * h  # [N]
-
-    def on_map(rows, cols):
-        return (rows >= 0) & (rows < h) & (cols >= 0) & (cols < w)
-
-    if cfg.free_impl == "polar":
-        # one launch of the polar kernel a scan
-        planes = torch.stack([
-            kernels.polar_free_plane(
-                scans.ranges[i].contiguous(), scans.valid[i].contiguous(),
-                scans.bearings[i].contiguous(), poses[i].contiguous(), origins[i].contiguous(),
-                h, w, scale, cfg.hole_width / 2.0, cfg.max_range,
-            ) for i in range(n)
-        ]) if n else torch.zeros((0, h, w), dtype=torch.float32, device=dev)
-        w_free = torch.zeros((n_planes, h, w), dtype=torch.float32, device=dev)
-        w_free.index_add_(0, plane_of, planes)
-        w_free = w_free.reshape(shape)
-    else:
-        n_s = cfg.n_free_samples(scale)
-        step = scale * cfg.step_fraction
-        t = (torch.arange(n_s, dtype=torch.float32, device=dev) + 0.5) * step  # [S]
-        pts = start[:, :, None, :] + t[None, None, :, None] * dirs[:, :, None, :]  # [N, R, S, 2]
-        rows, cols = _cells_of(pts, origins[:, None, None, :], scale)  # [N, R, S]
-        free_limit = scans.ranges - cfg.hole_width / 2.0
-        valid = scans.valid[..., None] & (t < free_limit[..., None])
-        same = (rows[..., 1:] == rows[..., :-1]) & (cols[..., 1:] == cols[..., :-1])
-        first = torch.ones((*rows.shape[:2], 1), dtype=torch.bool, device=dev)
-        valid = valid & torch.cat([first, ~same], dim=-1) & on_map(rows, cols)
-        w_free = _flat_count(shape, rows + row0[:, None, None], cols, valid)
-
-    ep_valid = scans.valid & (scans.ranges <= cfg.max_range)
-    endpoints = start + scans.ranges[..., None] * dirs  # [N, R, 2]
-    o3 = origins[:, None, :]
-    if cfg.occupancy_estimator == "area":
-        r9, c9, wgt = _endpoint_area_obs(o3, scale, endpoints, ep_valid, cfg.hole_width)
-        occ = [(r9, c9, wgt, wgt, wgt > 0)]
-    else:
-        er, ec = _cells_of(endpoints, o3, scale)
-        ones = torch.ones(er.shape, device=dev)
-        occ = [(er, ec, ones, ones, ep_valid)]
-    if cfg.wall_blur:
-        bt = linspace(-1.0, 1.0, cfg.blur_samples, dev)  # [B] in hole units
-        tb = scans.ranges[..., None] + cfg.hole_width / 2.0 * bt  # [N, R, B]
-        pb = start[:, :, None, :] + tb[..., None] * dirs[:, :, None, :]
-        br, bc = _cells_of(pb, origins[:, None, None, :], scale)
-        ramp = (1.0 - torch.abs(bt)).expand(tb.shape)
-        occ.append((br, bc, ramp, ramp**2, ep_valid[..., None] & (tb > 0)))
-
-    def flat(parts):  # scan-major, as the single-scan rasteriser orders its samples
-        return torch.cat([p.reshape(n, -1) for p in parts], dim=1)
-
-    rows_a = flat([o[0] for o in occ])
-    cols_a = flat([o[1] for o in occ])
-    v_a = flat([o[4] for o in occ]) & on_map(rows_a, cols_a)
-    rows_a = rows_a + row0[:, None]
-    w_occ = _flat_scatter_add(shape, rows_a, cols_a, flat([o[2] for o in occ]), v_a)
-    s_occ = _flat_scatter_add(shape, rows_a, cols_a, flat([o[3] for o in occ]), v_a)
-    return (w_free + w_occ).reshape(n_planes, h, w), s_occ.reshape(n_planes, h, w)
+    return kernels.scan_planes(origins, h, w, scale, poses, scans, cfg, plane_of, n_planes)
 
 
 def insert_scan(gm, model, pose, scan: scanlib.LaserScan, cfg: BeamConfig, q=None):
@@ -379,8 +313,8 @@ def insert_scan_windows(gm, model, poses: Tensor, scans: scanlib.LaserScan, cfg:
     origin ``origin + [col, row] * scale``, not the full plane's); the
     offsets stay on the device. On the card K3 reads and writes each window
     in place; the CPU twin cuts the P windows out in one gather, rasterises
-    them in one call of :func:`scan_observation_planes_batched`, folds and
-    writes them back in one scatter. Evidence that falls off a window is
+    them in one call of ``kernels.scan_planes_ref``, folds and writes them
+    back in one scatter. Evidence that falls off a window is
     dropped (the reference wraps it into the window's last cell, trap g).
     Exact when the window covers the scan's usable reach."""
     return dataclasses.replace(gm, cells=kernels.scan_insert(gm, model, poses, scans, cfg,
