@@ -156,7 +156,8 @@ Phases, one line or more each, in order; any failure exits non-zero:
    on every ``configs/*.properties`` at the config's own widths on the card:
    128 scans of the cecum rectangle (64 for gmapping and tum_2d), 360 beams;
    its scans/s, ATE and RPE; the launches the design gives (tiny, viny and
-   mit_stata ``mc_match`` 1 a scan; tiny_refined also ``gradient_refine``
+   mit_stata ``mc_match`` 1 a scan, mit_stata also ``pool_touched`` and
+   ``pool_insert`` 1 a scan and never the pool's twin; tiny_refined also ``gradient_refine``
    1 a scan, its gradient refine; mit_csail ``hill_climb`` 1 a scan, its
    hill climb; viny_m3rsm ``m3rsm_search``
    1 and ``m3rsm_pyramid`` 1 a scan + 1; gmapping ``mc_match_batched`` 1;
@@ -164,7 +165,8 @@ Phases, one line or more each, in order; any failure exits non-zero:
    same engine driven directly with the same config and seed, under
    ``torch.cuda.set_sync_debug_mode("error")``, equal to the CLI's
    trajectory bit for bit (for mit_stata: two runs of the tiled map, no
-   host sync); for tiny_refined, mit_csail and mit_stata the ATE within
+   host sync, and a run with the pool insert's twin handed in, held as in
+   phase 36); for tiny_refined, mit_csail and mit_stata the ATE within
    0.02 m of the JAX reference's worst of five keys on the same sequence
    and 8 scans card against CPU (1e-4); mit_stata's pool not exhausted
    (its allocated fraction printed); then tiny and gmapping on the two
@@ -263,13 +265,47 @@ Phases, one line or more each, in order; any failure exits non-zero:
    the twin but in cells with runs of 32 or more (within n 2^-24
    relative); then timed at a render, a regeneration group and the joint
    refine round beside the twin and the bound.
+36. the RBPF on the copy-on-write block pool (``ops/cow.py``) at bench.py's
+   ``gmapping`` width (``COW_FIELDS``: 160^2 windows as 5 x 5 tiles of 32,
+   1,024 blocks), 512 scans with the sync check on: ``mc_match_batched``,
+   ``pool_touched`` and ``pool_insert`` 512 launches each and nothing else,
+   the pool's twin never called, whether the overflow latch was set, the
+   distinct blocks at the end, the pool's bytes beside the dense path's 30
+   maps, the winner's ATE within 0.02 m of the JAX reference's worst of five
+   keys, two runs equal bit for bit; once more with the pool insert's plain
+   twin handed in (the kernel run on a copy of every call): the trajectory
+   bit for bit, or parting only after an insert whose live blocks differed
+   in cells of 32 samples or more (trap c), counted;
+37. the same over the reference's two-lap quality sequence (the winner's
+   ATE within its worst key + 0.02 m);
+38. card vs CPU: the first 16 copy-on-write scans with the same draws
+   (poses and weights within 1e-4, ancestors equal, every particle's map
+   as the dense RBPF's is held); then a ``handle_scan`` run from 64 blocks
+   whose latch is read every 32 scans: the pool grows, card and CPU equal;
+39. ``Engine.auto_grow``: tiny and viny_m3rsm (its search on the whole
+   map: a grown map's sides are no multiples of 2^levels, which the
+   windowed search refuses, in the reference too) from a 96^2 map through
+   ``handle_scan``, 64 scans: the map grows, the pyramid is rebuilt on
+   growth (one ``m3rsm_pyramid`` launch more a growth), shapes, origins and
+   poses (1e-4) equal to the CPU run's;
+40. K3 over a block pool (``kernels.pool_insert``, the same source, a block
+   a slot) and its marking mode (``kernels.pool_touched``) on the calls kept
+   from the mit_stata and copy-on-write runs and on edge cases (beams along
+   tile boundaries, a particle at the table's corner, a scan without a
+   valid beam, shared untouched blocks, a pool exhausted by the tiled map):
+   equal to ``pool_insert_ordered`` bit for bit on every live slot, two
+   launches equal, dead slots untouched, the twin equal but in cells of 32
+   samples or more; the marks equal to their twin; then both timed at each
+   path's shape (graph replay, a call, chained) beside the twin and the
+   bound (bytes: the live blocks read and written once, and the scans).
 
 Every bound counts, of the plane or window, the distinct cells that the
 taps of every pose the kernel scores read (the poses taken from its
 yardstick's run on the same inputs), not the whole plane.
 
-Every path on a dense map inserts through ``scan_insert`` once a scan (the
-tiled mit_stata scatters its samples itself); the full paths' submaps and
+Every path on a dense map inserts through ``scan_insert`` once a scan, the
+tiled mit_stata and the copy-on-write RBPF through ``pool_touched`` and
+``pool_insert``; the full paths' submaps and
 regenerated maps rasterise through ``scan_planes``. The launch counts are set to
 0 just before each of these runs and read just after it. The line before the last is a JSON object of the
 kernels; the last line is ``{"ok": true, "device": {...}}``. It needs no
@@ -330,6 +366,23 @@ GMAPPING_ATE_MARGIN = 0.02
 #: scripts/torch_port/reference_ate.py --preset gmapping_baseline --keys
 #: 5`); odometry reads 0.45320 m.
 GMAPPING_BASELINE_REFERENCE_ATE_BY_KEY = (0.43269, 0.62582, 0.13305, 0.36565, 0.13569)
+#: the copy-on-write RBPF (``cow_config``: bench.py's gmapping preset with
+#: COW_FIELDS): the JAX reference's winner ATE on a CPU over the bench
+#: sequence and over the two-lap quality sequence, once for each key
+#: PRNGKey(0..4) (`JAX_PLATFORMS=cpu python scripts/torch_port/
+#: reference_ate.py --preset gmapping_cow[_2lap] --keys 5`; no key set the
+#: overflow latch, 162-181 and 260-298 distinct blocks at the end)
+GMAPPING_COW_REFERENCE_ATE_BY_KEY = (0.59528, 0.53437, 0.52339, 0.63664, 0.54265)
+GMAPPING_COW_2LAP_REFERENCE_ATE_BY_KEY = (0.13891, 0.23756, 0.19128, 0.10303, 0.23584)
+#: the copy-on-write storage: 160^2 windows (5 tiles of 32, the dense
+#: path's), the reference's default pool of 1,024 blocks
+COW_FIELDS = dict(map_storage="cow", tile_block=32, window_tiles=5, tile_capacity=1024)
+#: every how many pool inserts a path's run with the twin handed in keeps
+POOL_EVERY = 64
+#: the copy-on-write handle_scan run that grows its pool from 64 blocks
+COW_GROW_SCANS = 40
+#: the auto-grow runs: scans through handle_scan from a GROW_MAP^2 map
+GROW_SCANS, GROW_MAP = 64, 96
 #: the reducer variants the kernels are held and timed with: (kind, radius,
 #: extent); the obstacle reducer is the gmapping preset's
 REDUCER_VARIANTS = (("obstacle", 0, 1.0), ("max", 1, 1.0), ("max", 2, 1.0), ("mean", 1, 1.0),
@@ -2319,7 +2372,7 @@ def cli_expected(name, n):
     probes a scan)."""
     return expect(**{
         "tiny": dict(mc_match=n, scan_insert=n), "viny": dict(mc_match=n, scan_insert=n),
-        "mit_stata": dict(mc_match=n),
+        "mit_stata": dict(mc_match=n, pool_touched=n, pool_insert=n),
         "tiny_refined": dict(mc_match=n, gradient_refine=n, scan_insert=n),
         "mit_csail": dict(mc_match=n, hill_climb=n, scan_insert=n),
         "viny_m3rsm": dict(m3rsm_search=n, m3rsm_pyramid=n + 1, scan_insert=n),
@@ -2351,9 +2404,12 @@ def phase_cli(dev):
         grad_rec, grad_k = recorder(kernels.gradient_refine, every=16)
         climb_rec, climb_k = recorder(kernels.hill_climb, every=16)
         reset_launches()
-        with handed_in(grad_rec, "gradient_refine"), handed_in(climb_rec, "hill_climb"):
+        with handed_in(grad_rec, "gradient_refine"), handed_in(climb_rec, "hill_climb"), \
+                pool_twin_counted() as twin_calls:
             res = run.execute(args)
         launches[name] = read_launches()
+        # the tiled map's samples go through the pool kernel, never the twin's scatter
+        check(not twin_calls, f"cli {name}: the pool insert's plain twin ran on the card's path")
         refine_kept["gradient_refine"] = refine_kept.get("gradient_refine", []) + grad_k
         refine_kept["hill_climb"] = refine_kept.get("hill_climb", []) + climb_k
         n = res.trajectory.shape[0]
@@ -2384,7 +2440,11 @@ def phase_cli(dev):
         check(torch.equal(traj, res.trajectory), f"cli {name}: the CLI and the engine differ")
         rates[name] = {"cli": sm["scans_per_sec"], "direct": n / secs}
         trajs[name] = traj
-        if name != "mit_stata":  # the tiled map scatters its samples (ops/blockmap.py)
+        if name == "mit_stata":  # the tiled map: K3 over its block pool
+            def again(p=props, s=scans, o=odom, g=gt):
+                return run_main_path(cfglib.engine_config_from(p), s, o, g, 0)[0]
+            inserts[name] = held_to_twin_pool(f"cli {name}", again, traj, POOL_EVERY)
+        else:
             if "pf.particles" in props:
                 def again(p=props, s=scans, o=odom, g=gt):
                     return run_gmapping_path(cfglib.gmapping_config_from(p), s, o, g, 0)[1]
@@ -3571,6 +3631,486 @@ def phase_relocalize(dev):
         check(d_ref <= 1e-3 or float(d_fft.max()) > 0, f"relocalize {pose}: card and CPU part")
 
 
+# --- K3 over a block pool: the tiled map, the copy-on-write RBPF, growth -------
+
+
+@contextlib.contextmanager
+def pool_twin_counted():
+    """The calls of the pool insert's plain twin while the block runs (a
+    list with one entry a call): none on a path through the card."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    calls, twin = [], kernels.pool_insert_ref
+
+    def counting(*args, **kwargs):
+        calls.append(1)
+        return twin(*args, **kwargs)
+
+    with handed_in(counting, "pool_insert_ref"):
+        yield calls
+
+
+def cow_config(**kwargs):
+    """bench.py's ``gmapping`` preset on the copy-on-write maps."""
+    return dataclasses.replace(gmapping_config(), **COW_FIELDS, **kwargs)
+
+
+def pool_call(args, kwargs):
+    """A ``pool_insert`` call's arguments, the tensors cloned: (args,
+    live), args (pool, tables, origin, scale, model, poses, scans, cfg,
+    touched, q), live the ``refcnt`` or ``n_live`` keyword."""
+    from slam_constructor_tpu_torch.ops.scan import LaserScan
+
+    names = ("pool", "tables", "origin", "scale", "model", "poses", "scans", "cfg", "touched", "q")
+    a = dict(zip(names, args), **{k: v for k, v in kwargs.items() if k in names})
+    live = {k: kwargs[k].clone() for k in ("refcnt", "n_live") if kwargs.get(k) is not None}
+    sc = a["scans"]
+    cloned = [a[k].clone() if isinstance(a.get(k), torch.Tensor) else a.get(k) for k in names]
+    cloned[6] = LaserScan(sc.ranges.clone(), sc.bearings.clone(), sc.valid.clone())
+    return tuple(cloned), live
+
+
+def live_slots(pool, live):
+    """bool[N]: the slots a pool insert folds."""
+    if "refcnt" in live:
+        return live["refcnt"] > 0
+    return torch.arange(pool.shape[0], device=pool.device) < live["n_live"]
+
+
+def held_to_twin_pool(name, run, traj, every):
+    """A run with the pool insert's plain twin handed in
+    (``kernels.pool_insert_ref``, the card's ``index_put_``), in which the
+    kernel also runs on a copy of every call's pool, against the path's
+    trajectory ``traj`` through the kernel: bit for bit, or, where they
+    part, an insert at or before that scan whose live blocks differed, and
+    only in cells of 32 samples or more (trap c). Returns the kept calls
+    (every ``every``-th) and what was found."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    kernel, kept, n, first, unexplained = kernels.pool_insert, [], [0], [None], [0]
+
+    def stand_in(pool, *args, **kwargs):
+        call, live = pool_call((pool, *args), kwargs)
+        got = pool.clone()
+        kernel(got, *args, **kwargs)
+        kernels.pool_insert_ref(pool, *args, **kwargs)
+        alive = live_slots(pool, live)
+        if not torch.equal(bits(got[alive]), bits(pool[alive])):
+            if first[0] is None:
+                first[0] = n[0]
+            runs = kernels.pool_insert_runs(*call[:4], *call[5:10], live.get("refcnt"))
+            differ = (got != pool).any(-1) & alive[:, None, None]
+            unexplained[0] += int((differ & (runs < 32)).sum())
+        if n[0] % every == 0:
+            kept.append((call, live))
+        n[0] += 1
+        return pool
+
+    with handed_in(stand_in, "pool_insert"):
+        twin_traj = run()
+    apart = (bits(traj).reshape(traj.shape) != bits(twin_traj).reshape(traj.shape)).any(-1)
+    part = int(apart.nonzero()[0]) if bool(apart.any()) else None
+    print(f"{name} with the pool insert's plain twin handed in: {n[0]} inserts, the first whose "
+          f"live blocks differ from the kernel's {first[0]}, cells differing outside runs of 32 "
+          f"samples or more: {unexplained[0]}; the trajectory "
+          f"{'equal to the kernel path bit for bit' if part is None else f'parts at scan {part}'}",
+          flush=True)
+    check(unexplained[0] == 0, f"{name}: the pool insert parts from its twin outside long runs")
+    check(part is None or (first[0] is not None and first[0] <= part),
+          f"{name}: the twin's trajectory parts at scan {part} with no insert before it differing")
+    return kept, {"inserts": n[0], "first_insert_differing_from_twin": first[0],
+                  "trajectory_parts_at_scan": part}
+
+
+def cow_maps_dense(e):
+    """f32[P, H, W, C]: every particle's map of a copy-on-write engine,
+    densified (a table's whole extent)."""
+    from slam_constructor_tpu_torch.ops import cow
+
+    st = e.state.gm
+    th, tw = st.tables.shape[1:]
+    centers = torch.zeros((st.n_particles, 2), device=st.pool.device)
+    return cow.extract_window(st, e.cfg.cell_model, None, centers, th, tw).cells
+
+
+def cow_bits(e):
+    """The copy-on-write RBPF's genealogy, weights, tables, refcounts and
+    live blocks, for comparing two runs."""
+    st = e.state.gm
+    return [*e.genealogy, e.state.log_weights, e.state.poses, st.tables, st.refcnt,
+            st.pool[st.refcnt > 0]]
+
+
+def compare_particle_maps(name, a, b):
+    """Card against CPU: each particle's dense map; a cell that counted one
+    DDA sample more or less (a sample on a cell's border) is counted, the
+    rest within 1e-5."""
+    moved = a[..., -1] != b[..., -1]
+    belief = float((a[..., :-1] - b[..., :-1]).abs().amax(-1)[~moved].max())
+    print(f"{name}: {int(moved.sum())} of {moved.numel()} cells counted one sample more or less "
+          f"(at most {GM_MOVED_CELLS}), max|belief diff| elsewhere {belief:.3e} (tol 1e-5)",
+          flush=True)
+    check(int(moved.sum()) <= GM_MOVED_CELLS and belief <= 1e-5, f"{name}: maps disagree")
+
+
+def rbpf_draws(cfg, n, seed=5):
+    from slam_constructor_tpu_torch.models import gmapping
+
+    mc, p = cfg.matcher_cfg, cfg.n_particles
+    rng = np.random.default_rng(seed)
+
+    def normals(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    return gmapping.Draws(proposal=normals(n, p, 3), match=normals(n, p, mc.rounds, mc.batch, 3),
+                          u0=torch.from_numpy(rng.uniform(0, 1 / p, n).astype(np.float32)))
+
+
+def phase_gmapping_cow_path(scans, odom, gt, odo_ate, smi):
+    """The RBPF on the copy-on-write maps at bench.py's gmapping width (512
+    scans, sync check on): launches, overflow, distinct blocks, the pool's
+    bytes, the winner's ATE against the reference's keys, two runs equal;
+    then once more with the pool insert's twin handed in. Returns the
+    launches, the kept insert calls and the twin's findings."""
+    from slam_constructor_tpu_torch.ops import cow
+    from slam_constructor_tpu_torch.utils import evaluate
+
+    cfg = cow_config()
+    run_gmapping_path(cfg, scans[:8], odom[:8], gt, 0)  # warm-up
+    with pool_twin_counted() as twin_calls:
+        reset_launches()
+        e, traj, neffs, secs = run_gmapping_path(cfg, scans, odom, gt, "error")
+        launches = read_launches()
+    want = expect(mc_match_batched=N_SCANS, pool_touched=N_SCANS, pool_insert=N_SCANS)
+    st = e.state.gm
+    distinct = int(cow.distinct_blocks(st))
+    pool_mb = st.pool.numel() * 4 / 1e6
+    dense_mb = cfg.n_particles * MAP * MAP * st.pool.shape[-1] * 4 / 1e6
+    print(f"gmapping cow path ({cfg.n_particles} particles, blocks of {cfg.tile_block}, "
+          f"{cfg.window_tiles} x {cfg.window_tiles} tiles matched, {st.capacity} blocks): "
+          f"{N_SCANS} scans in {secs:.3f} s = {N_SCANS / secs:.1f} scans/s on {smi}, sync check "
+          f"on, no host sync; launches {launches} (expected {want}); the twin called "
+          f"{len(twin_calls)} times; overflow latched: {bool(st.overflow)}; {distinct} distinct "
+          f"blocks at the end; the pool {pool_mb:.1f} MB against the dense path's 30 maps "
+          f"{dense_mb:.1f} MB", flush=True)
+    check(launches == want, f"gmapping cow: launches {launches}, expected {want}")
+    check(not twin_calls, "gmapping cow: the pool insert's twin ran on the card's path")
+    winner = e.winner_trajectory()
+    check(bool(torch.isfinite(winner).all()) and bool(torch.isfinite(e.occupancy).all())
+          and e.occupancy.shape == (MAP, MAP), "gmapping cow: non-finite poses or map")
+    ate = float(evaluate.ate(winner, gt, align=False))
+    limit = max(GMAPPING_COW_REFERENCE_ATE_BY_KEY) + GMAPPING_ATE_MARGIN
+    print(f"gmapping cow path: winner ATE {ate:.4f} m (limit: the reference's worst key + margin "
+          f"{limit:.4f}; its five keys {min(GMAPPING_COW_REFERENCE_ATE_BY_KEY):.4f}-"
+          f"{max(GMAPPING_COW_REFERENCE_ATE_BY_KEY):.4f}), online "
+          f"{float(evaluate.ate(traj, gt, align=False)):.4f} m, odometry {odo_ate:.4f} m; min "
+          f"Neff {float(neffs.min()):.2f}", flush=True)
+    check(ate <= limit, f"gmapping cow: winner ATE {ate} above the reference's worst key + margin")
+    e2, traj2, _, secs2 = run_gmapping_path(cfg, scans, odom, gt, 0)
+    same = torch.equal(traj2, traj) and all(
+        torch.equal(a, b) for a, b in zip(cow_bits(e), cow_bits(e2)))
+    print(f"gmapping cow repeatability: trajectory, genealogy, weights, tables and live blocks of "
+          f"two runs equal: {same}; second run, sync check off: {N_SCANS / secs2:.1f} scans/s on "
+          f"{smi}",
+          flush=True)
+    check(same, "gmapping cow: two runs differ")
+    kept, found = held_to_twin_pool(
+        "gmapping cow", lambda: run_gmapping_path(cfg, scans, odom, gt, 0)[1], traj, POOL_EVERY)
+    return launches, kept, found, {"scans_per_sec": N_SCANS / secs, "winner_ate_m": ate,
+                                   "overflow": bool(st.overflow), "distinct_blocks": distinct,
+                                   "pool_mb": pool_mb, "dense_maps_mb": dense_mb}
+
+
+def phase_gmapping_cow_quality(dev, smi):
+    """The copy-on-write RBPF over the reference's two-lap quality sequence:
+    the winner's ATE within the reference's worst key + margin."""
+    from slam_constructor_tpu_torch.utils import evaluate
+
+    scans, odom, gt = gmapping_quality_sequence(dev)
+    e, traj, _, secs = run_gmapping_path(cow_config(), scans, odom, gt, 0)
+    ate = float(evaluate.ate(e.winner_trajectory(), gt, align=False))
+    odo = float(evaluate.ate(odometry_trajectory(gt[0], odom), gt, align=False))
+    limit = max(GMAPPING_COW_2LAP_REFERENCE_ATE_BY_KEY) + GMAPPING_ATE_MARGIN
+    print(f"gmapping cow, the reference's quality sequence ({len(gt)} scans, two laps): winner "
+          f"ATE {ate:.4f} m (limit: the reference's worst key + margin {limit:.4f}; odometry "
+          f"{odo:.4f}), {len(gt) / secs:.1f} scans/s on {smi}; overflow "
+          f"{bool(e.state.gm.overflow)}",
+          flush=True)
+    check(ate <= limit, f"gmapping cow 2 laps: winner ATE {ate} above {limit}")
+
+
+def phase_gmapping_cow_card_vs_cpu(dev, scans, odom, gt, smi, n=16):
+    """The first ``n`` scans of the copy-on-write path on the card and on
+    the CPU with the same draws; then a ``handle_scan`` run from 64 blocks
+    that grows the pool, card against CPU."""
+    from slam_constructor_tpu_torch.models import gmapping
+
+    cfg = cow_config()
+    draws = rbpf_draws(cfg, n)
+    runs = []
+    for d in (None, "cpu"):
+        on = torch.device(d) if d else dev
+        e, _, _, _ = run_gmapping_path(cfg, scans[:n].to(on), odom[:n].to(on), gt.to(on), 0,
+                                       draws=draws, device=d)
+        runs.append((e, [t.cpu() for t in cow_bits(e)[:4]], cow_maps_dense(e).cpu()))
+    (_, (pa, aa, la, qa), ma), (_, (pb, ab, lb, qb), mb) = runs
+    diff = float((pa - pb).abs().max())
+    print(f"gmapping cow card vs CPU, {n} scans, the same draws: max|pose diff| {diff:.3e} (tol "
+          f"1e-4), ancestors equal: {torch.equal(aa, ab)}, max|log-weight diff| "
+          f"{float((la - lb).abs().max()):.3e} (tol 1e-4)", flush=True)
+    check(diff <= 1e-4 and torch.equal(aa, ab) and float((la - lb).abs().max()) <= 1e-4,
+          "gmapping cow card vs CPU: trajectories or weights disagree")
+    compare_particle_maps("gmapping cow card vs CPU", ma, mb)
+
+    grow = dataclasses.replace(cfg, tile_capacity=64)
+    draws = rbpf_draws(grow, COW_GROW_SCANS, seed=6)
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        e = gmapping.GMappingEngine(grow, device=d, seed=0)
+        e.state.poses = gt[0].to(d).expand(grow.n_particles, 3).clone()
+        t0 = time.perf_counter()
+        for i in range(COW_GROW_SCANS):
+            e.handle_scan(scans[i], odom[i], draws[i])
+        traj = torch.stack(e.trajectory).cpu()
+        runs.append((e.state.gm.capacity, traj, cow_maps_dense(e).cpu(), time.perf_counter() - t0))
+    (ca, ta, ma, sa), (cb, tb, mb, _) = runs
+    diff = float((ta - tb).abs().max())
+    print(f"gmapping cow handle_scan from 64 blocks, {COW_GROW_SCANS} scans (the latch read every "
+          f"32): the pool grew to {ca} blocks on the card, {cb} on the CPU; max|pose diff| "
+          f"{diff:.3e} (tol 1e-4); {COW_GROW_SCANS / sa:.1f} scans/s on {smi}", flush=True)
+    check(ca > 64 and ca == cb and diff <= 1e-4, "gmapping cow growth: card and CPU disagree")
+    compare_particle_maps("gmapping cow growth card vs CPU", ma, mb)
+
+
+def phase_auto_grow(dev, scans, odom, gt, smi):
+    """tiny and viny_m3rsm from a 96^2 map through ``handle_scan`` with
+    ``auto_grow``: the map grows, the pyramid is rebuilt on growth (one
+    ``m3rsm_pyramid`` launch a scan, its refresh, and one more a growth),
+    and the final shape, origin
+    and poses equal the CPU run's (poses within 1e-4)."""
+    from slam_constructor_tpu_torch.models import engine, tiny, viny
+
+    out = {}
+    m3 = viny.viny_m3rsm_config(map_size=GROW_MAP)
+    # the whole map scored: a grown map's sides are no multiples of 2^levels,
+    # which the windowed search refuses (the reference's too)
+    m3 = dataclasses.replace(m3, matcher_cfg=dataclasses.replace(m3.matcher_cfg, window=0))
+    for name, cfg in (("tiny", tiny.tiny_config(map_size=GROW_MAP)), ("viny_m3rsm", m3)):
+        noise = None
+        if cfg.matcher == "monte_carlo":
+            noise = torch.from_numpy(np.random.default_rng(7).standard_normal(
+                (GROW_SCANS, cfg.matcher_cfg.rounds, cfg.matcher_cfg.batch, 3)).astype(np.float32))
+        runs = []
+        for d in (dev, torch.device("cpu")):
+            e = engine.Engine(cfg, device=d, seed=0)
+            e.auto_grow = True
+            e.state.pose = gt[0].to(d).clone()
+            reset_launches()
+            shapes, t0 = [tuple(e.state.gm.cells.shape)], time.perf_counter()
+            for i in range(GROW_SCANS):
+                e.handle_scan(scans[i], odom[i], noise=None if noise is None else noise[i])
+                if tuple(e.state.gm.cells.shape) != shapes[-1]:
+                    shapes.append(tuple(e.state.gm.cells.shape))
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+            runs.append((torch.stack(e.trajectory).cpu(), shapes, e.state.gm.origin.cpu(),
+                         read_launches(), time.perf_counter() - t0))
+        (ta, sha, oa, la, secs), (tb, shb, ob, _, _) = runs
+        diff = float((ta - tb).abs().max())
+        grown = len(sha) - 1
+        pyr = la["m3rsm_pyramid"]
+        print(f"auto_grow {name} from {GROW_MAP}^2, {GROW_SCANS} scans through handle_scan: "
+              f"shapes {sha} on the card, {shb} on the CPU; origins equal: "
+              f"{torch.equal(oa, ob)}; max|pose diff| {diff:.3e} (tol 1e-4); m3rsm_pyramid "
+              f"launches {pyr}; {GROW_SCANS / secs:.1f} scans/s on {smi} (a bool read a scan)",
+              flush=True)
+        check(grown >= 1 and sha == shb and torch.equal(oa, ob) and diff <= 1e-4,
+              f"auto_grow {name}: the card and the CPU disagree, or the map did not grow")
+        if name == "viny_m3rsm":  # counted from after the engine's own build
+            check(pyr == GROW_SCANS + grown,
+                  f"auto_grow {name}: {pyr} pyramid launches, expected {GROW_SCANS + grown}")
+        out[name] = {"growths": grown, "final_shape": sha[-1]}
+    return out
+
+
+def pool_cases(kept):
+    """(name, args, live) of the kept pool inserts and the edge cases: a
+    beam along a tile boundary, a particle at the table's corner (samples
+    off it), no valid beam, a pool exhausted by the tiled map, shared
+    untouched blocks inside two particles' regions."""
+    from slam_constructor_tpu_torch.ops import blockmap, cow, kernels
+    from slam_constructor_tpu_torch.ops.scan import LaserScan
+
+    cases = [(f"{path} insert {i * POOL_EVERY}", a, live) for path, calls in kept.items()
+             for i, (a, live) in enumerate(calls)]
+    (pool, tables, origin, scale, model, poses, scans, cfg, _, q), live = kept["gmapping cow"][
+        min(4, len(kept["gmapping cow"]) - 1)]
+    st = cow.CowBlockMaps(pool=pool.clone(), tables=tables.clone(), refcnt=live["refcnt"].clone(),
+                          origin=origin, scale=scale, block=pool.shape[1],
+                          overflow=torch.zeros((), dtype=torch.bool, device=pool.device))
+    poses = poses.clone()
+    poses[0, :2] = origin + 3 * st.block * scale  # a tile corner: beams along tile boundaries
+    poses[0, 2] = 0.0
+    poses[1, :2] = origin + 0.4  # the table's corner
+    valid = scans.valid.clone()
+    valid[2] = False
+    scans = LaserScan(scans.ranges, scans.bearings, valid)
+    touched = cow.touched_tiles(st, poses, scans, cfg)
+    st = cow.prepare_write(st, model, touched)
+    shared = int((st.refcnt > 1).sum())
+    cases.append((f"gmapping cow state: a beam along tile boundaries, a particle at the table's "
+                  f"corner, one without a valid beam, {shared} shared untouched blocks",
+                  (st.pool, st.tables, origin, scale, model, poses, scans, cfg, touched, None),
+                  {"refcnt": st.refcnt}))
+    (pool, tables, origin, scale, model, poses, scans, cfg, _, q), live = kept["cli mit_stata"][-1]
+    bm = blockmap.make_block_map(model, *tables.shape[1:], 8, block=pool.shape[1], scale=scale,
+                                 device=pool.device)
+    touched = kernels.pool_touched(tuple(tables.shape[1:]), pool.shape[1], origin, scale, poses,
+                                   scans, cfg, q)
+    bm = blockmap.allocate_tiles(bm, touched[0])
+    cases.append((f"mit_stata scan into a pool of 8 blocks ({int(bm.n_alloc)} asked for)",
+                  (bm.pool, bm.table[None], origin, scale, model, poses, scans, cfg, touched, q),
+                  {"n_live": bm.n_alloc}))
+    return cases
+
+
+def pool_work(args, live):
+    """(bytes, operations, live slots) of one pool insert on these inputs:
+    the live blocks read and written once, the scans' rows, poses, tables,
+    touched marks and owners read once; the operations of the beams, the
+    DDA samples before each beam's free limit, the occupied samples and the
+    folded cells (the K3_* counts)."""
+    pool, tables, _, scale, model, poses, scans, cfg, touched, q = args
+    alive = int(live_slots(pool, live).sum())
+    cells_a_block = pool.shape[1] * pool.shape[2]
+    p, r = poses.shape[0], scans.ranges.shape[-1]
+    rows = 1 if scans.ranges.stride(0) == 0 else p
+    n_bytes = (2 * 4 * alive * cells_a_block * pool.shape[3] + 9 * r * rows + 12 * p
+               + 5 * tables.numel() + 4 * pool.shape[0])
+    ranges, valid = scans.ranges.reshape(-1, r), scans.valid.reshape(-1, r)
+    n_s = cfg.n_free_samples(scale)
+    t = (torch.arange(n_s, dtype=torch.float32, device=ranges.device) + 0.5) * (
+        scale * cfg.step_fraction)
+    traced = int(((t < (ranges - cfg.hole_width / 2.0)[..., None]) & valid[..., None]).sum())
+    traced *= p // ranges.shape[0]
+    ep = int((valid & (ranges <= cfg.max_range)).sum()) * (p // ranges.shape[0])
+    area = cfg.occupancy_estimator == "area"
+    occ = ep * ((9 if area else 1) + (cfg.blur_samples if cfg.wall_blur else 0))
+    n_ops = (K3_BEAM_OPS * p * r + K3_FREE_OPS * traced + K3_OCC_OPS * occ
+             + (K3_AREA_OPS * 9 * ep if area else 0)
+             + K3_FOLD_OPS[type(model).__name__] * alive * cells_a_block)
+    touch_bytes = 9 * r * rows + 12 * p + tables.numel()
+    touch_ops = K3_BEAM_OPS * p * r + K3_FREE_OPS * traced + K3_OCC_OPS * occ
+    return n_bytes, n_ops, alive, touch_bytes, touch_ops
+
+
+def phase_pool_kernels(kept, smi):
+    """The pool insert (``kernels.pool_insert``) on the inserts kept from
+    the mit_stata CLI run and the copy-on-write run, and on edge cases:
+    equal to the ordered host sums bit for bit on every live slot, two
+    launches the same bits, dead slots untouched, the twin within 2e-6
+    but in cells of 32 samples or more; the marks (``pool_touched``) equal
+    to their twin. Then both timed at each path's shape. Returns the two
+    ``kernels`` entries without the launch counts."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    cases = pool_cases(kept)
+    max_err, max_touch_err, differing = 0.0, 0, 0
+    for name, args, live in cases:
+        pool, tables, origin, scale, model, poses, scans, cfg, touched, q = args
+        marks = kernels.pool_touched(tuple(tables.shape[1:]), pool.shape[1], origin, scale,
+                                     poses, scans, cfg, q)
+        marks_twin = kernels.pool_touched_ref(tuple(tables.shape[1:]), pool.shape[1], origin,
+                                              scale, poses, scans, cfg, q)
+        check(torch.equal(marks, marks_twin) and torch.equal(marks, touched),
+              f"pool_touched differs from its twin ({name})")
+        before = kernels.launch_counts()["pool_insert"]
+        got, again, want, twin = (pool.clone() for _ in range(4))
+        kernels.pool_insert(got, *args[1:], **live)
+        kernels.pool_insert(again, *args[1:], **live)
+        kernels.pool_insert_ordered(want, *args[1:], **live)
+        kernels.pool_insert_ref(twin, *args[1:], **live)
+        torch.cuda.synchronize()
+        check(kernels.launch_counts()["pool_insert"] == before + 2,
+              f"pool_insert did not count its launches ({name})")
+        alive = live_slots(pool, live)
+        check(bool(torch.isfinite(got).all()), f"pool_insert: non-finite cells ({name})")
+        check(torch.equal(bits(got[alive]), bits(want[alive])),
+              f"pool_insert differs from the ordered sums ({name}): "
+              f"{int((got != want)[alive].any(-1).sum())} cells")
+        check(torch.equal(bits(got), bits(again)), f"pool_insert: two launches differ ({name})")
+        check(torch.equal(bits(got[~alive]), bits(pool[~alive])),
+              f"pool_insert changed a dead slot ({name})")
+        runs = kernels.pool_insert_runs(*args[:4], *args[5:], live.get("refcnt"))
+        differ = (got != twin).any(-1) & alive[:, None, None]
+        short = int((differ & (runs < 32)).sum())
+        rel = float(((got - twin).abs() / twin.abs().clamp(min=1e-30))[alive].max())
+        err = float((got - twin)[alive].abs().max())
+        print(f"pool_insert [{name}]: {tuple(pool.shape)}, {tables.shape[0]} tables, "
+              f"{int(alive.sum())} live slots, {int(touched.sum())} touched tiles: equal to the "
+              f"ordered sums bit for bit on every live slot, two launches equal, dead slots kept; "
+              f"against the twin {int(differ.sum())} cells differ ({short} outside runs of 32 or "
+              f"more samples), max relative difference {rel:.3e}; marks equal to the twin",
+              flush=True)
+        check(short == 0, f"pool_insert parts from its twin outside long runs ({name})")
+        differing += int(differ.sum())
+        max_err = max(max_err, err)
+
+    by_path, touch_by_path = {}, {}
+    for path, calls in kept.items():
+        args, live = calls[min(4, len(calls) - 1)]
+        pool, tables, origin, scale, model, poses, scans, cfg, touched, q = args
+        work = pool.clone()
+
+        def insert():
+            kernels.pool_insert(work, *args[1:], **live)
+
+        def plain():
+            kernels.pool_insert_ref(work, *args[1:], **live)
+
+        def touch():
+            kernels.pool_touched(tuple(tables.shape[1:]), pool.shape[1], origin, scale, poses,
+                                 scans, cfg, q)
+
+        def touch_plain():
+            kernels.pool_touched_ref(tuple(tables.shape[1:]), pool.shape[1], origin, scale,
+                                     poses, scans, cfg, q)
+
+        device_ms = graph_ms(insert)
+        ms, plain_ms, chained = time_pair(insert, plain, plain_calls=10)
+        t_device_ms = graph_ms(touch)
+        t_ms, t_plain_ms, t_chained = time_pair(touch, touch_plain, plain_calls=10)
+        n_bytes, n_ops, alive, t_bytes, t_ops = pool_work(args, live)
+        b_ms, by = bound_ms(n_bytes, n_ops)
+        tb_ms, tby = bound_ms(t_bytes, t_ops)
+        print(f"pool_insert {path} {tuple(pool.shape)} {tables.shape[0]} tables "
+              f"{type(model).__name__}, {alive} live slots: {1e3 * device_ms:.2f} us device (a "
+              f"CUDA graph of 50 calls), a call {ms:.4f} ms, chained {chained:.4f} ms; plain twin "
+              f"{plain_ms:.4f} ms a call; bound {b_ms:.6f} ms by {by} ({n_bytes} B; {n_ops} "
+              f"operations) on {smi}; no single PyTorch call computes it", flush=True)
+        print(f"pool_touched {path} {tuple(touched.shape)}: {1e3 * t_device_ms:.2f} us device, a "
+              f"call {t_ms:.4f} ms, chained {t_chained:.4f} ms; plain twin {t_plain_ms:.4f} ms a "
+              f"call; bound {tb_ms:.6f} ms by {tby} ({t_bytes} B; {t_ops} operations) on {smi}; "
+              f"no single PyTorch call computes it", flush=True)
+        by_path[path] = {"device_ms": device_ms, "ms": ms, "plain_ms": plain_ms,
+                         "chained_ms": chained, "bound_ms": b_ms, "bound_by": by,
+                         "live_slots": alive}
+        touch_by_path[path] = {"device_ms": t_device_ms, "ms": t_ms, "plain_ms": t_plain_ms,
+                               "chained_ms": t_chained, "bound_ms": tb_ms, "bound_by": tby}
+    print(f"pool_insert: {len(cases)} cases equal to the ordered sums bit for bit on every live "
+          f"slot; {differing} cells differ from the twin, each in a run the card's index_put_ "
+          f"sums by a warp", flush=True)
+    src = "slam_constructor_tpu_torch/csrc/scan_insert.cu"
+    return ({"name": "pool_insert", "route": "cuda", "source": src,
+             "replaces": "slam_constructor_tpu/ops/blockmap.py:117", "max_abs_err": max_err,
+             "cases_bitwise_equal_to_ordered_sums": len(cases),
+             "cells_differing_from_twin": differing, **by_path["gmapping cow"],
+             "by_path": by_path, "library_ms": None},
+            {"name": "pool_touched", "route": "cuda", "source": src,
+             "replaces": "slam_constructor_tpu/ops/blockmap.py:128", "max_abs_err": max_touch_err,
+             **touch_by_path["gmapping cow"], "by_path": touch_by_path, "library_ms": None})
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke run needs an NVIDIA GPU",
@@ -3675,14 +4215,26 @@ def main() -> None:
     phase_gmapping_card_vs_cpu(dev, scans, odom, gt, n=8, make=baseline_engine,
                                name="gmapping preset")
     phase_relocalize(dev)
+    pool_kept, pool_runs = {}, {}
     for name, (calls, found) in cli_inserts.items():
+        if name == "mit_stata":
+            pool_kept[f"cli {name}"], pool_runs[f"cli {name}"] = calls, found
+            continue
         twin_runs[f"cli {name}"] = found
         if name in ("mit_csail", "tum_2d"):
             kept_inserts[name] = calls
+    cow_launches, pool_kept["gmapping cow"], pool_runs["gmapping cow"], cow_summary = \
+        phase_gmapping_cow_path(scans, odom, gt, odo_ate, smi)
+    phase_gmapping_cow_quality(dev, smi)
+    phase_gmapping_cow_card_vs_cpu(dev, scans, odom, gt, smi)
+    grow_summary = phase_auto_grow(dev, scans, odom, gt, smi)
     k12 = phase_scan_insert_kernel(dev, kept_inserts, smi)
     k12["twin_insert_runs"] = twin_runs
     k13 = phase_scan_planes_kernel(dev, kept_planes, fscans, fgt, smi)
     k13["twin_planes_runs"] = planes_runs
+    k14, k15 = phase_pool_kernels(pool_kept, smi)
+    k14["twin_pool_runs"] = pool_runs
+    k14["gmapping_cow"], k14["auto_grow"] = cow_summary, grow_summary
 
     # `launches`: of a main path's timed run, held to the expected counts
     # above: the viny path's for the kernels of the earlier slices, the full
@@ -3690,7 +4242,7 @@ def main() -> None:
     # match, the viny_m3rsm path's for the M3RSM kernels, the CLI's
     # mit_csail run for `hill_climb` and `overlap_score` and its tiny_refined
     # run for `gradient_refine` and `overlap_score_grad`, the full path's for
-    # `scan_planes`. `m3rsm_level`,
+    # `scan_planes`, the copy-on-write RBPF's for the pool kernels. `m3rsm_level`,
     # `overlap_score` and `overlap_score_grad` left the main paths, so they
     # read 0 there; the paths driven with their yardsticks handed in stand
     # under `launches_by_path` only
@@ -3700,8 +4252,9 @@ def main() -> None:
                  "overlap_score_grad": cli_launches["tiny_refined"],
                  "gradient_refine": cli_launches["tiny_refined"],
                  "hill_climb": cli_launches["mit_csail"], "scan_insert": tiny_launches,
-                 "scan_planes": full_launches}
-    for k in (k1, k3, k2, k4, k5, k6, k7, k8, k9, k10, k11, k12, k13):
+                 "scan_planes": full_launches, "pool_insert": cow_launches,
+                 "pool_touched": cow_launches}
+    for k in (k1, k3, k2, k4, k5, k6, k7, k8, k9, k10, k11, k12, k13, k14, k15):
         k["launches"] = main_path.get(k["name"], viny_launches)[k["name"]]
         k["launches_by_path"] = {
             "tiny": tiny_launches[k["name"]], "viny": viny_launches[k["name"]],
@@ -3713,6 +4266,7 @@ def main() -> None:
             f"gmapping, improved proposal, {GM_IMPROVED_SCANS} scans": improved_launches[k["name"]],
             "viny_m3rsm, a level launch a level and a score launch a round":
                 levels_launches[k["name"]],
+            "gmapping cow": cow_launches[k["name"]],
             **{f"cli {name}": counts[k["name"]] for name, counts in cli_launches.items()}}
     # the reducer variants of the particle match: launches of the gmapping
     # preset's timed run, by reducer (the path scores with the obstacle one)
@@ -3720,7 +4274,7 @@ def main() -> None:
         k["launches"] = base_by_reducer[k["name"].split(" ")[0]]
         k["launches_by_path"] = {"gmapping preset": k["launches"]}
     print(json.dumps({"kernels": [k1, k3, k2, k4, k5, k6, k7, k8, k9, k10, k11, k12, k13,
-                                  *k_red]}),
+                                  k14, k15, *k_red]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

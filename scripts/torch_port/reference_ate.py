@@ -4,6 +4,7 @@
     JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --preset full [--port] [--keys 5]
     JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --preset gmapping [--port] [--keys 5]
     JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --preset gmapping_baseline [--port] [--keys 5]
+    JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --preset gmapping_cow[_2lap] [--port] [--keys 5]
     JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --preset viny_m3rsm [--port]
     JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --preset full_m3rsm [--port] [--keys 5]
     JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --config configs/X.properties [--port] [--keys 5]
@@ -62,6 +63,13 @@ matcher normals and resampling offsets rebuilt from the key chain) and
 prints how far its poses, weights and genealogy lie from the reference's,
 and how often an insert window was clamped at the map's edge.
 
+With ``--preset gmapping_cow`` the same RBPF on the copy-on-write block
+pool (``map_storage='cow'``, blocks of 32 cells, 5 x 5 tiles matched a
+particle: 160^2 windows, as the dense path's; 1,024 blocks), over the tiny
+sequence, and ``--preset gmapping_cow_2lap`` over the two-lap quality
+sequence; each key's figure also says whether the pool's overflow latch
+was set and how many distinct blocks the pool held at the end.
+
 With ``--preset gmapping_baseline`` the same with the reference's
 ``GMappingConfig()`` at its defaults (``utils.config.preset('gmapping')``,
 the BASELINE gmapping config: 30 whole 256^2 maps at 0.1 m, no match or
@@ -117,7 +125,10 @@ from chip_smoke import (  # noqa: E402  (the same sequences and configuration)
 
 FREE_IMPL = {"tiny": "dda", "viny": "polar"}
 PRESETS = [*sorted(FREE_IMPL), "viny_m3rsm", "full", "full_m3rsm", "gmapping", "gmapping_2lap",
-           "gmapping_baseline"]
+           "gmapping_baseline", "gmapping_cow", "gmapping_cow_2lap"]
+#: the copy-on-write storage of ``--preset gmapping_cow``: 160^2 windows
+#: (5 tiles of 32), the reference's default pool
+COW_FIELDS = dict(map_storage="cow", tile_block=32, window_tiles=5, tile_capacity=1024)
 #: the reference's RBPF quality protocol's seeds (scripts/r3/gm_multiseed.py)
 MULTISEED = (42, 7, 19, 101, 202)
 
@@ -502,7 +513,7 @@ def gmapping_preset(args) -> dict:
     from slam_constructor_tpu_torch.models import gmapping as tgm
     from slam_constructor_tpu_torch.utils import evaluate
 
-    two_laps = args.preset == "gmapping_2lap"
+    two_laps = args.preset.endswith("_2lap")
     scans, odom, gt = gmapping_quality_sequence("cpu") if two_laps else bench_sequence("cpu")
     n_scans = len(gt)
     if args.preset == "gmapping_baseline":  # GMappingEngine()'s defaults
@@ -510,6 +521,9 @@ def gmapping_preset(args) -> dict:
     else:
         jcfg = jgm.fast_config(n_particles=30, map_size=MAP)
         tcfg = tgm.fast_config(n_particles=30, map_size=MAP)
+    cow = args.preset.startswith("gmapping_cow")
+    if cow:
+        jcfg, tcfg = (dataclasses.replace(c, **COW_FIELDS) for c in (jcfg, tcfg))
     p = jcfg.n_particles
 
     def as_jax(scans):
@@ -566,10 +580,12 @@ def gmapping_preset(args) -> dict:
             "resamples": int((np.asarray(ancestors) != np.arange(p)).any(axis=1).sum()),
             "min_neff": float(np.asarray(neffs).min()),
             "seconds_cpu": time.perf_counter() - t0,
+            **({"overflow": bool(st.gm.overflow),
+                "distinct_blocks": int((np.asarray(st.gm.refcnt) > 0).sum())} if cow else {}),
         })
         print(json.dumps(rows[-1]), file=sys.stderr, flush=True)
         first = first or (np.array(all_poses), np.array(ancestors), np.array(st.log_weights),
-                          np.array(st.gm.cells))
+                          None if cow else np.array(st.gm.cells))
     out = {"preset": args.preset, "scans": n_scans, "beams": N_BEAMS, "map": MAP, "particles": p,
            "window": jcfg.insert_window, "backend": jax.default_backend(),
            "odometry_ate_m": odometry(odom, gt), "by_key": rows}
@@ -592,9 +608,10 @@ def gmapping_preset(args) -> dict:
         same_anc = (ancestors.numpy() == j_anc).all(axis=1)
         # insert windows that the map's edge pushed off their pose: the
         # corner before the clamp lies outside [0, MAP - window]
-        wi = tcfg.insert_window
-        corner = torch.floor((all_poses[..., :2] - e.state.gm.origin[0]) / tcfg.map_scale) - wi // 2
-        clamped = ((corner < 0) | (corner > MAP - wi)).any(-1)
+        if not cow:
+            wi = tcfg.insert_window
+            corner = torch.floor((all_poses[..., :2] - e.state.gm.origin[0]) / tcfg.map_scale) - wi // 2
+            clamped = ((corner < 0) | (corner > MAP - wi)).any(-1)
         out["port_same_draws"] = {
             "winner_ate_m": ate(e.winner_trajectory(), gt),
             "max_abs_pose_diff": float(np.abs(d).max()),
@@ -604,9 +621,10 @@ def gmapping_preset(args) -> dict:
             "first_scan_ancestors_differ": next(
                 (int(t) for t in range(n_scans) if not same_anc[t]), None),
             "max_abs_log_weight_diff": float(np.abs(e.state.log_weights.numpy() - j_logw).max()),
-            "max_abs_cell_diff": float(np.abs(e.state.gm.cells.numpy() - j_cells).max()),
-            "insert_windows_clamped": int(clamped.sum()),
-            "insert_windows": int(clamped.numel()),
+            **({} if cow else {
+                "max_abs_cell_diff": float(np.abs(e.state.gm.cells.numpy() - j_cells).max()),
+                "insert_windows_clamped": int(clamped.sum()),
+                "insert_windows": int(clamped.numel())}),
             "seconds_cpu": time.perf_counter() - t0,
         }
     return out

@@ -159,6 +159,14 @@ struct Insert {
   int spr;        // 16-byte slots a staged row (fold)
   int copy_rows;  // rows of a map a copy block covers
   int n_copy;     // copy blocks a map (0: nothing outside the windows)
+  // the block pool (pool_insert_launch): f32[n_slots, B, B, C], updated in place
+  float* pool;
+  const int* tables;    // i32[p, th, tw]: each scan's slot of each tile, -1 = none
+  const int* refcnt;    // i32[n_slots] (live where > 0) or null
+  const int* n_live;    // i32[] (the slots below it live) or null
+  int n_slots, block, th, tw;
+  unsigned char* touched;  // u8[n_scans, th, tw]: pool_touch_launch's output, the pool's input
+  int n_seg;               // pool_touch_launch: threads a beam
 };
 
 // Map m's window: its first cell and its world origin. grid.window_corner's
@@ -236,6 +244,30 @@ __device__ __forceinline__ int first_true(int lo, int hi, float guess, Pred pred
   return lower_bound(f + 1, min(hi, f + d), pred);
 }
 
+// Samples [lo, hi) of a beam narrowed to those whose cell coordinate
+// coord(i) (monotone in i: every IEEE op of its chain is) lies in [a0, a1);
+// cross(a) guesses where the real line crosses a. No search at an end of the
+// range that lies inside. Returns (first, end), end <= first for none.
+template <typename Coord, typename Cross>
+__device__ __forceinline__ int2 narrow(int lo, int hi, float a0, float a1, Coord coord,
+                                       Cross cross) {
+  if (lo >= hi) return make_int2(lo, lo);
+  const float fa = coord(lo), fb = coord(hi - 1);
+  if (!(fminf(fa, fb) < a1 && fmaxf(fa, fb) >= a0 && fa == fa && fb == fb)) {
+    return make_int2(lo, lo);
+  }
+  const bool first_in = fa >= a0 && fa < a1, last_in = fb >= a0 && fb < a1;
+  int l = lo, h = hi;
+  if (fa <= fb) {
+    if (!first_in) l = first_true(lo, hi, cross(a0), [&](int i) { return coord(i) >= a0; });
+    if (!last_in) h = first_true(l, hi, cross(a1), [&](int i) { return coord(i) >= a1; });
+  } else {
+    if (!first_in) l = first_true(lo, hi, cross(a1), [&](int i) { return coord(i) < a1; });
+    if (!last_in) h = first_true(l, hi, cross(a0), [&](int i) { return coord(i) < a0; });
+  }
+  return make_int2(l, h);
+}
+
 // Block-wide exclusive prefix of two counts; `total` gets the sums. Ends
 // with a barrier, so the caller may read what it wrote before the call.
 __device__ __forceinline__ int2 block_scan(int2 v, int2* s_part, int2& total) {
@@ -285,6 +317,7 @@ struct Band {
   float* occ_s;
   float* cells;     // [rows][4 spr]: the band's staged cells (fold)
   int r0, rows;     // the band's first row of the window, its rows
+  int c0, cw;       // its first column and its columns (the pool: a tile's)
   int n_chunks;     // chunks of the ordered accumulation so far (its buffer)
 #ifdef SLAM_KERNEL_PROBE
   long long t;                      // the clock at the last phase's end
@@ -426,10 +459,17 @@ __device__ __forceinline__ bool meets(float a, float c, float r0, float r1) {
 // Beams [b0, b0 + n) of scan `scan` of the band's plane: staged, their free
 // samples in the band counted (pass 0, DDA), their occupied samples of
 // `kinds` (1: endpoints, 2: blur, 3: both, in that order) added in order.
+// The pool (kPool): the band is one tile (its columns too), each occupied
+// sample is scaled by q, and `seed` starts the occupied sums from q times
+// the free counts once the last free samples are in, so that a cell's sum
+// is the samples' in order, free ones first (the pool's one scatter).
+template <bool kPool>
 __device__ __forceinline__ void beam_chunk(const Insert& s, Band& b, const Frame& f, int scan,
-                                           int b0, int n, int kinds, bool trace) {
+                                           int b0, int n, int kinds, bool trace, bool seed,
+                                           float q) {
   const int t = threadIdx.x;
   const float r0 = static_cast<float>(b.r0), r1 = static_cast<float>(b.r0 + b.rows);
+  const float c0 = static_cast<float>(b.c0), c1 = static_cast<float>(b.c0 + b.cw);
   __syncthreads();  // the previous chunk is done with the staged beams and lists
   if (t < n) {
     const int beam = b0 + t;
@@ -461,36 +501,48 @@ __device__ __forceinline__ void beam_chunk(const Insert& s, Band& b, const Frame
     auto cross = [&](float r) {
       return ceilf(((r * s.scale + f.oy) - f.py) / (bm.y * step) - 0.5f);
     };
-    if (n_lim > 0) {
-      const float fa = row(0), fb = row(n_lim - 1);
-      if (meets(fa, fb, r0, r1)) {
-        // no search at an end of the beam that lies in the band
-        const bool first_in = fa >= r0 && fa < r1, last_in = fb >= r0 && fb < r1;
-        int hi = n_lim;
-        if (fa <= fb) {
-          if (!first_in) lo = first_true(0, n_lim, cross(r0), [&](int i) { return row(i) >= r0; });
-          if (!last_in) hi = first_true(lo, n_lim, cross(r1), [&](int i) { return row(i) >= r1; });
-        } else {
-          if (!first_in) lo = first_true(0, n_lim, cross(r1), [&](int i) { return row(i) < r1; });
-          if (!last_in) hi = first_true(lo, n_lim, cross(r0), [&](int i) { return row(i) < r0; });
-        }
-        count = hi - lo;
-      }
+    int2 range = narrow(0, n_lim, r0, r1, row, cross);
+    if constexpr (kPool) {  // and the tile's columns
+      auto col = [&](int i) {
+        const float t_i = (static_cast<float>(i) + 0.5f) * step;
+        return cell_of(f.px, bm.x, t_i, f.ox, s.scale);
+      };
+      auto cross_c = [&](float c) {
+        return ceilf(((c * s.scale + f.ox) - f.px) / (bm.x * step) - 0.5f);
+      };
+      range = narrow(range.x, range.y, c0, c1, col, cross_c);
+    }
+    if (range.y > range.x) {
+      lo = range.x;
+      count = range.y - range.x;
     }
   }
   // --- whether the beam's occupied samples can reach the band ------------
   int rel = 0;
   if (t < n && bm.w >= kEvidence) {
     const float er = floorf(((f.py + bm.z * bm.y) - f.oy) / s.scale);
-    if ((kinds & 1) && meets(er - (s.area ? 1.0f : 0.0f), er + (s.area ? 1.0f : 0.0f), r0, r1)) {
-      rel = 1;
+    const float ar = s.area ? 1.0f : 0.0f;
+    if ((kinds & 1) && meets(er - ar, er + ar, r0, r1)) {
+      if constexpr (kPool) {
+        const float ec = floorf(((f.px + bm.z * bm.x) - f.ox) / s.scale);
+        rel = meets(ec - ar, ec + ar, c0, c1);
+      } else {
+        rel = 1;
+      }
     }
     if ((kinds & 2) && s.blur > 0) {
       const float ta = bm.z + s.hole_half * __ldg(s.blur_table);
       const float tz = bm.z + s.hole_half * __ldg(s.blur_table + s.blur - 1);
       if (meets(cell_of(f.py, bm.y, ta, f.oy, s.scale),
                 cell_of(f.py, bm.y, tz, f.oy, s.scale), r0, r1)) {
-        rel = 1;
+        if constexpr (kPool) {
+          if (meets(cell_of(f.px, bm.x, ta, f.ox, s.scale),
+                    cell_of(f.px, bm.x, tz, f.ox, s.scale), c0, c1)) {
+            rel = 1;
+          }
+        } else {
+          rel = 1;
+        }
       }
     }
   }
@@ -532,8 +584,8 @@ __device__ __forceinline__ void beam_chunk(const Insert& s, Band& b, const Frame
       const float fc = cell_of(f.px, bj.x, ti, f.ox, s.scale);
       const float fr = cell_of(f.py, bj.y, ti, f.oy, s.scale);
       const bool fresh = i == 0 || fr != pr || fc != pc;
-      if (fresh && fr >= r0 && fr < r1 && fc >= 0.0f && fc < static_cast<float>(s.sw)) {
-        atomicAdd(&b.free[(static_cast<int>(fr) - b.r0) * s.sw + static_cast<int>(fc)], 1);
+      if (fresh && fr >= r0 && fr < r1 && fc >= c0 && fc < c1) {
+        atomicAdd(&b.free[(static_cast<int>(fr) - b.r0) * b.cw + (static_cast<int>(fc) - b.c0)], 1);
       }
       pr = fr;
       pc = fc;
@@ -541,6 +593,13 @@ __device__ __forceinline__ void beam_chunk(const Insert& s, Band& b, const Frame
     }
   }
   phase_done(b, kFreeItems);
+  if (seed) {  // every free sample of the band is counted: the sums start from them
+    __syncthreads();
+    for (int j = t; j < b.rows * b.cw; j += kThreads) {
+      b.occ_w[j] = q * static_cast<float>(b.free[j]);
+    }
+    // (ordered_add's barrier, the next chunk's or the fold's orders these before any use)
+  }
   // --- the occupied samples of the beams that can reach the band ----------
   const int e = s.area ? 9 : 1;
   const int n_ep = (kinds & 1) ? total.y * e : 0;
@@ -557,8 +616,12 @@ __device__ __forceinline__ void beam_chunk(const Insert& s, Band& b, const Frame
       const int idx = b.rel[k / per];
       float fr, fc;
       keep = occupied_sample(s, f, b.beam[idx], ep ? 0 : 1, k % per, fr, fc, w, sv);
-      keep = keep && fr >= r0 && fr < r1 && fc >= 0.0f && fc < static_cast<float>(s.sw);
-      if (keep) local = (static_cast<int>(fr) - b.r0) * s.sw + static_cast<int>(fc);
+      keep = keep && fr >= r0 && fr < r1 && fc >= c0 && fc < c1;
+      if (keep) local = (static_cast<int>(fr) - b.r0) * b.cw + (static_cast<int>(fc) - b.c0);
+      if constexpr (kPool) {
+        w = q * w;
+        sv = q * sv;
+      }
     }
     phase_done(b, kOccEval);
     ordered_add(b, keep, local, w, sv);
@@ -571,13 +634,18 @@ __device__ __forceinline__ void beam_chunk(const Insert& s, Band& b, const Frame
 // Scan `scan` into the band: the free trace and the endpoints a chunk of
 // beams at a time, then the blur (beams staged again where they took more
 // than one chunk); one call site of beam_chunk, so its code is inlined once.
-__device__ __forceinline__ void band_scan(const Insert& s, Band& b, const Frame& f, int scan) {
+// The pool (kPool): where the scan takes more than one chunk, the free
+// trace of every chunk first, then the endpoints, then the blur.
+template <bool kPool>
+__device__ __forceinline__ void band_scan(const Insert& s, Band& b, const Frame& f, int scan,
+                                          float q) {
   const int n_chunks = (s.r + kThreads - 1) / kThreads;
-  const int calls = n_chunks == 1 ? 1 : (s.blur > 0 ? 2 : 1) * n_chunks;
-  for (int c = 0; c < calls; ++c) {
+  const int passes = n_chunks == 1 ? 1 : (kPool ? 2 : 1) + (s.blur > 0 ? 1 : 0);
+  for (int c = 0; c < passes * n_chunks; ++c) {
     const int pass = c / n_chunks, b0 = (c - pass * n_chunks) * kThreads;
-    const int kinds = n_chunks == 1 ? 3 : (pass == 0 ? 1 : 2);
-    beam_chunk(s, b, f, scan, b0, min(kThreads, s.r - b0), kinds, s.n_free > 0 && pass == 0);
+    const int kinds = n_chunks == 1 ? 3 : (kPool ? pass : (pass == 0 ? 1 : 2));
+    beam_chunk<kPool>(s, b, f, scan, b0, min(kThreads, s.r - b0), kinds,
+                      s.n_free > 0 && pass == 0, kPool && pass == 0 && c == n_chunks - 1, q);
   }
 }
 
@@ -762,6 +830,8 @@ __global__ void __launch_bounds__(kThreads, 2) insert_kernel(const Insert s) {
   b.warp_count = b.rel + kThreads;
   b.r0 = band * s.rows;
   b.rows = min(s.rows, s.sh - b.r0);
+  b.c0 = 0;
+  b.cw = s.sw;
   b.n_chunks = 0;
 #ifdef SLAM_KERNEL_PROBE
   b.t = clock64();
@@ -786,14 +856,14 @@ __global__ void __launch_bounds__(kThreads, 2) insert_kernel(const Insert s) {
 
   if constexpr (kMode != kPlanes) {
     const Frame f{__ldg(s.pose + 3 * m), __ldg(s.pose + 3 * m + 1), corner.ox, corner.oy};
-    band_scan(s, b, f, m);
+    band_scan<false>(s, b, f, m, 1.0f);
   } else {
     for (int scan = s.plane_of ? 0 : m; scan < (s.plane_of ? s.n_scans : m + 1); ++scan) {
       if (s.plane_of && __ldg(s.plane_of + scan) != m) continue;
       const Frame f{__ldg(s.pose + 3 * scan), __ldg(s.pose + 3 * scan + 1),
                     __ldg(s.origin + scan * s.origin_stride),
                     __ldg(s.origin + scan * s.origin_stride + 1)};
-      band_scan(s, b, f, scan);
+      band_scan<false>(s, b, f, scan, 1.0f);
     }
   }
   __syncthreads();
@@ -843,6 +913,195 @@ __global__ void __launch_bounds__(kThreads, 2) insert_kernel(const Insert s) {
 #endif
 }
 
+// The cells of one pool slot (n floats at g) to or from shared memory:
+// 16-byte copies where the slot is 16-byte aligned (n % 4 == 0 and the pool
+// is), single floats otherwise.
+template <bool kLoad>
+__device__ __forceinline__ void slot_cells(float* staged, float* g, int n) {
+  if ((n & 3) == 0) {
+    for (int j = threadIdx.x; j < n / 4; j += kThreads) {
+      if (kLoad) {
+        cp_async16(staged + 4 * j, g + 4 * j);
+      } else {
+        reinterpret_cast<float4*>(g)[j] = reinterpret_cast<const float4*>(staged)[j];
+      }
+    }
+    return;
+  }
+  for (int j = threadIdx.x; j < n; j += kThreads) {
+    if (kLoad) {
+      cp_async4(staged + j, g + j);
+    } else {
+      g[j] = staged[j];
+    }
+  }
+}
+
+// The block pool: a block a slot. A slot that a touched (scan, tile) owns
+// alone takes that tile's samples (the band machinery on one B x B tile,
+// its columns too, the sums starting from the free counts: the pool's
+// scatter's order) and is folded; every other live slot is folded with no
+// observation (the reference folds the whole pool; that is not the
+// identity, BayesAvg's (p n + 0) / n may move p by an ulp); a dead slot is
+// left as it is. Each slot is read and written by its own block only, so
+// the pool is updated in place. A live block finds its owner by reading
+// the tables and the marks (a few KB, from L2): the one touched entry that
+// names the slot, where the slot's refcount is 1 (the copy-on-write pool)
+// or the table is one (the tiled map, whose slots are unique).
+template <int kModel>
+__global__ void __launch_bounds__(kThreads, 2) pool_kernel(const Insert s) {
+  constexpr int kC = channels_of(kModel);
+  const int slot = blockIdx.x;
+  const int bb = s.block * s.block;
+  float* g = s.pool + static_cast<long long>(slot) * bb * kC;
+  const int ref = s.refcnt ? __ldg(s.refcnt + slot) : 1;
+  if (s.refcnt ? ref <= 0 : slot >= __ldg(s.n_live)) return;  // dead: no table names it
+  __shared__ int found, hits;
+  if (threadIdx.x == 0) {
+    found = -1;
+    hits = 0;
+  }
+  __syncthreads();
+  const int n_entries = s.p * s.th * s.tw;
+  for (int k = threadIdx.x; k < n_entries; k += kThreads) {
+    if (__ldg(s.tables + k) == slot && __ldg(s.touched + k)) {
+      atomicAdd(&hits, 1);
+      found = k;
+    }
+  }
+  __syncthreads();
+  const int own = hits == 1 && ref == 1 ? found : -1;
+  const float q = s.q ? __ldg(s.q) : 1.0f;
+  if (own < 0) {
+    for (int j = threadIdx.x; j < bb; j += kThreads) {
+      float in[kC], o[kC];
+#pragma unroll
+      for (int ch = 0; ch < kC; ++ch) in[ch] = g[j * kC + ch];
+      fold_cell<kModel>(s, in, in[kC - 1], 0.0f, 0.0f, o);
+      o[kC - 1] = in[kC - 1] + 0.0f;
+#pragma unroll
+      for (int ch = 0; ch < kC; ++ch) g[j * kC + ch] = o[ch];
+    }
+    return;
+  }
+  const int n_tiles = s.th * s.tw;
+  const int scan = own / n_tiles, tile = own - scan * n_tiles;
+  const int tr = tile / s.tw, tc = tile - tr * s.tw;
+  extern __shared__ float4 smem[];
+  Band b;
+  b.beam = smem;
+  b.part = reinterpret_cast<int2*>(smem + kThreads);
+  b.cells = reinterpret_cast<float*>(b.part + 2 * kWarps);
+  b.free = reinterpret_cast<int*>(b.cells + ((bb * kC + 3) & ~3));
+  b.occ_w = reinterpret_cast<float*>(b.free + bb);
+  b.occ_s = b.occ_w + bb;
+  b.list_w = b.occ_s + bb;
+  b.list_s = b.list_w + 2 * kThreads;
+  int* ints = reinterpret_cast<int*>(b.list_s + 2 * kThreads);
+  b.list_cell = ints;
+  b.start = b.list_cell + 2 * kThreads;
+  b.first = b.start + kThreads + 4;
+  b.rel = b.first + kThreads;
+  b.warp_count = b.rel + kThreads;
+  b.r0 = tr * s.block;
+  b.rows = s.block;
+  b.c0 = tc * s.block;
+  b.cw = s.block;
+  b.n_chunks = 0;
+#ifdef SLAM_KERNEL_PROBE
+  b.t = clock64();
+  for (int k = 0; k < kProbeSlots; ++k) b.cycles[k] = 0;
+#endif
+  slot_cells<true>(b.cells, g, bb * kC);  // on their way while the tile rasterises
+  for (int j = threadIdx.x; j < bb; j += kThreads) {
+    b.free[j] = 0;
+    b.occ_w[j] = 0.0f;
+    b.occ_s[j] = 0.0f;
+  }
+  phase_done(b, kSetup);
+  const Frame f{__ldg(s.pose + 3 * scan), __ldg(s.pose + 3 * scan + 1), __ldg(s.origin),
+                __ldg(s.origin + 1)};
+  band_scan<true>(s, b, f, scan, q);
+  cp_async_wait_all();
+  __syncthreads();
+  phase_done(b, kFoldWait);
+  for (int j = threadIdx.x; j < bb; j += kThreads) {
+    float* cell = b.cells + j * kC;
+    float in[kC], o[kC];
+#pragma unroll
+    for (int ch = 0; ch < kC; ++ch) in[ch] = cell[ch];
+    const float w = b.occ_w[j];
+    fold_cell<kModel>(s, in, in[kC - 1], w, b.occ_s[j], o);
+    o[kC - 1] = in[kC - 1] + w;
+#pragma unroll
+    for (int ch = 0; ch < kC; ++ch) cell[ch] = o[ch];
+  }
+  __syncthreads();
+  slot_cells<false>(b.cells, g, bb * kC);
+  phase_done(b, kFold);
+#ifdef SLAM_KERNEL_PROBE
+  if (threadIdx.x == 0 && blockIdx.x < kProbeBlocks) {
+    for (int k = 0; k < kProbeSlots; ++k) {
+      probe_cycles[blockIdx.x * kProbeSlots + k] = b.cycles[k];
+    }
+  }
+#endif
+}
+
+// Marks tile (r // B, c // B) of scan p's table where a sample of scan p
+// adds evidence on the table: q w > 0 (the free trace's first sample in a
+// cell, an endpoint's cell, a blur sample of weight > 0) in a cell inside
+// the th B x tw B cells. Marks are order-free (stores of 1). A thread walks
+// one segment of n_seg of a beam's free samples; segment 0 also takes the
+// beam's occupied samples. The samples' arithmetic is the band's.
+__global__ void __launch_bounds__(128) touch_kernel(const Insert s) {
+  const long long id = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int per_scan = s.r * s.n_seg;
+  const int scan = blockIdx.y;
+  if (id >= per_scan) return;
+  const int beam = static_cast<int>(id / s.n_seg), seg = static_cast<int>(id - beam * s.n_seg);
+  const float ang =
+      __ldg(s.pose + 3 * scan + 2) + __ldg(s.bearings + scan * s.bearings_stride + beam);
+  const float range = __ldg(s.ranges + scan * s.ranges_stride + beam);
+  const bool valid = __ldg(s.valid + scan * s.valid_stride + beam);
+  if (!valid) return;
+  const float4 bm = make_float4(cosf(ang), sinf(ang), range, range <= s.max_range ? kEvidence : kValid);
+  const Frame f{__ldg(s.pose + 3 * scan), __ldg(s.pose + 3 * scan + 1), __ldg(s.origin),
+                __ldg(s.origin + 1)};
+  const float q = s.q ? __ldg(s.q) : 1.0f;
+  const float rows = static_cast<float>(s.th * s.block), cols = static_cast<float>(s.tw * s.block);
+  unsigned char* marks = s.touched + static_cast<long long>(scan) * s.th * s.tw;
+  int last = -1;
+  auto mark = [&](float fr, float fc, float w) {
+    if (q * w > 0.0f && fr >= 0.0f && fr < rows && fc >= 0.0f && fc < cols) {
+      const int tile = (static_cast<int>(fr) / s.block) * s.tw + static_cast<int>(fc) / s.block;
+      // stored once a run of samples in a tile, and only where no thread
+      // has yet: the beams meet in a few tiles, and stores to one address
+      // queue in the L2, loads of it do not
+      if (tile != last && !marks[tile]) marks[tile] = 1;
+      last = tile;
+    }
+  };
+  // the free trace: a cell's first sample counts; a later sample of the run
+  // lies in the same cell, whose tile the first marked
+  const float limit = bm.z - s.hole_half;
+  const int per = (s.n_free + s.n_seg - 1) / s.n_seg;
+  const int i1 = min(s.n_free, (seg + 1) * per);
+  for (int i = seg * per; i < i1; ++i) {
+    const float t_i = (static_cast<float>(i) + 0.5f) * s.step;
+    if (!(t_i < limit)) break;
+    mark(cell_of(f.py, bm.y, t_i, f.oy, s.scale), cell_of(f.px, bm.x, t_i, f.ox, s.scale), 1.0f);
+  }
+  if (seg != 0 || bm.w < kEvidence) return;
+  const int e = s.area ? 9 : 1;
+  for (int k = 0; k < e + s.blur; ++k) {
+    float fr, fc, w, sv;
+    if (occupied_sample(s, f, bm, k < e ? 0 : 1, k < e ? k : k - e, fr, fc, w, sv)) {
+      mark(fr, fc, w);
+    }
+  }
+}
+
 int spr_of(int sw, int c) { return c ? (sw * c + 3) / 4 + 1 : 0; }
 
 // A band's rows: enough bands for kTargetBlocks over the P maps, as many
@@ -885,6 +1144,27 @@ int launch(Insert& s, int rows_req, cudaStream_t st) {
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   insert_kernel<kMode><<<static_cast<unsigned>(blocks), kThreads, shared, st>>>(s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+size_t pool_shared_bytes(int block, int c) {
+  const size_t bb = static_cast<size_t>(block) * block;
+  return static_cast<size_t>(kThreads) * 16 + static_cast<size_t>(kWarps) * 2 * 8 +
+         ((bb * c + 3) & ~static_cast<size_t>(3)) * 4 + bb * 12 +
+         static_cast<size_t>(kThreads) * 4 * (2 + 2 + 2 + 3) + 16 + static_cast<size_t>(kWarps) * 2 * 4;
+}
+
+template <int kModel>
+int launch_pool(Insert& s, cudaStream_t st) {
+  const size_t shared = pool_shared_bytes(s.block, channels_of(kModel));
+  if (shared > static_cast<size_t>(kMaxShared)) return static_cast<int>(cudaErrorInvalidValue);
+  if (shared > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(pool_kernel<kModel>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(shared));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  pool_kernel<kModel><<<static_cast<unsigned>(s.n_slots), kThreads, shared, st>>>(s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1001,6 +1281,97 @@ extern "C" int scan_planes_launch(
   set_scan(s, pose, ranges, ranges_stride, bearings, bearings_stride, valid, valid_stride, r,
            n_free, step, hole_half, max_range, area, blur, blur_table, free_plane);
   return launch<kPlanes>(s, rows, static_cast<cudaStream_t>(stream));
+}
+
+// The block pool (K3 over a block table): scan p (pose[p], its rows at
+// p * *_stride) into the touched tiles of table p (tables i32[p, th, tw],
+// slots of `pool` f32[n_slots, block, block, c], contiguous, 16-byte
+// aligned, world origin origin[0..1] of tile (0, 0); touched u8[p, th, tw]),
+// folded, in place. A slot takes the samples of the one touched entry that
+// names it, where it is owned alone (refcnt[k] == 1, or a single table when
+// refcnt is null); the other slots are folded with no observation where
+// live (refcnt[k] > 0, or k < *n_live when refcnt is null) and left alone
+// where not. A sample's weight and sum are scaled by *q (null: 1). The DDA
+// free trace only. One launch, a block a slot, on `stream`; returns the
+// cudaError_t.
+extern "C" int pool_insert_launch(
+    float* pool, int n_slots, int block, int c, const int* tables, const unsigned char* touched,
+    const int* refcnt, const int* n_live, int p, int th, int tw, const float* origin, float scale,
+    float scale2,
+    const float* pose, const float* ranges, long long ranges_stride, const float* bearings,
+    long long bearings_stride, const unsigned char* valid, long long valid_stride, int r,
+    int n_free, float step, float hole_half, float max_range, int area, int blur,
+    const float* blur_table, const float* q, int model, float quality, float base, float decay,
+    float keep, float eps, void* stream) {
+  if (n_slots <= 0 || block <= 0 || p <= 0 || th <= 0 || tw <= 0 || r <= 0 || n_free <= 0 ||
+      model < kBayesBase || model > kTbm || c != (model == kTbm ? 5 : 2) ||
+      (blur > 0 && !blur_table) || (!refcnt && !n_live) || (!refcnt && p != 1) || !tables ||
+      !touched || (reinterpret_cast<uintptr_t>(pool) & 15)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Insert s{};
+  s.pool = pool;
+  s.n_slots = n_slots;
+  s.block = block;
+  s.tables = tables;
+  s.touched = const_cast<unsigned char*>(touched);
+  s.refcnt = refcnt;
+  s.n_live = n_live;
+  s.p = p;
+  s.th = th;
+  s.tw = tw;
+  s.origin = origin;
+  s.scale = scale;
+  s.scale2 = scale2;
+  s.n_scans = p;
+  set_scan(s, pose, ranges, ranges_stride, bearings, bearings_stride, valid, valid_stride, r,
+           n_free, step, hole_half, max_range, area, blur, blur_table, nullptr);
+  s.q = q;
+  s.quality = quality;
+  s.base = base;
+  s.decay = decay;
+  s.keep = keep;
+  s.eps = eps;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (model == kBayesAvg) return launch_pool<kBayesAvg>(s, st);
+  if (model == kBayesBase) return launch_pool<kBayesBase>(s, st);
+  return launch_pool<kTbm>(s, st);
+}
+
+// The tiles the samples of pool_insert_launch's scans touch: touched
+// (u8[p, th, tw], zeroed by the caller) gets 1 where a sample of scan p adds
+// evidence (q w > 0) in a cell of table p's th x tw tiles of block x block
+// cells. One launch on `stream`, a thread a segment of a beam.
+extern "C" int pool_touch_launch(
+    unsigned char* touched, int p, int th, int tw, int block, const float* origin, float scale,
+    float scale2, const float* pose, const float* ranges, long long ranges_stride,
+    const float* bearings, long long bearings_stride, const unsigned char* valid,
+    long long valid_stride, int r, int n_free, float step, float hole_half, float max_range,
+    int area, int blur, const float* blur_table, const float* q, void* stream) {
+  if (p <= 0 || th <= 0 || tw <= 0 || block <= 0 || r <= 0 || n_free <= 0 ||
+      (blur > 0 && !blur_table) || p > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Insert s{};
+  s.touched = touched;
+  s.p = p;
+  s.th = th;
+  s.tw = tw;
+  s.block = block;
+  s.origin = origin;
+  s.scale = scale;
+  s.scale2 = scale2;
+  s.n_scans = p;
+  set_scan(s, pose, ranges, ranges_stride, bearings, bearings_stride, valid, valid_stride, r,
+           n_free, step, hole_half, max_range, area, blur, blur_table, nullptr);
+  s.q = q;
+  s.n_seg = max(1, (n_free + 31) / 32);  // at most 32 free samples a thread
+  const long long per_scan = static_cast<long long>(r) * s.n_seg;
+  const long long blocks = (per_scan + 127) / 128;
+  if (per_scan > 0x7fffffffll || blocks > 0x7fffffffll) return static_cast<int>(cudaErrorInvalidValue);
+  touch_kernel<<<dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(p)), 128, 0,
+                 static_cast<cudaStream_t>(stream)>>>(s);
+  return static_cast<int>(cudaGetLastError());
 }
 
 #ifdef SLAM_KERNEL_PROBE

@@ -20,10 +20,15 @@ device by the insert's weight).
 An optional refine matcher runs from the primary match's pose (the
 gradient ascent of ``tiny_refined``, the hill climb of ``mit_csail``). The
 tiled storage (``map_storage='tiled'``, ``ops/blockmap.py``) matches
-against a dense window of tiles around the prior and scatters the scan's
-samples into its block pool, allocating tiles on the device.
+against a dense window of tiles around the prior and inserts the scan into
+its block pool (``blockmap.insert_scan``: the touched tiles allocated on
+the device, then K3 over the pool), in place.
 
-Waiting for a later slice: ``auto_grow``.
+``Engine.auto_grow`` grows a dense map when a scan's endpoints leave it (the
+reference's unbounded map, a host event): ``handle_scan`` checks
+containment on the device and reads one bool a scan while it is on, and
+only a scan that leaves the map reads more (``grid.grow_to_contain``); a
+grown map's M3RSM pyramid is rebuilt.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ from ..ops import grid as gridlib
 from ..ops import m3rsm as m3rsmlib
 from ..ops import matchers as matcherslib
 from ..ops import raycast, scoring
-from ..ops.geometry import compose
+from ..ops.geometry import apply_pose, compose
 from ..ops.scan import LaserScan, angle_histogram, scan_points
 
 Tensor = torch.Tensor
@@ -219,10 +224,7 @@ def slam_step(
         do_insert = (res.prob >= cfg.min_insert_prob) | (state.step == 0)
         # q = 0 (gated) leaves zero-weight samples: no tile allocated, no fold
         q = torch.where(do_insert, quality, 0.0)
-        rows, cols, w_obs, s_obs = raycast.scan_sample_cells(
-            state.gm.origin, state.gm.scale, res.pose, scan, cfg.beam)
-        gm = blockmap.scatter_observations(
-            state.gm, cfg.cell_model, rows, cols, q * w_obs, q * s_obs)
+        gm = blockmap.insert_scan(state.gm, cfg.cell_model, res.pose, scan, cfg.beam, q)
         return SlamState(gm=gm, pose=res.pose, step=state.step + 1, last_prob=res.prob)
 
     view = scoring.MapView.of(state.gm, cfg.cell_model)
@@ -278,17 +280,40 @@ class Engine:
         self.generator.manual_seed(seed)
         self.trajectory: list = []
 
+    #: grow the dense map when a scan's endpoints leave it (``handle_scan``
+    #: only; the reference's UnboundedPlainGridMap as a host event, with a
+    #: margin so that growth stays rare)
+    auto_grow: bool = False
+
     def handle_scan(
         self, scan: LaserScan, odom_delta: Tensor, quality: float = 1.0,
         noise: Tensor | None = None,
     ) -> Tensor:
         """Online mode: one scan at a time."""
+        if self.auto_grow and self.cfg.map_storage == "dense":
+            self._maybe_grow(scan.to(self.device))
         self.state = slam_step(
             self.cfg, self.state, scan.to(self.device), odom_delta.to(self.device),
             quality, None if noise is None else noise.to(self.device), self.generator,
         )
         self.trajectory.append(self.state.pose)
         return self.state.pose
+
+    def _maybe_grow(self, scan: LaserScan) -> None:
+        """Grow the map to hold the scan's valid endpoints seen from the
+        current pose, as the reference does before its step. Containment is
+        one bool read from the device; growth reads the points' extent."""
+        pts = apply_pose(self.state.pose, scan_points(scan))
+        gm = self.state.gm
+        if bool(gridlib.contains(gm, pts, scan.valid)):
+            return
+        grown = gridlib.grow_to_contain(gm, self.cfg.cell_model, pts[scan.valid])
+        pyramid = self.state.pyramid
+        if pyramid and grown.cells.shape != gm.cells.shape:
+            mcfg = self.cfg.matcher_cfg
+            pyramid = m3rsmlib.build_pyramid(scoring.MapView.of(grown, self.cfg.cell_model),
+                                             mcfg.levels, mcfg.scoring.unknown_prob)
+        self.state = dataclasses.replace(self.state, gm=grown, pyramid=pyramid)
 
     def run(self, scans: LaserScan, odom: Tensor, noise: Tensor | None = None):
         """Offline mode: a whole sequence, queued on the device."""

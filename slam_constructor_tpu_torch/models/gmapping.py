@@ -1,5 +1,5 @@
 """GMapping-style Rao-Blackwellized particle filter SLAM (port of
-``slam_constructor_tpu.models.gmapping``, dense map storage).
+``slam_constructor_tpu.models.gmapping``).
 
 P particles, each with a pose and a map of its own. A step proposes each
 particle's pose from odometry and motion noise, matches the scan against a
@@ -21,9 +21,18 @@ engine, or by the draws of :class:`Draws` handed in: the proposal normals,
 the matcher's normals, the improved proposal's probe and sample normals
 and the resampling offset, as the reference draws them from its keys.
 
+The copy-on-write storage (``map_storage='cow'``, ``ops/cow.py``) keeps
+one block pool for all particles and a block table each: every particle is
+matched on its ``window_tiles`` window around its prior (the P windows
+gathered in one go and matched in one launch), the tiles the P scans touch
+are made each particle's own (``cow.prepare_write``), the scans go into the
+shared pool in one launch (``kernels.pool_insert``), and resampling copies
+tables. ``GMappingEngine.handle_scan`` polls the pool's overflow latch
+every ``overflow_check_every`` scans (one host read) and doubles the pool
+when it is set.
+
 Entry points run on the card unless the caller names a device (see
-``device.resolve_device``). Waiting for later slices: the copy-on-write
-storage (``map_storage='cow'``, with ``ops/cow.py``) and refine matchers
+``device.resolve_device``). Waiting for a later slice: refine matchers
 other than Monte-Carlo and brute force.
 """
 
@@ -38,7 +47,9 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops import blockmap
 from ..ops import cells as cellslib
+from ..ops import cow
 from ..ops import grid as gridlib
 from ..ops import matchers as matcherslib
 from ..ops import raycast, resample, scoring
@@ -80,7 +91,8 @@ class GMappingConfig:
     proposal_samples: int = 16
     proposal_radius_xy: float = 0.06
     proposal_radius_theta: float = 0.03
-    #: 'dense' (a map a particle); 'cow' waits for ``ops/cow.py``
+    #: 'dense' (a map a particle) or 'cow' (one shared block pool, a block
+    #: table a particle: resampling copies tables, not maps)
     map_storage: str = "dense"
     tile_block: int = 32
     tile_capacity: int = 1024
@@ -101,8 +113,6 @@ class GMappingConfig:
             raise ValueError(f"map_storage={self.map_storage!r}: must be 'dense' or 'cow'")
         if self.proposal not in ("odom", "improved"):
             raise ValueError(f"proposal={self.proposal!r}: must be 'odom' or 'improved'")
-        if self.map_storage == "cow":
-            raise NotImplementedError("GMappingConfig.map_storage='cow' is not ported yet")
         for name in ("matcher", "refine_matcher"):
             # the particles' batched match runs these two; the registry holds more
             value = getattr(self, name)
@@ -112,7 +122,8 @@ class GMappingConfig:
 
 @dataclasses.dataclass
 class GMappingState:
-    gm: gridlib.GridMap  # cells f32[P, H, W, C]; origin f32[P, 2]
+    #: dense: cells f32[P, H, W, C], origin f32[P, 2]; cow: the shared pool
+    gm: gridlib.GridMap | cow.CowBlockMaps
     poses: Tensor  # f32[P, 3]
     log_weights: Tensor  # f32[P]
     step: Tensor  # i32[]
@@ -178,13 +189,19 @@ def init_state(cfg: GMappingConfig, device=None) -> GMappingState:
     ``device`` (the card when none is named)."""
     dev = resolve_device(device)
     p = cfg.n_particles
-    gm1 = gridlib.make_grid_map(cfg.cell_model, cfg.map_height, cfg.map_width, cfg.map_scale,
-                                device=dev)
-    gm = gridlib.GridMap(
-        cells=gm1.cells.expand(p, *gm1.cells.shape).contiguous(),
-        origin=gm1.origin.expand(p, 2).contiguous(),
-        scale=gm1.scale,
-    )
+    if cfg.map_storage == "cow":
+        gm = cow.make_cow_maps(
+            cfg.cell_model, n_particles=p, tiles_h=cfg.map_height // cfg.tile_block,
+            tiles_w=cfg.map_width // cfg.tile_block, capacity=cfg.tile_capacity,
+            block=cfg.tile_block, scale=cfg.map_scale, device=dev)
+    else:
+        gm1 = gridlib.make_grid_map(cfg.cell_model, cfg.map_height, cfg.map_width,
+                                    cfg.map_scale, device=dev)
+        gm = gridlib.GridMap(
+            cells=gm1.cells.expand(p, *gm1.cells.shape).contiguous(),
+            origin=gm1.origin.expand(p, 2).contiguous(),
+            scale=gm1.scale,
+        )
     return GMappingState(
         gm=gm,
         poses=torch.zeros((p, 3), dtype=torch.float32, device=dev),
@@ -319,6 +336,8 @@ def gmapping_step(
     # 2. every particle against a window of its own map, in one launch
     scans = LaserScan(scan.ranges.expand(p, -1), scan.bearings.expand(p, -1),
                       scan.valid.expand(p, -1))
+    if cfg.map_storage == "cow":
+        return _cow_step(cfg, state, scans, priors, centers, sigma, draws)
     view = match_view(cfg, state.gm, priors)
     poses, incr = match_particles(cfg, view, scans, priors, centers, sigma, draws)
 
@@ -336,6 +355,27 @@ def gmapping_step(
                          scale=gm.scale)
     state = GMappingState(gm=gm, poses=poses.index_select(0, idx), log_weights=logw,
                           step=state.step + 1)
+    return state, idx
+
+
+def _cow_step(cfg: GMappingConfig, state: GMappingState, scans, priors, centers, sigma,
+              draws: Draws):
+    """Steps 2-5 on the copy-on-write maps: each particle matched on the
+    ``window_tiles`` window of its table around its prior (the P windows
+    cut out in one gather), then the touched tiles made its own, the P
+    scans inserted into the shared pool in one launch, and the tables
+    resampled."""
+    wt = cfg.window_tiles
+    win = cow.extract_window(state.gm, cfg.cell_model, None, priors[:, :2], wt, wt)
+    view = scoring.MapView.of(win, cfg.cell_model)
+    poses, incr = match_particles(cfg, view, scans, priors, centers, sigma, draws)
+    logw = resample.normalize_log_weights(state.log_weights + incr)
+    touched = cow.touched_tiles(state.gm, poses, scans, cfg.beam)
+    gm = cow.prepare_write(state.gm, cfg.cell_model, touched)
+    gm = cow.scatter_observations(gm, cfg.cell_model, poses, scans, cfg.beam, touched)
+    idx, logw, _ = resample.maybe_resample(draws.u0, logw, cfg.resample_threshold)
+    state = GMappingState(gm=cow.resample(gm, idx), poses=poses.index_select(0, idx),
+                          log_weights=logw, step=state.step + 1)
     return state, idx
 
 
@@ -430,6 +470,11 @@ class GMappingEngine:
         #: (all_poses f32[T, P, 3], ancestors i64[T, P]) of the last run()
         self.genealogy = None
 
+    #: online mode on the copy-on-write maps: read the pool's overflow latch
+    #: every this many scans (a host read, so not every scan) and double the
+    #: pool when it is set
+    overflow_check_every: int = 32
+
     def handle_scan(self, scan: LaserScan, odom_delta: Tensor, draws: Draws | None = None) -> Tensor:
         """Online mode: one scan; returns the best particle's pose."""
         self.state, _ = gmapping_step(
@@ -438,7 +483,16 @@ class GMappingEngine:
         )
         pose = estimate_pose(self.state)
         self.trajectory.append(pose)
+        if (self.cfg.map_storage == "cow"
+                and len(self.trajectory) % self.overflow_check_every == 0
+                and bool(self.state.gm.overflow)):
+            self._grow_pool()
         return pose
+
+    def _grow_pool(self) -> None:
+        """Double the copy-on-write pool (a host event; the latch clears)."""
+        self.state.gm = cow.grow_pool(self.state.gm, self.cfg.cell_model,
+                                      2 * self.state.gm.capacity)
 
     def run(self, scans: LaserScan, odom: Tensor, draws: Draws | None = None):
         """Offline mode: a whole sequence, queued on the device. Returns
@@ -461,6 +515,13 @@ class GMappingEngine:
     def occupancy(self) -> Tensor:
         """f32[H, W] occupancy of the best particle's map."""
         i = best_particle(self.state).reshape(1)
+        if self.cfg.map_storage == "cow":
+            st = self.state.gm
+            th, tw = st.tables.shape[1:]
+            win = blockmap.gather_window(
+                st.tables.index_select(0, i)[0], st.pool, self.cfg.cell_model, st.origin,
+                st.scale, torch.zeros(2, device=self.device), th, tw)
+            return gridlib.occupancy_plane(win, self.cfg.cell_model)
         gm = gridlib.GridMap(cells=self.state.gm.cells.index_select(0, i)[0],
                              origin=self.state.gm.origin.index_select(0, i)[0],
                              scale=self.state.gm.scale)

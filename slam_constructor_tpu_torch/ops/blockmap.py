@@ -11,13 +11,23 @@ the slots are the reference's, so that two pools compare directly. At
 exhaustion a tile stays unallocated and its samples are dropped, while
 ``n_alloc`` counts the demand, so ``overflowed`` latches.
 
+A scan goes in by :func:`insert_scan`: ``kernels.pool_touched`` marks the
+tiles its samples touch, :func:`allocate_tiles` gives them slots, and
+``kernels.pool_insert`` (K3 over the pool: one launch on the card, a block
+a slot) adds the samples in the reference's order and folds every
+allocated block, in place: the state's pool is the new state's. The
+reference's ``scatter_observations`` took the samples themselves; its body
+is ``kernels.pool_insert_ref``, with the samples made from the scan.
+
 The reference adds an exhausted tile's samples at flat index -1, which
 wraps into the last cell of the last block (its scatter drops only indices
 past the end); the port drops them (ROADMAP Queue 3, trap n).
 
 Scoring reads a dense window: :func:`extract_window` gathers the
 block-aligned ``tiles_h x tiles_w`` tiles around the robot into a
-``GridMap``, and every matcher runs on it unchanged.
+``GridMap``, and every matcher runs on it unchanged; :func:`gather_window`
+takes P tables and P centres in one gather (the copy-on-write maps'
+particles).
 """
 
 from __future__ import annotations
@@ -105,77 +115,58 @@ def cells_to_slots(bm: BlockMap, rows: Tensor, cols: Tensor):
     return slot, rr, cc, ok & (slot >= 0)
 
 
-def scatter_observations(bm: BlockMap, model, rows: Tensor, cols: Tensor, w: Tensor,
-                         s: Tensor) -> BlockMap:
-    """Add observation samples (weight ``w``, occupancy sum ``s`` at cell
-    (row, col)) into the pool, allocating the tiles they touch, then fold
-    them into the cells with the cell model, over the whole pool (a cell
-    with no sample is left as it was).
-
-    The sums are ``index_put_(accumulate=True)``: a fixed order on the card,
-    so the pool is the same bits on every run. A sample of weight 0, off
-    the map or in a tile the exhausted pool could not give a block is
-    dropped."""
-    b = bm.block
-    th, tw = bm.table.shape
-    valid = (w > 0) & (rows >= 0) & (rows < th * b) & (cols >= 0) & (cols < tw * b)
-    tile = (rows // b).clamp(0, th - 1) * tw + (cols // b).clamp(0, tw - 1)
-    touched = torch.zeros(th * tw, dtype=torch.int32, device=w.device)
-    touched.scatter_add_(0, tile.reshape(-1), valid.reshape(-1).to(torch.int32))
-    bm = allocate_tiles(bm, touched.reshape(th, tw) > 0)
-
-    slot, rr, cc, ok = cells_to_slots(bm, rows, cols)
-    n, bb = bm.capacity, b * b
-    keep = (ok & valid).reshape(-1)
-    # a dropped sample adds 0.0 to a cell spread by its position, so that
-    # dropped samples do not pile up on one address of the sorted scatter
-    spread = torch.arange(keep.numel(), device=w.device) % (n * bb)
-    lin = torch.where(keep, (slot.to(torch.int64) * bb + rr * b + cc).reshape(-1), spread)
-    w_flat = torch.zeros(n * bb, dtype=torch.float32, device=w.device)
-    s_flat = torch.zeros(n * bb, dtype=torch.float32, device=w.device)
-    w_flat.index_put_((lin,), torch.where(keep, w.reshape(-1), 0.0), accumulate=True)
-    s_flat.index_put_((lin,), torch.where(keep, s.reshape(-1), 0.0), accumulate=True)
-    w_obs, s_obs = w_flat.reshape(n, b, b), s_flat.reshape(n, b, b)
-
-    n_prev = bm.pool[..., -1]
-    belief = model.update(bm.pool[..., :-1], n_prev, w_obs, s_obs)
-    return dataclasses.replace(bm, pool=torch.cat([belief, (n_prev + w_obs)[..., None]], dim=-1))
-
-
-def insert_scan(bm: BlockMap, model, pose: Tensor, scan, cfg) -> BlockMap:
+def insert_scan(bm: BlockMap, model, pose: Tensor, scan, cfg, q: Tensor | None = None
+                ) -> BlockMap:
     """Scan insertion into the tiled map: the dense path's rasterisation
-    (``raycast.scan_sample_cells``) scattered into the pool."""
-    from . import raycast
+    (``raycast.scan_sample_cells``, scaled by ``q``) into the pool, after
+    allocating the tiles it touches; every allocated block is folded. The
+    pool is updated in place. Two kernel launches on the card
+    (``kernels.pool_touched``, ``kernels.pool_insert``), nothing read on
+    the host."""
+    from . import kernels
 
-    rows, cols, w_obs, s_obs = raycast.scan_sample_cells(bm.origin, bm.scale, pose, scan, cfg)
-    return scatter_observations(bm, model, rows, cols, w_obs, s_obs)
+    scans = type(scan)(scan.ranges[None], scan.bearings[None], scan.valid[None])
+    touched = kernels.pool_touched(tuple(bm.table.shape), bm.block, bm.origin, bm.scale,
+                                   pose[None], scans, cfg, q)
+    bm = allocate_tiles(bm, touched[0])
+    kernels.pool_insert(bm.pool, bm.table[None], bm.origin, bm.scale, model, pose[None], scans,
+                        cfg, touched, q, n_live=bm.n_alloc)
+    return bm
 
 
 def gather_window(table: Tensor, pool: Tensor, model, origin: Tensor, scale: float,
                   center: Tensor, tiles_h: int, tiles_w: int) -> gridlib.GridMap:
     """The block-aligned ``tiles_h x tiles_w`` tiles around world point
     ``center`` f32[2], clamped into the table, as a dense ``GridMap``
-    (unallocated tiles read as the init cell). The corner stays on the
+    (unallocated tiles read as the init cell). With P tables ``table``
+    i32[P, TH, TW] and ``center`` f32[P, 2], P windows in one gather
+    (cells f32[P, h, w, C], origin f32[P, 2]). The corners stay on the
     device: the tiles are gathered by index tensors."""
     n, b = pool.shape[0], pool.shape[1]
-    th, tw = table.shape
+    th, tw = table.shape[-2:]
+    dev = table.device
     rel = gridlib.div_scale(center - origin, scale)
     ct = torch.floor(rel).to(torch.int64)  # (col, row)
-    t0r = torch.clamp(ct[1] // b - tiles_h // 2, 0, max(th - tiles_h, 0))
-    t0c = torch.clamp(ct[0] // b - tiles_w // 2, 0, max(tw - tiles_w, 0))
-    dev = table.device
+    t0r = torch.clamp(ct[..., 1] // b - tiles_h // 2, 0, max(th - tiles_h, 0))
+    t0c = torch.clamp(ct[..., 0] // b - tiles_w // 2, 0, max(tw - tiles_w, 0))
     # a window wider than the table repeats its last tile, as the
     # reference's clamped gather does
-    tr = torch.clamp(t0r + torch.arange(tiles_h, device=dev), max=th - 1)
-    tc = torch.clamp(t0c + torch.arange(tiles_w, device=dev), max=tw - 1)
-    slots = table[tr[:, None], tc[None, :]].to(torch.int64)  # [tiles_h, tiles_w]
+    tr = torch.clamp(t0r[..., None] + torch.arange(tiles_h, device=dev), max=th - 1)
+    tc = torch.clamp(t0c[..., None] + torch.arange(tiles_w, device=dev), max=tw - 1)
+    if table.dim() == 3:
+        which = torch.arange(table.shape[0], device=dev)[:, None, None]
+        slots = table[which, tr[:, :, None], tc[:, None, :]]
+    else:
+        slots = table[tr[:, None], tc[None, :]]
+    slots = slots.to(torch.int64)  # [..., tiles_h, tiles_w]
     # the init cell from the constants made once a process: a copy from
     # the host would wait for the device
     cell = constant((*model.init_belief(), 0.0), torch.float32, dev)
     blocks = torch.where((slots >= 0)[..., None, None, None], pool[slots.clamp(0, n - 1)],
-                         cell)  # [tiles_h, tiles_w, B, B, C]
-    dense = blocks.permute(0, 2, 1, 3, 4).reshape(tiles_h * b, tiles_w * b, -1)
-    w_origin = origin + torch.stack([t0c, t0r]).to(torch.float32) * (b * scale)
+                         cell)  # [..., tiles_h, tiles_w, B, B, C]
+    lead = blocks.shape[:-5]
+    dense = blocks.transpose(-4, -3).reshape(*lead, tiles_h * b, tiles_w * b, -1)
+    w_origin = origin + torch.stack([t0c, t0r], dim=-1).to(torch.float32) * (b * scale)
     return gridlib.GridMap(cells=dense, origin=w_origin, scale=scale)
 
 

@@ -7,20 +7,28 @@ plus a trailing observation-weight channel. Cell index ``[row, col]`` with
 lower-left corner of cell (0, 0). A stack of P same-shaped maps (the loop
 closer's submaps, the RBPF's particles) is ``f32[P, H, W, C]`` with
 ``origin`` f32[P, 2]; ``window_corner``, ``take_window`` and
-``put_window`` cut a window out of each and write it back. Growth and
-rescaling wait for a later slice.
+``put_window`` cut a window out of each and write it back.
+
+The map may grow (:func:`grow_to_contain`, the reference's unbounded map
+as a host event: the engine's ``auto_grow``) and change its resolution by
+an integer factor (:func:`rescale`). Both build the new cells on the
+map's device.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
 
 #: channel index of the accumulated observation weight
 WEIGHT_CHANNEL = -1
+
+#: floor of the evidence a coarsened cell divides by (:func:`rescale`)
+_RES_EPS = 1e-9
 
 
 @dataclasses.dataclass
@@ -86,6 +94,19 @@ def world_to_cell(gm: GridMap, pts: Tensor) -> Tensor:
     col = torch.floor(rel[..., 0]).to(torch.int64)
     row = torch.floor(rel[..., 1]).to(torch.int64)
     return torch.stack([row, col], dim=-1)
+
+
+def cell_center(gm: GridMap, idx: Tensor) -> Tensor:
+    """Cell indices ``[..., 2]`` (row, col) -> world centres ``f32[..., 2]``."""
+    x = gm.origin[0] + (idx[..., 1].to(torch.float32) + 0.5) * gm.scale
+    y = gm.origin[1] + (idx[..., 0].to(torch.float32) + 0.5) * gm.scale
+    return torch.stack([x, y], dim=-1)
+
+
+def clip_index(gm: GridMap, idx: Tensor) -> Tensor:
+    """Cell indices ``[..., 2]`` (row, col) clamped onto the map."""
+    return torch.stack([torch.clamp(idx[..., 0], 0, gm.height - 1),
+                        torch.clamp(idx[..., 1], 0, gm.width - 1)], dim=-1)
 
 
 def in_bounds(idx: Tensor, h: int, w: int) -> Tensor:
@@ -157,3 +178,69 @@ def occupancy_plane(gm: GridMap, model) -> Tensor:
 
 def known_mask(gm: GridMap) -> Tensor:
     return gm.weight > 0.0
+
+
+def contains(gm: GridMap, pts: Tensor, valid: Tensor | None = None) -> Tensor:
+    """bool[] on the map's device: every world point ``f32[..., 2]`` (where
+    ``valid``) lies in a cell of the map."""
+    inside = in_bounds(world_to_cell(gm, pts), gm.height, gm.width)
+    if valid is not None:
+        inside = inside | ~valid
+    return inside.all()
+
+
+def grow_to_contain(gm: GridMap, model, pts, margin_cells: int = 16) -> GridMap:
+    """The map grown so that it covers the world points ``pts`` ``[N, 2]``
+    (a tensor or an array), the old cells copied in, the new ones the init
+    cell; the map itself when it covers them already. A host event, as in
+    the reference (the UnboundedPlainGridMap's expansion): it reads the
+    points' extent, and a grown map has another shape. The new cells are
+    made on the map's device, and the new origin in float64 from the
+    integer offsets, then cast to f32, as the reference does."""
+    dev = gm.cells.device
+    pts = torch.as_tensor(pts, dtype=torch.float32).to(dev)
+    idx = world_to_cell(gm, pts)
+    h, w, c = gm.cells.shape
+    if pts.shape[0] == 0 or bool(in_bounds(idx, h, w).all()):
+        return gm
+    lo = idx.min(0).values.tolist()
+    hi = idx.max(0).values.tolist()
+    lo_r, lo_c = min(0, lo[0] - margin_cells), min(0, lo[1] - margin_cells)
+    hi_r, hi_c = max(h, hi[0] + 1 + margin_cells), max(w, hi[1] + 1 + margin_cells)
+    cells = make_grid_map(model, hi_r - lo_r, hi_c - lo_c, gm.scale, (0.0, 0.0), dev).cells
+    cells[-lo_r:-lo_r + h, -lo_c:-lo_c + w] = gm.cells
+    origin = gm.origin.cpu().numpy().astype(np.float64) + np.array([lo_c, lo_r], np.float64) * gm.scale
+    return GridMap(cells=cells, origin=torch.tensor(origin.astype(np.float32), device=dev),
+                   scale=gm.scale)
+
+
+def rescale(gm: GridMap, model, factor: int) -> GridMap:
+    """The map at another resolution, the same world area (the origin
+    stays). ``factor > 0`` coarsens: a new cell holds a ``factor x
+    factor`` block, its weight the block's sum and its belief the
+    weight-weighted mean (the init belief where the block saw nothing); the
+    sides must divide by ``factor``. ``factor < 0`` refines by ``k =
+    -factor``: each cell splits into ``k x k`` cells of its belief and a
+    ``k^2``-th of its weight."""
+    h, w, c = gm.cells.shape
+    if factor == 0:
+        raise ValueError("rescale factor must be a nonzero integer")
+    if factor in (1, -1):
+        return gm
+    if factor > 0:
+        k = factor
+        if h % k or w % k:
+            raise ValueError(f"extent {h}x{w} not divisible by factor {k}")
+        blocks = gm.cells.reshape(h // k, k, w // k, k, c)
+        wgt = blocks[..., -1]
+        wsum = wgt.sum(dim=(1, 3))
+        bel = (blocks[..., :-1] * wgt[..., None]).sum(dim=(1, 3)) / torch.clamp(
+            wsum, min=_RES_EPS)[..., None]
+        init = torch.tensor(model.init_belief(), dtype=torch.float32, device=gm.cells.device)
+        bel = torch.where((wsum > 0)[..., None], bel, init)
+        return dataclasses.replace(gm, cells=torch.cat([bel, wsum[..., None]], dim=-1),
+                                   scale=gm.scale * k)
+    k = -factor
+    cells = gm.cells.repeat_interleave(k, dim=0).repeat_interleave(k, dim=1)
+    cells = torch.cat([cells[..., :-1], cells[..., -1:] * (1.0 / (k * k))], dim=-1)
+    return dataclasses.replace(gm, cells=cells, scale=gm.scale / k)

@@ -55,6 +55,17 @@ bit. The reference compiled all of it with XLA
 ``update_pyramid``, ``_score_level``, ``m3rsm_match``); no Pallas kernel
 stood there but the hill climb's score.
 
+``pool_insert`` is K3 over a block pool: P scans inserted into the tiles of
+P block tables over one pool ``f32[N, B, B, C]`` (the tiled map is one
+table, the copy-on-write RBPF maps P), folded, in place; a block a slot,
+the tile's samples summed in the pool's scatter order, every other live
+slot folded with no observation, as the reference folds its whole pool
+(``slam_constructor_tpu/ops/blockmap.py:117``, ``ops/cow.py:143``).
+``pool_touched`` is the same source's first mode: the tiles each scan's
+samples touch, which allocation and copy-on-write need before the insert.
+``pool_insert_ordered`` sums the same samples on the host in order, the
+yardstick the kernel equals bit for bit.
+
 ``polar_free_plane`` fills the dense polar free-space weight plane of one
 scan. It replaces ``pallas_kernels.py::polar_free_lookup`` together with
 the plane math that ``raycast._polar_free_plane_pallas`` computes around
@@ -106,7 +117,8 @@ _MAX_SHARED_BYTES = 48 * 1024
 _LAUNCHES = dict.fromkeys(
     ("overlap_score", "overlap_score_batched", "overlap_score_grad", "gradient_refine",
      "hill_climb", "mc_match", "mc_match_batched", "polar_free_plane", "m3rsm_pyramid",
-     "m3rsm_level", "m3rsm_search", "scan_insert", "scan_planes"), 0
+     "m3rsm_level", "m3rsm_search", "scan_insert", "scan_planes", "pool_touched",
+     "pool_insert"), 0
 )
 
 #: how a beam's endpoint reads the plane, by the codes of
@@ -1641,6 +1653,289 @@ def scan_planes(origins: Tensor, h: int, w: int, scale: float, poses: Tensor, sc
         _ptr(free_plane), _BAND_ROWS, stream))
     _LAUNCHES["scan_planes"] += 1
     return w_out, s_out
+
+
+# --- K3 over a block pool: the tiled and the copy-on-write maps ---------------
+
+
+def _pool_samples(origin: Tensor, scale: float, poses: Tensor, scans, cfg, q):
+    """Every scan's samples (``raycast.scan_sample_cells``), scan-major:
+    (scan index, rows, cols, w, s), ``w`` and ``s`` scaled by ``q``."""
+    from . import raycast
+
+    parts = [raycast.scan_sample_cells(origin, scale, poses[i], scans[i], cfg)
+             for i in range(poses.shape[0])]
+    pid = torch.cat([torch.full_like(r, i) for i, (r, *_) in enumerate(parts)])
+    rows, cols, w, sv = (torch.cat([pt[k] for pt in parts]) for k in range(4))
+    if q is not None:
+        w, sv = q * w, q * sv
+    return pid, rows, cols, w, sv
+
+
+def pool_touched_ref(tiles: tuple, block: int, origin: Tensor, scale: float, poses: Tensor,
+                     scans, cfg, q: Tensor | None = None) -> Tensor:
+    """Plain PyTorch version of :func:`pool_touched`: each scan's samples
+    counted by tile with ``scatter_add_``."""
+    th, tw = tiles
+    p = poses.shape[0]
+    pid, rows, cols, w, _ = _pool_samples(origin, scale, poses, scans, cfg, q)
+    valid = (w > 0) & (rows >= 0) & (rows < th * block) & (cols >= 0) & (cols < tw * block)
+    tile = (pid * th + (rows // block).clamp(0, th - 1)) * tw + (cols // block).clamp(0, tw - 1)
+    counts = torch.zeros(p * th * tw, dtype=torch.int32, device=poses.device)
+    counts.scatter_add_(0, tile, valid.to(torch.int32))
+    return counts.reshape(p, th, tw) > 0
+
+
+def pool_owners(tables: Tensor, touched: Tensor, n_slots: int,
+                refcnt: Tensor | None = None) -> Tensor:
+    """i32[n_slots]: the ``p * TH * TW + tile`` of table p's touched tile
+    that owns each slot alone (refcount 1 where ``refcnt`` is given), -1
+    for every other slot. Index ops on the device, nothing read back."""
+    p, th, tw = tables.shape
+    flat = tables.reshape(-1).to(torch.int64)
+    ok = touched.reshape(-1) & (flat >= 0)
+    if refcnt is not None:
+        ok = ok & (refcnt.index_select(0, flat.clamp(min=0)) == 1)
+    owner = torch.full((n_slots + 1,), -1, dtype=torch.int32, device=tables.device)
+    # a slot has one owner at most; every other entry goes to the spare slot
+    owner.index_put_((torch.where(ok, flat, n_slots),),
+                     torch.arange(p * th * tw, dtype=torch.int32, device=tables.device))
+    return owner[:n_slots]
+
+
+def _pool_keep(pool: Tensor, tables: Tensor, touched: Tensor, refcnt, pid, rows, cols, w):
+    """(keep, flat index into the pool) of each sample: on its table, of
+    weight > 0, in a slot its tile owns (:func:`pool_owners`)."""
+    n, b = pool.shape[0], pool.shape[1]
+    _, th, tw = tables.shape
+    tr, tc = rows // b, cols // b
+    on = (w > 0) & (tr >= 0) & (tr < th) & (tc >= 0) & (tc < tw)
+    tile = (pid * th + tr.clamp(0, th - 1)) * tw + tc.clamp(0, tw - 1)
+    slot = tables.reshape(-1)[tile].to(torch.int64)
+    owner = pool_owners(tables, touched, n, refcnt)
+    keep = on & (slot >= 0) & (owner[slot.clamp(min=0)] == tile)
+    return keep, slot * (b * b) + (rows % b) * b + cols % b
+
+
+def _fold_pool(pool: Tensor, model, w_obs: Tensor, s_obs: Tensor) -> Tensor:
+    """The cell model's fold over every slot (the reference's), into
+    ``pool`` in place."""
+    n_prev = pool[..., -1]
+    belief = model.update(pool[..., :-1], n_prev, w_obs, s_obs)
+    return pool.copy_(torch.cat([belief, (n_prev + w_obs)[..., None]], dim=-1))
+
+
+def pool_insert_ref(pool: Tensor, tables: Tensor, origin: Tensor, scale: float, model,
+                    poses: Tensor, scans, cfg, touched: Tensor, q: Tensor | None = None,
+                    refcnt: Tensor | None = None, n_live: Tensor | None = None) -> Tensor:
+    """Plain PyTorch version of :func:`pool_insert`: the samples of every
+    scan added on flat pool indices with ``index_put_(accumulate=True)``
+    (scan-major, each scan's in ``scan_sample_cells``' order), then the
+    fold over the whole pool, as the reference computes it. A sample whose
+    tile has no slot or does not own its slot alone is dropped. On the card
+    ``index_put_`` sums a cell's run of 32 samples or more in its own order
+    (PERF.md); the kernel sums in sample order."""
+    del n_live  # every slot is folded; an unallocated one holds the init cell, which stays
+    n, b = pool.shape[0], pool.shape[1]
+    pid, rows, cols, w, sv = _pool_samples(origin, scale, poses, scans, cfg, q)
+    keep, lin = _pool_keep(pool, tables, touched, refcnt, pid, rows, cols, w)
+    # a dropped sample adds 0.0 to a cell spread by its position, so that
+    # dropped samples do not pile up on one address of the sorted scatter
+    spread = torch.arange(keep.numel(), device=pool.device) % (n * b * b)
+    lin = torch.where(keep, lin, spread)
+    w_flat = torch.zeros(n * b * b, dtype=torch.float32, device=pool.device)
+    s_flat = torch.zeros_like(w_flat)
+    w_flat.index_put_((lin,), torch.where(keep, w, 0.0), accumulate=True)
+    s_flat.index_put_((lin,), torch.where(keep, sv, 0.0), accumulate=True)
+    return _fold_pool(pool, model, w_flat.reshape(n, b, b), s_flat.reshape(n, b, b))
+
+
+def pool_insert_ordered(pool: Tensor, tables: Tensor, origin: Tensor, scale: float, model,
+                        poses: Tensor, scans, cfg, touched: Tensor, q: Tensor | None = None,
+                        refcnt: Tensor | None = None, n_live: Tensor | None = None) -> Tensor:
+    """:func:`pool_insert` with the sums made on the host: the kept samples
+    (:func:`pool_insert_ref`'s) added with ``np.add.at`` in sample order,
+    then the fold on the pool's device, in place. Asserts that no slot
+    takes the samples of two touched tiles (a slot shared by tables takes
+    none: its refcount is above 1). The yardstick the kernel is held to
+    bit for bit on every live slot; it reads the samples back to the host,
+    so nothing on a main path calls it."""
+    del n_live
+    n, b = pool.shape[0], pool.shape[1]
+    flat = tables.reshape(-1)
+    hit = flat[touched.reshape(-1) & (flat >= 0)].cpu().numpy()
+    if refcnt is not None:  # a shared slot takes no write: count only the owned ones
+        hit = hit[refcnt.cpu().numpy()[hit] == 1]
+    if len(np.unique(hit)) != len(hit):
+        raise AssertionError("pool_insert_ordered: two touched tiles share a slot")
+    pid, rows, cols, w, sv = _pool_samples(origin, scale, poses, scans, cfg, q)
+    keep, lin = _pool_keep(pool, tables, touched, refcnt, pid, rows, cols, w)
+    keep, lin = keep.cpu().numpy(), lin.cpu().numpy()
+    w_np = np.zeros(n * b * b, np.float32)
+    s_np = np.zeros(n * b * b, np.float32)
+    np.add.at(w_np, lin[keep], w.cpu().numpy()[keep])
+    np.add.at(s_np, lin[keep], sv.cpu().numpy()[keep])
+    dev = pool.device
+    return _fold_pool(pool, model, torch.from_numpy(w_np).to(dev).reshape(n, b, b),
+                      torch.from_numpy(s_np).to(dev).reshape(n, b, b))
+
+
+def pool_insert_runs(pool: Tensor, tables: Tensor, origin: Tensor, scale: float, poses: Tensor,
+                     scans, cfg, touched: Tensor, q: Tensor | None = None,
+                     refcnt: Tensor | None = None) -> Tensor:
+    """i64[N, B, B]: the samples that :func:`pool_insert_ref` adds into each
+    cell (its free and occupied ones: one ``index_put_``). The card's
+    ``index_put_`` sums a run of 32 or more by a warp, in another order than
+    the kernel's, so these are the cells where the two may part."""
+    n, b = pool.shape[0], pool.shape[1]
+    pid, rows, cols, w, _ = _pool_samples(origin, scale, poses, scans, cfg, q)
+    keep, lin = _pool_keep(pool, tables, touched, refcnt, pid, rows, cols, w)
+    return torch.bincount(lin[keep], minlength=n * b * b).reshape(n, b, b)
+
+
+def _pool_scan_checks(who: str, tables_shape: tuple, origin: Tensor, poses: Tensor, dev):
+    p = tables_shape[0]
+    if not 1 <= p <= _MAX_MAPS:
+        raise ValueError(f"{who}: {p} tables, not between 1 and {_MAX_MAPS} a launch")
+    poses = poses if poses.is_contiguous() else poses.contiguous()
+    origin = origin if origin.is_contiguous() else origin.contiguous()
+    _check("poses", poses, (p, 3), dev)
+    _check("origin", origin, (2,), dev)
+    return poses, origin
+
+
+def _q_arg(q, dev):
+    if q is not None and not isinstance(q, Tensor):
+        q = torch.full((), float(q), dtype=torch.float32, device=dev)
+    if q is not None:
+        _check("q", q, (), dev)
+    return q
+
+
+@functools.cache
+def _pool_touch_fn():
+    fn = _build.load().pool_touch_launch
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [p, i, i, i, i, p, f, f, *_SCAN_ARGTYPES[:-1], p, p]  # ..., q, stream
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _pool_insert_fn():
+    fn = _build.load().pool_insert_launch
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [
+        p, i, i, i, p, p, p, p,  # pool, n_slots, block, c, tables, touched, refcnt, n_live
+        i, i, i, p, f, f,  # p, th, tw, origin, scale, scale^2
+        *_SCAN_ARGTYPES[:-1],
+        p, i, f, f, f, f, f,  # q, model, quality, base, decay, keep, eps
+        p,  # stream
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def pool_touched(tiles: tuple, block: int, origin: Tensor, scale: float, poses: Tensor, scans,
+                 cfg, q: Tensor | None = None) -> Tensor:
+    """bool[P, TH, TW]: the tiles (``tiles`` = (TH, TW) of ``block`` cells
+    a side, world corner ``origin`` f32[2]) in which scan p (``poses``
+    f32[P, 3], ``scans`` [P, R], rows may be broadcast) puts a sample of
+    weight ``q w > 0``: what allocation and copy-on-write must give a block
+    before :func:`pool_insert`. Its samples are ``scan_sample_cells``'.
+
+    CPU tensors take :func:`pool_touched_ref`; CUDA tensors launch
+    ``csrc/scan_insert.cu``'s marking mode once (a thread a run of up to 32
+    free samples of a beam) and add one to the ``pool_touched`` count."""
+    dev = poses.device
+    if dev.type == "cpu":
+        return pool_touched_ref(tiles, block, origin, scale, poses, scans, cfg, q)
+    if dev.type != "cuda":
+        raise ValueError(f"pool_touched: unsupported device {dev}")
+    th, tw = tiles
+    p = poses.shape[0]
+    poses, origin = _pool_scan_checks("pool_touched", (p,), origin, poses, dev)
+    args = _scan_args("pool_touched", scans, (p,), dev, cfg, scale)
+    q = _q_arg(q, dev)
+    out = torch.zeros((p, th, tw), dtype=torch.uint8, device=dev)
+    fn = _pool_touch_fn()
+    _launch("pool_touched", dev, lambda stream: fn(
+        out.data_ptr(), p, th, tw, block, origin.data_ptr(), scale, scale * scale,
+        poses.data_ptr(), *(_ptr(a) if isinstance(a, Tensor) or a is None else a for a in args),
+        _ptr(q), stream))
+    _LAUNCHES["pool_touched"] += 1
+    return out.view(torch.bool)
+
+
+def pool_insert(pool: Tensor, tables: Tensor, origin: Tensor, scale: float, model,
+                poses: Tensor, scans, cfg, touched: Tensor, q: Tensor | None = None,
+                refcnt: Tensor | None = None, n_live: Tensor | None = None) -> Tensor:
+    """K3 over a block pool: scan p (``poses`` f32[P, 3], ``scans`` [P, R],
+    rows may be broadcast) inserted into the tiles of table p (``tables``
+    i32[P, TH, TW], slots of ``pool`` f32[N, B, B, C], world corner
+    ``origin`` f32[2] of tile (0, 0)) and folded with the cell model, in
+    place; returns ``pool``. ``touched`` bool[P, TH, TW] is
+    :func:`pool_touched`'s. A sample goes into its tile's slot where the
+    tile owns it alone (a slot of refcount 1 when ``refcnt`` i32[N] is
+    given, as after ``cow.prepare_write``), else it is dropped (an
+    unallocated tile of an exhausted pool, a write the CoW pool could not
+    make exclusive). Every live slot is folded once, with its tile's
+    samples or with none (the reference folds the whole pool; a fold with
+    no observation may move a Bayes average by an ulp): live is ``refcnt >
+    0``, or below ``n_live`` i32[] (the tiled map's ``n_alloc``; its other
+    slots hold the init cell, which the fold leaves as it is). ``q`` f32[]
+    scales each sample (None: 1); the free counts enter as ``q`` times the
+    count, the samples' sum in order where ``q`` is 0 or 1.
+
+    CPU tensors take the plain twin :func:`pool_insert_ref`. CUDA tensors
+    launch ``csrc/scan_insert.cu``'s pool mode once, a block a slot (each
+    live block finds its owner in the tables and marks, as
+    :func:`pool_owners` does; the tile's samples summed in sample order,
+    free ones first, as the reference's one scatter adds them), and add one
+    to the ``pool_insert`` count. Nothing is read on the host; the DDA free
+    trace only (the reference's ``scan_sample_cells``)."""
+    dev = pool.device
+    if dev.type == "cpu":
+        return pool_insert_ref(pool, tables, origin, scale, model, poses, scans, cfg, touched,
+                               q, refcnt, n_live)
+    if dev.type != "cuda":
+        raise ValueError(f"pool_insert: unsupported device {dev}")
+    code = _CELL_MODEL_CODES.get(type(model))
+    if code is None:
+        raise ValueError(f"pool_insert: no fold for the cell model {type(model).__name__}")
+    n, b, b2, c = pool.shape
+    if b2 != b or c != model.n_channels + 1:
+        raise ValueError(f"pool_insert: pool {tuple(pool.shape)} is not (N, B, B, "
+                         f"{model.n_channels + 1})")
+    if not pool.is_contiguous() or pool.data_ptr() % 16:
+        raise ValueError("pool_insert: the pool must be contiguous and 16-byte aligned "
+                         "(it is updated in place)")
+    _check("pool", pool, tuple(pool.shape), dev)
+    p, th, tw = tables.shape
+    _check("tables", tables, (p, th, tw), dev, torch.int32)
+    _check("touched", touched, (p, th, tw), dev, torch.bool)
+    poses, origin = _pool_scan_checks("pool_insert", (p,), origin, poses, dev)
+    if (refcnt is None) == (n_live is None):
+        raise ValueError("pool_insert: name the live slots by refcnt or by n_live, one of them")
+    if refcnt is None and p != 1:
+        raise ValueError("pool_insert: P tables share slots: their refcounts are needed")
+    if refcnt is not None:
+        _check("refcnt", refcnt, (n,), dev, torch.int32)
+    else:
+        _check("n_live", n_live, (), dev, torch.int32)
+    args = _scan_args("pool_insert", scans, (p,), dev, cfg, scale)
+    q = _q_arg(q, dev)
+    quality = getattr(model, "quality", 0.0)
+    decay = getattr(model, "conflict_decay", 0.0)
+    fn = _pool_insert_fn()
+    _launch("pool_insert", dev, lambda stream: fn(
+        pool.data_ptr(), n, b, c, tables.data_ptr(), touched.data_ptr(), _ptr(refcnt),
+        _ptr(n_live), p, th, tw,
+        origin.data_ptr(), scale, scale * scale, poses.data_ptr(),
+        *(_ptr(a) if isinstance(a, Tensor) or a is None else a for a in args),
+        _ptr(q), code, quality, 1.0 - quality, decay, 1.0 - decay, cells._EPS, stream))
+    _LAUNCHES["pool_insert"] += 1
+    return pool
 
 
 # --- M3RSM: the pyramid (K4a) and the whole match (K4b) ----------------------

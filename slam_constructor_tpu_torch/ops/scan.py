@@ -42,6 +42,19 @@ class LaserScan:
         )
 
 
+@dataclasses.dataclass
+class OdomScan:
+    """A scan with the odometry delta since the previous scan and its
+    quality (the reference's ``TransformedLaserScan``)."""
+
+    scan: LaserScan
+    odom_delta: Tensor  # f32[3] body-frame pose increment
+    quality: Tensor  # f32[] confidence in [0, 1]
+
+    def to(self, device) -> "OdomScan":
+        return OdomScan(self.scan.to(device), self.odom_delta.to(device), self.quality.to(device))
+
+
 def make_scan(
     ranges,
     bearings,

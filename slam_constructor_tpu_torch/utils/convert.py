@@ -22,7 +22,12 @@ field names and its fixed-capacity layout: ``kf_poses`` f32[K, 3],
 A reference ``GMappingState`` (dense storage) crosses as ``cells`` f32[P,
 H, W, C], ``origin`` f32[P, 2], ``scale`` float, ``poses`` f32[P, 3],
 ``log_weights`` f32[P], ``step`` int; its key stays on the JAX side (the
-port draws from the engine's generator, or takes injected draws).
+port draws from the engine's generator, or takes injected draws). On the
+copy-on-write storage the maps cross as the ``CowBlockMaps`` fields in
+place of ``cells``: ``pool`` f32[N, B, B, C], ``tables`` i32[P, TH, TW],
+``refcnt`` i32[N], ``origin`` f32[2], ``scale``, ``block`` and
+``overflow`` bool (:func:`cow_from_numpy` / :func:`cow_to_numpy`; a tiled
+``BlockMap`` alone: :func:`blockmap_from_numpy` / :func:`blockmap_to_numpy`).
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from ..models.engine import SlamState
 from ..models.gmapping import GMappingState
 from ..models.posegraph import PoseGraphState
 from ..ops.blockmap import BlockMap
+from ..ops.cow import CowBlockMaps
 from ..ops.grid import GridMap
 from ..ops.scan import LaserScan
 
@@ -48,12 +54,7 @@ def state_from_numpy(tree: dict, device=None) -> SlamState:
         return torch.tensor(np.asarray(a, np.float32), device=device)
 
     if "pool" in tree:
-        gm = BlockMap(
-            pool=f32(tree["pool"]), origin=f32(tree["origin"]), scale=float(tree["scale"]),
-            table=torch.tensor(np.asarray(tree["table"], np.int32), device=device),
-            n_alloc=torch.tensor(np.asarray(tree["n_alloc"], np.int32), device=device),
-            block=int(tree["block"]),
-        )
+        gm = blockmap_from_numpy(tree, device)
     else:
         gm = GridMap(cells=f32(tree["cells"]), origin=f32(tree["origin"]),
                      scale=float(tree["scale"]))
@@ -70,19 +71,57 @@ def state_to_numpy(state: SlamState) -> dict:
     """The port's state as a numpy dict (see module docstring)."""
     gm = state.gm
     if isinstance(gm, BlockMap):
-        maps = {"pool": gm.pool.cpu().numpy(), "table": gm.table.cpu().numpy(),
-                "n_alloc": int(gm.n_alloc), "block": gm.block}
+        maps = blockmap_to_numpy(gm)
     else:
-        maps = {"cells": gm.cells.cpu().numpy()}
+        maps = {"cells": gm.cells.cpu().numpy(), "origin": gm.origin.cpu().numpy(),
+                "scale": float(gm.scale)}
     return {
         **maps,
-        "origin": gm.origin.cpu().numpy(),
-        "scale": float(gm.scale),
         "pose": state.pose.cpu().numpy(),
         "step": int(state.step),
         "last_prob": float(state.last_prob),
         "pyramid": tuple(p.cpu().numpy() for p in state.pyramid),
     }
+
+
+def blockmap_from_numpy(tree: dict, device=None) -> BlockMap:
+    """A tiled map from ``pool``, ``table``, ``n_alloc``, ``origin``,
+    ``scale`` and ``block`` (a reference ``BlockMap``'s fields)."""
+    device = resolve_device(device)
+    return BlockMap(
+        pool=torch.tensor(np.asarray(tree["pool"], np.float32), device=device),
+        table=torch.tensor(np.asarray(tree["table"], np.int32), device=device),
+        n_alloc=torch.tensor(np.asarray(tree["n_alloc"], np.int32), device=device),
+        origin=torch.tensor(np.asarray(tree["origin"], np.float32), device=device),
+        scale=float(tree["scale"]), block=int(tree["block"]),
+    )
+
+
+def blockmap_to_numpy(bm: BlockMap) -> dict:
+    return {"pool": bm.pool.cpu().numpy(), "table": bm.table.cpu().numpy(),
+            "n_alloc": int(bm.n_alloc), "origin": bm.origin.cpu().numpy(),
+            "scale": float(bm.scale), "block": bm.block}
+
+
+def cow_from_numpy(tree: dict, device=None) -> CowBlockMaps:
+    """Copy-on-write maps from ``pool``, ``tables``, ``refcnt``,
+    ``origin``, ``scale``, ``block`` and ``overflow`` (a reference
+    ``CowBlockMaps``' fields)."""
+    device = resolve_device(device)
+    return CowBlockMaps(
+        pool=torch.tensor(np.asarray(tree["pool"], np.float32), device=device),
+        tables=torch.tensor(np.asarray(tree["tables"], np.int32), device=device),
+        refcnt=torch.tensor(np.asarray(tree["refcnt"], np.int32), device=device),
+        origin=torch.tensor(np.asarray(tree["origin"], np.float32), device=device),
+        scale=float(tree["scale"]), block=int(tree["block"]),
+        overflow=torch.tensor(bool(tree["overflow"]), device=device),
+    )
+
+
+def cow_to_numpy(st: CowBlockMaps) -> dict:
+    return {"pool": st.pool.cpu().numpy(), "tables": st.tables.cpu().numpy(),
+            "refcnt": st.refcnt.cpu().numpy(), "origin": st.origin.cpu().numpy(),
+            "scale": float(st.scale), "block": st.block, "overflow": bool(st.overflow)}
 
 
 _GRAPH_FIELDS = {
@@ -128,8 +167,10 @@ def gmapping_state_from_numpy(tree: dict, device=None) -> GMappingState:
     def f32(a):
         return torch.tensor(np.asarray(a, np.float32), device=device)
 
+    gm = (cow_from_numpy(tree, device) if "tables" in tree else
+          GridMap(cells=f32(tree["cells"]), origin=f32(tree["origin"]), scale=float(tree["scale"])))
     return GMappingState(
-        gm=GridMap(cells=f32(tree["cells"]), origin=f32(tree["origin"]), scale=float(tree["scale"])),
+        gm=gm,
         poses=f32(tree["poses"]),
         log_weights=f32(tree["log_weights"]),
         step=torch.tensor(np.asarray(tree["step"], np.int32), device=device),
@@ -138,10 +179,12 @@ def gmapping_state_from_numpy(tree: dict, device=None) -> GMappingState:
 
 def gmapping_state_to_numpy(state: GMappingState) -> dict:
     """The port's RBPF state as a numpy dict (see module docstring)."""
+    gm = state.gm
+    maps = cow_to_numpy(gm) if isinstance(gm, CowBlockMaps) else {
+        "cells": gm.cells.cpu().numpy(), "origin": gm.origin.cpu().numpy(),
+        "scale": float(gm.scale)}
     return {
-        "cells": state.gm.cells.cpu().numpy(),
-        "origin": state.gm.origin.cpu().numpy(),
-        "scale": float(state.gm.scale),
+        **maps,
         "poses": state.poses.cpu().numpy(),
         "log_weights": state.log_weights.cpu().numpy(),
         "step": int(state.step),

@@ -13,7 +13,7 @@ import torch
 
 from ..ops import raycast
 from ..ops import scan as scanlib
-from ..ops.geometry import between
+from ..ops.geometry import between, wrap_angle
 
 Tensor = torch.Tensor
 
@@ -114,6 +114,18 @@ def rectangle_trajectory(
             p = a + t * seg
             poses.append((p[0], p[1], heading))
     return torch.as_tensor(np.asarray(poses).astype(np.float32), device=device)
+
+
+def loop_trajectory(n_steps: int = 120, radius: float = 3.0, center=(0.0, 0.0),
+                    device=None) -> Tensor:
+    """A closed circle of ``n_steps`` poses, heading along it (for
+    loop-closure tests)."""
+    a = np.linspace(0, 2 * np.pi, n_steps, endpoint=False)
+    x = torch.as_tensor((center[0] + radius * np.cos(a)).astype(np.float32), device=device)
+    y = torch.as_tensor((center[1] + radius * np.sin(a)).astype(np.float32), device=device)
+    # the reference wraps the heading in f32
+    th = wrap_angle(torch.as_tensor((a + np.pi / 2).astype(np.float32), device=device))
+    return torch.stack([x, y, th], dim=-1)
 
 
 def synth_sequence(

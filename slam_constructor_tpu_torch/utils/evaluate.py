@@ -1,8 +1,9 @@
-"""Trajectory evaluation: ATE and RPE (port of
-``slam_constructor_tpu.utils.evaluate``; ``map_quality`` waits)."""
+"""Trajectory and map evaluation: ATE, RPE and map quality against a
+ground-truth occupancy plane (port of ``slam_constructor_tpu.utils.evaluate``)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops.geometry import between, wrap_angle
@@ -46,3 +47,24 @@ def rpe(est: Tensor, gt: Tensor, delta: int = 1) -> tuple[Tensor, Tensor]:
     dt = de[:, :2] - dg[:, :2]
     dr = wrap_angle(de[:, 2] - dg[:, 2])
     return torch.sqrt((dt**2).sum(-1).mean()), torch.sqrt((dr**2).mean())
+
+
+def map_quality(occ_est: Tensor, occ_gt: Tensor, occupied_thresh: float = 0.6,
+                free_thresh: float = 0.25) -> dict:
+    """Map-vs-ground-truth metrics on co-registered occupancy planes of one
+    extent and scale: occupied-cell IoU, the share of the cells claimed
+    free that are free, and coverage (the share of the true structure
+    seen occupied). Floats on the host."""
+    occ_gt = torch.as_tensor(occ_gt, device=occ_est.device)
+    est_occ = occ_est >= occupied_thresh
+    est_free = occ_est <= free_thresh
+    gt_occ = occ_gt >= 0.5
+    inter = (est_occ & gt_occ).sum()
+    union = (est_occ | gt_occ).sum()
+    free_ok = (est_free & ~gt_occ).sum()
+    n = torch.stack([inter, union, free_ok, est_free.sum(), gt_occ.sum()]).tolist()
+    return {
+        "occupied_iou": float(np.float32(n[0]) / np.float32(max(n[1], 1))),
+        "free_accuracy": float(np.float32(n[2]) / np.float32(max(n[3], 1))),
+        "coverage": float(np.float32(n[0]) / np.float32(max(n[4], 1))),
+    }

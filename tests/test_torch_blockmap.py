@@ -10,6 +10,10 @@ boundary the reference's jitted division by the scale (a product with its
 reciprocal) and the port's IEEE division may put a DDA sample in
 neighbouring cells.
 
+The insert runs through ``kernels.pool_touched`` and ``kernels.pool_insert``
+(K3 over the pool; their plain twins here), which the ordered host sums
+match bit for bit with one thread.
+
 Trap n: where the pool is exhausted the reference adds a sample at flat
 index -1, which wraps into the last cell of the last block; the port drops
 it. The exhaustion test pins that difference and nothing else.
@@ -31,6 +35,7 @@ from slam_constructor_tpu.ops.scan import LaserScan as JScan
 from slam_constructor_tpu_torch.models import engine as teng
 from slam_constructor_tpu_torch.ops import blockmap as tbm
 from slam_constructor_tpu_torch.ops import cells as tcells
+from slam_constructor_tpu_torch.ops import kernels
 from slam_constructor_tpu_torch.ops import matchers as tmatchers
 from slam_constructor_tpu_torch.ops import raycast as tray
 from slam_constructor_tpu_torch.ops import scoring as tscoring
@@ -158,6 +163,40 @@ def test_exhausted_pool_drops_what_the_reference_wraps(seq, model):
     assert rp[-1, -1, -1, -1] > pp[-1, -1, -1, -1]
     rp[-1, -1, -1], pp[-1, -1, -1] = 0.0, 0.0
     np.testing.assert_allclose(pp, rp, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("model", sorted(MODELS))
+def test_pool_insert_twin_equals_ordered_sums(seq, model):
+    """K3 over the tiled pool on the CPU: the touched tiles are the
+    reference's, and the twin's pool equals the ordered host sums
+    (``kernels.pool_insert_ordered``) bit for bit with one thread, on every
+    slot; q = 0 touches nothing."""
+    scans, _, gt = seq
+    jm, tm = MODELS[model]
+    beam = dict(wall_blur=True, max_range=6.0)
+    tbeam, jbeam = tray.BeamConfig(**beam), jray.BeamConfig(free_impl="dda", **beam)
+    bm = tbm.make_block_map(tm, TILES, TILES, 400, block=B, scale=SCALE, device="cpu")
+    for i in (0, 3, 6):
+        pose, sc = gt[i][None], scans[i:i + 1]
+        touched = kernels.pool_touched((TILES, TILES), B, bm.origin, bm.scale, pose, sc, tbeam)
+        rows, cols, w, _ = jray.scan_sample_cells(jnp.asarray(bm.origin.numpy()), SCALE,
+                                                  jnp.asarray(gt[i].numpy()), jscan(scans, i),
+                                                  jbeam)
+        ok = (w > 0) & (rows >= 0) & (rows < TILES * B) & (cols >= 0) & (cols < TILES * B)
+        want = jnp.zeros((TILES, TILES), bool).at[
+            jnp.clip(rows // B, 0, TILES - 1), jnp.clip(cols // B, 0, TILES - 1)].max(ok)
+        np.testing.assert_array_equal(touched[0].numpy(), np.asarray(want))
+        zero = torch.zeros(())
+        assert not kernels.pool_touched((TILES, TILES), B, bm.origin, bm.scale, pose, sc, tbeam,
+                                        zero).any()
+        bm = tbm.allocate_tiles(bm, touched[0])
+        ordered = bm.pool.clone()
+        kernels.pool_insert_ordered(ordered, bm.table[None], bm.origin, bm.scale, tm, pose, sc,
+                                    tbeam, touched, n_live=bm.n_alloc)
+        got = kernels.pool_insert(bm.pool, bm.table[None], bm.origin, bm.scale, tm, pose, sc,
+                                  tbeam, touched, n_live=bm.n_alloc)
+        assert got is bm.pool  # in place
+        np.testing.assert_array_equal(got.numpy(), ordered.numpy())
 
 
 def test_tiled_engine_matches_reference(seq):

@@ -192,7 +192,7 @@ def test_gmapping_config_lockstep():
 
 
 @pytest.mark.parametrize("make", [
-    lambda: tgm.GMappingConfig(map_storage="cow"),
+    lambda: tgm.GMappingConfig(refine_matcher="gradient"),
     lambda: tgm.GMappingConfig(refine_matcher="hill_climbing"),
     lambda: tgm.GMappingConfig(matcher="m3rsm"),
 ])

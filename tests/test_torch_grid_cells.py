@@ -212,13 +212,13 @@ def test_viny_m3rsm_config_lockstep():
     "make",
     [
         # the tiled storage, the engine's refine and hill climbing as its
-        # primary matcher are ported (test_torch_config.py); what stays of
-        # later slices: the sharded preset, the RBPF's copy-on-write storage
-        # and its gradient refine
+        # primary matcher are ported (test_torch_config.py), and so is the
+        # RBPF's copy-on-write storage (test_torch_cow.py); what stays of
+        # later slices: the sharded preset and the RBPF's other matchers
         lambda: tconfig.preset("distributed"),
         # the reference's grid-pitch fallback for M3RSM is a known fault (trap e)
         lambda: tpg.PoseGraphConfig(loop_matcher_kind="m3rsm", loop_subcell_refine=True),
-        lambda: tgm.GMappingConfig(map_storage="cow"),
+        lambda: tgm.GMappingConfig(matcher="m3rsm"),
         lambda: tgm.GMappingConfig(refine_matcher="gradient"),
         lambda: tray.BeamConfig(free_impl="auto"),
         lambda: tray.BeamConfig(free_impl="polar_pallas"),

@@ -48,7 +48,13 @@ but where the card's ``index_put_`` sums a cell's run of 32 occupied
 samples or more in another order (within 1e-6 relative). ``scan_planes``
 (K3 without the fold: N scans into P planes) equals ``scan_planes_ordered``
 the same way, for every ``plane_of`` form and a plane of 57,600 occupied
-samples.
+samples. ``pool_insert`` (K3 over a block pool: the tiled map's one table,
+the copy-on-write RBPF's P tables) equals ``pool_insert_ordered`` bit for
+bit on every live slot (beams along tile boundaries, a particle at the
+table's corner, a scan without a valid beam, a shared untouched block,
+q = 0, an exhausted pool), leaves the dead slots as they were, and its twin
+within 2e-6 relative; ``pool_touched`` equals its twin exactly; a call the
+kernel cannot take raises.
 """
 
 import dataclasses
@@ -1163,3 +1169,117 @@ def test_scan_planes_equals_the_ordered_sums(planes_scene, case):
         assert float(((g - t).abs() / t.abs().clamp(min=1e-30)).max()) <= max(
             1e-6, float(runs.max()) * 2.0**-24)
     assert int((got[1] > 0).sum()) > 500
+
+
+# --- K3 over a block pool (pool_touched, pool_insert) --------------------------
+
+
+@pytest.fixture(scope="module")
+def pool_scene():
+    """Six bench scans at their poses on 256^2 cells of 0.1 m (8 x 8 tiles
+    of 32), and the same at 0.05 m with 16 x 16 tiles (the tiled map's
+    scale); the pose of scan 0 moved onto a tile corner (beams along tile
+    boundaries) and scan 1 near the table's corner (samples off it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    dev = torch.device("cuda")
+    occ, origin, scale = datagen.cecum_world(device=dev)
+    poses = datagen.rectangle_trajectory(step=0.2, device=dev)[:6]
+    scans, _, gt = datagen.synth_sequence(
+        occ, origin, scale, poses, datagen.default_bearings(360, device=dev), rng=0)
+    return scans, gt
+
+
+def _pool_case(pool_scene, case):
+    """(state, model, poses, scans, beam, touched, q, live kwargs)."""
+    from slam_constructor_tpu_torch.ops import blockmap, cow
+
+    scans, gt = pool_scene
+    dev = gt.device
+    beam = raycast.BeamConfig(max_range=6.0, wall_blur=True,
+                              occupancy_estimator="area" if "area" in case else "const")
+    poses = gt.clone()
+    valid = scans.valid.clone()
+    if "no valid beam" in case:
+        valid[2] = False
+    sc = LaserScan(scans.ranges, scans.bearings, valid)
+    q = torch.zeros((), device=dev) if "q=0" in case else None
+    if case.startswith("tiled"):
+        model = cells.TBMCell()
+        cap = 12 if "exhausted" in case else 2048
+        bm = blockmap.make_block_map(model, 64, 64, cap, block=32, scale=0.05, device=dev)
+        touched = kernels.pool_touched((64, 64), 32, bm.origin, bm.scale, poses[3:4], sc[3:4],
+                                       beam, q)
+        bm = blockmap.allocate_tiles(bm, touched[0])
+        return (bm.pool, bm.table[None], bm.origin, bm.scale, model, poses[3:4], sc[3:4], beam,
+                touched, q), {"n_live": bm.n_alloc}
+    model = cells.BayesAvgCell()
+    st = cow.make_cow_maps(model, 6, 8, 8, 1024, block=32, scale=0.1, device=dev)
+    poses[0, :2] = st.origin + 4 * 32 * 0.1  # a tile corner
+    poses[0, 2] = 0.0
+    poses[1, :2] = st.origin + 0.4
+    touched = kernels.pool_touched((8, 8), 32, st.origin, st.scale, poses, sc, beam, q)
+    st = cow.prepare_write(st, model, touched)
+    st.pool.copy_(torch.rand(st.pool.shape, generator=torch.Generator(device=dev).manual_seed(1),
+                             device=dev))
+    if "shared" in case:  # a block of particles 4 and 5 that neither touches
+        free = int(torch.nonzero(st.refcnt == 0)[0])
+        free_tiles = torch.nonzero(~touched[4] & ~touched[5])[0]
+        st.tables[4, free_tiles[0], free_tiles[1]] = free
+        st.tables[5, free_tiles[0], free_tiles[1]] = free
+        st.refcnt[free] = 2
+    return (st.pool, st.tables, st.origin, st.scale, model, poses, sc, beam, touched, q), {
+        "refcnt": st.refcnt}
+
+
+POOL_CASES = ("cow", "cow area", "cow shared", "cow no valid beam", "cow q=0", "tiled",
+              "tiled exhausted")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", POOL_CASES)
+def test_pool_insert_equals_the_ordered_sums(pool_scene, case):
+    """The pool insert against its yardstick (the kept samples summed on the
+    host in order, the same fold) bit for bit on every live slot, twice the
+    same bits; the marks against their twin exactly; the twin within 2e-6
+    relative (the card's index_put_ sums a run of 32 or more its own way)."""
+    args, live = _pool_case(pool_scene, case)
+    pool, tables, origin, scale, model, poses, sc, beam, touched, q = args
+    want_touched = kernels.pool_touched_ref(tuple(tables.shape[1:]), pool.shape[1], origin,
+                                            scale, poses, sc, beam, q)
+    assert torch.equal(touched, want_touched)
+    before = kernels.launch_counts()["pool_insert"]
+    got, again, want, twin = (pool.clone() for _ in range(4))
+    kernels.pool_insert(got, *args[1:], **live)
+    kernels.pool_insert(again, *args[1:], **live)
+    kernels.pool_insert_ordered(want, *args[1:], **live)
+    kernels.pool_insert_ref(twin, *args[1:], **live)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["pool_insert"] == before + 2
+    n = pool.shape[0]
+    is_live = live["refcnt"] > 0 if "refcnt" in live else torch.arange(n, device=pool.device) < \
+        live["n_live"]
+    assert torch.equal(got[is_live].view(torch.int32), want[is_live].view(torch.int32))
+    assert torch.equal(again.view(torch.int32), got.view(torch.int32))
+    assert torch.equal(got[~is_live], pool[~is_live])  # a dead slot is left as it was
+    torch.testing.assert_close(got[is_live], twin[is_live], rtol=2e-6, atol=2e-6)
+
+
+@pytest.mark.cuda
+def test_pool_insert_never_falls_back(pool_scene):
+    """A CUDA call the kernel cannot take raises; it never runs the twin."""
+    args, live = _pool_case(pool_scene, "cow")
+    pool = args[0]
+    with pytest.raises(ValueError):  # not 16-byte aligned
+        flat = torch.empty(pool.numel() + 1, device=pool.device)
+        kernels.pool_insert(flat[1:].view(pool.shape), *args[1:], **live)
+    with pytest.raises(ValueError):  # 2 channels, not TBM's 5
+        kernels.pool_insert(pool, *args[1:4], cells.TBMCell(), *args[5:], **live)
+    with pytest.raises(ValueError):  # the live slots named twice
+        kernels.pool_insert(pool, *args[1:], refcnt=live["refcnt"],
+                            n_live=torch.zeros((), dtype=torch.int32, device=pool.device))
+    big = torch.zeros((4, 128, 128, 2), device=pool.device)  # a slot past the shared memory
+    with pytest.raises(RuntimeError):
+        kernels.pool_insert(big, torch.zeros((6, 2, 2), dtype=torch.int32, device=pool.device),
+                            *args[2:8], torch.ones((6, 2, 2), dtype=torch.bool, device=pool.device),
+                            None, refcnt=torch.ones(4, dtype=torch.int32, device=pool.device))
