@@ -156,8 +156,10 @@ Phases, one line or more each, in order; any failure exits non-zero:
    on every ``configs/*.properties`` at the config's own widths on the card:
    128 scans of the cecum rectangle (64 for gmapping and tum_2d), 360 beams;
    its scans/s, ATE and RPE; the launches the design gives (tiny, viny and
-   mit_stata ``mc_match`` 1 a scan, mit_stata also ``pool_touched`` and
-   ``pool_insert`` 1 a scan and never the pool's twin; tiny_refined also ``gradient_refine``
+   mit_stata ``mc_match`` 1 a scan, mit_stata also ``pool_prepare`` and
+   ``pool_insert`` 1 a scan and never a plain version of the pool's
+   (``POOL_TWINS``: the twins, ``cow.prepare_write``,
+   ``blockmap.allocate_tiles``); tiny_refined also ``gradient_refine``
    1 a scan, its gradient refine; mit_csail ``hill_climb`` 1 a scan, its
    hill climb; viny_m3rsm ``m3rsm_search``
    1 and ``m3rsm_pyramid`` 1 a scan + 1; gmapping ``mc_match_batched`` 1;
@@ -268,8 +270,9 @@ Phases, one line or more each, in order; any failure exits non-zero:
 36. the RBPF on the copy-on-write block pool (``ops/cow.py``) at bench.py's
    ``gmapping`` width (``COW_FIELDS``: 160^2 windows as 5 x 5 tiles of 32,
    1,024 blocks), 512 scans with the sync check on: ``mc_match_batched``,
-   ``pool_touched`` and ``pool_insert`` 512 launches each and nothing else,
-   the pool's twin never called, whether the overflow latch was set, the
+   ``pool_prepare`` and ``pool_insert`` 512 launches each and nothing else
+   (no ``pool_touched``), no plain version of the pool's called (no
+   ``cow.prepare_write``), whether the overflow latch was set, the
    distinct blocks at the end, the pool's bytes beside the dense path's 30
    maps, the winner's ATE within 0.02 m of the JAX reference's worst of five
    keys, two runs equal bit for bit; once more with the pool insert's plain
@@ -277,9 +280,11 @@ Phases, one line or more each, in order; any failure exits non-zero:
    bit for bit, or parting only after an insert whose live blocks differed
    in cells of 32 samples or more (trap c), counted;
 37. the same over the reference's two-lap quality sequence (the winner's
-   ATE within its worst key + 0.02 m);
+   ATE within its worst key + 0.02 m; the same launches a scan, no plain
+   version);
 38. card vs CPU: the first 16 copy-on-write scans with the same draws
-   (poses and weights within 1e-4, ancestors equal, every particle's map
+   (on the card the same launches a scan and no plain version; poses and
+   weights within 1e-4, ancestors equal, every particle's map
    as the dense RBPF's is held); then a ``handle_scan`` run from 64 blocks
    whose latch is read every 32 scans: the pool grows, card and CPU equal;
 39. ``Engine.auto_grow``: tiny and viny_m3rsm (its search on the whole
@@ -288,23 +293,41 @@ Phases, one line or more each, in order; any failure exits non-zero:
    ``handle_scan``, 64 scans: the map grows, the pyramid is rebuilt on
    growth (one ``m3rsm_pyramid`` launch more a growth), shapes, origins and
    poses (1e-4) equal to the CPU run's;
-40. K3 over a block pool (``kernels.pool_insert``, the same source, a block
-   a slot) and its marking mode (``kernels.pool_touched``) on the calls kept
-   from the mit_stata and copy-on-write runs and on edge cases (beams along
-   tile boundaries, a particle at the table's corner, a scan without a
-   valid beam, shared untouched blocks, a pool exhausted by the tiled map):
-   equal to ``pool_insert_ordered`` bit for bit on every live slot, two
-   launches equal, dead slots untouched, the twin equal but in cells of 32
-   samples or more; the marks equal to their twin; then both timed at each
-   path's shape (graph replay, a call, chained) beside the twin and the
-   bound (bytes: the live blocks read and written once, and the scans).
+40. K3 over a block pool (``kernels.pool_insert``, the same source: a fixed
+   grid taking a work list's items) and its marking mode
+   (``kernels.pool_touched``) on the calls kept from the mit_stata and
+   copy-on-write runs and on edge cases (beams along tile boundaries, a
+   particle at the table's corner, a scan without a valid beam, shared
+   untouched blocks, a pool exhausted by the tiled map): equal to
+   ``pool_insert_ordered`` bit for bit on every live slot, two launches
+   equal, dead slots untouched, the twin equal but in cells of 32 samples
+   or more; the marks equal to their twin; then both timed at each path's
+   shape (graph replay, a call, chained; the insert from its work list)
+   beside the twin and the bound (bytes: the live blocks read and written
+   once, and the scans). Then the prepare launch (``kernels.pool_prepare``:
+   the marks, the copy-on-write compaction and block copies or the tiled
+   allocation, the owners and the work list, one cluster) on the prepare
+   calls kept from both runs and on edge cases (a tile corner, the table's
+   corner, a NaN pose, no valid beam, free limits on samples, a budget of
+   7 new blocks, every touched tile shared, the first step, an empty pool of
+   64 blocks under trap o, q = 0, an exhausted tiled pool, a pool of
+   16,384 blocks too large for block 0's shared memory): equal to its
+   plain version (``cow.prepare_insert_ref`` or
+   ``blockmap.prepare_tiles_ref``) bit for bit in marks, tables,
+   refcounts, latch or n_alloc, the whole pool, owners and work list, and
+   the insert from its list equal to ``pool_insert_ordered``; then timed
+   on each path's kept call and on the state resampled to one ancestor
+   (its new blocks copies; the state restored in the graph, the restore
+   timed alone and taken off) beside the plain version and the bound
+   (bytes: the tables, refcounts, marks, owners and list, each new block's
+   source read and the block written).
 
 Every bound counts, of the plane or window, the distinct cells that the
 taps of every pose the kernel scores read (the poses taken from its
 yardstick's run on the same inputs), not the whole plane.
 
 Every path on a dense map inserts through ``scan_insert`` once a scan, the
-tiled mit_stata and the copy-on-write RBPF through ``pool_touched`` and
+tiled mit_stata and the copy-on-write RBPF through ``pool_prepare`` and
 ``pool_insert``; the full paths' submaps and
 regenerated maps rasterise through ``scan_planes``. The launch counts are set to
 0 just before each of these runs and read just after it. The line before the last is a JSON object of the
@@ -2372,7 +2395,7 @@ def cli_expected(name, n):
     probes a scan)."""
     return expect(**{
         "tiny": dict(mc_match=n, scan_insert=n), "viny": dict(mc_match=n, scan_insert=n),
-        "mit_stata": dict(mc_match=n, pool_touched=n, pool_insert=n),
+        "mit_stata": dict(mc_match=n, pool_prepare=n, pool_insert=n),
         "tiny_refined": dict(mc_match=n, gradient_refine=n, scan_insert=n),
         "mit_csail": dict(mc_match=n, hill_climb=n, scan_insert=n),
         "viny_m3rsm": dict(m3rsm_search=n, m3rsm_pyramid=n + 1, scan_insert=n),
@@ -2408,8 +2431,9 @@ def phase_cli(dev):
                 pool_twin_counted() as twin_calls:
             res = run.execute(args)
         launches[name] = read_launches()
-        # the tiled map's samples go through the pool kernel, never the twin's scatter
-        check(not twin_calls, f"cli {name}: the pool insert's plain twin ran on the card's path")
+        # the tiled map goes through the pool kernels, never a plain version
+        check(not twin_calls, f"cli {name}: the pool's plain versions ran on the card's path: "
+                              f"{sorted(set(twin_calls))}")
         refine_kept["gradient_refine"] = refine_kept.get("gradient_refine", []) + grad_k
         refine_kept["hill_climb"] = refine_kept.get("hill_climb", []) + climb_k
         n = res.trajectory.shape[0]
@@ -3634,19 +3658,34 @@ def phase_relocalize(dev):
 # --- K3 over a block pool: the tiled map, the copy-on-write RBPF, growth -------
 
 
+#: the pool kernels' plain versions, none of which a path through the card
+#: may call: (module, name)
+POOL_TWINS = (("kernels", "pool_insert_ref"), ("cow", "prepare_insert_ref"),
+              ("blockmap", "prepare_tiles_ref"), ("kernels", "pool_touched_ref"),
+              ("kernels", "pool_work_ref"), ("cow", "prepare_write"),
+              ("blockmap", "allocate_tiles"))
+
+
 @contextlib.contextmanager
 def pool_twin_counted():
-    """The calls of the pool insert's plain twin while the block runs (a
-    list with one entry a call): none on a path through the card."""
-    from slam_constructor_tpu_torch.ops import kernels
+    """The calls of the pool kernels' plain versions (``POOL_TWINS``) while
+    the block runs (a list with each call's name): none on a path through
+    the card."""
+    from slam_constructor_tpu_torch.ops import blockmap, cow, kernels
 
-    calls, twin = [], kernels.pool_insert_ref
+    modules = {"kernels": kernels, "cow": cow, "blockmap": blockmap}
+    calls = []
 
-    def counting(*args, **kwargs):
-        calls.append(1)
-        return twin(*args, **kwargs)
+    def counting(name, twin):
+        def call(*args, **kwargs):
+            calls.append(name)
+            return twin(*args, **kwargs)
+        return call
 
-    with handed_in(counting, "pool_insert_ref"):
+    with contextlib.ExitStack() as stack:
+        for mod, name in POOL_TWINS:
+            module = modules[mod]
+            stack.enter_context(handed_in(counting(name, getattr(module, name)), name, module))
         yield calls
 
 
@@ -3670,6 +3709,24 @@ def pool_call(args, kwargs):
     return tuple(cloned), live
 
 
+PREP_NAMES = ("pool", "tables", "origin", "scale", "model", "poses", "scans", "cfg", "q", "refcnt",
+              "overflow", "n_alloc", "k_max")
+
+
+def prepare_call(args, kwargs):
+    """A ``pool_prepare`` call's arguments (``PREP_NAMES``) as a dict, the
+    tensors cloned: the state before the call."""
+    from slam_constructor_tpu_torch.ops.scan import LaserScan
+
+    a = dict(zip(PREP_NAMES, args), **kwargs)
+    out = {k: a[k].clone() if isinstance(a.get(k), torch.Tensor) else a.get(k)
+           for k in PREP_NAMES}
+    out["k_max"] = out["k_max"] or 0  # the tiled map's calls name none
+    sc = a["scans"]
+    out["scans"] = LaserScan(sc.ranges.clone(), sc.bearings.clone(), sc.valid.clone())
+    return out
+
+
 def live_slots(pool, live):
     """bool[N]: the slots a pool insert folds."""
     if "refcnt" in live:
@@ -3683,16 +3740,25 @@ def held_to_twin_pool(name, run, traj, every):
     kernel also runs on a copy of every call's pool, against the path's
     trajectory ``traj`` through the kernel: bit for bit, or, where they
     part, an insert at or before that scan whose live blocks differed, and
-    only in cells of 32 samples or more (trap c). Returns the kept calls
-    (every ``every``-th) and what was found."""
+    only in cells of 32 samples or more (trap c). Returns the kept insert
+    calls (every ``every``-th), what was found, and the kept
+    ``pool_prepare`` calls (every ``every``-th, the state before it)."""
     from slam_constructor_tpu_torch.ops import kernels
 
     kernel, kept, n, first, unexplained = kernels.pool_insert, [], [0], [None], [0]
+    prepare, kept_prep, n_prep = kernels.pool_prepare, [], [0]
+
+    def prep_keeping(*args, **kwargs):
+        if n_prep[0] % every == 0:
+            kept_prep.append(prepare_call(args, kwargs))
+        n_prep[0] += 1
+        return prepare(*args, **kwargs)
 
     def stand_in(pool, *args, **kwargs):
         call, live = pool_call((pool, *args), kwargs)
         got = pool.clone()
         kernel(got, *args, **kwargs)
+        kwargs.pop("work", None)  # the twin makes its own owners
         kernels.pool_insert_ref(pool, *args, **kwargs)
         alive = live_slots(pool, live)
         if not torch.equal(bits(got[alive]), bits(pool[alive])):
@@ -3706,7 +3772,7 @@ def held_to_twin_pool(name, run, traj, every):
         n[0] += 1
         return pool
 
-    with handed_in(stand_in, "pool_insert"):
+    with handed_in(stand_in, "pool_insert"), handed_in(prep_keeping, "pool_prepare"):
         twin_traj = run()
     apart = (bits(traj).reshape(traj.shape) != bits(twin_traj).reshape(traj.shape)).any(-1)
     part = int(apart.nonzero()[0]) if bool(apart.any()) else None
@@ -3719,7 +3785,7 @@ def held_to_twin_pool(name, run, traj, every):
     check(part is None or (first[0] is not None and first[0] <= part),
           f"{name}: the twin's trajectory parts at scan {part} with no insert before it differing")
     return kept, {"inserts": n[0], "first_insert_differing_from_twin": first[0],
-                  "trajectory_parts_at_scan": part}
+                  "trajectory_parts_at_scan": part}, kept_prep
 
 
 def cow_maps_dense(e):
@@ -3781,7 +3847,7 @@ def phase_gmapping_cow_path(scans, odom, gt, odo_ate, smi):
         reset_launches()
         e, traj, neffs, secs = run_gmapping_path(cfg, scans, odom, gt, "error")
         launches = read_launches()
-    want = expect(mc_match_batched=N_SCANS, pool_touched=N_SCANS, pool_insert=N_SCANS)
+    want = expect(mc_match_batched=N_SCANS, pool_prepare=N_SCANS, pool_insert=N_SCANS)
     st = e.state.gm
     distinct = int(cow.distinct_blocks(st))
     pool_mb = st.pool.numel() * 4 / 1e6
@@ -3789,12 +3855,13 @@ def phase_gmapping_cow_path(scans, odom, gt, odo_ate, smi):
     print(f"gmapping cow path ({cfg.n_particles} particles, blocks of {cfg.tile_block}, "
           f"{cfg.window_tiles} x {cfg.window_tiles} tiles matched, {st.capacity} blocks): "
           f"{N_SCANS} scans in {secs:.3f} s = {N_SCANS / secs:.1f} scans/s on {smi}, sync check "
-          f"on, no host sync; launches {launches} (expected {want}); the twin called "
+          f"on, no host sync; launches {launches} (expected {want}); the plain versions called "
           f"{len(twin_calls)} times; overflow latched: {bool(st.overflow)}; {distinct} distinct "
           f"blocks at the end; the pool {pool_mb:.1f} MB against the dense path's 30 maps "
           f"{dense_mb:.1f} MB", flush=True)
     check(launches == want, f"gmapping cow: launches {launches}, expected {want}")
-    check(not twin_calls, "gmapping cow: the pool insert's twin ran on the card's path")
+    check(not twin_calls, f"gmapping cow: the pool's plain versions ran on the card's path: "
+                          f"{sorted(set(twin_calls))}")
     winner = e.winner_trajectory()
     check(bool(torch.isfinite(winner).all()) and bool(torch.isfinite(e.occupancy).all())
           and e.occupancy.shape == (MAP, MAP), "gmapping cow: non-finite poses or map")
@@ -3814,9 +3881,9 @@ def phase_gmapping_cow_path(scans, odom, gt, odo_ate, smi):
           f"{smi}",
           flush=True)
     check(same, "gmapping cow: two runs differ")
-    kept, found = held_to_twin_pool(
+    kept, found, kept_prep = held_to_twin_pool(
         "gmapping cow", lambda: run_gmapping_path(cfg, scans, odom, gt, 0)[1], traj, POOL_EVERY)
-    return launches, kept, found, {"scans_per_sec": N_SCANS / secs, "winner_ate_m": ate,
+    return launches, kept, found, kept_prep, {"scans_per_sec": N_SCANS / secs, "winner_ate_m": ate,
                                    "overflow": bool(st.overflow), "distinct_blocks": distinct,
                                    "pool_mb": pool_mb, "dense_maps_mb": dense_mb}
 
@@ -3827,14 +3894,22 @@ def phase_gmapping_cow_quality(dev, smi):
     from slam_constructor_tpu_torch.utils import evaluate
 
     scans, odom, gt = gmapping_quality_sequence(dev)
-    e, traj, _, secs = run_gmapping_path(cow_config(), scans, odom, gt, 0)
+    with pool_twin_counted() as twin_calls:
+        reset_launches()
+        e, traj, _, secs = run_gmapping_path(cow_config(), scans, odom, gt, 0)
+        launches = read_launches()
+    n = len(gt)
+    want = expect(mc_match_batched=n, pool_prepare=n, pool_insert=n)
+    check(launches == want and not twin_calls,
+          f"gmapping cow 2 laps: launches {launches}, expected {want}; plain versions called "
+          f"{sorted(set(twin_calls))}")
     ate = float(evaluate.ate(e.winner_trajectory(), gt, align=False))
     odo = float(evaluate.ate(odometry_trajectory(gt[0], odom), gt, align=False))
     limit = max(GMAPPING_COW_2LAP_REFERENCE_ATE_BY_KEY) + GMAPPING_ATE_MARGIN
     print(f"gmapping cow, the reference's quality sequence ({len(gt)} scans, two laps): winner "
           f"ATE {ate:.4f} m (limit: the reference's worst key + margin {limit:.4f}; odometry "
           f"{odo:.4f}), {len(gt) / secs:.1f} scans/s on {smi}; overflow "
-          f"{bool(e.state.gm.overflow)}",
+          f"{bool(e.state.gm.overflow)}; launches {launches}, no plain version called",
           flush=True)
     check(ate <= limit, f"gmapping cow 2 laps: winner ATE {ate} above {limit}")
 
@@ -3850,8 +3925,16 @@ def phase_gmapping_cow_card_vs_cpu(dev, scans, odom, gt, smi, n=16):
     runs = []
     for d in (None, "cpu"):
         on = torch.device(d) if d else dev
-        e, _, _, _ = run_gmapping_path(cfg, scans[:n].to(on), odom[:n].to(on), gt.to(on), 0,
-                                       draws=draws, device=d)
+        with pool_twin_counted() as twin_calls:
+            reset_launches()
+            e, _, _, _ = run_gmapping_path(cfg, scans[:n].to(on), odom[:n].to(on), gt.to(on), 0,
+                                           draws=draws, device=d)
+            launches = read_launches()
+        if d is None:  # the card: the two pool kernels a step, no plain version
+            want = expect(mc_match_batched=n, pool_prepare=n, pool_insert=n)
+            check(launches == want and not twin_calls,
+                  f"gmapping cow card vs CPU: launches {launches}, expected {want}; plain "
+                  f"versions called {sorted(set(twin_calls))}")
         runs.append((e, [t.cpu() for t in cow_bits(e)[:4]], cow_maps_dense(e).cpu()))
     (_, (pa, aa, la, qa), ma), (_, (pb, ab, lb, qb), mb) = runs
     diff = float((pa - pb).abs().max())
@@ -3975,12 +4058,14 @@ def pool_cases(kept):
 
 
 def pool_work(args, live):
-    """(bytes, operations, live slots) of one pool insert on these inputs:
-    the live blocks read and written once, the scans' rows, poses, tables,
-    touched marks and owners read once; the operations of the beams, the
-    DDA samples before each beam's free limit, the occupied samples and the
-    folded cells (the K3_* counts)."""
-    pool, tables, _, scale, model, poses, scans, cfg, touched, q = args
+    """(bytes, operations, live slots, the marks' bytes and operations) of
+    one pool insert on these inputs: the live blocks read and written once,
+    the scans' rows, poses, tables, touched marks and owners read once; the
+    operations of the beams, the DDA samples before each beam's free limit,
+    the occupied samples and the folded cells (the K3_* counts). The marks
+    (``pool_touched``) read the scans and poses and write a byte an entry;
+    their operations are :func:`marks_ops`."""
+    pool, tables, origin, scale, model, poses, scans, cfg, touched, q = args
     alive = int(live_slots(pool, live).sum())
     cells_a_block = pool.shape[1] * pool.shape[2]
     p, r = poses.shape[0], scans.ranges.shape[-1]
@@ -4000,17 +4085,272 @@ def pool_work(args, live):
              + (K3_AREA_OPS * 9 * ep if area else 0)
              + K3_FOLD_OPS[type(model).__name__] * alive * cells_a_block)
     touch_bytes = 9 * r * rows + 12 * p + tables.numel()
-    touch_ops = K3_BEAM_OPS * p * r + K3_FREE_OPS * traced + K3_OCC_OPS * occ
+    touch_ops = marks_ops(origin, scale, pool.shape[1], tables.shape[1:], poses, scans, cfg, q)
     return n_bytes, n_ops, alive, touch_bytes, touch_ops
 
 
-def phase_pool_kernels(kept, smi):
+def marks_ops(origin, scale, block, tiles, poses, scans, cfg, q):
+    """The operations of the prepare kernel's marks on these inputs: each
+    beam's set-up (K3_BEAM_OPS), each occupied sample (K3_OCC_OPS), and a
+    sample evaluated (K3_FREE_OPS) for each mark of the free trace that the
+    crossing search finds: the first free sample and each tile boundary
+    that the row or the column passes between the first and the last free
+    sample on the table (``csrc/scan_insert.cu``'s ``boundaries``)."""
+    p, r = poses.shape[0], scans.ranges.shape[-1]
+    th, tw = tiles
+    ranges, valid = scans.ranges.expand(p, r), scans.valid.expand(p, r)
+    ep = int((valid & (ranges <= cfg.max_range)).sum())
+    occ = ep * ((9 if cfg.occupancy_estimator == "area" else 1)
+                + (cfg.blur_samples if cfg.wall_blur else 0))
+    step = scale * cfg.step_fraction
+    t = (torch.arange(cfg.n_free_samples(scale), dtype=torch.float32, device=ranges.device)
+         + 0.5) * step
+    n = ((t < (ranges - cfg.hole_width / 2.0)[..., None]).sum(-1) * valid).to(torch.float32)
+    if q is not None and not float(q) > 0:
+        n = torch.zeros_like(n)
+    ang = poses[:, 2:3] + scans.bearings.expand(p, r)
+    t0, t1 = 0.5 * step, (n - 0.5) * step
+
+    def passed(p0, d, o, n_bk):
+        a = torch.floor((p0 + t0 * d - o) / scale)
+        z = torch.floor((p0 + t1 * d - o) / scale)
+        lo, hi, extent = torch.minimum(a, z), torch.maximum(a, z), n_bk * block
+        m_lo = torch.where(lo < 0, 0.0, torch.where(lo >= extent, n_bk + 1.0,
+                                                     torch.floor(lo / block) + 1))
+        m_hi = torch.where(hi < 0, -1.0, torch.where(hi >= extent, float(n_bk),
+                                                      torch.floor(hi / block)))
+        return (m_hi - m_lo + 1).clamp(min=0)
+
+    marks = 1 + passed(poses[:, 1:2], torch.sin(ang), origin[1], th) + passed(
+        poses[:, 0:1], torch.cos(ang), origin[0], tw)
+    free = int(torch.nan_to_num(torch.where(n > 0, marks, 0.0)).sum())
+    return K3_BEAM_OPS * p * r + K3_OCC_OPS * occ + K3_FREE_OPS * free
+
+
+def prepare_state(c):
+    """A kept ``pool_prepare`` call's arguments with its state (pool,
+    tables, refcounts, latch, n_alloc) cloned, for one more call."""
+    return {k: v.clone() if k in ("pool", "tables", "refcnt", "overflow", "n_alloc")
+            and v is not None else v for k, v in c.items()}
+
+
+def prepare_cases(prep_kept):
+    """(name, call) of the kept ``pool_prepare`` calls and the edge cases:
+    on a copy-on-write state a pose on a tile corner (beams along tile
+    boundaries), one at the table's corner, a NaN pose, a scan without a
+    valid beam and one whose free limits fall on samples; the same with a
+    budget of 7 new blocks; the state resampled to one ancestor (every
+    touched tile copied); the state grown to 16,384 blocks (too large for
+    block 0's shared memory: the state worked on in device memory, as a
+    pool that ``GMappingEngine`` grew four times); the first step (an empty
+    pool) and an empty pool of 64 blocks (trap o), q = 0; the tiled map's
+    scan into an exhausted pool of 8 blocks and with q = 0."""
+    from slam_constructor_tpu_torch.ops import blockmap, cow
+    from slam_constructor_tpu_torch.ops.scan import LaserScan
+
+    cases = [(f"{path} prepare {i * POOL_EVERY}", c) for path, calls in prep_kept.items()
+             for i, c in enumerate(calls)]
+    calls = prep_kept["gmapping cow"]
+    base = prepare_state(calls[min(4, len(calls) - 1)])
+    origin, scale, cfg = base["origin"], base["scale"], base["cfg"]
+    b = base["pool"].shape[1]
+    poses, sc = base["poses"].clone(), base["scans"]
+    poses[0, :2] = origin + 3 * b * scale  # a tile corner: beams along tile boundaries
+    poses[0, 2] = 0.0
+    poses[1, :2] = origin + 0.4  # the table's corner
+    poses[2, 0] = float("nan")
+    ranges, valid = sc.ranges.clone(), sc.valid.clone()
+    valid[3] = False
+    step = np.float32(scale * cfg.step_fraction)
+    k = torch.arange(ranges.shape[-1], device=ranges.device) % 97 + 1
+    ranges[4] = (k.to(torch.float32) + 0.5) * float(step) + np.float32(cfg.hole_width / 2.0)
+    edge = dict(base, poses=poses, scans=LaserScan(ranges, sc.bearings.clone(), valid))
+    cases.append(("gmapping cow state: a tile corner, the table's corner, a NaN pose, no valid "
+                  "beam, free limits on samples", edge))
+    cases.append(("gmapping cow state, a budget of 7 new blocks",
+                  dict(prepare_state(edge), k_max=7)))
+    one = prepare_state(base)  # resampled to particle 0: every touched tile is shared
+    one["tables"] = one["tables"][:1].expand_as(one["tables"]).contiguous()
+    one["refcnt"] = cow._counts(one["tables"].reshape(-1), one["pool"].shape[0])
+    cases.append((COPIES_CASE, one))
+    st = cow.grow_pool(cow.CowBlockMaps(
+        pool=base["pool"], tables=base["tables"], refcnt=base["refcnt"], origin=origin,
+        scale=scale, block=b, overflow=base["overflow"]), base["model"], 16384)
+    cases.append(("gmapping cow state grown to 16,384 blocks (block 0 uncached)", dict(
+        prepare_state(base), pool=st.pool, refcnt=st.refcnt, overflow=st.overflow)))
+    p, th, tw = base["tables"].shape
+    for cap, q in ((base["pool"].shape[0], None), (64, None),
+                   (base["pool"].shape[0], torch.zeros((), device=poses.device))):
+        st = cow.make_cow_maps(base["model"], p, th, tw, cap, block=b, scale=scale,
+                               device=poses.device)
+        name = ("the first step" if cap > 64 else "the first step into 64 blocks (trap o)") + (
+            ", q = 0" if q is not None else "")
+        cases.append((f"gmapping cow {name}", dict(
+            base, pool=st.pool, tables=st.tables, refcnt=st.refcnt, overflow=st.overflow,
+            origin=st.origin, q=q)))
+    tcalls = prep_kept["cli mit_stata"]
+    t = prepare_state(tcalls[-1])
+    for cap, q in ((8, t["q"]), (t["pool"].shape[0], torch.zeros((), device=poses.device))):
+        bm = blockmap.make_block_map(t["model"], *t["tables"].shape[1:], cap,
+                                     block=t["pool"].shape[1], scale=t["scale"],
+                                     device=poses.device)
+        cases.append((f"mit_stata scan into an empty pool of {cap} blocks"
+                      + (", q = 0" if q is not None and float(q) == 0.0 else ""),
+                      dict(t, pool=bm.pool, tables=bm.table[None], n_alloc=bm.n_alloc,
+                           origin=bm.origin, q=q)))
+    return cases
+
+
+#: the prepare case whose new blocks are copies, timed beside the kept calls
+COPIES_CASE = "gmapping cow state resampled to one ancestor (copies)"
+
+
+def prepare_plain(c):
+    """The plain version of the ``pool_prepare`` call ``c`` on its tensors,
+    in place: ``cow.prepare_insert_ref`` or ``blockmap.prepare_tiles_ref``."""
+    from slam_constructor_tpu_torch.ops import blockmap, cow
+
+    b = c["pool"].shape[1]
+    if c["refcnt"] is not None:
+        st = cow.CowBlockMaps(pool=c["pool"], tables=c["tables"], refcnt=c["refcnt"],
+                              origin=c["origin"], scale=c["scale"], block=b,
+                              overflow=c["overflow"])
+        return cow.prepare_insert_ref(st, c["model"], c["poses"], c["scans"], c["cfg"], c["q"],
+                                      c["k_max"])
+    bm = blockmap.BlockMap(pool=c["pool"], table=c["tables"][0], n_alloc=c["n_alloc"],
+                           origin=c["origin"], scale=c["scale"], block=b)
+    return blockmap.prepare_tiles_ref(bm, c["poses"], c["scans"], c["cfg"], c["q"])
+
+
+def work_src(work):
+    """i32: the copy sources of the prepare's new blocks (-1: a reset)."""
+    return work.src[:int(work.buf[4])]
+
+
+def prepare_work(c, work, touched):
+    """(bytes, operations) of one prepare on these inputs: the scans' rows
+    and poses read once, the tables and refcounts (or n_alloc) read and
+    written, the marks, owners and items written, each new block's source
+    read and the block written; the marks' operations (:func:`marks_ops`)."""
+    pool, scans, cfg = c["pool"], c["scans"], c["cfg"]
+    p, r = c["poses"].shape[0], scans.ranges.shape[-1]
+    rows = 1 if scans.ranges.stride(0) == 0 else p
+    block = pool.shape[1] * pool.shape[2] * pool.shape[3] * 4
+    src = work_src(work)
+    n_bytes = (9 * r * rows + 12 * p + 8 * touched.numel() + touched.numel()
+               + (8 * pool.shape[0] if c["refcnt"] is not None else 8) + 4 * pool.shape[0]
+               + 4 * int(work.buf[2]) + block * (int(src.numel()) + int((src >= 0).sum())))
+    return n_bytes, marks_ops(c["origin"], c["scale"], pool.shape[1], touched.shape[1:],
+                              c["poses"], scans, cfg, c["q"])
+
+
+def phase_pool_prepare(prep_kept, smi):
+    """``pool_prepare`` on the calls kept from the mit_stata and the
+    copy-on-write runs and on the edge cases (:func:`prepare_cases`):
+    against its plain version (:func:`prepare_plain`: ``pool_touched_ref``,
+    then ``cow.prepare_write`` or ``blockmap.allocate_tiles``, then
+    ``pool_work_ref``) bit for bit: marks, tables, refcounts, latch or
+    n_alloc, the whole pool (the copied and reset blocks), owners and work
+    list; then ``pool_insert`` from its work list (the robot's tile in
+    bands) against ``pool_insert_ordered`` on every live slot. Then the
+    prepare timed at each path's shape and on the copy-on-write state
+    resampled to one ancestor (new blocks that are copies). Returns its
+    ``kernels`` entry without the launch count."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    cases = prepare_cases(prep_kept)
+    for name, c in cases:
+        got, want = prepare_state(c), prepare_state(c)
+        before = kernels.launch_counts()["pool_prepare"]
+        touched, work = kernels.pool_prepare(**got)
+        t_want, w_want = prepare_plain(want)
+        torch.cuda.synchronize()
+        check(kernels.launch_counts()["pool_prepare"] == before + 1,
+              f"pool_prepare did not count its launch ({name})")
+        cow_pool = got["refcnt"] is not None
+        state = ("tables", "refcnt", "overflow") if cow_pool else ("tables", "n_alloc")
+        count = int(work.buf[2])
+        same = {"marks": torch.equal(touched, t_want),
+                **{k: torch.equal(got[k], want[k]) for k in state},
+                "pool": torch.equal(bits(got["pool"]), bits(want["pool"])),
+                "owners": torch.equal(work.owner, w_want.owner),
+                "header": torch.equal(work.buf[2:5], w_want.buf[2:5]),
+                "items": torch.equal(work.items[:count], w_want.items[:count])}
+        check(all(same.values()), f"pool_prepare differs from its plain version ({name}): "
+                                  f"{[k for k, v in same.items() if not v]}")
+        live = {"refcnt": got["refcnt"]} if cow_pool else {"n_live": got["n_alloc"]}
+        args = (got["tables"], got["origin"], got["scale"], got["model"], got["poses"],
+                got["scans"], got["cfg"], touched, got["q"])
+        ins, ordered = got["pool"].clone(), got["pool"].clone()
+        kernels.pool_insert(ins, *args, **live, work=work)
+        kernels.pool_insert_ordered(ordered, *args, **live)
+        alive = live_slots(ins, live)
+        check(torch.equal(bits(ins[alive]), bits(ordered[alive]))
+              and torch.equal(bits(ins[~alive]), bits(got["pool"][~alive])),
+              f"pool_insert from the prepare's list differs from the ordered sums ({name})")
+        banded = int(((work.items[:count] & 15) < work.n_bands).sum()) // work.n_bands
+        print(f"pool_prepare [{name}]: {int(touched.sum())} tiles touched, "
+              f"{int(work.buf[4])} new blocks ({int((work_src(work) >= 0).sum())} copies), "
+              f"{count} items ({banded} tiles in {work.n_bands} bands), latch "
+              f"{bool(got['overflow']) if cow_pool else int(got['n_alloc'])}: marks, tables, "
+              f"refcounts, latch, pool, owners and list equal to the plain version bit for "
+              f"bit; the insert from the list equal to the ordered sums on every live slot",
+              flush=True)
+
+    timed = [(path, prepare_state(calls[min(4, len(calls) - 1)]))
+             for path, calls in prep_kept.items()]
+    timed.append(("gmapping cow copies", prepare_state(dict(cases)[COPIES_CASE])))
+    by_path = {}
+    for path, c in timed:
+        saved = {k: c[k].clone() for k in ("tables", "refcnt", "overflow", "n_alloc")
+                 if c[k] is not None}
+
+        def restore(c=c, saved=saved):
+            for k, v in saved.items():
+                c[k].copy_(v)
+
+        def prep(c=c, restore=restore):
+            restore()
+            kernels.pool_prepare(**c)
+
+        def plain(c=c, restore=restore):
+            restore()
+            prepare_plain(c)
+
+        device_ms = graph_ms(prep) - graph_ms(restore)
+        ms, plain_ms, chained = time_pair(prep, plain, plain_calls=10)
+        r_ms, _, r_chained = time_pair(restore, restore, plain_calls=10)
+        restore()
+        touched, work = kernels.pool_prepare(**c)
+        n_bytes, n_ops = prepare_work(c, work, touched)
+        b_ms, by = bound_ms(n_bytes, n_ops)
+        new = int(work.buf[4])
+        copies = int((work_src(work) >= 0).sum())
+        print(f"pool_prepare {path} {tuple(c['pool'].shape)} {c['tables'].shape[0]} tables, "
+              f"{new} new blocks ({copies} copies): {1e3 * device_ms:.2f} us device (a CUDA "
+              f"graph of 50 calls less its state's restore), a call {ms - r_ms:.4f} ms, chained "
+              f"{chained - r_chained:.4f} ms (with the restore {ms:.4f} / {chained:.4f}); plain "
+              f"version {plain_ms - r_ms:.4f} ms a call; bound {b_ms:.6f} ms by {by} "
+              f"({n_bytes} B; {n_ops} operations) on {smi}; no single PyTorch call computes it",
+              flush=True)
+        by_path[path] = {"device_ms": device_ms, "ms": ms - r_ms, "plain_ms": plain_ms - r_ms,
+                         "chained_ms": chained - r_chained, "bound_ms": b_ms, "bound_by": by,
+                         "new_blocks": new, "copies": copies}
+    return {"name": "pool_prepare", "route": "cuda",
+            "source": "slam_constructor_tpu_torch/csrc/scan_insert.cu",
+            "replaces": "slam_constructor_tpu/ops/cow.py:82", "max_abs_err": 0.0,
+            "cases_bitwise_equal_to_plain": len(cases), **by_path["gmapping cow"],
+            "by_path": by_path, "library_ms": None}
+
+
+def phase_pool_kernels(kept, prep_kept, smi):
     """The pool insert (``kernels.pool_insert``) on the inserts kept from
     the mit_stata CLI run and the copy-on-write run, and on edge cases:
     equal to the ordered host sums bit for bit on every live slot, two
     launches the same bits, dead slots untouched, the twin within 2e-6
     but in cells of 32 samples or more; the marks (``pool_touched``) equal
-    to their twin. Then both timed at each path's shape. Returns the two
+    to their twin. Then both timed at each path's shape, the insert from
+    its work list; then :func:`phase_pool_prepare`. Returns the three
     ``kernels`` entries without the launch counts."""
     from slam_constructor_tpu_torch.ops import kernels
 
@@ -4061,9 +4401,10 @@ def phase_pool_kernels(kept, smi):
         args, live = calls[min(4, len(calls) - 1)]
         pool, tables, origin, scale, model, poses, scans, cfg, touched, q = args
         work = pool.clone()
+        items = kernels.pool_work(pool, tables, origin, scale, poses, scans, cfg, touched, **live)
 
         def insert():
-            kernels.pool_insert(work, *args[1:], **live)
+            kernels.pool_insert(work, *args[1:], **live, work=items)
 
         def plain():
             kernels.pool_insert_ref(work, *args[1:], **live)
@@ -4083,8 +4424,10 @@ def phase_pool_kernels(kept, smi):
         n_bytes, n_ops, alive, t_bytes, t_ops = pool_work(args, live)
         b_ms, by = bound_ms(n_bytes, n_ops)
         tb_ms, tby = bound_ms(t_bytes, t_ops)
+        n_items = int(items.buf[2])
         print(f"pool_insert {path} {tuple(pool.shape)} {tables.shape[0]} tables "
-              f"{type(model).__name__}, {alive} live slots: {1e3 * device_ms:.2f} us device (a "
+              f"{type(model).__name__}, {alive} live slots, {n_items} items of its work list: "
+              f"{1e3 * device_ms:.2f} us device (a "
               f"CUDA graph of 50 calls), a call {ms:.4f} ms, chained {chained:.4f} ms; plain twin "
               f"{plain_ms:.4f} ms a call; bound {b_ms:.6f} ms by {by} ({n_bytes} B; {n_ops} "
               f"operations) on {smi}; no single PyTorch call computes it", flush=True)
@@ -4094,13 +4437,14 @@ def phase_pool_kernels(kept, smi):
               f"no single PyTorch call computes it", flush=True)
         by_path[path] = {"device_ms": device_ms, "ms": ms, "plain_ms": plain_ms,
                          "chained_ms": chained, "bound_ms": b_ms, "bound_by": by,
-                         "live_slots": alive}
+                         "live_slots": alive, "items": n_items}
         touch_by_path[path] = {"device_ms": t_device_ms, "ms": t_ms, "plain_ms": t_plain_ms,
                                "chained_ms": t_chained, "bound_ms": tb_ms, "bound_by": tby}
     print(f"pool_insert: {len(cases)} cases equal to the ordered sums bit for bit on every live "
           f"slot; {differing} cells differ from the twin, each in a run the card's index_put_ "
           f"sums by a warp", flush=True)
     src = "slam_constructor_tpu_torch/csrc/scan_insert.cu"
+    k_prep = phase_pool_prepare(prep_kept, smi)
     return ({"name": "pool_insert", "route": "cuda", "source": src,
              "replaces": "slam_constructor_tpu/ops/blockmap.py:117", "max_abs_err": max_err,
              "cases_bitwise_equal_to_ordered_sums": len(cases),
@@ -4108,7 +4452,8 @@ def phase_pool_kernels(kept, smi):
              "by_path": by_path, "library_ms": None},
             {"name": "pool_touched", "route": "cuda", "source": src,
              "replaces": "slam_constructor_tpu/ops/blockmap.py:128", "max_abs_err": max_touch_err,
-             **touch_by_path["gmapping cow"], "by_path": touch_by_path, "library_ms": None})
+             **touch_by_path["gmapping cow"], "by_path": touch_by_path, "library_ms": None},
+            k_prep)
 
 
 def main() -> None:
@@ -4215,16 +4560,18 @@ def main() -> None:
     phase_gmapping_card_vs_cpu(dev, scans, odom, gt, n=8, make=baseline_engine,
                                name="gmapping preset")
     phase_relocalize(dev)
-    pool_kept, pool_runs = {}, {}
-    for name, (calls, found) in cli_inserts.items():
+    pool_kept, pool_runs, prep_kept = {}, {}, {}
+    for name, (calls, found, *prep) in cli_inserts.items():
         if name == "mit_stata":
             pool_kept[f"cli {name}"], pool_runs[f"cli {name}"] = calls, found
+            prep_kept[f"cli {name}"] = prep[0]
             continue
         twin_runs[f"cli {name}"] = found
         if name in ("mit_csail", "tum_2d"):
             kept_inserts[name] = calls
-    cow_launches, pool_kept["gmapping cow"], pool_runs["gmapping cow"], cow_summary = \
-        phase_gmapping_cow_path(scans, odom, gt, odo_ate, smi)
+    cow_launches, pool_kept["gmapping cow"], pool_runs["gmapping cow"], \
+        prep_kept["gmapping cow"], cow_summary = phase_gmapping_cow_path(scans, odom, gt, odo_ate,
+                                                                         smi)
     phase_gmapping_cow_quality(dev, smi)
     phase_gmapping_cow_card_vs_cpu(dev, scans, odom, gt, smi)
     grow_summary = phase_auto_grow(dev, scans, odom, gt, smi)
@@ -4232,7 +4579,7 @@ def main() -> None:
     k12["twin_insert_runs"] = twin_runs
     k13 = phase_scan_planes_kernel(dev, kept_planes, fscans, fgt, smi)
     k13["twin_planes_runs"] = planes_runs
-    k14, k15 = phase_pool_kernels(pool_kept, smi)
+    k14, k15, k16 = phase_pool_kernels(pool_kept, prep_kept, smi)
     k14["twin_pool_runs"] = pool_runs
     k14["gmapping_cow"], k14["auto_grow"] = cow_summary, grow_summary
 
@@ -4253,8 +4600,8 @@ def main() -> None:
                  "gradient_refine": cli_launches["tiny_refined"],
                  "hill_climb": cli_launches["mit_csail"], "scan_insert": tiny_launches,
                  "scan_planes": full_launches, "pool_insert": cow_launches,
-                 "pool_touched": cow_launches}
-    for k in (k1, k3, k2, k4, k5, k6, k7, k8, k9, k10, k11, k12, k13, k14, k15):
+                 "pool_prepare": cow_launches, "pool_touched": cow_launches}
+    for k in (k1, k3, k2, k4, k5, k6, k7, k8, k9, k10, k11, k12, k13, k14, k15, k16):
         k["launches"] = main_path.get(k["name"], viny_launches)[k["name"]]
         k["launches_by_path"] = {
             "tiny": tiny_launches[k["name"]], "viny": viny_launches[k["name"]],
@@ -4274,7 +4621,7 @@ def main() -> None:
         k["launches"] = base_by_reducer[k["name"].split(" ")[0]]
         k["launches_by_path"] = {"gmapping preset": k["launches"]}
     print(json.dumps({"kernels": [k1, k3, k2, k4, k5, k6, k7, k8, k9, k10, k11, k12, k13,
-                                  k14, k15, *k_red]}),
+                                  k14, k15, k16, *k_red]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,7 @@
-"""Every dense-map path of one checkout of the port, saved so that another
+"""Every path of one checkout of the port, saved so that another
 checkout's runs can be held to them bit for bit.
 
-    python3 scripts/torch_port/path_trajectories.py --root DIR --out A.npz
+    python3 scripts/torch_port/path_trajectories.py --root DIR --out A.npz [--paths pool]
     python3 scripts/torch_port/path_trajectories.py --compare A.npz B.npz
 
 The first form imports the port and ``chip_smoke.py`` from the checkout
@@ -12,8 +12,12 @@ generators (seed 0): tiny, viny and viny_m3rsm over the bench sequence
 (512 scans), the loop-closing pipeline and full_m3rsm over theirs (512
 scans, two laps), bench.py's gmapping preset and ``preset('gmapping')``
 (512 scans), and the CLI on every dense-map config (``run.execute``: 128
-scans, 64 for the RBPFs). It saves each trajectory (the RBPFs' winners
-too) and final map. The second form prints, array by array, whether two
+scans, 64 for the RBPFs); and the block-pool paths: the copy-on-write
+RBPF (``cow_config``) over the bench sequence and over the two-lap quality
+sequence, and the CLI on mit_stata (the tiled map). It saves each
+trajectory (the RBPFs' winners too) and final map (a pool's tables,
+refcounts or ``n_alloc`` and its live blocks). ``--paths dense`` or
+``--paths pool`` runs only those. The second form prints, array by array, whether two
 such files are equal bit for bit, and the largest difference where they
 are not; it exits 1 where any differs. The first form needs one card.
 """
@@ -30,7 +34,7 @@ import numpy as np
 CLI_DENSE = ("tiny", "viny", "tiny_refined", "mit_csail", "viny_m3rsm", "gmapping", "tum_2d")
 
 
-def run(root: Path, out: Path) -> None:
+def run(root: Path, out: Path, paths: str) -> None:
     sys.path.insert(0, str(root))
     import torch
 
@@ -43,22 +47,39 @@ def run(root: Path, out: Path) -> None:
     dev = torch.device("cuda")
     scans, odom, gt = cs.bench_sequence(dev)
     saved = {}
+    if paths in ("all", "pool"):
+        qscans, qodom, qgt = cs.gmapping_quality_sequence(dev)
+        for name, seq in (("gmapping_cow", (scans, odom, gt)), ("gmapping_cow_2lap",
+                                                                 (qscans, qodom, qgt))):
+            e, traj, _, _ = cs.run_gmapping_path(cs.cow_config(), *seq, 0)
+            st = e.state.gm
+            saved.update({f"{name}_traj": traj, f"{name}_winner": e.winner_trajectory(),
+                          f"{name}_logw": e.state.log_weights, f"{name}_tables": st.tables,
+                          f"{name}_refcnt": st.refcnt, f"{name}_live": st.pool[st.refcnt > 0]})
+        res = cli.execute(cli.parse_args(cs.cli_argv(
+            "mit_stata", str(root / "build" / "traj_cli" / "mit_stata"))))
+        bm = res.engine.state.gm
+        saved.update({"cli_mit_stata_traj": res.trajectory, "cli_mit_stata_table": bm.table,
+                      "cli_mit_stata_n_alloc": bm.n_alloc,
+                      "cli_mit_stata_live": bm.pool[:int(bm.n_alloc)]})
+    dense = paths in ("all", "dense")
     for name, cfg in (("tiny", tiny.tiny_config(map_size=cs.MAP)),
                       ("viny", viny.viny_config(map_size=cs.MAP)),
-                      ("viny_m3rsm", viny.viny_m3rsm_config(map_size=cs.MAP))):
+                      ("viny_m3rsm", viny.viny_m3rsm_config(map_size=cs.MAP))) if dense else ():
         traj, probs, _, e = cs.run_main_path(cfg, scans, odom, gt, 0)
         saved.update({f"{name}_traj": traj, f"{name}_probs": probs, f"{name}_cells": e.state.gm.cells})
     fscans, fodom, fgt = cs.full_sequence(dev)
-    for name, cfg in (("full", cs.full_config()), ("full_m3rsm", cs.full_m3rsm_config())):
+    for name, cfg in ((("full", cs.full_config()), ("full_m3rsm", cs.full_m3rsm_config()))
+                      if dense else ()):
         fe, ftraj, _, _ = cs.run_full_path(cfg, fscans, fodom, fgt, 0)
         saved.update({f"{name}_traj": ftraj, f"{name}_cells": fe.state.gm.cells,
                       f"{name}_tracked": torch.from_numpy(np.stack(fe.trajectory))})
-    for name, cfg, make in (("gmapping", cs.gmapping_config(), None),
-                            ("gmapping_preset", None, cs.baseline_engine)):
+    for name, cfg, make in ((("gmapping", cs.gmapping_config(), None),
+                             ("gmapping_preset", None, cs.baseline_engine)) if dense else ()):
         e, traj, _, _ = cs.run_gmapping_path(cfg, scans, odom, gt, 0, make=make)
         saved.update({f"{name}_traj": traj, f"{name}_winner": e.winner_trajectory(),
                       f"{name}_cells": e.state.gm.cells, f"{name}_logw": e.state.log_weights})
-    for name in CLI_DENSE:
+    for name in CLI_DENSE if dense else ():
         res = cli.execute(cli.parse_args(cs.cli_argv(name, str(root / "build" / "traj_cli" / name))))
         saved[f"cli_{name}_traj"] = res.trajectory
     for k, v in saved.items():
@@ -89,10 +110,11 @@ def main() -> None:
                     help="the checkout whose port runs")
     ap.add_argument("--out", help="the .npz to write")
     ap.add_argument("--compare", nargs=2, metavar="NPZ", help="two files to hold bit for bit")
+    ap.add_argument("--paths", choices=("all", "dense", "pool"), default="all")
     args = ap.parse_args()
     if args.compare:
         sys.exit(0 if compare(*map(Path, args.compare)) else 1)
-    run(Path(args.root).resolve(), Path(args.out))
+    run(Path(args.root).resolve(), Path(args.out), args.paths)
 
 
 if __name__ == "__main__":

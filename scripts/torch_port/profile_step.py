@@ -34,6 +34,17 @@ on the windows in place) and the resampling, and the launches of the port's kern
 from ``torch.profiler`` the device's kernel time as a share of the
 unprofiled wall time and the kernels with the most device time.
 
+With ``--preset gmapping_cow`` or ``--preset mit_stata`` it profiles a
+block-pool path: the copy-on-write RBPF (``chip_smoke.cow_config``) over the
+bench sequence, or the tiled map of ``configs/mit_stata.properties`` over the
+CLI's sequence: scans/s over ``--scans`` scans after a warm-up of as many;
+ms and ATen calls a scan of each phase with a synchronise after it (the
+window gather, the match, the marks and the prepare, the insert, the
+resampling); the launches; and the device's busy share from
+``torch.profiler``. ``--root DIR`` runs another checkout's package (a
+parent unpacked under ``build/``) through the same phases, its prepare as
+that checkout has it.
+
 With ``--preset full`` it profiles the loop-closing pipeline over
 ``chip_smoke.py``'s full sequence instead (512 scans, two laps, one
 segment): scans/s of ``FullSlamEngine.run``; then, from a run with a
@@ -116,11 +127,20 @@ def synced_ms(fn, calls):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--preset", choices=("tiny", "viny", "viny_m3rsm", "full", "gmapping",
-                                         "tiny_refined", "mit_csail"), default="viny")
+                                         "tiny_refined", "mit_csail", "gmapping_cow",
+                                         "mit_stata"), default="viny")
     ap.add_argument("--scans", type=int, default=64)
+    ap.add_argument("--root", default=None,
+                    help="another checkout (a parent unpacked under build/) whose package and "
+                         "chip_smoke.py the presets gmapping_cow and mit_stata run")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA GPU")
+    if args.root is not None:
+        sys.path.insert(0, str(Path(args.root).resolve()))
+    if args.preset in ("gmapping_cow", "mit_stata"):
+        profile_pool(args.preset, args.scans)
+        return
     if args.preset == "full":
         profile_full()
         return
@@ -661,6 +681,193 @@ def profile_gmapping(n: int) -> None:
     for k in mine + [k for k in top if k not in mine]:
         print(f"  {k.device_time_total * 1e-3:9.3f} ms  {k.count:6d} x  "
               f"{k.device_time_total / k.count:8.2f} us  {k.key[:90]}")
+
+
+def _clone_pool_state(state, rbpf: bool):
+    """A copy of an engine state whose block pool, tables and counters the
+    next steps may update in place."""
+    gm = state.gm
+    if rbpf:
+        gm = dataclasses.replace(gm, pool=gm.pool.clone(), tables=gm.tables.clone(),
+                                 refcnt=gm.refcnt.clone(), overflow=gm.overflow.clone())
+    else:
+        gm = dataclasses.replace(gm, pool=gm.pool.clone(), table=gm.table.clone(),
+                                 n_alloc=gm.n_alloc.clone())
+    return dataclasses.replace(state, gm=gm)
+
+
+def profile_pool(preset: str, n: int) -> None:
+    """A block-pool path: ``gmapping_cow`` (``chip_smoke.cow_config``: the
+    copy-on-write RBPF, 30 particles, 1,024 blocks of 32^2) over the bench
+    sequence, or ``mit_stata`` (``configs/mit_stata.properties``, the tiled
+    map) over the CLI's synthetic sequence. Scans/s over ``n`` scans after
+    a warm-up of ``n``; with a synchronise after each phase, ms and ATen
+    calls a scan of the window gather, the match, the marks and the
+    prepare, the insert and (the RBPF) the resampling; the launches; the
+    device's busy share and the kernels with the most device time. On a
+    checkout without ``kernels.pool_prepare`` the prepare is
+    ``kernels.pool_touched`` (the marks), then ``cow.prepare_write`` or
+    ``blockmap.allocate_tiles`` (the prepare)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from slam_constructor_tpu_torch.ops import blockmap, cow, kernels, resample, scoring
+    from slam_constructor_tpu_torch.ops.geometry import compose
+    from slam_constructor_tpu_torch.ops.scan import LaserScan
+
+    one_launch = hasattr(kernels, "pool_prepare")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip())
+    print(f"{preset}: the prepare is {'one kernels.pool_prepare launch' if one_launch else 'kernels.pool_touched, then index ops'}")
+    dev = torch.device("cuda")
+    rbpf = preset == "gmapping_cow"
+    if rbpf:
+        from chip_smoke import bench_sequence, cow_config
+        from slam_constructor_tpu_torch.models import gmapping
+
+        scans, odom, gt = bench_sequence(dev)
+        cfg = cow_config()
+        e = gmapping.GMappingEngine(cfg, seed=0)
+        e.state.poses = gt[0].expand(cfg.n_particles, 3).clone()
+        names = ("proposal", "windows", "match", "weights", "marks", "prepare", "insert",
+                 "resample")
+    else:
+        from slam_constructor_tpu_torch import run
+        from slam_constructor_tpu_torch.models import engine
+        from slam_constructor_tpu_torch.utils import config as cfglib
+
+        args = run.parse_args(["--config", "configs/mit_stata.properties", "--synthetic",
+                               "cecum", "--trajectory", "rectangle", "--steps", str(2 * n),
+                               "--out", "build/profile_mit_stata"])
+        cfg = cfglib.engine_config_from(cfglib.load_properties(args.config))
+        e = engine.Engine(cfg, seed=0)
+        scans, odom, gt = run.load_data(args, dev)
+        e.state.pose = gt[0].clone()
+        names = ("weights", "windows", "match", "marks", "prepare", "insert")
+    e.run(scans[:n], odom[:n])  # warm-up, and the map holds n scans
+    torch.cuda.synchronize()
+    warm = e.state
+    e.state = _clone_pool_state(warm, rbpf)
+    t0 = time.perf_counter()
+    e.run(scans[n:2 * n], odom[n:2 * n])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(f"{preset}: {n} scans in {secs:.3f} s = {n / secs:.1f} scans/s "
+          f"({secs / n * 1e3:.3f} ms a scan)")
+
+    ms, aten = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for count_ops in (False, True):
+        state = _clone_pool_state(warm, rbpf)
+        for i in range(n, 2 * n):
+            scan, od = scans[i], odom[i]
+            counter = CountOps()
+
+            def phase(name, fn):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                if count_ops:
+                    with counter:
+                        n0 = counter.n
+                        out = fn()
+                    aten[name] += counter.n - n0
+                else:
+                    out = fn()
+                    torch.cuda.synchronize()
+                    ms[name] += time.perf_counter() - t
+                return out
+
+            if rbpf:
+                p = cfg.n_particles
+
+                def propose():
+                    d = gmapping.draw(cfg, gen, dev)
+                    base = gmapping._vec3(cfg.noise_xy, cfg.noise_xy, cfg.noise_theta, dev)
+                    alpha = gmapping._vec3(cfg.alpha_xy, cfg.alpha_xy, cfg.alpha_theta, dev)
+                    sigma = base + alpha * torch.abs(od)
+                    return (d, sigma, compose(state.poses, od[None, :] + d.proposal * sigma),
+                            compose(state.poses, od.expand(p, 3)))
+
+                d, sigma, priors, centers = phase("proposal", propose)
+                sc = LaserScan(scan.ranges.expand(p, -1), scan.bearings.expand(p, -1),
+                               scan.valid.expand(p, -1))
+                wt = cfg.window_tiles
+                view = phase("windows", lambda: scoring.MapView.of(cow.extract_window(
+                    state.gm, cfg.cell_model, None, priors[:, :2], wt, wt), cfg.cell_model))
+                poses, incr = phase("match", lambda: gmapping.match_particles(
+                    cfg, view, sc, priors, centers, sigma, d))
+                logw = phase("weights",
+                             lambda: resample.normalize_log_weights(state.log_weights + incr))
+                gm = state.gm
+                if one_launch:
+                    touched, work = phase("prepare", lambda: cow.prepare_insert(
+                        gm, cfg.cell_model, poses, sc, cfg.beam))
+                    phase("insert", lambda: cow.scatter_observations(
+                        gm, cfg.cell_model, poses, sc, cfg.beam, touched, work))
+                else:
+                    touched = phase("marks", lambda: cow.touched_tiles(gm, poses, sc, cfg.beam))
+                    gm = phase("prepare", lambda: cow.prepare_write(gm, cfg.cell_model, touched))
+                    phase("insert", lambda: cow.scatter_observations(
+                        gm, cfg.cell_model, poses, sc, cfg.beam, touched))
+
+                def resampled():
+                    idx, lw, _ = resample.maybe_resample(d.u0, logw, cfg.resample_threshold)
+                    return gmapping.GMappingState(
+                        gm=cow.resample(gm, idx), poses=poses.index_select(0, idx),
+                        log_weights=lw, step=state.step + 1)
+
+                state = phase("resample", resampled)
+            else:
+                prior = compose(state.pose, od)
+                pw = phase("weights", lambda: engine._point_weights(cfg, scan))
+                from slam_constructor_tpu_torch.ops import matchers as matcherslib
+
+                _, match_fn = matcherslib.MATCHERS[cfg.matcher]
+                view = phase("windows", lambda: scoring.MapView.of(blockmap.extract_window(
+                    state.gm, cfg.cell_model, prior[:2], cfg.window_tiles, cfg.window_tiles),
+                    cfg.cell_model))
+
+                def match():
+                    res = match_fn(view, scan, prior, gen, cfg.matcher_cfg, pw, None)
+                    res = engine._refine(cfg, view, scan, res, gen, pw, None)
+                    ok = (res.prob >= cfg.min_insert_prob) | (state.step == 0)
+                    return res, torch.where(ok, 1.0, 0.0)
+
+                res, q = phase("match", match)
+                bm = state.gm
+                one = LaserScan(scan.ranges[None], scan.bearings[None], scan.valid[None])
+                pose = res.pose[None]
+                if one_launch:
+                    touched, work = phase("prepare", lambda: blockmap.prepare_tiles(
+                        bm, cfg.cell_model, pose, one, cfg.beam, q))
+                    phase("insert", lambda: kernels.pool_insert(
+                        bm.pool, bm.table[None], bm.origin, bm.scale, cfg.cell_model, pose, one,
+                        cfg.beam, touched, q, n_live=bm.n_alloc, work=work))
+                else:
+                    touched = phase("marks", lambda: kernels.pool_touched(
+                        tuple(bm.table.shape), bm.block, bm.origin, bm.scale, pose, one,
+                        cfg.beam, q))
+                    bm = phase("prepare", lambda: blockmap.allocate_tiles(bm, touched[0]))
+                    phase("insert", lambda: kernels.pool_insert(
+                        bm.pool, bm.table[None], bm.origin, bm.scale, cfg.cell_model, pose, one,
+                        cfg.beam, touched, q, n_live=bm.n_alloc))
+                state = engine.SlamState(gm=bm, pose=res.pose, step=state.step + 1,
+                                         last_prob=res.prob)
+    print("synced phases, ms and ATen calls a scan: " + ", ".join(
+        f"{k} {ms[k] / n * 1e3:.3f} ms / {aten[k] / n:.0f}" for k in names)
+        + f"; in all {sum(ms.values()) / n * 1e3:.3f} ms / {sum(aten.values()) / n:.0f}")
+
+    e.state = _clone_pool_state(warm, rbpf)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        e.run(scans[n:2 * n], odom[n:2 * n])
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"launches over {n} scans: { {k: v for k, v in kernels.launch_counts().items() if v} }")
+    # (touch_kernel: a parent checkout's marking kernel)
+    device_report(prof, n, secs, wall, ("mc_match_kernel", "pool_kernel", "pool_prepare_kernel",
+                                        "touch_kernel"))
 
 
 def profile_full() -> None:

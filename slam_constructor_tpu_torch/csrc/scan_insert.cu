@@ -1,8 +1,10 @@
 // scan_insert.cu: the scan insert with its cell fold (K3), one map or P maps
-// a call, and the shared-plane rasteriser (N scans summed into P planes),
-// for Hopper (sm_90a). Plain C interface, bound from Python with ctypes
-// (slam_constructor_tpu_torch/ops/kernels.py::scan_insert and ::scan_planes,
-// built by ops/_build.py).
+// a call, the shared-plane rasteriser (N scans summed into P planes), and K3
+// over a block pool (the tiled map, the copy-on-write RBPF maps: a prepare
+// launch and an insert launch, "The block pool" below), for Hopper
+// (sm_90a). Plain C interface, bound from Python with ctypes
+// (slam_constructor_tpu_torch/ops/kernels.py::scan_insert, ::scan_planes,
+// ::pool_prepare, ::pool_touched and ::pool_insert, built by ops/_build.py).
 //
 // Replaces what the reference's raycast.insert_scan computes
 // (slam_constructor_tpu/ops/raycast.py:500 -> scan_observation_planes :397
@@ -84,11 +86,14 @@
 // the last dimension (PyTorch's reduce: a lane a mass, then a shuffle tree
 // with offsets 2 and 1). A NaN sample position is dropped.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kThreads = 512;  // a block: beams staged a chunk, samples a chunk
 constexpr int kWarps = kThreads / 32;
@@ -115,6 +120,14 @@ enum Phase {
 };
 #ifdef SLAM_KERNEL_PROBE
 __device__ unsigned long long probe_cycles[kProbeBlocks * kProbeSlots];
+#endif
+// with -DSLAM_KERNEL_PROBE, the block pool's launches too: the prepare's
+// phases by cluster block (kPrepSlots each, pool_prepare_kernel's stamps)
+// and the insert's items (cycles, free items, occupied items, the item)
+constexpr int kProbePrepBlocks = 16, kPrepSlots = 12, kProbeItems = 4096;
+#ifdef SLAM_KERNEL_PROBE
+__device__ unsigned long long probe_prep[kProbePrepBlocks * kPrepSlots];
+__device__ unsigned long long probe_items[kProbeItems * 4];
 #endif
 
 __host__ __device__ constexpr int channels_of(int mode) {
@@ -159,14 +172,19 @@ struct Insert {
   int spr;        // 16-byte slots a staged row (fold)
   int copy_rows;  // rows of a map a copy block covers
   int n_copy;     // copy blocks a map (0: nothing outside the windows)
-  // the block pool (pool_insert_launch): f32[n_slots, B, B, C], updated in place
+  // the block pool: f32[n_slots, B, B, c], updated in place
   float* pool;
-  const int* tables;    // i32[p, th, tw]: each scan's slot of each tile, -1 = none
-  const int* refcnt;    // i32[n_slots] (live where > 0) or null
-  const int* n_live;    // i32[] (the slots below it live) or null
-  int n_slots, block, th, tw;
-  unsigned char* touched;  // u8[n_scans, th, tw]: pool_touch_launch's output, the pool's input
-  int n_seg;               // pool_touch_launch: threads a beam
+  int n_slots, block, th, tw, c;
+  int mode;                 // pool_prepare_kernel: kTouch, kGiven, kCow or kTiled
+  unsigned char* touched;   // u8[p, th, tw]: the marks (kGiven: the input)
+  int* tables;              // i32[p, th, tw]: each scan's slot of each tile, -1 = none
+  int* refcnt;              // i32[n_slots]: the CoW pool's references, or null
+  unsigned char* overflow;  // bool[]: the CoW pool's latch
+  int* n_alloc;             // i32[]: the tiled map's slots asked for (live below it)
+  const float* init;        // f32[c]: the init cell (kCow)
+  int k_max;                // kCow: new blocks a step at most
+  int robot_bands;          // row bands of a banded tile (the robot's, its neighbours)
+  int* work;                // the work list (kWork* header, items, scratch, owners)
 };
 
 // Map m's window: its first cell and its world origin. grid.window_corner's
@@ -913,12 +931,75 @@ __global__ void __launch_bounds__(kThreads, 2) insert_kernel(const Insert s) {
 #endif
 }
 
-// The cells of one pool slot (n floats at g) to or from shared memory:
-// 16-byte copies where the slot is 16-byte aligned (n % 4 == 0 and the pool
-// is), single floats otherwise.
+// --- The block pool ----------------------------------------------------------
+//
+// A step's scans go into P block tables over one pool in two launches, and
+// nothing else runs on the host. They replace what the reference computes
+// before and in its pool scatter (slam_constructor_tpu/ops/cow.py:82
+// prepare_write and :143 scatter_observations; ops/blockmap.py:87
+// allocate_tiles and :117), which the TPU ran as XLA sorts, gathers and
+// scatters.
+//
+// pool_prepare_kernel, one thread-block cluster (16 blocks of 512 threads
+// where the card places it, else 8): every block marks the tiles of its
+// share of the beams in a bitset in its shared memory (a beam's free trace
+// walked by the samples where its row or column passes a tile boundary,
+// not sample by sample); block 0 ORs the bitsets through distributed
+// shared memory and writes the marks once, then compacts the needed
+// entries and the free slots by block prefix sums (cow.prepare_write's
+// order, trap o kept) or allocates the tiled map's tiles, on the state
+// cached in its shared memory; after the cluster barrier block 0 writes
+// each slot's owner and the insert's work list while the other blocks copy
+// or reset the new blocks (only those: the sources are used slots, the
+// destinations free ones). pool_kernel, a fixed grid of about two blocks
+// an SM, takes the list's items from an atomic counter: the banded tiles
+// in row bands (the tile around each particle's robot, where every beam
+// starts, and its neighbours where the list stays within the grid), every
+// other touched tile a block, every other live slot folded with no
+// observation.
+//
+// What bounds them on an H100: bytes, far below a launch. The prepare moves
+// the tables, refcounts and marks (a few KB) and each new block read and
+// written once (a few a step on the RBPF once it has converged, up to ~180
+// of 8 KB at its first step: 2.8 MB, 0.8 us); its time is the marking of
+// ~680 beams a block on 16 SMs and block 0's chain of prefix sums and
+// barriers (PERF.md). The insert moves each live block twice (~4 MB,
+// 1.2 us); its time is the slowest item's chain of phases (a band's free
+// items and a fixed cost of ~10,000 cycles an item), which the bands split.
+
+// The work list (i32): a header, the items, the prepare's scratch (the
+// needed entries in order, their new slots, the copy sources), then each
+// slot's owner (pool_owners' meaning: p th tw + tile of the touched entry
+// that owns the slot alone, else -1).
+constexpr int kWorkTake = 0, kWorkDone = 1, kWorkCount = 2, kWorkBands = 3, kWorkCopies = 4;
+constexpr int kWorkHead = 8;
+// an item: slot << 4 | code; code < kMaxRobotBands: that band of rows of a
+// banded tile (the tile around a particle's robot, and its neighbours where
+// the list stays within the grid's blocks); kItemTile: a whole touched
+// tile; kItemFold: a live slot folded with no observation
+constexpr int kMaxRobotBands = 8, kItemTile = 14, kItemFold = 15;
+
+// the items at most: the banded tiles' bands (the robots' tiles, or with
+// their neighbours up to the grid's blocks), then one a slot
+__host__ __device__ inline long long pool_items_max(const Insert& s) {
+  const long long bands = static_cast<long long>(s.p) * s.robot_bands;
+  return (bands > kTargetBlocks ? bands : kTargetBlocks) + s.n_slots;
+}
+__host__ __device__ inline int* pool_items(const Insert& s) { return s.work + kWorkHead; }
+__host__ __device__ inline int* pool_sel(const Insert& s) {
+  return pool_items(s) + pool_items_max(s);
+}
+__host__ __device__ inline int* pool_dst(const Insert& s) { return pool_sel(s) + s.n_slots; }
+__host__ __device__ inline int* pool_src(const Insert& s) { return pool_dst(s) + s.n_slots; }
+__host__ __device__ inline int* pool_owner(const Insert& s) { return pool_src(s) + s.n_slots; }
+
+// The cells [off, off + n) of the pool (floats) to or from shared memory:
+// 16-byte copies where both ends are 16-byte aligned (the pool is), single
+// floats otherwise.
 template <bool kLoad>
-__device__ __forceinline__ void slot_cells(float* staged, float* g, int n) {
-  if ((n & 3) == 0) {
+__device__ __forceinline__ void slot_cells(float* staged, float* pool, long long off, int n) {
+  float* g = pool + off;
+  if (((off | n) & 3) == 0) {
     for (int j = threadIdx.x; j < n / 4; j += kThreads) {
       if (kLoad) {
         cp_async16(staged + 4 * j, g + 4 * j);
@@ -937,57 +1018,29 @@ __device__ __forceinline__ void slot_cells(float* staged, float* g, int n) {
   }
 }
 
-// The block pool: a block a slot. A slot that a touched (scan, tile) owns
-// alone takes that tile's samples (the band machinery on one B x B tile,
-// its columns too, the sums starting from the free counts: the pool's
-// scatter's order) and is folded; every other live slot is folded with no
-// observation (the reference folds the whole pool; that is not the
-// identity, BayesAvg's (p n + 0) / n may move p by an ulp); a dead slot is
-// left as it is. Each slot is read and written by its own block only, so
-// the pool is updated in place. A live block finds its owner by reading
-// the tables and the marks (a few KB, from L2): the one touched entry that
-// names the slot, where the slot's refcount is 1 (the copy-on-write pool)
-// or the table is one (the tiled map, whose slots are unique).
+// The pool insert: a fixed grid of blocks takes the prepare's items in
+// order from an atomic counter. A band item or a tile item runs the band
+// machinery on its rows of its owner's tile (the columns narrowed too, the
+// sums seeded with the free counts: the pool's one scatter's order, so a
+// band's cells are the whole tile's bit for bit) and folds them; a fold
+// item folds its slot with no observation (the reference folds the whole
+// pool; that is not the identity, BayesAvg's (p n + 0) / n may move p by an
+// ulp). Dead slots have no item. Each slot's cells are read and written by
+// the blocks of its own items only, each band its own rows, so the pool is
+// updated in place. No block reads the tables.
 template <int kModel>
 __global__ void __launch_bounds__(kThreads, 2) pool_kernel(const Insert s) {
   constexpr int kC = channels_of(kModel);
-  const int slot = blockIdx.x;
   const int bb = s.block * s.block;
-  float* g = s.pool + static_cast<long long>(slot) * bb * kC;
-  const int ref = s.refcnt ? __ldg(s.refcnt + slot) : 1;
-  if (s.refcnt ? ref <= 0 : slot >= __ldg(s.n_live)) return;  // dead: no table names it
-  __shared__ int found, hits;
-  if (threadIdx.x == 0) {
-    found = -1;
-    hits = 0;
-  }
-  __syncthreads();
-  const int n_entries = s.p * s.th * s.tw;
-  for (int k = threadIdx.x; k < n_entries; k += kThreads) {
-    if (__ldg(s.tables + k) == slot && __ldg(s.touched + k)) {
-      atomicAdd(&hits, 1);
-      found = k;
-    }
-  }
-  __syncthreads();
-  const int own = hits == 1 && ref == 1 ? found : -1;
-  const float q = s.q ? __ldg(s.q) : 1.0f;
-  if (own < 0) {
-    for (int j = threadIdx.x; j < bb; j += kThreads) {
-      float in[kC], o[kC];
-#pragma unroll
-      for (int ch = 0; ch < kC; ++ch) in[ch] = g[j * kC + ch];
-      fold_cell<kModel>(s, in, in[kC - 1], 0.0f, 0.0f, o);
-      o[kC - 1] = in[kC - 1] + 0.0f;
-#pragma unroll
-      for (int ch = 0; ch < kC; ++ch) g[j * kC + ch] = o[ch];
-    }
-    return;
-  }
   const int n_tiles = s.th * s.tw;
-  const int scan = own / n_tiles, tile = own - scan * n_tiles;
-  const int tr = tile / s.tw, tc = tile - tr * s.tw;
+  const int* items = pool_items(s);
+  const int* owner = pool_owner(s);
+  const int count = s.work[kWorkCount];
+  const int nb = s.work[kWorkBands];
+  const int band_rows = (s.block + nb - 1) / nb;
+  const float q = s.q ? __ldg(s.q) : 1.0f;
   extern __shared__ float4 smem[];
+  __shared__ int taken;
   Band b;
   b.beam = smem;
   b.part = reinterpret_cast<int2*>(smem + kThreads);
@@ -1003,42 +1056,91 @@ __global__ void __launch_bounds__(kThreads, 2) pool_kernel(const Insert s) {
   b.first = b.start + kThreads + 4;
   b.rel = b.first + kThreads;
   b.warp_count = b.rel + kThreads;
-  b.r0 = tr * s.block;
-  b.rows = s.block;
-  b.c0 = tc * s.block;
-  b.cw = s.block;
   b.n_chunks = 0;
 #ifdef SLAM_KERNEL_PROBE
   b.t = clock64();
   for (int k = 0; k < kProbeSlots; ++k) b.cycles[k] = 0;
 #endif
-  slot_cells<true>(b.cells, g, bb * kC);  // on their way while the tile rasterises
-  for (int j = threadIdx.x; j < bb; j += kThreads) {
-    b.free[j] = 0;
-    b.occ_w[j] = 0.0f;
-    b.occ_s[j] = 0.0f;
-  }
-  phase_done(b, kSetup);
-  const Frame f{__ldg(s.pose + 3 * scan), __ldg(s.pose + 3 * scan + 1), __ldg(s.origin),
-                __ldg(s.origin + 1)};
-  band_scan<true>(s, b, f, scan, q);
-  cp_async_wait_all();
-  __syncthreads();
-  phase_done(b, kFoldWait);
-  for (int j = threadIdx.x; j < bb; j += kThreads) {
-    float* cell = b.cells + j * kC;
-    float in[kC], o[kC];
+  for (;;) {
+    __syncthreads();  // the last item is done with the shared memory and `taken` is read
+    if (threadIdx.x == 0) taken = atomicAdd(s.work + kWorkTake, 1);
+    __syncthreads();
+    const int it = taken;
+    if (it >= count) break;
+    const int item = items[it];
+    const int slot = item >> 4, code = item & 15;
+    const long long slot0 = static_cast<long long>(slot) * bb * kC;
+#ifdef SLAM_KERNEL_PROBE
+    const long long item_t0 = clock64();
+    const long long free0 = b.cycles[kFreeCount], occ0 = b.cycles[kItems];
+#endif
+    if (code == kItemFold) {
+      float* g = s.pool + slot0;
+      for (int j = threadIdx.x; j < bb; j += kThreads) {
+        float in[kC], o[kC];
 #pragma unroll
-    for (int ch = 0; ch < kC; ++ch) in[ch] = cell[ch];
-    const float w = b.occ_w[j];
-    fold_cell<kModel>(s, in, in[kC - 1], w, b.occ_s[j], o);
-    o[kC - 1] = in[kC - 1] + w;
+        for (int ch = 0; ch < kC; ++ch) in[ch] = g[j * kC + ch];
+        fold_cell<kModel>(s, in, in[kC - 1], 0.0f, 0.0f, o);
+        o[kC - 1] = in[kC - 1] + 0.0f;
 #pragma unroll
-    for (int ch = 0; ch < kC; ++ch) cell[ch] = o[ch];
+        for (int ch = 0; ch < kC; ++ch) g[j * kC + ch] = o[ch];
+      }
+      continue;
+    }
+    const int own = owner[slot];
+    const int scan = own / n_tiles, tile = own - scan * n_tiles;
+    const int tr = tile / s.tw, tc = tile - tr * s.tw;
+    const int r_lo = code == kItemTile ? 0 : code * band_rows;
+    b.r0 = tr * s.block + r_lo;
+    b.rows = code == kItemTile ? s.block : min(band_rows, s.block - r_lo);
+    b.c0 = tc * s.block;
+    b.cw = s.block;
+    const int n_cells = b.rows * s.block;
+    const long long off = slot0 + static_cast<long long>(r_lo) * s.block * kC;
+    slot_cells<true>(b.cells, s.pool, off, n_cells * kC);  // on their way while the band rasterises
+    for (int j = threadIdx.x; j < n_cells; j += kThreads) {
+      b.free[j] = 0;
+      b.occ_w[j] = 0.0f;
+      b.occ_s[j] = 0.0f;
+    }
+    phase_done(b, kSetup);
+    const Frame f{__ldg(s.pose + 3 * scan), __ldg(s.pose + 3 * scan + 1), __ldg(s.origin),
+                  __ldg(s.origin + 1)};
+    band_scan<true>(s, b, f, scan, q);
+    cp_async_wait_all();
+    __syncthreads();
+    phase_done(b, kFoldWait);
+    for (int j = threadIdx.x; j < n_cells; j += kThreads) {
+      float* cell = b.cells + j * kC;
+      float in[kC], o[kC];
+#pragma unroll
+      for (int ch = 0; ch < kC; ++ch) in[ch] = cell[ch];
+      const float w = b.occ_w[j];
+      fold_cell<kModel>(s, in, in[kC - 1], w, b.occ_s[j], o);
+      o[kC - 1] = in[kC - 1] + w;
+#pragma unroll
+      for (int ch = 0; ch < kC; ++ch) cell[ch] = o[ch];
+    }
+    __syncthreads();
+    slot_cells<false>(b.cells, s.pool, off, n_cells * kC);
+    phase_done(b, kFold);
+#ifdef SLAM_KERNEL_PROBE
+    if (threadIdx.x == 0 && it < kProbeItems) {
+      probe_items[4 * it] = clock64() - item_t0;
+      probe_items[4 * it + 1] = b.cycles[kFreeCount] - free0;
+      probe_items[4 * it + 2] = b.cycles[kItems] - occ0;
+      probe_items[4 * it + 3] = static_cast<unsigned long long>(item);
+    }
+#endif
   }
-  __syncthreads();
-  slot_cells<false>(b.cells, g, bb * kC);
-  phase_done(b, kFold);
+  // the last block out sets the counters back: the launch can be replayed
+  if (threadIdx.x == 0) {
+    __threadfence();
+    if (atomicAdd(s.work + kWorkDone, 1) == static_cast<int>(gridDim.x) - 1) {
+      s.work[kWorkTake] = 0;
+      s.work[kWorkDone] = 0;
+    }
+  }
 #ifdef SLAM_KERNEL_PROBE
   if (threadIdx.x == 0 && blockIdx.x < kProbeBlocks) {
     for (int k = 0; k < kProbeSlots; ++k) {
@@ -1048,58 +1150,599 @@ __global__ void __launch_bounds__(kThreads, 2) pool_kernel(const Insert s) {
 #endif
 }
 
-// Marks tile (r // B, c // B) of scan p's table where a sample of scan p
-// adds evidence on the table: q w > 0 (the free trace's first sample in a
-// cell, an endpoint's cell, a blur sample of weight > 0) in a cell inside
-// the th B x tw B cells. Marks are order-free (stores of 1). A thread walks
-// one segment of n_seg of a beam's free samples; segment 0 also takes the
-// beam's occupied samples. The samples' arithmetic is the band's.
-__global__ void __launch_bounds__(128) touch_kernel(const Insert s) {
-  const long long id = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int per_scan = s.r * s.n_seg;
-  const int scan = blockIdx.y;
-  if (id >= per_scan) return;
-  const int beam = static_cast<int>(id / s.n_seg), seg = static_cast<int>(id - beam * s.n_seg);
-  const float ang =
-      __ldg(s.pose + 3 * scan + 2) + __ldg(s.bearings + scan * s.bearings_stride + beam);
-  const float range = __ldg(s.ranges + scan * s.ranges_stride + beam);
-  const bool valid = __ldg(s.valid + scan * s.valid_stride + beam);
-  if (!valid) return;
-  const float4 bm = make_float4(cosf(ang), sinf(ang), range, range <= s.max_range ? kEvidence : kValid);
-  const Frame f{__ldg(s.pose + 3 * scan), __ldg(s.pose + 3 * scan + 1), __ldg(s.origin),
-                __ldg(s.origin + 1)};
-  const float q = s.q ? __ldg(s.q) : 1.0f;
-  const float rows = static_cast<float>(s.th * s.block), cols = static_cast<float>(s.tw * s.block);
-  unsigned char* marks = s.touched + static_cast<long long>(scan) * s.th * s.tw;
-  int last = -1;
-  auto mark = [&](float fr, float fc, float w) {
-    if (q * w > 0.0f && fr >= 0.0f && fr < rows && fc >= 0.0f && fc < cols) {
-      const int tile = (static_cast<int>(fr) / s.block) * s.tw + static_cast<int>(fc) / s.block;
-      // stored once a run of samples in a tile, and only where no thread
-      // has yet: the beams meet in a few tiles, and stores to one address
-      // queue in the L2, loads of it do not
-      if (tile != last && !marks[tile]) marks[tile] = 1;
-      last = tile;
+// --- The prepare launch --------------------------------------------------------
+
+enum PrepMode { kTouch = 0, kGiven = 1, kCow = 2, kTiled = 3 };
+
+// the marks of 262,144 table entries, a bit each, in a block's shared memory
+constexpr int kMaxMarkWords = 8192;
+constexpr int kMaxClusterBlocks = 16;  // non-portable: 8 where the card cannot place 16
+// block 0 keeps the tables, refcounts and owners in its shared memory where
+// they fit in this much with the marks (else it works on them in place in
+// device memory, the same code through generic pointers)
+constexpr int kPrepCacheBytes = 160 * 1024;
+// consecutive entries or slots a thread takes in block 0's prefix sums
+constexpr int kRun = 8;
+
+// The marks' staging area in shared memory: a chunk of kThreads beams.
+struct MarkChunk {
+  float4* beam;  // [kThreads]: dx, dy, range, flags
+  float4* ends;  // [kThreads]: the row and column of the first and last free sample
+  int4* bound;   // [kThreads]: the first row boundary, their count, the same for columns
+  int* n_free;   // [kThreads]: free samples before the limit
+  int* scan;     // [kThreads]: the beam's scan
+  int* start;    // [kThreads + 1]: each beam's first item, then the total
+};
+
+__host__ __device__ constexpr int mark_chunk_bytes() { return kThreads * (16 * 3 + 12) + 16; }
+
+// The boundaries (multiples of bk, within [0, extent]) that a coordinate
+// monotone along the beam passes between a (the first sample's) and z (the
+// last one's): the first boundary's index m and their count; rising, the m
+// with a < m bk <= z, falling the m with z < m bk <= a, from the largest.
+__device__ __forceinline__ int2 boundaries(float a, float z, int bk, int n_bk, float extent) {
+  const bool up = a <= z;
+  const float lo = up ? a : z, hi = up ? z : a;
+  // the smallest m with m bk > lo, the largest with m bk <= hi
+  const int m_lo = lo < 0.0f ? 0 : (lo >= extent ? n_bk + 1 : static_cast<int>(lo) / bk + 1);
+  const int m_hi = hi < 0.0f ? -1 : (hi >= extent ? n_bk : static_cast<int>(hi) / bk);
+  const int count = max(0, m_hi - m_lo + 1);
+  return make_int2(up ? m_lo : m_hi, count);
+}
+
+// Sets, in `bits` (shared memory), the bit of each tile of table p that
+// the beams [g0, g1) (beam g of scan g / R) put a sample of weight q w > 0
+// in on the table: pool_touched_ref's marks. A sample's row and column are
+// each monotone along the beam (every IEEE op of their chains is), so the
+// free trace's tile changes only where one of them passes a tile boundary:
+// its tiles are the first sample's and, for each boundary it passes, the
+// tile of the first sample past it, found by the band's search from where
+// the real line crosses. The beams of a chunk are staged a thread each
+// (their free limit and the cells at both ends), then every boundary and
+// every occupied sample is an item of its own, a run of them a thread. A
+// cell is the twin's floor of an IEEE division (cell_of).
+__device__ void mark_beams(const Insert& s, int g0, int g1, float q, unsigned* bits,
+                           const MarkChunk& c, int2* part) {
+  const int t = threadIdx.x, bk = s.block;
+  const float rows = static_cast<float>(s.th * bk), cols = static_cast<float>(s.tw * bk);
+  const float step = s.step;
+  const int e_occ = s.area ? 9 : 1;
+  for (int base = g0; base < g1; base += kThreads) {
+    const int n_beams = min(kThreads, g1 - base);
+    // --- a beam a thread: its frame, free limit, ends and boundaries ------
+    int items = 0;
+    if (t < n_beams) {
+      const int g = base + t;
+      const int scan = g / s.r, beam = g - scan * s.r;
+      float4 bm = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      float4 ends = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      int4 bound = make_int4(0, 0, 0, 0);
+      int n = 0;
+      if (__ldg(s.valid + scan * s.valid_stride + beam)) {
+        const float ang =
+            __ldg(s.pose + 3 * scan + 2) + __ldg(s.bearings + scan * s.bearings_stride + beam);
+        const float range = __ldg(s.ranges + scan * s.ranges_stride + beam);
+        bm = make_float4(cosf(ang), sinf(ang), range, range <= s.max_range ? kEvidence : kValid);
+        if (q > 0.0f) {  // a free sample's weight is q
+          const float limit = range - s.hole_half;
+          n = first_true(0, s.n_free, ceilf(__fdividef(limit, step) - 0.5f), [&](int i) {
+            return !((static_cast<float>(i) + 0.5f) * step < limit);
+          });
+        }
+        if (n > 0) {
+          const float px = __ldg(s.pose + 3 * scan), py = __ldg(s.pose + 3 * scan + 1);
+          const float ox = __ldg(s.origin), oy = __ldg(s.origin + 1);
+          const float t0 = 0.5f * step, t1 = (static_cast<float>(n - 1) + 0.5f) * step;
+          ends = make_float4(cell_of(py, bm.y, t0, oy, s.scale),
+                             cell_of(py, bm.y, t1, oy, s.scale),
+                             cell_of(px, bm.x, t0, ox, s.scale),
+                             cell_of(px, bm.x, t1, ox, s.scale));
+          if (ends.x == ends.x && ends.y == ends.y && ends.z == ends.z && ends.w == ends.w) {
+            const int2 br = boundaries(ends.x, ends.y, bk, s.th, rows);
+            const int2 bc = boundaries(ends.z, ends.w, bk, s.tw, cols);
+            bound = make_int4(br.x, br.y, bc.x, bc.y);
+            items = 1 + br.y + bc.y;
+          } else {
+            n = 0;
+          }
+        }
+        if (bm.w >= kEvidence) items += e_occ + s.blur;
+      }
+      c.beam[t] = bm;
+      c.ends[t] = ends;
+      c.bound[t] = bound;
+      c.n_free[t] = n;
+      c.scan[t] = scan;
     }
-  };
-  // the free trace: a cell's first sample counts; a later sample of the run
-  // lies in the same cell, whose tile the first marked
-  const float limit = bm.z - s.hole_half;
-  const int per = (s.n_free + s.n_seg - 1) / s.n_seg;
-  const int i1 = min(s.n_free, (seg + 1) * per);
-  for (int i = seg * per; i < i1; ++i) {
-    const float t_i = (static_cast<float>(i) + 0.5f) * s.step;
-    if (!(t_i < limit)) break;
-    mark(cell_of(f.py, bm.y, t_i, f.oy, s.scale), cell_of(f.px, bm.x, t_i, f.ox, s.scale), 1.0f);
+    int2 total;
+    const int at = block_scan(make_int2(items, 0), part, total).x;
+    c.start[t] = at;
+    if (t == 0) c.start[kThreads] = total.x;
+    __syncthreads();
+    // --- the items, a run of consecutive ones a thread ---------------------
+    const int per = (total.x + kThreads - 1) / kThreads;
+    int item = t * per;
+    const int end = min(item + per, total.x);
+    int j = -1, last = -1;
+    for (; item < end; ++item) {
+      if (j < 0 || c.start[j + 1] <= item) {  // the beam whose items hold this one
+        j = lower_bound(j + 1, kThreads, [&](int x) { return c.start[x] > item; }) - 1;
+      }
+      const int scan = c.scan[j];
+      const float4 bm = c.beam[j];
+      const Frame f{__ldg(s.pose + 3 * scan), __ldg(s.pose + 3 * scan + 1), __ldg(s.origin),
+                    __ldg(s.origin + 1)};
+      const int n = c.n_free[j];
+      const int4 bd = c.bound[j];
+      int k = item - c.start[j];
+      float fr = -1.0f, fc = -1.0f;
+      bool hit = false;
+      if (n > 0 && k <= bd.y + bd.w) {  // the free trace: the first sample, or a boundary's
+        const float4 ends = c.ends[j];
+        auto row = [&](int i) {
+          return cell_of(f.py, bm.y, (static_cast<float>(i) + 0.5f) * step, f.oy, s.scale);
+        };
+        auto col = [&](int i) {
+          return cell_of(f.px, bm.x, (static_cast<float>(i) + 0.5f) * step, f.ox, s.scale);
+        };
+        int i0 = 0;
+        if (k > 0) {  // a boundary that the row (k <= bd.y) or the column passes
+          const bool is_row = k <= bd.y;
+          const float p0 = is_row ? f.py : f.px, d0 = is_row ? bm.y : bm.x;
+          const float o0 = is_row ? f.oy : f.ox;
+          const bool up = is_row ? ends.x <= ends.y : ends.z <= ends.w;
+          const int kb = is_row ? k - 1 : k - 1 - bd.y, m0 = is_row ? bd.x : bd.z;
+          const float a = static_cast<float>((up ? m0 + kb : m0 - kb) * bk);
+          // a guess: a fast division will do
+          const float guess = ceilf(__fdividef((a * s.scale + o0) - p0, d0 * step) - 0.5f);
+          i0 = first_true(1, n, guess, [&](int i) {
+            const float v = cell_of(p0, d0, (static_cast<float>(i) + 0.5f) * step, o0, s.scale);
+            return up ? v >= a : v < a;
+          });
+        }
+        fr = i0 == 0 ? ends.x : row(i0);
+        fc = i0 == 0 ? ends.z : col(i0);
+        hit = true;
+      } else {  // an occupied sample
+        if (n > 0) k -= 1 + bd.y + bd.w;
+        float w, sv;
+        hit = occupied_sample(s, f, bm, k < e_occ ? 0 : 1, k < e_occ ? k : k - e_occ, fr,
+                                    fc, w, sv) && q * w > 0.0f;
+      }
+      if (hit && fr >= 0.0f && fr < rows && fc >= 0.0f && fc < cols) {
+        const int e = scan * s.th * s.tw + (static_cast<int>(fr) / bk) * s.tw +
+                      static_cast<int>(fc) / bk;
+        // most beams of a scan mark the same few tiles: an atomic only
+        // where the bit is not yet set
+        const unsigned m = 1u << (e & 31);
+        if (e != last && !(*static_cast<volatile unsigned*>(bits + (e >> 5)) & m)) {
+          atomicOr(bits + (e >> 5), m);
+        }
+        last = e;
+      }
+    }
+    __syncthreads();  // the chunk's staging is free again
   }
-  if (seg != 0 || bm.w < kEvidence) return;
-  const int e = s.area ? 9 : 1;
-  for (int k = 0; k < e + s.blur; ++k) {
-    float fr, fc, w, sv;
-    if (occupied_sample(s, f, bm, k < e ? 0 : 1, k < e ? k : k - e, fr, fc, w, sv)) {
-      mark(fr, fc, w);
+}
+
+__device__ __forceinline__ bool marked(const unsigned* bits, int e) {
+  return (bits[e >> 5] >> (e & 31)) & 1u;
+}
+
+// Block 0's view of the state: the marks, and the tables, refcounts and
+// owners in its shared memory (copied in, written back) or in place in
+// device memory.
+struct PrepView {
+  unsigned* bits;
+  int* tables;  // [p th tw]
+  int* refcnt;  // [n_slots] or null
+  int* owner;   // [n_slots]
+  int* robot;   // [p]: the tile that holds each scan's pose (cached only)
+  int* kinds;   // [n_slots]: each slot's kind in the work list
+  bool cached;
+};
+
+// Entries [0, n) a round of kThreads kRun: `flag(e)` (bool) of each, then
+// `take(e, rank)` for those that hold, the rank their place in increasing e
+// among them. A warp takes kRun 32 consecutive entries, a lane every 32nd
+// (ballots keep the order), one block prefix a round over the warps'
+// counts. Returns how many hold.
+template <typename Flag, typename Take>
+__device__ __forceinline__ int compact(int n, int2* part, Flag flag, Take take) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const unsigned below = (1u << lane) - 1u;
+  int taken = 0;
+  for (int base = 0; base < n; base += kThreads * kRun) {
+    const int w0 = base + warp * 32 * kRun;
+    unsigned hold[kRun];
+    int count = 0;
+    // (loops, not unrolled: block 0 runs this code once a launch, and the
+    // instruction fetches of unrolled copies cost more than the loop)
+#pragma unroll 1
+    for (int k = 0; k < kRun; ++k) {
+      const int e = w0 + 32 * k + lane;
+      hold[k] = __ballot_sync(kFull, e < n && flag(e));
+      count += __popc(hold[k]);
+    }
+    int2 total;
+    const int before = block_scan(make_int2(lane == 0 ? count : 0, 0), part, total).x;
+    int at = taken + __shfl_sync(kFull, before, 0);
+#pragma unroll 1
+    for (int k = 0; k < kRun; ++k) {
+      if (hold[k] >> lane & 1u) take(w0 + 32 * k + lane, at + __popc(hold[k] & below));
+      at += __popc(hold[k]);
+    }
+    taken += total.x;
+  }
+  return taken;
+}
+
+// The copy-on-write compaction (cow.prepare_write): the needed (scan,
+// tile) entries (touched, and unmapped or shared) in row-major order, at
+// most min(k_max, N) kept; the free slots (refcount 0) in increasing order;
+// the k-th needed entry takes the k-th free slot (a fresh tile's block reset
+// to the init cell, a shared one's copied), the tables and refcounts
+// updated; demand past k_max or the free slots latches the overflow and
+// keeps those entries' tables (trap o). Block 0.
+__device__ void prepare_cow(const Insert& s, const PrepView& v, int2* part) {
+  const int t = threadIdx.x, n = s.n_slots, n_entries = s.p * s.th * s.tw;
+  int *sel = pool_sel(s), *dst = pool_dst(s), *src = pool_src(s);
+  const int cap = min(s.k_max, n);
+  const int k_needed = compact(
+      n_entries, part,
+      [&](int e) {
+        if (!marked(v.bits, e)) return false;
+        const int slot = v.tables[e];
+        return slot < 0 || v.refcnt[min(slot, n - 1)] > 1;
+      },
+      [&](int e, int at) {
+        if (at < cap) sel[at] = e;
+      });
+  const int k_use = min(k_needed, cap);
+  const int n_free = compact(
+      n, part, [&](int slot) { return v.refcnt[slot] == 0; },
+      [&](int slot, int at) {
+        if (at < k_use) dst[at] = slot;
+      });
+  const int k_eff = min(k_use, n_free);
+  __syncthreads();  // sel and dst are written, every refcount read
+  for (int k = t; k < k_eff; k += kThreads) {
+    const int e = sel[k], d = dst[k];
+    const int old = v.tables[e];  // -1: a fresh tile; else the shared block it copies
+    src[k] = old;
+    v.tables[e] = d;
+    v.refcnt[d] = 1;
+    if (old >= 0) atomicSub(v.refcnt + old, 1);
+  }
+  if (t == 0) {
+    *s.overflow = (*s.overflow || k_needed > min(n_free, s.k_max)) ? 1 : 0;
+    s.work[kWorkCopies] = k_eff;
+  }
+  __syncthreads();
+}
+
+// The tiled map's allocation (blockmap.allocate_tiles): each touched tile
+// without a block gets slot n_alloc + its rank in row-major order, -1 past
+// the capacity; n_alloc counts the demand. Block 0.
+__device__ void prepare_tiled(const Insert& s, const PrepView& v, int2* part) {
+  const int n_alloc = *s.n_alloc;
+  const int fresh = compact(
+      s.th * s.tw, part, [&](int e) { return marked(v.bits, e) && v.tables[e] < 0; },
+      [&](int e, int at) { v.tables[e] = n_alloc + at < s.n_slots ? n_alloc + at : -1; });
+  if (threadIdx.x == 0) *s.n_alloc = n_alloc + fresh;
+  __syncthreads();
+}
+
+// The tile that holds scan p's pose (-1: off the table, or NaN).
+__device__ __forceinline__ int robot_tile(const Insert& s, int p) {
+  const float fc = floorf((__ldg(s.pose + 3 * p) - __ldg(s.origin)) / s.scale);
+  const float fr = floorf((__ldg(s.pose + 3 * p + 1) - __ldg(s.origin + 1)) / s.scale);
+  if (!(fr >= 0.0f && fr < static_cast<float>(s.th * s.block) && fc >= 0.0f &&
+        fc < static_cast<float>(s.tw * s.block))) {
+    return -1;
+  }
+  return (static_cast<int>(fr) / s.block) * s.tw + static_cast<int>(fc) / s.block;
+}
+
+// Each slot's owner, then the work list, slot by slot in increasing order:
+// first the bands of the banded tiles' slots (a robot's tile, and its
+// neighbours where the list then holds at most kTargetBlocks bands and
+// tiles), then the slots that another touched tile owns, then the live
+// slots that nothing owns. Block 0.
+__device__ void work_list(const Insert& s, const PrepView& v, int2* part, long long* sub) {
+  const int t = threadIdx.x, n = s.n_slots, n_tiles = s.th * s.tw, n_entries = s.p * n_tiles;
+  int* items = pool_items(s);
+  const int live_end = v.refcnt ? 0 : min(*s.n_alloc, n);
+  for (int slot = t; slot < n; slot += kThreads) v.owner[slot] = -1;
+  if (v.robot) {
+    for (int p = t; p < s.p; p += kThreads) v.robot[p] = robot_tile(s, p);
+  }
+  __syncthreads();
+  for (int e = t; e < n_entries; e += kThreads) {
+    if (!marked(v.bits, e)) continue;
+    const int slot = v.tables[e];
+    if (slot >= 0 && slot < n && (v.refcnt ? v.refcnt[slot] == 1 : slot < live_end)) {
+      v.owner[slot] = e;
     }
   }
+  __syncthreads();
+#ifdef SLAM_KERNEL_PROBE
+  if (t == 0) sub[0] = clock64();
+#endif
+  const int nb = s.robot_bands;
+  // each slot's kind, once: 0 none, 1 a robot's tile, 2 a tile next to it,
+  // 3 another owned tile, 4 live and folded
+  int2 mine = make_int2(0, 0);
+  for (int slot = t; slot < n; slot += kThreads) {
+    const int own = v.owner[slot];
+    int k = 0;
+    if (own < 0) {
+      k = (v.refcnt ? v.refcnt[slot] > 0 : slot < live_end) ? 4 : 0;
+    } else {
+      const int p = own / n_tiles, tile = own - p * n_tiles;
+      const int robot = v.robot ? v.robot[p] : robot_tile(s, p);
+      const int dr = tile / s.tw - robot / s.tw, dc = tile % s.tw - robot % s.tw;
+      k = tile == robot ? 1 : (robot >= 0 && dr >= -1 && dr <= 1 && dc >= -1 && dc <= 1 ? 2 : 3);
+    }
+    v.kinds[slot] = k;
+    mine.x += k == 1 || k == 2;
+    mine.y += k == 3;
+  }
+  // the robots' neighbours are banded too where the list then stays within
+  // the grid's blocks (a map, not the RBPF's many)
+  int2 owned;
+  block_scan(mine, part, owned);  // (its barriers order the kinds before their use)
+  const bool near = owned.x * nb + owned.y <= kTargetBlocks;
+  auto kind = [&](int slot) { return v.kinds[slot]; };
+  auto banded = [&](int k) { return k == 1 || (near && k == 2); };
+  const int n_band = nb * compact(n, part, [&](int slot) { return banded(kind(slot)); },
+                                  [&](int slot, int at) {
+                                    for (int j = 0; j < nb; ++j) items[at * nb + j] = slot << 4 | j;
+                                  });
+#ifdef SLAM_KERNEL_PROBE
+  if (t == 0) sub[1] = clock64();
+#endif
+  const int n_tile = compact(n, part, [&](int slot) {
+                               const int k = kind(slot);
+                               return k == 3 || (!near && k == 2);
+                             },
+                             [&](int slot, int at) { items[n_band + at] = slot << 4 | kItemTile; });
+#ifdef SLAM_KERNEL_PROBE
+  if (t == 0) sub[2] = clock64();
+#endif
+  const int folds = compact(n, part, [&](int slot) { return kind(slot) == 4; },
+                            [&](int slot, int at) {
+                              items[n_band + n_tile + at] = slot << 4 | kItemFold;
+                            });
+#ifdef SLAM_KERNEL_PROBE
+  if (t == 0) sub[3] = clock64();
+#endif
+  if (t == 0) {
+    if (s.mode != kCow) s.work[kWorkCopies] = 0;
+    s.work[kWorkCount] = n_band + n_tile + folds;
+    s.work[kWorkBands] = nb;
+    s.work[kWorkTake] = 0;
+    s.work[kWorkDone] = 0;
+  }
+}
+
+// The new blocks of the copy-on-write compaction, `me`-th of `workers`:
+// block k's cells are the source block's (the block it shares) or the init
+// cell; 8 float4 copies in flight a thread. The sources are used slots and
+// the destinations free ones, so no copy reads what another writes.
+__device__ void copy_blocks(const Insert& s, int me, int workers) {
+  const int k_eff = __ldcg(s.work + kWorkCopies);
+  const int *dst = pool_dst(s), *src = pool_src(s);
+  const int per = s.block * s.block * s.c;
+  const int mine = k_eff > me ? (k_eff - me + workers - 1) / workers : 0;
+  if ((per & 3) == 0) {
+    const int per4 = per / 4;
+    const long long total = static_cast<long long>(mine) * per4;
+    constexpr int kDepth = 8;
+    for (long long i0 = threadIdx.x; i0 < total; i0 += kDepth * kThreads) {
+      float4 v[kDepth];
+      long long at[kDepth];
+#pragma unroll
+      for (int u = 0; u < kDepth; ++u) {
+        const long long i = i0 + static_cast<long long>(u) * kThreads;
+        at[u] = -1;
+        v[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (i < total) {
+          const int kk = static_cast<int>(i / per4), j = static_cast<int>(i - kk * per4);
+          const int k = me + kk * workers;
+          const int from = __ldcg(src + k);
+          at[u] = static_cast<long long>(__ldcg(dst + k)) * per4 + j;
+          if (from >= 0) {
+            v[u] = reinterpret_cast<const float4*>(s.pool)[static_cast<long long>(from) * per4 + j];
+          } else {
+            v[u] = make_float4(__ldg(s.init + (4 * j) % s.c), __ldg(s.init + (4 * j + 1) % s.c),
+                               __ldg(s.init + (4 * j + 2) % s.c), __ldg(s.init + (4 * j + 3) % s.c));
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kDepth; ++u) {
+        if (at[u] >= 0) reinterpret_cast<float4*>(s.pool)[at[u]] = v[u];
+      }
+    }
+    return;
+  }
+  const long long total = static_cast<long long>(mine) * per;
+  for (long long i = threadIdx.x; i < total; i += kThreads) {
+    const int kk = static_cast<int>(i / per), j = static_cast<int>(i - static_cast<long long>(kk) * per);
+    const int k = me + kk * workers;
+    const int from = __ldcg(src + k);
+    s.pool[static_cast<long long>(__ldcg(dst + k)) * per + j] =
+        from >= 0 ? s.pool[static_cast<long long>(from) * per + j] : __ldg(s.init + j % s.c);
+  }
+}
+
+// A prepare block's shared memory: the marks (a bit an entry, rounded up
+// to 16 bytes), then the marks' staging area, which block 0 reuses after
+// the marks for the tables, owners, refcounts and robot tiles where they fit
+// in kPrepCacheBytes.
+__host__ __device__ inline int prep_words(const Insert& s) {
+  return (((s.p * s.th * s.tw + 31) >> 5) + 3) & ~3;
+}
+__host__ __device__ inline long long prep_cache_ints(const Insert& s) {
+  return static_cast<long long>(s.p) * s.th * s.tw + (s.refcnt ? 3ll : 2ll) * s.n_slots + s.p;
+}
+__host__ __device__ inline bool prep_cached(const Insert& s) {
+  return s.mode != kTouch && 4 * (prep_words(s) + prep_cache_ints(s)) <= kPrepCacheBytes;
+}
+inline size_t prep_shared_bytes(const Insert& s) {
+  const long long cache = prep_cached(s) ? 4 * prep_cache_ints(s) : 0;
+  const long long chunk = s.mode != kGiven ? mark_chunk_bytes() : 0;
+  return static_cast<size_t>(4ll * prep_words(s) + (cache > chunk ? cache : chunk));
+}
+
+// The prepare launch: one cluster. Every block marks the tiles of an even
+// share of the P R beams in a bitset of its own (kGiven: the marks are
+// given); block 0 ORs the blocks' bitsets through distributed shared
+// memory, writes the marks out once, and (kCow) compacts or (kTiled)
+// allocates, on the tables and refcounts copied into its shared memory
+// where they fit; after the cluster barrier block 0 writes the owners and
+// the work list while the others (kCow) copy the new blocks. kTouch stops
+// after the marks.
+__global__ void __launch_bounds__(kThreads, 1) pool_prepare_kernel(const Insert s) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int t = threadIdx.x;
+  extern __shared__ unsigned prep_smem[];
+  __shared__ int2 part[2 * kWarps];
+  unsigned* bits = prep_smem;
+  const int n_entries = s.p * s.th * s.tw, n_words = prep_words(s);
+  unsigned* area = bits + n_words;  // the marks' staging, then block 0's cache
+#ifdef SLAM_KERNEL_PROBE
+  // the probe build: thread 0's clock at each phase's end, the slowest
+  // thread's marking, kept by cluster block
+  __shared__ unsigned long long slowest;
+  long long stamp[kPrepSlots] = {};
+  stamp[0] = clock64();
+  if (t == 0) slowest = 0;
+#endif
+  for (int w = t; w < n_words; w += kThreads) bits[w] = 0;
+  __syncthreads();
+  if (s.mode != kGiven) {
+    const float q = s.q ? __ldg(s.q) : 1.0f;
+    const int n_beams = s.p * s.r;
+    const int share = (n_beams + cs - 1) / cs;
+    const int g0 = min(n_beams, rank * share), g1 = min(n_beams, g0 + share);
+    MarkChunk chunk;
+    chunk.beam = reinterpret_cast<float4*>(area);
+    chunk.ends = chunk.beam + kThreads;
+    chunk.bound = reinterpret_cast<int4*>(chunk.ends + kThreads);
+    chunk.n_free = reinterpret_cast<int*>(chunk.bound + kThreads);
+    chunk.scan = chunk.n_free + kThreads;
+    chunk.start = chunk.scan + kThreads;
+#ifdef SLAM_KERNEL_PROBE
+    const long long mine0 = clock64();
+#endif
+    mark_beams(s, g0, g1, q, bits, chunk, part);
+#ifdef SLAM_KERNEL_PROBE
+    atomicMax(&slowest, static_cast<unsigned long long>(clock64() - mine0));
+#endif
+  }
+#ifdef SLAM_KERNEL_PROBE
+  __syncthreads();
+  stamp[1] = clock64();
+#endif
+  cluster.sync();  // every block's marks are in
+#ifdef SLAM_KERNEL_PROBE
+  stamp[2] = clock64();
+#endif
+  PrepView v{bits, s.tables, s.refcnt, pool_owner(s), nullptr, pool_sel(s), prep_cached(s)};
+  if (rank == 0) {
+    if (v.cached) {  // the state into shared memory, while the marks are ORed
+      int* cache = reinterpret_cast<int*>(area);
+      for (int e = t; e < n_entries; e += kThreads) cache[e] = s.tables[e];
+      v.tables = cache;
+      v.owner = cache + n_entries;
+      v.kinds = v.owner + s.n_slots;
+      v.robot = v.kinds + s.n_slots;
+      if (s.refcnt) {
+        v.refcnt = v.robot + s.p;
+        for (int k = t; k < s.n_slots; k += kThreads) v.refcnt[k] = s.refcnt[k];
+      }
+    }
+    if (s.mode == kGiven) {
+      for (int w = t; w < n_words; w += kThreads) {
+        unsigned m = 0;
+        for (int j = 0; j < 32 && 32 * w + j < n_entries; ++j) {
+          m |= (s.touched[32 * w + j] ? 1u : 0u) << j;
+        }
+        bits[w] = m;
+      }
+    } else {
+      for (int i = t; i < n_words * (cs - 1); i += kThreads) {  // the other blocks' words
+        const int w = i / (cs - 1), r = 1 + i % (cs - 1);
+        const unsigned m = cluster.map_shared_rank(bits, r)[w];
+        if (m) atomicOr(bits + w, m);
+      }
+    }
+    __syncthreads();
+    if (s.mode != kGiven) {
+      for (int e = t; e < n_entries; e += kThreads) s.touched[e] = marked(bits, e);
+    }
+#ifdef SLAM_KERNEL_PROBE
+    stamp[3] = clock64();
+#endif
+    if (s.mode == kCow) prepare_cow(s, v, part);
+    if (s.mode == kTiled) prepare_tiled(s, v, part);
+    __threadfence();  // the copy list, for the other blocks
+#ifdef SLAM_KERNEL_PROBE
+    __syncthreads();
+    stamp[4] = clock64();
+#endif
+  }
+  cluster.sync();  // block 0 is done with the other blocks' bitsets; the copy list is out
+#ifdef SLAM_KERNEL_PROBE
+  stamp[5] = clock64();
+#endif
+  if (s.mode != kTouch) {
+    if (rank == 0) {
+#ifdef SLAM_KERNEL_PROBE
+      work_list(s, v, part, stamp + 8);
+#else
+      work_list(s, v, part, nullptr);
+#endif
+      if (v.cached) {  // the state back to device memory
+        __syncthreads();
+        if (s.mode == kCow || s.mode == kTiled) {
+          for (int e = t; e < n_entries; e += kThreads) s.tables[e] = v.tables[e];
+        }
+        if (s.mode == kCow) {
+          for (int k = t; k < s.n_slots; k += kThreads) s.refcnt[k] = v.refcnt[k];
+        }
+        int* owner = pool_owner(s);
+        for (int k = t; k < s.n_slots; k += kThreads) owner[k] = v.owner[k];
+      }
+    }
+    if (s.mode == kCow && (rank > 0 || cs == 1)) {
+      copy_blocks(s, cs > 1 ? rank - 1 : 0, max(1, cs - 1));
+    }
+  }
+#ifdef SLAM_KERNEL_PROBE
+  __syncthreads();
+  stamp[6] = clock64();
+  if (t == 0 && rank < kProbePrepBlocks) {
+    // the marks (the block's), the slowest thread's marks, the wait at the
+    // first barrier, block 0's OR, its compaction, the second barrier, the
+    // list or the copies, and the whole
+    // (block 0: the owners, the robots' bands, the tiles, the folds)
+    const long long d[kPrepSlots] = {stamp[1] - stamp[0], static_cast<long long>(slowest),
+                                     stamp[2] - stamp[1], rank == 0 ? stamp[3] - stamp[2] : 0,
+                                     rank == 0 ? stamp[4] - stamp[3] : 0,
+                                     stamp[5] - (rank == 0 ? stamp[4] : stamp[2]),
+                                     stamp[6] - stamp[5], stamp[6] - stamp[0],
+                                     rank == 0 ? stamp[8] - stamp[5] : 0,
+                                     rank == 0 ? stamp[9] - stamp[8] : 0,
+                                     rank == 0 ? stamp[10] - stamp[9] : 0,
+                                     rank == 0 ? stamp[11] - stamp[10] : 0};
+    for (int k = 0; k < kPrepSlots; ++k) probe_prep[rank * kPrepSlots + k] = d[k];
+  }
+#endif
 }
 
 int spr_of(int sw, int c) { return c ? (sw * c + 3) / 4 + 1 : 0; }
@@ -1164,7 +1807,62 @@ int launch_pool(Insert& s, cudaStream_t st) {
                              static_cast<int>(shared));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  pool_kernel<kModel><<<static_cast<unsigned>(s.n_slots), kThreads, shared, st>>>(s);
+  // about two blocks an SM, fewer where the list cannot hold as many items
+  const long long blocks = min(static_cast<long long>(kTargetBlocks), pool_items_max(s));
+  pool_kernel<kModel><<<static_cast<unsigned>(blocks), kThreads, shared, st>>>(s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The prepare launch's cluster: 16 blocks where the card can place such a
+// cluster (a non-portable size), else the portable 8. Asked once a process.
+int prepare_cluster_blocks() {
+  static int chosen = 0;
+  if (chosen) return chosen;
+  cudaFuncSetAttribute(pool_prepare_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  for (int blocks = kMaxClusterBlocks; blocks > 1; blocks /= 2) {
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = blocks;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(blocks, 1, 1);
+    cfg.blockDim = dim3(kThreads, 1, 1);
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int n = 0;
+    if (cudaOccupancyMaxActiveClusters(&n, pool_prepare_kernel, &cfg) == cudaSuccess && n > 0) {
+      chosen = blocks;
+      return chosen;
+    }
+    cudaGetLastError();  // the refused size's error is not the launch's
+  }
+  chosen = 1;
+  return chosen;
+}
+
+int launch_prepare(Insert& s, cudaStream_t st) {
+  const int blocks = prepare_cluster_blocks();
+  const size_t shared = prep_shared_bytes(s);
+  if (shared > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        pool_prepare_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shared));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = shared;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, pool_prepare_kernel, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1283,40 +1981,103 @@ extern "C" int scan_planes_launch(
   return launch<kPlanes>(s, rows, static_cast<cudaStream_t>(stream));
 }
 
+// The prepare launch (one thread-block cluster on `stream`) for scan p
+// (pose[p], its rows at p * *_stride) and table p of tables i32[p, th, tw]
+// over the slots of `pool` f32[n_slots, block, block, c] (contiguous,
+// 16-byte aligned; world origin origin[0..1] of tile (0, 0)); touched
+// u8[p, th, tw]; work i32[kWorkHead + pool_items_max + 4 n_slots] (the
+// header, the items, three scratch lists, the owners). mode
+// 0 (kTouch): writes the marks to touched (a tile where a sample of scan p
+// adds evidence, q w > 0, on table p's cells) and nothing else;
+// 1 (kGiven): reads the marks from touched, leaves the tables as they are
+// and writes the owners and the work list, live slots those with
+// refcnt > 0 (refcnt given) or below *n_alloc; 2 (kCow): the marks, then
+// the copy-on-write compaction of at most k_max new blocks into tables,
+// refcnt and *overflow and the new blocks' cells (a copy of the shared
+// block, or init f32[c]) in place, then the owners and the work list;
+// 3 (kTiled, p == 1): the marks, then slots for the touched tiles without
+// one from *n_alloc (updated), then the owners and the work list. *q scales
+// each sample (null: 1). Returns the cudaError_t.
+extern "C" int pool_prepare_launch(
+    int mode, unsigned char* touched, int* tables, int* refcnt, unsigned char* overflow,
+    int* n_alloc, float* pool, int n_slots, int block, int c, const float* init, int k_max,
+    int n_bands, int* work, int p, int th, int tw, const float* origin, float scale,
+    float scale2, const float* pose, const float* ranges, long long ranges_stride,
+    const float* bearings, long long bearings_stride, const unsigned char* valid,
+    long long valid_stride, int r, int n_free, float step, float hole_half, float max_range,
+    int area, int blur, const float* blur_table, const float* q, void* stream) {
+  const long long entries = static_cast<long long>(p) * th * tw;
+  if (mode < kTouch || mode > kTiled || p <= 0 || th <= 0 || tw <= 0 || block <= 0 || r <= 0 ||
+      n_free <= 0 || (blur > 0 && !blur_table) || !touched ||
+      entries > 32ll * kMaxMarkWords || static_cast<long long>(p) * r > 0x7fffffffll ||
+      (mode != kTouch && (n_slots <= 0 || n_bands < 1 || n_bands > kMaxRobotBands || !work ||
+                          !tables || (!refcnt && !n_alloc) ||
+                          static_cast<long long>(n_slots) >= (1ll << 27))) ||
+      (mode == kCow && (!refcnt || !overflow || !pool || !init || c <= 0 || k_max < 0 ||
+                        (reinterpret_cast<uintptr_t>(pool) & 15))) ||
+      (mode == kTiled && (p != 1 || !n_alloc))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Insert s{};
+  s.mode = mode;
+  s.touched = touched;
+  s.tables = tables;
+  s.refcnt = mode == kTiled ? nullptr : refcnt;
+  s.overflow = overflow;
+  s.n_alloc = n_alloc;
+  s.pool = pool;
+  s.n_slots = n_slots;
+  s.block = block;
+  s.c = c;
+  s.init = init;
+  s.k_max = k_max;
+  s.robot_bands = n_bands;
+  s.work = work;
+  s.p = p;
+  s.th = th;
+  s.tw = tw;
+  s.origin = origin;
+  s.scale = scale;
+  s.scale2 = scale2;
+  s.n_scans = p;
+  set_scan(s, pose, ranges, ranges_stride, bearings, bearings_stride, valid, valid_stride, r,
+           n_free, step, hole_half, max_range, area, blur, blur_table, nullptr);
+  s.q = q;
+  return launch_prepare(s, static_cast<cudaStream_t>(stream));
+}
+
 // The block pool (K3 over a block table): scan p (pose[p], its rows at
-// p * *_stride) into the touched tiles of table p (tables i32[p, th, tw],
-// slots of `pool` f32[n_slots, block, block, c], contiguous, 16-byte
-// aligned, world origin origin[0..1] of tile (0, 0); touched u8[p, th, tw]),
-// folded, in place. A slot takes the samples of the one touched entry that
-// names it, where it is owned alone (refcnt[k] == 1, or a single table when
-// refcnt is null); the other slots are folded with no observation where
-// live (refcnt[k] > 0, or k < *n_live when refcnt is null) and left alone
-// where not. A sample's weight and sum are scaled by *q (null: 1). The DDA
-// free trace only. One launch, a block a slot, on `stream`; returns the
-// cudaError_t.
+// p * *_stride) into its tiles of tables i32[p, th, tw] over the slots of
+// `pool` f32[n_slots, block, block, c] (contiguous, 16-byte aligned, world
+// origin origin[0..1] of tile (0, 0)), folded, in place, by the items of
+// `work` (pool_prepare_launch's, for the same p, n_slots and tables): a
+// touched tile's slot takes its samples and is folded, in row bands for the
+// banded tiles; every other live slot is folded with no
+// observation; a dead slot is left as it is. A sample's weight and sum are
+// scaled by *q (null: 1). The DDA free trace only. One launch of a fixed
+// grid on `stream`; it sets the list's counters back, so it can be
+// replayed. Returns the cudaError_t.
 extern "C" int pool_insert_launch(
-    float* pool, int n_slots, int block, int c, const int* tables, const unsigned char* touched,
-    const int* refcnt, const int* n_live, int p, int th, int tw, const float* origin, float scale,
-    float scale2,
-    const float* pose, const float* ranges, long long ranges_stride, const float* bearings,
-    long long bearings_stride, const unsigned char* valid, long long valid_stride, int r,
-    int n_free, float step, float hole_half, float max_range, int area, int blur,
-    const float* blur_table, const float* q, int model, float quality, float base, float decay,
-    float keep, float eps, void* stream) {
+    float* pool, int n_slots, int block, int c, int* work, int n_bands, int p, int th, int tw,
+    const float* origin, float scale, float scale2, const float* pose, const float* ranges,
+    long long ranges_stride, const float* bearings, long long bearings_stride,
+    const unsigned char* valid, long long valid_stride, int r, int n_free, float step,
+    float hole_half, float max_range, int area, int blur, const float* blur_table,
+    const float* q, int model, float quality, float base, float decay, float keep, float eps,
+    void* stream) {
   if (n_slots <= 0 || block <= 0 || p <= 0 || th <= 0 || tw <= 0 || r <= 0 || n_free <= 0 ||
-      model < kBayesBase || model > kTbm || c != (model == kTbm ? 5 : 2) ||
-      (blur > 0 && !blur_table) || (!refcnt && !n_live) || (!refcnt && p != 1) || !tables ||
-      !touched || (reinterpret_cast<uintptr_t>(pool) & 15)) {
+      n_bands < 1 || n_bands > kMaxRobotBands || model < kBayesBase || model > kTbm ||
+      c != (model == kTbm ? 5 : 2) || (blur > 0 && !blur_table) || !work ||
+      (reinterpret_cast<uintptr_t>(pool) & 15)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Insert s{};
   s.pool = pool;
   s.n_slots = n_slots;
   s.block = block;
-  s.tables = tables;
-  s.touched = const_cast<unsigned char*>(touched);
-  s.refcnt = refcnt;
-  s.n_live = n_live;
+  s.c = c;
+  s.work = work;
+  s.robot_bands = n_bands;
   s.p = p;
   s.th = th;
   s.tw = tw;
@@ -1338,43 +2099,24 @@ extern "C" int pool_insert_launch(
   return launch_pool<kTbm>(s, st);
 }
 
-// The tiles the samples of pool_insert_launch's scans touch: touched
-// (u8[p, th, tw], zeroed by the caller) gets 1 where a sample of scan p adds
-// evidence (q w > 0) in a cell of table p's th x tw tiles of block x block
-// cells. One launch on `stream`, a thread a segment of a beam.
-extern "C" int pool_touch_launch(
-    unsigned char* touched, int p, int th, int tw, int block, const float* origin, float scale,
-    float scale2, const float* pose, const float* ranges, long long ranges_stride,
-    const float* bearings, long long bearings_stride, const unsigned char* valid,
-    long long valid_stride, int r, int n_free, float step, float hole_half, float max_range,
-    int area, int blur, const float* blur_table, const float* q, void* stream) {
-  if (p <= 0 || th <= 0 || tw <= 0 || block <= 0 || r <= 0 || n_free <= 0 ||
-      (blur > 0 && !blur_table) || p > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  Insert s{};
-  s.touched = touched;
-  s.p = p;
-  s.th = th;
-  s.tw = tw;
-  s.block = block;
-  s.origin = origin;
-  s.scale = scale;
-  s.scale2 = scale2;
-  s.n_scans = p;
-  set_scan(s, pose, ranges, ranges_stride, bearings, bearings_stride, valid, valid_stride, r,
-           n_free, step, hole_half, max_range, area, blur, blur_table, nullptr);
-  s.q = q;
-  s.n_seg = max(1, (n_free + 31) / 32);  // at most 32 free samples a thread
-  const long long per_scan = static_cast<long long>(r) * s.n_seg;
-  const long long blocks = (per_scan + 127) / 128;
-  if (per_scan > 0x7fffffffll || blocks > 0x7fffffffll) return static_cast<int>(cudaErrorInvalidValue);
-  touch_kernel<<<dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(p)), 128, 0,
-                 static_cast<cudaStream_t>(stream)>>>(s);
-  return static_cast<int>(cudaGetLastError());
-}
+// The prepare launch's cluster size on this card (16 or 8).
+extern "C" int pool_prepare_cluster_size() { return prepare_cluster_blocks(); }
 
 #ifdef SLAM_KERNEL_PROBE
+// The probe build: copies the block pool's stamps to `prep`
+// (u64[kProbePrepBlocks][kPrepSlots]) and `items` (u64[kProbeItems][4])
+// and zeroes them on the device.
+extern "C" int pool_probe_stamps(void* prep, void* items) {
+  cudaError_t err = cudaMemcpyFromSymbol(prep, probe_prep, sizeof(probe_prep));
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(items, probe_items, sizeof(probe_items));
+  void* at = nullptr;
+  if (err == cudaSuccess) err = cudaGetSymbolAddress(&at, probe_prep);
+  if (err == cudaSuccess) err = cudaMemset(at, 0, sizeof(probe_prep));
+  if (err == cudaSuccess) err = cudaGetSymbolAddress(&at, probe_items);
+  if (err == cudaSuccess) err = cudaMemset(at, 0, sizeof(probe_items));
+  return static_cast<int>(err);
+}
+
 // The probe build: copies the cycles by block and phase to `dst`
 // (u64[kProbeBlocks][kProbeSlots]) and zeroes them on the device.
 extern "C" int scan_insert_probe_stamps(void* dst) {

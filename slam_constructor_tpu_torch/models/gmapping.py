@@ -370,9 +370,8 @@ def _cow_step(cfg: GMappingConfig, state: GMappingState, scans, priors, centers,
     view = scoring.MapView.of(win, cfg.cell_model)
     poses, incr = match_particles(cfg, view, scans, priors, centers, sigma, draws)
     logw = resample.normalize_log_weights(state.log_weights + incr)
-    touched = cow.touched_tiles(state.gm, poses, scans, cfg.beam)
-    gm = cow.prepare_write(state.gm, cfg.cell_model, touched)
-    gm = cow.scatter_observations(gm, cfg.cell_model, poses, scans, cfg.beam, touched)
+    touched, work = cow.prepare_insert(state.gm, cfg.cell_model, poses, scans, cfg.beam)
+    gm = cow.scatter_observations(state.gm, cfg.cell_model, poses, scans, cfg.beam, touched, work)
     idx, logw, _ = resample.maybe_resample(draws.u0, logw, cfg.resample_threshold)
     state = GMappingState(gm=cow.resample(gm, idx), poses=poses.index_select(0, idx),
                           log_weights=logw, step=state.step + 1)

@@ -11,11 +11,12 @@ the slots are the reference's, so that two pools compare directly. At
 exhaustion a tile stays unallocated and its samples are dropped, while
 ``n_alloc`` counts the demand, so ``overflowed`` latches.
 
-A scan goes in by :func:`insert_scan`: ``kernels.pool_touched`` marks the
-tiles its samples touch, :func:`allocate_tiles` gives them slots, and
-``kernels.pool_insert`` (K3 over the pool: one launch on the card, a block
-a slot) adds the samples in the reference's order and folds every
-allocated block, in place: the state's pool is the new state's. The
+A scan goes in by :func:`insert_scan`: ``kernels.pool_prepare`` marks the
+tiles its samples touch and gives them slots (:func:`allocate_tiles` on the
+CPU; on the card one launch that also writes the insert's work list), and
+``kernels.pool_insert`` (K3 over the pool: one launch on the card) adds the
+samples in the reference's order and folds every allocated block, in
+place: the state's pool, table and ``n_alloc`` are the new state's. The
 reference's ``scatter_observations`` took the samples themselves; its body
 is ``kernels.pool_insert_ref``, with the samples made from the scan.
 
@@ -115,22 +116,50 @@ def cells_to_slots(bm: BlockMap, rows: Tensor, cols: Tensor):
     return slot, rr, cc, ok & (slot >= 0)
 
 
+def prepare_tiles(bm: BlockMap, model, poses: Tensor, scans, cfg, q: Tensor | None = None):
+    """The tiles that the scans (``poses`` f32[1, 3], ``scans`` [1, R])
+    touch, given slots (:func:`allocate_tiles`), in place: the map's table
+    and ``n_alloc`` are the new ones. Returns (touched bool[1, TH, TW], the
+    work list for ``kernels.pool_insert``). On the card one launch of
+    ``kernels.pool_prepare``; on the CPU :func:`prepare_tiles_ref`."""
+    from . import kernels
+
+    if bm.pool.device.type == "cpu":
+        return prepare_tiles_ref(bm, poses, scans, cfg, q)
+    return kernels.pool_prepare(bm.pool, bm.table[None], bm.origin, bm.scale, model, poses,
+                                scans, cfg, q, n_alloc=bm.n_alloc)
+
+
+def prepare_tiles_ref(bm: BlockMap, poses: Tensor, scans, cfg, q: Tensor | None = None):
+    """Plain PyTorch version of ``kernels.pool_prepare`` on the tiled map:
+    ``kernels.pool_touched_ref``, then :func:`allocate_tiles`, its table and
+    ``n_alloc`` copied into ``bm``'s, then ``kernels.pool_work_ref``."""
+    from . import kernels
+
+    touched = kernels.pool_touched_ref(tuple(bm.table.shape), bm.block, bm.origin, bm.scale,
+                                       poses, scans, cfg, q)
+    new = allocate_tiles(bm, touched[0])
+    bm.table.copy_(new.table)
+    bm.n_alloc.copy_(new.n_alloc)
+    return touched, kernels.pool_work_ref(bm.table[None], touched, bm.capacity, poses, bm.origin,
+                                          bm.scale, bm.block, n_live=bm.n_alloc)
+
+
 def insert_scan(bm: BlockMap, model, pose: Tensor, scan, cfg, q: Tensor | None = None
                 ) -> BlockMap:
     """Scan insertion into the tiled map: the dense path's rasterisation
     (``raycast.scan_sample_cells``, scaled by ``q``) into the pool, after
-    allocating the tiles it touches; every allocated block is folded. The
-    pool is updated in place. Two kernel launches on the card
-    (``kernels.pool_touched``, ``kernels.pool_insert``), nothing read on
-    the host."""
+    allocating the tiles it touches (:func:`prepare_tiles`); every allocated
+    block is folded. The pool, the table and ``n_alloc`` are updated in
+    place. Two kernel launches on the card (``kernels.pool_prepare``: the
+    marks, the allocation and the insert's work list;
+    ``kernels.pool_insert``), nothing read on the host."""
     from . import kernels
 
     scans = type(scan)(scan.ranges[None], scan.bearings[None], scan.valid[None])
-    touched = kernels.pool_touched(tuple(bm.table.shape), bm.block, bm.origin, bm.scale,
-                                   pose[None], scans, cfg, q)
-    bm = allocate_tiles(bm, touched[0])
+    touched, work = prepare_tiles(bm, model, pose[None], scans, cfg, q)
     kernels.pool_insert(bm.pool, bm.table[None], bm.origin, bm.scale, model, pose[None], scans,
-                        cfg, touched, q, n_live=bm.n_alloc)
+                        cfg, touched, q, n_live=bm.n_alloc, work=work)
     return bm
 
 

@@ -11,15 +11,21 @@ shared one's copied from its source. Converged particles share most
 blocks, so the pool follows the number of distinct blocks, not P times the
 map.
 
-Everything in a step stays on the device: the needed (particle, tile)
-pairs and the free slots are compacted by a cumsum of their masks and a
-scatter into tensors of fixed size (the reference's stable ``argsort``
-gives the same order), the block copies and resets are index ops, and the
+Everything in a step stays on the device. :func:`prepare_insert` is, on
+the card, one launch of ``kernels.pool_prepare``: it marks the tiles each
+particle's scan touches, compacts the needed (particle, tile) pairs and
+the free slots by block prefix sums (the reference's stable ``argsort``
+gives the same order), updates the tables, refcounts and the overflow
+latch and copies or resets only the new blocks, all in place (the
+reference writes only those blocks into a donated state). On the CPU it
+is its plain version, :func:`prepare_insert_ref`
+(``kernels.pool_touched_ref``, then :func:`prepare_write`, which the tests
+hold to the reference). :func:`scatter_observations` then inserts the
+scans with ``kernels.pool_insert`` (K3 over the pool's P tables, one launch
+on the card from the prepare's work list, the pool updated in place). The
 overflow latch is a device bool the host polls now and then
 (``GMappingEngine.handle_scan``) before it grows the pool
-(:func:`grow_pool`). The scan goes in by ``kernels.pool_touched`` (the
-tiles it touches) and ``kernels.pool_insert`` (K3 over the pool's P
-tables, one launch on the card, the pool updated in place).
+(:func:`grow_pool`).
 
 Trap o: where more new blocks are needed than the pool has free slots, the
 reference's ``prepare_write`` hands the excess entries used slots (its
@@ -106,6 +112,15 @@ def _counts(idx: Tensor, n: int) -> Tensor:
     return out[:n]
 
 
+def write_budget(p: int, t: int, max_writes: int | None = None) -> int:
+    """``k_max``, the new blocks a step may take over P tables of T tiles:
+    ``min(max_writes, P T)``, by default ``max_writes = max(
+    MAX_WRITES_PER_STEP, 96 P)``."""
+    if max_writes is None:
+        max_writes = max(MAX_WRITES_PER_STEP, 96 * p)
+    return min(max_writes, p * t)
+
+
 def prepare_write(st: CowBlockMaps, model, touched: Tensor,
                   max_writes: int | None = None) -> CowBlockMaps:
     """Make every (particle, tile) of ``touched`` bool[P, TH, TW] owned
@@ -119,9 +134,7 @@ def prepare_write(st: CowBlockMaps, model, touched: Tensor,
     t = th * tw
     n = st.capacity
     dev = st.pool.device
-    if max_writes is None:
-        max_writes = max(MAX_WRITES_PER_STEP, 96 * p)
-    k_max = min(max_writes, p * t)
+    k_max = write_budget(p, t, max_writes)
     slot = st.tables.reshape(p * t).to(torch.int64)
     mapped = slot >= 0
     shared = mapped & (st.refcnt.index_select(0, slot.clamp(0, n - 1)) > 1)
@@ -163,16 +176,48 @@ def touched_tiles(st: CowBlockMaps, poses: Tensor, scans, cfg) -> Tensor:
                                 poses, scans, cfg)
 
 
+def prepare_insert(st: CowBlockMaps, model, poses: Tensor, scans, cfg,
+                   q: Tensor | None = None, max_writes: int | None = None):
+    """:func:`touched_tiles` and :func:`prepare_write` (``k_max`` by
+    :func:`write_budget`), in place: the state's pool, tables, refcounts and
+    latch are the prepared ones. Returns (touched bool[P, TH, TW], the work
+    list for :func:`scatter_observations`). On the card one launch of
+    ``kernels.pool_prepare``; on the CPU :func:`prepare_insert_ref`."""
+    p, th, tw = st.tables.shape
+    if st.pool.device.type == "cpu":
+        return prepare_insert_ref(st, model, poses, scans, cfg, q, max_writes)
+    return kernels.pool_prepare(st.pool, st.tables, st.origin, st.scale, model, poses, scans,
+                                cfg, q, refcnt=st.refcnt, overflow=st.overflow,
+                                k_max=write_budget(p, th * tw, max_writes))
+
+
+def prepare_insert_ref(st: CowBlockMaps, model, poses: Tensor, scans, cfg,
+                       q: Tensor | None = None, max_writes: int | None = None):
+    """Plain PyTorch version of ``kernels.pool_prepare`` on the
+    copy-on-write pool: ``kernels.pool_touched_ref``, then
+    :func:`prepare_write`, its state copied into ``st``'s tensors, then
+    ``kernels.pool_work_ref``."""
+    p, th, tw = st.tables.shape
+    touched = kernels.pool_touched_ref((th, tw), st.block, st.origin, st.scale, poses, scans,
+                                       cfg, q)
+    new = prepare_write(st, model, touched, max_writes)
+    new_blocks = (new.tables != st.tables).sum()
+    for name in ("tables", "refcnt", "overflow", "pool"):
+        getattr(st, name).copy_(getattr(new, name))
+    return touched, kernels.pool_work_ref(st.tables, touched, st.capacity, poses, st.origin,
+                                          st.scale, st.block, st.refcnt, copies=new_blocks)
+
+
 def scatter_observations(st: CowBlockMaps, model, poses: Tensor, scans, cfg,
-                         touched: Tensor) -> CowBlockMaps:
+                         touched: Tensor, work=None) -> CowBlockMaps:
     """Insert particle p's scan into its tiles and fold every live block:
-    ``kernels.pool_insert`` over the P tables, the pool updated in place.
-    Every touched (particle, tile) must own its block alone
-    (:func:`prepare_write`); a write that does not is dropped. The
-    reference takes the samples, flattened across particles; the kernel
-    makes them from the scans, in the same order."""
+    ``kernels.pool_insert`` over the P tables, the pool updated in place
+    (``work``: :func:`prepare_insert`'s). Every touched (particle, tile)
+    must own its block alone (:func:`prepare_write`); a write that does not
+    is dropped. The reference takes the samples, flattened across
+    particles; the kernel makes them from the scans, in the same order."""
     kernels.pool_insert(st.pool, st.tables, st.origin, st.scale, model, poses, scans, cfg,
-                        touched, refcnt=st.refcnt)
+                        touched, refcnt=st.refcnt, work=work)
     return st
 
 

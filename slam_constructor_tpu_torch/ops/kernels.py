@@ -57,14 +57,19 @@ stood there but the hill climb's score.
 
 ``pool_insert`` is K3 over a block pool: P scans inserted into the tiles of
 P block tables over one pool ``f32[N, B, B, C]`` (the tiled map is one
-table, the copy-on-write RBPF maps P), folded, in place; a block a slot,
-the tile's samples summed in the pool's scatter order, every other live
-slot folded with no observation, as the reference folds its whole pool
-(``slam_constructor_tpu/ops/blockmap.py:117``, ``ops/cow.py:143``).
-``pool_touched`` is the same source's first mode: the tiles each scan's
-samples touch, which allocation and copy-on-write need before the insert.
-``pool_insert_ordered`` sums the same samples on the host in order, the
-yardstick the kernel equals bit for bit.
+table, the copy-on-write RBPF maps P), folded, in place; a fixed grid takes
+a work list's items (the tile around each particle's robot in row bands,
+every other touched tile, every other live slot folded with no
+observation, as the reference folds its whole pool:
+``slam_constructor_tpu/ops/blockmap.py:117``, ``ops/cow.py:143``), a tile's
+samples summed in the pool's scatter order. ``pool_prepare`` writes that
+list in one launch of the same source, after what the reference does
+before its scatter: the tiles each scan's samples touch (found by where
+each beam crosses tile boundaries), then the copy-on-write compaction with
+its block copies (``slam_constructor_tpu/ops/cow.py:82``) or the tiled
+map's allocation (``blockmap.py:87``), in place. ``pool_touched`` is its
+marking phase alone. ``pool_insert_ordered`` sums the same samples on the
+host in order, the yardstick the insert equals bit for bit.
 
 ``polar_free_plane`` fills the dense polar free-space weight plane of one
 scan. It replaces ``pallas_kernels.py::polar_free_lookup`` together with
@@ -118,7 +123,7 @@ _LAUNCHES = dict.fromkeys(
     ("overlap_score", "overlap_score_batched", "overlap_score_grad", "gradient_refine",
      "hill_climb", "mc_match", "mc_match_batched", "polar_free_plane", "m3rsm_pyramid",
      "m3rsm_level", "m3rsm_search", "scan_insert", "scan_planes", "pool_touched",
-     "pool_insert"), 0
+     "pool_prepare", "pool_insert"), 0
 )
 
 #: how a beam's endpoint reads the plane, by the codes of
@@ -1793,6 +1798,257 @@ def pool_insert_runs(pool: Tensor, tables: Tensor, origin: Tensor, scale: float,
     return torch.bincount(lin[keep], minlength=n * b * b).reshape(n, b, b)
 
 
+#: row bands of a banded tile in ``pool_insert``'s work list (each a block
+#: of its own): the tile that holds a particle's robot (every beam starts
+#: there) and, where the list then stays within ``_POOL_GRID`` items, its
+#: neighbours
+POOL_ROBOT_BANDS = 4
+
+#: the pool insert's blocks (``csrc/scan_insert.cu``'s kTargetBlocks)
+_POOL_GRID = 264
+
+#: the work list's header (``csrc/scan_insert.cu``: the take and done
+#: counters, the items' count, the bands, the copied blocks)
+_WORK_HEAD = 8
+_WORK_COUNT, _WORK_BANDS, _WORK_COPIES = 2, 3, 4
+_ITEM_TILE, _ITEM_FOLD = 14, 15
+
+_PREP_TOUCH, _PREP_GIVEN, _PREP_COW, _PREP_TILED = 0, 1, 2, 3
+
+#: table entries a prepare launch marks at most (a bit each in a block's
+#: shared memory)
+_MAX_POOL_ENTRIES = 32 * 8192
+
+
+@dataclasses.dataclass(frozen=True)
+class PoolWork:
+    """What :func:`pool_prepare` hands :func:`pool_insert`: ``buf`` i32,
+    ``csrc/scan_insert.cu``'s work list for P tables over N slots with the
+    banded tiles in ``n_bands`` row bands: a header of 8 (the items' count
+    at 2, the bands at 3, the copied blocks at 4), ``max(P n_bands, 264) +
+    N`` items (``slot << 4 | code``: code < 8 a band of a banded tile, 14 a
+    touched tile, 15 a live slot folded with no observation; in that order,
+    each kind by increasing slot), the prepare's scratch, then each slot's
+    owner (:func:`pool_owners`' meaning). The banded tiles are those that
+    hold a particle's robot and, where the list then has at most 264 bands
+    and tiles, the owned tiles next to them."""
+
+    buf: Tensor
+    n_tables: int
+    n_slots: int
+    n_bands: int
+
+    @property
+    def owner(self) -> Tensor:
+        return self.buf[self.buf.shape[0] - self.n_slots:]
+
+    @property
+    def items(self) -> Tensor:
+        """Every item slot of the list; the first ``buf[2]`` are in use."""
+        return self.buf[_WORK_HEAD:self._scratch]
+
+    @property
+    def src(self) -> Tensor:
+        """The new blocks' copy sources (-1: reset to the init cell), in the
+        order of their entries; the first ``buf[4]`` are in use (the
+        copy-on-write prepare's on the card only)."""
+        return self.buf[self._scratch + 2 * self.n_slots:self._scratch + 3 * self.n_slots]
+
+    @property
+    def _scratch(self) -> int:
+        return _WORK_HEAD + _items_max(self.n_tables, self.n_slots, self.n_bands)
+
+
+def _items_max(p: int, n: int, n_bands: int) -> int:
+    return max(p * n_bands, _POOL_GRID) + n
+
+
+def _work_ints(p: int, n: int, n_bands: int) -> int:
+    """The ints of ``csrc/scan_insert.cu``'s work list: the header, the
+    items (``pool_items_max``), three scratch lists, the owners."""
+    return _WORK_HEAD + _items_max(p, n, n_bands) + 4 * n
+
+
+def _robot_tiles(poses: Tensor, origin: Tensor, scale: float, block: int, th: int,
+                 tw: int) -> Tensor:
+    """i64[P]: the tile that holds each pose, -1 off the table (the
+    kernel's arithmetic: an IEEE division, then floor)."""
+    rel = torch.floor(gridlib.div_scale(poses[:, :2] - origin, scale))
+    col, row = rel[:, 0], rel[:, 1]
+    on = (row >= 0) & (row < th * block) & (col >= 0) & (col < tw * block)
+    tile = (row.clamp(0, th * block - 1).to(torch.int64) // block) * tw + \
+        col.clamp(0, tw * block - 1).to(torch.int64) // block
+    return torch.where(on, tile, -1)
+
+
+def pool_work_ref(tables: Tensor, touched: Tensor, n_slots: int, poses: Tensor, origin: Tensor,
+                  scale: float, block: int, refcnt: Tensor | None = None,
+                  n_live: Tensor | None = None, n_bands: int = POOL_ROBOT_BANDS,
+                  copies: Tensor | int = 0) -> PoolWork:
+    """Plain PyTorch version of the work list that :func:`pool_prepare`
+    writes (its owners are :func:`pool_owners`' over the live slots), on
+    the tables after the prepare; ``copies`` goes to the header."""
+    p, th, tw = tables.shape
+    n, dev = n_slots, tables.device
+    slots = torch.arange(n, device=dev)
+    live = refcnt > 0 if refcnt is not None else slots < n_live
+    owner = pool_owners(tables, touched, n, refcnt)
+    owner = torch.where(live, owner, -1)
+    own = owner.to(torch.int64)
+    t = th * tw
+    tile = own % t
+    rt = _robot_tiles(poses, origin, scale, block, th, tw)[(own // t).clamp(0, p - 1)]
+    robot = (own >= 0) & (tile == rt)
+    near = ((own >= 0) & ~robot & (rt >= 0) & ((tile // tw - rt // tw).abs() <= 1)
+            & ((tile % tw - rt % tw).abs() <= 1))
+    if int(robot.sum() + near.sum()) * n_bands + int(((own >= 0) & ~robot & ~near).sum()) \
+            <= _POOL_GRID:  # the robots' neighbours banded too: the list stays short
+        robot = robot | near
+    band_slots = slots[robot]
+    bands = ((band_slots[:, None] << 4) | torch.arange(n_bands, device=dev)).reshape(-1)
+    tiles = (slots[(own >= 0) & ~robot] << 4) | _ITEM_TILE
+    folds = (slots[(own < 0) & live] << 4) | _ITEM_FOLD
+    items = torch.cat([bands, tiles, folds]).to(torch.int32)
+    buf = torch.full((_work_ints(p, n, n_bands),), -1, dtype=torch.int32, device=dev)
+    buf[:_WORK_HEAD] = 0
+    buf[_WORK_COUNT] = items.shape[0]
+    buf[_WORK_BANDS] = n_bands
+    buf[_WORK_COPIES] = copies
+    buf[_WORK_HEAD:_WORK_HEAD + items.shape[0]] = items
+    buf[buf.shape[0] - n:] = owner
+    return PoolWork(buf, p, n, n_bands)
+
+
+def _first_true(lo: int, hi: int, guess, pred) -> int:
+    """``csrc/scan_insert.cu``'s ``first_true``: the first i in [lo, hi)
+    where ``pred(i)`` holds (pred false ... true), else hi, searched from
+    ``guess``."""
+    if lo >= hi:
+        return hi
+    gf = min(max(guess, lo), hi - 1) if guess == guess else lo
+    g = int(gf)
+
+    def lower_bound(a, z):
+        while a < z:
+            mid = a + (z - a) // 2
+            if pred(mid):
+                z = mid
+            else:
+                a = mid + 1
+        return a
+
+    if pred(g):
+        at, d = g, 1
+        while at - d >= lo and pred(at - d):
+            at -= d
+            d <<= 1
+        return lower_bound(max(lo, at - d + 1), at)
+    f, d = g, 1
+    while f + d < hi and not pred(f + d):
+        f += d
+        d <<= 1
+    return lower_bound(f + 1, min(hi, f + d))
+
+
+def _boundaries(a, z, bk: int, n_bk: int, extent):
+    """``csrc/scan_insert.cu``'s ``boundaries``: the tile boundaries ``m bk``
+    (0 <= m <= n_bk) that a coordinate monotone along the beam passes from
+    ``a`` to ``z``, in the order it passes them."""
+    lo, hi = (a, z) if a <= z else (z, a)
+    m_lo = 0 if lo < 0 else (n_bk + 1 if lo >= extent else int(lo) // bk + 1)
+    m_hi = -1 if hi < 0 else (n_bk if hi >= extent else int(hi) // bk)
+    ms = range(m_lo, m_hi + 1)
+    return list(ms) if a <= z else list(reversed(ms))
+
+
+def pool_touched_crossings(tiles: tuple, block: int, origin: Tensor, scale: float,
+                           poses: Tensor, scans, cfg, q: Tensor | None = None) -> Tensor:
+    """The marking phase of :func:`pool_prepare`'s kernel, in plain Python
+    on the host, beam by beam, with the kernel's float32 arithmetic: the
+    free trace's tiles are the first sample's and, for each tile boundary
+    that the beam's row or column passes, the tile of the first sample past
+    it (a search from where the real line crosses); then the occupied
+    samples' tiles one by one (``raycast.scan_sample_cells``'). It equals
+    :func:`pool_touched_ref`; the tests hold the crossing search to it."""
+    from . import raycast
+
+    th, tw = tiles
+    p = poses.shape[0]
+    f32 = np.float32
+    bk = int(block)
+    rows_f, cols_f = f32(th * bk), f32(tw * bk)
+    qv = f32(1.0) if q is None else f32(float(q))
+    ox, oy = (f32(v) for v in origin.detach().cpu().numpy())
+    sc = f32(scale)
+    step, half = f32(scale * cfg.step_fraction), f32(cfg.hole_width / 2.0)
+    n_free = cfg.n_free_samples(scale)
+    r = scans.ranges.shape[-1]
+    ranges = scans.ranges.expand(p, r).cpu()
+    valid = scans.valid.expand(p, r).cpu().numpy()
+    angles = poses[:, 2:3].cpu() + scans.bearings.expand(p, r).cpu()
+    dx, dy = torch.cos(angles).numpy(), torch.sin(angles).numpy()
+    pose = poses.detach().cpu().numpy().astype(np.float32)
+    marks = np.zeros((p, th * tw), bool)
+
+    def mark(s, fr, fc):
+        if 0 <= fr < rows_f and 0 <= fc < cols_f:
+            marks[s, (int(fr) // bk) * tw + int(fc) // bk] = True
+
+    with np.errstate(all="ignore"):
+        for s in range(p):
+            px, py = pose[s, 0], pose[s, 1]
+            for j in range(r):
+                if not valid[s, j] or not qv > 0:
+                    continue
+                bx, by = dx[s, j], dy[s, j]
+                limit = f32(ranges[s, j].item()) - half
+
+                def t_of(i):
+                    return (f32(i) + f32(0.5)) * step
+
+                def row(i):
+                    return np.floor(((py + t_of(i) * by) - oy) / sc)
+
+                def col(i):
+                    return np.floor(((px + t_of(i) * bx) - ox) / sc)
+
+                def cross_r(a):
+                    return np.ceil(((a * sc + oy) - py) / (by * step) - f32(0.5))
+
+                def cross_c(a):
+                    return np.ceil(((a * sc + ox) - px) / (bx * step) - f32(0.5))
+
+                n = _first_true(0, n_free, np.ceil(limit / step - f32(0.5)),
+                                lambda i: not (t_of(i) < limit))
+                if n == 0:
+                    continue
+                ra, rz, ca, cz = row(0), row(n - 1), col(0), col(n - 1)
+                if any(v != v for v in (ra, rz, ca, cz)):
+                    continue
+                # the first sample's tile, and the tile of the first sample
+                # past each tile boundary that the row or the column passes
+                mark(s, ra, ca)
+                for coord, cross, a0, z0, n_bk, extent in ((row, cross_r, ra, rz, th, rows_f),
+                                                           (col, cross_c, ca, cz, tw, cols_f)):
+                    for m in _boundaries(a0, z0, bk, n_bk, extent):
+                        a = f32(m * bk)
+                        up = a0 <= z0
+                        i = _first_true(1, n, cross(a), (lambda j, a=a: coord(j) >= a) if up
+                                        else (lambda j, a=a: coord(j) < a))
+                        mark(s, row(i), col(i))
+    # the occupied samples, one by one
+    for s in range(p):
+        sr, scl, w, _ = raycast.scan_sample_cells(origin.cpu(), scale, poses[s].cpu(),
+                                                  type(scans)(ranges[s], scans.bearings.expand(
+                                                      p, r)[s].cpu(), scans.valid.expand(
+                                                      p, r)[s].cpu()), cfg)
+        occ = slice(r * n_free, None)
+        keep = (qv * w[occ].numpy() > 0)
+        for fr, fc in zip(sr[occ].numpy()[keep], scl[occ].numpy()[keep]):
+            mark(s, fr, fc)
+    return torch.from_numpy(marks.reshape(p, th, tw)).to(poses.device)
+
+
 def _pool_scan_checks(who: str, tables_shape: tuple, origin: Tensor, poses: Tensor, dev):
     p = tables_shape[0]
     if not 1 <= p <= _MAX_MAPS:
@@ -1813,10 +2069,15 @@ def _q_arg(q, dev):
 
 
 @functools.cache
-def _pool_touch_fn():
-    fn = _build.load().pool_touch_launch
+def _pool_prepare_fn():
+    fn = _build.load().pool_prepare_launch
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, i, i, i, i, p, f, f, *_SCAN_ARGTYPES[:-1], p, p]  # ..., q, stream
+    fn.argtypes = [
+        i, p, p, p, p, p,  # mode, touched, tables, refcnt, overflow, n_alloc
+        p, i, i, i, p, i, i, p,  # pool, n_slots, block, c, init, k_max, n_bands, work
+        i, i, i, p, f, f,  # p, th, tw, origin, scale, scale^2
+        *_SCAN_ARGTYPES[:-1], p, p,  # ..., q, stream
+    ]
     fn.restype = ctypes.c_int
     return fn
 
@@ -1826,7 +2087,7 @@ def _pool_insert_fn():
     fn = _build.load().pool_insert_launch
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = [
-        p, i, i, i, p, p, p, p,  # pool, n_slots, block, c, tables, touched, refcnt, n_live
+        p, i, i, i, p, i,  # pool, n_slots, block, c, work, n_bands
         i, i, i, p, f, f,  # p, th, tw, origin, scale, scale^2
         *_SCAN_ARGTYPES[:-1],
         p, i, f, f, f, f, f,  # q, model, quality, base, decay, keep, eps
@@ -1834,6 +2095,30 @@ def _pool_insert_fn():
     ]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _prepare_launch(who: str, mode: int, touched: Tensor, tables, refcnt, overflow, n_alloc,
+                    pool, model, k_max: int, work, origin, scale, block, poses, scans, cfg, q,
+                    dev) -> None:
+    """One launch of the prepare kernel in ``mode``, counted under ``who``."""
+    p, th, tw = touched.shape
+    if p * th * tw > _MAX_POOL_ENTRIES:
+        raise ValueError(f"{who}: {p} tables of {th} x {tw} tiles: more than "
+                         f"{_MAX_POOL_ENTRIES} entries a launch")
+    poses, origin = _pool_scan_checks(who, (p,), origin, poses, dev)
+    args = _scan_args(who, scans, (p,), dev, cfg, scale)
+    q = _q_arg(q, dev)
+    init = (constant((*model.init_belief(), 0.0), torch.float32, dev)
+            if mode == _PREP_COW else None)
+    n, c = (pool.shape[0], pool.shape[3]) if pool is not None else (0, 0)
+    fn = _pool_prepare_fn()
+    _launch(who, dev, lambda stream: fn(
+        mode, touched.data_ptr(), _ptr(tables), _ptr(refcnt), _ptr(overflow), _ptr(n_alloc),
+        _ptr(pool), n, block, c, _ptr(init), k_max, 1 if work is None else work.n_bands,
+        None if work is None else work.buf.data_ptr(), p, th, tw, origin.data_ptr(), scale,
+        scale * scale, poses.data_ptr(),
+        *(_ptr(a) if isinstance(a, Tensor) or a is None else a for a in args), _ptr(q), stream))
+    _LAUNCHES[who] += 1
 
 
 def pool_touched(tiles: tuple, block: int, origin: Tensor, scale: float, poses: Tensor, scans,
@@ -1844,32 +2129,114 @@ def pool_touched(tiles: tuple, block: int, origin: Tensor, scale: float, poses: 
     weight ``q w > 0``: what allocation and copy-on-write must give a block
     before :func:`pool_insert`. Its samples are ``scan_sample_cells``'.
 
-    CPU tensors take :func:`pool_touched_ref`; CUDA tensors launch
-    ``csrc/scan_insert.cu``'s marking mode once (a thread a run of up to 32
-    free samples of a beam) and add one to the ``pool_touched`` count."""
+    CPU tensors take :func:`pool_touched_ref`; CUDA tensors launch the
+    marking phase of :func:`pool_prepare`'s kernel alone (one cluster: the
+    free trace's tiles from where each beam crosses tile boundaries) and
+    add one to the ``pool_touched`` count."""
     dev = poses.device
     if dev.type == "cpu":
         return pool_touched_ref(tiles, block, origin, scale, poses, scans, cfg, q)
     if dev.type != "cuda":
         raise ValueError(f"pool_touched: unsupported device {dev}")
     th, tw = tiles
-    p = poses.shape[0]
-    poses, origin = _pool_scan_checks("pool_touched", (p,), origin, poses, dev)
-    args = _scan_args("pool_touched", scans, (p,), dev, cfg, scale)
-    q = _q_arg(q, dev)
-    out = torch.zeros((p, th, tw), dtype=torch.uint8, device=dev)
-    fn = _pool_touch_fn()
-    _launch("pool_touched", dev, lambda stream: fn(
-        out.data_ptr(), p, th, tw, block, origin.data_ptr(), scale, scale * scale,
-        poses.data_ptr(), *(_ptr(a) if isinstance(a, Tensor) or a is None else a for a in args),
-        _ptr(q), stream))
-    _LAUNCHES["pool_touched"] += 1
-    return out.view(torch.bool)
+    out = torch.empty((poses.shape[0], th, tw), dtype=torch.bool, device=dev)
+    _prepare_launch("pool_touched", _PREP_TOUCH, out, None, None, None, None, None, None, 0,
+                    None, origin, scale, block, poses, scans, cfg, q, dev)
+    return out
+
+
+def _pool_checks(who: str, pool: Tensor, tables: Tensor, refcnt, n_alloc, dev, model=None):
+    n, b, b2, c = pool.shape
+    if model is not None and (b2 != b or c != model.n_channels + 1):
+        raise ValueError(f"{who}: pool {tuple(pool.shape)} is not (N, B, B, "
+                         f"{model.n_channels + 1})")
+    if not pool.is_contiguous() or pool.data_ptr() % 16:
+        raise ValueError(f"{who}: the pool must be contiguous and 16-byte aligned "
+                         "(it is updated in place)")
+    _check("pool", pool, tuple(pool.shape), dev)
+    p, th, tw = tables.shape
+    _check("tables", tables, (p, th, tw), dev, torch.int32)
+    if (refcnt is None) == (n_alloc is None):
+        raise ValueError(f"{who}: name the live slots by refcnt or by n_live/n_alloc, one of them")
+    if refcnt is None and p != 1:
+        raise ValueError(f"{who}: P tables share slots: their refcounts are needed")
+    if refcnt is not None:
+        _check("refcnt", refcnt, (n,), dev, torch.int32)
+    else:
+        _check("n_alloc", n_alloc, (), dev, torch.int32)
+
+
+def pool_prepare(pool: Tensor, tables: Tensor, origin: Tensor, scale: float, model,
+                 poses: Tensor, scans, cfg, q: Tensor | None = None,
+                 refcnt: Tensor | None = None, overflow: Tensor | None = None,
+                 n_alloc: Tensor | None = None, k_max: int = 0) -> tuple[Tensor, PoolWork]:
+    """Everything a pool insert needs before it, in place: the tiles that
+    scan p touches (:func:`pool_touched`'s marks, returned), then, for the
+    copy-on-write pool (``refcnt`` i32[N] and ``overflow`` bool[] given),
+    ``cow.prepare_write``'s compaction (at most ``k_max`` new blocks; the
+    free slots in increasing order; trap o) with the new blocks copied or
+    reset in ``pool``, or for the tiled map (``n_alloc`` i32[] given, one
+    table) ``blockmap.allocate_tiles``; ``tables``, ``refcnt``,
+    ``overflow`` and ``n_alloc`` are updated in place. Returns (touched
+    bool[P, TH, TW], the :class:`PoolWork` for :func:`pool_insert`).
+
+    CUDA tensors only: one launch of ``csrc/scan_insert.cu``'s prepare
+    kernel (one thread-block cluster: the marks by crossings in shared
+    memory, the compaction by block prefix sums, the copies, the owners and
+    the work list), counted under ``pool_prepare``; nothing is read on the
+    host. Its plain versions belong to the storages that own the policy:
+    ``cow.prepare_insert_ref`` and ``blockmap.prepare_tiles_ref``, which
+    ``cow.prepare_insert`` and ``blockmap.prepare_tiles`` take on the
+    CPU."""
+    p, th, tw = tables.shape
+    dev = pool.device
+    if dev.type != "cuda":
+        raise ValueError(f"pool_prepare: unsupported device {dev} (the CPU's plain versions "
+                         "are cow.prepare_insert_ref and blockmap.prepare_tiles_ref)")
+    if refcnt is not None and not 0 <= k_max <= p * th * tw:
+        raise ValueError(f"pool_prepare: k_max {k_max} is not within [0, {p * th * tw}]")
+    _pool_checks("pool_prepare", pool, tables, refcnt, n_alloc, dev, model)
+    if refcnt is not None:
+        _check("overflow", overflow, (), dev, torch.bool)
+    n = pool.shape[0]
+    touched = torch.empty((p, th, tw), dtype=torch.bool, device=dev)
+    work = PoolWork(torch.empty((_work_ints(p, n, POOL_ROBOT_BANDS),), dtype=torch.int32,
+                                device=dev), p, n, POOL_ROBOT_BANDS)
+    _prepare_launch("pool_prepare", _PREP_COW if refcnt is not None else _PREP_TILED, touched,
+                    tables, refcnt, overflow, n_alloc, pool, model, k_max, work, origin, scale,
+                    pool.shape[1], poses, scans, cfg, q, dev)
+    return touched, work
+
+
+def pool_work(pool: Tensor, tables: Tensor, origin: Tensor, scale: float, poses: Tensor, scans,
+              cfg, touched: Tensor, refcnt: Tensor | None = None,
+              n_live: Tensor | None = None) -> PoolWork:
+    """The work list of :func:`pool_insert` for tables that are already
+    prepared, from the given marks ``touched``: live slots those of
+    ``refcnt > 0`` or below ``n_live``. CPU tensors take
+    :func:`pool_work_ref`; CUDA tensors launch the prepare kernel once on
+    the given marks (nothing marked, allocated or copied), counted under
+    ``pool_prepare``."""
+    dev = pool.device
+    n, b = pool.shape[0], pool.shape[1]
+    p = tables.shape[0]
+    if dev.type == "cpu":
+        return pool_work_ref(tables, touched, n, poses, origin, scale, b, refcnt, n_live)
+    if dev.type != "cuda":
+        raise ValueError(f"pool_work: unsupported device {dev}")
+    _pool_checks("pool_work", pool, tables, refcnt, n_live, dev)
+    _check("touched", touched, tuple(tables.shape), dev, torch.bool)
+    work = PoolWork(torch.empty((_work_ints(p, n, POOL_ROBOT_BANDS),), dtype=torch.int32,
+                                device=dev), p, n, POOL_ROBOT_BANDS)
+    _prepare_launch("pool_prepare", _PREP_GIVEN, touched, tables, refcnt, None, n_live, pool,
+                    None, 0, work, origin, scale, b, poses, scans, cfg, None, dev)
+    return work
 
 
 def pool_insert(pool: Tensor, tables: Tensor, origin: Tensor, scale: float, model,
                 poses: Tensor, scans, cfg, touched: Tensor, q: Tensor | None = None,
-                refcnt: Tensor | None = None, n_live: Tensor | None = None) -> Tensor:
+                refcnt: Tensor | None = None, n_live: Tensor | None = None,
+                work: PoolWork | None = None) -> Tensor:
     """K3 over a block pool: scan p (``poses`` f32[P, 3], ``scans`` [P, R],
     rows may be broadcast) inserted into the tiles of table p (``tables``
     i32[P, TH, TW], slots of ``pool`` f32[N, B, B, C], world corner
@@ -1885,15 +2252,19 @@ def pool_insert(pool: Tensor, tables: Tensor, origin: Tensor, scale: float, mode
     0``, or below ``n_live`` i32[] (the tiled map's ``n_alloc``; its other
     slots hold the init cell, which the fold leaves as it is). ``q`` f32[]
     scales each sample (None: 1); the free counts enter as ``q`` times the
-    count, the samples' sum in order where ``q`` is 0 or 1.
+    count, the samples' sum in order where ``q`` is 0 or 1. ``work`` is
+    :func:`pool_prepare`'s for these tables.
 
-    CPU tensors take the plain twin :func:`pool_insert_ref`. CUDA tensors
-    launch ``csrc/scan_insert.cu``'s pool mode once, a block a slot (each
-    live block finds its owner in the tables and marks, as
-    :func:`pool_owners` does; the tile's samples summed in sample order,
-    free ones first, as the reference's one scatter adds them), and add one
-    to the ``pool_insert`` count. Nothing is read on the host; the DDA free
-    trace only (the reference's ``scan_sample_cells``)."""
+    CPU tensors take the plain twin :func:`pool_insert_ref` (``work``
+    unused). CUDA tensors launch ``csrc/scan_insert.cu``'s pool kernel once
+    (a fixed grid taking ``work``'s items from a counter: the bands of the
+    tile around each particle's robot, every other touched tile, every
+    other live slot folded; a tile's samples summed in sample order, free
+    ones first, as the reference's one scatter adds them) and add one to
+    the ``pool_insert`` count. Without ``work``, :func:`pool_work` writes it
+    first (one launch more, counted under ``pool_prepare``). Nothing is read
+    on the host; the DDA free trace only (the reference's
+    ``scan_sample_cells``)."""
     dev = pool.device
     if dev.type == "cpu":
         return pool_insert_ref(pool, tables, origin, scale, model, poses, scans, cfg, touched,
@@ -1903,34 +2274,23 @@ def pool_insert(pool: Tensor, tables: Tensor, origin: Tensor, scale: float, mode
     code = _CELL_MODEL_CODES.get(type(model))
     if code is None:
         raise ValueError(f"pool_insert: no fold for the cell model {type(model).__name__}")
-    n, b, b2, c = pool.shape
-    if b2 != b or c != model.n_channels + 1:
-        raise ValueError(f"pool_insert: pool {tuple(pool.shape)} is not (N, B, B, "
-                         f"{model.n_channels + 1})")
-    if not pool.is_contiguous() or pool.data_ptr() % 16:
-        raise ValueError("pool_insert: the pool must be contiguous and 16-byte aligned "
-                         "(it is updated in place)")
-    _check("pool", pool, tuple(pool.shape), dev)
+    _pool_checks("pool_insert", pool, tables, refcnt, n_live, dev, model)
+    n, b, _, c = pool.shape
     p, th, tw = tables.shape
-    _check("tables", tables, (p, th, tw), dev, torch.int32)
     _check("touched", touched, (p, th, tw), dev, torch.bool)
+    if work is None:
+        work = pool_work(pool, tables, origin, scale, poses, scans, cfg, touched, refcnt, n_live)
+    elif (work.n_tables, work.n_slots) != (p, n) or work.buf.device != dev:
+        raise ValueError(f"pool_insert: a work list for {work.n_tables} tables over "
+                         f"{work.n_slots} slots, not {p} over {n}")
     poses, origin = _pool_scan_checks("pool_insert", (p,), origin, poses, dev)
-    if (refcnt is None) == (n_live is None):
-        raise ValueError("pool_insert: name the live slots by refcnt or by n_live, one of them")
-    if refcnt is None and p != 1:
-        raise ValueError("pool_insert: P tables share slots: their refcounts are needed")
-    if refcnt is not None:
-        _check("refcnt", refcnt, (n,), dev, torch.int32)
-    else:
-        _check("n_live", n_live, (), dev, torch.int32)
     args = _scan_args("pool_insert", scans, (p,), dev, cfg, scale)
     q = _q_arg(q, dev)
     quality = getattr(model, "quality", 0.0)
     decay = getattr(model, "conflict_decay", 0.0)
     fn = _pool_insert_fn()
     _launch("pool_insert", dev, lambda stream: fn(
-        pool.data_ptr(), n, b, c, tables.data_ptr(), touched.data_ptr(), _ptr(refcnt),
-        _ptr(n_live), p, th, tw,
+        pool.data_ptr(), n, b, c, work.buf.data_ptr(), work.n_bands, p, th, tw,
         origin.data_ptr(), scale, scale * scale, poses.data_ptr(),
         *(_ptr(a) if isinstance(a, Tensor) or a is None else a for a in args),
         _ptr(q), code, quality, 1.0 - quality, decay, 1.0 - decay, cells._EPS, stream))

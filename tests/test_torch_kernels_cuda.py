@@ -54,7 +54,15 @@ bit on every live slot (beams along tile boundaries, a particle at the
 table's corner, a scan without a valid beam, a shared untouched block,
 q = 0, an exhausted pool), leaves the dead slots as they were, and its twin
 within 2e-6 relative; ``pool_touched`` equals its twin exactly; a call the
-kernel cannot take raises.
+kernel cannot take raises. ``pool_prepare`` (one cluster launch: the marks
+by crossings, the copy-on-write compaction with its block copies or the
+tiled map's allocation, the owners and the insert's work list) equals
+its plain versions (``cow.prepare_insert_ref``,
+``blockmap.prepare_tiles_ref``) bit for bit (marks, tables, refcounts,
+latch or ``n_alloc``, the whole pool, owners, list; block 0's state in its
+shared memory or, for a pool too large for it, in device memory), and the
+insert from its list
+(the robot's tile in row bands) equals ``pool_insert_ordered``.
 """
 
 import dataclasses
@@ -1283,3 +1291,170 @@ def test_pool_insert_never_falls_back(pool_scene):
         kernels.pool_insert(big, torch.zeros((6, 2, 2), dtype=torch.int32, device=pool.device),
                             *args[2:8], torch.ones((6, 2, 2), dtype=torch.bool, device=pool.device),
                             None, refcnt=torch.ones(4, dtype=torch.int32, device=pool.device))
+
+
+def _prepare_case(pool_scene, case):
+    """The arguments of a ``pool_prepare`` call (a dict) of one case: the
+    copy-on-write state of :func:`_pool_case` before its prepare, or an
+    empty one, or the tiled map."""
+    from slam_constructor_tpu_torch.ops import blockmap, cow
+
+    scans, gt = pool_scene
+    dev = gt.device
+    beam = raycast.BeamConfig(max_range=6.0, wall_blur=True)
+    poses = gt.clone()
+    q = torch.zeros((), device=dev) if "q=0" in case else None
+    if case.startswith("tiled"):
+        model = cells.TBMCell()
+        # 20,480 slots: the table and two lists of the slots pass block 0's
+        # shared memory (kPrepCacheBytes)
+        cap = 12 if "exhausted" in case else (20480 if "uncached" in case else 2048)
+        bm = blockmap.make_block_map(model, 64, 64, cap, block=32, scale=0.05, device=dev)
+        return dict(pool=bm.pool, tables=bm.table[None], origin=bm.origin, scale=bm.scale,
+                    model=model, poses=poses[3:4], scans=scans[3:4], cfg=beam, q=q,
+                    n_alloc=bm.n_alloc)
+    model = cells.BayesAvgCell()
+    # 16,384 slots: the tables and three lists of the slots pass block 0's
+    # shared memory (kPrepCacheBytes), as a pool that has grown does
+    cap = 16 if "trap o" in case else (16384 if "uncached" in case else 1024)
+    st = cow.make_cow_maps(model, 6, 8, 8, cap, block=32, scale=0.1, device=dev)
+    poses[0, :2] = st.origin + 4 * 32 * 0.1  # a tile corner
+    poses[0, 2] = 0.0
+    poses[1, :2] = st.origin + 0.4
+    if "nan" in case:
+        poses[2, 0] = float("nan")
+    if "steady" in case or "copies" in case or "uncached" in case:  # a step before
+        touched = kernels.pool_touched_ref((8, 8), 32, st.origin, st.scale, gt, scans, beam)
+        st = cow.prepare_write(st, model, touched)
+        st.pool.copy_(torch.rand(st.pool.shape, device=dev,
+                                 generator=torch.Generator(device=dev).manual_seed(1)))
+    if "copies" in case:  # resampled to particle 0: every touched tile is shared
+        st.tables = st.tables[:1].expand_as(st.tables).contiguous()
+        st.refcnt = cow._counts(st.tables.reshape(-1), st.capacity)
+    return dict(pool=st.pool, tables=st.tables, origin=st.origin, scale=st.scale, model=model,
+                poses=poses, scans=scans, cfg=beam, q=q, refcnt=st.refcnt, overflow=st.overflow,
+                k_max=cow.write_budget(6, 64, 7 if "budget" in case else None))
+
+
+def _prepare_plain(c):
+    """The plain version of the ``pool_prepare`` call ``c`` on its tensors,
+    in place: ``cow.prepare_insert_ref`` or ``blockmap.prepare_tiles_ref``."""
+    from slam_constructor_tpu_torch.ops import blockmap, cow
+
+    b = c["pool"].shape[1]
+    if c.get("refcnt") is not None:
+        st = cow.CowBlockMaps(pool=c["pool"], tables=c["tables"], refcnt=c["refcnt"],
+                              origin=c["origin"], scale=c["scale"], block=b,
+                              overflow=c["overflow"])
+        return cow.prepare_insert_ref(st, c["model"], c["poses"], c["scans"], c["cfg"], c["q"],
+                                      c["k_max"])
+    bm = blockmap.BlockMap(pool=c["pool"], table=c["tables"][0], n_alloc=c["n_alloc"],
+                           origin=c["origin"], scale=c["scale"], block=b)
+    return blockmap.prepare_tiles_ref(bm, c["poses"], c["scans"], c["cfg"], c["q"])
+
+
+PREPARE_CASES = ("cow first step", "cow steady", "cow copies", "cow copies nan", "cow trap o",
+                 "cow budget", "cow q=0", "cow uncached", "tiled", "tiled exhausted", "tiled q=0",
+                 "tiled uncached")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PREPARE_CASES)
+def test_pool_prepare_equals_its_plain_version(pool_scene, case):
+    """The prepare launch against its plain version (:func:`_prepare_plain`:
+    the marks' twin, then ``cow.prepare_write`` or
+    ``blockmap.allocate_tiles``, then the work list's twin) bit for bit:
+    marks, tables, refcounts, latch or n_alloc, the whole pool, owners and
+    the work list; then the insert from its
+    work list (the robot's tile in bands) equal to the ordered sums on every
+    live slot, twice the same bits, and the list's counters set back."""
+    c = _prepare_case(pool_scene, case)
+    state = ("pool", "tables", "refcnt", "overflow", "n_alloc")
+    got = {k: v.clone() if k in state and v is not None else v for k, v in c.items()}
+    want = {k: v.clone() if k in state and v is not None else v for k, v in c.items()}
+    before = kernels.launch_counts()["pool_prepare"]
+    touched, work = kernels.pool_prepare(**got)
+    t_want, w_want = _prepare_plain(want)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["pool_prepare"] == before + 1
+    assert torch.equal(touched, t_want)
+    for k in state:
+        if got.get(k) is not None:
+            assert torch.equal(got[k].reshape(-1).view(torch.uint8),
+                               want[k].reshape(-1).view(torch.uint8)), k
+    count = int(work.buf[2])
+    assert torch.equal(work.owner, w_want.owner)
+    assert torch.equal(work.buf[2:5], w_want.buf[2:5])
+    assert torch.equal(work.items[:count], w_want.items[:count])
+    if "copies" in case:
+        assert int(work.buf[4]) > 0
+    if "trap o" in case or "budget" in case:
+        assert bool(got["overflow"])
+    live = {"refcnt": got["refcnt"]} if got.get("refcnt") is not None else {
+        "n_live": got["n_alloc"]}
+    args = (got["tables"], got["origin"], got["scale"], got["model"], got["poses"], got["scans"],
+            got["cfg"], touched, got["q"])
+    a, again, ordered = (got["pool"].clone() for _ in range(3))
+    kernels.pool_insert(a, *args, **live, work=work)
+    kernels.pool_insert(again, *args, **live, work=work)
+    kernels.pool_insert_ordered(ordered, *args, **live)
+    torch.cuda.synchronize()
+    n = a.shape[0]
+    is_live = live["refcnt"] > 0 if "refcnt" in live else torch.arange(n, device=a.device) < \
+        live["n_live"]
+    assert torch.equal(a[is_live].view(torch.int32), ordered[is_live].view(torch.int32))
+    assert torch.equal(again.view(torch.int32), a.view(torch.int32))
+    assert torch.equal(a[~is_live], got["pool"][~is_live])
+    assert int(work.buf[0]) == 0 and int(work.buf[1]) == 0  # the counters, set back
+
+
+@pytest.mark.cuda
+def test_pool_touched_is_the_prepare_marks(pool_scene):
+    """``pool_touched`` (the prepare kernel's marking phase alone) equals
+    the prepare's marks and the twin's on every case's scans."""
+    for case in PREPARE_CASES:
+        c = _prepare_case(pool_scene, case)
+        marks = kernels.pool_touched(tuple(c["tables"].shape[1:]), c["pool"].shape[1], c["origin"],
+                                     c["scale"], c["poses"], c["scans"], c["cfg"], c["q"])
+        twin = kernels.pool_touched_ref(tuple(c["tables"].shape[1:]), c["pool"].shape[1],
+                                        c["origin"], c["scale"], c["poses"], c["scans"], c["cfg"],
+                                        c["q"])
+        touched, _ = kernels.pool_prepare(**c)
+        assert torch.equal(marks, twin) and torch.equal(touched, twin), case
+
+
+@pytest.mark.cuda
+def test_pool_prepare_never_falls_back(pool_scene):
+    """A CUDA call the prepare or the insert cannot take raises, and a
+    prepare on the card calls none of the plain versions."""
+    from slam_constructor_tpu_torch.ops import blockmap, cow
+
+    c = _prepare_case(pool_scene, "cow steady")
+    with pytest.raises(ValueError):  # the live slots named twice
+        kernels.pool_prepare(**dict(c, n_alloc=torch.zeros((), dtype=torch.int32,
+                                                           device=c["pool"].device)))
+    with pytest.raises(ValueError):  # more table entries than a launch marks
+        kernels.pool_touched((600, 600), 32, c["origin"], c["scale"], c["poses"], c["scans"],
+                             c["cfg"])
+    touched, work = kernels.pool_prepare(**c)
+    with pytest.raises(ValueError):  # a work list for other tables
+        kernels.pool_insert(c["pool"], c["tables"][:3], c["origin"], c["scale"], c["model"],
+                            c["poses"][:3], c["scans"][:3], c["cfg"], touched[:3],
+                            refcnt=c["refcnt"], work=work)
+    plain = (cow.prepare_insert_ref, kernels.pool_touched_ref, kernels.pool_work_ref,
+             cow.prepare_write, blockmap.allocate_tiles)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    saved = [(m, f.__name__) for m, f in zip((cow, kernels, kernels, cow, blockmap), plain)]
+    cases = [_prepare_case(pool_scene, case) for case in ("cow copies", "tiled")]
+    try:
+        for m, name in saved:
+            setattr(m, name, refuse)
+        for case in cases:
+            kernels.pool_prepare(**case)
+    finally:
+        for (m, name), f in zip(saved, plain):
+            setattr(m, name, f)
+    torch.cuda.synchronize()
