@@ -321,6 +321,50 @@ Phases, one line or more each, in order; any failure exits non-zero:
    timed alone and taken off) beside the plain version and the bound
    (bytes: the tables, refcounts, marks, owners and list, each new block's
    source read and the block written).
+41. every matcher in every RBPF slot at bench.py's gmapping width (30
+   particles, 160^2 windows of 256^2 maps, every second beam, 512 scans,
+   sync check on): the hill climb, M3RSM and the gradient ascent (the
+   general overlap, extent 2 on 5^2 cells) as the primary match, and each
+   as the refine after the Monte-Carlo match, on the dense maps; the
+   Monte-Carlo match with the hill-climbing refine and the gradient ascent
+   on the copy-on-write pool: launches (one ``hill_climb``,
+   ``gradient_refine``, or ``m3rsm_pyramid`` and ``m3rsm_search`` a scan
+   over the 30 windows), finite poses and maps, the winner's ATE (the
+   hill-climbing refine within the reference's worst key + 0.02 m, two runs
+   equal bit for bit);
+42. card vs CPU: the first 8 scans of each of those runs with the same
+   draws (made with numpy): poses and log-weights within 1e-4, ancestors
+   equal;
+43. the loop-closing pipeline with the hill-climbing and with the gradient
+   loop matcher (``full_loop_config``; the gradient on the overlap of
+   extent 1.5): as phase 11, one ``hill_climb`` or ``gradient_refine`` over
+   the submaps a loop match, the corrected ATE within the reference's
+   worst key + 0.02 m and below odometry's;
+44. ``posegraph.joint_refine`` with the hill climb, the gradient ascent and
+   M3RSM (the reference's default configs) over 8 keyframes of the full
+   sequence, 2 rounds: a ``scan_planes`` and the matcher's launches over
+   the 8 leave-one-out maps a round; card vs CPU within 1e-4;
+45. the CLI's tiny_refined with its gradient refine at the obstacle reducer
+   (piecewise constant: one ``overlap_score`` a scan and the trajectory of
+   the engine without the refine, bit for bit) and at the overlap of extent
+   1.5 (one ``gradient_refine`` a scan); card vs CPU on 8 scans each;
+46. checkpoints on the card: the RBPF with the hill-climbing refine (dense
+   and copy-on-write) and viny_m3rsm stopped after 32 scans, saved
+   (``utils.checkpoint``, the generator with the state), restored into a
+   fresh engine and run 32 more; the full pipeline with the hill-climbing
+   loop matcher saved after its first lap (``save_checkpoint``), restored
+   and finished: each equal to the unbroken run bit for bit;
+47. the kernels of those paths on calls kept from them (every 64th launch,
+   every loop-closer launch): ``gradient_refine`` (one map at extent 1.5,
+   30 windows at extent 2, the submaps at extent 1.5, the joint refine's 8
+   maps) and ``hill_climb`` (30 windows, the submaps) bit for bit their
+   yardsticks and single-map launches and within 2e-6 of their twins;
+   ``overlap_score_grad`` at those reducers, one map and 30 (the score the
+   bits of ``overlap_score(_batched)``, the gradient within 1e-5 x max(1,
+   |g|) of its twin away from the reducer's kinks); ``m3rsm_search`` (30
+   requests) and ``m3rsm_pyramid`` (30 windows) over the RBPF's windows;
+   each timed beside its twin with its bound, and listed in the kernels
+   line with its launches on its path.
 
 Every bound counts, of the plane or window, the distinct cells that the
 taps of every pose the kernel scores read (the poses taken from its
@@ -600,6 +644,68 @@ def full_m3rsm_config(**kwargs):
     return dataclasses.replace(cfg, graph=dataclasses.replace(
         cfg.graph, loop_matcher_kind="m3rsm", loop_matcher=m3rsm.M3RSMConfig(
             **M3RSM_LOOP_MATCHER, scoring=scoring.ScoringConfig(reducer="overlap", stride=2))))
+
+
+#: the matcher slots of slice 6d: the RBPF's hill climb, gradient ascent and
+#: M3RSM (primary or after the Monte-Carlo match), the loop closer's hill
+#: climb and gradient ascent. Each is the matcher's config with these fields
+#: (``slot_matcher_cfg``); reference_ate.py builds the reference's from them
+SLOT_FIELDS = {
+    "gmapping": {"hill_climbing": dict(step_xy=0.05, step_theta=0.025, iterations=6),
+                 "gradient": dict(iterations=8, step_xy=0.04, step_theta=0.02),
+                 "m3rsm": dict(levels=3, half_x=0.3, half_y=0.3, half_theta=0.1, n_theta=9,
+                               beam_width=32, refine_iterations=4)},
+    "loop": {"hill_climbing": dict(step_xy=0.1, step_theta=0.05, iterations=10),
+             "gradient": dict(iterations=12, step_xy=0.06, step_theta=0.03)},
+}
+#: the gradient slots score with the general overlap (its own kernel path):
+#: the RBPF's at extent 2 on 5^2 cells, the loop closer's at extent 1.5 on 3^2
+GRADIENT_SCORING = {"gmapping": dict(reducer="overlap", window=2, overlap_extent=2.0, stride=2),
+                    "loop": dict(reducer="overlap", window=1, overlap_extent=1.5, stride=2)}
+#: the RBPF's slots run on the card: (primary matcher, refine matcher)
+GM_SLOTS = (("hill_climbing", None), ("m3rsm", None), ("gradient", None),
+            ("monte_carlo", "hill_climbing"), ("monte_carlo", "gradient"),
+            ("monte_carlo", "m3rsm"))
+
+
+def slot_matcher_cfg(where, kind, scoring_cfg, modules=None):
+    """The config of matcher ``kind`` in a slot of ``where`` ("gmapping" or
+    "loop"): ``SLOT_FIELDS``, the path's scoring (``scoring_cfg``; the
+    gradient's general overlap instead). ``modules`` are (matchers,
+    scoring, m3rsm): the port's by default."""
+    if modules is None:
+        from slam_constructor_tpu_torch.ops import m3rsm, matchers, scoring
+        modules = (matchers, scoring, m3rsm)
+    matchers, scoring, m3rsm = modules
+    if kind == "gradient":
+        scoring_cfg = scoring.ScoringConfig(**GRADIENT_SCORING[where])
+    cls = m3rsm.M3RSMConfig if kind == "m3rsm" else matchers.MATCHERS[kind][0]
+    return cls(**SLOT_FIELDS[where][kind], scoring=scoring_cfg)
+
+
+def gmapping_slot_config(matcher, refine=None, base=None, modules=None):
+    """bench.py's gmapping preset (or ``base``) with ``matcher`` as the
+    primary match and ``refine`` as the refine; a Monte-Carlo primary keeps
+    the preset's."""
+    base = base or gmapping_config()
+    sc = base.matcher_cfg.scoring
+    if matcher != "monte_carlo":
+        base = dataclasses.replace(base, matcher=matcher,
+                                   matcher_cfg=slot_matcher_cfg("gmapping", matcher, sc, modules))
+    if refine is not None:
+        base = dataclasses.replace(base, refine_matcher=refine,
+                                   refine_cfg=slot_matcher_cfg("gmapping", refine, sc, modules))
+    return base
+
+
+def full_loop_config(kind, base=None, modules=None):
+    """bench.py's ``full`` preset (or ``base``) with the loop matcher
+    ``kind``."""
+    base = base or full_config()
+    g = base.graph
+    return dataclasses.replace(base, graph=dataclasses.replace(
+        g, loop_matcher_kind=kind,
+        loop_matcher=slot_matcher_cfg("loop", kind, g.loop_matcher.scoring, modules)))
 
 
 def odometry_trajectory(start, odom):
@@ -1225,14 +1331,15 @@ def graph_bits(e):
 
 def loop_match_launches(graph_cfg, calls: int) -> dict:
     """The launches of ``calls`` loop-closing matches (``_match_loop``, one
-    a keyframe batch and one a densify round): the brute-force grid and the
-    information estimate, two of the batched score; or M3RSM's pyramid of
-    the submaps, the whole match in one launch and the information
-    estimate."""
-    if graph_cfg.loop_matcher_kind != "m3rsm":
-        return {"overlap_score_batched": 2 * calls, "scan_planes": calls}
-    return {"m3rsm_pyramid": calls, "m3rsm_search": calls, "overlap_score_batched": calls,
-            "scan_planes": calls}
+    a keyframe batch and one a densify round): the submaps' render, the
+    matcher's over the submaps (``matcher_launches``: the brute-force grid a
+    batched score; M3RSM its pyramid and the whole match; the hill climb or
+    the gradient ascent one launch) and the information estimate, a batched
+    score."""
+    counts = {"overlap_score_batched": calls, "scan_planes": calls}
+    for k, v in matcher_launches(graph_cfg.loop_matcher_kind, graph_cfg.loop_matcher).items():
+        counts[k] = counts.get(k, 0) + v * calls
+    return counts
 
 
 def regeneration_counter():
@@ -2645,7 +2752,7 @@ def phase_overlap_grad_kernel(dev, kept, smi):
     check(len(kept) > 0, "no gradient launch was kept from the tiny_refined path")
     g = torch.Generator(device=dev).manual_seed(11)
     # the last kept launch: a map of many scans (the first is of an empty map)
-    v, poses, pts, beam_w, origin, scale, unknown = kept[-1]
+    v, poses, pts, beam_w, origin, scale, unknown = kept[-1][:7]
     h, w = v.shape
     edge = torch.tensor([[float(origin[0]) + 0.4, float(origin[1]) + h * scale / 2, 2.8]],
                         device=dev)
@@ -3464,15 +3571,9 @@ def joint_refine_call(dev, fscans, fgt):
     keyframes of the full sequence (K = 8 planes of 256^2, the tiny
     tracker's map and beam), run on the card."""
     from slam_constructor_tpu_torch.models import posegraph
-    from slam_constructor_tpu_torch.ops import grid as gridlib
     from slam_constructor_tpu_torch.ops import kernels
 
-    tracking = full_config().tracking
-    cfg = posegraph.PoseGraphConfig(max_keyframes=8, max_edges=16)
-    st = posegraph.init_state(cfg, N_BEAMS, dev)
-    for i in range(8):
-        st = posegraph.add_keyframe(cfg, st, fgt[40 * i], fscans[40 * i])
-    gm = gridlib.make_grid_map(tracking.cell_model, MAP, MAP, tracking.map_scale, device=dev)
+    cfg, tracking, st, gm = joint_refine_state(dev, fscans, fgt)
     recording, kept = [], []
 
     def keep(*args):
@@ -3820,16 +3921,25 @@ def compare_particle_maps(name, a, b):
 
 
 def rbpf_draws(cfg, n, seed=5):
+    """``n`` steps of draws made with numpy: the Monte-Carlo normals only
+    where a Monte-Carlo match (or a refine after another match) runs."""
     from slam_constructor_tpu_torch.models import gmapping
 
-    mc, p = cfg.matcher_cfg, cfg.n_particles
+    p = cfg.n_particles
     rng = np.random.default_rng(seed)
 
     def normals(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
 
-    return gmapping.Draws(proposal=normals(n, p, 3), match=normals(n, p, mc.rounds, mc.batch, 3),
-                          u0=torch.from_numpy(rng.uniform(0, 1 / p, n).astype(np.float32)))
+    def mc(mcfg):
+        return normals(n, p, mcfg.rounds, mcfg.batch, 3)
+
+    return gmapping.Draws(
+        proposal=normals(n, p, 3),
+        match=mc(cfg.matcher_cfg) if cfg.matcher == "monte_carlo" else None,
+        u0=torch.from_numpy(rng.uniform(0, 1 / p, n).astype(np.float32)),
+        refine=mc(cfg.refine_cfg) if (cfg.refine_matcher == "monte_carlo"
+                                      and cfg.matcher != "monte_carlo") else None)
 
 
 def phase_gmapping_cow_path(scans, odom, gt, odo_ate, smi):
@@ -4456,6 +4566,779 @@ def phase_pool_kernels(kept, prep_kept, smi):
             k_prep)
 
 
+# --- slice 6d: every matcher in every slot, the gradient at every reducer, checkpoints ---
+
+#: winner ATE of the JAX reference's RBPF with the hill-climbing refine after
+#: the Monte-Carlo match (``gmapping_slot_config('monte_carlo',
+#: 'hill_climbing')``) on a CPU over the bench sequence, once for each key
+#: PRNGKey(0..4) (`JAX_PLATFORMS=cpu python scripts/torch_port/
+#: reference_ate.py --preset gmapping --slot monte_carlo+hill_climbing --keys 5 --port`)
+GMAPPING_HILL_REFERENCE_ATE_BY_KEY = (0.62062, 0.66941, 0.62501, 0.72555, 0.6784)
+#: corrected-trajectory ATE of the reference's ``FullSlamEngine`` with the
+#: hill-climbing and with the gradient loop matcher (``full_loop_config``)
+#: on a CPU over the full path's sequence, once for each tracker key
+#: (`reference_ate.py --preset full_hill|full_gradient --keys 5 --port`)
+FULL_HILL_REFERENCE_ATE_BY_KEY = (0.1127, 0.11358, 0.1256, 0.11189, 0.11696)
+FULL_GRADIENT_REFERENCE_ATE_BY_KEY = (0.08057, 0.0768, 0.09442, 0.07778, 0.08254)
+#: every how many launches of a slot's kernel a path run keeps its arguments
+SLOT_KEEP_EVERY = 64
+#: a gradient refine against its twin on the beams clear of kinks, every
+#: decision the same: the poses within this (m), a thousandth of a 0.1 m
+#: cell (the step's direction g / |g| magnifies the sums' rounding where the
+#: beams' derivatives nearly cancel)
+GRADIENT_POSE_TOL = 1e-4
+#: scans of the slots' card-vs-CPU runs and of the checkpoint runs
+SLOT_VS_CPU_SCANS, CHECKPOINT_SCANS = 8, 64
+
+
+def slot_name(matcher, refine):
+    return matcher if refine is None else f"{matcher}+{refine}"
+
+
+def matcher_launches(kind, mcfg, lead=True) -> dict:
+    """The launches of one match (or refine) of matcher ``kind`` over one
+    map or M (``lead``): a Monte-Carlo match, the hill climb and the
+    gradient ascent one launch each (a piecewise-constant gradient one
+    score instead), M3RSM its pyramid and its search, brute force a
+    batched score."""
+    from slam_constructor_tpu_torch.ops import scoring
+
+    score = "overlap_score_batched" if lead else "overlap_score"
+    if kind == "gradient":
+        flat = scoring.reducer_of(mcfg.scoring).flat
+        return {score: 1} if flat else {"gradient_refine": 1}
+    return {"monte_carlo": {"mc_match_batched" if lead else "mc_match": 1},
+            "hill_climbing": {"hill_climb": 1}, "brute_force": {score: 1},
+            "m3rsm": {"m3rsm_pyramid": 1, "m3rsm_search": 1}}[kind]
+
+
+def slot_launches(cfg, n) -> dict:
+    """The launches the design gives ``n`` RBPF steps of ``cfg``: its match
+    and its refine over the P windows, the insert (K3 on the dense maps,
+    the pool's prepare and insert on the copy-on-write storage)."""
+    counts = {}
+    for kind, mcfg in ((cfg.matcher, cfg.matcher_cfg), (cfg.refine_matcher, cfg.refine_cfg)):
+        if kind is not None:
+            for k, v in matcher_launches(kind, mcfg).items():
+                counts[k] = counts.get(k, 0) + v * n
+    insert = (dict(pool_prepare=n, pool_insert=n) if cfg.map_storage == "cow"
+              else dict(scan_insert=n))
+    return expect(**counts, **insert)
+
+
+def slot_runs():
+    """(name, config) of the RBPF's slot runs: every slot on the dense maps,
+    two on the copy-on-write pool."""
+    runs = [(f"gmapping {slot_name(m, r)}", gmapping_slot_config(m, r)) for m, r in GM_SLOTS]
+    for m, r in (("monte_carlo", "hill_climbing"), ("gradient", None)):
+        runs.append((f"gmapping cow {slot_name(m, r)}", gmapping_slot_config(m, r, cow_config())))
+    return runs
+
+
+def phase_gmapping_slots(scans, odom, gt, odo_ate, smi):
+    """Every matcher in every RBPF slot at bench.py's gmapping width (512
+    scans, sync check on), on the dense maps and (two slots) on the
+    copy-on-write pool: launches, the winner's ATE (the Monte-Carlo match
+    with the hill-climbing refine held to the reference's keys), two runs
+    of the hill-climbing refine equal. Keeps every 64th launch of the
+    slots' kernels. Returns the launches by run, the kept calls and a
+    summary."""
+    from slam_constructor_tpu_torch.ops import kernels
+    from slam_constructor_tpu_torch.utils import evaluate
+
+    names = ("gradient_refine", "hill_climb", "m3rsm_pyramid")
+    launches, summary = {}, {}
+    kept = {k: {} for k in (*names, "m3rsm_search")}
+    for name, cfg in slot_runs():
+        run_gmapping_path(cfg, scans[:8], odom[:8], gt, 0)  # warm-up: constants, build
+        recs = {k: recorder(getattr(kernels, k), SLOT_KEEP_EVERY) for k in names}
+        searching, searches = search_recorder(lambda n: n % SLOT_KEEP_EVERY == 0)
+        with contextlib.ExitStack() as stack:
+            for k, (rec, _) in recs.items():
+                stack.enter_context(handed_in(rec, k))
+            stack.enter_context(handed_in(searching, "m3rsm_search"))
+            with pool_twin_counted() as twin_calls:
+                reset_launches()
+                e, traj, neffs, secs = run_gmapping_path(cfg, scans, odom, gt, "error")
+                got = read_launches()
+        for k, (_, calls) in recs.items():
+            if calls:
+                kept[k][name] = calls
+        if searches:
+            kept["m3rsm_search"][name] = searches
+        launches[name] = got
+        want = slot_launches(cfg, N_SCANS)
+        winner = e.winner_trajectory()
+        ate = float(evaluate.ate(winner, gt, align=False))
+        print(f"{name} ({cfg.n_particles} particles): {N_SCANS} scans in {secs:.3f} s = "
+              f"{N_SCANS / secs:.1f} scans/s on {smi}, sync check on, no host sync; winner ATE "
+              f"{ate:.4f} m, online {float(evaluate.ate(traj, gt, align=False)):.4f} m, odometry "
+              f"{odo_ate:.4f} m; min Neff {float(neffs.min()):.2f}; launches {got} (expected "
+              f"{want})", flush=True)
+        check(got == want, f"{name}: launches {got}, expected {want}")
+        check(not twin_calls, f"{name}: a plain version ran on the card's path")
+        check(bool(torch.isfinite(winner).all()) and bool(torch.isfinite(traj).all())
+              and bool(torch.isfinite(e.occupancy).all()), f"{name}: non-finite poses or map")
+        summary[name] = {"scans_per_sec": N_SCANS / secs, "winner_ate_m": ate}
+        if name == "gmapping monte_carlo+hill_climbing":
+            ref = GMAPPING_HILL_REFERENCE_ATE_BY_KEY
+            limit = max(ref) + GMAPPING_ATE_MARGIN
+            print(f"{name}: winner ATE {ate:.4f} m against the reference's worst key + margin "
+                  f"{limit:.4f} (its five keys {min(ref):.4f}-{max(ref):.4f})", flush=True)
+            check(ate <= limit, f"{name}: winner ATE {ate} above the reference's worst key + "
+                                f"margin {limit}")
+            e2, traj2, _, _ = run_gmapping_path(cfg, scans, odom, gt, 0)
+            same = torch.equal(traj2, traj) and all(
+                torch.equal(a, b) for a, b in zip(gmapping_bits(e), gmapping_bits(e2)))
+            print(f"{name} repeatability: trajectory, genealogy, weights and maps of two runs "
+                  f"equal: {same}", flush=True)
+            check(same, f"{name}: two runs differ")
+    return launches, kept, summary
+
+
+def gradient_part_explained(name, card, cpu) -> bool:
+    """Why a run with a gradient refine parts on the card and the CPU:
+    ``card`` and ``cpu`` are the arguments of the refine (one map or M)
+    each device ran at the scan where the runs part. The gradient ascent
+    steps along g / |g|, and a beam's endpoint within an ulp of a kink of
+    the score (where the derivative jumps) takes the derivative of either
+    side on the two devices (their cosf and sinf differ by an ulp): the
+    step turns. Explained when every map whose refine parts had a weighted
+    endpoint within KINK_MARGIN cell of a kink on its way on the CPU, or
+    the refine held a keep-if-better decision closer than KNIFE_EDGE."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    def as_maps(a):
+        return a if a[0].dim() == 3 else (*(t[None] for t in a[:5]), *a[5:])
+
+    card, cpu = as_maps(card), as_maps(cpu)
+    start = float((card[4].cpu() - cpu[4]).abs().max())
+    got_card, got_cpu = kernels.gradient_refine(*card), kernels.gradient_refine(*cpu)
+    torch.cuda.synchronize()
+    dp = (got_card[0].cpu() - got_cpu[0]).abs().amax(-1)
+    parted = dp > 1e-5
+    poses = visited_poses(kernels.gradient_refine_loop, kernels.overlap_score_grad_ref, cpu)
+    near = ~kernels.clear_of_kinks(poses, cpu[1], cpu[3], cpu[5], KINK_MARGIN, cpu[11])
+    near = (near & (cpu[2] != 0)).any(-1)
+    margins = twin_record(cpu, kernels.gradient_refine_loop, kernels.overlap_score_grad_ref)[1]
+    edge = float(margins.min()) if margins.numel() else math.inf
+    kinked = bool(near[parted].all())
+    print(f"  [{name}] the refine where the runs part ({cpu[0].shape[0]} maps, start poses "
+          f"{start:.3e} apart): {int(parted.sum())} maps part (up to {float(dp.max()):.3e} m); "
+          f"each had a weighted endpoint within {KINK_MARGIN:g} cell of a kink on its way: "
+          f"{kinked} ({int(near.sum())} of {near.numel()} had one); closest keep-if-better "
+          f"decision {edge:.3e} (limit {KNIFE_EDGE:g})", flush=True)
+    return kinked or edge < KNIFE_EDGE
+
+
+def phase_gmapping_slots_card_vs_cpu(dev, scans, odom, gt, n=SLOT_VS_CPU_SCANS):
+    """Card vs CPU: the first ``n`` scans of every slot run with the same
+    draws (made with numpy): poses and log-weights within 1e-4, ancestors
+    equal; where a run with a gradient slot parts, that scan's refine must
+    explain it (``gradient_part_explained``)."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    for name, cfg in slot_runs():
+        draws = rbpf_draws(cfg, n)
+        runs, calls = [], []
+        for d in (None, "cpu"):
+            on = torch.device(d) if d else dev
+            ascending, ascents = recorder(kernels.gradient_refine)
+            with handed_in(ascending, "gradient_refine"):
+                e, _, _, _ = run_gmapping_path(cfg, scans[:n].to(on), odom[:n].to(on),
+                                               gt.to(on), 0, draws=draws, device=d)
+            runs.append([t.cpu() for t in (*e.genealogy, e.state.log_weights)])
+            calls.append(ascents)
+        (pa, aa, la), (pb, ab, lb) = runs
+        d = pa - pb
+        d[..., 2] = torch.atan2(torch.sin(d[..., 2]), torch.cos(d[..., 2]))
+        by_scan = d.abs().amax((1, 2))
+        apart = (by_scan > 1e-4) | (aa != ab).any(1)
+        part = int(apart.nonzero()[0]) if bool(apart.any()) else None
+        diff, ldiff = float(by_scan.max()), float((la - lb).abs().max())
+        print(f"{name} card vs CPU, {n} scans, the same draws: max|pose diff| {diff:.3e} (tol "
+              f"1e-4), ancestors equal: {torch.equal(aa, ab)}, max|log-weight diff| {ldiff:.3e} "
+              f"(tol 1e-4){'' if part is None else f'; the runs part at scan {part}'}",
+              flush=True)
+        if part is None:
+            check(ldiff <= 1e-4, f"{name} card vs CPU: the weights disagree")
+            continue
+        check(len(calls[1]) == n and gradient_part_explained(name, calls[0][part],
+                                                             calls[1][part]),
+              f"{name} card vs CPU: the runs part at scan {part} with no kink or close decision")
+
+
+def capture_loop_refines(cfg, scans, odom, gt):
+    """A run of a full path (it also warms the path up) that keeps every
+    launch of the loop closer's refine kernels (``hill_climb``,
+    ``gradient_refine``)."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    climbing, climbs = recorder(kernels.hill_climb)
+    ascending, ascents = recorder(kernels.gradient_refine)
+    with handed_in(climbing, "hill_climb"), handed_in(ascending, "gradient_refine"):
+        run_full_path(cfg, scans, odom, gt, 0)
+    return {"hill_climb": climbs, "gradient_refine": ascents}
+
+
+def joint_refine_state(dev, fscans, fgt, n_kf=8):
+    """phase 35's joint refine: ``n_kf`` keyframes of the full sequence (40
+    scans apart) at their true poses, the tracker's empty map and beam."""
+    from slam_constructor_tpu_torch.models import posegraph
+    from slam_constructor_tpu_torch.ops import grid as gridlib
+
+    tracking = full_config().tracking
+    cfg = posegraph.PoseGraphConfig(max_keyframes=n_kf, max_edges=2 * n_kf)
+    st = posegraph.init_state(cfg, N_BEAMS, dev)
+    for i in range(n_kf):
+        st = posegraph.add_keyframe(cfg, st, fgt[40 * i], fscans[40 * i])
+    gm = gridlib.make_grid_map(tracking.cell_model, MAP, MAP, tracking.map_scale, device=dev)
+    return cfg, tracking, st, gm
+
+
+def pose_gap(a, b) -> float:
+    """The largest difference of two sets of poses, headings wrapped."""
+    d = a - b
+    d[..., 2] = torch.atan2(torch.sin(d[..., 2]), torch.cos(d[..., 2]))
+    return float(d.abs().max())
+
+
+def phase_joint_refine_slots(dev, fscans, fgt, rounds=2):
+    """``posegraph.joint_refine`` with the hill climb, the gradient ascent
+    and M3RSM (the reference's default configs) over 8 keyframes of the
+    full sequence, on the card (launches: a ``scan_planes`` and the
+    matcher's over the 8 leave-one-out maps a round) and on the CPU (poses
+    within 1e-4). Returns the launches by matcher and the kept calls."""
+    from slam_constructor_tpu_torch.models import posegraph
+    from slam_constructor_tpu_torch.ops import kernels, matchers
+
+    launches, kept = {}, {}
+    for matcher in ("hill_climbing", "gradient", "m3rsm"):
+        outs = []
+        for first, on in ((True, dev), (False, torch.device("cpu"))):
+            cfg, tracking, st, gm = joint_refine_state(on, fscans.to(on), fgt.to(on))
+            recs = {k: recorder(getattr(kernels, k)) for k in ("hill_climb", "gradient_refine",
+                                                                "m3rsm_pyramid")}
+            searching, searches = search_recorder()
+            with contextlib.ExitStack() as stack:
+                for k, (rec, _) in recs.items():
+                    stack.enter_context(handed_in(rec, k))
+                stack.enter_context(handed_in(searching, "m3rsm_search"))
+                reset_launches()
+                out = posegraph.joint_refine(cfg, tracking.cell_model, st, gm, tracking.beam,
+                                             rounds=rounds, matcher=matcher)
+                if on.type == "cuda":
+                    torch.cuda.synchronize()
+                got = read_launches()
+            outs.append(out.kf_poses.cpu())
+            if first:
+                launches[matcher] = got
+                for k, (_, calls) in recs.items():
+                    if calls:
+                        kept[k] = calls
+                if searches:
+                    kept["m3rsm_search"] = searches
+                mcfg = matchers.MATCHERS[matcher][0]()
+                want = expect(scan_planes=rounds, **{
+                    k: v * rounds for k, v in matcher_launches(matcher, mcfg).items()})
+                check(got == want, f"joint_refine {matcher}: launches {got}, expected {want}")
+        diff = pose_gap(outs[0], outs[1])
+        moved = pose_gap(outs[0], st.kf_poses.cpu())
+        edge = math.inf
+        if diff > 1e-4 and matcher == "gradient":
+            # a gradient ascent's late steps gain ~1e-7: a keep-if-better may
+            # fall the other way; the card's refines must hold such a decision
+            edge = min(float(twin_record(a, kernels.gradient_refine_loop,
+                                         kernels.overlap_score_grad_ref)[1].min())
+                       for a in kept["gradient_refine"])
+        near = ("" if edge == math.inf else f"; the closest decision of its refines in their "
+                f"twin {edge:.3e}, limit {KNIFE_EDGE:g}")
+        print(f"joint_refine with {matcher} ({rounds} rounds, 8 keyframes of the full sequence, "
+              f"the reference's default config): launches {launches[matcher]}; card vs CPU "
+              f"max|pose diff| {diff:.3e} (tol 1e-4{near}); the keyframes moved up to "
+              f"{moved:.4f}", flush=True)
+        check(bool(torch.isfinite(outs[0]).all()) and (diff <= 1e-4 or edge < KNIFE_EDGE),
+              f"joint_refine {matcher}: the card and the CPU disagree")
+    return launches, kept
+
+
+def refined_properties(label, edits):
+    """configs/tiny_refined.properties with ``edits`` (key: value) applied,
+    written under build/cli_out/; returns its path."""
+    lines, seen = [], set()
+    with open("configs/tiny_refined.properties") as f:
+        for line in f.read().splitlines():
+            key = line.split("=", 1)[0].strip()
+            if key in edits:
+                line, seen = f"{key} = {edits[key]}", seen | {key}
+            lines.append(line)
+    lines += [f"{k} = {v}" for k, v in edits.items() if k not in seen]
+    os.makedirs("build/cli_out", exist_ok=True)
+    path = f"build/cli_out/tiny_refined_{label}.properties"
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def phase_cli_refine_reducers(dev):
+    """The CLI's tiny_refined with its gradient refine at the obstacle
+    reducer (piecewise constant: one ``overlap_score`` a scan, the match's
+    pose kept: the same trajectory as without the refine, bit for bit) and
+    at the general overlap of extent 1.5 (one ``gradient_refine`` a scan);
+    card vs CPU on 8 scans each. Returns the launches and every 16th refine
+    at extent 1.5."""
+    from slam_constructor_tpu_torch import run
+    from slam_constructor_tpu_torch.ops import kernels
+    from slam_constructor_tpu_torch.utils import config as cfglib
+    from slam_constructor_tpu_torch.utils import evaluate
+
+    launches, kept = {}, []
+    for label, edits in (("obstacle", {"scoring.reducer": "obstacle"}),
+                         ("overlap_e1.5", {"scoring.overlap_extent": "1.5"})):
+        path = refined_properties(label, edits)
+        args = run.parse_args(["--config", path, "--synthetic", "cecum", "--trajectory",
+                               "rectangle", "--steps", str(CLI_SCANS), "--out",
+                               f"build/cli_out/tiny_refined_{label}"])
+        ascending, calls = recorder(kernels.gradient_refine, every=16)
+        with handed_in(ascending, "gradient_refine"):
+            run.execute(args)  # warm-up
+            calls.clear()
+            reset_launches()
+            res = run.execute(args)
+            got = read_launches()
+        n = res.trajectory.shape[0]
+        name = f"cli tiny_refined {label.replace('_', ' ')}"
+        launches[name] = got
+        props = cfglib.load_properties(path)
+        cfg = cfglib.engine_config_from(props)
+        refine = matcher_launches("gradient", cfg.refine_cfg, lead=False)
+        want = expect(mc_match=n, scan_insert=n, **{k: v * n for k, v in refine.items()})
+        scans, odom, gt = run.load_data(args, dev)
+        print(f"{name}: {n} scans, {res.summary['scans_per_sec']} scans/s; ATE "
+              f"{float(evaluate.ate(res.trajectory, gt, align=False)):.5f} m; launches {got} "
+              f"(expected {want})", flush=True)
+        check(got == want, f"{name}: launches {got}, expected {want}")
+        check(bool(torch.isfinite(res.trajectory).all()), f"{name}: non-finite poses")
+        if label == "obstacle":
+            plain = dataclasses.replace(cfg, refine_matcher=None, refine_cfg=None)
+            traj = run_main_path(plain, scans, odom, gt, 0)[0]
+            same = torch.equal(traj, res.trajectory)
+            print(f"{name}: the same engine without the refine gives the same trajectory bit "
+                  f"for bit: {same}", flush=True)
+            check(same, f"{name}: the flat refine moved a pose")
+        else:
+            kept = list(calls)
+        refine_card_vs_cpu(name, cfg, dev, scans, odom, gt)
+    return launches, kept
+
+
+def refine_card_vs_cpu(name, cfg, dev, scans, odom, gt, n=8):
+    """``phase_card_vs_cpu`` for an engine with a gradient refine: where the
+    runs part, the scan's refine must explain it
+    (``gradient_part_explained``)."""
+    from slam_constructor_tpu_torch.models import engine
+    from slam_constructor_tpu_torch.ops import kernels
+
+    rounds, batch = cfg.matcher_cfg.rounds, cfg.matcher_cfg.batch
+    noise = torch.from_numpy(
+        np.random.default_rng(5).standard_normal((n, rounds, batch, 3)).astype(np.float32))
+    trajs, calls = [], []
+    for d in (dev, torch.device("cpu")):
+        ascending, ascents = recorder(kernels.gradient_refine)
+        with handed_in(ascending, "gradient_refine"):
+            e = engine.Engine(cfg, device=d)
+            e.state.pose = gt[0].to(d).clone()
+            traj, _ = e.run(scans[:n], odom[:n], noise=noise.to(d))
+        trajs.append(traj.cpu())
+        calls.append(ascents)
+    d = trajs[0] - trajs[1]
+    d[..., 2] = torch.atan2(torch.sin(d[..., 2]), torch.cos(d[..., 2]))
+    by_scan = d.abs().amax(-1)
+    part = int((by_scan > 1e-4).nonzero()[0]) if bool((by_scan > 1e-4).any()) else None
+    print(f"{name} card vs CPU, {n} scans: max|pose diff|={float(by_scan.max()):.3e} (tol 1e-4)"
+          f"{'' if part is None else f'; the runs part at scan {part}'}", flush=True)
+    check(part is None or (len(calls[1]) == n and gradient_part_explained(
+        name, calls[0][part], calls[1][part])), f"{name}: card and CPU runs disagree")
+
+
+def phase_checkpoint(dev, scans, odom, gt, fscans, fodom, fgt, n=CHECKPOINT_SCANS):
+    """A run stopped, saved (``utils.checkpoint``; the full pipeline's
+    ``save_checkpoint``), restored into a fresh engine on the card and
+    finished equals the unbroken run bit for bit: the RBPF with the
+    hill-climbing refine (dense and copy-on-write), viny_m3rsm (its
+    pyramid), and the full pipeline with the hill-climbing loop matcher
+    (the full sequence, saved after its first lap, in segments of ``n``)."""
+    from slam_constructor_tpu_torch.models import engine, full, gmapping, viny
+    from slam_constructor_tpu_torch.utils import checkpoint
+
+    half = n // 2
+    os.makedirs("build/checkpoint", exist_ok=True)
+    makers = {
+        "gmapping monte_carlo+hill_climbing": lambda: gmapping.GMappingEngine(
+            gmapping_slot_config("monte_carlo", "hill_climbing"), seed=0),
+        "gmapping cow monte_carlo+hill_climbing": lambda: gmapping.GMappingEngine(
+            gmapping_slot_config("monte_carlo", "hill_climbing", cow_config()), seed=0),
+        "viny_m3rsm": lambda: engine.Engine(viny.viny_m3rsm_config(map_size=MAP), seed=0),
+    }
+    for name, make in makers.items():
+        def fresh():
+            e = make()
+            if isinstance(e, gmapping.GMappingEngine):
+                e.state.poses = gt[0].expand(e.cfg.n_particles, 3).clone()
+            else:
+                e.state = dataclasses.replace(e.state, pose=gt[0].clone())
+            return e
+
+        ref = fresh()
+        want = torch.cat([ref.run(scans[:half], odom[:half])[0],
+                          ref.run(scans[half:n], odom[half:n])[0]])
+        a = fresh()
+        first = a.run(scans[:half], odom[:half])[0]
+        path = f"build/checkpoint/{name.replace(' ', '_')}"
+        checkpoint.save(path, {"state": a.state, "generator": a.generator})
+        b = fresh()
+        back = checkpoint.restore(path, {"state": b.state, "generator": b.generator})
+        b.state, b.generator = back["state"], back["generator"]
+        got = torch.cat([first, b.run(scans[half:n], odom[half:n])[0]])
+        same = torch.equal(got, want)
+        print(f"checkpoint {name}: {half} scans, saved, restored into a fresh engine on the "
+              f"card, {n - half} more: the trajectory equals the unbroken run's bit for bit: "
+              f"{same}", flush=True)
+        check(same, f"checkpoint {name}: the resumed run differs")
+    cfg = full_loop_config("hill_climbing")
+    seg = n
+
+    def fresh_full():
+        e = full.FullSlamEngine(cfg, n_beams=N_BEAMS, seed=0)
+        e.state.pose = fgt[0].clone()
+        return e
+
+    fn = N_SCANS  # the whole sequence: the first lap before the save, the second after
+    ref = fresh_full()
+    ref.run(fscans[:fn // 2], fodom[:fn // 2], segment=seg)
+    ref.run(fscans[fn // 2:fn], fodom[fn // 2:fn], segment=seg)
+    a = fresh_full()
+    a.run(fscans[:fn // 2], fodom[:fn // 2], segment=seg)
+    a.save_checkpoint("build/checkpoint/full_hill")
+    b = fresh_full()
+    b.restore_checkpoint("build/checkpoint/full_hill")
+    b.run(fscans[fn // 2:fn], fodom[fn // 2:fn], segment=seg)
+    same = (torch.equal(b.corrected_trajectory(), ref.corrected_trajectory())
+            and all(torch.equal(x, y) for x, y in zip(graph_bits(b), graph_bits(ref)))
+            and (b.total_loops, b.n_bursts) == (ref.total_loops, ref.n_bursts))
+    print(f"checkpoint full hill_climbing: {fn // 2} scans ({a.total_loops} loops, {a.n_bursts} "
+          f"bursts), saved, restored, {fn - fn // 2} more: corrected trajectory, graph, map and "
+          f"counters equal the unbroken run's bit for bit: {same}", flush=True)
+    check(same, "checkpoint full: the resumed run differs")
+
+
+def refine_twin(name):
+    from slam_constructor_tpu_torch.ops import kernels
+
+    if name == "gradient_refine":
+        return (kernels.gradient_refine_rounds, kernels.gradient_refine_ref,
+                kernels.gradient_refine_loop, kernels.overlap_score_grad_ref,
+                kernels.overlap_score_grad)
+    def score(v, *a):
+        return (kernels.overlap_score_batched if v.dim() == 3 else kernels.overlap_score)(v, *a)
+
+    return (kernels.hill_climb_rounds, kernels.hill_climb_ref, kernels.hill_climb_loop,
+            kernels.overlap_score_ref, score)
+
+
+def refine_cells(args, poses, red):
+    """The distinct cells the taps of ``poses`` f32[M, N, 3] read (one map:
+    a leading dimension added)."""
+    v, pts, beam_w, origin, scale = args[0], args[1], args[2], args[3], args[5]
+    if v.dim() == 2:
+        v, pts, beam_w, origin = v[None], pts[None], beam_w[None], origin[None]
+        poses = poses[None]
+    if red.kind == "bilinear":
+        return tap_cells_maps(v, poses, pts, beam_w, origin, scale)[0]
+    return reducer_tap_cells(v, poses, pts, beam_w, origin, scale, red)
+
+
+def grad_ops(red) -> int:
+    """f32 operations a (pose, beam) pair of the pose gradient: the score's
+    and, for the general overlap, a cell's two length derivatives (2 x 4),
+    the weights' two derivatives and their four sums (6), the quotient rule
+    (6) and the chain to the pose (19); the bilinear's GRAD_OPS_PER_POINT;
+    the piecewise-constant reducers the score's alone."""
+    if red.kind == "bilinear":
+        return GRAD_OPS_PER_POINT
+    if red.flat:
+        return reducer_ops(red)
+    return reducer_ops(red) + (2 * red.radius + 1) ** 2 * 14 + 6 + 19
+
+
+def clear_of_refine_kinks(args, loop, score, passes=8):
+    """A gradient refine's arguments with the beams whose endpoint comes
+    within KINK_MARGIN cell of a kink of the reducer's score, at a pose the
+    refine visits, at weight 0: repeated on the masked arguments (whose
+    refine visits other poses) until no beam is added, at most ``passes``
+    times."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    masked = args
+    for _ in range(passes):
+        poses = visited_poses(loop, score, masked)
+        clear = kernels.clear_of_kinks(poses, args[1], args[3], args[5], KINK_MARGIN, args[11])
+        weights = (masked[2] * clear).contiguous()
+        if torch.equal(weights, masked[2]):
+            break
+        masked = (*masked[:2], weights, *masked[3:])
+    return masked
+
+
+def refine_entry(name, label, calls, launches, smi):
+    """A one-launch refine (``gradient_refine`` or ``hill_climb``) on calls
+    kept from a path, one map or M: bit for bit its yardstick and (M) single
+    launches, against its plain twin (within 2e-6, or a close decision
+    before they part), then timed on the last call beside the yardstick and
+    the twin, with its bound by the distinct cells the taps of every pose
+    it scores read. Returns the `kernels` entry."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    kernel = getattr(kernels, name)
+    yardstick, twin, loop, twin_score, score = refine_twin(name)
+    check(len(calls) > 0, f"{name} [{label}]: no call kept")
+    max_err, parted, max_pose = 0.0, 0, 0.0
+    for i, args in enumerate(calls):
+        got, want = kernel(*args), yardstick(*args)
+        lead = args[0].shape[:-2]
+        firsts = range(0, lead[0], 7) if lead else []
+        singles = [kernel(*(a[m] for a in args[:5]), *args[5:]) for m in firsts]
+        twin_out, margins = twin_record(args, loop, twin_score)
+        torch.cuda.synchronize()
+        check(all(torch.equal(bits(a), bits(b)) for a, b in zip(got, want)),
+              f"{name} [{label} call {i}] differs from {yardstick.__name__}")
+        check(all(torch.equal(bits(a[::7]), bits(torch.stack(b))) for a, b in
+                  zip(got, zip(*singles))) if lead else True,
+              f"{name} [{label} call {i}] differs from single-map launches")
+        pose_tol = 1e-5
+        if name == "gradient_refine" and not args[11].flat:
+            # the gradient jumps at the score's kinks, and the kernel and the
+            # twin may place an endpoint an ulp apart: they are compared with
+            # the beams that come within KINK_MARGIN of a kink at weight 0.
+            # Near an optimum the beams' derivatives nearly cancel, and g / |g|
+            # magnifies their sums' rounding: with every decision the same,
+            # the poses are held to GRADIENT_POSE_TOL
+            masked = clear_of_refine_kinks(args, loop, score)
+            got = kernel(*masked)
+            twin_out, margins = twin_record(masked, loop, twin_score)
+            pose_tol = GRADIENT_POSE_TOL
+        maps = range(lead[0]) if lead else [None]
+        for m in maps:
+            pick = (lambda t: t) if m is None else (lambda t, m=m: t[m])
+            err, apart = against_twin(f"{label} call {i} map {m}", [pick(t) for t in got],
+                                      [pick(t) for t in twin_out], pick(margins),
+                                      pose_tol=pose_tol)
+            max_err, parted = max(max_err, err), parted + apart
+            if not apart:
+                max_pose = max(max_pose, float((pick(got[0]) - pick(twin_out[0])).abs().max()))
+    args = calls[-1]
+    red = args[11]
+    ms, plain_ms, chained = time_pair(lambda: kernel(*args), lambda: twin(*args), plain_calls=5)
+    device_ms = graph_ms(lambda: kernel(*args))
+    rounds_ms = statistics.median(time_ms(lambda: yardstick(*args), 20))
+    poses = visited_poses(loop, score, args)
+    cells = refine_cells(args, poses, red)
+    n_w = int((args[2] != 0).sum())
+    n_m = args[0].shape[0] if args[0].dim() == 3 else 1
+    n_bytes = 4 * (cells + 2 * n_w + args[2].numel() + n_m * (2 + 3 + 3 + 1 + args[9]))
+    per = grad_ops(red) if name == "gradient_refine" else (
+        OVERLAP_OPS_PER_POINT if red.kind == "bilinear" else reducer_ops(red))
+    n_poses = poses.shape[-2]
+    n_ops = per * n_poses * n_w
+    b_ms, by = bound_ms(n_bytes, n_ops)
+    shape = (f"M={n_m} " if args[0].dim() == 3 else "") + (
+        f"R'={args[1].shape[-2]} {args[0].shape[-2]}x{args[0].shape[-1]}, {args[9]} iterations, "
+        f"{variant_name(red) if red.kind != 'bilinear' else 'bilinear'}")
+    print(f"{name} [{label}]: {len(calls)} kept calls equal to {yardstick.__name__} bit for bit "
+          f"(and single-map launches); vs plain twin max|diff| {max_err:.3e} (tol {TOL:g}), "
+          f"poses {max_pose:.3e} m apart, {parted} parted after a decision closer than "
+          f"{KNIFE_EDGE:g}; at {shape}: "
+          f"{device_ms:.5f} ms on the device (50 launches replayed from a CUDA graph), a call "
+          f"{ms:.4f} ms, chained {chained:.4f} ms; the yardstick {rounds_ms:.4f} ms a call; plain "
+          f"twin {plain_ms:.4f} ms; bound {b_ms:.7f} ms by {by} ({n_bytes} B: {cells} tap cells; "
+          f"{n_ops} operations over {n_poses} poses a map); {smi}", flush=True)
+    return {
+        "name": f"{name} {label}", "route": "cuda",
+        "source": f"slam_constructor_tpu_torch/csrc/{name}.cu",
+        "replaces": "slam_constructor_tpu/ops/pallas_kernels.py:73",
+        "refines": "slam_constructor_tpu/ops/matchers.py:"
+                   + ("217" if name == "gradient_refine" else "112"),
+        "launches": launches, "max_abs_err": max_err, "max_pose_diff_m": max_pose,
+        "cases_parted_from_twin": parted,
+        "ms": ms, "plain_ms": plain_ms, "chained_ms": chained, "device_ms": device_ms,
+        "rounds_ms": rounds_ms, "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+    }
+
+
+def grad_entry(label, args, launches, smi):
+    """``overlap_score_grad`` with a reducer, one map or M, at a refine's
+    start poses (``args`` a kept refine call): the score with
+    ``overlap_score(_batched)``'s bits and within 2e-6 of its twin, the
+    gradient within 1e-5 x max(1, |g|) of the twin on the beams clear of
+    the reducer's kinks (0 exactly where the score is flat), M maps equal
+    to single-map launches; timed. Returns the `kernels` entry."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    v, pts, beam_w, origin, pose, scale, unknown = args[:7]
+    red = args[11]
+    poses = pose[..., None, :].contiguous()
+    call = (v, poses, pts, beam_w, origin, scale, unknown, red)
+    score, grad = kernels.overlap_score_grad(*call)
+    plain = (kernels.overlap_score_batched if v.dim() == 3 else kernels.overlap_score)(*call)
+    want_s, _ = kernels.overlap_score_grad_ref(*call)
+    clear = kernels.clear_of_kinks(poses, pts, origin, scale, KINK_MARGIN, red)
+    masked = (v, poses, pts, (beam_w * clear).contiguous(), origin, scale, unknown, red)
+    _, g_k = kernels.overlap_score_grad(*masked)
+    _, g_t = kernels.overlap_score_grad_ref(*masked)
+    torch.cuda.synchronize()
+    s_err = float((score - want_s).abs().max())
+    g_err = float(((g_k - g_t).abs() / g_t.norm(dim=-1, keepdim=True).clamp(min=1.0)).max())
+    check(torch.equal(score, plain), f"overlap_score_grad [{label}]: not the score's bits")
+    check(s_err <= TOL and g_err <= GRAD_TOL, f"overlap_score_grad [{label}] disagrees with "
+                                              f"its twin: {s_err}, {g_err}")
+    check(not red.flat or torch.equal(grad, torch.zeros_like(grad)),
+          f"overlap_score_grad [{label}]: a flat score's gradient is not 0")
+    if v.dim() == 3:
+        singles = [kernels.overlap_score_grad(*(t[m] for t in call[:5]), *call[5:])
+                   for m in range(v.shape[0])]
+        check(all(torch.equal(bits(a), bits(torch.stack(b))) for a, b in
+                  zip((score, grad), zip(*singles))),
+              f"overlap_score_grad [{label}]: M maps differ from single-map launches")
+    ms, plain_ms, chained = time_pair(lambda: kernels.overlap_score_grad(*call),
+                                      lambda: kernels.overlap_score_grad_ref(*call))
+    device_ms = graph_ms(lambda: kernels.overlap_score_grad(*call))
+    n_m = v.shape[0] if v.dim() == 3 else 1
+    cells = refine_cells(args, poses, red)
+    n_w = int((beam_w != 0).sum())
+    n_bytes = 4 * (cells + poses.numel() + 2 * n_w + beam_w.numel() + 2 * n_m + 4 * n_m)
+    n_ops = grad_ops(red) * n_w
+    b_ms, by = bound_ms(n_bytes, n_ops)
+    print(f"overlap_score_grad [{label}]: {'M=' + str(n_m) + ' ' if v.dim() == 3 else ''}K=1 "
+          f"R'={pts.shape[-2]} {v.shape[-2]}x{v.shape[-1]}: the score overlap_score's bits, "
+          f"{s_err:.3e} from the twin (tol {TOL:g}), the gradient {g_err:.3e} x max(1, |g|) "
+          f"(tol {GRAD_TOL:g}, {int((~clear).sum())} beams near a kink at weight 0); "
+          f"{device_ms:.5f} ms on the device (graph replay), a call {ms:.4f} ms, chained "
+          f"{chained:.4f} ms; twin {plain_ms:.4f} ms; bound {b_ms:.7f} ms by {by} ({n_bytes} B, "
+          f"{n_ops} operations); {smi}", flush=True)
+    return {
+        "name": f"overlap_score_grad {label}", "route": "cuda",
+        "source": "slam_constructor_tpu_torch/csrc/overlap_score_grad.cu",
+        "replaces": "slam_constructor_tpu/ops/scoring.py:358",
+        "differentiates": "slam_constructor_tpu/ops/matchers.py:230",
+        "launches": launches, "max_abs_err": max(s_err, float((g_k - g_t).abs().max())),
+        "ms": ms, "plain_ms": plain_ms, "chained_ms": chained, "device_ms": device_ms,
+        "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+    }
+
+
+def m3rsm_slot_entries(label, searches, builds, launches, smi):
+    """M3RSM over the RBPF's P windows: ``m3rsm_search`` (a request a
+    window) bit for bit ``m3rsm_search_levels`` and within 2e-6 of its twin
+    where the poses agree; ``m3rsm_pyramid`` over the P windows bit for bit
+    its twin; both timed. Returns the two `kernels` entries."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    err = 0.0
+    for i, a in enumerate(searches):
+        got, levels, twin = (kernels.m3rsm_search(a), kernels.m3rsm_search_levels(a),
+                             kernels.m3rsm_search_ref(a))
+        torch.cuda.synchronize()
+        check(all(torch.equal(bits(x), bits(y)) for x, y in zip(got, levels)),
+              f"m3rsm_search [{label} call {i}] differs from the level launches")
+        agree = ~(got[0] != twin[0]).any(-1)
+        if bool(agree.any()):
+            err = max(err, float((got[1] - twin[1]).abs()[agree].max()))
+    check(err <= TOL, f"m3rsm_search [{label}]: {err} from its twin")
+    a = searches[-1]
+    ms, plain_ms, chained = time_pair(lambda: kernels.m3rsm_search(a),
+                                      lambda: kernels.m3rsm_search_ref(a), plain_calls=3)
+    device_ms = graph_ms(lambda: kernels.m3rsm_search(a), n=20)
+    n_bytes, n_ops = search_work(a)
+    b_ms, by = bound_ms(n_bytes, n_ops)
+    print(f"m3rsm_search [{label}]: {len(searches)} kept calls of B={a.prior.shape[0]} requests "
+          f"equal to the level launches bit for bit, prob within {err:.3e} of the twin where "
+          f"the poses agree; {device_ms:.5f} ms on the device (graph replay), a call {ms:.4f} "
+          f"ms, chained {chained:.4f} ms; twin {plain_ms:.4f} ms; bound {b_ms:.6f} ms by {by} "
+          f"({n_bytes} B, {n_ops} operations); {smi}", flush=True)
+    search = {"name": f"m3rsm_search {label}", "route": "cuda",
+              "source": "slam_constructor_tpu_torch/csrc/m3rsm_match.cu",
+              "replaces": "slam_constructor_tpu/ops/m3rsm.py:210",
+              "launches": launches["m3rsm_search"], "max_abs_err": err, "ms": ms,
+              "plain_ms": plain_ms, "chained_ms": chained, "device_ms": device_ms,
+              "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+    for i, b in enumerate(builds):
+        got, want = kernels.m3rsm_pyramid(*b), kernels.m3rsm_pyramid_ref(*b)
+        torch.cuda.synchronize()
+        check(all(torch.equal(bits(x), bits(y)) for x, y in zip(got, want)),
+              f"m3rsm_pyramid [{label} call {i}] differs from its twin")
+    b = builds[-1]
+    ms, plain_ms, chained = time_pair(lambda: kernels.m3rsm_pyramid(*b),
+                                      lambda: kernels.m3rsm_pyramid_ref(*b))
+    device_ms = graph_ms(lambda: kernels.m3rsm_pyramid(*b))
+    n_cells = b[0].numel()
+    stored = sum(p.numel() for p in kernels.m3rsm_pyramid(*b))
+    b_ms, by = bound_ms(pyramid_bytes(n_cells, stored), pyramid_ops(n_cells, stored))
+    print(f"m3rsm_pyramid [{label}]: {len(builds)} kept builds of {tuple(b[0].shape)} at {b[2]} "
+          f"levels equal to the twin bit for bit; {device_ms:.5f} ms on the device, a call "
+          f"{ms:.4f} ms, chained {chained:.4f} ms; twin {plain_ms:.4f} ms; bound {b_ms:.6f} ms by "
+          f"{by}; {smi}", flush=True)
+    pyramid = {"name": f"m3rsm_pyramid {label}", "route": "cuda",
+               "source": "slam_constructor_tpu_torch/csrc/m3rsm_pyramid.cu",
+               "replaces": "slam_constructor_tpu/ops/m3rsm.py:68",
+               "launches": launches["m3rsm_pyramid"], "max_abs_err": 0.0, "ms": ms,
+               "plain_ms": plain_ms, "chained_ms": chained, "device_ms": device_ms,
+               "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+    return [search, pyramid]
+
+
+def phase_slot_kernels(slot_kept, loop_kept, joint_kept, cli_kept, launches, smi):
+    """The kernels of slice 6d's paths on calls kept from them: the
+    gradient refine at the general overlap (tiny_refined's CLI at extent
+    1.5, one map; the RBPF's 30 windows at extent 2; the loop closer's
+    submaps at extent 1.5) and with the joint refine's bilinear default, the
+    hill climb over the RBPF's 30 windows and the loop closer's submaps, the
+    pose gradient at those reducers, M3RSM over the RBPF's windows. Each
+    entry carries its launches on the path it was kept from."""
+    entries = []
+    refines = [
+        ("gradient_refine", "overlap e1.5 w1, one map (cli tiny_refined)", cli_kept,
+         launches["cli tiny_refined overlap e1.5"]["gradient_refine"]),
+        ("gradient_refine", "overlap e2 w2, M=30 (gmapping gradient)",
+         slot_kept["gradient_refine"]["gmapping gradient"],
+         launches["gmapping gradient"]["gradient_refine"]),
+        ("gradient_refine", "overlap e2 w2, M=30 (gmapping monte_carlo+gradient)",
+         slot_kept["gradient_refine"]["gmapping monte_carlo+gradient"],
+         launches["gmapping monte_carlo+gradient"]["gradient_refine"]),
+        ("gradient_refine", "overlap e1.5 w1, M submaps (full gradient)",
+         loop_kept["full gradient"]["gradient_refine"],
+         launches["full gradient"]["gradient_refine"]),
+        ("gradient_refine", "bilinear, M=8 (joint_refine gradient)", joint_kept["gradient_refine"],
+         launches["joint_refine gradient"]["gradient_refine"]),
+        ("hill_climb", "M=30 (gmapping monte_carlo+hill_climbing)",
+         slot_kept["hill_climb"]["gmapping monte_carlo+hill_climbing"],
+         launches["gmapping monte_carlo+hill_climbing"]["hill_climb"]),
+        ("hill_climb", "M submaps (full hill_climbing)",
+         loop_kept["full hill_climbing"]["hill_climb"],
+         launches["full hill_climbing"]["hill_climb"]),
+    ]
+    for name, label, calls, n in refines:
+        entries.append(refine_entry(name, label, calls, n, smi))
+    grads = [("overlap e1.5 w1, one map", cli_kept[-1]),
+             ("overlap e2 w2, M=30", slot_kept["gradient_refine"]["gmapping gradient"][-1])]
+    for label, args in grads:
+        entries.append(grad_entry(label, args, 0, smi))
+    m3 = "gmapping m3rsm"
+    entries += m3rsm_slot_entries("P=30 windows of 160^2 (gmapping m3rsm)",
+                                  slot_kept["m3rsm_search"][m3], slot_kept["m3rsm_pyramid"][m3],
+                                  launches[m3], smi)
+    return entries
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke run needs an NVIDIA GPU",
@@ -4583,6 +5466,27 @@ def main() -> None:
     k14["twin_pool_runs"] = pool_runs
     k14["gmapping_cow"], k14["auto_grow"] = cow_summary, grow_summary
 
+    # slice 6d: every matcher in every slot, the gradient at every reducer,
+    # the checkpoints
+    slot_paths, slot_kept, slot_summary = phase_gmapping_slots(scans, odom, gt, odo_ate, smi)
+    phase_gmapping_slots_card_vs_cpu(dev, scans, odom, gt)
+    loop_kept = {}
+    for loop_kind, reference in (("hill_climbing", FULL_HILL_REFERENCE_ATE_BY_KEY),
+                                 ("gradient", FULL_GRADIENT_REFERENCE_ATE_BY_KEY)):
+        loop_cfg = full_loop_config(loop_kind)
+        path = f"full {loop_kind}"
+        loop_kept[path] = capture_loop_refines(loop_cfg, fscans, fodom, fgt)
+        slot_paths[path] = phase_full_path(loop_cfg, fscans, fodom, fgt, full_odo_ate, name=path,
+                                           reference=reference, hold_to_tracker=False)
+    joint_launches, joint_kept = phase_joint_refine_slots(dev, fscans, fgt)
+    slot_paths.update({f"joint_refine {m}": v for m, v in joint_launches.items()})
+    cli_refine_launches, cli_refine_kept = phase_cli_refine_reducers(dev)
+    slot_paths.update(cli_refine_launches)
+    phase_checkpoint(dev, scans, odom, gt, fscans, fodom, fgt)
+    k_slots = phase_slot_kernels(slot_kept, loop_kept, joint_kept, cli_refine_kept, slot_paths,
+                                 smi)
+    k_slots[0]["gmapping_slots"] = slot_summary
+
     # `launches`: of a main path's timed run, held to the expected counts
     # above: the viny path's for the kernels of the earlier slices, the full
     # path's for the batched score, the gmapping path's for the particle
@@ -4614,14 +5518,15 @@ def main() -> None:
             "viny_m3rsm, a level launch a level and a score launch a round":
                 levels_launches[k["name"]],
             "gmapping cow": cow_launches[k["name"]],
-            **{f"cli {name}": counts[k["name"]] for name, counts in cli_launches.items()}}
+            **{f"cli {name}": counts[k["name"]] for name, counts in cli_launches.items()},
+            **{name: counts[k["name"]] for name, counts in slot_paths.items()}}
     # the reducer variants of the particle match: launches of the gmapping
     # preset's timed run, by reducer (the path scores with the obstacle one)
     for k in k_red:
         k["launches"] = base_by_reducer[k["name"].split(" ")[0]]
         k["launches_by_path"] = {"gmapping preset": k["launches"]}
     print(json.dumps({"kernels": [k1, k3, k2, k4, k5, k6, k7, k8, k9, k10, k11, k12, k13,
-                                  k14, k15, k16, *k_red]}),
+                                  k14, k15, k16, *k_red, *k_slots]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

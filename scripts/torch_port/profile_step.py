@@ -23,7 +23,10 @@ After a warm-up over the bench sequence's first scans it prints:
   a share of the unprofiled wall time, the port's own kernels and the
   kernels with the most device time, with launches.
 
-With ``--preset gmapping`` it profiles the RBPF at bench.py's gmapping
+With ``--preset gmapping [--slot MATCHER[+REFINE]]`` it profiles the RBPF
+(with that slot of ``chip_smoke.GM_SLOTS``: the hill climb, M3RSM or the
+gradient ascent as the match, or as the refine after the Monte-Carlo
+match) at bench.py's gmapping
 preset (30 particles, 160^2 windows) over the tiny sequence: scans/s of
 ``GMappingEngine.run`` over ``--scans`` scans after a warm-up of as many;
 then, with a synchronise after each phase of ``gmapping_step``, ms and ATen
@@ -45,7 +48,8 @@ resampling); the launches; and the device's busy share from
 parent unpacked under ``build/``) through the same phases, its prepare as
 that checkout has it.
 
-With ``--preset full`` it profiles the loop-closing pipeline over
+With ``--preset full [--loop hill_climbing|gradient]`` it profiles the
+loop-closing pipeline (with that loop matcher, ``chip_smoke.full_loop_config``) over
 ``chip_smoke.py``'s full sequence instead (512 scans, two laps, one
 segment): scans/s of ``FullSlamEngine.run``; then, from a run with a
 synchronise after each phase, the seconds, the calls, the ATen calls and the
@@ -130,6 +134,11 @@ def main() -> None:
                                          "tiny_refined", "mit_csail", "gmapping_cow",
                                          "mit_stata"), default="viny")
     ap.add_argument("--scans", type=int, default=64)
+    ap.add_argument("--slot", default=None, metavar="MATCHER[+REFINE]",
+                    help="--preset gmapping: a matcher slot of chip_smoke.GM_SLOTS "
+                         "(chip_smoke.gmapping_slot_config)")
+    ap.add_argument("--loop", default=None, choices=("hill_climbing", "gradient"),
+                    help="--preset full: the loop matcher (chip_smoke.full_loop_config)")
     ap.add_argument("--root", default=None,
                     help="another checkout (a parent unpacked under build/) whose package and "
                          "chip_smoke.py the presets gmapping_cow and mit_stata run")
@@ -142,10 +151,10 @@ def main() -> None:
         profile_pool(args.preset, args.scans)
         return
     if args.preset == "full":
-        profile_full()
+        profile_full(args.loop)
         return
     if args.preset == "gmapping":
-        profile_gmapping(args.scans)
+        profile_gmapping(args.scans, args.slot)
         return
     if args.preset == "viny_m3rsm":
         profile_m3rsm(args.scans)
@@ -569,8 +578,8 @@ def profile_refine(preset: str, n: int) -> None:
                    "overlap_score_grad_kernel", "overlap_score_kernel", "insert_kernel"))
 
 
-def profile_gmapping(n: int) -> None:
-    from chip_smoke import bench_sequence, gmapping_config
+def profile_gmapping(n: int, slot: str | None = None) -> None:
+    from chip_smoke import bench_sequence, gmapping_config, gmapping_slot_config
     from slam_constructor_tpu_torch.models import gmapping
     from slam_constructor_tpu_torch.ops import grid as gridlib
     from slam_constructor_tpu_torch.ops import kernels, raycast, resample
@@ -583,6 +592,8 @@ def profile_gmapping(n: int) -> None:
                          capture_output=True, text=True).stdout.strip())
     scans, odom, gt = bench_sequence(dev)
     cfg = gmapping_config()
+    if slot:
+        cfg = gmapping_slot_config(*(*slot.split("+"), None)[:2])
     p = cfg.n_particles
     e = gmapping.GMappingEngine(cfg, seed=0)
     e.state.poses = gt[0].expand(p, 3).clone()
@@ -593,7 +604,8 @@ def profile_gmapping(n: int) -> None:
     e.run(scans[n:2 * n], odom[n:2 * n])
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    print(f"gmapping ({p} particles): {n} scans in {secs:.3f} s = {n / secs:.1f} scans/s "
+    print(f"gmapping{' ' + slot if slot else ''} ({p} particles): {n} scans in {secs:.3f} s = "
+          f"{n / secs:.1f} scans/s "
           f"({secs / n * 1e3:.3f} ms a scan)")
 
     # --- phases of gmapping_step, a synchronise after each ------------------
@@ -676,7 +688,8 @@ def profile_gmapping(n: int) -> None:
     print(f"profiled {n} scans: device kernel time {dev_s:.4f} s = {dev_s / secs * 100:.1f}% of "
           f"the unprofiled {secs:.3f} s ({dev_s / wall * 100:.1f}% of the profiled {wall:.3f} s); "
           f"{sum(k.count for k in rows) / n:.0f} kernels a scan")
-    mine = [k for k in rows if any(n in k.key for n in ("mc_match_kernel", "insert_kernel"))]
+    mine = [k for k in rows if any(n in k.key for n in (
+        "mc_match_kernel", "insert_kernel", "gradient_refine_kernel", "hill_climb", "m3rsm"))]
     top = sorted(rows, key=lambda k: -k.device_time_total)[:12]
     for k in mine + [k for k in top if k not in mine]:
         print(f"  {k.device_time_total * 1e-3:9.3f} ms  {k.count:6d} x  "
@@ -870,8 +883,8 @@ def profile_pool(preset: str, n: int) -> None:
                                         "touch_kernel"))
 
 
-def profile_full() -> None:
-    from chip_smoke import N_BEAMS, N_SCANS, full_config, full_sequence
+def profile_full(loop: str | None = None) -> None:
+    from chip_smoke import N_BEAMS, N_SCANS, full_config, full_loop_config, full_sequence
     from slam_constructor_tpu_torch.models import full
     from slam_constructor_tpu_torch.ops import kernels
     from torch.profiler import ProfilerActivity, profile
@@ -880,8 +893,9 @@ def profile_full() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
     scans, odom, gt = full_sequence(dev)
-    cfg = full_config()
-    ours = ("mc_match", "overlap_score_batched", "scan_insert", "scan_planes")
+    cfg = full_loop_config(loop) if loop else full_config()
+    ours = ("mc_match", "overlap_score_batched", "scan_insert", "scan_planes",
+            *({"hill_climbing": ("hill_climb",), "gradient": ("gradient_refine",)}.get(loop, ())))
 
     def engine_run(instrument=None):
         e = full.FullSlamEngine(cfg, n_beams=N_BEAMS, seed=0)
@@ -897,7 +911,8 @@ def profile_full() -> None:
     engine_run()  # warm-up
     for _ in range(2):
         e, secs = engine_run()
-        print(f"full: {N_SCANS} scans in {secs:.3f} s = {N_SCANS / secs:.1f} scans/s; "
+        print(f"full{' ' + loop if loop else ''}: {N_SCANS} scans in {secs:.3f} s = "
+              f"{N_SCANS / secs:.1f} scans/s; "
               f"{int(e.graph.n_kf)} keyframes, {e.n_kf_batches} batches, {e.total_loops} loops, "
               f"{e.n_bursts} bursts")
 
@@ -978,8 +993,9 @@ def profile_full() -> None:
     print(f"profiled run: device kernel time {dev_s:.4f} s = {dev_s / secs * 100:.1f}% of the "
           f"unprofiled {secs:.3f} s ({dev_s / pwall * 100:.1f}% of the profiled {pwall:.3f} s); "
           f"{sum(k.count for k in rows)} kernels")
-    mine = [k for k in rows if any(n in k.key for n in ("mc_match_kernel", "overlap_score_kernel",
-                                                       "insert_kernel"))]
+    mine = [k for k in rows if any(n in k.key for n in (
+        "mc_match_kernel", "overlap_score_kernel", "insert_kernel", "hill_climb_kernel",
+        "gradient_refine_kernel"))]
     top = sorted(rows, key=lambda k: -k.device_time_total)[:12]
     for k in mine + [k for k in top if k not in mine]:
         print(f"  {k.device_time_total * 1e-3:9.3f} ms  {k.count:6d} x  "

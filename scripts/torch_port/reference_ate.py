@@ -7,6 +7,8 @@
     JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --preset gmapping_cow[_2lap] [--port] [--keys 5]
     JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --preset viny_m3rsm [--port]
     JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --preset full_m3rsm [--port] [--keys 5]
+    JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --preset full_hill|full_gradient [--port] [--keys 5]
+    JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --preset gmapping --slot MATCHER[+REFINE] [--port] [--keys 5]
     JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --config configs/X.properties [--port] [--keys 5]
 
 Builds the sequence that ``chip_smoke.py`` drives (512 scans along the
@@ -84,7 +86,13 @@ over the same 512 scans. M3RSM draws no noise, so one run is the figure;
 the reference's. ``--preset full_m3rsm`` is ``--preset full`` with the
 M3RSM loop matcher of the reference's own test (``tests/test_posegraph.py:
 451-455``: 3 levels, +-0.6 m, +-0.3 rad in 7 steps, overlap scoring on
-every second beam), ``chip_smoke.full_m3rsm_config``.
+every second beam), ``chip_smoke.full_m3rsm_config``; ``--preset full_hill``
+and ``full_gradient`` the same with the loop closer's hill climb or gradient
+ascent (``chip_smoke.full_loop_config``); ``--slot MATCHER[+REFINE]`` puts
+a slot of ``chip_smoke.GM_SLOTS`` into a gmapping preset
+(``chip_smoke.gmapping_slot_config``: ``--preset gmapping --slot
+monte_carlo+hill_climbing`` is the Monte-Carlo match with the
+hill-climbing refine).
 
 With ``--config FILE`` (a ``.properties`` file of ``configs/`` for the
 single-hypothesis engine) the sequence is the one ``chip_smoke.py``'s CLI
@@ -119,13 +127,26 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[2]))  # the checkout's root
 
 from chip_smoke import (  # noqa: E402  (the same sequences and configuration)
-    M3RSM_LOOP_MATCHER, MAP, N_BEAMS, N_SCANS, bench_sequence, full_config, full_m3rsm_config,
-    full_sequence, gmapping_quality_sequence, odometry_trajectory,
+    M3RSM_LOOP_MATCHER, MAP, N_BEAMS, N_SCANS, bench_sequence, full_config, full_loop_config,
+    full_m3rsm_config, full_sequence, gmapping_quality_sequence, gmapping_slot_config,
+    odometry_trajectory,
 )
 
 FREE_IMPL = {"tiny": "dda", "viny": "polar"}
-PRESETS = [*sorted(FREE_IMPL), "viny_m3rsm", "full", "full_m3rsm", "gmapping", "gmapping_2lap",
-           "gmapping_baseline", "gmapping_cow", "gmapping_cow_2lap"]
+PRESETS = [*sorted(FREE_IMPL), "viny_m3rsm", "full", "full_m3rsm", "full_hill", "full_gradient",
+           "gmapping", "gmapping_2lap", "gmapping_baseline", "gmapping_cow", "gmapping_cow_2lap"]
+#: the loop matcher of ``--preset full_hill`` / ``full_gradient``
+LOOP_KINDS = {"full_hill": "hill_climbing", "full_gradient": "gradient"}
+
+
+def reference_modules():
+    """The reference's (matchers, scoring, m3rsm), for ``chip_smoke``'s slot
+    configs."""
+    from slam_constructor_tpu.ops import m3rsm as jm3
+    from slam_constructor_tpu.ops import matchers as jmatch
+    from slam_constructor_tpu.ops import scoring as jscore
+
+    return jmatch, jscore, jm3
 #: the copy-on-write storage of ``--preset gmapping_cow``: 160^2 windows
 #: (5 tiles of 32), the reference's default pool
 COW_FIELDS = dict(map_storage="cow", tile_block=32, window_tiles=5, tile_capacity=1024)
@@ -158,13 +179,15 @@ def main() -> None:
     ap.add_argument("--config", default=None, metavar="FILE",
                     help="a .properties file: the reference engine on the CLI's sequence")
     ap.add_argument("--steps", type=int, default=128, help="--config: scans in the sequence")
+    ap.add_argument("--slot", default=None, metavar="MATCHER[+REFINE]",
+                    help="gmapping presets: chip_smoke.gmapping_slot_config's matcher slots")
     args = ap.parse_args()
     jax.config.update("jax_platforms", "cpu")
     torch.set_num_threads(1)
     if args.config:
         print(json.dumps(config_preset(args)))
         return
-    if args.preset in ("full", "full_m3rsm"):
+    if args.preset in ("full", "full_m3rsm", *LOOP_KINDS):
         print(json.dumps(full_preset(args)))
         return
     if args.preset == "viny_m3rsm":
@@ -366,7 +389,8 @@ def full_preset(args) -> dict:
 
     scans, odom, gt = full_sequence("cpu")
     m3 = args.preset == "full_m3rsm"
-    tcfg = full_m3rsm_config() if m3 else full_config()
+    kind = LOOP_KINDS.get(args.preset)
+    tcfg = full_m3rsm_config() if m3 else full_loop_config(kind) if kind else full_config()
     g = tcfg.graph
     loop = {}
     if m3:
@@ -386,6 +410,8 @@ def full_preset(args) -> dict:
             max_candidates=g.max_candidates, local_map_size=g.local_map_size, **loop),
         optimize_every_loops=tcfg.optimize_every_loops,
     )
+    if kind:
+        jcfg = full_loop_config(kind, base=jcfg, modules=reference_modules())
     jscans = JScan(
         ranges=jnp.asarray(scans.ranges.numpy()), bearings=jnp.asarray(scans.bearings.numpy()),
         valid=jnp.asarray(scans.valid.numpy()),
@@ -451,7 +477,7 @@ def gmapping_draws(key, cfg):
         pairs = jax.vmap(jax.random.split)(keys)
         keys, kjs = pairs[:, 0], jax.vmap(jax.random.split)(pairs[:, 1])
     match = jax.vmap(lambda k: jax.vmap(lambda kr: jax.random.normal(kr, (mc.batch, 3)))(
-        jax.random.split(k, mc.rounds)))(keys)
+        jax.random.split(k, mc.rounds)))(keys) if cfg.matcher == "monte_carlo" else None
 
     def t(a):
         return torch.from_numpy(np.array(a, np.float32))
@@ -459,7 +485,7 @@ def gmapping_draws(key, cfg):
     return tgm.Draws(
         proposal=t(jax.random.normal(k_noise, (p, 3))),
         u0=t(jax.random.uniform(k_res, (), minval=0.0, maxval=1.0 / p)),
-        match=t(match),
+        match=None if match is None else t(match),
         probe=t(jax.vmap(lambda k: jax.random.normal(k, (cfg.proposal_samples, 3)))(kjs[:, 0]))
         if improved else None,
         sample=t(jax.vmap(lambda k: jax.random.normal(k, (3,)))(kjs[:, 1])) if improved else None,
@@ -521,6 +547,10 @@ def gmapping_preset(args) -> dict:
     else:
         jcfg = jgm.fast_config(n_particles=30, map_size=MAP)
         tcfg = tgm.fast_config(n_particles=30, map_size=MAP)
+    slot = (*args.slot.split("+"), None)[:2] if args.slot else None
+    if slot:  # e.g. monte_carlo+hill_climbing: the Monte-Carlo match, then the hill climb
+        jcfg = gmapping_slot_config(*slot, base=jcfg, modules=reference_modules())
+        tcfg = gmapping_slot_config(*slot, base=tcfg)
     cow = args.preset.startswith("gmapping_cow")
     if cow:
         jcfg, tcfg = (dataclasses.replace(c, **COW_FIELDS) for c in (jcfg, tcfg))
@@ -586,7 +616,8 @@ def gmapping_preset(args) -> dict:
         print(json.dumps(rows[-1]), file=sys.stderr, flush=True)
         first = first or (np.array(all_poses), np.array(ancestors), np.array(st.log_weights),
                           None if cow else np.array(st.gm.cells))
-    out = {"preset": args.preset, "scans": n_scans, "beams": N_BEAMS, "map": MAP, "particles": p,
+    out = {"preset": args.preset, "slot": slot, "scans": n_scans, "beams": N_BEAMS, "map": MAP,
+           "particles": p,
            "window": jcfg.insert_window, "backend": jax.default_backend(),
            "odometry_ate_m": odometry(odom, gt), "by_key": rows}
     if args.port:

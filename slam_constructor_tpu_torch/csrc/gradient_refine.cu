@@ -1,13 +1,16 @@
-// gradient_refine.cu: the gradient matcher's whole refine in one launch, one
-// block, for Hopper (sm_90a). Plain C interface, bound from Python with
-// ctypes (slam_constructor_tpu_torch/ops/kernels.py::gradient_refine, built
-// by ops/_build.py).
+// gradient_refine.cu: the gradient matcher's whole refine of M poses, each
+// on its own map, in one launch, a block a map, for Hopper (sm_90a). Plain C
+// interface, bound from Python with ctypes
+// (slam_constructor_tpu_torch/ops/kernels.py::gradient_refine, built by
+// ops/_build.py).
 //
 // Replaces the loop of slam_constructor_tpu/ops/matchers.py:gradient_match (a
 // lax.scan whose iterations take jax.grad of scoring.score_single, the score
-// whose TPU kernel is pallas_kernels.py:sample_plane_bilinear) with what
+// whose TPU kernel is pallas_kernels.py:sample_plane_bilinear at extent 1,
+// the gather path of scoring.py:score_poses for the other reducers; the
+// reference vmaps it over particles and submaps) with what
 // kernels.gradient_refine_loop computes over overlap_score_grad.cu, bit for
-// bit:
+// bit, for every map:
 //
 //   prob, g = score and gradient at the start pose
 //   each iteration: gn = g / (sqrt((gx^2 + gy^2) + gth^2) + 1e-12);
@@ -16,7 +19,7 @@
 //     prob, g = cand, p, g' else steps *= shrink; trace[it] = prob
 //
 // The score and gradient are overlap_score_grad.cu's: overlap_sample.cuh's
-// sample_grad_at() summed over the beams in its assignment (thread t of a
+// grad_at() by the launch's reducer summed over the beams in its assignment (thread t of a
 // group of 128 takes beams t, t + 128, ... in that order, skipping weight 0)
 // and the five sums meeting in the group tree of overlap::group_reduce, one
 // tree a sum in the same order, so the score has overlap_score.cu's bits.
@@ -27,9 +30,11 @@
 // the candidate). At tiny_refined's shape (360 beams, 256^2, 12 iterations)
 // the taps touch a few hundred cells and the work is about 0.5 MFLOP: the
 // bound is well under a microsecond. Run as 13 launches with ~10 PyTorch
-// ops between them, the host's dispatch set the pace of the refine.
+// ops between them, the host's dispatch set the pace of the refine. M maps
+// (the RBPF's 30 particles, the loop closer's submaps) are M blocks side by
+// side, one an SM: the launch takes about one refine's latency.
 //
-// Design: one block a refine; the scan's points and weights staged in shared
+// Design: one block a refine (a map); the scan's points and weights staged in shared
 // memory once; the plane read through __ldg (a refine moves less than a few
 // cells, so after the first pass the taps hit L1); the state (pose, prob, g,
 // steps, the candidate) in shared memory, updated by thread 0 and handed on
@@ -80,13 +85,14 @@ __device__ __forceinline__ void reduce_sums(float (&v)[kSums], float (*tree)[kGr
 }
 
 // Beam i's terms: bw * p, and bw times each derivative.
-__device__ __forceinline__ void beam_terms(const overlap::LdgPlane& at, int h, int w,
+__device__ __forceinline__ void beam_terms(const overlap::Reducer& red,
+                                           const overlap::LdgPlane& at, int h, int w,
                                            const overlap::Pose& p, const float* pts, float bw,
                                            int i, float ox, float oy, float scale,
                                            float unknown, float (&term)[kSums]) {
   float dx, dy, dth;
-  const float pr = overlap::sample_grad_at(at, h, w, p, pts[2 * i + 0], pts[2 * i + 1], ox, oy,
-                                           scale, unknown, dx, dy, dth);
+  const float pr = overlap::grad_at(red, at, h, w, p, pts[2 * i + 0], pts[2 * i + 1], ox, oy,
+                                    scale, unknown, dx, dy, dth);
   term[0] = bw * pr;
   term[1] = bw;
   term[2] = bw * dx;
@@ -99,8 +105,8 @@ gradient_refine_kernel(const float* __restrict__ v, int h, int w, const float* _
                        const float* __restrict__ beam_w, int r, const float* __restrict__ origin,
                        const float* __restrict__ init_pose, float scale, float unknown,
                        float step_xy, float step_theta, float shrink, int iterations,
-                       float* __restrict__ pose_out, float* __restrict__ prob_out,
-                       float* __restrict__ trace_out) {
+                       overlap::Reducer red, float* __restrict__ pose_out,
+                       float* __restrict__ prob_out, float* __restrict__ trace_out) {
   extern __shared__ float smem[];
   __shared__ float s_tree[kSums][kGroup];
   __shared__ float s_terms[kSums][kThreads];
@@ -109,6 +115,15 @@ gradient_refine_kernel(const float* __restrict__ v, int h, int w, const float* _
   float* s_bw = smem + 2 * r;  // f32[r]
 
   const int t = threadIdx.x;
+  const int m = blockIdx.x;  // the map: every pointer moves to its slice
+  v += static_cast<long long>(m) * h * w;
+  pts += static_cast<long long>(m) * r * 2;
+  beam_w += static_cast<long long>(m) * r;
+  origin += 2 * m;
+  init_pose += 3 * m;
+  pose_out += 3 * m;
+  prob_out += m;
+  trace_out += static_cast<long long>(m) * iterations;
   for (int i = t; i < 2 * r; i += kThreads) s_pts[i] = __ldg(pts + i);
   for (int i = t; i < r; i += kThreads) s_bw[i] = __ldg(beam_w + i);
   if (t == 0) {
@@ -132,7 +147,7 @@ gradient_refine_kernel(const float* __restrict__ v, int h, int w, const float* _
       const int i = base + t;
       if (i < r && s_bw[i] != 0.0f) {  // weight 0 (invalid) skipped, as overlap_score does
         float term[kSums];
-        beam_terms(at, h, w, p, s_pts, s_bw[i], i, ox, oy, scale, unknown, term);
+        beam_terms(red, at, h, w, p, s_pts, s_bw[i], i, ox, oy, scale, unknown, term);
 #pragma unroll
         for (int k = 0; k < kSums; ++k) s_terms[k][t] = term[k];
       }
@@ -188,17 +203,25 @@ gradient_refine_kernel(const float* __restrict__ v, int h, int w, const float* _
 
 }  // namespace
 
-// v f32[h, w], pts f32[r, 2], beam_w f32[r], origin f32[2], init_pose f32[3]
-// -> pose_out f32[3], prob_out f32[], trace_out f32[iterations], all
-// contiguous. Launches on `stream` (PyTorch's current stream), does not
-// synchronise and allocates nothing. Returns the cudaError_t of the launch
-// (0 = ok).
-extern "C" int gradient_refine_launch(const float* v, int h, int w, const float* pts,
+// v f32[m, h, w], pts f32[m, r, 2], beam_w f32[m, r], origin f32[m, 2],
+// init_pose f32[m, 3] -> pose_out f32[m, 3], prob_out f32[m], trace_out
+// f32[m, iterations], all contiguous; a beam reads the plane by the reducer
+// (reducer, radius, extent: see overlap_sample.cuh). Launches on `stream`
+// (PyTorch's current stream), does not synchronise and allocates nothing.
+// Returns the cudaError_t of the launch (0 = ok; cudaErrorInvalidValue for
+// a bad reducer).
+extern "C" int gradient_refine_launch(const float* v, int m, int h, int w, const float* pts,
                                       const float* beam_w, int r, const float* origin,
                                       const float* init_pose, float scale, float unknown,
                                       float step_xy, float step_theta, float shrink,
-                                      int iterations, float* pose_out, float* prob_out,
-                                      float* trace_out, void* stream) {
+                                      int iterations, int reducer, int radius, float extent,
+                                      float* pose_out, float* prob_out, float* trace_out,
+                                      void* stream) {
+  overlap::Reducer red;
+  if (!overlap::make_reducer(reducer, radius, extent, &red) || m < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (m == 0) return 0;
   const size_t shared = 12 * static_cast<size_t>(r);  // the points and weights
   if (shared > 32 * 1024) {  // with the static arrays, above the default cap: opt in
     const cudaError_t err = cudaFuncSetAttribute(
@@ -206,8 +229,8 @@ extern "C" int gradient_refine_launch(const float* v, int h, int w, const float*
         static_cast<int>(shared));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  gradient_refine_kernel<<<1, kThreads, shared, static_cast<cudaStream_t>(stream)>>>(
+  gradient_refine_kernel<<<m, kThreads, shared, static_cast<cudaStream_t>(stream)>>>(
       v, h, w, pts, beam_w, r, origin, init_pose, scale, unknown, step_xy, step_theta, shrink,
-      iterations, pose_out, prob_out, trace_out);
+      iterations, red, pose_out, prob_out, trace_out);
   return static_cast<int>(cudaGetLastError());
 }

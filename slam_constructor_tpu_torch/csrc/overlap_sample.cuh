@@ -260,6 +260,98 @@ __device__ __forceinline__ float reduce_at(const Reducer& red, const Plane& at, 
   return acc / static_cast<float>(side * side);
 }
 
+// The derivative of one axis' overlap length max(min(d + 1, e + half) -
+// max(d, e - half), 0) by the position e: +1 while the square's upper edge
+// lies inside cell d's, -1 while its lower edge does, 0 where the length is
+// 0. At a kink (an edge of the square on a cell's edge) the side the
+// comparisons pick.
+__device__ __forceinline__ float overlap_len_grad(float d, float e, float half, float len) {
+  if (!(len > 0.0f)) return 0.0f;
+  return (e + half < d + 1.0f ? 1.0f : 0.0f) - (e - half > d ? 1.0f : 0.0f);
+}
+
+// reduce_at() and its gradient with respect to the pose (gx, gy, gth); the
+// value is reduce_at's bits (the same operations in the same order).
+// kObstacle, kMax and kMean are piecewise constant in the pose: their
+// derivative is 0, as the reference's jax.grad gives. kOverlap: the value
+// p = num / max(wsum, 1e-9), num = sum_c v_c wgt_c, wgt_c = len_x len_y,
+// each length piecewise linear in the endpoint's position in its cell, so
+// dp = (dnum - p dwsum) / wsum (dnum / 1e-9 where the floor holds). At
+// radius 0 the square meets one cell and, above the floor, p is that
+// cell's value: the derivative is 0 there (the quotient rule would leave
+// rounding noise, which the reference's autodiff turns into a full unit
+// step). Then the chain to the pose, as sample_grad_at's.
+template <class Plane>
+__device__ __forceinline__ float reduce_grad_at(const Reducer& red, const Plane& at, int h, int w,
+                                                const Pose& p, float qx, float qy, float ox,
+                                                float oy, float scale, float unknown, float& gx,
+                                                float& gy, float& gth) {
+  gx = 0.0f;
+  gy = 0.0f;
+  gth = 0.0f;
+  if (red.kind != kOverlap) return reduce_at(red, at, h, w, p, qx, qy, ox, oy, scale, unknown);
+  const float wx = (p.x + p.c * qx) - p.s * qy;
+  const float wy = (p.y + p.s * qx) + p.c * qy;
+  const float x = (wx - ox) / scale;
+  const float y = (wy - oy) / scale;
+  const float fx = floorf(x);
+  const float fy = floorf(y);
+  const int n = red.radius;
+  const float half = 0.5f * red.extent;
+  const float ex = x - fx;
+  const float ey = y - fy;
+  float num = 0.0f, wsum = 0.0f;
+  float dnum_x = 0.0f, dnum_y = 0.0f, dw_x = 0.0f, dw_y = 0.0f;
+  for (int dr = -n; dr <= n; ++dr) {
+    const float d = static_cast<float>(dr);
+    const float len_y = max_nan(min_nan(d + 1.0f, ey + half) - max_nan(d, ey - half), 0.0f);
+    const float dlen_y = overlap_len_grad(d, ey, half, len_y);
+    for (int dc = -n; dc <= n; ++dc) {
+      const float e = static_cast<float>(dc);
+      const float len_x = max_nan(min_nan(e + 1.0f, ex + half) - max_nan(e, ex - half), 0.0f);
+      const float dlen_x = overlap_len_grad(e, ex, half, len_x);
+      const float wgt = len_x * len_y;
+      const float v = cell_or_unknown(at, h, w, fy + d, fx + e, unknown);
+      wsum += wgt;
+      num += v * wgt;
+      const float wdx = dlen_x * len_y;
+      const float wdy = len_x * dlen_y;
+      dw_x += wdx;
+      dw_y += wdy;
+      dnum_x += v * wdx;
+      dnum_y += v * wdy;
+    }
+  }
+  const float den = max_nan(wsum, 1e-9f);
+  const float val = num / den;
+  float dx = 0.0f, dy = 0.0f;
+  if (!(wsum >= 1e-9f)) {  // the floor holds: p = num / 1e-9
+    dx = dnum_x / den;
+    dy = dnum_y / den;
+  } else if (n > 0) {
+    dx = (dnum_x - val * dw_x) / den;
+    dy = (dnum_y - val * dw_y) / den;
+  }
+  gx = dx / scale;
+  gy = dy / scale;
+  gth = (dx * (-p.s * qx - p.c * qy) + dy * (p.c * qx - p.s * qy)) / scale;
+  return val;
+}
+
+// A beam's probability by `red` and its pose gradient: sample_grad_at() for
+// kBilinear, reduce_grad_at() for the others (the value has the bits of
+// sample_at() or reduce_at()).
+template <class Plane>
+__device__ __forceinline__ float grad_at(const Reducer& red, const Plane& at, int h, int w,
+                                         const Pose& p, float qx, float qy, float ox, float oy,
+                                         float scale, float unknown, float& gx, float& gy,
+                                         float& gth) {
+  if (red.kind == kBilinear) {
+    return sample_grad_at(at, h, w, p, qx, qy, ox, oy, scale, unknown, gx, gy, gth);
+  }
+  return reduce_grad_at(red, at, h, w, p, qx, qy, ox, oy, scale, unknown, gx, gy, gth);
+}
+
 // beam_sums_at() for a reducer other than kBilinear: the same beams in the
 // same order.
 template <class Plane>

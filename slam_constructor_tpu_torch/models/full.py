@@ -18,6 +18,8 @@ and one a closure burst (whether a keyframe moved, new loops).
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 
 import numpy as np
 import torch
@@ -417,11 +419,66 @@ class FullSlamEngine:
         deltas = torch.as_tensor(np.stack(self._anchor_delta), device=self.device)
         return compose(self.graph.kf_poses[idx], deltas)
 
+    def _device_tree(self) -> dict:
+        return {"state": self.state, "graph": self.graph, "last_kf_dev": self._last_kf_dev,
+                "anchor_pose_dev": self._anchor_pose_dev, "generator": self.generator}
+
     def save_checkpoint(self, path: str) -> None:
-        raise NotImplementedError("the mid-run checkpoint of the full pipeline is not ported yet")
+        """Snapshot the whole pipeline between runs: the device half (the
+        tracker's state, the pose graph, the keyframe gate's and the
+        trajectory anchor's poses, the generator) through
+        ``utils.checkpoint.save`` at ``path``, and the host's bookkeeping
+        (loop counters, the graph's capacity and its host mirrors, the
+        trajectory with its anchors, the diagnostics) at ``path +
+        '.host.npz'``. A run restored from it and finished equals, bit for
+        bit, the run that was never stopped (the same config and calls)."""
+        from ..utils import checkpoint as ckpt
+
+        g = self.cfg.graph
+        host = {
+            "pending_loops": self.pending_loops, "total_loops": self.total_loops,
+            "n_kf_host": self._n_kf_host, "edges_upper_host": self._edges_upper_host,
+            "n_kf_batches": self.n_kf_batches, "n_bursts": self.n_bursts,
+            "max_keyframes": g.max_keyframes, "max_edges": g.max_edges,
+            "anchor_idx": [int(i) for i in self._anchor_idx],
+        }
+        ckpt.save(path, self._device_tree())
+
+        def rows(a):
+            return np.stack(a).astype(np.float32) if a else np.zeros((0, 3), np.float32)
+
+        np.savez_compressed(
+            path + ".host.npz", trajectory=rows(self.trajectory),
+            anchor_delta=rows(self._anchor_delta),
+            meta=np.frombuffer(json.dumps(host).encode(), np.uint8))
 
     def restore_checkpoint(self, path: str) -> None:
-        raise NotImplementedError("the mid-run checkpoint of the full pipeline is not ported yet")
+        """The inverse of :meth:`save_checkpoint` (the same config as at the
+        save; a graph grown before it is grown again). Both halves are
+        checked for before anything of the engine changes."""
+        from ..utils import checkpoint as ckpt
+
+        missing = [p for p in (path, path + ".host.npz")
+                   if not (os.path.exists(p) or os.path.exists(p + ".npz"))]
+        if missing:
+            raise FileNotFoundError(
+                f"full-pipeline checkpoint incomplete: missing {missing}; save_checkpoint "
+                f"writes the device half and the '.host.npz' half, and restore needs both")
+        dev = ckpt.restore(path, self._device_tree())
+        with np.load(path + ".host.npz") as f:
+            host = json.loads(bytes(f["meta"]).decode())
+            traj, deltas = f["trajectory"], f["anchor_delta"]
+        self.cfg = dataclasses.replace(self.cfg, graph=dataclasses.replace(
+            self.cfg.graph, max_keyframes=host["max_keyframes"], max_edges=host["max_edges"]))
+        self.state, self.graph = dev["state"], dev["graph"]
+        self._last_kf_dev, self._anchor_pose_dev = dev["last_kf_dev"], dev["anchor_pose_dev"]
+        self.generator = dev["generator"]
+        self.pending_loops, self.total_loops = host["pending_loops"], host["total_loops"]
+        self._n_kf_host, self._edges_upper_host = host["n_kf_host"], host["edges_upper_host"]
+        self.n_kf_batches, self.n_bursts = host["n_kf_batches"], host["n_bursts"]
+        self._anchor_idx = list(host["anchor_idx"])
+        self.trajectory = list(traj)
+        self._anchor_delta = list(deltas)
 
     @property
     def keyframe_poses(self) -> Tensor:

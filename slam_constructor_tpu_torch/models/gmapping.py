@@ -31,9 +31,17 @@ tables. ``GMappingEngine.handle_scan`` polls the pool's overflow latch
 every ``overflow_check_every`` scans (one host read) and doubles the pool
 when it is set.
 
+Every matcher of ``ops.matchers.MATCHERS`` runs in both slots (``matcher``
+and ``refine_matcher``), on both storages, over the P windows at once:
+Monte-Carlo in one launch of ``kernels.mc_match_windows`` or
+``mc_match_batched``, hill climbing in one ``kernels.hill_climb``, the
+gradient ascent in one ``kernels.gradient_refine``, brute force in one
+``overlap_score_batched``, and M3RSM as one ``kernels.m3rsm_pyramid`` over
+the P windows (the reference builds the pyramid in every call: the RBPF
+hands it none) and one ``kernels.m3rsm_search`` with a request a window.
+
 Entry points run on the card unless the caller names a device (see
-``device.resolve_device``). Waiting for a later slice: refine matchers
-other than Monte-Carlo and brute force.
+``device.resolve_device``).
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ from ..ops import blockmap
 from ..ops import cells as cellslib
 from ..ops import cow
 from ..ops import grid as gridlib
+from ..ops import m3rsm as _m3rsm  # noqa: F401  (registers "m3rsm" in MATCHERS)
 from ..ops import matchers as matcherslib
 from ..ops import raycast, resample, scoring
 from ..ops.geometry import compose, wrap_angle
@@ -114,10 +123,10 @@ class GMappingConfig:
         if self.proposal not in ("odom", "improved"):
             raise ValueError(f"proposal={self.proposal!r}: must be 'odom' or 'improved'")
         for name in ("matcher", "refine_matcher"):
-            # the particles' batched match runs these two; the registry holds more
             value = getattr(self, name)
-            if value is not None and value not in ("monte_carlo", "brute_force"):
-                raise NotImplementedError(f"GMappingConfig.{name}={value!r} is not ported yet")
+            if value is not None and value not in matcherslib.MATCHERS:
+                raise ValueError(f"GMappingConfig.{name}={value!r}: not one of "
+                                 f"{sorted(matcherslib.MATCHERS)}")
 
 
 @dataclasses.dataclass

@@ -41,6 +41,13 @@ from ..ops.scan import LaserScan
 
 Tensor = torch.Tensor
 
+#: why the Monte-Carlo matcher is refused where the reference hands its
+#: matcher no key (``_match_loop`` and ``joint_refine`` pass ``key=None``)
+_MONTE_CARLO_KEYLESS = (
+    "the Monte-Carlo matcher as {where}: the reference passes key=None to its matcher there, "
+    "and its monte_carlo_match raises on it (jax.random.split(None, n): TypeError, unexpected "
+    "PRNG key type); the port refuses it as well")
+
 
 @dataclasses.dataclass(frozen=True)
 class PoseGraphConfig:
@@ -66,8 +73,10 @@ class PoseGraphConfig:
     #: render the candidate keyframe's scan plus +-submap_radius neighbour
     #: keyframes into the local map
     submap_radius: int = 1
-    #: matcher that refines a loop closure's relative pose: 'brute_force'
-    #: or 'm3rsm' (with an ``m3rsm.M3RSMConfig`` as ``loop_matcher``)
+    #: matcher that refines a loop closure's relative pose: 'brute_force',
+    #: 'm3rsm', 'hill_climbing' or 'gradient', with that matcher's config
+    #: as ``loop_matcher`` (``m3rsm.M3RSMConfig``, ``HillClimbingConfig``,
+    #: ``GradientConfig``); M submaps in one launch a stage
     loop_matcher_kind: str = "brute_force"
     loop_matcher: Any = matcherslib.BruteForceConfig(
         half_x=0.6, half_y=0.6, half_theta=0.3, n_x=7, n_y=7, n_theta=7,
@@ -91,10 +100,11 @@ class PoseGraphConfig:
     loop_info_cap: float = 1.0
 
     def __post_init__(self):
-        if self.loop_matcher_kind not in ("brute_force", "m3rsm"):
-            raise NotImplementedError(
-                f"PoseGraphConfig.loop_matcher_kind={self.loop_matcher_kind!r} is not ported yet"
-            )
+        if self.loop_matcher_kind == "monte_carlo":
+            raise NotImplementedError(_MONTE_CARLO_KEYLESS.format(where="loop_matcher_kind"))
+        if self.loop_matcher_kind not in matcherslib.MATCHERS:
+            raise ValueError(f"PoseGraphConfig.loop_matcher_kind={self.loop_matcher_kind!r}: "
+                             f"not one of {sorted(matcherslib.MATCHERS)}")
         if self.loop_matcher_kind == "m3rsm" and self.loop_subcell_refine:
             # the reference falls back to one cell / 0.05 rad for a matcher
             # without a grid pitch (its posegraph.py:452), a step ADVICE r5
@@ -414,12 +424,14 @@ def _render_local_map(cfg: PoseGraphConfig, model, st: PoseGraphState, ci) -> gr
 
 def _match_loop(cfg: PoseGraphConfig, view, scan, pose):
     """The loop-closure match shared by :func:`detect_loops` and
-    :func:`densify_loops`: the configured matcher (the brute-force grid, or
-    M3RSM with a pyramid a submap), then (opt-in, brute force only) a per-axis
-    parabolic peak fit through the score at the matched pose and its
-    +-1-grid-step neighbours, bounded to half a step per axis, then the
-    information estimate at the refined pose. ``view``, ``scan`` and ``pose``
-    may carry a leading map dimension: M matches, one score launch a stage.
+    :func:`densify_loops`: the configured matcher (the brute-force grid,
+    M3RSM with a pyramid a submap, the hill climb or the gradient ascent),
+    then (opt-in, not with M3RSM) a per-axis parabolic peak fit through the
+    score at the matched pose and its +-1-grid-step neighbours (one cell and
+    0.05 rad for a matcher without a grid), bounded to half a step per axis,
+    then the information estimate at the refined pose. ``view``, ``scan``
+    and ``pose`` may carry a leading map dimension: M matches, one launch of
+    each stage.
     Returns ``(pose, prob, info)``."""
     dev = pose.device
     _, loop_match_fn = matcherslib.MATCHERS[cfg.loop_matcher_kind]
@@ -427,9 +439,14 @@ def _match_loop(cfg: PoseGraphConfig, view, scan, pose):
     matched = res.pose
     if cfg.loop_subcell_refine:
         lm = cfg.loop_matcher
-        sx = 2.0 * lm.half_x / max(lm.n_x - 1, 1) or cfg.local_map_scale
-        sy = 2.0 * lm.half_y / max(lm.n_y - 1, 1) or cfg.local_map_scale
-        st_ = 2.0 * lm.half_theta / max(lm.n_theta - 1, 1) or 0.05
+        # the grid's pitches; a matcher without a grid (hill climbing,
+        # gradient) falls back to one cell and 0.05 rad, as the reference
+        sx = 2.0 * getattr(lm, "half_x", 0.0) / max(
+            getattr(lm, "n_x", 1) - 1, 1) or cfg.local_map_scale
+        sy = 2.0 * getattr(lm, "half_y", 0.0) / max(
+            getattr(lm, "n_y", 1) - 1, 1) or cfg.local_map_scale
+        st_ = 2.0 * getattr(lm, "half_theta", 0.0) / max(
+            getattr(lm, "n_theta", 1) - 1, 1) or 0.05
         offs = torch.tensor(
             [
                 [0.0, 0.0, 0.0],
@@ -724,14 +741,23 @@ def joint_refine(
     the other keyframes and moves it ``damping`` of the way to its match.
     The map without scan i is the fold of ``(W_total - W_i, S_total - S_i)``:
     one rasterisation pass a round. Keyframe 0 stays fixed (the gauge). All
-    K matches of a round are one launch of the batched score."""
-    if matcher != "brute_force":
-        raise NotImplementedError(f"joint_refine: matcher {matcher!r} is not ported yet")
+    K matches of a round run together, on the K leave-one-out maps: one
+    launch of the batched score (brute force), of ``kernels.hill_climb``,
+    of ``kernels.gradient_refine``, or of ``kernels.m3rsm_pyramid`` and
+    ``kernels.m3rsm_search`` (M3RSM). ``matcher_cfg`` defaults to the
+    reference's: its brute-force grid, else the matcher's default config.
+    The Monte-Carlo matcher is refused: the reference hands it no key."""
+    if matcher == "monte_carlo":
+        raise NotImplementedError(_MONTE_CARLO_KEYLESS.format(where="joint_refine's matcher"))
+    cfg_cls, match_fn = matcherslib.MATCHERS[matcher]
     if matcher_cfg is None:
-        matcher_cfg = matcherslib.BruteForceConfig(
-            half_x=0.35, half_y=0.35, half_theta=0.12, n_x=15, n_y=15, n_theta=9,
-            scoring=scoring.ScoringConfig(reducer="overlap"),
-        )
+        if matcher == "brute_force":
+            matcher_cfg = matcherslib.BruteForceConfig(
+                half_x=0.35, half_y=0.35, half_theta=0.12, n_x=15, n_y=15, n_theta=9,
+                scoring=scoring.ScoringConfig(reducer="overlap"),
+            )
+        else:
+            matcher_cfg = cfg_cls()
     kmax = cfg.max_keyframes
     h, w = gm_template.height, gm_template.width
     scans = _masked_keyframe_scans(st, 0, kmax)
@@ -746,8 +772,7 @@ def joint_refine(
             cells=gm_template.cells[None].expand(kmax, *gm_template.cells.shape),
             origin=gm_template.origin[None].expand(kmax, 2), scale=gm_template.scale)
         gm = gridlib.apply_observations(gm, model, w_tot - w_all, s_tot - s_all)
-        res = matcherslib.brute_force_match(
-            scoring.MapView.of(gm, model), st.kf_scans, poses, None, matcher_cfg)
+        res = match_fn(scoring.MapView.of(gm, model), st.kf_scans, poses, None, matcher_cfg)
         d = res.pose - poses
         d = torch.cat([d[:, :2], wrap_angle(d[:, 2:])], dim=-1)
         new = poses + damping * d

@@ -14,20 +14,21 @@ from ``vmap`` over submaps when it closes loops, and over particles in the
 RBPF's improved proposal and minimumScore gate.
 
 ``overlap_score_grad`` is the same score with its gradient with respect
-to each pose, in one pass (``csrc/overlap_score_grad.cu``): the gradient
-matcher's ascent direction, which the reference takes with ``jax.grad``
-through its score. ``clear_of_kinks`` picks the beams where two
-implementations of that gradient can be compared.
+to each pose, in one pass (``csrc/overlap_score_grad.cu``), by any
+reducer, for one map or M: the gradient matcher's ascent direction, which
+the reference takes with ``jax.grad`` through its score (0 for the
+piecewise-constant reducers, ``Reducer.flat``). ``clear_of_kinks`` picks
+the beams where two implementations of that gradient can be compared.
 
 ``gradient_refine`` runs the gradient matcher's whole refine (the start
 pose's score and gradient, then every iteration's step, score and
 keep-or-shrink) in one launch (``csrc/gradient_refine.cu``), and
-``hill_climb`` the hill-climbing matcher's whole climb, for one map or M
-in one launch (``csrc/hill_climb.cu``, the climb of ``csrc/climb.cuh``
-that ``m3rsm_search`` runs too). ``gradient_refine_rounds`` and
-``hill_climb_rounds`` are the same refines with ``overlap_score_grad`` or
-``overlap_score`` launched once a pass, kept as the yardsticks the fused
-kernels must equal bit for bit.
+``hill_climb`` the hill-climbing matcher's whole climb, each by any
+reducer, for one map or M in one launch (``csrc/hill_climb.cu``, the
+climb of ``csrc/climb.cuh`` that ``m3rsm_search`` runs too).
+``gradient_refine_rounds`` and ``hill_climb_rounds`` are the same refines
+with ``overlap_score_grad`` or ``overlap_score`` launched once a pass, kept
+as the yardsticks the fused kernels must equal bit for bit.
 
 ``mc_match`` runs one whole Monte-Carlo match (the first score, every
 round's candidates, argmax, keep-if-better and the sigma anneal) in one
@@ -136,8 +137,9 @@ REDUCER_KINDS = ("bilinear", "obstacle", "max", "mean", "overlap")
 #: the scoring wrappers' launches by reducer, ``"<wrapper>/<kind>"``; a
 #: launch adds one here and one to its wrapper's count
 _REDUCER_LAUNCHES = dict.fromkeys(
-    (f"{name}/{kind}" for name in ("overlap_score", "overlap_score_batched", "hill_climb",
-                                   "mc_match", "mc_match_batched", "m3rsm_search")
+    (f"{name}/{kind}" for name in ("overlap_score", "overlap_score_batched", "overlap_score_grad",
+                                   "gradient_refine", "hill_climb", "mc_match",
+                                   "mc_match_batched", "m3rsm_search")
      for kind in REDUCER_KINDS), 0)
 
 
@@ -181,6 +183,16 @@ class Reducer:
     @property
     def code(self) -> int:
         return REDUCER_KINDS.index(self.kind)
+
+    @property
+    def flat(self) -> bool:
+        """Whether the score is piecewise constant in the pose (its
+        gradient 0): the obstacle, max and mean reducers, and the overlap
+        reducer at radius 0, whose square meets one cell and gives that
+        cell's value (above the 1e-9 floor on the weights, which an extent
+        of 1e-4 cells or more keeps)."""
+        return self.kind in ("obstacle", "max", "mean") or (
+            self.kind == "overlap" and self.radius == 0 and self.extent >= 1e-4)
 
 
 BILINEAR = Reducer()
@@ -238,6 +250,10 @@ def _reduce_ref(flat: Tensor, h: int, w: int, x: Tensor, y: Tensor, unknown: flo
                 len_x = torch.clamp(torch.clamp(ex + half, max=dc + 1.0)
                                     - torch.clamp(ex - half, min=float(dc)), min=0.0)
                 wgt = len_x * len_y
+                if red.radius == 0:
+                    # one cell: above the floor the score is its value, so
+                    # the derivative is 0 (not the quotient's rounding noise)
+                    wgt = torch.where(wgt >= 1e-9, wgt.detach(), wgt)
                 wsum = wsum + wgt
                 num = num + _cells_ref(flat, h, w, fy + dr, fx + dc, unknown) * wgt
         return num / torch.clamp(wsum, min=1e-9)
@@ -445,39 +461,69 @@ def overlap_score_batched(
     )
 
 
-def overlap_score_grad_ref(v, poses, pts, beam_w, origin, scale, unknown):
+def overlap_score_grad_ref(v, poses, pts, beam_w, origin, scale, unknown, reducer=BILINEAR):
     """Plain version of ``overlap_score_grad``: autograd over
-    :func:`overlap_score_ref` (single plane). Returns (score f32[K],
-    dscore f32[K, 3]), the derivative of each score by its own pose."""
+    :func:`overlap_score_ref` with ``reducer``, one plane or M. Returns
+    (score f32[..., K], dscore f32[..., K, 3]), the derivative of each score
+    by its own pose (0 for the piecewise-constant reducers)."""
     with torch.enable_grad():
         p = poses.detach().requires_grad_(True)
-        score = overlap_score_ref(v, p, pts, beam_w, origin, scale, unknown)
-        (grad,) = torch.autograd.grad(score.sum(), p)
-    return score.detach(), grad
+        score = overlap_score_ref(v, p, pts, beam_w, origin, scale, unknown, reducer)
+        if not score.requires_grad:  # a cell lookup: nothing depends on the pose
+            return score.detach(), torch.zeros_like(poses)
+        (grad,) = torch.autograd.grad(score.sum(), p, allow_unused=True)
+    return score.detach(), torch.zeros_like(poses) if grad is None else grad
+
+
+def _kink_offsets(reducer: Reducer) -> tuple:
+    """Where, in cells past an integer, a coordinate of an endpoint meets a
+    kink of ``reducer``'s score: the bilinear taps change at every half
+    cell; the general overlap's lengths where an edge of the square (the
+    position +- extent / 2) meets a cell edge, and its window at every
+    integer; the piecewise-constant reducers jump at every integer."""
+    if reducer.kind == "bilinear":
+        return (0.0, 0.5)
+    if reducer.kind == "overlap" and reducer.radius > 0:
+        h = 0.5 * reducer.extent
+        return (0.0, h % 1.0, (-h) % 1.0)
+    return (0.0,)
 
 
 def clear_of_kinks(poses: Tensor, pts: Tensor, origin: Tensor, scale: float,
-                   margin: float = 1e-4) -> Tensor:
+                   margin: float = 1e-4, reducer: Reducer = BILINEAR) -> Tensor:
     """bool[R]: the beams whose endpoint, from every pose f32[K, 3], lies
-    at least ``margin`` cell from a cell's centre and edge on both axes.
-    There the overlap score's derivative jumps (a tap, or the reference's
+    at least ``margin`` cell from every kink of ``reducer``'s score on both
+    axes (:func:`_kink_offsets`; the bilinear one's at a cell's centre and
+    edge). There the score's derivative jumps (a tap, or the reference's
     window, changes), so a position one ulp apart takes the other side's
-    derivative: two gradients compare on the clear beams only."""
+    derivative: two gradients compare on the clear beams only. With a
+    leading map dimension (poses f32[M, K, 3], pts f32[M, R, 2], origin
+    f32[M, 2]) -> bool[M, R]."""
+    if poses.dim() == 3:
+        return torch.stack([clear_of_kinks(poses[m], pts[m], origin[m], scale, margin, reducer)
+                            for m in range(poses.shape[0])])
     c, s = torch.cos(poses[:, 2:3]), torch.sin(poses[:, 2:3])
     x = (poses[:, 0:1] + c * pts[:, 0] - s * pts[:, 1] - origin[0]) / scale
     y = (poses[:, 1:2] + s * pts[:, 0] + c * pts[:, 1] - origin[1]) / scale
-    half = torch.stack([x, y]) * 2.0  # kinks every half cell
-    return ((half - torch.round(half)).abs() >= 2 * margin).all(0).all(0)
+    if reducer.kind == "bilinear":
+        half = torch.stack([x, y]) * 2.0  # kinks every half cell
+        return ((half - torch.round(half)).abs() >= 2 * margin).all(0).all(0)
+    ok = torch.ones(pts.shape[0], dtype=torch.bool, device=pts.device)
+    for off in _kink_offsets(reducer):
+        u = torch.stack([x, y]) - off
+        ok &= ((u - torch.round(u)).abs() >= margin).all(0).all(0)
+    return ok
 
 
 @functools.cache
 def _overlap_score_grad_fn():
     fn = _build.load().overlap_score_grad_launch
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # v, h, w
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # v, m, h, w
         ctypes.c_void_p, ctypes.c_int,  # poses, k
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # pts, beam_w, r
         ctypes.c_void_p, ctypes.c_float, ctypes.c_float,  # origin, scale, unknown
+        ctypes.c_int, ctypes.c_int, ctypes.c_float,  # reducer, radius, extent
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # out, dout, stream
     ]
     fn.restype = ctypes.c_int
@@ -492,33 +538,48 @@ def overlap_score_grad(
     origin: Tensor,
     scale: float,
     unknown: float,
+    reducer: Reducer = BILINEAR,
 ) -> tuple[Tensor, Tensor]:
-    """Score poses f32[K, 3] against plane v f32[H, W] and differentiate
-    each score by its pose: (score f32[K], dscore f32[K, 3]). The score has
-    the bits of :func:`overlap_score`.
+    """Score poses f32[K, 3] against plane v f32[H, W], a beam read by
+    ``reducer``, and differentiate each score by its pose: (score f32[K],
+    dscore f32[K, 3]); with a leading map dimension on every tensor (v
+    f32[M, H, W], poses f32[M, K, 3], pts f32[M, R, 2], beam_w f32[M, R],
+    origin f32[M, 2]) map m scores its own poses and scan: f32[M, K],
+    f32[M, K, 3]. The score has the bits of :func:`overlap_score` (of
+    :func:`overlap_score_batched` for M maps). The obstacle, max and mean
+    reducers and the overlap reducer at radius 0 are piecewise constant:
+    their derivative is 0.
 
     CPU tensors take the plain twin; CUDA tensors launch the kernel on the
-    current stream and add one to the ``overlap_score_grad`` count."""
+    current stream, once for all maps, and add one to the
+    ``overlap_score_grad`` count (and to its reducer's)."""
     if v.device.type == "cpu":
-        return overlap_score_grad_ref(v, poses, pts, beam_w, origin, scale, unknown)
+        return overlap_score_grad_ref(v, poses, pts, beam_w, origin, scale, unknown, reducer)
     if v.device.type != "cuda":
         raise ValueError(f"overlap_score_grad: unsupported device {v.device}")
-    h, w = v.shape
-    k, r = poses.shape[0], pts.shape[0]
-    _check("v", v, (h, w), v.device)
-    _check("poses", poses, (k, 3), v.device)
-    _check("pts", pts, (r, 2), v.device)
-    _check("beam_w", beam_w, (r,), v.device)
-    _check("origin", origin, (2,), v.device)
-    out = torch.empty((k,), dtype=torch.float32, device=v.device)
-    dout = torch.empty((k, 3), dtype=torch.float32, device=v.device)
-    if k == 0:
+    lead = tuple(v.shape[:-2])
+    if len(lead) > 1:
+        raise ValueError(f"v has shape {tuple(v.shape)}, expected (H, W) or (M, H, W)")
+    h, w = v.shape[-2:]
+    k, r = poses.shape[-2], pts.shape[-2]
+    _check("v", v, (*lead, h, w), v.device)
+    _check("poses", poses, (*lead, k, 3), v.device)
+    _check("pts", pts, (*lead, r, 2), v.device)
+    _check("beam_w", beam_w, (*lead, r), v.device)
+    _check("origin", origin, (*lead, 2), v.device)
+    n_m = lead[0] if lead else 1
+    if n_m > _MAX_MAPS:
+        raise ValueError(f"overlap_score_grad: {n_m} maps, more than {_MAX_MAPS} a launch")
+    out = torch.empty((*lead, k), dtype=torch.float32, device=v.device)
+    dout = torch.empty((*lead, k, 3), dtype=torch.float32, device=v.device)
+    if k == 0 or n_m == 0:
         return out, dout
     fn = _overlap_score_grad_fn()
     _launch("overlap_score_grad", v.device, lambda stream: fn(
-        v.data_ptr(), h, w, poses.data_ptr(), k, pts.data_ptr(), beam_w.data_ptr(), r,
-        origin.data_ptr(), scale, unknown, out.data_ptr(), dout.data_ptr(), stream))
-    _LAUNCHES["overlap_score_grad"] += 1
+        v.data_ptr(), n_m, h, w, poses.data_ptr(), k, pts.data_ptr(), beam_w.data_ptr(), r,
+        origin.data_ptr(), scale, unknown, reducer.code, reducer.radius, reducer.extent,
+        out.data_ptr(), dout.data_ptr(), stream))
+    _count("overlap_score_grad", reducer)
     return out, dout
 
 
@@ -554,70 +615,93 @@ def _refine_checks(name: str, lead: tuple, plane: Tensor, pts: Tensor, beam_w: T
         raise ValueError(f"{name}: unsupported device {plane.device}")
 
 
+def _flat_refine(score, plane, pts, beam_w, origin, pose, scale, unknown, iterations, reducer):
+    """A refine on a piecewise-constant score (``reducer.flat``): the
+    gradient is 0, so no step is taken and none can score better. The start
+    pose, its score (one call of ``score``, a wrapper with
+    :func:`overlap_score_grad`'s or :func:`overlap_score`'s signature, whose
+    first output is the score) and a trace of that score: what the
+    reference's ``gradient_match`` returns there."""
+    got = score(plane, pose[..., None, :].contiguous(), pts, beam_w, origin, scale, unknown,
+                reducer)
+    prob = (got[0] if isinstance(got, tuple) else got)[..., 0]
+    trace = prob[..., None].expand(*prob.shape, iterations).contiguous()
+    return pose.clone(), prob, trace
+
+
 def gradient_refine_loop(score_grad, plane, pts, beam_w, origin, pose, scale, unknown, step_xy,
-                         step_theta, iterations, shrink):
+                         step_theta, iterations, shrink, reducer=BILINEAR):
     """The gradient refine as a Python loop over device tensors with no
     host sync: score and differentiate the start pose, then each iteration
     steps ``steps * g / (|g| + 1e-12)`` from the kept pose (theta wrapped)
     and keeps the step if it scores strictly better, else multiplies every
     step by ``shrink``. ``score_grad`` has ``overlap_score_grad``'s
-    signature and is called once for the start pose and once a candidate.
-    |g| is ``sqrt((gx^2 + gy^2) + gth^2)`` written out, the order the
-    kernel sums in. Returns pose f32[3], prob f32[], trace f32[iterations]."""
+    signature and is called once for the start pose and once a candidate,
+    for one map (pose f32[3]) or M (pose f32[M, 3], every tensor with a
+    leading map dimension; each map's refine its own, elementwise). |g| is
+    ``sqrt((gx^2 + gy^2) + gth^2)`` written out, the order the kernel sums
+    in. A ``reducer.flat`` score takes :func:`_flat_refine` (one call).
+    Returns pose f32[..., 3], prob f32[...], trace f32[..., iterations]."""
+    if reducer.flat:
+        return _flat_refine(score_grad, plane, pts, beam_w, origin, pose, scale, unknown,
+                            iterations, reducer)
     dev = pose.device
-    args = (pts, beam_w, origin, scale, unknown)
+    args = (pts, beam_w, origin, scale, unknown, reducer)
 
     def at(p):
-        score, grad = score_grad(plane, p[None, :].contiguous(), *args)
-        return score[0], grad[0]
+        score, grad = score_grad(plane, p[..., None, :].contiguous(), *args)
+        return score[..., 0], grad[..., 0, :]
 
     prob, g = at(pose)
     steps = constant((step_xy, step_xy, step_theta), torch.float32, dev)
     trace = []
     for _ in range(iterations):
         sq = g * g
-        gn = g / (torch.sqrt((sq[0] + sq[1]) + sq[2]) + 1e-12)
+        norm = torch.sqrt((sq[..., 0:1] + sq[..., 1:2]) + sq[..., 2:3])
+        gn = g / (norm + 1e-12)
         cand = pose + steps * gn
-        cand = torch.cat([cand[:2], wrap_angle(cand[2:])])
+        cand = torch.cat([cand[..., :2], wrap_angle(cand[..., 2:])], dim=-1)
         p_new, g_new = at(cand)
         better = p_new > prob
-        pose = torch.where(better, cand, pose)
+        pose = torch.where(better[..., None], cand, pose)
         prob = torch.where(better, p_new, prob)
-        g = torch.where(better, g_new, g)
-        steps = torch.where(better, steps, steps * shrink)
+        g = torch.where(better[..., None], g_new, g)
+        steps = torch.where(better[..., None], steps, steps * shrink)
         trace.append(prob)
-    trace = (torch.stack(trace) if trace
-             else torch.empty((0,), dtype=torch.float32, device=dev))
+    trace = (torch.stack(trace, dim=-1) if trace
+             else torch.empty((*prob.shape, 0), dtype=torch.float32, device=dev))
     return pose, prob, trace
 
 
 def gradient_refine_ref(plane, pts, beam_w, origin, pose, scale, unknown, step_xy, step_theta,
-                        iterations, shrink):
+                        iterations, shrink, reducer=BILINEAR):
     """Plain PyTorch version of :func:`gradient_refine`: the loop over
     :func:`overlap_score_grad_ref`."""
     return gradient_refine_loop(overlap_score_grad_ref, plane, pts, beam_w, origin, pose, scale,
-                                unknown, step_xy, step_theta, iterations, shrink)
+                                unknown, step_xy, step_theta, iterations, shrink, reducer)
 
 
 def gradient_refine_rounds(plane, pts, beam_w, origin, pose, scale, unknown, step_xy,
-                           step_theta, iterations, shrink):
+                           step_theta, iterations, shrink, reducer=BILINEAR):
     """The same refine with :func:`overlap_score_grad` launched once for the
     start pose and once a candidate (``1 + iterations`` launches on the
-    card) and the rest of an iteration in PyTorch ops. Nothing on the main
-    path calls it: it is what :func:`gradient_refine` is held to, bit for
-    bit, on the card."""
+    card, for one map or all M; one for a ``reducer.flat`` score) and the
+    rest of an iteration in PyTorch ops. Nothing on the main path calls it:
+    it is what :func:`gradient_refine` is held to, bit for bit, on the
+    card."""
     return gradient_refine_loop(overlap_score_grad, plane, pts, beam_w, origin, pose, scale,
-                                unknown, step_xy, step_theta, iterations, shrink)
+                                unknown, step_xy, step_theta, iterations, shrink, reducer)
 
 
 @functools.cache
 def _gradient_refine_fn():
     fn = _build.load().gradient_refine_launch
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # plane, h, w
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # plane, m, h, w
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # pts, beam_w, r
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_float,  # origin, pose, ...
         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,  # steps, shrink, iterations
+        ctypes.c_int, ctypes.c_int, ctypes.c_float,  # reducer, radius, extent
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # outputs, stream
     ]
     fn.restype = ctypes.c_int
@@ -625,33 +709,51 @@ def _gradient_refine_fn():
 
 
 def gradient_refine(plane, pts, beam_w, origin, pose, scale, unknown, step_xy, step_theta,
-                    iterations, shrink):
+                    iterations, shrink, reducer=BILINEAR):
     """The gradient matcher's refine of ``pose`` f32[3] on plane f32[H, W]
     (``where(known, occ, unknown)``) with the scan's pts f32[R, 2] and
-    beam_w f32[R] -> (pose f32[3], prob f32[], trace f32[iterations]): the
-    arithmetic of :func:`gradient_refine_loop`, the score with
-    :func:`overlap_score`'s bits.
+    beam_w f32[R], a beam read by ``reducer`` -> (pose f32[3], prob f32[],
+    trace f32[iterations]): the arithmetic of :func:`gradient_refine_loop`,
+    the score with :func:`overlap_score`'s bits. With a leading map
+    dimension on plane, pts, beam_w, origin and pose, each of M poses is
+    refined on its own map: pose f32[M, 3], prob f32[M], trace f32[M,
+    iterations].
 
-    CPU tensors take the plain twin; CUDA tensors launch the kernel once on
-    the current stream (one block), with the bits of
-    :func:`gradient_refine_rounds`, and add one to the
-    ``gradient_refine`` count of :func:`launch_counts`. The pose stays on
-    the device: nothing is read on the host."""
-    _refine_checks("gradient_refine", (), plane, pts, beam_w, origin, pose, iterations)
+    CPU tensors take the plain twin. On CUDA tensors a ``reducer.flat``
+    score (gradient 0: no step is taken) is one launch of
+    :func:`overlap_score` (or :func:`overlap_score_batched` for M maps) at
+    the start pose and a fill; any other launches the kernel once on the
+    current stream (a block a map), with the bits of
+    :func:`gradient_refine_rounds`, and adds one to the ``gradient_refine``
+    count of :func:`launch_counts`. The pose stays on the device: nothing is
+    read on the host."""
+    lead = tuple(plane.shape[:-2])
+    if len(lead) > 1:
+        raise ValueError(f"gradient_refine: plane has shape {tuple(plane.shape)}, expected "
+                         f"(H, W) or (M, H, W)")
+    _refine_checks("gradient_refine", lead, plane, pts, beam_w, origin, pose, iterations)
     if plane.device.type == "cpu":
         return gradient_refine_ref(plane, pts, beam_w, origin, pose, scale, unknown, step_xy,
-                                   step_theta, iterations, shrink)
-    h, w = plane.shape
+                                   step_theta, iterations, shrink, reducer)
+    if reducer.flat:
+        score = overlap_score_batched if lead else overlap_score
+        return _flat_refine(score, plane, pts, beam_w, origin, pose, scale, unknown, iterations,
+                            reducer)
+    h, w = plane.shape[-2:]
+    n_m = lead[0] if lead else 1
     dev = plane.device
-    out_pose = torch.empty((3,), dtype=torch.float32, device=dev)
-    out_prob = torch.empty((), dtype=torch.float32, device=dev)
-    trace = torch.empty((iterations,), dtype=torch.float32, device=dev)
+    out_pose = torch.empty((*lead, 3), dtype=torch.float32, device=dev)
+    out_prob = torch.empty(lead, dtype=torch.float32, device=dev)
+    trace = torch.empty((*lead, iterations), dtype=torch.float32, device=dev)
+    if n_m == 0:
+        return out_pose, out_prob, trace
     fn = _gradient_refine_fn()
     _launch("gradient_refine", dev, lambda stream: fn(
-        plane.data_ptr(), h, w, pts.data_ptr(), beam_w.data_ptr(), pts.shape[0],
+        plane.data_ptr(), n_m, h, w, pts.data_ptr(), beam_w.data_ptr(), pts.shape[-2],
         origin.data_ptr(), pose.data_ptr(), scale, unknown, step_xy, step_theta, shrink,
-        iterations, out_pose.data_ptr(), out_prob.data_ptr(), trace.data_ptr(), stream))
-    _LAUNCHES["gradient_refine"] += 1
+        iterations, reducer.code, reducer.radius, reducer.extent, out_pose.data_ptr(),
+        out_prob.data_ptr(), trace.data_ptr(), stream))
+    _count("gradient_refine", reducer)
     return out_pose, out_prob, trace
 
 

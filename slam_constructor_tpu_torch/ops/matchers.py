@@ -10,10 +10,9 @@ leading particle dimension it matches P (map, scan, prior) triples in one
 launch of ``kernels.mc_match_batched``, or of ``kernels.mc_match_windows``
 on windows of the maps read in place: the RBPF's form.
 
-Every matcher but the gradient one scores with any reducer of
-``scoring.ScoringConfig`` (the reference's default is the obstacle
-reducer); the gradient matcher differentiates the overlap reducer at
-extent 1 and refuses the others.
+Every matcher scores with any reducer of ``scoring.ScoringConfig`` (the
+reference's default is the obstacle reducer), for one map or, with a
+leading map dimension, for M (map, scan, prior) triples in one launch.
 
 Hill climbing: coordinate descent from the prior, six axis steps scored a
 round, the steps halved after a round without gain (M3RSM's refine); the
@@ -22,7 +21,7 @@ whole climb is one call of ``kernels.hill_climb``, for one map or for M
 an exhaustive (x, y, theta) grid around the prior, scored in one call, for
 one map or M. Gradient: ascent along the score's pose gradient with hill
 climbing's keep-if-better and shrink rule, the whole refine one call of
-``kernels.gradient_refine``. Each is one kernel launch on the card and the
+``kernels.gradient_refine``, for one map or M. Each is one kernel launch on the card and the
 plain loop on the CPU, and neither syncs with the host. M3RSM lives in
 ``m3rsm.py``.
 """
@@ -216,34 +215,28 @@ def gradient_match(
     point_weights: Tensor | None = None,
     noise: Tensor | None = None,
 ) -> MatchResult:
-    """Refine ``init_pose`` f32[3] on one map: each iteration takes the
-    score's gradient ``g`` at the kept pose, steps ``steps * g / (|g| +
-    1e-12)`` (theta wrapped) and keeps the step if it scores strictly
-    better, else multiplies every step by ``shrink``. Deterministic, so
-    ``generator`` and ``noise`` are ignored.
+    """Refine ``init_pose`` f32[3]: each iteration takes the score's
+    gradient ``g`` at the kept pose, steps ``steps * g / (|g| + 1e-12)``
+    (theta wrapped) and keeps the step if it scores strictly better, else
+    multiplies every step by ``shrink``. Deterministic, so ``generator`` and
+    ``noise`` are ignored. With a leading map dimension (view of M maps,
+    scan [M, R], ``init_pose`` f32[M, 3]) every pose is refined on its own
+    map: pose f32[M, 3], prob f32[M], trace f32[M, iterations].
 
-    The whole refine is one call of ``kernels.gradient_refine``: its score
-    has ``overlap_score``'s bits, and a kept candidate's gradient is the
-    next step's, as the reference takes its gradient at the kept pose.
-
-    Only the overlap reducer at extent 1 (a window of at least one cell)
-    is differentiated: the reference's ``jax.grad`` is zero for the
-    obstacle, max and mean reducers, and the general overlap's pose gradient
-    has no kernel yet, so every other reducer raises
-    ``NotImplementedError``."""
+    The whole refine is one call of ``kernels.gradient_refine`` with the
+    config's reducer: its score has ``overlap_score``'s bits, and a kept
+    candidate's gradient is the next step's, as the reference takes its
+    gradient at the kept pose. The obstacle, max and mean reducers and the
+    overlap reducer at window 0 are piecewise constant in the pose: their
+    gradient is 0, and the refine returns the start pose, its score and a
+    trace of it, as the reference's does (at window 0 the reference's
+    autodiff leaves rounding noise that its normalisation can turn into a
+    unit step; the port takes the exact 0: ROADMAP trap r)."""
     del generator, noise
-    reducer = scoring.reducer_of(cfg.scoring)
-    if reducer != kernels.BILINEAR:
-        raise NotImplementedError(
-            f"gradient_match differentiates the overlap reducer at extent 1 and window >= 1 "
-            f"only; got reducer={cfg.scoring.reducer!r} (window {cfg.scoring.window}, extent "
-            f"{cfg.scoring.overlap_extent})")
     prep = scoring.prepare(view, scan, cfg.scoring, point_weights)
-    if prep.plane.dim() != 2:
-        raise ValueError("gradient_match refines a pose on one map")
     pose, prob, trace = kernels.gradient_refine(
         prep.plane, prep.pts, prep.beam_w, prep.origin, init_pose.contiguous(), prep.scale,
-        prep.unknown, cfg.step_xy, cfg.step_theta, cfg.iterations, cfg.shrink)
+        prep.unknown, cfg.step_xy, cfg.step_theta, cfg.iterations, cfg.shrink, prep.reducer)
     return MatchResult(pose=pose, prob=prob, trace=trace)
 
 

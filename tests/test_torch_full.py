@@ -228,14 +228,28 @@ def test_capacity_grows_before_the_graph_saturates(run):
     assert e.cfg.graph.max_edges >= int(e.graph.n_edges)
 
 
-def test_entry_point_defaults_to_the_card_and_checkpoints_wait(run):
+def test_entry_point_defaults_to_the_card_and_checkpoints_wait(run, tmp_path):
+    """The entry points default to the card; the mid-run checkpoint (no
+    longer waiting for a later slice) carries the whole engine of the run
+    above into a fresh one: state, graph, counters and trajectory, bit for
+    bit (resuming from one: tests/test_torch_checkpoint.py)."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='device="cpu"'):
             tfull.FullSlamEngine(run["tcfg"], n_beams=N_BEAMS)
         with pytest.raises(RuntimeError, match='device="cpu"'):
             tpg.init_state(run["tcfg"].graph, N_BEAMS)
-    with pytest.raises(NotImplementedError):
-        run["te"].save_checkpoint("x")
-    with pytest.raises(NotImplementedError):
-        run["te"].restore_checkpoint("x")
+    te = run["te"]
+    path = str(tmp_path / "ck")
+    te.save_checkpoint(path)
+    e = tfull.FullSlamEngine(run["tcfg"], n_beams=N_BEAMS, device="cpu")
+    e.restore_checkpoint(path)
+    for name in ("kf_poses", "n_kf", "edge_i", "edge_j", "edge_delta", "edge_info", "n_edges"):
+        assert torch.equal(getattr(e.graph, name), getattr(te.graph, name))
+    assert torch.equal(e.state.gm.cells, te.state.gm.cells)
+    assert torch.equal(e.state.pose, te.state.pose)
+    assert torch.equal(e.corrected_trajectory(), te.corrected_trajectory())
+    assert (e.total_loops, e.n_bursts, e.cfg) == (te.total_loops, te.n_bursts, te.cfg)
+    assert torch.equal(e.generator.get_state(), te.generator.get_state())
+    with pytest.raises(FileNotFoundError):
+        e.restore_checkpoint(str(tmp_path / "none"))
     assert tfull.FullConfig().tracking == ttiny.tiny_config()

@@ -197,8 +197,13 @@ def test_gmapping_config_lockstep():
     lambda: tgm.GMappingConfig(matcher="m3rsm"),
 ])
 def test_fields_of_later_slices_raise(make):
-    with pytest.raises(NotImplementedError):
-        make()
+    """Every matcher of the registry now runs in both RBPF slots: these
+    configs build, and only a name outside the registry raises."""
+    cfg = make()
+    with pytest.raises(ValueError):
+        dataclasses.replace(cfg, matcher="nope")
+    with pytest.raises(ValueError):
+        dataclasses.replace(cfg, refine_matcher="nope")
 
 
 def test_window_view_batched_is_bitwise(run):

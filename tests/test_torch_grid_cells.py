@@ -212,14 +212,18 @@ def test_viny_m3rsm_config_lockstep():
     "make",
     [
         # the tiled storage, the engine's refine and hill climbing as its
-        # primary matcher are ported (test_torch_config.py), and so is the
-        # RBPF's copy-on-write storage (test_torch_cow.py); what stays of
-        # later slices: the sharded preset and the RBPF's other matchers
+        # primary matcher are ported (test_torch_config.py), and so are the
+        # RBPF's copy-on-write storage (test_torch_cow.py) and its other
+        # matchers (test_torch_matcher_slots.py); what stays of later
+        # slices: the sharded preset
         lambda: tconfig.preset("distributed"),
         # the reference's grid-pitch fallback for M3RSM is a known fault (trap e)
         lambda: tpg.PoseGraphConfig(loop_matcher_kind="m3rsm", loop_subcell_refine=True),
-        lambda: tgm.GMappingConfig(matcher="m3rsm"),
-        lambda: tgm.GMappingConfig(refine_matcher="gradient"),
+        # the reference hands its loop and joint-refine matcher no key, on
+        # which its Monte-Carlo matcher raises (trap s)
+        lambda: tpg.PoseGraphConfig(loop_matcher_kind="monte_carlo"),
+        lambda: tpg.joint_refine(tpg.PoseGraphConfig(), tcells.BayesAvgCell(), None, None, None,
+                                 matcher="monte_carlo"),
         lambda: tray.BeamConfig(free_impl="auto"),
         lambda: tray.BeamConfig(free_impl="polar_pallas"),
         # the reference's pipeline keeps the pyramid of the map from before a closure

@@ -1458,3 +1458,90 @@ def test_pool_prepare_never_falls_back(pool_scene):
         for (m, name), f in zip(saved, plain):
             setattr(m, name, f)
     torch.cuda.synchronize()
+
+
+# --- the pose gradient and the gradient refine at every reducer, over M maps -------
+
+#: the reducers of the scoring kernels and the bilinear one
+GRAD_REDUCERS = [kernels.BILINEAR, *REDUCERS]
+GRAD_IDS = ["bilinear", *REDUCER_IDS]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("red", GRAD_REDUCERS, ids=GRAD_IDS)
+def test_reducer_score_grad_matches_twin_and_single_launches(scene, red):
+    """``overlap_score_grad`` with a reducer: the score with
+    ``overlap_score``'s bits (and within 2e-6 of the twin), the gradient
+    within 1e-5 x max(1, |g|) of its twin on the beams clear of the
+    reducer's kinks (exactly 0 for the piecewise-constant reducers); over M
+    maps each map's rows equal a single-map launch bit for bit."""
+    view, scan, _, g = scene
+    w = torch.rand((360,), generator=g, device=scan.ranges.device)
+    prep = scoring.prepare(view, scan, scoring.ScoringConfig(reducer="overlap", stride=2), w)
+    poses = _wide(scene, 16)
+    args = (prep.plane, poses, prep.pts, prep.beam_w, prep.origin, prep.scale, prep.unknown, red)
+    n = kernels.reducer_launch_counts()[f"overlap_score_grad/{red.kind}"]
+    score, _ = kernels.overlap_score_grad(*args)
+    assert kernels.reducer_launch_counts()[f"overlap_score_grad/{red.kind}"] == n + 1
+    assert torch.equal(score, kernels.overlap_score(*args))
+    torch.testing.assert_close(score, kernels.overlap_score_grad_ref(*args)[0], atol=ATOL,
+                               rtol=0)
+    clear = kernels.clear_of_kinks(poses, prep.pts, prep.origin, prep.scale, 1e-4, red)
+    masked = (*args[:3], (prep.beam_w * clear).contiguous(), *args[4:])
+    _, grad = kernels.overlap_score_grad(*masked)
+    _, want_g = kernels.overlap_score_grad_ref(*masked)
+    tol = 1e-5 * torch.clamp(want_g.norm(dim=1, keepdim=True), min=1.0)
+    assert bool(((grad - want_g).abs() <= tol).all()), (grad - want_g).abs().max()
+    if red.flat:
+        assert torch.equal(grad, torch.zeros_like(grad))
+    bprep, bposes = _submap_batch(scene, 5, 9)
+    bargs = (bprep.plane, bposes, bprep.pts, bprep.beam_w, bprep.origin, bprep.scale,
+             bprep.unknown, red)
+    got = kernels.overlap_score_grad(*bargs)
+    singles = [kernels.overlap_score_grad(*(t[m] for t in bargs[:5]), *bargs[5:])
+               for m in range(5)]
+    assert same_bits(got, [torch.stack([s[i] for s in singles]) for i in range(2)])
+    assert torch.equal(got[0], kernels.overlap_score_batched(*bargs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("red", GRAD_REDUCERS, ids=GRAD_IDS)
+@pytest.mark.parametrize("n_maps", [0, 5, 30])
+def test_reducer_gradient_refine_equals_the_launch_loop(scene, red, n_maps):
+    """One map (``n_maps`` 0) or M in one launch, every reducer: bit for bit
+    ``gradient_refine_rounds`` (and, for M, single-map launches). A
+    piecewise-constant score is one ``overlap_score`` (or
+    ``overlap_score_batched``) launch and no ``gradient_refine``."""
+    plane, pts, beam_w, origin, pose, scale, unknown = refine_case(scene, 360, 2, True,
+                                                                   (0.05, -0.04, 0.02))
+    dev = plane.device
+    if n_maps:
+        g = scene[3]
+        planes = torch.stack([plane.flip(0) if m % 2 else plane.roll(m, 1)
+                              for m in range(n_maps)])
+        poses = pose + torch.randn((n_maps, 3), generator=g, device=dev) * torch.tensor(
+            [0.05, 0.05, 0.03], device=dev)
+        head = (planes.contiguous(), pts.expand(n_maps, -1, -1).contiguous(),
+                beam_w.expand(n_maps, -1).contiguous(), origin.expand(n_maps, -1).contiguous(),
+                poses.contiguous())
+    else:
+        head = (plane, pts, beam_w, origin, pose)
+    args = (*head, scale, unknown, 0.03, 0.015, 10, 0.5, red)
+    before = kernels.launch_counts()
+    got = kernels.gradient_refine(*args)
+    after = kernels.launch_counts()
+    score_name = "overlap_score_batched" if n_maps else "overlap_score"
+    assert after["gradient_refine"] - before["gradient_refine"] == (0 if red.flat else 1)
+    assert after[score_name] - before[score_name] == (1 if red.flat else 0)
+    want = kernels.gradient_refine_rounds(*args)
+    torch.cuda.synchronize()
+    lead = (n_maps,) if n_maps else ()
+    assert got[0].shape == (*lead, 3) and got[2].shape == (*lead, 10)
+    assert same_bits(got, want), (got, want)
+    if red.flat:
+        assert torch.equal(got[0], args[4])
+    if n_maps:
+        singles = [kernels.gradient_refine(*(t[m] for t in args[:5]), *args[5:])
+                   for m in range(0, n_maps, 4)]
+        assert same_bits([t[::4] for t in got],
+                         [torch.stack([s[i] for s in singles]) for i in range(3)])

@@ -357,11 +357,25 @@ def test_m3rsm_default_config_matches_reference(corridor):
                                    ("overlap", 0, 1.0)]))
 def test_gradient_match_refuses_reducers_it_cannot_differentiate(corridor, reducer, window,
                                                                  extent):
-    _, _, tview, ts, true = corridor
+    """Since the gradient of every reducer is ported, nothing is refused:
+    the piecewise-constant reducers (obstacle, mean, the overlap at window
+    0) keep the start pose, its score and a trace of it, as the reference's
+    refine does; the general overlap moves as the reference's does."""
+    jview, js, tview, ts, true = corridor
+    init = (true + np.float32([0.06, -0.04, 0.03])).astype(np.float32)
     cfg = tmatch.GradientConfig(scoring=tscore.ScoringConfig(
         reducer=reducer, window=window, overlap_extent=extent))
-    with pytest.raises(NotImplementedError, match=reducer):
-        tmatch.gradient_match(tview, ts, torch.from_numpy(true.copy()), None, cfg)
+    got = tmatch.gradient_match(tview, ts, torch.from_numpy(init), None, cfg)
+    jcfg = jmatch.GradientConfig(scoring=jscore.ScoringConfig(
+        reducer=reducer, window=window, overlap_extent=extent))
+    want = jax.jit(lambda p: jmatch.gradient_match(jview, js, p, None, jcfg))(jnp.asarray(init))
+    if tscore.reducer_of(cfg.scoring).flat:
+        assert torch.equal(got.pose, torch.from_numpy(init))
+        assert torch.equal(got.trace, got.prob.expand(cfg.iterations))
+    else:
+        assert np.abs(got.pose.numpy() - init).max() > 0.01
+    np.testing.assert_allclose(got.pose.numpy(), np.asarray(want.pose), atol=1e-5, rtol=0)
+    assert abs(float(got.prob) - float(want.prob)) <= 2e-6
 
 
 def test_unknown_reducer_raises(setup):
