@@ -366,6 +366,31 @@ Phases, one line or more each, in order; any failure exits non-zero:
    each timed beside its twin with its bound, and listed in the kernels
    line with its launches on its path.
 
+48. the multi-device layer (``parallel/``) in an NCCL group of world size 1
+   set up in this process (127.0.0.1, a free port: one H100 cannot host two
+   NCCL ranks), each path against the unsharded port on the card over the
+   first 64 bench scans: the ``distributed`` preset at its full width
+   (``GMappingConfig()``: 30 whole 256^2 maps, 16 x 6 rounds; the same
+   generator seed on both sides: ancestors equal, poses and log-weights
+   within 1e-6, the same launches); the ``ep_cow`` step and the ``ep2d``
+   1 x 1 step at the copy-on-write cell's config (numpy draws; ancestors
+   equal, poses, weights and every particle's map within 1e-6, the same
+   launches, no overflow); the row-sharded block map (8 x 8 tiles of 32):
+   64 inserts and scores of 64 candidates (``pool_prepare``,
+   ``pool_insert`` and ``overlap_score_partial`` once each a scan), the
+   scores within 2e-6 x max(1, |s|) of the unsharded tiled map's, its
+   tables and allocation equal; the halo and beam-sharded scores at every
+   reducer; ``distributed_optimize`` on the full path's graph (1e-5 of
+   ``posegraph.optimize``; the Schur elimination 1e-4 of it); a heartbeat
+   and a ``RecoveryLoop`` round trip equal bit for bit. The group is torn
+   down before the next phase;
+49. ``overlap_score_partial`` (a rank's share of a row-sharded score, the
+   new mode of K1's kernel) against its plain twin on every band of 2, 4
+   and 8 row partitions at every reducer (2e-6: its sums relative to their
+   size, the band's mean num / den absolute) and the bands' sums
+   against ``overlap_score`` (2e-6 x max(1, |s|)); then timed (replayed
+   from a CUDA graph, a call, chained) beside its twin and its bound.
+
 Every bound counts, of the plane or window, the distinct cells that the
 taps of every pose the kernel scores read (the poses taken from its
 yardstick's run on the same inputs), not the whole plane.
@@ -5339,6 +5364,412 @@ def phase_slot_kernels(slot_kept, loop_kept, joint_kept, cli_kept, launches, smi
     return entries
 
 
+# --- slice 7: the multi-device layer ------------------------------------------
+
+#: scans of the bench sequence that the world-1 group's paths run, after a
+#: warm-up of PAR_WARMUP scans (the first collectives set up NCCL)
+PAR_SCANS = 64
+PAR_WARMUP = 4
+#: the world-1 group's runs against the unsharded port on the card: with
+#: one rank the all-reduces add nothing, so the same draws give the same
+#: poses, weights and maps; 1e-6 leaves room for a sum taken in another order
+PAR_TOL = 1e-6
+#: the Schur elimination against the direct Cholesky solve (another
+#: factorisation of a float32 system)
+SCHUR_TOL = 1e-4
+#: f32 operations of the ownership test of a weighted (pose, beam) pair
+#: beyond the endpoint's row (2 products, 2 sums, a difference, a division:
+#: PARTIAL_ROW_OPS) and its floor: the clamp and the two comparisons
+PARTIAL_ROW_OPS = 6
+PARTIAL_TEST_OPS = 2 + 2
+#: the row partitions the partial score is held over
+PARTIAL_SPLITS = (2, 4, 8)
+
+
+def reducer_label(red) -> str:
+    return "bilinear" if red.kind == "bilinear" else variant_name(red)
+
+
+def reducer_scoring(red):
+    """The ``ScoringConfig`` whose reducer is ``red`` (a kernels.Reducer)."""
+    from slam_constructor_tpu_torch.ops import scoring
+
+    if red.kind == "bilinear":
+        return scoring.ScoringConfig(reducer="overlap", window=1)
+    return scoring.ScoringConfig(reducer=red.kind, window=red.radius, overlap_extent=red.extent)
+
+
+def pair_tap_cells(h, w, poses, pts, origin, scale, red) -> int:
+    """The distinct cells of an h x w plane that the taps of the (pose,
+    endpoint) pairs ``poses`` f32[N, 3], ``pts`` f32[N, 2] read."""
+    c, s = torch.cos(poses[:, 2]), torch.sin(poses[:, 2])
+    x = (poses[:, 0] + c * pts[:, 0] - s * pts[:, 1] - origin[0]) / scale
+    y = (poses[:, 1] + s * pts[:, 0] + c * pts[:, 1] - origin[1]) / scale
+    if red.kind == "bilinear":
+        fy, fx = torch.floor(y - 0.5), torch.floor(x - 0.5)
+        d = torch.arange(2, device=poses.device, dtype=torch.float32)
+    else:
+        fy, fx = torch.floor(y), torch.floor(x)
+        n = red.radius if red.kind != "obstacle" else 0
+        d = torch.arange(-n, n + 1, device=poses.device, dtype=torch.float32)
+    rows = fy[:, None, None] + d[None, :, None]
+    cols = fx[:, None, None] + d[None, None, :]
+    ok = (rows >= 0) & (rows < h) & (cols >= 0) & (cols < w)
+    return int((rows * w + cols)[ok].to(torch.int64).unique().numel())
+
+
+def partial_work(h, w, poses, pts, beam_w, origin, scale, row0, row1, red):
+    """(bytes, operations) one ``overlap_score_partial`` call must move and
+    do: the cells the owned beams' taps read, each input once, (num, den)
+    a pose; the ownership test of every weighted (pose, beam) pair and the
+    reducer's arithmetic on the owned ones. An owned pair's row is the
+    reducer's (its pose transform and cell units), and so is the floor of
+    that row where the reducer takes it (every reducer but the bilinear
+    taps, which floor y - 0.5): the test adds the clamp and the comparisons
+    there, the floor too for the bilinear taps."""
+    q = pts[beam_w != 0]
+    c, s = torch.cos(poses[:, 2:3]), torch.sin(poses[:, 2:3])
+    y = (poses[:, 1:2] + s * q[:, 0] + c * q[:, 1] - origin[1]) / scale
+    fy = torch.floor(y).clamp(0, h - 1)
+    k_idx, r_idx = ((fy >= row0) & (fy < row1)).nonzero(as_tuple=True)
+    cells = pair_tap_cells(h, w, poses[k_idx], q[r_idx], origin, scale, red)
+    n_bytes = 4 * (cells + poses.numel() + 2 * q.shape[0] + beam_w.numel() + 2) + 8 * poses.shape[0]
+    n_own = int(k_idx.numel())
+    n_not = poses.shape[0] * q.shape[0] - n_own
+    if red.kind == "bilinear":
+        per_owned = OVERLAP_OPS_PER_POINT + 1 + PARTIAL_TEST_OPS
+    else:
+        per_owned = reducer_ops(red) + PARTIAL_TEST_OPS
+    return n_bytes, (PARTIAL_ROW_OPS + 1 + PARTIAL_TEST_OPS) * n_not + per_owned * n_own
+
+
+def partial_mean(sums):
+    """A band's weighted mean num / max(den, 1e-9) a pose."""
+    return sums[:, 0] / sums[:, 1].clamp(min=1e-9)
+
+
+def partial_bands(plane, red, d):
+    """The d row bands of ``plane`` with the rows their owned beams' taps
+    read: (band, g0, row0, row1) each."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    h = plane.shape[0]
+    need = max(kernels._partial_need(red), 1)
+    bounds = [h * i // d for i in range(d + 1)]
+    return [(plane[max(r0 - need, 0):min(r1 + need, h)].contiguous(), max(r0 - need, 0), r0, r1)
+            for r0, r1 in zip(bounds[:-1], bounds[1:])]
+
+
+def phase_partial_kernel(dev, scans, gt, smi):
+    """`overlap_score_partial` (a rank's share of the score of a plane
+    sharded by rows) against its plain twin on every band of 2, 4 and 8
+    row partitions, every reducer, at the tiny path's shapes (a 256^2 map
+    after 20 bench scans, K = 64, 360 beams) and with candidates half off
+    the map; the bands' sums, divided, against `overlap_score` (2e-6 x
+    max(1, |s|)); then timed on the first band of two (the halo path's
+    call; replayed from a CUDA graph, a call, chained) beside its twin and
+    its bound. Returns the `kernels` entry."""
+    from slam_constructor_tpu_torch.models import tiny
+    from slam_constructor_tpu_torch.models.engine import init_state
+    from slam_constructor_tpu_torch.ops import kernels, raycast, scoring
+
+    cfg = tiny.tiny_config(map_size=MAP)
+    gm = init_state(cfg, dev).gm
+    for i in range(0, 40, 2):
+        gm = raycast.insert_scan(gm, cfg.cell_model, gt[i], scans[i], cfg.beam)
+    view = scoring.MapView.of(gm, cfg.cell_model)
+    g = torch.Generator(device=dev).manual_seed(11)
+    pose = gt[40]
+    cand = pose + torch.randn((64, 3), generator=g, device=dev) * torch.tensor(
+        [0.3, 0.3, 0.1], device=dev)
+    half_off = pose + torch.randn((64, 3), generator=g, device=dev) * torch.tensor(
+        [6.0, 6.0, 3.0], device=dev) + torch.tensor([9.0, 0.0, 0.0], device=dev)
+    max_err = 0.0
+    for red in [kernels.BILINEAR, *reducer_variants()]:
+        prep = scoring.prepare(view, scans[40], reducer_scoring(red))
+        for label, poses in (("K=64", cand), ("half off the map", half_off), ("K=1", cand[:1])):
+            whole = kernels.overlap_score(prep.plane, poses, prep.pts, prep.beam_w, prep.origin,
+                                          prep.scale, prep.unknown, red)
+            for d in PARTIAL_SPLITS:
+                sums = torch.zeros((poses.shape[0], 2), device=dev)
+                for band, g0, r0, r1 in partial_bands(prep.plane, red, d):
+                    args = (band, g0, MAP, poses, prep.pts, prep.beam_w, prep.origin,
+                            prep.scale, prep.unknown, r0, r1, red)
+                    got = kernels.overlap_score_partial(*args)
+                    twin = kernels.overlap_score_partial_ref(*args)
+                    # the sums (num, den) relative to their size; the score
+                    # num / den (a band's mean) as an absolute difference
+                    rel = float(((got - twin).abs() / twin.abs().clamp(min=1.0)).max())
+                    err = float((partial_mean(got) - partial_mean(twin)).abs().max())
+                    check(rel <= TOL and err <= TOL,
+                          f"overlap_score_partial [{reducer_label(red)}, {label}, rows {r0}-{r1}]"
+                          f": sums {rel} (relative), mean {err} from its twin")
+                    check(torch.equal(kernels.overlap_score_partial(*args), got),
+                          "overlap_score_partial: two launches differ")
+                    max_err = max(max_err, err)
+                    sums += got
+                score = sums[:, 0] / sums[:, 1].clamp(min=1e-9)
+                gap = float(((score - whole).abs() / whole.abs().clamp(min=1.0)).max())
+                check(gap <= TOL, f"overlap_score_partial: {d} bands' sums {gap} from overlap_score")
+        print(f"overlap_score_partial [{reducer_label(red)}]: every band of {PARTIAL_SPLITS} row "
+              f"partitions within {TOL:g} of its twin (its sums relative, its mean absolute), the "
+              f"bands' sums within {TOL:g} x max(1, |s|) of overlap_score (K = 64, 64 half off "
+              f"the map, 1)", flush=True)
+    prep = scoring.prepare(view, scans[40], reducer_scoring(kernels.BILINEAR))
+    band, g0, r0, r1 = partial_bands(prep.plane, kernels.BILINEAR, 2)[0]
+    args = (band, g0, MAP, cand, prep.pts, prep.beam_w, prep.origin, prep.scale, prep.unknown,
+            r0, r1)
+    ms, plain_ms, chained = time_pair(lambda: kernels.overlap_score_partial(*args),
+                                      lambda: kernels.overlap_score_partial_ref(*args))
+    device_ms = graph_ms(lambda: kernels.overlap_score_partial(*args))
+    n_bytes, n_ops = partial_work(MAP, MAP, cand, prep.pts, prep.beam_w, prep.origin, prep.scale,
+                                  r0, r1, kernels.BILINEAR)
+    b_ms, by = bound_ms(n_bytes, n_ops)
+    print(f"overlap_score_partial K=64 R=360, rows {r0}-{r1} of 256 (+1 halo row): device "
+          f"{device_ms * 1e3:.2f} us (50 launches replayed from a CUDA graph), kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of 100 calls each, CUDA events), kernel "
+          f"{chained:.4f} ms a launch over 200 back to back; bound {b_ms:.7f} ms by {by} "
+          f"({n_bytes} B, {n_ops} operations) on {smi}; no single PyTorch call computes it",
+          flush=True)
+    return {
+        "name": "overlap_score_partial", "route": "cuda",
+        "source": "slam_constructor_tpu_torch/csrc/overlap_score.cu",
+        "replaces": "slam_constructor_tpu/ops/pallas_kernels.py:73",
+        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "chained_ms": chained,
+        "device_ms": device_ms, "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+    }
+
+
+def steps_agree(name, got, want, tol=PAR_TOL):
+    """Per-step (ancestors, poses, log-weights) of two runs: ancestors
+    equal, the rest within ``tol``; returns the largest differences."""
+    worst = [0.0, 0.0]
+    for i, ((a1, p1, w1), (a2, p2, w2)) in enumerate(zip(got, want)):
+        check(torch.equal(a1, a2), f"{name}: ancestors differ at scan {i}")
+        dp = p1 - p2
+        dp = torch.cat([dp[:, :2], torch.atan2(torch.sin(dp[:, 2:]), torch.cos(dp[:, 2:]))], 1)
+        worst = [max(worst[0], float(dp.abs().max())), max(worst[1], float((w1 - w2).abs().max()))]
+    check(worst[0] <= tol and worst[1] <= tol,
+          f"{name}: poses {worst[0]}, log-weights {worst[1]} from the unsharded port (tol {tol})")
+    return worst
+
+
+def run_rbpf_steps(step, state, scans, odom, draws=None, generator=None):
+    """Steps of an RBPF step function over ``scans``; returns the state,
+    (ancestors, poses, log-weights) a step and the seconds."""
+    out = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(len(scans)):
+        state, idx = step(state, scans[i], odom[i], None if draws is None else draws[i], generator)
+        out.append((idx, state.poses, state.log_weights))
+    torch.cuda.synchronize()
+    return state, out, time.perf_counter() - t0
+
+
+def phase_parallel(dev, scans, odom, gt, fscans, fodom, fgt, smi):
+    """The multi-device layer in an NCCL group of world size 1 set up in
+    this process (127.0.0.1, a free port; one H100 cannot host two NCCL
+    ranks), each path against the unsharded port on the card: the
+    ``distributed`` preset (its full width, ``GMappingConfig()``), the
+    ``ep_cow`` step and the ``ep2d`` 1 x 1 step at the copy-on-write cell's
+    config, the row-sharded block map's inserts and scores, the halo and
+    beam-sharded scores at every reducer, ``distributed_optimize`` on the
+    full path's graph, a heartbeat and a ``RecoveryLoop`` round trip. The
+    group is torn down at the end. Returns the launches of each path."""
+    import torch.distributed as dist
+
+    from slam_constructor_tpu_torch.models import gmapping, posegraph
+    from slam_constructor_tpu_torch.ops import blockmap, cells, kernels, raycast, scoring
+    from slam_constructor_tpu_torch.parallel import blockshard, dist_ba, ep2d, ep_cow, halo
+    from slam_constructor_tpu_torch.parallel import mesh as meshlib
+    from slam_constructor_tpu_torch.parallel import multihost
+    from slam_constructor_tpu_torch.utils import config as cfglib
+
+    n = PAR_SCANS
+    s_, o_ = scans[:n], odom[:n]
+    meshlib.init(0, 1, torch.device("cuda", 0), f"tcp://127.0.0.1:{meshlib.free_port()}")
+    launches = {}
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"parallel: group {dist.get_backend()} of {dist.get_world_size()}")
+        print(f"parallel: an NCCL group of world size 1 on {smi}", flush=True)
+
+        # the distributed preset at its full width, against the unsharded step
+        cfg, st, step = cfglib.preset("distributed")()
+        check(st.poses.device.type == "cuda", "distributed preset: state not on the card")
+        run_rbpf_steps(step, st, s_[:PAR_WARMUP], o_[:PAR_WARMUP],
+                       generator=torch.Generator(dev).manual_seed(1))  # the communicators
+        cfg, st, step = cfglib.preset("distributed")()
+        st.poses = gt[0].expand(cfg.n_particles, 3).clone()
+        ref = gmapping.init_state(cfg)
+        ref.poses = st.poses.clone()
+        reset_launches()
+        _, want, secs_ref = run_rbpf_steps(functools.partial(gmapping.gmapping_step, cfg), ref,
+                                           s_, o_, generator=torch.Generator(dev).manual_seed(3))
+        want_launches = read_launches()
+        reset_launches()
+        st, got, secs = run_rbpf_steps(step, st, s_, o_,
+                                       generator=torch.Generator(dev).manual_seed(3))
+        launches["distributed preset"] = read_launches()
+        worst = steps_agree("distributed preset", got, want)
+        check(launches["distributed preset"] == want_launches
+              and want_launches["mc_match_batched"] == n,
+              f"distributed preset: launches {launches['distributed preset']}, the unsharded "
+              f"step's {want_launches}")
+        print(f"distributed preset ({cfg.n_particles} particles, whole {cfg.map_height}^2 maps, "
+              f"{cfg.matcher_cfg.batch} x {cfg.matcher_cfg.rounds} rounds), {n} scans: "
+              f"{n / secs:.1f} scans/s sharded, {n / secs_ref:.1f} unsharded on {smi}; ancestors "
+              f"equal, poses {worst[0]:.2e}, log-weights {worst[1]:.2e} from the unsharded step "
+              f"(tol {PAR_TOL:g}); launches {launches['distributed preset']}", flush=True)
+
+        # the copy-on-write pools a rank, and 1 x 1 of particles x bands
+        ccfg = cow_config()
+        draws = rbpf_draws(ccfg, n).to(dev)
+        ref = gmapping.init_state(ccfg)
+        ref.poses = gt[0].expand(ccfg.n_particles, 3).clone()
+        reset_launches()
+        ref, want, secs_ref = run_rbpf_steps(functools.partial(gmapping.gmapping_step, ccfg), ref,
+                                             s_, o_, draws)
+        want_launches = read_launches()
+        want_planes = ep_cow.particle_planes(ref.gm, ccfg.cell_model)
+        chips = meshlib.flat_mesh("chips")
+        grid = meshlib.grid_mesh((1, 1), ep2d.AXES)
+        for name, init, make, maps in (
+                ("ep_cow", lambda: ep_cow.init_ep_state(ccfg, chips, "chips",
+                                                        ccfg.tile_capacity, dev),
+                 lambda: ep_cow.make_ep_step(ccfg, chips, "chips"), lambda g_: g_),
+                ("ep2d 1x1", lambda: ep2d.init_ep2d_state(ccfg, grid, ccfg.tile_capacity, dev),
+                 lambda: ep2d.make_ep2d_step(ccfg, grid), lambda g_: g_.band)):
+            run_rbpf_steps(make(), init(), s_[:PAR_WARMUP], o_[:PAR_WARMUP], draws)
+            st = init()
+            st.poses = gt[0].expand(ccfg.n_particles, 3).clone()
+            reset_launches()
+            st, got, secs = run_rbpf_steps(make(), st, s_, o_, draws)
+            launches[name] = read_launches()
+            worst = steps_agree(name, got, want)
+            planes = ep_cow.particle_planes(maps(st.gm), ccfg.cell_model)
+            gap = float((planes - want_planes).abs().max())
+            check(gap <= PAR_TOL, f"{name}: maps {gap} from the unsharded copy-on-write step")
+            check(launches[name] == want_launches,
+                  f"{name}: launches {launches[name]}, the unsharded step's {want_launches}")
+            check(not bool(maps(st.gm).overflow), f"{name}: the pool overflowed")
+            print(f"{name} at the copy-on-write cell ({ccfg.n_particles} particles, "
+                  f"{ccfg.tile_capacity} blocks), {n} scans: {n / secs:.1f} scans/s, the "
+                  f"unsharded step {n / secs_ref:.1f}, on {smi}; "
+                  f"ancestors equal, poses {worst[0]:.2e}, log-weights {worst[1]:.2e}, maps "
+                  f"{gap:.2e} from the unsharded step; launches {launches[name]}", flush=True)
+
+        # the block map sharded by tile rows: inserts and scores
+        model, beam = cells.BayesAvgCell(), raycast.BeamConfig()
+        sc = scoring.ScoringConfig(reducer="overlap", window=1)
+        sbm = blockshard.make_sharded_block_map(model, 8, 8, 64, chips, "chips", 32, 0.1,
+                                                device=dev)
+        bm = blockmap.make_block_map(model, 8, 8, 64, 32, 0.1, device=dev)
+        g = torch.Generator(dev).manual_seed(5)
+        cands = [gt[i] + torch.randn((64, 3), generator=g, device=dev) * 0.2 for i in range(n)]
+        reset_launches()
+        sharded = []
+        for i in range(n):
+            blockshard.insert_scan(sbm, model, gt[i], s_[i], beam)
+            sharded.append(blockshard.score_poses(sbm, model, s_[i], cands[i], sc, chips))
+        torch.cuda.synchronize()
+        launches["blockshard"] = read_launches()
+        gap = 0.0
+        for i in range(n):
+            blockmap.insert_scan(bm, model, gt[i], s_[i], beam)
+            view = scoring.MapView.of(blockmap.extract_window(bm, model, torch.zeros(2, device=dev),
+                                                              8, 8), model)
+            whole = scoring.score_poses(view, s_[i], cands[i], sc)
+            gap = max(gap, float(((sharded[i] - whole).abs() / whole.abs().clamp(min=1.0)).max()))
+        plane = blockshard.gather_value_plane(sbm, model, chips)
+        plane_gap = float((plane - torch.where(view.known, view.occ, 0.5)).abs().max())
+        check(torch.equal(sbm.band.table, bm.table) and torch.equal(sbm.band.n_alloc, bm.n_alloc),
+              "blockshard: tables or allocation differ from the unsharded tiled map")
+        check(gap <= TOL and plane_gap <= PAR_TOL,
+              f"blockshard: scores {gap}, value plane {plane_gap} from the unsharded map")
+        check(launches["blockshard"] == expect(pool_prepare=n, pool_insert=n,
+                                               overlap_score_partial=n),
+              f"blockshard: launches {launches['blockshard']}")
+        print(f"blockshard (8 x 8 tiles of 32, {int(bm.n_alloc)} blocks), {n} inserts and "
+              f"scores of K = 64: scores within {gap:.2e} x max(1, |s|), the value plane "
+              f"{plane_gap:.2e} of the unsharded tiled map's, tables equal; launches "
+              f"{launches['blockshard']}", flush=True)
+
+        # the halo and beam-sharded scores of the tiled map's view, every reducer
+        reset_launches()
+        gap = 0.0
+        for red in [kernels.BILINEAR, *reducer_variants()]:
+            c = reducer_scoring(red)
+            whole = scoring.score_poses(view, s_[-1], cands[-1], c)
+            for fn in (halo.sharded_score_poses, halo.beam_sharded_score_poses):
+                got = fn(view, s_[-1], cands[-1], c, chips, "chips")
+                gap = max(gap, float(((got - whole).abs() / whole.abs().clamp(min=1.0)).max()))
+        launches["halo"] = read_launches()
+        n_red = 1 + len(REDUCER_VARIANTS)
+        check(gap <= TOL, f"halo: sharded scores {gap} from score_poses")
+        check(launches["halo"]["overlap_score_partial"] == 2 * n_red,
+              f"halo: launches {launches['halo']}")
+        print(f"halo: row- and beam-sharded scores at {n_red} reducers within {gap:.2e} x "
+              f"max(1, |s|) of score_poses; launches {launches['halo']}", flush=True)
+
+        # the pose graph of the full path, solved over the group
+        e, *_ = run_full_path(full_config(), fscans, fodom, fgt, 0)
+        gcfg, graph = e.cfg.graph, e.graph
+        hosts = meshlib.make_mesh()
+        local = posegraph.optimize(gcfg, graph).kf_poses
+        direct = dist_ba.distributed_optimize(gcfg, graph, hosts, "hosts").kf_poses
+        split = max(int(graph.n_kf) // 2, 1)
+        schur = dist_ba.distributed_optimize(gcfg, graph, hosts, "hosts", schur_split=split).kf_poses
+        d_gap = float((direct - local).abs().max())
+        s_gap = float((schur - direct).abs().max())
+        check(bool(torch.isfinite(direct).all()) and d_gap <= 1e-5 and s_gap <= SCHUR_TOL,
+              f"distributed_optimize: {d_gap} from optimize, Schur {s_gap} from direct")
+        print(f"distributed_optimize on the full path's graph ({int(graph.n_kf)} keyframes, "
+              f"{int(graph.n_edges)} edges): {d_gap:.2e} from posegraph.optimize (tol 1e-5), "
+              f"Schur at {split} keyframes {s_gap:.2e} from the direct solve (tol {SCHUR_TOL:g})",
+              flush=True)
+
+        # liveness and recovery
+        alive = multihost.heartbeat(hosts, "hosts", timeout_s=30.0)
+        check(alive, "heartbeat: the one-rank group did not answer")
+        cfg, st, step = cfglib.preset("distributed")()
+        st.poses = gt[0].expand(cfg.n_particles, 3).clone()
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_recovery",
+                            "rbpf")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        loop = multihost.RecoveryLoop(path, save_every=16)
+
+        def fresh():
+            return {"state": st, "generator": torch.Generator(dev).manual_seed(9)}
+
+        for f in (path + ".npz", path + ".tmp.npz"):
+            if os.path.exists(f):
+                os.remove(f)
+        run, resumed = loop.restore_or(fresh(), fresh)
+        check(not resumed, "RecoveryLoop: a snapshot before the first tick")
+        for i in range(16):
+            s1, _ = step(run["state"], scans[i], odom[i], generator=run["generator"])
+            run = {"state": s1, "generator": run["generator"]}
+            loop.tick(run)
+        for i in range(16, 32):
+            s1, _ = step(run["state"], scans[i], odom[i], generator=run["generator"])
+            run = {"state": s1, "generator": run["generator"]}
+        back, resumed = multihost.RecoveryLoop(path, save_every=16).restore_or(fresh(), fresh)
+        for i in range(16, 32):
+            s1, _ = step(back["state"], scans[i], odom[i], generator=back["generator"])
+            back = {"state": s1, "generator": back["generator"]}
+        same = resumed and all(torch.equal(getattr(back["state"], f), getattr(run["state"], f))
+                               for f in ("poses", "log_weights", "step")) and torch.equal(
+            back["state"].gm.cells, run["state"].gm.cells)
+        check(same, "RecoveryLoop: the resumed run differs from the unbroken one")
+        print(f"heartbeat: {alive}; RecoveryLoop: the distributed preset saved after 16 scans, "
+              f"restored and run 16 more equal to the unbroken run bit for bit", flush=True)
+    finally:
+        meshlib.shutdown()
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke run needs an NVIDIA GPU",
@@ -5487,6 +5918,11 @@ def main() -> None:
                                  smi)
     k_slots[0]["gmapping_slots"] = slot_summary
 
+    # slice 7: the multi-device layer in an NCCL group of one (torn down
+    # before the next phase), then the partial score's kernel mode
+    par_launches = phase_parallel(dev, scans, odom, gt, fscans, fodom, fgt, smi)
+    k_part = phase_partial_kernel(dev, scans, gt, smi)
+
     # `launches`: of a main path's timed run, held to the expected counts
     # above: the viny path's for the kernels of the earlier slices, the full
     # path's for the batched score, the gmapping path's for the particle
@@ -5519,14 +5955,20 @@ def main() -> None:
                 levels_launches[k["name"]],
             "gmapping cow": cow_launches[k["name"]],
             **{f"cli {name}": counts[k["name"]] for name, counts in cli_launches.items()},
-            **{name: counts[k["name"]] for name, counts in slot_paths.items()}}
+            **{name: counts[k["name"]] for name, counts in slot_paths.items()},
+            **{f"{name} (NCCL, world 1)": counts[k["name"]]
+               for name, counts in par_launches.items()}}
     # the reducer variants of the particle match: launches of the gmapping
     # preset's timed run, by reducer (the path scores with the obstacle one)
     for k in k_red:
         k["launches"] = base_by_reducer[k["name"].split(" ")[0]]
         k["launches_by_path"] = {"gmapping preset": k["launches"]}
+    # the partial score: launches of the row-sharded block map's run
+    k_part["launches"] = par_launches["blockshard"]["overlap_score_partial"]
+    k_part["launches_by_path"] = {f"{name} (NCCL, world 1)": counts["overlap_score_partial"]
+                                  for name, counts in par_launches.items()}
     print(json.dumps({"kernels": [k1, k3, k2, k4, k5, k6, k7, k8, k9, k10, k11, k12, k13,
-                                  k14, k15, k16, *k_red, *k_slots]}),
+                                  k14, k15, k16, *k_red, *k_slots, k_part]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

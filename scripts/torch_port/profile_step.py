@@ -37,6 +37,14 @@ on the windows in place) and the resampling, and the launches of the port's kern
 from ``torch.profiler`` the device's kernel time as a share of the
 unprofiled wall time and the kernels with the most device time.
 
+``--preset gmapping_baseline`` profiles the same phases on the BASELINE
+gmapping preset (``utils.config.preset('gmapping')``: ``GMappingConfig()``,
+30 whole 256^2 maps, the obstacle reducer, 16 x 6 rounds) over the bench
+sequence, and ``--preset tum_2d`` on ``configs/tum_2d.properties`` (30
+particles, 384^2 windows of 1024^2 maps at 0.05 m, the improved proposal
+and its probes) over the CLI's synthetic sequence. Scans are timed with
+``utils.profiling.StepTimer`` (a synchronise before and after).
+
 With ``--preset gmapping_cow`` or ``--preset mit_stata`` it profiles a
 block-pool path: the copy-on-write RBPF (``chip_smoke.cow_config``) over the
 bench sequence, or the tiled map of ``configs/mit_stata.properties`` over the
@@ -104,6 +112,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[2]))  # the checkout's root
 
+from slam_constructor_tpu_torch.utils.profiling import StepTimer  # noqa: E402
+
 
 class CountOps(TorchDispatchMode):
     """Counts the ATen calls made under it, and keeps their names."""
@@ -120,19 +130,30 @@ class CountOps(TorchDispatchMode):
 
 
 def synced_ms(fn, calls):
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    """ms a call of ``fn``, each call between synchronises
+    (``utils.profiling.StepTimer``)."""
+    timer = StepTimer()
     for _ in range(calls):
+        with timer:
+            fn()
+    return timer.summary()["mean_ms"]
+
+
+def run_seconds(fn) -> float:
+    """Seconds of ``fn()``, the card synchronised before and after
+    (``utils.profiling.StepTimer``)."""
+    timer = StepTimer()
+    with timer:
         fn()
-        torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / calls * 1e3
+    return timer.samples[-1]
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--preset", choices=("tiny", "viny", "viny_m3rsm", "full", "gmapping",
-                                         "tiny_refined", "mit_csail", "gmapping_cow",
-                                         "mit_stata"), default="viny")
+                                         "gmapping_baseline", "tum_2d", "tiny_refined",
+                                         "mit_csail", "gmapping_cow", "mit_stata"),
+                    default="viny")
     ap.add_argument("--scans", type=int, default=64)
     ap.add_argument("--slot", default=None, metavar="MATCHER[+REFINE]",
                     help="--preset gmapping: a matcher slot of chip_smoke.GM_SLOTS "
@@ -153,8 +174,8 @@ def main() -> None:
     if args.preset == "full":
         profile_full(args.loop)
         return
-    if args.preset == "gmapping":
-        profile_gmapping(args.scans, args.slot)
+    if args.preset in ("gmapping", "gmapping_baseline", "tum_2d"):
+        profile_gmapping(args.scans, args.slot, args.preset)
         return
     if args.preset == "viny_m3rsm":
         profile_m3rsm(args.scans)
@@ -185,10 +206,7 @@ def main() -> None:
     torch.cuda.synchronize()
     warm = e.state
 
-    t0 = time.perf_counter()
-    e.run(scans[n_warm:], odom[n_warm:])
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
+    secs = run_seconds(lambda: e.run(scans[n_warm:], odom[n_warm:]))
     print(f"{args.preset}: {n} scans in {secs:.3f} s = {n / secs:.1f} scans/s "
           f"({secs / n * 1e3:.3f} ms a scan)")
 
@@ -344,10 +362,7 @@ def profile_m3rsm(n: int) -> None:
     e.run(scans[:n_warm], odom[:n_warm])
     torch.cuda.synchronize()
     warm = e.state
-    t0 = time.perf_counter()
-    e.run(scans[n_warm:n_warm + n], odom[n_warm:n_warm + n])
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
+    secs = run_seconds(lambda: e.run(scans[n_warm:n_warm + n], odom[n_warm:n_warm + n]))
     print(f"viny_m3rsm: {n} scans in {secs:.3f} s = {n / secs:.1f} scans/s "
           f"({secs / n * 1e3:.3f} ms a scan)")
 
@@ -480,11 +495,7 @@ def profile_refine(preset: str, n: int) -> None:
         setattr(kernels, name, fn)
         try:
             e.state = warm
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            e.run(scans[n_warm:], odom[n_warm:])
-            torch.cuda.synchronize()
-            return time.perf_counter() - t0
+            return run_seconds(lambda: e.run(scans[n_warm:], odom[n_warm:]))
         finally:
             setattr(kernels, name, fused)
 
@@ -578,33 +589,48 @@ def profile_refine(preset: str, n: int) -> None:
                    "overlap_score_grad_kernel", "overlap_score_kernel", "insert_kernel"))
 
 
-def profile_gmapping(n: int, slot: str | None = None) -> None:
+def gmapping_setup(preset: str, slot: str | None, n: int, dev):
+    """(config, scans, odom, gt) of an RBPF preset: bench.py's ``gmapping``
+    (or one of its slots) and the BASELINE preset (``utils.config.preset(
+    'gmapping')``: ``GMappingConfig()``, 30 whole 256^2 maps) over the bench
+    sequence; ``tum_2d`` (``configs/tum_2d.properties`` at its widths: 30
+    particles, 384^2 windows of 1024^2 maps, the improved proposal) over
+    the CLI's synthetic sequence of 2 n scans."""
     from chip_smoke import bench_sequence, gmapping_config, gmapping_slot_config
+    from slam_constructor_tpu_torch import run
+    from slam_constructor_tpu_torch.utils import config as cfglib
+
+    if preset == "tum_2d":
+        args = run.parse_args(["--config", "configs/tum_2d.properties", "--synthetic", "cecum",
+                               "--trajectory", "rectangle", "--steps", str(2 * n),
+                               "--out", "build/profile_tum_2d"])
+        return (cfglib.gmapping_config_from(cfglib.load_properties(args.config)),
+                *run.load_data(args, dev))
+    if preset == "gmapping_baseline":
+        cfg = cfglib.preset("gmapping")(device=dev).cfg
+    else:
+        cfg = gmapping_slot_config(*(*slot.split("+"), None)[:2]) if slot else gmapping_config()
+    return (cfg, *bench_sequence(dev))
+
+
+def profile_gmapping(n: int, slot: str | None = None, preset: str = "gmapping") -> None:
     from slam_constructor_tpu_torch.models import gmapping
     from slam_constructor_tpu_torch.ops import grid as gridlib
     from slam_constructor_tpu_torch.ops import kernels, raycast, resample
-    from slam_constructor_tpu_torch.ops.geometry import compose
-    from slam_constructor_tpu_torch.ops.scan import LaserScan
     from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
-    scans, odom, gt = bench_sequence(dev)
-    cfg = gmapping_config()
-    if slot:
-        cfg = gmapping_slot_config(*(*slot.split("+"), None)[:2])
+    cfg, scans, odom, gt = gmapping_setup(preset, slot, n, dev)
     p = cfg.n_particles
     e = gmapping.GMappingEngine(cfg, seed=0)
     e.state.poses = gt[0].expand(p, 3).clone()
     e.run(scans[:n], odom[:n])  # warm-up, and the maps hold n scans
     torch.cuda.synchronize()
     warm = e.state
-    t0 = time.perf_counter()
-    e.run(scans[n:2 * n], odom[n:2 * n])
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    print(f"gmapping{' ' + slot if slot else ''} ({p} particles): {n} scans in {secs:.3f} s = "
+    secs = run_seconds(lambda: e.run(scans[n:2 * n], odom[n:2 * n]))
+    print(f"{preset}{' ' + slot if slot else ''} ({p} particles): {n} scans in {secs:.3f} s = "
           f"{n / secs:.1f} scans/s "
           f"({secs / n * 1e3:.3f} ms a scan)")
 
@@ -637,18 +663,12 @@ def profile_gmapping(n: int, slot: str | None = None) -> None:
 
             def propose():
                 d = gmapping.draw(cfg, gen, dev)
-                base = gmapping._vec3(cfg.noise_xy, cfg.noise_xy, cfg.noise_theta, dev)
-                alpha = gmapping._vec3(cfg.alpha_xy, cfg.alpha_xy, cfg.alpha_theta, dev)
-                sigma = base + alpha * torch.abs(od)
-                return (d, sigma, compose(state.poses, od[None, :] + d.proposal * sigma),
-                        compose(state.poses, od.expand(p, 3)))
+                return (d, *gmapping.propose(cfg, state.poses, od, d.proposal))
 
             d, sigma, priors, centers = phase("proposal", propose)
 
             def windows():  # on the bench preset the windows' corners only: read in place
-                sc = LaserScan(scan.ranges.expand(p, -1), scan.bearings.expand(p, -1),
-                               scan.valid.expand(p, -1))
-                return sc, gmapping.match_view(cfg, state.gm, priors)
+                return gmapping.expand_scan(scan, p), gmapping.match_view(cfg, state.gm, priors)
 
             sc, view = phase("windows", windows)
             poses, incr = phase("match", lambda: gmapping.match_particles(
@@ -760,10 +780,7 @@ def profile_pool(preset: str, n: int) -> None:
     torch.cuda.synchronize()
     warm = e.state
     e.state = _clone_pool_state(warm, rbpf)
-    t0 = time.perf_counter()
-    e.run(scans[n:2 * n], odom[n:2 * n])
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
+    secs = run_seconds(lambda: e.run(scans[n:2 * n], odom[n:2 * n]))
     print(f"{preset}: {n} scans in {secs:.3f} s = {n / secs:.1f} scans/s "
           f"({secs / n * 1e3:.3f} ms a scan)")
 
@@ -794,15 +811,10 @@ def profile_pool(preset: str, n: int) -> None:
 
                 def propose():
                     d = gmapping.draw(cfg, gen, dev)
-                    base = gmapping._vec3(cfg.noise_xy, cfg.noise_xy, cfg.noise_theta, dev)
-                    alpha = gmapping._vec3(cfg.alpha_xy, cfg.alpha_xy, cfg.alpha_theta, dev)
-                    sigma = base + alpha * torch.abs(od)
-                    return (d, sigma, compose(state.poses, od[None, :] + d.proposal * sigma),
-                            compose(state.poses, od.expand(p, 3)))
+                    return (d, *gmapping.propose(cfg, state.poses, od, d.proposal))
 
                 d, sigma, priors, centers = phase("proposal", propose)
-                sc = LaserScan(scan.ranges.expand(p, -1), scan.bearings.expand(p, -1),
-                               scan.valid.expand(p, -1))
+                sc = gmapping.expand_scan(scan, p)
                 wt = cfg.window_tiles
                 view = phase("windows", lambda: scoring.MapView.of(cow.extract_window(
                     state.gm, cfg.cell_model, None, priors[:, :2], wt, wt), cfg.cell_model))
@@ -902,11 +914,7 @@ def profile_full(loop: str | None = None) -> None:
         e.state.pose = gt[0].clone()
         if instrument:
             instrument(e)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        e.run(scans, odom, segment=N_SCANS)
-        torch.cuda.synchronize()
-        return e, time.perf_counter() - t0
+        return e, run_seconds(lambda: e.run(scans, odom, segment=N_SCANS))
 
     engine_run()  # warm-up
     for _ in range(2):

@@ -49,7 +49,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import warnings
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -157,6 +157,13 @@ class Draws:
 
     def __getitem__(self, i) -> "Draws":
         return Draws(**{f.name: None if (v := getattr(self, f.name)) is None else v[i]
+                        for f in dataclasses.fields(self)})
+
+    def part(self, lo: int, hi: int) -> "Draws":
+        """Particles [lo, hi) of one step's draws; the comb's offset is
+        every particle's."""
+        return Draws(**{f.name: None if (v := getattr(self, f.name)) is None
+                        else (v if f.name == "u0" else v[lo:hi])
                         for f in dataclasses.fields(self)})
 
     def to(self, device) -> "Draws":
@@ -318,6 +325,135 @@ def match_particles(cfg: GMappingConfig, view, scans, priors, centers, sigma, dr
     return res.pose, cfg.weight_gamma * torch.log(res.prob + 1e-6)
 
 
+def propose(cfg: GMappingConfig, poses: Tensor, odom_delta: Tensor, noise: Tensor):
+    """The proposal of the particles at ``poses`` f32[N, 3]: odometry plus
+    motion noise, ``noise`` f32[N, 3] their standard normals scaled by the
+    motion model's spread. Returns (the spread sigma f32[3], the priors
+    f32[N, 3], the noiseless motion centres f32[N, 3], which the improved
+    proposal needs)."""
+    dev = poses.device
+    base = _vec3(cfg.noise_xy, cfg.noise_xy, cfg.noise_theta, dev)
+    alpha = _vec3(cfg.alpha_xy, cfg.alpha_xy, cfg.alpha_theta, dev)
+    sigma = base + alpha * torch.abs(odom_delta)
+    priors = compose(poses, odom_delta[None, :] + noise * sigma)
+    centers = compose(poses, odom_delta.expand(poses.shape[0], 3))
+    return sigma, priors, centers
+
+
+def expand_scan(scan: LaserScan, n: int) -> LaserScan:
+    """The scan once for each of ``n`` particles (views, no copy)."""
+    return LaserScan(scan.ranges.expand(n, -1), scan.bearings.expand(n, -1),
+                     scan.valid.expand(n, -1))
+
+
+def _identity(x):
+    return x
+
+
+@dataclasses.dataclass(frozen=True)
+class StepOps:
+    """What an RBPF step does that depends on where its particles and maps
+    live; the step itself (:func:`rbpf_step`) is the same on one device
+    and over ranks. A process holds the particles ``span`` = [lo, hi) of P
+    (None: all of them), and the maps ``gm`` of those.
+
+    - ``match(gm, scans, priors, centers, sigma, draws)`` -> (poses,
+      log-weight increments) of its particles;
+    - ``insert(gm, poses, scans)`` -> its maps with their scans;
+    - ``take(gm, idx, did)`` -> the maps of its new particles, from every
+      particle's ancestor ``idx`` i64[P] (the same in every process);
+      ``did`` bool[] says whether resampling fired;
+    - ``normalize(logw)`` -> its log-weights normalised over all P;
+    - ``gather(x)`` -> every process's ``x`` along the particle axis.
+    """
+
+    match: Callable
+    insert: Callable
+    take: Callable
+    span: tuple[int, int] | None = None
+    normalize: Callable = resample.normalize_log_weights
+    gather: Callable = _identity
+
+
+def match_dense(cfg: GMappingConfig, gm: gridlib.GridMap, scans, priors, centers, sigma,
+                draws: Draws):
+    """The particles matched on their own dense maps (:func:`match_view`,
+    then :func:`match_particles`)."""
+    return match_particles(cfg, match_view(cfg, gm, priors), scans, priors, centers, sigma, draws)
+
+
+def insert_dense(cfg: GMappingConfig, gm: gridlib.GridMap, poses: Tensor, scans):
+    """Every particle's scan into its map, on a window around its pose."""
+    return raycast.insert_scan_windows(gm, cfg.cell_model, poses, scans, cfg.beam,
+                                       cfg.insert_window)
+
+
+def take_dense(gm: gridlib.GridMap, idx: Tensor, did=None) -> gridlib.GridMap:
+    """The ancestors' maps. The gather runs every scan, with the identity
+    while Neff is healthy: no host read."""
+    return gridlib.GridMap(cells=gm.cells.index_select(0, idx),
+                           origin=gm.origin.index_select(0, idx), scale=gm.scale)
+
+
+def match_cow(cfg: GMappingConfig, st: cow.CowBlockMaps, scans, priors, centers, sigma,
+              draws: Draws):
+    """The particles matched on the ``window_tiles`` window of their tables
+    around their priors (the windows cut out of the pool in one gather)."""
+    wt = cfg.window_tiles
+    win = cow.extract_window(st, cfg.cell_model, None, priors[:, :2], wt, wt)
+    view = scoring.MapView.of(win, cfg.cell_model)
+    return match_particles(cfg, view, scans, priors, centers, sigma, draws)
+
+
+def local_ops(cfg: GMappingConfig) -> StepOps:
+    """The step's parts on one device: the P maps dense, or tables over
+    the one copy-on-write pool (the touched tiles made each particle's
+    own, the P scans inserted in one launch, the tables resampled)."""
+    if cfg.map_storage == "cow":
+        return StepOps(
+            match=functools.partial(match_cow, cfg),
+            insert=lambda st, poses, scans: cow.insert_scans(st, cfg.cell_model, poses, scans,
+                                                             cfg.beam),
+            take=lambda st, idx, did: cow.resample(st, idx))
+    return StepOps(match=functools.partial(match_dense, cfg),
+                   insert=functools.partial(insert_dense, cfg), take=take_dense)
+
+
+def rbpf_step(cfg: GMappingConfig, ops: StepOps, state: GMappingState, scan: LaserScan,
+              odom_delta: Tensor, draws: Draws | None = None,
+              generator: torch.Generator | None = None):
+    """One RBPF step of the particles ``state`` holds, ``ops`` saying where
+    they live: propose -> match -> weight -> insert -> resample. ``draws``
+    holds the whole step's random numbers (every process's the same), or
+    ``generator`` draws them; each process uses its particles' slice.
+    Returns (state, ancestor indices i64[P])."""
+    if draws is None:
+        draws = draw(cfg, generator, state.poses.device)
+    lo, hi = ops.span or (0, cfg.n_particles)
+    mine = draws.part(lo, hi)
+
+    # 1. proposal: odometry + per-particle motion noise
+    sigma, priors, centers = propose(cfg, state.poses, odom_delta, mine.proposal)
+    scans = expand_scan(scan, hi - lo)
+
+    # 2. every particle against its own map, in one launch
+    poses, incr = ops.match(state.gm, scans, priors, centers, sigma, mine)
+
+    # 3. weight update
+    logw = ops.normalize(state.log_weights + incr)
+
+    # 4. insert the scan into every particle's map
+    gm = ops.insert(state.gm, poses, scans)
+
+    # 5. conditional systematic resampling: the ancestors from every
+    # particle's weight, the same in every process
+    idx, logw, did = resample.maybe_resample(draws.u0, ops.gather(logw), cfg.resample_threshold)
+    state = GMappingState(gm=ops.take(gm, idx, did),
+                          poses=ops.gather(poses).index_select(0, idx[lo:hi]),
+                          log_weights=logw[lo:hi], step=state.step + 1)
+    return state, idx
+
+
 def gmapping_step(
     cfg: GMappingConfig,
     state: GMappingState,
@@ -326,65 +462,9 @@ def gmapping_step(
     draws: Draws | None = None,
     generator: torch.Generator | None = None,
 ):
-    """One RBPF step: propose -> match -> weight -> insert -> resample.
-    Returns (state, ancestor indices i64[P]). ``draws`` injects the step's
-    random numbers; otherwise they come from ``generator``."""
-    p = cfg.n_particles
-    dev = state.poses.device
-    if draws is None:
-        draws = draw(cfg, generator, dev)
-
-    # 1. proposal: odometry + per-particle motion noise; the improved
-    # proposal also needs the noiseless motion centres
-    base = _vec3(cfg.noise_xy, cfg.noise_xy, cfg.noise_theta, dev)
-    alpha = _vec3(cfg.alpha_xy, cfg.alpha_xy, cfg.alpha_theta, dev)
-    sigma = base + alpha * torch.abs(odom_delta)
-    priors = compose(state.poses, odom_delta[None, :] + draws.proposal * sigma)
-    centers = compose(state.poses, odom_delta.expand(p, 3))
-
-    # 2. every particle against a window of its own map, in one launch
-    scans = LaserScan(scan.ranges.expand(p, -1), scan.bearings.expand(p, -1),
-                      scan.valid.expand(p, -1))
-    if cfg.map_storage == "cow":
-        return _cow_step(cfg, state, scans, priors, centers, sigma, draws)
-    view = match_view(cfg, state.gm, priors)
-    poses, incr = match_particles(cfg, view, scans, priors, centers, sigma, draws)
-
-    # 3. weight update
-    logw = resample.normalize_log_weights(state.log_weights + incr)
-
-    # 4. insert the scan into every particle's map, on a window around its pose
-    gm = raycast.insert_scan_windows(state.gm, cfg.cell_model, poses, scans, cfg.beam,
-                                     cfg.insert_window)
-
-    # 5. conditional systematic resampling: the gather runs every scan, with
-    # the identity while Neff is healthy
-    idx, logw, _ = resample.maybe_resample(draws.u0, logw, cfg.resample_threshold)
-    gm = gridlib.GridMap(cells=gm.cells.index_select(0, idx), origin=gm.origin.index_select(0, idx),
-                         scale=gm.scale)
-    state = GMappingState(gm=gm, poses=poses.index_select(0, idx), log_weights=logw,
-                          step=state.step + 1)
-    return state, idx
-
-
-def _cow_step(cfg: GMappingConfig, state: GMappingState, scans, priors, centers, sigma,
-              draws: Draws):
-    """Steps 2-5 on the copy-on-write maps: each particle matched on the
-    ``window_tiles`` window of its table around its prior (the P windows
-    cut out in one gather), then the touched tiles made its own, the P
-    scans inserted into the shared pool in one launch, and the tables
-    resampled."""
-    wt = cfg.window_tiles
-    win = cow.extract_window(state.gm, cfg.cell_model, None, priors[:, :2], wt, wt)
-    view = scoring.MapView.of(win, cfg.cell_model)
-    poses, incr = match_particles(cfg, view, scans, priors, centers, sigma, draws)
-    logw = resample.normalize_log_weights(state.log_weights + incr)
-    touched, work = cow.prepare_insert(state.gm, cfg.cell_model, poses, scans, cfg.beam)
-    gm = cow.scatter_observations(state.gm, cfg.cell_model, poses, scans, cfg.beam, touched, work)
-    idx, logw, _ = resample.maybe_resample(draws.u0, logw, cfg.resample_threshold)
-    state = GMappingState(gm=cow.resample(gm, idx), poses=poses.index_select(0, idx),
-                          log_weights=logw, step=state.step + 1)
-    return state, idx
+    """One RBPF step of all P particles on one device (:func:`rbpf_step`
+    with :func:`local_ops`). Returns (state, ancestor indices i64[P])."""
+    return rbpf_step(cfg, local_ops(cfg), state, scan, odom_delta, draws, generator)
 
 
 def best_particle(state: GMappingState) -> Tensor:

@@ -221,6 +221,14 @@ def scatter_observations(st: CowBlockMaps, model, poses: Tensor, scans, cfg,
     return st
 
 
+def insert_scans(st: CowBlockMaps, model, poses: Tensor, scans, cfg) -> CowBlockMaps:
+    """Particle p's scan into its tiles (``poses`` f32[P, 3], ``scans`` [P,
+    R]), in place: :func:`prepare_insert`, then
+    :func:`scatter_observations`."""
+    touched, work = prepare_insert(st, model, poses, scans, cfg)
+    return scatter_observations(st, model, poses, scans, cfg, touched, work)
+
+
 def extract_window(st: CowBlockMaps, model, p, center: Tensor, tiles_h: int,
                    tiles_w: int) -> gridlib.GridMap:
     """The dense window of ``tiles_h x tiles_w`` tiles around ``center``

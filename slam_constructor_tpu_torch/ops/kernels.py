@@ -13,6 +13,11 @@ each with its own plane, poses, scan and origin: what the reference gets
 from ``vmap`` over submaps when it closes loops, and over particles in the
 RBPF's improved proposal and minimumScore gate.
 
+``overlap_score_partial`` is the same score split by rows, for a plane
+sharded over ranks (``parallel/halo.py``, ``parallel/blockshard.py``): a
+rank holds a band of the plane's rows with a halo and sums, for each pose,
+only the beams whose endpoint's centre row it owns, f32[K, 2] (num, den).
+
 ``overlap_score_grad`` is the same score with its gradient with respect
 to each pose, in one pass (``csrc/overlap_score_grad.cu``), by any
 reducer, for one map or M: the gradient matcher's ascent direction, which
@@ -121,7 +126,8 @@ _MAX_SHARED_BYTES = 48 * 1024
 #: wrapper adds one where it launches its kernel (CUDA tensors only), under
 #: its own name whatever name it was called by.
 _LAUNCHES = dict.fromkeys(
-    ("overlap_score", "overlap_score_batched", "overlap_score_grad", "gradient_refine",
+    ("overlap_score", "overlap_score_batched", "overlap_score_partial", "overlap_score_grad",
+     "gradient_refine",
      "hill_climb", "mc_match", "mc_match_batched", "polar_free_plane", "m3rsm_pyramid",
      "m3rsm_level", "m3rsm_search", "scan_insert", "scan_planes", "pool_touched",
      "pool_prepare", "pool_insert"), 0
@@ -137,7 +143,8 @@ REDUCER_KINDS = ("bilinear", "obstacle", "max", "mean", "overlap")
 #: the scoring wrappers' launches by reducer, ``"<wrapper>/<kind>"``; a
 #: launch adds one here and one to its wrapper's count
 _REDUCER_LAUNCHES = dict.fromkeys(
-    (f"{name}/{kind}" for name in ("overlap_score", "overlap_score_batched", "overlap_score_grad",
+    (f"{name}/{kind}" for name in ("overlap_score", "overlap_score_batched",
+                                   "overlap_score_partial", "overlap_score_grad",
                                    "gradient_refine", "hill_climb", "mc_match",
                                    "mc_match_batched", "m3rsm_search")
      for kind in REDUCER_KINDS), 0)
@@ -267,6 +274,37 @@ def _reduce_ref(flat: Tensor, h: int, w: int, x: Tensor, y: Tensor, unknown: flo
     return acc / torch.full_like(acc, float(len(offs) ** 2))  # an IEEE division (trap h)
 
 
+def _beam_probs_ref(v: Tensor, poses: Tensor, pts: Tensor, origin: Tensor, scale: float,
+                    unknown: float, reducer: Reducer) -> Tensor:
+    """Every beam's probability f32[M, K, R] on planes v f32[M, H, W] at
+    poses f32[M, K, 3] (the kernels' arithmetic)."""
+    n_m, h, w = v.shape
+    c = torch.cos(poses[..., 2:3])
+    s = torch.sin(poses[..., 2:3])
+    qx, qy = pts[:, None, :, 0], pts[:, None, :, 1]  # [M, 1, R]
+    wx = poses[..., 0:1] + c * qx - s * qy  # [M, K, R]
+    wy = poses[..., 1:2] + s * qx + c * qy
+    x = gridlib.div_scale(wx - origin[:, 0, None, None], scale)  # the kernel's division
+    y = gridlib.div_scale(wy - origin[:, 1, None, None], scale)
+    flat = v.reshape(n_m, -1)
+    if reducer.kind != "bilinear":
+        return _reduce_ref(flat, h, w, x, y, unknown, reducer)
+    ay0, ay1, r0, r1 = _axis_taps(y, h)
+    ax0, ax1, c0, c1 = _axis_taps(x, w)
+
+    def tap(a, b, r, col):
+        got = torch.gather(flat, 1, (r * w + col).reshape(n_m, -1)).reshape(r.shape)
+        return torch.where((a != 0) & (b != 0), got, 0.0)
+
+    v00 = tap(ay0, ax0, r0, c0)
+    v10 = tap(ay1, ax0, r1, c0)
+    v01 = tap(ay0, ax1, r0, c1)
+    v11 = tap(ay1, ax1, r1, c1)
+    ssum = (ay0 * v00 + ay1 * v10) * ax0 + (ay0 * v01 + ay1 * v11) * ax1
+    coverage = (ay0 + ay1) * (ax0 + ax1)
+    return ssum + (1.0 - coverage) * unknown
+
+
 def overlap_score_ref(
     v: Tensor,
     poses: Tensor,
@@ -291,33 +329,8 @@ def overlap_score_ref(
         return overlap_score_ref(
             v[None], poses[None], pts[None], beam_w[None], origin[None], scale, unknown, reducer
         )[0]
-    n_m, h, w = v.shape
-    c = torch.cos(poses[..., 2:3])
-    s = torch.sin(poses[..., 2:3])
-    qx, qy = pts[:, None, :, 0], pts[:, None, :, 1]  # [M, 1, R]
-    wx = poses[..., 0:1] + c * qx - s * qy  # [M, K, R]
-    wy = poses[..., 1:2] + s * qx + c * qy
-    x = gridlib.div_scale(wx - origin[:, 0, None, None], scale)  # the kernel's division
-    y = gridlib.div_scale(wy - origin[:, 1, None, None], scale)
-    flat = v.reshape(n_m, -1)
+    p = _beam_probs_ref(v, poses, pts, origin, scale, unknown, reducer)
     bw = beam_w[:, None, :]
-    if reducer.kind != "bilinear":
-        p = _reduce_ref(flat, h, w, x, y, unknown, reducer)
-        return (p * bw).sum(-1) / torch.clamp(bw.sum(-1), min=1e-9)
-    ay0, ay1, r0, r1 = _axis_taps(y, h)
-    ax0, ax1, c0, c1 = _axis_taps(x, w)
-
-    def tap(a, b, r, col):
-        got = torch.gather(flat, 1, (r * w + col).reshape(n_m, -1)).reshape(r.shape)
-        return torch.where((a != 0) & (b != 0), got, 0.0)
-
-    v00 = tap(ay0, ax0, r0, c0)
-    v10 = tap(ay1, ax0, r1, c0)
-    v01 = tap(ay0, ax1, r0, c1)
-    v11 = tap(ay1, ax1, r1, c1)
-    ssum = (ay0 * v00 + ay1 * v10) * ax0 + (ay0 * v01 + ay1 * v11) * ax1
-    coverage = (ay0 + ay1) * (ax0 + ax1)
-    p = ssum + (1.0 - coverage) * unknown
     return (p * bw).sum(-1) / torch.clamp(bw.sum(-1), min=1e-9)
 
 
@@ -459,6 +472,107 @@ def overlap_score_batched(
         "overlap_score_batched", (v.shape[0],), v, poses, pts, beam_w, origin, scale, unknown,
         reducer
     )
+
+
+def _partial_need(reducer: Reducer) -> int:
+    """Rows above and below an endpoint's centre row that its taps read."""
+    return 1 if reducer.kind == "bilinear" else reducer.radius
+
+
+def _check_band(name: str, band: Tensor, g0: int, h: int, row0: int, row1: int,
+                reducer: Reducer) -> None:
+    need = _partial_need(reducer)
+    he = band.shape[0]
+    if not 0 <= row0 <= row1 <= h:
+        raise ValueError(f"{name}: owned rows [{row0}, {row1}) are not inside [0, {h})")
+    if g0 > max(row0 - need, 0) or g0 + he < min(row1 + need, h):
+        raise ValueError(f"{name}: the band's rows [{g0}, {g0 + he}) do not hold the rows "
+                         f"[{row0 - need}, {row1 + need}) that the owned beams' taps read")
+
+
+def overlap_score_partial_ref(band: Tensor, g0: int, h: int, poses: Tensor, pts: Tensor,
+                              beam_w: Tensor, origin: Tensor, scale: float, unknown: float,
+                              row0: int, row1: int, reducer: Reducer = BILINEAR) -> Tensor:
+    """Plain PyTorch version of :func:`overlap_score_partial`: the band
+    placed in an h-row plane (rows outside it NaN: an owned beam never reads
+    them), every beam scored as :func:`overlap_score_ref` scores it, and
+    the beams whose centre row ``clamp(floor(y), 0, h - 1)`` lies in
+    ``[row0, row1)`` summed -> f32[K, 2] (num, den)."""
+    _check_band("overlap_score_partial_ref", band, g0, h, row0, row1, reducer)
+    w = band.shape[1]
+    plane = torch.full((h, w), math.nan, dtype=torch.float32, device=band.device)
+    lo, hi = max(g0, 0), min(g0 + band.shape[0], h)
+    plane[lo:hi] = band[lo - g0:hi - g0]
+    p = _beam_probs_ref(plane[None], poses[None], pts[None], origin[None], scale, unknown,
+                        reducer)[0]  # [K, R]
+    c, s = torch.cos(poses[:, 2:3]), torch.sin(poses[:, 2:3])
+    qx, qy = pts[None, :, 0], pts[None, :, 1]
+    wy = poses[:, 1:2] + s * qx + c * qy
+    fy = torch.floor(gridlib.div_scale(wy - origin[1], scale))
+    own_row = torch.where(fy >= 0, torch.clamp(fy, max=float(h - 1)), 0.0)
+    own = (own_row >= row0) & (own_row < row1) & (beam_w[None, :] != 0)
+    bw = torch.where(own, beam_w[None, :], 0.0)
+    num = torch.where(own, bw * p, 0.0).sum(-1)
+    return torch.stack([num, bw.sum(-1)], dim=-1)
+
+
+@functools.cache
+def _overlap_score_partial_fn():
+    fn = _build.load().overlap_score_partial_launch
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # band, g0, he, h, w
+        ctypes.c_void_p, ctypes.c_int,  # poses, k
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # pts, beam_w, r
+        ctypes.c_void_p, ctypes.c_float, ctypes.c_float,  # origin, scale, unknown
+        ctypes.c_int, ctypes.c_int, ctypes.c_float,  # reducer, radius, extent
+        ctypes.c_int, ctypes.c_int,  # row0, row1
+        ctypes.c_void_p, ctypes.c_void_p,  # out, stream
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def overlap_score_partial(band: Tensor, g0: int, h: int, poses: Tensor, pts: Tensor,
+                          beam_w: Tensor, origin: Tensor, scale: float, unknown: float,
+                          row0: int, row1: int, reducer: Reducer = BILINEAR) -> Tensor:
+    """A rank's share of the score of poses f32[K, 3] on an h-row plane
+    sharded by rows: ``band`` f32[He, W] holds the plane's rows [g0, g0 +
+    He), which must include every row that the taps of the beams it owns
+    read (its owned rows [row0, row1) and ``max(radius, 1)`` rows around
+    them, as far as the plane goes). Returns f32[K, 2]: for each pose the
+    sums (num, den) over the beams whose endpoint's centre row lies in
+    [row0, row1); ``num / max(den, 1e-9)`` after the ranks' sums are added
+    is :func:`overlap_score`.
+
+    CPU tensors take the plain twin; CUDA tensors launch the kernel on the
+    current stream and add one to the ``overlap_score_partial`` count."""
+    if band.device.type == "cpu":
+        return overlap_score_partial_ref(band, g0, h, poses, pts, beam_w, origin, scale, unknown,
+                                         row0, row1, reducer)
+    name = "overlap_score_partial"
+    if band.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {band.device}")
+    he, w = band.shape
+    k, r = poses.shape[0], pts.shape[0]
+    _check("band", band, (he, w), band.device)
+    _check("poses", poses, (k, 3), band.device)
+    _check("pts", pts, (r, 2), band.device)
+    _check("beam_w", beam_w, (r,), band.device)
+    _check("origin", origin, (2,), band.device)
+    _check_band(name, band, g0, h, row0, row1, reducer)
+    out = torch.empty((k, 2), dtype=torch.float32, device=band.device)
+    if k == 0:
+        return out
+    fn = _overlap_score_partial_fn()
+    with torch.cuda.device(band.device):
+        stream = torch.cuda.current_stream(band.device).cuda_stream
+        err = fn(band.data_ptr(), g0, he, h, w, poses.data_ptr(), k, pts.data_ptr(),
+                 beam_w.data_ptr(), r, origin.data_ptr(), scale, unknown, reducer.code,
+                 reducer.radius, reducer.extent, row0, row1, out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+    _count(name, reducer)
+    return out
 
 
 def overlap_score_grad_ref(v, poses, pts, beam_w, origin, scale, unknown, reducer=BILINEAR):

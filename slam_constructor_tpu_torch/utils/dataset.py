@@ -6,21 +6,28 @@ log into the (scan, odometry) sequence an engine runs: ranges filtered and
 masked to a fixed width as the reference's ``LaserScanObserver`` does,
 odometry as body-frame increments between scans.
 
-The parser is the reference's Python parser. The reference also has a
-native C++ parser (``slam_constructor_tpu/native/``, loaded by ``ctypes``)
-which gives the same arrays; it belongs to the JAX package and is not used.
+The parser is the port's copy of the reference's native C++ parser
+(``native/carmen_parser.cpp``, built with ``g++`` into ``build/native/`` at
+first use and loaded by ``ctypes``), or, where it cannot be built or is not
+wanted, the reference's Python parser, which gives the same arrays.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from ..ops.geometry import between
 from ..ops.scan import LaserScan, make_scan
+from . import _native
+
+PARSER_SOURCE = Path(__file__).resolve().parents[1] / "native" / "carmen_parser.cpp"
 
 
 @dataclass
@@ -75,9 +82,55 @@ def _parse_aux_lines(lines) -> tuple[dict, np.ndarray | None]:
     return params, tp
 
 
-def read_carmen(path: str) -> CarmenLog:
-    """Parse the FLASER/ROBOTLASER1 records of a CARMEN log file (the
-    reference's Python parser)."""
+@functools.cache
+def native_lib() -> ctypes.CDLL | None:
+    """The native parser's library, built if needed; None without ``g++``."""
+    lib = _native.load(PARSER_SOURCE, "slamio")
+    if lib is None:
+        return None
+    lib.slamio_parse_carmen.restype = ctypes.c_void_p
+    lib.slamio_parse_carmen.argtypes = [ctypes.c_char_p]
+    lib.slamio_n_scans.argtypes = [ctypes.c_void_p]
+    lib.slamio_n_beams.argtypes = [ctypes.c_void_p]
+    lib.slamio_ranges.restype = ctypes.POINTER(ctypes.c_float)
+    lib.slamio_ranges.argtypes = [ctypes.c_void_p]
+    lib.slamio_odom.restype = ctypes.POINTER(ctypes.c_double)
+    lib.slamio_odom.argtypes = [ctypes.c_void_p]
+    lib.slamio_stamps.restype = ctypes.POINTER(ctypes.c_double)
+    lib.slamio_stamps.argtypes = [ctypes.c_void_p]
+    lib.slamio_meta.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_double)]
+    lib.slamio_aux.restype = ctypes.c_char_p
+    lib.slamio_aux.argtypes = [ctypes.c_void_p]
+    lib.slamio_free.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def read_carmen(path: str, prefer_native: bool = True) -> CarmenLog:
+    """Parse the FLASER/ROBOTLASER1 records of a CARMEN log file: the
+    native parser when ``prefer_native`` and it builds, else the Python
+    parser (and for a log in which the native one finds no scan), as the
+    reference chooses."""
+    lib = native_lib() if prefer_native else None
+    if lib is not None:
+        h = lib.slamio_parse_carmen(str(path).encode())
+        if h:
+            try:
+                t, r = lib.slamio_n_scans(h), lib.slamio_n_beams(h)
+                if t > 0:
+                    ranges = np.ctypeslib.as_array(lib.slamio_ranges(h), shape=(t, r)).copy()
+                    odom = np.ctypeslib.as_array(lib.slamio_odom(h), shape=(t, 3)).copy()
+                    ts = np.ctypeslib.as_array(lib.slamio_stamps(h), shape=(t,)).copy()
+                    meta = (ctypes.c_double * 3)()
+                    log = CarmenLog(ranges, odom, ts)
+                    has_meta = bool(lib.slamio_meta(h, meta))
+                    if has_meta:
+                        log.start_angle, log.fov, log.max_range = meta[0], meta[1], meta[2]
+                    aux = lib.slamio_aux(h).decode(errors="replace")
+                    log.params, log.true_poses = _parse_aux_lines(aux.splitlines())
+                    _apply_params(log, geometry_from_records=has_meta)
+                    return log
+            finally:
+                lib.slamio_free(h)
     return _read_carmen_py(path)
 
 

@@ -14,46 +14,24 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import numpy as np
 
-PACKAGE_DIR = Path(__file__).resolve().parents[1]
-SOURCE = PACKAGE_DIR / "native" / "score_oracle.cpp"
-BUILD_DIR = PACKAGE_DIR.parent / "build" / "native"
-FLAGS = ("-O2", "-shared", "-fPIC")
+from . import _native
+
+SOURCE = Path(__file__).resolve().parents[1] / "native" / "score_oracle.cpp"
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(FLAGS).encode() + SOURCE.read_bytes())
-    return BUILD_DIR / f"libslamscore-{h.hexdigest()[:16]}.so"
+    return _native.library_path(SOURCE, "slamscore")
 
 
 @functools.cache
 def lib() -> ctypes.CDLL | None:
     """The oracle's library, built if needed; None without ``g++``."""
-    out = library_path()
-    if not out.exists():
-        cxx = shutil.which("g++")
-        if cxx is None:
-            return None
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        try:
-            subprocess.run([cxx, *FLAGS, "-o", str(tmp), str(SOURCE)], check=True,
-                           capture_output=True)
-            os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-        except (OSError, subprocess.CalledProcessError):
-            return None
-        finally:
-            tmp.unlink(missing_ok=True)
-    try:
-        l = ctypes.CDLL(str(out))
-    except OSError:
+    l = _native.load(SOURCE, "slamscore")
+    if l is None:
         return None
     f32p = np.ctypeslib.ndpointer(np.float32, flags="C")
     u8p = np.ctypeslib.ndpointer(np.uint8, flags="C")

@@ -37,7 +37,6 @@ from slam_constructor_tpu_torch.ops import m3rsm as tm3
 from slam_constructor_tpu_torch.ops import matchers as tmatch
 from slam_constructor_tpu_torch.ops import raycast as tray
 from slam_constructor_tpu_torch.ops import scoring as tscore
-from slam_constructor_tpu_torch.utils import config as tconfig
 
 torch.set_num_threads(1)
 
@@ -213,10 +212,9 @@ def test_viny_m3rsm_config_lockstep():
     [
         # the tiled storage, the engine's refine and hill climbing as its
         # primary matcher are ported (test_torch_config.py), and so are the
-        # RBPF's copy-on-write storage (test_torch_cow.py) and its other
-        # matchers (test_torch_matcher_slots.py); what stays of later
-        # slices: the sharded preset
-        lambda: tconfig.preset("distributed"),
+        # RBPF's copy-on-write storage (test_torch_cow.py), its other
+        # matchers (test_torch_matcher_slots.py) and the sharded preset
+        # (test_torch_sharded_rbpf.py); what stays refused:
         # the reference's grid-pitch fallback for M3RSM is a known fault (trap e)
         lambda: tpg.PoseGraphConfig(loop_matcher_kind="m3rsm", loop_subcell_refine=True),
         # the reference hands its loop and joint-refine matcher no key, on

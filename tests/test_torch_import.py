@@ -4,8 +4,9 @@ A subprocess blocks ``jax`` and ``flax`` from being imported, then imports
 every module of ``slam_constructor_tpu_torch`` and runs two tinySLAM and
 two vinySLAM steps, a few scans of the loop-closing pipeline and of the
 GMapping RBPF, and the command-line runner on two shipped configs (the
-gradient refine on a synthetic sequence, the tiled map on a CARMEN log) on
-the CPU. A source scan makes sure no file of the package, nor the GPU smoke
+gradient refine on a synthetic sequence, the tiled map on a CARMEN log), a
+step of the ``distributed`` preset in a gloo group of one and the native
+CARMEN parser, on the CPU. A source scan makes sure no file of the package, nor the GPU smoke
 script, imports them or the reference package.
 """
 
@@ -72,6 +73,20 @@ for cfg, src in (("tiny_refined", ["--synthetic", "cecum", "--trajectory", "rect
         summary = run.main(["--config", f"configs/{cfg}.properties", *src, "--steps", "2",
                             "--scan-stride", "4", "--cpu", "--out", out])
         assert summary["scans"] >= 2, summary
+assert {"mesh", "particles", "halo", "dist_ba", "blockshard", "ep_cow", "ep2d", "multihost",
+        "determinism", "profiling"} <= names
+from slam_constructor_tpu_torch.parallel import mesh as meshlib
+from slam_constructor_tpu_torch.utils import config as tconfig
+meshlib.init(0, 1, "cpu", f"tcp://127.0.0.1:{meshlib.free_port()}")
+try:
+    dcfg, dst, dstep = tconfig.preset("distributed")(device="cpu", n_particles=2, map_height=64,
+                                                     map_width=64)
+    dst, anc = dstep(dst, scans6[0], odom6[0], generator=torch.Generator().manual_seed(0))
+    assert anc.shape == (2,) and bool(torch.isfinite(dst.log_weights).all())
+finally:
+    meshlib.shutdown()
+from slam_constructor_tpu_torch.utils import dataset
+assert dataset.read_carmen("tests/data/mini_flaser.clf").ranges.shape[0] > 0
 assert "jax" not in sys.modules or sys.modules["jax"] is None
 print("ok", traj[-1].tolist())
 """
@@ -91,6 +106,8 @@ def test_no_file_of_the_package_imports_jax():
     files = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) >= 17
     assert {"full.py", "posegraph.py", "gmapping.py", "resample.py", "run.py", "config.py",
-            "dataset.py", "blockmap.py"} <= {f.name for f in files}
+            "dataset.py", "blockmap.py", "mesh.py", "particles.py", "halo.py", "dist_ba.py",
+            "blockshard.py", "ep_cow.py", "ep2d.py", "multihost.py", "determinism.py",
+            "profiling.py"} <= {f.name for f in files}
     offenders = [str(f.relative_to(REPO)) for f in files if pattern.search(f.read_text())]
     assert offenders == []

@@ -138,6 +138,50 @@ def test_overlap_score_rejects_bad_input(scene):
                               prep.scale, prep.unknown)
 
 
+PARTIAL_REDUCERS = [kernels.BILINEAR, kernels.Reducer("obstacle"), kernels.Reducer("max", 1),
+                    kernels.Reducer("mean", 2), kernels.Reducer("overlap", 2, 1.5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("red", PARTIAL_REDUCERS, ids=lambda r: f"{r.kind}{r.radius}")
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
+def test_overlap_score_partial_matches_twin_and_whole_score(scene, red, d):
+    """Each rank's band against the twin (2e-6), the ranks' sums over d row
+    partitions against overlap_score (2e-6 x max(1, |s|))."""
+    view, scan, cand, _ = scene
+    prep = scoring.prepare(view, scan, scoring.ScoringConfig(reducer="overlap"))
+    h = prep.plane.shape[0]
+    need = max(kernels._partial_need(red), 1)
+    whole = kernels.overlap_score(prep.plane, cand, prep.pts, prep.beam_w, prep.origin,
+                                  prep.scale, prep.unknown, red)
+    sums = torch.zeros((cand.shape[0], 2), device=cand.device)
+    bounds = [h * i // d for i in range(d + 1)]
+    for r0, r1 in zip(bounds[:-1], bounds[1:]):
+        g0, g1 = max(r0 - need, 0), min(r1 + need, h)
+        args = (prep.plane[g0:g1].contiguous(), g0, h, cand, prep.pts, prep.beam_w, prep.origin,
+                prep.scale, prep.unknown, r0, r1, red)
+        before = kernels.launch_counts()["overlap_score_partial"]
+        got = kernels.overlap_score_partial(*args)
+        assert kernels.launch_counts()["overlap_score_partial"] == before + 1
+        torch.testing.assert_close(got, kernels.overlap_score_partial_ref(*args), atol=2e-6,
+                                   rtol=2e-6)
+        assert torch.equal(kernels.overlap_score_partial(*args), got)
+        sums += got
+    score = sums[:, 0] / sums[:, 1].clamp(min=1e-9)
+    assert bool(((score - whole).abs() <= 2e-6 * whole.abs().clamp(min=1.0)).all())
+
+
+@pytest.mark.cuda
+def test_overlap_score_partial_rejects_bad_input(scene):
+    view, scan, cand, _ = scene
+    prep = scoring.prepare(view, scan, scoring.ScoringConfig(reducer="overlap"))
+    args = (cand, prep.pts, prep.beam_w, prep.origin, prep.scale, prep.unknown)
+    with pytest.raises(ValueError):  # the band misses a row the owned beams read
+        kernels.overlap_score_partial(prep.plane[10:50].contiguous(), 10, 256, *args, 10, 50)
+    with pytest.raises(ValueError):
+        kernels.overlap_score_partial(prep.plane, 0, 256, cand.cpu(), *args[1:], 0, 256)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_beams,fov_half,h,w", [
     (360, False, 256, 256), (181, True, 256, 256), (120, False, 96, 128), (90, False, 96, 128),
