@@ -1,11 +1,12 @@
 """Short first look at the port's CUDA kernels on a card: build, compiler
 report, instruction mix, one launch of each kernel against its twin, and
 back-to-back launch times; with ``--stamps``, where a round of the RBPF's
-particle match goes.
+particle match, an M3RSM match and a gradient refine's pass go.
 
     python3 scripts/torch_port/kernel_probe.py
     python3 scripts/torch_port/kernel_probe.py --stamps
-    python3 scripts/torch_port/kernel_probe.py --times --root DIR
+    python3 scripts/torch_port/kernel_probe.py --times [--only NAME] --root DIR
+    python3 scripts/torch_port/kernel_probe.py --sincos
 
 Prints ptxas' registers, spills and shared memory for every kernel; for
 every kernel in the built library the count of SASS instructions by opcode
@@ -52,19 +53,34 @@ reads of the scores and the argmax, (e) the state update; and a whole M3RSM
 match (``m3rsm_search``: the viny_m3rsm request and the loop closer's 32)
 into its set-up (the window and the endpoint cells), each level's score,
 cluster barrier with the reads of the scores, and selection, the argmax,
-and the hill climb's first score and rounds. Cycles are turned into time
-with the SM clock that the stamps themselves give.
+and the hill climb's first score and rounds; and the gradient refine
+(``csrc/gradient_refine.cu``) at the paths' five shapes (``gradient_shapes``:
+one map at the bilinear reducer and at the overlap of extent 1.5, the
+joint refine's 8 maps, the loop closer's submaps, the RBPF's 30 windows at
+extent 2) into its set-up and, for the first pass and a later one, the
+parts the source stamps (a build of another checkout may stamp other
+parts: three, the taps, the fold and tree, the step). Cycles are turned
+into time with the SM clock that the stamps themselves give. A clock read
+after a barrier may issue before the warp leaves it: the wait then falls
+in the part after it.
 
 ``--times`` prints each source's build seconds where the checkout keeps
-them and ptxas' report, then times only the wrappers that every version of
-the port has
+them and ptxas' report, then times (a call between its own events, the
+median of 100, besides the three above) only the wrappers that every
+version of the port has
 (the batched score at the six shapes above, the particle match at the
 RBPF's shape, ``overlap_score``, ``polar_free_plane``, ``mc_match`` tiny and
 viny; the M3RSM kernels where the checkout has them, and a whole
 ``m3rsm_match`` call of the viny_m3rsm preset; the one-launch refines
-where the checkout has them), and ``--root DIR`` imports the port from another checkout (built
+where the checkout has them: the gradient refine at the five shapes, the
+hill climb at mit_csail's); ``--only NAME`` keeps those whose name holds
+NAME; and ``--root DIR`` imports the port from another checkout (built
 there): run it on two checkouts in turns (A, B, B, A), one after another, to
 compare their kernels on one card.
+
+``--sincos`` builds ``sincos_check.cu`` with the port's flags and checks
+that ``sincosf`` gives the bits of ``sinf`` and ``cosf`` on all 2^32
+inputs (the gradient refine relies on it); it exits 1 where any differs.
 
 Imports no JAX.
 """
@@ -170,12 +186,31 @@ def graph_ms(fn, n: int = 200, replays: int = 7):
     return sorted(times)[len(times) // 2], device
 
 
+def call_ms(fn, n: int = 100) -> float:
+    """The median ms of ``n`` calls, each between its own pair of CUDA
+    events (the host's cost of a call included)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[n // 2]
+
+
 def report(name, fn) -> None:
     chained = chained_ms(fn)
     graph, device = graph_ms(fn)
+    call = call_ms(fn)
     rows = "; ".join(f"{k[:48]} {v:.2f} us" for k, v in device.items()) or "no device rows"
-    print(f"time [{name}]: chained {chained * 1e3:.2f} us, graph {graph * 1e3:.2f} us a launch "
-          f"(200 each); profiler device time: {rows}", flush=True)
+    print(f"time [{name}]: a call {call * 1e3:.2f} us (median of 100), chained "
+          f"{chained * 1e3:.2f} us, graph {graph * 1e3:.2f} us a launch (200 each); profiler "
+          f"device time: {rows}", flush=True)
 
 
 def mc_case(scoring, view, scan, pose, cfg, weights, dev, seed):
@@ -355,22 +390,65 @@ def m3rsm_match_call(pose, scan, dev):
                                      pyramid=planes)
 
 
+def gradient_shapes(prep, pose, dev):
+    """The gradient refine at the five shapes of the paths, on the probe's
+    map, from start poses off the truth: {name: args of
+    ``kernels.gradient_refine``}. One map at the bilinear reducer and at
+    the overlap of extent 1.5 on 3^2 cells (tiny_refined's CLI: 12
+    iterations of 0.03 m, 0.015 rad); the joint refine's 8 maps (the
+    reference's default config: bilinear, 24 iterations of 0.06 m, 0.03
+    rad); the loop closer's submaps (4 crops of 120^2, every second beam,
+    extent 1.5 on 3^2 cells, 12 iterations of 0.06 m, 0.03 rad); the RBPF's
+    30 windows of 160^2 (every second beam, extent 2 on 5^2 cells, 8
+    iterations of 0.04 m, 0.02 rad)."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    start = (pose + torch.tensor([0.04, -0.03, 0.02], device=dev)).contiguous()
+    one = (prep.plane, prep.pts, prep.beam_w, prep.origin, start, prep.scale, prep.unknown)
+
+    def spread(n):
+        return (start + torch.randn((n, 3), generator=g, device=dev) * torch.tensor(
+            [0.04, 0.04, 0.02], device=dev)).contiguous()
+
+    joint = (*(t.expand(8, *t.shape).contiguous() for t in one[:4]), spread(8), *one[5:])
+    sub = submaps(prep, pose, dev, 4, 1)
+    sub = (sub[0], sub[2], sub[3], sub[4],
+           (start + 0.01 * torch.arange(4, device=dev)[:, None]).contiguous(), *sub[5:])
+    cut, _ = particle_cases(prep, pose, dev)
+    windows = (*cut[:5], *cut[6:8])  # without the Monte-Carlo noise
+    e15, e2 = kernels.Reducer("overlap", 1, 1.5), kernels.Reducer("overlap", 2, 2.0)
+    return {
+        "gradient_refine one map bilinear 256^2 R=360 12 iterations": (
+            *one, 0.03, 0.015, 12, 0.5, kernels.BILINEAR),
+        "gradient_refine joint refine M=8 bilinear 256^2 R=360 24 iterations": (
+            *joint, 0.06, 0.03, 24, 0.5, kernels.BILINEAR),
+        "gradient_refine one map overlap e1.5 w1 256^2 R=360 12 iterations": (
+            *one, 0.03, 0.015, 12, 0.5, e15),
+        "gradient_refine submaps M=4 overlap e1.5 w1 120^2 R'=180 12 iterations": (
+            *sub, 0.06, 0.03, 12, 0.5, e15),
+        "gradient_refine M=30 overlap e2 w2 160^2 R'=180 8 iterations": (
+            *windows, 0.04, 0.02, 8, 0.5, e2),
+    }
+
+
 def refine_cases(prep, pose):
-    """The one-launch refines on the probe's map: the gradient refine at
-    tiny_refined's settings (12 iterations), the hill climb at mit_csail's
-    (10 rounds), one map and 8, from a start pose off the truth."""
+    """The one-launch refines on the probe's map: the gradient refine at the
+    paths' five shapes (``gradient_shapes``), the hill climb at mit_csail's
+    settings (10 rounds), one map and 8, from a start pose off the truth."""
     from slam_constructor_tpu_torch.ops import kernels
 
     start = (pose + torch.tensor([0.04, -0.03, 0.02], device=pose.device)).contiguous()
     args = (prep.plane, prep.pts, prep.beam_w, prep.origin, start, prep.scale, prep.unknown)
     many = tuple(t.expand(8, *t.shape).contiguous() for t in args[:5])
-    return {
-        "gradient_refine 256^2 R=360 12 iterations": (
-            kernels.gradient_refine, (*args, 0.03, 0.015, 12, 0.5)),
+    out = {name: (kernels.gradient_refine, a)
+           for name, a in gradient_shapes(prep, pose, pose.device).items()}
+    out.update({
         "hill_climb 256^2 R=360 10 rounds": (kernels.hill_climb, (*args, 0.025, 0.01, 10, 0.5)),
         "hill_climb M=8 256^2 R=360 10 rounds": (
             kernels.hill_climb, (*many, *args[5:], 0.025, 0.01, 10, 0.5)),
-    }
+    })
+    return out
 
 
 def same_bits(a, b) -> bool:
@@ -379,7 +457,8 @@ def same_bits(a, b) -> bool:
 
 
 def stamps_main(dev) -> None:
-    """The stamp build: a particle match split into its parts."""
+    """The stamp build: a particle match, an M3RSM match and the gradient
+    refine split into their parts."""
     from slam_constructor_tpu_torch.ops import _build, kernels
 
     res = _build.build(("-DSLAM_KERNEL_PROBE",))
@@ -470,10 +549,52 @@ def stamps_main(dev) -> None:
         print(f"stamps [{name}]: block 0 of {n_b} requests, SM clock {ghz:.3f} GHz, the whole "
               f"{us(0, 62):.2f} us; " + "; ".join(parts) + " (us)", flush=True)
 
+    # the gradient refine (gradient_refine.cu) at the paths' five shapes,
+    # every block: its set-up, its first pass and a later pass (the mean of
+    # the others) split into the parts the source stamps
+    for name, a in gradient_shapes(prep, pose, dev).items():
+        for _ in range(3):
+            kernels.gradient_refine(*a)
+        torch.cuda.synchronize()
+        buf = (ctypes.c_ulonglong * (slots * n_slots))()
+        err = lib.gradient_refine_probe_stamps(ctypes.byref(buf))
+        if err:
+            raise RuntimeError(f"gradient_refine_probe_stamps: cudaError_t {err}")
+        n_b = a[0].shape[0] if a[0].dim() == 3 else 1
+        st = np.frombuffer(buf, np.uint64).reshape(slots, n_slots)[:n_b].astype(np.float64)
+        ghz = float(np.median((st[:, 62] - st[:, 0]) / (st[:, 63] - st[:, 1])))
+        cyc = 1e-3 / ghz  # us a cycle
+        n_p = int(st[0, 61])
+        names = REFINE_PARTS.get(n_p, [f"part {k}" for k in range(n_p)])
+        passes = st[:, 3 + 2 * n_p]
+        first = [float(np.mean(st[:, 3 + k])) * cyc for k in range(n_p)]
+        later = [float(np.mean((st[:, 3 + n_p + k] - st[:, 3 + k]) / np.maximum(passes - 1, 1)))
+                 * cyc for k in range(n_p)]
+        tail = float(np.mean(st[:, 62] - st[:, 2] - st[:, 3 + n_p:3 + 2 * n_p].sum(1))) * cyc
+        beam = ""
+        if st[0, 42] > 0:  # the first beam thread's own beam, where the source stamps it
+            later_beam = np.mean((st[:, 41] - st[:, 40]) / np.maximum(st[:, 42] - 1, 1)) * cyc
+            beam = (f"; the first beam thread's beam: the first pass "
+                    f"{float(np.mean(st[:, 40])) * cyc:.3f}, a later pass {later_beam:.3f}")
+        print(f"stamps [{name}]: {n_b} blocks, SM clock {ghz:.3f} GHz, a block "
+              f"{float(np.mean(st[:, 62] - st[:, 0])) * cyc:.2f} us ({int(passes[0])} passes): "
+              f"set-up {float(np.mean(st[:, 2] - st[:, 0])) * cyc:.2f}; the first pass: "
+              + ", ".join(f"{n} {x:.3f}" for n, x in zip(names, first)) + "; a later pass: "
+              + ", ".join(f"{n} {x:.3f}" for n, x in zip(names, later))
+              + f" (sum {sum(later):.3f}){beam}; the end {tail:.2f} (us)", flush=True)
 
-def times_main(dev) -> None:
+
+#: the names of the parts of a gradient refine's pass, by their count in the
+#: stamps: three (taps to the barrier after them, fold and tree, step and
+#: hand-off) or six (warp 0's candidate after a rejection, the barrier, the
+#: fold, the tree across lanes, the step, the hand-off)
+REFINE_PARTS = {3: ["taps", "fold + tree", "step"],
+                6: ["speculate", "barrier", "fold", "tree", "step", "hand-off"]}
+
+
+def times_main(dev, only: str = "") -> None:
     """The times of the wrappers every version of the port has, at the
-    shapes of the full probe."""
+    shapes of the full probe; only those whose name holds ``only``."""
     from slam_constructor_tpu_torch.models import tiny, viny
     from slam_constructor_tpu_torch.models.engine import init_state
     from slam_constructor_tpu_torch.ops import _build, kernels, raycast, scoring
@@ -519,7 +640,20 @@ def times_main(dev) -> None:
     if hasattr(kernels, "hill_climb"):
         fns += [(name, lambda f=f, a=a: f(*a)) for name, (f, a) in refine_cases(prep, pose).items()]
     for name, fn in fns:
-        report(name, fn)
+        if only in name:
+            report(name, fn)
+
+
+def sincos_main() -> None:
+    """Builds and runs ``sincos_check.cu`` with the port's numerics flags."""
+    from slam_constructor_tpu_torch.ops import _build
+
+    out = ROOT / "build" / "sincos_check"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    flags = [f for f in _build.COMPILE_FLAGS if f not in ("-c", "-Xcompiler", "-fPIC")]
+    subprocess.run([_build.find_nvcc(), *flags, "-o", str(out),
+                    str(Path(__file__).resolve().parent / "sincos_check.cu")], check=True)
+    sys.exit(subprocess.run([str(out)]).returncode)
 
 
 def main() -> None:
@@ -529,6 +663,9 @@ def main() -> None:
     ap.add_argument("--times", action="store_true",
                     help="only the times of the wrappers every version of the port has")
     ap.add_argument("--root", default=str(ROOT), help="the checkout whose port is probed")
+    ap.add_argument("--only", default="", help="--times: only the wrappers whose name holds this")
+    ap.add_argument("--sincos", action="store_true",
+                    help="check that sincosf gives sinf's and cosf's bits on every input")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA GPU")
@@ -540,11 +677,13 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
     print(f"port: {ROOT}", flush=True)
+    if args.sincos:
+        sincos_main()
     if args.stamps:
         stamps_main(dev)
         return
     if args.times:
-        times_main(dev)
+        times_main(dev, args.only)
         return
     res = _build.build()
     print(f"build: {res.seconds:.2f} s")

@@ -1,7 +1,7 @@
 """Every path of one checkout of the port, saved so that another
 checkout's runs can be held to them bit for bit.
 
-    python3 scripts/torch_port/path_trajectories.py --root DIR --out A.npz [--paths pool]
+    python3 scripts/torch_port/path_trajectories.py --root DIR --out A.npz [--paths pool|slots]
     python3 scripts/torch_port/path_trajectories.py --compare A.npz B.npz
 
 The first form imports the port and ``chip_smoke.py`` from the checkout
@@ -14,12 +14,15 @@ scans, two laps), bench.py's gmapping preset and ``preset('gmapping')``
 (512 scans), and the CLI on every dense-map config (``run.execute``: 128
 scans, 64 for the RBPFs); and the block-pool paths: the copy-on-write
 RBPF (``cow_config``) over the bench sequence and over the two-lap quality
-sequence, and the CLI on mit_stata (the tiled map). It saves each
-trajectory (the RBPFs' winners too) and final map (a pool's tables,
-refcounts or ``n_alloc`` and its live blocks). ``--paths dense`` or
-``--paths pool`` runs only those. The second form prints, array by array, whether two
-such files are equal bit for bit, and the largest difference where they
-are not; it exits 1 where any differs. The first form needs one card.
+sequence, and the CLI on mit_stata (the tiled map); and the paths through
+a gradient refine (``slot_paths``: the RBPF's gradient slots, dense and
+copy-on-write, full with the gradient loop matcher, the joint refine). It
+saves each trajectory (the RBPFs' winners too) and final map (a pool's
+tables, refcounts or ``n_alloc`` and its live blocks). ``--paths dense``,
+``--paths pool`` or ``--paths slots`` runs only those. The second form
+prints, array by array, whether two such files are equal bit for bit, and
+the largest difference where they are not; it exits 1 where any differs.
+The first form needs one card.
 """
 
 from __future__ import annotations
@@ -82,10 +85,48 @@ def run(root: Path, out: Path, paths: str) -> None:
     for name in CLI_DENSE if dense else ():
         res = cli.execute(cli.parse_args(cs.cli_argv(name, str(root / "build" / "traj_cli" / name))))
         saved[f"cli_{name}_traj"] = res.trajectory
+    if paths in ("all", "slots"):
+        saved.update(slot_paths(cs, scans, odom, gt, dev))
     for k, v in saved.items():
         if k.endswith("_traj"):
             print(f"{root}: {k} {tuple(v.shape)}", flush=True)
     np.savez(out, **{k: v.detach().cpu().numpy() for k, v in saved.items()})
+
+
+def slot_paths(cs, scans, odom, gt, dev) -> dict:
+    """The paths through a gradient refine, with ``chip_smoke.py``'s
+    ``SLOT_FIELDS`` and ``GRADIENT_SCORING``: the RBPF with the gradient
+    ascent as its match and as the Monte-Carlo match's refine, on the dense
+    maps and on the copy-on-write pool (512 scans each); the loop-closing
+    pipeline with the gradient loop matcher (its 512 scans, two laps); the
+    joint refine with the gradient matcher (2 rounds over 8 keyframes)."""
+    import torch
+
+    from slam_constructor_tpu_torch.models import posegraph
+
+    saved = {}
+    for name, slot in (("gradient", ("gradient", None)),
+                       ("monte_carlo+gradient", ("monte_carlo", "gradient"))):
+        for store, base in (("", None), ("cow_", cs.cow_config())):
+            cfg = cs.gmapping_slot_config(*slot, base)
+            e, traj, _, _ = cs.run_gmapping_path(cfg, scans, odom, gt, 0)
+            key = f"slot_{store}{name}"
+            saved.update({f"{key}_traj": traj, f"{key}_winner": e.winner_trajectory(),
+                          f"{key}_logw": e.state.log_weights})
+            st = e.state.gm
+            if store:
+                saved.update({f"{key}_tables": st.tables, f"{key}_live": st.pool[st.refcnt > 0]})
+            else:
+                saved[f"{key}_cells"] = st.cells
+    fscans, fodom, fgt = cs.full_sequence(dev)
+    fe, ftraj, _, _ = cs.run_full_path(cs.full_loop_config("gradient"), fscans, fodom, fgt, 0)
+    saved.update({"slot_full_gradient_traj": ftraj, "slot_full_gradient_cells": fe.state.gm.cells,
+                  "slot_full_gradient_tracked": torch.from_numpy(np.stack(fe.trajectory))})
+    cfg, tracking, st, gm = cs.joint_refine_state(dev, fscans, fgt)
+    out = posegraph.joint_refine(cfg, tracking.cell_model, st, gm, tracking.beam, rounds=2,
+                                 matcher="gradient")
+    saved["slot_joint_refine_gradient_kf_poses"] = out.kf_poses
+    return saved
 
 
 def compare(a: Path, b: Path) -> bool:
@@ -110,7 +151,7 @@ def main() -> None:
                     help="the checkout whose port runs")
     ap.add_argument("--out", help="the .npz to write")
     ap.add_argument("--compare", nargs=2, metavar="NPZ", help="two files to hold bit for bit")
-    ap.add_argument("--paths", choices=("all", "dense", "pool"), default="all")
+    ap.add_argument("--paths", choices=("all", "dense", "pool", "slots"), default="all")
     args = ap.parse_args()
     if args.compare:
         sys.exit(0 if compare(*map(Path, args.compare)) else 1)

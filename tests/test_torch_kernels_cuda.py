@@ -1589,3 +1589,81 @@ def test_reducer_gradient_refine_equals_the_launch_loop(scene, red, n_maps):
                    for m in range(0, n_maps, 4)]
         assert same_bits([t[::4] for t in got],
                          [torch.stack([s[i] for s in singles]) for i in range(3)])
+
+
+# --- the gradient refine's kernel against its launch loop: radii, extents, ----
+# --- maps, iterations and edge cases ------------------------------------------
+
+E15, E2 = kernels.Reducer("overlap", 1, 1.5), kernels.Reducer("overlap", 2, 2.0)
+#: (reducer, maps, iterations, beams, edit): edit names a change to the case
+REFINE_CASES = {
+    "radius 0": (kernels.Reducer("overlap", 0, 1.5), 0, 10, 360, None),
+    "radius 1": (E15, 0, 10, 360, None),
+    "radius 2": (E2, 0, 10, 360, None),
+    "radius 3 (the generic loop)": (kernels.Reducer("overlap", 3, 2.5), 0, 10, 360, None),
+    "extent 0.5": (kernels.Reducer("overlap", 1, 0.5), 0, 10, 360, None),
+    "extent 1.5 at radius 2": (kernels.Reducer("overlap", 2, 1.5), 0, 10, 360, None),
+    "extent 2 at radius 1": (kernels.Reducer("overlap", 1, 2.0), 0, 10, 360, None),
+    "extent 2.5": (kernels.Reducer("overlap", 2, 2.5), 0, 10, 360, None),
+    "M=1": (E2, 1, 8, 360, None),
+    "M=8 bilinear": (kernels.BILINEAR, 8, 24, 360, None),
+    "M=30": (E2, 30, 8, 360, None),
+    "M=133 (more maps than SMs)": (E15, 133, 4, 360, None),
+    "0 iterations": (E15, 0, 0, 360, None),
+    "1 iteration": (E2, 0, 1, 360, None),
+    "24 iterations": (E15, 0, 24, 360, None),
+    "24 iterations bilinear": (kernels.BILINEAR, 0, 24, 360, None),
+    "1000 beams (three chunks a pass)": (E2, 0, 8, 1000, None),
+    "a NaN weight": (E2, 0, 8, 360, "nan"),
+    "no valid beam": (E15, 0, 8, 360, "none valid"),
+    "a start pose 0.4 m from the map's edge": (E2, 0, 8, 360, "edge"),
+    "long steps that shrink slowly": (E2, 8, 12, 360, "long steps"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(REFINE_CASES))
+def test_gradient_refine_kernel_equals_its_launch_loop(scene, case):
+    """The kernel (a block a map, a thread a beam, warp 0 folding the sums
+    and stepping) equals ``gradient_refine_rounds`` bit for bit in pose,
+    prob and trace at every radius (the unrolled ones and the loop),
+    extent, count of maps and iterations and on the edge cases; M maps also
+    equal single-map launches."""
+    red, n_maps, iterations, n_beams, edit = REFINE_CASES[case]
+    plane, pts, beam_w, origin, pose, scale, unknown = refine_case(scene, n_beams, 2, True,
+                                                                   (0.05, -0.04, 0.02))
+    dev = plane.device
+    steps = (0.04, 0.02, 0.5)
+    if edit == "nan":
+        beam_w = beam_w.clone()
+        beam_w[5] = float("nan")
+    elif edit == "none valid":
+        beam_w = torch.zeros_like(beam_w)
+    elif edit == "edge":
+        pose = torch.stack([origin[0] + 0.4, origin[1] + plane.shape[0] * scale / 2, pose[2]])
+    elif edit == "long steps":  # candidates up to metres away
+        steps = (0.6, 0.3, 0.95)
+    head = (plane, pts, beam_w, origin, pose.contiguous())
+    if n_maps:
+        g = scene[3]
+        planes = torch.stack([plane.flip(0) if m % 2 else plane.roll(m, 1)
+                              for m in range(n_maps)])
+        poses = pose + torch.randn((n_maps, 3), generator=g, device=dev) * torch.tensor(
+            [0.05, 0.05, 0.03], device=dev)
+        head = (planes.contiguous(), *(t.expand(n_maps, *t.shape).contiguous()
+                                       for t in head[1:4]), poses.contiguous())
+    args = (*head, scale, unknown, steps[0], steps[1], iterations, steps[2], red)
+    before = kernels.launch_counts()["gradient_refine"]
+    got = kernels.gradient_refine(*args)
+    assert kernels.launch_counts()["gradient_refine"] - before == (0 if red.flat else 1)
+    want = kernels.gradient_refine_rounds(*args)
+    torch.cuda.synchronize()
+    lead = (n_maps,) if n_maps else ()
+    assert got[0].shape == (*lead, 3) and got[1].shape == lead
+    assert got[2].shape == (*lead, iterations)
+    assert same_bits(got, want), (got, want)
+    if n_maps:
+        picks = range(0, n_maps, max(1, n_maps // 4))
+        singles = [kernels.gradient_refine(*(t[m] for t in args[:5]), *args[5:]) for m in picks]
+        assert same_bits([t[list(picks)] for t in got],
+                         [torch.stack([s[i] for s in singles]) for i in range(3)])
