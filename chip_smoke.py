@@ -10,8 +10,12 @@ Phases, one line or more each, in order; any failure exits non-zero:
    nvcc for sm_90a, one process a source (seconds, and ptxas'
    register/shared-memory report);
 3. ``overlap_score`` against ``overlap_score_ref`` on the card at the
-   main-path shapes and at edge cases (max |diff| <= 2e-6), then both timed
-   with CUDA events at the main-path shape;
+   main-path shapes, at edge cases and at three shapes of the paths (K = 1
+   at the obstacle reducer, K = 6 on a 1024^2 map at 0.05 m, the 1,089 poses
+   of the brute-force grid): max |diff| <= 2e-6, and the bits of the
+   128-thread group's sums (``overlap_score_ordered``); then both timed
+   with CUDA events at the main-path shape, and the three shapes replayed
+   from a CUDA graph, a call and chained, each beside its bound;
 4. ``polar_free_plane`` against ``polar_free_plane_ref`` on the card at the
    main-path shape (256^2 cells, 360 beams) and at edge cases: the number of
    cells whose free decision differs (at most 8 in 65,536) and the largest
@@ -79,7 +83,9 @@ Phases, one line or more each, in order; any failure exits non-zero:
    120^2, K = 343 and K = 7, a different scan a map) and on edge cases
    (M = 1, M = 5, a map with no valid beam): against its plain twin
    (max |diff| <= 2e-6) and against M single-plane ``overlap_score``
-   launches (bit for bit); then timed at M = 32, K = 343;
+   launches (bit for bit), the named cases also against the 128-thread
+   group's sums (``overlap_score_ordered``, bit for bit); then timed at
+   M = 32, K = 343;
 13. card vs CPU over a short loop-closing run (a lap and 14 scans more, 360
    beams, keyframe batches and closure bursts included) with the same
    matcher noise: the same graph structure and loop count, poses within
@@ -388,8 +394,9 @@ Phases, one line or more each, in order; any failure exits non-zero:
    new mode of K1's kernel) against its plain twin on every band of 2, 4
    and 8 row partitions at every reducer (2e-6: its sums relative to their
    size, the band's mean num / den absolute) and the bands' sums
-   against ``overlap_score`` (2e-6 x max(1, |s|)); then timed (replayed
-   from a CUDA graph, a call, chained) beside its twin and its bound.
+   against ``overlap_score`` (2e-6 x max(1, |s|)), one band of the whole
+   plane against ``overlap_score`` bit for bit; then timed (replayed from
+   a CUDA graph, a call, chained) beside its twin and its bound.
 
 Every bound counts, of the plane or window, the distinct cells that the
 taps of every pose the kernel scores read (the poses taken from its
@@ -813,19 +820,26 @@ def phase_overlap_kernel(dev, scans, gt):
         ("invalid beams", holes, cand, sc, weights),
     ]
     max_err = 0.0
+    runs = []
     for name, s, poses, c, w in cases:
         prep = scoring.prepare(view, s, c, w)
-        args = (prep.plane, poses.contiguous(), prep.pts, prep.beam_w, prep.origin,
-                prep.scale, prep.unknown)
+        runs.append((name, _score_args(
+            (prep.plane, prep.pts, prep.beam_w, prep.origin, prep.scale, prep.unknown), poses)))
+    runs += list(path_score_shapes(dev, scans, gt, view, cand).items())
+    for name, args in runs:
         got = kernels.overlap_score(*args)
         want = kernels.overlap_score_ref(*args)
+        ordered = kernels.overlap_score_ordered(*args)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         check(bool(torch.isfinite(got).all()), f"kernel output not finite ({name})")
-        print(f"overlap_score vs plain [{name}]: K={poses.shape[0]} R={prep.pts.shape[0]} "
-              f"max|diff|={err:.3e} (tol {TOL:g})", flush=True)
+        print(f"overlap_score vs plain [{name}]: K={args[1].shape[0]} R={args[2].shape[0]} "
+              f"max|diff|={err:.3e} (tol {TOL:g}); the group's sums bit for bit", flush=True)
         check(err <= TOL, f"kernel disagrees with plain twin ({name}): {err}")
+        check(torch.equal(bits(got), bits(ordered)),
+              f"overlap_score is not the group's sums (overlap_score_ordered) ({name})")
         max_err = max(max_err, err)
+    by_shape = {name: overlap_times(args) for name, args in runs[len(cases):]}
 
     prep = scoring.prepare(view, scan, sc)
     args = (prep.plane, cand, prep.pts, prep.beam_w, prep.origin, prep.scale, prep.unknown)
@@ -847,8 +861,70 @@ def phase_overlap_kernel(dev, scans, gt):
         "source": "slam_constructor_tpu_torch/csrc/overlap_score.cu",
         "replaces": "slam_constructor_tpu/ops/pallas_kernels.py:73",
         "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "chained_ms": chained,
-        "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+        "bound_ms": b_ms, "bound_by": by, "library_ms": None, "by_shape": by_shape,
     }
+
+
+def _score_args(prepared, poses, reducer=None):
+    """``overlap_score``'s arguments from (plane, pts, beam_w, origin,
+    scale, unknown) and the poses, with ``reducer`` last where given."""
+    plane, pts, beam_w, origin, scale, unknown = prepared
+    args = (plane, poses.contiguous(), pts, beam_w, origin, scale, unknown)
+    return args if reducer is None else (*args, reducer)
+
+
+def path_score_shapes(dev, scans, gt, view, cand):
+    """``overlap_score``'s arguments at three shapes of the paths: K = 1 at
+    the obstacle reducer (tiny_refined's flat refine at that reducer), K = 6
+    on a 1024^2 map at 0.05 m after the same 20 bench scans (mit_csail's
+    hill-climb round), the 1,089 poses of the brute-force matcher's 11 x 11
+    x 9 grid (``matchers.brute_force_match``)."""
+    from slam_constructor_tpu_torch.models import tiny
+    from slam_constructor_tpu_torch.models.engine import init_state
+    from slam_constructor_tpu_torch.ops import kernels, matchers, raycast, scoring
+
+    scan, pose = scans[40], gt[40]
+    sc = tiny.tiny_config(map_size=MAP).matcher_cfg.scoring
+    prep = scoring.prepare(view, scan, sc)
+    base = (prep.plane, prep.pts, prep.beam_w, prep.origin, prep.scale, prep.unknown)
+    cfg = tiny.tiny_config(map_size=1024, map_scale=0.05)
+    gm = init_state(cfg, dev).gm
+    for i in range(0, 40, 2):
+        gm = raycast.insert_scan(gm, cfg.cell_model, gt[i], scans[i], cfg.beam)
+    big = scoring.prepare(scoring.MapView.of(gm, cfg.cell_model), scan, sc)
+    grid = pose + matchers.brute_force_offsets(matchers.BruteForceConfig(), dev)
+    return {
+        "K=1 R=360 256^2 obstacle": _score_args(base, cand[:1], kernels.Reducer("obstacle")),
+        "K=6 R=360 1024^2 at 0.05 m": _score_args(
+            (big.plane, big.pts, big.beam_w, big.origin, big.scale, big.unknown), cand[:6]),
+        "K=1089 R=360 256^2 brute-force grid": _score_args(base, grid),
+    }
+
+
+def overlap_times(args):
+    """``overlap_score`` on ``args``: device time (replayed from a CUDA
+    graph), a call and chained beside its twin's call, and its bound."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    ms, plain_ms, chained = time_pair(lambda: kernels.overlap_score(*args),
+                                      lambda: kernels.overlap_score_ref(*args), plain_calls=20)
+    device_ms = graph_ms(lambda: kernels.overlap_score(*args))
+    red = args[7] if len(args) > 7 else kernels.BILINEAR
+    n_w = int((args[3] != 0).sum())
+    if red.kind == "bilinear":
+        n_bytes = score_bytes(*args[:6], per_pose_out=1)[0]
+        n_ops = OVERLAP_OPS_PER_POINT * args[1].shape[0] * n_w
+    else:
+        cells = reducer_tap_cells(*(t[None] for t in args[:5]), args[5], red)
+        n_bytes = 4 * (cells + args[1].numel() + 2 * n_w + args[3].numel() + 2 + args[1].shape[0])
+        n_ops = reducer_ops(red) * args[1].shape[0] * n_w
+    b_ms, by = bound_ms(n_bytes, n_ops)
+    print(f"overlap_score K={args[1].shape[0]} {red.kind} {tuple(args[0].shape)}: device "
+          f"{device_ms * 1e3:.2f} us (50 launches replayed from a CUDA graph), a call {ms:.4f} ms, "
+          f"chained {chained:.4f} ms, plain {plain_ms:.4f} ms; bound {b_ms:.7f} ms by {by} "
+          f"({n_bytes} B, {n_ops} operations)", flush=True)
+    return {"device_ms": device_ms, "ms": ms, "chained_ms": chained, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "n_bytes": n_bytes, "n_ops": n_ops}
 
 
 def phase_polar_kernel(dev, scans, gt):
@@ -1510,11 +1586,15 @@ def phase_batched_kernel(dev, kept):
             check(torch.equal(bits(got), bits(singles)),
                   f"overlap_score_batched differs from single-plane launches ({name}): "
                   f"{float((got - singles).abs().max())}")
+            check(args is None or torch.equal(bits(got), bits(kernels.overlap_score_ordered(*a))),
+                  f"overlap_score_batched is not the group's sums ({name})")
             max_err = max(max_err, err)
         shape = "" if args is None else (f" M={args[0].shape[0]} K={args[1].shape[1]} "
                                          f"R'={args[2].shape[1]}")
         print(f"overlap_score_batched [{name}]:{shape} max|diff| to the plain twin so far "
-              f"{max_err:.3e} (tol {TOL:g}); equal to single-plane launches bit for bit", flush=True)
+              f"{max_err:.3e} (tol {TOL:g}); equal to single-plane launches bit for bit"
+              + ("" if args is None else " and to the group's sums (overlap_score_ordered)"),
+              flush=True)
     check(not bool(kernels.overlap_score_batched(*cases[6][1])[1].any()),
           "a map with no valid beam must score 0")
 
@@ -5511,10 +5591,20 @@ def phase_partial_kernel(dev, scans, gt, smi):
                 score = sums[:, 0] / sums[:, 1].clamp(min=1e-9)
                 gap = float(((score - whole).abs() / whole.abs().clamp(min=1.0)).max())
                 check(gap <= TOL, f"overlap_score_partial: {d} bands' sums {gap} from overlap_score")
+            # one band that holds the whole plane: every beam in the group's
+            # order, so (num, den) give overlap_score's bits
+            whole_band = kernels.overlap_score_partial(prep.plane, 0, MAP, poses, prep.pts,
+                                                       prep.beam_w, prep.origin, prep.scale,
+                                                       prep.unknown, 0, MAP, red)
+            mean = whole_band[:, 0] / torch.fmax(whole_band[:, 1],
+                                                 torch.full_like(whole_band[:, 1], 1e-9))
+            check(torch.equal(bits(mean), bits(whole)),
+                  f"overlap_score_partial [{reducer_label(red)}, {label}]: the whole plane as one "
+                  f"band does not give overlap_score's bits")
         print(f"overlap_score_partial [{reducer_label(red)}]: every band of {PARTIAL_SPLITS} row "
               f"partitions within {TOL:g} of its twin (its sums relative, its mean absolute), the "
-              f"bands' sums within {TOL:g} x max(1, |s|) of overlap_score (K = 64, 64 half off "
-              f"the map, 1)", flush=True)
+              f"bands' sums within {TOL:g} x max(1, |s|) of overlap_score, one band of the whole "
+              f"plane its bits (K = 64, 64 half off the map, 1)", flush=True)
     prep = scoring.prepare(view, scans[40], reducer_scoring(kernels.BILINEAR))
     band, g0, r0, r1 = partial_bands(prep.plane, kernels.BILINEAR, 2)[0]
     args = (band, g0, MAP, cand, prep.pts, prep.beam_w, prep.origin, prep.scale, prep.unknown,

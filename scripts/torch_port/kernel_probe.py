@@ -1,11 +1,13 @@
 """Short first look at the port's CUDA kernels on a card: build, compiler
 report, instruction mix, one launch of each kernel against its twin, and
 back-to-back launch times; with ``--stamps``, where a round of the RBPF's
-particle match, an M3RSM match and a gradient refine's pass go.
+particle match, an M3RSM match, a gradient refine's pass and an overlap
+score's block or warp go.
 
     python3 scripts/torch_port/kernel_probe.py
-    python3 scripts/torch_port/kernel_probe.py --stamps
-    python3 scripts/torch_port/kernel_probe.py --times [--only NAME] --root DIR
+    python3 scripts/torch_port/kernel_probe.py --stamps [--only SECTION]
+    python3 scripts/torch_port/kernel_probe.py --times [--only NAME] --root DIR [--save F.npz]
+    python3 scripts/torch_port/kernel_probe.py --compare A.npz B.npz
     python3 scripts/torch_port/kernel_probe.py --sincos
 
 Prints ptxas' registers, spills and shared memory for every kernel; for
@@ -59,10 +61,14 @@ one map at the bilinear reducer and at the overlap of extent 1.5, the
 joint refine's 8 maps, the loop closer's submaps, the RBPF's 30 windows at
 extent 2) into its set-up and, for the first pass and a later one, the
 parts the source stamps (a build of another checkout may stamp other
-parts: three, the taps, the fold and tree, the step). Cycles are turned
-into time with the SM clock that the stamps themselves give. A clock read
-after a barrier may issue before the warp leaves it: the wait then falls
-in the part after it.
+parts: three, the taps, the fold and tree, the step); and the overlap
+score (``csrc/overlap_score.cu``) at the paths' shapes (``overlap_shapes``)
+into the parts of the layout that runs each: set-up, beams, barrier, fold
+and tree. ``--only`` keeps one section (``mc_match``, ``m3rsm``,
+``gradient_refine``, ``overlap_score``). Cycles are turned into time with
+the SM clock that the stamps themselves give. A clock read after a barrier
+may issue before the warp leaves it: the wait then falls in the part after
+it.
 
 ``--times`` prints each source's build seconds where the checkout keeps
 them and ptxas' report, then times (a call between its own events, the
@@ -73,10 +79,13 @@ RBPF's shape, ``overlap_score``, ``polar_free_plane``, ``mc_match`` tiny and
 viny; the M3RSM kernels where the checkout has them, and a whole
 ``m3rsm_match`` call of the viny_m3rsm preset; the one-launch refines
 where the checkout has them: the gradient refine at the five shapes, the
-hill climb at mit_csail's); ``--only NAME`` keeps those whose name holds
-NAME; and ``--root DIR`` imports the port from another checkout (built
-there): run it on two checkouts in turns (A, B, B, A), one after another, to
-compare their kernels on one card.
+hill climb at mit_csail's; the overlap score at the paths' shapes), and an
+empty kernel (the launch floor, ``EMPTY_KERNEL``); ``--only NAME`` keeps
+those whose name holds NAME; ``--root DIR`` imports the port from another
+checkout (built there): run it on two checkouts in turns (A, B, B, A), one
+after another, to compare their kernels on one card; ``--save F.npz`` keeps
+the overlap shapes' outputs, and ``--compare A B`` holds two such files bit
+for bit (it exits 1 where any differs).
 
 ``--sincos`` builds ``sincos_check.cu`` with the port's flags and checks
 that ``sincosf`` gives the bits of ``sinf`` and ``cosf`` on all 2^32
@@ -451,14 +460,130 @@ def refine_cases(prep, pose):
     return out
 
 
+def overlap_shapes(prep, pose, scan, dev):
+    """K1's score at the shapes of the paths, on the probe's map: {name:
+    (wrapper, args)}. One map: K = 1 at the obstacle reducer (tiny_refined's
+    flat refine), K = 6 on a 1024^2 map at 0.05 m (mit_csail's hill-climb
+    round; the probe's scan inserted into it), K = 64 (bilinear), the 1,089
+    poses of the brute-force matcher's 11 x 11 x 9 grid; M maps: the loop
+    closer's 32 submaps of 120^2 x 343 poses, the RBPF's 30 windows of 160^2
+    x 16 and x 1 poses (every second beam); the partial mode at K = 64 on the
+    first band of two of the 256^2 plane (rows 0-128 owned, 129 rows held);
+    and the loop closer's narrower batches, 8, 12 and 16 submaps x 343."""
+    from slam_constructor_tpu_torch.models import tiny
+    from slam_constructor_tpu_torch.models.engine import init_state
+    from slam_constructor_tpu_torch.ops import kernels, matchers, raycast, scoring
+
+    g = torch.Generator(device=dev).manual_seed(13)
+
+    def near(k):
+        return (pose + torch.randn((k, 3), generator=g, device=dev) * torch.tensor(
+            [0.05, 0.05, 0.03], device=dev)).contiguous()
+
+    cfg = tiny.tiny_config(map_size=1024, map_scale=0.05)
+    gm = raycast.insert_scan(init_state(cfg, dev).gm, cfg.cell_model, pose, scan, cfg.beam)
+    big = scoring.prepare(scoring.MapView.of(gm, cfg.cell_model), scan, cfg.matcher_cfg.scoring)
+    grid = (pose + matchers.brute_force_offsets(matchers.BruteForceConfig(), dev)).contiguous()
+    one = (prep.pts, prep.beam_w, prep.origin, prep.scale, prep.unknown)
+    k64 = near(64)
+    return {
+        "overlap_score K=1 R=360 256^2 obstacle": (
+            kernels.overlap_score, (prep.plane, near(1), *one, kernels.Reducer("obstacle"))),
+        "overlap_score K=6 R=360 1024^2": (
+            kernels.overlap_score, (big.plane, near(6), big.pts, big.beam_w, big.origin,
+                                    big.scale, big.unknown)),
+        "overlap_score K=64 R=360 256^2": (kernels.overlap_score, (prep.plane, k64, *one)),
+        "overlap_score K=1089 R=360 256^2 brute-force grid": (
+            kernels.overlap_score, (prep.plane, grid, *one)),
+        "overlap_score_batched M=32 K=343 R'=180 120^2": (
+            kernels.overlap_score_batched, submaps(prep, pose, dev, 32, 343)),
+        **{f"overlap_score_batched M={m} K=343 R'=180 120^2": (
+            kernels.overlap_score_batched, submaps(prep, pose, dev, m, 343)) for m in (8, 12, 16)},
+        "overlap_score_batched M=30 K=16 R'=180 160^2": (
+            kernels.overlap_score_batched, submaps(prep, pose, dev, 30, 16, 160)),
+        "overlap_score_batched M=30 K=1 R'=180 160^2": (
+            kernels.overlap_score_batched, submaps(prep, pose, dev, 30, 1, 160)),
+        "overlap_score_partial K=64 R=360 rows 0-128 of 256 (129-row band)": (
+            kernels.overlap_score_partial,
+            (prep.plane[:129].contiguous(), 0, 256, k64, *one[:5], 0, 128)),
+    }
+
+
+#: an empty kernel and its launcher: the launch floor a graph replay gives
+EMPTY_KERNEL = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def empty_launcher():
+    """Builds ``EMPTY_KERNEL`` with the port's architecture flags (into this
+    script's checkout's ``build/``) and returns a function that launches it
+    on the current stream."""
+    from slam_constructor_tpu_torch.ops import _build
+
+    out = Path(__file__).resolve().parents[2] / "build" / "empty_kernel"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "empty.cu").write_text(EMPTY_KERNEL)
+    subprocess.run([_build.find_nvcc(), *_build.ARCH_FLAGS, "-shared", "-Xcompiler", "-fPIC",
+                    "-o", str(out / "libempty.so"), str(out / "empty.cu")], check=True)
+    fn = ctypes.CDLL(str(out / "libempty.so")).empty_launch
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+
+    def launch():
+        if fn(torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("empty kernel launch failed")
+
+    return launch
+
+
+#: the parts an overlap-score stamp build writes, by the layout's code in
+#: slot 60: a group of 128 threads a pair, a beam a thread, a warp a pair
+OVERLAP_PARTS = {1: ["set-up (trig, barrier)", "beams", "tree"],
+                 2: ["set-up (sincosf)", "its beam", "barrier", "fold + tree"],
+                 3: ["set-up (sincosf)", "beams", "tree"]}
+
+
+def overlap_stamps(lib, name, n_units) -> None:
+    """Prints the parts of the first ``n_units`` stamped blocks (or warps) of
+    the last overlap-score launch: each part's mean, a unit's start to end,
+    the first start to the last end."""
+    slots, n_slots = 256, 64
+    buf = (ctypes.c_ulonglong * (slots * n_slots))()
+    err = lib.overlap_score_probe_stamps(ctypes.byref(buf))
+    if err:
+        raise RuntimeError(f"overlap_score_probe_stamps: cudaError_t {err}")
+    n = min(n_units, slots)
+    st = np.frombuffer(buf, np.uint64).reshape(slots, n_slots)[:n].astype(np.float64)
+    # cycles over ns, summed over the units (a unit lasts a few us: the
+    # globaltimer's steps average out)
+    ghz = float((st[:, 62] - st[:, 0]).sum() / (st[:, 63] - st[:, 1]).sum())
+    cyc = 1e-3 / ghz  # us a cycle
+    layout, n_p = int(st[0, 60]), int(st[0, 61])
+    names = OVERLAP_PARTS.get(layout, [f"part {k}" for k in range(n_p)])
+    ends = [0] + list(range(2, 2 + n_p)) + [62]
+    parts = [float(np.mean(st[:, b] - st[:, a])) * cyc for a, b in zip(ends[:-1], ends[1:])]
+    print(f"stamps [{name}]: {n} units stamped, SM clock {ghz:.3f} GHz, a unit "
+          f"{float(np.mean(st[:, 62] - st[:, 0])) * cyc:.3f} us: "
+          + ", ".join(f"{a} {x:.3f}" for a, x in zip(names + ["write"], parts))
+          + f"; the first start to the last end {(st[:, 63].max() - st[:, 1].min()) * 1e-3:.2f} us",
+          flush=True)
+
+
 def same_bits(a, b) -> bool:
     return all(torch.equal(x.reshape(-1).view(torch.int32), y.reshape(-1).view(torch.int32))
                for x, y in zip(a, b))
 
 
-def stamps_main(dev) -> None:
-    """The stamp build: a particle match, an M3RSM match and the gradient
-    refine split into their parts."""
+def stamps_main(dev, only: str = "") -> None:
+    """The stamp build: a particle match, an M3RSM match, the gradient
+    refine and the overlap score split into their parts; only the sections
+    (``mc_match``, ``m3rsm``, ``gradient_refine``, ``overlap_score``) whose
+    name holds ``only``."""
     from slam_constructor_tpu_torch.ops import _build, kernels
 
     res = _build.build(("-DSLAM_KERNEL_PROBE",))
@@ -468,6 +593,19 @@ def stamps_main(dev) -> None:
     slots, n_slots = 256, 64
     pose, scan, prep = scene(dev)
     cut, in_place = particle_cases(prep, pose, dev)
+
+    # the overlap score (overlap_score.cu) at the paths' shapes: the last
+    # launch's first 256 blocks (or warps), split into the parts its source
+    # stamps
+    if only in "overlap_score":
+        for name, (fn, a) in overlap_shapes(prep, pose, scan, dev).items():
+            for _ in range(3):
+                fn(*a)
+            torch.cuda.synchronize()
+            units = a[3].shape[0] if "partial" in name else a[1].shape[:-1].numel()
+            overlap_stamps(lib, name, units)
+    if only and only not in "mc_match m3rsm gradient_refine":
+        return
 
     def split(reader, n_blocks, name):
         buf = (ctypes.c_ulonglong * (slots * n_slots))()
@@ -499,6 +637,8 @@ def stamps_main(dev) -> None:
 
     for name, fn in (("cut out", lambda: kernels.mc_match_batched(*cut)),
                      ("read in place", lambda: kernels.mc_match_windows(*in_place))):
+        if only not in "mc_match":
+            break
         for _ in range(3):  # warm-up; the last launch's stamps stay
             fn()
         torch.cuda.synchronize()
@@ -509,7 +649,7 @@ def stamps_main(dev) -> None:
     # barrier and score reads, selection; the argmax, the first hill-climb
     # score and its rounds
     for name, (fn, _, a) in m3rsm_cases(pose, scan, dev).items():
-        if not name.startswith("m3rsm_search"):
+        if not name.startswith("m3rsm_search") or only not in "m3rsm_search":
             continue
         search = a[0]
         for _ in range(3):
@@ -553,6 +693,8 @@ def stamps_main(dev) -> None:
     # every block: its set-up, its first pass and a later pass (the mean of
     # the others) split into the parts the source stamps
     for name, a in gradient_shapes(prep, pose, dev).items():
+        if only not in "gradient_refine":
+            break
         for _ in range(3):
             kernels.gradient_refine(*a)
         torch.cuda.synchronize()
@@ -592,9 +734,11 @@ REFINE_PARTS = {3: ["taps", "fold + tree", "step"],
                 6: ["speculate", "barrier", "fold", "tree", "step", "hand-off"]}
 
 
-def times_main(dev, only: str = "") -> None:
+def times_main(dev, only: str = "", save: str = "") -> None:
     """The times of the wrappers every version of the port has, at the
-    shapes of the full probe; only those whose name holds ``only``."""
+    shapes of the full probe, the overlap score at the paths' shapes
+    (``overlap_shapes``) and an empty kernel; only those whose name holds
+    ``only``. ``save``: an ``.npz`` for the overlap shapes' outputs."""
     from slam_constructor_tpu_torch.models import tiny, viny
     from slam_constructor_tpu_torch.models.engine import init_state
     from slam_constructor_tpu_torch.ops import _build, kernels, raycast, scoring
@@ -639,9 +783,18 @@ def times_main(dev, only: str = "") -> None:
         fns += [("m3rsm_match viny_m3rsm (the whole call)", m3rsm_match_call(pose, scan, dev))]
     if hasattr(kernels, "hill_climb"):
         fns += [(name, lambda f=f, a=a: f(*a)) for name, (f, a) in refine_cases(prep, pose).items()]
+    shapes = overlap_shapes(prep, pose, scan, dev)
+    fns += [(name, lambda f=f, a=a: f(*a)) for name, (f, a) in shapes.items()
+            if hasattr(kernels, f.__name__)]
     for name, fn in fns:
         if only in name:
             report(name, fn)
+    report("empty kernel (the launch floor)", empty_launcher())
+    if save:  # the overlap shapes' outputs, to hold two checkouts bit for bit
+        outs = {name: f(*a).cpu().numpy() for name, (f, a) in shapes.items()
+                if hasattr(kernels, f.__name__)}
+        np.savez(save, **outs)
+        print(f"saved {len(outs)} outputs to {save}", flush=True)
 
 
 def sincos_main() -> None:
@@ -656,6 +809,18 @@ def sincos_main() -> None:
     sys.exit(subprocess.run([str(out)]).returncode)
 
 
+def compare_main(a: str, b: str) -> None:
+    """Holds the outputs two ``--times --save`` runs saved bit for bit."""
+    x, y = np.load(a), np.load(b)
+    same = True
+    for name in sorted(set(x.files) | set(y.files)):
+        eq = (name in x.files and name in y.files and x[name].shape == y[name].shape
+              and np.array_equal(x[name].view(np.uint32), y[name].view(np.uint32)))
+        same &= eq
+        print(f"compare [{name}]: {'bit for bit' if eq else 'DIFFERS'}")
+    sys.exit(0 if same else 1)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--stamps", action="store_true",
@@ -666,7 +831,12 @@ def main() -> None:
     ap.add_argument("--only", default="", help="--times: only the wrappers whose name holds this")
     ap.add_argument("--sincos", action="store_true",
                     help="check that sincosf gives sinf's and cosf's bits on every input")
+    ap.add_argument("--save", default="", help="--times: save the overlap shapes' outputs here")
+    ap.add_argument("--compare", nargs=2, metavar=("A", "B"),
+                    help="hold two --save files bit for bit, and exit 1 where any differs")
     args = ap.parse_args()
+    if args.compare:
+        compare_main(*args.compare)
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA GPU")
     from slam_constructor_tpu_torch.models import tiny, viny
@@ -680,10 +850,10 @@ def main() -> None:
     if args.sincos:
         sincos_main()
     if args.stamps:
-        stamps_main(dev)
+        stamps_main(dev, args.only)
         return
     if args.times:
-        times_main(dev, args.only)
+        times_main(dev, args.only, args.save)
         return
     res = _build.build()
     print(f"build: {res.seconds:.2f} s")

@@ -43,8 +43,9 @@
 //  - each beam thread writes its beam's five terms to shared memory (zeros
 //    for a beam of weight 0 or past the scan: adding +0.0 to a sum that
 //    starts at +0.0 leaves it as skipping the beam does); after one block
-//    barrier warp 0 alone folds them: lane l sums group lanes l, l + 32,
-//    l + 64 and l + 96 over their beams in order, forms
+//    barrier warp 0 alone folds them (overlap::fold_terms, fold_tree, which
+//    overlap_score.cu shares): lane l sums group lanes l, l + 32, l + 64
+//    and l + 96 over their beams in order, forms
 //    (s[l] + s[l + 64]) + (s[l + 32] + s[l + 96]) and adds across lanes by
 //    xor shuffles from 16 down to 1, which give lane 0 the pairs of the
 //    tree's shfl_down and every lane the same bits;
@@ -344,27 +345,14 @@ gradient_refine_kernel(const float* __restrict__ v, int h, int w, const float* _
       __syncthreads();
       if (t == 0 && last) clk.part(kTermsBarrier);
       if (state) {  // each group lane's beams of this chunk, in order
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-#pragma unroll
-          for (int j = 0; j < kGroups; ++j) {
-#pragma unroll
-            for (int k = 0; k < kSums; ++k) acc[q][k] += s_terms[k][lane + 32 * q + kGroup * j];
-          }
-        }
+        overlap::fold_terms<kSums>(acc, &s_terms[0][0], kBeamThreads, kBeamThreads, lane);
       }
       if (!last) __syncthreads();  // the next chunk's terms overwrite these
     }
     if (state) {
       if (t == 0) clk.part(kFold);
       float s[kSums];
-#pragma unroll
-      for (int k = 0; k < kSums; ++k) s[k] = (acc[0][k] + acc[2][k]) + (acc[1][k] + acc[3][k]);
-#pragma unroll
-      for (int stride = 16; stride > 0; stride >>= 1) {
-#pragma unroll
-        for (int k = 0; k < kSums; ++k) s[k] += __shfl_xor_sync(kFull, s[k], stride);
-      }
+      overlap::fold_tree<kSums>(acc, s);
       if (t == 0) clk.part(kTree);
       // one division a lane: lanes 0-2 a component of the gradient (s / d),
       // the others the score, overlap::weighted_mean(s[0], s[1])

@@ -475,6 +475,47 @@ __device__ __forceinline__ void group_reduce(float& num, float& den, float* s_nu
   group_sync(barrier_id);
 }
 
+// One warp's fold of a group's per-beam terms, in the order group_reduce
+// gives them: lane l adds to acc[q][k] (q = 0..3) the terms of group lane
+// l + 32 q, that is of beams l + 32 q + kGroupThreads j, j = 0, 1, ..., in
+// that order, among the first n beams of a chunk; terms[k * stride + i] is
+// term k of the chunk's beam i. A chunk of a multiple of kGroupThreads beams
+// continues every group lane's sums where the chunk before it left them. A
+// beam that is skipped may hold +0.0: a sum that starts at +0.0 is never
+// -0.0, so adding +0.0 leaves it as skipping the beam does.
+template <int kSums>
+__device__ __forceinline__ void fold_terms(float (&acc)[4][kSums], const float* terms, int stride,
+                                           int n, int lane) {
+  const int groups = (n + kGroupThreads - 1) / kGroupThreads;
+#pragma unroll
+  for (int j = 0; j < groups; ++j) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = lane + 32 * q + kGroupThreads * j;
+      if (n % kGroupThreads == 0 || i < n) {
+#pragma unroll
+        for (int k = 0; k < kSums; ++k) acc[q][k] += terms[k * stride + i];
+      }
+    }
+  }
+}
+
+// The group's sums from a warp's fold (fold_terms, or four group lanes'
+// sums kept in each lane's registers): the tree's s[l] + s[l + 64], then +
+// s[l + 32], as (s[l] + s[l + 64]) + (s[l + 32] + s[l + 96]), then xor
+// shuffles from 16 down to 1, which give lane 0 the pairs of group_reduce's
+// shfl_down and every lane the same bits (an add is commutative).
+template <int kSums>
+__device__ __forceinline__ void fold_tree(const float (&acc)[4][kSums], float (&s)[kSums]) {
+#pragma unroll
+  for (int k = 0; k < kSums; ++k) s[k] = (acc[0][k] + acc[2][k]) + (acc[1][k] + acc[3][k]);
+#pragma unroll
+  for (int stride = 16; stride > 0; stride >>= 1) {
+#pragma unroll
+    for (int k = 0; k < kSums; ++k) s[k] += __shfl_xor_sync(0xffffffffu, s[k], stride);
+  }
+}
+
 // The score from the reduced sums.
 __device__ __forceinline__ float weighted_mean(float num, float den) {
   return num / fmaxf(den, 1e-9f);
@@ -510,6 +551,7 @@ __device__ __forceinline__ void stamp(int block, int slot, unsigned long long v)
 }  // namespace probe
 #define PROBE_STAMP(block, slot) probe::stamp((block), (slot), clock64())
 #define PROBE_STAMP_NS(block, slot) probe::stamp((block), (slot), probe::ns())
+#define PROBE_SET(block, slot, value) probe::stamp((block), (slot), (value))
 // a source's host function that copies its stamps out: int name(void* dst)
 #define PROBE_EXPORT(name)                                                        \
   extern "C" int name(void* dst) {                                                 \
@@ -519,5 +561,6 @@ __device__ __forceinline__ void stamp(int block, int slot, unsigned long long v)
 #else
 #define PROBE_STAMP(block, slot) ((void)(block), (void)(slot))
 #define PROBE_STAMP_NS(block, slot) ((void)(block), (void)(slot))
+#define PROBE_SET(block, slot, value) ((void)(block), (void)(slot), (void)(value))
 #define PROBE_EXPORT(name)
 #endif

@@ -474,6 +474,51 @@ def overlap_score_batched(
     )
 
 
+def _group_order_sum(terms: Tensor) -> Tensor:
+    """Sums terms f32[..., R] over R in the order of the kernels' group of
+    128 threads: group lane v adds beams v, v + 128, ... in order from
+    +0.0, then the tree s[t] + s[t + 64], + s[t + 32], then strides 16 down
+    to 1 (``csrc/overlap_sample.cuh`` ``group_reduce``) -> f32[...]."""
+    t = torch.nn.functional.pad(terms, (0, -terms.shape[-1] % 128)).unflatten(-1, (-1, 128))
+    acc = terms.new_zeros((*terms.shape[:-1], 128))
+    for j in range(t.shape[-2]):
+        acc = acc + t[..., j, :]
+    for half in (64, 32, 16, 8, 4, 2, 1):
+        acc = acc[..., :half] + acc[..., half:2 * half]
+    return acc[..., 0]
+
+
+def overlap_score_ordered(v: Tensor, poses: Tensor, pts: Tensor, beam_w: Tensor, origin: Tensor,
+                          scale: float, unknown: float, reducer: Reducer = BILINEAR) -> Tensor:
+    """:func:`overlap_score` (v f32[H, W]) or :func:`overlap_score_batched`
+    (v f32[M, H, W]) with the sums done by PyTorch ops in the kernels'
+    order: every beam's probability from a launch that scores that beam
+    alone at weight 1 (its score is the probability, bit for bit), the
+    terms ``bw * p`` of the beams of nonzero weight and their weights summed
+    by :func:`_group_order_sum`, then ``num / fmax(den, 1e-9)``. On the card
+    these are the bits every overlap-score kernel gives, whatever its
+    layout; R launches of the wrapper (each counted)."""
+    score = overlap_score_batched if v.dim() == 3 else overlap_score
+    one = torch.ones_like(beam_w[..., :1])
+    p = torch.stack([score(v, poses, pts[..., i:i + 1, :].contiguous(), one, origin, scale,
+                           unknown, reducer) for i in range(pts.shape[-2])], -1)  # [..., K, R]
+    bw = beam_w[..., None, :]
+    num = _group_order_sum(torch.where(bw != 0, bw * p, 0.0))
+    den = _group_order_sum(torch.where(bw != 0, bw, 0.0).expand_as(p))
+    return num / torch.fmax(den, torch.full_like(den, 1e-9))
+
+
+def overlap_score_layout(pairs: int, r: int) -> int:
+    """The layout an ``overlap_score(_batched)`` launch of ``pairs`` (pose,
+    map) pairs and ``r`` beams runs, by the fixed rule of
+    ``csrc/overlap_score.cu``: 0 a beam a thread, 1 a group of 128 threads
+    a pair, 2 a warp a pair (every layout gives the same bits). Needs the
+    built library."""
+    fn = _build.load().overlap_score_layout
+    fn.argtypes, fn.restype = [ctypes.c_longlong, ctypes.c_int], ctypes.c_int
+    return int(fn(pairs, r))
+
+
 def _partial_need(reducer: Reducer) -> int:
     """Rows above and below an endpoint's centre row that its taps read."""
     return 1 if reducer.kind == "bilinear" else reducer.radius
@@ -514,6 +559,24 @@ def overlap_score_partial_ref(band: Tensor, g0: int, h: int, poses: Tensor, pts:
     bw = torch.where(own, beam_w[None, :], 0.0)
     num = torch.where(own, bw * p, 0.0).sum(-1)
     return torch.stack([num, bw.sum(-1)], dim=-1)
+
+
+def overlap_score_partial_ordered(band: Tensor, g0: int, h: int, poses: Tensor, pts: Tensor,
+                                  beam_w: Tensor, origin: Tensor, scale: float, unknown: float,
+                                  row0: int, row1: int, reducer: Reducer = BILINEAR) -> Tensor:
+    """:func:`overlap_score_partial`'s sums by PyTorch ops in the kernels'
+    order, as :func:`overlap_score_ordered` does them: each beam's
+    probability and ownership from a launch that scores it alone at weight
+    1 (num p, den 1 where the band owns it, else (0, 0)), the owned beams of
+    nonzero weight summed by :func:`_group_order_sum` -> f32[K, 2]."""
+    one = torch.ones_like(beam_w[:1])
+    pd = torch.stack([overlap_score_partial(band, g0, h, poses, pts[i:i + 1].contiguous(), one,
+                                            origin, scale, unknown, row0, row1, reducer)
+                      for i in range(pts.shape[0])], 1)  # [K, R, 2]
+    take = (pd[..., 1] != 0) & (beam_w[None, :] != 0)
+    num = _group_order_sum(torch.where(take, beam_w[None, :] * pd[..., 0], 0.0))
+    den = _group_order_sum(torch.where(take, beam_w[None, :], 0.0))
+    return torch.stack([num, den], -1)
 
 
 @functools.cache

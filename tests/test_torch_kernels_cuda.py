@@ -17,7 +17,13 @@ in one launch with the arithmetic of ``mc_match_rounds`` (one
 plain twin sums a score in another order, hence atol 2e-6 on the trace.
 ``overlap_score_batched`` is ``overlap_score``'s kernel with the maps on a
 grid axis: every slot equals the single-plane launch on the same inputs bit
-for bit, and the twin within 2e-6. ``mc_match_batched`` is ``mc_match``'s
+for bit, and the twin within 2e-6. Each of its layouts (a beam a thread,
+a group of 128 threads or a warp a (pose, map), by a fixed rule on the
+launch's size) and ``overlap_score_partial`` give the bits of the
+128-thread group's sums, ``overlap_score_ordered`` and
+``overlap_score_partial_ordered`` (each beam's probability from a one-beam
+launch, the sums by PyTorch ops in the group's order), at every shape and
+on both sides of each boundary of the rule. ``mc_match_batched`` is ``mc_match``'s
 kernel with a cluster a match: every match equals a single ``mc_match``
 launch (and ``mc_match_rounds``) on its slices bit for bit, and its twin as
 ``mc_match``'s does. ``mc_match_windows`` is the same kernel reading each
@@ -180,6 +186,156 @@ def test_overlap_score_partial_rejects_bad_input(scene):
         kernels.overlap_score_partial(prep.plane[10:50].contiguous(), 10, 256, *args, 10, 50)
     with pytest.raises(ValueError):
         kernels.overlap_score_partial(prep.plane, 0, 256, cand.cpu(), *args[1:], 0, 256)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def _order_scan(scene, n_beams):
+    """The scene's prepared scan cut or stretched to ``n_beams`` beams (past
+    360: copies at 0.97 and 1.03 of the endpoints), a hole every 9th beam;
+    one beam: the first of nonzero weight. Returns (prep, pts, beam_w)."""
+    view, scan, cand, _ = scene
+    prep = scoring.prepare(view, scan, scoring.ScoringConfig(reducer="overlap"))
+    if n_beams == 1:
+        i = int(torch.nonzero(prep.beam_w)[0])
+        return prep, prep.pts[i:i + 1].contiguous(), prep.beam_w[i:i + 1].contiguous()
+    pts = torch.cat([prep.pts, prep.pts * 0.97, prep.pts * 1.03])[:n_beams].contiguous()
+    keep = torch.arange(n_beams, device=cand.device) % 9 != 4
+    return prep, pts, (torch.cat([prep.beam_w] * 3)[:n_beams] * keep).contiguous()
+
+
+def _order_poses(scene, k):
+    """The scene's first ``k`` candidates; 1,089: the brute-force matcher's
+    11 x 11 x 9 grid around the first."""
+    from slam_constructor_tpu_torch.ops import matchers
+
+    cand = scene[2]
+    if k <= cand.shape[0]:
+        return cand[:k].contiguous()
+    grid = matchers.brute_force_offsets(matchers.BruteForceConfig(), cand.device)
+    assert grid.shape[0] == k
+    return (cand[0] + grid).contiguous()
+
+
+ORDER_REDUCERS = [kernels.BILINEAR, kernels.Reducer("obstacle"), kernels.Reducer("max", 1),
+                  kernels.Reducer("mean", 2), kernels.Reducer("overlap", 1, 1.5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("red", ORDER_REDUCERS, ids=lambda r: f"{r.kind}{r.radius}")
+@pytest.mark.parametrize("k,n_beams", [(1, 360), (6, 360), (64, 360), (1089, 360), (64, 1),
+                                       (1, 1000), (64, 1000), (1089, 1000)])
+def test_overlap_score_sums_in_the_group_order(scene, red, k, n_beams):
+    """The score's bits are the 128-thread group's sums (group lane v adds
+    beams v, v + 128, ... in order, then the tree): overlap_score against
+    overlap_score_ordered bit for bit at every shape (1,000 beams: more than
+    a block's threads), and against the twin within 2e-6."""
+    prep, pts, bw = _order_scan(scene, n_beams)
+    args = (prep.plane, _order_poses(scene, k), pts, bw, prep.origin, prep.scale, prep.unknown,
+            red)
+    got = kernels.overlap_score(*args)
+    assert got.shape == (k,) and bool(torch.isfinite(got).all())
+    assert torch.equal(_bits(got), _bits(kernels.overlap_score_ordered(*args)))
+    torch.testing.assert_close(got, kernels.overlap_score_ref(*args), atol=ATOL, rtol=0)
+
+
+def _rule_poses(scene, n):
+    """``n`` poses spread around the scene's first candidate, pose 5 NaN,
+    poses 7 to 9 40 m off the map."""
+    cand, g = scene[2], scene[3]
+    poses = cand[0] + torch.randn((n, 3), generator=g, device=cand.device) * torch.tensor(
+        [0.3, 0.3, 0.2], device=cand.device)
+    poses[5] = float("nan")
+    poses[7:10, 0] += 40.0
+    return poses.contiguous()
+
+
+def _layout_boundary(layout, n_beams):
+    """The least (pose, map) pairs from which a launch of ``n_beams`` beams
+    runs ``layout`` (1 a group a pair, 2 a warp a pair) or a later one."""
+    lo, hi = 1, 1 << 24
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if kernels.overlap_score_layout(mid, n_beams) >= layout:
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("red", [kernels.BILINEAR, kernels.Reducer("obstacle"),
+                                 kernels.Reducer("overlap", 2, 1.5)],
+                         ids=lambda r: f"{r.kind}{r.radius}")
+@pytest.mark.parametrize("layout", [1, 2], ids=["beam|group", "group|warp"])
+def test_overlap_score_layouts_agree_at_the_rule(scene, red, layout):
+    """One map scored with one pose fewer than a boundary of the layout
+    rule and with as many (a beam a thread | a group a pair, a group | a
+    warp a pair): the shared poses' bits equal, both the group's sums
+    (overlap_score_ordered) bit for bit, the twin within 2e-6; a NaN pose
+    and poses off the map among them."""
+    n = _layout_boundary(layout, 360)
+    assert kernels.overlap_score_layout(n - 1, 360) == layout - 1
+    assert kernels.overlap_score_layout(n, 360) == layout
+    prep, pts, bw = _order_scan(scene, 360)
+    poses = _rule_poses(scene, n)
+    rest = (pts, bw, prep.origin, prep.scale, prep.unknown, red)
+    below = kernels.overlap_score(prep.plane, poses[:n - 1].contiguous(), *rest)
+    at = kernels.overlap_score(prep.plane, poses, *rest)
+    assert torch.equal(_bits(below), _bits(at[:n - 1]))
+    assert torch.equal(_bits(at), _bits(kernels.overlap_score_ordered(prep.plane, poses, *rest)))
+    torch.testing.assert_close(at, kernels.overlap_score_ref(prep.plane, poses, *rest), atol=ATOL,
+                               rtol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [1, 2], ids=["beam|group", "group|warp"])
+@pytest.mark.parametrize("side", ["below", "at"])
+def test_overlap_score_batched_layouts_equal_single_launches(scene, layout, side):
+    """M submaps x K poses (180 beams) with M x K on each side of a boundary
+    of the layout rule against single-plane launches (a beam a thread) and
+    the group's sums bit for bit, the twin within 2e-6; a map with no valid
+    beam, a NaN pose, poses off their submap."""
+    n = _layout_boundary(layout, 180)
+    k = min(343, _layout_boundary(1, 180) - 1)
+    n_maps = (n - 1) // k if side == "below" else -(-n // k)
+    assert kernels.overlap_score_layout(k, 180) == 0
+    assert kernels.overlap_score_layout(n_maps * k, 180) == layout - (side == "below")
+    prep, poses = _submap_batch(scene, n_maps, k)
+    beam_w = prep.beam_w.clone()
+    beam_w[1] = 0.0
+    poses[0, 3] = float("nan")
+    poses[-1, :5, 0] += 40.0
+    args = (prep.plane, poses, prep.pts, beam_w, prep.origin, prep.scale, prep.unknown)
+    got = kernels.overlap_score_batched(*args)
+    singles = torch.stack([kernels.overlap_score(*(t[m] for t in args[:5]), *args[5:])
+                           for m in range(n_maps)])
+    assert torch.equal(_bits(got), _bits(singles))
+    assert torch.equal(_bits(got), _bits(kernels.overlap_score_ordered(*args)))
+    assert not bool(got[1].any())
+    torch.testing.assert_close(got, kernels.overlap_score_ref(*args), atol=ATOL, rtol=0,
+                               equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("red", PARTIAL_REDUCERS, ids=lambda r: f"{r.kind}{r.radius}")
+@pytest.mark.parametrize("k,n_beams", [(64, 360), (1, 1000), (1089, 360)])
+def test_overlap_score_partial_whole_band_is_overlap_score(scene, red, k, n_beams):
+    """The partial mode over one band that holds the whole plane sums every
+    beam in the group's order: num / fmax(den, 1e-9) has overlap_score's
+    bits, and (num, den) are overlap_score_partial_ordered's bit for bit."""
+    prep, pts, bw = _order_scan(scene, n_beams)
+    poses = _order_poses(scene, k)
+    h = prep.plane.shape[0]
+    rest = (pts, bw, prep.origin, prep.scale, prep.unknown)
+    part = kernels.overlap_score_partial(prep.plane, 0, h, poses, *rest, 0, h, red)
+    whole = kernels.overlap_score(prep.plane, poses, *rest, red)
+    mean = part[:, 0] / torch.fmax(part[:, 1], torch.full_like(part[:, 1], 1e-9))
+    assert torch.equal(_bits(mean), _bits(whole))
+    assert torch.equal(_bits(part), _bits(kernels.overlap_score_partial_ordered(
+        prep.plane, 0, h, poses, *rest, 0, h, red)))
 
 
 @pytest.mark.cuda
