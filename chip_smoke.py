@@ -356,7 +356,7 @@ Phases, one line or more each, in order; any failure exits non-zero:
    1.5 (one ``gradient_refine`` a scan); card vs CPU on 8 scans each;
 46. checkpoints on the card: the RBPF with the hill-climbing refine (dense
    and copy-on-write) and viny_m3rsm stopped after 32 scans, saved
-   (``utils.checkpoint``, the generator with the state), restored into a
+   (``utils.checkpoint``; the state holds its key), restored into a
    fresh engine and run 32 more; the full pipeline with the hill-climbing
    loop matcher saved after its first lap (``save_checkpoint``), restored
    and finished: each equal to the unbroken run bit for bit;
@@ -376,8 +376,8 @@ Phases, one line or more each, in order; any failure exits non-zero:
    set up in this process (127.0.0.1, a free port: one H100 cannot host two
    NCCL ranks), each path against the unsharded port on the card over the
    first 64 bench scans: the ``distributed`` preset at its full width
-   (``GMappingConfig()``: 30 whole 256^2 maps, 16 x 6 rounds; the same
-   generator seed on both sides: ancestors equal, poses and log-weights
+   (``GMappingConfig()``: 30 whole 256^2 maps, 16 x 6 rounds; both sides
+   from ``PRNGKey(0)``, drawn alike on every rank: ancestors equal, poses and log-weights
    within 1e-6, the same launches); the ``ep_cow`` step and the ``ep2d``
    1 x 1 step at the copy-on-write cell's config (numpy draws; ancestors
    equal, poses, weights and every particle's map within 1e-6, the same
@@ -396,7 +396,23 @@ Phases, one line or more each, in order; any failure exits non-zero:
    size, the band's mean num / den absolute) and the bands' sums
    against ``overlap_score`` (2e-6 x max(1, |s|)), one band of the whole
    plane against ``overlap_score`` bit for bit; then timed (replayed from
-   a CUDA graph, a call, chained) beside its twin and its bound.
+   a CUDA graph, a call, chained) beside its twin and its bound;
+50. (run after phase 4) ``prng_draws`` (``csrc/threefry.cu``: a step's
+   random numbers from the reference's threefry key in one launch) against
+   the committed draws of JAX (``tests/data/prng_reference.npz``: edge
+   seeds, splits, bits / uniform / normal at the paths' shapes, the
+   engine's and the RBPF's split trees, the synthetic sequence's, and the
+   SHA-256 of the normal transform over its 2^23 inputs) and against its
+   plain version (``ops/prng.py``) on the card on every path's step plan
+   at edge keys, bit for bit; then timed at the tiny, RBPF and synthetic
+   plans beside its bound (hashes' int32 operations over the int32 rate).
+   Every engine step and RBPF step launches it once (the launch counts
+   above include it; the CLI's synthetic sequence adds one);
+51. (run after phase 14) tiny, viny, full and gmapping from the
+   reference's keys 0..4: the port's ATE beside the reference's from the
+   same key on the same sequence, and their paired difference.
+   ``python3 chip_smoke.py --phase prng`` runs phases 1, 2 and 50 alone
+   and prints no result.
 
 Every bound counts, of the plane or window, the distinct cells that the
 taps of every pose the kernel scores read (the poses taken from its
@@ -423,6 +439,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -434,11 +451,16 @@ N_SCANS, N_BEAMS, MAP = 512, 360, 256
 #: fill pinned to 'polar', once for each matcher key PRNGKey(0..4)
 #: (`JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --preset
 #: viny --keys 5 --port`). A single run's ATE is bimodal in the matcher's
-#: noise alone, so a run that draws its own noise, as the card's does, is
-#: held to the reference's worst key plus the margin, not to key 0. With a
-#: key's noise injected the port on the CPU reads that key's figure.
+#: noise alone and parts on a knife edge between lowerings (ROADMAP trap
+#: i), so the card's run (key 0's draws, the reference's own) is held to
+#: the reference's worst key plus the margin, not to key 0. With a key's
+#: noise injected the port on the CPU reads that key's figure.
 VINY_REFERENCE_ATE_BY_KEY = (0.07265, 0.07982, 0.07299, 0.11143, 0.11816)
 VINY_ATE_MARGIN = 0.02
+#: the same for tiny (its DDA fill): `reference_ate.py --preset tiny --keys
+#: 5`; the port on the CPU from each key reads 0.07362, 0.07395, 0.07399,
+#: 0.0739, 0.07368 m
+TINY_REFERENCE_ATE_BY_KEY = (0.07362, 0.07389, 0.07399, 0.07374, 0.07388)
 
 #: corrected-trajectory ATE of the JAX reference's ``FullSlamEngine`` on a
 #: CPU over the full path's sequence and configuration, once for each
@@ -508,15 +530,15 @@ VINY_M3RSM_REFERENCE_ATE = 0.12715
 FULL_M3RSM_REFERENCE_ATE_BY_KEY = (0.13820, 0.12036, 0.14911, 0.12296, 0.12987)
 #: ATE of the JAX reference's engine built from each new CLI config (a
 #: refine stage or the tiled map) on a CPU over the CLI phase's synthetic
-#: sequence (128 scans of the cecum rectangle, 360 beams), once for each
-#: matcher key PRNGKey(0..4) (`JAX_PLATFORMS=cpu python
-#: scripts/torch_port/reference_ate.py --config configs/<name>.properties
-#: --keys 5 --port`). With key 0's noise the port on the CPU reads 0.07032,
-#: 0.03634 and 0.03682 m.
+#: sequence (128 scans of the cecum rectangle, 360 beams, its noise drawn
+#: from PRNGKey(0) by both CLIs), once for each matcher key PRNGKey(0..4)
+#: (`JAX_PLATFORMS=cpu python scripts/torch_port/reference_ate.py --config
+#: configs/<name>.properties --keys 5 --port`). With key 0's noise the port
+#: on the CPU reads 0.0706, 0.03689 and 0.03727 m.
 CLI_REFERENCE_ATE_BY_KEY = {
-    "tiny_refined": (0.0702, 0.07082, 0.07087, 0.07045, 0.07066),
-    "mit_csail": (0.03651, 0.0367, 0.03661, 0.03671, 0.03665),
-    "mit_stata": (0.03682, 0.03628, 0.03724, 0.03721, 0.03748),
+    "tiny_refined": (0.07087, 0.07075, 0.07053, 0.07031, 0.07084),
+    "mit_csail": (0.0366, 0.03637, 0.0368, 0.0366, 0.03656),
+    "mit_stata": (0.03737, 0.03636, 0.03711, 0.03621, 0.03721),
 }
 CLI_ATE_MARGIN = 0.02
 #: the CLI phase: scans of the single-hypothesis configs and of the RBPF's
@@ -1264,31 +1286,88 @@ def phase_mc_match(dev, tiny_states, viny_states, full_states):
 
 def phase_card_vs_cpu(name, cfg, dev, scans, odom, gt, n=8):
     """First ``n`` scans on the card and on the CPU with the same noise (a
-    Monte-Carlo matcher's; M3RSM draws none): poses within 1e-4."""
+    Monte-Carlo matcher's; M3RSM draws none): poses within 1e-4, or, where
+    the runs part, the scan's calls must explain it
+    (``knife_edge_part``)."""
     from slam_constructor_tpu_torch.models import engine
+    from slam_constructor_tpu_torch.ops import kernels
 
     noise = None
     if cfg.matcher == "monte_carlo":
         rounds, batch = cfg.matcher_cfg.rounds, cfg.matcher_cfg.batch
         noise = torch.from_numpy(
             np.random.default_rng(5).standard_normal((n, rounds, batch, 3)).astype(np.float32))
-    trajs = []
+    trajs, calls = [], []
     for d in (dev, torch.device("cpu")):
-        e = engine.Engine(cfg, device=d)
-        e.state.pose = gt[0].to(d).clone()
-        traj, _ = e.run(scans[:n], odom[:n], noise=None if noise is None else noise.to(d))
+        matches, climbs = recorder(kernels.mc_match), recorder(kernels.hill_climb)
+        with handed_in(matches[0]), handed_in(climbs[0], "hill_climb"):
+            e = engine.Engine(cfg, device=d)
+            e.state.pose = gt[0].to(d).clone()
+            traj, _ = e.run(scans[:n], odom[:n], noise=None if noise is None else noise.to(d))
         trajs.append(traj.cpu())
-    diff = float((trajs[0] - trajs[1]).abs().max())
-    print(f"{name} card vs CPU, {n} scans: max|pose diff|={diff:.3e} (tol 1e-4)", flush=True)
-    check(diff <= 1e-4, f"{name}: card and CPU runs disagree: {diff}")
+        calls.append({"match": matches[1], "refine": climbs[1]})
+    d = trajs[0] - trajs[1]
+    d[..., 2] = torch.atan2(torch.sin(d[..., 2]), torch.cos(d[..., 2]))
+    by_scan = d.abs().amax(-1)
+    diff = float(by_scan.max())
+    part = int((by_scan > 1e-4).nonzero()[0]) if diff > 1e-4 else None
+    print(f"{name} card vs CPU, {n} scans: max|pose diff|={diff:.3e} (tol 1e-4)"
+          f"{'' if part is None else f'; the runs part at scan {part}'}", flush=True)
+    check(part is None or knife_edge_part(name, part, n, *calls),
+          f"{name}: card and CPU runs disagree: {diff}, not at a knife-edge decision")
 
 
-def run_main_path(cfg, scans, odom, gt, sync_mode):
+def knife_edge_part(name, part, n, card, cpu) -> bool:
+    """Why a single-hypothesis run parts on the card and the CPU at scan
+    ``part``: ``card`` and ``cpu`` hold each device's recorded calls
+    (``"match"``: ``mc_match``, ``"refine"``: ``hill_climb``; one a scan
+    over ``n`` scans). In the scan's order, the card's kernel is run again
+    on the card's arguments and the plain twin on the CPU's (the CPU run's
+    own call), round by round. Explained when the first call whose traces
+    part by more than TOL (or whose poses part by more than 1e-5) agrees
+    with the twin up to a round that the CPU decided by less than
+    KNIFE_EDGE: the card took the other side of that decision. A call that
+    parts with no such round, or a scan in which no call parts, is not
+    explained."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    for kind, kernel, loop in (("match", kernels.mc_match, kernels.mc_match_loop),
+                               ("refine", kernels.hill_climb, kernels.hill_climb_loop)):
+        if len(card[kind]) != n or len(cpu[kind]) != n:
+            continue
+        card_args, cpu_args = card[kind][part], cpu[kind][part]
+        got = [t.cpu() for t in kernel(*card_args)]
+        twin, margins = twin_record(cpu_args, loop, kernels.overlap_score_ref)
+        start = pose_gap(card_args[4].cpu(), cpu_args[4])
+        diff = (got[2] - twin[2]).abs()
+        diff = torch.where(torch.isnan(got[2]) & torch.isnan(twin[2]), 0.0, diff)
+        far = (diff > TOL).nonzero().flatten().tolist()
+        apart = pose_gap(got[0], twin[0])
+        if not far and apart <= 1e-5:
+            print(f"  [{name}] scan {part}: the card's {kind} on its arguments equals the twin on "
+                  f"the CPU's (start poses {start:.3e} apart; trace within {TOL:g}, poses "
+                  f"{apart:.3e} apart)", flush=True)
+            continue
+        first = far[0] if far else margins.numel() - 1
+        edge_round = int(margins[:first + 1].argmin()) if first >= 0 else None
+        edge = float(margins[edge_round]) if edge_round is not None else math.inf
+        print(f"  [{name}] scan {part}: the card's {kind} on its arguments and the twin on the "
+              f"CPU's (start poses {start:.3e} apart) part "
+              + (f"at round {first} of the trace" if far else "in the pose only")
+              + f" (poses {apart:.3e} apart); the CPU's closest decision up to there: round "
+              f"{edge_round}, {edge:.3e} (limit {KNIFE_EDGE:g})", flush=True)
+        return edge < KNIFE_EDGE
+    print(f"  [{name}] scan {part}: no recorded call of the scan parts", flush=True)
+    return False
+
+
+def run_main_path(cfg, scans, odom, gt, sync_mode, seed=0):
     """One run of the sequence from a fresh state through the entry points
-    a user calls; the engine takes the card because no device is named."""
+    a user calls; the engine takes the card because no device is named,
+    and draws from the reference's ``PRNGKey(seed)``."""
     from slam_constructor_tpu_torch.models import engine
 
-    e = engine.Engine(cfg, seed=0)
+    e = engine.Engine(cfg, seed=seed)
     check(e.device.type == "cuda", f"Engine defaulted to {e.device}, not the card")
     e.state.pose = gt[0].clone()
     torch.cuda.synchronize()
@@ -1360,7 +1439,7 @@ def phase_rounds_path(cfg, scans, odom, gt, fused_traj):
         traj, _, secs, _ = run_main_path(cfg, scans[:n], odom[:n], gt, "error")
         launches = read_launches()
     want = expect(overlap_score=n * (cfg.matcher_cfg.rounds + 1), polar_free_plane=n,
-                  scan_insert=n)
+                  scan_insert=n, prng_draws=n)
     diff = float((traj - fused_traj[:n]).abs().max())
     print(f"viny path with one overlap_score launch a round, {n} scans: {n / secs:.1f} scans/s; "
           f"launches {launches} (expected {want}); max|pose diff| to the fused path {diff:.3e}",
@@ -1371,7 +1450,7 @@ def phase_rounds_path(cfg, scans, odom, gt, fused_traj):
     return launches
 
 
-def run_full_path(cfg, scans, odom, gt, sync_mode, noise=None, device=None):
+def run_full_path(cfg, scans, odom, gt, sync_mode, noise=None, device=None, seed=0):
     """One run of the loop-closing pipeline from a fresh state through
     ``FullSlamEngine.run``, the whole sequence as one segment; the sync
     check is on only while the segment is tracked (the graph work that
@@ -1379,7 +1458,7 @@ def run_full_path(cfg, scans, odom, gt, sync_mode, noise=None, device=None):
     corrected trajectory, the seconds of the whole run and of the tracking."""
     from slam_constructor_tpu_torch.models import full
 
-    e = full.FullSlamEngine(cfg, n_beams=N_BEAMS, device=device, seed=0)
+    e = full.FullSlamEngine(cfg, n_beams=N_BEAMS, device=device, seed=seed)
     on_card = e.device.type == "cuda"
     check(device is not None or on_card, f"FullSlamEngine defaulted to {e.device}, not the card")
     e.state.pose = gt[0].to(e.device).clone()
@@ -1486,7 +1565,8 @@ def phase_full_path(cfg, scans, odom, gt, odo_ate, name="full", reference=FULL_R
     n_kf, n_edges = int(e.graph.n_kf), int(e.graph.n_edges)
     loops = loop_match_launches(cfg.graph, e.n_kf_batches + cfg.densify_rounds * e.n_bursts)
     regen = regenerations()
-    want = expect(mc_match=N_SCANS, **{**loops, "scan_insert": N_SCANS + regen["scan_insert"],
+    want = expect(mc_match=N_SCANS, prng_draws=N_SCANS,
+                  **{**loops, "scan_insert": N_SCANS + regen["scan_insert"],
                                        "scan_planes": loops["scan_planes"] + regen["scan_planes"]})
     print(f"{name} main path: {N_SCANS} scans in {secs:.3f} s = {N_SCANS / secs:.1f} scans/s "
           f"(tracking {track_secs:.3f} s with the sync check on, no host sync; keyframe work and "
@@ -1502,7 +1582,7 @@ def phase_full_path(cfg, scans, odom, gt, odo_ate, name="full", reference=FULL_R
     ate = float(evaluate.ate(traj, gt, align=False))
     raw_ate = float(evaluate.ate(torch.from_numpy(np.stack(e.trajectory)).to(gt.device), gt,
                                  align=False))
-    # the same tracker without the graph, the same generator seed
+    # the same tracker without the graph, from the same key
     t = engine.Engine(cfg.tracking, seed=0)
     t.state.pose = gt[0].clone()
     tracker_ate = float(evaluate.ate(t.run(scans, odom)[0], gt, align=False))
@@ -1657,14 +1737,15 @@ def gmapping_config(**kwargs):
     return gmapping.fast_config(n_particles=GM_PARTICLES, map_size=MAP, **kwargs)
 
 
-def run_gmapping_path(cfg, scans, odom, gt, sync_mode, draws=None, device=None, make=None):
+def run_gmapping_path(cfg, scans, odom, gt, sync_mode, draws=None, device=None, make=None,
+                      seed=0):
     """One RBPF run from a fresh state through ``GMappingEngine.run``; the
     engine (``GMappingEngine(cfg)``, or ``make(device=..., seed=0)``: a
     preset's factory) takes the card unless a device is named. Returns the
     engine, the best particle's trajectory, Neff and the seconds."""
     from slam_constructor_tpu_torch.models import gmapping
 
-    e = (make or functools.partial(gmapping.GMappingEngine, cfg))(device=device, seed=0)
+    e = (make or functools.partial(gmapping.GMappingEngine, cfg))(device=device, seed=seed)
     cfg = e.cfg
     on_card = e.device.type == "cuda"
     check(device is not None or on_card, f"GMappingEngine defaulted to {e.device}, not the card")
@@ -1892,7 +1973,7 @@ def phase_gmapping_path(cfg, scans, odom, gt, odo_ate, smi):
         reset_launches()
         e, traj, neffs, secs = run_gmapping_path(cfg, scans, odom, gt, "error")
         launches = read_launches()
-    want = expect(mc_match_batched=N_SCANS, scan_insert=N_SCANS)
+    want = expect(mc_match_batched=N_SCANS, scan_insert=N_SCANS, prng_draws=N_SCANS)
     resamples = int((e.genealogy[1] != torch.arange(cfg.n_particles, device=traj.device)).any(1).sum())
     print(f"gmapping main path ({cfg.n_particles} particles): {N_SCANS} scans in {secs:.3f} s = "
           f"{N_SCANS / secs:.1f} scans/s on {smi}, with the sync check on, no host sync; "
@@ -1972,7 +2053,7 @@ def phase_gmapping_improved(dev, scans, odom, gt):
         reset_launches()
         _, traj, _, secs = run_gmapping_path(cfg, scans[:n], odom[:n], gt, "error")
         launches = read_launches()
-    want = expect(overlap_score_batched=2 * n, mc_match_batched=n, scan_insert=n)
+    want = expect(overlap_score_batched=2 * n, mc_match_batched=n, scan_insert=n, prng_draws=n)
     print(f"gmapping, improved proposal and gate {GM_IMPROVED_GATE}, {n} scans: {n / secs:.1f} "
           f"scans/s with the sync check on; launches {launches} (expected {want})", flush=True)
     check(launches == want, f"gmapping improved: launches {launches}, expected {want}")
@@ -2526,7 +2607,8 @@ def phase_m3rsm_path(cfg, scans, odom, gt, odo_ate):
     from slam_constructor_tpu_torch.ops import m3rsm, scoring
 
     levels = cfg.matcher_cfg.levels
-    want = expect(m3rsm_search=N_SCANS, m3rsm_pyramid=N_SCANS + 1, scan_insert=N_SCANS)
+    want = expect(m3rsm_search=N_SCANS, m3rsm_pyramid=N_SCANS + 1, scan_insert=N_SCANS,
+                  prng_draws=N_SCANS)
     launches, traj, e = phase_main_path("viny_m3rsm", cfg, want, scans, odom, gt, odo_ate,
                                         VINY_M3RSM_REFERENCE_ATE + VINY_ATE_MARGIN)
     rebuilt = m3rsm.build_pyramid(scoring.MapView.of(e.state.gm, cfg.cell_model), levels,
@@ -2551,7 +2633,7 @@ def phase_m3rsm_levels_path(cfg, scans, odom, gt, traj):
         got, _, secs, _ = run_main_path(cfg, scans, odom, gt, 0)
         launches = read_launches()
     want = expect(m3rsm_level=(mc.levels + 1) * N_SCANS, m3rsm_pyramid=N_SCANS + 1,
-                  scan_insert=N_SCANS,
+                  scan_insert=N_SCANS, prng_draws=N_SCANS,
                   overlap_score_batched=(1 + mc.refine_iterations) * N_SCANS)
     diff = float((got - traj).abs().max())
     print(f"viny_m3rsm with a level launch a level and a score launch a hill-climb round: "
@@ -2604,8 +2686,9 @@ def cli_expected(name, n):
     scan; tiny_refined's gradient refine and mit_csail's hill climb, one
     launch a scan each; viny_m3rsm's pyramid build in ``init_state`` and a
     refresh a scan; tum_2d's improved proposal (one batched score of the
-    probes a scan)."""
-    return expect(**{
+    probes a scan); the draws, one launch a step and one for the synthetic
+    sequence."""
+    return expect(prng_draws=n + 1, **{
         "tiny": dict(mc_match=n, scan_insert=n), "viny": dict(mc_match=n, scan_insert=n),
         "mit_stata": dict(mc_match=n, pool_prepare=n, pool_insert=n),
         "tiny_refined": dict(mc_match=n, gradient_refine=n, scan_insert=n),
@@ -2711,8 +2794,8 @@ def phase_cli(dev):
         res = run.execute(args)
         got = read_launches()
         n = res.trajectory.shape[0]
-        want = expect(scan_insert=n, **({"mc_match": n} if name == "tiny"
-                                        else {"mc_match_batched": n}))
+        want = expect(scan_insert=n, prng_draws=n, **({"mc_match": n} if name == "tiny"
+                                                      else {"mc_match_batched": n}))
         launches[f"{name} on {log}"] = got
         print(f"cli {name} on {log}: {json.dumps(res.summary)}; launches {got}", flush=True)
         check(got == want, f"cli {name} on {log}: launches {got}, expected {want}")
@@ -2740,7 +2823,7 @@ def phase_cli(dev):
                 "error")
         n = res.trajectory.shape[0]
         launches[f"{name}, one {score} launch a pass"] = got
-        want = expect(mc_match=n, scan_insert=n, **{score: passes * n})
+        want = expect(mc_match=n, scan_insert=n, prng_draws=n + 1, **{score: passes * n})
         rates[f"{name}, yardstick"] = {"cli": res.summary["scans_per_sec"], "direct": n / secs}
         print(f"cli {name} with {yardstick.__name__} handed in: {res.summary['scans_per_sec']} "
               f"scans/s (the kernel's run {rates[name]['cli']}); driven directly, sync check on, "
@@ -3291,7 +3374,7 @@ def phase_gmapping_baseline_path(scans, odom, gt, odo_ate, smi):
     reset_launches()
     e, traj, neffs, secs = run_gmapping_path(None, scans, odom, gt, "error", make=baseline_engine)
     launches, by_reducer = read_launches(), kernels.reducer_launch_counts()
-    want = expect(mc_match_batched=N_SCANS, scan_insert=N_SCANS)
+    want = expect(mc_match_batched=N_SCANS, scan_insert=N_SCANS, prng_draws=N_SCANS)
     check(e.cfg == gmapping.GMappingConfig(), "preset('gmapping') is not GMappingConfig()")
     resamples = int((e.genealogy[1] != torch.arange(e.cfg.n_particles, device=traj.device))
                     .any(1).sum())
@@ -3325,7 +3408,8 @@ def phase_gmapping_baseline_path(scans, odom, gt, odo_ate, smi):
     reset_launches()
     res = run.execute(args)
     cli = read_launches()
-    check(cli == want and res.engine.device.type == "cuda"
+    # the CLI's synthetic sequence is drawn from its key too: one more draw
+    check(cli == {**want, "prng_draws": N_SCANS + 1} and res.engine.device.type == "cuda"
           and bool(torch.isfinite(res.trajectory).all()),
           f"run.py --preset gmapping: launches {cli}, device {res.engine.device}")
     cscans, codom, cgt = run.load_data(args, scans.ranges.device)
@@ -4062,7 +4146,8 @@ def phase_gmapping_cow_path(scans, odom, gt, odo_ate, smi):
         reset_launches()
         e, traj, neffs, secs = run_gmapping_path(cfg, scans, odom, gt, "error")
         launches = read_launches()
-    want = expect(mc_match_batched=N_SCANS, pool_prepare=N_SCANS, pool_insert=N_SCANS)
+    want = expect(mc_match_batched=N_SCANS, pool_prepare=N_SCANS, pool_insert=N_SCANS,
+                  prng_draws=N_SCANS)
     st = e.state.gm
     distinct = int(cow.distinct_blocks(st))
     pool_mb = st.pool.numel() * 4 / 1e6
@@ -4114,7 +4199,7 @@ def phase_gmapping_cow_quality(dev, smi):
         e, traj, _, secs = run_gmapping_path(cow_config(), scans, odom, gt, 0)
         launches = read_launches()
     n = len(gt)
-    want = expect(mc_match_batched=n, pool_prepare=n, pool_insert=n)
+    want = expect(mc_match_batched=n, pool_prepare=n, pool_insert=n, prng_draws=n)
     check(launches == want and not twin_calls,
           f"gmapping cow 2 laps: launches {launches}, expected {want}; plain versions called "
           f"{sorted(set(twin_calls))}")
@@ -4146,7 +4231,7 @@ def phase_gmapping_cow_card_vs_cpu(dev, scans, odom, gt, smi, n=16):
                                            draws=draws, device=d)
             launches = read_launches()
         if d is None:  # the card: the two pool kernels a step, no plain version
-            want = expect(mc_match_batched=n, pool_prepare=n, pool_insert=n)
+            want = expect(mc_match_batched=n, pool_prepare=n, pool_insert=n, prng_draws=n)
             check(launches == want and not twin_calls,
                   f"gmapping cow card vs CPU: launches {launches}, expected {want}; plain "
                   f"versions called {sorted(set(twin_calls))}")
@@ -4728,7 +4813,7 @@ def slot_launches(cfg, n) -> dict:
                 counts[k] = counts.get(k, 0) + v * n
     insert = (dict(pool_prepare=n, pool_insert=n) if cfg.map_storage == "cow"
               else dict(scan_insert=n))
-    return expect(**counts, **insert)
+    return expect(**counts, **insert, prng_draws=n)
 
 
 def slot_runs():
@@ -5017,7 +5102,8 @@ def phase_cli_refine_reducers(dev):
         props = cfglib.load_properties(path)
         cfg = cfglib.engine_config_from(props)
         refine = matcher_launches("gradient", cfg.refine_cfg, lead=False)
-        want = expect(mc_match=n, scan_insert=n, **{k: v * n for k, v in refine.items()})
+        want = expect(mc_match=n, scan_insert=n, prng_draws=n + 1,
+                      **{k: v * n for k, v in refine.items()})
         scans, odom, gt = run.load_data(args, dev)
         print(f"{name}: {n} scans, {res.summary['scans_per_sec']} scans/s; ATE "
               f"{float(evaluate.ate(res.trajectory, gt, align=False)):.5f} m; launches {got} "
@@ -5100,10 +5186,9 @@ def phase_checkpoint(dev, scans, odom, gt, fscans, fodom, fgt, n=CHECKPOINT_SCAN
         a = fresh()
         first = a.run(scans[:half], odom[:half])[0]
         path = f"build/checkpoint/{name.replace(' ', '_')}"
-        checkpoint.save(path, {"state": a.state, "generator": a.generator})
+        checkpoint.save(path, {"state": a.state})  # the state holds its key
         b = fresh()
-        back = checkpoint.restore(path, {"state": b.state, "generator": b.generator})
-        b.state, b.generator = back["state"], back["generator"]
+        b.state = checkpoint.restore(path, {"state": b.state})["state"]
         got = torch.cat([first, b.run(scans[half:n], odom[half:n])[0]])
         same = torch.equal(got, want)
         print(f"checkpoint {name}: {half} scans, saved, restored into a fresh engine on the "
@@ -5176,12 +5261,15 @@ def grad_ops(red) -> int:
     return reducer_ops(red) + (2 * red.radius + 1) ** 2 * 14 + 6 + 19
 
 
-def clear_of_refine_kinks(args, loop, score, passes=8):
+def clear_of_refine_kinks(args, loop, score, passes=32):
     """A gradient refine's arguments with the beams whose endpoint comes
     within KINK_MARGIN cell of a kink of the reducer's score, at a pose the
     refine visits, at weight 0: repeated on the masked arguments (whose
     refine visits other poses) until no beam is added, at most ``passes``
-    times."""
+    times. Over 30 windows a mask can take more than 8 passes to settle (a
+    window of the gmapping gradient slot's path took 7 on the CPU alone;
+    `scripts/torch_port/refine_parts.py`), and a mask cut short leaves a
+    kinked beam on the path."""
     from slam_constructor_tpu_torch.ops import kernels
 
     masked = args
@@ -5644,14 +5732,15 @@ def steps_agree(name, got, want, tol=PAR_TOL):
     return worst
 
 
-def run_rbpf_steps(step, state, scans, odom, draws=None, generator=None):
-    """Steps of an RBPF step function over ``scans``; returns the state,
+def run_rbpf_steps(step, state, scans, odom, draws=None):
+    """Steps of an RBPF step function over ``scans`` (drawing from the
+    state's key unless ``draws`` are handed in); returns the state,
     (ancestors, poses, log-weights) a step and the seconds."""
     out = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(len(scans)):
-        state, idx = step(state, scans[i], odom[i], None if draws is None else draws[i], generator)
+        state, idx = step(state, scans[i], odom[i], None if draws is None else draws[i])
         out.append((idx, state.poses, state.log_weights))
     torch.cuda.synchronize()
     return state, out, time.perf_counter() - t0
@@ -5688,19 +5777,18 @@ def phase_parallel(dev, scans, odom, gt, fscans, fodom, fgt, smi):
         # the distributed preset at its full width, against the unsharded step
         cfg, st, step = cfglib.preset("distributed")()
         check(st.poses.device.type == "cuda", "distributed preset: state not on the card")
-        run_rbpf_steps(step, st, s_[:PAR_WARMUP], o_[:PAR_WARMUP],
-                       generator=torch.Generator(dev).manual_seed(1))  # the communicators
+        run_rbpf_steps(step, st, s_[:PAR_WARMUP], o_[:PAR_WARMUP])  # the communicators
         cfg, st, step = cfglib.preset("distributed")()
         st.poses = gt[0].expand(cfg.n_particles, 3).clone()
         ref = gmapping.init_state(cfg)
         ref.poses = st.poses.clone()
         reset_launches()
+        # both from PRNGKey(0), the preset's and init_state's default key
         _, want, secs_ref = run_rbpf_steps(functools.partial(gmapping.gmapping_step, cfg), ref,
-                                           s_, o_, generator=torch.Generator(dev).manual_seed(3))
+                                           s_, o_)
         want_launches = read_launches()
         reset_launches()
-        st, got, secs = run_rbpf_steps(step, st, s_, o_,
-                                       generator=torch.Generator(dev).manual_seed(3))
+        st, got, secs = run_rbpf_steps(step, st, s_, o_)
         launches["distributed preset"] = read_launches()
         worst = steps_agree("distributed preset", got, want)
         check(launches["distributed preset"] == want_launches
@@ -5831,7 +5919,7 @@ def phase_parallel(dev, scans, odom, gt, fscans, fodom, fgt, smi):
         loop = multihost.RecoveryLoop(path, save_every=16)
 
         def fresh():
-            return {"state": st, "generator": torch.Generator(dev).manual_seed(9)}
+            return {"state": st}
 
         for f in (path + ".npz", path + ".tmp.npz"):
             if os.path.exists(f):
@@ -5839,18 +5927,16 @@ def phase_parallel(dev, scans, odom, gt, fscans, fodom, fgt, smi):
         run, resumed = loop.restore_or(fresh(), fresh)
         check(not resumed, "RecoveryLoop: a snapshot before the first tick")
         for i in range(16):
-            s1, _ = step(run["state"], scans[i], odom[i], generator=run["generator"])
-            run = {"state": s1, "generator": run["generator"]}
+            run = {"state": step(run["state"], scans[i], odom[i])[0]}
             loop.tick(run)
         for i in range(16, 32):
-            s1, _ = step(run["state"], scans[i], odom[i], generator=run["generator"])
-            run = {"state": s1, "generator": run["generator"]}
+            run = {"state": step(run["state"], scans[i], odom[i])[0]}
         back, resumed = multihost.RecoveryLoop(path, save_every=16).restore_or(fresh(), fresh)
         for i in range(16, 32):
-            s1, _ = step(back["state"], scans[i], odom[i], generator=back["generator"])
-            back = {"state": s1, "generator": back["generator"]}
+            back = {"state": step(back["state"], scans[i], odom[i])[0]}
         same = resumed and all(torch.equal(getattr(back["state"], f), getattr(run["state"], f))
-                               for f in ("poses", "log_weights", "step")) and torch.equal(
+                               for f in ("poses", "log_weights", "step")) and bits(
+            back["state"].key).equal(bits(run["state"].key)) and torch.equal(
             back["state"].gm.cells, run["state"].gm.cells)
         check(same, "RecoveryLoop: the resumed run differs from the unbroken one")
         print(f"heartbeat: {alive}; RecoveryLoop: the distributed preset saved after 16 scans, "
@@ -5858,6 +5944,262 @@ def phase_parallel(dev, scans, odom, gt, fscans, fodom, fgt, smi):
     finally:
         meshlib.shutdown()
     return launches
+
+
+#: the card's int32 rate: 132 SMs x 64 int32 lanes x 1.98 GHz (Hopper issues
+#: 64 int32 operations a clock an SM against 128 f32; the clock is the one
+#: behind the f32 rate above, 132 x 128 x 2 x 1.98 GHz = 67 TFLOP/s)
+PEAK_INT32_OPS_PER_S = 132 * 64 * 1.98e9
+#: int32 operations of one threefry2x32 hash (csrc/threefry.cu): the key
+#: schedule's xor (2), the first two adds, then 5 x (4 rounds of an add, a
+#: funnel-shift rotate and a xor, then 2 key adds and the round constant)
+PRNG_HASH_OPS = 2 + 2 + 5 * (4 * 3 + 3)
+#: f32 operations (an FMA counted as 2) of the uniform (the subtraction,
+#: the FMA, the max), and of the normal transform after it: the square
+#: of u (1), log1p's rational branch near 0 (34) or its logf branch (32),
+#: erf_inv's z (1 below w = 5, the square root and an add (2) from there),
+#: its 8 Horner steps (16) and two products (2)
+PRNG_UNIFORM_FLOPS = 4
+PRNG_LOG1P_FLOPS = {"rational": 34, "logf": 32}
+PRNG_ERFINV_FLOPS = {"below 5": 1 + 16 + 2, "from 5": 2 + 16 + 2}
+
+
+def prng_path_hashes(plan, roots):
+    """The hashes that the plan's paths need: each distinct key once. A
+    step from a prefix makes a key for each key of the prefix (an index) or
+    ``n`` (``Each(n)``), so the prefixes are merged into a tree and each
+    node counts its keys."""
+    from slam_constructor_tpu_torch.ops import prng
+
+    def count(paths, keys):
+        hashes = 0
+        for step in dict.fromkeys(p[0] for p in paths):
+            made = keys * (step.n if isinstance(step, prng.Each) else 1)
+            hashes += made + count([p[1:] for p in paths if p[0] == step and len(p) > 1], made)
+        return hashes
+
+    return count([tuple(d.path) for d in plan if d.path], roots)
+
+
+def prng_normal_uniforms(key, d):
+    """The uniforms on (nextafter(-1, 0), 1) that a normal or transform
+    draw's elements transform (the plain version's, on the key's device)."""
+    from slam_constructor_tpu_torch.ops import prng
+
+    if d.kind == "normal":
+        return prng.draw_ref(key, prng.Draw(d.path, "uniform", d.shape, prng.NORMAL_LO, 1.0))
+    j = torch.arange(math.prod(d.shape), device=key.device) & 0x7FFFFF
+    f = (j | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    # the fused multiply-add of the uniform, rounded once (exact in float64)
+    u = (f.double() * 2.0 + prng.NORMAL_LO).float().clamp_min(prng.NORMAL_LO)
+    return u.reshape(d.shape)
+
+
+def prng_work(key, plan):
+    """(bytes, int32 operations, f32 operations) that one ``prng_draws`` of
+    ``plan`` from ``key`` needs: the root keys and the plan's records read,
+    the outputs written; a hash for each distinct key of the paths
+    (``prng_path_hashes``) and one for each leaf element of a bits, uniform
+    or normal draw (a key is its path's last hash; a transform hashes
+    nothing); the uniform's operations, and for a normal the branch of
+    log1p and of erf_inv that this element takes (counted on the draws'
+    own uniforms)."""
+    from slam_constructor_tpu_torch.ops import prng
+
+    roots = key.numel() // 2
+    n_bytes = 8 * roots + 64 * len(plan)
+    hashes = prng_path_hashes(plan, roots)
+    flops = 0
+    for d in plan:
+        each = math.prod(s.n for s in d.path if isinstance(s, prng.Each))
+        leaves = 1 if d.kind == "key" else math.prod(d.shape)
+        elements = roots * each * leaves
+        n_bytes += 4 * elements * (2 if d.kind == "key" else 1)
+        hashes += elements if d.kind in ("bits", "uniform", "normal") else 0
+        if d.kind in ("uniform", "normal", "transform"):
+            flops += elements * PRNG_UNIFORM_FLOPS
+        if d.kind in ("normal", "transform"):
+            u = prng_normal_uniforms(key, d)
+            x = -u * u
+            near = int((x.abs() < prng._L1P_T).sum())
+            below = int((prng.log1p_xla(x) > -5.0).sum())
+            flops += elements + near * PRNG_LOG1P_FLOPS["rational"] + (
+                elements - near) * PRNG_LOG1P_FLOPS["logf"] + below * PRNG_ERFINV_FLOPS[
+                "below 5"] + (elements - below) * PRNG_ERFINV_FLOPS["from 5"]
+    return n_bytes, hashes * PRNG_HASH_OPS, flops
+
+
+def prng_bound_ms(key, plan):
+    """The least time of a ``prng_draws``: the larger of its bytes over the
+    memory rate, its int32 operations over the int32 rate and its f32
+    operations over the f32 rate (separate units, so they may overlap)."""
+    n_bytes, ops, flops = prng_work(key, plan)
+    times = {"bytes": n_bytes / PEAK_BYTES_PER_S, "operations": max(
+        ops / PEAK_INT32_OPS_PER_S, flops / PEAK_F32_FLOP_PER_S)}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by, (n_bytes, ops, flops)
+
+
+def hill_mc_refine_config():
+    """The RBPF with a hill climb as its match and a Monte-Carlo refine of
+    another shape: a refine that draws normals of its own."""
+    from slam_constructor_tpu_torch.ops import matchers
+
+    base = gmapping_config()
+    sc = base.matcher_cfg.scoring
+    return dataclasses.replace(
+        base, matcher="hill_climbing", matcher_cfg=matchers.HillClimbingConfig(scoring=sc),
+        refine_matcher="monte_carlo",
+        refine_cfg=matchers.MonteCarloConfig(batch=16, rounds=4, scoring=sc))
+
+
+def prng_plans(dev):
+    """Every path's step plan (the engines' and the RBPFs', the synthetic
+    sequence's) by name."""
+    from slam_constructor_tpu_torch.models import engine, gmapping, tiny, viny
+    from slam_constructor_tpu_torch.ops import prng
+    from slam_constructor_tpu_torch.utils import config as cfglib
+
+    def rbpf(cfg):
+        return (gmapping.NEXT_KEY, *(d for d in gmapping.draw_plan(cfg) if d is not None))
+
+    plans = {name: engine.step_plan(cfg) for name, cfg in (
+        ("tiny", tiny.tiny_config(map_size=MAP)), ("viny", viny.viny_config(map_size=MAP)),
+        ("full tracker", full_config().tracking),
+        ("viny_m3rsm", viny.viny_m3rsm_config(map_size=MAP)),
+        ("tiny_refined (MC + gradient)", cfglib.engine_config_from(cfglib.load_properties(
+            "configs/tiny_refined.properties"))))}
+    for name, cfg in (("gmapping", gmapping_config()),
+                      ("gmapping preset", gmapping.GMappingConfig()),
+                      ("gmapping improved", dataclasses.replace(
+                          gmapping_config(), proposal="improved", min_match_prob=0.3)),
+                      ("gmapping hill + MC refine", hill_mc_refine_config())):
+        plans[name] = rbpf(cfg)
+    t, r = N_SCANS, N_BEAMS
+    plans["synthetic sequence (CLI)"] = (prng.Draw((t,), "normal", (t, 3)),
+                                         prng.Draw((prng.Each(t),), "normal", (r,)))
+    return plans
+
+
+def phase_ate_by_key(paths):
+    """Each path from the reference's keys ``PRNGKey(0..4)``: the port's ATE
+    (no alignment) beside the reference's from the same key on the same
+    sequence (``reference_ate.py --keys 5``). Since the port draws what the
+    reference draws from a key, the two are paired; they part only where a
+    knife-edge decision flips (ROADMAP trap i). ``paths``: (name, run(seed)
+    -> trajectory, ground truth, the reference's ATE by key)."""
+    from slam_constructor_tpu_torch.utils import evaluate
+
+    out = {}
+    for name, run, gt, reference in paths:
+        port = [float(evaluate.ate(run(k), gt, align=False)) for k in range(len(reference))]
+        check(all(math.isfinite(a) for a in port), f"{name}: a non-finite ATE by key")
+        gaps = [p - r for p, r in zip(port, reference)]
+        print(f"{name} ATE by key (port on the card | the reference on a CPU, the same key): "
+              + ", ".join(f"key {k} {p:.5f} | {r:.5f}" for k, (p, r) in
+                          enumerate(zip(port, reference)))
+              + f"; paired difference {min(gaps):+.5f} to {max(gaps):+.5f} m, median "
+              f"{statistics.median(gaps):+.5f} m", flush=True)
+        out[name] = {"port": port, "reference": list(reference)}
+    return out
+
+
+def phase_prng(dev, smi):
+    """``prng_draws`` (csrc/threefry.cu) against the committed draws of JAX
+    (``tests/data/prng_reference.npz``: edge seeds, splits, draws at the
+    paths' shapes, the engine's and the RBPF's split trees, and the SHA-256
+    of the normal transform over its 2^23 inputs) and against its plain
+    version on the card, bit for bit, on every path's plan at edge keys;
+    then timed at the tiny and the RBPF step's plans. Returns the
+    ``kernels`` entry without the launch count."""
+    import hashlib
+
+    from slam_constructor_tpu_torch.ops import kernels, prng
+
+    fixture = Path(__file__).resolve().parent / "tests" / "data" / "prng_reference.npz"
+    with np.load(fixture) as f:
+        manifest = json.loads(bytes(f["manifest"]).decode())
+        want_sha = bytes(f["transform_sha256"]).decode()
+        head = f["transform_head"]
+        wants = {k: f[k] for k in f.files if k.startswith("case_")}
+
+    def words(t):
+        return t.contiguous().view(torch.int32)
+
+    for c, case in enumerate(manifest):
+        root = torch.from_numpy(np.array(case["root"], np.uint32)).to(dev)
+        plan = tuple(prng.draw_of(d) for d in case["plan"])
+        outs = kernels.prng_draws(root, plan)
+        for o, got in enumerate(outs):
+            want = torch.from_numpy(np.array(wants[f"case_{c}_{o}"])).to(dev)
+            check(tuple(got.shape) == tuple(want.shape) and torch.equal(words(got), words(want)),
+                  f"prng_draws differs from JAX's draws: {case['name']}, output {o}")
+        if case["name"].startswith("PRNGKey("):
+            seed = int(case["name"][8:-1])
+            check(torch.equal(words(prng.key(seed, dev)), words(root)),
+                  f"prng.key({seed}) is not PRNGKey({seed})")
+    table = (prng.Draw((), "transform", (1 << 23,)),)
+    k0 = prng.key(0, dev)
+    got = kernels.prng_draws(k0, table)[0]
+    sha = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
+    check(sha == want_sha, f"the normal transform's 2^23 outputs hash {sha}, JAX's {want_sha}")
+    check(np.array_equal(got[:4096].cpu().numpy().view(np.uint32), head.view(np.uint32)),
+          "the normal transform's first outputs differ from JAX's")
+    plain = prng.draws_ref(k0, table)[0]
+    check(torch.equal(words(got), words(plain)),
+          "the normal transform: kernel and plain version differ on the card")
+    print(f"prng_draws vs JAX (committed fixture): {len(manifest)} cases bit for bit; the "
+          f"normal transform over its 2^23 inputs hashes {sha[:16]}..., JAX's; the plain "
+          f"version on the card the same bits", flush=True)
+
+    edge_keys = {"PRNGKey(0)": prng.key(0, dev), "PRNGKey(-1)": prng.key(-1, dev),
+                 "PRNGKey(2^32+7)": prng.key(2**32 + 7, dev),
+                 "[2^32-1, 2^32-1]": torch.tensor([-1, -1], dtype=torch.int32,
+                                                  device=dev).view(torch.uint32),
+                 "30 keys (a particle each)": prng.split(prng.key(5, dev), 30)}
+    plans = prng_plans(dev)
+    n_out = 0
+    for pname, plan in plans.items():
+        for kname, key in edge_keys.items():
+            got = kernels.prng_draws(key, plan)
+            want = prng.draws_ref(key, plan)
+            for g, w in zip(got, want):
+                check(tuple(g.shape) == tuple(w.shape) and torch.equal(words(g), words(w)),
+                      f"prng_draws vs plain differs: {pname} at {kname}")
+                check(g.dtype != torch.float32 or bool(torch.isfinite(g).all()),
+                      f"prng_draws: non-finite draws ({pname} at {kname})")
+                n_out += 1
+    print(f"prng_draws vs plain on the card: {len(plans)} paths' plans x {len(edge_keys)} "
+          f"keys, {n_out} outputs bit for bit", flush=True)
+
+    entry = {"name": "prng_draws", "route": "cuda",
+             "source": "slam_constructor_tpu_torch/csrc/threefry.cu",
+             "replaces": "slam_constructor_tpu/ops/matchers.py:75",
+             "max_abs_err": 0.0, "library_ms": None, "by_plan": {}}
+    key = prng.key(42, dev)
+    for pname in ("tiny", "gmapping", "gmapping improved", "synthetic sequence (CLI)"):
+        plan = plans[pname]
+        ms, plain_ms, chained = time_pair(lambda: kernels.prng_draws(key, plan),
+                                          lambda: prng.draws_ref(key, plan), plain_calls=20)
+        dev_ms = graph_ms(lambda: kernels.prng_draws(key, plan))
+        b_ms, by, (n_bytes, ops, flops) = prng_bound_ms(key, plan)
+        print(f"prng_draws [{pname}]: device {dev_ms * 1e3:.2f} us (graph replay), a call "
+              f"{ms:.4f} ms, chained {chained:.4f} ms; plain {plain_ms:.4f} ms; bound "
+              f"{b_ms:.7f} ms by {by} ({n_bytes} B, {ops} int32 ops, {flops} f32 ops); "
+              f"no PyTorch call draws threefry ({smi})", flush=True)
+        entry["by_plan"][pname] = {"device_ms": dev_ms, "ms": ms, "chained_ms": chained,
+                                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by}
+        if pname == "tiny":
+            entry.update(ms=ms, plain_ms=plain_ms, chained_ms=chained, device_ms=dev_ms,
+                         bound_ms=b_ms, bound_by=by)
+    # for scale: torch.randn of the tiny step's normals (other bits: not the
+    # function), the generator the parent's step drew from, a call and chained
+    randn = lambda: torch.randn((12, 64, 3), device=dev)  # noqa: E731
+    r_call, _, r_chained = time_pair(randn, randn)
+    print(f"prng_draws: torch.randn of 12 x 64 x 3 normals {r_call:.4f} ms a call, chained "
+          f"{r_chained:.4f} ms (other numbers than the reference's; for scale only)", flush=True)
+    entry["torch_randn_ms"], entry["torch_randn_chained_ms"] = r_call, r_chained
+    return entry
 
 
 def main() -> None:
@@ -5884,10 +6226,16 @@ def main() -> None:
         if "registers" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}", flush=True)
     _build.load()
+    if sys.argv[1:] == ["--phase", "prng"]:
+        # the PRNG kernel alone (its fixture, its plain version, its times); no result
+        phase_prng(dev, smi)
+        print("phase prng passed", flush=True)
+        return
 
     scans, odom, gt = bench_sequence(dev)
     k1 = phase_overlap_kernel(dev, scans, gt)
     k2 = phase_polar_kernel(dev, scans, gt)
+    k_prng = phase_prng(dev, smi)
 
     tiny_cfg, viny_cfg = tiny.tiny_config(map_size=MAP), viny.viny_config(map_size=MAP)
     gm_cfg = gmapping_config()
@@ -5902,10 +6250,11 @@ def main() -> None:
 
     odo_ate = float(evaluate.ate(odometry_trajectory(gt[0], odom), gt, align=False))
     tiny_launches, tiny_traj, _ = phase_main_path(
-        "tiny", tiny_cfg, expect(mc_match=N_SCANS, scan_insert=N_SCANS), scans, odom, gt, odo_ate,
-        0.15)
+        "tiny", tiny_cfg, expect(mc_match=N_SCANS, scan_insert=N_SCANS, prng_draws=N_SCANS), scans,
+        odom, gt, odo_ate, 0.15)
     viny_launches, viny_traj, _ = phase_main_path(
-        "viny", viny_cfg, expect(mc_match=N_SCANS, polar_free_plane=N_SCANS, scan_insert=N_SCANS),
+        "viny", viny_cfg, expect(mc_match=N_SCANS, polar_free_plane=N_SCANS, scan_insert=N_SCANS,
+                                 prng_draws=N_SCANS),
         scans, odom, gt, odo_ate, max(VINY_REFERENCE_ATE_BY_KEY) + VINY_ATE_MARGIN)
     rounds_launches = phase_rounds_path(viny_cfg, scans, odom, gt, viny_traj)
     # every path once more with K3's plain twin handed in, keeping insert calls
@@ -5925,6 +6274,16 @@ def main() -> None:
     phase_full_card_vs_cpu(dev)
 
     gm_launches = phase_gmapping_path(gm_cfg, scans, odom, gt, odo_ate, smi)
+    phase_ate_by_key((
+        ("tiny", lambda k: run_main_path(tiny_cfg, scans, odom, gt, 0, seed=k)[0], gt,
+         TINY_REFERENCE_ATE_BY_KEY),
+        ("viny", lambda k: run_main_path(viny_cfg, scans, odom, gt, 0, seed=k)[0], gt,
+         VINY_REFERENCE_ATE_BY_KEY),
+        ("full (corrected)", lambda k: run_full_path(full_cfg, fscans, fodom, fgt, 0, seed=k)[1],
+         fgt, FULL_REFERENCE_ATE_BY_KEY),
+        ("gmapping (winner)", lambda k: run_gmapping_path(
+            gm_cfg, scans, odom, gt, 0, seed=k)[0].winner_trajectory(), gt,
+         GMAPPING_REFERENCE_ATE_BY_KEY)))
     kept_inserts["gmapping"], twin_runs["gmapping"] = held_to_twin_insert(
         "gmapping", lambda: run_gmapping_path(gm_cfg, scans, odom, gt, 0)[1])
     phase_gmapping_quality(gm_cfg, dev)
@@ -6030,8 +6389,9 @@ def main() -> None:
                  "gradient_refine": cli_launches["tiny_refined"],
                  "hill_climb": cli_launches["mit_csail"], "scan_insert": tiny_launches,
                  "scan_planes": full_launches, "pool_insert": cow_launches,
-                 "pool_prepare": cow_launches, "pool_touched": cow_launches}
-    for k in (k1, k3, k2, k4, k5, k6, k7, k8, k9, k10, k11, k12, k13, k14, k15, k16):
+                 "pool_prepare": cow_launches, "pool_touched": cow_launches,
+                 "prng_draws": tiny_launches}
+    for k in (k1, k3, k2, k4, k5, k6, k7, k8, k9, k10, k11, k12, k13, k14, k15, k16, k_prng):
         k["launches"] = main_path.get(k["name"], viny_launches)[k["name"]]
         k["launches_by_path"] = {
             "tiny": tiny_launches[k["name"]], "viny": viny_launches[k["name"]],
@@ -6058,7 +6418,7 @@ def main() -> None:
     k_part["launches_by_path"] = {f"{name} (NCCL, world 1)": counts["overlap_score_partial"]
                                   for name, counts in par_launches.items()}
     print(json.dumps({"kernels": [k1, k3, k2, k4, k5, k6, k7, k8, k9, k10, k11, k12, k13,
-                                  k14, k15, k16, *k_red, *k_slots, k_part]}),
+                                  k14, k15, k16, *k_red, *k_slots, k_part, k_prng]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -1,6 +1,7 @@
 """scans/s of the bench paths of one checkout of the port, on the card.
 
     python3 scripts/torch_port/path_rates.py [--root DIR] [--out F.json]
+        [--paths tiny,viny,...] [--repeat N] [--host N]
 
 Imports ``slam_constructor_tpu_torch`` from ``--root`` (this checkout by
 default; a parent unpacked with ``git archive`` under ``build/`` to compare
@@ -8,8 +9,14 @@ two trees) and runs, over ``chip_smoke.py``'s bench sequence (512 scans,
 360 beams, the cecum world): tiny, viny and viny_m3rsm through
 ``Engine.run``, bench.py's gmapping preset and ``preset('gmapping')``
 through ``GMappingEngine.run``; each once to warm up, then timed from a
-fresh state (host clock ending in a synchronise) with the sync check on.
-Prints one line a path and, with ``--out``, writes them as JSON. Run it in
+fresh state (host clock ending in a synchronise) with the sync check on,
+``--repeat`` times (the median is the path's figure, every run is kept).
+``--host N`` then times N single steps of each single-hypothesis path
+(``Engine.handle_scan``, a synchronise before and after each): the host's
+time to issue a step and the step's time to its end, and the step's draws
+issued alone (``engine.draw_step`` where the tree has it, else the
+``torch.randn`` of the generator that the step drew from).
+Prints one line a run and, with ``--out``, writes them as JSON. Run it in
 turns (parent, change, change, parent) in one chip call: the host's speed
 drifts between calls. Imports no JAX.
 """
@@ -33,6 +40,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--out")
+    ap.add_argument("--paths", help="comma-separated paths (default: all)")
+    ap.add_argument("--repeat", type=int, default=1, help="timed runs a path")
+    ap.add_argument("--host", type=int, default=0, help="single steps timed a path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA GPU")
@@ -61,6 +71,7 @@ def main() -> None:
         e.state.poses = gt[0].expand(e.cfg.n_particles, 3).clone()
         return e
 
+    single_paths = ("tiny", "viny", "viny_m3rsm")
     paths = {
         "tiny": lambda: single(tiny.tiny_config(map_size=256)),
         "viny": lambda: single(viny.viny_config(map_size=256)),
@@ -69,22 +80,66 @@ def main() -> None:
             gmapping.fast_config(n_particles=30, map_size=256), seed=0)),
         "gmapping preset": lambda: particles(lambda: cfglib.preset("gmapping")(seed=0)),
     }
-    out = {"root": str(Path(args.root).resolve()), "card": smi}
+    if args.paths:
+        unknown = set(args.paths.split(",")) - set(paths)
+        if unknown:
+            sys.exit(f"unknown paths {sorted(unknown)}; known: {sorted(paths)}")
+        paths = {k: v for k, v in paths.items() if k in args.paths.split(",")}
+    out = {"root": str(Path(args.root).resolve()), "card": smi, "runs": {}}
     for name, make in paths.items():
         make().run(scans, odom)  # warm-up
-        e = make()
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        t0 = time.perf_counter()
-        e.run(scans, odom)
-        torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        out[name] = 512 / secs
-        print(f"{name}: 512 scans in {secs:.3f} s = {512 / secs:.1f} scans/s on {smi} "
-              f"({args.root})", flush=True)
+        rates = []
+        for _ in range(args.repeat):
+            e = make()
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            t0 = time.perf_counter()
+            e.run(scans, odom)
+            torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            rates.append(512 / secs)
+            print(f"{name}: 512 scans in {secs:.3f} s = {512 / secs:.1f} scans/s on {smi} "
+                  f"({args.root})", flush=True)
+        out[name] = float(np.median(rates))
+        out["runs"][name] = rates
+        if args.host and name in single_paths:
+            out.setdefault("host_us", {})[name] = host_times(engine, make(), scans, odom,
+                                                             args.host)
+            print(f"{name}: {args.host} single steps, median us (host to issue, to the end; "
+                  f"the draws issued alone): {out['host_us'][name]} on {smi}", flush=True)
     if args.out:
         Path(args.out).write_text(json.dumps(out))
+
+
+def host_times(engine, e, scans, odom, n: int) -> dict:
+    """Median microseconds of ``n`` single steps of engine ``e`` (a
+    synchronise before and after each): the host's time to issue the step,
+    the step's time to its end, and the host's time to issue its draws
+    alone."""
+    issue, whole, draws = [], [], []
+    cfg = e.cfg
+    mc = cfg.matcher_cfg
+    gen = torch.Generator(device=e.device).manual_seed(1)
+    for i in range(n):
+        j = i % scans.ranges.shape[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e.handle_scan(scans[j], odom[j])
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if hasattr(engine, "draw_step"):
+            engine.draw_step(cfg, e.state.key)
+        elif cfg.matcher == "monte_carlo":
+            torch.randn((mc.rounds, mc.batch, 3), generator=gen, device=e.device)
+        t3 = time.perf_counter()
+        torch.cuda.synchronize()
+        issue.append(t1 - t0)
+        whole.append(t2 - t0)
+        draws.append(t3 - t2)
+    return {k: float(np.median(v)) * 1e6 for k, v in
+            (("issue", issue), ("step", whole), ("draws", draws))}
 
 
 if __name__ == "__main__":

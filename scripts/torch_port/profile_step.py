@@ -186,6 +186,7 @@ def main() -> None:
 
     from slam_constructor_tpu_torch.models import engine, tiny, viny
     from slam_constructor_tpu_torch.ops import kernels, matchers, raycast, scoring
+    from slam_constructor_tpu_torch.ops import prng
     from slam_constructor_tpu_torch.ops.geometry import compose
     from slam_constructor_tpu_torch.utils import datagen
 
@@ -214,7 +215,7 @@ def main() -> None:
     phases = dict.fromkeys(("weights", "match", "insert"), 0.0)
     state = warm
     q = torch.ones((), device=dev)
-    gen = torch.Generator(device=dev).manual_seed(1)
+    gen = prng.key(1, dev)  # a key for the calls timed alone
     for i in range(n_warm, n_warm + n):
         scan, od = scans[i], odom[i]
         marks = [time.perf_counter()]
@@ -229,11 +230,13 @@ def main() -> None:
         mark()
         prior = compose(state.pose, od)
         view = scoring.MapView.of(state.gm, cfg.cell_model)
-        res = matchers.monte_carlo_match(view, scan, prior, gen, cfg.matcher_cfg, pw)
+        key, noise, _ = engine.draw_step(cfg, state.key)  # the step's one draws launch
+        res = matchers.monte_carlo_match(view, scan, prior, None, cfg.matcher_cfg, pw, noise)
         mark()
         gm = raycast.insert_scan(state.gm, cfg.cell_model, res.pose, scan, cfg.beam, q)
         mark()
-        state = engine.SlamState(gm=gm, pose=res.pose, step=state.step + 1, last_prob=res.prob)
+        state = engine.SlamState(gm=gm, pose=res.pose, key=key, step=state.step + 1,
+                                 last_prob=res.prob)
         for k, a, b in zip(phases, marks, marks[1:]):
             phases[k] += b - a
     print("synced phases, ms a scan: " + ", ".join(
@@ -305,7 +308,7 @@ def main() -> None:
           f"{synced_ms(lambda: kernels.polar_free_plane_ref(*pargs), 200):.4f} ms a call synced")
 
     with CountOps() as c:
-        engine.slam_step(cfg, warm, scans[n_warm], odom[n_warm], generator=gen)
+        engine.slam_step(cfg, warm, scans[n_warm], odom[n_warm])
     scatters = sorted({n for n in c.names if "index_put" in n or "scatter" in n})
     print(f"ATen calls a scan (views included): {c.n}; scatters among them: {scatters or 'none'}")
 
@@ -349,6 +352,7 @@ def profile_m3rsm(n: int) -> None:
     from chip_smoke import bench_sequence
     from slam_constructor_tpu_torch.models import engine, viny
     from slam_constructor_tpu_torch.ops import kernels, m3rsm, raycast, scoring
+    from slam_constructor_tpu_torch.ops import prng
     from slam_constructor_tpu_torch.ops.geometry import compose
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -368,7 +372,7 @@ def profile_m3rsm(n: int) -> None:
 
     # a pass that times the phases (a synchronise after each), then one that
     # counts their ATen calls (the dispatch mode slows the host)
-    names = ("weights", "match", "insert", "refresh")
+    names = ("weights", "draws", "match", "insert", "refresh")
     ms, aten = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
     q = torch.ones((), device=dev)
     for count_ops in (False, True):
@@ -393,13 +397,14 @@ def profile_m3rsm(n: int) -> None:
             pw = phase("weights", lambda: engine._point_weights(cfg, scan))
             prior = compose(state.pose, od)
             view = scoring.MapView.of(state.gm, cfg.cell_model)
+            key = phase("draws", lambda: engine.draw_step(cfg, state.key)[0])
             res = phase("match", lambda: m3rsm.m3rsm_match(
                 view, scan, prior, None, cfg.matcher_cfg, pw, pyramid=state.pyramid))
             gm = phase("insert", lambda: raycast.insert_scan(state.gm, cfg.cell_model, res.pose,
                                                              scan, cfg.beam, q))
             pyr = phase("refresh", lambda: engine._refresh_pyramid(cfg, gm, res.pose,
                                                                     state.pyramid, q))
-            state = engine.SlamState(gm=gm, pose=res.pose, step=state.step + 1,
+            state = engine.SlamState(gm=gm, pose=res.pose, key=key, step=state.step + 1,
                                      last_prob=res.prob, pyramid=pyr)
     print("synced phases, ms / ATen calls a scan: " + ", ".join(
         f"{k} {ms[k] / n * 1e3:.3f} / {aten[k] / n:.0f}" for k in names)
@@ -468,6 +473,7 @@ def profile_refine(preset: str, n: int) -> None:
     from slam_constructor_tpu_torch import run
     from slam_constructor_tpu_torch.models import engine
     from slam_constructor_tpu_torch.ops import kernels, raycast, scoring
+    from slam_constructor_tpu_torch.ops import prng
     from slam_constructor_tpu_torch.ops import matchers as matcherslib
     from slam_constructor_tpu_torch.ops.geometry import compose
     from slam_constructor_tpu_torch.utils import config as cfglib
@@ -507,9 +513,9 @@ def profile_refine(preset: str, n: int) -> None:
               f"{' and '.join(f'{n / t:.1f}' for t in v)} scans/s")
 
     # --- phases of slam_step, a synchronise after each ----------------------
-    names = ("match", "refine", "insert")
+    names = ("draws", "match", "refine", "insert")
     q = torch.ones((), device=dev)
-    gen = torch.Generator(device=dev).manual_seed(1)
+    gen = prng.key(1, dev)  # a key for the calls timed alone
     for k, fn in variants.items():
         ms, aten = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
         setattr(kernels, name, fn)
@@ -537,14 +543,15 @@ def profile_refine(preset: str, n: int) -> None:
                     view = scoring.MapView.of(state.gm, cfg.cell_model)
                     pw = engine._point_weights(cfg, scan)
                     match_fn = matcherslib.MATCHERS[cfg.matcher][1]
-                    res = phase("match", lambda: match_fn(view, scan, prior, gen,
-                                                          cfg.matcher_cfg, pw))
-                    res = phase("refine", lambda: engine._refine(cfg, view, scan, res, gen, pw,
-                                                                 None))
+                    key, noise, rnoise = phase("draws", lambda: engine.draw_step(cfg, state.key))
+                    res = phase("match", lambda: match_fn(view, scan, prior, None,
+                                                          cfg.matcher_cfg, pw, noise))
+                    res = phase("refine", lambda: engine._refine(cfg, view, scan, res, pw,
+                                                                 rnoise))
                     gm = phase("insert", lambda: raycast.insert_scan(
                         state.gm, cfg.cell_model, res.pose, scan, cfg.beam, q))
-                    state = engine.SlamState(gm=gm, pose=res.pose, step=state.step + 1,
-                                             last_prob=res.prob)
+                    state = engine.SlamState(gm=gm, pose=res.pose, key=key,
+                                             step=state.step + 1, last_prob=res.prob)
                 launches = {a: b for a, b in kernels.launch_counts().items() if b}
         finally:
             setattr(kernels, name, fused)
@@ -564,10 +571,10 @@ def profile_refine(preset: str, n: int) -> None:
             for k in (variants if r % 2 == 0 else reversed(variants)):
                 setattr(kernels, name, variants[k])
                 rounds[k].append(synced_ms(
-                    lambda: engine._refine(cfg, view, scan, res, gen, None, None), 20))
+                    lambda: engine._refine(cfg, view, scan, res, None, None), 20))
                 if k not in calls:
                     with CountOps() as c:
-                        engine._refine(cfg, view, scan, res, gen, None, None)
+                        engine._refine(cfg, view, scan, res, None, None)
                     calls[k] = c.n
     finally:
         setattr(kernels, name, fused)
@@ -575,7 +582,7 @@ def profile_refine(preset: str, n: int) -> None:
         print(f"the refine through {k}: median {statistics.median(v):.4f} ms a call synced "
               f"(rounds {min(v):.4f}-{max(v):.4f}), {calls[k]} ATen calls")
     with CountOps() as c:
-        engine.slam_step(cfg, warm, scans[n_warm], odom[n_warm], generator=gen)
+        engine.slam_step(cfg, warm, scans[n_warm], odom[n_warm])
     print(f"ATen calls a scan (views included): {c.n}")
 
     e.state = warm
@@ -617,6 +624,7 @@ def profile_gmapping(n: int, slot: str | None = None, preset: str = "gmapping") 
     from slam_constructor_tpu_torch.models import gmapping
     from slam_constructor_tpu_torch.ops import grid as gridlib
     from slam_constructor_tpu_torch.ops import kernels, raycast, resample
+    from slam_constructor_tpu_torch.ops import prng
     from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda")
@@ -638,7 +646,7 @@ def profile_gmapping(n: int, slot: str | None = None, preset: str = "gmapping") 
     names = ("proposal", "windows", "match", "weights", "insert", "resample")
     ms = dict.fromkeys(names, 0.0)
     aten = dict.fromkeys(names, 0)
-    gen = torch.Generator(device=dev).manual_seed(1)
+    gen = prng.key(1, dev)  # a key for the calls timed alone
     for count_ops in (False, True):
         state = warm
         for i in range(n, 2 * n):
@@ -662,10 +670,10 @@ def profile_gmapping(n: int, slot: str | None = None, preset: str = "gmapping") 
                 return out
 
             def propose():
-                d = gmapping.draw(cfg, gen, dev)
-                return (d, *gmapping.propose(cfg, state.poses, od, d.proposal))
+                key, d = gmapping.draw(cfg, state.key)
+                return (key, d, *gmapping.propose(cfg, state.poses, od, d.proposal))
 
-            d, sigma, priors, centers = phase("proposal", propose)
+            key, d, sigma, priors, centers = phase("proposal", propose)
 
             def windows():  # on the bench preset the windows' corners only: read in place
                 return gmapping.expand_scan(scan, p), gmapping.match_view(cfg, state.gm, priors)
@@ -683,14 +691,15 @@ def profile_gmapping(n: int, slot: str | None = None, preset: str = "gmapping") 
                 return gmapping.GMappingState(
                     gm=gridlib.GridMap(cells.index_select(0, idx), gm.origin.index_select(0, idx),
                                        gm.scale),
-                    poses=poses.index_select(0, idx), log_weights=lw, step=state.step + 1)
+                    poses=poses.index_select(0, idx), log_weights=lw, key=key,
+                    step=state.step + 1)
 
             state = phase("resample", resampled)
     print("synced phases, ms and ATen calls a scan: " + ", ".join(
         f"{k} {ms[k] / n * 1e3:.3f} ms / {aten[k] / n:.0f}" for k in names)
         + f"; in all {sum(ms.values()) / n * 1e3:.3f} ms / {sum(aten.values()) / n:.0f}")
     with CountOps() as c:
-        gmapping.gmapping_step(cfg, warm, scans[n], odom[n], generator=gen)
+        gmapping.gmapping_step(cfg, warm, scans[n], odom[n])
     print(f"ATen calls of one gmapping_step (views included): {c.n}")
 
     e.state = warm
@@ -744,6 +753,7 @@ def profile_pool(preset: str, n: int) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from slam_constructor_tpu_torch.ops import blockmap, cow, kernels, resample, scoring
+    from slam_constructor_tpu_torch.ops import prng
     from slam_constructor_tpu_torch.ops.geometry import compose
     from slam_constructor_tpu_torch.ops.scan import LaserScan
 
@@ -785,7 +795,7 @@ def profile_pool(preset: str, n: int) -> None:
           f"({secs / n * 1e3:.3f} ms a scan)")
 
     ms, aten = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
-    gen = torch.Generator(device=dev).manual_seed(1)
+    gen = prng.key(1, dev)  # a key for the calls timed alone
     for count_ops in (False, True):
         state = _clone_pool_state(warm, rbpf)
         for i in range(n, 2 * n):
@@ -810,10 +820,10 @@ def profile_pool(preset: str, n: int) -> None:
                 p = cfg.n_particles
 
                 def propose():
-                    d = gmapping.draw(cfg, gen, dev)
-                    return (d, *gmapping.propose(cfg, state.poses, od, d.proposal))
+                    key, d = gmapping.draw(cfg, state.key)
+                    return (key, d, *gmapping.propose(cfg, state.poses, od, d.proposal))
 
-                d, sigma, priors, centers = phase("proposal", propose)
+                key, d, sigma, priors, centers = phase("proposal", propose)
                 sc = gmapping.expand_scan(scan, p)
                 wt = cfg.window_tiles
                 view = phase("windows", lambda: scoring.MapView.of(cow.extract_window(
@@ -838,7 +848,7 @@ def profile_pool(preset: str, n: int) -> None:
                     idx, lw, _ = resample.maybe_resample(d.u0, logw, cfg.resample_threshold)
                     return gmapping.GMappingState(
                         gm=cow.resample(gm, idx), poses=poses.index_select(0, idx),
-                        log_weights=lw, step=state.step + 1)
+                        log_weights=lw, key=key, step=state.step + 1)
 
                 state = phase("resample", resampled)
             else:
@@ -852,12 +862,13 @@ def profile_pool(preset: str, n: int) -> None:
                     cfg.cell_model))
 
                 def match():
-                    res = match_fn(view, scan, prior, gen, cfg.matcher_cfg, pw, None)
-                    res = engine._refine(cfg, view, scan, res, gen, pw, None)
+                    key, noise, rnoise = engine.draw_step(cfg, state.key)
+                    res = match_fn(view, scan, prior, None, cfg.matcher_cfg, pw, noise)
+                    res = engine._refine(cfg, view, scan, res, pw, rnoise)
                     ok = (res.prob >= cfg.min_insert_prob) | (state.step == 0)
-                    return res, torch.where(ok, 1.0, 0.0)
+                    return key, res, torch.where(ok, 1.0, 0.0)
 
-                res, q = phase("match", match)
+                key, res, q = phase("match", match)
                 bm = state.gm
                 one = LaserScan(scan.ranges[None], scan.bearings[None], scan.valid[None])
                 pose = res.pose[None]
@@ -875,7 +886,7 @@ def profile_pool(preset: str, n: int) -> None:
                     phase("insert", lambda: kernels.pool_insert(
                         bm.pool, bm.table[None], bm.origin, bm.scale, cfg.cell_model, pose, one,
                         cfg.beam, touched, q, n_live=bm.n_alloc))
-                state = engine.SlamState(gm=bm, pose=res.pose, step=state.step + 1,
+                state = engine.SlamState(gm=bm, pose=res.pose, key=key, step=state.step + 1,
                                          last_prob=res.prob)
     print("synced phases, ms and ATen calls a scan: " + ", ".join(
         f"{k} {ms[k] / n * 1e3:.3f} ms / {aten[k] / n:.0f}" for k in names)

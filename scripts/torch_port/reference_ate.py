@@ -21,9 +21,10 @@ the card's ATE against the figure printed here.
 
 With ``--keys N`` the reference runs once for each of ``PRNGKey(0..N-1)``
 (the matcher's noise; the sequence stays the same), and the port runs on
-the CPU twice for each: with that key's noise chain injected, and with its
-own generator seeded ``k``. The spread shows how far a single run's ATE
-moves with the matcher's noise alone.
+the CPU twice for each: with that key's noise chain injected, and from its
+own ``seed=k``, which is the reference's ``PRNGKey(k)`` (the same draws
+from the key). The spread shows how far a single run's ATE moves with the
+matcher's noise alone.
 
 With ``--dissect K`` the first scan at which the port (key ``K``'s noise
 injected) leaves the jitted reference by more than 1e-4 is taken apart:
@@ -51,8 +52,8 @@ With ``--preset gmapping_2lap`` the same over the reference's own quality
 sequence (two laps at 0.3 m a step, odometry noise 0.02 m / 0.012 rad,
 ``chip_smoke.gmapping_quality_sequence``); with ``--multiseed`` it runs
 the reference's 5-seed protocol (``scripts/r3/gm_multiseed.py``: a
-sequence and a filter key a seed) on both sides, the port on the CPU with
-its own generator.
+sequence and a filter key a seed) on both sides, the port on the CPU from
+the same filter key.
 
 With ``--preset gmapping`` the reference's RBPF at bench.py's ``gmapping``
 preset (``fast_config(n_particles=30, map_size=256)``: 160^2 windows,
@@ -267,7 +268,7 @@ def main() -> None:
                 "port_same_noise_ate_m": float(evaluate.ate(inj, gt, align=False)),
                 "port_same_noise_max_pose_diff": float(pose_diff(inj, tr).max()),
                 "port_same_noise_first_scan_over_1e-4": first_over(pose_diff(inj, tr)),
-                "port_own_generator_ate_m": float(
+                "port_own_key_ate_m": float(
                     evaluate.ate(port_run(seed=k), gt, align=False)),
             })
         out["by_key"] = rows
@@ -579,8 +580,8 @@ def gmapping_preset(args) -> dict:
     if args.stepwise:
         return {"preset": args.preset, "stepwise": stepwise(jcfg, tcfg, scans, odom, gt)}
     if args.multiseed:
-        # the protocol: a sequence and a filter key a seed; the port with its
-        # own generator on the CPU
+        # the protocol: a sequence and a filter key a seed; the port from the
+        # same filter key on the CPU
         rows = []
         for seed in MULTISEED:
             sc, od, g = gmapping_quality_sequence("cpu", seed)

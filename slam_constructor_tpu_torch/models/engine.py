@@ -6,8 +6,10 @@ odometry prior and inserts it at the matched pose. It never syncs with the
 host: no ``.item()``, no Python branch on a tensor, no boolean-mask
 indexing, so a whole sequence queues on the device. ``run_sequence`` is a
 Python loop over scans that stay on the device (the reference runs it in
-``lax.scan``). The reference's PRNG key is replaced by a
-``torch.Generator`` owned by the ``Engine``, or by injected noise.
+``lax.scan``). The state holds the reference's threefry key
+(``SlamState.key``): a step splits it as the reference does and draws the
+matcher's normals from it, with the next key, in one launch of
+``kernels.prng_draws``; a caller may inject the normals instead.
 
 Entry points run on the card unless the caller names a device (see
 ``device.resolve_device``); the tests pass ``device="cpu"``.
@@ -34,6 +36,7 @@ grown map's M3RSM pyramid is rebuilt.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
@@ -43,6 +46,7 @@ from ..device import resolve_device
 from ..ops import blockmap
 from ..ops import cells as cellslib
 from ..ops import grid as gridlib
+from ..ops import kernels, prng
 from ..ops import m3rsm as m3rsmlib
 from ..ops import matchers as matcherslib
 from ..ops import raycast, scoring
@@ -99,6 +103,7 @@ class SlamState:
 
     gm: gridlib.GridMap | blockmap.BlockMap
     pose: Tensor  # f32[3]
+    key: Tensor  # uint32[2], the reference's threefry key
     step: Tensor  # i32[]
     last_prob: Tensor  # f32[]
     #: the M3RSM matcher's live max-occupancy pyramid of the map (the
@@ -132,10 +137,12 @@ def _refresh_pyramid(cfg: EngineConfig, gm, pose: Tensor, pyramid: tuple, gate: 
     return m3rsmlib.update_pyramid(pyramid, view, unknown, center, size, gate)
 
 
-def init_state(cfg: EngineConfig, device=None) -> SlamState:
-    """A fresh state on ``device`` (the card when none is named); with the
+def init_state(cfg: EngineConfig, device=None, key: Tensor | None = None) -> SlamState:
+    """A fresh state on ``device`` (the card when none is named) holding
+    ``key`` (the reference's default ``PRNGKey(0)`` when None); with the
     M3RSM matcher its pyramid built and the search's constants made."""
     dev = resolve_device(device)
+    key = prng.key(0, dev) if key is None else key.to(dev)
     if cfg.map_storage == "tiled":
         gm = blockmap.make_block_map(
             cfg.cell_model, tiles_h=cfg.map_height // cfg.tile_block,
@@ -155,6 +162,7 @@ def init_state(cfg: EngineConfig, device=None) -> SlamState:
     return SlamState(
         gm=gm,
         pose=torch.zeros(3, dtype=torch.float32, device=dev),
+        key=key,
         step=torch.zeros((), dtype=torch.int32, device=dev),
         last_prob=torch.zeros((), dtype=torch.float32, device=dev),
         pyramid=pyramid,
@@ -181,16 +189,65 @@ def _point_weights(cfg: EngineConfig, scan: LaserScan) -> Tensor | None:
     return 1.0 / (1.0 + hist[bins] * n_bins)
 
 
-def _refine(cfg: EngineConfig, view, scan, res, generator, pw, noise):
+def _refine_cfg(cfg: EngineConfig):
+    refine_cls, refine_fn = matcherslib.MATCHERS[cfg.refine_matcher]
+    return (cfg.refine_cfg if cfg.refine_cfg is not None else refine_cls()), refine_fn
+
+
+def _refine(cfg: EngineConfig, view, scan, res, pw, noise):
     """The optional second matcher from the primary match's pose. Hill
     climbing and gradient ascent keep the start pose unless the score
-    improves. A Monte-Carlo refine gets the primary match's ``noise``, as
-    the reference hands both matches one key."""
+    improves. A Monte-Carlo refine gets ``noise``: the normals of the
+    primary match's key, as the reference hands both matches one key."""
     if cfg.refine_matcher is None:
         return res
-    refine_cls, refine_fn = matcherslib.MATCHERS[cfg.refine_matcher]
-    rcfg = cfg.refine_cfg if cfg.refine_cfg is not None else refine_cls()
-    return refine_fn(view, scan, res.pose, generator, rcfg, pw, noise)
+    rcfg, refine_fn = _refine_cfg(cfg)
+    return refine_fn(view, scan, res.pose, None, rcfg, pw, noise)
+
+
+def _mc_cfg(matcher, mcfg):
+    return mcfg if matcher == "monte_carlo" else None
+
+
+#: the next key alone, when the normals are handed in
+_NEXT_KEY = (prng.Draw((0,), "key"),)
+
+
+@functools.lru_cache(maxsize=64)
+def _step_draws(cfg: EngineConfig):
+    """(the step's plan, the position of the match's normals, of the
+    refine's): a Monte-Carlo match or refine draws from ``sub``; a refine
+    of the match's shape takes the match's normals (the same key)."""
+    mc = [_mc_cfg(cfg.matcher, cfg.matcher_cfg),
+          _mc_cfg(cfg.refine_matcher, _refine_cfg(cfg)[0]) if cfg.refine_matcher else None]
+    shared = (mc[0] is not None and mc[1] is not None
+              and (mc[0].rounds, mc[0].batch) == (mc[1].rounds, mc[1].batch))
+    plan, where = list(_NEXT_KEY), []
+    for m in (mc[0], None if shared else mc[1]):
+        where.append(len(plan) if m is not None else None)
+        if m is not None:
+            plan.extend(matcherslib.noise_plan(m, (1,)))
+    return tuple(plan), where[0], where[0] if shared else where[1]
+
+
+def step_plan(cfg: EngineConfig) -> tuple:
+    """A step's draws as ``prng.Draw``s, as the reference's step draws
+    them (``key, sub = split(key)``; a Monte-Carlo match and refine draw
+    from ``sub``): the next key, then the match's normals and the
+    refine's, each where its matcher draws."""
+    return _step_draws(cfg)[0]
+
+
+def draw_step(cfg: EngineConfig, key: Tensor, noise: Tensor | None = None):
+    """A step's random numbers from the state's ``key`` (:func:`step_plan`):
+    (next key, the match's normals, the refine's normals), in one launch of
+    ``kernels.prng_draws``. With ``noise`` handed in, the next key alone is
+    drawn and both matches take ``noise``."""
+    if noise is not None:
+        return kernels.prng_draws(key, _NEXT_KEY)[0], noise, noise
+    plan, m, r = _step_draws(cfg)
+    out = kernels.prng_draws(key, plan)
+    return out[0], None if m is None else out[m], None if r is None else out[r]
 
 
 def slam_step(
@@ -200,14 +257,14 @@ def slam_step(
     odom_delta: Tensor,
     quality: float = 1.0,
     noise: Tensor | None = None,
-    generator: torch.Generator | None = None,
 ) -> SlamState:
     """One scan: match from ``state.pose ⊕ odom_delta`` (then refine), then
     insert.
 
     ``quality`` scales this scan's observation weight. ``noise`` f32[rounds,
     batch, 3] injects the matcher's standard normals; otherwise they come
-    from ``generator``. The M3RSM matcher matches against the state's
+    from the state's key (:func:`draw_step`), which the step advances
+    either way. The M3RSM matcher matches against the state's
     pyramid and draws nothing; the returned state holds new planes. On the
     tiled map the match runs on the ``window_tiles`` window around the
     prior, and the insert allocates tiles in the pool.
@@ -215,17 +272,19 @@ def slam_step(
     _, match_fn = matcherslib.MATCHERS[cfg.matcher]
     prior = compose(state.pose, odom_delta)
     pw = _point_weights(cfg, scan)
+    key, noise, refine_noise = draw_step(cfg, state.key, noise)
     if cfg.map_storage == "tiled":
         window = blockmap.extract_window(
             state.gm, cfg.cell_model, prior[:2], cfg.window_tiles, cfg.window_tiles)
         view = scoring.MapView.of(window, cfg.cell_model)
-        res = match_fn(view, scan, prior, generator, cfg.matcher_cfg, pw, noise)
-        res = _refine(cfg, view, scan, res, generator, pw, noise)
+        res = match_fn(view, scan, prior, None, cfg.matcher_cfg, pw, noise)
+        res = _refine(cfg, view, scan, res, pw, refine_noise)
         do_insert = (res.prob >= cfg.min_insert_prob) | (state.step == 0)
         # q = 0 (gated) leaves zero-weight samples: no tile allocated, no fold
         q = torch.where(do_insert, quality, 0.0)
         gm = blockmap.insert_scan(state.gm, cfg.cell_model, res.pose, scan, cfg.beam, q)
-        return SlamState(gm=gm, pose=res.pose, step=state.step + 1, last_prob=res.prob)
+        return SlamState(gm=gm, pose=res.pose, key=key, step=state.step + 1,
+                         last_prob=res.prob)
 
     view = scoring.MapView.of(state.gm, cfg.cell_model)
     pyramid = state.pyramid if _uses_pyramid(cfg) else ()
@@ -233,8 +292,8 @@ def slam_step(
         # one prior-centred window a match (M3RSM windows its own pyramid)
         view = scoring.window_view(view, prior[:2], cfg.match_window)
     live = {"pyramid": pyramid} if pyramid else {}
-    res = match_fn(view, scan, prior, generator, cfg.matcher_cfg, pw, noise, **live)
-    res = _refine(cfg, view, scan, res, generator, pw, noise)
+    res = match_fn(view, scan, prior, None, cfg.matcher_cfg, pw, noise, **live)
+    res = _refine(cfg, view, scan, res, pw, refine_noise)
     do_insert = (res.prob >= cfg.min_insert_prob) | (state.step == 0)
     q = torch.where(do_insert, quality, 0.0)
     # the rasterisation and the fold in one call: K3 on the card
@@ -242,7 +301,7 @@ def slam_step(
     if pyramid:
         # refreshed only where the insert changed cells (q > 0)
         pyramid = _refresh_pyramid(cfg, gm, res.pose, pyramid, q)
-    return SlamState(gm=gm, pose=res.pose, step=state.step + 1, last_prob=res.prob,
+    return SlamState(gm=gm, pose=res.pose, key=key, step=state.step + 1, last_prob=res.prob,
                      pyramid=pyramid)
 
 
@@ -252,7 +311,6 @@ def run_sequence(
     scans: LaserScan,
     odom: Tensor,
     noise: Tensor | None = None,
-    generator: torch.Generator | None = None,
 ):
     """Run a batched sequence ``scans`` [T, R], ``odom`` f32[T, 3] on the
     state's device. ``noise`` optionally holds f32[T, rounds, batch, 3].
@@ -261,7 +319,7 @@ def run_sequence(
     for i in range(len(scans)):
         state = slam_step(
             cfg, state, scans[i], odom[i],
-            noise=None if noise is None else noise[i], generator=generator,
+            noise=None if noise is None else noise[i],
         )
         poses.append(state.pose)
         probs.append(state.last_prob)
@@ -269,15 +327,15 @@ def run_sequence(
 
 
 class Engine:
-    """Host-side front end: owns config, state, device and random generator;
-    feeds scans and exposes map and trajectory."""
+    """Host-side front end: owns config, state (with its key) and device;
+    feeds scans and exposes map and trajectory. ``key`` is the reference's
+    ``key=`` (a uint32[2] threefry key); ``seed=s`` without one means the
+    reference's ``PRNGKey(s)``."""
 
-    def __init__(self, cfg: EngineConfig, device=None, seed: int = 0):
+    def __init__(self, cfg: EngineConfig, device=None, seed: int = 0, key: Tensor | None = None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.state = init_state(cfg, self.device)
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
+        self.state = init_state(cfg, self.device, prng.key(seed) if key is None else key)
         self.trajectory: list = []
 
     #: grow the dense map when a scan's endpoints leave it (``handle_scan``
@@ -294,7 +352,7 @@ class Engine:
             self._maybe_grow(scan.to(self.device))
         self.state = slam_step(
             self.cfg, self.state, scan.to(self.device), odom_delta.to(self.device),
-            quality, None if noise is None else noise.to(self.device), self.generator,
+            quality, None if noise is None else noise.to(self.device),
         )
         self.trajectory.append(self.state.pose)
         return self.state.pose
@@ -319,7 +377,7 @@ class Engine:
         """Offline mode: a whole sequence, queued on the device."""
         self.state, traj, probs = run_sequence(
             self.cfg, self.state, scans.to(self.device), odom.to(self.device),
-            None if noise is None else noise.to(self.device), self.generator,
+            None if noise is None else noise.to(self.device),
         )
         self.trajectory.extend(traj.unbind(0))
         return traj, probs

@@ -26,6 +26,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops import grid as gridlib
+from ..ops import prng
 from ..ops.geometry import between, compose, pose_distance
 from ..ops.scan import LaserScan
 from . import posegraph as pg
@@ -49,7 +50,6 @@ def track_segment(
     scans: LaserScan,
     odom: Tensor,
     noise: Tensor | None = None,
-    generator: torch.Generator | None = None,
 ):
     """Track a segment of scans with the keyframe gate on the device; no
     host sync from the first scan to the last.
@@ -69,7 +69,7 @@ def track_segment(
     for i in range(len(scans)):
         state = slam_step(
             cfg, state, scans[i], odom[i],
-            noise=None if noise is None else noise[i], generator=generator,
+            noise=None if noise is None else noise[i],
         )
         is_kf = (
             pose_distance(last_kf_pose, state.pose, gcfg.keyframe_angle_weight)
@@ -124,16 +124,17 @@ class FullConfig:
 
 class FullSlamEngine:
     """Host-side front end of the loop-closing pipeline. Runs on the card unless
-    ``device`` names another."""
+    ``device`` names another. The tracker's state holds the reference's
+    ``key=`` (``seed=s`` without one: ``PRNGKey(s)``), which its steps
+    split as the reference's tracker does."""
 
     def __init__(self, cfg: FullConfig | None = None, n_beams: int = 360, device=None,
-                 seed: int = 0):
+                 seed: int = 0, key: Tensor | None = None):
         self.cfg = cfg or FullConfig()
         self.device = resolve_device(device)
-        self.state: SlamState = init_state(self.cfg.tracking, self.device)
+        self.state: SlamState = init_state(self.cfg.tracking, self.device,
+                                           prng.key(seed) if key is None else key)
         self.graph: pg.PoseGraphState = pg.init_state(self.cfg.graph, n_beams, self.device)
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
         self.pending_loops = 0
         self.total_loops = 0
         #: tracked poses as they were recorded, f32[3] numpy rows
@@ -190,7 +191,6 @@ class FullSlamEngine:
          deltas) = track_segment(
             self.cfg.tracking, self.cfg.graph, self.state, self._last_kf_dev,
             self._anchor_pose_dev, self.graph.n_kf.to(torch.int64), scans, odom, noise,
-            self.generator,
         )
         rows = torch.cat(
             [poses, deltas, flags[:, None].to(torch.float32), a_idx[:, None].to(torch.float32)],
@@ -421,12 +421,12 @@ class FullSlamEngine:
 
     def _device_tree(self) -> dict:
         return {"state": self.state, "graph": self.graph, "last_kf_dev": self._last_kf_dev,
-                "anchor_pose_dev": self._anchor_pose_dev, "generator": self.generator}
+                "anchor_pose_dev": self._anchor_pose_dev}
 
     def save_checkpoint(self, path: str) -> None:
         """Snapshot the whole pipeline between runs: the device half (the
-        tracker's state, the pose graph, the keyframe gate's and the
-        trajectory anchor's poses, the generator) through
+        tracker's state with its key, the pose graph, the keyframe gate's and
+        the trajectory anchor's poses) through
         ``utils.checkpoint.save`` at ``path``, and the host's bookkeeping
         (loop counters, the graph's capacity and its host mirrors, the
         trajectory with its anchors, the diagnostics) at ``path +
@@ -472,7 +472,6 @@ class FullSlamEngine:
             self.cfg.graph, max_keyframes=host["max_keyframes"], max_edges=host["max_edges"]))
         self.state, self.graph = dev["state"], dev["graph"]
         self._last_kf_dev, self._anchor_pose_dev = dev["last_kf_dev"], dev["anchor_pose_dev"]
-        self.generator = dev["generator"]
         self.pending_loops, self.total_loops = host["pending_loops"], host["total_loops"]
         self._n_kf_host, self._edges_upper_host = host["n_kf_host"], host["edges_upper_host"]
         self.n_kf_batches, self.n_bursts = host["n_kf_batches"], host["n_bursts"]

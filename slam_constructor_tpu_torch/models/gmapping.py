@@ -16,10 +16,12 @@ the reference's ``lax.cond`` around the map gather becomes
 while Neff is healthy (same result, ~16 MB of traffic at 30 maps of 256^2).
 ``run_sequence`` is a Python loop over scans that stay on the device.
 
-The reference's PRNG key is replaced by a ``torch.Generator`` owned by the
-engine, or by the draws of :class:`Draws` handed in: the proposal normals,
-the matcher's normals, the improved proposal's probe and sample normals
-and the resampling offset, as the reference draws them from its keys.
+The state holds the reference's threefry key (``GMappingState.key``): a
+step splits it as the reference does and draws every random number of the
+step (:class:`Draws`: the proposal normals, the matcher's normals, the
+improved proposal's probe and sample normals and the resampling offset)
+and the next key in one launch of ``kernels.prng_draws`` (:func:`draw`);
+a caller may hand the draws in instead.
 
 The copy-on-write storage (``map_storage='cow'``, ``ops/cow.py``) keeps
 one block pool for all particles and a block table each: every particle is
@@ -61,7 +63,7 @@ from ..ops import cow
 from ..ops import grid as gridlib
 from ..ops import m3rsm as _m3rsm  # noqa: F401  (registers "m3rsm" in MATCHERS)
 from ..ops import matchers as matcherslib
-from ..ops import raycast, resample, scoring
+from ..ops import kernels, prng, raycast, resample, scoring
 from ..ops.geometry import compose, wrap_angle
 from ..ops.scan import LaserScan
 
@@ -135,6 +137,7 @@ class GMappingState:
     gm: gridlib.GridMap | cow.CowBlockMaps
     poses: Tensor  # f32[P, 3]
     log_weights: Tensor  # f32[P]
+    key: Tensor  # uint32[2], the reference's threefry key
     step: Tensor  # i32[]
 
 
@@ -171,26 +174,62 @@ class Draws:
                         for f in dataclasses.fields(self)})
 
 
-def draw(cfg: GMappingConfig, generator: torch.Generator | None, device) -> Draws:
-    """One step's draws from ``generator``, on ``device``."""
+#: the next key of a step: ``split(key, 4)[0]``
+NEXT_KEY = prng.Draw((0,), "key")
+_NEXT_KEY = (NEXT_KEY,)
+
+
+@functools.lru_cache(maxsize=64)
+def draw_plan(cfg: GMappingConfig) -> tuple:
+    """A step's draws as ``prng.Draw``s, in :class:`Draws`' order after the
+    next key, from the reference's split tree (``gmapping_step``: ``key,
+    k_noise, k_match, k_res = split(key, 4)``; the proposal's
+    ``normal(k_noise, (P, 3))``; ``split(k_match, P)``, a key a particle,
+    which the improved proposal splits into the match's and the proposal's
+    and splits again into the probes' and the sample's; the comb's
+    ``uniform(k_res, (), 0, 1/P)``). Each field's draw or None."""
     p = cfg.n_particles
+    each = prng.Each(p)
+    improved = cfg.proposal == "improved"
+    k_m = (2, each, 0) if improved else (2, each)
 
-    def normals(*shape):
-        return torch.randn((p, *shape), generator=generator, device=device, dtype=torch.float32)
+    def mc(mcfg):
+        if not isinstance(mcfg, matcherslib.MonteCarloConfig):
+            return None
+        return matcherslib.noise_plan(mcfg, k_m)[0]
 
-    def mc_shape(mcfg):
-        return (mcfg.rounds, mcfg.batch, 3) if isinstance(mcfg, matcherslib.MonteCarloConfig) else None
-
-    match_shape = mc_shape(cfg.matcher_cfg)
-    refine_shape = mc_shape(_refine_cfg(cfg)[0]) if cfg.refine_matcher is not None else None
-    return Draws(
-        proposal=normals(3),
-        u0=resample.uniform_offset(p, generator, device),
-        match=normals(*match_shape) if match_shape else None,
-        probe=normals(cfg.proposal_samples, 3) if cfg.proposal == "improved" else None,
-        sample=normals(3) if cfg.proposal == "improved" else None,
-        refine=normals(*refine_shape) if refine_shape and refine_shape != match_shape else None,
+    match = mc(cfg.matcher_cfg)
+    refine = mc(_refine_cfg(cfg)[0]) if cfg.refine_matcher is not None else None
+    return (
+        prng.Draw((1,), "normal", (p, 3)),
+        resample.offset_draw(p, (3,)),
+        match,
+        prng.Draw((2, each, 1, 0), "normal", (cfg.proposal_samples, 3)) if improved else None,
+        prng.Draw((2, each, 1, 1), "normal", (3,)) if improved else None,
+        # None: the refine takes the match's normals (the same key, shape)
+        refine if refine is not None and refine != match else None,
     )
+
+
+@functools.lru_cache(maxsize=64)
+def _step_plan(cfg: GMappingConfig) -> tuple:
+    """The launch's plan (the next key, then every field's draw) and each
+    field's place in it (None where it draws nothing)."""
+    fields, plan = [], [NEXT_KEY]
+    for d in draw_plan(cfg):
+        fields.append(None if d is None else len(plan))
+        if d is not None:
+            plan.append(d)
+    return tuple(plan), tuple(fields)
+
+
+def draw(cfg: GMappingConfig, key: Tensor) -> tuple[Tensor, Draws]:
+    """One step's draws and the next key from ``key``, as the reference
+    draws them (:func:`draw_plan`), in one launch of
+    ``kernels.prng_draws`` on the key's device -> (next key, Draws)."""
+    plan, fields = _step_plan(cfg)
+    out = kernels.prng_draws(key, plan)
+    return out[0], Draws(*(None if i is None else out[i] for i in fields))
 
 
 @functools.lru_cache(maxsize=64)
@@ -200,10 +239,12 @@ def _vec3(a: float, b: float, c: float, device: torch.device) -> Tensor:
     return torch.stack([torch.full((), v, dtype=torch.float32, device=device) for v in (a, b, c)])
 
 
-def init_state(cfg: GMappingConfig, device=None) -> GMappingState:
-    """P empty maps and poses at the origin with equal weights, on
-    ``device`` (the card when none is named)."""
+def init_state(cfg: GMappingConfig, device=None, key: Tensor | None = None) -> GMappingState:
+    """P empty maps and poses at the origin with equal weights and ``key``
+    (the reference's default ``PRNGKey(0)`` when None), on ``device`` (the
+    card when none is named)."""
     dev = resolve_device(device)
+    key = prng.key(0, dev) if key is None else key.to(dev)
     p = cfg.n_particles
     if cfg.map_storage == "cow":
         gm = cow.make_cow_maps(
@@ -222,6 +263,7 @@ def init_state(cfg: GMappingConfig, device=None) -> GMappingState:
         gm=gm,
         poses=torch.zeros((p, 3), dtype=torch.float32, device=dev),
         log_weights=resample.log_uniform_weights(p, dev),
+        key=key,
         step=torch.zeros((), dtype=torch.int32, device=dev),
     )
 
@@ -420,15 +462,17 @@ def local_ops(cfg: GMappingConfig) -> StepOps:
 
 
 def rbpf_step(cfg: GMappingConfig, ops: StepOps, state: GMappingState, scan: LaserScan,
-              odom_delta: Tensor, draws: Draws | None = None,
-              generator: torch.Generator | None = None):
+              odom_delta: Tensor, draws: Draws | None = None):
     """One RBPF step of the particles ``state`` holds, ``ops`` saying where
     they live: propose -> match -> weight -> insert -> resample. ``draws``
-    holds the whole step's random numbers (every process's the same), or
-    ``generator`` draws them; each process uses its particles' slice.
-    Returns (state, ancestor indices i64[P])."""
+    holds the whole step's random numbers, or the state's key draws them
+    (:func:`draw`: every process the same from the same key); each process
+    uses its particles' slice. The key advances either way. Returns
+    (state, ancestor indices i64[P])."""
     if draws is None:
-        draws = draw(cfg, generator, state.poses.device)
+        key, draws = draw(cfg, state.key)
+    else:
+        key = kernels.prng_draws(state.key, _NEXT_KEY)[0]
     lo, hi = ops.span or (0, cfg.n_particles)
     mine = draws.part(lo, hi)
 
@@ -450,7 +494,7 @@ def rbpf_step(cfg: GMappingConfig, ops: StepOps, state: GMappingState, scan: Las
     idx, logw, did = resample.maybe_resample(draws.u0, ops.gather(logw), cfg.resample_threshold)
     state = GMappingState(gm=ops.take(gm, idx, did),
                           poses=ops.gather(poses).index_select(0, idx[lo:hi]),
-                          log_weights=logw[lo:hi], step=state.step + 1)
+                          log_weights=logw[lo:hi], key=key, step=state.step + 1)
     return state, idx
 
 
@@ -460,11 +504,10 @@ def gmapping_step(
     scan: LaserScan,
     odom_delta: Tensor,
     draws: Draws | None = None,
-    generator: torch.Generator | None = None,
 ):
     """One RBPF step of all P particles on one device (:func:`rbpf_step`
     with :func:`local_ops`). Returns (state, ancestor indices i64[P])."""
-    return rbpf_step(cfg, local_ops(cfg), state, scan, odom_delta, draws, generator)
+    return rbpf_step(cfg, local_ops(cfg), state, scan, odom_delta, draws)
 
 
 def best_particle(state: GMappingState) -> Tensor:
@@ -487,7 +530,6 @@ def run_sequence(
     scans: LaserScan,
     odom: Tensor,
     draws: Draws | None = None,
-    generator: torch.Generator | None = None,
 ):
     """Run ``scans`` [T, R], ``odom`` f32[T, 3] on the state's device with
     no host sync. ``draws`` optionally holds every step's draws (a leading
@@ -497,7 +539,7 @@ def run_sequence(
     traj, neffs, all_poses, ancestors = [], [], [], []
     for i in range(len(scans)):
         state, anc = gmapping_step(cfg, state, scans[i], odom[i],
-                                   None if draws is None else draws[i], generator)
+                                   None if draws is None else draws[i])
         traj.append(estimate_pose(state))
         neffs.append(neff(state))
         all_poses.append(state.poses)
@@ -543,17 +585,17 @@ def weighted_mean_trajectory(all_poses: Tensor, ancestors: Tensor, log_weights: 
 
 class GMappingEngine:
     """Host driver mirroring ``engine.Engine`` for the RBPF: owns config,
-    state, device and generator; feeds scans; exposes the best particle's
-    map and the winner's trajectory."""
+    state (with its key) and device; feeds scans; exposes the best
+    particle's map and the winner's trajectory. ``key`` is the reference's
+    ``key=``; ``seed=s`` without one means the reference's ``PRNGKey(s)``."""
 
-    def __init__(self, cfg: GMappingConfig | None = None, device=None, seed: int = 0, **kwargs):
+    def __init__(self, cfg: GMappingConfig | None = None, device=None, seed: int = 0,
+                 key: Tensor | None = None, **kwargs):
         if cfg is None:
             cfg = GMappingConfig(**kwargs)
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.state = init_state(cfg, self.device)
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
+        self.state = init_state(cfg, self.device, prng.key(seed) if key is None else key)
         self.trajectory: list = []
         #: (all_poses f32[T, P, 3], ancestors i64[T, P]) of the last run()
         self.genealogy = None
@@ -567,7 +609,7 @@ class GMappingEngine:
         """Online mode: one scan; returns the best particle's pose."""
         self.state, _ = gmapping_step(
             self.cfg, self.state, scan.to(self.device), odom_delta.to(self.device),
-            None if draws is None else draws.to(self.device), self.generator,
+            None if draws is None else draws.to(self.device),
         )
         pose = estimate_pose(self.state)
         self.trajectory.append(pose)
@@ -587,7 +629,7 @@ class GMappingEngine:
         (best-particle pose f32[T, 3], Neff f32[T])."""
         self.state, traj, neffs, all_poses, ancestors = run_sequence(
             self.cfg, self.state, scans.to(self.device), odom.to(self.device),
-            None if draws is None else draws.to(self.device), self.generator,
+            None if draws is None else draws.to(self.device),
         )
         self.genealogy = (all_poses, ancestors)
         self.trajectory.extend(traj.unbind(0))

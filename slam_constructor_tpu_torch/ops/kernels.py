@@ -77,6 +77,12 @@ map's allocation (``blockmap.py:87``), in place. ``pool_touched`` is its
 marking phase alone. ``pool_insert_ordered`` sums the same samples on the
 host in order, the yardstick the insert equals bit for bit.
 
+``prng_draws`` computes a step's random numbers, bit for bit with the
+reference's ``jax.random`` on its keys (threefry2x32, XLA's uniform and
+normal), and the state's next key, in one launch from a plan of
+``prng.Draw``s (``csrc/threefry.cu``); ``prng.draws_ref`` is its plain
+version. No Pallas kernel stood there: the reference drew with XLA.
+
 ``polar_free_plane`` fills the dense polar free-space weight plane of one
 scan. It replaces ``pallas_kernels.py::polar_free_lookup`` together with
 the plane math that ``raycast._polar_free_plane_pallas`` computes around
@@ -113,7 +119,7 @@ import numpy as np
 import torch
 
 from ..device import constant
-from . import _build, cells
+from . import _build, cells, prng
 from . import grid as gridlib
 from .geometry import linspace, wrap_angle
 
@@ -130,7 +136,7 @@ _LAUNCHES = dict.fromkeys(
      "gradient_refine",
      "hill_climb", "mc_match", "mc_match_batched", "polar_free_plane", "m3rsm_pyramid",
      "m3rsm_level", "m3rsm_search", "scan_insert", "scan_planes", "pool_touched",
-     "pool_prepare", "pool_insert"), 0
+     "pool_prepare", "pool_insert", "prng_draws"), 0
 )
 
 #: how a beam's endpoint reads the plane, by the codes of
@@ -3298,3 +3304,107 @@ def m3rsm_search(s: M3RSMSearch):
     if s.prior.device.type == "cpu":
         return m3rsm_search_ref(s)
     return _m3rsm_search_launch(s)
+
+
+# --- the reference's random streams: threefry2x32 draws ---------------------
+
+#: int32 words of a plan record, the longest path and the most records of a
+#: launch (csrc/threefry.cu kRecordWords, kMaxPath, kMaxRecords)
+_PRNG_RECORD, _PRNG_MAX_PATH, _PRNG_MAX_RECORDS = 16, 8, 16
+_PRNG_KINDS = {kind: code for code, kind in enumerate(prng.KINDS)}
+
+
+def _f32_bits(v: float) -> int:
+    return int(np.array([v], np.float32).view(np.int32)[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class _PrngLayout:
+    table: Tensor  # i32[records, _PRNG_RECORD] on the device
+    max_elements: int
+    #: each output: (shape, dtype)
+    outputs: tuple
+
+
+def _prng_records(plan: tuple, batch: tuple) -> tuple[list, list, int]:
+    """A plan's records for ``csrc/threefry.cu`` (rows of ``_PRNG_RECORD``
+    int32), its outputs' (shape, dtype) and the largest record's elements."""
+    if not 1 <= len(plan) <= _PRNG_MAX_RECORDS:
+        raise ValueError(f"prng_draws: {len(plan)} draws, 1 to {_PRNG_MAX_RECORDS} a launch")
+    n_roots = math.prod(batch)
+    rows, outputs, max_el = [], [], 0
+    for d in plan:
+        if len(d.path) > _PRNG_MAX_PATH:
+            raise ValueError(f"prng_draws: a path of {len(d.path)} steps, at most {_PRNG_MAX_PATH}")
+        each = tuple(s.n for s in d.path if isinstance(s, prng.Each))
+        leaves = 1 if d.kind == "key" else math.prod(d.shape)
+        elements = n_roots * math.prod(each) * leaves
+        if elements >= 1 << 31 or any(not isinstance(s, prng.Each) and s >= 1 << 31
+                                       for s in d.path):
+            raise ValueError("prng_draws: a record of 2^31 elements or an index of 2^31 or more")
+        # a normal's uniform lies on (nextafter(-1, 0), 1)
+        lo_hi = ((prng.NORMAL_LO, 1.0) if d.kind in ("normal", "transform")
+                 else (d.minval, d.maxval))
+        lo = np.float32(lo_hi[0])
+        span = np.float32(np.float32(lo_hi[1]) - lo)
+        path = [-s.n if isinstance(s, prng.Each) else s for s in d.path]
+        row = [_PRNG_KINDS[d.kind], 0, elements, leaves, len(path), _f32_bits(lo),
+               _f32_bits(lo_hi[1]), _f32_bits(span), *path]
+        rows.append(row + [0] * (_PRNG_RECORD - len(row)))
+        outputs.append(((*batch, *each, *((2,) if d.kind == "key" else d.shape)),
+                        torch.uint32 if d.kind in ("key", "bits") else torch.float32))
+        max_el = max(max_el, elements)
+    return rows, outputs, max_el
+
+
+@functools.lru_cache(maxsize=256)
+def _prng_layout(plan: tuple, batch: tuple, device: torch.device) -> _PrngLayout:
+    """A plan's records, made and copied to the device once a (plan, root
+    batch, device)."""
+    rows, outputs, max_el = _prng_records(plan, batch)
+    return _PrngLayout(torch.tensor(rows, dtype=torch.int32).to(device), max_el, tuple(outputs))
+
+
+@functools.cache
+def _prng_draws_fn():
+    fn = _build.load().prng_draws_launch
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,  # plan, records, max elements
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # roots, output pointers, stream
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def prng_draws(key: Tensor, plan: tuple) -> tuple:
+    """Every ``prng.Draw`` of ``plan`` from the root keys ``key`` uint32[...,
+    2]: a tuple of outputs ``[*key batch, *each n, *shape]`` (float32 for
+    uniform and normal, uint32 for bits and keys), bit for bit
+    ``jax.random`` on the same keys.
+
+    CPU tensors take the plain version :func:`prng.draws_ref`; CUDA tensors
+    launch the kernel on the current stream, once for the whole plan (at
+    most 16 draws), and add one to the ``prng_draws`` count of
+    :func:`launch_counts`. The plan's table is copied to the device on its
+    first launch there only, so a step that draws never syncs with the
+    host; the host's work a call is one allocation an output.
+    """
+    plan = tuple(plan)
+    if key.device.type == "cpu":
+        return prng.draws_ref(key, plan)
+    dev = key.device
+    if dev.type != "cuda":
+        raise ValueError(f"prng_draws: unsupported device {dev}")
+    if key.dtype != torch.uint32 or key.dim() < 1 or key.shape[-1] != 2:
+        raise TypeError(f"prng_draws: keys must be uint32[..., 2], got {key.dtype} "
+                        f"{tuple(key.shape)}")
+    if not key.is_contiguous():
+        key = key.contiguous()
+    lay = _prng_layout(plan, tuple(key.shape[:-1]), dev)
+    outs = tuple(torch.empty(shape, dtype=dtype, device=dev) for shape, dtype in lay.outputs)
+    ptrs = (ctypes.c_void_p * len(outs))(*(o.data_ptr() for o in outs))
+    fn = _prng_draws_fn()
+    _launch("prng_draws", dev, lambda stream: fn(
+        lay.table.data_ptr(), len(plan), lay.max_elements, key.data_ptr(), ptrs, stream))
+    _LAUNCHES["prng_draws"] += 1
+    return outs

@@ -167,14 +167,14 @@ def m3rsm_match(
     view: MapView,
     scan: scanlib.LaserScan,
     init_pose: Tensor,
-    generator: torch.Generator | None = None,
+    key: Tensor | None = None,
     cfg: M3RSMConfig = M3RSMConfig(),
     point_weights: Tensor | None = None,
     noise: Tensor | None = None,
     pyramid: tuple | None = None,
 ) -> MatchResult:
     """Global match over the (x, y, theta) window around ``init_pose``
-    f32[3]; deterministic, so ``generator`` and ``noise`` are ignored.
+    f32[3]; deterministic, so ``key`` and ``noise`` are ignored.
 
     ``pyramid``: live planes of the view's map (``build_pyramid`` once, then
     ``update_pyramid`` after every insert) instead of a build in this call.
@@ -185,7 +185,7 @@ def m3rsm_match(
     ``init_pose`` f32[M, 3]), each matched on its own map. All requests run
     together, in one call of ``kernels.m3rsm_search``.
     """
-    del generator, noise
+    del key, noise
     ucfg = cfg.scoring
     occ = view.occ
     n_maps = occ.shape[0] if occ.dim() == 3 else 1

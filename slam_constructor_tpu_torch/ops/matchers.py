@@ -5,7 +5,8 @@ Monte-Carlo: each round scores a batch of candidates drawn around the best
 pose so far, keeps the best if it improves, and halves sigma after repeated
 failures. The whole match is one call of ``kernels.mc_match``: one kernel
 launch on the card, the plain round loop on the CPU; neither syncs with the
-host. The standard normals are drawn here, outside the kernel. With a
+host. The standard normals are drawn here from the reference's key, in
+one launch of ``kernels.prng_draws``, outside the match kernel. With a
 leading particle dimension it matches P (map, scan, prior) triples in one
 launch of ``kernels.mc_match_batched``, or of ``kernels.mc_match_windows``
 on windows of the maps read in place: the RBPF's form.
@@ -32,7 +33,7 @@ import dataclasses
 
 import torch
 
-from . import kernels, scoring
+from . import kernels, prng, scoring
 from .geometry import linspace, wrap_angle
 
 Tensor = torch.Tensor
@@ -59,11 +60,18 @@ class MonteCarloConfig:
     scoring: scoring.ScoringConfig = scoring.ScoringConfig()
 
 
+def noise_plan(cfg: MonteCarloConfig, path: tuple = ()) -> tuple:
+    """The Monte-Carlo match's normals f32[rounds, batch, 3] from the key
+    reached by ``path``: ``split(key, rounds)``, ``normal(key_r, (batch,
+    3))`` a round (the reference's ``matchers.py:75``, ``:92``)."""
+    return (prng.Draw((*path, prng.Each(cfg.rounds)), "normal", (cfg.batch, 3)),)
+
+
 def monte_carlo_match(
     view: scoring.MapView,
     scan,
     init_pose: Tensor,
-    generator: torch.Generator | None = None,
+    key: Tensor | None = None,
     cfg: MonteCarloConfig = MonteCarloConfig(),
     point_weights: Tensor | None = None,
     noise: Tensor | None = None,
@@ -72,23 +80,25 @@ def monte_carlo_match(
 
     ``noise`` f32[rounds, batch, 3] holds the standard normals of every
     round, ``cfg.rounds`` by ``cfg.batch`` of them; when it is None they
-    are drawn on the pose's device from ``generator``. The reference draws
-    ``jax.random.normal(key_r, (batch, 3))`` per round; a test hands those
-    very numbers in here.
+    are drawn from ``key`` as the reference draws them: ``split(key,
+    rounds)``, then ``normal(key_r, (batch, 3))`` a round (one launch of
+    ``kernels.prng_draws``, :func:`noise_plan`).
 
-    With a leading particle dimension on view, scan, prior and noise (view
-    of P maps, scan [P, R], ``init_pose`` f32[P, 3], ``noise`` f32[P,
-    rounds, batch, 3]) every particle is matched against its own map, all
-    in one launch of ``kernels.mc_match_batched``: pose f32[P, 3], prob
-    f32[P], trace f32[P, rounds]. The reference ``vmap``s the single match.
-    A :class:`scoring.WindowView` is matched on its windows in place, in
-    one launch of ``kernels.mc_match_windows``, with the same bits.
+    With a leading particle dimension on view, scan, prior, key and noise
+    (view of P maps, scan [P, R], ``init_pose`` f32[P, 3], ``key`` [P, 2],
+    ``noise`` f32[P, rounds, batch, 3]) every particle is matched against
+    its own map, all in one launch of ``kernels.mc_match_batched``: pose
+    f32[P, 3], prob f32[P], trace f32[P, rounds]. The reference ``vmap``s
+    the single match. A :class:`scoring.WindowView` is matched on its
+    windows in place, in one launch of ``kernels.mc_match_windows``, with
+    the same bits.
     """
-    dev = init_pose.device
     shape = (*init_pose.shape[:-1], cfg.rounds, cfg.batch, 3)
     if noise is None:
-        noise = torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
-    elif tuple(noise.shape) != shape:
+        if key is None:
+            raise ValueError("monte_carlo_match needs a key or the noise")
+        (noise,) = kernels.prng_draws(key, noise_plan(cfg))
+    if tuple(noise.shape) != shape:
         raise ValueError(f"noise {tuple(noise.shape)} is not (..., rounds, batch, 3) = {shape}")
     anneal = (cfg.sigma_xy, cfg.sigma_theta, cfg.bad_rounds_before_anneal)
     if isinstance(view, scoring.WindowView):
@@ -123,7 +133,7 @@ def hill_climbing_match(
     view: scoring.MapView,
     scan,
     init_pose: Tensor,
-    generator: torch.Generator | None = None,
+    key: Tensor | None = None,
     cfg: HillClimbingConfig = HillClimbingConfig(),
     point_weights: Tensor | None = None,
     noise: Tensor | None = None,
@@ -131,13 +141,13 @@ def hill_climbing_match(
     """Refine ``init_pose`` f32[3]: each round scores the six poses one
     step along each axis (theta wrapped), moves to the best (ties to the
     first) if it is strictly better, else halves (``shrink``) every step.
-    Deterministic, so ``generator`` and ``noise`` are ignored. The view is
+    Deterministic, so ``key`` and ``noise`` are ignored. The view is
     prepared once and the whole climb is one call of ``kernels.hill_climb``.
     With a leading map dimension (view of M maps, scan [M, R], ``init_pose``
     f32[M, 3]) every triple climbs on its own map, all in that one call:
     pose f32[M, 3], prob f32[M], trace f32[M, iterations].
     """
-    del generator, noise
+    del key, noise
     prep = scoring.prepare(view, scan, cfg.scoring, point_weights)
     pose, prob, trace = kernels.hill_climb(
         prep.plane, prep.pts, prep.beam_w, prep.origin, init_pose.contiguous(), prep.scale,
@@ -170,17 +180,17 @@ def brute_force_match(
     view: scoring.MapView,
     scan,
     init_pose: Tensor,
-    generator: torch.Generator | None = None,
+    key: Tensor | None = None,
     cfg: BruteForceConfig = BruteForceConfig(),
     point_weights: Tensor | None = None,
     noise: Tensor | None = None,
 ) -> MatchResult:
     """The best pose of the grid around ``init_pose`` f32[3] (ties go to
-    the first in grid order); deterministic, so ``generator`` and ``noise``
+    the first in grid order); deterministic, so ``key`` and ``noise``
     are ignored. With a leading map dimension (view of M maps, scan [M, R],
     ``init_pose`` f32[M, 3]) every triple is matched against its own map,
     all in one score call: ``pose`` f32[M, 3], ``prob`` f32[M]."""
-    del generator, noise
+    del key, noise
     cand = init_pose[..., None, :] + brute_force_offsets(cfg, init_pose.device)
     # theta is wrapped after the offset is added
     cand = torch.cat([cand[..., :2], wrap_angle(cand[..., 2:])], dim=-1)
@@ -210,7 +220,7 @@ def gradient_match(
     view: scoring.MapView,
     scan,
     init_pose: Tensor,
-    generator: torch.Generator | None = None,
+    key: Tensor | None = None,
     cfg: GradientConfig = GradientConfig(),
     point_weights: Tensor | None = None,
     noise: Tensor | None = None,
@@ -218,7 +228,7 @@ def gradient_match(
     """Refine ``init_pose`` f32[3]: each iteration takes the score's
     gradient ``g`` at the kept pose, steps ``steps * g / (|g| + 1e-12)``
     (theta wrapped) and keeps the step if it scores strictly better, else
-    multiplies every step by ``shrink``. Deterministic, so ``generator`` and
+    multiplies every step by ``shrink``. Deterministic, so ``key`` and
     ``noise`` are ignored. With a leading map dimension (view of M maps,
     scan [M, R], ``init_pose`` f32[M, 3]) every pose is refined on its own
     map: pose f32[M, 3], prob f32[M], trace f32[M, iterations].
@@ -232,7 +242,7 @@ def gradient_match(
     trace of it, as the reference's does (at window 0 the reference's
     autodiff leaves rounding noise that its normalisation can turn into a
     unit step; the port takes the exact 0: ROADMAP trap r)."""
-    del generator, noise
+    del key, noise
     prep = scoring.prepare(view, scan, cfg.scoring, point_weights)
     pose, prob, trace = kernels.gradient_refine(
         prep.plane, prep.pts, prep.beam_w, prep.origin, init_pose.contiguous(), prep.scale,

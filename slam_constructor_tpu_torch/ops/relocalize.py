@@ -88,13 +88,13 @@ def relocalize(
     view: MapView,
     scan: scanlib.LaserScan,
     cfg: RelocalizeConfig = RelocalizeConfig(),
-    generator: torch.Generator | None = None,
+    key: Tensor | None = None,
 ) -> MatchResult:
     """The best pose f32[3] for ``scan`` anywhere in the map (one map):
     the FFT's best translation and heading (ties to the first, in cell
     order, then heading order), then ``cfg.refine_iterations`` rounds of
-    hill climbing from it. Deterministic, so ``generator`` is ignored."""
-    del generator
+    hill climbing from it. Deterministic, so ``key`` is ignored."""
+    del key
     h, w = view.occ.shape
     dev = view.occ.device
     v = torch.where(view.known, view.occ, 0.0)  # unknown contributes 0 evidence

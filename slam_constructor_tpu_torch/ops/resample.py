@@ -5,13 +5,15 @@ Weights live in log space and are normalised with ``logsumexp``;
 systematic resampling is one uniform offset, a stratified comb and
 ``searchsorted`` on the cumulative weights. Nothing here reads a value on
 the host: the resampling decision is a ``torch.where`` between the drawn
-indices and the identity. The reference's PRNG key is replaced by a
-``torch.Generator`` or by an injected uniform ``u0``.
+indices and the identity. The comb's offset ``u0`` is drawn from the
+reference's key (:func:`uniform_offset`) or handed in.
 """
 
 from __future__ import annotations
 
 import torch
+
+from . import kernels, prng
 
 Tensor = torch.Tensor
 
@@ -27,10 +29,17 @@ def effective_sample_size(logw: Tensor) -> Tensor:
     return torch.exp(-torch.logsumexp(2.0 * logw, dim=-1))
 
 
-def uniform_offset(n: int, generator: torch.Generator | None = None, device=None) -> Tensor:
-    """The comb's offset f32[], uniform in [0, 1/n), drawn on ``device``."""
-    u = torch.rand((), generator=generator, device=device, dtype=torch.float32)
-    return u / torch.full_like(u, float(n))
+def offset_draw(n: int, path: tuple = ()) -> prng.Draw:
+    """The comb's offset of ``n`` particles from the key reached by
+    ``path``: ``uniform(key, (), 0, 1/n)`` (the reference's
+    ``resample.py:43``)."""
+    return prng.Draw(path, "uniform", (), 0.0, 1.0 / n)
+
+
+def uniform_offset(n: int, key: Tensor) -> Tensor:
+    """The comb's offset f32[], uniform in [0, 1/n), drawn from ``key`` on
+    its device as the reference draws it."""
+    return kernels.prng_draws(key, (offset_draw(n),))[0]
 
 
 def log_uniform_weights(p: int, device=None) -> Tensor:

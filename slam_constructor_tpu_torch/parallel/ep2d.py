@@ -31,7 +31,7 @@ import torch
 from ..models import gmapping as gm_lib
 from ..ops import cow as cowlib
 from ..ops import grid as gridlib
-from ..ops import resample, scoring
+from ..ops import prng, resample, scoring
 from ..ops.cells import init_cell
 from . import ep_cow
 from . import mesh as meshlib
@@ -131,9 +131,10 @@ def ep2d_resample(st: Ep2dMaps, model, idx: Tensor, mesh) -> Ep2dMaps:
 
 
 def init_ep2d_state(cfg: gm_lib.GMappingConfig, mesh, capacity_per_device: int | None = None,
-                    device=None) -> gm_lib.GMappingState:
+                    device=None, key: Tensor | None = None) -> gm_lib.GMappingState:
     """This rank's part of the copy-on-write state on the 2-D mesh (pools
-    of ``tile_capacity / (Dp Db)`` blocks by default)."""
+    of ``tile_capacity / (Dp Db)`` blocks by default) and ``key``
+    (``PRNGKey(0)`` when None), the same on every rank."""
     p = cfg.n_particles
     n_dev = meshlib.axis_size(mesh, "pgroups") * meshlib.axis_size(mesh, "bands")
     lo, hi = meshlib.shard_bounds(p, mesh, "pgroups")
@@ -144,12 +145,13 @@ def init_ep2d_state(cfg: gm_lib.GMappingConfig, mesh, capacity_per_device: int |
     return gm_lib.GMappingState(
         gm=st, poses=torch.zeros((hi - lo, 3), dtype=torch.float32, device=device),
         log_weights=resample.log_uniform_weights(p, device)[lo:hi],
+        key=prng.key(0, device) if key is None else key.to(device),
         step=torch.zeros((), dtype=torch.int32, device=device))
 
 
 def make_ep2d_step(cfg: gm_lib.GMappingConfig, mesh):
     """The RBPF step on the 2-D mesh: ``step(state, scan, odom_delta,
-    draws=None, generator=None) -> (state, ancestors i64[P])``;
+    draws=None) -> (state, ancestors i64[P])``;
     ``gmapping.rbpf_step`` with the weights normalised over ``"pgroups"``
     (every band of a group holds the same) and :func:`ep2d_resample` when
     resampling fires."""

@@ -31,7 +31,7 @@ import torch
 from ..models import gmapping as gm_lib
 from ..ops import cow as cowlib
 from ..ops import grid as gridlib
-from ..ops import resample
+from ..ops import prng, resample
 from ..ops.cells import init_cell
 from . import mesh as meshlib
 from . import particles as plib
@@ -105,10 +105,12 @@ def ep_resample(st: EpCowMaps, model, idx: Tensor, mesh, axis: str = "chips") ->
 
 
 def init_ep_state(cfg: gm_lib.GMappingConfig, mesh, axis: str = "chips",
-                  capacity_per_shard: int | None = None, device=None) -> gm_lib.GMappingState:
+                  capacity_per_shard: int | None = None, device=None,
+                  key: Tensor | None = None) -> gm_lib.GMappingState:
     """This rank's part of ``gmapping.init_state``'s copy-on-write state: its
     P/D particles at the origin with weights 1/P, over a pool of
-    ``capacity_per_shard`` blocks (``tile_capacity / D`` by default)."""
+    ``capacity_per_shard`` blocks (``tile_capacity / D`` by default), and
+    ``key`` (``PRNGKey(0)`` when None), the same on every rank."""
     d = meshlib.axis_size(mesh, axis)
     p = cfg.n_particles
     lo, hi = meshlib.shard_bounds(p, mesh, axis)
@@ -119,6 +121,7 @@ def init_ep_state(cfg: gm_lib.GMappingConfig, mesh, axis: str = "chips",
     return gm_lib.GMappingState(
         gm=st, poses=torch.zeros((hi - lo, 3), dtype=torch.float32, device=device),
         log_weights=resample.log_uniform_weights(p, device)[lo:hi],
+        key=prng.key(0, device) if key is None else key.to(device),
         step=torch.zeros((), dtype=torch.int32, device=device))
 
 
@@ -132,7 +135,7 @@ def make_ep_match(cfg: gm_lib.GMappingConfig):
 
 def make_ep_step(cfg: gm_lib.GMappingConfig, mesh, axis: str = "chips"):
     """The RBPF step over copy-on-write pools a rank: ``step(state, scan,
-    odom_delta, draws=None, generator=None) -> (state, ancestors i64[P])``
+    odom_delta, draws=None) -> (state, ancestors i64[P])``
     with ``state`` from :func:`init_ep_state`; ``gmapping.rbpf_step`` with
     the match and insert local, the weights normalised over ranks and
     :func:`ep_resample` when resampling fires."""

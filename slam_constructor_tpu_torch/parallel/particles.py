@@ -7,9 +7,10 @@ GSPMD, so :func:`make_sharded_step` writes them out. Rank i of D owns
 particles [i P/D, (i + 1) P/D): their poses, log-weights and dense maps.
 A step:
 
-1. draws the whole step's ``Draws`` on every rank from the same generator
-   (or takes them handed in) and keeps its particles' slice, so the
-   sharded step proposes and matches what the unsharded one does;
+1. draws the whole step's ``Draws`` on every rank from the same key, the
+   state's, which every rank holds alike (or takes them handed in), and
+   keeps its particles' slice, so the sharded step proposes and matches
+   what the unsharded one does;
 2. matches its particles on their windows in one launch of
    ``kernels.mc_match_windows`` (K5) and inserts their scans with
    ``kernels.scan_insert`` (K3), as ``models.gmapping`` does for P;
@@ -66,13 +67,14 @@ def sharded_neff(logw: Tensor, mesh, axis: str = "particles") -> Tensor:
 
 
 def shard_state(state: gm_lib.GMappingState, mesh, axis: str = "particles"):
-    """This rank's particles of a whole dense state; the step counter is
-    shared."""
+    """This rank's particles of a whole dense state; the key and the step
+    counter are shared."""
     take = lambda t: meshlib.shard(t, mesh, axis).clone()  # noqa: E731
     gm = gridlib.GridMap(cells=take(state.gm.cells), origin=take(state.gm.origin),
                          scale=state.gm.scale)
     return gm_lib.GMappingState(gm=gm, poses=take(state.poses),
-                                log_weights=take(state.log_weights), step=state.step.clone())
+                                log_weights=take(state.log_weights), key=state.key.clone(),
+                                step=state.step.clone())
 
 
 def gather_state(state: gm_lib.GMappingState, mesh, axis: str = "particles"):
@@ -81,7 +83,8 @@ def gather_state(state: gm_lib.GMappingState, mesh, axis: str = "particles"):
     gm = gridlib.GridMap(cells=cat(state.gm.cells), origin=cat(state.gm.origin),
                          scale=state.gm.scale)
     return gm_lib.GMappingState(gm=gm, poses=cat(state.poses),
-                                log_weights=cat(state.log_weights), step=state.step)
+                                log_weights=cat(state.log_weights), key=state.key,
+                                step=state.step)
 
 
 def sharded_ops(cfg: gm_lib.GMappingConfig, match, insert, take, mesh,
@@ -98,10 +101,10 @@ def sharded_ops(cfg: gm_lib.GMappingConfig, match, insert, take, mesh,
 
 def make_sharded_step(cfg: gm_lib.GMappingConfig, mesh, axis: str = "particles"):
     """The RBPF step over this rank's particles: ``step(state, scan,
-    odom_delta, draws=None, generator=None) -> (state, ancestors i64[P])``.
-    ``state`` holds the rank's P/D particles (:func:`shard_state`);
-    ``draws`` the whole step's (every rank's the same), or ``generator``
-    draws them, seeded alike on every rank. Dense maps only: the
+    odom_delta, draws=None) -> (state, ancestors i64[P])``. ``state``
+    holds the rank's P/D particles (:func:`shard_state`) and the key every
+    rank holds alike; ``draws`` the whole step's (every rank's the same),
+    or the key draws them, the same split on every rank. Dense maps only: the
     copy-on-write pools over ranks are ``parallel.ep_cow``."""
     if cfg.map_storage != "dense":
         raise ValueError("make_sharded_step shards dense maps; copy-on-write pools over ranks "
@@ -121,18 +124,16 @@ def make_sharded_step(cfg: gm_lib.GMappingConfig, mesh, axis: str = "particles")
 
 def make_sharded_run(cfg: gm_lib.GMappingConfig, mesh, axis: str = "particles"):
     """A whole sequence over the sharded step: ``run(state, scans [T, R],
-    odom f32[T, 3], draws=None, generator=None)`` -> (state, best-particle
+    odom f32[T, 3], draws=None)`` -> (state, best-particle
     pose f32[T, 3], Neff f32[T], every particle's pose f32[T, P, 3],
     ancestors i64[T, P]), the outputs of ``gmapping.run_sequence`` (the
     last four the same on every rank)."""
     step = make_sharded_step(cfg, mesh, axis)
 
-    def run(state, scans: LaserScan, odom: Tensor, draws: gm_lib.Draws | None = None,
-            generator: torch.Generator | None = None):
+    def run(state, scans: LaserScan, odom: Tensor, draws: gm_lib.Draws | None = None):
         traj, neffs, all_poses, ancestors = [], [], [], []
         for i in range(len(scans)):
-            state, anc = step(state, scans[i], odom[i], None if draws is None else draws[i],
-                              generator)
+            state, anc = step(state, scans[i], odom[i], None if draws is None else draws[i])
             poses = meshlib.all_gather(state.poses, mesh, axis).flatten(0, 1)
             logw = meshlib.all_gather(state.log_weights, mesh, axis).flatten()
             traj.append(poses[torch.argmax(logw)])

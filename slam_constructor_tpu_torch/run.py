@@ -11,9 +11,9 @@ without ``--cpu`` it raises). Writes a TUM trajectory, a PGM + YAML map, an
 RGB render (PNG, or PPM without matplotlib), per-run metrics as JSONL, and
 prints a JSON summary (ATE and RPE where ground truth is known).
 
-The synthetic sequence comes from the port's ``datagen`` (numpy-seeded
-odometry noise), not from the reference's PRNG key, so the two packages'
-CLIs see the same input only on a dataset file.
+The synthetic sequence draws its noise from the reference's key,
+``PRNGKey(0)`` (``datagen.synth_sequence`` with a key), so the two
+packages' CLIs see the same input on it as on a dataset file.
 """
 
 from __future__ import annotations
@@ -60,6 +60,7 @@ def build_engine(args, n_beams: int, device):
 def load_data(args, device):
     """(scans [T, R], odometry deltas f32[T, 3], ground truth f32[T, 3] or
     None) on ``device``: a CARMEN log, or a synthetic sequence."""
+    from .ops import prng
     from .utils import datagen, dataset
 
     if args.dataset:
@@ -82,7 +83,7 @@ def load_data(args, device):
     poses = poses.repeat(reps, 1)[: args.steps]
     bearings = datagen.default_bearings(args.beams, device=device)
     return datagen.synth_sequence(
-        occ, origin, scale, poses, bearings, rng=0,
+        occ, origin, scale, poses, bearings, rng=prng.key(0, device),
         odom_noise_xy=args.odom_noise, odom_noise_theta=args.odom_noise / 2,
     )
 

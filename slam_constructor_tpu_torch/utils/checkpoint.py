@@ -4,16 +4,14 @@
 A state is a tree of dataclasses, tuples, lists and dicts (``SlamState``
 with its map and M3RSM pyramid, ``GMappingState`` with dense maps or the
 copy-on-write pool, ``PoseGraphState``, or a dict of them) whose leaves are
-tensors, ``torch.Generator``s, numpy arrays and plain values. :func:`save`
-flattens it into one ``.npz``: every tensor as a numpy array of its dtype,
-every generator's state as bytes (the reference keeps its PRNG key in the
-state; the port's random numbers come from the engines' generators, so a
-resume is bit for bit only with them), and the tree's structure as a
-string: the classes, the field names, the plain values (a map's scale, a
+tensors, numpy arrays and plain values. The states hold their threefry
+key, as the reference's do, so a resumed run draws what the unbroken run
+draws. :func:`save` flattens a tree into one ``.npz``: every tensor as a
+numpy array of its dtype, and the tree's structure as a string: the classes, the field names, the plain values (a map's scale, a
 pool's block side) and the tensors' dtypes, not their shapes (a grown map
 or pool restores at its saved size). :func:`restore` checks that string
 against the template's, as the reference checks its treedef, and rebuilds
-the tree on the devices of the template's tensors and generators.
+the tree on the devices of the template's tensors.
 
 The reference's orbax variants (``save_orbax``, ``restore_orbax``: async,
 multi-host) are not ported: the port has no multi-host runtime yet, and
@@ -38,10 +36,6 @@ def _flatten(x, leaves: list | None) -> str:
         if leaves is not None:
             leaves.append(x.detach().cpu().numpy())
         return f"T[{x.dtype}]"
-    if isinstance(x, torch.Generator):
-        if leaves is not None:
-            leaves.append(x.get_state().numpy())
-        return "G"
     if isinstance(x, np.ndarray):
         if leaves is not None:
             leaves.append(x)
@@ -84,10 +78,6 @@ def _rebuild(like, data, counter: list):
     if isinstance(like, torch.Tensor):
         # a copy: C-contiguous, and 0-d stays 0-d (np.ascontiguousarray does not)
         return torch.from_numpy(take().copy()).to(device=like.device, dtype=like.dtype)
-    if isinstance(like, torch.Generator):
-        g = torch.Generator(device=like.device)
-        g.set_state(torch.from_numpy(take().copy()))
-        return g
     if isinstance(like, np.ndarray):
         return take().astype(like.dtype)
     if dataclasses.is_dataclass(like) and not isinstance(like, type):
@@ -104,7 +94,7 @@ def _rebuild(like, data, counter: list):
 def restore(path: str, template):
     """Restore into the structure of ``template`` (the same engine config):
     the stored structure must equal the template's, else ``ValueError``.
-    Tensors and generators land on the devices of the template's; a
+    Tensors land on the devices of the template's; a
     template's plain values are its own (they are part of the structure)."""
     if not os.path.exists(path) and os.path.exists(path + ".npz"):
         path = path + ".npz"

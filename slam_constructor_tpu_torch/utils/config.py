@@ -160,14 +160,16 @@ def gmapping_config_from(p: Mapping[str, Any]):
 def preset(name: str):
     """An engine factory by preset name (the reference's BASELINE
     configs[0..4]); its keyword arguments go to the engine.
-    ``distributed`` (config[4]) is ``make(mesh=None, device=None, **kw) ->
-    (cfg, state, step)``: a ``GMappingConfig(**kw)`` (its full width the
+    ``distributed`` (config[4]) is ``make(mesh=None, device=None, key=None,
+    **kw) -> (cfg, state, step)``: a ``GMappingConfig(**kw)`` (its full width the
     defaults: 30 particles with whole 256^2 maps, 16 x 6 Monte-Carlo
     rounds) sharded over the particles of ``mesh``, by default the flat
     ``particles`` mesh of the running process group
-    (``parallel.mesh.init`` first); ``state`` is this rank's particles and
-    ``step(state, scan, odom_delta, draws=None, generator=None)``
-    ``parallel.particles.make_sharded_step``'s."""
+    (``parallel.mesh.init`` first); ``state`` is this rank's particles
+    with ``key`` (``PRNGKey(0)`` when None; every rank the same) and
+    ``step(state, scan, odom_delta, draws=None)``
+    ``parallel.particles.make_sharded_step``'s, drawing from the state's
+    key."""
     from ..models import full, gmapping, tiny, viny
 
     if name == "tiny":
@@ -182,11 +184,11 @@ def preset(name: str):
         from ..parallel import mesh as meshlib
         from ..parallel import particles
 
-        def make(mesh=None, device=None, **kw):
+        def make(mesh=None, device=None, key=None, **kw):
             cfg = gmapping.GMappingConfig(**kw)
             if mesh is None:
                 mesh = meshlib.flat_mesh("particles")
-            state = particles.shard_state(gmapping.init_state(cfg, device), mesh)
+            state = particles.shard_state(gmapping.init_state(cfg, device, key), mesh)
             return cfg, state, particles.make_sharded_step(cfg, mesh)
 
         return make

@@ -8,9 +8,10 @@ matcher ``pyramid``, the tuple of its f32 planes (absent or empty
 otherwise). A state on the tiled map (``map_storage='tiled'``) crosses with
 the block map's fields in place of ``cells``: ``pool`` f32[N, B, B, C],
 ``table`` i32[TH, TW], ``n_alloc`` int, ``origin``, ``scale`` and
-``block``. The reference's PRNG key is not
-carried over: its role moves to the ``Engine``'s ``torch.Generator``, or to
-noise injected into ``slam_step``.
+``block``. The reference's PRNG key crosses as ``key``, its uint32[2]
+words (:func:`key_from_numpy` / :func:`key_to_numpy`; a tree without one
+gets the reference's default, ``PRNGKey(0)``): the port's state holds the
+same threefry key, and its draws equal the reference's bit for bit.
 
 A reference ``PoseGraphState`` crosses the same way, with the reference's
 field names and its fixed-capacity layout: ``kf_poses`` f32[K, 3],
@@ -21,8 +22,7 @@ field names and its fixed-capacity layout: ``kf_poses`` f32[K, 3],
 
 A reference ``GMappingState`` (dense storage) crosses as ``cells`` f32[P,
 H, W, C], ``origin`` f32[P, 2], ``scale`` float, ``poses`` f32[P, 3],
-``log_weights`` f32[P], ``step`` int; its key stays on the JAX side (the
-port draws from the engine's generator, or takes injected draws). On the
+``log_weights`` f32[P], ``key`` uint32[2], ``step`` int. On the
 copy-on-write storage the maps cross as the ``CowBlockMaps`` fields in
 place of ``cells``: ``pool`` f32[N, B, B, C], ``tables`` i32[P, TH, TW],
 ``refcnt`` i32[N], ``origin`` f32[2], ``scale``, ``block`` and
@@ -41,8 +41,24 @@ from ..models.gmapping import GMappingState
 from ..models.posegraph import PoseGraphState
 from ..ops.blockmap import BlockMap
 from ..ops.cow import CowBlockMaps
+from ..ops import prng
 from ..ops.grid import GridMap
 from ..ops.scan import LaserScan
+
+
+def key_from_numpy(words, device=None) -> torch.Tensor:
+    """A reference key (``uint32[..., 2]``, e.g. ``np.asarray(PRNGKey(s))``)
+    as the port's key on ``device`` (the card when none is named)."""
+    return torch.from_numpy(np.array(words, np.uint32)).to(resolve_device(device))
+
+
+def key_to_numpy(key: torch.Tensor) -> np.ndarray:
+    """The port's key as the reference's words, uint32[..., 2]."""
+    return key.cpu().numpy()
+
+
+def _key_of(tree: dict, device) -> torch.Tensor:
+    return key_from_numpy(tree["key"], device) if "key" in tree else prng.key(0, device)
 
 
 def state_from_numpy(tree: dict, device=None) -> SlamState:
@@ -61,6 +77,7 @@ def state_from_numpy(tree: dict, device=None) -> SlamState:
     return SlamState(
         gm=gm,
         pose=f32(tree["pose"]),
+        key=_key_of(tree, device),
         step=torch.tensor(np.asarray(tree["step"], np.int32), device=device),
         last_prob=f32(tree["last_prob"]),
         pyramid=tuple(f32(p) for p in tree.get("pyramid", ())),
@@ -78,6 +95,7 @@ def state_to_numpy(state: SlamState) -> dict:
     return {
         **maps,
         "pose": state.pose.cpu().numpy(),
+        "key": key_to_numpy(state.key),
         "step": int(state.step),
         "last_prob": float(state.last_prob),
         "pyramid": tuple(p.cpu().numpy() for p in state.pyramid),
@@ -173,6 +191,7 @@ def gmapping_state_from_numpy(tree: dict, device=None) -> GMappingState:
         gm=gm,
         poses=f32(tree["poses"]),
         log_weights=f32(tree["log_weights"]),
+        key=_key_of(tree, device),
         step=torch.tensor(np.asarray(tree["step"], np.int32), device=device),
     )
 
@@ -187,5 +206,6 @@ def gmapping_state_to_numpy(state: GMappingState) -> dict:
         **maps,
         "poses": state.poses.cpu().numpy(),
         "log_weights": state.log_weights.cpu().numpy(),
+        "key": key_to_numpy(state.key),
         "step": int(state.step),
     }

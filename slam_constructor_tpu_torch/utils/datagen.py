@@ -3,7 +3,9 @@
 
 Worlds, bearings and trajectories are built in numpy float64 and cast to
 f32 as the reference does, so they equal the reference's bit for bit.
-Randomness (odometry and range noise) comes from a numpy ``Generator``.
+Randomness (odometry and range noise) comes from a numpy ``Generator`` or
+a seed, or from the reference's threefry key, which gives the reference's
+sequence bit for bit (:func:`synth_sequence`).
 """
 
 from __future__ import annotations
@@ -11,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import raycast
+from ..ops import kernels, prng, raycast
 from ..ops import scan as scanlib
 from ..ops.geometry import between, wrap_angle
 
@@ -134,7 +136,7 @@ def synth_sequence(
     scale: float,
     poses: Tensor,
     bearings: Tensor,
-    rng: np.random.Generator | int = 0,
+    rng: np.random.Generator | int | Tensor = 0,
     max_range: float = 15.0,
     odom_noise_xy: float = 0.01,
     odom_noise_theta: float = 0.005,
@@ -144,30 +146,43 @@ def synth_sequence(
     device of ``occ``.
 
     Odometry deltas are the true between-pose deltas plus Gaussian noise
-    drawn from ``rng`` (a numpy Generator or a seed); the first delta is 0.
-    Returns ``(LaserScan batched [T, R], odom f32[T, 3], poses f32[T, 3])``.
+    drawn from ``rng``; the first delta is 0. ``rng`` is a numpy Generator
+    or a seed, or a threefry key uint32[2], from which the noise is drawn as
+    the reference draws it from its ``key``: ``keys = split(key, T + 1)``,
+    scan i's range noise ``normal(keys[i], (R,))``, the odometry noise
+    ``normal(keys[T], (T, 3))`` (one launch of ``kernels.prng_draws`` on the
+    key's device). Returns ``(LaserScan batched [T, R], odom f32[T, 3],
+    poses f32[T, 3])``.
     """
-    rng = np.random.default_rng(rng)
     dev = occ.device
     poses = poses.to(dev)
     bearings = bearings.to(dev)
     n = poses.shape[0]
+    sd = np.array([odom_noise_xy, odom_noise_xy, odom_noise_theta], np.float32)
+    if torch.is_tensor(rng):
+        plan = (prng.Draw((n,), "normal", (n, 3)),
+                *((prng.Draw((prng.Each(n),), "normal", (bearings.shape[0],)),)
+                  if range_noise > 0 else ()))
+        drawn = kernels.prng_draws(rng.to(dev), plan)
+        noise = drawn[0] * torch.from_numpy(sd).to(dev)
+        rn = (drawn[1] * torch.full((), float(np.float32(range_noise)), device=dev)
+              if range_noise > 0 else None)
+    else:  # numpy: the range noise first, then the odometry's
+        rng = np.random.default_rng(rng)
+        rn = (torch.as_tensor(rng.standard_normal((n, bearings.shape[0])).astype(np.float32)
+                              * np.float32(range_noise), device=dev)
+              if range_noise > 0 else None)
+        noise = torch.as_tensor((rng.standard_normal((n, 3)).astype(np.float32) * sd)
+                                .astype(np.float32), device=dev)
     scans = [raycast.cast_rays(occ, origin, scale, p, bearings, max_range) for p in poses]
     ranges = torch.stack([s.ranges for s in scans])
     valid = torch.stack([s.valid for s in scans])
-    if range_noise > 0:
-        rn = torch.as_tensor(
-            rng.standard_normal(ranges.shape).astype(np.float32) * np.float32(range_noise),
-            device=dev,
-        )
+    if rn is not None:
         ranges = torch.where(valid, ranges + rn, ranges)
     batch = scanlib.LaserScan(
         ranges=ranges, bearings=bearings[None, :].expand(n, -1).contiguous(), valid=valid
     )
     deltas = between(poses[:-1], poses[1:])
     deltas = torch.cat([torch.zeros((1, 3), device=dev), deltas], dim=0)
-    sd = np.array([odom_noise_xy, odom_noise_xy, odom_noise_theta], np.float32)
-    noise = (rng.standard_normal((n, 3)).astype(np.float32) * sd).astype(np.float32)
-    noise[0] = 0.0
-    odom = deltas + torch.as_tensor(noise, device=dev)
-    return batch, odom.to(torch.float32), poses
+    noise = torch.cat([torch.zeros((1, 3), device=dev), noise[1:]], dim=0)  # the first delta is 0
+    return batch, (deltas + noise).to(torch.float32), poses

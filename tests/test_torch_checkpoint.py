@@ -3,9 +3,9 @@ save_checkpoint`` / ``restore_checkpoint``): a run stopped, saved, restored
 into a fresh engine and finished equals, bit for bit, the run that was
 never stopped, on the CPU: tiny, viny_m3rsm (its pyramid in the state),
 the RBPF on dense maps and on the copy-on-write pool, and the loop-closing
-pipeline. The engines' generators are saved with their states (the
-reference keeps its PRNG key in the state), so the draws after a restore
-are the unbroken run's.
+pipeline. The states hold their threefry key, as the reference's do, so
+the key is saved with the state and the draws after a restore are the
+unbroken run's.
 
 The structure guard is the reference's (``tests/test_utils.py:141``): a
 checkpoint restored into another engine's state raises. The reference's
@@ -112,11 +112,13 @@ def test_resume_equals_the_unbroken_run(seq, tmp_path, name):
     got_a = a.run(scans[:half], odom[:half])[0]
     assert torch.equal(got_a, want_a)
     path = str(tmp_path / "ck")
-    checkpoint.save(path, {"state": a.state, "generator": a.generator})
+    checkpoint.save(path, {"state": a.state})
     b = fresh()
-    b.run(scans[:2], odom[:2])  # a state and a generator that have moved on
-    back = checkpoint.restore(path, {"state": b.state, "generator": b.generator})
-    b.state, b.generator = back["state"], back["generator"]
+    b.run(scans[:2], odom[:2])  # a state and a key that have moved on
+    assert not torch.equal(b.state.key, a.state.key)
+    back = checkpoint.restore(path, {"state": b.state})
+    b.state = back["state"]
+    assert b.state.key.dtype == torch.uint32 and torch.equal(b.state.key, a.state.key)
     assert_bits(b.state, a.state)
     got_b = b.run(scans[half:], odom[half:])[0]
     assert torch.equal(got_b, want_b)

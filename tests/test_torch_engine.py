@@ -104,7 +104,7 @@ def test_handle_scan_equals_run(run):
 
 
 def test_run_stream_equals_run(run):
-    """Streaming mode draws the same generator noise in the same order."""
+    """Streaming mode draws the same noise from the state's key in the same order."""
     a = teng.Engine(run["tcfg"], device="cpu", seed=3)
     a.state.pose = run["gt"][0].clone()
     traj, _ = a.run(run["scans"][:3], run["odom"][:3])

@@ -115,7 +115,8 @@ def reference_draws(key, cfg):
 def state_tree(st):
     return {"cells": np.asarray(st.gm.cells), "origin": np.asarray(st.gm.origin),
             "scale": st.gm.scale, "poses": np.asarray(st.poses),
-            "log_weights": np.asarray(st.log_weights), "step": int(st.step)}
+            "log_weights": np.asarray(st.log_weights), "key": np.asarray(st.key),
+            "step": int(st.step)}
 
 
 @pytest.fixture(scope="module")
@@ -271,6 +272,8 @@ def test_step_from_reference_state_matches(run):
         skip = wrap_cells(st.poses, tcfg.insert_window, MAP, SCALE)
         assert cells_diff(st.gm.cells.numpy(), after["cells"], skip) <= CELL_TOL
         assert int(st.step) == after["step"]
+        # with the draws handed in the key still advances as the reference's
+        np.testing.assert_array_equal(convert.key_to_numpy(st.key), after["key"])
 
 
 def test_step_matches_on_windows_in_place(run, monkeypatch):
@@ -403,7 +406,7 @@ def test_convert_round_trip(run):
 
 
 def test_online_equals_offline_and_entry_points(run):
-    """handle_scan draws the generator's numbers in the same order as run;
+    """handle_scan draws from the state's key as run does;
     without a card the entry points raise and say how to ask for the CPU."""
     tcfg, scans, odom = run["tcfg"], run["scans"], run["odom"]
     a = tgm.GMappingEngine(tcfg, device="cpu", seed=5)

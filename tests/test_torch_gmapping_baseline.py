@@ -155,7 +155,7 @@ def test_default_step_matches_reference(seq, monkeypatch):
 
 def test_engine_runs_at_the_defaults_on_the_cpu(seq):
     """``GMappingEngine()`` at its defaults (cut to 4 particles and 64^2
-    maps) runs a sequence, with its own generator, to finite poses."""
+    maps) runs a sequence, drawing from its own key, to finite poses."""
     scans, odom, gt = seq
     e = tgm.GMappingEngine(device="cpu", seed=0, **SMALL)
     e.state.poses = gt[0].expand(P, 3).clone()

@@ -81,8 +81,10 @@ meshlib.init(0, 1, "cpu", f"tcp://127.0.0.1:{meshlib.free_port()}")
 try:
     dcfg, dst, dstep = tconfig.preset("distributed")(device="cpu", n_particles=2, map_height=64,
                                                      map_width=64)
-    dst, anc = dstep(dst, scans6[0], odom6[0], generator=torch.Generator().manual_seed(0))
+    key0 = dst.key
+    dst, anc = dstep(dst, scans6[0], odom6[0])  # drawn from the state's key
     assert anc.shape == (2,) and bool(torch.isfinite(dst.log_weights).all())
+    assert not torch.equal(dst.key, key0)
 finally:
     meshlib.shutdown()
 from slam_constructor_tpu_torch.utils import dataset

@@ -48,6 +48,7 @@ from slam_constructor_tpu.ops import scoring as jscore
 from slam_constructor_tpu.ops.scan import LaserScan as JScan
 from slam_constructor_tpu_torch.models import engine as teng
 from slam_constructor_tpu_torch.models import gmapping as tgm
+from slam_constructor_tpu_torch.ops import prng as tprng
 from slam_constructor_tpu_torch.models import posegraph as tpg
 from slam_constructor_tpu_torch.ops import cells as tcells
 from slam_constructor_tpu_torch.ops import grid as tgrid
@@ -191,14 +192,14 @@ def test_rbpf_slot_matches_reference(seq, matcher, refine, storage):
 
 
 def test_rbpf_draws_refine_normals_only_for_a_monte_carlo_refine():
-    gen = torch.Generator().manual_seed(0)
+    key = tprng.key(0)
     for matcher, refine in SLOTS:
         _, cfg = slot_configs(matcher, refine, "dense")
-        d = tgm.draw(cfg, gen, "cpu")
+        _, d = tgm.draw(cfg, key)
         assert (d.match is None) == (matcher != "monte_carlo")
         assert d.refine is None  # no Monte-Carlo refine here (or the match's shape)
     _, cfg = slot_configs("hill_climbing", "monte_carlo", "dense")
-    d = tgm.draw(cfg, gen, "cpu")
+    _, d = tgm.draw(cfg, key)
     mc = cfg.refine_cfg
     assert d.match is None and d.refine.shape == (P, mc.rounds, mc.batch, 3)
 

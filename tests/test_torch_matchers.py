@@ -28,6 +28,7 @@ from slam_constructor_tpu.ops import scoring as jscore
 from slam_constructor_tpu.utils import datagen as jdata
 from slam_constructor_tpu_torch.ops import kernels
 from slam_constructor_tpu_torch.ops import matchers as tmatch
+from slam_constructor_tpu_torch.ops import prng as tprng
 from slam_constructor_tpu_torch.ops import scan as tscan
 from slam_constructor_tpu_torch.ops import scoring as tscore
 
@@ -95,11 +96,15 @@ def test_generator_draws_are_reproducible(setup):
     cfg = tmatch.MonteCarloConfig(batch=BATCH, rounds=ROUNDS,
                                   scoring=tscore.ScoringConfig(reducer="overlap"))
     init = torch.from_numpy((true + 0.05).astype(np.float32))
-    res = [
-        tmatch.monte_carlo_match(tview, ts, init, torch.Generator().manual_seed(3), cfg)
-        for _ in range(2)
-    ]
+    # the normals drawn from a key are the reference's: split(key, rounds),
+    # normal(key_r, (batch, 3)) a round; the match equals the one handed them
+    key = tprng.key(3)
+    res = [tmatch.monte_carlo_match(tview, ts, init, key, cfg) for _ in range(2)]
+    want = np.array(jax.vmap(lambda k: jax.random.normal(k, (BATCH, 3)))(
+        jax.random.split(jax.random.PRNGKey(3), ROUNDS)))
+    given = tmatch.monte_carlo_match(tview, ts, init, None, cfg, noise=torch.from_numpy(want))
     assert torch.equal(res[0].pose, res[1].pose) and res[0].trace.shape == (ROUNDS,)
+    assert torch.equal(res[0].pose, given.pose) and torch.equal(res[0].trace, given.trace)
 
 
 @pytest.mark.parametrize("shape", [(ROUNDS + 1, BATCH, 3), (ROUNDS, BATCH // 2, 3)])
@@ -190,8 +195,7 @@ def test_cpu_match_launches_no_kernel(setup):
     _, _, tview, ts, true = setup
     cfg = tmatch.MonteCarloConfig(batch=8, rounds=2, scoring=tscore.ScoringConfig(reducer="overlap"))
     before = (kernels.launch_counts()["mc_match"], kernels.launch_counts()["overlap_score"])
-    res = tmatch.monte_carlo_match(tview, ts, torch.tensor(true), torch.Generator().manual_seed(0),
-                                   cfg)
+    res = tmatch.monte_carlo_match(tview, ts, torch.tensor(true), tprng.key(0), cfg)
     assert (kernels.launch_counts()["mc_match"], kernels.launch_counts()["overlap_score"]) == before
     assert res.pose.device.type == "cpu" and bool(torch.isfinite(res.trace).all())
 

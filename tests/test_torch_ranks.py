@@ -268,12 +268,13 @@ def task_preset(mesh, poses0, scans, odom, kw):
     from slam_constructor_tpu_torch.parallel import particles
     from slam_constructor_tpu_torch.utils import config
 
-    cfg, st, step = config.preset("distributed")(mesh=mesh, device="cpu", **kw)
+    from slam_constructor_tpu_torch.ops import prng
+
+    cfg, st, step = config.preset("distributed")(mesh=mesh, device="cpu", key=prng.key(7), **kw)
     st.poses = poses0.expand(st.poses.shape[0], 3).clone()
-    g = torch.Generator().manual_seed(7)
     out = []
     for i in range(len(scans)):
-        st, idx = step(st, scans[i], odom[i], generator=g)
+        st, idx = step(st, scans[i], odom[i])
         full = particles.gather_state(st, mesh, "particles")
         out.append(host({"idx": idx, "poses": full.poses, "logw": full.log_weights}))
     return out

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from slam_constructor_tpu.ops import resample as jres
+from slam_constructor_tpu_torch.ops import prng as tprng
 from slam_constructor_tpu_torch.ops import resample as tres
 
 torch.set_num_threads(1)
@@ -78,6 +79,10 @@ def test_uniform_weights_are_the_f32_log():
     for p in (6, 30, 64):
         np.testing.assert_array_equal(
             tres.log_uniform_weights(p).numpy(), np.full(p, -np.asarray(jnp.log(float(p)))))
-    g = torch.Generator().manual_seed(0)
-    u = torch.stack([tres.uniform_offset(30, g) for _ in range(200)])
+    keys = tprng.split(tprng.key(0), 200)
+    u = torch.stack([tres.uniform_offset(30, k) for k in keys])
     assert u.dtype == torch.float32 and bool((u >= 0).all()) and bool((u < 1 / 30).all())
+    # the reference's draw from the same key
+    want = jax.vmap(lambda k: jax.random.uniform(k, (), minval=0.0, maxval=1.0 / 30))(
+        jax.random.split(jax.random.PRNGKey(0), 200))
+    np.testing.assert_array_equal(u.numpy(), np.asarray(want))

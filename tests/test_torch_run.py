@@ -8,10 +8,9 @@ ground truth) with a temporary ``.properties`` whose matcher is
 deterministic (hill climbing): on the dense map, on the tiled map, and
 with a gradient refine. The summaries carry the same keys, and the
 trajectories written to ``trajectory.tum`` (6 decimals) agree within 1e-4
-m and rad; the ATE the summaries print agrees within 1e-4 m. The two
-packages' synthetic sequences differ (the reference draws its odometry
-noise from a PRNG key, the port from numpy), so they are compared on the
-file only.
+m and rad; the ATE the summaries print agrees within 1e-4 m. On the
+synthetic sequence, which both CLIs draw from ``PRNGKey(0)``, they are
+compared in ``test_torch_keys.py``.
 
 Smoke runs: the port's CLI on each of ``configs/*.properties`` in a
 temporary copy with the map, the RBPF's windows and the tile pool shrunk

@@ -26,6 +26,7 @@ from jax.sharding import Mesh
 from slam_constructor_tpu.models import gmapping as jgm
 from slam_constructor_tpu.parallel import particles as jpart
 from slam_constructor_tpu_torch.models import gmapping as tgm
+from slam_constructor_tpu_torch.ops import prng as tprng
 from slam_constructor_tpu_torch.parallel import ep_cow
 from slam_constructor_tpu_torch.utils import datagen
 from test_torch_cow import jscan, reference_draws
@@ -170,18 +171,30 @@ def test_sharded_step_refuses_cow_maps():
 
 def test_distributed_preset_runs_over_four_ranks(pool):
     """``config.preset("distributed")`` on the flat mesh of the whole group:
-    every rank holds 2 of 8 particles and draws from its own generator,
-    seeded alike; the ranks agree with each other and with the unsharded
-    step drawing from the same seed."""
+    every rank holds 2 of 8 particles and draws from the key it holds, the
+    same on every rank; the ranks agree with each other and with the
+    unsharded step drawing from the same key."""
+    preset_against_unsharded(pool, 4)
+
+
+def test_distributed_preset_at_world_two_draws_the_unsharded_draws(pool):
+    """The same with the particles over 2 ranks (the flat axis of a 2 x 2
+    mesh): 4 of 8 particles a rank, the step's draws from the same key as
+    the unsharded step's."""
+    preset_against_unsharded(pool, 2)
+
+
+def preset_against_unsharded(pool, d):
+    """The preset over ``d`` ranks against the unsharded step from
+    ``key(7)``: ancestors equal, poses and log-weights within TOL."""
     scans, odom, gt = sequence()
     kw = dict(n_particles=P, map_height=MAP, map_width=MAP, map_scale=SCALE)
-    got = pool.run("preset", ((4,), ("particles",)), gt[0], scans, odom, kw)
+    got = pool.run("preset", flat(d), gt[0], scans, odom, kw)
     cfg = tgm.GMappingConfig(**kw)
-    st = tgm.init_state(cfg, "cpu")
+    st = tgm.init_state(cfg, "cpu", tprng.key(7))
     st.poses = gt[0].expand(P, 3).clone()
-    g = torch.Generator().manual_seed(7)
     for i in range(STEPS):
-        st, idx = tgm.gmapping_step(cfg, st, scans[i], odom[i], generator=g)
+        st, idx = tgm.gmapping_step(cfg, st, scans[i], odom[i])
         for rank in got:
             np.testing.assert_array_equal(rank[i]["idx"], idx.numpy())
             assert pose_diff(rank[i]["poses"], st.poses.numpy()) <= TOL
