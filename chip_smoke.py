@@ -17,10 +17,10 @@ Phases, one line or more each, in order; any failure exits non-zero:
    with CUDA events at the main-path shape, and the three shapes replayed
    from a CUDA graph, a call and chained, each beside its bound;
 4. ``polar_free_plane`` against ``polar_free_plane_ref`` on the card at the
-   main-path shape (256^2 cells, 360 beams) and at edge cases: the number of
-   cells whose free decision differs (at most 8 in 65,536) and the largest
-   relative difference of the weight where both are free (<= 1e-6); then
-   both timed;
+   main-path shape (256^2 cells, 360 beams) and at edge cases: bit for bit
+   (no cell's free decision differs: both compute the reference's
+   ``atan2f``/``sinf``/``cosf``/``atanf``, ``csrc/libm.cuh``); then both
+   timed;
 5. the particle match (the RBPF's 30 particles' matches in one launch of
    ``csrc/mc_match.cu``) on the arguments of every 32nd match of a run of
    the gmapping path (30 maps of 256^2, 160^2 windows read in place, 180
@@ -406,13 +406,31 @@ Phases, one line or more each, in order; any failure exits non-zero:
    plain version (``ops/prng.py``) on the card on every path's step plan
    at edge keys, bit for bit; then timed at the tiny, RBPF and synthetic
    plans beside its bound (hashes' int32 operations over the int32 rate).
-   Every engine step and RBPF step launches it once (the launch counts
-   above include it; the CLI's synthetic sequence adds one);
+   Every RBPF step and every engine step whose matcher is not a Monte-Carlo
+   match alone launches it once (the launch counts above include it; the
+   CLI's synthetic sequence adds one); the tiny, viny and full trackers'
+   matches draw inside ``mc_match`` (phase 53);
 51. (run after phase 14) tiny, viny, full and gmapping from the
    reference's keys 0..4: the port's ATE beside the reference's from the
    same key on the same sequence, and their paired difference.
    ``python3 chip_smoke.py --phase prng`` runs phases 1, 2 and 50 alone
-   and prints no result.
+   and prints no result;
+52. (run after phase 50) ``csrc/libm.cu``, the reference's math library:
+   each function's kernel over all 2^32 float32 inputs (``atan2`` over
+   2^26 seeded pairs and a grid) hashed against the committed digests of
+   the jitted reference (``tests/data/libm_digests.json``), the kernels
+   against their plain versions (``ops/libm.py``) on the card bit for bit,
+   the fused sites too (pose operations, endpoint angles, log-sum-exp rows,
+   fused multiply-add); then timed beside ``torch.sin`` and the bound.
+   Its launches are counted apart, by function (``kernels.
+   libm_launch_counts``), and printed beside each main path's counts.
+   ``python3 chip_smoke.py --phase libm`` runs phases 1, 2 and 52 alone;
+53. (run after phase 14) ``mc_match`` drawing its own numbers from the
+   engine step's key in its prologue (``kernels.KeyNoise``) against the
+   same match handed those draws (``kernels.ErfInvDraws``), bit for bit,
+   and the next key against ``split(key)[0]``, on the recorded states of
+   tiny, viny and full and at edge keys, rounds and batches; its device
+   time beside the handed-in route's.
 
 Every bound counts, of the plane or window, the distinct cells that the
 taps of every pose the kernel scores read (the poses taken from its
@@ -997,12 +1015,12 @@ def phase_polar_kernel(dev, scans, gt):
         n_free = int(both.sum())
         err = float((got - want).abs()[both].max()) if n_free else 0.0
         rel = float(((got - want).abs() / want.clamp(min=1e-30))[both].max()) if n_free else 0.0
-        allowed = math.ceil(8 * h * w / 65536)
+        same = torch.equal(bits(got), bits(want))
         print(f"polar_free_plane vs plain [{name}]: {h}x{w} R={ranges.shape[0]} "
-              f"free cells {n_free}, flipped {flipped} (allowed {allowed}), "
-              f"max rel weight diff {rel:.3e} (tol 1e-6)", flush=True)
-        check(flipped <= allowed, f"polar_free_plane: {flipped} cells flipped ({name})")
-        check(rel <= 1e-6, f"polar_free_plane weights disagree ({name}): {rel}")
+              f"free cells {n_free}, flipped {flipped} (allowed 0), max rel weight diff "
+              f"{rel:.3e}; bit for bit: {same}", flush=True)
+        check(flipped == 0, f"polar_free_plane: {flipped} cells flipped ({name})")
+        check(same, f"polar_free_plane differs from its plain version ({name}): {rel}")
         if name.startswith("all beams invalid"):
             check(n_free == 0 and not bool(got.any()), "free cells without a valid beam")
         else:
@@ -1064,15 +1082,30 @@ def recorder(fn, every=1, keep=None):
     """``fn`` with the arguments of every ``every``-th call kept (of the
     calls ``n`` for which ``keep(n)`` holds, where it is given): returns the
     stand-in and the list it fills."""
+    from slam_constructor_tpu_torch.ops import kernels
+
     kept, n = [], [0]
+
+    def replayable(a):
+        # a match's own draws (a key) kept as the draws themselves, which
+        # give its bits; the key kept on them for the key route's check
+        if isinstance(a, kernels.KeyNoise):
+            d = kernels.ErfInvDraws(a.draws()[1])
+            KEYED_DRAWS[id(d)] = kernels.KeyNoise(a.key.clone(), a.rounds, a.batch, a.step)
+            return d
+        return a.clone() if isinstance(a, torch.Tensor) else a
 
     def recording(*args):
         if (keep(n[0]) if keep else n[0] % every == 0):
-            kept.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+            kept.append(tuple(replayable(a) for a in args))
         n[0] += 1
         return fn(*args)
 
     return recording, kept
+
+
+#: the KeyNoise each recorded ErfInvDraws was drawn from, by the draws' id
+KEYED_DRAWS: dict = {}
 
 
 def capture_match_states(cfg, scans, odom, gt, every=32):
@@ -1118,11 +1151,14 @@ def match_cases(tiny_states, viny_states, full_states, dev):
     cases.append(("no valid beam", replaced(t, beam_w=torch.zeros_like(t[2]))))
     edge = torch.tensor([12.3, -1.5, 0.4], device=dev)  # the map ends at x = 12.8
     cases.append(("prior 0.5 m from the map's edge", replaced(t, init_pose=edge)))
-    cases.append(("noise of zeros: every round ties", replaced(v, noise=torch.zeros_like(v[5]))))
-    twice = t[5].clone()
+    cases.append(("noise of zeros: every round ties",
+                  replaced(v, noise=torch.zeros(tuple(v[5].shape), device=dev))))
+    # the recorded draws are the reference's erf_inv values (kernels.ErfInvDraws)
+    twice = t[5].values.clone()
     half = twice.shape[1] // 2
     twice[:, half:] = twice[:, :half]  # every candidate has an equal half a batch on
-    cases.append(("every candidate twice: the first wins", replaced(t, noise=twice)))
+    cases.append(("every candidate twice: the first wins",
+                  replaced(t, noise=type(t[5])(twice))))
     nan_w = v[2].clone()
     nan_w[5] = float("nan")
     cases.append(("a NaN beam weight: NaN scores, never better", replaced(v, beam_w=nan_w)))
@@ -1389,9 +1425,10 @@ def phase_main_path(name, cfg, want_launches, scans, odom, gt, odo_ate, ate_limi
     reset_launches()
     traj, probs, secs, e = run_main_path(cfg, scans, odom, gt, "error")
     launches = read_launches()
+    LIBM_BY_PATH[name] = dict(LAST_LIBM)
     print(f"{name} main path: {N_SCANS} scans in {secs:.3f} s = {N_SCANS / secs:.1f} scans/s "
           f"with the sync check on, no host sync; launches {launches} "
-          f"(expected {want_launches})", flush=True)
+          f"(expected {want_launches}); libm {LAST_LIBM}", flush=True)
     check(launches == want_launches, f"{name}: launches {launches}, expected {want_launches}")
     check(traj.shape == (N_SCANS, 3) and bool(torch.isfinite(traj).all()),
           f"{name}: non-finite poses")
@@ -1422,9 +1459,18 @@ def reset_launches() -> None:
 
 
 def read_launches() -> dict:
+    """The kernel wrappers' launch counts; ``csrc/libm.cu``'s, counted apart
+    by function, are kept in ``LAST_LIBM``."""
     from slam_constructor_tpu_torch.ops import kernels
 
+    LAST_LIBM.clear()
+    LAST_LIBM.update(kernels.libm_launch_counts())
     return kernels.launch_counts()
+
+
+#: libm's launches by function at the last read_launches(), and by main path
+LAST_LIBM: dict = {}
+LIBM_BY_PATH: dict = {}
 
 
 def phase_rounds_path(cfg, scans, odom, gt, fused_traj):
@@ -1439,7 +1485,7 @@ def phase_rounds_path(cfg, scans, odom, gt, fused_traj):
         traj, _, secs, _ = run_main_path(cfg, scans[:n], odom[:n], gt, "error")
         launches = read_launches()
     want = expect(overlap_score=n * (cfg.matcher_cfg.rounds + 1), polar_free_plane=n,
-                  scan_insert=n, prng_draws=n)
+                  scan_insert=n)
     diff = float((traj - fused_traj[:n]).abs().max())
     print(f"viny path with one overlap_score launch a round, {n} scans: {n / secs:.1f} scans/s; "
           f"launches {launches} (expected {want}); max|pose diff| to the fused path {diff:.3e}",
@@ -1565,7 +1611,7 @@ def phase_full_path(cfg, scans, odom, gt, odo_ate, name="full", reference=FULL_R
     n_kf, n_edges = int(e.graph.n_kf), int(e.graph.n_edges)
     loops = loop_match_launches(cfg.graph, e.n_kf_batches + cfg.densify_rounds * e.n_bursts)
     regen = regenerations()
-    want = expect(mc_match=N_SCANS, prng_draws=N_SCANS,
+    want = expect(mc_match=N_SCANS,
                   **{**loops, "scan_insert": N_SCANS + regen["scan_insert"],
                                        "scan_planes": loops["scan_planes"] + regen["scan_planes"]})
     print(f"{name} main path: {N_SCANS} scans in {secs:.3f} s = {N_SCANS / secs:.1f} scans/s "
@@ -2686,9 +2732,12 @@ def cli_expected(name, n):
     scan; tiny_refined's gradient refine and mit_csail's hill climb, one
     launch a scan each; viny_m3rsm's pyramid build in ``init_state`` and a
     refresh a scan; tum_2d's improved proposal (one batched score of the
-    probes a scan); the draws, one launch a step and one for the synthetic
+    probes a scan); the draws, one launch a step (none where the tracker's
+    Monte-Carlo match draws inside its launch) and one for the synthetic
     sequence."""
-    return expect(prng_draws=n + 1, **{
+    # a Monte-Carlo tracker draws inside its match (engine.keyed_match)
+    keyed = name in ("tiny", "viny", "mit_stata", "tiny_refined", "mit_csail")
+    return expect(prng_draws=1 if keyed else n + 1, **{
         "tiny": dict(mc_match=n, scan_insert=n), "viny": dict(mc_match=n, scan_insert=n),
         "mit_stata": dict(mc_match=n, pool_prepare=n, pool_insert=n),
         "tiny_refined": dict(mc_match=n, gradient_refine=n, scan_insert=n),
@@ -2794,8 +2843,8 @@ def phase_cli(dev):
         res = run.execute(args)
         got = read_launches()
         n = res.trajectory.shape[0]
-        want = expect(scan_insert=n, prng_draws=n, **({"mc_match": n} if name == "tiny"
-                                                      else {"mc_match_batched": n}))
+        want = expect(scan_insert=n, **({"mc_match": n} if name == "tiny"
+                                        else {"mc_match_batched": n, "prng_draws": n}))
         launches[f"{name} on {log}"] = got
         print(f"cli {name} on {log}: {json.dumps(res.summary)}; launches {got}", flush=True)
         check(got == want, f"cli {name} on {log}: launches {got}, expected {want}")
@@ -2823,7 +2872,7 @@ def phase_cli(dev):
                 "error")
         n = res.trajectory.shape[0]
         launches[f"{name}, one {score} launch a pass"] = got
-        want = expect(mc_match=n, scan_insert=n, prng_draws=n + 1, **{score: passes * n})
+        want = expect(mc_match=n, scan_insert=n, prng_draws=1, **{score: passes * n})
         rates[f"{name}, yardstick"] = {"cli": res.summary["scans_per_sec"], "direct": n / secs}
         print(f"cli {name} with {yardstick.__name__} handed in: {res.summary['scans_per_sec']} "
               f"scans/s (the kernel's run {rates[name]['cli']}); driven directly, sync check on, "
@@ -5102,7 +5151,7 @@ def phase_cli_refine_reducers(dev):
         props = cfglib.load_properties(path)
         cfg = cfglib.engine_config_from(props)
         refine = matcher_launches("gradient", cfg.refine_cfg, lead=False)
-        want = expect(mc_match=n, scan_insert=n, prng_draws=n + 1,
+        want = expect(mc_match=n, scan_insert=n, prng_draws=1,
                       **{k: v * n for k, v in refine.items()})
         scans, odom, gt = run.load_data(args, dev)
         print(f"{name}: {n} scans, {res.summary['scans_per_sec']} scans/s; ATE "
@@ -6202,6 +6251,240 @@ def phase_prng(dev, smi):
     return entry
 
 
+#: the card's float64 rate outside the tensor cores (NVIDIA's H100 SXM data
+#: sheet, dense): the libm functions' double-precision polynomials run there
+PEAK_F64_FLOP_PER_S = 34e12
+#: float64 and float32 operations of one element of a libm function, counted
+#: from csrc/libm.cuh on its longest path (the large reduction's integer
+#: product counted as 3 float64 operations): sin, cos and wrap_angle's
+#: sincos take a reduction (2), the sine polynomial (7) and the cosine (8)
+LIBM_OPS = {"sin": (11, 2), "cos": (12, 2), "sincos": (19, 3), "atan": (0, 26),
+            "atan2": (1, 36), "wrap_angle": (19, 40), "exp": (1, 22), "log": (0, 26),
+            "sqrt": (0, 2), "pose/compose": (38, 46), "endpoint_angles": (38, 44)}
+
+
+def libm_bound_ms(op: str, n: int, n_bytes: int):
+    """The least time of ``n`` elements of libm function ``op``: the larger
+    of its bytes over the memory rate and its float64 and float32
+    operations over their rates."""
+    f64, f32 = LIBM_OPS[op]
+    t = max(n_bytes / PEAK_BYTES_PER_S, n * f64 / PEAK_F64_FLOP_PER_S + n * f32 / PEAK_F32_FLOP_PER_S)
+    return t * 1e3, "bytes" if n_bytes / PEAK_BYTES_PER_S >= t else "operations"
+
+
+def card_unary_digests(fn, dev, n_bufs=6):
+    """The 16 block digests of ``fn`` over every float32 word
+    (``utils.libm_digest``'s definition): each block of 2^28 words computed
+    on the card, its NaNs made canonical there, copied into one of
+    ``n_bufs`` pinned host buffers and hashed by a pool of as many threads."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from slam_constructor_tpu_torch.utils import libm_digest as ld
+
+    bufs = [torch.empty(ld.BLOCK_WORDS, dtype=torch.int32, pin_memory=True)
+            for _ in range(n_bufs)]
+    pending = [None] * n_bufs
+    digests = [None] * ld.BLOCKS
+
+    def hash_block(b, buf):
+        digests[b] = hashlib.sha256(memoryview(buf.numpy())).hexdigest()
+
+    with ThreadPoolExecutor(n_bufs) as pool:
+        for b in range(ld.BLOCKS):
+            i = b % n_bufs
+            if pending[i] is not None:
+                pending[i].result()
+            out = fn(ld.words(b * ld.BLOCK_WORDS, ld.BLOCK_WORDS, dev))
+            w = out.view(torch.int32)
+            w = torch.where(torch.isnan(out), torch.full_like(w, ld.CANONICAL_NAN), w)
+            bufs[i].copy_(w)  # a synchronous copy into pinned memory
+            pending[i] = pool.submit(hash_block, b, bufs[i])
+        for f in pending:
+            if f is not None:
+                f.result()
+    return digests
+
+
+def phase_libm(dev, smi):
+    """``csrc/libm.cu`` (the reference's sinf, cosf, atanf, atan2f, XLA's
+    exp and log, the square root): each function's kernel over all 2^32
+    float32 inputs hashed as ``utils/libm_digest.py`` says, against the
+    committed digests of the jitted reference (``tests/data/
+    libm_digests.json``; the plain versions equal them on the CPU:
+    ``scripts/torch_port/libm_exhaustive.py --check``), ``atan2`` over the
+    seeded pairs and the grid; the kernels against the plain versions
+    (``libm.plain_versions()``) on the card, bit for bit, on 2^24 inputs a
+    function and on the fused sites (the pose operations, the scan's
+    endpoint angles, the log-sum-exp rows, the fused multiply-add); then
+    timed at the paths' shapes beside torch's own function and the bound.
+    Returns the ``kernels`` entry without the launch count."""
+    from slam_constructor_tpu_torch.ops import geometry, kernels, libm
+    from slam_constructor_tpu_torch.ops import scan as scanlib
+    from slam_constructor_tpu_torch.utils import libm_digest as ld
+
+    want = ld.load()
+    t0 = time.perf_counter()
+    for op in ld.UNARY:
+        t = time.perf_counter()
+        blocks = card_unary_digests(lambda x, op=op: kernels.libm_unary(op, x), dev)
+        got = ld.combine(blocks)
+        bad = [b for b, (g, w) in enumerate(zip(blocks, want["unary"][op]["blocks"])) if g != w]
+        print(f"libm {op}: the kernel over all 2^32 inputs hashes {got[:16]}..., the jitted "
+              f"reference {want['unary'][op]['digest'][:16]}...: "
+              f"{'equal' if not bad else f'blocks {bad} differ'} "
+              f"({time.perf_counter() - t:.1f} s)", flush=True)
+        check(not bad, f"libm {op}: the kernel's digest differs from the reference's")
+    got = ld.atan2_digest(kernels.libm_atan2, dev, 1 << 22, 8)
+    check(got == want["atan2"], "libm atan2: the kernel's digest differs from the reference's")
+    print(f"libm atan2 over {ld.BLOCKS} x 2^22 seeded pairs and the {ld.atan2_grid().size}^2 "
+          f"grid: equal to the reference's digest; the digests took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    words = torch.randint(-2**31, 2**31, (1 << 24,), generator=g, dtype=torch.int64, device=dev)
+    x = words.to(torch.int32).view(torch.float32)
+    y = x.roll(12345)
+    finite = torch.where(torch.isfinite(x), x, 0.5) * 1e-30  # fma operands of every size
+    poses = torch.rand((1 << 20, 3), generator=g, device=dev) * torch.tensor(
+        [40.0, 40.0, 8.0], device=dev) - torch.tensor([20.0, 20.0, 4.0], device=dev)
+    other = poses.roll(1, 0)
+    ranges = torch.rand((64, 360), generator=g, device=dev) * 12
+    bearings = torch.linspace(-math.pi, math.pi, 360, device=dev)
+    logw = torch.randn((4096, 30), generator=g, device=dev) * 20
+    logw[0, 3] = -math.inf
+    cases = [(op, lambda op=op: libm._unary(op, x)) for op in ld.UNARY]
+    cases += [("sincos", lambda: torch.stack(libm.sincos(x))), ("cossin", lambda: libm.cossin(x)),
+              ("atan2", lambda: libm.atan2(y, x)),
+              ("fma32", lambda: libm.fma32(x, y, finite)),
+              ("fma32 (numbers)", lambda: libm.fma32(x, 1.7, -0.25)),
+              ("pose/compose", lambda: geometry.compose(poses, other)),
+              ("pose/between", lambda: geometry.between(poses, other)),
+              ("pose/inverse", lambda: geometry.inverse(poses)),
+              ("endpoint_angles", lambda: scanlib.endpoint_angles(
+                  scanlib.LaserScan(ranges, bearings.expand(64, 360),
+                                    torch.ones_like(ranges, dtype=torch.bool)))),
+              ("rows/lse", lambda: libm.logsumexp(logw)),
+              ("rows/normalize", lambda: libm.normalize_log(logw)),
+              ("rows/softmax", lambda: torch.cat([libm.softmax_lse(logw)[0],
+                                                  libm.softmax_lse(logw)[1][:, None]], 1)),
+              ("rows/ess", lambda: libm.effective_sample_size(logw))]
+    for name, fn in cases:
+        got = fn()
+        with libm.plain_versions():
+            plain = fn()
+        torch.cuda.synchronize()
+        same = torch.equal(bits(got), bits(plain)) or torch.equal(
+            bits(torch.where(torch.isnan(got), math.nan, got)),
+            bits(torch.where(torch.isnan(plain), math.nan, plain)))
+        check(same, f"libm {name}: the kernel differs from its plain version on the card")
+    print(f"libm: {len(cases)} functions and fused sites bit for bit with their plain versions "
+          f"on the card (2^24 inputs a function; 2^20 poses; 64 scans; 4,096 rows of 30)",
+          flush=True)
+
+    # timed: a sine of the scan's 360 bearings against torch.sin (other bits:
+    # the yardstick), and the paths' own sites
+    entry = {"name": "libm", "route": "cuda", "source": "slam_constructor_tpu_torch/csrc/libm.cu",
+             "replaces": "slam_constructor_tpu/ops/geometry.py:26", "max_abs_err": 0.0,
+             "by_site": {}}
+    b360 = bearings.contiguous()
+    pose1, delta1 = poses[:1].contiguous(), other[:1].contiguous()
+    for site, n, n_bytes, kernel, library in (
+            ("sin", 360, 8 * 360, lambda: kernels.libm_unary("sin", b360),
+             lambda: torch.sin(b360)),
+            ("pose/compose", 1, 36, lambda: kernels.libm_pose("compose", pose1, delta1), None),
+            ("endpoint_angles", 359, 8 * 360 + 4 * 359,
+             lambda: kernels.libm_endpoint_angles(ranges[0], bearings), None)):
+        with libm.plain_versions():
+            plain = {"sin": lambda: libm._sin_ref(b360),
+                     "pose/compose": lambda: geometry.compose(pose1, delta1),
+                     "endpoint_angles": lambda: scanlib._endpoint_angles_ref(
+                         ranges[0], bearings)}[site]
+            ms, plain_ms, chained = time_pair(kernel, plain, plain_calls=20)
+        dev_ms = graph_ms(kernel)
+        lib_ms = graph_ms(library) if library else None
+        lib_call = time_pair(library, library)[0] if library else None
+        b_ms, by = libm_bound_ms(site, n, n_bytes)
+        print(f"libm {site} ({n} elements): device {dev_ms * 1e3:.2f} us (graph replay), a call "
+              f"{ms:.4f} ms, chained {chained:.4f} ms; plain {plain_ms:.4f} ms; bound "
+              f"{b_ms:.7f} ms by {by}"
+              + (f"; torch.{site} {lib_ms * 1e3:.2f} us device, {lib_call:.4f} ms a call "
+                 f"(other bits)" if library else "") + f" ({smi})", flush=True)
+        entry["by_site"][site] = {"device_ms": dev_ms, "ms": ms, "chained_ms": chained,
+                                  "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+                                  "library_ms": lib_ms}
+    # the entry's numbers: the tiny path's one site, the prior's compose
+    # (its library yardstick: torch.sin of the scan's bearings)
+    c = entry["by_site"]["pose/compose"]
+    entry.update(ms=c["ms"], plain_ms=c["plain_ms"], chained_ms=c["chained_ms"],
+                 device_ms=c["device_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+                 library_ms=entry["by_site"]["sin"]["library_ms"])
+    return entry
+
+
+def phase_mc_match_keyed(dev, tiny_states, viny_states, full_states):
+    """``mc_match`` drawing its own numbers from the engine step's key
+    (``kernels.KeyNoise``: split, then a split a round and erf_inv of
+    jax.random.normal's uniform, in the kernel's prologue) against the same
+    match handed those draws (``kernels.ErfInvDraws``, drawn by
+    ``prng``'s plain version on the card), bit for bit, and the next key
+    against ``split(key)[0]``, on the recorded states of the three main
+    paths (the 16 of the full path among them) and at edge keys, rounds and
+    batches; then its device time beside the handed-in route's."""
+    from slam_constructor_tpu_torch.ops import kernels, prng
+
+    def keyed(args, kn):
+        a = list(args)
+        a[5] = kn
+        return tuple(a)
+
+    def handed(args, kn):
+        a = list(args)
+        a[5] = kernels.ErfInvDraws(kn.draws()[1])
+        return tuple(a)
+
+    cases = []
+    for path, states in (("tiny", tiny_states), ("viny", viny_states), ("full", full_states)):
+        for i, a in enumerate(states):
+            kn = KEYED_DRAWS.get(id(a[5]))
+            check(kn is not None and kn.step, f"{path} state {i}: the match did not draw from "
+                  "the step's key")
+            cases.append((f"{path} state {i}", a, kn))
+    t = tiny_states[3]
+    for kname, words in (("PRNGKey(0)", [0, 0]), ("[2^32-1, 2^32-1]", [-1, -1]),
+                         ("PRNGKey(2^31)", [0, -2**31])):
+        key = torch.tensor(words, dtype=torch.int32, device=dev).view(torch.uint32)
+        for rounds, batch in ((12, 64), (0, 64), (1, 8), (16, 100), (3, 1)):
+            cases.append((f"{kname}, {rounds} rounds of {batch}", t,
+                          kernels.KeyNoise(key, rounds, batch, step=True)))
+        cases.append((f"{kname}, no split (the match's own key)", t,
+                      kernels.KeyNoise(key, 12, 64, step=False)))
+    for name, a, kn in cases:
+        got = kernels.mc_match(*keyed(a, kn))
+        ref = kernels.mc_match(*handed(a, kn))
+        check(all(torch.equal(bits(g), bits(r)) for g, r in zip(got[:3], ref)),
+              f"mc_match with in-kernel draws differs from the handed-in draws ({name})")
+        if kn.step:
+            want_key = kn.draws()[0]
+            check(len(got) == 4 and torch.equal(got[3].view(torch.int32),
+                                                want_key.view(torch.int32)),
+                  f"mc_match's next key is not split(key)[0] ({name})")
+    print(f"mc_match with in-kernel draws: {len(cases)} cases bit for bit with the match handed "
+          f"the same draws (prng's plain version on the card), the next key split(key)[0]",
+          flush=True)
+    a = tiny_states[3]
+    kn = KEYED_DRAWS[id(a[5])]
+    out = {}
+    for route, args in (("in-kernel draws", keyed(a, kn)), ("handed-in draws", handed(a, kn))):
+        out[route] = graph_ms(lambda args=args: kernels.mc_match(*args))
+    print(f"mc_match tiny state, device time (graph replay): in-kernel draws "
+          f"{out['in-kernel draws'] * 1e3:.2f} us, handed-in draws "
+          f"{out['handed-in draws'] * 1e3:.2f} us", flush=True)
+    return {"keyed_cases_bitwise": len(cases),
+            "keyed_device_ms": out["in-kernel draws"],
+            "handed_device_ms": out["handed-in draws"]}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke run needs an NVIDIA GPU",
@@ -6231,11 +6514,17 @@ def main() -> None:
         phase_prng(dev, smi)
         print("phase prng passed", flush=True)
         return
+    if sys.argv[1:] == ["--phase", "libm"]:
+        # the reference's math library alone (digests, plain versions, times); no result
+        phase_libm(dev, smi)
+        print("phase libm passed", flush=True)
+        return
 
     scans, odom, gt = bench_sequence(dev)
     k1 = phase_overlap_kernel(dev, scans, gt)
     k2 = phase_polar_kernel(dev, scans, gt)
     k_prng = phase_prng(dev, smi)
+    k_libm = phase_libm(dev, smi)
 
     tiny_cfg, viny_cfg = tiny.tiny_config(map_size=MAP), viny.viny_config(map_size=MAP)
     gm_cfg = gmapping_config()
@@ -6243,18 +6532,19 @@ def main() -> None:
     fscans, fodom, fgt = full_sequence(dev)
     full_cfg = full_config()
     full_states, kept = capture_full_launches(full_cfg, fscans, fodom, fgt)
-    k3 = phase_mc_match(dev, capture_match_states(tiny_cfg, scans, odom, gt),
-                        capture_match_states(viny_cfg, scans, odom, gt), full_states)
+    tiny_states = capture_match_states(tiny_cfg, scans, odom, gt)
+    viny_states = capture_match_states(viny_cfg, scans, odom, gt)
+    k3 = phase_mc_match(dev, tiny_states, viny_states, full_states)
+    k3.update(phase_mc_match_keyed(dev, tiny_states, viny_states, full_states))
     phase_card_vs_cpu("tiny", tiny_cfg, dev, scans, odom, gt)
     phase_card_vs_cpu("viny", viny_cfg, dev, scans, odom, gt)
 
     odo_ate = float(evaluate.ate(odometry_trajectory(gt[0], odom), gt, align=False))
     tiny_launches, tiny_traj, _ = phase_main_path(
-        "tiny", tiny_cfg, expect(mc_match=N_SCANS, scan_insert=N_SCANS, prng_draws=N_SCANS), scans,
+        "tiny", tiny_cfg, expect(mc_match=N_SCANS, scan_insert=N_SCANS), scans,
         odom, gt, odo_ate, 0.15)
     viny_launches, viny_traj, _ = phase_main_path(
-        "viny", viny_cfg, expect(mc_match=N_SCANS, polar_free_plane=N_SCANS, scan_insert=N_SCANS,
-                                 prng_draws=N_SCANS),
+        "viny", viny_cfg, expect(mc_match=N_SCANS, polar_free_plane=N_SCANS, scan_insert=N_SCANS),
         scans, odom, gt, odo_ate, max(VINY_REFERENCE_ATE_BY_KEY) + VINY_ATE_MARGIN)
     rounds_launches = phase_rounds_path(viny_cfg, scans, odom, gt, viny_traj)
     # every path once more with K3's plain twin handed in, keeping insert calls
@@ -6390,7 +6680,7 @@ def main() -> None:
                  "hill_climb": cli_launches["mit_csail"], "scan_insert": tiny_launches,
                  "scan_planes": full_launches, "pool_insert": cow_launches,
                  "pool_prepare": cow_launches, "pool_touched": cow_launches,
-                 "prng_draws": tiny_launches}
+                 "prng_draws": gm_launches}
     for k in (k1, k3, k2, k4, k5, k6, k7, k8, k9, k10, k11, k12, k13, k14, k15, k16, k_prng):
         k["launches"] = main_path.get(k["name"], viny_launches)[k["name"]]
         k["launches_by_path"] = {
@@ -6417,8 +6707,14 @@ def main() -> None:
     k_part["launches"] = par_launches["blockshard"]["overlap_score_partial"]
     k_part["launches_by_path"] = {f"{name} (NCCL, world 1)": counts["overlap_score_partial"]
                                   for name, counts in par_launches.items()}
+    # libm: launches of the tiny path's timed run (its one site a scan, the
+    # prior's compose), counted apart by function
+    check(LIBM_BY_PATH["tiny"].get("total", 0) >= N_SCANS,
+          f"libm launched {LIBM_BY_PATH['tiny']} on the tiny path")
+    k_libm["launches"] = LIBM_BY_PATH["tiny"]["total"]
+    k_libm["launches_by_path"] = {name: counts for name, counts in LIBM_BY_PATH.items()}
     print(json.dumps({"kernels": [k1, k3, k2, k4, k5, k6, k7, k8, k9, k10, k11, k12, k13,
-                                  k14, k15, k16, *k_red, *k_slots, k_part, k_prng]}),
+                                  k14, k15, k16, *k_red, *k_slots, k_part, k_prng, k_libm]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

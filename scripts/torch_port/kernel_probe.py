@@ -821,6 +821,23 @@ def compare_main(a: str, b: str) -> None:
     sys.exit(0 if same else 1)
 
 
+def keyed_match_calls(kernels, mc, dev) -> list:
+    """Where the tree has it (``kernels.KeyNoise``): tiny's and viny's
+    matches drawing their numbers from a step's key inside the launch, and
+    the plain step's draws alone that the launch replaces."""
+    if not hasattr(kernels, "KeyNoise"):
+        return []
+    key = torch.tensor([0, 42], dtype=torch.int32, device=dev).view(torch.uint32)
+    out = []
+    for name in ("tiny", "viny"):
+        a = list(mc[name])
+        rounds, batch = a[5].shape[0], a[5].shape[1]
+        a[5] = kernels.KeyNoise(key, rounds, batch, step=True)
+        out.append((f"mc_match {name}, its draws from the step's key",
+                    lambda a=tuple(a): kernels.mc_match(*a)))
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--stamps", action="store_true",
@@ -958,6 +975,7 @@ def main() -> None:
         ("overlap_score K=64 R=360", lambda: kernels.overlap_score(*sargs)),
         ("mc_match tiny", lambda: kernels.mc_match(*mc["tiny"])),
         ("mc_match viny", lambda: kernels.mc_match(*mc["viny"])),
+        *keyed_match_calls(kernels, mc, dev),
         *((name, lambda f=f, a=a: f(*a)) for name, (f, _, a) in m3.items()),
         ("m3rsm_match viny_m3rsm (the whole call)", m3rsm_match_call(pose, scan, dev)),
     ):

@@ -14,7 +14,8 @@ fresh state (host clock ending in a synchronise) with the sync check on,
 ``--host N`` then times N single steps of each single-hypothesis path
 (``Engine.handle_scan``, a synchronise before and after each): the host's
 time to issue a step and the step's time to its end, and the step's draws
-issued alone (``engine.draw_step`` where the tree has it, else the
+issued alone (``engine.draw_step`` where the tree has it, nothing where
+the match draws inside its launch (``engine.keyed_match``), else the
 ``torch.randn`` of the generator that the step drew from).
 Prints one line a run and, with ``--out``, writes them as JSON. Run it in
 turns (parent, change, change, parent) in one chip call: the host's speed
@@ -129,7 +130,9 @@ def host_times(engine, e, scans, odom, n: int) -> dict:
         t1 = time.perf_counter()
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        if hasattr(engine, "draw_step"):
+        if getattr(engine, "keyed_match", lambda c: False)(cfg):
+            pass  # the match draws inside its own launch: nothing issued apart
+        elif hasattr(engine, "draw_step"):
             engine.draw_step(cfg, e.state.key)
         elif cfg.matcher == "monte_carlo":
             torch.randn((mc.rounds, mc.batch, 3), generator=gen, device=e.device)

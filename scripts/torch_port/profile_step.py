@@ -112,7 +112,12 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[2]))  # the checkout's root
 
-from slam_constructor_tpu_torch.utils.profiling import StepTimer  # noqa: E402
+
+def StepTimer():  # noqa: N802
+    """The package's ``utils.profiling.StepTimer``, imported when first
+    used: after ``--root`` has put another checkout first on the path."""
+    from slam_constructor_tpu_torch.utils.profiling import StepTimer as timer
+    return timer()
 
 
 class CountOps(TorchDispatchMode):
@@ -230,8 +235,14 @@ def main() -> None:
         mark()
         prior = compose(state.pose, od)
         view = scoring.MapView.of(state.gm, cfg.cell_model)
-        key, noise, _ = engine.draw_step(cfg, state.key)  # the step's one draws launch
-        res = matchers.monte_carlo_match(view, scan, prior, None, cfg.matcher_cfg, pw, noise)
+        if getattr(engine, "keyed_match", lambda c: False)(cfg):
+            # the match draws from the step's key inside its launch
+            res = matchers.monte_carlo_match(view, scan, prior, None, cfg.matcher_cfg, pw,
+                                             step_key=state.key)
+            key = res.next_key
+        else:
+            key, noise, _ = engine.draw_step(cfg, state.key)  # the step's one draws launch
+            res = matchers.monte_carlo_match(view, scan, prior, None, cfg.matcher_cfg, pw, noise)
         mark()
         gm = raycast.insert_scan(state.gm, cfg.cell_model, res.pose, scan, cfg.beam, q)
         mark()
@@ -543,9 +554,18 @@ def profile_refine(preset: str, n: int) -> None:
                     view = scoring.MapView.of(state.gm, cfg.cell_model)
                     pw = engine._point_weights(cfg, scan)
                     match_fn = matcherslib.MATCHERS[cfg.matcher][1]
-                    key, noise, rnoise = phase("draws", lambda: engine.draw_step(cfg, state.key))
-                    res = phase("match", lambda: match_fn(view, scan, prior, None,
-                                                          cfg.matcher_cfg, pw, noise))
+                    if getattr(engine, "keyed_match", lambda c: False)(cfg):
+                        # the match draws from the step's key inside its launch
+                        rnoise = None
+                        res = phase("match", lambda: match_fn(view, scan, prior, None,
+                                                              cfg.matcher_cfg, pw,
+                                                              step_key=state.key))
+                        key = res.next_key
+                    else:
+                        key, noise, rnoise = phase("draws",
+                                                   lambda: engine.draw_step(cfg, state.key))
+                        res = phase("match", lambda: match_fn(view, scan, prior, None,
+                                                              cfg.matcher_cfg, pw, noise))
                     res = phase("refine", lambda: engine._refine(cfg, view, scan, res, pw,
                                                                  rnoise))
                     gm = phase("insert", lambda: raycast.insert_scan(
@@ -862,8 +882,14 @@ def profile_pool(preset: str, n: int) -> None:
                     cfg.cell_model))
 
                 def match():
-                    key, noise, rnoise = engine.draw_step(cfg, state.key)
-                    res = match_fn(view, scan, prior, None, cfg.matcher_cfg, pw, noise)
+                    if getattr(engine, "keyed_match", lambda c: False)(cfg):
+                        # the match draws from the step's key inside its launch
+                        res = match_fn(view, scan, prior, None, cfg.matcher_cfg, pw,
+                                       step_key=state.key)
+                        key, rnoise = res.next_key, None
+                    else:
+                        key, noise, rnoise = engine.draw_step(cfg, state.key)
+                        res = match_fn(view, scan, prior, None, cfg.matcher_cfg, pw, noise)
                     res = engine._refine(cfg, view, scan, res, pw, rnoise)
                     ok = (res.prob >= cfg.min_insert_prob) | (state.step == 0)
                     return key, res, torch.where(ok, 1.0, 0.0)

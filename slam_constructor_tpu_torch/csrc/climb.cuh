@@ -62,7 +62,7 @@ __device__ __forceinline__ void candidate(const State& st, int g, float cand[3])
     cand[d] = st.pose[d] + unit * st.steps[d];
   }
   const float x = st.pose[2] + heading_unit(g < 4 ? 0 : g - 3) * st.steps[2];
-  cand[2] = atan2f(sinf(x), cosf(x));
+  cand[2] = libm::wrap_angle(x);
 }
 
 // The score of pose (x, y, th) by the group of thread t (valid in t == 0):
@@ -73,7 +73,11 @@ __device__ __forceinline__ float group_score(State& st, const Plane& at, int h, 
                                              const float* bw, int r, float ox, float oy,
                                              float scale, float unknown,
                                              const overlap::Reducer& red, int g, int t) {
-  const overlap::Pose q{x, y, cosf(th), sinf(th)};
+  // lane 0 of each warp takes the heading's sine and cosine (double
+  // precision polynomials) for its 31 lanes
+  float sn = 0.0f, cs = 0.0f;
+  if ((t & 31) == 0) libm::sincos(th, &sn, &cs);
+  const overlap::Pose q{x, y, __shfl_sync(0xffffffffu, cs, 0), __shfl_sync(0xffffffffu, sn, 0)};
   float num, den;
   overlap::beam_sums_at(at, h, w, q, pts, bw, r, t, ox, oy, scale, unknown, red, num, den);
   overlap::group_reduce(num, den, st.num + g * overlap::kGroupThreads,

@@ -53,8 +53,8 @@
 //    every lane and steps with the loop's expressions, its divisions spread
 //    over lanes (lanes 0-2 a component of the gradient, lane 3 the score;
 //    then lanes 0-2 a component of g / (|g| + 1e-12)) and read back by
-//    shuffles; sincosf for each sinf, cosf pair (their bits: every one of
-//    the 2^32 inputs, scripts/torch_port/kernel_probe.py --sincos). While
+//    shuffles; libm::sincos for each sin, cos pair (the reference's sinf
+//    and cosf, csrc/libm.cuh: one reduction for both). While
 //    the beam warps tap, warp 0 computes the candidate that follows a
 //    rejection (the same pose and direction, the steps shrunk), so a
 //    rejected candidate costs no step; lane 0 hands the next candidate to
@@ -230,17 +230,17 @@ struct PassClock {
 enum Part : int { kSpeculate, kTermsBarrier, kFold, kTree, kStep, kHandOff, kPartCount };
 
 // The candidate pose + steps * gn with its heading wrapped, and the cos and
-// sin of that heading: the loop's expressions (sincosf gives sinf's and
-// cosf's bits).
+// sin of that heading: the loop's expressions (libm::sincos gives libm::sin's
+// and libm::cos's bits).
 __device__ __forceinline__ void next_candidate(const float (&pose)[3], const float (&steps)[3],
                                                const float (&gn)[3], float (&cand)[3],
                                                float (&trig)[2]) {
 #pragma unroll
   for (int k = 0; k < 3; ++k) cand[k] = pose[k] + steps[k] * gn[k];
   float sn, cs;
-  sincosf(cand[2], &sn, &cs);
-  cand[2] = atan2f(sn, cs);
-  sincosf(cand[2], &sn, &cs);
+  libm::sincos(cand[2], &sn, &cs);
+  cand[2] = libm::atan2(sn, cs);
+  libm::sincos(cand[2], &sn, &cs);
   trig[0] = cs;
   trig[1] = sn;
 }
@@ -295,8 +295,8 @@ gradient_refine_kernel(const float* __restrict__ v, int h, int w, const float* _
     if (lane == 0) {
       s_cand[0] = cand[0];
       s_cand[1] = cand[1];
-      s_cand[2] = cosf(cand[2]);
-      s_cand[3] = sinf(cand[2]);
+      s_cand[2] = libm::cos(cand[2]);
+      s_cand[3] = libm::sin(cand[2]);
     }
   }
   __syncthreads();

@@ -341,8 +341,8 @@ m3rsm_match_kernel(const Pyramid pyr, const Search s) {
   }
   for (int i = threadIdx.x; i < s.n_t; i += kThreads) {
     const float ang = pt + s.thetas[i];
-    s_trig[i] = cosf(ang);
-    s_trig[s.n_t + i] = sinf(ang);
+    s_trig[i] = libm::cos(ang);
+    s_trig[s.n_t + i] = libm::sin(ang);
   }
   const float* mask = s.mask + b * s.r;
   for (int i = threadIdx.x; i < s.r; i += kThreads) s_mask[i] = __ldg(mask + i);
@@ -523,7 +523,7 @@ m3rsm_match_kernel(const Pyramid pyr, const Search s) {
       st.pose[0] = px + static_cast<float>(rx) * s.scale;
       st.pose[1] = py + static_cast<float>(ry) * s.scale;
       const float a = pt + s.thetas[rt];
-      st.pose[2] = atan2f(sinf(a), cosf(a));
+      st.pose[2] = libm::wrap_angle(a);
       st.prob = bv;
       st.steps[0] = s.step_xy;
       st.steps[1] = s.step_xy;

@@ -25,15 +25,17 @@
 //     bad = 0 if it was better else bad + 1
 //     if bad >= bad_rounds_before_anneal: sigma *= 0.5; bad = 0
 //
-// with wrap_angle(t) = atan2f(sinf(t), cosf(t)) and score() the weighted
+// with wrap_angle(t) = atan2f(sinf(t), cosf(t)) (glibc's, libm.cuh) and score() the weighted
 // mean of overlap_sample.cuh over the scan's beams, each beam's endpoint
 // read by the match's reducer (the bilinear taps above; or the obstacle,
 // max, mean or general overlap reducer of the reference's gather path, a
 // uniform code tested before the beam loop, so no reducer adds an
 // instantiation; the other reducers' loop is called, not inlined, which
 // keeps the bilinear loop as fast as it was). GMappingConfig()'s defaults
-// match 30 whole 256^2 maps with the obstacle reducer: one tap a beam. The standard normals
-// `noise` are drawn outside, by PyTorch.
+// match 30 whole 256^2 maps with the obstacle reducer: one tap a beam. The
+// draws come in `noise` (standard normals, or the reference's erf_inv
+// values with sigma times sqrt(2)), or the kernel draws them itself from a
+// key (threefry.cuh) in its prologue, bit for bit with ops/prng.py.
 //
 // What bounds it on an H100: neither bytes nor operations. The RBPF's 30
 // windows of 160^2, its scans and noise are ~3.2 MB cut out (0.95 us at
@@ -100,13 +102,20 @@
 //   and is never "better" (the comparison is a strict >).
 //
 // Numerics: built without --use_fast_math and with --fmad=false; see
-// overlap_sample.cuh. noise * sigma and best + that are two roundings.
+// overlap_sample.cuh. With handed-in standard normals noise * sigma and best
+// + that are two roundings; with the reference's erf_inv draws (drawn from
+// a key here, or handed in: `fused`) the candidate is one fused
+// multiply-add, as the reference's jitted code has it: its normal * sigma is
+// erf_inv(u) * (sqrt(2) * sigma) (XLA reassociates the constant), fused
+// with the add.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "libm.cuh"
 #include "overlap_sample.cuh"
+#include "threefry.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -130,16 +139,28 @@ struct MatchState {
   int bad;
 };
 
-// Candidate of one row of standard normals around the best pose so far.
-__device__ __forceinline__ void candidate(const MatchState& st, const float* nz,
+// Candidate of one row of draws around the best pose so far, the heading
+// wrapped (libm.cuh: the reference's sinf, cosf, atan2f): fused, best + draw
+// * sigma in one multiply-add, as the reference's jitted code forms it from
+// its erf_inv draws; else (handed-in standard normals) two roundings.
+__device__ __forceinline__ void candidate(const MatchState& st, const float* nz, bool fused,
                                           float out[3]) {
-  const float nx = nz[0] * st.sigma[0];
-  const float ny = nz[1] * st.sigma[1];
-  const float nt = nz[2] * st.sigma[2];
-  out[0] = st.pose[0] + nx;
-  out[1] = st.pose[1] + ny;
-  const float t = st.pose[2] + nt;
-  out[2] = atan2f(sinf(t), cosf(t));
+  float c[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    c[d] = fused ? libm::fma32(nz[d], st.sigma[d], st.pose[d])
+                 : __fadd_rn(st.pose[d], __fmul_rn(nz[d], st.sigma[d]));
+  }
+  out[0] = c[0];
+  out[1] = c[1];
+  out[2] = libm::wrap_angle(c[2]);
+}
+
+// a pose's heading as the score reads it: cos and sin (one reduction)
+__device__ __forceinline__ overlap::Pose score_pose(float x, float y, float th) {
+  float s, c;
+  libm::sincos(th, &s, &c);
+  return overlap::Pose{x, y, c, s};
 }
 
 // Whether score a (of candidate ai) comes before score b (of bi) in the
@@ -165,7 +186,8 @@ mc_match_kernel(const float* __restrict__ occ, const unsigned char* __restrict__
                 const long long* __restrict__ win_col, int h, int w,
                 const float* __restrict__ pts, const float* __restrict__ beam_w, int r,
                 const float* __restrict__ origin, const float* __restrict__ init_pose,
-                const float* __restrict__ noise, int rounds, int k, float scale,
+                const float* __restrict__ noise, const uint32_t* __restrict__ key,
+                uint32_t* __restrict__ next_key, int fused, int rounds, int k, float scale,
                 float unknown, float sigma_xy, float sigma_theta, int bad_limit,
                 const overlap::Reducer red, float* __restrict__ pose_out,
                 float* __restrict__ prob_out, float* __restrict__ trace_out) {
@@ -191,7 +213,7 @@ mc_match_kernel(const float* __restrict__ occ, const unsigned char* __restrict__
   beam_w += p * r;
   origin += p * 2;
   init_pose += p * 3;
-  noise += p * rounds * k * 3;
+  if (noise != nullptr) noise += p * rounds * k * 3;
   pose_out += p * 3;
   prob_out += p;
   trace_out += p * rounds;
@@ -218,7 +240,32 @@ mc_match_kernel(const float* __restrict__ occ, const unsigned char* __restrict__
 
   for (int i = threadIdx.x; i < 2 * r; i += kThreads) s_pts[i] = __ldg(pts + i);
   for (int i = threadIdx.x; i < r; i += kThreads) s_bw[i] = __ldg(beam_w + i);
-  for (int i = threadIdx.x; i < rounds * k * 3; i += kThreads) s_noise[i] = __ldg(noise + i);
+  if (noise != nullptr) {
+    for (int i = threadIdx.x; i < rounds * k * 3; i += kThreads) s_noise[i] = __ldg(noise + i);
+  } else if (key != nullptr) {
+    // the draws from match p's key, every block all of them: with next_key,
+    // (next, sub) = split(key) and the match draws from sub (the engine's
+    // step); then split(sub, rounds)[r] and erf_inv(uniform) of element
+    // (c, d) under it, jax.random.normal's draw before its multiply by
+    // sqrt(2), which the caller folds into sigma
+    uint32_t s0 = __ldg(key + 2 * p), s1 = __ldg(key + 2 * p + 1);
+    if (next_key != nullptr) {
+      uint32_t n0, n1;
+      tf::threefry(s0, s1, 0u, 0u, n0, n1);
+      if (blockIdx.x == 0 && threadIdx.x == 0) {
+        next_key[2 * p] = n0;
+        next_key[2 * p + 1] = n1;
+      }
+      tf::threefry(s0, s1, 0u, 1u, s0, s1);
+    }
+    const int per_round = k * 3;
+    for (int i = threadIdx.x; i < rounds * per_round; i += kThreads) {
+      const int rd = i / per_round;
+      uint32_t r0, r1;
+      tf::threefry(s0, s1, 0u, static_cast<uint32_t>(rd), r0, r1);
+      s_noise[i] = tf::erf_inv_draw(r0, r1, static_cast<uint32_t>(i - rd * per_round));
+    }
+  }
   if (threadIdx.x == 0) {
     st.pose[0] = __ldg(init_pose + 0);
     st.pose[1] = __ldg(init_pose + 1);
@@ -235,7 +282,7 @@ mc_match_kernel(const float* __restrict__ occ, const unsigned char* __restrict__
   if (threadIdx.x == 0) PROBE_STAMP(stamped, probe::kSetup);
 
   if (g == 0) {  // the first pose, in every block
-    const overlap::Pose q{st.pose[0], st.pose[1], cosf(st.pose[2]), sinf(st.pose[2])};
+    const overlap::Pose q = score_pose(st.pose[0], st.pose[1], st.pose[2]);
     float num, den;
     overlap::beam_sums_at<true>(plane, h, w, q, s_pts, s_bw, r, t, ox, oy, scale, unknown, red,
                                 num, den);
@@ -250,9 +297,18 @@ mc_match_kernel(const float* __restrict__ occ, const unsigned char* __restrict__
     for (int pass = 0; pass < passes; ++pass) {
       const int c = pass * per_pass + rank * kGroups + g;
       if (c >= k) continue;  // the whole group: it waits at the cluster barrier
-      float cand[3];
-      candidate(st, s_noise + (round * k + c) * 3, cand);
-      const overlap::Pose q{cand[0], cand[1], cosf(cand[2]), sinf(cand[2])};
+      // lane 0 of each warp forms the group's candidate and its heading's
+      // sine and cosine (double-precision polynomials) for its 31 lanes
+      overlap::Pose q{};
+      if ((threadIdx.x & 31) == 0) {
+        float cand[3];
+        candidate(st, s_noise + (round * k + c) * 3, fused, cand);
+        q = score_pose(cand[0], cand[1], cand[2]);
+      }
+      q.x = __shfl_sync(0xffffffffu, q.x, 0);
+      q.y = __shfl_sync(0xffffffffu, q.y, 0);
+      q.c = __shfl_sync(0xffffffffu, q.c, 0);
+      q.s = __shfl_sync(0xffffffffu, q.s, 0);
       const int part = probe::kRound + probe::kParts * round;  // the probe's slots
       if (threadIdx.x == 0 && pass == 0) PROBE_STAMP(stamped, part + 0);
       float num, den;
@@ -292,7 +348,7 @@ mc_match_kernel(const float* __restrict__ occ, const unsigned char* __restrict__
         const bool better = best_v > st.prob;
         if (better) {
           float cand[3];  // the winner's pose, from the state it was drawn from
-          candidate(st, s_noise + (round * k + best_i) * 3, cand);
+          candidate(st, s_noise + (round * k + best_i) * 3, fused, cand);
           st.pose[0] = cand[0];
           st.pose[1] = cand[1];
           st.pose[2] = cand[2];
@@ -353,7 +409,10 @@ Kernel kernel_for(int blocks) {
 // map) of map p: occ (a float every occ_stride, map_h x map_w cells a map)
 // where known (bool) holds, `unknown` elsewhere, read in place. It reads
 // pts[p] (r x 2), beam_w[p], origin[p] (the plane's or window's),
-// init_pose[p], noise[p] (rounds x k x 3) and writes pose_out[p],
+// init_pose[p], noise[p] (rounds x k x 3; erf_inv draws with `fused`) or,
+// with noise == nullptr, draws erf_inv values from key[p] (two words; with
+// next_key, from split(key[p])[1], and writes split(key[p])[0] to
+// next_key[p]) and writes pose_out[p],
 // prob_out[p], trace_out[p] (rounds). `shared_bytes` is the dynamic shared
 // memory the caller asks for a block: at least (3 r + 2 * 8 * passes + 3
 // rounds k) floats, passes = ceil(k / (8 * blocks)), and with the kernel's
@@ -365,8 +424,9 @@ extern "C" int mc_match_launch(const float* occ, const unsigned char* known, int
                                int n_p, int map_h, int map_w, const long long* row,
                                const long long* col, int h, int w, const float* pts,
                                const float* beam_w, int r, const float* origin,
-                               const float* init_pose, const float* noise, int rounds,
-                               int k, float scale, float unknown, float sigma_xy,
+                               const float* init_pose, const float* noise,
+                               const uint32_t* key, uint32_t* next_key, int fused,
+                               int rounds, int k, float scale, float unknown, float sigma_xy,
                                float sigma_theta, int bad_limit, int reducer, int radius,
                                float extent, float* pose_out, float* prob_out, float* trace_out,
                                int shared_bytes, void* stream) {
@@ -374,6 +434,8 @@ extern "C" int mc_match_launch(const float* occ, const unsigned char* known, int
   overlap::Reducer red;
   if (!overlap::make_reducer(reducer, radius, extent, &red) || n_p <= 0 || n_p > 65535 || h <= 0 || w <= 0 || h > map_h || w > map_w || r < 0 ||
       rounds < 0 || k < 0 || (rounds > 0 && k == 0) || occ_stride < 1 ||
+      (noise != nullptr && key != nullptr) ||
+      (noise == nullptr && key == nullptr && rounds > 0 && k > 0) ||
       (window ? (row == nullptr || col == nullptr)
               : (occ_stride != 1 || h != map_h || w != map_w))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -406,8 +468,8 @@ extern "C" int mc_match_launch(const float* occ, const unsigned char* known, int
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, occ, known, occ_stride, map_h, map_w, row, col, h, w, pts, beam_w, r,
-      origin, init_pose, noise, rounds, k, scale, unknown, sigma_xy, sigma_theta, bad_limit, red,
-      pose_out, prob_out, trace_out);
+      origin, init_pose, noise, key, next_key, fused || key != nullptr, rounds, k, scale, unknown,
+      sigma_xy, sigma_theta, bad_limit, red, pose_out, prob_out, trace_out);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -39,6 +39,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "libm.cuh"
+
 namespace overlap {
 
 // threads that share one pose: they stride over the beams and their

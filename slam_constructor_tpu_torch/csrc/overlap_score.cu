@@ -39,8 +39,8 @@
 //    IEEE divisions and dependent taps, so every beam gets a thread): a
 //    block of ceil(R / 32) warps (at most 32; past 1,024 beams a thread takes
 //    beams t, t + 1024, ... in chunks) scores one (pose, map), the map on
-//    the grid's y axis. Every thread takes its pose's sincosf itself
-//    (sinf's and cosf's bits: scripts/torch_port/kernel_probe.py --sincos),
+//    the grid's y axis. Every thread takes its pose's libm::sincos itself
+//    (the reference's sinf and cosf, csrc/libm.cuh),
 //    loads its endpoint and weight, taps, and writes its beam's (num, den)
 //    terms to shared memory (+0.0 for a beam of weight 0); after one block
 //    barrier warp 0 folds them in the group's order (overlap::fold_terms,
@@ -91,7 +91,7 @@ constexpr int kWarpsPerBlock = 4;  // a warp-a-pair block's (pose, map) pairs
 // ceil(R / 32), fit in one wave of the card, 32 warps to each of an H100's
 // 132 SMs: every beam then starts at once and a pair takes one beam's
 // chain. A warp a pair from kWarpLayoutPairs pairs on: the card is busy
-// for waves, and a warp spends fewer instructions a beam (one sincosf a
+// for waves, and a warp spends fewer instructions a beam (one libm::sincos a
 // pair, no barrier, no shared memory). Between them the group of 128
 // threads a pair, the kernel's first layout, which neither beat there.
 constexpr long long kBeamLayoutWarps = 132 * 32;
@@ -203,7 +203,7 @@ __device__ __forceinline__ void bilinear_round(const Scan<Plane>& s, const overl
 // The pose poses[0..2] with the cosine and sine of its heading.
 __device__ __forceinline__ overlap::Pose pose_at(const float* __restrict__ pose) {
   float sn, cs;
-  sincosf(__ldg(pose + 2), &sn, &cs);
+  libm::sincos(__ldg(pose + 2), &sn, &cs);
   return overlap::Pose{__ldg(pose + 0), __ldg(pose + 1), cs, sn};
 }
 
@@ -296,8 +296,8 @@ overlap_score_group_kernel(const float* __restrict__ v, int h, int w,
   out += m * n_k;
   if (threadIdx.x == 0) {
     const float th = poses[3 * k + 2];
-    trig[0] = cosf(th);
-    trig[1] = sinf(th);
+    trig[0] = libm::cos(th);
+    trig[1] = libm::sin(th);
   }
   __syncthreads();
   if (threadIdx.x == 0) PROBE_STAMP(b, 2);

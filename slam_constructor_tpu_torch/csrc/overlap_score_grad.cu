@@ -69,8 +69,8 @@ overlap_score_grad_kernel(const float* __restrict__ v, int h, int w,
   const long long o = static_cast<long long>(m) * k_poses + k;
   if (t == 0) {
     const float th = poses[2];
-    trig[0] = cosf(th);
-    trig[1] = sinf(th);
+    trig[0] = libm::cos(th);
+    trig[1] = libm::sin(th);
   }
   __syncthreads();
   const overlap::Pose p{poses[0], poses[1], trig[0], trig[1]};

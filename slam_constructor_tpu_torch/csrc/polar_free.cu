@@ -61,6 +61,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "libm.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -113,7 +115,10 @@ polar_free_kernel(const float* __restrict__ ranges,
   const float ox = __ldg(origin + 0), oy = __ldg(origin + 1);
   const float px = __ldg(pose + 0), py = __ldg(pose + 1), ptheta = __ldg(pose + 2);
   const float b0 = __ldg(bearings);
-  float db = (__ldg(bearings + (r - 1)) - b0) / static_cast<float>(r > 1 ? r - 1 : 1);
+  // the reference's jitted code divides by the constant r - 1 as a product
+  // with its float32 reciprocal
+  float db = __fmul_rn(__ldg(bearings + (r - 1)) - b0,
+                       __fdiv_rn(1.0f, static_cast<float>(r > 1 ? r - 1 : 1)));
   if (fabsf(db) < 1e-6f) db = 1.0f;
   const float adb = fabsf(db);
   // 2 pi in f32
@@ -124,18 +129,19 @@ polar_free_kernel(const float* __restrict__ ranges,
   const int row = blockIdx.y;
   const int col = blockIdx.x * kThreads + threadIdx.x;
   if (row < h && col < w) {
-    const float y = oy + (static_cast<float>(row) + 0.5f) * scale;
-    const float x = ox + (static_cast<float>(col) + 0.5f) * scale;
+    // the centre and d^2 fused as the reference's jitted code fuses them
+    const float y = libm::fma32(static_cast<float>(row) + 0.5f, scale, oy);
+    const float x = libm::fma32(static_cast<float>(col) + 0.5f, scale, ox);
     const float dy = y - py;
     const float dx = x - px;
-    const float d = sqrtf(dx * dx + dy * dy);
+    const float d = libm::sqrt(libm::fma32(dx, dx, dy * dy));
     // no beam reaches further than this, whatever the cell's bin
     const float reach = s_rng[r] - hole_half;
     float wgt = 0.0f;
     if (!(d >= max_range || d >= reach)) {
-      const float ang = atan2f(dy, dx) - ptheta;
+      const float ang = libm::atan2(dy, dx) - ptheta;
       const float t = ang - b0;
-      const float binf = atan2f(sinf(t), cosf(t)) / db;
+      const float binf = libm::wrap_angle(t) / db;
       int bini = static_cast<int>(rintf(binf));
       const bool ok = full_circle || (bini >= 0 && bini <= r - 1);
       if (full_circle) {
@@ -146,7 +152,7 @@ polar_free_kernel(const float* __restrict__ ranges,
       }
       const float cell_range = s_rng[bini];
       if (ok && d < cell_range - hole_half && d < max_range) {
-        wgt = 2.0f * atanf(scale / (2.0f * fmaxf(d, scale * 0.5f))) / adb;
+        wgt = 2.0f * libm::atan(scale / (2.0f * fmaxf(d, scale * 0.5f))) / adb;
       }
     }
     out[row * w + col] = wgt;

@@ -43,7 +43,7 @@
 // A band block, for each scan of its plane in order:
 // 1. stages the scan's beams (direction, range, flags) in shared memory,
 //    kThreads beams at a time;
-// 2. free trace: a sample's row floor(((py + t_i dy) - oy) / scale),
+// 2. free trace: a sample's row floor((fma(t_i, dy, py) - oy) * (1 / scale)),
 //    t_i = (i + 0.5) step, is monotone in i (every IEEE op in that chain
 //    is), so a beam's samples in the band are one range of i, found by a
 //    search from where the real line crosses, with the same arithmetic
@@ -79,9 +79,12 @@
 //
 // Numerics: built without --use_fast_math and with --fmad=false, so every
 // product and sum rounds on its own, as the twin's separate PyTorch ops do,
-// in the twin's order; divisions by the cell size are IEEE divisions
-// (grid.div_scale), the directions cosf/sinf of pose[2] + bearing, the TBM
-// powers expf(k logf(max(base, 1e-9))), BayesBase's powf(1 - q, w), the
+// in the twin's order; a sample's cell is a product with the float32
+// reciprocal of the cell size (grid.cell_coord: the reference's jitted
+// form), the window corners IEEE divisions (grid.div_scale), the
+// directions the reference's cosf/sinf of pose[2] + bearing (libm.cuh), the
+// TBM powers exp(k log(max(base, 1e-9))) with XLA's exp and log (libm.cuh),
+// BayesBase's powf(1 - q, w), the
 // four masses summed (m0 + m2) + (m1 + m3), the order of the card's sum over
 // the last dimension (PyTorch's reduce: a lane a mass, then a shuffle tree
 // with offsets 2 and 1). A NaN sample position is dropped.
@@ -90,6 +93,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "libm.cuh"
 
 namespace {
 
@@ -145,6 +150,7 @@ struct Insert {
   long long origin_stride;     // floats from one origin to the next (0: shared)
   int sh, sw;                  // the window's (plane's) side
   float scale, scale2;         // the cell size and its square (as the twin rounds them)
+  float inv_scale, inv_scale2;  // their float32 reciprocals: a sample's cell, an area's share
   int n_scans;                 // planes: the scans (fold: one a map)
   const long long* plane_of;   // planes: i64[n_scans] or null (scan s is plane s)
   const float* pose;           // f32[n_scans, 3]
@@ -218,8 +224,12 @@ struct Frame {
 // The beam flags staged beside a beam's direction and range.
 constexpr float kValid = 1.0f, kEvidence = 2.0f;  // valid, and valid with range <= max_range
 
-__device__ __forceinline__ float cell_of(float p, float d, float t, float o, float scale) {
-  return floorf(((p + t * d) - o) / scale);
+// a sample's cell coordinate: the reference's jitted code fuses the
+// sample's position p + t d into one multiply-add and divides by the
+// constant cell size as a product with its float32 reciprocal (ROADMAP
+// trap m), and so does the insert
+__device__ __forceinline__ float cell_of(float p, float d, float t, float o, float inv_scale) {
+  return floorf(__fmul_rn(__fmaf_rn(t, d, p) - o, inv_scale));
 }
 
 // The first i in [lo, hi) where pred(i) holds (pred false ... true), else hi.
@@ -440,16 +450,16 @@ __device__ __forceinline__ bool occupied_sample(const Insert& s, const Frame& f,
   bool ok = b.w >= kEvidence;
   if (kind == 1) {
     const float tb = b.z + s.hole_half * __ldg(s.blur_table + k);
-    fc = cell_of(f.px, b.x, tb, f.ox, s.scale);
-    fr = cell_of(f.py, b.y, tb, f.oy, s.scale);
+    fc = cell_of(f.px, b.x, tb, f.ox, s.inv_scale);
+    fr = cell_of(f.py, b.y, tb, f.oy, s.inv_scale);
     w = __ldg(s.blur_table + s.blur + k);
     sv = __ldg(s.blur_table + 2 * s.blur + k);
     return ok && tb > 0.0f;
   }
-  const float ex = f.px + b.z * b.x;
-  const float ey = f.py + b.z * b.y;
-  fc = floorf((ex - f.ox) / s.scale);
-  fr = floorf((ey - f.oy) / s.scale);
+  const float ex = __fmaf_rn(b.z, b.x, f.px);
+  const float ey = __fmaf_rn(b.z, b.y, f.py);
+  fc = floorf(__fmul_rn(ex - f.ox, s.inv_scale));
+  fr = floorf(__fmul_rn(ey - f.oy, s.inv_scale));
   if (!s.area) {
     w = sv = 1.0f;
     return ok;
@@ -464,7 +474,7 @@ __device__ __forceinline__ bool occupied_sample(const Insert& s, const Frame& f,
       clamp_min(fminf(lo_x + s.scale, ex + s.hole_half) - fmaxf(lo_x, ex - s.hole_half), 0.0f);
   const float ov_y =
       clamp_min(fminf(lo_y + s.scale, ey + s.hole_half) - fmaxf(lo_y, ey - s.hole_half), 0.0f);
-  const float a = ok ? (ov_x * ov_y) / s.scale2 : 0.0f;
+  const float a = ok ? __fmul_rn(ov_x * ov_y, s.inv_scale2) : 0.0f;
   w = sv = a;
   return a > 0.0f;
 }
@@ -496,7 +506,7 @@ __device__ __forceinline__ void beam_chunk(const Insert& s, Band& b, const Frame
     const float range = __ldg(s.ranges + scan * s.ranges_stride + beam);
     const bool valid = __ldg(s.valid + scan * s.valid_stride + beam);
     const float flags = !valid ? 0.0f : (range <= s.max_range ? kEvidence : kValid);
-    b.beam[t] = make_float4(cosf(ang), sinf(ang), range, flags);
+    b.beam[t] = make_float4(libm::cos(ang), libm::sin(ang), range, flags);
   }
   __syncthreads();
   phase_done(b, kStage);
@@ -513,7 +523,7 @@ __device__ __forceinline__ void beam_chunk(const Insert& s, Band& b, const Frame
     });
     auto row = [&](int i) {
       const float t_i = (static_cast<float>(i) + 0.5f) * step;
-      return cell_of(f.py, bm.y, t_i, f.oy, s.scale);
+      return cell_of(f.py, bm.y, t_i, f.oy, s.inv_scale);
     };
     // the sample at which the beam's row crosses row boundary r, on the real line
     auto cross = [&](float r) {
@@ -523,7 +533,7 @@ __device__ __forceinline__ void beam_chunk(const Insert& s, Band& b, const Frame
     if constexpr (kPool) {  // and the tile's columns
       auto col = [&](int i) {
         const float t_i = (static_cast<float>(i) + 0.5f) * step;
-        return cell_of(f.px, bm.x, t_i, f.ox, s.scale);
+        return cell_of(f.px, bm.x, t_i, f.ox, s.inv_scale);
       };
       auto cross_c = [&](float c) {
         return ceilf(((c * s.scale + f.ox) - f.px) / (bm.x * step) - 0.5f);
@@ -538,11 +548,11 @@ __device__ __forceinline__ void beam_chunk(const Insert& s, Band& b, const Frame
   // --- whether the beam's occupied samples can reach the band ------------
   int rel = 0;
   if (t < n && bm.w >= kEvidence) {
-    const float er = floorf(((f.py + bm.z * bm.y) - f.oy) / s.scale);
+    const float er = floorf(__fmul_rn(__fmaf_rn(bm.z, bm.y, f.py) - f.oy, s.inv_scale));
     const float ar = s.area ? 1.0f : 0.0f;
     if ((kinds & 1) && meets(er - ar, er + ar, r0, r1)) {
       if constexpr (kPool) {
-        const float ec = floorf(((f.px + bm.z * bm.x) - f.ox) / s.scale);
+        const float ec = floorf(__fmul_rn(__fmaf_rn(bm.z, bm.x, f.px) - f.ox, s.inv_scale));
         rel = meets(ec - ar, ec + ar, c0, c1);
       } else {
         rel = 1;
@@ -551,11 +561,11 @@ __device__ __forceinline__ void beam_chunk(const Insert& s, Band& b, const Frame
     if ((kinds & 2) && s.blur > 0) {
       const float ta = bm.z + s.hole_half * __ldg(s.blur_table);
       const float tz = bm.z + s.hole_half * __ldg(s.blur_table + s.blur - 1);
-      if (meets(cell_of(f.py, bm.y, ta, f.oy, s.scale),
-                cell_of(f.py, bm.y, tz, f.oy, s.scale), r0, r1)) {
+      if (meets(cell_of(f.py, bm.y, ta, f.oy, s.inv_scale),
+                cell_of(f.py, bm.y, tz, f.oy, s.inv_scale), r0, r1)) {
         if constexpr (kPool) {
-          if (meets(cell_of(f.px, bm.x, ta, f.ox, s.scale),
-                    cell_of(f.px, bm.x, tz, f.ox, s.scale), c0, c1)) {
+          if (meets(cell_of(f.px, bm.x, ta, f.ox, s.inv_scale),
+                    cell_of(f.px, bm.x, tz, f.ox, s.inv_scale), c0, c1)) {
             rel = 1;
           }
         } else {
@@ -595,12 +605,12 @@ __device__ __forceinline__ void beam_chunk(const Insert& s, Band& b, const Frame
       const int i = b.first[j] + (item - b.start[j]);
       if (!have_prev && i > 0) {
         const float tp = (static_cast<float>(i - 1) + 0.5f) * s.step;
-        pr = cell_of(f.py, bj.y, tp, f.oy, s.scale);
-        pc = cell_of(f.px, bj.x, tp, f.ox, s.scale);
+        pr = cell_of(f.py, bj.y, tp, f.oy, s.inv_scale);
+        pc = cell_of(f.px, bj.x, tp, f.ox, s.inv_scale);
       }
       const float ti = (static_cast<float>(i) + 0.5f) * s.step;
-      const float fc = cell_of(f.px, bj.x, ti, f.ox, s.scale);
-      const float fr = cell_of(f.py, bj.y, ti, f.oy, s.scale);
+      const float fc = cell_of(f.px, bj.x, ti, f.ox, s.inv_scale);
+      const float fr = cell_of(f.py, bj.y, ti, f.oy, s.inv_scale);
       const bool fresh = i == 0 || fr != pr || fc != pc;
       if (fresh && fr >= r0 && fr < r1 && fc >= c0 && fc < c1) {
         atomicAdd(&b.free[(static_cast<int>(fr) - b.r0) * b.cw + (static_cast<int>(fc) - b.c0)], 1);
@@ -745,9 +755,9 @@ __device__ __forceinline__ void fold_cell(const Insert& s, const float* b, float
     const float frac = w - k;
     const float oo = s.quality * obs;
     const float ee = s.quality * (1.0f - obs);
-    const float pu = expf(k * logf(clamp_min(s.base, s.eps)));
-    const float po = expf(k * logf(clamp_min(oo + s.base, s.eps)));
-    const float pe = expf(k * logf(clamp_min(ee + s.base, s.eps)));
+    const float pu = libm::exp(k * libm::log(clamp_min(s.base, s.eps)));
+    const float po = libm::exp(k * libm::log(clamp_min(oo + s.base, s.eps)));
+    const float pe = libm::exp(k * libm::log(clamp_min(ee + s.base, s.eps)));
     const float mo0 = b[0], me0 = b[1], mu0 = b[2], mx0 = b[3];
     const float total = ((mo0 + me0) + mu0) + mx0;
     const float mo = mo0 * po + mu0 * (po - pu);
@@ -1222,7 +1232,7 @@ __device__ void mark_beams(const Insert& s, int g0, int g1, float q, unsigned* b
         const float ang =
             __ldg(s.pose + 3 * scan + 2) + __ldg(s.bearings + scan * s.bearings_stride + beam);
         const float range = __ldg(s.ranges + scan * s.ranges_stride + beam);
-        bm = make_float4(cosf(ang), sinf(ang), range, range <= s.max_range ? kEvidence : kValid);
+        bm = make_float4(libm::cos(ang), libm::sin(ang), range, range <= s.max_range ? kEvidence : kValid);
         if (q > 0.0f) {  // a free sample's weight is q
           const float limit = range - s.hole_half;
           n = first_true(0, s.n_free, ceilf(__fdividef(limit, step) - 0.5f), [&](int i) {
@@ -1233,10 +1243,10 @@ __device__ void mark_beams(const Insert& s, int g0, int g1, float q, unsigned* b
           const float px = __ldg(s.pose + 3 * scan), py = __ldg(s.pose + 3 * scan + 1);
           const float ox = __ldg(s.origin), oy = __ldg(s.origin + 1);
           const float t0 = 0.5f * step, t1 = (static_cast<float>(n - 1) + 0.5f) * step;
-          ends = make_float4(cell_of(py, bm.y, t0, oy, s.scale),
-                             cell_of(py, bm.y, t1, oy, s.scale),
-                             cell_of(px, bm.x, t0, ox, s.scale),
-                             cell_of(px, bm.x, t1, ox, s.scale));
+          ends = make_float4(cell_of(py, bm.y, t0, oy, s.inv_scale),
+                             cell_of(py, bm.y, t1, oy, s.inv_scale),
+                             cell_of(px, bm.x, t0, ox, s.inv_scale),
+                             cell_of(px, bm.x, t1, ox, s.inv_scale));
           if (ends.x == ends.x && ends.y == ends.y && ends.z == ends.z && ends.w == ends.w) {
             const int2 br = boundaries(ends.x, ends.y, bk, s.th, rows);
             const int2 bc = boundaries(ends.z, ends.w, bk, s.tw, cols);
@@ -1280,10 +1290,10 @@ __device__ void mark_beams(const Insert& s, int g0, int g1, float q, unsigned* b
       if (n > 0 && k <= bd.y + bd.w) {  // the free trace: the first sample, or a boundary's
         const float4 ends = c.ends[j];
         auto row = [&](int i) {
-          return cell_of(f.py, bm.y, (static_cast<float>(i) + 0.5f) * step, f.oy, s.scale);
+          return cell_of(f.py, bm.y, (static_cast<float>(i) + 0.5f) * step, f.oy, s.inv_scale);
         };
         auto col = [&](int i) {
-          return cell_of(f.px, bm.x, (static_cast<float>(i) + 0.5f) * step, f.ox, s.scale);
+          return cell_of(f.px, bm.x, (static_cast<float>(i) + 0.5f) * step, f.ox, s.inv_scale);
         };
         int i0 = 0;
         if (k > 0) {  // a boundary that the row (k <= bd.y) or the column passes
@@ -1296,7 +1306,7 @@ __device__ void mark_beams(const Insert& s, int g0, int g1, float q, unsigned* b
           // a guess: a fast division will do
           const float guess = ceilf(__fdividef((a * s.scale + o0) - p0, d0 * step) - 0.5f);
           i0 = first_true(1, n, guess, [&](int i) {
-            const float v = cell_of(p0, d0, (static_cast<float>(i) + 0.5f) * step, o0, s.scale);
+            const float v = cell_of(p0, d0, (static_cast<float>(i) + 0.5f) * step, o0, s.inv_scale);
             return up ? v >= a : v < a;
           });
         }
@@ -1926,7 +1936,9 @@ extern "C" int scan_insert_launch(
   s.sh = sh;
   s.sw = sw;
   s.scale = scale;
+  s.inv_scale = 1.0f / scale;
   s.scale2 = scale2;
+  s.inv_scale2 = 1.0f / scale2;
   s.n_scans = p;
   set_scan(s, pose, ranges, ranges_stride, bearings, bearings_stride, valid, valid_stride, r,
            n_free, step, hole_half, max_range, area, blur, blur_table, free_plane);
@@ -1973,7 +1985,9 @@ extern "C" int scan_planes_launch(
   s.sh = sh;
   s.sw = sw;
   s.scale = scale;
+  s.inv_scale = 1.0f / scale;
   s.scale2 = scale2;
+  s.inv_scale2 = 1.0f / scale2;
   s.n_scans = n_scans;
   s.plane_of = plane_of;
   set_scan(s, pose, ranges, ranges_stride, bearings, bearings_stride, valid, valid_stride, r,
@@ -2038,7 +2052,9 @@ extern "C" int pool_prepare_launch(
   s.tw = tw;
   s.origin = origin;
   s.scale = scale;
+  s.inv_scale = 1.0f / scale;
   s.scale2 = scale2;
+  s.inv_scale2 = 1.0f / scale2;
   s.n_scans = p;
   set_scan(s, pose, ranges, ranges_stride, bearings, bearings_stride, valid, valid_stride, r,
            n_free, step, hole_half, max_range, area, blur, blur_table, nullptr);
@@ -2083,7 +2099,9 @@ extern "C" int pool_insert_launch(
   s.tw = tw;
   s.origin = origin;
   s.scale = scale;
+  s.inv_scale = 1.0f / scale;
   s.scale2 = scale2;
+  s.inv_scale2 = 1.0f / scale2;
   s.n_scans = p;
   set_scan(s, pose, ranges, ranges_stride, bearings, bearings_stride, valid, valid_stride, r,
            n_free, step, hole_half, max_range, area, blur, blur_table, nullptr);

@@ -30,7 +30,9 @@
 // fuses fused and the others rounded on their own. Every operation is an
 // explicit intrinsic: __fmaf_rn where XLA fuses, __fmul_rn / __fadd_rn /
 // __fdiv_rn / __fsqrt_rn where it does not, so no contraction by nvcc can
-// change a bit (the build passes --fmad=false too).
+// change a bit (the build passes --fmad=false too). The hash, the uniform
+// and the transform are csrc/threefry.cuh's (mc_match.cu draws with them
+// too), XLA's log1p csrc/libm.cuh's.
 //
 // What bounds it on an H100: a hash is 20 rounds of an add, a rotate (one
 // funnel shift) and a xor, plus the key schedule: ~70 32-bit integer
@@ -42,6 +44,8 @@
 // one launch a step and nothing read on the host.
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "threefry.cuh"
 
 namespace {
 
@@ -56,104 +60,7 @@ struct Outputs {
 };
 // kTransform: the normal of the uniform whose 23 mantissa bits are the
 // element's index, not its hash (the transform over every input, checked)
-enum Kind : int { kKey = 0, kBits = 1, kUniform = 2, kNormal = 3, kTransform = 4 };
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
-  return __funnelshift_l(x, x, r);
-}
-
-// threefry2x32, 20 rounds: (y0, y1) of counter (x0, x1) under key (k0, k1)
-__device__ __forceinline__ void threefry(uint32_t k0, uint32_t k1, uint32_t x0, uint32_t x1,
-                                         uint32_t& y0, uint32_t& y1) {
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  x0 += ks[0];
-  x1 += ks[1];
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      x0 += x1;
-      x1 = rotl(x1, rot[i % 2][j]) ^ x0;
-    }
-    x0 += ks[(i + 1) % 3];
-    x1 += ks[(i + 2) % 3] + uint32_t(i + 1);
-  }
-  y0 = x0;
-  y1 = x1;
-}
-
-__device__ __forceinline__ float bits_f(uint32_t b) { return __uint_as_float(b); }
-
-// XLA's CPU log1p of x (f32), as ops/prng.py log1p_xla
-__device__ float log1p_xla(float x) {
-  // |x| < sqrt(2) - 1: x + (-x^2 / 2 + x^3 N(x) / D(x))
-  const float x2 = __fmul_rn(x, x);
-  const float z0 = __fmul_rn(x, 0.0f);
-  float den = __fadd_rn(z0, 1.0f);
-  den = __fmaf_rn(den, x, bits_f(0x417101ADu));
-  den = __fmaf_rn(den, x, bits_f(0x42A6185Bu));
-  den = __fmaf_rn(den, x, bits_f(0x435DC32Du));
-  den = __fmaf_rn(den, x, bits_f(0x439A8CA3u));
-  den = __fmaf_rn(den, x, bits_f(0x43586D8Au));
-  den = __fmaf_rn(den, x, bits_f(0x42707982u));
-  float num = __fadd_rn(z0, bits_f(0x383DE04Bu));
-  num = __fmaf_rn(num, x, bits_f(0x3EFF40C5u));
-  num = __fmaf_rn(num, x, bits_f(0x40D284FAu));
-  num = __fmaf_rn(num, x, bits_f(0x41EF4B9Cu));
-  num = __fmaf_rn(num, x, bits_f(0x4273CC76u));
-  num = __fmaf_rn(num, x, bits_f(0x426473ADu));
-  num = __fmaf_rn(num, x, bits_f(0x41A05101u));
-  const float s = __fmul_rn(__fmul_rn(x, x2), __fdiv_rn(num, den));
-  const float small = __fadd_rn(x, __fmaf_rn(-0.5f, x2, s));
-  // else: Cephes' logf of v = 1 + x
-  const float v = __fadd_rn(x, 1.0f);
-  const float vm = v > bits_f(0x00800000u) ? v : bits_f(0x00800000u);
-  const uint32_t iv = __float_as_uint(vm);
-  const float m = __uint_as_float((iv & 0x7FFFFFu) | 0x3F000000u);
-  const float e1 = __fadd_rn(float(int(iv >> 23) - 127), 1.0f);
-  const bool below = m < bits_f(0x3F3504F3u);
-  const float xp = __fadd_rn(__fadd_rn(m, -1.0f), below ? m : 0.0f);
-  const float e = below ? __fsub_rn(e1, 1.0f) : e1;
-  const float xx = __fmul_rn(xp, xp);
-  const float x3 = __fmul_rn(xx, xp);
-  const float p1 = __fmaf_rn(__fmaf_rn(xp, bits_f(0x3D9021BBu), bits_f(0xBDEBD1B8u)), xp,
-                             bits_f(0x3DEF251Au));
-  const float p2 = __fmaf_rn(__fmaf_rn(xp, bits_f(0xBDFE5D4Fu), bits_f(0x3E11E9BFu)), xp,
-                             bits_f(0xBE2AAE50u));
-  const float p3 = __fmaf_rn(__fmaf_rn(xp, bits_f(0x3E4CCEACu), bits_f(0xBE7FFFFCu)), xp,
-                             bits_f(0x3EAAAAAAu));
-  const float t = __fmaf_rn(__fmaf_rn(p1, x3, p2), x3, p3);
-  const float y = __fmaf_rn(t, x3, __fmul_rn(e, bits_f(0xB95E8083u)));
-  float big = __fmaf_rn(e, bits_f(0x3F318000u), __fadd_rn(__fmaf_rn(-0.5f, xx, xp), y));
-  if (!(v > 0.0f)) big = __uint_as_float(0xFFFFFFFFu);  // v <= 0 or NaN: NaN
-  if (v == 0.0f) big = __uint_as_float(0xFF800000u);
-  if (v == __uint_as_float(0x7F800000u)) big = __uint_as_float(0x7F800000u);
-  return fabsf(x) < bits_f(0x3ED413CDu) ? small : big;
-}
-
-// sqrt(2) erf_inv(x) as jax.random.normal computes it (ops/prng.py
-// normal_transform)
-__device__ float normal_transform(float x) {
-  const float lg = log1p_xla(__fmul_rn(-x, x));
-  const bool lt = lg > -5.0f;  // w = -log1p(-x^2) < 5
-  const float z = lt ? __fsub_rn(-2.5f, lg) : __fadd_rn(__fsqrt_rn(-lg), -3.0f);
-  const uint32_t c_lt[9] = {0x32F16588u, 0x34B84B36u, 0xB66C7357u, 0xB6935AC1u, 0x396532DBu,
-                            0xBAA45408u, 0xBB88E4EFu, 0x3E7C8F63u, 0x3FC02E2Fu};
-  const uint32_t c_ge[9] = {0xB951F09Bu, 0x38D3B56Bu, 0x3AB0DC72u, 0xBB70BDE7u, 0x3BBC127Bu,
-                            0xBBF9C5D7u, 0x3C1AA57Eu, 0x3F8036DBu, 0x40354F7Eu};
-  float p = bits_f(lt ? c_lt[0] : c_ge[0]);
-#pragma unroll
-  for (int i = 1; i < 9; ++i) p = __fmaf_rn(z, p, bits_f(lt ? c_lt[i] : c_ge[i]));
-  const float r = __fmul_rn(x, fabsf(x) == 1.0f ? __uint_as_float(0x7F800000u) : p);
-  return __fmul_rn(r, bits_f(0x3FB504F3u));
-}
-
-__device__ __forceinline__ float uniform(uint32_t b, float lo, float span) {
-  const float f = __fsub_rn(__uint_as_float((b >> 9) | 0x3F800000u), 1.0f);
-  const float u = __fmaf_rn(f, span, lo);
-  return u > lo ? u : lo;  // max(lo, u); u is never NaN
-}
+enum Kind : int { kKey = 0, kBits = 1, kUniform = 2, kNormal = 3, kTransform = 4, kErfinv = 5 };
 
 // One record a blockIdx.y, an element a thread. A record (kRecordWords
 // int32): kind, (unused), elements, leaf count, path length, min and max
@@ -186,7 +93,7 @@ __global__ void prng_draws_kernel(const int32_t* __restrict__ plan, const uint32
 #pragma unroll
   for (int j = 0; j < kMaxPath; ++j) {
     if (j >= len) break;
-    threefry(k0, k1, 0u, idx[j], k0, k1);
+    tf::threefry(k0, k1, 0u, idx[j], k0, k1);
   }
   uint32_t* dst = outs.p[blockIdx.y];
   if (kind == kKey) {
@@ -195,14 +102,16 @@ __global__ void prng_draws_kernel(const int32_t* __restrict__ plan, const uint32
     return;
   }
   uint32_t y0, y1;
-  threefry(k0, k1, uint32_t(uint64_t(leaf) >> 32), uint32_t(leaf), y0, y1);
+  tf::threefry(k0, k1, uint32_t(uint64_t(leaf) >> 32), uint32_t(leaf), y0, y1);
   const uint32_t b = kind == kTransform ? (uint32_t(leaf) & 0x7FFFFFu) << 9 : y0 ^ y1;
   if (kind == kBits) {
     dst[e] = b;
     return;
   }
-  const float u = uniform(b, __int_as_float(rec[5]), __int_as_float(rec[7]));
-  dst[e] = __float_as_uint(kind == kUniform ? u : normal_transform(u));
+  const float u = tf::uniform(b, __int_as_float(rec[5]), __int_as_float(rec[7]));
+  dst[e] = __float_as_uint(kind == kUniform ? u
+                           : kind == kErfinv ? tf::erf_inv(u)
+                                             : tf::normal_transform(u));
 }
 
 }  // namespace

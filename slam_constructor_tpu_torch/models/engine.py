@@ -46,12 +46,12 @@ from ..device import resolve_device
 from ..ops import blockmap
 from ..ops import cells as cellslib
 from ..ops import grid as gridlib
-from ..ops import kernels, prng
+from ..ops import kernels, libm, prng
 from ..ops import m3rsm as m3rsmlib
 from ..ops import matchers as matcherslib
 from ..ops import raycast, scoring
 from ..ops.geometry import apply_pose, compose
-from ..ops.scan import LaserScan, angle_histogram, scan_points
+from ..ops.scan import LaserScan, angle_histogram, endpoint_angles, scan_points
 
 Tensor = torch.Tensor
 
@@ -178,15 +178,14 @@ def _point_weights(cfg: EngineConfig, scan: LaserScan) -> Tensor | None:
         return None
     hist = angle_histogram(scan)
     n_bins = hist.shape[0]
-    pts = scan_points(scan)
-    d = pts[1:] - pts[:-1]
-    tangent = torch.atan2(d[..., 1], d[..., 0])  # [R-1]
+    tangent = endpoint_angles(scan)  # [R-1]
     tangent = torch.cat([tangent, tangent[-1:]])  # [R]
     bins = torch.clamp(
         torch.floor((tangent + math.pi) / (2 * math.pi) * n_bins), 0, n_bins - 1
     ).to(torch.int64)
     # hist is normalized; hist * n_bins == 1 for a uniform direction spread
-    return 1.0 / (1.0 + hist[bins] * n_bins)
+    # (the reference's code fuses the multiply-add)
+    return 1.0 / libm.fma32(hist[bins], float(n_bins), 1.0)
 
 
 def _refine_cfg(cfg: EngineConfig):
@@ -238,6 +237,15 @@ def step_plan(cfg: EngineConfig) -> tuple:
     return _step_draws(cfg)[0]
 
 
+@functools.lru_cache(maxsize=64)
+def keyed_match(cfg: EngineConfig) -> bool:
+    """Whether the step's Monte-Carlo match draws its own numbers from the
+    step's key inside its launch (``monte_carlo_match(..., step_key=)``),
+    so the step issues no ``prng_draws``: a Monte-Carlo match with no
+    Monte-Carlo refine (which would take the match's normals)."""
+    return cfg.matcher == "monte_carlo" and _step_draws(cfg)[2] is None
+
+
 def draw_step(cfg: EngineConfig, key: Tensor, noise: Tensor | None = None):
     """A step's random numbers from the state's ``key`` (:func:`step_plan`):
     (next key, the match's normals, the refine's normals), in one launch of
@@ -263,8 +271,10 @@ def slam_step(
 
     ``quality`` scales this scan's observation weight. ``noise`` f32[rounds,
     batch, 3] injects the matcher's standard normals; otherwise they come
-    from the state's key (:func:`draw_step`), which the step advances
-    either way. The M3RSM matcher matches against the state's
+    from the state's key, which the step advances either way: a
+    Monte-Carlo match without a Monte-Carlo refine draws them inside its
+    own launch (:func:`keyed_match`), any other step in one launch of
+    ``kernels.prng_draws`` (:func:`draw_step`). The M3RSM matcher matches against the state's
     pyramid and draws nothing; the returned state holds new planes. On the
     tiled map the match runs on the ``window_tiles`` window around the
     prior, and the insert allocates tiles in the pool.
@@ -272,12 +282,17 @@ def slam_step(
     _, match_fn = matcherslib.MATCHERS[cfg.matcher]
     prior = compose(state.pose, odom_delta)
     pw = _point_weights(cfg, scan)
-    key, noise, refine_noise = draw_step(cfg, state.key, noise)
+    keyed = noise is None and keyed_match(cfg)
+    if keyed:  # the match draws from the step's key and returns the next one
+        key, refine_noise, draws = None, None, {"step_key": state.key}
+    else:
+        (key, noise, refine_noise), draws = draw_step(cfg, state.key, noise), {}
     if cfg.map_storage == "tiled":
         window = blockmap.extract_window(
             state.gm, cfg.cell_model, prior[:2], cfg.window_tiles, cfg.window_tiles)
         view = scoring.MapView.of(window, cfg.cell_model)
-        res = match_fn(view, scan, prior, None, cfg.matcher_cfg, pw, noise)
+        res = match_fn(view, scan, prior, None, cfg.matcher_cfg, pw, noise, **draws)
+        key = res.next_key if keyed else key
         res = _refine(cfg, view, scan, res, pw, refine_noise)
         do_insert = (res.prob >= cfg.min_insert_prob) | (state.step == 0)
         # q = 0 (gated) leaves zero-weight samples: no tile allocated, no fold
@@ -292,7 +307,8 @@ def slam_step(
         # one prior-centred window a match (M3RSM windows its own pyramid)
         view = scoring.window_view(view, prior[:2], cfg.match_window)
     live = {"pyramid": pyramid} if pyramid else {}
-    res = match_fn(view, scan, prior, None, cfg.matcher_cfg, pw, noise, **live)
+    res = match_fn(view, scan, prior, None, cfg.matcher_cfg, pw, noise, **live, **draws)
+    key = res.next_key if keyed else key
     res = _refine(cfg, view, scan, res, pw, refine_noise)
     do_insert = (res.prob >= cfg.min_insert_prob) | (state.step == 0)
     q = torch.where(do_insert, quality, 0.0)

@@ -63,7 +63,7 @@ from ..ops import cow
 from ..ops import grid as gridlib
 from ..ops import m3rsm as _m3rsm  # noqa: F401  (registers "m3rsm" in MATCHERS)
 from ..ops import matchers as matcherslib
-from ..ops import kernels, prng, raycast, resample, scoring
+from ..ops import kernels, libm, prng, raycast, resample, scoring
 from ..ops.geometry import compose, wrap_angle
 from ..ops.scan import LaserScan
 
@@ -287,22 +287,21 @@ def _improved_proposal(cfg, view, scans, res, centers, sigma, draws):
     d = torch.cat([d[..., :2], wrap_angle(d[..., 2:])], dim=-1)
     # sigma is a body-frame spread: rotate the world-frame probe offsets
     # into the prior's frame before the axis-aligned Gaussian
-    ch, sh = torch.cos(centers[:, 2:3]), torch.sin(centers[:, 2:3])
+    sh, ch = libm.sincos(centers[:, 2:3])
     d_body = torch.stack(
         [ch * d[..., 0] + sh * d[..., 1], -sh * d[..., 0] + ch * d[..., 1], d[..., 2]], dim=-1)
     log_motion = -0.5 * ((d_body / torch.clamp(sigma, min=1e-4)) ** 2).sum(-1)
-    logtau = cfg.weight_gamma * torch.log(probs + 1e-6) + log_motion
-    lse = torch.logsumexp(logtau, dim=-1)
-    wj = torch.exp(logtau - lse[:, None])  # [P, J], sums to 1
+    logtau = cfg.weight_gamma * libm.log(probs + 1e-6, inplace=True) + log_motion
+    wj, lse = libm.softmax_lse(logtau)  # wj [P, J], sums to 1
     dm = cand - mode
     dm = torch.cat([dm[..., :2], wrap_angle(dm[..., 2:])], dim=-1)
     mu = (wj[..., None] * dm).sum(1)
     var = (wj[..., None] * (dm - mu[:, None, :]) ** 2).sum(1)
     # floor: a quarter of the probe radius keeps diversity on a peaked surface
     var = var + (0.25 * rad) ** 2
-    pose = res.pose + mu + draws.sample * torch.sqrt(var)
+    pose = res.pose + mu + draws.sample * libm.sqrt(var, inplace=True)
     pose = torch.cat([pose[:, :2], wrap_angle(pose[:, 2:])], dim=-1)
-    return pose, lse - torch.log(torch.full((), float(j), dtype=torch.float32, device=dev))
+    return pose, lse + resample.log_uniform_weights(j, dev)[0]
 
 
 def _gate_match(cfg: GMappingConfig, view, scans, res, priors):
@@ -364,7 +363,7 @@ def match_particles(cfg: GMappingConfig, view, scans, priors, centers, sigma, dr
     res = _gate_match(cfg, view, scans, res, priors)
     if cfg.proposal == "improved":
         return _improved_proposal(cfg, view, scans, res, centers, sigma, draws)
-    return res.pose, cfg.weight_gamma * torch.log(res.prob + 1e-6)
+    return res.pose, cfg.weight_gamma * libm.log(res.prob + 1e-6, inplace=True)
 
 
 def propose(cfg: GMappingConfig, poses: Tensor, odom_delta: Tensor, noise: Tensor):
@@ -576,11 +575,13 @@ def weighted_mean_trajectory(all_poses: Tensor, ancestors: Tensor, log_weights: 
     t, p = all_poses.shape[:2]
     path = torch.from_numpy(_lineages(ancestors, np.arange(p))).to(all_poses.device)
     trajs = all_poses[torch.arange(t, device=all_poses.device)[:, None], path].transpose(0, 1)
-    w = torch.softmax(log_weights, dim=0)
+    w = libm.exp(log_weights - log_weights.max(), inplace=True)  # jax.nn.softmax
+    w = w / w.sum()
     xy = (w[:, None, None] * trajs[..., :2]).sum(0)
-    s = (w[:, None] * torch.sin(trajs[..., 2])).sum(0)
-    c = (w[:, None] * torch.cos(trajs[..., 2])).sum(0)
-    return torch.cat([xy, torch.atan2(s, c)[..., None]], dim=-1)
+    sn, cs = libm.sincos(trajs[..., 2].contiguous())
+    s = (w[:, None] * sn).sum(0)
+    c = (w[:, None] * cs).sum(0)
+    return torch.cat([xy, libm.atan2(s, c)[..., None]], dim=-1)
 
 
 class GMappingEngine:

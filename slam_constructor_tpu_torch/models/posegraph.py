@@ -35,7 +35,7 @@ from ..device import resolve_device
 from ..ops import grid as gridlib
 from ..ops import m3rsm as m3rsmlib  # noqa: F401  (registers 'm3rsm')
 from ..ops import matchers as matcherslib
-from ..ops import raycast, scoring
+from ..ops import libm, raycast, scoring
 from ..ops.geometry import between, pose_distance, wrap_angle
 from ..ops.scan import LaserScan
 
@@ -481,7 +481,7 @@ def _match_loop(cfg: PoseGraphConfig, view, scan, pose):
 def _norm2(v: Tensor) -> Tensor:
     """Euclidean norm over the last axis as ``sqrt(sum(v^2))``, the
     reference's arithmetic."""
-    return torch.sqrt((v * v).sum(-1))
+    return libm.sqrt((v * v).sum(-1), inplace=True)
 
 
 def _correction_ok(cfg: PoseGraphConfig, corr: Tensor) -> Tensor:
@@ -614,7 +614,7 @@ def densify_loops(cfg: PoseGraphConfig, model, st: PoseGraphState):
 def _edge_residual_jac(pi: Tensor, pj: Tensor, z: Tensor):
     """Residual ``[..., 3]`` and Jacobians ``[..., 3, 3]`` with respect to
     pose i and pose j of edges ``z`` between ``pi`` and ``pj``."""
-    c, s = torch.cos(pi[..., 2]), torch.sin(pi[..., 2])
+    s, c = libm.sincos(pi[..., 2])
     dx, dy = pj[..., 0] - pi[..., 0], pj[..., 1] - pi[..., 1]
     e = torch.stack([
         (c * dx + s * dy) - z[..., 0],
@@ -667,7 +667,7 @@ def optimize_checked(cfg: PoseGraphConfig, st: PoseGraphState):
         w = st.edge_info * e_mask[:, None]  # diagonal information, masked
         if cfg.huber_delta > 0:
             # Huber kernel on loop edges: w *= min(1, delta / chi)
-            chi = torch.sqrt(torch.clamp((w * e * e).sum(-1), min=1e-12))
+            chi = libm.sqrt(torch.clamp((w * e * e).sum(-1), min=1e-12), inplace=True)
             rw = torch.clamp(delta / chi, max=1.0)
             w = w * torch.where(st.edge_is_loop, rw, 1.0)[:, None]
         # A[e, a, k, c]: row a of edge e, column c of keyframe k

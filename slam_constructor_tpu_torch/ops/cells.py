@@ -12,6 +12,8 @@ import dataclasses
 
 import torch
 
+from . import libm
+
 Tensor = torch.Tensor
 
 _EPS = 1e-9
@@ -102,7 +104,7 @@ class TBMCell:
             # keeps the k = 0 identity even when base == 0 (q == 1)
             if not isinstance(base, Tensor):
                 base = torch.full_like(k, base)
-            return torch.exp(k * torch.log(torch.clamp(base, min=_EPS)))
+            return libm.exp(k * libm.log(torch.clamp(base, min=_EPS)))
 
         mo, me, mu, mx = belief.unbind(-1)
         total = mo + me + mu + mx

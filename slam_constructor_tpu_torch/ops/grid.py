@@ -87,6 +87,14 @@ def div_scale(x: Tensor, scale: float) -> Tensor:
     return x / torch.full((), scale, dtype=x.dtype, device=x.device)
 
 
+def cell_coord(x: Tensor, scale: float) -> Tensor:
+    """``x / scale`` as the reference's jitted code computes a division by
+    the constant cell size: a product with its float32 reciprocal (ROADMAP
+    trap m). The insert's sample cells take it (``raycast``, K3 and the pool
+    kernels alike); host events and the scores divide (:func:`div_scale`)."""
+    return x * float(np.float32(1.0) / np.float32(scale))
+
+
 def world_to_cell(gm: GridMap, pts: Tensor) -> Tensor:
     """World points ``f32[..., 2]`` -> int64 cell indices ``[..., 2]`` as
     (row, col). May be out of bounds."""

@@ -119,7 +119,7 @@ import numpy as np
 import torch
 
 from ..device import constant
-from . import _build, cells, prng
+from . import _build, cells, libm, prng
 from . import grid as gridlib
 from .geometry import linspace, wrap_angle
 
@@ -156,6 +156,24 @@ _REDUCER_LAUNCHES = dict.fromkeys(
      for kind in REDUCER_KINDS), 0)
 
 
+#: ``csrc/libm.cu``'s launches since the counts were last set to 0, by
+#: function (``"sin"``, ..., ``"cossin"``, ``"sincos"``, ``"atan2"``,
+#: ``"fma32"``, ``"pose/compose"``, ``"endpoint_angles"``, ``"rows/lse"``,
+#: ...): every path launches it a number of times a scan that its sites
+#: set, so it is counted apart from :func:`launch_counts`
+_LIBM_LAUNCHES: dict[str, int] = {}
+
+
+def libm_launch_counts() -> dict[str, int]:
+    """``csrc/libm.cu``'s launches by function since
+    :func:`reset_launch_counts`; ``"total"`` sums them."""
+    return {**_LIBM_LAUNCHES, "total": sum(_LIBM_LAUNCHES.values())}
+
+
+def _count_libm(name: str) -> None:
+    _LIBM_LAUNCHES[name] = _LIBM_LAUNCHES.get(name, 0) + 1
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches of each wrapper since :func:`reset_launch_counts`."""
     return dict(_LAUNCHES)
@@ -172,6 +190,7 @@ def reset_launch_counts() -> None:
         _LAUNCHES[name] = 0
     for name in _REDUCER_LAUNCHES:
         _REDUCER_LAUNCHES[name] = 0
+    _LIBM_LAUNCHES.clear()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -285,8 +304,7 @@ def _beam_probs_ref(v: Tensor, poses: Tensor, pts: Tensor, origin: Tensor, scale
     """Every beam's probability f32[M, K, R] on planes v f32[M, H, W] at
     poses f32[M, K, 3] (the kernels' arithmetic)."""
     n_m, h, w = v.shape
-    c = torch.cos(poses[..., 2:3])
-    s = torch.sin(poses[..., 2:3])
+    s, c = libm.sincos(poses[..., 2:3])
     qx, qy = pts[:, None, :, 0], pts[:, None, :, 1]  # [M, 1, R]
     wx = poses[..., 0:1] + c * qx - s * qy  # [M, K, R]
     wy = poses[..., 1:2] + s * qx + c * qy
@@ -556,7 +574,7 @@ def overlap_score_partial_ref(band: Tensor, g0: int, h: int, poses: Tensor, pts:
     plane[lo:hi] = band[lo - g0:hi - g0]
     p = _beam_probs_ref(plane[None], poses[None], pts[None], origin[None], scale, unknown,
                         reducer)[0]  # [K, R]
-    c, s = torch.cos(poses[:, 2:3]), torch.sin(poses[:, 2:3])
+    s, c = libm.sincos(poses[:, 2:3])
     qx, qy = pts[None, :, 0], pts[None, :, 1]
     wy = poses[:, 1:2] + s * qx + c * qy
     fy = torch.floor(gridlib.div_scale(wy - origin[1], scale))
@@ -685,7 +703,7 @@ def clear_of_kinks(poses: Tensor, pts: Tensor, origin: Tensor, scale: float,
     if poses.dim() == 3:
         return torch.stack([clear_of_kinks(poses[m], pts[m], origin[m], scale, margin, reducer)
                             for m in range(poses.shape[0])])
-    c, s = torch.cos(poses[:, 2:3]), torch.sin(poses[:, 2:3])
+    s, c = libm.sincos(poses[:, 2:3])
     x = (poses[:, 0:1] + c * pts[:, 0] - s * pts[:, 1] - origin[0]) / scale
     y = (poses[:, 1:2] + s * pts[:, 0] + c * pts[:, 1] - origin[1]) / scale
     if reducer.kind == "bilinear":
@@ -840,7 +858,7 @@ def gradient_refine_loop(score_grad, plane, pts, beam_w, origin, pose, scale, un
     trace = []
     for _ in range(iterations):
         sq = g * g
-        norm = torch.sqrt((sq[..., 0:1] + sq[..., 1:2]) + sq[..., 2:3])
+        norm = libm.sqrt((sq[..., 0:1] + sq[..., 1:2]) + sq[..., 2:3])
         gn = g / (norm + 1e-12)
         cand = pose + steps * gn
         cand = torch.cat([cand[..., :2], wrap_angle(cand[..., 2:])], dim=-1)
@@ -950,7 +968,7 @@ def mc_match_loop(
     beam_w: Tensor,
     origin: Tensor,
     init_pose: Tensor,
-    noise: Tensor,
+    noise,
     scale: float,
     unknown: float,
     sigma_xy: float,
@@ -965,7 +983,26 @@ def mc_match_loop(
     f32[P, H, W], pts f32[P, R, 2], beam_w f32[P, R], origin f32[P, 2],
     init_pose f32[P, 3], noise f32[P, rounds, K, 3]) ``score`` must take it
     too, and every match runs its own state: pose f32[P, 3], prob f32[P],
-    trace f32[P, rounds]."""
+    trace f32[P, rounds]. With standard normals a candidate is ``best +
+    noise * sigma`` (two roundings); with an :class:`ErfInvDraws` or a
+    :class:`KeyNoise` (drawn here by ``prng``'s plain version, the next key
+    a fourth output with ``step``) ``fma(draw, sqrt(2) sigma, best)``."""
+    fused = not isinstance(noise, Tensor)
+    next_key = None
+    if fused:
+        sigma_xy, sigma_theta = key_sigma(sigma_xy), key_sigma(sigma_theta)
+        if isinstance(noise, KeyNoise):
+            next_key, noise = noise.draws()
+        else:
+            noise = noise.values
+    out = _mc_match_rounds_loop(score, plane, pts, beam_w, origin, init_pose, noise, scale,
+                                unknown, sigma_xy, sigma_theta, bad_rounds_before_anneal,
+                                reducer, fused)
+    return (*out, next_key) if next_key is not None else out
+
+
+def _mc_match_rounds_loop(score, plane, pts, beam_w, origin, init_pose, noise, scale, unknown,
+                          sigma_xy, sigma_theta, bad_rounds_before_anneal, reducer, fused):
     dev = init_pose.device
     best_pose = init_pose
     best_prob = score(plane, init_pose[..., None, :].contiguous(), pts, beam_w, origin, scale,
@@ -978,11 +1015,11 @@ def mc_match_loop(
     bad = torch.zeros(init_pose.shape[:-1], dtype=torch.int32, device=dev)
     trace = []
     for r in range(noise.shape[-3]):
-        nz = noise[..., r, :, :] * sigma[..., None, :]
-        cand = torch.cat(
-            [best_pose[..., None, :2] + nz[..., :2], wrap_angle(best_pose[..., None, 2:] + nz[..., 2:])],
-            dim=-1,
-        )
+        if fused:  # erf_inv draws: one fused multiply-add, as the reference's jitted code
+            cand = libm.fma32(noise[..., r, :, :], sigma[..., None, :], best_pose[..., None, :])
+        else:
+            cand = best_pose[..., None, :] + noise[..., r, :, :] * sigma[..., None, :]
+        cand = torch.cat([cand[..., :2], wrap_angle(cand[..., 2:])], dim=-1)
         probs = score(plane, cand.contiguous(), pts, beam_w, origin, scale, unknown, reducer)
         # argmax ties go to the first index, as in the reference
         i = torch.argmax(probs, dim=-1, keepdim=True)
@@ -1002,17 +1039,82 @@ def mc_match_loop(
     return best_pose, best_prob, torch.stack(trace, dim=-1)
 
 
+@dataclasses.dataclass(frozen=True)
+class KeyNoise:
+    """A Monte-Carlo match's draws named by a key instead of handed in:
+    ``split(key, rounds)[r]`` draws round r's ``(batch, 3)`` numbers, each
+    ``erf_inv`` of ``jax.random.normal``'s uniform (its normal before the
+    multiply by sqrt(2), which the match folds into sigma, as the
+    reference's jitted code does). With ``step``, ``key`` is the engine
+    step's: the match draws from ``split(key)[1]`` and returns
+    ``split(key)[0]``, the state's next key. ``key`` uint32[*lead, 2]."""
+
+    key: Tensor
+    rounds: int
+    batch: int
+    step: bool = False
+
+    def plan(self) -> tuple:
+        """The draws as a ``prng`` plan: (the next key,) then the numbers (a
+        round at least: :meth:`draws` keeps ``rounds`` of them)."""
+        sub = (1,) if self.step else ()
+        return ((prng.Draw((0,), "key"),) if self.step else ()) + (
+            prng.Draw((*sub, prng.Each(max(self.rounds, 1))), "erfinv", (self.batch, 3)),)
+
+    def draws(self) -> tuple:
+        """(the next key or None, the numbers f32[*lead, rounds, batch, 3]) by
+        ``prng``'s plain version, on the key's device."""
+        out = prng.draws_ref(self.key, self.plan())
+        return (out[0] if self.step else None), out[-1][..., :self.rounds, :, :]
+
+
+@dataclasses.dataclass(frozen=True)
+class ErfInvDraws:
+    """Handed-in draws of Monte-Carlo matches that hold ``erf_inv(u)``, the
+    reference's normal before its multiply by sqrt(2), instead of normals:
+    the match multiplies sigma by sqrt(2) and forms each candidate with one
+    fused multiply-add, as the match that draws from a key does, and so
+    gives its bits. Indexes and moves like its tensor, so it goes wherever
+    an engine's ``noise`` goes."""
+
+    values: Tensor
+
+    def __getitem__(self, i) -> "ErfInvDraws":
+        return ErfInvDraws(self.values[i])
+
+    def to(self, *args, **kwargs) -> "ErfInvDraws":
+        return ErfInvDraws(self.values.to(*args, **kwargs))
+
+    def contiguous(self) -> "ErfInvDraws":
+        return ErfInvDraws(self.values.contiguous())
+
+    @property
+    def shape(self):
+        return self.values.shape
+
+    def numel(self) -> int:
+        return self.values.numel()
+
+
+#: sigma's factor for ``KeyNoise`` draws: sqrt(2) in float32
+_SQRT2_F32 = np.float32(math.sqrt(2.0))
+
+
+def key_sigma(sigma: float) -> float:
+    """sqrt(2) * sigma, rounded to float32 as the reference computes it."""
+    return float(_SQRT2_F32 * np.float32(sigma))
+
+
 def mc_match_ref(
     plane, pts, beam_w, origin, init_pose, noise, scale, unknown, sigma_xy, sigma_theta,
     bad_rounds_before_anneal, reducer=BILINEAR,
 ):
     """Plain PyTorch version of :func:`mc_match` and, with a leading match
     dimension on every tensor, of :func:`mc_match_batched`: the round loop
-    over ``overlap_score_ref``."""
-    return mc_match_loop(
-        overlap_score_ref, plane, pts, beam_w, origin, init_pose, noise, scale, unknown,
-        sigma_xy, sigma_theta, bad_rounds_before_anneal, reducer,
-    )
+    over ``overlap_score_ref`` (with :class:`KeyNoise`, the draws by
+    ``prng``'s plain version first)."""
+    return mc_match_loop(overlap_score_ref, plane, pts, beam_w, origin, init_pose, noise, scale,
+                         unknown, sigma_xy, sigma_theta, bad_rounds_before_anneal, reducer)
 
 
 def mc_match_rounds(
@@ -1023,10 +1125,8 @@ def mc_match_rounds(
     pose and once a round (``1 + rounds`` launches on the card) and the rest
     of a round in PyTorch ops. Nothing on the main path calls it: it is what
     :func:`mc_match` is held to, bit for bit, on the card."""
-    return mc_match_loop(
-        overlap_score, plane, pts, beam_w, origin, init_pose, noise, scale, unknown,
-        sigma_xy, sigma_theta, bad_rounds_before_anneal, reducer,
-    )
+    return mc_match_loop(overlap_score, plane, pts, beam_w, origin, init_pose, noise, scale,
+                         unknown, sigma_xy, sigma_theta, bad_rounds_before_anneal, reducer)
 
 
 @functools.cache
@@ -1038,7 +1138,8 @@ def _mc_match_fn():
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # row, col, h, w
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # pts, beam_w, r
         ctypes.c_void_p, ctypes.c_void_p,  # origin, init_pose
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # noise, rounds, k
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # noise, key, next key
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # fused candidates, rounds, k
         ctypes.c_float, ctypes.c_float,  # scale, unknown
         ctypes.c_float, ctypes.c_float, ctypes.c_int,  # sigma_xy, sigma_theta, bad rounds
         ctypes.c_int, ctypes.c_int, ctypes.c_float,  # reducer, radius, extent
@@ -1086,12 +1187,21 @@ def _mc_match_launch(name, lead, occ, window, pts, beam_w, origin, init_pose, no
     dev = occ.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
-    if occ.dim() != len(lead) + 2 or noise.dim() != len(lead) + 3:
+    keyed = isinstance(noise, KeyNoise)
+    fused = not isinstance(noise, Tensor)
+    if fused:  # erf_inv draws: sigma times sqrt(2), the candidates fused
+        sigma_xy, sigma_theta = key_sigma(sigma_xy), key_sigma(sigma_theta)
+        noise = noise if keyed else noise.values
+    if keyed:
+        _check("key", noise.key, (*lead, 2), dev, torch.uint32)
+        rounds, k = noise.rounds, noise.batch
+    elif occ.dim() != len(lead) + 2 or noise.dim() != len(lead) + 3:
         raise ValueError(f"{name}: plane {tuple(occ.shape)} and noise {tuple(noise.shape)} "
                          f"are not {(*lead, 'H', 'W')} and {(*lead, 'rounds', 'K', 3)}")
+    else:
+        rounds, k = noise.shape[-3], noise.shape[-2]
     h, w = occ.shape[-2:]
     r = pts.shape[-2]
-    rounds, k = noise.shape[-3], noise.shape[-2]
     n_p = lead[0] if lead else 1
     if rounds > 0 and k < 1:
         raise ValueError(f"{name}: a round needs at least one candidate")
@@ -1119,7 +1229,10 @@ def _mc_match_launch(name, lead, occ, window, pts, beam_w, origin, init_pose, no
     _check("beam_w", beam_w, (*lead, r), dev)
     _check("origin", origin, (*lead, 2), dev)
     _check("init_pose", init_pose, (*lead, 3), dev)
-    _check("noise", noise, (*lead, rounds, k, 3), dev)
+    if not keyed:
+        _check("noise", noise, (*lead, rounds, k, 3), dev)
+    next_key = (torch.empty((*lead, 2), dtype=torch.uint32, device=dev)
+                if keyed and noise.step else None)
     pose = torch.empty((*lead, 3), dtype=torch.float32, device=dev)
     prob = torch.empty(lead, dtype=torch.float32, device=dev)
     trace = torch.empty((*lead, rounds), dtype=torch.float32, device=dev)
@@ -1133,14 +1246,15 @@ def _mc_match_launch(name, lead, occ, window, pts, beam_w, origin, init_pose, no
         err = fn(
             occ.data_ptr(), ptr(known), stride, n_p, h, w, ptr(row), ptr(col), sh, sw,
             pts.data_ptr(), beam_w.data_ptr(), r, origin.data_ptr(), init_pose.data_ptr(),
-            noise.data_ptr(), rounds, k, scale, unknown, sigma_xy, sigma_theta,
+            None if keyed else noise.data_ptr(), noise.key.data_ptr() if keyed else None,
+            ptr(next_key), int(fused), rounds, k, scale, unknown, sigma_xy, sigma_theta,
             bad_rounds_before_anneal, reducer.code, reducer.radius, reducer.extent,
             pose.data_ptr(), prob.data_ptr(), trace.data_ptr(), shared, stream,
         )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
     _count(name, reducer)
-    return pose, prob, trace
+    return (pose, prob, trace) if next_key is None else (pose, prob, trace, next_key)
 
 
 def mc_match(
@@ -1161,8 +1275,12 @@ def mc_match(
 
     plane f32[H, W] (``where(known, occ, unknown)``), pts f32[R, 2], beam_w
     f32[R], origin f32[2], init_pose f32[3], noise f32[rounds, K, 3]
-    standard normals. Round r scores the K candidates ``best + noise[r] *
-    sigma`` (theta wrapped), takes the best (ties to the first), keeps it if
+    standard normals (candidates ``best + noise[r] * sigma``), an
+    :class:`ErfInvDraws` or a :class:`KeyNoise`: the reference's erf_inv
+    draws handed in or drawn by the kernel itself in its prologue (with
+    ``step``, the next key is a fourth output), candidates ``fma(draw,
+    sqrt(2) sigma, best)`` as the reference's jitted code forms them. Round
+    r scores the K candidates (theta wrapped), takes the best (ties to the first), keeps it if
     it is strictly better, and halves sigma after
     ``bad_rounds_before_anneal`` rounds without improvement. A beam's
     endpoint is read by ``reducer``.
@@ -1284,7 +1402,9 @@ def polar_range_table(ranges: Tensor, valid: Tensor, bearings: Tensor):
     from the sensor can be free."""
     r = ranges.shape[0]
     b0 = bearings[0]
-    db = (bearings[-1] - b0) / torch.full_like(b0, float(max(r - 1, 1)))
+    # the reference's jitted code divides by the constant r - 1 as a
+    # product with its float32 reciprocal
+    db = (bearings[-1] - b0) * float(np.float32(1.0) / np.float32(max(r - 1, 1)))
     db = torch.where(torch.abs(db) < 1e-6, 1.0, db)
     full_circle = torch.abs(db) * r >= 2.0 * math.pi - 1.5 * torch.abs(db)
     # conservative range per bin: min over the beam and its neighbours.
@@ -1331,12 +1451,13 @@ def polar_free_plane_ref(
     """
     dev = ranges.device
     r = ranges.shape[0]
-    ys = origin[1] + (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) * scale
-    xs = origin[0] + (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) * scale
+    # the centres and d^2 fused as the reference's jitted code fuses them
+    ys = libm.fma32(torch.arange(h, dtype=torch.float32, device=dev) + 0.5, scale, origin[1])
+    xs = libm.fma32(torch.arange(w, dtype=torch.float32, device=dev) + 0.5, scale, origin[0])
     dy = ys[:, None] - pose[1]  # [H, 1]
     dx = xs[None, :] - pose[0]  # [1, W]
-    d = torch.sqrt(dx * dx + dy * dy)  # [H, W]
-    ang = torch.atan2(dy, dx) - pose[2]
+    d = libm.sqrt(libm.fma32(dx, dx, dy * dy))  # [H, W]
+    ang = libm.atan2(dy, dx) - pose[2]
     rng_eff, db, full_circle = polar_range_table(ranges, valid, bearings)
     binf = wrap_angle(ang - bearings[0]) / db
     bini = torch.round(binf).to(torch.int64)  # half to even, as jnp.round
@@ -1347,7 +1468,7 @@ def polar_free_plane_ref(
     cell_range = rng_eff[bini]
     free = ok & (d < cell_range - hole_half) & (d < max_range)
     den = 2.0 * torch.clamp(d, min=scale * 0.5)
-    wgt = 2.0 * torch.atan(torch.full_like(den, scale) / den) / torch.abs(db)
+    wgt = 2.0 * libm.atan(torch.full_like(den, scale) / den) / torch.abs(db)
     return torch.where(free, wgt, 0.0)
 
 
@@ -1608,7 +1729,8 @@ def scan_planes_ref(origins: Tensor, h: int, w: int, scale: float, poses: Tensor
     n = poses.shape[0]
     origins, plane_of, n_planes = _plane_args(origins, poses, plane_of, n_planes)
     angles = poses[:, 2:3] + scans.bearings  # [N, R]
-    dirs = torch.stack([torch.cos(angles), torch.sin(angles)], dim=-1)  # [N, R, 2]
+    sn, cs = libm.sincos(angles)
+    dirs = torch.stack([cs, sn], dim=-1)  # [N, R, 2]
     start = poses[:, None, :2]  # [N, 1, 2]
     # the planes are stacked along the rows: plane p holds rows p*h .. p*h + h - 1
     shape = (n_planes * h, w)
@@ -1624,7 +1746,8 @@ def scan_planes_ref(origins: Tensor, h: int, w: int, scale: float, poses: Tensor
         n_s = cfg.n_free_samples(scale)
         step = scale * cfg.step_fraction
         t = (torch.arange(n_s, dtype=torch.float32, device=dev) + 0.5) * step  # [S]
-        pts = start[:, :, None, :] + t[None, None, :, None] * dirs[:, :, None, :]  # [N, R, S, 2]
+        pts = libm.fma32(t[None, None, :, None], dirs[:, :, None, :],
+                         start[:, :, None, :])  # [N, R, S, 2]
         rows, cols = raycast._cells_of(pts, origins[:, None, None, :], scale)  # [N, R, S]
         free_limit = scans.ranges - cfg.hole_width / 2.0
         valid = scans.valid[..., None] & (t < free_limit[..., None])
@@ -1634,7 +1757,7 @@ def scan_planes_ref(origins: Tensor, h: int, w: int, scale: float, poses: Tensor
         w_free = raycast._flat_count(shape, rows + row0[:, None, None], cols, valid)
 
     ep_valid = scans.valid & (scans.ranges <= cfg.max_range)
-    endpoints = start + scans.ranges[..., None] * dirs  # [N, R, 2]
+    endpoints = libm.fma32(scans.ranges[..., None], dirs, start)  # [N, R, 2]
     o3 = origins[:, None, :]
     if cfg.occupancy_estimator == "area":
         r9, c9, wgt = raycast._endpoint_area_obs(o3, scale, endpoints, ep_valid, cfg.hole_width)
@@ -1646,7 +1769,7 @@ def scan_planes_ref(origins: Tensor, h: int, w: int, scale: float, poses: Tensor
     if cfg.wall_blur:
         bt = linspace(-1.0, 1.0, cfg.blur_samples, dev)  # [B] in hole units
         tb = scans.ranges[..., None] + cfg.hole_width / 2.0 * bt  # [N, R, B]
-        pb = start[:, :, None, :] + tb[..., None] * dirs[:, :, None, :]
+        pb = libm.fma32(tb[..., None], dirs[:, :, None, :], start[:, :, None, :])
         br, bc = raycast._cells_of(pb, origins[:, None, None, :], scale)
         ramp = (1.0 - torch.abs(bt)).expand(tb.shape)
         occ.append((br, bc, ramp, ramp**2, ep_valid[..., None] & (tb > 0)))
@@ -2246,6 +2369,19 @@ def _boundaries(a, z, bk: int, n_bk: int, extent):
     return list(ms) if a <= z else list(reversed(ms))
 
 
+def _fma_f32(a, b, c) -> np.float32:
+    """float32 ``a * b + c`` rounded once, for numpy float32 scalars: the
+    product is exact in float64, the sum rounded to odd there, then to
+    nearest in float32."""
+    p = np.float64(a) * np.float64(b)
+    s = p + np.float64(c)
+    bb = s - p
+    e = (p - (s - bb)) + (np.float64(c) - bb)
+    if e != 0 and np.isfinite(e) and not (np.float64(s).view(np.int64) & 1):
+        s = np.nextafter(s, np.inf if e > 0 else -np.inf)
+    return np.float32(s)
+
+
 def pool_touched_crossings(tiles: tuple, block: int, origin: Tensor, scale: float,
                            poses: Tensor, scans, cfg, q: Tensor | None = None) -> Tensor:
     """The marking phase of :func:`pool_prepare`'s kernel, in plain Python
@@ -2265,13 +2401,15 @@ def pool_touched_crossings(tiles: tuple, block: int, origin: Tensor, scale: floa
     qv = f32(1.0) if q is None else f32(float(q))
     ox, oy = (f32(v) for v in origin.detach().cpu().numpy())
     sc = f32(scale)
+    inv = f32(1.0) / sc  # a sample's cell: grid.cell_coord
     step, half = f32(scale * cfg.step_fraction), f32(cfg.hole_width / 2.0)
     n_free = cfg.n_free_samples(scale)
     r = scans.ranges.shape[-1]
     ranges = scans.ranges.expand(p, r).cpu()
     valid = scans.valid.expand(p, r).cpu().numpy()
     angles = poses[:, 2:3].cpu() + scans.bearings.expand(p, r).cpu()
-    dx, dy = torch.cos(angles).numpy(), torch.sin(angles).numpy()
+    sn, cs = libm.sincos(angles)
+    dx, dy = cs.numpy(), sn.numpy()
     pose = poses.detach().cpu().numpy().astype(np.float32)
     marks = np.zeros((p, th * tw), bool)
 
@@ -2292,10 +2430,10 @@ def pool_touched_crossings(tiles: tuple, block: int, origin: Tensor, scale: floa
                     return (f32(i) + f32(0.5)) * step
 
                 def row(i):
-                    return np.floor(((py + t_of(i) * by) - oy) / sc)
+                    return np.floor((_fma_f32(t_of(i), by, py) - oy) * inv)
 
                 def col(i):
-                    return np.floor(((px + t_of(i) * bx) - ox) / sc)
+                    return np.floor((_fma_f32(t_of(i), bx, px) - ox) * inv)
 
                 def cross_r(a):
                     return np.ceil(((a * sc + oy) - py) / (by * step) - f32(0.5))
@@ -3117,7 +3255,8 @@ def m3rsm_window_cells(s: M3RSMSearch):
         corner = torch.zeros((n_b, 2), dtype=torch.int32, device=poses.device)
         extent = (h0, w0)
     ang = poses[:, 2:3] + s.thetas  # [B, T]
-    c, s_ = torch.cos(ang)[..., None], torch.sin(ang)[..., None]
+    s_, c = libm.sincos(ang)
+    c, s_ = c[..., None], s_[..., None]
     px, py = s.pts[:, None, :, 0], s.pts[:, None, :, 1]
     ex = (poses[:, 0, None, None] + c * px) - s_ * py  # [B, T, R]
     ey = (poses[:, 1, None, None] + s_ * px) + c * py
@@ -3343,7 +3482,7 @@ def _prng_records(plan: tuple, batch: tuple) -> tuple[list, list, int]:
                                        for s in d.path):
             raise ValueError("prng_draws: a record of 2^31 elements or an index of 2^31 or more")
         # a normal's uniform lies on (nextafter(-1, 0), 1)
-        lo_hi = ((prng.NORMAL_LO, 1.0) if d.kind in ("normal", "transform")
+        lo_hi = ((prng.NORMAL_LO, 1.0) if d.kind in ("normal", "transform", "erfinv")
                  else (d.minval, d.maxval))
         lo = np.float32(lo_hi[0])
         span = np.float32(np.float32(lo_hi[1]) - lo)
@@ -3408,3 +3547,193 @@ def prng_draws(key: Tensor, plan: tuple) -> tuple:
         lay.table.data_ptr(), len(plan), lay.max_elements, key.data_ptr(), ptrs, stream))
     _LAUNCHES["prng_draws"] += 1
     return outs
+
+
+# --- the reference's elementary functions (csrc/libm.cu) ---------------------
+
+_LIBM_OPS = ("sin", "cos", "atan", "exp", "log", "sqrt", "wrap_angle")
+
+
+@functools.cache
+def _libm_fns():
+    lib = _build.load()
+    fns = {}
+    p, n, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+    for name, args in (("libm_unary_launch", [i, p, p, n, p]),
+                       ("libm_sincos_launch", [p, p, p, n, p]),
+                       ("libm_atan2_launch", [p, p, p, n, p]),
+                       ("libm_fma32_launch", [p, p, f, p, f, p, n, p]),
+                       ("libm_pose_launch", [i, p, p, p, n, p]),
+                       ("libm_endpoint_angles_launch", [p, p, p, n, i, p]),
+                       ("libm_rows_launch", [i, p, p, p, p, i, i, p])):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = args, ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def _libm_in(name: str, *xs: Tensor) -> tuple:
+    for x in xs:
+        if x.dtype != torch.float32 or x.device.type != "cuda":
+            raise TypeError(f"{name}: float32 CUDA tensors, got {x.dtype} on {x.device}")
+    return tuple(x if x.is_contiguous() else x.contiguous() for x in xs)
+
+
+def libm_unary(op: str, x: Tensor, inplace: bool = False) -> Tensor:
+    """``libm.<op>(x)`` (``sin``, ``cos``, ``atan``, ``exp``, ``log``,
+    ``sqrt``, ``wrap_angle``) of float32 ``x``, bit for bit with the plain
+    version in ``ops/libm.py``. A CPU tensor takes the plain version; a CUDA
+    tensor one launch of ``csrc/libm.cu`` on the current stream, counted in
+    :func:`libm_launch_counts`, into a new tensor or, ``inplace``, into ``x``
+    itself."""
+    if x.device.type == "cpu":
+        return libm._REFS[op](x)
+    if inplace and not x.is_contiguous():
+        raise ValueError(f"libm_{op}: an in-place call needs a contiguous tensor")
+    (x,) = _libm_in(f"libm_{op}", x)
+    out = x if inplace else torch.empty_like(x)
+    fn = _libm_fns()["libm_unary_launch"]
+    code = _LIBM_OPS.index(op)
+    _launch("libm", x.device, lambda stream: fn(code, x.data_ptr(), out.data_ptr(), x.numel(),
+                                                stream))
+    _count_libm(op)
+    return out
+
+
+def libm_cossin(x: Tensor) -> Tensor:
+    """``libm.cossin(x)``: f32[..., 2] of (cos, sin) pairs in one launch."""
+    if x.device.type == "cpu":
+        return libm.cossin(x)
+    (x,) = _libm_in("libm_cossin", x)
+    out = torch.empty((*x.shape, 2), dtype=torch.float32, device=x.device)
+    fn = _libm_fns()["libm_unary_launch"]
+    _launch("libm", x.device, lambda stream: fn(len(_LIBM_OPS), x.data_ptr(), out.data_ptr(),
+                                                x.numel(), stream))
+    _count_libm("cossin")
+    return out
+
+
+def libm_rows(mode: str, x: Tensor, off: Tensor | None = None):
+    """``libm.logsumexp`` (``"lse"``), ``normalize_log``, ``softmax_lse``,
+    ``effective_sample_size`` (``"ess"``) or ``sum_exp`` (``"sumexp"``,
+    with the offsets ``off`` f32[...]) over the last dimension of float32
+    ``x``, in one launch of ``csrc/libm.cu``'s row kernel on a CUDA tensor
+    (a row a thread, the sum in element order), bit for bit with the plain
+    versions; a CPU tensor takes them."""
+    if x.device.type == "cpu":
+        return libm._rows_ref(mode, x, off)
+    (x,) = _libm_in(f"libm_rows/{mode}", x)
+    n = x.shape[-1]
+    rows = x.numel() // n if n else 0
+    lead = x.shape[:-1]
+    if mode == "sumexp":
+        (off,) = _libm_in("libm_rows/sumexp", off.expand(lead))
+    full = mode in ("normalize", "softmax")
+    out = torch.empty(x.shape if full else lead, dtype=torch.float32, device=x.device)
+    out2 = torch.empty(lead, dtype=torch.float32, device=x.device) if mode == "softmax" else None
+    fn = _libm_fns()["libm_rows_launch"]
+    code = libm._ROW_MODES.index(mode)
+    _launch("libm", x.device, lambda stream: fn(
+        code, x.data_ptr(), None if off is None else off.data_ptr(), out.data_ptr(),
+        None if out2 is None else out2.data_ptr(), rows, n, stream))
+    _count_libm(f"rows/{mode}")
+    return (out, out2) if mode == "softmax" else out
+
+
+def libm_sincos(x: Tensor) -> tuple[Tensor, Tensor]:
+    """``(libm.sin(x), libm.cos(x))`` in one launch (one range reduction)."""
+    if x.device.type == "cpu":
+        return libm._sincos_ref(x)
+    (x,) = _libm_in("libm_sincos", x)
+    s, c = torch.empty_like(x), torch.empty_like(x)
+    fn = _libm_fns()["libm_sincos_launch"]
+    _launch("libm", x.device, lambda stream: fn(x.data_ptr(), s.data_ptr(), c.data_ptr(),
+                                                x.numel(), stream))
+    _count_libm("sincos")
+    return s, c
+
+
+def libm_atan2(y: Tensor, x: Tensor) -> Tensor:
+    """``libm.atan2(y, x)`` of tensors of one shape, one launch."""
+    if y.device.type == "cpu":
+        return libm._atan2_ref(y, x)
+    y, x = _libm_in("libm_atan2", y, x)
+    if y.shape != x.shape:
+        raise ValueError(f"libm_atan2: shapes {tuple(y.shape)} and {tuple(x.shape)}")
+    out = torch.empty_like(y)
+    fn = _libm_fns()["libm_atan2_launch"]
+    _launch("libm", y.device, lambda stream: fn(y.data_ptr(), x.data_ptr(), out.data_ptr(),
+                                                y.numel(), stream))
+    _count_libm("atan2")
+    return out
+
+
+def libm_fma32(a: Tensor, b, c) -> Tensor:
+    """float32 ``a * b + c`` rounded once, broadcast; ``b`` and ``c`` may be
+    numbers (passed by value). One launch on a CUDA tensor."""
+    if a.device.type == "cpu":
+        return libm._fma32_ref(a, b, c)
+    shape = torch.broadcast_shapes(*(t.shape for t in (a, b, c) if torch.is_tensor(t)))
+
+    def operand(t):
+        if not torch.is_tensor(t):
+            return None, float(np.float32(t))
+        if t.shape != shape:
+            t = t.expand(shape)
+        (t,) = _libm_in("libm_fma32", t)
+        return t, 0.0
+
+    (a, _), (b, bs), (c, cs) = operand(a), operand(b), operand(c)
+    out = torch.empty(shape, dtype=torch.float32, device=a.device)
+    fn = _libm_fns()["libm_fma32_launch"]
+    _launch("libm", a.device, lambda stream: fn(
+        a.data_ptr(), None if b is None else b.data_ptr(), bs,
+        None if c is None else c.data_ptr(), cs, out.data_ptr(), out.numel(), stream))
+    _count_libm("fma32")
+    return out
+
+
+_POSE_OPS = ("compose", "between", "inverse")
+
+
+def libm_pose(op: str, a: Tensor, b: Tensor | None = None) -> Tensor:
+    """``geometry.compose(a, b)``, ``between(a, b)`` or ``inverse(a)`` of
+    poses ``[..., 3]`` (broadcast) in one launch, bit for bit with the plain
+    versions there (``libm``'s functions and fused multiply-adds). A CPU
+    tensor takes the plain version."""
+    from . import geometry
+    if a.device.type == "cpu":
+        ref = {"compose": geometry._compose_ref, "between": geometry._between_ref,
+               "inverse": geometry._inverse_ref}[op]
+        return ref(a) if b is None else ref(a, b)
+    shape = a.shape if b is None else torch.broadcast_shapes(a.shape, b.shape)
+    if shape[-1] != 3:
+        raise ValueError(f"libm_pose: poses [..., 3], got {tuple(shape)}")
+    a, *bs = _libm_in(f"libm_{op}", *(t if t.shape == shape else t.expand(shape)
+                                       for t in ((a,) if b is None else (a, b))))
+    out = torch.empty(shape, dtype=torch.float32, device=a.device)
+    fn = _libm_fns()["libm_pose_launch"]
+    code = _POSE_OPS.index(op)
+    _launch("libm", a.device, lambda stream: fn(
+        code, a.data_ptr(), bs[0].data_ptr() if bs else None, out.data_ptr(),
+        out.numel() // 3, stream))
+    _count_libm(f"pose/{op}")
+    return out
+
+
+def libm_endpoint_angles(ranges: Tensor, bearings: Tensor) -> Tensor:
+    """``scan.endpoint_angles`` of scans ``[..., R]`` in one launch, bit for
+    bit with its plain version. A CPU tensor takes the plain version."""
+    from . import scan as scanlib
+    if ranges.device.type == "cpu":
+        return scanlib._endpoint_angles_ref(ranges, bearings)
+    if bearings.shape != ranges.shape:
+        bearings = bearings.expand(ranges.shape)
+    ranges, bearings = _libm_in("libm_endpoint_angles", ranges, bearings)
+    r = ranges.shape[-1]
+    out = torch.empty((*ranges.shape[:-1], r - 1), dtype=torch.float32, device=ranges.device)
+    fn = _libm_fns()["libm_endpoint_angles_launch"]
+    _launch("libm", ranges.device, lambda stream: fn(
+        ranges.data_ptr(), bearings.data_ptr(), out.data_ptr(), out.numel(), r, stream))
+    _count_libm("endpoint_angles")
+    return out

@@ -5,8 +5,8 @@ Monte-Carlo: each round scores a batch of candidates drawn around the best
 pose so far, keeps the best if it improves, and halves sigma after repeated
 failures. The whole match is one call of ``kernels.mc_match``: one kernel
 launch on the card, the plain round loop on the CPU; neither syncs with the
-host. The standard normals are drawn here from the reference's key, in
-one launch of ``kernels.prng_draws``, outside the match kernel. With a
+host. Its random numbers are drawn from the reference's key inside the
+match's launch (``kernels.KeyNoise``), or handed in. With a
 leading particle dimension it matches P (map, scan, prior) triples in one
 launch of ``kernels.mc_match_batched``, or of ``kernels.mc_match_windows``
 on windows of the maps read in place: the RBPF's form.
@@ -46,6 +46,9 @@ class MatchResult:
     #: f32[rounds] best candidate probability of each round; empty for the
     #: single-shot matchers
     trace: Tensor
+    #: the state's next key when the match drew from the step's key
+    #: (``monte_carlo_match(..., step_key=)``), else None
+    next_key: Tensor | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +61,10 @@ class MonteCarloConfig:
     #: rounds without improvement before sigma is halved
     bad_rounds_before_anneal: int = 2
     scoring: scoring.ScoringConfig = scoring.ScoringConfig()
+
+
+#: handed-in erf_inv draws (``kernels.ErfInvDraws``)
+ErfInvDraws = kernels.ErfInvDraws
 
 
 def noise_plan(cfg: MonteCarloConfig, path: tuple = ()) -> tuple:
@@ -75,14 +82,23 @@ def monte_carlo_match(
     cfg: MonteCarloConfig = MonteCarloConfig(),
     point_weights: Tensor | None = None,
     noise: Tensor | None = None,
+    step_key: Tensor | None = None,
 ) -> MatchResult:
     """Refine ``init_pose`` f32[3].
 
     ``noise`` f32[rounds, batch, 3] holds the standard normals of every
-    round, ``cfg.rounds`` by ``cfg.batch`` of them; when it is None they
-    are drawn from ``key`` as the reference draws them: ``split(key,
-    rounds)``, then ``normal(key_r, (batch, 3))`` a round (one launch of
-    ``kernels.prng_draws``, :func:`noise_plan`).
+    round, ``cfg.rounds`` by ``cfg.batch`` of them. When it is None the
+    match draws its own from ``key`` as the reference draws them
+    (``split(key, rounds)``, then ``normal(key_r, (batch, 3))`` a round;
+    ``kernels.KeyNoise``), inside the match's launch on the card: the
+    reference's jitted code computes ``best + normal * sigma`` as one fused
+    multiply-add of ``erf_inv(u)`` and ``sqrt(2) * sigma``, and so does the
+    match, bit for bit. With ``step_key`` (the engine step's key, in place
+    of ``key``) it draws from ``split(step_key)[1]`` and returns
+    ``split(step_key)[0]`` as ``next_key``: the step's draws cost no launch
+    of their own. ``noise`` as an :class:`ErfInvDraws` hands in those
+    ``erf_inv(u)`` values instead of normals (sigma times sqrt(2)), which
+    gives the bits of the match that draws them itself.
 
     With a leading particle dimension on view, scan, prior, key and noise
     (view of P maps, scan [P, R], ``init_pose`` f32[P, 3], ``key`` [P, 2],
@@ -95,28 +111,33 @@ def monte_carlo_match(
     """
     shape = (*init_pose.shape[:-1], cfg.rounds, cfg.batch, 3)
     if noise is None:
-        if key is None:
+        if key is None and step_key is None:
             raise ValueError("monte_carlo_match needs a key or the noise")
-        (noise,) = kernels.prng_draws(key, noise_plan(cfg))
-    if tuple(noise.shape) != shape:
+        noise = kernels.KeyNoise(key if step_key is None else step_key, cfg.rounds, cfg.batch,
+                                 step=step_key is not None)
+    elif tuple(noise.shape) != shape:
         raise ValueError(f"noise {tuple(noise.shape)} is not (..., rounds, batch, 3) = {shape}")
     anneal = (cfg.sigma_xy, cfg.sigma_theta, cfg.bad_rounds_before_anneal)
     if isinstance(view, scoring.WindowView):
         pts, beam_w = scoring.prepare_scan(scan, cfg.scoring, point_weights)
-        pose, prob, trace = kernels.mc_match_windows(
+        out = kernels.mc_match_windows(
             view.maps.occ, view.maps.known, view.row, view.col, view.sh, view.sw, pts, beam_w,
-            view.origin.contiguous(), init_pose.contiguous(), noise.contiguous(),
+            view.origin.contiguous(), init_pose.contiguous(), _contiguous(noise),
             float(view.scale), float(cfg.scoring.unknown_prob), *anneal,
             scoring.reducer_of(cfg.scoring),
         )
-        return MatchResult(pose=pose, prob=prob, trace=trace)
+        return MatchResult(*out)
     prep = scoring.prepare(view, scan, cfg.scoring, point_weights)
     match = kernels.mc_match_batched if prep.plane.dim() == 3 else kernels.mc_match
-    pose, prob, trace = match(
+    out = match(
         prep.plane, prep.pts, prep.beam_w, prep.origin, init_pose.contiguous(),
-        noise.contiguous(), prep.scale, prep.unknown, *anneal, prep.reducer,
+        _contiguous(noise), prep.scale, prep.unknown, *anneal, prep.reducer,
     )
-    return MatchResult(pose=pose, prob=prob, trace=trace)
+    return MatchResult(*out)
+
+
+def _contiguous(noise):
+    return noise if isinstance(noise, kernels.KeyNoise) else noise.contiguous()
 
 
 @dataclasses.dataclass(frozen=True)

@@ -17,9 +17,9 @@ for the CPU: Giles' single-precision polynomial, a fused multiply-add at
 each Horner step, and XLA's ``log1p`` (a rational approximation near 0
 and Cephes' ``logf`` elsewhere, with the multiply-adds that XLA's CPU
 code fuses fused here too). :func:`log1p_xla` and :func:`erf_inv_xla`
-write that out one float32 operation at a time; a fused multiply-add is
-emulated in float64 (the product of two float32 values is exact there;
-the test over every input of the normal transform holds it to JAX).
+write that out one float32 operation at a time, a fused multiply-add by
+``libm.fma32``'s plain version and XLA's ``log`` by ``libm.log``'s (the
+test over every input of the normal transform holds it to JAX).
 
 Everything here is the plain version: it runs on any device, in int64
 masked to 32 bits for the words. :func:`draws` evaluates a :class:`Draw`
@@ -34,6 +34,8 @@ import math
 
 import numpy as np
 import torch
+
+from . import libm
 
 Tensor = torch.Tensor
 
@@ -160,12 +162,6 @@ _L1P_P = tuple(map(_bits_f32, (0x417101AD, 0x42A6185B, 0x435DC32D, 0x439A8CA3, 0
                                0x42707982)))  # denominator, after a leading 1
 _L1P_Q = tuple(map(_bits_f32, (0x383DE04B, 0x3EFF40C5, 0x40D284FA, 0x41EF4B9C, 0x4273CC76,
                                0x426473AD, 0x41A05101)))  # numerator
-_LOG_SQRTHALF = _bits_f32(0x3F3504F3)
-_LOG_MIN = _bits_f32(0x00800000)  # the smallest normal float
-_LOG_C = tuple(map(_bits_f32, (0x3D9021BB, 0xBDEBD1B8, 0xBDFE5D4F, 0x3E11E9BF, 0x3E4CCEAC,
-                               0xBE7FFFFC, 0x3DEF251A, 0xBE2AAE50, 0x3EAAAAAA)))
-_LOG_Q1 = _bits_f32(0xB95E8083)
-_LOG_Q2 = _bits_f32(0x3F318000)
 # Giles' erf_inv, w < 5 and w >= 5, highest degree first
 _ERFINV_LT = tuple(map(_bits_f32, (0x32F16588, 0x34B84B36, 0xB66C7357, 0xB6935AC1, 0x396532DB,
                                    0xBAA45408, 0xBB88E4EF, 0x3E7C8F63, 0x3FC02E2F)))
@@ -174,13 +170,8 @@ _ERFINV_GE = tuple(map(_bits_f32, (0xB951F09B, 0x38D3B56B, 0x3AB0DC72, 0xBB70BDE
 _SQRT2 = _bits_f32(0x3FB504F3)
 
 
-def _fma(a: Tensor, b, c) -> Tensor:
-    """float32 ``a * b + c`` rounded once (emulated in float64: the product
-    is exact there)."""
-    d = a.double()
-    b = b.double() if torch.is_tensor(b) else b
-    c = c.double() if torch.is_tensor(c) else c
-    return (d * b + c).float()
+#: float32 ``a * b + c`` rounded once (``libm.fma32``'s plain version)
+_fma = libm._fma32_ref
 
 
 def log1p_xla(x: Tensor) -> Tensor:
@@ -199,27 +190,8 @@ def log1p_xla(x: Tensor) -> Tensor:
         num = _fma(num, x, c(q))
     s = (x * x2) * (num / den)
     small = x + _fma(c(-0.5), x2, s)
-    # else: Cephes' logf of v = 1 + x
-    v = x + c(1.0)
-    vm = torch.where(v > c(_LOG_MIN), v, c(_LOG_MIN))
-    iv = vm.view(torch.int32)
-    m = ((iv & 0x7FFFFF) | 0x3F000000).view(torch.float32)
-    e1 = ((iv >> 23) - 127).float() + c(1.0)
-    below = m < c(_LOG_SQRTHALF)
-    xp = (m + c(-1.0)) + torch.where(below, m, c(0.0))
-    e = torch.where(below, e1 - c(1.0), e1)
-    xx = xp * xp
-    x3 = xx * xp
-    a, b, cc, d, ee, f, g, h, i = _LOG_C
-    p1 = _fma(_fma(xp, c(a), c(b)), xp, c(g))
-    p2 = _fma(_fma(xp, c(cc), c(d)), xp, c(h))
-    p3 = _fma(_fma(xp, c(ee), c(f)), xp, c(i))
-    t = _fma(_fma(p1, x3, p2), x3, p3)
-    y = _fma(t, x3, e * c(_LOG_Q1))
-    r = _fma(e, c(_LOG_Q2), _fma(c(-0.5), xx, xp) + y)
-    big = torch.where(v > 0, r, c(math.nan))  # v <= 0 or NaN: NaN
-    big = torch.where(v == 0, c(-math.inf), big)
-    big = torch.where(v == math.inf, c(math.inf), big)
+    # else: XLA's log (Cephes' logf) of v = 1 + x
+    big = libm._log_ref(x + c(1.0))
     return torch.where(x.abs() < c(_L1P_T), small, big)
 
 
@@ -259,7 +231,8 @@ class Draw:
     """One output of a plan: the key reached from the root by ``path`` (an
     int ``i`` takes ``split(k, n)[i]`` for any ``n``; :class:`Each` takes
     them all), then the leaf: ``"key"`` the key itself, ``"bits"``,
-    ``"uniform"`` on [minval, maxval) or ``"normal"``, of ``shape``;
+    ``"uniform"`` on [minval, maxval), ``"normal"`` or ``"erfinv"`` (the
+    normal before its last multiply by sqrt(2)), of ``shape``;
     ``"transform"`` is the normal of the uniform whose 23 mantissa bits
     are the element's index instead of its hash (the normal transform over
     every input it can take, for the checks). The output is ``[*root
@@ -279,7 +252,7 @@ class Draw:
                 raise ValueError(f"Draw.path step {s!r}: an index in [0, 2^32) or Each(n >= 1)")
 
 
-KINDS = ("key", "bits", "uniform", "normal", "transform")
+KINDS = ("key", "bits", "uniform", "normal", "transform", "erfinv")
 
 
 def draw_ref(k: Tensor, d: Draw) -> Tensor:
@@ -294,6 +267,8 @@ def draw_ref(k: Tensor, d: Draw) -> Tensor:
         return uniform(k, d.shape, d.minval, d.maxval)
     if d.kind == "transform":
         return transform_table(d.shape, k.device).expand(*k.shape[:-1], *d.shape)
+    if d.kind == "erfinv":
+        return erf_inv_xla(uniform(k, d.shape, NORMAL_LO, 1.0))
     return normal(k, d.shape)
 
 

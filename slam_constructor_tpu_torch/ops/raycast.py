@@ -29,7 +29,7 @@ import math
 import torch
 
 from . import grid as gridlib
-from . import kernels
+from . import kernels, libm
 from . import scan as scanlib
 from .geometry import linspace
 
@@ -115,7 +115,7 @@ def _endpoint_area_obs(origin, scale, endpoints, valid, hole_width):
     ``[..., R, 9]``; the weight is the overlap area as a fraction of the
     cell area, the occupancy observed is 1.0.
     """
-    rel = gridlib.div_scale(endpoints - origin, scale)
+    rel = gridlib.cell_coord(endpoints - origin, scale)
     idx = torch.stack(
         [torch.floor(rel[..., 1]).to(torch.int64), torch.floor(rel[..., 0]).to(torch.int64)], -1
     )  # [..., R, 2] (row, col)
@@ -129,7 +129,7 @@ def _endpoint_area_obs(origin, scale, endpoints, valid, hole_width):
     ov = torch.clamp(
         torch.minimum(cell_lo + scale, e + half) - torch.maximum(cell_lo, e - half), min=0.0
     )
-    area = gridlib.div_scale(ov[..., 0] * ov[..., 1], scale * scale)
+    area = gridlib.cell_coord(ov[..., 0] * ov[..., 1], scale * scale)
     return nbr[..., 0], nbr[..., 1], torch.where(valid[..., None], area, 0.0)
 
 
@@ -141,7 +141,8 @@ def scan_observation_planes(gm, pose, scan: scanlib.LaserScan, cfg: BeamConfig):
     scale = gm.scale
     dev = pose.device
     angles = pose[2] + scan.bearings  # [R]
-    dirs = torch.stack([torch.cos(angles), torch.sin(angles)], dim=-1)  # [R, 2]
+    sn, cs = libm.sincos(angles)
+    dirs = torch.stack([cs, sn], dim=-1)  # [R, 2]
     start = pose[:2]
 
     # --- free-space trace ---------------------------------------------------
@@ -155,8 +156,8 @@ def scan_observation_planes(gm, pose, scan: scanlib.LaserScan, cfg: BeamConfig):
         n_s = cfg.n_free_samples(scale)
         step = scale * cfg.step_fraction
         t = (torch.arange(n_s, dtype=torch.float32, device=dev) + 0.5) * step  # [S]
-        pts = start + t[None, :, None] * dirs[:, None, :]  # [R, S, 2]
-        idx = gridlib.world_to_cell(gm, pts)  # [R, S, 2]
+        pts = libm.fma32(t[None, :, None], dirs[:, None, :], start)  # [R, S, 2]
+        idx = torch.stack(_cells_of(pts, gm.origin, scale), -1)  # [R, S, 2]
         free_limit = scan.ranges - cfg.hole_width / 2.0
         valid = scan.valid[:, None] & (t[None, :] < free_limit[:, None])
         # consecutive-duplicate-cell mask: each crossed cell counted once per beam
@@ -168,7 +169,7 @@ def scan_observation_planes(gm, pose, scan: scanlib.LaserScan, cfg: BeamConfig):
     # --- occupied evidence: endpoints (const or area) + wall-blur tail ------
     # beams longer than max_range carry no endpoint evidence
     ep_valid = scan.valid & (scan.ranges <= cfg.max_range)
-    endpoints = start + scan.ranges[:, None] * dirs  # [R, 2]
+    endpoints = libm.fma32(scan.ranges[:, None], dirs, start)  # [R, 2]
     if cfg.occupancy_estimator == "area":
         r9, c9, wgt = _endpoint_area_obs(gm.origin, scale, endpoints, ep_valid, cfg.hole_width)
         wgt = wgt.reshape(-1)
@@ -177,7 +178,7 @@ def scan_observation_planes(gm, pose, scan: scanlib.LaserScan, cfg: BeamConfig):
             [r9.reshape(-1)], [c9.reshape(-1)], [wgt], [wgt], [wgt > 0]
         )
     else:
-        eidx = gridlib.world_to_cell(gm, endpoints)
+        eidx = torch.stack(_cells_of(endpoints, gm.origin, scale), -1)
         ones = torch.ones(eidx.shape[:1], device=dev)
         occ_r, occ_c, occ_w, occ_s, occ_v = (
             [eidx[..., 0]], [eidx[..., 1]], [ones], [ones], [ep_valid]
@@ -187,8 +188,8 @@ def scan_observation_planes(gm, pose, scan: scanlib.LaserScan, cfg: BeamConfig):
         # along the ray on both sides; weight and occupancy both taper
         bt = linspace(-1.0, 1.0, cfg.blur_samples, dev)  # [B] in hole units
         tb = scan.ranges[:, None] + cfg.hole_width / 2.0 * bt[None, :]
-        pb = start + tb[..., None] * dirs[:, None, :]  # [R, B, 2]
-        ib = gridlib.world_to_cell(gm, pb)
+        pb = libm.fma32(tb[..., None], dirs[:, None, :], start)  # [R, B, 2]
+        ib = torch.stack(_cells_of(pb, gm.origin, scale), -1)
         ramp = (1.0 - torch.abs(bt))[None, :].expand(tb.shape)
         vb = ep_valid[:, None] & (tb > 0)
         occ_r.append(ib[..., 0].reshape(-1))
@@ -214,12 +215,14 @@ def scan_sample_cells(origin: Tensor, scale: float, pose: Tensor, scan: scanlib.
     :func:`scan_observation_planes` counts with ``free_impl='dda'``."""
     dev = pose.device
     angles = pose[2] + scan.bearings
-    dirs = torch.stack([torch.cos(angles), torch.sin(angles)], dim=-1)  # [R, 2]
+    sn, cs = libm.sincos(angles)
+    dirs = torch.stack([cs, sn], dim=-1)  # [R, 2]
     start = pose[:2]
     n_s = cfg.n_free_samples(scale)
     step = scale * cfg.step_fraction
     t = (torch.arange(n_s, dtype=torch.float32, device=dev) + 0.5) * step  # [S]
-    rows_f, cols_f = _cells_of(start + t[None, :, None] * dirs[:, None, :], origin, scale)
+    rows_f, cols_f = _cells_of(libm.fma32(t[None, :, None], dirs[:, None, :], start), origin,
+                               scale)
     free_limit = scan.ranges - cfg.hole_width / 2.0
     valid = scan.valid[:, None] & (t[None, :] < free_limit[:, None])
     same = (rows_f[:, 1:] == rows_f[:, :-1]) & (cols_f[:, 1:] == cols_f[:, :-1])
@@ -229,7 +232,7 @@ def scan_sample_cells(origin: Tensor, scale: float, pose: Tensor, scan: scanlib.
     rows, cols = [rows_f.reshape(-1)], [cols_f.reshape(-1)]
     w, s = [w_free], [torch.zeros_like(w_free)]
 
-    endpoints = start + scan.ranges[:, None] * dirs
+    endpoints = libm.fma32(scan.ranges[:, None], dirs, start)
     # usable-range cap on endpoint evidence, as the dense insert does
     ep_valid = scan.valid & (scan.ranges <= cfg.max_range)
     if cfg.occupancy_estimator == "area":
@@ -247,7 +250,7 @@ def scan_sample_cells(origin: Tensor, scale: float, pose: Tensor, scan: scanlib.
     if cfg.wall_blur:
         bt = linspace(-1.0, 1.0, cfg.blur_samples, dev)
         tb = scan.ranges[:, None] + cfg.hole_width / 2.0 * bt[None, :]
-        br, bc = _cells_of(start + tb[..., None] * dirs[:, None, :], origin, scale)
+        br, bc = _cells_of(libm.fma32(tb[..., None], dirs[:, None, :], start), origin, scale)
         ramp = (1.0 - torch.abs(bt))[None, :].expand(tb.shape)
         vb = (ep_valid[:, None] & (tb > 0)).to(torch.float32)
         rows.append(br.reshape(-1))
@@ -259,8 +262,8 @@ def scan_sample_cells(origin: Tensor, scale: float, pose: Tensor, scan: scanlib.
 
 def _cells_of(pts: Tensor, origin: Tensor, scale: float):
     """(row, col) int64 of world points; ``origin`` broadcasts against
-    ``pts``. The arithmetic of :func:`grid.world_to_cell`."""
-    rel = gridlib.div_scale(pts - origin, scale)
+    ``pts``: the reference's jitted arithmetic (:func:`grid.cell_coord`)."""
+    rel = gridlib.cell_coord(pts - origin, scale)
     return torch.floor(rel[..., 1]).to(torch.int64), torch.floor(rel[..., 0]).to(torch.int64)
 
 
@@ -343,7 +346,8 @@ def cast_rays(
     n_s = int(math.ceil(max_range / step))
     t = (torch.arange(n_s, dtype=torch.float32, device=dev) + 1.0) * step  # [S]
     angles = pose[2] + bearings
-    dirs = torch.stack([torch.cos(angles), torch.sin(angles)], dim=-1)  # [R, 2]
+    sn, cs = libm.sincos(angles)
+    dirs = torch.stack([cs, sn], dim=-1)  # [R, 2]
     pts = pose[:2] + t[None, :, None] * dirs[:, None, :]  # [R, S, 2]
     rel = gridlib.div_scale(pts - origin, scale)
     col = torch.floor(rel[..., 0]).to(torch.int64)

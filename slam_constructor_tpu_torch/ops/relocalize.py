@@ -23,6 +23,7 @@ import dataclasses
 import torch
 
 from . import grid as gridlib
+from . import libm
 from . import scan as scanlib
 from .geometry import wrap_angle
 from .matchers import HillClimbingConfig, MatchResult, hill_climbing_match
@@ -71,7 +72,8 @@ def endpoint_histograms(view: MapView, scan: scanlib.LaserScan, th: Tensor) -> T
     W / 2) so that the scan's +-range fits."""
     h, w = view.occ.shape
     pts = scanlib.scan_points(scan)  # [R, 2] sensor frame
-    c, s = torch.cos(th)[:, None], torch.sin(th)[:, None]
+    s, c = libm.sincos(th)
+    c, s = c[:, None], s[:, None]
     ex = c * pts[:, 0] - s * pts[:, 1]  # [T, R]
     ey = s * pts[:, 0] + c * pts[:, 1]
     col = torch.floor(gridlib.div_scale(ex, view.scale)).to(torch.int64) + w // 2

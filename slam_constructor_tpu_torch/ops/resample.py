@@ -11,22 +11,24 @@ reference's key (:func:`uniform_offset`) or handed in.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from . import kernels, prng
+from . import kernels, libm, prng
 
 Tensor = torch.Tensor
 
 
 def normalize_log_weights(logw: Tensor) -> Tensor:
-    """Shift-normalise so that exp(logw) sums to 1."""
-    return logw - torch.logsumexp(logw, dim=-1, keepdim=True)
+    """Shift-normalise so that exp(logw) sums to 1 (``libm.normalize_log``:
+    the reference's ``logsumexp`` with its ``exp`` and ``log``)."""
+    return libm.normalize_log(logw)
 
 
 def effective_sample_size(logw: Tensor) -> Tensor:
     """Neff = 1 / sum(w^2) for normalised weights."""
-    logw = normalize_log_weights(logw)
-    return torch.exp(-torch.logsumexp(2.0 * logw, dim=-1))
+    return libm.effective_sample_size(logw)
 
 
 def offset_draw(n: int, path: tuple = ()) -> prng.Draw:
@@ -42,10 +44,16 @@ def uniform_offset(n: int, key: Tensor) -> Tensor:
     return kernels.prng_draws(key, (offset_draw(n),))[0]
 
 
+@functools.lru_cache(maxsize=64)
+def _neg_log(p: int) -> float:
+    return -float(libm._log_ref(torch.tensor([float(p)], dtype=torch.float32))[0])
+
+
 def log_uniform_weights(p: int, device=None) -> Tensor:
     """f32[p] of ``-log(p)``: the f32 log of an f32 ``p``, as the reference
-    takes it (``-jnp.log(float(p))``), not ``math.log`` rounded to f32."""
-    return -torch.log(torch.full((p,), float(p), dtype=torch.float32, device=device))
+    takes it (``-jnp.log(float(p))``, XLA's ``log``), not ``math.log``
+    rounded to f32."""
+    return torch.full((p,), _neg_log(p), dtype=torch.float32, device=device)
 
 
 def systematic_resample(u0: Tensor, logw: Tensor, n: int | None = None) -> Tensor:
@@ -59,7 +67,7 @@ def systematic_resample(u0: Tensor, logw: Tensor, n: int | None = None) -> Tenso
     """
     p = logw.shape[0]
     n = n or p
-    w = torch.exp(normalize_log_weights(logw))
+    w = libm.softmax_lse(logw)[0]
     cdf = torch.cumsum(w, dim=0)
     steps = torch.arange(n, dtype=torch.float32, device=logw.device)
     comb = u0 + steps / torch.full_like(steps, float(n))

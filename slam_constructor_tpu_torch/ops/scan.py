@@ -9,6 +9,8 @@ import math
 
 import torch
 
+from . import libm
+
 Tensor = torch.Tensor
 
 
@@ -73,8 +75,27 @@ def make_scan(
 
 def scan_points(scan: LaserScan) -> Tensor:
     """Sensor-frame cartesian endpoints ``f32[..., R, 2]``."""
-    c, s = torch.cos(scan.bearings), torch.sin(scan.bearings)
-    return torch.stack([scan.ranges * c, scan.ranges * s], dim=-1)
+    return scan.ranges[..., None] * libm.cossin(scan.bearings)
+
+
+def _endpoint_angles_ref(ranges: Tensor, bearings: Tensor) -> Tensor:
+    s, c = libm.sincos(bearings)
+    x, y = ranges * c, ranges * s
+    dx = libm.fma32(ranges[..., 1:], c[..., 1:], -x[..., :-1])
+    dy = libm.fma32(ranges[..., 1:], s[..., 1:], -y[..., :-1])
+    return libm.atan2(dy, dx)
+
+
+def endpoint_angles(scan: LaserScan) -> Tensor:
+    """The direction of each consecutive-endpoint difference ``f32[...,
+    R - 1]`` in (-pi, pi]: ``atan2`` of ``scan_points`` differenced, each
+    difference fused as the reference's jitted code fuses it (the later
+    endpoint's product, minus the earlier one rounded). One launch on the
+    card (``kernels.libm_endpoint_angles``)."""
+    if libm._on_card(scan.ranges):
+        from . import kernels
+        return kernels.libm_endpoint_angles(scan.ranges, scan.bearings)
+    return _endpoint_angles_ref(scan.ranges, scan.bearings)
 
 
 def subsample_mask(scan: LaserScan, stride: int) -> Tensor:
@@ -93,9 +114,7 @@ def angle_histogram(scan: LaserScan, n_bins: int = 36) -> Tensor:
     (``bincount`` and ``histc`` read a maximum back to the host); they are
     integers, so the sums are exact in any order.
     """
-    pts = scan_points(scan)
-    d = pts[1:] - pts[:-1]
-    ang = torch.atan2(d[..., 1], d[..., 0])  # (-pi, pi]
+    ang = endpoint_angles(scan)  # (-pi, pi]
     ok = (scan.valid[1:] & scan.valid[:-1]).to(torch.float32)
     bins = torch.floor((ang + math.pi) / (2 * math.pi) * n_bins).to(torch.int64)
     bins = torch.clamp(bins, 0, n_bins - 1)

@@ -18,6 +18,7 @@ import dataclasses
 import torch
 
 from ..models import posegraph as pg
+from ..ops import libm
 from ..ops.geometry import wrap_angle
 from . import mesh as meshlib
 
@@ -33,7 +34,7 @@ def _partial_normal_equations(poses: Tensor, ei: Tensor, ej: Tensor, ez: Tensor,
     e, ji, jj = pg._edge_residual_jac(poses[ei], poses[ej], ez)
     w = einfo * emask[:, None]
     if huber_delta > 0:
-        chi = torch.sqrt(torch.clamp((w * e * e).sum(-1), min=1e-12))
+        chi = libm.sqrt(torch.clamp((w * e * e).sum(-1), min=1e-12), inplace=True)
         delta = torch.full_like(chi, huber_delta)
         w = w * torch.where(eloop, torch.clamp(delta / chi, max=1.0), 1.0)[:, None]
     oh_i = torch.nn.functional.one_hot(ei, kmax).to(torch.float32)

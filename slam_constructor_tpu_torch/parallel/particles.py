@@ -37,7 +37,7 @@ import torch
 
 from ..models import gmapping as gm_lib
 from ..ops import grid as gridlib
-from ..ops import resample
+from ..ops import libm, resample
 from ..ops.scan import LaserScan
 from ..utils import determinism
 from . import mesh as meshlib
@@ -54,15 +54,15 @@ def psum_normalize_log_weights(logw: Tensor, mesh, axis: str = "particles",
     if deterministic:
         return determinism.deterministic_normalize_log_weights(logw, mesh, axis)
     gmax = meshlib.pmax(logw.max(), mesh, axis)
-    gsum = meshlib.psum(torch.exp(logw - gmax).sum(), mesh, axis)
-    return logw - (gmax + torch.log(gsum))
+    gsum = meshlib.psum(libm.sum_exp(logw, gmax), mesh, axis)
+    return logw - (gmax + libm.log(gsum, inplace=True))
 
 
 def sharded_neff(logw: Tensor, mesh, axis: str = "particles") -> Tensor:
     """Neff f32[] of the weights of every rank (the same on each)."""
     gmax = meshlib.pmax(logw.max(), mesh, axis)
-    z = meshlib.psum(torch.exp(logw - gmax).sum(), mesh, axis)
-    w2 = meshlib.psum(torch.exp(2.0 * (logw - gmax)).sum(), mesh, axis)
+    z = meshlib.psum(libm.exp(logw - gmax, inplace=True).sum(), mesh, axis)
+    w2 = meshlib.psum(libm.exp(2.0 * (logw - gmax), inplace=True).sum(), mesh, axis)
     return z * z / w2
 
 

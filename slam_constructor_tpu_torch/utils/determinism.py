@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops import libm
 from ..parallel import mesh as meshlib
 
 Tensor = torch.Tensor
@@ -50,5 +51,5 @@ def deterministic_normalize_log_weights(logw: Tensor, mesh, axis: str = "particl
     run to run and across backends. The partials are those of
     ``parallel.particles.psum_normalize_log_weights``."""
     gmax = ladder_pmax(logw.max(), mesh, axis)
-    gsum = ladder_psum(torch.exp(logw - gmax).sum(), mesh, axis)
-    return logw - (gmax + torch.log(gsum))
+    gsum = ladder_psum(libm.sum_exp(logw, gmax), mesh, axis)
+    return logw - (gmax + libm.log(gsum))

@@ -6,6 +6,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import libm
 from ..ops.geometry import between, wrap_angle
 
 Tensor = torch.Tensor
@@ -22,8 +23,8 @@ def align_2d(est_xy: Tensor, gt_xy: Tensor) -> tuple[Tensor, Tensor]:
     syy = (e[:, 1] * g[:, 1]).sum()
     sxy = (e[:, 0] * g[:, 1]).sum()
     syx = (e[:, 1] * g[:, 0]).sum()
-    theta = torch.atan2(sxy - syx, sxx + syy)
-    c, s = torch.cos(theta), torch.sin(theta)
+    theta = libm.atan2(sxy - syx, sxx + syy)
+    s, c = libm.sincos(theta)
     rot = torch.stack([torch.stack([c, -s]), torch.stack([s, c])])
     t = mu_g - rot @ mu_e
     return rot, t
@@ -36,7 +37,7 @@ def ate(est: Tensor, gt: Tensor, align: bool = True) -> Tensor:
     if align:
         rot, t = align_2d(e, g)
         e = e @ rot.T + t
-    return torch.sqrt(((e - g) ** 2).sum(-1).mean())
+    return libm.sqrt(((e - g) ** 2).sum(-1).mean())
 
 
 def rpe(est: Tensor, gt: Tensor, delta: int = 1) -> tuple[Tensor, Tensor]:
@@ -46,7 +47,7 @@ def rpe(est: Tensor, gt: Tensor, delta: int = 1) -> tuple[Tensor, Tensor]:
     dg = between(gt[:-delta], gt[delta:])
     dt = de[:, :2] - dg[:, :2]
     dr = wrap_angle(de[:, 2] - dg[:, 2])
-    return torch.sqrt((dt**2).sum(-1).mean()), torch.sqrt((dr**2).mean())
+    return libm.sqrt((dt**2).sum(-1).mean()), libm.sqrt((dr**2).mean())
 
 
 def map_quality(occ_est: Tensor, occ_gt: Tensor, occupied_thresh: float = 0.6,

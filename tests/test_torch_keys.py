@@ -99,14 +99,21 @@ def test_synth_sequence_from_the_reference_key(range_noise):
     assert not torch.equal(odom_np, odom)
 
 
-def engine_noise(key, n, mc):
-    """The reference's matcher normals of ``n`` engine steps from ``key``."""
+def engine_noise(key, n, mc, erf_inv=False):
+    """The reference's matcher normals of ``n`` engine steps from ``key``;
+    with ``erf_inv``, the ``erf_inv(u)`` values its jitted match multiplies
+    by ``sqrt(2) * sigma`` (the normals before their last multiply), as
+    ``matchers.ErfInvDraws``."""
+    lo = np.nextafter(np.float32(-1), np.float32(0))
+    draw = jax.jit(jax.vmap(
+        (lambda k: jax.lax.erf_inv(jax.random.uniform(k, (mc.batch, 3), minval=lo, maxval=1.0)))
+        if erf_inv else (lambda k: jax.random.normal(k, (mc.batch, 3)))))
     out = []
     for _ in range(n):
         key, sub = jax.random.split(key)
-        out.append(np.asarray(jax.vmap(lambda k: jax.random.normal(k, (mc.batch, 3)))(
-            jax.random.split(sub, mc.rounds))))
-    return torch.from_numpy(np.stack(out)), key
+        out.append(np.asarray(draw(jax.random.split(sub, mc.rounds))))
+    out = torch.from_numpy(np.stack(out))
+    return (tmatch.ErfInvDraws(out) if erf_inv else out), key
 
 
 def engine_configs(name):
@@ -131,8 +138,9 @@ def test_engine_from_a_seed_is_the_reference_from_its_key(seq, name, seed):
     traj, _ = e.run(scans, odom)
     np.testing.assert_array_equal(convert.key_to_numpy(e.state.key), np.asarray(jfinal.key))
     assert pose_diff(traj.numpy(), jtraj) <= POSE_TOL
-    # the same run with the reference's normals injected: the same bits
-    noise, _ = engine_noise(jax.random.PRNGKey(seed), N, tcfg.matcher_cfg)
+    # the same run with the reference's draws injected (its normals before
+    # their multiply by sqrt(2), as the keyed match draws them): the same bits
+    noise, _ = engine_noise(jax.random.PRNGKey(seed), N, tcfg.matcher_cfg, erf_inv=True)
     f = teng.Engine(tcfg, device="cpu", seed=seed)
     f.state.pose = gt[0].clone()
     traj_f, _ = f.run(scans, odom, noise=noise)
@@ -250,7 +258,7 @@ def test_full_pipeline_from_a_seed_is_the_reference_from_its_key(seq):
     assert pose_diff(traj.numpy(), jtraj) <= POSE_TOL
     np.testing.assert_array_equal(convert.key_to_numpy(te.state.key), np.asarray(je.state.key))
     assert int(te.graph.n_kf) == int(je.graph.n_kf) >= 2
-    noise, _ = engine_noise(jax.random.PRNGKey(9), N, tcfg.tracking.matcher_cfg)
+    noise, _ = engine_noise(jax.random.PRNGKey(9), N, tcfg.tracking.matcher_cfg, erf_inv=True)
     tf = tfull.FullSlamEngine(tcfg, n_beams=BEAMS, device="cpu", seed=9)
     tf.state.pose = gt[0].clone()
     assert torch.equal(tf.run(scans, odom, segment=N, noise=noise), traj)

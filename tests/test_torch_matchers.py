@@ -96,13 +96,20 @@ def test_generator_draws_are_reproducible(setup):
     cfg = tmatch.MonteCarloConfig(batch=BATCH, rounds=ROUNDS,
                                   scoring=tscore.ScoringConfig(reducer="overlap"))
     init = torch.from_numpy((true + 0.05).astype(np.float32))
-    # the normals drawn from a key are the reference's: split(key, rounds),
-    # normal(key_r, (batch, 3)) a round; the match equals the one handed them
+    # the draws from a key are the reference's: split(key, rounds), then
+    # normal(key_r, (batch, 3)) a round, which its jitted code multiplies by
+    # sigma as erf_inv(u) * (sqrt(2) * sigma); the match equals the one
+    # handed those erf_inv values, and they times sqrt(2) are the normals
     key = tprng.key(3)
     res = [tmatch.monte_carlo_match(tview, ts, init, key, cfg) for _ in range(2)]
-    want = np.array(jax.vmap(lambda k: jax.random.normal(k, (BATCH, 3)))(
-        jax.random.split(jax.random.PRNGKey(3), ROUNDS)))
-    given = tmatch.monte_carlo_match(tview, ts, init, None, cfg, noise=torch.from_numpy(want))
+    keys = jax.random.split(jax.random.PRNGKey(3), ROUNDS)
+    lo = np.nextafter(np.float32(-1), np.float32(0))
+    want = np.array(jax.jit(jax.vmap(lambda k: jax.lax.erf_inv(
+        jax.random.uniform(k, (BATCH, 3), minval=lo, maxval=1.0))))(keys))
+    normals = np.array(jax.jit(jax.vmap(lambda k: jax.random.normal(k, (BATCH, 3))))(keys))
+    np.testing.assert_array_equal(normals, want * np.float32(np.sqrt(2.0)))
+    given = tmatch.monte_carlo_match(tview, ts, init, None, cfg,
+                                     noise=tmatch.ErfInvDraws(torch.from_numpy(want)))
     assert torch.equal(res[0].pose, res[1].pose) and res[0].trace.shape == (ROUNDS,)
     assert torch.equal(res[0].pose, given.pose) and torch.equal(res[0].trace, given.trace)
 
