@@ -423,7 +423,10 @@ Phases, one line or more each, in order; any failure exits non-zero:
    the fused sites too (pose operations, endpoint angles, log-sum-exp rows,
    fused multiply-add); then timed beside ``torch.sin`` and the bound.
    Its launches are counted apart, by function (``kernels.
-   libm_launch_counts``), and printed beside each main path's counts.
+   libm_launch_counts``), and held on each main path to its sites a scan
+   (``LIBM_A_SCAN``: tiny, viny, viny_m3rsm, the rounds and levels paths,
+   the full paths' tracking, the RBPF, its preset, improved proposal and
+   copy-on-write maps); the full paths' keyframe work is printed.
    ``python3 chip_smoke.py --phase libm`` runs phases 1, 2 and 52 alone;
 53. (run after phase 14) ``mc_match`` drawing its own numbers from the
    engine step's key in its prologue (``kernels.KeyNoise``) against the
@@ -1415,11 +1418,12 @@ def run_main_path(cfg, scans, odom, gt, sync_mode, seed=0):
     return traj, probs, time.perf_counter() - t0, e
 
 
-def phase_main_path(name, cfg, want_launches, scans, odom, gt, odo_ate, ate_limit):
+def phase_main_path(name, cfg, want_launches, scans, odom, gt, odo_ate, ate_limit, want_libm):
     """The timed run (the path was warmed up by the run that captured the
-    match states) with the counts at 0 before and read after, then once
-    more for repeatability; returns the launch counts, the trajectory and
-    the engine of the timed run."""
+    match states) with the counts at 0 before and read after (libm's, by
+    function, against ``want_libm``), then once more for repeatability;
+    returns the launch counts, the trajectory and the engine of the timed
+    run."""
     from slam_constructor_tpu_torch.utils import evaluate
 
     reset_launches()
@@ -1430,6 +1434,7 @@ def phase_main_path(name, cfg, want_launches, scans, odom, gt, odo_ate, ate_limi
           f"with the sync check on, no host sync; launches {launches} "
           f"(expected {want_launches}); libm {LAST_LIBM}", flush=True)
     check(launches == want_launches, f"{name}: launches {launches}, expected {want_launches}")
+    check_libm(name, want_libm)
     check(traj.shape == (N_SCANS, 3) and bool(torch.isfinite(traj).all()),
           f"{name}: non-finite poses")
     ate = float(evaluate.ate(traj, gt, align=False))
@@ -1472,6 +1477,46 @@ def read_launches() -> dict:
 LAST_LIBM: dict = {}
 LIBM_BY_PATH: dict = {}
 
+#: ``csrc/libm.cu``'s launches a scan by function on each kind of path (its
+#: Python-level sites: the prior's compose, the scan's points, viny's
+#: endpoint chain and weights, the RBPF's proposal, weights and resampling)
+LIBM_A_SCAN = {
+    "tiny": {"pose/compose": 1, "cossin": 1},
+    "viny": {"pose/compose": 1, "cossin": 1, "endpoint_angles": 2, "fma32": 1},
+    # the tracker of the full path: tiny's, with the keyframe test's
+    # between, distance and heading
+    "full tracking": {"pose/compose": 1, "cossin": 1, "pose/between": 1, "sqrt": 1,
+                      "wrap_angle": 1},
+    "gmapping": {"pose/compose": 2, "cossin": 1, "log": 1, "rows/normalize": 2, "rows/ess": 2,
+                 "rows/softmax": 1},
+    # the improved proposal (and its gate) adds the probes' headings, the
+    # motion prior's frame, the fit's spread and a second softmax
+    "gmapping improved": {"pose/compose": 2, "cossin": 3, "wrap_angle": 4, "sincos": 1, "log": 1,
+                          "sqrt": 1, "rows/normalize": 2, "rows/ess": 2, "rows/softmax": 2},
+}
+
+
+def expect_libm(kind: str, n: int = N_SCANS) -> dict:
+    """libm's launches by function of ``n`` scans of a path of ``kind``
+    (:data:`LIBM_A_SCAN`), with their ``total``."""
+    want = {name: n * k for name, k in LIBM_A_SCAN[kind].items()}
+    return {**want, "total": sum(want.values())}
+
+
+def check_libm(name: str, want: dict, got: dict | None = None) -> None:
+    """libm's launches by function (the last read_launches(), or ``got``)
+    against ``want``: a site that launches more often, or a new one, is
+    printed at once and fails the run at its end (``LIBM_PARTED``), so one
+    run names every path's counts."""
+    got = {k: v for k, v in (LAST_LIBM if got is None else got).items() if v}
+    if got != {k: v for k, v in want.items() if v}:
+        LIBM_PARTED.append(f"{name}: libm launches {got}, expected {want}")
+        print(f"libm counts part: {LIBM_PARTED[-1]}", flush=True)
+
+
+#: the paths whose libm launches parted from their expected counts
+LIBM_PARTED: list = []
+
 
 def phase_rounds_path(cfg, scans, odom, gt, fused_traj):
     """The first scans of the viny path with `mc_match_rounds` handed in in
@@ -1491,6 +1536,13 @@ def phase_rounds_path(cfg, scans, odom, gt, fused_traj):
           f"launches {launches} (expected {want}); max|pose diff| to the fused path {diff:.3e}",
           flush=True)
     check(launches == want, f"rounds path: launches {launches}, expected {want}")
+    # the yardstick forms each round's candidates in torch: an fma32 and a
+    # wrap_angle launch a round
+    rounds = cfg.matcher_cfg.rounds
+    want_libm = expect_libm("viny", n)
+    want_libm.update(fma32=want_libm["fma32"] + rounds * n, wrap_angle=rounds * n,
+                     total=want_libm["total"] + 2 * rounds * n)
+    check_libm("rounds path", want_libm)
     check(torch.equal(traj, fused_traj[:n]),
           f"the fused match and one launch a round give different trajectories: {diff}")
     return launches
@@ -1501,9 +1553,13 @@ def run_full_path(cfg, scans, odom, gt, sync_mode, noise=None, device=None, seed
     ``FullSlamEngine.run``, the whole sequence as one segment; the sync
     check is on only while the segment is tracked (the graph work that
     follows fetches its counters by design). Returns the engine, the
-    corrected trajectory, the seconds of the whole run and of the tracking."""
+    corrected trajectory, the seconds of the whole run and of the tracking.
+    libm's launches while the segment is tracked are kept in
+    ``TRACK_LIBM``."""
     from slam_constructor_tpu_torch.models import full
+    from slam_constructor_tpu_torch.ops import kernels
 
+    TRACK_LIBM.clear()
     e = full.FullSlamEngine(cfg, n_beams=N_BEAMS, device=device, seed=seed)
     on_card = e.device.type == "cuda"
     check(device is not None or on_card, f"FullSlamEngine defaulted to {e.device}, not the card")
@@ -1512,6 +1568,7 @@ def run_full_path(cfg, scans, odom, gt, sync_mode, noise=None, device=None, seed
 
     def guarded(*args, **kwargs):
         t0 = time.perf_counter()
+        before = kernels.libm_launch_counts()
         if on_card:
             torch.cuda.set_sync_debug_mode(sync_mode)
         try:
@@ -1521,6 +1578,8 @@ def run_full_path(cfg, scans, odom, gt, sync_mode, noise=None, device=None, seed
                 torch.cuda.set_sync_debug_mode(0)
                 torch.cuda.synchronize()
         track_secs[0] += time.perf_counter() - t0
+        for name, n in kernels.libm_launch_counts().items():
+            TRACK_LIBM[name] = TRACK_LIBM.get(name, 0) + n - before.get(name, 0)
         return out
 
     if on_card:
@@ -1531,6 +1590,10 @@ def run_full_path(cfg, scans, odom, gt, sync_mode, noise=None, device=None, seed
     if on_card:
         torch.cuda.synchronize()
     return e, traj, time.perf_counter() - t0, track_secs[0]
+
+
+#: libm's launches by function while the last run_full_path() tracked
+TRACK_LIBM: dict = {}
 
 
 def capture_full_launches(cfg, scans, odom, gt, every=32):
@@ -1620,6 +1683,15 @@ def phase_full_path(cfg, scans, odom, gt, odo_ate, name="full", reference=FULL_R
           f"{n_edges} edges, {e.total_loops} loops, {e.n_bursts} bursts; launches {launches} "
           f"(expected {want})", flush=True)
     check(launches == want, f"{name}: launches {launches}, expected {want}")
+    # libm: the tracker's sites a scan exactly; the keyframe batches' and
+    # bursts' (loop tests, the graph's Gauss-Newton steps) follow the
+    # graph's data and are printed
+    graph_libm = {k: v - TRACK_LIBM.get(k, 0) for k, v in LAST_LIBM.items()
+                  if v - TRACK_LIBM.get(k, 0)}
+    LIBM_BY_PATH[name] = dict(LAST_LIBM)
+    print(f"{name} main path: libm launches while tracking {TRACK_LIBM}, in the keyframe work "
+          f"and bursts {graph_libm}", flush=True)
+    check_libm(f"{name} tracking", expect_libm("full tracking"), TRACK_LIBM)
     check(n_kf > 0 and e.total_loops >= 1, f"{name}: {n_kf} keyframes, {e.total_loops} loops")
     check(e.n_kf_batches == math.ceil(n_kf / cfg.kf_batch), f"{name}: keyframe batches do not add up")
     check(traj.shape == (N_SCANS, 3) and bool(torch.isfinite(traj).all()), f"{name}: non-finite poses")
@@ -2027,6 +2099,8 @@ def phase_gmapping_path(cfg, scans, odom, gt, odo_ate, smi):
           f"(expected {want}); windows cut out for the match: {len(cuts[1]) + len(views[1])}",
           flush=True)
     check(launches == want, f"gmapping: launches {launches}, expected {want}")
+    LIBM_BY_PATH["gmapping"] = dict(LAST_LIBM)
+    check_libm("gmapping", expect_libm("gmapping"))
     check(not cuts[1] and not views[1], "gmapping: the match windows were cut out, not read in place")
     winner = e.winner_trajectory()
     check(winner.shape == (N_SCANS, 3) and bool(torch.isfinite(winner).all())
@@ -2103,6 +2177,7 @@ def phase_gmapping_improved(dev, scans, odom, gt):
     print(f"gmapping, improved proposal and gate {GM_IMPROVED_GATE}, {n} scans: {n / secs:.1f} "
           f"scans/s with the sync check on; launches {launches} (expected {want})", flush=True)
     check(launches == want, f"gmapping improved: launches {launches}, expected {want}")
+    check_libm("gmapping improved", expect_libm("gmapping improved", n))
     check(bool(torch.isfinite(traj).all()), "gmapping improved: non-finite poses")
     probes = [a for a in kept if a[1].shape[1] == cfg.proposal_samples]
     gates = [a for a in kept if a[1].shape[1] == 1]
@@ -2656,7 +2731,8 @@ def phase_m3rsm_path(cfg, scans, odom, gt, odo_ate):
     want = expect(m3rsm_search=N_SCANS, m3rsm_pyramid=N_SCANS + 1, scan_insert=N_SCANS,
                   prng_draws=N_SCANS)
     launches, traj, e = phase_main_path("viny_m3rsm", cfg, want, scans, odom, gt, odo_ate,
-                                        VINY_M3RSM_REFERENCE_ATE + VINY_ATE_MARGIN)
+                                        VINY_M3RSM_REFERENCE_ATE + VINY_ATE_MARGIN,
+                                        expect_libm("viny"))
     rebuilt = m3rsm.build_pyramid(scoring.MapView.of(e.state.gm, cfg.cell_model), levels,
                                   cfg.matcher_cfg.scoring.unknown_prob)
     same = all(torch.equal(bits(a), bits(b)) for a, b in zip(e.state.pyramid, rebuilt))
@@ -2686,6 +2762,12 @@ def phase_m3rsm_levels_path(cfg, scans, odom, gt, traj):
           f"{N_SCANS} scans at {N_SCANS / secs:.1f} scans/s; launches {launches} (expected "
           f"{want}); max|pose diff| to the one-launch match's run {diff:.3e}", flush=True)
     check(launches == want, f"viny_m3rsm levels path: launches {launches}, expected {want}")
+    # the yardstick's hill climb in torch: the candidates' headings wrapped
+    # once a score launch, the sine and cosine of the first pose once
+    want_libm = expect_libm("viny")
+    calls = (1 + mc.refine_iterations) * N_SCANS
+    want_libm.update(wrap_angle=calls, sincos=N_SCANS, total=want_libm["total"] + calls + N_SCANS)
+    check_libm("viny_m3rsm levels path", want_libm)
     check(torch.equal(bits(got), bits(traj)),
           f"the one-launch match and the level launches give different trajectories: {diff}")
     return launches
@@ -3434,6 +3516,7 @@ def phase_gmapping_baseline_path(scans, odom, gt, odo_ate, smi):
           f"Neff {float(neffs.min()):.2f}; launches {launches} (expected {want}); by reducer "
           f"{ {k: v for k, v in by_reducer.items() if v} }", flush=True)
     check(launches == want, f"gmapping preset: launches {launches}, expected {want}")
+    check_libm("gmapping preset", expect_libm("gmapping"))
     check(by_reducer["mc_match_batched/obstacle"] == N_SCANS,
           "gmapping preset: the particle match did not score with the obstacle reducer")
     winner = e.winner_trajectory()
@@ -4209,6 +4292,7 @@ def phase_gmapping_cow_path(scans, odom, gt, odo_ate, smi):
           f"blocks at the end; the pool {pool_mb:.1f} MB against the dense path's 30 maps "
           f"{dense_mb:.1f} MB", flush=True)
     check(launches == want, f"gmapping cow: launches {launches}, expected {want}")
+    check_libm("gmapping cow", expect_libm("gmapping"))
     check(not twin_calls, f"gmapping cow: the pool's plain versions ran on the card's path: "
                           f"{sorted(set(twin_calls))}")
     winner = e.winner_trajectory()
@@ -6413,12 +6497,13 @@ def phase_libm(dev, smi):
         entry["by_site"][site] = {"device_ms": dev_ms, "ms": ms, "chained_ms": chained,
                                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
                                   "library_ms": lib_ms}
-    # the entry's numbers: the tiny path's one site, the prior's compose
-    # (its library yardstick: torch.sin of the scan's bearings)
+    # the entry's numbers: a site of every main path, the prior's compose;
+    # no one PyTorch call computes it (torch.sin's time stands beside the
+    # sine's site in by_site)
     c = entry["by_site"]["pose/compose"]
     entry.update(ms=c["ms"], plain_ms=c["plain_ms"], chained_ms=c["chained_ms"],
                  device_ms=c["device_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],
-                 library_ms=entry["by_site"]["sin"]["library_ms"])
+                 library_ms=None)
     return entry
 
 
@@ -6542,10 +6627,11 @@ def main() -> None:
     odo_ate = float(evaluate.ate(odometry_trajectory(gt[0], odom), gt, align=False))
     tiny_launches, tiny_traj, _ = phase_main_path(
         "tiny", tiny_cfg, expect(mc_match=N_SCANS, scan_insert=N_SCANS), scans,
-        odom, gt, odo_ate, 0.15)
+        odom, gt, odo_ate, 0.15, expect_libm("tiny"))
     viny_launches, viny_traj, _ = phase_main_path(
         "viny", viny_cfg, expect(mc_match=N_SCANS, polar_free_plane=N_SCANS, scan_insert=N_SCANS),
-        scans, odom, gt, odo_ate, max(VINY_REFERENCE_ATE_BY_KEY) + VINY_ATE_MARGIN)
+        scans, odom, gt, odo_ate, max(VINY_REFERENCE_ATE_BY_KEY) + VINY_ATE_MARGIN,
+        expect_libm("viny"))
     rounds_launches = phase_rounds_path(viny_cfg, scans, odom, gt, viny_traj)
     # every path once more with K3's plain twin handed in, keeping insert calls
     kept_inserts, twin_runs = {}, {}
@@ -6707,10 +6793,9 @@ def main() -> None:
     k_part["launches"] = par_launches["blockshard"]["overlap_score_partial"]
     k_part["launches_by_path"] = {f"{name} (NCCL, world 1)": counts["overlap_score_partial"]
                                   for name, counts in par_launches.items()}
-    # libm: launches of the tiny path's timed run (its one site a scan, the
-    # prior's compose), counted apart by function
-    check(LIBM_BY_PATH["tiny"].get("total", 0) >= N_SCANS,
-          f"libm launched {LIBM_BY_PATH['tiny']} on the tiny path")
+    # libm: launches of the tiny path's timed run (the prior's compose and
+    # the scan's points a scan, held by check_libm), counted apart by function
+    check(not LIBM_PARTED, f"libm launches parted on {len(LIBM_PARTED)} paths: {LIBM_PARTED}")
     k_libm["launches"] = LIBM_BY_PATH["tiny"]["total"]
     k_libm["launches_by_path"] = {name: counts for name, counts in LIBM_BY_PATH.items()}
     print(json.dumps({"kernels": [k1, k3, k2, k4, k5, k6, k7, k8, k9, k10, k11, k12, k13,

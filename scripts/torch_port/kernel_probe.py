@@ -76,7 +76,8 @@ median of 100, besides the three above) only the wrappers that every
 version of the port has
 (the batched score at the six shapes above, the particle match at the
 RBPF's shape, ``overlap_score``, ``polar_free_plane``, ``mc_match`` tiny and
-viny; the M3RSM kernels where the checkout has them, and a whole
+viny, and both drawing from a step's key where the checkout has
+``kernels.KeyNoise``; the M3RSM kernels where the checkout has them, and a whole
 ``m3rsm_match`` call of the viny_m3rsm preset; the one-launch refines
 where the checkout has them: the gradient refine at the five shapes, the
 hill climb at mit_csail's; the overlap score at the paths' shapes), and an
@@ -777,6 +778,7 @@ def times_main(dev, only: str = "", save: str = "") -> None:
             ("polar_free_plane 256^2 R=360", lambda: kernels.polar_free_plane(*polar_args)),
             ("mc_match tiny", lambda: kernels.mc_match(*mc["tiny"])),
             ("mc_match viny", lambda: kernels.mc_match(*mc["viny"]))]
+    fns += keyed_match_calls(kernels, mc, dev)
     if hasattr(kernels, "m3rsm_pyramid"):
         fns += [(name, lambda f=f, a=a: f(*a))
                 for name, (f, _, a) in m3rsm_cases(pose, scan, dev).items()]

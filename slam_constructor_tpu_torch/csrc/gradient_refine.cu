@@ -37,7 +37,8 @@
 //  - a beam's cells are read before its arithmetic (overlap_grad_fixed for
 //    the general overlap at radius 1 or 2: its (2 radius + 1)^2 reads from
 //    one row pointer a row; sample_grad_at's four taps for the bilinear
-//    reducer; grad_at's loop for any other), so they are in flight
+//    reducer, four more on a cell's centre; grad_at's loop for any
+//    other), so they are in flight
 //    together; the plane is read through __ldg (a refine moves a few cells:
 //    after the first pass the taps hit L1);
 //  - each beam thread writes its beam's five terms to shared memory (zeros

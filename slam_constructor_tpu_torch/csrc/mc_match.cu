@@ -71,7 +71,13 @@
 //   with plain coalesced loads (4.3 KB and 9-12 KB on the single-match
 //   paths, 2.2 and 1.2 KB for a particle of the RBPF: a few loads a thread,
 //   nothing to pipeline), and serve every candidate of every round: no
-//   round waits for device memory except for the plane's taps.
+//   round waits for device memory except for the plane's taps. Draws from
+//   a key are made once a cluster: each block draws its own candidates'
+//   (an eighth of them on the single-match paths, one hash chain a thread:
+//   hashing the rounds' keys once a block in one warp was slower) and
+//   stores each into every block's copy through distributed shared memory;
+//   the first round's cluster barrier publishes them before any block
+//   forms another block's winner.
 // - The plane stays in global memory behind __ldg: 256 KB does not fit a
 //   block's 227 KB of shared memory, and spread over the cluster a tap
 //   would cost a distributed-shared-memory read that is no faster than the
@@ -132,6 +138,25 @@ int cluster_blocks(int k) {
   return b < 1 ? 1 : (b > kMaxClusterBlocks ? kMaxClusterBlocks : b);
 }
 
+// The candidates a round that block `rank` of a cluster of `blocks` scores:
+// c = pass * 8 blocks + rank * 8 + g for g < 8, while c < k.
+__device__ __forceinline__ int own_candidates(int k, int rank, int blocks) {
+  const int per_pass = blocks * kGroups;
+  int own = 0;
+  for (int first = rank * kGroups; first < k; first += per_pass) own += min(k - first, kGroups);
+  return own;
+}
+
+// The cluster barrier in two halves: arrive (no memory ordering), then wait
+// for every thread of the cluster to have arrived.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
 struct MatchState {
   float pose[3];
   float prob;
@@ -142,7 +167,8 @@ struct MatchState {
 // Candidate of one row of draws around the best pose so far, the heading
 // wrapped (libm.cuh: the reference's sinf, cosf, atan2f): fused, best + draw
 // * sigma in one multiply-add, as the reference's jitted code forms it from
-// its erf_inv draws; else (handed-in standard normals) two roundings.
+// its erf_inv draws; else (handed-in standard normals: the RBPF's draws and
+// the tests that inject the reference's normals) two roundings.
 __device__ __forceinline__ void candidate(const MatchState& st, const float* nz, bool fused,
                                           float out[3]) {
   float c[3];
@@ -238,32 +264,49 @@ mc_match_kernel(const float* __restrict__ occ, const unsigned char* __restrict__
   float* g_den = s_den + g * overlap::kGroupThreads;
   const int barrier_id = 1 + g;  // 0 is __syncthreads()'s
 
+  const bool keyed = noise == nullptr && key != nullptr;  // the same in every block
+  if (keyed) cluster_arrive_relaxed();  // this block has started: others may write to it
   for (int i = threadIdx.x; i < 2 * r; i += kThreads) s_pts[i] = __ldg(pts + i);
   for (int i = threadIdx.x; i < r; i += kThreads) s_bw[i] = __ldg(beam_w + i);
   if (noise != nullptr) {
     for (int i = threadIdx.x; i < rounds * k * 3; i += kThreads) s_noise[i] = __ldg(noise + i);
-  } else if (key != nullptr) {
-    // the draws from match p's key, every block all of them: with next_key,
-    // (next, sub) = split(key) and the match draws from sub (the engine's
-    // step); then split(sub, rounds)[r] and erf_inv(uniform) of element
-    // (c, d) under it, jax.random.normal's draw before its multiply by
-    // sqrt(2), which the caller folds into sigma
+  } else if (keyed) {
+    // the draws from match p's key, spread over the cluster: each block
+    // draws those of the candidates it scores (its groups' c, every round)
+    // and writes each into every block's s_noise, so a block reads its own
+    // candidates' draws locally and any round's winner's after that
+    // round's cluster barrier. With next_key, (next, sub) = split(key) and
+    // the match draws from sub (the engine's step); then split(sub,
+    // rounds)[r] and erf_inv(uniform) of element (c, d) under it,
+    // jax.random.normal's draw before its multiply by sqrt(2), which the
+    // caller folds into sigma.
+    const int own = own_candidates(k, rank, kBlocks);
+    const int per_round = own * 3;
     uint32_t s0 = __ldg(key + 2 * p), s1 = __ldg(key + 2 * p + 1);
     if (next_key != nullptr) {
-      uint32_t n0, n1;
-      tf::threefry(s0, s1, 0u, 0u, n0, n1);
-      if (blockIdx.x == 0 && threadIdx.x == 0) {
+      if (rank == 0 && threadIdx.x == 0) {
+        uint32_t n0, n1;
+        tf::threefry(s0, s1, 0u, 0u, n0, n1);
         next_key[2 * p] = n0;
         next_key[2 * p + 1] = n1;
       }
-      tf::threefry(s0, s1, 0u, 1u, s0, s1);
+      if (threadIdx.x < rounds * per_round) tf::threefry(s0, s1, 0u, 1u, s0, s1);
     }
-    const int per_round = k * 3;
-    for (int i = threadIdx.x; i < rounds * per_round; i += kThreads) {
-      const int rd = i / per_round;
+    cluster_wait();  // every block of the cluster has started
+    for (int j = threadIdx.x; j < rounds * per_round; j += kThreads) {
+      const int rd = j / per_round;
+      const int lc = (j - rd * per_round) / 3;  // the block's lc-th candidate
+      const int d = j - rd * per_round - lc * 3;
+      const int c = (lc / kGroups) * kBlocks * kGroups + rank * kGroups + lc % kGroups;
       uint32_t r0, r1;
       tf::threefry(s0, s1, 0u, static_cast<uint32_t>(rd), r0, r1);
-      s_noise[i] = tf::erf_inv_draw(r0, r1, static_cast<uint32_t>(i - rd * per_round));
+      const int i = (rd * k + c) * 3 + d;
+      const float v = tf::erf_inv_draw(r0, r1, static_cast<uint32_t>(c * 3 + d));
+      s_noise[i] = v;
+#pragma unroll
+      for (int b = 0; b < kBlocks; ++b) {
+        if (b != rank) cluster.map_shared_rank(s_noise, b)[i] = v;
+      }
     }
   }
   if (threadIdx.x == 0) {

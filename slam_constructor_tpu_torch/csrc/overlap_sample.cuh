@@ -54,8 +54,11 @@ struct AxisTaps {
   int i0, i1;    // tap indices, clamped into the map
 };
 
-__device__ __forceinline__ AxisTaps axis_taps(float pos, int n) {
-  const float f = floorf(pos - 0.5f);
+// On a cell's centre (pos - 0.5 an integer) the taps are that cell (weight
+// 1) and the next (weight 0), or with `left` the one before (weight 0) and
+// that cell: the same value, the derivative of either side.
+__device__ __forceinline__ AxisTaps axis_taps(float pos, int n, bool left = false) {
+  const float f = left ? ceilf(pos - 0.5f) - 1.0f : floorf(pos - 0.5f);
   const float w0 = (f + 1.5f) - pos;
   const float fn = static_cast<float>(n);
   AxisTaps t;
@@ -106,23 +109,27 @@ struct MapWindow {
 
 // The 2 x 2 taps of a fractional cell position (x, y) on an h x w plane
 // whose cells `at(row, col)` reads. A tap off the map has weight 0 and
-// reads 0, as the one-hot of the reference never matches it.
+// reads 0, as the one-hot of the reference never matches it. A tap of
+// weight 0 on the map (on a cell's centre) is read: the derivative on its
+// side takes its cell. A derivative d0 or d1 is nonzero where its tap
+// lies on the map.
 struct Taps {
   AxisTaps ry, cx;
   float v00, v10, v01, v11;
 };
 
 template <class Plane>
-__device__ __forceinline__ Taps read_taps(const Plane& at, int h, int w, float x, float y) {
+__device__ __forceinline__ Taps read_taps(const Plane& at, int h, int w, float x, float y,
+                                          bool left = false) {
   Taps t;
-  t.ry = axis_taps(y, h);
-  t.cx = axis_taps(x, w);
+  t.ry = axis_taps(y, h, left);
+  t.cx = axis_taps(x, w, left);
   const AxisTaps& ry = t.ry;
   const AxisTaps& cx = t.cx;
-  t.v00 = (ry.a0 != 0.0f && cx.a0 != 0.0f) ? at(ry.i0, cx.i0) : 0.0f;
-  t.v10 = (ry.a1 != 0.0f && cx.a0 != 0.0f) ? at(ry.i1, cx.i0) : 0.0f;
-  t.v01 = (ry.a0 != 0.0f && cx.a1 != 0.0f) ? at(ry.i0, cx.i1) : 0.0f;
-  t.v11 = (ry.a1 != 0.0f && cx.a1 != 0.0f) ? at(ry.i1, cx.i1) : 0.0f;
+  t.v00 = (ry.d0 != 0.0f && cx.d0 != 0.0f) ? at(ry.i0, cx.i0) : 0.0f;
+  t.v10 = (ry.d1 != 0.0f && cx.d0 != 0.0f) ? at(ry.i1, cx.i0) : 0.0f;
+  t.v01 = (ry.d0 != 0.0f && cx.d1 != 0.0f) ? at(ry.i0, cx.i1) : 0.0f;
+  t.v11 = (ry.d1 != 0.0f && cx.d1 != 0.0f) ? at(ry.i1, cx.i1) : 0.0f;
   return t;
 }
 
@@ -150,14 +157,31 @@ __device__ __forceinline__ float sample_at(const Plane& at, int h, int w, const 
   return tap_value(read_taps(at, h, w, x, y), unknown);
 }
 
-// sample_at() and its gradient with respect to the pose (gx, gy, gth). In
-// cell units the value is bilinear in (x, y): each axis weight moves by -1
-// (tap i0) or +1 (tap i1) where the tap lies on the map, and the mass that
-// leaves the map enters through the `unknown` fill, (1 - coverage) *
-// unknown. Then the chain to the pose: d(x, y)/d(px, py) = 1 / scale and
-// d(wx, wy)/dtheta = (-s qx - c qy, c qx - s qy). The value is sample_at's
-// bits. Where a coordinate sits on a cell centre (a tap changes) the
-// derivative is the one of the side the floor picks.
+// The derivatives of tap_value() along x and along y, in cell units: each
+// axis weight moves by -1 (tap i0) or +1 (tap i1) where the tap lies on the
+// map, and the mass that leaves the map enters through the `unknown` fill,
+// (1 - coverage) * unknown.
+__device__ __forceinline__ float tap_dx(const Taps& t, float unknown) {
+  const AxisTaps& ry = t.ry;
+  const AxisTaps& cx = t.cx;
+  return ((ry.a0 * t.v00 + ry.a1 * t.v10) * cx.d0 + (ry.a0 * t.v01 + ry.a1 * t.v11) * cx.d1) -
+         ((ry.a0 + ry.a1) * (cx.d0 + cx.d1)) * unknown;
+}
+__device__ __forceinline__ float tap_dy(const Taps& t, float unknown) {
+  const AxisTaps& ry = t.ry;
+  const AxisTaps& cx = t.cx;
+  return ((ry.d0 * t.v00 + ry.d1 * t.v10) * cx.a0 + (ry.d0 * t.v01 + ry.d1 * t.v11) * cx.a1) -
+         ((ry.d0 + ry.d1) * (cx.a0 + cx.a1)) * unknown;
+}
+
+// sample_at() and its gradient with respect to the pose (gx, gy, gth): the
+// value is bilinear in (x, y) (tap_dx, tap_dy), then the chain to the pose:
+// d(x, y)/d(px, py) = 1 / scale and d(wx, wy)/dtheta = (-s qx - c qy,
+// c qx - s qy). The value is sample_at's bits. Where a coordinate sits on
+// a cell's centre (a tap changes) the derivative is the mean of its two
+// sides', 0.5 dR + 0.5 dL, as the reference's jax.grad gives it (its max
+// and min split a tie evenly); the plain twin halves and adds the two
+// sides' taps likewise.
 template <class Plane>
 __device__ __forceinline__ float sample_grad_at(const Plane& at, int h, int w, const Pose& p,
                                                 float qx, float qy, float ox, float oy,
@@ -168,14 +192,16 @@ __device__ __forceinline__ float sample_grad_at(const Plane& at, int h, int w, c
   const float x = (wx - ox) / scale;
   const float y = (wy - oy) / scale;
   const Taps t = read_taps(at, h, w, x, y);
-  const AxisTaps& ry = t.ry;
-  const AxisTaps& cx = t.cx;
-  const float dx = ((ry.a0 * t.v00 + ry.a1 * t.v10) * cx.d0 +
-                    (ry.a0 * t.v01 + ry.a1 * t.v11) * cx.d1) -
-                   ((ry.a0 + ry.a1) * (cx.d0 + cx.d1)) * unknown;
-  const float dy = ((ry.d0 * t.v00 + ry.d1 * t.v10) * cx.a0 +
-                    (ry.d0 * t.v01 + ry.d1 * t.v11) * cx.a1) -
-                   ((ry.d0 + ry.d1) * (cx.a0 + cx.a1)) * unknown;
+  float dx = tap_dx(t, unknown);
+  float dy = tap_dy(t, unknown);
+  const float xc = x - 0.5f;
+  const float yc = y - 0.5f;
+  if (floorf(xc) == xc || floorf(yc) == yc) {
+    // off a centre the left taps are the same, and so is the mean
+    const Taps l = read_taps(at, h, w, x, y, true);
+    dx = 0.5f * dx + 0.5f * tap_dx(l, unknown);
+    dy = 0.5f * dy + 0.5f * tap_dy(l, unknown);
+  }
   gx = dx / scale;
   gy = dy / scale;
   gth = (dx * (-p.s * qx - p.c * qy) + dy * (p.c * qx - p.s * qy)) / scale;

@@ -20,9 +20,10 @@
 // sample() and its gradient are overlap_sample.cuh's grad_at(): for the
 // bilinear taps sample_grad_at() (each axis weight's derivative -1 for the
 // lower tap, +1 for the upper, 0 off the map, where the `unknown` fill
-// takes the mass); for the general overlap reducer reduce_grad_at() (each
-// overlap length piecewise linear in the endpoint's position, through the
-// normalisation by the weights' sum); 0 for the obstacle, max and mean
+// takes the mass; on a cell's centre the mean of both sides'); for the
+// general overlap reducer reduce_grad_at() (each overlap length
+// piecewise linear in the endpoint's position, through the normalisation
+// by the weights' sum); 0 for the obstacle, max and mean
 // reducers, which are piecewise constant. Then the chain through the
 // rotation over `scale`. The score is computed as overlap_score.cu computes
 // it (the same beams in the same order, the same reduction tree), so its

@@ -753,11 +753,11 @@ __device__ __forceinline__ void fold_cell(const Insert& s, const float* b, float
     const float obs = sv / clamp_min(w, s.eps);
     const float k = floorf(w);
     const float frac = w - k;
-    const float oo = s.quality * obs;
-    const float ee = s.quality * (1.0f - obs);
+    // q o + base and q (1 - o) + base each one fused multiply-add
     const float pu = libm::exp(k * libm::log(clamp_min(s.base, s.eps)));
-    const float po = libm::exp(k * libm::log(clamp_min(oo + s.base, s.eps)));
-    const float pe = libm::exp(k * libm::log(clamp_min(ee + s.base, s.eps)));
+    const float po = libm::exp(k * libm::log(clamp_min(libm::fma32(obs, s.quality, s.base), s.eps)));
+    const float pe = libm::exp(
+        k * libm::log(clamp_min(libm::fma32(1.0f - obs, s.quality, s.base), s.eps)));
     const float mo0 = b[0], me0 = b[1], mu0 = b[2], mx0 = b[3];
     const float total = ((mo0 + me0) + mu0) + mx0;
     const float mo = mo0 * po + mu0 * (po - pu);

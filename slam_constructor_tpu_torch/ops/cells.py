@@ -97,7 +97,7 @@ class TBMCell:
         frac = w - k
 
         # closed form for k = floor(w) full rounds
-        oo, ee, uu = q * o, q * (1.0 - o), 1.0 - q
+        uu = 1.0 - q
 
         def powk(base):
             # base^k for k >= 0 and base in [0, 1]; exp(0 * log(eps)) = 1
@@ -109,8 +109,10 @@ class TBMCell:
         mo, me, mu, mx = belief.unbind(-1)
         total = mo + me + mu + mx
         pu = powk(uu)
-        po = powk(oo + uu)
-        pe = powk(ee + uu)
+        # q o + uu and q (1 - o) + uu each one fused multiply-add, as the
+        # reference's jitted code fuses them
+        po = powk(libm.fma32(o, q, uu))
+        pe = powk(libm.fma32(1.0 - o, q, uu))
         mo = mo * po + mu * (po - pu)
         me = me * pe + mu * (pe - pu)
         mu = mu * pu

@@ -235,12 +235,15 @@ def _count(name: str, reducer: Reducer) -> None:
     _REDUCER_LAUNCHES[f"{name}/{reducer.kind}"] += 1
 
 
-def _axis_taps(pos: Tensor, n: int):
+def _axis_taps(pos: Tensor, n: int, left: bool = False):
     """Bilinear (overlap, extent 1) taps along one axis: weights of cells
-    ``i0`` and ``i0 + 1``, zero where a cell lies off the map, and the
-    tap indices clamped into the map (a NaN position to cell 0, as the
-    kernels clamp it)."""
-    f = torch.floor(pos - 0.5)
+    ``i0`` and ``i0 + 1``, zero where a cell lies off the map, the tap
+    indices clamped into the map (a NaN position to cell 0, as the kernels
+    clamp it), and whether each cell lies on the map. On a cell's centre
+    (``pos - 0.5`` an integer) the taps are that cell (weight 1) and the
+    next (weight 0), or with ``left`` the one before (weight 0) and that
+    cell: the same value, the derivative of either side."""
+    f = torch.ceil(pos - 0.5) - 1.0 if left else torch.floor(pos - 0.5)
     w0 = (f + 1.5) - pos
     ok0 = (f >= 0) & (f < n)
     ok1 = (f + 1.0 >= 0) & (f + 1.0 < n)
@@ -248,7 +251,7 @@ def _axis_taps(pos: Tensor, n: int):
     a1 = torch.where(ok1, 1.0 - w0, 0.0)
     i0 = torch.where(f >= 0, torch.clamp(f, max=n - 1), 0.0).to(torch.int64)
     i1 = torch.where(f + 1.0 >= 0, torch.clamp(f + 1.0, max=n - 1), 0.0).to(torch.int64)
-    return a0, a1, i0, i1
+    return a0, a1, i0, i1, ok0, ok1
 
 
 def _cells_ref(flat: Tensor, h: int, w: int, fy: Tensor, fx: Tensor, unknown: float) -> Tensor:
@@ -300,9 +303,14 @@ def _reduce_ref(flat: Tensor, h: int, w: int, x: Tensor, y: Tensor, unknown: flo
 
 
 def _beam_probs_ref(v: Tensor, poses: Tensor, pts: Tensor, origin: Tensor, scale: float,
-                    unknown: float, reducer: Reducer) -> Tensor:
+                    unknown: float, reducer: Reducer, balanced: bool = False) -> Tensor:
     """Every beam's probability f32[M, K, R] on planes v f32[M, H, W] at
-    poses f32[M, K, 3] (the kernels' arithmetic)."""
+    poses f32[M, K, 3] (the kernels' arithmetic). With ``balanced`` the
+    bilinear taps are read from both sides of a cell's centre and the two
+    halved and added: the same bits, and under autograd the derivative
+    there is the mean of its two sides, as the reference's ``jax.grad``
+    gives it (its ``max`` and ``min`` split a tie evenly; the kernels'
+    ``sample_grad_at``)."""
     n_m, h, w = v.shape
     s, c = libm.sincos(poses[..., 2:3])
     qx, qy = pts[:, None, :, 0], pts[:, None, :, 1]  # [M, 1, R]
@@ -313,17 +321,30 @@ def _beam_probs_ref(v: Tensor, poses: Tensor, pts: Tensor, origin: Tensor, scale
     flat = v.reshape(n_m, -1)
     if reducer.kind != "bilinear":
         return _reduce_ref(flat, h, w, x, y, unknown, reducer)
-    ay0, ay1, r0, r1 = _axis_taps(y, h)
-    ax0, ax1, c0, c1 = _axis_taps(x, w)
+    if balanced:
+        return (0.5 * _bilinear_ref(flat, h, w, x, y, unknown, False)
+                + 0.5 * _bilinear_ref(flat, h, w, x, y, unknown, True))
+    return _bilinear_ref(flat, h, w, x, y, unknown, False)
 
-    def tap(a, b, r, col):
+
+def _bilinear_ref(flat: Tensor, h: int, w: int, x: Tensor, y: Tensor, unknown: float,
+                  left: bool) -> Tensor:
+    """The bilinear taps of planes ``flat`` f32[M, H * W] at the cell
+    positions (x, y) f32[M, K, R] (:func:`_axis_taps` with ``left``)."""
+    n_m = flat.shape[0]
+    ay0, ay1, r0, r1, oky0, oky1 = _axis_taps(y, h, left)
+    ax0, ax1, c0, c1, okx0, okx1 = _axis_taps(x, w, left)
+
+    def tap(ok_r, ok_c, r, col):
         got = torch.gather(flat, 1, (r * w + col).reshape(n_m, -1)).reshape(r.shape)
-        return torch.where((a != 0) & (b != 0), got, 0.0)
+        return torch.where(ok_r & ok_c, got, 0.0)
 
-    v00 = tap(ay0, ax0, r0, c0)
-    v10 = tap(ay1, ax0, r1, c0)
-    v01 = tap(ay0, ax1, r0, c1)
-    v11 = tap(ay1, ax1, r1, c1)
+    # a tap of weight 0 on the map is read too: its cell is what the
+    # derivative on that side of a cell's centre takes
+    v00 = tap(oky0, okx0, r0, c0)
+    v10 = tap(oky1, okx0, r1, c0)
+    v01 = tap(oky0, okx1, r0, c1)
+    v11 = tap(oky1, okx1, r1, c1)
     ssum = (ay0 * v00 + ay1 * v10) * ax0 + (ay0 * v01 + ay1 * v11) * ax1
     coverage = (ay0 + ay1) * (ax0 + ax1)
     return ssum + (1.0 - coverage) * unknown
@@ -338,6 +359,7 @@ def overlap_score_ref(
     scale: float,
     unknown: float,
     reducer: Reducer = BILINEAR,
+    balanced: bool = False,
 ) -> Tensor:
     """Plain PyTorch version of the kernel, with the same arithmetic.
 
@@ -348,12 +370,15 @@ def overlap_score_ref(
     default). With a leading map dimension on every tensor (v
     f32[M, H, W], poses f32[M, K, 3], pts f32[M, R, 2], beam_w f32[M, R],
     origin f32[M, 2]) -> f32[M, K]: map m scores its own poses and scan.
+    ``balanced`` is :func:`_beam_probs_ref`'s (for the autograd twin of
+    ``overlap_score_grad``).
     """
     if v.dim() == 2:
         return overlap_score_ref(
-            v[None], poses[None], pts[None], beam_w[None], origin[None], scale, unknown, reducer
+            v[None], poses[None], pts[None], beam_w[None], origin[None], scale, unknown, reducer,
+            balanced,
         )[0]
-    p = _beam_probs_ref(v, poses, pts, origin, scale, unknown, reducer)
+    p = _beam_probs_ref(v, poses, pts, origin, scale, unknown, reducer, balanced)
     bw = beam_w[:, None, :]
     return (p * bw).sum(-1) / torch.clamp(bw.sum(-1), min=1e-9)
 
@@ -666,10 +691,12 @@ def overlap_score_grad_ref(v, poses, pts, beam_w, origin, scale, unknown, reduce
     """Plain version of ``overlap_score_grad``: autograd over
     :func:`overlap_score_ref` with ``reducer``, one plane or M. Returns
     (score f32[..., K], dscore f32[..., K, 3]), the derivative of each score
-    by its own pose (0 for the piecewise-constant reducers)."""
+    by its own pose (0 for the piecewise-constant reducers; on a bilinear
+    tap's cell centre the mean of both sides, ``balanced``)."""
     with torch.enable_grad():
         p = poses.detach().requires_grad_(True)
-        score = overlap_score_ref(v, p, pts, beam_w, origin, scale, unknown, reducer)
+        score = overlap_score_ref(v, p, pts, beam_w, origin, scale, unknown, reducer,
+                                  balanced=True)
         if not score.requires_grad:  # a cell lookup: nothing depends on the pose
             return score.detach(), torch.zeros_like(poses)
         (grad,) = torch.autograd.grad(score.sum(), p, allow_unused=True)

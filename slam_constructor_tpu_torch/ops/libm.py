@@ -613,6 +613,10 @@ def _row_lse_ref(x: Tensor, off: Tensor | None = None, scale: float = 1.0) -> Te
 
 
 def _sum_in_order(e: Tensor) -> Tensor:
+    """The float32 sum of the last dimension in element order: n dependent
+    roundings, so one vectorised add over all rows a column (the row
+    kernel's order; ``torch.sum`` pairs and ``torch.cumsum`` accumulates
+    in float64 on the CPU, other bits). A row is a step's particles (30)."""
     total = torch.zeros(e.shape[:-1], dtype=e.dtype, device=e.device)
     for j in range(e.shape[-1]):
         total = total + e[..., j]

@@ -2,13 +2,15 @@
 
 ``TBMCell.update`` is a closed-form k-fold conjunctive update through
 ``exp(k * log(base))`` plus one partial round, conflict forgetting and a
-renormalisation. Both sides do the same f32 ops in the same order; ``exp``
-and ``log`` come from different math libraries and may differ in the last
-ulp, which k <= 40 multiplies: atol 1e-6 on masses in [0, 1]. The grid,
+renormalisation. The port computes the powers as the jitted reference
+does (``exp`` and ``log`` are XLA's, each base one fused multiply-add);
+the later combinations and the sum over the masses are not held, and k <=
+40 multiplies their ulps: atol 1e-6 on masses in [0, 1]. The grid,
 the fold and the state conversion are generic over the channel count; the
 tests here run them with the cell's four channels.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -64,7 +66,9 @@ def test_tbm_update_matches_reference(q, decay):
     s = (w * rng.uniform(size=n) * (rng.uniform(size=n) < 0.7)).astype(np.float32)
     n_prev = rng.integers(0, 5, n).astype(np.float32)
     assert (w == 0).sum() > 500 and ((w > 0) & (w == np.floor(w))).sum() > 500
-    want = np.asarray(jm.update(jnp.asarray(belief), jnp.asarray(n_prev), jnp.asarray(w), jnp.asarray(s)))
+    # jitted, as the reference's engine runs it (XLA fuses the powers' bases)
+    want = np.asarray(jax.jit(jm.update)(jnp.asarray(belief), jnp.asarray(n_prev), jnp.asarray(w),
+                                         jnp.asarray(s)))
     got = tm.update(
         torch.from_numpy(belief), torch.from_numpy(n_prev), torch.from_numpy(w), torch.from_numpy(s)
     ).numpy()

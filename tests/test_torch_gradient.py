@@ -7,8 +7,10 @@ and the engine with a refine stage against the reference's engine.
 The overlap score is piecewise bilinear in an endpoint's cell position:
 its derivative jumps where a coordinate crosses a cell's centre (a tap
 changes) or edge (the reference's window changes), and at such a tie JAX
-splits the gradient. The test poses keep every endpoint at least 1e-4 cell
-from both. There the twin's gradient agrees with the reference's within
+splits the gradient: on a cell's centre the reference's derivative is the
+mean of its two sides', and so is the twin's (one test puts endpoints
+there). The other test poses keep every endpoint at least 1e-4 cell from
+both. There the twin's gradient agrees with the reference's within
 1e-5 x max(1, |g|) (the sums run in another order, and the reference's
 derivative of its window's total weight, 0 exactly, is not 0 in f32); the
 score within 2e-6. A refine steps along g / |g|, so a gradient apart by
@@ -39,6 +41,7 @@ from slam_constructor_tpu_torch.ops import kernels
 from slam_constructor_tpu_torch.ops import matchers as tmatchers
 from slam_constructor_tpu_torch.ops import raycast as tray
 from slam_constructor_tpu_torch.ops import scoring as tscoring
+from slam_constructor_tpu_torch.ops.scan import LaserScan as TScan
 from slam_constructor_tpu_torch.ops.scan import scan_points
 from slam_constructor_tpu_torch.utils import datagen
 
@@ -114,6 +117,44 @@ def test_twin_gradient_matches_jax_grad(scene, stride, weighted):
         tol = 1e-5 * max(1.0, float(np.linalg.norm(want_g)))
         np.testing.assert_allclose(got_g[i].numpy(), want_g, atol=tol, rtol=0)
         assert np.linalg.norm(want_g) > 0.1  # a real slope, not a flat patch
+
+
+@pytest.mark.parametrize("py,r0", [(2.3, 2.25), (2.25, 2.3), (2.25, 2.25)])
+def test_twin_gradient_on_a_cell_centre_matches_jax_grad(py, r0):
+    """An endpoint exactly on a cell's centre, along x (r0 = 2.25), y
+    (py = 2.25) or both: there JAX's ``max`` and ``min`` split the tie, so
+    the reference's derivative is the mean of the two sides'. The twin
+    takes the same mean. Cells of 0.5 m and a pose at heading 0 put the
+    endpoints of the beams at bearing 0 on the same bits on both sides;
+    every beam weighs in."""
+    rng = np.random.default_rng(4)
+    occ = rng.uniform(0.05, 0.95, (16, 16)).astype(np.float32)
+    known = rng.uniform(size=(16, 16)) < 0.9
+    bearings = np.concatenate([np.zeros(3), rng.uniform(-np.pi, np.pi, 13)]).astype(np.float32)
+    ranges = np.concatenate([[r0, r0 + 1.0, r0 + 2.0], rng.uniform(1.0, 3.5, 13)])
+    ranges = ranges.astype(np.float32)
+    pose = np.float32([1.0, py, 0.0])
+    cfg = dict(reducer="overlap", window=1)
+    view = jscoring.MapView(jnp.asarray(occ), jnp.asarray(known), jnp.zeros(2, jnp.float32), 0.5)
+    js = JScan(jnp.asarray(ranges), jnp.asarray(bearings), jnp.ones(16, bool))
+    want_s, want_g = jax.jit(jax.value_and_grad(
+        lambda p: jscoring.score_single(view, js, p, jscoring.ScoringConfig(**cfg))))(
+        jnp.asarray(pose))
+    tview = tscoring.MapView(torch.from_numpy(occ), torch.from_numpy(known), torch.zeros(2), 0.5)
+    tscan = TScan(torch.from_numpy(ranges), torch.from_numpy(bearings),
+                  torch.ones(16, dtype=torch.bool))
+    prep = tscoring.prepare(tview, tscan, tscoring.ScoringConfig(**cfg))
+    on_centre = ~kernels.clear_of_kinks(torch.from_numpy(pose)[None], prep.pts, prep.origin,
+                                        0.5, KINK_MARGIN)
+    assert bool(on_centre[:3].all())
+    got_s, got_g = kernels.overlap_score_grad_ref(
+        prep.plane, torch.from_numpy(pose)[None], prep.pts, prep.beam_w, prep.origin, prep.scale,
+        prep.unknown)
+    want_g = np.asarray(want_g)
+    assert abs(float(got_s[0]) - float(want_s)) <= 2e-6
+    tol = 1e-5 * max(1.0, float(np.linalg.norm(want_g)))
+    np.testing.assert_allclose(got_g[0].numpy(), want_g, atol=tol, rtol=0)
+    assert np.linalg.norm(want_g) > 0.1
 
 
 def test_score_of_the_gradient_is_overlap_score(scene):

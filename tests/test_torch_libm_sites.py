@@ -21,17 +21,21 @@ from slam_constructor_tpu.models import engine as jeng
 from slam_constructor_tpu.models import viny as jviny
 from slam_constructor_tpu.ops import cells as jcells
 from slam_constructor_tpu.ops import geometry as jgeo
+from slam_constructor_tpu.ops import grid as jgrid
+from slam_constructor_tpu.ops import matchers as jmatch
 from slam_constructor_tpu.ops import raycast as jray
 from slam_constructor_tpu.ops import scan as jscan
-from slam_constructor_tpu.ops.geometry import wrap_angle as jwrap
+from slam_constructor_tpu.ops import scoring as jscore
 from slam_constructor_tpu.utils import datagen as jdata
 from slam_constructor_tpu_torch.models import engine as teng
 from slam_constructor_tpu_torch.models import viny as tviny
 from slam_constructor_tpu_torch.ops import cells as tcells
 from slam_constructor_tpu_torch.ops import geometry as tgeo
-from slam_constructor_tpu_torch.ops import kernels, libm, prng
+from slam_constructor_tpu_torch.ops import libm, prng
+from slam_constructor_tpu_torch.ops import matchers as tmatch
 from slam_constructor_tpu_torch.ops import raycast as tray
 from slam_constructor_tpu_torch.ops import scan as tscan
+from slam_constructor_tpu_torch.ops import scoring as tscore
 
 torch.set_num_threads(1)
 
@@ -70,9 +74,12 @@ def _scans():
 
 
 def test_scan_points_on_every_scan():
-    js, ts = _scans()
+    js, _ = _scans()
+    (ranges, bearings, valid, _, _), _, _ = _sequence()
     want = jax.jit(jax.vmap(jscan.scan_points))(js)
-    _bits(torch.stack([tscan.scan_points(s) for s in ts]), want, "scan_points")
+    got = tscan.scan_points(tscan.LaserScan(*(torch.from_numpy(a) for a in (ranges, bearings,
+                                                                            valid))))
+    _bits(got, want, "scan_points")
 
 
 def test_angle_histogram_and_point_weights_on_every_scan():
@@ -135,55 +142,88 @@ def test_beam_directions_and_sample_cells_on_every_scan():
         _bits(tw_, jw[k], f"sample weights, scan {i}")
 
 
-def test_tbm_update_powers():
+class _RecordExp:
+    """``jax.numpy`` with ``exp`` recording its outputs, put in the place of
+    the reference module's ``jnp`` while a function is traced."""
+
+    def __init__(self, out: list):
+        self.out = out
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+    def exp(self, x):
+        y = jnp.exp(x)
+        self.out.append(y)
+        return y
+
+
+def test_tbm_update_powers(monkeypatch):
     """TBMCell.update's closed form raises masses to the k = floor(w) rounds
-    with XLA's exp and log: ``exp(k log(max(base, eps)))`` on seeded cells
-    and observations, the update's three bases."""
+    with XLA's exp and log, ``exp(k log(max(base, eps)))``, each base ``q o +
+    (1 - q)`` one fused multiply-add: the three powers inside the jitted
+    reference's ``update`` and inside the port's, on seeded cells and
+    observations, bit for bit. (The update's later combinations and its
+    sum over the masses are not held: ROADMAP Queue 3.)"""
     rng = np.random.default_rng(0)
     n = 1 << 16
+    belief = rng.dirichlet(np.ones(4), n).astype(np.float32)
     w = (rng.integers(0, 40, n) * rng.uniform(0, 1.5, n)).astype(np.float32)
-    o = rng.uniform(0, 1, n).astype(np.float32)
-    q = np.float32(jcells.TBMCell().quality)
-    k = np.floor(w)
-    bases = [np.full(n, 1 - q, np.float32), (q * o + (1 - q)).astype(np.float32),
-             (q * (1 - o) + (1 - q)).astype(np.float32), np.zeros(n, np.float32)]
-    powk = jax.jit(lambda k, b: jnp.exp(k * jnp.log(jnp.maximum(b, jcells._EPS))))
-    for b in bases:
-        want = powk(k, b)
-        got = libm.exp(torch.from_numpy(k) * libm.log(torch.clamp(torch.from_numpy(b),
-                                                                  min=tcells._EPS)))
-        _bits(got, want, "TBM powk")
+    w[::7] = 0.0
+    s = (w * rng.uniform(0, 1, n)).astype(np.float32)
+    n_prev = np.zeros(n, np.float32)
+
+    def jupdate(*args):
+        powers = []
+        with monkeypatch.context() as m:
+            m.setattr(jcells, "jnp", _RecordExp(powers))
+            out = jcells.TBMCell().update(*args)
+        return out, powers
+
+    want_out, want = jax.jit(jupdate)(belief, n_prev, w, s)
+    got = []
+    exp = libm.exp
+    monkeypatch.setattr(libm, "exp", lambda *a, **kw: got.append(exp(*a, **kw)) or got[-1])
+    got_out = tcells.TBMCell().update(*(torch.from_numpy(a) for a in (belief, n_prev, w, s)))
+    assert len(got) == len(want) == 3 and got_out.shape == want_out.shape
+    for name, g, wv in zip(("uu^k", "(q o + uu)^k", "(q (1 - o) + uu)^k"), got, want):
+        _bits(g, np.broadcast_to(np.asarray(wv), g.shape), f"TBM powk {name}")
 
 
 def test_monte_carlo_candidates_equal_the_jitted_reference():
     """The match's candidates from its own draws: the reference's jitted
-    round computes ``best + normal(key_r) * sigma`` as one fused
-    multiply-add of ``erf_inv(u)`` and ``sqrt(2) * sigma`` (XLA folds the
-    normal's constant into sigma); the port's match draws those numbers
-    from the key and forms them so (``kernels.mc_match_loop``)."""
-    def cand(best, sigma, keys):
-        def body(c, key):
-            best, sigma = c
-            noise = jax.random.normal(key, (64, 3)) * sigma
-            cc = jnp.concatenate([best[None, :2] + noise[:, :2],
-                                  jwrap(best[None, 2:] + noise[:, 2:])], axis=-1)
-            return (cc[5], sigma * 0.5), cc
-        return jax.lax.scan(body, (best, sigma), keys)[1]
-
-    rng = np.random.default_rng(1)
-    jc = jax.jit(cand)
-    for seed in range(6):
-        best = np.float32([rng.uniform(-5, 5), rng.uniform(-5, 5), rng.uniform(-3.2, 3.2)])
-        sigma = np.float32([0.2, 0.2, 0.1])
-        want = np.asarray(jc(best, sigma, jax.random.split(jax.random.PRNGKey(seed), 4)))
-        noise = kernels.KeyNoise(prng.key(seed), 4, 64)
-        draws = noise.draws()[1]
-        b, s = torch.from_numpy(best), torch.from_numpy(sigma)
-        s = torch.tensor([kernels.key_sigma(v) for v in sigma.tolist()])
-        got = []
-        for r in range(4):
-            c = libm.fma32(draws[r], s, b)
-            c = torch.cat([c[:, :2], libm.wrap_angle(c[:, 2:])], -1)
-            got.append(c)
-            b, s = c[5], s * 0.5
-        _bits(torch.stack(got), want, f"candidates, key {seed}")
+    ``matchers.monte_carlo_match`` computes ``best + normal(key_r) * sigma``
+    as one fused multiply-add of ``erf_inv(u)`` and ``sqrt(2) * sigma`` (XLA
+    folds the normal's constant into sigma); the port's match from the same
+    key (``kernels.KeyNoise``, ``kernels.mc_match_ref`` on the CPU) draws
+    those numbers and forms them so. Each round's winner is one of the
+    candidates, so the matched pose is bit for bit; the scores are sums
+    taken in another order (ROADMAP trap k) and agree to 1e-6."""
+    occ, origin, scale = jdata.cecum_world()
+    bearings = jdata.default_bearings(128)
+    model = jcells.BayesAvgCell()
+    gm = jgrid.make_grid_map(model, 160, 160, scale)
+    beam = jray.BeamConfig(wall_blur=True, free_impl="dda")
+    cast = jax.jit(lambda p: jray.cast_rays(occ, origin, scale, p, bearings))
+    insert = jax.jit(jray.insert_scan, static_argnums=(1, 4))
+    for p in ([-1.0, -1.5, 0.0], [0.0, -1.6, 0.1]):
+        gm = insert(gm, model, jnp.asarray(p), cast(jnp.asarray(p)), beam)
+    true = np.float32([0.5, -1.55, 0.05])
+    js = cast(jnp.asarray(true))
+    jview = jscore.MapView.of(gm, model)
+    tview = tscore.MapView(occ=torch.from_numpy(np.array(jview.occ)),
+                           known=torch.from_numpy(np.array(jview.known)),
+                           origin=torch.from_numpy(np.array(jview.origin)), scale=jview.scale)
+    ts = tscan.LaserScan(*(torch.from_numpy(np.array(a)) for a in (js.ranges, js.bearings,
+                                                                   js.valid)))
+    mc = dict(sigma_xy=0.08, sigma_theta=0.05, batch=64, rounds=12)
+    jcfg = jmatch.MonteCarloConfig(**mc, scoring=jscore.ScoringConfig(reducer="overlap"))
+    tcfg = tmatch.MonteCarloConfig(**mc, scoring=tscore.ScoringConfig(reducer="overlap"))
+    match = jax.jit(lambda v, sc, p, k: jmatch.monte_carlo_match(v, sc, p, k, jcfg))
+    for seed in range(3):
+        off = np.random.default_rng(seed).uniform(-1, 1, 3) * np.float32([0.12, 0.08, 0.05])
+        init = (true + off).astype(np.float32)
+        want = match(jview, js, jnp.asarray(init), jax.random.PRNGKey(seed))
+        got = tmatch.monte_carlo_match(tview, ts, torch.from_numpy(init), prng.key(seed), tcfg)
+        _bits(got.pose, want.pose, f"matched pose, key {seed}")
+        np.testing.assert_allclose(got.trace.numpy(), np.asarray(want.trace), atol=1e-6)
