@@ -420,7 +420,7 @@ Phases, one line or more each, in order; any failure exits non-zero:
    2^26 seeded pairs and a grid) hashed against the committed digests of
    the jitted reference (``tests/data/libm_digests.json``), the kernels
    against their plain versions (``ops/libm.py``) on the card bit for bit,
-   the fused sites too (pose operations, endpoint angles, log-sum-exp rows,
+   the fused sites too (pose operations, log-sum-exp rows,
    fused multiply-add); then timed beside ``torch.sin`` and the bound.
    Its launches are counted apart, by function (``kernels.
    libm_launch_counts``), and held on each main path to its sites a scan
@@ -433,7 +433,24 @@ Phases, one line or more each, in order; any failure exits non-zero:
    same match handed those draws (``kernels.ErfInvDraws``), bit for bit,
    and the next key against ``split(key)[0]``, on the recorded states of
    tiny, viny and full and at edge keys, rounds and batches; its device
-   time beside the handed-in route's.
+   time beside the handed-in route's;
+54. (run after phase 53) ``mc_match_scan``: the single match from the scan
+   and the odometry (the prior ``compose(pose, odom)`` and the kept beams'
+   endpoints and weights in the match's prologue, the bits of
+   ``csrc/libm.cu``'s ``libm_pose`` and ``libm_cossin``) against
+   ``mc_match`` handed the prior and the points, bit for bit, on recorded
+   calls of the tiny and viny paths (their own draws, standard normals, no
+   odometry); both routes' device time. ``beam_weights``
+   (``csrc/beam_weights.cu``: viny's weights, the endpoint angles, the
+   histogram's integer bins and the weights in one launch) against its plain
+   version (``scan.point_weights_ref``) on the card and the CPU on all 512
+   bench scans, bit for bit; timed at the viny path's shape beside its bound.
+   K5 drawing each particle's numbers from its match key against K5 handed
+   those draws, in place and cut out, bit for bit, on the gmapping path's
+   recorded matches. The score sites: every beam's probability on the card
+   (one-beam ``overlap_score`` launches) against the CPU twin's (the
+   reference's jitted endpoint arithmetic, ``grid.endpoint_cells``) bit for
+   bit, at four reducers; the whole scores within 2e-6.
 
 Every bound counts, of the plane or window, the distinct cells that the
 taps of every pose the kernel scores read (the poses taken from its
@@ -1069,16 +1086,25 @@ def bits(t):
 def handed_in(fn, name="mc_match", module=None):
     """``fn`` stands in the package's ``kernels.mc_match`` (or another
     function of a module of the package) while the block runs, so an engine
-    run goes through it."""
+    run goes through it. A stand-in for ``mc_match`` also takes the place of
+    ``kernels.mc_match_scan`` (a single match from the scan and the
+    odometry), handed ``mc_match``'s arguments (``kernels.scan_match_args``:
+    the prior and the scan's points as the package computes them)."""
     from slam_constructor_tpu_torch.ops import kernels
 
     module = module or kernels
     kept = getattr(module, name)
     setattr(module, name, fn)
+    scan_kept = None
+    if module is kernels and name == "mc_match":
+        scan_kept = kernels.mc_match_scan
+        kernels.mc_match_scan = lambda *a: fn(*kernels.scan_match_args(*a))
     try:
         yield
     finally:
         setattr(module, name, kept)
+        if scan_kept is not None:
+            kernels.mc_match_scan = scan_kept
 
 
 def recorder(fn, every=1, keep=None):
@@ -1109,6 +1135,14 @@ def recorder(fn, every=1, keep=None):
 
 #: the KeyNoise each recorded ErfInvDraws was drawn from, by the draws' id
 KEYED_DRAWS: dict = {}
+
+
+def draws_of(noise):
+    """A match's handed-in draws as a tensor: the normals, or the values of
+    an ``ErfInvDraws`` (a recorded match that drew from a key)."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    return noise.values if isinstance(noise, kernels.ErfInvDraws) else noise
 
 
 def capture_match_states(cfg, scans, odom, gt, every=32):
@@ -1478,21 +1512,27 @@ LAST_LIBM: dict = {}
 LIBM_BY_PATH: dict = {}
 
 #: ``csrc/libm.cu``'s launches a scan by function on each kind of path (its
-#: Python-level sites: the prior's compose, the scan's points, viny's
-#: endpoint chain and weights, the RBPF's proposal, weights and resampling)
+#: Python-level sites: the RBPF's proposal, weights and resampling; the
+#: M3RSM match's prior and points; full's window corner and keyframe test).
+#: The single-map Monte-Carlo match computes its prior and its scan's points
+#: in its own prologue (``kernels.mc_match_scan``) and viny's weights are one
+#: ``beam_weights`` launch: tiny and viny launch none.
 LIBM_A_SCAN = {
-    "tiny": {"pose/compose": 1, "cossin": 1},
-    "viny": {"pose/compose": 1, "cossin": 1, "endpoint_angles": 2, "fma32": 1},
-    # the tracker of the full path: tiny's, with the keyframe test's
-    # between, distance and heading
-    "full tracking": {"pose/compose": 1, "cossin": 1, "pose/between": 1, "sqrt": 1,
-                      "wrap_angle": 1},
-    "gmapping": {"pose/compose": 2, "cossin": 1, "log": 1, "rows/normalize": 2, "rows/ess": 2,
-                 "rows/softmax": 1},
+    "tiny": {},
+    "viny": {},
+    "viny_m3rsm": {"pose/compose": 1, "cossin": 1},
+    # the tracker of the full path: the prior its match window is cut
+    # around, the keyframe test's between, distance and heading
+    "full tracking": {"pose/compose": 1, "pose/between": 1, "sqrt": 1, "wrap_angle": 1},
+    # the proposal's fused multiply-add (its erf_inv draws times sqrt(2)
+    # sigma, plus the odometry) and its two composes
+    "gmapping": {"pose/compose": 2, "fma32": 1, "cossin": 1, "log": 1, "rows/normalize": 2,
+                 "rows/ess": 2, "rows/softmax": 1},
     # the improved proposal (and its gate) adds the probes' headings, the
     # motion prior's frame, the fit's spread and a second softmax
-    "gmapping improved": {"pose/compose": 2, "cossin": 3, "wrap_angle": 4, "sincos": 1, "log": 1,
-                          "sqrt": 1, "rows/normalize": 2, "rows/ess": 2, "rows/softmax": 2},
+    "gmapping improved": {"pose/compose": 2, "fma32": 1, "cossin": 3, "wrap_angle": 4,
+                          "sincos": 1, "log": 1, "sqrt": 1, "rows/normalize": 2, "rows/ess": 2,
+                          "rows/softmax": 2},
 }
 
 
@@ -1530,18 +1570,19 @@ def phase_rounds_path(cfg, scans, odom, gt, fused_traj):
         traj, _, secs, _ = run_main_path(cfg, scans[:n], odom[:n], gt, "error")
         launches = read_launches()
     want = expect(overlap_score=n * (cfg.matcher_cfg.rounds + 1), polar_free_plane=n,
-                  scan_insert=n)
+                  scan_insert=n, beam_weights=n)
     diff = float((traj - fused_traj[:n]).abs().max())
     print(f"viny path with one overlap_score launch a round, {n} scans: {n / secs:.1f} scans/s; "
           f"launches {launches} (expected {want}); max|pose diff| to the fused path {diff:.3e}",
           flush=True)
     check(launches == want, f"rounds path: launches {launches}, expected {want}")
-    # the yardstick forms each round's candidates in torch: an fma32 and a
-    # wrap_angle launch a round
+    # the yardstick is handed the prior and the scan's points (a compose and
+    # a cossin launch a scan) and forms each round's candidates in torch: an
+    # fma32 and a wrap_angle launch a round
     rounds = cfg.matcher_cfg.rounds
     want_libm = expect_libm("viny", n)
-    want_libm.update(fma32=want_libm["fma32"] + rounds * n, wrap_angle=rounds * n,
-                     total=want_libm["total"] + 2 * rounds * n)
+    want_libm.update({"pose/compose": n, "cossin": n, "fma32": rounds * n,
+                      "wrap_angle": rounds * n, "total": want_libm["total"] + 2 * (rounds + 1) * n})
     check_libm("rounds path", want_libm)
     check(torch.equal(traj, fused_traj[:n]),
           f"the fused match and one launch a round give different trajectories: {diff}")
@@ -1939,6 +1980,8 @@ def window_cases(states, dev):
 def particle_cases(states, dev):
     """(name, args of mc_match_batched): the captured states' windows cut
     out, and edge cases."""
+    from slam_constructor_tpu_torch.ops import kernels
+
     g = torch.Generator(device=dev).manual_seed(11)
     states = [cut_out(a) for a in states]
     cases = [(f"gmapping scan {32 * i}, cut out", a) for i, a in enumerate(states)]
@@ -1958,7 +2001,10 @@ def particle_cases(states, dev):
     no_beam[3] = 0.0
     cases.append(("particle 3 without a valid beam", s[:2] + (no_beam,) + s[3:]))
     cases.append(("P=1", sliced(s, slice(0, 1))))
-    wide = tuple(torch.cat([states[4][i], states[8][i], states[12][i][:4]]) for i in range(6))
+    wide = tuple(torch.cat([states[4][i], states[8][i], states[12][i][:4]]) for i in range(5))
+    noise = torch.cat([draws_of(states[4][5]), draws_of(states[8][5]),
+                       draws_of(states[12][5])[:4]])
+    wide += (noise if isinstance(states[4][5], torch.Tensor) else kernels.ErfInvDraws(noise),)
     cases.append(("P=64 (three scans' particles)", wide + s[6:]))
     return cases
 
@@ -2721,6 +2767,216 @@ def phase_m3rsm_search_kernel(dev, cases):
     }
 
 
+def capture_scan_matches(cfg, scans, odom, gt, every=64):
+    """A run of a main path that keeps the arguments of every ``every``-th
+    single match from the scan (``kernels.mc_match_scan``: the prior's
+    compose and the scan's points in its prologue), its own draws (a step
+    key) kept as they are."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    kept, n = [], [0]
+    real = kernels.mc_match_scan
+
+    def keep(a):
+        if isinstance(a, kernels.KeyNoise):
+            return kernels.KeyNoise(a.key.clone(), a.rounds, a.batch, a.step)
+        return a.clone() if isinstance(a, torch.Tensor) else a
+
+    def recording(*args):
+        if n[0] % every == 0:
+            kept.append(tuple(keep(a) for a in args))
+        n[0] += 1
+        return real(*args)
+
+    with handed_in(recording, "mc_match_scan"):
+        run_main_path(cfg, scans, odom, gt, 0)
+    return kept
+
+
+def phase_mc_match_scan(dev, scan_states):
+    """``mc_match_scan`` (the single match of tiny, viny and full's tracker:
+    the prior ``compose(pose, odom)`` and the kept beams' endpoints and
+    weights computed in the match's prologue, with libm.cuh's functions)
+    against ``mc_match`` handed the prior and the points as the package
+    computes them (``kernels.scan_match_args``: a ``libm_pose`` and a
+    ``libm_cossin`` launch), bit for bit, next key included, on recorded
+    calls of the tiny and viny paths and on handed draws; then the device
+    time of both routes (graph replay) on tiny's and viny's states."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    n = 0
+    for path, states in scan_states.items():
+        for i, a in enumerate(states):
+            check(a[8] is not None, f"{path} call {i}: the match was not handed the odometry")
+            variants = [("its own draws", a)]
+            rounds, batch = a[9].rounds, a[9].batch
+            g = torch.Generator(device=dev).manual_seed(i)
+            normals = torch.randn((rounds, batch, 3), generator=g, device=dev)
+            variants.append(("standard normals", a[:9] + (normals,) + a[10:]))
+            variants.append(("no odometry", a[:8] + (None,) + a[9:]))
+            for name, v in variants:
+                got = kernels.mc_match_scan(*v)
+                want = kernels.mc_match(*kernels.scan_match_args(*v))
+                check(len(got) == len(want) and all(torch.equal(bits(x), bits(y))
+                                                     for x, y in zip(got, want)),
+                      f"mc_match_scan differs from mc_match handed its prior and points "
+                      f"({path} call {i}, {name})")
+                n += 1
+    print(f"mc_match_scan: {n} matches (the tiny and viny paths' recorded calls with their own "
+          f"draws, standard normals, no odometry) bit for bit with mc_match handed the prior and "
+          f"the scan's points", flush=True)
+    out = {"scan_form_cases_bitwise": n}
+    for path in ("tiny", "viny"):
+        a = scan_states[path][len(scan_states[path]) // 2]
+        handed = kernels.scan_match_args(*a)
+        scan_ms = graph_ms(lambda: kernels.mc_match_scan(*a))
+        handed_ms = graph_ms(lambda: kernels.mc_match(*handed))
+        print(f"mc_match {path} state, device time (graph replay): from the scan and the "
+              f"odometry {scan_ms * 1e3:.2f} us, handed the prior and the points "
+              f"{handed_ms * 1e3:.2f} us", flush=True)
+        out[f"scan_form_device_ms_{path}"] = scan_ms
+        out[f"handed_form_device_ms_{path}"] = handed_ms
+    return out
+
+
+#: float64 and float32 operations of a beam of ``beam_weights``: a pair's
+#: endpoint angle (LIBM_OPS' "endpoint_angles"), its bin (3), the weight (3)
+BEAM_WEIGHTS_OPS = (38, 44 + 3 + 3)
+
+
+def phase_beam_weights(dev, scans, smi):
+    """``beam_weights`` (csrc/beam_weights.cu: viny's beam weights, a block
+    a scan) against its plain version ``scan.point_weights_ref`` on the
+    card (``libm.plain_versions()``) and on the CPU, bit for bit, on every
+    scan of the bench sequence in one launch and scan by scan; then timed at
+    the viny path's shape (one scan of 360 beams): device, a call, chained,
+    the plain version, the bound. Returns the ``kernels`` entry without the
+    launch count."""
+    from slam_constructor_tpu_torch.ops import kernels, libm
+    from slam_constructor_tpu_torch.ops import scan as scanlib
+
+    ranges, bearings, valid = scans.ranges, scans.bearings, scans.valid
+    got = kernels.beam_weights(ranges, bearings, valid)
+    with libm.plain_versions():
+        plain = scanlib.point_weights_ref(scanlib.LaserScan(ranges, bearings, valid))
+    cpu = kernels.beam_weights(ranges.cpu(), bearings.cpu(), valid.cpu())
+    singles = torch.stack([kernels.beam_weights(ranges[i], bearings[i], valid[i])
+                           for i in range(0, ranges.shape[0], 16)])
+    err = float((got - plain).abs().max())
+    check(torch.equal(bits(got), bits(plain)) and torch.equal(bits(got.cpu()), bits(cpu)),
+          f"beam_weights differs from its plain version: max|diff| {err}")
+    check(torch.equal(bits(singles), bits(got[::16])),
+          "beam_weights of one scan differs from the same scan in a batch")
+    print(f"beam_weights: {ranges.shape[0]} scans of {ranges.shape[1]} beams in one launch equal "
+          f"to the plain version on the card and on the CPU bit for bit (and single scans)",
+          flush=True)
+    i = ranges.shape[0] // 5  # a scan of the first lap's second side
+    r1, b1, v1 = ranges[i].contiguous(), bearings[i].contiguous(), valid[i].contiguous()
+
+    def plain_one():
+        with libm.plain_versions():
+            return scanlib.point_weights_ref(scanlib.LaserScan(r1, b1, v1))
+
+    ms, plain_ms, chained = time_pair(lambda: kernels.beam_weights(r1, b1, v1), plain_one,
+                                      plain_calls=20)
+    dev_ms = graph_ms(lambda: kernels.beam_weights(r1, b1, v1))
+    r = r1.shape[0]
+    n_bytes = r * (4 + 4 + 1) + r * 4
+    f64, f32 = BEAM_WEIGHTS_OPS
+    t_ops = (r - 1) * f64 / PEAK_F64_FLOP_PER_S + r * f32 / PEAK_F32_FLOP_PER_S
+    t = max(n_bytes / PEAK_BYTES_PER_S, t_ops)
+    b_ms, by = t * 1e3, "bytes" if n_bytes / PEAK_BYTES_PER_S >= t_ops else "operations"
+    print(f"beam_weights ({r} beams, the viny path's shape): device {dev_ms * 1e3:.2f} us (graph "
+          f"replay), a call {ms:.4f} ms, chained {chained:.4f} ms; plain version on the card "
+          f"{plain_ms:.4f} ms; bound {b_ms:.7f} ms by {by} ({n_bytes} B; {(r - 1) * f64} float64 "
+          f"and {r * f32} float32 operations); no single PyTorch call computes the weights "
+          f"({smi})", flush=True)
+    return {"name": "beam_weights", "route": "cuda",
+            "source": "slam_constructor_tpu_torch/csrc/beam_weights.cu",
+            "replaces": "slam_constructor_tpu/models/engine.py:171", "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "chained_ms": chained, "device_ms": dev_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+
+
+def phase_particle_keys(dev, states):
+    """K5 drawing each particle's numbers from its match key (the RBPF's
+    ``gmapping.draw`` gives the keys; ``kernels.KeyNoise`` with a leading
+    particle dimension) against K5 handed the same keys' erf_inv draws
+    (``ErfInvDraws``, ``prng``'s plain version), bit for bit, in place and
+    cut out, on the recorded particle matches of the gmapping path; then
+    the device time of both routes at the path's shape."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    n = 0
+    for i, a in enumerate(states):
+        kn = KEYED_DRAWS.get(id(a[10]))
+        check(kn is not None and not kn.step and tuple(kn.key.shape) == (GM_PARTICLES, 2),
+              f"gmapping match {i}: the particles did not draw from their match keys")
+        keyed = a[:10] + (kn,) + a[11:]
+        for name, fn, x, y in (("in place", kernels.mc_match_windows, keyed, a),
+                               ("cut out", kernels.mc_match_batched, cut_out(keyed), cut_out(a))):
+            got, want = fn(*x), fn(*y)
+            check(all(torch.equal(bits(p), bits(q)) for p, q in zip(got, want)),
+                  f"K5 drawing from the particles' keys differs from the handed draws "
+                  f"(gmapping match {i}, {name})")
+            n += 1
+    a = states[len(states) // 2]
+    keyed = a[:10] + (KEYED_DRAWS[id(a[10])],) + a[11:]
+    keyed_ms = graph_ms(lambda: kernels.mc_match_windows(*keyed))
+    handed_ms = graph_ms(lambda: kernels.mc_match_windows(*a))
+    print(f"K5 from the particles' keys: {n} launches bit for bit with the handed draws; device "
+          f"time at the path's shape (graph replay) {keyed_ms * 1e3:.2f} us drawing from the keys, "
+          f"{handed_ms * 1e3:.2f} us handed the draws", flush=True)
+    return {"keyed_cases_bitwise": n, "keyed_device_ms": keyed_ms, "handed_device_ms": handed_ms}
+
+
+def phase_score_sites(dev, scans, gt):
+    """The score sites on the card against the CPU: every beam's
+    probability (a one-beam ``overlap_score`` launch, its score the beam's
+    probability bit for bit) against the plain twin's on the CPU
+    (``kernels._beam_probs_ref``: ``grid.endpoint_cells``, the reference's
+    jitted endpoint arithmetic) at 64 poses around a scan's, at every
+    reducer; and whole scores card against CPU."""
+    from slam_constructor_tpu_torch.models import engine, tiny
+    from slam_constructor_tpu_torch.ops import kernels, raycast, scoring
+
+    cfg = tiny.tiny_config(map_size=MAP)
+    gm = engine.init_state(cfg, dev).gm
+    for i in range(0, 48, 4):  # a map of the scans at their true poses
+        gm = raycast.insert_scan(gm, cfg.cell_model, gt[i], scans[i], cfg.beam)
+    view = scoring.MapView.of(gm, cfg.cell_model)
+    g = torch.Generator(device=dev).manual_seed(3)
+    poses = (gt[48] + torch.randn((64, 3), generator=g, device=dev) * torch.tensor(
+        [0.2, 0.2, 0.1], device=dev)).contiguous()
+    out = {}
+    for red in (kernels.BILINEAR, kernels.Reducer("obstacle"), kernels.Reducer("max", radius=1),
+                kernels.Reducer("overlap", radius=1, extent=1.5)):
+        prep = scoring.prepare(view, scans[48], scoring.ScoringConfig(reducer="overlap"))
+        one = torch.ones_like(prep.beam_w[:1])
+        card = torch.stack([kernels.overlap_score(prep.plane, poses, prep.pts[i:i + 1].contiguous(),
+                                                  one, prep.origin, prep.scale, prep.unknown, red)
+                            for i in range(prep.pts.shape[0])], -1).cpu()
+        cpu = kernels._beam_probs_ref(prep.plane.cpu()[None], poses.cpu()[None],
+                                      prep.pts.cpu()[None], prep.origin.cpu()[None], prep.scale,
+                                      prep.unknown, red)[0]
+        same = int((bits(card) == bits(cpu)).sum())
+        score_card = kernels.overlap_score(prep.plane, poses, prep.pts, prep.beam_w, prep.origin,
+                                           prep.scale, prep.unknown, red).cpu()
+        score_cpu = kernels.overlap_score(prep.plane.cpu(), poses.cpu(), prep.pts.cpu(),
+                                          prep.beam_w.cpu(), prep.origin.cpu(), prep.scale,
+                                          prep.unknown, red)
+        diff = float((score_card - score_cpu).abs().max())
+        label = (red.kind if red.kind in ("bilinear", "obstacle") else f"{red.kind} r{red.radius}"
+                 + (f" e{red.extent:g}" if red.kind == "overlap" else ""))
+        print(f"score sites, {label}: {same} of {card.numel()} beam probabilities on the card "
+              f"equal to the CPU twin's bit for bit; whole scores card vs CPU max|diff| {diff:.3e} "
+              f"(the sums' order)", flush=True)
+        check(same == card.numel(), f"score sites ({label}): the card's beams part from the CPU's")
+        check(diff <= TOL, f"score sites ({label}): the card's scores part from the CPU's: {diff}")
+        out[label] = {"beams_equal": same, "beams": card.numel(), "score_max_diff": diff}
+    return out
+
+
 def phase_m3rsm_path(cfg, scans, odom, gt, odo_ate):
     """The viny_m3rsm main path: the timed run (counts, ATE, no host sync,
     a second run bit for bit) and its live pyramid against a rebuild of the
@@ -2729,10 +2985,10 @@ def phase_m3rsm_path(cfg, scans, odom, gt, odo_ate):
 
     levels = cfg.matcher_cfg.levels
     want = expect(m3rsm_search=N_SCANS, m3rsm_pyramid=N_SCANS + 1, scan_insert=N_SCANS,
-                  prng_draws=N_SCANS)
+                  prng_draws=N_SCANS, beam_weights=N_SCANS)
     launches, traj, e = phase_main_path("viny_m3rsm", cfg, want, scans, odom, gt, odo_ate,
                                         VINY_M3RSM_REFERENCE_ATE + VINY_ATE_MARGIN,
-                                        expect_libm("viny"))
+                                        expect_libm("viny_m3rsm"))
     rebuilt = m3rsm.build_pyramid(scoring.MapView.of(e.state.gm, cfg.cell_model), levels,
                                   cfg.matcher_cfg.scoring.unknown_prob)
     same = all(torch.equal(bits(a), bits(b)) for a, b in zip(e.state.pyramid, rebuilt))
@@ -2755,7 +3011,7 @@ def phase_m3rsm_levels_path(cfg, scans, odom, gt, traj):
         got, _, secs, _ = run_main_path(cfg, scans, odom, gt, 0)
         launches = read_launches()
     want = expect(m3rsm_level=(mc.levels + 1) * N_SCANS, m3rsm_pyramid=N_SCANS + 1,
-                  scan_insert=N_SCANS, prng_draws=N_SCANS,
+                  scan_insert=N_SCANS, prng_draws=N_SCANS, beam_weights=N_SCANS,
                   overlap_score_batched=(1 + mc.refine_iterations) * N_SCANS)
     diff = float((got - traj).abs().max())
     print(f"viny_m3rsm with a level launch a level and a score launch a hill-climb round: "
@@ -2763,10 +3019,12 @@ def phase_m3rsm_levels_path(cfg, scans, odom, gt, traj):
           f"{want}); max|pose diff| to the one-launch match's run {diff:.3e}", flush=True)
     check(launches == want, f"viny_m3rsm levels path: launches {launches}, expected {want}")
     # the yardstick's hill climb in torch: the candidates' headings wrapped
-    # once a score launch, the sine and cosine of the first pose once
-    want_libm = expect_libm("viny")
+    # once a score launch, the sine and cosine of the first pose once; its
+    # endpoint cells' four fused multiply-adds (grid.endpoint_cells) once
+    want_libm = expect_libm("viny_m3rsm")
     calls = (1 + mc.refine_iterations) * N_SCANS
-    want_libm.update(wrap_angle=calls, sincos=N_SCANS, total=want_libm["total"] + calls + N_SCANS)
+    want_libm.update(wrap_angle=calls, sincos=N_SCANS, fma32=4 * N_SCANS,
+                     total=want_libm["total"] + calls + 5 * N_SCANS)
     check_libm("viny_m3rsm levels path", want_libm)
     check(torch.equal(bits(got), bits(traj)),
           f"the one-launch match and the level launches give different trajectories: {diff}")
@@ -2812,7 +3070,9 @@ def cli_argv(name, out, dataset=None):
 def cli_expected(name, n):
     """The launches the design gives a CLI run of ``n`` scans: one match a
     scan; tiny_refined's gradient refine and mit_csail's hill climb, one
-    launch a scan each; viny_m3rsm's pyramid build in ``init_state`` and a
+    launch a scan each; the beam weights of the configs with the angle
+    histogram (viny, viny_m3rsm, mit_stata), one launch a scan; viny_m3rsm's
+    pyramid build in ``init_state`` and a
     refresh a scan; tum_2d's improved proposal (one batched score of the
     probes a scan); the draws, one launch a step (none where the tracker's
     Monte-Carlo match draws inside its launch) and one for the synthetic
@@ -2820,11 +3080,12 @@ def cli_expected(name, n):
     # a Monte-Carlo tracker draws inside its match (engine.keyed_match)
     keyed = name in ("tiny", "viny", "mit_stata", "tiny_refined", "mit_csail")
     return expect(prng_draws=1 if keyed else n + 1, **{
-        "tiny": dict(mc_match=n, scan_insert=n), "viny": dict(mc_match=n, scan_insert=n),
-        "mit_stata": dict(mc_match=n, pool_prepare=n, pool_insert=n),
+        "tiny": dict(mc_match=n, scan_insert=n),
+        "viny": dict(mc_match=n, scan_insert=n, beam_weights=n),
+        "mit_stata": dict(mc_match=n, pool_prepare=n, pool_insert=n, beam_weights=n),
         "tiny_refined": dict(mc_match=n, gradient_refine=n, scan_insert=n),
         "mit_csail": dict(mc_match=n, hill_climb=n, scan_insert=n),
-        "viny_m3rsm": dict(m3rsm_search=n, m3rsm_pyramid=n + 1, scan_insert=n),
+        "viny_m3rsm": dict(m3rsm_search=n, m3rsm_pyramid=n + 1, scan_insert=n, beam_weights=n),
         "gmapping": dict(mc_match_batched=n, scan_insert=n),
         "tum_2d": dict(mc_match_batched=n, overlap_score_batched=n, scan_insert=n),
     }[name])
@@ -3418,7 +3679,7 @@ def phase_reducer_kernels(dev, states, smi):
                   f"windows cut out")
         n_cases += 4
         # the other scoring kernels with the same reducer
-        poses = (a[4][:, None, :] + a[5][:, 0] * 0.08).contiguous()  # 16 poses a map
+        poses = (a[4][:, None, :] + draws_of(a[5])[:, 0] * 0.08).contiguous()  # 16 a map
         sargs = (a[0], poses, a[1], a[2], a[3], a[6], a[7], red)
         batched = kernels.overlap_score_batched(*sargs)
         single = torch.stack([kernels.overlap_score(*(t[m] for t in sargs[:5]), *sargs[5:])
@@ -5054,24 +5315,89 @@ def gradient_part_explained(name, card, cpu) -> bool:
     return kinked or edge < KNIFE_EDGE
 
 
+def climb_part_explained(name, card_calls, cpu_calls) -> bool:
+    """Why a run with a Monte-Carlo match or a hill climb (no gradient)
+    parts on the card and the CPU at a scan: ``card_calls`` and
+    ``cpu_calls`` hold each device's calls of that scan, by wrapper
+    (``mc_match_batched``, ``hill_climb``). The calls are taken in the
+    step's order (the match, then the refine). A call whose inputs differ
+    on the two devices is not explained: the parting began upstream, so
+    the check fails there. A call whose inputs agree is run on the card
+    with the CPU's arguments and held against the plain twin on them
+    (``twin_record``: the candidates' margins); where the results part,
+    the parting is explained only when every match that parts had a
+    decision closer than KNIFE_EDGE (the sums' order, trap k). Calls whose
+    inputs agree and whose results agree are passed over; no explanation
+    by the last call is none."""
+    from slam_constructor_tpu_torch.ops import kernels
+
+    loops = (("mc_match_batched", kernels.mc_match_batched, kernels.mc_match_loop),
+             ("hill_climb", kernels.hill_climb, kernels.hill_climb_loop))
+
+    def gap(a, b):  # how far an argument of the card's call is from the CPU's
+        a, b = draws_of(a), draws_of(b)
+        if not isinstance(b, torch.Tensor):
+            return 0.0 if a == b else math.inf
+        a = a.cpu()
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return math.inf
+        if not b.is_floating_point():
+            return 0.0 if torch.equal(a, b) else math.inf
+        if not torch.equal(a.isnan(), b.isnan()):
+            return math.inf
+        return float((a - b).nan_to_num().abs().max()) if b.numel() else 0.0
+
+    for kind, kernel, loop in loops:
+        for card, cpu in zip(card_calls.get(kind, []), cpu_calls.get(kind, [])):
+            gaps = [gap(a, b) for a, b in zip(card, cpu)]
+            if any(g != 0 for g in gaps):
+                print(f"  [{name}] {kind}: the inputs differ on the two devices (max|diff| by "
+                      f"argument {['%.1e' % g for g in gaps]}): the runs parted before this "
+                      f"call", flush=True)
+                return False
+            dev = card[0].device
+            moved = tuple(a.to(dev) if isinstance(a, torch.Tensor) else a for a in cpu)
+            got = [t.cpu() for t in kernel(*moved)]
+            twin, margins = twin_record(cpu, loop, kernels.overlap_score_ref)
+            if twin[0].dim() == 1:
+                twin, margins = [t[None] for t in twin], margins[None]
+                got = [t[None] for t in got]
+            apart = (got[0] - twin[0]).abs().amax(-1) > 1e-5
+            edge = (margins.amin(-1) if margins.shape[-1]
+                    else torch.full(apart.shape, math.inf))
+            print(f"  [{name}] {kind}: the inputs agree on the two devices; the card's kernel "
+                  f"on them parts from the twin on {int(apart.sum())} matches (their closest "
+                  f"decisions {[float('%.2e' % float(x)) for x in edge[apart]]}, limit "
+                  f"{KNIFE_EDGE:g})", flush=True)
+            if bool(apart.any()):
+                return bool((edge[apart] < KNIFE_EDGE).all())
+    return False
+
+
 def phase_gmapping_slots_card_vs_cpu(dev, scans, odom, gt, n=SLOT_VS_CPU_SCANS):
     """Card vs CPU: the first ``n`` scans of every slot run with the same
     draws (made with numpy): poses and log-weights within 1e-4, ancestors
     equal; where a run with a gradient slot parts, that scan's refine must
-    explain it (``gradient_part_explained``)."""
+    explain it (``gradient_part_explained``); where another run parts, a
+    match or climb decided closer than KNIFE_EDGE must
+    (``climb_part_explained``)."""
     from slam_constructor_tpu_torch.ops import kernels
 
     for name, cfg in slot_runs():
         draws = rbpf_draws(cfg, n)
-        runs, calls = [], []
+        runs, calls, others = [], [], []
         for d in (None, "cpu"):
             on = torch.device(d) if d else dev
             ascending, ascents = recorder(kernels.gradient_refine)
-            with handed_in(ascending, "gradient_refine"):
+            matching, matches = recorder(kernels.mc_match_batched)
+            climbing, climbs = recorder(kernels.hill_climb)
+            with handed_in(ascending, "gradient_refine"), \
+                    handed_in(matching, "mc_match_batched"), handed_in(climbing, "hill_climb"):
                 e, _, _, _ = run_gmapping_path(cfg, scans[:n].to(on), odom[:n].to(on),
                                                gt.to(on), 0, draws=draws, device=d)
             runs.append([t.cpu() for t in (*e.genealogy, e.state.log_weights)])
             calls.append(ascents)
+            others.append({"mc_match_batched": matches, "hill_climb": climbs})
         (pa, aa, la), (pb, ab, lb) = runs
         d = pa - pb
         d[..., 2] = torch.atan2(torch.sin(d[..., 2]), torch.cos(d[..., 2]))
@@ -5086,8 +5412,15 @@ def phase_gmapping_slots_card_vs_cpu(dev, scans, odom, gt, n=SLOT_VS_CPU_SCANS):
         if part is None:
             check(ldiff <= 1e-4, f"{name} card vs CPU: the weights disagree")
             continue
-        check(len(calls[1]) == n and gradient_part_explained(name, calls[0][part],
-                                                             calls[1][part]),
+        if calls[1]:
+            explained = len(calls[1]) == n and gradient_part_explained(name, calls[0][part],
+                                                                       calls[1][part])
+        else:
+            def of_scan(c):
+                return {k: v[part:part + 1] if len(v) == n else v for k, v in c.items()}
+
+            explained = climb_part_explained(name, of_scan(others[0]), of_scan(others[1]))
+        check(explained,
               f"{name} card vs CPU: the runs part at scan {part} with no kink or close decision")
 
 
@@ -6214,6 +6547,11 @@ def prng_plans(dev):
     return plans
 
 
+#: how close a key's ATE on the card must come to the reference's on the
+#: same key to count as paired (phase 51's report)
+PAIRED_ATE = 0.005
+
+
 def phase_ate_by_key(paths):
     """Each path from the reference's keys ``PRNGKey(0..4)``: the port's ATE
     (no alignment) beside the reference's from the same key on the same
@@ -6233,7 +6571,9 @@ def phase_ate_by_key(paths):
                           enumerate(zip(port, reference)))
               + f"; paired difference {min(gaps):+.5f} to {max(gaps):+.5f} m, median "
               f"{statistics.median(gaps):+.5f} m", flush=True)
-        out[name] = {"port": port, "reference": list(reference)}
+        paired = sum(abs(g) <= PAIRED_ATE for g in gaps)
+        print(f"{name}: {paired} of {len(gaps)} keys paired within {PAIRED_ATE} m", flush=True)
+        out[name] = {"port": port, "reference": list(reference), "paired": paired}
     return out
 
 
@@ -6404,7 +6744,6 @@ def phase_libm(dev, smi):
     timed at the paths' shapes beside torch's own function and the bound.
     Returns the ``kernels`` entry without the launch count."""
     from slam_constructor_tpu_torch.ops import geometry, kernels, libm
-    from slam_constructor_tpu_torch.ops import scan as scanlib
     from slam_constructor_tpu_torch.utils import libm_digest as ld
 
     want = ld.load()
@@ -6433,7 +6772,6 @@ def phase_libm(dev, smi):
     poses = torch.rand((1 << 20, 3), generator=g, device=dev) * torch.tensor(
         [40.0, 40.0, 8.0], device=dev) - torch.tensor([20.0, 20.0, 4.0], device=dev)
     other = poses.roll(1, 0)
-    ranges = torch.rand((64, 360), generator=g, device=dev) * 12
     bearings = torch.linspace(-math.pi, math.pi, 360, device=dev)
     logw = torch.randn((4096, 30), generator=g, device=dev) * 20
     logw[0, 3] = -math.inf
@@ -6445,9 +6783,6 @@ def phase_libm(dev, smi):
               ("pose/compose", lambda: geometry.compose(poses, other)),
               ("pose/between", lambda: geometry.between(poses, other)),
               ("pose/inverse", lambda: geometry.inverse(poses)),
-              ("endpoint_angles", lambda: scanlib.endpoint_angles(
-                  scanlib.LaserScan(ranges, bearings.expand(64, 360),
-                                    torch.ones_like(ranges, dtype=torch.bool)))),
               ("rows/lse", lambda: libm.logsumexp(logw)),
               ("rows/normalize", lambda: libm.normalize_log(logw)),
               ("rows/softmax", lambda: torch.cat([libm.softmax_lse(logw)[0],
@@ -6463,7 +6798,7 @@ def phase_libm(dev, smi):
             bits(torch.where(torch.isnan(plain), math.nan, plain)))
         check(same, f"libm {name}: the kernel differs from its plain version on the card")
     print(f"libm: {len(cases)} functions and fused sites bit for bit with their plain versions "
-          f"on the card (2^24 inputs a function; 2^20 poses; 64 scans; 4,096 rows of 30)",
+          f"on the card (2^24 inputs a function; 2^20 poses; 4,096 rows of 30)",
           flush=True)
 
     # timed: a sine of the scan's 360 bearings against torch.sin (other bits:
@@ -6476,14 +6811,10 @@ def phase_libm(dev, smi):
     for site, n, n_bytes, kernel, library in (
             ("sin", 360, 8 * 360, lambda: kernels.libm_unary("sin", b360),
              lambda: torch.sin(b360)),
-            ("pose/compose", 1, 36, lambda: kernels.libm_pose("compose", pose1, delta1), None),
-            ("endpoint_angles", 359, 8 * 360 + 4 * 359,
-             lambda: kernels.libm_endpoint_angles(ranges[0], bearings), None)):
+            ("pose/compose", 1, 36, lambda: kernels.libm_pose("compose", pose1, delta1), None)):
         with libm.plain_versions():
             plain = {"sin": lambda: libm._sin_ref(b360),
-                     "pose/compose": lambda: geometry.compose(pose1, delta1),
-                     "endpoint_angles": lambda: scanlib._endpoint_angles_ref(
-                         ranges[0], bearings)}[site]
+                     "pose/compose": lambda: geometry.compose(pose1, delta1)}[site]
             ms, plain_ms, chained = time_pair(kernel, plain, plain_calls=20)
         dev_ms = graph_ms(kernel)
         lib_ms = graph_ms(library) if library else None
@@ -6613,7 +6944,10 @@ def main() -> None:
 
     tiny_cfg, viny_cfg = tiny.tiny_config(map_size=MAP), viny.viny_config(map_size=MAP)
     gm_cfg = gmapping_config()
-    k5 = phase_particle_match(dev, capture_particle_matches(gm_cfg, scans, odom, gt))
+    k_bw = phase_beam_weights(dev, scans, smi)
+    gm_states = capture_particle_matches(gm_cfg, scans, odom, gt)
+    k5 = phase_particle_match(dev, gm_states)
+    k5.update(phase_particle_keys(dev, gm_states))
     fscans, fodom, fgt = full_sequence(dev)
     full_cfg = full_config()
     full_states, kept = capture_full_launches(full_cfg, fscans, fodom, fgt)
@@ -6621,6 +6955,10 @@ def main() -> None:
     viny_states = capture_match_states(viny_cfg, scans, odom, gt)
     k3 = phase_mc_match(dev, tiny_states, viny_states, full_states)
     k3.update(phase_mc_match_keyed(dev, tiny_states, viny_states, full_states))
+    k3.update(phase_mc_match_scan(dev, {
+        "tiny": capture_scan_matches(tiny_cfg, scans, odom, gt),
+        "viny": capture_scan_matches(viny_cfg, scans, odom, gt)}))
+    k1["score_sites"] = phase_score_sites(dev, scans, gt)
     phase_card_vs_cpu("tiny", tiny_cfg, dev, scans, odom, gt)
     phase_card_vs_cpu("viny", viny_cfg, dev, scans, odom, gt)
 
@@ -6629,7 +6967,8 @@ def main() -> None:
         "tiny", tiny_cfg, expect(mc_match=N_SCANS, scan_insert=N_SCANS), scans,
         odom, gt, odo_ate, 0.15, expect_libm("tiny"))
     viny_launches, viny_traj, _ = phase_main_path(
-        "viny", viny_cfg, expect(mc_match=N_SCANS, polar_free_plane=N_SCANS, scan_insert=N_SCANS),
+        "viny", viny_cfg, expect(mc_match=N_SCANS, polar_free_plane=N_SCANS, scan_insert=N_SCANS,
+                                 beam_weights=N_SCANS),
         scans, odom, gt, odo_ate, max(VINY_REFERENCE_ATE_BY_KEY) + VINY_ATE_MARGIN,
         expect_libm("viny"))
     rounds_launches = phase_rounds_path(viny_cfg, scans, odom, gt, viny_traj)
@@ -6767,7 +7106,8 @@ def main() -> None:
                  "scan_planes": full_launches, "pool_insert": cow_launches,
                  "pool_prepare": cow_launches, "pool_touched": cow_launches,
                  "prng_draws": gm_launches}
-    for k in (k1, k3, k2, k4, k5, k6, k7, k8, k9, k10, k11, k12, k13, k14, k15, k16, k_prng):
+    for k in (k1, k3, k2, k4, k5, k6, k7, k8, k9, k10, k11, k12, k13, k14, k15, k16, k_prng,
+              k_bw):
         k["launches"] = main_path.get(k["name"], viny_launches)[k["name"]]
         k["launches_by_path"] = {
             "tiny": tiny_launches[k["name"]], "viny": viny_launches[k["name"]],
@@ -6793,13 +7133,15 @@ def main() -> None:
     k_part["launches"] = par_launches["blockshard"]["overlap_score_partial"]
     k_part["launches_by_path"] = {f"{name} (NCCL, world 1)": counts["overlap_score_partial"]
                                   for name, counts in par_launches.items()}
-    # libm: launches of the tiny path's timed run (the prior's compose and
-    # the scan's points a scan, held by check_libm), counted apart by function
+    # libm: launches of the gmapping path's timed run (the proposal, the
+    # scan's points, the weights and the resampling a step, held by
+    # check_libm; tiny and viny launch none), counted apart by function
     check(not LIBM_PARTED, f"libm launches parted on {len(LIBM_PARTED)} paths: {LIBM_PARTED}")
-    k_libm["launches"] = LIBM_BY_PATH["tiny"]["total"]
+    k_libm["launches"] = LIBM_BY_PATH["gmapping"]["total"]
     k_libm["launches_by_path"] = {name: counts for name, counts in LIBM_BY_PATH.items()}
     print(json.dumps({"kernels": [k1, k3, k2, k4, k5, k6, k7, k8, k9, k10, k11, k12, k13,
-                                  k14, k15, k16, *k_red, *k_slots, k_part, k_prng, k_libm]}),
+                                  k14, k15, k16, *k_red, *k_slots, k_part, k_prng, k_libm,
+                                  k_bw]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

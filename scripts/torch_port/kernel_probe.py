@@ -751,13 +751,14 @@ def times_main(dev, only: str = "", save: str = "") -> None:
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
     pose, scan, prep = scene(dev)
-    mc = {}
+    mc, scan_form = {}, {}
     for name, cfg in (("tiny", tiny.tiny_config(map_size=256)), ("viny", viny.viny_config(map_size=256))):
         gm = raycast.insert_scan(init_state(cfg, dev).gm, cfg.cell_model, pose, scan, cfg.beam)
         weights = (torch.rand((360,), device=dev, generator=torch.Generator(device=dev).manual_seed(3))
                    if name == "viny" else None)
         mc[name] = mc_case(scoring, scoring.MapView.of(gm, cfg.cell_model), scan, pose, cfg, weights,
                            dev, seed=11)
+        scan_form[name] = (cfg, weights, mc[name])
     cut, in_place = particle_cases(prep, pose, dev)
     beam = viny.viny_config().beam
     polar_args = (scan.ranges, scan.valid, scan.bearings, pose,
@@ -779,6 +780,10 @@ def times_main(dev, only: str = "", save: str = "") -> None:
             ("mc_match tiny", lambda: kernels.mc_match(*mc["tiny"])),
             ("mc_match viny", lambda: kernels.mc_match(*mc["viny"]))]
     fns += keyed_match_calls(kernels, mc, dev)
+    fns += scan_match_calls(kernels, scan_form, scan, pose, dev)
+    if hasattr(kernels, "beam_weights"):
+        fns += [("beam_weights R=360 (viny's weights)",
+                 lambda: kernels.beam_weights(scan.ranges, scan.bearings, scan.valid))]
     if hasattr(kernels, "m3rsm_pyramid"):
         fns += [(name, lambda f=f, a=a: f(*a))
                 for name, (f, _, a) in m3rsm_cases(pose, scan, dev).items()]
@@ -837,6 +842,26 @@ def keyed_match_calls(kernels, mc, dev) -> list:
         a[5] = kernels.KeyNoise(key, rounds, batch, step=True)
         out.append((f"mc_match {name}, its draws from the step's key",
                     lambda a=tuple(a): kernels.mc_match(*a)))
+    return out
+
+
+def scan_match_calls(kernels, scan_form, scan, pose, dev) -> list:
+    """Where the tree has it (``kernels.mc_match_scan``): tiny's and viny's
+    matches from the scan and the odometry (the prior's compose and the
+    scan's points in the match's prologue), drawing from a step's key, as
+    the engine's step runs them; ``scan_form`` holds each preset's (config,
+    point weights, ``mc_case`` arguments)."""
+    if not hasattr(kernels, "mc_match_scan"):
+        return []
+    key = torch.tensor([0, 42], dtype=torch.int32, device=dev).view(torch.uint32)
+    odom = torch.tensor([0.04, -0.03, 0.02], device=dev)
+    out = []
+    for name, (cfg, weights, a) in scan_form.items():
+        m = cfg.matcher_cfg
+        args = (a[0], scan.ranges, scan.bearings, scan.valid, weights, m.scoring.stride, a[3],
+                pose, odom, kernels.KeyNoise(key, m.rounds, m.batch, step=True), *a[6:])
+        out.append((f"mc_match {name}, from the scan and the odometry, its draws from the "
+                    f"step's key", lambda args=args: kernels.mc_match_scan(*args)))
     return out
 
 

@@ -233,14 +233,21 @@ def main() -> None:
         marks[0] = time.perf_counter()
         pw = engine._point_weights(cfg, scan)
         mark()
-        prior = compose(state.pose, od)
         view = scoring.MapView.of(state.gm, cfg.cell_model)
-        if getattr(engine, "keyed_match", lambda c: False)(cfg):
+        if hasattr(kernels, "mc_match_scan"):
+            # the match composes the prior, takes the scan's points and draws
+            # from the step's key inside its launch
+            res = matchers.monte_carlo_match(view, scan, state.pose, None, cfg.matcher_cfg, pw,
+                                             step_key=state.key, odom=od)
+            key = res.next_key
+        elif getattr(engine, "keyed_match", lambda c: False)(cfg):
             # the match draws from the step's key inside its launch
+            prior = compose(state.pose, od)
             res = matchers.monte_carlo_match(view, scan, prior, None, cfg.matcher_cfg, pw,
                                              step_key=state.key)
             key = res.next_key
         else:
+            prior = compose(state.pose, od)
             key, noise, _ = engine.draw_step(cfg, state.key)  # the step's one draws launch
             res = matchers.monte_carlo_match(view, scan, prior, None, cfg.matcher_cfg, pw, noise)
         mark()
@@ -260,6 +267,9 @@ def main() -> None:
     view = scoring.MapView.of(gm, cfg.cell_model)
     pw = engine._point_weights(cfg, scan)
     fused = kernels.mc_match
+    # a tree whose single match takes the scan (mc_match_scan) hands the
+    # yardstick the prior and the points
+    fused_scan = getattr(kernels, "mc_match_scan", None)
     matchers_by = {"mc_match (one launch)": fused,
                    "mc_match_rounds (one overlap_score launch a round)": kernels.mc_match_rounds}
     rounds = {k: [] for k in matchers_by}
@@ -269,6 +279,9 @@ def main() -> None:
             order = list(matchers_by) if r % 2 == 0 else list(matchers_by)[::-1]
             for name in order:
                 kernels.mc_match = matchers_by[name]
+                if fused_scan is not None:
+                    kernels.mc_match_scan = fused_scan if matchers_by[name] is fused else (
+                        lambda *a: kernels.mc_match_rounds(*kernels.scan_match_args(*a)))
                 rounds[name].append(synced_ms(
                     lambda: matchers.monte_carlo_match(view, scan, pose, gen, cfg.matcher_cfg, pw),
                     20))
@@ -278,6 +291,8 @@ def main() -> None:
                     calls[name] = c.n
     finally:
         kernels.mc_match = fused
+        if fused_scan is not None:
+            kernels.mc_match_scan = fused_scan
     for name, ms in rounds.items():
         print(f"match through {name}: median {statistics.median(ms):.4f} ms a call synced "
               f"(rounds {min(ms):.4f}-{max(ms):.4f}), {calls[name]} ATen calls")
@@ -334,7 +349,7 @@ def main() -> None:
         torch.cuda.synchronize()
     device_report(prof, n, secs, time.perf_counter() - t0,
                   ("mc_match_kernel", "overlap_score_kernel", "polar_free_kernel",
-                   "insert_kernel"))
+                   "insert_kernel", "beam_weights_kernel"))
 
 
 def device_report(prof, n: int, secs: float, wall: float, names: tuple) -> None:

@@ -99,10 +99,9 @@ __device__ __forceinline__ float overlap_grad_fixed(float extent, const overlap:
   using overlap::min_nan;
   using overlap::overlap_len_grad;
   constexpr int S = 2 * N + 1;
-  const float wx = (p.x + p.c * qx) - p.s * qy;
-  const float wy = (p.y + p.s * qx) + p.c * qy;
-  const float x = (wx - ox) / scale;
-  const float y = (wy - oy) / scale;
+  const float inv = overlap::inv_scale(scale);
+  float x, y;
+  overlap::endpoint_cells(p, qx, qy, ox, oy, inv, x, y);
   const float fx = floorf(x);
   const float fy = floorf(y);
   const float half = 0.5f * extent;
@@ -160,9 +159,9 @@ __device__ __forceinline__ float overlap_grad_fixed(float extent, const overlap:
     dx = (dnum_x - val * dw_x) / den;
     dy = (dnum_y - val * dw_y) / den;
   }
-  gx = dx / scale;
-  gy = dy / scale;
-  gth = (dx * (-p.s * qx - p.c * qy) + dy * (p.c * qx - p.s * qy)) / scale;
+  gx = dx * inv;
+  gy = dy * inv;
+  gth = (dx * (-p.s * qx - p.c * qy) + dy * (p.c * qx - p.s * qy)) * inv;
   return val;
 }
 

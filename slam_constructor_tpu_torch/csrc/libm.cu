@@ -87,14 +87,13 @@ __global__ void libm_pose_kernel(int op, const float* __restrict__ a,
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n;
        i += static_cast<long long>(gridDim.x) * blockDim.x) {
     const float ax = a[3 * i], ay = a[3 * i + 1], at = a[3 * i + 2];
+    if (op == 0) {  // libm.cuh's, which mc_match.cu's prologue runs too
+      libm::compose(ax, ay, at, b[3 * i], b[3 * i + 1], b[3 * i + 2], out + 3 * i);
+      continue;
+    }
     float s, c, x, y, t;
     libm::sincos(at, &s, &c);
-    if (op == 0) {
-      const float bx = b[3 * i], by = b[3 * i + 1], bt = b[3 * i + 2];
-      x = libm::fma32(-s, by, libm::fma32(c, bx, ax));
-      y = libm::fma32(c, by, libm::fma32(s, bx, ay));
-      t = libm::wrap_angle(__fadd_rn(at, bt));
-    } else if (op == 1) {
+    if (op == 1) {
       const float dx = __fsub_rn(b[3 * i], ax), dy = __fsub_rn(b[3 * i + 1], ay);
       x = libm::fma32(c, dx, __fmul_rn(s, dy));
       y = libm::fma32(c, dy, __fmul_rn(-s, dx));
@@ -107,24 +106,6 @@ __global__ void libm_pose_kernel(int op, const float* __restrict__ a,
     out[3 * i] = x;
     out[3 * i + 1] = y;
     out[3 * i + 2] = t;
-  }
-}
-
-// scan.endpoint_angles of scans [n / (r - 1), r]: out[k] for the pair of
-// beams (j, j + 1) of its scan, the later endpoint's product fused
-__global__ void libm_endpoint_angles_kernel(const float* __restrict__ ranges,
-                                            const float* __restrict__ bearings,
-                                            float* __restrict__ out, long long n, int r) {
-  for (long long k = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; k < n;
-       k += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long i = k / (r - 1) * r + k % (r - 1);
-    float s0, c0, s1, c1;
-    libm::sincos(bearings[i], &s0, &c0);
-    libm::sincos(bearings[i + 1], &s1, &c1);
-    const float r0 = ranges[i], r1 = ranges[i + 1];
-    const float dx = libm::fma32(r1, c1, -__fmul_rn(r0, c0));
-    const float dy = libm::fma32(r1, s1, -__fmul_rn(r0, s0));
-    out[k] = libm::atan2(dy, dx);
   }
 }
 
@@ -216,16 +197,6 @@ int libm_fma32_launch(const void* a, const void* b, float bs, const void* c, flo
   libm_fma32_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), static_cast<const float*>(b), bs,
       static_cast<const float*>(c), cs, static_cast<float*>(out), n);
-  return int(cudaGetLastError());
-}
-
-int libm_endpoint_angles_launch(const void* ranges, const void* bearings, void* out, long long n,
-                                int r, void* stream) {
-  if (n < 1) return 0;
-  if (r < 2) return int(cudaErrorInvalidValue);
-  libm_endpoint_angles_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(ranges), static_cast<const float*>(bearings),
-      static_cast<float*>(out), n, r);
   return int(cudaGetLastError());
 }
 

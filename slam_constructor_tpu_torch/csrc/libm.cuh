@@ -335,4 +335,17 @@ __device__ __forceinline__ float log1p(float x) {
 // correctly rounded, a subnormal reading as zero
 __device__ __forceinline__ float sqrt(float x) { return __fsqrt_rn(daz(x)); }
 
+// --- poses: ops/geometry.py's plain versions, fused as the reference's jitted
+// code fuses them --------------------------------------------------------------
+
+// compose(a, b): apply delta b (in a's body frame) to pose a
+__device__ __forceinline__ void compose(float ax, float ay, float at, float bx, float by,
+                                        float bt, float out[3]) {
+  float s, c;
+  sincos(at, &s, &c);
+  out[0] = fma32(-s, by, fma32(c, bx, ax));
+  out[1] = fma32(c, by, fma32(s, bx, ay));
+  out[2] = wrap_angle(__fadd_rn(at, bt));
+}
+
 }  // namespace libm

@@ -325,14 +325,17 @@ m3rsm_match_kernel(const Pyramid pyr, const Search s) {
     const float ox = s.origin[2 * b + 0], oy = s.origin[2 * b + 1];
     if (s.window > 0) {
       const int side = s.window, step = 1 << s.levels;
-      const int cx = static_cast<int>(floorf((px - ox) / s.scale));
-      const int cy = static_cast<int>(floorf((py - oy) / s.scale));
+      // the jitted reference's product with the reciprocal, and its window
+      // origin one multiply-add (kernels.m3rsm_window_cells)
+      const float inv = overlap::inv_scale(s.scale);
+      const int cx = static_cast<int>(floorf((px - ox) * inv));
+      const int cy = static_cast<int>(floorf((py - oy) * inv));
       const int c0w = min(max(cx - side / 2, 0), s.map_w - side) / step * step;
       const int r0w = min(max(cy - side / 2, 0), s.map_h - side) / step * step;
       s_corner[0] = r0w;
       s_corner[1] = c0w;
-      s_origin[0] = ox + static_cast<float>(c0w) * s.scale;
-      s_origin[1] = oy + static_cast<float>(r0w) * s.scale;
+      s_origin[0] = libm::fma32(static_cast<float>(c0w), s.scale, ox);
+      s_origin[1] = libm::fma32(static_cast<float>(r0w), s.scale, oy);
     } else {
       s_corner[0] = s_corner[1] = 0;
       s_origin[0] = ox;
@@ -365,14 +368,14 @@ m3rsm_match_kernel(const Pyramid pyr, const Search s) {
   const int row0 = s_corner[0], col0 = s_corner[1];
   {
     const float wx = s_origin[0], wy = s_origin[1];
+    const float inv = overlap::inv_scale(s.scale);
     for (int i = threadIdx.x; i < s.n_t * s.r; i += kThreads) {
       const int th = i / s.r, beam = i - th * s.r;
-      const float c = s_trig[th], sn = s_trig[s.n_t + th];
-      const float qx = s_q[2 * beam + 0], qy = s_q[2 * beam + 1];
-      const float ex = (px + c * qx) - sn * qy;
-      const float ey = (py + sn * qx) + c * qy;
-      s_c0[2 * i + 0] = static_cast<int>(floorf((ey - wy) / s.scale));
-      s_c0[2 * i + 1] = static_cast<int>(floorf((ex - wx) / s.scale));
+      const overlap::Pose at{px, py, s_trig[th], s_trig[s.n_t + th]};
+      float ex, ey;
+      overlap::endpoint_cells(at, s_q[2 * beam + 0], s_q[2 * beam + 1], wx, wy, inv, ex, ey);
+      s_c0[2 * i + 0] = static_cast<int>(floorf(ey));
+      s_c0[2 * i + 1] = static_cast<int>(floorf(ex));
     }
   }
   if (threadIdx.x == 0) PROBE_STAMP(stamped, kProbeCells);

@@ -66,6 +66,14 @@
 //   candidate arithmetic is written op by op as the PyTorch loop does it,
 //   so a match gives the same bits as the match with one overlap_score
 //   launch a round, whatever B, P and the match's place in the grid.
+// - The single match of the tiny, viny and full paths takes the scan and,
+//   on tiny and viny, the state's pose and the odometry delta in place of
+//   pts, beam_w and the prior (kernels.mc_match_scan): each block computes
+//   the kept beams' endpoints (r cos b, r sin b with libm.cuh's sincos, a
+//   beam a thread) and weights (valid x the point weight) into its shared
+//   memory, and its thread 0 the prior compose(pose, odom) (libm::compose),
+//   the bits of libm.cu's libm_cossin and libm_pose: the step launches
+//   neither.
 // - pts and beam_w (12 B a beam) and all the match's noise (12 B a
 //   candidate and round) are copied once into each block's shared memory,
 //   with plain coalesced loads (4.3 KB and 9-12 KB on the single-match
@@ -211,7 +219,10 @@ mc_match_kernel(const float* __restrict__ occ, const unsigned char* __restrict__
                 int occ_stride, int map_h, int map_w, const long long* __restrict__ win_row,
                 const long long* __restrict__ win_col, int h, int w,
                 const float* __restrict__ pts, const float* __restrict__ beam_w, int r,
-                const float* __restrict__ origin, const float* __restrict__ init_pose,
+                const float* __restrict__ ranges, const float* __restrict__ bearings,
+                const unsigned char* __restrict__ valid, const float* __restrict__ point_w,
+                int n_beams, int stride, const float* __restrict__ origin,
+                const float* __restrict__ init_pose, const float* __restrict__ odom,
                 const float* __restrict__ noise, const uint32_t* __restrict__ key,
                 uint32_t* __restrict__ next_key, int fused, int rounds, int k, float scale,
                 float unknown, float sigma_xy, float sigma_theta, int bad_limit,
@@ -235,8 +246,6 @@ mc_match_kernel(const float* __restrict__ occ, const unsigned char* __restrict__
       return overlap::LdgPlane{occ + p * h * w, w};
     }
   }();
-  pts += p * 2 * r;
-  beam_w += p * r;
   origin += p * 2;
   init_pose += p * 3;
   if (noise != nullptr) noise += p * rounds * k * 3;
@@ -266,8 +275,25 @@ mc_match_kernel(const float* __restrict__ occ, const unsigned char* __restrict__
 
   const bool keyed = noise == nullptr && key != nullptr;  // the same in every block
   if (keyed) cluster_arrive_relaxed();  // this block has started: others may write to it
-  for (int i = threadIdx.x; i < 2 * r; i += kThreads) s_pts[i] = __ldg(pts + i);
-  for (int i = threadIdx.x; i < r; i += kThreads) s_bw[i] = __ldg(beam_w + i);
+  if (ranges != nullptr) {
+    // the scan's kept beams (every stride-th), as scoring.prepare_scan has
+    // them: the endpoint (r cos b, r sin b) with the reference's sincosf
+    // (libm_cossin's bits), the weight valid x the point weight
+    const size_t first = p * static_cast<size_t>(n_beams);
+    for (int j = threadIdx.x; j < r; j += kThreads) {
+      const size_t i = first + static_cast<size_t>(j) * stride;
+      float sn, cs;
+      libm::sincos(__ldg(bearings + i), &sn, &cs);
+      const float rg = __ldg(ranges + i);
+      s_pts[2 * j + 0] = __fmul_rn(rg, cs);
+      s_pts[2 * j + 1] = __fmul_rn(rg, sn);
+      const float v = __ldg(valid + i) ? 1.0f : 0.0f;
+      s_bw[j] = point_w != nullptr ? __fmul_rn(v, __ldg(point_w + i)) : v;
+    }
+  } else {
+    for (int i = threadIdx.x; i < 2 * r; i += kThreads) s_pts[i] = __ldg(pts + p * 2 * r + i);
+    for (int i = threadIdx.x; i < r; i += kThreads) s_bw[i] = __ldg(beam_w + p * r + i);
+  }
   if (noise != nullptr) {
     for (int i = threadIdx.x; i < rounds * k * 3; i += kThreads) s_noise[i] = __ldg(noise + i);
   } else if (keyed) {
@@ -310,9 +336,15 @@ mc_match_kernel(const float* __restrict__ occ, const unsigned char* __restrict__
     }
   }
   if (threadIdx.x == 0) {
-    st.pose[0] = __ldg(init_pose + 0);
-    st.pose[1] = __ldg(init_pose + 1);
-    st.pose[2] = __ldg(init_pose + 2);
+    if (odom != nullptr) {  // the prior: compose(pose, odom), libm_pose's bits
+      odom += p * 3;
+      libm::compose(__ldg(init_pose + 0), __ldg(init_pose + 1), __ldg(init_pose + 2),
+                    __ldg(odom + 0), __ldg(odom + 1), __ldg(odom + 2), st.pose);
+    } else {
+      st.pose[0] = __ldg(init_pose + 0);
+      st.pose[1] = __ldg(init_pose + 1);
+      st.pose[2] = __ldg(init_pose + 2);
+    }
     st.sigma[0] = sigma_xy;
     st.sigma[1] = sigma_xy;
     st.sigma[2] = sigma_theta;
@@ -451,8 +483,13 @@ Kernel kernel_for(int blocks) {
 // the h x w window whose first cell is (row[p], col[p]) (clamped into the
 // map) of map p: occ (a float every occ_stride, map_h x map_w cells a map)
 // where known (bool) holds, `unknown` elsewhere, read in place. It reads
-// pts[p] (r x 2), beam_w[p], origin[p] (the plane's or window's),
-// init_pose[p], noise[p] (rounds x k x 3; erf_inv draws with `fused`) or,
+// pts[p] (r x 2) and beam_w[p], or with ranges the scan (ranges, bearings,
+// valid, point_w or null: n_beams a match), whose every stride-th beam
+// gives the r endpoints and weights, computed here; origin[p] (the plane's
+// or window's),
+// init_pose[p] (with odom, the pose that odom[p] moves: the prior is
+// compose(init_pose[p], odom[p]) as libm_pose computes it), noise[p]
+// (rounds x k x 3; erf_inv draws with `fused`) or,
 // with noise == nullptr, draws erf_inv values from key[p] (two words; with
 // next_key, from split(key[p])[1], and writes split(key[p])[0] to
 // next_key[p]) and writes pose_out[p],
@@ -466,8 +503,11 @@ Kernel kernel_for(int blocks) {
 extern "C" int mc_match_launch(const float* occ, const unsigned char* known, int occ_stride,
                                int n_p, int map_h, int map_w, const long long* row,
                                const long long* col, int h, int w, const float* pts,
-                               const float* beam_w, int r, const float* origin,
-                               const float* init_pose, const float* noise,
+                               const float* beam_w, int r, const float* ranges,
+                               const float* bearings, const unsigned char* valid,
+                               const float* point_w, int n_beams, int stride,
+                               const float* origin, const float* init_pose,
+                               const float* odom, const float* noise,
                                const uint32_t* key, uint32_t* next_key, int fused,
                                int rounds, int k, float scale, float unknown, float sigma_xy,
                                float sigma_theta, int bad_limit, int reducer, int radius,
@@ -477,6 +517,9 @@ extern "C" int mc_match_launch(const float* occ, const unsigned char* known, int
   overlap::Reducer red;
   if (!overlap::make_reducer(reducer, radius, extent, &red) || n_p <= 0 || n_p > 65535 || h <= 0 || w <= 0 || h > map_h || w > map_w || r < 0 ||
       rounds < 0 || k < 0 || (rounds > 0 && k == 0) || occ_stride < 1 ||
+      (ranges != nullptr ? (bearings == nullptr || valid == nullptr || stride < 1 ||
+                            static_cast<long long>(r - 1) * stride >= n_beams)
+                         : (r > 0 && (pts == nullptr || beam_w == nullptr))) ||
       (noise != nullptr && key != nullptr) ||
       (noise == nullptr && key == nullptr && rounds > 0 && k > 0) ||
       (window ? (row == nullptr || col == nullptr)
@@ -511,7 +554,8 @@ extern "C" int mc_match_launch(const float* occ, const unsigned char* known, int
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, occ, known, occ_stride, map_h, map_w, row, col, h, w, pts, beam_w, r,
-      origin, init_pose, noise, key, next_key, fused || key != nullptr, rounds, k, scale, unknown,
+      ranges, bearings, valid, point_w, n_beams, stride, origin, init_pose, odom, noise, key,
+      next_key, fused || key != nullptr, rounds, k, scale, unknown,
       sigma_xy, sigma_theta, bad_limit, red, pose_out, prob_out, trace_out);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

@@ -30,9 +30,10 @@
 //
 // Numerics: the sources that include this are built without
 // --use_fast_math and with --fmad=false, so each product and sum rounds on
-// its own, as the plain PyTorch twin's separate ops do. The arithmetic
-// order is the reference's: world = p + R(theta) pt (x = px + c qx - s qy),
-// minus the origin, then DIVIDED by scale (IEEE division, no reciprocal).
+// its own, as the plain PyTorch twin's separate ops do. An endpoint's cell
+// coordinates are the reference's jitted arithmetic (endpoint_cells(),
+// grid.endpoint_cells): the rotation fused into two multiply-adds a
+// coordinate, minus the origin, times the float32 reciprocal of the cell size.
 
 #pragma once
 
@@ -80,6 +81,20 @@ __device__ __forceinline__ AxisTaps axis_taps(float pos, int n, bool left = fals
 struct Pose {
   float x, y, c, s;
 };
+
+// 1 / scale rounded once: what XLA folds the reference's division by the
+// static cell size into (ROADMAP trap m).
+__device__ __forceinline__ float inv_scale(float scale) { return 1.0f / scale; }
+
+// The cell coordinates (x, y) of the endpoint (qx, qy), given in the sensor
+// frame, seen from `p`, on a plane whose lower-left corner is (ox, oy): the
+// reference's jitted (apply_pose(p, q) - origin) / scale, that is
+// (fma(-s, qy, fma(c, qx, px)) - ox) * inv (grid.endpoint_cells).
+__device__ __forceinline__ void endpoint_cells(const Pose& p, float qx, float qy, float ox,
+                                               float oy, float inv, float& x, float& y) {
+  x = (libm::fma32(-p.s, qy, libm::fma32(p.c, qx, p.x)) - ox) * inv;
+  y = (libm::fma32(p.c, qy, libm::fma32(p.s, qx, p.y)) - oy) * inv;
+}
 
 // The plane's cell (row, col) read through __ldg from v f32[h, w].
 struct LdgPlane {
@@ -150,10 +165,9 @@ template <class Plane>
 __device__ __forceinline__ float sample_at(const Plane& at, int h, int w, const Pose& p,
                                            float qx, float qy, float ox, float oy,
                                            float scale, float unknown) {
-  const float wx = (p.x + p.c * qx) - p.s * qy;
-  const float wy = (p.y + p.s * qx) + p.c * qy;
-  const float x = (wx - ox) / scale;
-  const float y = (wy - oy) / scale;
+  const float inv = inv_scale(scale);
+  float x, y;
+  endpoint_cells(p, qx, qy, ox, oy, inv, x, y);
   return tap_value(read_taps(at, h, w, x, y), unknown);
 }
 
@@ -176,21 +190,21 @@ __device__ __forceinline__ float tap_dy(const Taps& t, float unknown) {
 
 // sample_at() and its gradient with respect to the pose (gx, gy, gth): the
 // value is bilinear in (x, y) (tap_dx, tap_dy), then the chain to the pose:
-// d(x, y)/d(px, py) = 1 / scale and d(wx, wy)/dtheta = (-s qx - c qy,
-// c qx - s qy). The value is sample_at's bits. Where a coordinate sits on
-// a cell's centre (a tap changes) the derivative is the mean of its two
-// sides', 0.5 dR + 0.5 dL, as the reference's jax.grad gives it (its max
-// and min split a tie evenly); the plain twin halves and adds the two
-// sides' taps likewise.
+// d(x, y)/d(px, py) = inv_scale(scale), the reciprocal the value multiplies
+// by (the reference's jax.grad of the product), and d(wx, wy)/dtheta =
+// (-s qx - c qy, c qx - s qy). The value is sample_at's bits. Where a
+// coordinate sits on a cell's centre (a tap changes) the derivative is the
+// mean of its two sides', 0.5 dR + 0.5 dL, as the reference's jax.grad
+// gives it (its max and min split a tie evenly); the plain twin halves and
+// adds the two sides' taps likewise.
 template <class Plane>
 __device__ __forceinline__ float sample_grad_at(const Plane& at, int h, int w, const Pose& p,
                                                 float qx, float qy, float ox, float oy,
                                                 float scale, float unknown, float& gx,
                                                 float& gy, float& gth) {
-  const float wx = (p.x + p.c * qx) - p.s * qy;
-  const float wy = (p.y + p.s * qx) + p.c * qy;
-  const float x = (wx - ox) / scale;
-  const float y = (wy - oy) / scale;
+  const float inv = inv_scale(scale);
+  float x, y;
+  endpoint_cells(p, qx, qy, ox, oy, inv, x, y);
   const Taps t = read_taps(at, h, w, x, y);
   float dx = tap_dx(t, unknown);
   float dy = tap_dy(t, unknown);
@@ -202,9 +216,9 @@ __device__ __forceinline__ float sample_grad_at(const Plane& at, int h, int w, c
     dx = 0.5f * dx + 0.5f * tap_dx(l, unknown);
     dy = 0.5f * dy + 0.5f * tap_dy(l, unknown);
   }
-  gx = dx / scale;
-  gy = dy / scale;
-  gth = (dx * (-p.s * qx - p.c * qy) + dy * (p.c * qx - p.s * qy)) / scale;
+  gx = dx * inv;
+  gy = dy * inv;
+  gth = (dx * (-p.s * qx - p.c * qy) + dy * (p.c * qx - p.s * qy)) * inv;
   return tap_value(t, unknown);
 }
 
@@ -242,10 +256,9 @@ template <class Plane>
 __device__ __forceinline__ float reduce_at(const Reducer& red, const Plane& at, int h, int w,
                                            const Pose& p, float qx, float qy, float ox,
                                            float oy, float scale, float unknown) {
-  const float wx = (p.x + p.c * qx) - p.s * qy;
-  const float wy = (p.y + p.s * qx) + p.c * qy;
-  const float x = (wx - ox) / scale;
-  const float y = (wy - oy) / scale;
+  const float inv = inv_scale(scale);
+  float x, y;
+  endpoint_cells(p, qx, qy, ox, oy, inv, x, y);
   const float fx = floorf(x);
   const float fy = floorf(y);
   if (red.kind == kObstacle) return cell_or_unknown(at, h, w, fy, fx, unknown);
@@ -318,10 +331,9 @@ __device__ __forceinline__ float reduce_grad_at(const Reducer& red, const Plane&
   gy = 0.0f;
   gth = 0.0f;
   if (red.kind != kOverlap) return reduce_at(red, at, h, w, p, qx, qy, ox, oy, scale, unknown);
-  const float wx = (p.x + p.c * qx) - p.s * qy;
-  const float wy = (p.y + p.s * qx) + p.c * qy;
-  const float x = (wx - ox) / scale;
-  const float y = (wy - oy) / scale;
+  const float inv = inv_scale(scale);
+  float x, y;
+  endpoint_cells(p, qx, qy, ox, oy, inv, x, y);
   const float fx = floorf(x);
   const float fy = floorf(y);
   const int n = red.radius;
@@ -360,9 +372,9 @@ __device__ __forceinline__ float reduce_grad_at(const Reducer& red, const Plane&
     dx = (dnum_x - val * dw_x) / den;
     dy = (dnum_y - val * dw_y) / den;
   }
-  gx = dx / scale;
-  gy = dy / scale;
-  gth = (dx * (-p.s * qx - p.c * qy) + dy * (p.c * qx - p.s * qy)) / scale;
+  gx = dx * inv;
+  gy = dy * inv;
+  gth = (dx * (-p.s * qx - p.c * qy) + dy * (p.c * qx - p.s * qy)) * inv;
   return val;
 }
 

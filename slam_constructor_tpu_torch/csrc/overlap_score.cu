@@ -152,8 +152,9 @@ __device__ __forceinline__ void beam_terms(const Scan<Plane>& s, const overlap::
   if (bw == 0.0f) return;
   const float2 q = __ldg(reinterpret_cast<const float2*>(s.pts) + i);
   if constexpr (kPartial) {
-    const float wy = (p.y + p.s * q.x) + p.c * q.y;
-    const float fy = floorf((wy - s.oy) / s.scale);
+    float x, y;
+    overlap::endpoint_cells(p, q.x, q.y, s.ox, s.oy, overlap::inv_scale(s.scale), x, y);
+    const float fy = floorf(y);
     const float own = fy >= 0.0f ? fminf(fy, static_cast<float>(s.h - 1)) : 0.0f;
     if (!(own >= static_cast<float>(s.row0) && own < static_cast<float>(s.row1))) return;
   }
@@ -185,11 +186,12 @@ __device__ __forceinline__ void bilinear_round(const Scan<Plane>& s, const overl
     q[j] = in ? __ldg(reinterpret_cast<const float2*>(s.pts) + i) : make_float2(0.0f, 0.0f);
   }
   overlap::Taps t[4];
+  const float inv = overlap::inv_scale(s.scale);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    const float wx = (p.x + p.c * q[j].x) - p.s * q[j].y;
-    const float wy = (p.y + p.s * q[j].x) + p.c * q[j].y;
-    t[j] = overlap::read_taps(s.at, s.h, s.w, (wx - s.ox) / s.scale, (wy - s.oy) / s.scale);
+    float x, y;
+    overlap::endpoint_cells(p, q[j].x, q[j].y, s.ox, s.oy, inv, x, y);
+    t[j] = overlap::read_taps(s.at, s.h, s.w, x, y);
   }
 #pragma unroll
   for (int j = 0; j < 4; ++j) {

@@ -81,7 +81,7 @@
 // product and sum rounds on its own, as the twin's separate PyTorch ops do,
 // in the twin's order; a sample's cell is a product with the float32
 // reciprocal of the cell size (grid.cell_coord: the reference's jitted
-// form), the window corners IEEE divisions (grid.div_scale), the
+// form), the window corners too (grid.window_corner), the
 // directions the reference's cosf/sinf of pose[2] + bearing (libm.cuh), the
 // TBM powers exp(k log(max(base, 1e-9))) with XLA's exp and log (libm.cuh),
 // BayesBase's powf(1 - q, w), the
@@ -194,8 +194,8 @@ struct Insert {
 };
 
 // Map m's window: its first cell and its world origin. grid.window_corner's
-// arithmetic: floor((pose - origin) / scale) less half the window, clamped
-// into the map; the window's origin origin + [col, row] * scale.
+// arithmetic: floor((pose - origin) * (1 / scale)) less half the window,
+// clamped into the map; the window's origin origin + [col, row] * scale.
 struct Corner {
   long long row, col;
   float ox, oy;
@@ -204,8 +204,8 @@ struct Corner {
 __device__ __forceinline__ Corner corner_of(const Insert& s, int m) {
   const float mx = __ldg(s.origin + 2 * m), my = __ldg(s.origin + 2 * m + 1);
   if (!s.windowed) return {0, 0, mx, my};
-  const float cx = floorf((__ldg(s.pose + 3 * m) - mx) / s.scale);
-  const float cy = floorf((__ldg(s.pose + 3 * m + 1) - my) / s.scale);
+  const float cx = floorf(__fmul_rn(__ldg(s.pose + 3 * m) - mx, s.inv_scale));
+  const float cy = floorf(__fmul_rn(__ldg(s.pose + 3 * m + 1) - my, s.inv_scale));
   const long long col = min(max(static_cast<long long>(cx) - s.sw / 2, 0ll),
                             static_cast<long long>(s.w - s.sw));
   const long long row = min(max(static_cast<long long>(cy) - s.sh / 2, 0ll),

@@ -37,7 +37,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import math
 from typing import Any
 
 import torch
@@ -46,12 +45,12 @@ from ..device import resolve_device
 from ..ops import blockmap
 from ..ops import cells as cellslib
 from ..ops import grid as gridlib
-from ..ops import kernels, libm, prng
+from ..ops import kernels, prng
 from ..ops import m3rsm as m3rsmlib
 from ..ops import matchers as matcherslib
 from ..ops import raycast, scoring
 from ..ops.geometry import apply_pose, compose
-from ..ops.scan import LaserScan, angle_histogram, endpoint_angles, scan_points
+from ..ops.scan import LaserScan, scan_points
 
 Tensor = torch.Tensor
 
@@ -133,7 +132,9 @@ def _refresh_pyramid(cfg: EngineConfig, gm, pose: Tensor, pyramid: tuple, gate: 
     size = m3rsmlib.pyramid_refresh_size(bbox, levels, min(h, w))
     if h % step or w % step or size >= min(h, w):
         return m3rsmlib.build_pyramid(view, levels, unknown)
-    center = gridlib.world_to_cell(gm, pose[None, :2])[0]
+    # the jitted reference's world_to_cell: a product with the reciprocal
+    rel = gridlib.cell_coord(pose[:2] - gm.origin, gm.scale)
+    center = torch.floor(rel.flip(-1)).to(torch.int64)  # (row, col)
     return m3rsmlib.update_pyramid(pyramid, view, unknown, center, size, gate)
 
 
@@ -173,19 +174,11 @@ def _point_weights(cfg: EngineConfig, scan: LaserScan) -> Tensor | None:
     """vinySLAM's degeneracy weighting: points on over-represented wall
     directions (long straight walls) are down-weighted. A point's direction
     is its local wall tangent, the direction of the consecutive-endpoint
-    difference, not its bearing."""
+    difference, not its bearing. One launch of ``kernels.beam_weights`` on
+    the card; its plain version ``scan.point_weights_ref`` elsewhere."""
     if not cfg.use_angle_histogram:
         return None
-    hist = angle_histogram(scan)
-    n_bins = hist.shape[0]
-    tangent = endpoint_angles(scan)  # [R-1]
-    tangent = torch.cat([tangent, tangent[-1:]])  # [R]
-    bins = torch.clamp(
-        torch.floor((tangent + math.pi) / (2 * math.pi) * n_bins), 0, n_bins - 1
-    ).to(torch.int64)
-    # hist is normalized; hist * n_bins == 1 for a uniform direction spread
-    # (the reference's code fuses the multiply-add)
-    return 1.0 / libm.fma32(hist[bins], float(n_bins), 1.0)
+    return kernels.beam_weights(scan.ranges, scan.bearings, scan.valid)
 
 
 def _refine_cfg(cfg: EngineConfig):
@@ -280,7 +273,6 @@ def slam_step(
     prior, and the insert allocates tiles in the pool.
     """
     _, match_fn = matcherslib.MATCHERS[cfg.matcher]
-    prior = compose(state.pose, odom_delta)
     pw = _point_weights(cfg, scan)
     keyed = noise is None and keyed_match(cfg)
     if keyed:  # the match draws from the step's key and returns the next one
@@ -288,6 +280,7 @@ def slam_step(
     else:
         (key, noise, refine_noise), draws = draw_step(cfg, state.key, noise), {}
     if cfg.map_storage == "tiled":
+        prior = compose(state.pose, odom_delta)
         window = blockmap.extract_window(
             state.gm, cfg.cell_model, prior[:2], cfg.window_tiles, cfg.window_tiles)
         view = scoring.MapView.of(window, cfg.cell_model)
@@ -303,11 +296,18 @@ def slam_step(
 
     view = scoring.MapView.of(state.gm, cfg.cell_model)
     pyramid = state.pyramid if _uses_pyramid(cfg) else ()
-    if cfg.match_window and not _uses_pyramid(cfg):
-        # one prior-centred window a match (M3RSM windows its own pyramid)
-        view = scoring.window_view(view, prior[:2], cfg.match_window)
     live = {"pyramid": pyramid} if pyramid else {}
-    res = match_fn(view, scan, prior, None, cfg.matcher_cfg, pw, noise, **live, **draws)
+    # one prior-centred window a match (M3RSM windows its own pyramid)
+    windowed = cfg.match_window and not _uses_pyramid(cfg)
+    if not windowed and cfg.matcher in matcherslib.ODOMETRY_MATCHERS:
+        # the match's launch composes the prior and takes the scan's points
+        res = match_fn(view, scan, state.pose, None, cfg.matcher_cfg, pw, noise,
+                       odom=odom_delta, **draws)
+    else:
+        prior = compose(state.pose, odom_delta)
+        if windowed:
+            view = scoring.window_view(view, prior[:2], cfg.match_window)
+        res = match_fn(view, scan, prior, None, cfg.matcher_cfg, pw, noise, **live, **draws)
     key = res.next_key if keyed else key
     res = _refine(cfg, view, scan, res, pw, refine_noise)
     do_insert = (res.prob >= cfg.min_insert_prob) | (state.step == 0)

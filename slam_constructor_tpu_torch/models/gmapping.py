@@ -157,6 +157,10 @@ class Draws:
     #: f32[P, rounds, batch, 3] a Monte-Carlo refine's normals; None: the
     #: match's (the reference refines with the match's key)
     refine: Tensor | None = None
+    #: uint32[P, 2] each particle's match key, from which a Monte-Carlo match
+    #: (and refine) draws its own numbers in K5's prologue where ``match``
+    #: (``refine``) is None: what :func:`draw` gives
+    match_key: Tensor | None = None
 
     def __getitem__(self, i) -> "Draws":
         return Draws(**{f.name: None if (v := getattr(self, f.name)) is None else v[i]
@@ -187,27 +191,25 @@ def draw_plan(cfg: GMappingConfig) -> tuple:
     ``normal(k_noise, (P, 3))``; ``split(k_match, P)``, a key a particle,
     which the improved proposal splits into the match's and the proposal's
     and splits again into the probes' and the sample's; the comb's
-    ``uniform(k_res, (), 0, 1/P)``). Each field's draw or None."""
+    ``uniform(k_res, (), 0, 1/P)``). Each field's draw or None. A
+    Monte-Carlo match or refine draws its numbers itself from its
+    particle's key (``match_key``, in K5's prologue), so the plan holds the
+    keys and no match normals."""
     p = cfg.n_particles
     each = prng.Each(p)
     improved = cfg.proposal == "improved"
     k_m = (2, each, 0) if improved else (2, each)
-
-    def mc(mcfg):
-        if not isinstance(mcfg, matcherslib.MonteCarloConfig):
-            return None
-        return matcherslib.noise_plan(mcfg, k_m)[0]
-
-    match = mc(cfg.matcher_cfg)
-    refine = mc(_refine_cfg(cfg)[0]) if cfg.refine_matcher is not None else None
+    slots = (cfg.matcher_cfg,) + ((_refine_cfg(cfg)[0],) if cfg.refine_matcher else ())
+    keyed = any(isinstance(c, matcherslib.MonteCarloConfig) for c in slots)
     return (
-        prng.Draw((1,), "normal", (p, 3)),
+        # the proposal's normals before their multiply by sqrt(2) (propose)
+        prng.Draw((1,), "erfinv", (p, 3)),
         resample.offset_draw(p, (3,)),
-        match,
+        None,
         prng.Draw((2, each, 1, 0), "normal", (cfg.proposal_samples, 3)) if improved else None,
         prng.Draw((2, each, 1, 1), "normal", (3,)) if improved else None,
-        # None: the refine takes the match's normals (the same key, shape)
-        refine if refine is not None and refine != match else None,
+        None,
+        prng.Draw(k_m, "key") if keyed else None,
     )
 
 
@@ -229,7 +231,8 @@ def draw(cfg: GMappingConfig, key: Tensor) -> tuple[Tensor, Draws]:
     ``kernels.prng_draws`` on the key's device -> (next key, Draws)."""
     plan, fields = _step_plan(cfg)
     out = kernels.prng_draws(key, plan)
-    return out[0], Draws(*(None if i is None else out[i] for i in fields))
+    d = Draws(*(None if i is None else out[i] for i in fields))
+    return out[0], dataclasses.replace(d, proposal=kernels.ErfInvDraws(d.proposal))
 
 
 @functools.lru_cache(maxsize=64)
@@ -327,12 +330,13 @@ def _refine_cfg(cfg: GMappingConfig):
 def _refine_rbpf(cfg: GMappingConfig, view, scans, res, draws: Draws):
     """The optional second pass of every particle, from the first's pose;
     a Monte-Carlo refine takes the match's normals unless ``draws.refine``
-    holds its own."""
+    holds its own, or draws from the match's keys when neither is handed in."""
     if cfg.refine_matcher is None:
         return res
     rcfg, rf = _refine_cfg(cfg)
     noise = draws.refine if draws.refine is not None else draws.match
-    return rf(view, scans, res.pose, None, rcfg, None, noise)
+    return rf(view, scans, res.pose, draws.match_key if noise is None else None, rcfg, None,
+              noise)
 
 
 def match_view(cfg: GMappingConfig, gm: gridlib.GridMap, priors: Tensor):
@@ -358,7 +362,8 @@ def match_particles(cfg: GMappingConfig, view, scans, priors, centers, sigma, dr
     a particle, ``scans`` the scan once a particle; ``centers`` are the
     noiseless motion centres and ``sigma`` the motion model's spread."""
     _, match_fn = matcherslib.MATCHERS[cfg.matcher]
-    res = match_fn(view, scans, priors, None, cfg.matcher_cfg, None, draws.match)
+    key = draws.match_key if draws.match is None else None
+    res = match_fn(view, scans, priors, key, cfg.matcher_cfg, None, draws.match)
     res = _refine_rbpf(cfg, view, scans, res, draws)
     res = _gate_match(cfg, view, scans, res, priors)
     if cfg.proposal == "improved":
@@ -366,17 +371,25 @@ def match_particles(cfg: GMappingConfig, view, scans, priors, centers, sigma, dr
     return res.pose, cfg.weight_gamma * libm.log(res.prob + 1e-6, inplace=True)
 
 
-def propose(cfg: GMappingConfig, poses: Tensor, odom_delta: Tensor, noise: Tensor):
+def propose(cfg: GMappingConfig, poses: Tensor, odom_delta: Tensor, noise):
     """The proposal of the particles at ``poses`` f32[N, 3]: odometry plus
     motion noise, ``noise`` f32[N, 3] their standard normals scaled by the
-    motion model's spread. Returns (the spread sigma f32[3], the priors
-    f32[N, 3], the noiseless motion centres f32[N, 3], which the improved
-    proposal needs)."""
+    motion model's spread, or a ``kernels.ErfInvDraws`` of the reference's
+    ``erf_inv(u)`` values (what :func:`draw` gives): its jitted step forms
+    ``odom + normal * sigma`` as one fused multiply-add of those and
+    ``sqrt(2) * sigma``, and so does this. Returns (the spread sigma
+    f32[3], the priors f32[N, 3], the noiseless motion centres f32[N, 3],
+    which the improved proposal needs)."""
     dev = poses.device
     base = _vec3(cfg.noise_xy, cfg.noise_xy, cfg.noise_theta, dev)
     alpha = _vec3(cfg.alpha_xy, cfg.alpha_xy, cfg.alpha_theta, dev)
     sigma = base + alpha * torch.abs(odom_delta)
-    priors = compose(poses, odom_delta[None, :] + noise * sigma)
+    if isinstance(noise, kernels.ErfInvDraws):
+        step = libm.fma32(noise.values, sigma * kernels.key_sigma(1.0),
+                          odom_delta.expand(noise.values.shape))
+    else:
+        step = odom_delta[None, :] + noise * sigma
+    priors = compose(poses, step)
     centers = compose(poses, odom_delta.expand(poses.shape[0], 3))
     return sigma, priors, centers
 

@@ -39,6 +39,7 @@ import torch
 
 from ..device import constant
 from . import grid as gridlib
+from . import libm
 from .cells import init_cell
 
 Tensor = torch.Tensor
@@ -174,8 +175,8 @@ def gather_window(table: Tensor, pool: Tensor, model, origin: Tensor, scale: flo
     n, b = pool.shape[0], pool.shape[1]
     th, tw = table.shape[-2:]
     dev = table.device
-    rel = gridlib.div_scale(center - origin, scale)
-    ct = torch.floor(rel).to(torch.int64)  # (col, row)
+    # the reference's jitted world_to_cell: a product with the reciprocal
+    ct = torch.floor(gridlib.cell_coord(center - origin, scale)).to(torch.int64)  # (col, row)
     t0r = torch.clamp(ct[..., 1] // b - tiles_h // 2, 0, max(th - tiles_h, 0))
     t0c = torch.clamp(ct[..., 0] // b - tiles_w // 2, 0, max(tw - tiles_w, 0))
     # a window wider than the table repeats its last tile, as the
@@ -195,7 +196,9 @@ def gather_window(table: Tensor, pool: Tensor, model, origin: Tensor, scale: flo
                          cell)  # [..., tiles_h, tiles_w, B, B, C]
     lead = blocks.shape[:-5]
     dense = blocks.transpose(-4, -3).reshape(*lead, tiles_h * b, tiles_w * b, -1)
-    w_origin = origin + torch.stack([t0c, t0r], dim=-1).to(torch.float32) * (b * scale)
+    # one multiply-add, as the jitted reference fuses it
+    w_origin = libm.fma32_plain(torch.stack([t0c, t0r], dim=-1).to(torch.float32), b * scale,
+                                origin)
     return gridlib.GridMap(cells=dense, origin=w_origin, scale=scale)
 
 

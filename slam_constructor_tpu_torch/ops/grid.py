@@ -22,6 +22,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import libm
+
 Tensor = torch.Tensor
 
 #: channel index of the accumulated observation weight
@@ -87,12 +89,34 @@ def div_scale(x: Tensor, scale: float) -> Tensor:
     return x / torch.full((), scale, dtype=x.dtype, device=x.device)
 
 
+def inv_scale(scale: float) -> float:
+    """The float32 reciprocal of the cell size, ``f32(1) / f32(scale)``: what
+    XLA folds a division by the constant into."""
+    return float(np.float32(1.0) / np.float32(scale))
+
+
 def cell_coord(x: Tensor, scale: float) -> Tensor:
     """``x / scale`` as the reference's jitted code computes a division by
     the constant cell size: a product with its float32 reciprocal (ROADMAP
-    trap m). The insert's sample cells take it (``raycast``, K3 and the pool
-    kernels alike); host events and the scores divide (:func:`div_scale`)."""
-    return x * float(np.float32(1.0) / np.float32(scale))
+    trap m). The insert's sample cells, the scores' endpoints and the window
+    corners take it (the kernels alike); host events, which the reference
+    runs on numpy or eagerly, divide (:func:`div_scale`)."""
+    return x * inv_scale(scale)
+
+
+def endpoint_cells(px: Tensor, py: Tensor, c: Tensor, s: Tensor, qx: Tensor, qy: Tensor,
+                   ox: Tensor, oy: Tensor, scale: float) -> tuple[Tensor, Tensor]:
+    """The cell coordinates (x, y) of sensor-frame endpoints (qx, qy) seen
+    from a pose at (px, py) with heading cosine ``c`` and sine ``s``, on a
+    plane whose lower-left corner is (ox, oy): the reference's jitted
+    ``(apply_pose(pose, pts) - origin) / scale`` (``scoring.score_poses``,
+    ``m3rsm.m3rsm_match``), where XLA fuses the rotation into two multiply-adds
+    a coordinate and multiplies by the reciprocal of the static cell size.
+    Every scoring kernel computes it so (``csrc/overlap_sample.cuh``
+    ``endpoint_cells``). The arguments broadcast."""
+    x = libm.fma32(-s, qy, libm.fma32(c, qx, px))
+    y = libm.fma32(c, qy, libm.fma32(s, qx, py))
+    return cell_coord(x - ox, scale), cell_coord(y - oy, scale)
 
 
 def world_to_cell(gm: GridMap, pts: Tensor) -> Tensor:
@@ -145,11 +169,12 @@ def window_corner(origin: Tensor, center_xy: Tensor, scale: float, sh: int, sw: 
     f32[2]. With a leading map dimension (``origin``, ``center_xy``
     f32[P, 2]) each map has its own: row, col i64[P], origin f32[P, 2].
 
-    The reference's arithmetic (``scoring.window_view``, the RBPF's insert
-    window): ``floor((center - origin) / scale)`` less half the window, the
-    window's origin ``origin + [col, row] * scale`` (``div_scale``'s
-    division). Nothing is read on the host."""
-    rel = div_scale(center_xy - origin, scale)
+    The reference's jitted arithmetic (``scoring.window_view``, the RBPF's
+    insert window): ``floor((center - origin) / scale)`` less half the
+    window, the division a product with the reciprocal (:func:`cell_coord`),
+    the window's origin ``origin + [col, row] * scale`` (not fused). Nothing
+    is read on the host."""
+    rel = cell_coord(center_xy - origin, scale)
     cell = torch.floor(rel).to(torch.int64)
     col = torch.clamp(cell[..., 0] - sw // 2, 0, w - sw)
     row = torch.clamp(cell[..., 1] - sh // 2, 0, h - sh)

@@ -136,7 +136,7 @@ _LAUNCHES = dict.fromkeys(
      "gradient_refine",
      "hill_climb", "mc_match", "mc_match_batched", "polar_free_plane", "m3rsm_pyramid",
      "m3rsm_level", "m3rsm_search", "scan_insert", "scan_planes", "pool_touched",
-     "pool_prepare", "pool_insert", "prng_draws"), 0
+     "pool_prepare", "pool_insert", "prng_draws", "beam_weights"), 0
 )
 
 #: how a beam's endpoint reads the plane, by the codes of
@@ -158,7 +158,7 @@ _REDUCER_LAUNCHES = dict.fromkeys(
 
 #: ``csrc/libm.cu``'s launches since the counts were last set to 0, by
 #: function (``"sin"``, ..., ``"cossin"``, ``"sincos"``, ``"atan2"``,
-#: ``"fma32"``, ``"pose/compose"``, ``"endpoint_angles"``, ``"rows/lse"``,
+#: ``"fma32"``, ``"pose/compose"``, ``"rows/lse"``,
 #: ...): every path launches it a number of times a scan that its sites
 #: set, so it is counted apart from :func:`launch_counts`
 _LIBM_LAUNCHES: dict[str, int] = {}
@@ -314,10 +314,8 @@ def _beam_probs_ref(v: Tensor, poses: Tensor, pts: Tensor, origin: Tensor, scale
     n_m, h, w = v.shape
     s, c = libm.sincos(poses[..., 2:3])
     qx, qy = pts[:, None, :, 0], pts[:, None, :, 1]  # [M, 1, R]
-    wx = poses[..., 0:1] + c * qx - s * qy  # [M, K, R]
-    wy = poses[..., 1:2] + s * qx + c * qy
-    x = gridlib.div_scale(wx - origin[:, 0, None, None], scale)  # the kernel's division
-    y = gridlib.div_scale(wy - origin[:, 1, None, None], scale)
+    x, y = gridlib.endpoint_cells(poses[..., 0:1], poses[..., 1:2], c, s, qx, qy,
+                                  origin[:, 0, None, None], origin[:, 1, None, None], scale)
     flat = v.reshape(n_m, -1)
     if reducer.kind != "bilinear":
         return _reduce_ref(flat, h, w, x, y, unknown, reducer)
@@ -601,8 +599,8 @@ def overlap_score_partial_ref(band: Tensor, g0: int, h: int, poses: Tensor, pts:
                         reducer)[0]  # [K, R]
     s, c = libm.sincos(poses[:, 2:3])
     qx, qy = pts[None, :, 0], pts[None, :, 1]
-    wy = poses[:, 1:2] + s * qx + c * qy
-    fy = torch.floor(gridlib.div_scale(wy - origin[1], scale))
+    fy = torch.floor(gridlib.endpoint_cells(poses[:, 0:1], poses[:, 1:2], c, s, qx, qy,
+                                            origin[0], origin[1], scale)[1])
     own_row = torch.where(fy >= 0, torch.clamp(fy, max=float(h - 1)), 0.0)
     own = (own_row >= row0) & (own_row < row1) & (beam_w[None, :] != 0)
     bw = torch.where(own, beam_w[None, :], 0.0)
@@ -1164,7 +1162,9 @@ def _mc_match_fn():
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # P, the maps' H and W
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # row, col, h, w
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # pts, beam_w, r
-        ctypes.c_void_p, ctypes.c_void_p,  # origin, init_pose
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # ranges, bearings, valid
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # point weights, beams, stride
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # origin, init_pose, odom
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # noise, key, next key
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # fused candidates, rounds, k
         ctypes.c_float, ctypes.c_float,  # scale, unknown
@@ -1203,14 +1203,17 @@ _MC_MAX_DYNAMIC_SHARED_BYTES = 227 * 1024 - (2 * 1024 * 4 + 64)
 
 def _mc_match_launch(name, lead, occ, window, pts, beam_w, origin, init_pose, noise, scale,
                      unknown, sigma_xy, sigma_theta, bad_rounds_before_anneal,
-                     reducer=BILINEAR):
+                     reducer=BILINEAR, scan=None, odom=None):
     """Checks the inputs against the leading shape ``lead`` (``()`` for one
     match, ``(P,)`` for P: occ f32[*lead, H, W], ..., noise f32[*lead,
     rounds, K, 3]), launches the kernel once and adds one to the count of
     ``name`` (and of its reducer); returns (pose f32[*lead, 3], prob f32[*lead], trace f32[*lead,
     rounds]). ``window`` is None when ``occ`` is the plane itself, else
     (known, row, col, sh, sw): the ``sh x sw`` window at ``row``, ``col``
-    of each map ``where(known, occ, unknown)``, read in place."""
+    of each map ``where(known, occ, unknown)``, read in place. ``scan``
+    (ranges, bearings, valid, point weights or None, stride) in place of
+    ``pts`` and ``beam_w`` has the kernel compute them; with ``odom`` the
+    kernel starts from ``compose(init_pose, odom)``."""
     dev = occ.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
@@ -1228,7 +1231,12 @@ def _mc_match_launch(name, lead, occ, window, pts, beam_w, origin, init_pose, no
     else:
         rounds, k = noise.shape[-3], noise.shape[-2]
     h, w = occ.shape[-2:]
-    r = pts.shape[-2]
+    if scan is not None:
+        ranges, bearings, valid, point_w, stride = scan
+        n_beams = ranges.shape[-1]
+        r = -(-n_beams // stride)
+    else:
+        r = pts.shape[-2]
     n_p = lead[0] if lead else 1
     if rounds > 0 and k < 1:
         raise ValueError(f"{name}: a round needs at least one candidate")
@@ -1243,17 +1251,28 @@ def _mc_match_launch(name, lead, occ, window, pts, beam_w, origin, init_pose, no
     if window is None:
         _check("plane", occ, (*lead, h, w), dev)
         known = row = col = None
-        stride, sh, sw = 1, h, w
+        cell_stride, sh, sw = 1, h, w
     else:
         known, row, col, sh, sw = window
         if not (1 <= sh <= h and 1 <= sw <= w):
             raise ValueError(f"{name}: a {sh} x {sw} window of a {h} x {w} map")
-        stride = _cell_stride(name, occ, dev)
+        cell_stride = _cell_stride(name, occ, dev)
         _check("known", known, (*lead, h, w), dev, torch.bool)
         _check("row", row, lead, dev, torch.int64)
         _check("col", col, lead, dev, torch.int64)
-    _check("pts", pts, (*lead, r, 2), dev)
-    _check("beam_w", beam_w, (*lead, r), dev)
+    if scan is None:
+        _check("pts", pts, (*lead, r, 2), dev)
+        _check("beam_w", beam_w, (*lead, r), dev)
+        ranges = bearings = valid = point_w = None
+        n_beams, stride = r, 1
+    else:
+        _check("ranges", ranges, (*lead, n_beams), dev)
+        _check("bearings", bearings, (*lead, n_beams), dev)
+        _check("valid", valid, (*lead, n_beams), dev, torch.bool)
+        if point_w is not None:
+            _check("point weights", point_w, (*lead, n_beams), dev)
+    if odom is not None:
+        _check("odom", odom, (*lead, 3), dev)
     _check("origin", origin, (*lead, 2), dev)
     _check("init_pose", init_pose, (*lead, 3), dev)
     if not keyed:
@@ -1271,8 +1290,9 @@ def _mc_match_launch(name, lead, occ, window, pts, beam_w, origin, init_pose, no
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
-            occ.data_ptr(), ptr(known), stride, n_p, h, w, ptr(row), ptr(col), sh, sw,
-            pts.data_ptr(), beam_w.data_ptr(), r, origin.data_ptr(), init_pose.data_ptr(),
+            occ.data_ptr(), ptr(known), cell_stride, n_p, h, w, ptr(row), ptr(col), sh, sw,
+            ptr(pts), ptr(beam_w), r, ptr(ranges), ptr(bearings), ptr(valid), ptr(point_w),
+            n_beams, stride, origin.data_ptr(), init_pose.data_ptr(), ptr(odom),
             None if keyed else noise.data_ptr(), noise.key.data_ptr() if keyed else None,
             ptr(next_key), int(fused), rounds, k, scale, unknown, sigma_xy, sigma_theta,
             bad_rounds_before_anneal, reducer.code, reducer.radius, reducer.extent,
@@ -1322,6 +1342,65 @@ def mc_match(
     if plane.device.type == "cpu":
         return mc_match_ref(*args)
     return _mc_match_launch("mc_match", (), plane, None, *args[1:])
+
+
+def scan_match_args(plane, ranges, bearings, valid, point_w, stride, origin, pose, odom,
+                     *rest) -> tuple:
+    """:func:`mc_match_scan`'s arguments as :func:`mc_match`'s: the prior
+    (``pose``, or ``geometry.compose(pose, odom)``) and the kept beams'
+    endpoints and weights (``scoring.prepare_scan``), by the package's
+    functions (on the card a ``libm`` launch each, with the bits the kernel
+    computes)."""
+    from . import geometry, scan as scanlib
+    keep = slice(None, None, stride)
+    pts = scanlib.scan_points(scanlib.LaserScan(ranges[keep], bearings[keep], valid[keep]))
+    beam_w = valid[keep].to(torch.float32)
+    if point_w is not None:
+        beam_w = beam_w * point_w[keep]
+    prior = pose if odom is None else geometry.compose(pose, odom)
+    return (plane, pts.contiguous(), beam_w.contiguous(), origin, prior, *rest)
+
+
+def mc_match_scan(
+    plane: Tensor,
+    ranges: Tensor,
+    bearings: Tensor,
+    valid: Tensor,
+    point_w: Tensor | None,
+    stride: int,
+    origin: Tensor,
+    pose: Tensor,
+    odom: Tensor | None,
+    noise,
+    scale: float,
+    unknown: float,
+    sigma_xy: float,
+    sigma_theta: float,
+    bad_rounds_before_anneal: int,
+    reducer: Reducer = BILINEAR,
+):
+    """:func:`mc_match` from the scan (ranges, bearings f32[R], valid
+    bool[R], the point weights f32[R] or None, every ``stride``-th beam
+    kept) in place of ``pts`` and ``beam_w``, and from ``pose`` f32[3] and
+    the odometry delta ``odom`` f32[3] in place of the prior (with ``odom``
+    None, ``pose`` is the prior): the kernel computes the kept beams'
+    endpoints and weights (``scoring.prepare_scan``) and the prior
+    ``geometry.compose(pose, odom)`` in its prologue, with the same
+    functions as ``csrc/libm.cu``, so the match has the bits of
+    :func:`mc_match` handed them, and the step launches nothing for them.
+
+    CPU tensors take the plain versions (the compose, the scan's points,
+    :func:`mc_match_ref`); CUDA tensors launch the kernel once and add one to
+    the ``mc_match`` count."""
+    args = (plane, ranges, bearings, valid, point_w, stride, origin, pose, odom, noise, scale,
+            unknown, sigma_xy, sigma_theta, bad_rounds_before_anneal, reducer)
+    if plane.device.type == "cpu":
+        return mc_match_ref(*scan_match_args(*args))
+    ranges, bearings, valid = (t.contiguous() for t in (ranges, bearings, valid))
+    point_w = None if point_w is None else point_w.contiguous()
+    return _mc_match_launch("mc_match", (), plane, None, None, None, origin, pose, noise, scale,
+                            unknown, sigma_xy, sigma_theta, bad_rounds_before_anneal, reducer,
+                            scan=(ranges, bearings, valid, point_w, stride), odom=odom)
 
 
 def mc_match_batched(
@@ -1417,6 +1496,54 @@ def mc_match_windows(
         raise ValueError(f"occ has shape {tuple(occ.shape)}, expected (P, H, W)")
     return _mc_match_launch("mc_match_batched", (occ.shape[0],), occ, (known, row, col, sh, sw),
                             *args[6:])
+
+
+# --- vinySLAM's beam weights ---------------------------------------------------
+
+
+@functools.cache
+def _beam_weights_fn():
+    fn = _build.load().beam_weights_launch
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # ranges..out
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # scans, beams, bins
+        ctypes.c_float, ctypes.c_float, ctypes.c_void_p,  # offset, factor, stream
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def beam_weights(ranges: Tensor, bearings: Tensor, valid: Tensor, n_bins: int = 36) -> Tensor:
+    """vinySLAM's beam weights f32[..., R] of scans (ranges, bearings
+    f32[..., R], valid bool[..., R], R >= 2): each beam's weight ``1 / (1 +
+    hist[bin] n_bins)`` from the normalised histogram of the scan's
+    consecutive-endpoint directions (``engine._point_weights``).
+
+    CPU tensors take the plain version ``scan.point_weights_ref``; CUDA
+    tensors launch ``csrc/beam_weights.cu`` once for all the scans (a block
+    a scan: the endpoint angles, the integer bins in shared memory, the
+    weights), with the plain version's bits, and add one to the
+    ``beam_weights`` count."""
+    if ranges.device.type == "cpu":
+        from . import scan as scanlib
+        return scanlib.point_weights_ref(scanlib.LaserScan(ranges, bearings, valid), n_bins)
+    from .scan import bin_factor
+    dev = ranges.device
+    lead, r = tuple(ranges.shape[:-1]), ranges.shape[-1]
+    ranges, bearings, valid = (t.contiguous() for t in (ranges, bearings, valid))
+    _check("ranges", ranges, (*lead, r), dev)
+    _check("bearings", bearings, (*lead, r), dev)
+    _check("valid", valid, (*lead, r), dev, torch.bool)
+    if r < 2 or not 1 <= n_bins <= 256:
+        raise ValueError(f"beam_weights: {r} beams and {n_bins} bins (>= 2 beams, <= 256 bins)")
+    out = torch.empty_like(ranges)
+    n = math.prod(lead)
+    fn = _beam_weights_fn()
+    _launch("beam_weights", dev, lambda stream: fn(
+        ranges.data_ptr(), bearings.data_ptr(), valid.data_ptr(), out.data_ptr(), n, r, n_bins,
+        float(np.float32(math.pi)), bin_factor(n_bins), stream))
+    _LAUNCHES["beam_weights"] += 1
+    return out
 
 
 # --- polar free-space fill ----------------------------------------------------
@@ -2307,7 +2434,8 @@ def _work_ints(p: int, n: int, n_bands: int) -> int:
 def _robot_tiles(poses: Tensor, origin: Tensor, scale: float, block: int, th: int,
                  tw: int) -> Tensor:
     """i64[P]: the tile that holds each pose, -1 off the table (the
-    kernel's arithmetic: an IEEE division, then floor)."""
+    kernel's arithmetic: an IEEE division, then floor). It only orders the
+    insert's work list, which the reference does not have."""
     rel = torch.floor(gridlib.div_scale(poses[:, :2] - origin, scale))
     col, row = rel[:, 0], rel[:, 1]
     on = (row >= 0) & (row < th * block) & (col >= 0) & (col < tw * block)
@@ -3271,12 +3399,14 @@ def m3rsm_window_cells(s: M3RSMSearch):
     poses = s.prior
     if s.window > 0:
         side = s.window
-        rel = (poses[:, :2] - origin) / torch.full_like(origin, s.scale)
-        cell = torch.floor(rel).to(torch.int32)
+        # the jitted reference multiplies by the reciprocal and fuses the
+        # window's origin into a multiply-add (ROADMAP trap m)
+        cell = torch.floor(gridlib.cell_coord(poses[:, :2] - origin, s.scale)).to(torch.int32)
         c0w = torch.clamp(cell[:, 0] - side // 2, 0, w0 - side) // step_top * step_top
         r0w = torch.clamp(cell[:, 1] - side // 2, 0, h0 - side) // step_top * step_top
         corner = torch.stack([r0w, c0w], dim=-1)
-        origin = origin + torch.stack([c0w, r0w], dim=-1).to(torch.float32) * s.scale
+        origin = libm.fma32_plain(torch.stack([c0w, r0w], dim=-1).to(torch.float32), s.scale,
+                                  origin)
         extent = (side, side)
     else:
         corner = torch.zeros((n_b, 2), dtype=torch.int32, device=poses.device)
@@ -3285,10 +3415,9 @@ def m3rsm_window_cells(s: M3RSMSearch):
     s_, c = libm.sincos(ang)
     c, s_ = c[..., None], s_[..., None]
     px, py = s.pts[:, None, :, 0], s.pts[:, None, :, 1]
-    ex = (poses[:, 0, None, None] + c * px) - s_ * py  # [B, T, R]
-    ey = (poses[:, 1, None, None] + s_ * px) + c * py
-    rel_x = gridlib.div_scale(ex - origin[:, 0, None, None], s.scale)
-    rel_y = gridlib.div_scale(ey - origin[:, 1, None, None], s.scale)
+    rel_x, rel_y = gridlib.endpoint_cells(  # [B, T, R]
+        poses[:, 0, None, None], poses[:, 1, None, None], c, s_, px, py,
+        origin[:, 0, None, None], origin[:, 1, None, None], s.scale)
     c0 = torch.stack([torch.floor(rel_y).to(torch.int32), torch.floor(rel_x).to(torch.int32)],
                      dim=-1).contiguous()
     return corner, extent, origin, c0
@@ -3591,7 +3720,6 @@ def _libm_fns():
                        ("libm_atan2_launch", [p, p, p, n, p]),
                        ("libm_fma32_launch", [p, p, f, p, f, p, n, p]),
                        ("libm_pose_launch", [i, p, p, p, n, p]),
-                       ("libm_endpoint_angles_launch", [p, p, p, n, i, p]),
                        ("libm_rows_launch", [i, p, p, p, p, i, i, p])):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = args, ctypes.c_int
@@ -3745,22 +3873,4 @@ def libm_pose(op: str, a: Tensor, b: Tensor | None = None) -> Tensor:
         code, a.data_ptr(), bs[0].data_ptr() if bs else None, out.data_ptr(),
         out.numel() // 3, stream))
     _count_libm(f"pose/{op}")
-    return out
-
-
-def libm_endpoint_angles(ranges: Tensor, bearings: Tensor) -> Tensor:
-    """``scan.endpoint_angles`` of scans ``[..., R]`` in one launch, bit for
-    bit with its plain version. A CPU tensor takes the plain version."""
-    from . import scan as scanlib
-    if ranges.device.type == "cpu":
-        return scanlib._endpoint_angles_ref(ranges, bearings)
-    if bearings.shape != ranges.shape:
-        bearings = bearings.expand(ranges.shape)
-    ranges, bearings = _libm_in("libm_endpoint_angles", ranges, bearings)
-    r = ranges.shape[-1]
-    out = torch.empty((*ranges.shape[:-1], r - 1), dtype=torch.float32, device=ranges.device)
-    fn = _libm_fns()["libm_endpoint_angles_launch"]
-    _launch("libm", ranges.device, lambda stream: fn(
-        ranges.data_ptr(), bearings.data_ptr(), out.data_ptr(), out.numel(), r, stream))
-    _count_libm("endpoint_angles")
     return out

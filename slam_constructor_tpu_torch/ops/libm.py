@@ -134,6 +134,12 @@ def fma32(a: Tensor, b, c) -> Tensor:
     return _fma32_ref(a, b, c)
 
 
+def fma32_plain(a: Tensor, b, c) -> Tensor:
+    """:func:`fma32`'s plain version on any device, with no launch of its
+    own: for the few values of an index computation (a window's origin)."""
+    return _fma32_ref(_f32(a), b, c)
+
+
 def _fma32_ref(a: Tensor, b, c) -> Tensor:
     b = _f32(b).double() if torch.is_tensor(b) else float(np.float32(b))
     c = _f32(c).double() if torch.is_tensor(c) else float(np.float32(c))

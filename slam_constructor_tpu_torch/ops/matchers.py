@@ -83,6 +83,7 @@ def monte_carlo_match(
     point_weights: Tensor | None = None,
     noise: Tensor | None = None,
     step_key: Tensor | None = None,
+    odom: Tensor | None = None,
 ) -> MatchResult:
     """Refine ``init_pose`` f32[3].
 
@@ -99,6 +100,13 @@ def monte_carlo_match(
     of their own. ``noise`` as an :class:`ErfInvDraws` hands in those
     ``erf_inv(u)`` values instead of normals (sigma times sqrt(2)), which
     gives the bits of the match that draws them itself.
+
+    With ``odom`` f32[3] (one map's view and one scan only: raises
+    otherwise), ``init_pose`` is the pose that the odometry delta moves and
+    the match starts from ``geometry.compose(init_pose, odom)``. On one
+    map's view the match's launch computes the scan's points and weights,
+    and with ``odom`` that prior, itself (``kernels.mc_match_scan``), with
+    the same bits.
 
     With a leading particle dimension on view, scan, prior, key and noise
     (view of P maps, scan [P, R], ``init_pose`` f32[P, 3], ``key`` [P, 2],
@@ -118,6 +126,19 @@ def monte_carlo_match(
     elif tuple(noise.shape) != shape:
         raise ValueError(f"noise {tuple(noise.shape)} is not (..., rounds, batch, 3) = {shape}")
     anneal = (cfg.sigma_xy, cfg.sigma_theta, cfg.bad_rounds_before_anneal)
+    single = isinstance(view, scoring.MapView) and view.occ.dim() == 2 and scan.ranges.dim() == 1
+    if odom is not None and not single:
+        raise ValueError("monte_carlo_match takes odom only on one map's view and one scan")
+    if single:
+        s = cfg.scoring
+        plane = torch.where(view.known, view.occ, s.unknown_prob).contiguous()
+        out = kernels.mc_match_scan(
+            plane, scan.ranges, scan.bearings, scan.valid, point_weights, s.stride,
+            view.origin.contiguous(), init_pose.contiguous(),
+            None if odom is None else odom.contiguous(),
+            _contiguous(noise), float(view.scale), float(s.unknown_prob), *anneal,
+            scoring.reducer_of(s))
+        return MatchResult(*out)
     if isinstance(view, scoring.WindowView):
         pts, beam_w = scoring.prepare_scan(scan, cfg.scoring, point_weights)
         out = kernels.mc_match_windows(
@@ -134,6 +155,11 @@ def monte_carlo_match(
         _contiguous(noise), prep.scale, prep.unknown, *anneal, prep.reducer,
     )
     return MatchResult(*out)
+
+
+#: the matchers that take the odometry delta (``odom``) on one map's view
+#: and compose the prior inside their launch
+ODOMETRY_MATCHERS = frozenset({"monte_carlo"})
 
 
 def _contiguous(noise):

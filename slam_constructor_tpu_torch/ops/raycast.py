@@ -349,6 +349,7 @@ def cast_rays(
     sn, cs = libm.sincos(angles)
     dirs = torch.stack([cs, sn], dim=-1)  # [R, 2]
     pts = pose[:2] + t[None, :, None] * dirs[:, None, :]  # [R, S, 2]
+    # divided: the reference's synthetic data casts its rays eagerly
     rel = gridlib.div_scale(pts - origin, scale)
     col = torch.floor(rel[..., 0]).to(torch.int64)
     row = torch.floor(rel[..., 1]).to(torch.int64)

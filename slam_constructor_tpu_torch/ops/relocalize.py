@@ -76,6 +76,7 @@ def endpoint_histograms(view: MapView, scan: scanlib.LaserScan, th: Tensor) -> T
     c, s = c[:, None], s[:, None]
     ex = c * pts[:, 0] - s * pts[:, 1]  # [T, R]
     ey = s * pts[:, 0] + c * pts[:, 1]
+    # divided: no reference path jits relocalize, and eagerly it divides
     col = torch.floor(gridlib.div_scale(ex, view.scale)).to(torch.int64) + w // 2
     row = torch.floor(gridlib.div_scale(ey, view.scale)).to(torch.int64) + h // 2
     ok = scan.valid & (row >= 0) & (row < h) & (col >= 0) & (col < w)

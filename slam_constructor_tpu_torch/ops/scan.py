@@ -7,6 +7,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from . import libm
@@ -78,24 +79,17 @@ def scan_points(scan: LaserScan) -> Tensor:
     return scan.ranges[..., None] * libm.cossin(scan.bearings)
 
 
-def _endpoint_angles_ref(ranges: Tensor, bearings: Tensor) -> Tensor:
-    s, c = libm.sincos(bearings)
-    x, y = ranges * c, ranges * s
-    dx = libm.fma32(ranges[..., 1:], c[..., 1:], -x[..., :-1])
-    dy = libm.fma32(ranges[..., 1:], s[..., 1:], -y[..., :-1])
-    return libm.atan2(dy, dx)
-
-
 def endpoint_angles(scan: LaserScan) -> Tensor:
     """The direction of each consecutive-endpoint difference ``f32[...,
     R - 1]`` in (-pi, pi]: ``atan2`` of ``scan_points`` differenced, each
     difference fused as the reference's jitted code fuses it (the later
-    endpoint's product, minus the earlier one rounded). One launch on the
-    card (``kernels.libm_endpoint_angles``)."""
-    if libm._on_card(scan.ranges):
-        from . import kernels
-        return kernels.libm_endpoint_angles(scan.ranges, scan.bearings)
-    return _endpoint_angles_ref(scan.ranges, scan.bearings)
+    endpoint's product, minus the earlier one rounded). On the card
+    ``kernels.beam_weights`` computes them inside its launch."""
+    s, c = libm.sincos(scan.bearings)
+    x, y = scan.ranges * c, scan.ranges * s
+    dx = libm.fma32(scan.ranges[..., 1:], c[..., 1:], -x[..., :-1])
+    dy = libm.fma32(scan.ranges[..., 1:], s[..., 1:], -y[..., :-1])
+    return libm.atan2(dy, dx)
 
 
 def subsample_mask(scan: LaserScan, stride: int) -> Tensor:
@@ -106,18 +100,47 @@ def subsample_mask(scan: LaserScan, stride: int) -> Tensor:
     return scan.valid & (idx % stride == 0)
 
 
+def bin_factor(n_bins: int) -> float:
+    """``f32(f32(1 / f32(2 pi)) * n_bins)``: the reference's jitted code folds
+    ``/ (2 * pi) * n_bins`` into one product with this constant."""
+    inv = np.float32(1.0) / np.float32(2 * math.pi)
+    return float(np.float32(inv * np.float32(n_bins)))
+
+
+def angle_bins(ang: Tensor, n_bins: int) -> Tensor:
+    """The histogram bin i64 of each angle in (-pi, pi]: ``floor((ang + pi)
+    / (2 pi) * n_bins)`` clamped into the bins, as the reference's jitted
+    code computes it (one product with :func:`bin_factor`; the same on
+    every device)."""
+    bins = torch.floor((ang + math.pi) * bin_factor(n_bins))
+    return torch.clamp(bins, 0, n_bins - 1).to(torch.int64)
+
+
 def angle_histogram(scan: LaserScan, n_bins: int = 36) -> Tensor:
     """Histogram of consecutive-endpoint direction angles (vinySLAM's scan
-    degeneracy feature): normalized bin weights ``f32[n_bins]``.
+    degeneracy feature): normalized bin weights ``f32[..., n_bins]``.
 
     The counts go through ``scatter_add_`` into a vector of fixed length
     (``bincount`` and ``histc`` read a maximum back to the host); they are
     integers, so the sums are exact in any order.
     """
     ang = endpoint_angles(scan)  # (-pi, pi]
-    ok = (scan.valid[1:] & scan.valid[:-1]).to(torch.float32)
-    bins = torch.floor((ang + math.pi) / (2 * math.pi) * n_bins).to(torch.int64)
-    bins = torch.clamp(bins, 0, n_bins - 1)
-    hist = torch.zeros((n_bins,), dtype=torch.float32, device=ang.device)
-    hist.scatter_add_(0, bins, ok)
-    return hist / torch.clamp(hist.sum(), min=1.0)
+    ok = (scan.valid[..., 1:] & scan.valid[..., :-1]).to(torch.float32)
+    hist = torch.zeros((*ang.shape[:-1], n_bins), dtype=torch.float32, device=ang.device)
+    hist.scatter_add_(-1, angle_bins(ang, n_bins), ok)
+    return hist / torch.clamp(hist.sum(-1, keepdim=True), min=1.0)
+
+
+def point_weights_ref(scan: LaserScan, n_bins: int = 36) -> Tensor:
+    """vinySLAM's beam weights f32[..., R], the plain version of
+    ``kernels.beam_weights`` (the reference's ``engine._point_weights``):
+    the :func:`angle_histogram` of the scan, each beam's local wall tangent
+    (its endpoint difference with the next beam; the last beam takes the
+    one before) binned, and the weight ``1 / (1 + hist[bin] n_bins)`` (the
+    reference's code fuses the multiply-add), which down-weights beams on
+    over-represented wall directions."""
+    hist = angle_histogram(scan, n_bins)
+    tangent = endpoint_angles(scan)  # [..., R - 1]
+    tangent = torch.cat([tangent, tangent[..., -1:]], dim=-1)
+    h = torch.gather(hist, -1, angle_bins(tangent, n_bins))
+    return torch.reciprocal(libm.fma32(h, float(n_bins), 1.0))

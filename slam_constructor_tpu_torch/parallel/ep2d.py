@@ -31,7 +31,7 @@ import torch
 from ..models import gmapping as gm_lib
 from ..ops import cow as cowlib
 from ..ops import grid as gridlib
-from ..ops import prng, resample, scoring
+from ..ops import libm, prng, resample, scoring
 from ..ops.cells import init_cell
 from . import ep_cow
 from . import mesh as meshlib
@@ -85,8 +85,8 @@ def _band_window_contrib(st: Ep2dMaps, model, center: Tensor, wt: int):
     thl, tw = bm.tables.shape[1:]
     th = st.tiles_h
     dev = center.device
-    rel = gridlib.div_scale(center - st.origin, bm.scale)
-    ct = torch.floor(rel).to(torch.int64)  # (col, row)
+    # the reference's jitted world_to_cell and window origin (blockmap's)
+    ct = torch.floor(gridlib.cell_coord(center - st.origin, bm.scale)).to(torch.int64)
     t0r = torch.clamp(ct[..., 1] // b - wt // 2, 0, max(th - wt, 0))
     t0c = torch.clamp(ct[..., 0] // b - wt // 2, 0, max(tw - wt, 0))
     tr = torch.clamp(t0r[:, None] + torch.arange(wt, device=dev), max=th - 1)
@@ -101,7 +101,8 @@ def _band_window_contrib(st: Ep2dMaps, model, center: Tensor, wt: int):
                          bm.pool[slots.clamp(0, n - 1)],
                          torch.where(owned, cell, torch.zeros_like(cell)))
     dense = blocks.transpose(-4, -3).reshape(blocks.shape[0], wt * b, wt * b, -1)
-    w_origin = st.origin + torch.stack([t0c, t0r], dim=-1).to(torch.float32) * (b * bm.scale)
+    w_origin = libm.fma32_plain(torch.stack([t0c, t0r], dim=-1).to(torch.float32), b * bm.scale,
+                          st.origin)
     return dense, w_origin
 
 

@@ -121,6 +121,11 @@ def test_scan_sample_cells(seq, estimator, blur):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, rtol=0)
 
 
+# jitted, as the reference's engine runs it: XLA multiplies by the cell
+# size's reciprocal and fuses the window's origin (ROADMAP trap m)
+_extract = jax.jit(jbm.extract_window, static_argnums=(1, 3, 4))
+
+
 @pytest.mark.parametrize("model", sorted(MODELS))
 def test_insert_scan_and_windows(seq, model):
     scans, _, gt = seq
@@ -137,7 +142,7 @@ def test_insert_scan_and_windows(seq, model):
     for center in ([0.3, -1.2], [-7.9, 7.9], [50.0, -50.0]):  # inside, a corner, clamped
         for th, tw in ((6, 6), (5, 9), (TILES + 2, 3)):
             got = tbm.extract_window(port, tm, torch.tensor(center), th, tw)
-            want = jbm.extract_window(ref, jm, jnp.asarray(center, jnp.float32), th, tw)
+            want = _extract(ref, jm, jnp.asarray(center, jnp.float32), th, tw)
             np.testing.assert_allclose(got.cells.numpy(), np.asarray(want.cells), atol=1e-6)
             np.testing.assert_array_equal(got.origin.numpy(), np.asarray(want.origin))
     np.testing.assert_allclose(tbm.occupancy_plane(port, tm).numpy(),

@@ -276,6 +276,34 @@ def test_step_from_reference_state_matches(run):
         np.testing.assert_array_equal(convert.key_to_numpy(st.key), after["key"])
 
 
+def test_step_from_its_key_matches_bit_for_bit(run):
+    """Every step from the reference's state with no draws handed in: the
+    port draws the step from the state's key as the jitted reference does
+    (the proposal's numbers and the particles' match keys in the step's one
+    ``prng_draws`` launch, each match's numbers from its key in K5's
+    prologue; each prior and candidate one fused multiply-add of
+    ``erf_inv(u)`` and ``sqrt(2) sigma``). With the
+    odometry proposal the matched poses equal the reference's bit for bit:
+    a round's winner could part only where scores summed in another order
+    (ROADMAP trap k) tie to within their rounding, which no step here
+    meets. The improved proposal samples from moments over its probes
+    (sums again): within ``POSE_TOL``."""
+    tcfg = run["tcfg"]
+    for i in range(N_SCANS):
+        before, after = run["trees"][i], run["trees"][i + 1]
+        st = convert.gmapping_state_from_numpy(before, "cpu")
+        st, idx = tgm.gmapping_step(tcfg, st, run["scans"][i], run["odom"][i])
+        np.testing.assert_array_equal(idx.numpy(), run["ancestors"][i])
+        if run["proposal"] == "odom":
+            np.testing.assert_array_equal(st.poses.numpy().view(np.uint32),
+                                          after["poses"].view(np.uint32), err_msg=str(i))
+        else:
+            assert pose_diff(st.poses.numpy(), after["poses"]) <= POSE_TOL, i
+        np.testing.assert_allclose(st.log_weights.numpy(), after["log_weights"], atol=LOGW_TOL,
+                                   rtol=0)
+        np.testing.assert_array_equal(convert.key_to_numpy(st.key), after["key"])
+
+
 def test_step_matches_on_windows_in_place(run, monkeypatch):
     """The odometry proposal's step matches every particle on its window
     read in place (``kernels.mc_match_windows``; nothing cuts a window

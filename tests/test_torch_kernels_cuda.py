@@ -69,6 +69,12 @@ latch or ``n_alloc``, the whole pool, owners, list; block 0's state in its
 shared memory or, for a pool too large for it, in device memory), and the
 insert from its list
 (the robot's tile in row bands) equals ``pool_insert_ordered``.
+``mc_match_scan`` (the single match from the scan and the odometry: the
+prior's compose and the scan's points in its prologue) equals ``mc_match``
+handed them (``scan_match_args``) bit for bit; ``beam_weights`` (viny's
+weights in one launch) equals its plain version ``scan.point_weights_ref``
+on the card and on the CPU bit for bit; K5 drawing each particle's numbers
+from its key equals K5 handed those draws bit for bit.
 """
 
 import dataclasses
@@ -419,6 +425,97 @@ def test_mc_match_kernel_equals_one_launch_a_round(scene, batch, rounds, stride,
         torch.testing.assert_close(got[1], twin[1], atol=ATOL, rtol=0)
     for a, b in zip(kernels.mc_match(*args), got):
         assert torch.equal(a, b)  # the same bits on every call
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride,weighted,draws", [
+    (1, False, "normals"), (2, True, "normals"), (2, True, "erf_inv"), (1, False, "step key"),
+    (2, True, "step key"),
+])
+def test_mc_match_scan_equals_the_handed_route(scene, stride, weighted, draws):
+    """``mc_match_scan`` (the prior's compose and the scan's points in the
+    match's prologue) against ``mc_match`` handed the prior and the points
+    (``scan_match_args``: a ``libm`` launch each), bit for bit, with
+    standard normals, erf_inv draws and a step's key."""
+    view, scan, cand, g = scene
+    dev = cand.device
+    w = torch.rand((360,), generator=g, device=dev) if weighted else None
+    plane = torch.where(view.known, view.occ, 0.5).contiguous()
+    pose = cand[1].clone()
+    odom = torch.tensor([0.12, -0.03, 0.04], device=dev)
+    rounds, batch = 12, 64
+    if draws == "step key":
+        noise = kernels.KeyNoise(torch.tensor([0, 7], dtype=torch.uint32, device=dev), rounds,
+                                 batch, step=True)
+    else:
+        noise = torch.randn((rounds, batch, 3), generator=g, device=dev)
+        noise = kernels.ErfInvDraws(noise) if draws == "erf_inv" else noise
+    args = (plane, scan.ranges, scan.bearings, scan.valid, w, stride, view.origin, pose, odom,
+            noise, view.scale, 0.5, 0.1, 0.05, 2)
+    before = kernels.launch_counts()["mc_match"]
+    got = kernels.mc_match_scan(*args)
+    assert kernels.launch_counts()["mc_match"] == before + 1
+    want = kernels.mc_match(*kernels.scan_match_args(*args))
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)  # bit for bit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_scans,n_beams,n_bins", [(1, 360, 36), (8, 360, 36), (3, 1081, 36),
+                                                    (2, 2, 36), (4, 720, 72)])
+def test_beam_weights_kernel_equals_plain_version(scene, n_scans, n_beams, n_bins):
+    """``beam_weights`` (the endpoint angles, the integer bins, the weights
+    in one launch) against ``scan.point_weights_ref`` on the card (its libm
+    functions' plain versions) and on the CPU, bit for bit; some beams
+    invalid, some pairs repeated (a zero step)."""
+    from slam_constructor_tpu_torch.ops import libm
+    from slam_constructor_tpu_torch.ops import scan as scanlib
+
+    g = scene[3]
+    dev = g.device
+    ranges = 0.3 + 5.0 * torch.rand((n_scans, n_beams), generator=g, device=dev)
+    ranges[:, 3::17] = ranges[:, 2::17][:, :ranges[:, 3::17].shape[1]]
+    bearings = torch.linspace(-3.0, 3.0, n_beams, device=dev).expand(n_scans, -1).contiguous()
+    valid = torch.rand((n_scans, n_beams), generator=g, device=dev) > 0.1
+    before = kernels.launch_counts()["beam_weights"]
+    got = kernels.beam_weights(ranges, bearings, valid, n_bins)
+    assert kernels.launch_counts()["beam_weights"] == before + 1
+    with libm.plain_versions():
+        plain = scanlib.point_weights_ref(scanlib.LaserScan(ranges, bearings, valid), n_bins)
+    cpu = kernels.beam_weights(ranges.cpu(), bearings.cpu(), valid.cpu(), n_bins)
+    assert torch.equal(got, plain) and torch.equal(got.cpu(), cpu)
+    one = kernels.beam_weights(ranges[0], bearings[0], valid[0], n_bins)
+    assert torch.equal(one, got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("windows", [False, True])
+def test_particle_matches_from_keys_equal_their_erf_inv_draws(scene, windows):
+    """K5 drawing each particle's numbers from its key (``KeyNoise`` with a
+    leading particle dimension: the RBPF's match keys) equals K5 handed the
+    same keys' ``erf_inv`` draws, bit for bit, cut out and in place."""
+    from slam_constructor_tpu_torch.ops import prng
+
+    args = list(_particle_args(scene, 30, 20, 5))
+    dev = args[0].device
+    keys = prng.draw_ref(prng.key(9, dev), prng.Draw((prng.Each(30),), "key"))
+    keyed = kernels.KeyNoise(keys, 5, 20)
+    handed = kernels.ErfInvDraws(keyed.draws()[1].contiguous())
+    if windows:
+        p = args[0].shape[0]
+        occ = args[0]
+        known = torch.ones_like(occ, dtype=torch.bool)
+        row = torch.zeros((p,), dtype=torch.int64, device=dev)
+        col = torch.zeros((p,), dtype=torch.int64, device=dev)
+        h, w = occ.shape[-2:]
+        run = lambda n: kernels.mc_match_windows(occ, known, row, col, h - 8, w - 8,  # noqa: E731
+                                                 *args[1:5], n, *args[6:])
+    else:
+        run = lambda n: kernels.mc_match_batched(*args[:5], n, *args[6:])  # noqa: E731
+    got, want = run(keyed), run(handed)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)  # bit for bit
 
 
 @pytest.mark.cuda

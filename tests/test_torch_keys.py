@@ -168,7 +168,11 @@ def rbpf_configs(kind):
 
 def rbpf_draws(key, cfg):
     """The reference step's draws from ``key`` as the port's Draws, and the
-    key after the step."""
+    key after the step; the proposal's and the match's as the ``erf_inv(u)``
+    values its jitted step multiplies by ``sqrt(2) * sigma``
+    (``matchers.ErfInvDraws``), which the port's step draws (K5 its match's
+    from the particles' keys)."""
+    lo = np.nextafter(np.float32(-1), np.float32(0))
     key, k_noise, k_match, k_res = jax.random.split(key, 4)
     mc, p = cfg.matcher_cfg, cfg.n_particles
     keys = jax.random.split(k_match, p)
@@ -181,10 +185,12 @@ def rbpf_draws(key, cfg):
         return torch.from_numpy(np.array(a, np.float32))
 
     return tgm.Draws(
-        proposal=t(jax.random.normal(k_noise, (p, 3))),
+        proposal=tmatch.ErfInvDraws(t(jax.lax.erf_inv(jax.random.uniform(
+            k_noise, (p, 3), minval=lo, maxval=1.0)))),
         u0=t(jax.random.uniform(k_res, (), minval=0.0, maxval=1.0 / p)),
-        match=t(jax.vmap(lambda k: jax.vmap(lambda kr: jax.random.normal(kr, (mc.batch, 3)))(
-            jax.random.split(k, mc.rounds)))(keys)),
+        match=tmatch.ErfInvDraws(t(jax.vmap(lambda k: jax.vmap(lambda kr: jax.lax.erf_inv(
+            jax.random.uniform(kr, (mc.batch, 3), minval=lo, maxval=1.0)))(
+            jax.random.split(k, mc.rounds)))(keys))),
         probe=None if kjs is None else t(jax.vmap(lambda k: jax.random.normal(
             k, (cfg.proposal_samples, 3)))(kjs[:, 0])),
         sample=None if kjs is None else t(jax.vmap(lambda k: jax.random.normal(k, (3,)))(
@@ -228,8 +234,14 @@ def test_rbpf_from_a_seed_is_the_reference_from_its_key(rbpf_seq, kind):
     np.testing.assert_array_equal(convert.key_to_numpy(e.state.key), np.asarray(st.key))
     f = tgm.GMappingEngine(tcfg, device="cpu", seed=5)
     f.state.poses = gt[0].expand(GP, 3).clone()
-    injected = tgm.Draws(**{fld.name: None if draws[0].__dict__[fld.name] is None else torch.stack(
-        [d.__dict__[fld.name] for d in draws]) for fld in dataclasses.fields(tgm.Draws)})
+    def stacked(name):
+        if draws[0].__dict__[name] is None:
+            return None
+        if name in ("match", "proposal"):
+            return tmatch.ErfInvDraws(torch.stack([d.__dict__[name].values for d in draws]))
+        return torch.stack([d.__dict__[name] for d in draws])
+
+    injected = tgm.Draws(**{fld.name: stacked(fld.name) for fld in dataclasses.fields(tgm.Draws)})
     f.run(scans, odom, injected)
     assert torch.equal(f.genealogy[0], all_poses) and torch.equal(f.genealogy[1], anc)
     assert torch.equal(f.state.log_weights, e.state.log_weights)

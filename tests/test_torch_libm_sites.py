@@ -31,7 +31,7 @@ from slam_constructor_tpu_torch.models import engine as teng
 from slam_constructor_tpu_torch.models import viny as tviny
 from slam_constructor_tpu_torch.ops import cells as tcells
 from slam_constructor_tpu_torch.ops import geometry as tgeo
-from slam_constructor_tpu_torch.ops import libm, prng
+from slam_constructor_tpu_torch.ops import kernels, libm, prng
 from slam_constructor_tpu_torch.ops import matchers as tmatch
 from slam_constructor_tpu_torch.ops import raycast as tray
 from slam_constructor_tpu_torch.ops import scan as tscan
@@ -92,6 +92,57 @@ def test_angle_histogram_and_point_weights_on_every_scan():
     jcfg, tcfg = jviny.viny_config(), tviny.viny_config()
     want_w = jax.jit(jax.vmap(lambda s: jeng._point_weights(jcfg, s)))(js)
     _bits(torch.stack([teng._point_weights(tcfg, s) for s in ts]), want_w, "_point_weights")
+
+
+def test_beam_weights_on_every_scan_at_once():
+    """``kernels.beam_weights`` (one launch for every scan on the card) over
+    the whole [512, 360] sequence at once on the CPU, its plain version
+    batched, against the jitted reference's ``_point_weights`` of each scan,
+    bit for bit."""
+    js, _ = _scans()
+    (ranges, bearings, valid, _, _), _, _ = _sequence()
+    want = jax.jit(jax.vmap(lambda s: jeng._point_weights(jviny.viny_config(), s)))(js)
+    got = kernels.beam_weights(*(torch.from_numpy(a) for a in (ranges, bearings, valid)))
+    _bits(got, want, "beam_weights")
+
+
+def test_angle_bins_take_the_folded_constant(monkeypatch):
+    """The bins of the histogram and of the weights: the jitted reference
+    computes ``(ang + pi) / (2 pi) * n_bins`` as one product of ``ang + pi``
+    with ``f32(f32(1 / 2 pi) * n_bins)`` (``scan.bin_factor``), held on the
+    floor's argument against the angle recorded beside it, in both sites;
+    the division and the reciprocal part on thousands (the bins themselves
+    rarely)."""
+    js, _ = _scans()
+    rec = []
+
+    class Record:
+        def __getattr__(self, name):
+            return getattr(jnp, name)
+
+        def arctan2(self, y, x):
+            rec.append(jnp.arctan2(y, x))
+            return rec[-1]
+
+        def floor(self, x):
+            rec.append(x)
+            return jnp.floor(x)
+
+    def weights(s):
+        rec.clear()
+        with monkeypatch.context() as m:
+            m.setattr(jscan, "jnp", Record())
+            m.setattr(jeng, "jnp", Record())
+            jeng._point_weights(jviny.viny_config(), s)
+        return tuple(rec)
+
+    ang_h, arg_h, ang_w, arg_w = (np.asarray(a) for a in jax.jit(jax.vmap(weights))(js))
+    factor = tscan.bin_factor(36)
+    for ang, arg in ((ang_h, arg_h), (ang_w, np.asarray(arg_w)[:, :-1])):
+        a = torch.from_numpy(ang)
+        _bits((a + np.pi) * factor, arg, "the bins' product")
+        divided = ((a + np.pi) / torch.full((), 2 * np.pi, dtype=torch.float32)) * 36.0
+        assert (divided.numpy().view(np.uint32) != arg.view(np.uint32)).sum() > 1000
 
 
 @pytest.mark.parametrize("fn", ["compose", "between", "inverse", "wrap_angle", "apply_pose"])

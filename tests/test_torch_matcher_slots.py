@@ -192,16 +192,19 @@ def test_rbpf_slot_matches_reference(seq, matcher, refine, storage):
 
 
 def test_rbpf_draws_refine_normals_only_for_a_monte_carlo_refine():
+    """The step's draws hold the particles' match keys only where a slot is
+    Monte-Carlo (which draws its own numbers from them in K5's prologue),
+    and no match or refine normals."""
     key = tprng.key(0)
     for matcher, refine in SLOTS:
         _, cfg = slot_configs(matcher, refine, "dense")
         _, d = tgm.draw(cfg, key)
-        assert (d.match is None) == (matcher != "monte_carlo")
-        assert d.refine is None  # no Monte-Carlo refine here (or the match's shape)
+        mc = "monte_carlo" in (matcher, refine)
+        assert (d.match_key is None) != mc
+        assert d.match is None and d.refine is None
     _, cfg = slot_configs("hill_climbing", "monte_carlo", "dense")
     _, d = tgm.draw(cfg, key)
-    mc = cfg.refine_cfg
-    assert d.match is None and d.refine.shape == (P, mc.rounds, mc.batch, 3)
+    assert d.match is None and d.refine is None and d.match_key.shape == (P, 2)
 
 
 # --- the loop closer and the joint refine ----------------------------------------

@@ -26,6 +26,7 @@ from slam_constructor_tpu.ops import matchers as jmatch
 from slam_constructor_tpu.ops import raycast as jray
 from slam_constructor_tpu.ops import scoring as jscore
 from slam_constructor_tpu.utils import datagen as jdata
+from slam_constructor_tpu_torch.ops import geometry as tgeo
 from slam_constructor_tpu_torch.ops import kernels
 from slam_constructor_tpu_torch.ops import matchers as tmatch
 from slam_constructor_tpu_torch.ops import prng as tprng
@@ -112,6 +113,54 @@ def test_generator_draws_are_reproducible(setup):
                                      noise=tmatch.ErfInvDraws(torch.from_numpy(want)))
     assert torch.equal(res[0].pose, res[1].pose) and res[0].trace.shape == (ROUNDS,)
     assert torch.equal(res[0].pose, given.pose) and torch.equal(res[0].trace, given.trace)
+
+
+@pytest.mark.parametrize("stride,weighted,draws", [(1, False, "step key"), (2, True, "step key"),
+                                                    (2, True, "normals"), (1, False, "erf_inv")])
+def test_match_from_pose_and_odometry_equals_the_handed_prior(setup, stride, weighted, draws):
+    """``monte_carlo_match(..., odom=)`` (``kernels.mc_match_scan``: the
+    prior's compose and the scan's points in the match's launch on the card)
+    against the match handed ``compose(pose, odom)`` and the scan, bit for
+    bit, with a step's key, standard normals and erf_inv draws."""
+    _, _, tview, ts, true = setup
+    cfg = tmatch.MonteCarloConfig(batch=BATCH, rounds=ROUNDS, scoring=tscore.ScoringConfig(
+        reducer="overlap", stride=stride))
+    pose = torch.from_numpy((true - np.float32([0.1, -0.04, 0.03])).astype(np.float32))
+    odom = torch.tensor([0.11, -0.05, 0.02])
+    pw = torch.rand(ts.ranges.shape, generator=torch.Generator().manual_seed(4)) if weighted \
+        else None
+    kw = {}
+    if draws == "step key":
+        kw["step_key"] = tprng.key(5)
+    else:
+        noise = torch.randn((ROUNDS, BATCH, 3), generator=torch.Generator().manual_seed(6))
+        kw["noise"] = tmatch.ErfInvDraws(noise) if draws == "erf_inv" else noise
+    got = tmatch.monte_carlo_match(tview, ts, pose, None, cfg, pw, odom=odom, **kw)
+    want = tmatch.monte_carlo_match(tview, ts, tgeo.compose(pose, odom), None, cfg, pw, **kw)
+    for a, b in ((got.pose, want.pose), (got.prob, want.prob), (got.trace, want.trace)):
+        assert torch.equal(a, b)
+    assert (got.next_key is None) == (draws != "step key")
+    if got.next_key is not None:
+        assert torch.equal(got.next_key, want.next_key)
+
+
+@pytest.mark.parametrize("view", ["two maps", "window"])
+def test_odometry_on_more_than_one_map_raises(setup, view):
+    """``odom`` is taken on one map's view and one scan only (the match's
+    launch composes the prior there); a view of P maps or of windows
+    raises rather than composing the priors elsewhere."""
+    _, _, tview, ts, true = setup
+    cfg = tmatch.MonteCarloConfig(batch=BATCH, rounds=ROUNDS)
+    maps = tscore.MapView(occ=tview.occ.expand(2, *tview.occ.shape),
+                          known=tview.known.expand(2, *tview.known.shape),
+                          origin=tview.origin.expand(2, 2), scale=tview.scale)
+    if view == "window":
+        maps = tscore.window_of(maps, torch.zeros((2, 2)), 32)
+    scans = tscan.LaserScan(*(t.expand(2, -1) for t in (ts.ranges, ts.bearings, ts.valid)))
+    pose = torch.from_numpy(np.tile(np.asarray(true, np.float32), (2, 1)))
+    with pytest.raises(ValueError, match="odom"):
+        tmatch.monte_carlo_match(maps, scans, pose, None, cfg, odom=torch.zeros(3),
+                                 noise=torch.zeros((2, ROUNDS, BATCH, 3)))
 
 
 @pytest.mark.parametrize("shape", [(ROUNDS + 1, BATCH, 3), (ROUNDS, BATCH // 2, 3)])

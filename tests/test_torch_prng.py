@@ -148,7 +148,9 @@ def _reference_rbpf_draws(cfg):
     def fn(key):
         key, k_noise, k_match, k_res = jax.random.split(key, 4)
         keys = jax.random.split(k_match, cfg.n_particles)
-        out = {"key": key, "proposal": jax.random.normal(k_noise, (cfg.n_particles, 3)),
+        lo = np.nextafter(np.float32(-1), np.float32(0))
+        out = {"key": key, "proposal": jax.lax.erf_inv(jax.random.uniform(
+            k_noise, (cfg.n_particles, 3), minval=lo, maxval=1.0)),
                "u0": jax.random.uniform(k_res, (), minval=0.0, maxval=1.0 / cfg.n_particles)}
         if cfg.proposal == "improved":
             pairs = jax.vmap(jax.random.split)(keys)
@@ -158,6 +160,7 @@ def _reference_rbpf_draws(cfg):
                 k, (cfg.proposal_samples, 3)))(kj[:, 0])
             out["sample"] = jax.vmap(lambda k: jax.random.normal(k, (3,)))(kj[:, 1])
         mc = cfg.matcher_cfg
+        out["match_key"] = keys
         out["match"] = jax.vmap(lambda k: jax.vmap(lambda kr: jax.random.normal(
             kr, (mc.batch, 3)))(jax.random.split(k, mc.rounds)))(keys)
         return out
@@ -180,10 +183,17 @@ def test_rbpf_split_tree(proposal):
         want = _reference_rbpf_draws(jcfg)(jkey)
         tkey, d = tgm.draw(tcfg, tkey)
         same_bits(tkey, want["key"])
-        for name in ("proposal", "u0", "match") + (("probe", "sample") if proposal == "improved"
-                                                    else ()):
+        # the proposal as the erf_inv(u) values that the reference's jitted
+        # step multiplies by sqrt(2) sigma (gmapping.propose)
+        same_bits(d.proposal.values, want["proposal"])
+        for name in ("u0", "match_key") + (("probe", "sample") if proposal == "improved"
+                                           else ()):
             same_bits(getattr(d, name), want[name])
-        assert d.refine is None and (d.probe is None) == (proposal == "odom")
+        # the match draws its rounds from its particle's key (K5's prologue)
+        same_bits(prng.draws_ref(d.match_key, tgm.matcherslib.noise_plan(tcfg.matcher_cfg))[0],
+                  want["match"])
+        assert d.match is None and d.refine is None
+        assert (d.probe is None) == (proposal == "odom")
         jkey = want["key"]
 
 
@@ -244,7 +254,9 @@ def _kernel_decode(plan, key):
         lo, span = rec[5:6].view(np.float32)[0], rec[7:8].view(np.float32)[0]
         f = torch.from_numpy(((b >> 9) | 0x3F800000).view(np.float32) - np.float32(1))
         u = torch.maximum(torch.tensor(lo), prng._fma(f, torch.tensor(span), torch.tensor(lo)))
-        v = u if kind == prng.KINDS.index("uniform") else prng.normal_transform(u)
+        v = (u if kind == prng.KINDS.index("uniform")
+             else prng.erf_inv_xla(u) if kind == prng.KINDS.index("erfinv")
+             else prng.normal_transform(u))
         outs.append(v.numpy().view(np.uint32).reshape(shape))
     return outs
 
